@@ -1,0 +1,735 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (production_stack_tpu_torch) on one
+NVIDIA H100.
+
+    python3 chip_smoke.py
+
+Phases, each printing one JSON line; a failing phase ends the run with a
+non-zero exit (nothing is caught):
+
+1. build    -- nvcc builds every kernel library from production_stack_tpu_torch/
+               csrc/ (one nvcc per source, all started together).
+2. kernels  -- each CUDA kernel against its plain PyTorch version on the card:
+               ragged, burst-window, stacked-layer, window+softcap, bf16/f32,
+               D=64/128 and NaN-poisoned stale-slot cases, and the timing
+               phase's main-path inputs, each held to a bound scaled to its
+               output (TOL); the fused KV write must leave the pools
+               byte-identical to the plain scatter.
+3. forward  -- llama-3.2-1b at full width and depth (bf16, seeded random
+               weights): two 512-token prefill chunks and one 8-step decode
+               burst, with the kernels and with the plain versions.
+4. serve    -- the port's OpenAI server in-process on localhost: concurrent
+               /v1/completions (one streaming) and /v1/chat/completions; a
+               greedy request repeats exactly; the launch counters show the
+               main path ran every kernel and no plain version.
+5. timing   -- each kernel, its plain version and a PyTorch yardstick at the
+               main path's shapes, with CUDA events, beside its bound.
+
+Then the kernel table line, the card's name and power limit, and as the
+last line ``{"ok": true, "device": {...}}``. With no CUDA device, or run
+from a directory without the package, it exits non-zero and prints no
+result. f32 comparisons run with TF32 off.
+"""
+
+from __future__ import annotations
+
+import asyncio
+import json
+import os
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+# Published H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and dense bf16
+# tensor-core FLOP/s. A card set below 700 W runs slower than these.
+PEAK_BYTES_PER_S = 3.35e12
+PEAK_BF16_FLOPS = 989e12
+
+# A kernel's output passes where every element holds
+#     |out - ref| <= rtol * |ref| + k * mean|ref|,
+# ref being the plain version on the same inputs, as (rtol, k) by dtype:
+# - bf16: rtol 2^-6 is 2 to 4 bf16 ulps of the value (both sides round f32
+#   sums, made in another order, to bf16); k * mean|ref| covers the prefill
+#   kernel's rounding of the softmax weights to bf16 before P @ V, which the
+#   plain version keeps in f32, and values near 0.
+# - f32 (TF32 off): the card sums in another order.
+# Scaled to the output, the bound stays tight at long context, where
+# outputs are averages over thousands of keys and typically ~0.03. On the
+# main-path cases the plain version with one key fewer per row (an
+# off-by-one in the history bound) must fail the same check.
+TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0**-6, 0.05)}
+
+# Where each TPU kernel's launch sits in the JAX package.
+REPLACES = {
+    "decode_attention": "production_stack_tpu/ops/pallas/paged_attention.py:67",
+    "prefill_attention": "production_stack_tpu/ops/pallas/prefill_attention.py:72",
+    "kv_page_write": "production_stack_tpu/ops/pallas/prefill_attention.py:396",
+}
+SOURCES = {
+    "decode_attention": "production_stack_tpu_torch/csrc/decode_attention.cu",
+    "prefill_attention": "production_stack_tpu_torch/csrc/prefill_attention.cu",
+    "kv_page_write": "production_stack_tpu_torch/csrc/prefill_attention.cu",
+}
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> None:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        fail(msg)
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+# ---------------------------------------------------------------------------
+# inputs
+
+
+def _rand(gen, shape, dtype, device, scale=1.0):
+    import torch
+
+    return (torch.randn(shape, generator=gen) * scale).to(dtype).to(device)
+
+
+def _page_table(gen, B, maxp, P, device):
+    import torch
+
+    return torch.randperm(P, generator=gen)[: B * maxp].reshape(B, maxp).to(torch.int32).to(device)
+
+
+def decode_case(seed, *, B, NH, KH, D, page, maxp, L, lens, cur_lens=None, C=0, dtype, window=None,
+                softcap=None, layer=0, poison=False):
+    """Inputs of one decode-kernel call: pools [L, P, page, KH, D]; with
+    C > 0 a burst window k_cur/v_cur [B, C, KH, D] and its cur_lens."""
+    import torch
+
+    device = "cuda"
+    gen = torch.Generator().manual_seed(seed)
+    P = B * maxp + 3
+    kp = _rand(gen, (L, P, page, KH, D), dtype, device)
+    vp = _rand(gen, (L, P, page, KH, D), dtype, device)
+    pt = _page_table(gen, B, maxp, P, device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=device)
+    kw = dict(window=window, logit_softcap=softcap, layer=layer)
+    if C:
+        kw["k_cur"] = _rand(gen, (B, C, KH, D), dtype, device)
+        kw["v_cur"] = _rand(gen, (B, C, KH, D), dtype, device)
+        kw["cur_lens"] = torch.tensor(cur_lens, dtype=torch.int32, device=device)
+    if poison:  # stale and out-of-range pool slots of every row hold NaN
+        cl = cur_lens if C else [0] * B
+        for b in range(B):
+            for s in range(max(lens[b] - cl[b], 0), maxp * page):
+                pid = int(pt[b, s // page])
+                kp[layer, pid, s % page] = float("nan")
+                vp[layer, pid, s % page] = float("nan")
+    q = _rand(gen, (B, NH, D), dtype, device)
+    return (q, kp, vp, pt, lens_t), kw
+
+
+def prefill_case(seed, *, B, T, NH, KH, D, page, maxp, L, computed, chunks, dtype, window=None,
+                 softcap=None, layer=0, poison=False):
+    """Inputs of one prefill-kernel call: row b has computed[b] tokens in
+    the pool and a chunk of chunks[b] tokens (0 = padded row)."""
+    import torch
+
+    device = "cuda"
+    gen = torch.Generator().manual_seed(seed)
+    P = B * maxp + 3
+    kp = _rand(gen, (L, P, page, KH, D), dtype, device)
+    vp = _rand(gen, (L, P, page, KH, D), dtype, device)
+    pt = _page_table(gen, B, maxp, P, device)
+    pos = torch.full((B, T), -1, dtype=torch.int32)
+    for b in range(B):
+        pos[b, : chunks[b]] = torch.arange(computed[b], computed[b] + chunks[b])
+    kv_lens = torch.tensor([c + n for c, n in zip(computed, chunks)], dtype=torch.int32, device=device)
+    cur_lens = torch.tensor(chunks, dtype=torch.int32, device=device)
+    if poison:  # every slot at or after each row's chunk start holds NaN
+        for b in range(B):
+            for s in range(computed[b], maxp * page):
+                pid = int(pt[b, s // page])
+                kp[layer, pid, s % page] = float("nan")
+                vp[layer, pid, s % page] = float("nan")
+    q = _rand(gen, (B, T, NH, D), dtype, device)
+    kc = _rand(gen, (B, T, KH, D), dtype, device)
+    vc = _rand(gen, (B, T, KH, D), dtype, device)
+    args = (q, kp, vp, pt, pos.to(device), kv_lens, kc, vc, cur_lens)
+    return args, dict(window=window, logit_softcap=softcap, layer=layer)
+
+
+def _same_bytes(a, b) -> bool:
+    import torch
+
+    return a.shape == b.shape and torch.equal(a.view(torch.uint8), b.view(torch.uint8))
+
+
+def _err(out, ref) -> float:
+    return float((out.float() - ref.float()).abs().max()) if out.numel() else 0.0
+
+
+def _pool_err(a, b) -> float:
+    """Max |a - b| over two pools; slots NaN in both count as equal, a NaN
+    in one only as infinite."""
+    import torch
+
+    d = (a.float() - b.float()).abs()
+    d = torch.where(a.isnan() & b.isnan(), torch.zeros_like(d), d)
+    return float(d.nan_to_num(nan=float("inf")).max())
+
+
+def _judge(out, ref, dtype) -> dict:
+    """The TOL check: ``ratio`` is the largest |out - ref| over its allowed
+    bound, so the output passes when ratio <= 1."""
+    import torch
+
+    rtol, k = TOL[str(dtype).split(".")[-1]]
+    d = (out.float() - ref.float()).abs()
+    r = ref.float().abs()
+    mean = float(r.mean())
+    allowed = rtol * r + k * mean
+    ratio = float((d / allowed).max()) if mean > 0 else (0.0 if float(d.max()) == 0 else float("inf"))
+    return {"max_abs_err": _err(out, ref), "mean_abs_ref": mean, "rtol": rtol, "k_mean": k,
+            "ratio_to_bound": ratio, "finite": bool(torch.isfinite(out.float()).all())}
+
+
+# ---------------------------------------------------------------------------
+# phases
+
+
+def phase_build():
+    from production_stack_tpu_torch.ops.kernels import _build
+
+    t0 = time.perf_counter()
+    secs = _build.build()
+    emit({
+        "phase": "build", "seconds": round(time.perf_counter() - t0, 2),
+        "per_source_seconds": {k: round(v, 2) for k, v in secs.items()},
+        "nvcc_flags": " ".join(_build.NVCC_FLAGS),
+        "card": nvidia_smi_line(),
+    })
+    for name in _build.SOURCES:
+        keep = ("Compiling entry function", "registers", "spill")
+        report = [l.strip() for l in _build.ptxas_report(name).splitlines() if any(k in l for k in keep)]
+        emit({"phase": "build", "ptxas": name, "lines": report[:24]})
+
+
+MAIN_DECODE = "main_path_b32_ctx1024_c8_bf16"
+MAIN_PREFILL = "main_path_t512_h1536_bf16"
+
+DECODE_CASES = [
+    # name, kwargs
+    ("ragged+empty_row_bf16_d64", dict(B=4, NH=32, KH=8, D=64, page=16, maxp=8, L=1,
+                                        lens=[5, 0, 77, 128], dtype="bfloat16")),
+    ("burst_c8_ragged_layer2_bf16", dict(B=5, NH=32, KH=8, D=64, page=64, maxp=4, L=3, layer=2,
+                                         lens=[9, 70, 200, 256, 1], C=8, cur_lens=[8, 3, 5, 8, 1],
+                                         dtype="bfloat16")),
+    ("window+softcap_f32_d128", dict(B=3, NH=8, KH=2, D=128, page=16, maxp=6, L=2, layer=1,
+                                     lens=[5, 50, 96], C=1, cur_lens=[1, 1, 1], window=20,
+                                     softcap=30.0, dtype="float32")),
+    ("burst_f32_d64", dict(B=3, NH=12, KH=4, D=64, page=8, maxp=6, L=1, lens=[3, 24, 48], C=8,
+                           cur_lens=[2, 8, 6], dtype="float32")),
+    ("gqa1_bf16_d128", dict(B=2, NH=4, KH=4, D=128, page=32, maxp=3, L=1, lens=[31, 96],
+                            dtype="bfloat16")),
+    ("nan_stale_slots_bf16", dict(B=3, NH=32, KH=8, D=64, page=16, maxp=6, L=2, layer=1,
+                                  lens=[20, 41, 90], C=8, cur_lens=[4, 8, 1], poison=True,
+                                  dtype="bfloat16")),
+    # the timing phase's inputs: a decode burst step of the served model
+    (MAIN_DECODE, dict(seed=7, B=32, NH=32, KH=8, D=64, page=64, maxp=16, L=1, lens=[1024] * 32, C=8,
+                       cur_lens=[8] * 32, dtype="bfloat16")),
+]
+
+PREFILL_CASES = [
+    ("history+unaligned+tail_bf16", dict(B=3, T=64, NH=32, KH=8, D=64, page=16, maxp=10, L=2, layer=1,
+                                         computed=[37, 64, 5], chunks=[64, 59, 51], dtype="bfloat16")),
+    ("first_chunk+padded_row_bf16", dict(B=3, T=48, NH=32, KH=8, D=64, page=64, maxp=2, L=1,
+                                         computed=[0, 0, 0], chunks=[48, 17, 0], dtype="bfloat16")),
+    ("window+softcap_f32_d128", dict(B=2, T=32, NH=8, KH=2, D=128, page=8, maxp=16, L=1,
+                                     computed=[40, 64], chunks=[32, 28], window=20, softcap=30.0,
+                                     dtype="float32")),
+    ("window+softcap_bf16_d128_g2", dict(B=2, T=40, NH=8, KH=4, D=128, page=16, maxp=8, L=1,
+                                         computed=[30, 7], chunks=[40, 33], window=25, softcap=20.0,
+                                         dtype="bfloat16")),
+    ("history_f32_d64", dict(B=2, T=80, NH=12, KH=4, D=64, page=16, maxp=12, L=3, layer=2,
+                             computed=[100, 13], chunks=[80, 77], dtype="float32")),
+    ("nan_stale_slots_bf16", dict(B=2, T=32, NH=32, KH=8, D=64, page=16, maxp=8, L=1,
+                                  computed=[24, 8], chunks=[32, 20], poison=True, dtype="bfloat16")),
+    # the timing phase's inputs: a 512-token chunk after 1,536 tokens
+    (MAIN_PREFILL, dict(seed=8, B=1, T=512, NH=32, KH=8, D=64, page=64, maxp=32, L=1,
+                        computed=[1536], chunks=[512], dtype="bfloat16")),
+]
+
+
+def phase_kernels():
+    import torch
+
+    from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_ref
+    from production_stack_tpu_torch.ops.kernels.prefill_attention import (
+        kv_page_write,
+        kv_page_write_ref,
+        prefill_attention,
+        prefill_attention_ref,
+    )
+
+    worst = {"decode_attention": 0.0, "prefill_attention": 0.0, "kv_page_write": 0.0}
+
+    def judged(kernel, name, out, ref, dtype, control=None):
+        res = _judge(out, ref, dtype)
+        line = {"phase": "kernels", "kernel": kernel, "case": name, **res}
+        if control is not None:
+            # the plain version with one history key fewer per row, held to
+            # the same bound: the check must reject it
+            line["one_key_fewer_ratio_to_bound"] = _judge(control, ref, dtype)["ratio_to_bound"]
+        emit(line)
+        check(res["finite"], f"{kernel} {name}: non-finite output")
+        check(res["ratio_to_bound"] <= 1.0, f"{kernel} {name}: error {res['max_abs_err']} exceeds its bound "
+                                            f"(ratio {res['ratio_to_bound']})")
+        if control is not None:
+            check(line["one_key_fewer_ratio_to_bound"] > 1.0,
+                  f"{kernel} {name}: the bound does not reject a one-key-fewer output")
+        worst[kernel] = max(worst[kernel], res["max_abs_err"])
+
+    for name, kw in DECODE_CASES:
+        kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
+        seed = kw.pop("seed", 1)
+        args, call_kw = decode_case(seed, **kw)
+        out = decode_attention(*args, **call_kw)
+        torch.cuda.synchronize()
+        ref = decode_attention_ref(*args, **call_kw)
+        if kw.get("poison"):
+            # the plain version on clean pools: poisoned slots must be skipped
+            clean, _ = decode_case(seed, **dict(kw, poison=False))
+            ref = decode_attention_ref(*clean, **call_kw)
+        control = None
+        if name == MAIN_DECODE:
+            q, kp, vp, pt, lens = args
+            control = decode_attention_ref(q, kp, vp, pt, lens - 1, **call_kw)
+        judged("decode_attention", name, out, ref, kw["dtype"], control)
+        if 0 in kw["lens"]:
+            check(float(out[kw["lens"].index(0)].float().abs().max()) == 0.0, f"decode {name}: empty row not 0")
+
+    for name, kw in PREFILL_CASES:
+        kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
+        seed = kw.pop("seed", 2)
+        args, call_kw = prefill_case(seed, **kw)
+        q, kp, vp, pt, pos, lens, kc, vc, cl = args
+        kp_k, vp_k, kp_r, vp_r = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        out = prefill_attention(q, kp_k, vp_k, pt, pos, lens, kc, vc, cl, fused_write=True, **call_kw)
+        torch.cuda.synchronize()
+        ref = prefill_attention_ref(q, kp_r, vp_r, pt, pos, lens, kc, vc, cl, fused_write=True, **call_kw)
+        pools_equal = _same_bytes(kp_k, kp_r) and _same_bytes(vp_k, vp_r)
+        if kw.get("poison"):
+            clean, _ = prefill_case(seed, **dict(kw, poison=False))
+            ref = prefill_attention_ref(*clean, **call_kw)
+        control = None
+        if name == MAIN_PREFILL:
+            control = prefill_attention_ref(q, kp, vp, pt, pos, lens - 1, kc, vc, cl, **call_kw)
+        judged("prefill_attention", name, out, ref, kw["dtype"], control)
+        emit({"phase": "kernels", "kernel": "prefill_attention", "case": name,
+              "fused_write_pools_byte_identical": pools_equal})
+        check(pools_equal, f"prefill {name}: fused-write pools differ from the plain scatter")
+        for b, c in enumerate(kw["chunks"]):
+            if c == 0:
+                check(float(out[b].float().abs().max()) == 0.0, f"prefill {name}: padded row not 0")
+
+        # the write kernel alone, on its own copies of the pools
+        kp_k, vp_k, kp_r, vp_r = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+        kv_page_write(kc, vc, pos, cl, pt, kp_k, vp_k, layer=call_kw["layer"])
+        torch.cuda.synchronize()
+        kv_page_write_ref(kc, vc, pos, cl, pt, kp_r, vp_r, layer=call_kw["layer"])
+        same = _same_bytes(kp_k, kp_r) and _same_bytes(vp_k, vp_r)
+        err = max(_pool_err(kp_k, kp_r), _pool_err(vp_k, vp_r))
+        emit({"phase": "kernels", "kernel": "kv_page_write", "case": name, "pools_byte_identical": same,
+              "max_abs_err": err})
+        check(same, f"kv_page_write {name}: pools differ from the plain scatter")
+        worst["kv_page_write"] = max(worst["kv_page_write"], err)
+    return worst
+
+
+def _forward_run(model, impl, ids, chunk, burst):
+    """Two prefill chunks then one decode burst of ``burst`` steps through
+    model.forward with attn_impl ``impl``. The burst reads its input tokens
+    from ``ids`` (teacher forcing), so both implementations see the same
+    tokens. Returns the logits [B, V] of both chunks and every burst step,
+    and the pools after the burst's commit."""
+    import dataclasses
+
+    import torch
+
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
+
+    cfg = dataclasses.replace(model.cfg, attn_impl=impl)
+    model.cfg = cfg
+    dev = ids.device
+    B, page = ids.shape[0], 64
+    maxp = -(-(2 * chunk + burst) // page)
+    kp, vp = llama.init_kv_pages(cfg, B * maxp, page, dev)
+    pt = torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp)
+    logits = []
+    for c in range(2):
+        pos = torch.arange(c * chunk, (c + 1) * chunk, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+        lens = torch.full((B,), (c + 1) * chunk, dtype=torch.int32, device=dev)
+        lg = model(ids[:, c * chunk:(c + 1) * chunk], pos, kp, vp, pt, lens)
+        logits.append(lg)
+    L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
+    k_acc = torch.zeros((L, B, burst, KH, D), dtype=cfg.dtype, device=dev)
+    v_acc = torch.zeros_like(k_acc)
+    counts = torch.zeros((B,), dtype=torch.int32, device=dev)
+    for s in range(burst):
+        pos = torch.full((B, 1), 2 * chunk + s, dtype=torch.int32, device=dev)
+        lens = torch.full((B,), 2 * chunk + s + 1, dtype=torch.int32, device=dev)
+        lg = model(ids[:, 2 * chunk + s][:, None], pos, kp, vp, pt, lens, kv_burst=(k_acc, v_acc, counts))
+        counts = counts + 1
+        logits.append(lg)
+    jj = torch.arange(burst, dtype=torch.int32, device=dev)[None].repeat(B, 1)
+    write_kv_pages_all_layers(kp, vp, k_acc, v_acc, pt, 2 * chunk + jj)
+    torch.cuda.synchronize()
+    return logits, (kp, vp)
+
+
+# the kernel forward's logits vs the plain forward's, llama-3.2-1b in bf16:
+# attention outputs differ by bf16 rounding (a last-bit flip after another
+# f32 summation order) and 16 layers carry it into logits of order 1, whose
+# bf16 ulp is 2^-7 to 2^-5
+FORWARD_LOGIT_BOUND = 0.25
+FORWARD_TOP1_MIN = 0.9
+
+
+def phase_forward():
+    import torch
+
+    from production_stack_tpu_torch.engine.model_loader import load_model
+
+    t0 = time.perf_counter()
+    _, cfg, model = load_model("llama-3.2-1b", seed=0, device="cuda")
+    gen = torch.Generator().manual_seed(3)
+    B, chunk, burst = 2, 512, 8
+    ids = torch.randint(0, cfg.vocab_size, (B, 2 * chunk + burst), generator=gen, dtype=torch.int32).cuda()
+    with torch.no_grad():
+        lk, pools_k = _forward_run(model, "cuda", ids, chunk, burst)
+        lp, pools_p = _forward_run(model, "plain", ids, chunk, burst)
+    finite = all(bool(torch.isfinite(x).all()) for x in lk)
+    shapes_ok = all(tuple(x.shape) == (B, cfg.vocab_size) for x in lk)
+    diffs = [float((a - b).abs().max()) for a, b in zip(lk, lp)]
+    top1 = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(lk, lp)) / (B * len(lk))
+    pool_diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(pools_k, pools_p))
+    emit({
+        "phase": "forward", "model": "llama-3.2-1b", "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+        "dtype": "bfloat16", "rows": B, "chunks": [chunk, chunk], "burst": burst,
+        "max_logit_diff_per_step": diffs, "max_logit_diff": max(diffs), "bound": FORWARD_LOGIT_BOUND,
+        "top1_agreement": top1, "top1_min": FORWARD_TOP1_MIN, "logit_absmax": float(lk[0].abs().max()),
+        "pool_max_abs_diff_after_commit": pool_diff, "finite": finite,
+        "seconds": round(time.perf_counter() - t0, 2),
+    })
+    check(finite and shapes_ok, "forward: logits not finite or of the wrong shape")
+    check(max(diffs) <= FORWARD_LOGIT_BOUND, f"forward: logit diff {max(diffs)} > {FORWARD_LOGIT_BOUND}")
+    check(top1 >= FORWARD_TOP1_MIN, f"forward: top-1 agreement {top1} < {FORWARD_TOP1_MIN}")
+    del model
+    torch.cuda.empty_cache()
+
+
+def _counters():
+    from production_stack_tpu_torch.ops.kernels import decode_attention as dmod
+    from production_stack_tpu_torch.ops.kernels import prefill_attention as pmod
+
+    return {
+        "decode_attention": dmod.decode_attention,
+        "prefill_attention": pmod.prefill_attention,
+        "kv_page_write": pmod.kv_page_write,
+    }, {
+        "decode_attention_ref": dmod.decode_attention_ref,
+        "prefill_attention_ref": pmod.prefill_attention_ref,
+        "kv_page_write_ref": pmod.kv_page_write_ref,
+    }
+
+
+def _prompt(rng, n_chars: int) -> str:
+    letters = "abcdefghijklmnopqrstuvwxyz     .,"
+    return "".join(letters[rng.randrange(len(letters))] for _ in range(n_chars))
+
+
+async def _serve_requests(port: int) -> dict:
+    import random
+
+    import aiohttp
+
+    rng = random.Random(5)
+    base = f"http://127.0.0.1:{port}"
+    max_tokens = 32
+    # 575 bytes + BOS = 576 tokens = 9 pages: the repeat hits 8 cached pages
+    # and recomputes the last 64 tokens, in the same chunk shape as the first
+    # run's second chunk, so greedy output must repeat bit for bit
+    repeat = {"prompt": _prompt(rng, 575), "max_tokens": max_tokens, "temperature": 0.0, "ignore_eos": True}
+    prompts = [_prompt(rng, 590 + 7 * i) for i in range(4)]
+    out = {}
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+        for path in ("/health", "/v1/models", "/version"):
+            async with s.get(base + path) as r:
+                check(r.status == 200, f"serve: GET {path} -> {r.status}")
+
+        async def complete(body):
+            async with s.post(base + "/v1/completions", json=body) as r:
+                return r.status, await r.json()
+
+        async def stream(body):
+            text, usage = [], None
+            async with s.post(base + "/v1/completions", json=dict(body, stream=True)) as r:
+                status = r.status
+                async for raw in r.content:
+                    line = raw.decode().strip()
+                    if not line.startswith("data: ") or line == "data: [DONE]":
+                        continue
+                    chunk = json.loads(line[6:])
+                    if chunk.get("usage"):
+                        usage = chunk["usage"]
+                    for c in chunk["choices"]:
+                        text.append(c.get("text") or "")
+            return status, {"choices": [{"text": "".join(text)}], "usage": usage}
+
+        async def chat(body):
+            async with s.post(base + "/v1/chat/completions", json=body) as r:
+                return r.status, await r.json()
+
+        t0 = time.perf_counter()
+        st, first = await complete(repeat)
+        check(st == 200, f"serve: repeat request -> {st}")
+        out["repeat_first_seconds"] = round(time.perf_counter() - t0, 3)
+        t0 = time.perf_counter()
+        bodies = [
+            {"prompt": p, "max_tokens": max_tokens, "temperature": 0.0 if i % 2 == 0 else 0.8,
+             "top_p": 0.95, "ignore_eos": True}
+            for i, p in enumerate(prompts)
+        ]
+        chat_body = {"messages": [{"role": "user", "content": _prompt(rng, 200)}], "max_tokens": 16,
+                     "temperature": 0.0, "ignore_eos": True}
+        results = await asyncio.gather(
+            stream(bodies[0]), complete(bodies[1]), complete(bodies[2]), complete(bodies[3]), chat(chat_body)
+        )
+        out["concurrent_seconds"] = round(time.perf_counter() - t0, 3)
+        for i, (st, body) in enumerate(results[:4]):
+            check(st == 200, f"serve: completion {i} -> {st}: {body}")
+            u = body["usage"]
+            check(u["completion_tokens"] == max_tokens, f"serve: completion {i} usage {u}")
+            check(u["prompt_tokens"] == len(prompts[i]) + 1, f"serve: completion {i} prompt tokens {u}")
+        st, body = results[4]
+        check(st == 200, f"serve: chat -> {st}: {body}")
+        check(body["usage"]["completion_tokens"] == 16, f"serve: chat usage {body['usage']}")
+        check(body["choices"][0]["message"]["role"] == "assistant", "serve: chat message role")
+        st, second = await complete(repeat)
+        check(st == 200, f"serve: repeat request (again) -> {st}")
+        same = first["choices"][0]["text"] == second["choices"][0]["text"]
+        out["greedy_repeat_identical"] = same
+        out["repeat_cached_tokens"] = second["usage"]["prompt_tokens_details"]["cached_tokens"]
+        check(same, "serve: the same greedy request returned different text")
+        async with s.get(base + "/metrics") as r:
+            metrics = await r.text()
+        check("vllm:generation_tokens_total" in metrics, "serve: /metrics lacks generation_tokens_total")
+        out["usage_example"] = results[1][1]["usage"]
+    return out
+
+
+def phase_serve() -> dict:
+    import socket
+
+    import torch
+
+    from production_stack_tpu_torch.engine.api_server import serve
+    from production_stack_tpu_torch.engine.config import EngineConfig
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        port = sk.getsockname()[1]
+    cfg = EngineConfig(model="llama-3.2-1b", host="127.0.0.1", port=port)
+    kernels, plains = _counters()
+
+    async def run():
+        server, runner = await serve(cfg)
+        try:
+            # every count to 0 right before the main path, read right after
+            for fn in kernels.values():
+                fn.launches = 0
+            for fn in plains.values():
+                fn.calls = 0
+            t0 = time.perf_counter()
+            res = await _serve_requests(port)
+            res["seconds"] = round(time.perf_counter() - t0, 3)
+            res["launches"] = {k: fn.launches for k, fn in kernels.items()}
+            res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
+            res["engine"] = {k: v for k, v in server.engine.stats().items()
+                             if k in ("prompt_tokens_total", "generation_tokens_total", "decode_dispatches_total",
+                                      "gpu_prefix_cache_hits_total")}
+            return res
+        finally:
+            await runner.cleanup()
+            server.engine.stop()
+
+    t0 = time.perf_counter()
+    res = asyncio.run(run())
+    res["seconds_with_startup"] = round(time.perf_counter() - t0, 2)
+    emit({"phase": "serve", "model": "llama-3.2-1b", **res})
+    for k, n in res["launches"].items():
+        check(n > 0, f"serve: kernel {k} was not launched on the main path")
+    for k, n in res["plain_calls"].items():
+        check(n == 0, f"serve: plain version {k} ran {n} times on the main path")
+    torch.cuda.empty_cache()
+    return res["launches"]
+
+
+def _time_ms(fn, iters=30, warmup=3) -> float:
+    """Median device ms of one call, CUDA events around each launch. Before
+    each launch a 128 MB read evicts the 50 MB L2 (a read, so no write-back
+    of the flush competes with the timed launch)."""
+    import torch
+
+    flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
+    for _ in range(warmup):
+        fn()
+    times = []
+    for _ in range(iters):
+        flush.sum()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        fn()
+        e1.record()
+        e1.synchronize()
+        times.append(e0.elapsed_time(e1))
+    return sorted(times)[len(times) // 2]
+
+
+def _bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
+    t_bytes, t_ops = nbytes / PEAK_BYTES_PER_S, flops / peak_flops
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
+
+
+def phase_timing() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from production_stack_tpu_torch.ops.attention import gather_kv_pages
+    from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_ref
+    from production_stack_tpu_torch.ops.kernels.prefill_attention import (
+        kv_page_write,
+        kv_page_write_ref,
+        prefill_attention,
+        prefill_attention_ref,
+    )
+
+    bf16 = torch.bfloat16
+    rows = {}
+    NH, KH, D, page = 32, 8, 64, 64
+    G = NH // KH
+
+    # K1 at a decode burst step: 32 rows x 1,024 context, window C = 8 full
+    case = dict(dict(DECODE_CASES)[MAIN_DECODE], dtype=bf16)
+    B, ctx, C = case["B"], case["lens"][0], case["C"]
+    args, kw = decode_case(case.pop("seed"), **case)
+    q, kp, vp, pt, lens = args
+    ms = _time_ms(lambda: decode_attention(*args, **kw))
+    plain = _time_ms(lambda: decode_attention_ref(*args, **kw))
+    kg, vg = gather_kv_pages(kp[0], vp[0], pt)
+    k_all = torch.cat([kg[:, : ctx - C], kw["k_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    v_all = torch.cat([vg[:, : ctx - C], kw["v_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    q4 = q[:, :, None]
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(q4, k_all, v_all))
+    el = 2
+    nbytes = (B * NH * D * el + 2 * B * (ctx - C) * KH * D * el + 2 * B * C * KH * D * el
+              + pt.numel() * 4 + 2 * B * 4 + B * NH * D * el)
+    flops = 4 * B * NH * D * ctx
+    b_ms, b_by = _bound(nbytes, flops)
+    rows["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                                    shape=f"B={B} ctx={ctx} C={C} NH={NH} KH={KH} D={D} page={page} bf16",
+                                    library="scaled_dot_product_attention over gathered KV, heads repeated")
+
+    # K2 at a main-path prefill chunk: T = 512 after 1,536 tokens of history
+    case = dict(dict(PREFILL_CASES)[MAIN_PREFILL], dtype=bf16)
+    T, hist = case["T"], case["computed"][0]
+    args, kw = prefill_case(case.pop("seed"), **case)
+    q, kp, vp, pt, pos, lens, kc, vc, cl = args
+    ms = _time_ms(lambda: prefill_attention(*args, **kw))
+    plain = _time_ms(lambda: prefill_attention_ref(*args, **kw))
+    kg, vg = gather_kv_pages(kp[0], vp[0], pt)
+    kk = torch.cat([kg[:, :hist], kc], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    vv = torch.cat([vg[:, :hist], vc], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    qq = q.transpose(1, 2).contiguous()
+    mask = (torch.arange(hist + T, device="cuda")[None, :] <= hist + torch.arange(T, device="cuda")[:, None])
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask))
+    pairs = T * hist + T * (T + 1) // 2  # visible (query, key) pairs per head
+    nbytes = 2 * T * NH * D * el + 2 * hist * KH * D * el + 2 * T * KH * D * el + pt.numel() * 4 + T * 4 + 8
+    flops = 4 * NH * D * pairs
+    b_ms, b_by = _bound(nbytes, flops)
+    rows["prefill_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                                     shape=f"B=1 T={T} history={hist} NH={NH} KH={KH} D={D} page={page} bf16",
+                                     library="scaled_dot_product_attention with a causal-offset mask")
+
+    # the chunk's KV write, same chunk (into the pool slots after the history)
+    ms = _time_ms(lambda: kv_page_write(kc, vc, pos, cl, pt, kp, vp, layer=0))
+    plain = _time_ms(lambda: kv_page_write_ref(kc, vc, pos, cl, pt, kp, vp, layer=0))
+    p0 = pos[0].long()
+    slots = pt[0, p0 // page].long() * page + p0 % page
+    kflat, vflat = kp[0].view(-1, KH, D), vp[0].view(-1, KH, D)
+    lib = _time_ms(lambda: (kflat.index_copy_(0, slots, kc[0]), vflat.index_copy_(0, slots, vc[0])))
+    nbytes = 4 * T * KH * D * el + T * 4 + pt.numel() * 4
+    b_ms, b_by = _bound(nbytes, 0.0)
+    rows["kv_page_write"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                                 shape=f"T={T} KH={KH} D={D} page={page} bf16",
+                                 library="index_copy_ into the flat pool, K and V")
+    for name, r in rows.items():
+        emit({"phase": "timing", "kernel": name, **r})
+    return rows
+
+
+def main() -> int:
+    try:
+        import torch
+    except ImportError:
+        fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        fail("no CUDA device: the port's kernels run only on the card")
+    if not (ROOT / "production_stack_tpu_torch" / "csrc").is_dir():
+        fail(f"{ROOT} holds no production_stack_tpu_torch package")
+    sys.path.insert(0, str(ROOT))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
+
+    phase_build()
+    worst = phase_kernels()
+    phase_forward()
+    launches = phase_serve()
+    timing = phase_timing()
+
+    table = []
+    for name in ("decode_attention", "prefill_attention", "kv_page_write"):
+        t = timing[name]
+        table.append({
+            "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],
+            "launches": launches[name], "max_abs_err": worst[name], "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    emit({"phase": "done", "seconds": round(time.perf_counter() - t_start, 2)})
+    emit({"kernels": table})
+    print(nvidia_smi_line(), flush=True)
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    os.environ.setdefault("PSTPU_LOG_LEVEL", "WARNING")
+    sys.exit(main())

@@ -1,0 +1,297 @@
+"""Llama family (Llama 2/3/3.x, Mistral, Qwen2/2.5 dense) in PyTorch.
+
+The counterpart of production_stack_tpu/models/llama.py, on the serving path
+the engine runs: paged KV in layer-stacked pools ``[L, P, page, KH, D]``,
+``kv_write_mode="post"`` (attention reads the pool for earlier tokens and
+the current chunk's K/V beside it), the fused prefill KV write, and the
+deferred-burst decode (``kv_burst``). Weights keep the JAX layout ``x @ W``
+with W ``[in, out]``, so parameters carry over one to one
+(engine/model_loader.params_from_jax).
+
+The attention of every layer goes through the kernels of ops/kernels/ when
+``attn_impl == "cuda"`` and through their plain versions when it is
+"plain". Mixtral MoE, LoRA, sp/pp meshes, int8 KV, the "pre" write mode and
+all-position logits are not ported; the model raises on them.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
+from production_stack_tpu_torch.ops.kernels.decode_attention import (
+    decode_attention,
+    decode_attention_ref,
+)
+from production_stack_tpu_torch.ops.kernels.prefill_attention import (
+    prefill_attention,
+    prefill_attention_ref,
+)
+from production_stack_tpu_torch.ops.norms import rms_norm
+from production_stack_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_cos_sin
+
+
+@dataclass(frozen=True)
+class LlamaConfig:
+    vocab_size: int = 128256
+    hidden_size: int = 4096
+    intermediate_size: int = 14336
+    num_layers: int = 32
+    num_heads: int = 32
+    num_kv_heads: int = 8
+    head_dim: int = 128
+    rope_theta: float = 500000.0
+    rope_scaling: Optional[RopeScaling] = None
+    rms_norm_eps: float = 1e-5
+    max_model_len: int = 8192
+    tie_word_embeddings: bool = False
+    attention_bias: bool = False          # Qwen2: bias on q/k/v projections
+    sliding_window: Optional[int] = None  # Mistral/Qwen2: windowed attention
+    num_experts: int = 0                  # Mixtral MoE: not ported
+    dtype: torch.dtype = torch.bfloat16
+    # "auto" | "cuda" (the hand-written kernels) | "plain" (their PyTorch
+    # versions); the runner resolves "auto" by device
+    attn_impl: str = "auto"
+    kv_write_mode: str = "post"           # "pre" is not ported
+    kv_cache_dtype: str = "auto"          # int8 is not ported
+
+
+PRESETS: dict[str, LlamaConfig] = {
+    "llama-3-8b": LlamaConfig(),
+    "llama-3.2-1b": LlamaConfig(
+        hidden_size=2048,
+        intermediate_size=8192,
+        num_layers=16,
+        num_heads=32,
+        num_kv_heads=8,
+        head_dim=64,
+        rope_scaling=RopeScaling(factor=32.0),
+        tie_word_embeddings=True,
+    ),
+    "mistral-7b": LlamaConfig(
+        vocab_size=32000, rope_theta=10000.0, sliding_window=4096, max_model_len=32768,
+    ),
+    "qwen2.5-7b": LlamaConfig(
+        vocab_size=152064,
+        hidden_size=3584,
+        intermediate_size=18944,
+        num_layers=28,
+        num_heads=28,
+        num_kv_heads=4,
+        rope_theta=1000000.0,
+        rms_norm_eps=1e-6,
+        attention_bias=True,
+        max_model_len=32768,
+    ),
+    "llama-debug": LlamaConfig(
+        vocab_size=512,
+        hidden_size=128,
+        intermediate_size=256,
+        num_layers=2,
+        num_heads=4,
+        num_kv_heads=2,
+        head_dim=32,
+        rope_theta=10000.0,
+        max_model_len=256,
+    ),
+}
+_debug = PRESETS["llama-debug"]
+PRESETS["qwen2-debug"] = dataclasses.replace(_debug, attention_bias=True)
+PRESETS["llama-debug-4kv"] = dataclasses.replace(_debug, num_heads=8, num_kv_heads=4)
+# f32 twin: greedy tokens on random (near-flat) logits are only
+# reproducible across implementations in f32
+PRESETS["llama-debug-4kv-f32"] = dataclasses.replace(
+    _debug, num_heads=8, num_kv_heads=4, dtype=torch.float32
+)
+PRESETS["mistral-debug"] = dataclasses.replace(_debug, sliding_window=8)
+
+# per-layer weight names and their [in, out] (or [n]) shapes
+def layer_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    NH, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    shapes = {
+        "attn_norm": (H,),
+        "wq": (H, NH * D),
+        "wk": (H, KH * D),
+        "wv": (H, KH * D),
+        "wo": (NH * D, H),
+        "mlp_norm": (H,),
+        "w_gate": (H, I),
+        "w_up": (H, I),
+        "w_down": (I, H),
+    }
+    if cfg.attention_bias:
+        shapes.update({"bq": (NH * D,), "bk": (KH * D,), "bv": (KH * D,)})
+    return shapes
+
+
+def _check_ported(cfg: LlamaConfig) -> None:
+    if cfg.num_experts:
+        raise NotImplementedError("Mixtral MoE layers are not ported")
+    if cfg.kv_write_mode != "post":
+        raise NotImplementedError("only kv_write_mode='post' is ported")
+    if cfg.kv_cache_dtype != "auto":
+        raise NotImplementedError("only the model-dtype KV cache is ported")
+
+
+def init_kv_pages(
+    cfg: LlamaConfig, num_pages: int, page_size: int, device, dtype=None
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Layer-stacked page pools: [L, num_pages, page_size, KH, D] zeros."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    dt = dtype or cfg.dtype
+    return (
+        torch.zeros(shape, dtype=dt, device=device),
+        torch.zeros(shape, dtype=dt, device=device),
+    )
+
+
+def _param(shape, dtype, device) -> nn.Parameter:
+    return nn.Parameter(torch.empty(shape, dtype=dtype, device=device), requires_grad=False)
+
+
+@torch.no_grad()
+def init_params(model: "LlamaForCausalLM", generator: torch.Generator) -> None:
+    """Random-normal weights with the JAX package's scales (init_params
+    there), written in place: projections N(0, 1/fan_in), norms 1, biases
+    0. The draw comes from ``generator`` (on the model's device), so its
+    bits differ from ``jax.random``'s for the same seed."""
+    for name, p in model.named_parameters():
+        leaf = name.rsplit(".", 1)[-1]
+        if leaf.endswith("norm"):
+            p.fill_(1.0)
+        elif leaf in ("bq", "bk", "bv"):
+            p.zero_()
+        else:
+            # weights are [in, out]; embed [V, H] scales by H**-0.5 too
+            fan_in = p.shape[1] if leaf == "embed" else p.shape[0]
+            w = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
+            p.copy_(w.mul_(fan_in**-0.5))
+
+
+class LlamaDecoderLayer(nn.Module):
+    def __init__(self, cfg: LlamaConfig, device):
+        super().__init__()
+        for name, shape in layer_shapes(cfg).items():
+            setattr(self, name, _param(shape, cfg.dtype, device))
+
+    def qkv(self, h, cfg: LlamaConfig, cos, sin):
+        B, T = h.shape[:2]
+        q, k, v = h @ self.wq, h @ self.wk, h @ self.wv
+        if cfg.attention_bias:
+            q, k, v = q + self.bq, k + self.bk, v + self.bv
+        q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+        k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+        v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+        return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+    def mlp(self, x, cfg: LlamaConfig):
+        h = rms_norm(x, self.mlp_norm, cfg.rms_norm_eps)
+        return x + (F.silu(h @ self.w_gate) * (h @ self.w_up)) @ self.w_down
+
+
+class LlamaForCausalLM(nn.Module):
+    """Decoder stack + head. Parameters are created empty on ``device``;
+    engine/model_loader.py fills them (seeded init or a carried-over tree)."""
+
+    def __init__(self, cfg: LlamaConfig, device="cuda"):
+        super().__init__()
+        _check_ported(cfg)
+        self.cfg = cfg
+        H = cfg.hidden_size
+        self.embed = _param((cfg.vocab_size, H), cfg.dtype, device)
+        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device) for _ in range(cfg.num_layers))
+        self.final_norm = _param((H,), cfg.dtype, device)
+        if not cfg.tie_word_embeddings:
+            self.lm_head = _param((H, cfg.vocab_size), cfg.dtype, device)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,
+        positions: torch.Tensor,
+        k_pages: torch.Tensor,
+        v_pages: torch.Tensor,
+        page_table: torch.Tensor,
+        kv_lens: torch.Tensor,
+        kv_burst: Optional[tuple] = None,
+        all_logits: bool = False,
+        kv_scales: Optional[tuple] = None,
+    ) -> torch.Tensor:
+        """One forward step (prefill chunk or decode) with paged KV.
+
+        input_ids/positions [B, T] int32 (position -1 = padding); pools
+        [L, P, page, KH, D]; page_table [B, max_pages] int32; kv_lens [B]
+        int32 including this step's tokens.
+
+        Without ``kv_burst`` this step's K/V are committed to the pools IN
+        PLACE: by the prefill kernel's fused write for T > 1, by one scatter
+        after the layers for T == 1.
+        With ``kv_burst = (k_acc, v_acc, counts)`` (decode, T = 1; windows
+        [L, B, C, KH, D], counts [B]) the pools stay read-only: row b's
+        token is appended to its window at slot counts[b], IN PLACE, and
+        attention reads pool slots < kv_lens - (counts + 1) plus the window.
+        The caller commits the windows once per burst.
+
+        Returns the float32 logits [B, V] of each row's last valid token.
+        """
+        if all_logits or kv_scales is not None:
+            raise NotImplementedError("all-position logits and int8 KV are not ported")
+        cfg = self.cfg
+        B, T = input_ids.shape
+        plain = cfg.attn_impl == "plain"
+        decode = decode_attention_ref if plain else decode_attention
+        prefill = prefill_attention_ref if plain else prefill_attention
+        burst = kv_burst is not None
+        if burst and T != 1:
+            raise ValueError("kv_burst is a decode (T == 1) mode")
+        x = self.embed[input_ids.long()]
+        cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+        if burst:
+            k_acc, v_acc, counts = kv_burst
+            rows = torch.arange(B, device=x.device)
+            cnt = counts.long()
+            cur_lens = (counts + 1).to(torch.int32)
+        elif T > 1:
+            cur_lens = (positions >= 0).sum(dim=1).to(torch.int32)
+        new_k, new_v = [], []
+        for li, layer in enumerate(self.layers):
+            h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
+            q, k, v = layer.qkv(h, cfg, cos, sin)
+            if burst:
+                k_acc[li, rows, cnt] = k[:, 0]
+                v_acc[li, rows, cnt] = v[:, 0]
+                attn = decode(
+                    q[:, 0], k_pages, v_pages, page_table, kv_lens, cfg.sliding_window,
+                    k_cur=k_acc[li], v_cur=v_acc[li], cur_lens=cur_lens, layer=li,
+                )[:, None]
+            elif T == 1:
+                attn = decode(
+                    q[:, 0], k_pages, v_pages, page_table, kv_lens, cfg.sliding_window,
+                    k_cur=k[:, 0].contiguous(), v_cur=v[:, 0].contiguous(), layer=li,
+                )[:, None]
+            else:
+                k, v = k.contiguous(), v.contiguous()
+                attn = prefill(
+                    q.contiguous(), k_pages, v_pages, page_table, positions, kv_lens,
+                    k, v, cur_lens, cfg.sliding_window, layer=li, fused_write=True,
+                )
+            if T == 1 and not burst:
+                new_k.append(k)
+                new_v.append(v)
+            x = x + attn.reshape(B, T, -1) @ layer.wo
+            x = layer.mlp(x, cfg)
+        if new_k:
+            write_kv_pages_all_layers(
+                k_pages, v_pages, torch.stack(new_k), torch.stack(new_v), page_table, positions
+            )
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        head = self.embed.t() if cfg.tie_word_embeddings else self.lm_head
+        last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
+        x_last = x[torch.arange(B, device=x.device), last]
+        return (x_last @ head).float()

@@ -1,0 +1,6 @@
+"""Hand-written CUDA kernels of the port (sources in ../../csrc), each with
+its plain PyTorch version beside it and a launch counter on its wrapper."""
+
+# shapes both attention kernels take (csrc/*.cu instantiate these)
+HEAD_DIMS = (64, 128)
+MAX_GROUP = 8  # query heads per KV head: one warp each in the kernels' blocks

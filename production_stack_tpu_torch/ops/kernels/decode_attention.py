@@ -1,0 +1,134 @@
+"""Ragged paged decode attention: the CUDA kernel (csrc/decode_attention.cu)
+and its plain PyTorch version.
+
+``decode_attention`` launches the kernel for CUDA tensors and runs
+``decode_attention_ref`` for CPU tensors; there is no fallback between the
+two. Counterpart of ``ragged_paged_attention_decode`` in the JAX package
+(production_stack_tpu/ops/pallas/paged_attention.py), same arguments and
+layouts, fp pools only: int8 pools (``k_scales``) are not ported yet.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from production_stack_tpu_torch.ops.attention import paged_attention_decode
+from production_stack_tpu_torch.ops.kernels import HEAD_DIMS, MAX_GROUP, _build
+
+NO_WINDOW = 1 << 30
+_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+_bound = False
+
+
+def _normalize(k_pages, v_pages, k_cur, v_cur, layer):
+    if k_pages.dim() == 4:  # one layer's pools
+        k_pages, v_pages, layer = k_pages[None], v_pages[None], 0
+    if k_cur is not None and k_cur.dim() == 3:  # [B, KH, D] -> C = 1
+        k_cur, v_cur = k_cur[:, None], v_cur[:, None]
+    return k_pages, v_pages, k_cur, v_cur, int(layer or 0)
+
+
+def decode_attention_ref(
+    q, k_pages, v_pages, page_table, seq_lens, window=None, *,
+    sm_scale=None, logit_softcap=None, k_cur=None, v_cur=None, cur_lens=None,
+    layer=None,
+):
+    """Plain version: gather the layer's pages, then masked f32 softmax
+    attention (ops/attention.paged_attention_decode)."""
+    decode_attention_ref.calls += 1
+    k_pages, v_pages, k_cur, v_cur, layer = _normalize(k_pages, v_pages, k_cur, v_cur, layer)
+    return paged_attention_decode(
+        q, k_pages[layer], v_pages[layer], page_table, seq_lens,
+        sm_scale=sm_scale, window=window, logit_softcap=logit_softcap,
+        k_cur=k_cur, v_cur=v_cur, cur_lens=cur_lens,
+    )
+
+
+def _lib():
+    global _bound
+    lib = _build.load("decode_attention")
+    if not _bound:
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        lib.decode_attention_launch.argtypes = [
+            I, I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P,
+        ]
+        lib.decode_attention_launch.restype = I
+        _bound = True
+    return lib
+
+
+def decode_attention(
+    q, k_pages, v_pages, page_table, seq_lens, window=None, *,
+    sm_scale=None, logit_softcap=None, k_cur=None, v_cur=None, cur_lens=None,
+    layer=None, k_scales=None, v_scales=None,
+):
+    """Decode attention of q [B, NH, D] over paged KV; returns [B, NH, D].
+
+    Pools [L, P, page, KH, D] with ``layer``, or one layer's [P, page, KH,
+    D]. With ``k_cur/v_cur`` ([B, C, KH, D], or [B, KH, D] for C = 1) pool
+    slots at positions >= seq_lens - cur_lens are stale and window entry j
+    holds position seq_lens - cur_lens + j. Rows with seq_len 0 give 0.
+    """
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError("int8 KV pools are not ported to the CUDA decode kernel yet")
+    if q.device.type == "cpu":
+        return decode_attention_ref(
+            q, k_pages, v_pages, page_table, seq_lens, window,
+            sm_scale=sm_scale, logit_softcap=logit_softcap,
+            k_cur=k_cur, v_cur=v_cur, cur_lens=cur_lens, layer=layer,
+        )
+    k_pages, v_pages, k_cur, v_cur, layer = _normalize(k_pages, v_pages, k_cur, v_cur, layer)
+    B, NH, D = q.shape
+    L, P, page_size, KH, Dk = k_pages.shape
+    max_pages = page_table.shape[1]
+    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"decode kernel takes f32/bf16 q and pools of the same dtype, got {q.dtype}/{k_pages.dtype}")
+    if D not in HEAD_DIMS or Dk != D or NH % KH or (NH // KH) > MAX_GROUP:
+        raise ValueError(
+            f"decode kernel takes D in {HEAD_DIMS} and 1..{MAX_GROUP} query heads per KV head; got D={D}, NH={NH}, KH={KH}"
+        )
+    if not 0 <= layer < L:
+        raise ValueError(f"layer {layer} out of range for {L} stacked layers")
+    C = 0
+    if k_cur is not None:
+        C = k_cur.shape[1]
+        if k_cur.shape != (B, C, KH, D) or v_cur.shape != k_cur.shape or k_cur.dtype != q.dtype or v_cur.dtype != q.dtype:
+            raise ValueError("k_cur/v_cur must be [B, C, KH, D] in q.dtype")
+        if cur_lens is None:
+            cur_lens = torch.ones((B,), dtype=torch.int32, device=q.device)
+    tensors = [q, k_pages, v_pages, page_table, seq_lens]
+    if C:
+        tensors += [k_cur, v_cur, cur_lens]
+    for t in tensors:
+        if t.device != q.device:
+            raise ValueError("decode kernel inputs must share one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("decode kernel inputs must be contiguous")
+    for t in tensors[3:5] + tensors[7:]:
+        if t.dtype != torch.int32:
+            raise TypeError("page_table, seq_lens and cur_lens must be int32")
+    if page_table.shape[0] != B or seq_lens.shape != (B,) or (C and cur_lens.shape != (B,)):
+        raise ValueError("page_table/seq_lens/cur_lens batch dim must match q")
+    if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages) + ((k_cur, v_cur) if C else ())):
+        raise ValueError("decode kernel needs 16-byte aligned q, pools and windows")
+    out = torch.empty_like(q)
+    err = _lib().decode_attention_launch(
+        _DTYPES[q.dtype], D, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_cur.data_ptr() if C else None, v_cur.data_ptr() if C else None,
+        page_table.data_ptr(), seq_lens.data_ptr(), cur_lens.data_ptr() if C else None,
+        out.data_ptr(), B, NH, KH, P, page_size, max_pages, layer, C,
+        NO_WINDOW if window is None else int(window),
+        float(sm_scale if sm_scale is not None else D**-0.5),
+        float(logit_softcap or 0.0),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    if err:
+        raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
+    decode_attention.launches += 1
+    return out
+
+
+decode_attention.launches = 0
+decode_attention_ref.calls = 0

@@ -1,0 +1,136 @@
+"""The decode kernel's plain version (decode_attention_ref) against the JAX
+TPU kernel ragged_paged_attention_decode run in interpret mode, on the cases
+of tests/test_pallas_attention.py; plus the wrapper's routing and checks.
+
+Tolerances: f32 2e-5 (the two fold the online softmax in another order);
+bf16 3e-2 (the JAX kernel's own bf16 bound against its oracle).
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from production_stack_tpu.ops.pallas.paged_attention import ragged_paged_attention_decode
+from production_stack_tpu_torch.ops.kernels import decode_attention as dmod
+
+TOL = {"float32": dict(atol=2e-5, rtol=2e-5), "bfloat16": dict(atol=3e-2, rtol=3e-2)}
+
+
+def _case(B=4, NH=8, KH=2, D=128, page=16, P=32, maxp=4, L=None, C=0, seed=0):
+    rng = np.random.RandomState(seed)
+    lead = () if L is None else (L,)
+    arrs = {
+        "q": rng.randn(B, NH, D).astype(np.float32),
+        "kp": rng.randn(*lead, P, page, KH, D).astype(np.float32),
+        "vp": rng.randn(*lead, P, page, KH, D).astype(np.float32),
+        "pt": rng.choice(P, B * maxp, replace=False).reshape(B, maxp).astype(np.int32),
+    }
+    if C:
+        arrs["kc"] = rng.randn(B, C, KH, D).astype(np.float32)
+        arrs["vc"] = rng.randn(B, C, KH, D).astype(np.float32)
+    return arrs
+
+
+def _both(arrs, lens, dtype="float32", cur_lens=None, **kw):
+    jd, td = getattr(jnp, dtype), getattr(torch, dtype)
+    j = {k: jnp.asarray(v, jd if v.dtype == np.float32 else v.dtype) for k, v in arrs.items()}
+    t = {k: torch.from_numpy(v).to(td if v.dtype == np.float32 else torch.int32) for k, v in arrs.items()}
+    jkw, tkw = dict(kw), dict(kw)
+    if "kc" in arrs:
+        jkw.update(k_cur=j["kc"], v_cur=j["vc"])
+        tkw.update(k_cur=t["kc"], v_cur=t["vc"])
+        if cur_lens is not None:
+            jkw["cur_lens"] = jnp.asarray(cur_lens, jnp.int32)
+            tkw["cur_lens"] = torch.tensor(cur_lens, dtype=torch.int32)
+    ref = ragged_paged_attention_decode(
+        j["q"], j["kp"], j["vp"], j["pt"], jnp.asarray(lens, jnp.int32), interpret=True, **jkw
+    )
+    out = dmod.decode_attention_ref(t["q"], t["kp"], t["vp"], t["pt"], torch.tensor(lens, dtype=torch.int32), **tkw)
+    return out.float().numpy(), np.asarray(ref, np.float32)
+
+
+CASES = {
+    "ragged_with_padded_row": (dict(), dict(lens=[5, 0, 33, 64])),
+    "gqa_d64": (dict(B=3, NH=12, KH=4, D=64, page=8, P=24, maxp=6, seed=1), dict(lens=[1, 24, 48])),
+    "bf16": (dict(seed=3), dict(lens=[7, 16, 40, 64], dtype="bfloat16")),
+    "window_softcap_current_token": (
+        dict(B=3, NH=8, KH=2, D=64, page=8, P=24, maxp=6, C=1, seed=6),
+        dict(lens=[5, 23, 48], window=12, logit_softcap=40.0),
+    ),
+    "burst_window_ragged": (
+        dict(B=4, NH=8, KH=2, D=64, page=8, P=40, maxp=8, C=4, seed=7),
+        dict(lens=[4, 19, 40, 64], cur_lens=[1, 4, 3, 2]),
+    ),
+    "burst_window_bf16": (
+        dict(B=3, NH=8, KH=2, D=64, page=16, P=24, maxp=4, C=8, seed=8),
+        dict(lens=[8, 30, 64], cur_lens=[8, 5, 1], dtype="bfloat16"),
+    ),
+    "stacked_layer_burst": (
+        dict(B=2, NH=8, KH=4, D=32, page=8, P=16, maxp=4, L=3, C=3, seed=10),
+        dict(lens=[6, 29], cur_lens=[3, 2], layer=2),
+    ),
+}
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+def test_plain_version_matches_jax_kernel(name):
+    case_kw, call = CASES[name]
+    call = dict(call)
+    lens = call.pop("lens")
+    out, ref = _both(_case(**case_kw), lens, **call)
+    np.testing.assert_allclose(out, ref, **TOL[call.get("dtype", "float32")])
+    for b, n in enumerate(lens):
+        if n == 0:
+            np.testing.assert_array_equal(out[b], 0.0)
+
+
+def test_stale_slots_holding_nan_are_skipped():
+    """Pool slots at or after kv_len - cur_len are stale; filled with NaN
+    they must not reach the output (0 * NaN would)."""
+    arrs = _case(B=3, NH=8, KH=2, D=64, page=8, P=24, maxp=4, C=4, seed=11)
+    lens, cur = [5, 20, 32], [2, 4, 1]
+    clean, ref = _both(arrs, lens, cur_lens=cur)
+    for b in range(3):
+        for s in range(lens[b] - cur[b], 32):
+            arrs["kp"][arrs["pt"][b, s // 8], s % 8] = np.nan
+            arrs["vp"][arrs["pt"][b, s // 8], s % 8] = np.nan
+    out, _ = _both(arrs, lens, cur_lens=cur)
+    assert np.isfinite(out).all()
+    np.testing.assert_allclose(out, ref, **TOL["float32"])
+    np.testing.assert_array_equal(out, clean)
+
+
+def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
+    arrs = _case(B=2, NH=4, KH=2, D=64, page=8, P=8, maxp=2, seed=12)
+    t = {k: torch.from_numpy(v) for k, v in arrs.items()}
+    lens = torch.tensor([3, 9], dtype=torch.int32)
+    calls, launches = dmod.decode_attention_ref.calls, dmod.decode_attention.launches
+    out = dmod.decode_attention(t["q"], t["kp"], t["vp"], t["pt"], lens)
+    assert dmod.decode_attention_ref.calls == calls + 1
+    assert dmod.decode_attention.launches == launches  # no kernel ran
+    np.testing.assert_array_equal(out.numpy(), dmod.decode_attention_ref(t["q"], t["kp"], t["vp"], t["pt"], lens).numpy())
+    with pytest.raises(NotImplementedError, match="int8"):
+        dmod.decode_attention(t["q"], t["kp"], t["vp"], t["pt"], lens, k_scales=torch.ones(8, 2))
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device: the CUDA decode kernel went unchecked here (chip_smoke.py checks it on the card)")
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_matches_plain_version(cuda_device, dtype):
+    arrs = _case(B=4, NH=32, KH=8, D=64, page=16, P=40, maxp=8, L=2, C=8, seed=13)
+    td = getattr(torch, dtype)
+    t = {k: torch.from_numpy(v).to(td if v.dtype == np.float32 else torch.int32).to(cuda_device) for k, v in arrs.items()}
+    lens = torch.tensor([0, 17, 64, 128], dtype=torch.int32, device=cuda_device)
+    cur = torch.tensor([1, 8, 3, 8], dtype=torch.int32, device=cuda_device)
+    kw = dict(k_cur=t["kc"], v_cur=t["vc"], cur_lens=cur, layer=1, window=50, logit_softcap=30.0)
+    out = dmod.decode_attention(t["q"], t["kp"], t["vp"], t["pt"], lens, **kw)
+    ref = dmod.decode_attention_ref(t["q"], t["kp"], t["vp"], t["pt"], lens, **kw)
+    tol = 1e-4 if dtype == "float32" else 3e-2
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
