@@ -9,21 +9,33 @@ non-zero exit (nothing is caught):
 
 1. build    -- nvcc builds every kernel library from production_stack_tpu_torch/
                csrc/ (one nvcc per source, all started together).
-2. kernels  -- each CUDA kernel against its plain PyTorch version on the card:
-               ragged, burst-window, stacked-layer, window+softcap, bf16/f32,
-               D=64/128 and NaN-poisoned stale-slot cases, and the timing
-               phase's main-path inputs, each held to a bound scaled to its
-               output (TOL); the fused KV write must leave the pools
-               byte-identical to the plain scatter.
+2. kernels  -- each CUDA kernel against its plain PyTorch version on the card,
+               fp pools and int8 pools (per-page scales): ragged,
+               burst-window, stacked-layer, window+softcap, bf16/f32,
+               D=64/128 and NaN-poisoned stale-slot (or stale-scale) cases,
+               and the timing phase's main-path inputs, each held to a
+               bound scaled to its output (TOL); the KV writes (fp, and
+               the quantizing write) must leave pools and scales
+               byte-identical to their plain versions, in the quantizing
+               write's four cases too (aligned chunk, chunk ending
+               mid-page, unaligned head page, other layers untouched).
 3. forward  -- llama-3.2-1b at full width and depth (bf16, seeded random
                weights): two 512-token prefill chunks and one 8-step decode
-               burst, with the kernels and with the plain versions.
-4. serve    -- the port's OpenAI server in-process on localhost: concurrent
-               /v1/completions (one streaming) and /v1/chat/completions; a
-               greedy request repeats exactly; the launch counters show the
-               main path ran every kernel and no plain version.
-5. timing   -- each kernel, its plain version and a PyTorch yardstick at the
-               main path's shapes, with CUDA events, beside its bound.
+               burst, with the kernels and with the plain versions, into
+               bf16 pools and then into int8 pools (layer 0's int8 pages
+               and scales byte-identical between the two).
+4. serve    -- the port's OpenAI server in-process on localhost, twice
+               (bf16 pools; then int8 pools with the CPU offload tier and a
+               pool small enough to evict): concurrent /v1/completions (one
+               streaming) and /v1/chat/completions; a greedy request
+               repeats exactly (with int8, after its prefix pages were
+               spilled to the CPU tier and restored); the launch counters
+               show each run went through its mode's kernels and no plain
+               version; the int8 run's /metrics carry the quant and offload
+               series.
+5. timing   -- each kernel (six rows: three fp, three int8), its plain
+               version and a PyTorch yardstick at the main path's shapes,
+               with CUDA events, beside its bound.
 
 Then the kernel table line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. With no CUDA device, or run
@@ -67,11 +79,17 @@ REPLACES = {
     "decode_attention": "production_stack_tpu/ops/pallas/paged_attention.py:67",
     "prefill_attention": "production_stack_tpu/ops/pallas/prefill_attention.py:72",
     "kv_page_write": "production_stack_tpu/ops/pallas/prefill_attention.py:396",
+    "decode_attention[int8]": "production_stack_tpu/ops/pallas/paged_attention.py:97",
+    "prefill_attention[int8]": "production_stack_tpu/ops/pallas/prefill_attention.py:112",
+    "kv_page_write_quant": "production_stack_tpu/ops/pallas/prefill_attention.py:304",
 }
 SOURCES = {
     "decode_attention": "production_stack_tpu_torch/csrc/decode_attention.cu",
     "prefill_attention": "production_stack_tpu_torch/csrc/prefill_attention.cu",
     "kv_page_write": "production_stack_tpu_torch/csrc/prefill_attention.cu",
+    "decode_attention[int8]": "production_stack_tpu_torch/csrc/decode_attention.cu",
+    "prefill_attention[int8]": "production_stack_tpu_torch/csrc/prefill_attention.cu",
+    "kv_page_write_quant": "production_stack_tpu_torch/csrc/prefill_attention.cu",
 }
 
 
@@ -113,25 +131,51 @@ def _page_table(gen, B, maxp, P, device):
     return torch.randperm(P, generator=gen)[: B * maxp].reshape(B, maxp).to(torch.int32).to(device)
 
 
+def _pools(gen, shape, dtype, device, quant):
+    """(k_pages, v_pages, scales kwargs): random pools in ``dtype``, or with
+    ``quant`` random int8 pools and per-page, per-KV-head scales of a
+    typical size (amax / 127 of unit-normal KV is ~0.025)."""
+    import torch
+
+    if not quant:
+        return _rand(gen, shape, dtype, device), _rand(gen, shape, dtype, device), {}
+    L, P, _, KH, _ = shape
+    pools = [torch.randint(-127, 128, shape, generator=gen, dtype=torch.int8).to(device) for _ in range(2)]
+    scales = [(0.01 + 0.03 * torch.rand((L, P, KH), generator=gen)).to(device) for _ in range(2)]
+    return pools[0], pools[1], dict(k_scales=scales[0], v_scales=scales[1])
+
+
+def _poison_scales(kw, layer, pt, B, first_stale_page):
+    """NaN scales on every page wholly past row b's live history: a kernel
+    that reads a stale page's scale turns its output NaN."""
+    for b in range(B):
+        for lp in range(first_stale_page[b], pt.shape[1]):
+            kw["k_scales"][layer, int(pt[b, lp])] = float("nan")
+            kw["v_scales"][layer, int(pt[b, lp])] = float("nan")
+
+
 def decode_case(seed, *, B, NH, KH, D, page, maxp, L, lens, cur_lens=None, C=0, dtype, window=None,
-                softcap=None, layer=0, poison=False):
-    """Inputs of one decode-kernel call: pools [L, P, page, KH, D]; with
-    C > 0 a burst window k_cur/v_cur [B, C, KH, D] and its cur_lens."""
+                softcap=None, layer=0, poison=False, quant=False):
+    """Inputs of one decode-kernel call: pools [L, P, page, KH, D] (int8
+    with scales for ``quant``); with C > 0 a burst window k_cur/v_cur
+    [B, C, KH, D] and its cur_lens."""
     import torch
 
     device = "cuda"
     gen = torch.Generator().manual_seed(seed)
     P = B * maxp + 3
-    kp = _rand(gen, (L, P, page, KH, D), dtype, device)
-    vp = _rand(gen, (L, P, page, KH, D), dtype, device)
+    kp, vp, skw = _pools(gen, (L, P, page, KH, D), dtype, device, quant)
     pt = _page_table(gen, B, maxp, P, device)
     lens_t = torch.tensor(lens, dtype=torch.int32, device=device)
-    kw = dict(window=window, logit_softcap=softcap, layer=layer)
+    kw = dict(window=window, logit_softcap=softcap, layer=layer, **skw)
     if C:
         kw["k_cur"] = _rand(gen, (B, C, KH, D), dtype, device)
         kw["v_cur"] = _rand(gen, (B, C, KH, D), dtype, device)
         kw["cur_lens"] = torch.tensor(cur_lens, dtype=torch.int32, device=device)
-    if poison:  # stale and out-of-range pool slots of every row hold NaN
+    if poison and quant:  # int8 holds no NaN: the stale pages' scales do
+        cl = cur_lens if C else [0] * B
+        _poison_scales(kw, layer, pt, B, [-(-max(lens[b] - cl[b], 0) // page) for b in range(B)])
+    elif poison:  # stale and out-of-range pool slots of every row hold NaN
         cl = cur_lens if C else [0] * B
         for b in range(B):
             for s in range(max(lens[b] - cl[b], 0), maxp * page):
@@ -143,23 +187,26 @@ def decode_case(seed, *, B, NH, KH, D, page, maxp, L, lens, cur_lens=None, C=0, 
 
 
 def prefill_case(seed, *, B, T, NH, KH, D, page, maxp, L, computed, chunks, dtype, window=None,
-                 softcap=None, layer=0, poison=False):
+                 softcap=None, layer=0, poison=False, quant=False):
     """Inputs of one prefill-kernel call: row b has computed[b] tokens in
-    the pool and a chunk of chunks[b] tokens (0 = padded row)."""
+    the pool (int8 with scales for ``quant``) and a chunk of chunks[b]
+    tokens (0 = padded row)."""
     import torch
 
     device = "cuda"
     gen = torch.Generator().manual_seed(seed)
     P = B * maxp + 3
-    kp = _rand(gen, (L, P, page, KH, D), dtype, device)
-    vp = _rand(gen, (L, P, page, KH, D), dtype, device)
+    kp, vp, skw = _pools(gen, (L, P, page, KH, D), dtype, device, quant)
     pt = _page_table(gen, B, maxp, P, device)
     pos = torch.full((B, T), -1, dtype=torch.int32)
     for b in range(B):
         pos[b, : chunks[b]] = torch.arange(computed[b], computed[b] + chunks[b])
     kv_lens = torch.tensor([c + n for c, n in zip(computed, chunks)], dtype=torch.int32, device=device)
     cur_lens = torch.tensor(chunks, dtype=torch.int32, device=device)
-    if poison:  # every slot at or after each row's chunk start holds NaN
+    kw = dict(window=window, logit_softcap=softcap, layer=layer, **skw)
+    if poison and quant:  # the scales of pages wholly past each chunk start
+        _poison_scales(kw, layer, pt, B, [-(-computed[b] // page) for b in range(B)])
+    elif poison:  # every slot at or after each row's chunk start holds NaN
         for b in range(B):
             for s in range(computed[b], maxp * page):
                 pid = int(pt[b, s // page])
@@ -169,7 +216,7 @@ def prefill_case(seed, *, B, T, NH, KH, D, page, maxp, L, computed, chunks, dtyp
     kc = _rand(gen, (B, T, KH, D), dtype, device)
     vc = _rand(gen, (B, T, KH, D), dtype, device)
     args = (q, kp, vp, pt, pos.to(device), kv_lens, kc, vc, cur_lens)
-    return args, dict(window=window, logit_softcap=softcap, layer=layer)
+    return args, kw
 
 
 def _same_bytes(a, b) -> bool:
@@ -230,6 +277,7 @@ def phase_build():
 
 MAIN_DECODE = "main_path_b32_ctx1024_c8_bf16"
 MAIN_PREFILL = "main_path_t512_h1536_bf16"
+INT8 = "int8_"  # the int8 pool twin of a case: same shapes, int8 pools and scales
 
 DECODE_CASES = [
     # name, kwargs
@@ -252,6 +300,7 @@ DECODE_CASES = [
     (MAIN_DECODE, dict(seed=7, B=32, NH=32, KH=8, D=64, page=64, maxp=16, L=1, lens=[1024] * 32, C=8,
                        cur_lens=[8] * 32, dtype="bfloat16")),
 ]
+DECODE_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in DECODE_CASES]
 
 PREFILL_CASES = [
     ("history+unaligned+tail_bf16", dict(B=3, T=64, NH=32, KH=8, D=64, page=16, maxp=10, L=2, layer=1,
@@ -272,6 +321,30 @@ PREFILL_CASES = [
     (MAIN_PREFILL, dict(seed=8, B=1, T=512, NH=32, KH=8, D=64, page=64, maxp=32, L=1,
                         computed=[1536], chunks=[512], dtype="bfloat16")),
 ]
+PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
+
+# the quantizing KV write alone: pools byte-identical and scales bitwise
+# equal to its plain version
+QWRITE_CASES = [
+    ("aligned_chunk_bf16", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=1,
+                                computed=[32, 0], chunks=[64, 64], dtype="bfloat16")),
+    ("chunk_ends_mid_page_bf16", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=1,
+                                      computed=[32, 16], chunks=[50, 37], dtype="bfloat16")),
+    ("unaligned_head_page_f32_d128", dict(B=2, T=64, NH=8, KH=2, D=128, page=16, maxp=8, L=1,
+                                          computed=[37, 5], chunks=[64, 40], dtype="float32")),
+    ("other_layers_untouched_bf16", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=3, layer=1,
+                                         computed=[21, 0], chunks=[60, 33], dtype="bfloat16")),
+]
+
+
+def _kernel_name(base: str, quant: bool) -> str:
+    return base + "[int8]" if quant else base
+
+
+def _clone_pools(args, kw):
+    """Copies of a case's pools (and scales): (kp, vp, scales kwargs)."""
+    skw = {k: kw[k].clone() for k in ("k_scales", "v_scales") if k in kw}
+    return args[1].clone(), args[2].clone(), skw
 
 
 def phase_kernels():
@@ -280,12 +353,14 @@ def phase_kernels():
     from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_ref
     from production_stack_tpu_torch.ops.kernels.prefill_attention import (
         kv_page_write,
+        kv_page_write_quant,
+        kv_page_write_quant_ref,
         kv_page_write_ref,
         prefill_attention,
         prefill_attention_ref,
     )
 
-    worst = {"decode_attention": 0.0, "prefill_attention": 0.0, "kv_page_write": 0.0}
+    worst = {name: 0.0 for name in REPLACES}
 
     def judged(kernel, name, out, ref, dtype, control=None):
         res = _judge(out, ref, dtype)
@@ -303,159 +378,231 @@ def phase_kernels():
                   f"{kernel} {name}: the bound does not reject a one-key-fewer output")
         worst[kernel] = max(worst[kernel], res["max_abs_err"])
 
+    def pools_same(a, b, skw_a, skw_b):
+        """Byte-identical pools and bitwise-equal scales (NaN bytes too)."""
+        return (_same_bytes(a[0], b[0]) and _same_bytes(a[1], b[1])
+                and all(_same_bytes(skw_a[k], skw_b[k]) for k in skw_a))
+
     for name, kw in DECODE_CASES:
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
         seed = kw.pop("seed", 1)
+        kernel = _kernel_name("decode_attention", kw.get("quant", False))
         args, call_kw = decode_case(seed, **kw)
         out = decode_attention(*args, **call_kw)
         torch.cuda.synchronize()
         ref = decode_attention_ref(*args, **call_kw)
         if kw.get("poison"):
-            # the plain version on clean pools: poisoned slots must be skipped
-            clean, _ = decode_case(seed, **dict(kw, poison=False))
-            ref = decode_attention_ref(*clean, **call_kw)
+            # the plain version on clean inputs: poisoned slots must be skipped
+            clean, clean_kw = decode_case(seed, **dict(kw, poison=False))
+            ref = decode_attention_ref(*clean, **clean_kw)
         control = None
-        if name == MAIN_DECODE:
+        if name in (MAIN_DECODE, INT8 + MAIN_DECODE):
             q, kp, vp, pt, lens = args
             control = decode_attention_ref(q, kp, vp, pt, lens - 1, **call_kw)
-        judged("decode_attention", name, out, ref, kw["dtype"], control)
+        judged(kernel, name, out, ref, kw["dtype"], control)
         if 0 in kw["lens"]:
             check(float(out[kw["lens"].index(0)].float().abs().max()) == 0.0, f"decode {name}: empty row not 0")
 
     for name, kw in PREFILL_CASES:
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
         seed = kw.pop("seed", 2)
+        quant = kw.get("quant", False)
+        kernel = _kernel_name("prefill_attention", quant)
         args, call_kw = prefill_case(seed, **kw)
         q, kp, vp, pt, pos, lens, kc, vc, cl = args
-        kp_k, vp_k, kp_r, vp_r = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-        out = prefill_attention(q, kp_k, vp_k, pt, pos, lens, kc, vc, cl, fused_write=True, **call_kw)
+        kp_k, vp_k, skw_k = _clone_pools(args, call_kw)
+        kp_r, vp_r, skw_r = _clone_pools(args, call_kw)
+        out = prefill_attention(q, kp_k, vp_k, pt, pos, lens, kc, vc, cl, fused_write=True,
+                                **dict(call_kw, **skw_k))
         torch.cuda.synchronize()
-        ref = prefill_attention_ref(q, kp_r, vp_r, pt, pos, lens, kc, vc, cl, fused_write=True, **call_kw)
-        pools_equal = _same_bytes(kp_k, kp_r) and _same_bytes(vp_k, vp_r)
+        ref = prefill_attention_ref(q, kp_r, vp_r, pt, pos, lens, kc, vc, cl, fused_write=True,
+                                    **dict(call_kw, **skw_r))
+        same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
         if kw.get("poison"):
-            clean, _ = prefill_case(seed, **dict(kw, poison=False))
-            ref = prefill_attention_ref(*clean, **call_kw)
+            clean, clean_kw = prefill_case(seed, **dict(kw, poison=False))
+            ref = prefill_attention_ref(*clean, **clean_kw)
         control = None
-        if name == MAIN_PREFILL:
+        if name in (MAIN_PREFILL, INT8 + MAIN_PREFILL):
             control = prefill_attention_ref(q, kp, vp, pt, pos, lens - 1, kc, vc, cl, **call_kw)
-        judged("prefill_attention", name, out, ref, kw["dtype"], control)
-        emit({"phase": "kernels", "kernel": "prefill_attention", "case": name,
-              "fused_write_pools_byte_identical": pools_equal})
-        check(pools_equal, f"prefill {name}: fused-write pools differ from the plain scatter")
+        judged(kernel, name, out, ref, kw["dtype"], control)
+        emit({"phase": "kernels", "kernel": kernel, "case": name, "fused_write_pools_byte_identical": same})
+        check(same, f"prefill {name}: fused-write pools differ from the plain version's")
         for b, c in enumerate(kw["chunks"]):
             if c == 0:
                 check(float(out[b].float().abs().max()) == 0.0, f"prefill {name}: padded row not 0")
 
         # the write kernel alone, on its own copies of the pools
-        kp_k, vp_k, kp_r, vp_r = kp.clone(), vp.clone(), kp.clone(), vp.clone()
-        kv_page_write(kc, vc, pos, cl, pt, kp_k, vp_k, layer=call_kw["layer"])
+        wkernel = "kv_page_write_quant" if quant else "kv_page_write"
+        kp_k, vp_k, skw_k = _clone_pools(args, call_kw)
+        kp_r, vp_r, skw_r = _clone_pools(args, call_kw)
+        if quant:
+            kv_page_write_quant(kc, vc, lens, cl, pt, kp_k, vp_k, layer=call_kw["layer"], **skw_k)
+            torch.cuda.synchronize()
+            kv_page_write_quant_ref(kc, vc, lens, cl, pt, kp_r, vp_r, layer=call_kw["layer"], **skw_r)
+        else:
+            kv_page_write(kc, vc, pos, cl, pt, kp_k, vp_k, layer=call_kw["layer"])
+            torch.cuda.synchronize()
+            kv_page_write_ref(kc, vc, pos, cl, pt, kp_r, vp_r, layer=call_kw["layer"])
+        same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
+        err = max([_pool_err(kp_k, kp_r), _pool_err(vp_k, vp_r)] + [_pool_err(skw_k[k], skw_r[k]) for k in skw_k])
+        emit({"phase": "kernels", "kernel": wkernel, "case": name, "pools_byte_identical": same, "max_abs_err": err})
+        check(same, f"{wkernel} {name}: pools differ from the plain version's")
+        worst[wkernel] = max(worst[wkernel], err)
+
+    for name, kw in QWRITE_CASES:
+        kw = dict(kw, dtype=getattr(torch, kw["dtype"]), quant=True)
+        args, call_kw = prefill_case(3, **kw)
+        _, kp, vp, pt, pos, lens, kc, vc, cl = args
+        kp_k, vp_k, skw_k = _clone_pools(args, call_kw)
+        kp_r, vp_r, skw_r = _clone_pools(args, call_kw)
+        kv_page_write_quant(kc, vc, lens, cl, pt, kp_k, vp_k, layer=call_kw["layer"], **skw_k)
         torch.cuda.synchronize()
-        kv_page_write_ref(kc, vc, pos, cl, pt, kp_r, vp_r, layer=call_kw["layer"])
-        same = _same_bytes(kp_k, kp_r) and _same_bytes(vp_k, vp_r)
-        err = max(_pool_err(kp_k, kp_r), _pool_err(vp_k, vp_r))
-        emit({"phase": "kernels", "kernel": "kv_page_write", "case": name, "pools_byte_identical": same,
-              "max_abs_err": err})
-        check(same, f"kv_page_write {name}: pools differ from the plain scatter")
-        worst["kv_page_write"] = max(worst["kv_page_write"], err)
+        kv_page_write_quant_ref(kc, vc, lens, cl, pt, kp_r, vp_r, layer=call_kw["layer"], **skw_r)
+        same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
+        layer = call_kw["layer"]
+        others = [i for i in range(kw["L"]) if i != layer]
+        untouched = all(
+            _same_bytes(x[i], y[i]) for i in others
+            for x, y in ((kp_k, kp), (vp_k, vp), (skw_k["k_scales"], call_kw["k_scales"]),
+                         (skw_k["v_scales"], call_kw["v_scales"]))
+        )
+        changed = not _same_bytes(kp_k[layer], kp[layer])
+        emit({"phase": "kernels", "kernel": "kv_page_write_quant", "case": name,
+              "pools_and_scales_byte_identical": same, "other_layers_untouched": untouched, "wrote": changed})
+        check(same and untouched and changed, f"kv_page_write_quant {name}: pools or scales differ from the "
+                                              f"plain version's, or other layers changed")
     return worst
 
 
-def _forward_run(model, impl, ids, chunk, burst):
+def _forward_run(model, impl, ids, chunk, burst, quant=False):
     """Two prefill chunks then one decode burst of ``burst`` steps through
-    model.forward with attn_impl ``impl``. The burst reads its input tokens
+    model.forward with attn_impl ``impl``, into bf16 pools or, with
+    ``quant``, int8 pools and their scales. The burst reads its input tokens
     from ``ids`` (teacher forcing), so both implementations see the same
     tokens. Returns the logits [B, V] of both chunks and every burst step,
-    and the pools after the burst's commit."""
+    and the pools (and scales) after the burst's commit."""
     import dataclasses
 
     import torch
 
     from production_stack_tpu_torch.models import llama
     from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
+    from production_stack_tpu_torch.ops.quant import init_kv_scales, write_kv_pages_all_layers_quant
 
-    cfg = dataclasses.replace(model.cfg, attn_impl=impl)
+    cfg = dataclasses.replace(model.cfg, attn_impl=impl, kv_cache_dtype="int8" if quant else "auto")
     model.cfg = cfg
     dev = ids.device
     B, page = ids.shape[0], 64
+    L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     maxp = -(-(2 * chunk + burst) // page)
     kp, vp = llama.init_kv_pages(cfg, B * maxp, page, dev)
+    scales = (init_kv_scales(L, B * maxp, KH, dev), init_kv_scales(L, B * maxp, KH, dev)) if quant else None
     pt = torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp)
     logits = []
     for c in range(2):
         pos = torch.arange(c * chunk, (c + 1) * chunk, dtype=torch.int32, device=dev)[None].repeat(B, 1)
         lens = torch.full((B,), (c + 1) * chunk, dtype=torch.int32, device=dev)
-        lg = model(ids[:, c * chunk:(c + 1) * chunk], pos, kp, vp, pt, lens)
+        lg = model(ids[:, c * chunk:(c + 1) * chunk], pos, kp, vp, pt, lens, kv_scales=scales)
         logits.append(lg)
-    L, KH, D = cfg.num_layers, cfg.num_kv_heads, cfg.head_dim
     k_acc = torch.zeros((L, B, burst, KH, D), dtype=cfg.dtype, device=dev)
     v_acc = torch.zeros_like(k_acc)
     counts = torch.zeros((B,), dtype=torch.int32, device=dev)
     for s in range(burst):
         pos = torch.full((B, 1), 2 * chunk + s, dtype=torch.int32, device=dev)
         lens = torch.full((B,), 2 * chunk + s + 1, dtype=torch.int32, device=dev)
-        lg = model(ids[:, 2 * chunk + s][:, None], pos, kp, vp, pt, lens, kv_burst=(k_acc, v_acc, counts))
+        lg = model(ids[:, 2 * chunk + s][:, None], pos, kp, vp, pt, lens, kv_burst=(k_acc, v_acc, counts),
+                   kv_scales=scales)
         counts = counts + 1
         logits.append(lg)
     jj = torch.arange(burst, dtype=torch.int32, device=dev)[None].repeat(B, 1)
-    write_kv_pages_all_layers(kp, vp, k_acc, v_acc, pt, 2 * chunk + jj)
+    if quant:
+        write_kv_pages_all_layers_quant(kp, vp, *scales, k_acc, v_acc, pt, 2 * chunk + jj)
+    else:
+        write_kv_pages_all_layers(kp, vp, k_acc, v_acc, pt, 2 * chunk + jj)
     torch.cuda.synchronize()
-    return logits, (kp, vp)
+    return logits, (kp, vp) + (scales or ())
 
 
 # the kernel forward's logits vs the plain forward's, llama-3.2-1b in bf16:
 # attention outputs differ by bf16 rounding (a last-bit flip after another
 # f32 summation order) and 16 layers carry it into logits of order 1, whose
-# bf16 ulp is 2^-7 to 2^-5
+# bf16 ulp is 2^-7 to 2^-5. The int8 pool run is held to the same bound.
 FORWARD_LOGIT_BOUND = 0.25
 FORWARD_TOP1_MIN = 0.9
 
 
 def phase_forward():
+    """llama-3.2-1b with the kernels and with the plain versions, first into
+    bf16 pools, then into int8 pools. Layer 0's K/V come before any
+    attention, so its int8 pages and scales must be byte-identical between
+    the two int8 runs (the quantizing write kernel against its plain
+    version, inside the model)."""
     import torch
 
     from production_stack_tpu_torch.engine.model_loader import load_model
 
-    t0 = time.perf_counter()
+    t_load = time.perf_counter()
     _, cfg, model = load_model("llama-3.2-1b", seed=0, device="cuda")
+    load_s = time.perf_counter() - t_load
     gen = torch.Generator().manual_seed(3)
     B, chunk, burst = 2, 512, 8
     ids = torch.randint(0, cfg.vocab_size, (B, 2 * chunk + burst), generator=gen, dtype=torch.int32).cuda()
-    with torch.no_grad():
-        lk, pools_k = _forward_run(model, "cuda", ids, chunk, burst)
-        lp, pools_p = _forward_run(model, "plain", ids, chunk, burst)
-    finite = all(bool(torch.isfinite(x).all()) for x in lk)
-    shapes_ok = all(tuple(x.shape) == (B, cfg.vocab_size) for x in lk)
-    diffs = [float((a - b).abs().max()) for a, b in zip(lk, lp)]
-    top1 = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(lk, lp)) / (B * len(lk))
-    pool_diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(pools_k, pools_p))
-    emit({
-        "phase": "forward", "model": "llama-3.2-1b", "layers": cfg.num_layers, "hidden": cfg.hidden_size,
-        "dtype": "bfloat16", "rows": B, "chunks": [chunk, chunk], "burst": burst,
-        "max_logit_diff_per_step": diffs, "max_logit_diff": max(diffs), "bound": FORWARD_LOGIT_BOUND,
-        "top1_agreement": top1, "top1_min": FORWARD_TOP1_MIN, "logit_absmax": float(lk[0].abs().max()),
-        "pool_max_abs_diff_after_commit": pool_diff, "finite": finite,
-        "seconds": round(time.perf_counter() - t0, 2),
-    })
-    check(finite and shapes_ok, "forward: logits not finite or of the wrong shape")
-    check(max(diffs) <= FORWARD_LOGIT_BOUND, f"forward: logit diff {max(diffs)} > {FORWARD_LOGIT_BOUND}")
-    check(top1 >= FORWARD_TOP1_MIN, f"forward: top-1 agreement {top1} < {FORWARD_TOP1_MIN}")
+    for quant in (False, True):
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            lk, pools_k = _forward_run(model, "cuda", ids, chunk, burst, quant)
+            lp, pools_p = _forward_run(model, "plain", ids, chunk, burst, quant)
+        finite = all(bool(torch.isfinite(x).all()) for x in lk)
+        shapes_ok = all(tuple(x.shape) == (B, cfg.vocab_size) for x in lk)
+        diffs = [float((a - b).abs().max()) for a, b in zip(lk, lp)]
+        top1 = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(lk, lp)) / (B * len(lk))
+        pool_diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(pools_k, pools_p))
+        line = {
+            "phase": "forward", "model": "llama-3.2-1b", "layers": cfg.num_layers, "hidden": cfg.hidden_size,
+            "dtype": "bfloat16", "kv_cache_dtype": "int8" if quant else "auto", "rows": B,
+            "chunks": [chunk, chunk], "burst": burst,
+            "max_logit_diff_per_step": diffs, "max_logit_diff": max(diffs), "bound": FORWARD_LOGIT_BOUND,
+            "top1_agreement": top1, "top1_min": FORWARD_TOP1_MIN, "logit_absmax": float(lk[0].abs().max()),
+            "pool_max_abs_diff_after_commit": pool_diff, "finite": finite,
+            "seconds": round(time.perf_counter() - t0 + (0.0 if quant else load_s), 2),
+        }
+        if quant:
+            line["layer0_pages_and_scales_byte_identical"] = all(
+                _same_bytes(a[0], b[0]) for a, b in zip(pools_k, pools_p)
+            )
+        emit(line)
+        what = "forward[int8]" if quant else "forward"
+        check(finite and shapes_ok, f"{what}: logits not finite or of the wrong shape")
+        check(max(diffs) <= FORWARD_LOGIT_BOUND, f"{what}: logit diff {max(diffs)} > {FORWARD_LOGIT_BOUND}")
+        check(top1 >= FORWARD_TOP1_MIN, f"{what}: top-1 agreement {top1} < {FORWARD_TOP1_MIN}")
+        if quant:
+            check(line["layer0_pages_and_scales_byte_identical"],
+                  f"{what}: layer 0's int8 pages or scales differ between the kernel and plain runs")
     del model
     torch.cuda.empty_cache()
 
 
+# each kernel row's launch counter, as (wrapper, attribute): the int8 modes
+# of the two attention kernels count apart from their fp modes
 def _counters():
     from production_stack_tpu_torch.ops.kernels import decode_attention as dmod
     from production_stack_tpu_torch.ops.kernels import prefill_attention as pmod
 
-    return {
-        "decode_attention": dmod.decode_attention,
-        "prefill_attention": pmod.prefill_attention,
-        "kv_page_write": pmod.kv_page_write,
-    }, {
+    kernels = {
+        "decode_attention": (dmod.decode_attention, "launches"),
+        "prefill_attention": (pmod.prefill_attention, "launches"),
+        "kv_page_write": (pmod.kv_page_write, "launches"),
+        "decode_attention[int8]": (dmod.decode_attention, "launches_int8"),
+        "prefill_attention[int8]": (pmod.prefill_attention, "launches_int8"),
+        "kv_page_write_quant": (pmod.kv_page_write_quant, "launches"),
+    }
+    plains = {
         "decode_attention_ref": dmod.decode_attention_ref,
         "prefill_attention_ref": pmod.prefill_attention_ref,
         "kv_page_write_ref": pmod.kv_page_write_ref,
+        "kv_page_write_quant_ref": pmod.kv_page_write_quant_ref,
     }
+    return kernels, plains
 
 
 def _prompt(rng, n_chars: int) -> str:
@@ -463,7 +610,7 @@ def _prompt(rng, n_chars: int) -> str:
     return "".join(letters[rng.randrange(len(letters))] for _ in range(n_chars))
 
 
-async def _serve_requests(port: int) -> dict:
+async def _serve_requests(port: int, metric_series: tuple = ()) -> dict:
     import random
 
     import aiohttp
@@ -538,12 +685,35 @@ async def _serve_requests(port: int) -> dict:
         check(same, "serve: the same greedy request returned different text")
         async with s.get(base + "/metrics") as r:
             metrics = await r.text()
-        check("vllm:generation_tokens_total" in metrics, "serve: /metrics lacks generation_tokens_total")
+        for series in ("vllm:generation_tokens_total",) + metric_series:
+            check(f"{series}{{" in metrics, f"serve: /metrics lacks {series}")
+        out["metrics"] = {
+            line.split("{")[0]: float(line.rsplit(" ", 1)[1]) for line in metrics.splitlines()
+            if line.split("{")[0] in metric_series
+        }
         out["usage_example"] = results[1][1]["usage"]
     return out
 
 
-def phase_serve() -> dict:
+# The int8 server: int8 pools and the CPU offload tier, with a pool of 40
+# pages (2,560 tokens) that the concurrent requests (~46 pages) overrun, so
+# the repeat request's prefix pages are evicted to the tier between its two
+# runs and restored from it for the second.
+INT8_SERVE = dict(kv_cache_dtype="int8", kv_offload_cpu_gb=1.0, num_pages=40)
+INT8_METRICS = (
+    "vllm:kv_cache_dtype_bytes_per_token", "vllm:kv_quant_pages", "vllm:kv_quant_dequant_err_max",
+    "vllm:kv_offload_saved_pages_total", "vllm:kv_offload_loaded_pages_total", "vllm:kv_offload_hit_pages_total",
+    "vllm:kv_offload_max_io_pages", "vllm:kv_offload_link_bandwidth_bytes_per_sec",
+)
+SERVE_ROWS = {
+    False: ("decode_attention", "prefill_attention", "kv_page_write"),
+    True: ("decode_attention[int8]", "prefill_attention[int8]", "kv_page_write_quant"),
+}
+
+
+def phase_serve(quant: bool = False) -> dict:
+    """The port's OpenAI server in-process: bf16 pools, or (``quant``) int8
+    pools with the CPU offload tier. Returns the launch counts of the run."""
     import socket
 
     import torch
@@ -554,25 +724,32 @@ def phase_serve() -> dict:
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
-    cfg = EngineConfig(model="llama-3.2-1b", host="127.0.0.1", port=port)
+    cfg = EngineConfig(model="llama-3.2-1b", host="127.0.0.1", port=port, **(INT8_SERVE if quant else {}))
     kernels, plains = _counters()
 
     async def run():
         server, runner = await serve(cfg)
         try:
             # every count to 0 right before the main path, read right after
-            for fn in kernels.values():
-                fn.launches = 0
+            for fn, attr in kernels.values():
+                setattr(fn, attr, 0)
             for fn in plains.values():
                 fn.calls = 0
             t0 = time.perf_counter()
-            res = await _serve_requests(port)
+            res = await _serve_requests(port, INT8_METRICS if quant else ())
             res["seconds"] = round(time.perf_counter() - t0, 3)
-            res["launches"] = {k: fn.launches for k, fn in kernels.items()}
+            res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
             res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
-            res["engine"] = {k: v for k, v in server.engine.stats().items()
-                             if k in ("prompt_tokens_total", "generation_tokens_total", "decode_dispatches_total",
-                                      "gpu_prefix_cache_hits_total")}
+            keep = ["prompt_tokens_total", "generation_tokens_total", "decode_dispatches_total",
+                    "gpu_prefix_cache_hits_total", "kv_evicted_pages_total", "num_pages"]
+            if quant:
+                keep += ["cache_dtype", "kv_cache_dtype_bytes_per_token", "kv_quant_pages",
+                         "kv_quant_dequant_err_max", "kv_offload_saved_pages_total",
+                         "kv_offload_loaded_pages_total", "kv_offload_hit_pages_total",
+                         "kv_proactive_spilled_pages_total", "kv_offload_cpu_bytes", "kv_corrupt_pages_total",
+                         "kv_offload_max_io_pages", "kv_offload_link_bandwidth_bytes_per_sec"]
+            stats = server.engine.stats()
+            res["engine"] = {k: stats[k] for k in keep if k in stats}
             return res
         finally:
             await runner.cleanup()
@@ -581,11 +758,22 @@ def phase_serve() -> dict:
     t0 = time.perf_counter()
     res = asyncio.run(run())
     res["seconds_with_startup"] = round(time.perf_counter() - t0, 2)
-    emit({"phase": "serve", "model": "llama-3.2-1b", **res})
-    for k, n in res["launches"].items():
-        check(n > 0, f"serve: kernel {k} was not launched on the main path")
+    what = "serve[int8]" if quant else "serve"
+    emit({"phase": "serve", "model": "llama-3.2-1b", "kv_cache_dtype": cfg.kv_cache_dtype,
+          **({"config": INT8_SERVE} if quant else {}), **res})
+    for k in SERVE_ROWS[quant]:
+        check(res["launches"][k] > 0, f"{what}: kernel {k} was not launched on the main path")
+    for k in SERVE_ROWS[not quant]:  # an int8 pool never reaches an fp mode, nor the other way round
+        check(res["launches"][k] == 0, f"{what}: kernel {k} ran {res['launches'][k]} times on the main path")
     for k, n in res["plain_calls"].items():
-        check(n == 0, f"serve: plain version {k} ran {n} times on the main path")
+        check(n == 0, f"{what}: plain version {k} ran {n} times on the main path")
+    if quant:
+        e = res["engine"]
+        check(e["kv_offload_saved_pages_total"] > 0, f"{what}: no page was saved to the CPU tier")
+        check(e["kv_offload_loaded_pages_total"] > 0 and e["kv_offload_hit_pages_total"] > 0,
+              f"{what}: no page was restored from the CPU tier")
+        check(e["kv_corrupt_pages_total"] == 0, f"{what}: the CPU tier held corrupt pages")
+        check(res["repeat_cached_tokens"] >= 512, f"{what}: the repeat reused {res['repeat_cached_tokens']} tokens")
     torch.cuda.empty_cache()
     return res["launches"]
 
@@ -593,7 +781,9 @@ def phase_serve() -> dict:
 def _time_ms(fn, iters=30, warmup=3) -> float:
     """Median device ms of one call, CUDA events around each launch. Before
     each launch a 128 MB read evicts the 50 MB L2 (a read, so no write-back
-    of the flush competes with the timed launch)."""
+    of the flush competes with the timed launch), then a ~0.5 ms spin on
+    the card holds the start event back until the host has enqueued the
+    call: the wrapper's Python time never lands between the two events."""
     import torch
 
     flush = torch.ones(32 << 20, dtype=torch.float32, device="cuda")
@@ -602,6 +792,7 @@ def _time_ms(fn, iters=30, warmup=3) -> float:
     times = []
     for _ in range(iters):
         flush.sum()
+        torch.cuda._sleep(1_000_000)
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
@@ -625,10 +816,13 @@ def phase_timing() -> dict:
     from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_ref
     from production_stack_tpu_torch.ops.kernels.prefill_attention import (
         kv_page_write,
+        kv_page_write_quant,
+        kv_page_write_quant_ref,
         kv_page_write_ref,
         prefill_attention,
         prefill_attention_ref,
     )
+    from production_stack_tpu_torch.ops.quant import gather_kv_pages_quant
 
     bf16 = torch.bfloat16
     rows = {}
@@ -689,6 +883,58 @@ def phase_timing() -> dict:
     rows["kv_page_write"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
                                  shape=f"T={T} KH={KH} D={D} page={page} bf16",
                                  library="index_copy_ into the flat pool, K and V")
+
+    # the int8 modes at the same shapes: int8 pools with per-page scales
+    case = dict(dict(DECODE_CASES)[INT8 + MAIN_DECODE], dtype=bf16)
+    args, kw = decode_case(case.pop("seed"), **case)
+    q, kp, vp, pt, lens = args
+    ms = _time_ms(lambda: decode_attention(*args, **kw))
+    plain = _time_ms(lambda: decode_attention_ref(*args, **kw))
+    # the yardstick reads KV dequantized beforehand (the dequant is not timed)
+    kg, vg = gather_kv_pages_quant(kp[0], vp[0], kw["k_scales"][0], kw["v_scales"][0], pt, dtype=bf16)
+    k_all = torch.cat([kg[:, : ctx - C], kw["k_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    v_all = torch.cat([vg[:, : ctx - C], kw["v_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    q4 = q[:, :, None]
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(q4, k_all, v_all))
+    hist_pages = -(-(ctx - C) // page)
+    nbytes = (B * NH * D * el + 2 * B * (ctx - C) * KH * D + 2 * B * hist_pages * KH * 4
+              + 2 * B * C * KH * D * el + pt.numel() * 4 + 2 * B * 4 + B * NH * D * el)
+    b_ms, b_by = _bound(nbytes, 4 * B * NH * D * ctx)
+    rows["decode_attention[int8]"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        shape=f"B={B} ctx={ctx} C={C} NH={NH} KH={KH} D={D} page={page} int8 pool, bf16 q/window",
+        library="scaled_dot_product_attention over KV dequantized to bf16 beforehand (dequant not timed)")
+
+    case = dict(dict(PREFILL_CASES)[INT8 + MAIN_PREFILL], dtype=bf16)
+    args, kw = prefill_case(case.pop("seed"), **case)
+    q, kp, vp, pt, pos, lens, kc, vc, cl = args
+    ms = _time_ms(lambda: prefill_attention(*args, **kw))
+    plain = _time_ms(lambda: prefill_attention_ref(*args, **kw))
+    kg, vg = gather_kv_pages_quant(kp[0], vp[0], kw["k_scales"][0], kw["v_scales"][0], pt, dtype=bf16)
+    kk = torch.cat([kg[:, :hist], kc], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    vv = torch.cat([vg[:, :hist], vc], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    qq = q.transpose(1, 2).contiguous()
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask))
+    nbytes = (2 * T * NH * D * el + 2 * hist * KH * D + 2 * (hist // page) * KH * 4 + 2 * T * KH * D * el
+              + pt.numel() * 4 + T * 4 + 8)
+    b_ms, b_by = _bound(nbytes, 4 * NH * D * pairs)
+    rows["prefill_attention[int8]"] = dict(
+        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+        shape=f"B=1 T={T} history={hist} NH={NH} KH={KH} D={D} page={page} int8 history, bf16 q/chunk",
+        library="scaled_dot_product_attention over history dequantized to bf16 beforehand (dequant not "
+                "timed), causal-offset mask")
+
+    # the chunk's quantizing write into its 8 fresh pages after the history
+    skw = dict(k_scales=kw["k_scales"], v_scales=kw["v_scales"])
+    ms = _time_ms(lambda: kv_page_write_quant(kc, vc, lens, cl, pt, kp, vp, layer=0, **skw))
+    plain = _time_ms(lambda: kv_page_write_quant_ref(kc, vc, lens, cl, pt, kp, vp, layer=0, **skw))
+    n_pages = T // page
+    nbytes = 2 * T * KH * D * el + 2 * n_pages * page * KH * D + 2 * n_pages * KH * 4 + 8 + pt.numel() * 4
+    b_ms, b_by = _bound(nbytes, 0.0)
+    rows["kv_page_write_quant"] = dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                                       shape=f"T={T} into {n_pages} fresh pages, KH={KH} D={D} page={page} "
+                                             f"bf16 -> int8",
+                                       library="none: no single PyTorch call quantizes per page and scatters")
     for name, r in rows.items():
         emit({"phase": "timing", "kernel": name, **r})
     return rows
@@ -711,11 +957,14 @@ def main() -> int:
     phase_build()
     worst = phase_kernels()
     phase_forward()
-    launches = phase_serve()
+    launches = {}
+    for quant in (False, True):  # each row's launches come from its own server's run
+        counts = phase_serve(quant)
+        launches.update({k: counts[k] for k in SERVE_ROWS[quant]})
     timing = phase_timing()
 
     table = []
-    for name in ("decode_attention", "prefill_attention", "kv_page_write"):
+    for name in REPLACES:
         t = timing[name]
         table.append({
             "name": name, "route": "cuda", "source": SOURCES[name], "replaces": REPLACES[name],

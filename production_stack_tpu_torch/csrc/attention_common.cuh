@@ -2,9 +2,10 @@
 // reductions, cp.async staging, and (prefill_attention.cu) the f32
 // CUDA-core fold of one staged KV tile.
 //
-// Masked slots are SKIPPED, never multiplied by p = 0: stale or out-of-range
-// pool slots may hold any bytes, and 0 * NaN is NaN. A tile row that is not
-// staged is never read.
+// Stale or out-of-range pool slots may hold any bytes, and 0 * NaN is NaN:
+// they are never staged, and a tile row that is not staged is never read.
+// fold_tile skips masked slots; the decode fold multiplies a staged slot
+// that is masked (a live, finite value) by p = 0.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -40,6 +41,12 @@ __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
 }
+// 4-byte asynchronous copy (cp.async.ca: through L1), for scalars such as
+// a page's scale.
+__device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(gmem));
+}
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
@@ -61,6 +68,23 @@ __device__ __forceinline__ void load8(const float* p, float (&f)[8]) {
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   f[0] = a.x; f[1] = a.y; f[2] = a.z; f[3] = a.w;
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
+}
+
+// Four int8 values packed in a word, as exact floats, without the I2F
+// conversion (a quarter-rate instruction that bound the int8 decode fold):
+// byte b ^ 0x80 = b + 128 becomes the low mantissa bits of 2^23 (one
+// byte_perm), and subtracting 2^23 + 128 is exact.
+__device__ __forceinline__ void int8x4_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) f[i] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7440 + i)) - 8388736.f;
+}
+
+// Eight int8 pool elements (8 bytes, one load) as floats: |q| <= 127, exact.
+__device__ __forceinline__ void load8(const int8_t* p, float (&f)[8]) {
+  const uint2 w = *reinterpret_cast<const uint2*>(p);
+  int8x4_to_f32(w.x, f);
+  int8x4_to_f32(w.y, f + 4);
 }
 
 // E consecutive elements (E = 2 or 4) of a staged row, as floats, in one
@@ -90,6 +114,14 @@ __device__ __forceinline__ void load_e(const float* p, float (&f)[E]) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
   }
+}
+template <int E>
+__device__ __forceinline__ void load_e(const int8_t* p, float (&f)[E]) {
+  static_assert(E == 2 || E == 4, "E is 2 or 4");
+  float x[4];
+  int8x4_to_f32(E == 2 ? *reinterpret_cast<const uint16_t*>(p) : *reinterpret_cast<const uint32_t*>(p), x);
+#pragma unroll
+  for (int i = 0; i < E; ++i) f[i] = x[i];
 }
 
 // Copy `n` rows of D elements (16-byte vectors) into a shared tile of row

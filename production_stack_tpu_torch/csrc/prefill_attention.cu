@@ -3,10 +3,11 @@
 //
 // Replaces the TPU kernel `_prefill_kernel` of
 // production_stack_tpu/ops/pallas/prefill_attention.py (launched by
-// `ragged_paged_attention_prefill`), fp modes with `fused_write=True`: bf16
-// and f32 pools, sliding window, logit softcap, a layer index into the
-// stacked [L, P, page, KH, D] pools. The int8 modes are not ported yet: the
-// Python wrapper refuses scales.
+// `ragged_paged_attention_prefill`) with `fused_write=True`: bf16 and f32
+// pools, sliding window, logit softcap, a layer index into the stacked
+// [L, P, page, KH, D] pools, and the int8 pool mode (per-page, per-KV-head
+// f32 scales [L, P, KH], ops/quant.py): the history is int8, the chunk's own
+// K/V and q stay bf16/f32, and the write quantizes the chunk into its pages.
 //
 // Masking model (ops/attention.py): pool slot s holds position s and is
 // valid while s < paged_end = kv_len - cur_len; chunk entry j holds the
@@ -36,12 +37,25 @@
 // no served model runs f32). Later work: wgmma with TMA-fed tiles and warp
 // specialisation, and a query tile wider than one warp per head.
 //
-// The KV write is a second kernel, `kv_page_write`, launched by the same
-// wrapper: it copies the chunk's K/V rows into their pool slots in place.
-// Attention reads only slots below paged_end and the write touches only
-// slots at or above it, so the two launches never touch the same bytes.
-// Fusing the write into the attention kernel's epilogue, so that the
-// chunk's K/V cross device memory once, is later work.
+// int8 history (the bf16 path): |q| <= 127 is exact in bf16, so history
+// rows convert int8 -> bf16 in shared memory WITHOUT rounding (loaded
+// synchronously, not through cp.async, while the previous tile's products
+// run), and the tensor-core products stay as they are; each score column is
+// then multiplied by its key's page K scale in f32, and each probability by
+// its key's V scale before it is rounded to bf16 for P V. Scales are looked
+// up per key, so any page size works. The f32 kernel dequantizes history
+// rows in f32 as it stages them.
+//
+// The KV write is a second kernel, `kv_page_write` (fp pools) or
+// `kv_page_write_quant` (int8 pools), launched by the same wrapper after
+// attention: it writes the chunk's K/V rows into their pool slots in place.
+// Attention reads only slots below paged_end and the fp write touches only
+// slots at or above it; the int8 write also rewrites a head page's scale
+// row only when the page is fresh, so running it after attention keeps it
+// clear of the attention's reads (the race the JAX kernel's comment at
+// prefill_attention.py:317-320 describes). Fusing the write into the
+// attention kernel's epilogue, so that the chunk's K/V cross device memory
+// once, is later work.
 #include "attention_common.cuh"
 
 namespace {
@@ -80,9 +94,28 @@ __device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* 
                : "r"(s));
 }
 
-template <int D>
+// tiles [K, V][2][BKV][D + 8] bf16, key positions [2][BKV], and with int8
+// pools the keys' page scales [K, V][2][BKV]
+template <int D, bool QUANT>
 constexpr size_t mma_smem_bytes() {
-  return 4 * (size_t)BKV * (D + 8) * sizeof(__nv_bfloat16) + 2 * BKV * sizeof(int);
+  return 4 * (size_t)BKV * (D + 8) * sizeof(__nv_bfloat16) + 2 * BKV * sizeof(int) +
+         (QUANT ? 4 * BKV * sizeof(float) : 0);
+}
+
+// 16 int8 pool values -> 16 bf16 in shared memory, exactly (|q| <= 127).
+__device__ __forceinline__ void int8x16_to_bf16(const int8_t* src, __nv_bfloat16* dst) {
+  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+  const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
+  uint32_t o[8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float f[4];
+    int8x4_to_f32(w[i], f);
+    o[2 * i] = pack_bf16(f[0], f[1]);
+    o[2 * i + 1] = pack_bf16(f[2], f[3]);
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
 // KSPLIT warps per query head: each takes its 64 / KSPLIT keys of every
@@ -95,15 +128,17 @@ __host__ __device__ constexpr int ksplit() { return D == 64 ? 2 : 1; }
 // kh * G + w % G and takes key share w / G of each tile. Fragment layouts
 // are those of mma.m16n8k16: lane = 4 * g + qd holds rows g and g + 8 and
 // column pairs 2 * qd (+ 8).
-template <int D>
+template <int D, typename KV>
 __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const int* __restrict__ positions,
-    const __nv_bfloat16* __restrict__ k_pages, const __nv_bfloat16* __restrict__ v_pages,
+    const KV* __restrict__ k_pages, const KV* __restrict__ v_pages,
+    const float* __restrict__ k_scales, const float* __restrict__ v_scales,
     const __nv_bfloat16* __restrict__ k_cur, const __nv_bfloat16* __restrict__ v_cur,
     const int* __restrict__ page_table, const int* __restrict__ kv_lens,
     const int* __restrict__ cur_lens, __nv_bfloat16* __restrict__ out, int Tn, int NH, int KH, int P,
     int page_size, int max_pages, int layer, int window, float sm_scale, float softcap) {
   using T = __nv_bfloat16;
+  constexpr bool QUANT = sizeof(KV) == 1;
   constexpr int KS = ksplit<D>();
   constexpr int BQ = 16;           // query tokens per block
   constexpr int ROW = D + 8;       // padded smem row: 16 bytes of pad keep ldmatrix conflict-free
@@ -113,6 +148,8 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
   T* kbuf = reinterpret_cast<T*>(smem_raw);                      // [2][BKV][ROW]
   T* vbuf = kbuf + 2 * BKV * ROW;                                 // [2][BKV][ROW]
   int* kpos_buf = reinterpret_cast<int*>(vbuf + 2 * BKV * ROW);   // [2][BKV], -1 = no key
+  float* kscl_buf = reinterpret_cast<float*>(kpos_buf + 2 * BKV); // [2][BKV], int8 pools
+  float* vscl_buf = kscl_buf + 2 * BKV;
   __shared__ int s_qmin, s_qmax;
 
   const int t_base = blockIdx.x * BQ;
@@ -188,19 +225,37 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
     T* kd = kbuf + (i & 1) * BKV * ROW;
     T* vd = vbuf + (i & 1) * BKV * ROW;
     int* kp = kpos_buf + (i & 1) * BKV;
+    float* ksc = kscl_buf + (i & 1) * BKV;
+    float* vsc = vscl_buf + (i & 1) * BKV;
     int n;
     if (i < n_hist) {
       const int t0 = lo + i * BKV;
       n = min(BKV, hi - t0);
-      auto row_of = [&](const T* pool) {
-        return [=](int r) -> const T* {
+      auto row_of = [&](const KV* pool) {
+        return [=](int r) -> const KV* {
           const int slot = t0 + r;
           const int pg = slot / page_size;
           return pool + layer_off + ((size_t)pt[pg] * page_size + (slot - pg * page_size)) * slot_stride;
         };
       };
-      stage_rows_async<T, D>(kd, ROW, n, row_of(k_pages));
-      stage_rows_async<T, D>(vd, ROW, n, row_of(v_pages));
+      if constexpr (QUANT) {
+        // int8 rows -> bf16 rows, exactly; plain loads and stores, visible
+        // after the barrier that precedes this tile's products
+        auto k_row = row_of(k_pages), v_row = row_of(v_pages);
+        for (int x = threadIdx.x; x < n * (D / 16); x += blockDim.x) {
+          const int r = x / (D / 16), c = x % (D / 16);
+          int8x16_to_bf16(k_row(r) + 16 * c, kd + r * ROW + 16 * c);
+          int8x16_to_bf16(v_row(r) + 16 * c, vd + r * ROW + 16 * c);
+        }
+        for (int r = threadIdx.x; r < n; r += blockDim.x) {
+          const size_t sc = ((size_t)layer * P + pt[(t0 + r) / page_size]) * KH + kh;
+          ksc[r] = k_scales[sc];
+          vsc[r] = v_scales[sc];
+        }
+      } else {
+        stage_rows_async<T, D>(kd, ROW, n, row_of(k_pages));
+        stage_rows_async<T, D>(vd, ROW, n, row_of(v_pages));
+      }
       for (int r = threadIdx.x; r < n; r += blockDim.x) kp[r] = t0 + r;
     } else {
       const int j0 = (i - n_hist) * BKV;
@@ -211,6 +266,9 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
       stage_rows_async<T, D>(kd, ROW, n, cur_row(k_cur));
       stage_rows_async<T, D>(vd, ROW, n, cur_row(v_cur));
       for (int r = threadIdx.x; r < n; r += blockDim.x) kp[r] = pos_b[j0 + r];
+      if constexpr (QUANT) {
+        for (int r = threadIdx.x; r < n; r += blockDim.x) ksc[r] = vsc[r] = 1.f;  // fp chunk
+      }
     }
     for (int x = threadIdx.x; x < (BKV - n) * VPR; x += blockDim.x) {
       const int r = n + x / VPR, c = x % VPR;
@@ -218,6 +276,9 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
       reinterpret_cast<uint4*>(vd + r * ROW)[c] = make_uint4(0u, 0u, 0u, 0u);
     }
     for (int r = n + threadIdx.x; r < BKV; r += blockDim.x) kp[r] = -1;
+    if constexpr (QUANT) {
+      for (int r = n + threadIdx.x; r < BKV; r += blockDim.x) ksc[r] = vsc[r] = 1.f;
+    }
     cp_async_commit();
   };
 
@@ -234,6 +295,8 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
     const T* kt = kbuf + (i & 1) * BKV * ROW + share * 8 * NB * ROW;
     const T* vt = vbuf + (i & 1) * BKV * ROW + share * 8 * NB * ROW;
     const int* kp = kpos_buf + (i & 1) * BKV + share * 8 * NB;
+    const float* ksc = kscl_buf + (i & 1) * BKV + share * 8 * NB;
+    const float* vsc = vscl_buf + (i & 1) * BKV + share * 8 * NB;
 
     // S = Q K^T: B fragments are K rows (keys) read with ldmatrix
     float s[NB][4];
@@ -252,10 +315,15 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
 
     // masked online softmax in log2 units; p overwrites s
     int kpv[NB][2];
+    float ksv[NB][2], vsv[NB][2];  // the keys' page scales (int8 pools)
 #pragma unroll
     for (int nb = 0; nb < NB; ++nb) {
-      kpv[nb][0] = kp[nb * 8 + 2 * qd];
-      kpv[nb][1] = kp[nb * 8 + 2 * qd + 1];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        kpv[nb][e] = kp[nb * 8 + 2 * qd + e];
+        ksv[nb][e] = QUANT ? ksc[nb * 8 + 2 * qd + e] : 1.f;
+        vsv[nb][e] = QUANT ? vsc[nb * 8 + 2 * qd + e] : 1.f;
+      }
     }
 #pragma unroll
     for (int hf = 0; hf < 2; ++hf) {
@@ -268,6 +336,7 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
           const int kpos = kpv[nb][e];
           const bool vis = kpos >= 0 && qp >= 0 && kpos <= qp && kpos > qp - window;
           float x = s[nb][2 * hf + e] * sm_scale;
+          if constexpr (QUANT) x *= ksv[nb][e];
           if (softcap > 0.f) x = softcap * tanhf(x / softcap);
           x = vis ? x * LOG2E : NEG_INF;
           s[nb][2 * hf + e] = x;
@@ -285,7 +354,8 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
         for (int e = 0; e < 2; ++e) {
           const float x = s[nb][2 * hf + e];
           const float p = x == NEG_INF ? 0.f : exp2f(x - m_new);
-          s[nb][2 * hf + e] = p;
+          // P V takes p times the key's V scale, rounded to bf16 once
+          s[nb][2 * hf + e] = QUANT ? p * vsv[nb][e] : p;
           sum += p;
         }
       }
@@ -369,23 +439,23 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
   }
 }
 
-template <int D>
-cudaError_t launch_mma(const void* q, const int* pos, const void* kp, const void* vp, const void* kc,
-                       const void* vc, const int* pt, const int* lens, const int* cl, void* out, int B,
-                       int Tn, int NH, int KH, int P, int page_size, int max_pages, int layer, int window,
-                       float sm_scale, float softcap, cudaStream_t s) {
+template <int D, typename KV>
+cudaError_t launch_mma(const void* q, const int* pos, const void* kp, const void* vp, const float* ks,
+                       const float* vs, const void* kc, const void* vc, const int* pt, const int* lens,
+                       const int* cl, void* out, int B, int Tn, int NH, int KH, int P, int page_size,
+                       int max_pages, int layer, int window, float sm_scale, float softcap, cudaStream_t s) {
   using T = __nv_bfloat16;
-  const size_t smem = mma_smem_bytes<D>();
+  const size_t smem = mma_smem_bytes<D, sizeof(KV) == 1>();
   static bool configured = false;  // idempotent; a race only repeats it
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_attention_mma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        prefill_attention_mma_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
   const dim3 grid((Tn + 15) / 16, KH, B);
-  prefill_attention_mma_kernel<D><<<grid, 32 * (NH / KH) * ksplit<D>(), smem, s>>>(
-      static_cast<const T*>(q), pos, static_cast<const T*>(kp), static_cast<const T*>(vp),
+  prefill_attention_mma_kernel<D, KV><<<grid, 32 * (NH / KH) * ksplit<D>(), smem, s>>>(
+      static_cast<const T*>(q), pos, static_cast<const KV*>(kp), static_cast<const KV*>(vp), ks, vs,
       static_cast<const T*>(kc), static_cast<const T*>(vc), pt, lens, cl, static_cast<T*>(out), Tn, NH, KH,
       P, page_size, max_pages, layer, window, sm_scale, softcap);
   return cudaGetLastError();
@@ -396,10 +466,11 @@ cudaError_t launch_mma(const void* q, const int* pos, const void* kp, const void
 constexpr int WARPS = 8;  // warps per block
 constexpr int RPW = 8;    // max query rows per warp (rows per block <= 64)
 
-template <int D>
+template <int D, typename KV>
 __global__ void __launch_bounds__(WARPS * 32, 1) prefill_attention_f32_kernel(
-    const float* __restrict__ q, const int* __restrict__ positions, const float* __restrict__ k_pages,
-    const float* __restrict__ v_pages, const float* __restrict__ k_cur, const float* __restrict__ v_cur,
+    const float* __restrict__ q, const int* __restrict__ positions, const KV* __restrict__ k_pages,
+    const KV* __restrict__ v_pages, const float* __restrict__ k_scales, const float* __restrict__ v_scales,
+    const float* __restrict__ k_cur, const float* __restrict__ v_cur,
     const int* __restrict__ page_table, const int* __restrict__ kv_lens,
     const int* __restrict__ cur_lens, float* __restrict__ out, int Tn, int NH, int KH, int P,
     int page_size, int max_pages, int layer, int TQ, int window, float sm_scale,
@@ -468,16 +539,30 @@ __global__ void __launch_bounds__(WARPS * 32, 1) prefill_attention_f32_kernel(
     const int hi = min(min(paged_end, qmax + 1), max_pages * page_size);
     for (int t0 = lo; t0 < hi; t0 += TILE) {
       const int n = min(TILE, hi - t0);
-      auto pool_row = [&](const T* pool) {
-        return [=](int r) -> const T* {
+      auto pool_row = [&](const KV* pool) {
+        return [=](int r) -> const KV* {
           const int slot = t0 + r;
           const int pg = slot / page_size;
           return pool + layer_off +
                  ((size_t)pt[pg] * page_size + (slot - pg * page_size)) * slot_stride;
         };
       };
-      stage_rows<T, D>(ks, D, n, pool_row(k_pages));
-      stage_rows<T, D>(vs, D, n, pool_row(v_pages));
+      if constexpr (sizeof(KV) == 1) {
+        // int8 history: dequantize in f32 as the rows are staged
+        auto k_row = pool_row(k_pages), v_row = pool_row(v_pages);
+        for (int x = threadIdx.x; x < n * (D / 4); x += blockDim.x) {
+          const int r = x / (D / 4), c = x % (D / 4);
+          const size_t sc = ((size_t)layer * P + pt[(t0 + r) / page_size]) * KH + kh;
+          const char4 a = reinterpret_cast<const char4*>(k_row(r))[c];
+          const char4 bq = reinterpret_cast<const char4*>(v_row(r))[c];
+          const float fk = k_scales[sc], fv = v_scales[sc];
+          reinterpret_cast<float4*>(ks + r * D)[c] = make_float4(a.x * fk, a.y * fk, a.z * fk, a.w * fk);
+          reinterpret_cast<float4*>(vs + r * D)[c] = make_float4(bq.x * fv, bq.y * fv, bq.z * fv, bq.w * fv);
+        }
+      } else {
+        stage_rows<T, D>(ks, D, n, pool_row(k_pages));
+        stage_rows<T, D>(vs, D, n, pool_row(v_pages));
+      }
       __syncthreads();
       const int kpos = t0 + lane;
 #pragma unroll
@@ -553,14 +638,103 @@ __global__ void kv_page_write_kernel(const T* __restrict__ k_cur, const T* __res
   }
 }
 
+// One value quantized into a page of scale `scale`: round(x / scale), half
+// to even, clipped to +-127 (ops/quant.py). An IEEE division, never a
+// multiply by the reciprocal: the same bytes as the JAX package.
+__device__ __forceinline__ signed char quant1(float x, float scale) {
+  return (signed char)max(-127, min(127, __float2int_rn(__fdiv_rn(x, scale))));
+}
+
+// The int8 pools' chunk write (the JAX kernel's fused int8 write,
+// prefill_attention.py:304-394). One block of QW_THREADS per (written page
+// j, K or V and KV head task, row b): row b's chunk holds positions [s0,
+// e0) = [kv_len - cur_len, kv_len), and page j is logical page s0 / page +
+// j. The block takes an f32 abs-max over the page's kept slots x D for its
+// KV head, then writes the page's values. A fresh page (slot 0 at or after s0) takes scale
+// max(amax * f32(1 / 127), 1e-8) and is written whole, zeros past the chunk; a head
+// page that starts before s0 keeps its scale, and only its kept slots are
+// written (clipped). Bound by bytes: the chunk's fp K/V are read twice
+// (the second time from L2) and the int8 pages written once.
+constexpr int QW_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(QW_THREADS) kv_page_write_quant_kernel(const T* __restrict__ k_cur, const T* __restrict__ v_cur,
+                                           const int* __restrict__ kv_lens,
+                                           const int* __restrict__ cur_lens,
+                                           const int* __restrict__ page_table,
+                                           int8_t* __restrict__ k_pages, int8_t* __restrict__ v_pages,
+                                           float* __restrict__ k_scales, float* __restrict__ v_scales,
+                                           int Tn, int KH, int D, int P, int page_size, int max_pages,
+                                           int layer) {
+  const int task = blockIdx.y;  // K heads 0..KH-1, then V heads
+  const int b = blockIdx.z;
+  const int cl = cur_lens[b];
+  if (cl <= 0) return;
+  const int e0 = kv_lens[b];
+  const int s0 = e0 - cl;
+  const int lp = s0 / page_size + blockIdx.x;
+  const int start = lp * page_size;
+  if (start >= e0 || lp >= max_pages) return;
+  const int pid = page_table[(size_t)b * max_pages + lp];
+  const bool fresh = start >= s0;
+  const int groups = page_size * D / 4;  // 4 values of one slot per thread step
+  const size_t row = (size_t)KH * D;
+  const size_t page_off = ((size_t)layer * P + pid) * page_size * row;
+  const int kh = task % KH;
+  const T* cur = task < KH ? k_cur : v_cur;
+  int8_t* dst = (task < KH ? k_pages : v_pages) + page_off + (size_t)kh * D;
+  float* sc = (task < KH ? k_scales : v_scales) + ((size_t)layer * P + pid) * KH + kh;
+  // group g = slot g * 4 / D, values [d0, d0 + 4); false (x = 0) past the chunk
+  auto load = [&](int g, float (&x)[4]) -> bool {
+    const int slot = 4 * g / D;
+    const int pos = start + slot;
+    if (pos < s0 || pos >= e0) {
+      x[0] = x[1] = x[2] = x[3] = 0.f;
+      return false;
+    }
+    load_e<4>(cur + ((size_t)b * Tn + (pos - s0)) * row + (size_t)kh * D + 4 * g % D, x);
+    return true;
+  };
+  float amax = 0.f;
+  if (fresh) {  // block-uniform
+    __shared__ float s_amax[QW_THREADS / 32];
+    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+      float x[4];
+      load(g, x);
+      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3]))));
+    }
+    amax = warp_max(amax);
+    if ((threadIdx.x & 31) == 0) s_amax[threadIdx.x >> 5] = amax;
+    __syncthreads();
+    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) amax = fmaxf(amax, s_amax[w]);
+  }
+  // amax * f32(1 / 127): the JAX package's compiled programs fold amax / 127
+  // into this multiply (ops/quant.py)
+  const float scale = fresh ? fmaxf(__fmul_rn(amax, 1.f / 127.f), 1e-8f) : *sc;
+  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
+    float x[4];
+    if (!load(g, x) && !fresh) continue;  // a head page keeps its earlier slots
+    char4 qv;
+    qv.x = quant1(x[0], scale);
+    qv.y = quant1(x[1], scale);
+    qv.z = quant1(x[2], scale);
+    qv.w = quant1(x[3], scale);
+    *reinterpret_cast<char4*>(dst + (size_t)(4 * g / D) * row + 4 * g % D) = qv;
+  }
+  if (fresh && threadIdx.x == 0) *sc = scale;
+}
+
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16. window: huge = full causal; softcap <= 0
-// = none. bf16 takes at most 8 query heads per KV head; TQ is the f32
-// kernel's query tokens per block (TQ * NH / KH <= 64).
-extern "C" int prefill_attention_launch(int dtype, int head_dim, const void* q,
+// dtype (of q, the chunk K/V and out): 0 = float32, 1 = bfloat16. kv_int8 =
+// 0: pools of that dtype (k_scales/v_scales ignored); 1: int8 pools with f32
+// scales [L, P, KH]. window: huge = full causal; softcap <= 0 = none. bf16
+// takes at most 8 query heads per KV head; TQ is the f32 kernel's query
+// tokens per block (TQ * NH / KH <= 64).
+extern "C" int prefill_attention_launch(int dtype, int kv_int8, int head_dim, const void* q,
                                         const void* positions, const void* k_pages,
-                                        const void* v_pages, const void* k_cur,
+                                        const void* v_pages, const void* k_scales,
+                                        const void* v_scales, const void* k_cur,
                                         const void* v_cur, const void* page_table,
                                         const void* kv_lens, const void* cur_lens, void* out,
                                         int B, int Tn, int NH, int KH, int P, int page_size,
@@ -571,27 +745,32 @@ extern "C" int prefill_attention_launch(int dtype, int head_dim, const void* q,
   const int* pt = static_cast<const int*>(page_table);
   const int* lens = static_cast<const int*>(kv_lens);
   const int* cl = static_cast<const int*>(cur_lens);
+  const float* ks = static_cast<const float*>(k_scales);
+  const float* vs = static_cast<const float*>(v_scales);
   const int G = NH / KH;
+  using bf16 = __nv_bfloat16;
   if (dtype == 1) {
     if (G > MMA_MAX_G) return (int)cudaErrorInvalidValue;
-#define PST_ARGS q, pos, k_pages, v_pages, k_cur, v_cur, pt, lens, cl, out, B, Tn, NH, KH, P, \
+#define PST_ARGS q, pos, k_pages, v_pages, ks, vs, k_cur, v_cur, pt, lens, cl, out, B, Tn, NH, KH, P, \
                  page_size, max_pages, layer, window, sm_scale, softcap, s
-    if (head_dim == 64) return (int)launch_mma<64>(PST_ARGS);
-    if (head_dim == 128) return (int)launch_mma<128>(PST_ARGS);
+    if (head_dim == 64) return (int)(kv_int8 ? launch_mma<64, int8_t>(PST_ARGS) : launch_mma<64, bf16>(PST_ARGS));
+    if (head_dim == 128) return (int)(kv_int8 ? launch_mma<128, int8_t>(PST_ARGS) : launch_mma<128, bf16>(PST_ARGS));
 #undef PST_ARGS
     return (int)cudaErrorInvalidValue;
   }
   if (dtype != 0 || TQ * G > WARPS * RPW) return (int)cudaErrorInvalidValue;
   const dim3 grid((Tn + TQ - 1) / TQ, KH, B);
-#define PST_LAUNCH(DIM)                                                                        \
-  prefill_attention_f32_kernel<DIM><<<grid, WARPS * 32, 2 * TILE * DIM * sizeof(float), s>>>(  \
-      static_cast<const float*>(q), pos, static_cast<const float*>(k_pages),                   \
-      static_cast<const float*>(v_pages), static_cast<const float*>(k_cur),                    \
-      static_cast<const float*>(v_cur), pt, lens, cl, static_cast<float*>(out), Tn, NH, KH, P, \
-      page_size, max_pages, layer, TQ, window, sm_scale, softcap);                             \
+#define PST_LAUNCH(DIM, KV)                                                                      \
+  prefill_attention_f32_kernel<DIM, KV><<<grid, WARPS * 32, 2 * TILE * DIM * sizeof(float), s>>>( \
+      static_cast<const float*>(q), pos, static_cast<const KV*>(k_pages),                          \
+      static_cast<const KV*>(v_pages), ks, vs, static_cast<const float*>(k_cur),                   \
+      static_cast<const float*>(v_cur), pt, lens, cl, static_cast<float*>(out), Tn, NH, KH, P,     \
+      page_size, max_pages, layer, TQ, window, sm_scale, softcap);                                 \
   return (int)cudaGetLastError()
-  if (head_dim == 64) { PST_LAUNCH(64); }
-  if (head_dim == 128) { PST_LAUNCH(128); }
+  if (head_dim == 64 && !kv_int8) { PST_LAUNCH(64, float); }
+  if (head_dim == 128 && !kv_int8) { PST_LAUNCH(128, float); }
+  if (head_dim == 64 && kv_int8) { PST_LAUNCH(64, int8_t); }
+  if (head_dim == 128 && kv_int8) { PST_LAUNCH(128, int8_t); }
 #undef PST_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
@@ -616,6 +795,39 @@ extern "C" int kv_page_write_launch(int dtype, const void* k_cur, const void* v_
         static_cast<const __nv_bfloat16*>(k_cur), static_cast<const __nv_bfloat16*>(v_cur), pos,
         cl, pt, static_cast<__nv_bfloat16*>(k_pages), static_cast<__nv_bfloat16*>(v_pages), Tn,
         KH, D, P, page_size, max_pages, layer);
+  } else {
+    return (int)cudaErrorInvalidValue;
+  }
+  return (int)cudaGetLastError();
+}
+
+// The int8 pools' chunk write: grid (max_write = ceil(T / page) + 1 pages a
+// chunk can touch, 2 * KH tasks, B) of QW_THREADS each.
+extern "C" int kv_page_write_quant_launch(int dtype, const void* k_cur, const void* v_cur,
+                                          const void* kv_lens, const void* cur_lens,
+                                          const void* page_table, void* k_pages, void* v_pages,
+                                          void* k_scales, void* v_scales, int B, int Tn, int KH, int D,
+                                          int P, int page_size, int max_pages, int layer, int max_write,
+                                          void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (D % 4) return (int)cudaErrorInvalidValue;
+  const dim3 grid(max_write, 2 * KH, B);
+  const int threads = QW_THREADS;
+  const int* lens = static_cast<const int*>(kv_lens);
+  const int* cl = static_cast<const int*>(cur_lens);
+  const int* pt = static_cast<const int*>(page_table);
+  int8_t* kp = static_cast<int8_t*>(k_pages);
+  int8_t* vp = static_cast<int8_t*>(v_pages);
+  float* ks = static_cast<float*>(k_scales);
+  float* vs = static_cast<float*>(v_scales);
+  if (dtype == 0) {
+    kv_page_write_quant_kernel<float><<<grid, threads, 0, s>>>(
+        static_cast<const float*>(k_cur), static_cast<const float*>(v_cur), lens, cl, pt, kp, vp, ks, vs, Tn,
+        KH, D, P, page_size, max_pages, layer);
+  } else if (dtype == 1) {
+    kv_page_write_quant_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
+        static_cast<const __nv_bfloat16*>(k_cur), static_cast<const __nv_bfloat16*>(v_cur), lens, cl, pt, kp,
+        vp, ks, vs, Tn, KH, D, P, page_size, max_pages, layer);
   } else {
     return (int)cudaErrorInvalidValue;
   }

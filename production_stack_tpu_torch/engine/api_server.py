@@ -31,7 +31,11 @@ from production_stack_tpu_torch.engine.config import EngineConfig, add_engine_ar
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.scheduler import SamplingParams
 from production_stack_tpu_torch.ops.sampling import TOP_LOGPROBS
-from production_stack_tpu_torch.tracing import get_flightrecorder, render_flightrecorder_metrics
+from production_stack_tpu_torch.tracing import (
+    get_flightrecorder,
+    offload_restore_hist,
+    render_flightrecorder_metrics,
+)
 from production_stack_tpu_torch.utils.logging import init_logger
 from production_stack_tpu_torch.utils.metrics import LATENCY_BUCKETS, TTFT_BUCKETS, Histogram
 
@@ -318,7 +322,7 @@ class EngineServer:
         emit("prompt_tokens_total", "counter", s["prompt_tokens_total"])
         emit("generation_tokens_total", "counter", s["generation_tokens_total"])
         emit("decode_dispatches_total", "counter", s["decode_dispatches_total"])
-        for k in sorted(s):  # kv eviction and engine-loop sections
+        for k in sorted(s):  # kv eviction, int8 KV, offload and engine-loop sections
             if k.startswith(("kv_", "engine_loop_")):
                 emit(k, "counter" if k.endswith("_total") else "gauge", s[k])
         hops = _ttft_hop_quantiles()
@@ -332,6 +336,8 @@ class EngineServer:
         lines.extend(_ttft_hist.render(f'model_name="{m}"'))
         lines.extend(_latency_hist.render(f'model_name="{m}"'))
         lines.extend(render_flightrecorder_metrics(f'model_name="{m}"'))
+        if self.engine._offload is not None:
+            lines.extend(offload_restore_hist.render(f'model_name="{m}"'))
         return web.Response(text="\n".join(lines) + "\n", content_type="text/plain")
 
     async def chat_completions(self, request: web.Request) -> web.StreamResponse:

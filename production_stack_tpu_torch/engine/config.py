@@ -62,6 +62,27 @@ class EngineConfig:
     # "auto" resolves to "cuda" on a CUDA device and "plain" on the CPU
     # (resolve_attn_impl). Asking for "cuda" on the CPU raises.
     attn_impl: str = "auto"
+    # KV cache dtype: "auto" (= the model's dtype) | "int8": int8 pages with
+    # per-page, per-KV-head f32 scales (ops/quant.py), read by the kernels'
+    # int8 modes and written by the quantizing KV write and commit; the
+    # same kv_cache_memory_gb holds about twice the tokens. The JAX engine's
+    # "bf16"/"fp16" are refused by name.
+    kv_cache_dtype: str = "auto"
+    # local KV offload tiers (kvoffload/): evicted prefix pages spill to host
+    # RAM (kv_offload_cpu_gb), then to disk (kv_offload_dir, capped at
+    # kv_offload_disk_gb), and a later prefix match restores them. int8
+    # pools ship their exact bytes and scales as serde v3 blobs; fp pools
+    # use kv_serde (naive | int8)
+    kv_offload_cpu_gb: float = 0.0
+    kv_offload_dir: Optional[str] = None
+    kv_offload_disk_gb: float = 16.0
+    # pages moved per offload operation: 0 = unbounded, -1 = derived at
+    # startup from a host<->device link probe (engine/linkprobe.py)
+    kv_offload_max_io_pages: int = -1
+    # pool usage past which the coldest evictable pages spill ahead of
+    # eviction (0 or >= 1 disables)
+    kv_spill_watermark: float = 0.9
+    kv_serde: str = "naive"
     seed: int = 0
     # engine flight recorder (tracing/flightrecorder.py): a bounded ring of
     # structured engine events (scheduler dispatches, KV evictions, admission
@@ -75,9 +96,8 @@ class EngineConfig:
     # Switches of the JAX engine's features that the port does not serve
     # yet. Each must keep its default: check_supported refuses any other
     # value rather than ignore it. The JAX engine's per-feature sub-knobs
-    # (LoRA ranks, offload sizes, fabric ports, ...) are not carried.
+    # (LoRA ranks, fabric ports, warm-start intervals, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
-    kv_cache_dtype: str = "auto"        # int8 KV is not ported
     decode_pipeline: int = 1            # chained decode bursts
     speculative_k: int = 0              # speculative decoding
     tensor_parallel_size: int = 1
@@ -89,8 +109,7 @@ class EngineConfig:
     distributed_num_processes: int = 1
     enable_sleep_mode: bool = False
     enable_lora: bool = False
-    kv_offload_cpu_gb: float = 0.0
-    kv_offload_dir: Optional[str] = None
+    warm_start: bool = False
     kv_remote_url: Optional[str] = None
     kv_controller_url: Optional[str] = None
     kv_directory_url: Optional[str] = None
@@ -156,6 +175,7 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
 
 
 ATTN_IMPLS = ("auto", "cuda", "plain")
+KV_CACHE_DTYPES = ("auto", "int8")
 
 
 def resolve_attn_impl(attn_impl: str, device) -> str:
@@ -177,7 +197,6 @@ def resolve_attn_impl(attn_impl: str, device) -> str:
 # accepted and then ignored would misreport what is being served)
 _UNSUPPORTED = {
     "kv_write_mode": "the 'pre' KV write mode",
-    "kv_cache_dtype": "a KV cache dtype other than the model's (int8 KV)",
     "decode_pipeline": "chained decode bursts",
     "speculative_k": "speculative decoding",
     "tensor_parallel_size": "tensor parallelism",
@@ -189,9 +208,8 @@ _UNSUPPORTED = {
     "distributed_num_processes": "multi-host serving",
     "enable_sleep_mode": "sleep mode",
     "enable_lora": "LoRA adapters",
-    "kv_offload_cpu_gb": "KV offload",
-    "kv_offload_dir": "KV offload",
-    "kv_remote_url": "KV offload",
+    "warm_start": "warm-start manifests",
+    "kv_remote_url": "the remote KV tier (cache server)",
     "kv_controller_url": "the KV index controller",
     "kv_directory_url": "the fleet KV directory",
     "kv_role": "disaggregated prefill",
@@ -216,4 +234,9 @@ def check_supported(cfg: EngineConfig) -> None:
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(
             f"unknown attn_impl {cfg.attn_impl!r}; options: {ATTN_IMPLS}"
+        )
+    if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
+        raise ValueError(
+            f"kv_cache_dtype {cfg.kv_cache_dtype!r} is not supported by the PyTorch port; "
+            f"options: {KV_CACHE_DTYPES}"
         )

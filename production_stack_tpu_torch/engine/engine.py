@@ -9,9 +9,14 @@ The loop runs the main serving path: chunked prefill with prefix caching,
 then fused decode bursts of ``decode_steps`` tokens, with greedy and
 temperature sampling, penalties, logit bias, min_tokens, stop strings and
 logprobs. Admission control (queue bound and queue deadline) sheds as the
-JAX engine does. Not ported yet: KV offload, the fleet directory, the KV
-fabric, migration, LoRA, speculative decoding, chained bursts, embeddings
-and sleep mode (engine/config.check_supported refuses their flags).
+JAX engine does. ``kv_cache_dtype="int8"`` serves from int8 pools (half the
+bytes per token, about twice the pages for the same memory), and the local
+offload tiers (``kv_offload_cpu_gb``, ``kv_offload_dir``) take evicted
+prefix pages and give them back on a later prefix match. Not ported yet:
+the remote tier, the KV-index controller, the fleet directory, warm start,
+the KV fabric, migration, LoRA, speculative decoding, chained bursts,
+embeddings and sleep mode (engine/config.check_supported refuses their
+flags).
 """
 
 from __future__ import annotations
@@ -30,10 +35,13 @@ import numpy as np
 from production_stack_tpu_torch import tracing
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported
 from production_stack_tpu_torch.engine.kv_manager import KVPageManager
+from production_stack_tpu_torch.engine.linkprobe import derive_max_io_pages, probe_link_bandwidth
 from production_stack_tpu_torch.engine.model_loader import load_model
 from production_stack_tpu_torch.engine.runner import ModelRunner, StepInput
 from production_stack_tpu_torch.engine.scheduler import SamplingParams, Scheduler, Sequence
 from production_stack_tpu_torch.engine.tokenizer import load_tokenizer
+from production_stack_tpu_torch.kvoffload.connector import KVOffloadConnector
+from production_stack_tpu_torch.ops.quant import dequantize_page_host, kv_bytes_per_token, quantize_page_host
 from production_stack_tpu_torch.utils.logging import init_logger
 
 logger = init_logger(__name__)
@@ -64,14 +72,30 @@ class LLMEngine:
             cfg.model, seed=cfg.seed, device=device,
             max_model_len=cfg.max_model_len, params=params,
         )
-        model.cfg = dataclasses.replace(model_cfg, attn_impl=cfg.attn_impl)
+        model.cfg = dataclasses.replace(
+            model_cfg, attn_impl=cfg.attn_impl, kv_cache_dtype=cfg.kv_cache_dtype
+        )
+        self.kv_quant = cfg.kv_cache_dtype == "int8"
         self.tokenizer = load_tokenizer(cfg.tokenizer)
         itemsize = model.embed.element_size()
-        page_bytes = (
-            2 * model_cfg.num_layers * cfg.page_size * model_cfg.num_kv_heads
-            * model_cfg.head_dim * itemsize
-        )
+        L, KH, D = model_cfg.num_layers, model_cfg.num_kv_heads, model_cfg.head_dim
+        page_bytes = 2 * L * cfg.page_size * KH * D * (1 if self.kv_quant else itemsize)
+        if self.kv_quant:
+            # the pages' f32 scale rows (k and v, per KV head) ride the pool
+            # budget too: int8 about doubles the pages kv_cache_memory_gb holds
+            page_bytes += 2 * L * KH * 4
         self.kv_page_bytes = page_bytes
+        # bytes one token costs the pool, and a startup quantize-dequantize
+        # round trip on seeded normal data: the relative error bound of the
+        # int8 math on this build (vllm:kv_quant_dequant_err_max)
+        self.kv_bytes_per_token = kv_bytes_per_token(L, KH, D, cfg.page_size, self.kv_quant, itemsize)
+        self.kv_quant_dequant_err_max = 0.0
+        if self.kv_quant:
+            x = np.random.RandomState(0).randn(L, cfg.page_size, KH, D).astype(np.float32)
+            qx, sx = quantize_page_host(x)
+            self.kv_quant_dequant_err_max = float(
+                np.abs(dequantize_page_host(qx, sx) - x).max() / max(np.abs(x).max(), 1e-9)
+            )
         self._fr = tracing.configure_flightrecorder(
             capacity=cfg.flight_recorder_capacity,
             enabled=cfg.flight_recorder,
@@ -86,7 +110,31 @@ class LLMEngine:
             device=device,
         )
         self.model_cfg = self.runner.cfg
-        self.kv = KVPageManager(num_pages, cfg.page_size)
+        self._offload = None
+        if cfg.kv_offload_cpu_gb > 0 or cfg.kv_offload_dir:
+            self._offload = KVOffloadConnector(
+                self.runner,
+                cpu_bytes=int(cfg.kv_offload_cpu_gb * 1e9),
+                disk_path=cfg.kv_offload_dir,
+                disk_bytes=int(cfg.kv_offload_disk_gb * 1e9) if cfg.kv_offload_dir else 0,
+                serde=cfg.kv_serde,
+            )
+        # offload I/O budget: an explicit >= 0 is taken as it is; -1 derives
+        # it from a startup link probe (0 = unbounded on PCIe-class links)
+        self.kv_link_bandwidth_bytes_per_s = None
+        max_io_pages = max(cfg.kv_offload_max_io_pages, 0)
+        if cfg.kv_offload_max_io_pages < 0 and self._offload is not None:
+            bw = probe_link_bandwidth(self.runner.device)
+            self.kv_link_bandwidth_bytes_per_s = bw
+            max_io_pages = derive_max_io_pages(bw, page_bytes)
+            logger.info(
+                "kv offload link probe: %s MB/s -> max_io_pages=%d",
+                "?" if bw is None else f"{bw / 1e6:.1f}", max_io_pages,
+            )
+        self.kv = KVPageManager(
+            num_pages, cfg.page_size, offload=self._offload, max_io_pages=max_io_pages,
+            spill_watermark=cfg.kv_spill_watermark,
+        )
         self.scheduler = Scheduler(
             self.kv,
             max_num_seqs=cfg.max_num_seqs,
@@ -483,7 +531,26 @@ class LLMEngine:
             "decode_dispatches_total": self.decode_dispatches_total,
             "kv_evicted_pages_total": self.kv.evicted_pages_total,
             "kv_evicted_hot_pages_total": self.kv.evicted_hot_pages_total,
+            "kv_proactive_spilled_pages_total": self.kv.proactive_spilled_pages_total,
+            # the int8 KV surface: cache_dtype is the string form for GET
+            # /stats (non-numeric: the /metrics kv_* sweep skips it)
+            "cache_dtype": self.cfg.kv_cache_dtype,
+            "kv_cache_dtype_bytes_per_token": round(self.kv_bytes_per_token, 3),
+            "kv_quant_pages": self.kv.num_pages if self.kv_quant else 0,
+            "kv_quant_dequant_err_max": round(self.kv_quant_dequant_err_max, 6),
         }
+        if self._offload is not None:
+            o = self._offload.stats()
+            out["kv_offload_hit_pages_total"] = self.kv.offload_hits
+            out["kv_offload_saved_pages_total"] = o["saved_pages"]
+            out["kv_offload_loaded_pages_total"] = o["loaded_pages"]
+            out["kv_offload_cpu_bytes"] = o["cpu_bytes"]
+            out["kv_offload_disk_bytes"] = o["disk_bytes"]
+            out["kv_corrupt_pages_total"] = o["corrupt_pages"]
+            out["kv_offload_dropped_evictions_total"] = o["dropped_evictions"]
+            out["kv_offload_max_io_pages"] = self.kv.max_io_pages
+            if self.kv_link_bandwidth_bytes_per_s is not None:
+                out["kv_offload_link_bandwidth_bytes_per_sec"] = round(self.kv_link_bandwidth_bytes_per_s)
         for section, secs in self.loop_seconds.items():
             out[f"engine_loop_{section}_seconds_total"] = round(secs, 3)
         return out

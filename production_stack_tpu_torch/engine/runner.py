@@ -13,6 +13,10 @@ same shapes as the JAX runner's.
   read-only through the burst; each step appends its K/V to a small
   [L, B, k, KH, D] window that the decode kernel reads beside the pool, and
   one scatter commits the whole burst at the end.
+- With ``kv_cache_dtype="int8"`` (``kv_quant``) the pools are int8 with
+  scales ``k_scales/v_scales`` [L, P, KH] (ops/quant.py): the burst window
+  stays in the model dtype and the burst commit is the quantizing scatter;
+  ``get_pages_quant``/``set_pages_quant`` move pages with their scales.
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -31,6 +35,7 @@ from production_stack_tpu_torch.engine.config import resolve_attn_impl
 from production_stack_tpu_torch.engine.model_loader import tensor_from_numpy
 from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
 from production_stack_tpu_torch.ops.kernels import HEAD_DIMS, MAX_GROUP
+from production_stack_tpu_torch.ops.quant import init_kv_scales, write_kv_pages_all_layers_quant
 from production_stack_tpu_torch.ops.sampling import (
     apply_logit_bias,
     apply_penalties,
@@ -102,6 +107,11 @@ class ModelRunner:
         self.k_pages, self.v_pages = self.module.init_kv_pages(
             cfg, num_pages, page_size, self.device
         )
+        self.kv_quant = cfg.kv_cache_dtype == "int8"
+        self.k_scales = self.v_scales = None
+        if self.kv_quant:
+            self.k_scales = init_kv_scales(cfg.num_layers, num_pages, cfg.num_kv_heads, self.device)
+            self.v_scales = init_kv_scales(cfg.num_layers, num_pages, cfg.num_kv_heads, self.device)
         # one generator per runner: sampled draws are reproducible per seed,
         # and (unlike jax.random) independent of how many steps were traced
         self.generator = torch.Generator(device=self.device)
@@ -137,6 +147,7 @@ class ModelRunner:
         return self.model(
             input_ids, positions, self.k_pages, self.v_pages, s["page_table"],
             kv_lens, kv_burst=kv_burst,
+            kv_scales=(self.k_scales, self.v_scales) if self.kv_quant else None,
         )
 
     def _sample_from(self, logits, s, hist, lens):
@@ -198,7 +209,8 @@ class ModelRunner:
             limits = self._t(inp.kv_limits, torch.int32)
         else:
             limits = torch.full((B,), np.iinfo(np.int32).max // 2, dtype=torch.int32, device=dev)
-        k_acc = torch.zeros((L, B, k, KH, D), dtype=self.k_pages.dtype, device=dev)
+        # the window holds the commit's fp input (int8 pools included)
+        k_acc = torch.zeros((L, B, k, KH, D), dtype=self.cfg.dtype, device=dev)
         v_acc = torch.zeros_like(k_acc)
         counts = torch.zeros((B,), dtype=torch.int32, device=dev)
         ids, pos, lens = s["input_ids"], s["positions"], s["kv_lens"]
@@ -237,9 +249,15 @@ class ModelRunner:
         commit_pos = torch.where(
             (jj < counts[:, None]) & (pos0[:, None] >= 0), pos0[:, None] + jj, -1
         ).to(torch.int32)
-        write_kv_pages_all_layers(
-            self.k_pages, self.v_pages, k_acc, v_acc, s["page_table"], commit_pos
-        )
+        if self.kv_quant:
+            write_kv_pages_all_layers_quant(
+                self.k_pages, self.v_pages, self.k_scales, self.v_scales, k_acc, v_acc,
+                s["page_table"], commit_pos,
+            )
+        else:
+            write_kv_pages_all_layers(
+                self.k_pages, self.v_pages, k_acc, v_acc, s["page_table"], commit_pos
+            )
         tokens = torch.stack(toks, dim=1)
         if want_logprobs:
             lp, tids, tlp = (torch.stack(x, dim=1) for x in zip(*lps))
@@ -280,7 +298,47 @@ class ModelRunner:
                 raise TypeError(f"pages are {src.dtype}, the pool holds {pool.dtype}")
             pool[:, idx] = src.to(self.device)
 
+    def get_pages_quant(self, pids: "list[int]"):
+        """N int8 pages and their scales to the host in one copy: per page
+        ``[L, page, KH, D]`` int8 and ``[L, KH]`` f32 numpy arrays (ks, vs,
+        sks, svs), the exact pool bytes."""
+        if not pids:
+            return [], [], [], []
+        idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
+        out = [t[:, idx].cpu().numpy() for t in (self.k_pages, self.v_pages, self.k_scales, self.v_scales)]
+        return tuple([a[:, i] for i in range(len(pids))] for a in out)
+
+    def set_pages_quant(self, pids: "list[int]", ks, vs, sks, svs) -> None:
+        """Write N int8 pages and their scales (as ``get_pages_quant`` gives
+        them). Misshaped or missing scales are refused before the pools are
+        touched: int8 pages without their scales would read as garbage."""
+        n = len(pids)
+        if n == 0:
+            return
+        ks, vs, sks, svs = list(ks), list(vs), list(sks), list(svs)
+        if not (len(ks) == len(vs) == len(sks) == len(svs) == n):
+            raise ValueError(
+                f"set_pages_quant: {n} pids but {len(ks)}/{len(vs)}/{len(sks)}/{len(svs)} pages/scales"
+            )
+        scale_shape = (self.k_scales.shape[0], self.k_scales.shape[2])
+        for s in sks + svs:
+            a = np.asarray(s)
+            if a.shape != scale_shape or not np.issubdtype(a.dtype, np.floating):
+                raise ValueError(
+                    f"set_pages_quant: scale {a.shape}/{a.dtype} does not match pool scales "
+                    f"{scale_shape}/float32: a quantized page arrived without usable per-kv-head scales"
+                )
+        idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
+        for pool, pages, dt in (
+            (self.k_pages, ks, np.int8), (self.v_pages, vs, np.int8),
+            (self.k_scales, sks, np.float32), (self.v_scales, svs, np.float32),
+        ):
+            pool[:, idx] = torch.from_numpy(np.stack([np.asarray(p, dt) for p in pages], axis=1)).to(self.device)
+
     def reset_kv(self) -> None:
-        """Zero the page pools."""
+        """Zero the page pools (and reset int8 pools' scales to ones)."""
         self.k_pages.zero_()
         self.v_pages.zero_()
+        if self.kv_quant:
+            self.k_scales.fill_(1.0)
+            self.v_scales.fill_(1.0)

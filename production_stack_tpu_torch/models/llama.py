@@ -10,8 +10,12 @@ with W ``[in, out]``, so parameters carry over one to one
 
 The attention of every layer goes through the kernels of ops/kernels/ when
 ``attn_impl == "cuda"`` and through their plain versions when it is
-"plain". Mixtral MoE, LoRA, sp/pp meshes, int8 KV, the "pre" write mode and
-all-position logits are not ported; the model raises on them.
+"plain". With ``kv_cache_dtype="int8"`` the pools hold int8 pages and the
+forward takes their scales (``kv_scales``, ops/quant.py): attention reads
+them through the kernels' int8 modes, a prefill chunk quantizes its K/V in
+the fused write, and a T = 1 step commits through the quantizing scatter.
+Mixtral MoE, LoRA, sp/pp meshes, the "pre" write mode and all-position
+logits are not ported; the model raises on them.
 """
 
 from __future__ import annotations
@@ -34,6 +38,7 @@ from production_stack_tpu_torch.ops.kernels.prefill_attention import (
     prefill_attention_ref,
 )
 from production_stack_tpu_torch.ops.norms import rms_norm
+from production_stack_tpu_torch.ops.quant import write_kv_pages_all_layers_quant
 from production_stack_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_cos_sin
 
 
@@ -59,7 +64,9 @@ class LlamaConfig:
     # versions); the runner resolves "auto" by device
     attn_impl: str = "auto"
     kv_write_mode: str = "post"           # "pre" is not ported
-    kv_cache_dtype: str = "auto"          # int8 is not ported
+    # "auto" (pools in ``dtype``) | "int8" (int8 pages + per-page, per-KV-head
+    # f32 scales, ops/quant.py)
+    kv_cache_dtype: str = "auto"
 
 
 PRESETS: dict[str, LlamaConfig] = {
@@ -136,16 +143,17 @@ def _check_ported(cfg: LlamaConfig) -> None:
         raise NotImplementedError("Mixtral MoE layers are not ported")
     if cfg.kv_write_mode != "post":
         raise NotImplementedError("only kv_write_mode='post' is ported")
-    if cfg.kv_cache_dtype != "auto":
-        raise NotImplementedError("only the model-dtype KV cache is ported")
+    if cfg.kv_cache_dtype not in ("auto", "int8"):
+        raise NotImplementedError(f"kv_cache_dtype {cfg.kv_cache_dtype!r} is not ported (auto, int8)")
 
 
 def init_kv_pages(
     cfg: LlamaConfig, num_pages: int, page_size: int, device, dtype=None
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Layer-stacked page pools: [L, num_pages, page_size, KH, D] zeros."""
+    """Layer-stacked page pools: [L, num_pages, page_size, KH, D] zeros, in
+    ``dtype``, else int8 for ``kv_cache_dtype="int8"``, else ``cfg.dtype``."""
     shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-    dt = dtype or cfg.dtype
+    dt = dtype or (torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.dtype)
     return (
         torch.zeros(shape, dtype=dt, device=device),
         torch.zeros(shape, dtype=dt, device=device),
@@ -232,6 +240,9 @@ class LlamaForCausalLM(nn.Module):
         Without ``kv_burst`` this step's K/V are committed to the pools IN
         PLACE: by the prefill kernel's fused write for T > 1, by one scatter
         after the layers for T == 1.
+        With ``kv_scales = (k_scales, v_scales)`` ([L, P, KH] f32) the pools
+        are int8: reads dequantize in the kernels, writes quantize and
+        update the scales IN PLACE.
         With ``kv_burst = (k_acc, v_acc, counts)`` (decode, T = 1; windows
         [L, B, C, KH, D], counts [B]) the pools stay read-only: row b's
         token is appended to its window at slot counts[b], IN PLACE, and
@@ -240,14 +251,16 @@ class LlamaForCausalLM(nn.Module):
 
         Returns the float32 logits [B, V] of each row's last valid token.
         """
-        if all_logits or kv_scales is not None:
-            raise NotImplementedError("all-position logits and int8 KV are not ported")
+        if all_logits:
+            raise NotImplementedError("all-position logits are not ported")
         cfg = self.cfg
         B, T = input_ids.shape
         plain = cfg.attn_impl == "plain"
         decode = decode_attention_ref if plain else decode_attention
         prefill = prefill_attention_ref if plain else prefill_attention
         burst = kv_burst is not None
+        ks, vs = kv_scales if kv_scales is not None else (None, None)
+        scales = dict(k_scales=ks, v_scales=vs)
         if burst and T != 1:
             raise ValueError("kv_burst is a decode (T == 1) mode")
         x = self.embed[input_ids.long()]
@@ -268,25 +281,29 @@ class LlamaForCausalLM(nn.Module):
                 v_acc[li, rows, cnt] = v[:, 0]
                 attn = decode(
                     q[:, 0], k_pages, v_pages, page_table, kv_lens, cfg.sliding_window,
-                    k_cur=k_acc[li], v_cur=v_acc[li], cur_lens=cur_lens, layer=li,
+                    k_cur=k_acc[li], v_cur=v_acc[li], cur_lens=cur_lens, layer=li, **scales,
                 )[:, None]
             elif T == 1:
                 attn = decode(
                     q[:, 0], k_pages, v_pages, page_table, kv_lens, cfg.sliding_window,
-                    k_cur=k[:, 0].contiguous(), v_cur=v[:, 0].contiguous(), layer=li,
+                    k_cur=k[:, 0].contiguous(), v_cur=v[:, 0].contiguous(), layer=li, **scales,
                 )[:, None]
             else:
                 k, v = k.contiguous(), v.contiguous()
                 attn = prefill(
                     q.contiguous(), k_pages, v_pages, page_table, positions, kv_lens,
-                    k, v, cur_lens, cfg.sliding_window, layer=li, fused_write=True,
+                    k, v, cur_lens, cfg.sliding_window, layer=li, fused_write=True, **scales,
                 )
             if T == 1 and not burst:
                 new_k.append(k)
                 new_v.append(v)
             x = x + attn.reshape(B, T, -1) @ layer.wo
             x = layer.mlp(x, cfg)
-        if new_k:
+        if new_k and ks is not None:
+            write_kv_pages_all_layers_quant(
+                k_pages, v_pages, ks, vs, torch.stack(new_k), torch.stack(new_v), page_table, positions
+            )
+        elif new_k:
             write_kv_pages_all_layers(
                 k_pages, v_pages, torch.stack(new_k), torch.stack(new_v), page_table, positions
             )

@@ -5,7 +5,10 @@ and its plain PyTorch version.
 ``decode_attention_ref`` for CPU tensors; there is no fallback between the
 two. Counterpart of ``ragged_paged_attention_decode`` in the JAX package
 (production_stack_tpu/ops/pallas/paged_attention.py), same arguments and
-layouts, fp pools only: int8 pools (``k_scales``) are not ported yet.
+layouts: fp pools (bf16/f32, as q), or int8 pools with ``k_scales/v_scales``
+[L, P, KH] f32 (ops/quant.py), which the kernel applies in f32 as it folds
+each slot; the burst window stays fp. The wrapper counts fp launches in
+``decode_attention.launches`` and int8 ones in ``launches_int8``.
 """
 
 from __future__ import annotations
@@ -16,31 +19,64 @@ import torch
 
 from production_stack_tpu_torch.ops.attention import paged_attention_decode
 from production_stack_tpu_torch.ops.kernels import HEAD_DIMS, MAX_GROUP, _build
+from production_stack_tpu_torch.ops.quant import dequant
 
 NO_WINDOW = 1 << 30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
 
 
-def _normalize(k_pages, v_pages, k_cur, v_cur, layer):
-    if k_pages.dim() == 4:  # one layer's pools
+def stack_pools(k_pages, v_pages, layer, k_scales=None, v_scales=None):
+    """One layer's pools ([P, page, KH, D], scales [P, KH]) as a one-layer
+    stack; returns (k_pages, v_pages, layer, k_scales, v_scales)."""
+    if k_pages.dim() == 4:
         k_pages, v_pages, layer = k_pages[None], v_pages[None], 0
+        if k_scales is not None and k_scales.dim() == 2:
+            k_scales, v_scales = k_scales[None], v_scales[None]
+    return k_pages, v_pages, int(layer or 0), k_scales, v_scales
+
+
+def check_pool_mode(k_pages, v_pages, k_scales, v_scales) -> bool:
+    """True for int8 pools with their scales, False for fp pools; raises on
+    a mix (int8 pages without scales read as garbage, silently)."""
+    quant = k_pages.dtype == torch.int8
+    if quant != (k_scales is not None) or (k_scales is None) != (v_scales is None):
+        raise TypeError("int8 KV pools and k_scales/v_scales come together")
+    if quant and (v_pages.dtype != torch.int8 or k_scales.dtype != torch.float32 or v_scales.dtype != torch.float32):
+        raise TypeError("int8 pools take float32 k_scales/v_scales")
+    return quant
+
+
+def _normalize(k_pages, v_pages, k_cur, v_cur, layer, k_scales=None, v_scales=None):
+    k_pages, v_pages, layer, k_scales, v_scales = stack_pools(k_pages, v_pages, layer, k_scales, v_scales)
     if k_cur is not None and k_cur.dim() == 3:  # [B, KH, D] -> C = 1
         k_cur, v_cur = k_cur[:, None], v_cur[:, None]
-    return k_pages, v_pages, k_cur, v_cur, int(layer or 0)
+    return k_pages, v_pages, k_cur, v_cur, layer, k_scales, v_scales
 
 
 def decode_attention_ref(
     q, k_pages, v_pages, page_table, seq_lens, window=None, *,
     sm_scale=None, logit_softcap=None, k_cur=None, v_cur=None, cur_lens=None,
-    layer=None,
+    layer=None, k_scales=None, v_scales=None,
 ):
-    """Plain version: gather the layer's pages, then masked f32 softmax
-    attention (ops/attention.paged_attention_decode)."""
+    """Plain version: gather the layer's pages (int8 pages dequantized in
+    f32 by their scales), then masked f32 softmax attention
+    (ops/attention.paged_attention_decode)."""
     decode_attention_ref.calls += 1
-    k_pages, v_pages, k_cur, v_cur, layer = _normalize(k_pages, v_pages, k_cur, v_cur, layer)
+    check_pool_mode(k_pages, v_pages, k_scales, v_scales)
+    k_pages, v_pages, k_cur, v_cur, layer, k_scales, v_scales = _normalize(
+        k_pages, v_pages, k_cur, v_cur, layer, k_scales, v_scales
+    )
+    kp, vp = k_pages[layer], v_pages[layer]
+    if k_scales is not None:
+        # the row's pages, dequantized, as a pool read through an identity table
+        B, maxp = page_table.shape
+        pt = page_table.long()
+        kp = dequant(kp[pt], k_scales[layer][pt]).flatten(0, 1)
+        vp = dequant(vp[pt], v_scales[layer][pt]).flatten(0, 1)
+        page_table = torch.arange(B * maxp, dtype=torch.int32, device=q.device).view(B, maxp)
     return paged_attention_decode(
-        q, k_pages[layer], v_pages[layer], page_table, seq_lens,
+        q, kp, vp, page_table, seq_lens,
         sm_scale=sm_scale, window=window, logit_softcap=logit_softcap,
         k_cur=k_cur, v_cur=v_cur, cur_lens=cur_lens,
     )
@@ -52,7 +88,7 @@ def _lib():
     if not _bound:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.decode_attention_launch.argtypes = [
-            I, I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P,
+            I, I, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P,
         ]
         lib.decode_attention_launch.restype = I
         _bound = True
@@ -67,30 +103,36 @@ def decode_attention(
     """Decode attention of q [B, NH, D] over paged KV; returns [B, NH, D].
 
     Pools [L, P, page, KH, D] with ``layer``, or one layer's [P, page, KH,
-    D]. With ``k_cur/v_cur`` ([B, C, KH, D], or [B, KH, D] for C = 1) pool
-    slots at positions >= seq_lens - cur_lens are stale and window entry j
-    holds position seq_lens - cur_lens + j. Rows with seq_len 0 give 0.
+    D]; int8 pools take ``k_scales/v_scales`` ([L, P, KH] or [P, KH] f32).
+    With ``k_cur/v_cur`` ([B, C, KH, D], or [B, KH, D] for C = 1, in q's
+    dtype) pool slots at positions >= seq_lens - cur_lens are stale and
+    window entry j holds position seq_lens - cur_lens + j. Rows with seq_len
+    0 give 0.
     """
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError("int8 KV pools are not ported to the CUDA decode kernel yet")
     if q.device.type == "cpu":
         return decode_attention_ref(
             q, k_pages, v_pages, page_table, seq_lens, window,
             sm_scale=sm_scale, logit_softcap=logit_softcap,
             k_cur=k_cur, v_cur=v_cur, cur_lens=cur_lens, layer=layer,
+            k_scales=k_scales, v_scales=v_scales,
         )
-    k_pages, v_pages, k_cur, v_cur, layer = _normalize(k_pages, v_pages, k_cur, v_cur, layer)
+    quant = check_pool_mode(k_pages, v_pages, k_scales, v_scales)
+    k_pages, v_pages, k_cur, v_cur, layer, k_scales, v_scales = _normalize(
+        k_pages, v_pages, k_cur, v_cur, layer, k_scales, v_scales
+    )
     B, NH, D = q.shape
     L, P, page_size, KH, Dk = k_pages.shape
     max_pages = page_table.shape[1]
-    if q.dtype not in _DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
-        raise TypeError(f"decode kernel takes f32/bf16 q and pools of the same dtype, got {q.dtype}/{k_pages.dtype}")
+    if q.dtype not in _DTYPES or (not quant and (k_pages.dtype != q.dtype or v_pages.dtype != q.dtype)):
+        raise TypeError(f"decode kernel takes f32/bf16 q and pools of q's dtype or int8, got {q.dtype}/{k_pages.dtype}")
     if D not in HEAD_DIMS or Dk != D or NH % KH or (NH // KH) > MAX_GROUP:
         raise ValueError(
             f"decode kernel takes D in {HEAD_DIMS} and 1..{MAX_GROUP} query heads per KV head; got D={D}, NH={NH}, KH={KH}"
         )
     if not 0 <= layer < L:
         raise ValueError(f"layer {layer} out of range for {L} stacked layers")
+    if quant and (k_scales.shape != (L, P, KH) or v_scales.shape != k_scales.shape):
+        raise ValueError(f"k_scales/v_scales must be [L, P, KH] = {(L, P, KH)}")
     C = 0
     if k_cur is not None:
         C = k_cur.shape[1]
@@ -101,7 +143,7 @@ def decode_attention(
     tensors = [q, k_pages, v_pages, page_table, seq_lens]
     if C:
         tensors += [k_cur, v_cur, cur_lens]
-    for t in tensors:
+    for t in tensors + ([k_scales, v_scales] if quant else []):
         if t.device != q.device:
             raise ValueError("decode kernel inputs must share one CUDA device")
         if not t.is_contiguous():
@@ -115,7 +157,8 @@ def decode_attention(
         raise ValueError("decode kernel needs 16-byte aligned q, pools and windows")
     out = torch.empty_like(q)
     err = _lib().decode_attention_launch(
-        _DTYPES[q.dtype], D, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        _DTYPES[q.dtype], int(quant), D, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
         k_cur.data_ptr() if C else None, v_cur.data_ptr() if C else None,
         page_table.data_ptr(), seq_lens.data_ptr(), cur_lens.data_ptr() if C else None,
         out.data_ptr(), B, NH, KH, P, page_size, max_pages, layer, C,
@@ -126,9 +169,13 @@ def decode_attention(
     )
     if err:
         raise RuntimeError(f"decode_attention kernel launch failed: cudaError {err}")
-    decode_attention.launches += 1
+    if quant:
+        decode_attention.launches_int8 += 1
+    else:
+        decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+decode_attention.launches_int8 = 0
 decode_attention_ref.calls = 0

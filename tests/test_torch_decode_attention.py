@@ -110,7 +110,7 @@ def test_wrapper_takes_the_plain_version_only_for_cpu_tensors():
     assert dmod.decode_attention_ref.calls == calls + 1
     assert dmod.decode_attention.launches == launches  # no kernel ran
     np.testing.assert_array_equal(out.numpy(), dmod.decode_attention_ref(t["q"], t["kp"], t["vp"], t["pt"], lens).numpy())
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(TypeError, match="come together"):  # fp pools take no scales
         dmod.decode_attention(t["q"], t["kp"], t["vp"], t["pt"], lens, k_scales=torch.ones(8, 2))
 
 

@@ -29,7 +29,7 @@ leaked = sorted(
     if m == "production_stack_tpu" or m.startswith("production_stack_tpu.")
 )
 assert not leaked, leaked
-print(len(names))
+print(" ".join(names))
 """
 
 
@@ -38,7 +38,11 @@ def test_every_module_imports_with_jax_blocked():
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True, text=True, timeout=120
     )
     assert out.returncode == 0, out.stderr[-2000:]
-    assert int(out.stdout.strip().splitlines()[-1]) >= 20  # every module was walked
+    names = set(out.stdout.strip().splitlines()[-1].split())
+    assert len(names) >= 26  # every module was walked, the int8 KV and offload ones among them
+    for mod in ("ops.quant", "engine.linkprobe", "kvoffload.serde", "kvoffload.protocol", "kvoffload.tiers",
+                "kvoffload.connector"):
+        assert f"production_stack_tpu_torch.{mod}" in names
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|production_stack_tpu(?!_torch))\b", re.M)
@@ -105,14 +109,16 @@ def test_runner_resolves_attention_by_device():
     [
         ("tensor_parallel_size", 2),
         ("pipeline_parallel_size", 2),
-        ("kv_cache_dtype", "int8"),
         ("enable_lora", True),
         ("speculative_k", 4),
-        ("kv_offload_cpu_gb", 1.0),
         ("kv_role", "producer"),
         ("kv_fabric", True),
         ("kv_write_mode", "pre"),
         ("decode_pipeline", 4),
+        ("kv_remote_url", "127.0.0.1:9100"),
+        ("kv_controller_url", "http://127.0.0.1:9000"),
+        ("kv_directory_url", "http://127.0.0.1:9200"),
+        ("warm_start", True),
     ],
 )
 def test_unported_features_are_refused(field, value):
@@ -126,6 +132,22 @@ def test_defaults_are_supported():
     check_supported(EngineConfig(model="llama-3.2-1b", attn_impl="cuda"))
     with pytest.raises(ValueError, match="unknown attn_impl"):
         check_supported(EngineConfig(attn_impl="xla"))
+
+
+def test_int8_kv_and_the_local_offload_tiers_are_accepted():
+    check_supported(EngineConfig(kv_cache_dtype="int8", kv_offload_cpu_gb=1.0, kv_offload_dir="/tmp/kv",
+                                 kv_offload_disk_gb=2.0, kv_offload_max_io_pages=8, kv_spill_watermark=0.8,
+                                 kv_serde="int8"))
+    for dtype in ("bf16", "fp8"):  # the JAX engine's other KV dtypes are refused by name
+        with pytest.raises(ValueError, match=f"kv_cache_dtype '{dtype}' is not supported"):
+            check_supported(EngineConfig(kv_cache_dtype=dtype))
+    import argparse
+
+    p = argparse.ArgumentParser()
+    port_config.add_engine_args(p)
+    args = p.parse_args(["--kv-cache-dtype", "int8", "--kv-offload-cpu-gb", "8", "--kv-offload-max-io-pages", "0"])
+    assert port_config.config_from_args(args) == EngineConfig(kv_cache_dtype="int8", kv_offload_cpu_gb=8.0,
+                                                               kv_offload_max_io_pages=0)
 
 
 def test_every_config_field_is_read_or_refused():

@@ -123,7 +123,7 @@ def test_wrappers_take_the_plain_versions_only_for_cpu_tensors():
     assert (pmod.prefill_attention.launches, pmod.kv_page_write.launches) == launches
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
     assert torch.equal(t[1], t2[1]) and torch.equal(t[2], t2[2])
-    with pytest.raises(NotImplementedError, match="int8"):
+    with pytest.raises(TypeError, match="come together"):  # fp pools take no scales
         pmod.prefill_attention(*t, k_scales=torch.ones(64, 2))
 
 
