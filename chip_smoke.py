@@ -317,6 +317,28 @@ PREFILL_CASES = [
                              computed=[100, 13], chunks=[80, 77], dtype="float32")),
     ("nan_stale_slots_bf16", dict(B=2, T=32, NH=32, KH=8, D=64, page=16, maxp=8, L=1,
                                   computed=[24, 8], chunks=[32, 20], poison=True, dtype="bfloat16")),
+    # the bf16 kernel's tile edges: a warpgroup holds 64 // G tokens x G heads
+    ("g1_d128_bf16", dict(B=2, T=150, NH=4, KH=4, D=128, page=16, maxp=16, L=1,
+                          computed=[70, 3], chunks=[150, 131], dtype="bfloat16")),
+    ("g7_d128_nan_stale_slots_bf16", dict(B=2, T=50, NH=28, KH=4, D=128, page=16, maxp=8, L=1,
+                                          computed=[45, 16], chunks=[50, 37], poison=True, dtype="bfloat16")),
+    ("g8_bf16", dict(B=2, T=40, NH=32, KH=4, D=64, page=16, maxp=8, L=1,
+                     computed=[20, 0], chunks=[40, 33], dtype="bfloat16")),
+    ("chunk_not_multiple_of_tpw_bf16", dict(B=2, T=80, NH=32, KH=8, D=64, page=64, maxp=4, L=1,
+                                            computed=[100, 64], chunks=[77, 45], dtype="bfloat16")),
+    ("window_unaligned_first_slot_bf16", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=16, L=1,
+                                              computed=[150, 99], chunks=[64, 50], window=45,
+                                              dtype="bfloat16")),
+    # page sizes the kernel looks up by division: 48 slots (history not
+    # page-aligned, so 64-key tiles span pages), and 8,300 tokens of
+    # history over 1,038 pages of 8
+    ("page48_unaligned_history_bf16", dict(B=2, T=96, NH=32, KH=8, D=64, page=48, maxp=8, L=1,
+                                           computed=[101, 29], chunks=[96, 70], dtype="bfloat16")),
+    ("long_history_page8_bf16", dict(B=1, T=64, NH=32, KH=8, D=64, page=8, maxp=1048, L=1,
+                                     computed=[8300], chunks=[64], dtype="bfloat16")),
+    # the step profile's multi-row chunk: 8 rows of 512 tokens after 512
+    ("multi_row_b8_t512_h512_bf16", dict(seed=9, B=8, T=512, NH=32, KH=8, D=64, page=64, maxp=16, L=1,
+                                         computed=[512] * 8, chunks=[512] * 8, dtype="bfloat16")),
     # the timing phase's inputs: a 512-token chunk after 1,536 tokens
     (MAIN_PREFILL, dict(seed=8, B=1, T=512, NH=32, KH=8, D=64, page=64, maxp=32, L=1,
                         computed=[1536], chunks=[512], dtype="bfloat16")),

@@ -18,33 +18,49 @@
 // What bounds it on the card: operations. A 512-token chunk over 1.5k
 // tokens of history does ~4 * T * NH * D * S flops against ~2 * S * KH * D
 // KV bytes, well above the ~295 flop/byte compute line, so the bf16 path
-// (every serving model) runs its two products on the tensor cores:
-//  - one thread block per (16 query tokens, KV head, batch row), one
-//    warp per query head of the GQA group and key share (D = 64: two
-//    warps per head, each folding half of every tile, merged at the end),
-//    so a staged K/V tile serves all G heads of the group;
+// (every serving model) runs both products on the tensor cores, with
+// wgmma (sm_90a), and the design is about keeping them fed:
+//  - GQA-packed rows: a warpgroup holds 64 (token, head) rows of one KV
+//    head's group, tpw = 64 / G tokens x G heads (padding rows when G does
+//    not divide 64), so one staged K/V tile feeds every head of the group
+//    in one 64-row product; a block is two such warpgroups (2 tpw tokens,
+//    256 threads), grid (ceil(T / (2 tpw)), KH, B);
 //  - the block walks history slots [max(min query pos - window + 1, 0),
 //    min(paged_end, max query pos + 1)) through the page table, then the
-//    chunk's own entries up to its last token (the causal upper triangle is
-//    never loaded), in 64-key tiles copied with 16-byte cp.async into a
-//    double buffer, so tile i+1 loads while tile i is folded;
-//  - S = Q K^T and O += P V are mma.sync m16n8k16 (bf16 in, f32 out), the
-//    fragments read with ldmatrix from rows padded by 16 bytes; the masked
-//    online softmax runs in f32 registers, P is rounded to bf16 for P V;
-//  - rows past a tile's last key are zeroed in shared memory, so a masked
-//    key never brings stale bytes (NaN) into P V.
+//    chunk's own entries up to its last token (the causal upper triangle
+//    is never loaded), in
+//    64-key tiles copied with 16-byte cp.async into a ring of NS stages
+//    (5 at D = 64, 4 at D = 128) with one block barrier per tile; rows are
+//    stored in wgmma's 128-byte-swizzled K-major layout (a D = 64 bf16 row
+//    is one 128-byte line; D = 128 is two 64-column halves), rows past a
+//    tile's last key as zeros, so a masked key never brings stale bytes
+//    (NaN) into P V;
+//  - S = Q K^T is wgmma m64n64k16 with K from the swizzled tile and Q in
+//    registers (read once with ldmatrix from its swizzled rows: Q from
+//    shared memory doubled the tile's shared-memory reads, which bounded
+//    the product's issue); O += P V is m64n{D}k16 with P in registers (the
+//    S accumulator layout repacked to bf16) and V from the same tile,
+//    transposed; f32 accumulators, the masked online softmax in f32
+//    registers, unmasked for a warp whose rows all see all of a tile;
+//  - the products overlap the rest: S of tile i + 1 and P V of tile i run
+//    while the next copy is issued and the softmax of tile i + 1 is
+//    computed, and every iteration issues and waits the same two wgmma
+//    groups, so ptxas keeps them asynchronous (a row that cannot see a
+//    tile still runs its products, with p = 0).
 // f32 inputs take a CUDA-core fold of the same tiles (tests and references;
-// no served model runs f32). Later work: wgmma with TMA-fed tiles and warp
-// specialisation, and a query tile wider than one warp per head.
+// no served model runs f32). Later work: TMA-fed tiles with a producer warp
+// (the cp.async copies cost as much issue time as the softmax) and the
+// chunk's write fused into the epilogue.
 //
-// int8 history (the bf16 path): |q| <= 127 is exact in bf16, so history
-// rows convert int8 -> bf16 in shared memory WITHOUT rounding (loaded
-// synchronously, not through cp.async, while the previous tile's products
-// run), and the tensor-core products stay as they are; each score column is
-// then multiplied by its key's page K scale in f32, and each probability by
-// its key's V scale before it is rounded to bf16 for P V. Scales are looked
-// up per key, so any page size works. The f32 kernel dequantizes history
-// rows in f32 as it stages them.
+// int8 history (the bf16 path): the raw int8 rows and their pages' K and V
+// scales ride the same ring (16-byte and 4-byte cp.async); each thread
+// converts the rows it copied to bf16 in shared memory, exactly (|q| <= 127),
+// two tiles ahead at D = 64 (one at D = 128), so no extra barrier stands
+// between copy and conversion; the products are those of the bf16 path.
+// Each score column is then multiplied by its key's page K scale in f32,
+// and each probability by its key's V scale before it is rounded to bf16
+// for P V. Scales are looked up per key, so any page size works. The f32
+// kernel dequantizes history rows in f32 as it stages them.
 //
 // The KV write is a second kernel, `kv_page_write` (fp pools) or
 // `kv_page_write_quant` (int8 pools), launched by the same wrapper after
@@ -56,55 +72,222 @@
 // prefill_attention.py:317-320 describes). Fusing the write into the
 // attention kernel's epilogue, so that the chunk's K/V cross device memory
 // once, is later work.
+#include <type_traits>
+
 #include "attention_common.cuh"
+
+// Marks between the steps of the bf16 kernel's tile loop, empty here;
+// scripts/prefill_phase_clocks.py defines them as clock probes.
+#ifndef PHASE_MARK
+#define PHASE_LOOP_BEGIN
+#define PHASE_MARK(step)
+#define PHASE_LOOP_END
+#endif
 
 namespace {
 
 using namespace pst;
 
-// ---- bf16: tensor cores (mma.sync m16n8k16, f32 accumulate) -------------
+// ---- bf16: tensor cores -------------------------------------------------
 
-constexpr int BKV = 64;      // keys per staged K/V tile
-constexpr int MMA_MAX_G = 8; // query heads per KV head (one warp each)
+constexpr int BKV = 64;         // keys per staged K/V tile
+constexpr int MMA_MAX_G = 8;    // query heads per KV head
+constexpr int WG_ROWS = 64;     // (token, head) rows of one warpgroup
+constexpr int N_WG = 2;         // warpgroups per block
+constexpr int MMA_THREADS = 128 * N_WG;
+
+// Shared memory of one block, every tile 1024-byte aligned (the SW128 atom):
+// Q rows [N_WG][64][D], K and V tiles [NS][64][D] in bf16, both in wgmma's
+// K-major SW128 layout (sw128 below); with int8 pools the raw history
+// tiles [RAW_NS][64][D] int8 and the keys' page scales; the keys'
+// positions.
+template <int D, bool QUANT>
+struct MmaSmem {
+  static constexpr int NS = D == 64 ? 5 : 4;  // bf16 ring stages
+  static constexpr int RAW_NS = NS - 2;       // int8 stages: a raw tile converts before the ring wraps to it
+  static constexpr int TILE = BKV * D * 2;    // one bf16 K or V tile
+  static constexpr int QB = WG_ROWS * D * 2;  // one warpgroup's Q rows
+  static constexpr int RAW = BKV * D;         // one int8 K or V tile
+  static constexpr int q = 0;
+  static constexpr int k = q + N_WG * QB;
+  static constexpr int v = k + NS * TILE;
+  static constexpr int raw_k = v + NS * TILE;
+  static constexpr int raw_v = raw_k + (QUANT ? RAW_NS * RAW : 0);
+  static constexpr int kpos = raw_v + (QUANT ? RAW_NS * RAW : 0);
+  static constexpr int kscl = kpos + NS * BKV * 4;
+  static constexpr int vscl = kscl + (QUANT ? NS * BKV * 4 : 0);
+  static constexpr int qrange = vscl + (QUANT ? NS * BKV * 4 : 0);  // [N_WG][2 warps][min, max]
+  static constexpr int bytes = qrange + N_WG * 16 + 1024;  // + slack to align the base
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of 16-byte chunk c (along D) of row r in a [64][D] bf16 tile
+// laid out as wgmma's K-major SW128 operand: 64-column halves of 64 rows x
+// 128 B (8 KB each), chunk c of row r stored at chunk c ^ (r % 8) of its
+// row. The 8 rows of an ldmatrix, or of a 16-byte store per row, then hit
+// 8 distinct bank groups.
+__device__ __forceinline__ uint32_t sw128(int r, int c) {
+  return (uint32_t)((c >> 3) * (BKV * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+}
+
+// cp.async that copies `ok ? 16 : 0` bytes and zero-fills the rest of the
+// 16 (or 4): a row past a tile's keys lands as zeros without a branch
+__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4_or_zero(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem), "r"(ok ? 4 : 0));
+}
+
+// slot -> page for a page size fixed per launch, any size, by a multiply
+// and a shift (CUTLASS's FastDivmod, exact for slots below 2^31): an
+// integer division spends three conversion or MUFU ops per lookup, on the
+// pipe the softmax's exp2 saturates
+struct PageDiv {
+  int size;
+  uint32_t mul, shr;
+  __device__ __forceinline__ int page(int slot) const {
+    return size == 1 ? slot : (int)(__umulhi((uint32_t)slot, mul) >> shr);
+  }
+};
+
+PageDiv page_div(int size) {
+  PageDiv d{size, 0u, 0u};
+  if (size > 1) {
+    const int p = 31 + (32 - __builtin_clz(size - 1));  // 31 + ceil(log2 size)
+    d.mul = (uint32_t)(((1ull << p) + size - 1) / size);
+    d.shr = p - 32;
+  }
+  return d;
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+// ---- wgmma (sm_90a): one warpgroup, 64 rows, f32 accumulators in the
+// mma.m16n8 layout per 8-column block (register 4 j + e of a thread is
+// element e of block j) ----------------------------------------------------
+
+// Shared-memory matrix descriptor of an SW128 operand (bits 0-13 address,
+// 16-29 leading and 32-45 stride byte offsets, all in 16-byte units; 62-63
+// the 128-byte swizzle). K-major tiles (Q, K): stride = 1024 B between
+// 8-row groups, leading unused (1). MN-major (V, transposed): leading =
+// 8 KB between 64-column halves, stride = 1024 B between 8-key groups.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lead, uint32_t stride) {
+  return (uint64_t)((addr & 0x3FFFFu) >> 4) | ((uint64_t)(lead >> 4) << 16) | ((uint64_t)(stride >> 4) << 32) |
+         (1ull << 62);
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
+__device__ __forceinline__ void wgmma_fence() { asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory"); }
+__device__ __forceinline__ void wgmma_commit() { asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory"); }
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// generic-proxy writes to shared memory (cp.async, stores) made visible to
+// wgmma's reads; each writer runs it before the barrier
+__device__ __forceinline__ void fence_async_smem() { asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory"); }
+
+// keeps the compiler from moving accesses of accumulator registers across
+// the asynchronous products
+template <int M>
+__device__ __forceinline__ void fence_regs(float (&r)[M][4]) {
+#pragma unroll
+  for (int i = 0; i < M; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(r[i][e])::"memory");
+  }
+}
+
+// d (+)= A B, m64n64k16, A (bf16 pairs) in registers, B K-major in shared
+// memory; scale_d = 0 overwrites d
+__device__ __forceinline__ void wgmma_rs_k_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+// d += A B, m64n64k16, A (bf16 pairs) in registers, B MN-major in shared
+// memory (transposed)
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+// d += A B, m64n128k16, A (bf16 pairs) in registers, B MN-major in shared
+// memory (transposed)
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
+        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
+        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
+        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]),
+        "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]),
+        "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+template <int D>
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 8][4], const uint32_t (&a)[4], uint64_t b) {
+  if constexpr (D == 64) {
+    wgmma_rs_n64(d, a, b);
+  } else {
+    wgmma_rs_n128(d, a, b);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
+               : "r"(addr));
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* smem) {
-  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(s));
-}
-
-// tiles [K, V][2][BKV][D + 8] bf16, key positions [2][BKV], and with int8
-// pools the keys' page scales [K, V][2][BKV]
-template <int D, bool QUANT>
-constexpr size_t mma_smem_bytes() {
-  return 4 * (size_t)BKV * (D + 8) * sizeof(__nv_bfloat16) + 2 * BKV * sizeof(int) +
-         (QUANT ? 4 * BKV * sizeof(float) : 0);
-}
-
-// 16 int8 pool values -> 16 bf16 in shared memory, exactly (|q| <= 127).
-__device__ __forceinline__ void int8x16_to_bf16(const int8_t* src, __nv_bfloat16* dst) {
-  const uint4 raw = *reinterpret_cast<const uint4*>(src);
+// 16 int8 pool values -> 16 bf16 (two 16-byte chunks), exactly (|q| <= 127).
+__device__ __forceinline__ void int8x16_to_bf16(uint4 raw, uint4& lo, uint4& hi) {
   const uint32_t w[4] = {raw.x, raw.y, raw.z, raw.w};
   uint32_t o[8];
 #pragma unroll
@@ -114,95 +297,103 @@ __device__ __forceinline__ void int8x16_to_bf16(const int8_t* src, __nv_bfloat16
     o[2 * i] = pack_bf16(f[0], f[1]);
     o[2 * i + 1] = pack_bf16(f[2], f[3]);
   }
-  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
-  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
+  lo = make_uint4(o[0], o[1], o[2], o[3]);
+  hi = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
-// KSPLIT warps per query head: each takes its 64 / KSPLIT keys of every
-// tile, and their softmax states merge at the end (more warps in flight
-// per SM at the same shared-memory traffic).
-template <int D>
-__host__ __device__ constexpr int ksplit() { return D == 64 ? 2 : 1; }
-
-// One block per (16 query tokens, KV head, batch row). Warp w is query head
-// kh * G + w % G and takes key share w / G of each tile. Fragment layouts
-// are those of mma.m16n8k16: lane = 4 * g + qd holds rows g and g + 8 and
-// column pairs 2 * qd (+ 8).
+// One block per (2 * tpw query tokens, KV head, batch row): two warpgroups,
+// each of 64 rows = tpw tokens x G heads of the KV head's group (row r is
+// token r / G, head r % G; rows past tpw * G are padding). Warp w of a
+// warpgroup holds its rows 16 w .. 16 w + 15 of the wgmma accumulators,
+// laid out per 8-column block as mma.m16n8k16's: lane = 4 * g + qd holds
+// rows g and g + 8 and column pairs 2 * qd (+ 8).
 template <int D, typename KV>
-__global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attention_mma_kernel(
+__global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const int* __restrict__ positions,
     const KV* __restrict__ k_pages, const KV* __restrict__ v_pages,
     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
     const __nv_bfloat16* __restrict__ k_cur, const __nv_bfloat16* __restrict__ v_cur,
     const int* __restrict__ page_table, const int* __restrict__ kv_lens,
     const int* __restrict__ cur_lens, __nv_bfloat16* __restrict__ out, int Tn, int NH, int KH, int P,
-    int page_size, int max_pages, int layer, int window, float sm_scale, float softcap) {
+    PageDiv pdiv, int max_pages, int layer, int window, float sm_scale, float softcap, int tpw) {
   using T = __nv_bfloat16;
   constexpr bool QUANT = sizeof(KV) == 1;
-  constexpr int KS = ksplit<D>();
-  constexpr int BQ = 16;           // query tokens per block
-  constexpr int ROW = D + 8;       // padded smem row: 16 bytes of pad keep ldmatrix conflict-free
-  constexpr int VPR = D / 8;       // 16-byte vectors per row
-  constexpr int NB = BKV / 8 / KS; // 8-key score blocks per warp per tile
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* kbuf = reinterpret_cast<T*>(smem_raw);                      // [2][BKV][ROW]
-  T* vbuf = kbuf + 2 * BKV * ROW;                                 // [2][BKV][ROW]
-  int* kpos_buf = reinterpret_cast<int*>(vbuf + 2 * BKV * ROW);   // [2][BKV], -1 = no key
-  float* kscl_buf = reinterpret_cast<float*>(kpos_buf + 2 * BKV); // [2][BKV], int8 pools
-  float* vscl_buf = kscl_buf + 2 * BKV;
-  __shared__ int s_qmin, s_qmax;
+  using L = MmaSmem<D, QUANT>;
+  constexpr int NS = L::NS;
+  constexpr int CPR = D / 8;  // 16-byte bf16 chunks per row
+  constexpr int NB = BKV / 8; // 8-key score blocks per tile
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = smem_raw + ((1024u - (smem_u32(smem_raw) & 1023u)) & 1023u);
+  int* s_qr = reinterpret_cast<int*>(sm + L::qrange);
 
-  const int t_base = blockIdx.x * BQ;
+  const int tid = threadIdx.x;
+  const int wg = tid >> 7;
+  const int warp = (tid >> 5) & 3;  // warp within its warpgroup
+  const int lane = tid & 31;
+  const int g = lane >> 2, qd = lane & 3;
   const int kh = blockIdx.y;
   const int b = blockIdx.z;
   const int G = NH / KH;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int g = lane >> 2, qd = lane & 3;
-  const int gi = warp % G, share = warp / G;
-  const int h = kh * G + gi;
+  const int rows = tpw * G;
+  const int page_size = pdiv.size;
+  const int cta_t0 = blockIdx.x * N_WG * tpw;
+  const int wg_t0 = cta_t0 + wg * tpw;
   const int* pos_b = positions + (size_t)b * Tn;
 
-  if (threadIdx.x == 0) {
+  {  // the block's query positions: each warpgroup's first two warps reduce its tokens
+    const int x = tid & 127;
     int lo_p = 0x7fffffff, hi_p = -1;
-    for (int t = t_base; t < min(t_base + BQ, Tn); ++t) {
-      const int p = pos_b[t];
-      if (p >= 0) {
-        lo_p = min(lo_p, p);
-        hi_p = max(hi_p, p);
+    if (x < tpw && wg_t0 + x < Tn) {
+      const int p = pos_b[wg_t0 + x];
+      if (p >= 0) lo_p = hi_p = p;
+    }
+    if (x < 64) {  // tpw <= 64 (warp-uniform)
+      lo_p = __reduce_min_sync(FULL, lo_p);
+      hi_p = __reduce_max_sync(FULL, hi_p);
+      if (lane == 0) {
+        s_qr[4 * wg + 2 * warp] = lo_p;
+        s_qr[4 * wg + 2 * warp + 1] = hi_p;
       }
     }
-    s_qmin = lo_p;
-    s_qmax = hi_p;
+  }
+  // this warpgroup's Q rows -> shared (the first cp.async group), pad rows 0
+  unsigned char* qs = sm + L::q + wg * L::QB;
+  for (int x = tid & 127; x < WG_ROWS * CPR; x += 128) {
+    const int r = x / CPR, c = x % CPR;
+    const int t = wg_t0 + r / G;
+    if (r < rows && t < Tn) {
+      cp_async16(qs + sw128(r, c), q + (((size_t)b * Tn + t) * NH + kh * G + r % G) * D + 8 * c);
+    } else {
+      *reinterpret_cast<uint4*>(qs + sw128(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+  __syncthreads();
+  int qmin = 0x7fffffff, qmax = -1;
+#pragma unroll
+  for (int x = 0; x < 2 * N_WG; ++x) {
+    qmin = min(qmin, s_qr[2 * x]);
+    qmax = max(qmax, s_qr[2 * x + 1]);
   }
 
-  // this thread's rows: tokens t_base + g (hf = 0) and t_base + g + 8 (hf = 1)
+  // this thread's rows: 16 warp + g (hf = 0) and 16 warp + g + 8 (hf = 1)
   int qpos[2];
-  uint32_t qa[D / 16][4];
   float m_r[2], l_r[2], oacc[D / 8][4];
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int t = t_base + g + 8 * hf;
-    qpos[hf] = t < Tn ? pos_b[t] : -1;
+    const int r = 16 * warp + g + 8 * hf;
+    const int t = wg_t0 + r / G;
+    qpos[hf] = (r < rows && t < Tn) ? pos_b[t] : -1;
     m_r[hf] = NEG_INF;
     l_r[hf] = 0.f;
   }
-#pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-#pragma unroll
-    for (int r = 0; r < 4; ++r) {
-      const int t = t_base + g + 8 * (r & 1);
-      const int d = kc * 16 + 8 * (r >> 1) + 2 * qd;
-      qa[kc][r] = t < Tn ? *reinterpret_cast<const uint32_t*>(q + (((size_t)b * Tn + t) * NH + h) * D + d) : 0u;
-    }
-  }
+  // this warp's 16 rows' positions (-1 in the min if any row is padding)
+  const int w_qmin = __reduce_min_sync(FULL, min(qpos[0], qpos[1]));
+  const int w_qmax = __reduce_max_sync(FULL, max(qpos[0], qpos[1]));
 #pragma unroll
   for (int db = 0; db < D / 8; ++db) {
 #pragma unroll
     for (int e = 0; e < 4; ++e) oacc[db][e] = 0.f;
   }
-  __syncthreads();
-  const int qmin = s_qmin, qmax = s_qmax;
 
   const size_t slot_stride = (size_t)KH * D;
   const size_t layer_off = (size_t)layer * P * page_size * slot_stride + (size_t)kh * D;
@@ -213,116 +404,174 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
     lo = max(qmin - window + 1, 0);
     hi = min(min(paged_end, qmax + 1), max_pages * page_size);
     // causal: chunk entries past the block's last token are invisible to it
-    jend = min(cur_lens[b], min(t_base + BQ, Tn));
+    jend = min(cur_lens[b], min(cta_t0 + N_WG * tpw, Tn));
     n_hist = hi > lo ? (hi - lo + BKV - 1) / BKV : 0;
     n_tiles = n_hist + (jend + BKV - 1) / BKV;
   }
+  // history slot -> its pool row through the page table (a cached read:
+  // the tiles of a block walk a few consecutive entries)
+  auto slot_row = [&](int slot) -> size_t {
+    const int pg = pdiv.page(slot);
+    return layer_off + (size_t)(pt[pg] * page_size + slot - pg * page_size) * slot_stride;
+  };
 
-  // tile i: history slots [lo + i * BKV, ...) through the page table, then
-  // the chunk's own entries; rows past the tile's n keys are zeroed, so a
-  // masked key never carries stale bytes into P.V
-  auto issue = [&](int i) {
-    T* kd = kbuf + (i & 1) * BKV * ROW;
-    T* vd = vbuf + (i & 1) * BKV * ROW;
-    int* kp = kpos_buf + (i & 1) * BKV;
-    float* ksc = kscl_buf + (i & 1) * BKV;
-    float* vsc = vscl_buf + (i & 1) * BKV;
-    int n;
-    if (i < n_hist) {
-      const int t0 = lo + i * BKV;
-      n = min(BKV, hi - t0);
-      auto row_of = [&](const KV* pool) {
-        return [=](int r) -> const KV* {
-          const int slot = t0 + r;
-          const int pg = slot / page_size;
-          return pool + layer_off + ((size_t)pt[pg] * page_size + (slot - pg * page_size)) * slot_stride;
-        };
-      };
-      if constexpr (QUANT) {
-        // int8 rows -> bf16 rows, exactly; plain loads and stores, visible
-        // after the barrier that precedes this tile's products
-        auto k_row = row_of(k_pages), v_row = row_of(v_pages);
-        for (int x = threadIdx.x; x < n * (D / 16); x += blockDim.x) {
-          const int r = x / (D / 16), c = x % (D / 16);
-          int8x16_to_bf16(k_row(r) + 16 * c, kd + r * ROW + 16 * c);
-          int8x16_to_bf16(v_row(r) + 16 * c, vd + r * ROW + 16 * c);
+  // Tile j into ring stage j % NS (int8 history rows into raw stage j %
+  // RAW_NS): history slots [lo + j * BKV, ...) through the page table, then
+  // the chunk's own entries; bf16 rows land swizzled. Warpgroup w copies
+  // rows [32 w, 32 w + 32) of K and V, each thread the same rows and
+  // 16-byte column of every tile, rows past the tile's n keys as zeros (so
+  // a masked key never carries stale bytes, NaN, into P.V). Every call
+  // commits one cp.async group.
+  constexpr int HALF = BKV / N_WG;                     // rows a warpgroup copies
+  constexpr int RSTEP = 128 / CPR;                     // rows apart of one thread's chunks
+  constexpr int RAW_CPR = D / 16;                      // 16-byte int8 chunks per row
+  constexpr int RAW_RSTEP = 128 / RAW_CPR;
+  const int x0 = tid & 127;                            // this thread's index in its warpgroup
+  const int cr = wg * HALF + x0 / CPR, cc = x0 % CPR;  // bf16: rows cr + k RSTEP, column chunk cc
+  const int rr = wg * HALF + x0 / RAW_CPR, rc = x0 % RAW_CPR;  // int8: rows rr + k RAW_RSTEP, chunk rc
+  const int kr = wg * HALF + x0;                       // key position and scales of row kr (x0 < HALF)
+  auto issue = [&](int j) {
+    if (j < n_tiles) {
+      const int st = j % NS;
+      unsigned char* kd = sm + L::k + st * L::TILE;
+      unsigned char* vd = sm + L::v + st * L::TILE;
+      int* kp = reinterpret_cast<int*>(sm + L::kpos) + st * BKV;
+      float* ksc = reinterpret_cast<float*>(sm + L::kscl) + st * BKV;
+      float* vsc = reinterpret_cast<float*>(sm + L::vscl) + st * BKV;
+      if (j < n_hist) {
+        const int t0 = lo + j * BKV;
+        const int n = min(BKV, hi - t0);
+        if constexpr (QUANT) {
+          int8_t* rk = reinterpret_cast<int8_t*>(sm + L::raw_k) + (j % L::RAW_NS) * L::RAW;
+          int8_t* rv = reinterpret_cast<int8_t*>(sm + L::raw_v) + (j % L::RAW_NS) * L::RAW;
+#pragma unroll
+          for (int k = 0; k < HALF / RAW_RSTEP; ++k) {
+            const int r = rr + k * RAW_RSTEP;
+            const size_t off = slot_row(t0 + (r < n ? r : 0)) + 16 * rc;
+            cp_async16_or_zero(rk + r * D + 16 * rc, k_pages + off, r < n);
+            cp_async16_or_zero(rv + r * D + 16 * rc, v_pages + off, r < n);
+          }
+          if (x0 < HALF) {
+            const size_t sc = ((size_t)layer * P + pt[pdiv.page(t0 + (kr < n ? kr : 0))]) * KH + kh;
+            cp_async4_or_zero(ksc + kr, k_scales + sc, kr < n);
+            cp_async4_or_zero(vsc + kr, v_scales + sc, kr < n);
+          }
+        } else {
+#pragma unroll
+          for (int k = 0; k < HALF / RSTEP; ++k) {
+            const int r = cr + k * RSTEP;
+            const size_t off = slot_row(t0 + (r < n ? r : 0)) + 8 * cc;
+            cp_async16_or_zero(kd + sw128(r, cc), k_pages + off, r < n);
+            cp_async16_or_zero(vd + sw128(r, cc), v_pages + off, r < n);
+          }
         }
-        for (int r = threadIdx.x; r < n; r += blockDim.x) {
-          const size_t sc = ((size_t)layer * P + pt[(t0 + r) / page_size]) * KH + kh;
-          ksc[r] = k_scales[sc];
-          vsc[r] = v_scales[sc];
-        }
+        if (x0 < HALF) kp[kr] = kr < n ? t0 + kr : -1;
       } else {
-        stage_rows_async<T, D>(kd, ROW, n, row_of(k_pages));
-        stage_rows_async<T, D>(vd, ROW, n, row_of(v_pages));
+        const int j0 = (j - n_hist) * BKV;
+        const int n = min(BKV, jend - j0);
+#pragma unroll
+        for (int k = 0; k < HALF / RSTEP; ++k) {
+          const int r = cr + k * RSTEP;
+          const size_t off = (((size_t)b * Tn + j0 + (r < n ? r : 0)) * KH + kh) * D + 8 * cc;
+          cp_async16_or_zero(kd + sw128(r, cc), k_cur + off, r < n);
+          cp_async16_or_zero(vd + sw128(r, cc), v_cur + off, r < n);
+        }
+        if (x0 < HALF) {
+          if (kr < n) {
+            cp_async4(kp + kr, pos_b + j0 + kr);
+          } else {
+            kp[kr] = -1;
+          }
+          if constexpr (QUANT) ksc[kr] = vsc[kr] = 1.f;  // the chunk is fp
+        }
       }
-      for (int r = threadIdx.x; r < n; r += blockDim.x) kp[r] = t0 + r;
-    } else {
-      const int j0 = (i - n_hist) * BKV;
-      n = min(BKV, jend - j0);
-      auto cur_row = [&](const T* cur) {
-        return [=](int r) -> const T* { return cur + (((size_t)b * Tn + j0 + r) * KH + kh) * D; };
-      };
-      stage_rows_async<T, D>(kd, ROW, n, cur_row(k_cur));
-      stage_rows_async<T, D>(vd, ROW, n, cur_row(v_cur));
-      for (int r = threadIdx.x; r < n; r += blockDim.x) kp[r] = pos_b[j0 + r];
-      if constexpr (QUANT) {
-        for (int r = threadIdx.x; r < n; r += blockDim.x) ksc[r] = vsc[r] = 1.f;  // fp chunk
-      }
-    }
-    for (int x = threadIdx.x; x < (BKV - n) * VPR; x += blockDim.x) {
-      const int r = n + x / VPR, c = x % VPR;
-      reinterpret_cast<uint4*>(kd + r * ROW)[c] = make_uint4(0u, 0u, 0u, 0u);
-      reinterpret_cast<uint4*>(vd + r * ROW)[c] = make_uint4(0u, 0u, 0u, 0u);
-    }
-    for (int r = n + threadIdx.x; r < BKV; r += blockDim.x) kp[r] = -1;
-    if constexpr (QUANT) {
-      for (int r = n + threadIdx.x; r < BKV; r += blockDim.x) ksc[r] = vsc[r] = 1.f;
     }
     cp_async_commit();
   };
 
-  if (n_tiles > 0) issue(0);
-  for (int i = 0; i < n_tiles; ++i) {
-    if (i + 1 < n_tiles) {
-      issue(i + 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    // this warp's keys of the tile: [share * 8 * NB, (share + 1) * 8 * NB)
-    const T* kt = kbuf + (i & 1) * BKV * ROW + share * 8 * NB * ROW;
-    const T* vt = vbuf + (i & 1) * BKV * ROW + share * 8 * NB * ROW;
-    const int* kp = kpos_buf + (i & 1) * BKV + share * 8 * NB;
-    const float* ksc = kscl_buf + (i & 1) * BKV + share * 8 * NB;
-    const float* vsc = vscl_buf + (i & 1) * BKV + share * 8 * NB;
-
-    // S = Q K^T: B fragments are K rows (keys) read with ldmatrix
-    float s[NB][4];
+  // int8 history tile j, whose copies by this thread have landed: the
+  // chunks this thread copied -> bf16 in the tile's stage, exactly (zeros
+  // stay zeros). Each thread converts its own chunks, so no barrier stands
+  // between copy and conversion.
+  auto convert = [&](int j) {
+    if constexpr (QUANT) {
+      if (j >= n_hist) return;
+      const int8_t* rk = reinterpret_cast<const int8_t*>(sm + L::raw_k) + (j % L::RAW_NS) * L::RAW;
+      const int8_t* rv = reinterpret_cast<const int8_t*>(sm + L::raw_v) + (j % L::RAW_NS) * L::RAW;
+      unsigned char* kd = sm + L::k + (j % NS) * L::TILE;
+      unsigned char* vd = sm + L::v + (j % NS) * L::TILE;
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[nb][e] = 0.f;
-#pragma unroll
-      for (int kc2 = 0; kc2 < D / 32; ++kc2) {
-        uint32_t r[4];
-        ldmatrix_x4(r, kt + (nb * 8 + (lane & 7)) * ROW + kc2 * 32 + (lane >> 3) * 8);
-        mma_bf16(s[nb], qa[2 * kc2], r[0], r[1]);
-        mma_bf16(s[nb], qa[2 * kc2 + 1], r[2], r[3]);
+      for (int k = 0; k < HALF / RAW_RSTEP; ++k) {
+        const int r = rr + k * RAW_RSTEP;
+        uint4 k0, k1, v0, v1;
+        int8x16_to_bf16(*reinterpret_cast<const uint4*>(rk + r * D + 16 * rc), k0, k1);
+        int8x16_to_bf16(*reinterpret_cast<const uint4*>(rv + r * D + 16 * rc), v0, v1);
+        *reinterpret_cast<uint4*>(kd + sw128(r, 2 * rc)) = k0;
+        *reinterpret_cast<uint4*>(kd + sw128(r, 2 * rc + 1)) = k1;
+        *reinterpret_cast<uint4*>(vd + sw128(r, 2 * rc)) = v0;
+        *reinterpret_cast<uint4*>(vd + sw128(r, 2 * rc + 1)) = v1;
       }
     }
+  };
+  // with five or more stages, int8 tile i + 2 converts during tile i, off
+  // the barrier's path; with four, tile i + 1 converts just before it
+  constexpr bool EARLY = QUANT && NS >= 5;
 
-    // masked online softmax in log2 units; p overwrites s
-    int kpv[NB][2];
-    float ksv[NB][2], vsv[NB][2];  // the keys' page scales (int8 pools)
+  // the positions [kmin, kmax] of tile j's n keys
+  auto tile_keys = [&](int j, int& kmin, int& kmax, int& n) {
+    if (j < n_hist) {
+      kmin = lo + j * BKV;
+      n = min(BKV, hi - kmin);
+      kmax = kmin + n - 1;
+    } else {
+      const int j0 = (j - n_hist) * BKV;
+      n = min(BKV, jend - j0);
+      kmin = pos_b[j0];
+      kmax = pos_b[j0 + n - 1];
+    }
+  };
+
+  // S = Q K(j)^T on the tensor cores, asynchronously: D / 16 steps of 16
+  // columns (32 bytes) along the swizzled rows, then 8 KB to the next half
+  uint32_t qa[D / 16][4];  // Q (A of S = Q K^T) in registers, read once from its swizzled rows
+  auto vt_addr = [&](int j) { return smem_u32(sm + L::v + (j % NS) * L::TILE); };
+  auto issue_s = [&](int j, float (&acc)[NB][4]) {
+    const uint32_t kt = smem_u32(sm + L::k + (j % NS) * L::TILE);
+    wgmma_fence();
 #pragma unroll
-    for (int nb = 0; nb < NB; ++nb) {
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk >> 2) * (BKV * 128) + (kk & 3) * 32;
+      wgmma_rs_k_n64(acc, qa[kk], sw128_desc(kt + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+  };
+
+  float s[NB][4], alpha[2];
+  uint32_t pa[NB / 2][4];
+  // online softmax of tile i in log2 units; p overwrites s, and alpha
+  // rescales O. Column (nb, e) of this thread is key nb * 8 + 2 qd + e.
+  // MASKED: some row of this warp cannot see some key of the tile; CAPPED:
+  // logit softcap; SCALED: int8 keys from more than one page, so K and V
+  // scales go per column (else one factor each for the tile). Unmasked,
+  // uncapped, one-factor tiles (nearly every tile of a long prefill) take
+  // the maximum of the raw scores and one FFMA per score into exp2.
+  auto softmax = [&](auto masked, auto capped, auto scaled, int i) {
+    constexpr bool MASKED = decltype(masked)::value;
+    constexpr bool CAPPED = decltype(capped)::value;
+    constexpr bool SCALED = decltype(scaled)::value;
+    constexpr bool FOLD = !MASKED && !CAPPED && !SCALED;
+    const int* kp = reinterpret_cast<const int*>(sm + L::kpos) + (i % NS) * BKV;
+    const float* ksc = reinterpret_cast<const float*>(sm + L::kscl) + (i % NS) * BKV;
+    const float* vsc = reinterpret_cast<const float*>(sm + L::vscl) + (i % NS) * BKV;
+    const float f = CAPPED ? sm_scale : sm_scale * LOG2E;
+    const float kf0 = QUANT && !SCALED ? f * ksc[0] : f;  // score -> log2 domain
+    const float vs0 = QUANT && !SCALED ? vsc[0] : 1.f;
+    float kf[NB][2];  // per column, SCALED only
+    if constexpr (SCALED) {
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        kpv[nb][e] = kp[nb * 8 + 2 * qd + e];
-        ksv[nb][e] = QUANT ? ksc[nb * 8 + 2 * qd + e] : 1.f;
-        vsv[nb][e] = QUANT ? vsc[nb * 8 + 2 * qd + e] : 1.f;
+      for (int nb = 0; nb < NB; ++nb) {
+#pragma unroll
+        for (int e = 0; e < 2; ++e) kf[nb][e] = f * ksc[nb * 8 + 2 * qd + e];
       }
     }
 #pragma unroll
@@ -333,105 +582,170 @@ __global__ void __launch_bounds__(32 * MMA_MAX_G * ksplit<D>()) prefill_attentio
       for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          const int kpos = kpv[nb][e];
-          const bool vis = kpos >= 0 && qp >= 0 && kpos <= qp && kpos > qp - window;
-          float x = s[nb][2 * hf + e] * sm_scale;
-          if constexpr (QUANT) x *= ksv[nb][e];
-          if (softcap > 0.f) x = softcap * tanhf(x / softcap);
-          x = vis ? x * LOG2E : NEG_INF;
-          s[nb][2 * hf + e] = x;
+          float x = s[nb][2 * hf + e];
+          if constexpr (!FOLD) {
+            x *= SCALED ? kf[nb][e] : kf0;
+            if constexpr (CAPPED) x = softcap * LOG2E * tanhf(x / softcap);
+            if constexpr (MASKED) {
+              const int kpos = kp[nb * 8 + 2 * qd + e];
+              x = kpos >= 0 && kpos <= qp && kpos > qp - window ? x : NEG_INF;
+            }
+            s[nb][2 * hf + e] = x;
+          }
           mx = fmaxf(mx, x);
         }
       }
       mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 1));
       mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, 2));
-      const float m_new = fmaxf(m_r[hf], mx);
-      const float alpha = exp2f(fminf(m_r[hf] - m_new, 0.f));
+      const float m_new = fmaxf(m_r[hf], FOLD ? mx * kf0 : mx);  // kf0 > 0 on this path
       float sum = 0.f;
 #pragma unroll
       for (int nb = 0; nb < NB; ++nb) {
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const float x = s[nb][2 * hf + e];
-          const float p = x == NEG_INF ? 0.f : exp2f(x - m_new);
+          // a row that has seen no key yet keeps m = NEG_INF: its masked p is 0
+          const float p = FOLD ? fast_exp2(fmaf(x, kf0, -m_new))
+                               : (MASKED && x == NEG_INF ? 0.f : fast_exp2(x - m_new));
           // P V takes p times the key's V scale, rounded to bf16 once
-          s[nb][2 * hf + e] = QUANT ? p * vsv[nb][e] : p;
+          s[nb][2 * hf + e] = QUANT ? p * (SCALED ? vsc[nb * 8 + 2 * qd + e] : vs0) : p;
           sum += p;
         }
       }
       sum += __shfl_xor_sync(FULL, sum, 1);
       sum += __shfl_xor_sync(FULL, sum, 2);
-      l_r[hf] = l_r[hf] * alpha + sum;
+      alpha[hf] = fast_exp2(m_r[hf] - m_new);
+      l_r[hf] = l_r[hf] * alpha[hf] + sum;
       m_r[hf] = m_new;
-#pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
-        oacc[db][2 * hf] *= alpha;
-        oacc[db][2 * hf + 1] *= alpha;
-      }
     }
+  };
 
-    // O += P V: P from the score registers, B fragments are V read with
-    // ldmatrix.trans (V rows are keys)
-#pragma unroll
-    for (int kc2 = 0; kc2 < NB / 2; ++kc2) {
-      const uint32_t pa[4] = {
-          pack_bf16(s[2 * kc2][0], s[2 * kc2][1]), pack_bf16(s[2 * kc2][2], s[2 * kc2][3]),
-          pack_bf16(s[2 * kc2 + 1][0], s[2 * kc2 + 1][1]), pack_bf16(s[2 * kc2 + 1][2], s[2 * kc2 + 1][3]),
-      };
-#pragma unroll
-      for (int db2 = 0; db2 < D / 16; ++db2) {
-        uint32_t r[4];
-        const int mi = lane >> 3;
-        ldmatrix_x4_trans(r, vt + (kc2 * 16 + (mi & 1) * 8 + (lane & 7)) * ROW + (2 * db2 + (mi >> 1)) * 8);
-        mma_bf16(oacc[2 * db2], pa, r[0], r[1]);
-        mma_bf16(oacc[2 * db2 + 1], pa, r[2], r[3]);
+  // The loop, per tile i, with P(i) packed and alpha(i) pending for O:
+  // (1) tile i + 1 has landed (and is converted), one barrier; (2) S(i + 1)
+  // goes to the tensor cores; (3) O *= alpha(i), and P.V(i) goes to the
+  // tensor cores; (4) the softmax of S(i + 1) runs beside P.V(i) (then int8
+  // tile i + 2 converts); (5) P(i + 1) is packed once P.V(i) is done. The
+  // copy of tile i + NS - 2 starts before (2) in warpgroup 1 and after (4)
+  // in warpgroup 0.
+  // Every iteration issues and waits the same two wgmma groups (the last
+  // repeats S of its own tile), so ptxas keeps them asynchronous; no row
+  // skips a tile it cannot see, its masked p is 0. Stages in use across a
+  // barrier: i, i + 1, and the copies in flight.
+  auto softmax_tile = [&](int j) {
+    int kmin, kmax, n;
+    tile_keys(j, kmin, kmax, n);
+    // every row of this warp sees every key of the tile: no masks (the
+    // folded maximum needs a positive scale)
+    const bool full = n == BKV && kmax <= w_qmin && kmin > w_qmax - window && sm_scale > 0.f;
+    const bool scaled = QUANT && j < n_hist && pdiv.page(kmin) != pdiv.page(kmax);
+    auto with_mask = [&](auto masked) {
+      const std::true_type yes{};
+      const std::false_type no{};
+      if (softcap > 0.f) {
+        scaled ? softmax(masked, yes, yes, j) : softmax(masked, yes, no, j);
+      } else {
+        scaled ? softmax(masked, no, yes, j) : softmax(masked, no, no, j);
       }
+    };
+    if (full) {
+      with_mask(std::false_type{});
+    } else {
+      with_mask(std::true_type{});
     }
-    __syncthreads();  // the buffer is refilled by issue(i + 2)
-  }
-
-  if constexpr (KS > 1) {
-    // merge the key shares: share s > 0 parks its state in the (now idle)
-    // tile buffers, share 0 folds it in and writes the output
-    constexpr int W = 4 + D / 2;  // floats per lane: m[2], l[2], o[D / 8][4]
-    float* park = reinterpret_cast<float*>(smem_raw);
-    if (share > 0) {
-      float* dst = park + ((size_t)((share - 1) * G + gi) * 32 + lane) * W;
-      dst[0] = m_r[0]; dst[1] = m_r[1]; dst[2] = l_r[0]; dst[3] = l_r[1];
+  };
+  auto pack_p = [&]() {
 #pragma unroll
-      for (int db = 0; db < D / 8; ++db) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) dst[4 + 4 * db + e] = oacc[db][e];
-      }
+    for (int kc = 0; kc < NB / 2; ++kc) {
+      pa[kc][0] = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      pa[kc][1] = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      pa[kc][2] = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      pa[kc][3] = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
     }
+  };
+  if (n_tiles == 0) {
+    cp_async_commit();  // the Q copies
+    cp_async_wait<0>();
+  } else {
+#pragma unroll 1
+    for (int j = 0; j < NS - 2; ++j) issue(j);
+    cp_async_wait<NS - 3>();  // Q and tile 0
+    convert(0);
+    fence_async_smem();
     __syncthreads();
-    if (share > 0) return;
 #pragma unroll
-    for (int so = 1; so < KS; ++so) {
-      const float* src = park + ((size_t)((so - 1) * G + gi) * 32 + lane) * W;
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const int r = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+      ldmatrix_x4(qa[kk], smem_u32(qs) + sw128(r, 2 * kk + (lane >> 4)));
+    }
+    issue_s(0, s);
+    wgmma_wait<0>();
+    fence_regs(s);
+    softmax_tile(0);
+    pack_p();
+  }
+
+  PHASE_LOOP_BEGIN
+  for (int i = 0; i < n_tiles; ++i) {
+    const bool has_next = i + 1 < n_tiles;
+    if (has_next) {
+      cp_async_wait<NS - 4>();  // this thread's copies of tile i + 1
+      if (!EARLY || i == 0) convert(i + 1);
+    }
+    fence_async_smem();
+    __syncthreads();  // the one barrier per tile: tile i + 1 visible, stage (i - 2) % NS free
+    PHASE_MARK(0)
+    // the warpgroups copy at opposite ends of the tile's steps, so that one's
+    // softmax (bound by the exp2 unit) overlaps the other's copies and products
+    if (wg == 1) issue(i + NS - 2);
+    PHASE_MARK(1)
+    fence_regs(s);
+    issue_s(has_next ? i + 1 : i, s);
+    PHASE_MARK(2)
+    // O *= alpha(i), then O += P(i) V(i): V from the tile, transposed, 16
+    // keys per step
+    fence_regs(oacc);
+    if (__any_sync(FULL, alpha[0] != 1.f || alpha[1] != 1.f)) {  // a row's maximum moved
 #pragma unroll
-      for (int hf = 0; hf < 2; ++hf) {
-        const float m_o = src[hf], l_o = src[2 + hf];
-        const float m_new = fmaxf(m_r[hf], m_o);
-        const float a = exp2f(fminf(m_r[hf] - m_new, 0.f));
-        const float a_o = exp2f(fminf(m_o - m_new, 0.f));
-        l_r[hf] = l_r[hf] * a + l_o * a_o;
-        m_r[hf] = m_new;
+      for (int db = 0; db < D / 8; ++db) {
 #pragma unroll
-        for (int db = 0; db < D / 8; ++db) {
-          oacc[db][2 * hf] = oacc[db][2 * hf] * a + src[4 + 4 * db + 2 * hf] * a_o;
-          oacc[db][2 * hf + 1] = oacc[db][2 * hf + 1] * a + src[4 + 4 * db + 2 * hf + 1] * a_o;
-        }
+        for (int e = 0; e < 4; ++e) oacc[db][e] *= alpha[e >> 1];
       }
     }
+    wgmma_fence();
+#pragma unroll
+    for (int kc = 0; kc < NB / 2; ++kc) {
+      wgmma_rs<D>(oacc, pa[kc], sw128_desc(vt_addr(i) + kc * 16 * 128, BKV * 128, 1024));
+    }
+    wgmma_commit();
+    PHASE_MARK(3)
+    wgmma_wait<1>();  // S(i + 1) done; P.V(i) runs on
+    PHASE_MARK(4)
+    fence_regs(s);
+    if (has_next) softmax_tile(i + 1);
+    PHASE_MARK(5)
+    if (wg == 0) issue(i + NS - 2);
+    PHASE_MARK(6)
+    if constexpr (EARLY) {
+      if (i + 2 < n_tiles) {
+        cp_async_wait<NS - 4>();  // this thread's copies of tile i + 2
+        convert(i + 2);
+      }
+    }
+    wgmma_wait<0>();  // P.V(i) done: its A registers may change
+    PHASE_MARK(7)
+    fence_regs(oacc);
+    if (has_next) pack_p();
+    PHASE_MARK(8)
   }
+  PHASE_LOOP_END
 
 #pragma unroll
   for (int hf = 0; hf < 2; ++hf) {
-    const int t = t_base + g + 8 * hf;
-    if (t >= Tn) continue;
+    const int r = 16 * warp + g + 8 * hf;
+    const int t = wg_t0 + r / G;
+    if (r >= rows || t >= Tn) continue;
     const float inv = 1.f / fmaxf(l_r[hf], 1e-30f);
-    T* o = out + (((size_t)b * Tn + t) * NH + h) * D + 2 * qd;
+    T* o = out + (((size_t)b * Tn + t) * NH + kh * G + r % G) * D + 2 * qd;
 #pragma unroll
     for (int db = 0; db < D / 8; ++db) {
       *reinterpret_cast<uint32_t*>(o + db * 8) = pack_bf16(oacc[db][2 * hf] * inv, oacc[db][2 * hf + 1] * inv);
@@ -445,19 +759,20 @@ cudaError_t launch_mma(const void* q, const int* pos, const void* kp, const void
                        const int* cl, void* out, int B, int Tn, int NH, int KH, int P, int page_size,
                        int max_pages, int layer, int window, float sm_scale, float softcap, cudaStream_t s) {
   using T = __nv_bfloat16;
-  const size_t smem = mma_smem_bytes<D, sizeof(KV) == 1>();
+  const int smem = MmaSmem<D, sizeof(KV) == 1>::bytes;
   static bool configured = false;  // idempotent; a race only repeats it
   if (!configured) {
     const cudaError_t err = cudaFuncSetAttribute(
-        prefill_attention_mma_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        prefill_attention_mma_kernel<D, KV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  const dim3 grid((Tn + 15) / 16, KH, B);
-  prefill_attention_mma_kernel<D, KV><<<grid, 32 * (NH / KH) * ksplit<D>(), smem, s>>>(
+  const int tpw = WG_ROWS / (NH / KH);  // tokens per warpgroup
+  const dim3 grid((Tn + N_WG * tpw - 1) / (N_WG * tpw), KH, B);
+  prefill_attention_mma_kernel<D, KV><<<grid, MMA_THREADS, smem, s>>>(
       static_cast<const T*>(q), pos, static_cast<const KV*>(kp), static_cast<const KV*>(vp), ks, vs,
       static_cast<const T*>(kc), static_cast<const T*>(vc), pt, lens, cl, static_cast<T*>(out), Tn, NH, KH,
-      P, page_size, max_pages, layer, window, sm_scale, softcap);
+      P, page_div(page_size), max_pages, layer, window, sm_scale, softcap, tpw);
   return cudaGetLastError();
 }
 

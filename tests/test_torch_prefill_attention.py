@@ -72,6 +72,20 @@ CASES = {
     ),
     "bf16": (dict(B=2, T=16, computed=(8, 16), chunks=(16, 14), seed=4), dict(dtype="bfloat16")),
     "stacked_layer": (dict(B=2, T=16, computed=(8, 16), chunks=(16, 12), L=3, seed=5), dict(layer=1)),
+    # the edges of the CUDA kernel's tiles, whose warpgroups hold 64 // G
+    # tokens x G heads: one head per KV head at D = 128, 7 heads (64 rows
+    # do not divide), 8 heads, a chunk that is no multiple of 64 // G, and a
+    # window whose first visible history slot is not page-aligned
+    "g1_d128": (dict(B=2, T=16, computed=(5, 20), chunks=(16, 9), NH=2, KH=2, D=128, seed=12), {}),
+    "g7": (dict(B=2, T=16, computed=(11, 30), chunks=(16, 13), NH=28, KH=4, seed=13), {}),
+    "g8": (dict(B=2, T=16, computed=(7, 24), chunks=(16, 10), NH=16, KH=2, seed=14), {}),
+    "chunk_not_multiple_of_tpw": (dict(B=2, T=32, computed=(3, 17), chunks=(27, 19), seed=15), {}),
+    "window_unaligned_first_slot": (
+        dict(B=2, T=16, computed=(29, 43), chunks=(16, 11), seed=16),
+        dict(window=13),
+    ),
+    # a page size that is no power of two, history not page-aligned
+    "page_not_power_of_two": (dict(B=2, T=16, computed=(13, 25), chunks=(16, 9), page=6, seed=22), {}),
 }
 
 
@@ -152,15 +166,39 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# on the card: a stacked layer with window and softcap, and the tile edges
+# and page sizes of chip_smoke.py's prefill cases
+CUDA_CASES = {
+    "layer_window_softcap": (
+        dict(B=3, T=64, computed=(37, 0, 5), chunks=(64, 40, 0), page=16, maxp=8, P=40, NH=32, KH=8, D=64, L=2,
+             seed=11),
+        dict(layer=1, window=40, logit_softcap=30.0),
+    ),
+    "g1_d128": (dict(B=2, T=150, computed=(70, 3), chunks=(150, 131), page=16, maxp=16, NH=4, KH=4, D=128,
+                     seed=17), {}),
+    "g7_d128": (dict(B=2, T=50, computed=(45, 16), chunks=(50, 37), page=16, maxp=8, NH=28, KH=4, D=128,
+                     seed=18), {}),
+    "g8": (dict(B=2, T=40, computed=(20, 0), chunks=(40, 33), page=16, maxp=8, NH=32, KH=4, seed=19), {}),
+    "chunk_not_multiple_of_tpw": (dict(B=2, T=80, computed=(100, 64), chunks=(77, 45), page=64, maxp=4, NH=32,
+                                       KH=8, seed=20), {}),
+    "window_unaligned_first_slot": (dict(B=2, T=64, computed=(150, 99), chunks=(64, 50), page=16, maxp=16,
+                                         NH=32, KH=8, seed=21), dict(window=45)),
+    "page48_unaligned_history": (dict(B=2, T=96, computed=(101, 29), chunks=(96, 70), page=48, maxp=8, NH=32,
+                                      KH=8, seed=23), {}),
+}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-def test_cuda_kernels_match_plain_versions(cuda_device, dtype):
-    arrs = _case(B=3, T=64, computed=(37, 0, 5), chunks=(64, 40, 0), page=16, maxp=8, P=40, NH=32, KH=8, D=64, L=2, seed=11)
+@pytest.mark.parametrize("name", sorted(CUDA_CASES))
+def test_cuda_kernels_match_plain_versions(cuda_device, name, dtype):
+    case_kw, kw = CUDA_CASES[name]
+    arrs = _case(**case_kw)
     td = getattr(torch, dtype)
     t = [torch.from_numpy(arrs[k]).to(td if arrs[k].dtype == np.float32 else torch.int32).to(cuda_device) for k in ORDER]
     t2 = [x.clone() for x in t]
-    out = pmod.prefill_attention(*t, layer=1, fused_write=True, window=40, logit_softcap=30.0)
-    ref = pmod.prefill_attention_ref(*t2, layer=1, fused_write=True, window=40, logit_softcap=30.0)
+    out = pmod.prefill_attention(*t, fused_write=True, **kw)
+    ref = pmod.prefill_attention_ref(*t2, fused_write=True, **kw)
     tol = 1e-4 if dtype == "float32" else 3e-2
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
     assert torch.equal(t[1].view(torch.uint8), t2[1].view(torch.uint8))
