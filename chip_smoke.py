@@ -13,7 +13,11 @@ non-zero exit (nothing is caught):
                fp pools and int8 pools (per-page scales): ragged,
                burst-window, stacked-layer, window+softcap, bf16/f32,
                D=64/128 and NaN-poisoned stale-slot (or stale-scale) cases,
-               and the timing phase's main-path inputs, each held to a
+               the decode kernel's split-KV edges (rows with empty splits,
+               a deep window start, the burst on a row whose last split is
+               empty, G = 1 / 8, page 48, one row at 8,192; each decode call
+               made twice and held to the same bytes), and the timing
+               phase's inputs, each held to a
                bound scaled to its output (TOL); the KV writes (fp, and
                the quantizing write) must leave pools and scales
                byte-identical to their plain versions, in the quantizing
@@ -35,7 +39,9 @@ non-zero exit (nothing is caught):
                series.
 5. timing   -- each kernel (six rows: three fp, three int8), its plain
                version and a PyTorch yardstick at the main path's shapes,
-               with CUDA events, beside its bound.
+               with CUDA events, beside its bound; then the decode kernel
+               at small batch (1 x 2,048, 8 x 1,024, 1 x 8,192), both modes,
+               as rows of their own.
 
 Then the kernel table line, the card's name and power limit, and as the
 last line ``{"ok": true, "device": {...}}``. With no CUDA device, or run
@@ -178,10 +184,10 @@ def decode_case(seed, *, B, NH, KH, D, page, maxp, L, lens, cur_lens=None, C=0, 
     elif poison:  # stale and out-of-range pool slots of every row hold NaN
         cl = cur_lens if C else [0] * B
         for b in range(B):
-            for s in range(max(lens[b] - cl[b], 0), maxp * page):
-                pid = int(pt[b, s // page])
-                kp[layer, pid, s % page] = float("nan")
-                vp[layer, pid, s % page] = float("nan")
+            s = torch.arange(max(lens[b] - cl[b], 0), maxp * page, device=device)
+            pid = pt[b, s // page].long()
+            kp[layer, pid, s % page] = float("nan")
+            vp[layer, pid, s % page] = float("nan")
     q = _rand(gen, (B, NH, D), dtype, device)
     return (q, kp, vp, pt, lens_t), kw
 
@@ -276,6 +282,9 @@ def phase_build():
 
 
 MAIN_DECODE = "main_path_b32_ctx1024_c8_bf16"
+DECODE_B1_8K = "small_batch_b1_ctx8192_c8_bf16"
+DECODE_B1_2K = "small_batch_b1_ctx2048_c8_bf16"
+DECODE_B8_1K = "small_batch_b8_ctx1024_c8_bf16"
 MAIN_PREFILL = "main_path_t512_h1536_bf16"
 INT8 = "int8_"  # the int8 pool twin of a case: same shapes, int8 pools and scales
 
@@ -296,6 +305,38 @@ DECODE_CASES = [
     ("nan_stale_slots_bf16", dict(B=3, NH=32, KH=8, D=64, page=16, maxp=6, L=2, layer=1,
                                   lens=[20, 41, 90], C=8, cur_lens=[4, 8, 1], poison=True,
                                   dtype="bfloat16")),
+    # the split-KV edges (split_plan: about 264 blocks of (split, KV head,
+    # row)): ragged rows of 0, under one tile and ~5,000 slots, so most
+    # splits of the short rows are empty
+    ("splits_ragged_0_40_5000_nan_bf16", dict(B=3, NH=32, KH=8, D=64, page=16, maxp=320, L=1,
+                                              lens=[0, 40, 5000], poison=True, dtype="bfloat16")),
+    # a window whose first visible slot lies thousands of slots in (the
+    # shares start there), with softcap
+    ("splits_deep_window+softcap_bf16", dict(B=2, NH=32, KH=8, D=64, page=16, maxp=188, L=1,
+                                             lens=[3000, 700], C=1, cur_lens=[1, 1], window=256,
+                                             softcap=30.0, dtype="bfloat16")),
+    ("splits_window+softcap_f32_d128", dict(B=2, NH=8, KH=2, D=128, page=16, maxp=130, L=1,
+                                            lens=[2050, 900], C=2, cur_lens=[2, 1], window=700,
+                                            softcap=30.0, dtype="float32")),
+    # the burst window (cur_len < C) on rows whose last split, which folds
+    # it, has no pool slot
+    ("splits_burst_last_split_empty_nan_bf16", dict(B=3, NH=32, KH=8, D=64, page=64, maxp=24, L=2, layer=1,
+                                                    lens=[30, 1500, 900], C=8, cur_lens=[3, 5, 8],
+                                                    poison=True, dtype="bfloat16")),
+    ("splits_g1_d128_bf16", dict(B=2, NH=4, KH=4, D=128, page=32, maxp=63, L=1, lens=[2000, 77], C=4,
+                                 cur_lens=[2, 4], dtype="bfloat16")),
+    ("splits_g8_bf16", dict(B=2, NH=32, KH=4, D=64, page=16, maxp=113, L=1, lens=[1800, 333], C=8,
+                            cur_lens=[8, 1], dtype="bfloat16")),
+    ("splits_page48_nan_bf16", dict(B=2, NH=32, KH=8, D=64, page=48, maxp=47, L=1, lens=[1000, 2222], C=8,
+                                    cur_lens=[8, 6], poison=True, dtype="bfloat16")),
+    # the small-batch timing shapes: one row at 8,192 and 2,048, eight rows
+    # at 1,024 (the step profile's rows), each with a full 8-entry window
+    (DECODE_B1_8K, dict(seed=10, B=1, NH=32, KH=8, D=64, page=64, maxp=129, L=1, lens=[8192], C=8,
+                        cur_lens=[8], dtype="bfloat16")),
+    (DECODE_B1_2K, dict(seed=11, B=1, NH=32, KH=8, D=64, page=64, maxp=33, L=1, lens=[2048], C=8,
+                        cur_lens=[8], dtype="bfloat16")),
+    (DECODE_B8_1K, dict(seed=12, B=8, NH=32, KH=8, D=64, page=64, maxp=17, L=1, lens=[1024] * 8, C=8,
+                        cur_lens=[8] * 8, dtype="bfloat16")),
     # the timing phase's inputs: a decode burst step of the served model
     (MAIN_DECODE, dict(seed=7, B=32, NH=32, KH=8, D=64, page=64, maxp=16, L=1, lens=[1024] * 32, C=8,
                        cur_lens=[8] * 32, dtype="bfloat16")),
@@ -372,7 +413,11 @@ def _clone_pools(args, kw):
 def phase_kernels():
     import torch
 
-    from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_ref
+    from production_stack_tpu_torch.ops.kernels.decode_attention import (
+        decode_attention,
+        decode_attention_ref,
+        split_plan,
+    )
     from production_stack_tpu_torch.ops.kernels.prefill_attention import (
         kv_page_write,
         kv_page_write_quant,
@@ -384,9 +429,9 @@ def phase_kernels():
 
     worst = {name: 0.0 for name in REPLACES}
 
-    def judged(kernel, name, out, ref, dtype, control=None):
+    def judged(kernel, name, out, ref, dtype, control=None, **extra):
         res = _judge(out, ref, dtype)
-        line = {"phase": "kernels", "kernel": kernel, "case": name, **res}
+        line = {"phase": "kernels", "kernel": kernel, "case": name, **res, **extra}
         if control is not None:
             # the plain version with one history key fewer per row, held to
             # the same bound: the check must reject it
@@ -411,7 +456,9 @@ def phase_kernels():
         kernel = _kernel_name("decode_attention", kw.get("quant", False))
         args, call_kw = decode_case(seed, **kw)
         out = decode_attention(*args, **call_kw)
+        again = decode_attention(*args, **call_kw)
         torch.cuda.synchronize()
+        check(_same_bytes(out, again), f"decode {name}: two calls on the same inputs gave different bytes")
         ref = decode_attention_ref(*args, **call_kw)
         if kw.get("poison"):
             # the plain version on clean inputs: poisoned slots must be skipped
@@ -421,7 +468,8 @@ def phase_kernels():
         if name in (MAIN_DECODE, INT8 + MAIN_DECODE):
             q, kp, vp, pt, lens = args
             control = decode_attention_ref(q, kp, vp, pt, lens - 1, **call_kw)
-        judged(kernel, name, out, ref, kw["dtype"], control)
+        plan = split_plan(kw["B"], kw["KH"], kw["maxp"], kw["page"], kw["D"], kw.get("quant", False))
+        judged(kernel, name, out, ref, kw["dtype"], control, splits=plan.splits, byte_identical_rerun=True)
         if 0 in kw["lens"]:
             check(float(out[kw["lens"].index(0)].float().abs().max()) == 0.0, f"decode {name}: empty row not 0")
 
@@ -830,12 +878,55 @@ def _bound(nbytes: float, flops: float, peak_flops: float = PEAK_BF16_FLOPS):
     return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
-def phase_timing() -> dict:
+SMALL_BATCH_DECODE = (DECODE_B1_2K, DECODE_B8_1K, DECODE_B1_8K)
+
+
+def _decode_timing(case_name: str, quant: bool) -> dict:
+    """The decode kernel, its plain version and SDPA on one decode case's
+    inputs (int8 pools and scales for ``quant``), beside the byte bound."""
     import torch
     import torch.nn.functional as F
 
     from production_stack_tpu_torch.ops.attention import gather_kv_pages
     from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_ref
+    from production_stack_tpu_torch.ops.quant import gather_kv_pages_quant
+
+    bf16 = torch.bfloat16
+    case = dict(dict(DECODE_CASES)[case_name], dtype=bf16, quant=quant)
+    B, NH, KH, D, page, maxp = (case[k] for k in ("B", "NH", "KH", "D", "page", "maxp"))
+    lens, C, cur = case["lens"], case["C"], case["cur_lens"]
+    G = NH // KH
+    args, kw = decode_case(case.pop("seed"), **case)
+    q, kp, vp, pt, _ = args
+    ms = _time_ms(lambda: decode_attention(*args, **kw))
+    plain = _time_ms(lambda: decode_attention_ref(*args, **kw))
+    if quant:  # the yardstick reads KV dequantized beforehand (the dequant is not timed)
+        kg, vg = gather_kv_pages_quant(kp[0], vp[0], kw["k_scales"][0], kw["v_scales"][0], pt, dtype=bf16)
+    else:
+        kg, vg = gather_kv_pages(kp[0], vp[0], pt)
+    ctx = lens[0]  # the timed cases have rows of one length and full windows
+    k_all = torch.cat([kg[:, : ctx - C], kw["k_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    v_all = torch.cat([vg[:, : ctx - C], kw["v_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
+    lib = _time_ms(lambda: F.scaled_dot_product_attention(q[:, :, None], k_all, v_all))
+    el = 2
+    hist = sum(n - c for n, c in zip(lens, cur))  # pool slots read, over all rows
+    kv_el = 1 if quant else el
+    pages = sum(-(-(n - c) // page) for n, c in zip(lens, cur))
+    nbytes = (2 * B * NH * D * el + 2 * hist * KH * D * kv_el + (2 * pages * KH * 4 if quant else 0)
+              + 2 * sum(cur) * KH * D * el + pt.numel() * 4 + 2 * B * 4)
+    b_ms, b_by = _bound(nbytes, 4 * NH * D * sum(lens))
+    pool = "int8 pool, bf16 q/window" if quant else "bf16"
+    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                shape=f"B={B} ctx={ctx} C={C} NH={NH} KH={KH} D={D} page={page} {pool}",
+                library="scaled_dot_product_attention over gathered KV, heads repeated"
+                        + (" (KV dequantized to bf16 beforehand, not timed)" if quant else ""))
+
+
+def phase_timing() -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from production_stack_tpu_torch.ops.attention import gather_kv_pages
     from production_stack_tpu_torch.ops.kernels.prefill_attention import (
         kv_page_write,
         kv_page_write_quant,
@@ -852,25 +943,8 @@ def phase_timing() -> dict:
     G = NH // KH
 
     # K1 at a decode burst step: 32 rows x 1,024 context, window C = 8 full
-    case = dict(dict(DECODE_CASES)[MAIN_DECODE], dtype=bf16)
-    B, ctx, C = case["B"], case["lens"][0], case["C"]
-    args, kw = decode_case(case.pop("seed"), **case)
-    q, kp, vp, pt, lens = args
-    ms = _time_ms(lambda: decode_attention(*args, **kw))
-    plain = _time_ms(lambda: decode_attention_ref(*args, **kw))
-    kg, vg = gather_kv_pages(kp[0], vp[0], pt)
-    k_all = torch.cat([kg[:, : ctx - C], kw["k_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
-    v_all = torch.cat([vg[:, : ctx - C], kw["v_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
-    q4 = q[:, :, None]
-    lib = _time_ms(lambda: F.scaled_dot_product_attention(q4, k_all, v_all))
+    rows["decode_attention"] = _decode_timing(MAIN_DECODE, quant=False)
     el = 2
-    nbytes = (B * NH * D * el + 2 * B * (ctx - C) * KH * D * el + 2 * B * C * KH * D * el
-              + pt.numel() * 4 + 2 * B * 4 + B * NH * D * el)
-    flops = 4 * B * NH * D * ctx
-    b_ms, b_by = _bound(nbytes, flops)
-    rows["decode_attention"] = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                                    shape=f"B={B} ctx={ctx} C={C} NH={NH} KH={KH} D={D} page={page} bf16",
-                                    library="scaled_dot_product_attention over gathered KV, heads repeated")
 
     # K2 at a main-path prefill chunk: T = 512 after 1,536 tokens of history
     case = dict(dict(PREFILL_CASES)[MAIN_PREFILL], dtype=bf16)
@@ -907,25 +981,7 @@ def phase_timing() -> dict:
                                  library="index_copy_ into the flat pool, K and V")
 
     # the int8 modes at the same shapes: int8 pools with per-page scales
-    case = dict(dict(DECODE_CASES)[INT8 + MAIN_DECODE], dtype=bf16)
-    args, kw = decode_case(case.pop("seed"), **case)
-    q, kp, vp, pt, lens = args
-    ms = _time_ms(lambda: decode_attention(*args, **kw))
-    plain = _time_ms(lambda: decode_attention_ref(*args, **kw))
-    # the yardstick reads KV dequantized beforehand (the dequant is not timed)
-    kg, vg = gather_kv_pages_quant(kp[0], vp[0], kw["k_scales"][0], kw["v_scales"][0], pt, dtype=bf16)
-    k_all = torch.cat([kg[:, : ctx - C], kw["k_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
-    v_all = torch.cat([vg[:, : ctx - C], kw["v_cur"]], 1).transpose(1, 2).repeat_interleave(G, 1).contiguous()
-    q4 = q[:, :, None]
-    lib = _time_ms(lambda: F.scaled_dot_product_attention(q4, k_all, v_all))
-    hist_pages = -(-(ctx - C) // page)
-    nbytes = (B * NH * D * el + 2 * B * (ctx - C) * KH * D + 2 * B * hist_pages * KH * 4
-              + 2 * B * C * KH * D * el + pt.numel() * 4 + 2 * B * 4 + B * NH * D * el)
-    b_ms, b_by = _bound(nbytes, 4 * B * NH * D * ctx)
-    rows["decode_attention[int8]"] = dict(
-        ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-        shape=f"B={B} ctx={ctx} C={C} NH={NH} KH={KH} D={D} page={page} int8 pool, bf16 q/window",
-        library="scaled_dot_product_attention over KV dequantized to bf16 beforehand (dequant not timed)")
+    rows["decode_attention[int8]"] = _decode_timing(MAIN_DECODE, quant=True)
 
     case = dict(dict(PREFILL_CASES)[INT8 + MAIN_PREFILL], dtype=bf16)
     args, kw = prefill_case(case.pop("seed"), **case)
@@ -959,6 +1015,12 @@ def phase_timing() -> dict:
                                        library="none: no single PyTorch call quantizes per page and scatters")
     for name, r in rows.items():
         emit({"phase": "timing", "kernel": name, **r})
+    # the decode kernel at small batch, both modes (rows of their own; the
+    # kernel table keeps the main-path shapes above)
+    for case in SMALL_BATCH_DECODE:
+        for quant in (False, True):
+            emit({"phase": "timing", "kernel": _kernel_name("decode_attention", quant), "case": case,
+                  **_decode_timing(case, quant)})
     return rows
 
 

@@ -1,6 +1,7 @@
 // Shared pieces of the paged-attention kernels: dtype conversion, warp
-// reductions, cp.async staging, and (prefill_attention.cu) the f32
-// CUDA-core fold of one staged KV tile.
+// reductions, cp.async staging, the page lookup by multiply and shift,
+// ldmatrix, and (prefill_attention.cu) the f32 CUDA-core fold of one
+// staged KV tile.
 //
 // Stale or out-of-range pool slots may hold any bytes, and 0 * NaN is NaN:
 // they are never staged, and a tile row that is not staged is never read.
@@ -50,6 +51,58 @@ __device__ __forceinline__ void cp_async4(void* smem, const void* gmem) {
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
 __device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// cp.async that copies `ok ? 16 : 0` bytes and zero-fills the rest of the
+// 16 (or 4): a row past a tile's keys lands as zeros without a branch
+__device__ __forceinline__ void cp_async16_or_zero(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem), "r"(ok ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async4_or_zero(void* smem, const void* gmem, bool ok) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(smem)), "l"(gmem), "r"(ok ? 4 : 0));
+}
+
+// slot -> page for a page size fixed per launch, any size, by a multiply
+// and a shift (CUTLASS's FastDivmod, exact for slots below 2^31): an
+// integer division spends three conversion or MUFU ops per lookup, on the
+// pipe the softmax's exp2 saturates
+struct PageDiv {
+  int size;
+  uint32_t mul, shr;
+  __device__ __forceinline__ int page(int slot) const {
+    return size == 1 ? slot : (int)(__umulhi((uint32_t)slot, mul) >> shr);
+  }
+};
+
+inline PageDiv page_div(int size) {
+  PageDiv d{size, 0u, 0u};
+  if (size > 1) {
+    const int p = 31 + (32 - __builtin_clz(size - 1));  // 31 + ceil(log2 size)
+    d.mul = (uint32_t)(((1ull << p) + size - 1) / size);
+    d.shr = p - 32;
+  }
+  return d;
+}
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
 
 // Eight elements (16 bytes of T = bf16, or two 16-byte loads of f32) of a
 // staged row, as floats.

@@ -9,11 +9,17 @@ layouts: fp pools (bf16/f32, as q), or int8 pools with ``k_scales/v_scales``
 [L, P, KH] f32 (ops/quant.py), which the kernel applies in f32 as it folds
 each slot; the burst window stays fp. The wrapper counts fp launches in
 ``decode_attention.launches`` and int8 ones in ``launches_int8``.
+
+The kernel splits each row's live context over ``split_plan(...)`` blocks
+per (KV head, row) and merges their partial softmax states in a second
+kernel; the plan depends on the bucket's shapes and the pool's dtype only,
+never on ``seq_lens``, so it reads no device value on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -24,6 +30,26 @@ from production_stack_tpu_torch.ops.quant import dequant
 NO_WINDOW = 1 << 30
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
+
+# blocks the split plan aims at: about two resident blocks on each of the
+# H100's 132 SMs
+TARGET_BLOCKS = 2 * 132
+
+
+class SplitPlan(NamedTuple):
+    splits: int  # blocks per (KV head, row), each taking a contiguous share of the row
+    tile: int  # pool slots per staged tile; a split's share is whole tiles
+
+
+def split_plan(B: int, KH: int, max_pages: int, page_size: int, head_dim: int, quant: bool) -> SplitPlan:
+    """The decode kernel's launch plan for a bucket: tiles of 128 slots for
+    pool rows of at most 64 bytes (int8 at D = 64), else 64 (csrc
+    DecodeSmem / the tensor-core tiles); as many splits as bring B * KH
+    blocks to about TARGET_BLOCKS, and no more than the bucket's capacity
+    max_pages * page_size has tiles, so no split is under one tile."""
+    tile = 128 if head_dim * (1 if quant else 2) <= 64 else 64
+    cap_tiles = -(-(max_pages * page_size) // tile)
+    return SplitPlan(max(1, min(TARGET_BLOCKS // max(B * KH, 1), cap_tiles)), tile)
 
 
 def stack_pools(k_pages, v_pages, layer, k_scales=None, v_scales=None):
@@ -88,7 +114,7 @@ def _lib():
     if not _bound:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.decode_attention_launch.argtypes = [
-            I, I, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P,
+            I, I, I, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, I, P, P,
         ]
         lib.decode_attention_launch.restype = I
         _bound = True
@@ -156,6 +182,9 @@ def decode_attention(
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages) + ((k_cur, v_cur) if C else ())):
         raise ValueError("decode kernel needs 16-byte aligned q, pools and windows")
     out = torch.empty_like(q)
+    splits = split_plan(B, KH, max_pages, page_size, D, quant).splits
+    # each split's (acc[D], m, l) in f32, merged by the second kernel
+    partials = torch.empty((B * NH * splits * (D + 2),), dtype=torch.float32, device=q.device) if splits > 1 else None
     err = _lib().decode_attention_launch(
         _DTYPES[q.dtype], int(quant), D, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         k_scales.data_ptr() if quant else None, v_scales.data_ptr() if quant else None,
@@ -165,6 +194,7 @@ def decode_attention(
         NO_WINDOW if window is None else int(window),
         float(sm_scale if sm_scale is not None else D**-0.5),
         float(logit_softcap or 0.0),
+        splits, partials.data_ptr() if splits > 1 else None,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:

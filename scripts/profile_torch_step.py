@@ -28,7 +28,7 @@ from pathlib import Path
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 
 FAMILIES = (
-    ("decode_attention", ("decode_attention_kernel",)),
+    ("decode_attention", ("decode_attention_",)),  # the split kernels and their merge
     ("prefill_attention", ("prefill_attention_mma_kernel", "prefill_attention_f32_kernel")),
     ("kv_page_write", ("kv_page_write_kernel", "kv_page_write_quant_kernel")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),

@@ -50,7 +50,7 @@ _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|production_stack_tpu(?
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "scripts/profile_torch_step.py"],
+    sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "scripts/profile_torch_step.py", "scripts/decode_variants.py"],
 )
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     text = (REPO / path).read_text()

@@ -182,6 +182,13 @@ DECODE_CASES = {
     "stacked_layer_burst": (dict(B=2, NH=8, KH=4, D=32, P=16, maxp=4, L=3, C=3, seed=10),
                             dict(lens=[6, 29], cur_lens=[3, 2], layer=2)),
     "bf16_burst": (dict(C=8, page=16, maxp=4, seed=8), dict(lens=[8, 30, 64], cur_lens=[8, 5, 1], dtype="bfloat16")),
+    # the split-KV edges of the CUDA kernel, at small widths: a window whose
+    # first visible slot lies deep in a long row, and ragged rows of 0 and
+    # with a short burst
+    "window_deep_in_long_row": (dict(B=2, page=16, P=40, maxp=16, C=1, seed=14),
+                                dict(lens=[250, 100], window=20, logit_softcap=30.0)),
+    "ragged_zero_and_burst": (dict(B=3, page=16, P=40, maxp=12, C=4, seed=15),
+                              dict(lens=[0, 5, 180], cur_lens=[0, 2, 3])),
 }
 
 
