@@ -93,6 +93,16 @@ __device__ __forceinline__ float fast_exp2(float x) {
   return y;
 }
 
+// tanh(x) = 1 - 2 / (1 + 2^(2 x log2 e)) from the SFU's exp2 and reciprocal,
+// +-1 where exp2 overflows or flushes: an absolute error below 2^-22, as
+// tanhf's (scripts/softcap_tanh_error.py), where PTX bounds tanh.approx.f32
+// only by a relative error of 2^-11
+__device__ __forceinline__ float tanh_sfu(float x) {
+  float r;
+  asm("rcp.approx.ftz.f32 %0, %1;\n" : "=f"(r) : "f"(1.f + fast_exp2(x * (2.f * LOG2E))));
+  return fmaf(-2.f, r, 1.f);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // lo in the low 16 bits
   return *reinterpret_cast<uint32_t*>(&v);
@@ -140,20 +150,22 @@ __device__ __forceinline__ void load8(const int8_t* p, float (&f)[8]) {
   int8x4_to_f32(w.y, f + 4);
 }
 
-// E consecutive elements (E = 2 or 4) of a staged row, as floats, in one
-// vector load.
+// E consecutive elements (E = 2, 4 or 8) of a staged row, as floats, in one
+// vector load (two for eight f32).
 template <int E>
 __device__ __forceinline__ void load_e(const __nv_bfloat16* p, float (&f)[E]) {
   if constexpr (E == 2) {
     const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
     f[0] = x.x;
     f[1] = x.y;
-  } else {
-    static_assert(E == 4, "E is 2 or 4");
+  } else if constexpr (E == 4) {
     const uint2 u = *reinterpret_cast<const uint2*>(p);
     const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
     const float2 y = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
     f[0] = x.x; f[1] = x.y; f[2] = y.x; f[3] = y.y;
+  } else {
+    static_assert(E == 8, "E is 2, 4 or 8");
+    load8(p, f);
   }
 }
 template <int E>
@@ -162,19 +174,25 @@ __device__ __forceinline__ void load_e(const float* p, float (&f)[E]) {
     const float2 x = *reinterpret_cast<const float2*>(p);
     f[0] = x.x;
     f[1] = x.y;
-  } else {
-    static_assert(E == 4, "E is 2 or 4");
+  } else if constexpr (E == 4) {
     const float4 x = *reinterpret_cast<const float4*>(p);
     f[0] = x.x; f[1] = x.y; f[2] = x.z; f[3] = x.w;
+  } else {
+    static_assert(E == 8, "E is 2, 4 or 8");
+    load8(p, f);
   }
 }
 template <int E>
 __device__ __forceinline__ void load_e(const int8_t* p, float (&f)[E]) {
-  static_assert(E == 2 || E == 4, "E is 2 or 4");
-  float x[4];
-  int8x4_to_f32(E == 2 ? *reinterpret_cast<const uint16_t*>(p) : *reinterpret_cast<const uint32_t*>(p), x);
+  static_assert(E == 2 || E == 4 || E == 8, "E is 2, 4 or 8");
+  if constexpr (E == 8) {
+    load8(p, f);
+  } else {
+    float x[4];
+    int8x4_to_f32(E == 2 ? *reinterpret_cast<const uint16_t*>(p) : *reinterpret_cast<const uint32_t*>(p), x);
 #pragma unroll
-  for (int i = 0; i < E; ++i) f[i] = x[i];
+    for (int i = 0; i < E; ++i) f[i] = x[i];
+  }
 }
 
 // Copy `n` rows of D elements (16-byte vectors) into a shared tile of row

@@ -37,12 +37,18 @@
 //    whole rows; each row's page is found by a multiply and a shift
 //    (PageDiv) and read from the page table a tile ahead of its copy. int8
 //    pools stage their raw rows and each slot's page scales, and are
-//    converted to fp16 operands in registers;
+//    converted to fp16 operands in registers. At D = 256 (Gemma-2) a
+//    thread's O takes 128 registers: the bf16 ring has 3 stages (202 KB,
+//    one block per SM, which split_plan counts), Q's fragments sit in
+//    shared memory for bf16 pools, and the int8 D order runs in two
+//    128-column halves (key_row, swz, v_d);
 //  - f32 q (tests and references only) keeps a CUDA-core fold in the same
 //    split structure: one warp per query head, a double buffer, lane j
 //    taking slots j, j + 32, ... of a tile and the whole dot product (a TF32
 //    product would break the f32 tolerance); int8 scales applied in f32, the
-//    K scale to the score and the V scale to the probability;
+//    K scale to the score and the V scale to the probability; f32 pools at
+//    D = 256 stage 32-slot tiles (64 would take 266 KB of the 227 KB a block
+//    may hold);
 //  - the cur_len burst entries fold in last, straight from k_cur/v_cur.
 // Slots outside the live range are never staged or read (stale pool slots
 // may hold NaN): a tile's rows past the live range are zero-filled.
@@ -108,13 +114,14 @@ __device__ __forceinline__ RowSplit row_split(const DecodeArgs& a, int b, int s)
 }
 
 // Pool tiles (element KV: T, or int8_t) and burst-window tiles (element T):
-// BK slots per tile, 128 for rows of <= 64 bytes, else 64 (the rule of
-// split_plan in ops/kernels/decode_attention.py); rows padded by 16 bytes.
-// Lane j owns slots j, j + 32, ...
+// BK slots per tile, 128 for rows of <= 64 bytes, 32 for rows of 1 KB (f32
+// at D = 256), else 64 (the rule of split_plan in
+// ops/kernels/decode_attention.py, whose split count stays right for any
+// tile); rows padded by 16 bytes. Lane j owns slots j, j + 32, ...
 template <typename T, typename KV, int D>
 struct DecodeSmem {
   static constexpr bool QUANT = sizeof(KV) == 1;
-  static constexpr int BK = D * sizeof(KV) <= 64 ? 128 : 64;
+  static constexpr int BK = D * sizeof(KV) <= 64 ? 128 : D * sizeof(KV) >= 1024 ? 32 : 64;
   static constexpr int ROW = D + 16 / (int)sizeof(KV);
   static constexpr int WBK = D * sizeof(T) <= 128 ? 128 : 64;
   static constexpr int WROW = D + 16 / (int)sizeof(T);
@@ -415,7 +422,7 @@ struct MmaSmem {
   static constexpr int THREADS = 32 * NW;
   static constexpr int WIN_BK = BK;                               // window entries per window tile
   static constexpr int ROWB = QUANT ? D : 2 * D + 16;             // bytes per staged pool row
-  static constexpr int NS = QUANT || D == 128 ? 3 : 4;            // ring stages
+  static constexpr int NS = QUANT || D >= 128 ? 3 : 4;            // ring stages (4 bf16 stages at D = 256: 270 KB)
   static constexpr int TILE = BK * ROWB;                          // one K or V tile
   static constexpr int STAGE = 2 * TILE + (QUANT ? 2 * BK * 4 : 0);  // K, V, their slots' scales
   static constexpr int WROWB = 2 * D + 16;                        // window rows, bf16
@@ -423,18 +430,30 @@ struct MmaSmem {
   static constexpr int MSTRIDE = D + 8;                           // floats per merged row
   static constexpr int MERGE = NW * 8 * (MSTRIDE + 2) * 4;
   static constexpr int RING = NS * STAGE;
-  static constexpr int bytes = RING > WIN ? (RING > MERGE ? RING : MERGE) : (WIN > MERGE ? WIN : MERGE);
+  static constexpr int BODY = RING > WIN ? (RING > MERGE ? RING : MERGE) : (WIN > MERGE ? WIN : MERGE);
+  // Q's A fragments [D / 16][32 lanes][2 words] in shared memory for bf16
+  // pools at D = 256, where O's 128 accumulator registers a thread leave no
+  // room for them (ptxas spilled 112 bytes; int8 pools keep Q in registers:
+  // their 96 bytes of spill cost less than the shared-memory reads)
+  static constexpr bool Q_SMEM = D == 256 && !QUANT;
+  static constexpr int QOFF = BODY;
+  static constexpr int bytes = BODY + (Q_SMEM ? D / 16 * 32 * 8 : 0);
+  static_assert(bytes <= 232448, "a block holds at most 227 KB of shared memory");
 };
 
-// int8 layouts (D = 64 | 128). key_row(n): the tile row behind S column n
-// (0..15) of a 16-key chunk; XOR swizzle of the 16-byte chunk c of row r.
+// int8 layouts (D = 64 | 128 | 256). key_row(n): the tile row behind S
+// column n (0..15) of a 16-key chunk; XOR swizzle of the 16-byte chunk c of
+// row r. A 256-byte row (D = 256) spans the 32 banks twice, so chunks c and
+// c + 8 share a bank group: bit 3 of c flips bit 1 of the group, which keeps
+// s_int8's chunks 4t + i of rows g and pv_int8's chunks g, 8 + g of rows
+// 2t + e apart, eight groups for the eight lanes of each 16-byte phase.
 template <int D>
 __device__ __forceinline__ int key_row(int n) {
   return D == 64 ? n ^ ((n >> 2) & 1) : n;
 }
 template <int D>
 __device__ __forceinline__ int swz(int r, int c) {
-  return D == 64 ? c ^ (r & 2) : c ^ (r & 7);
+  return D == 64 ? c ^ (r & 2) : D == 128 ? c ^ (r & 7) : c ^ ((c >> 2) & 2) ^ (r & 7);
 }
 
 __device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0, uint32_t b1) {
@@ -469,17 +488,19 @@ __device__ __forceinline__ uint32_t i8pair_f16(uint32_t x, uint32_t sel) {
 // the byte-pair selector of int8x2 operand j (0 or 1) of a word: bytes 2j, 2j + 1
 constexpr uint32_t SEL_LO = 0x4140u, SEL_HI = 0x4342u;
 
-// S (two n8 blocks of 16 keys at tile row kb) = Q K^T from a bf16 tile
-template <int D, int ROWB>
-__device__ __forceinline__ void s_bf16(float (&s)[2][4], const uint32_t (&qa)[D / 16][4], uint32_t tile, int kb) {
+// S (two n8 blocks of 16 keys at tile row kb) = Q K^T from a bf16 tile;
+// qf(ks, a) gives q's A fragment of k-step ks
+template <int D, int ROWB, typename QF>
+__device__ __forceinline__ void s_bf16(float (&s)[2][4], QF qf, uint32_t tile, int kb) {
   const int lane = threadIdx.x & 31;
   const uint32_t base = tile + (kb + (lane & 7) + ((lane >> 4) << 3)) * ROWB + ((lane >> 3) & 1) * 16;
 #pragma unroll
   for (int ks = 0; ks < D / 16; ++ks) {
-    uint32_t r[4];
+    uint32_t r[4], qa[4];
     ldmatrix_x4(r, base + ks * 32);
-    mma_bf16(s[0], qa[ks], r[0], r[1]);
-    mma_bf16(s[1], qa[ks], r[2], r[3]);
+    qf(ks, qa);
+    mma_bf16(s[0], qa, r[0], r[1]);
+    mma_bf16(s[1], qa, r[2], r[3]);
   }
 }
 
@@ -500,9 +521,8 @@ __device__ __forceinline__ void pv_bf16(float (&o)[D / 8][4], const uint32_t (&p
 // S from an int8 tile (rows of D bytes, swizzled). Thread (g, t) loads the
 // D / 4 bytes [t D / 4, (t + 1) D / 4) of key row key_row(8 nb + g); k-step
 // ks takes its bytes 4 ks .. 4 ks + 3, which q's fragment matches (k_d).
-template <int D>
-__device__ __forceinline__ void s_int8(float (&s)[2][4], const uint32_t (&qa)[D / 16][4], const unsigned char* tile,
-                                       int kb) {
+template <int D, typename QF>
+__device__ __forceinline__ void s_int8(float (&s)[2][4], QF qf, const unsigned char* tile, int kb) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
 #pragma unroll
@@ -518,81 +538,100 @@ __device__ __forceinline__ void s_int8(float (&s)[2][4], const uint32_t (&qa)[D 
       w[4 * i + 3] = u.w ^ 0x80808080u;
     }
 #pragma unroll
-    for (int ks = 0; ks < D / 16; ++ks) mma_f16(s[nb], qa[ks], i8pair_f16(w[ks], SEL_LO), i8pair_f16(w[ks], SEL_HI));
+    for (int ks = 0; ks < D / 16; ++ks) {
+      uint32_t qa[4];
+      qf(ks, qa);
+      mma_f16(s[nb], qa, i8pair_f16(w[ks], SEL_LO), i8pair_f16(w[ks], SEL_HI));
+    }
   }
 }
 
-// O += P V for 16 keys of an int8 tile. Thread (g, t) loads the D / 8 bytes
-// [g D / 8, (g + 1) D / 8) of its four key rows (P's columns 2t, 2t + 1,
-// 8 + 2t, 9 + 2t); n8 block db then holds d = v_d(db, column).
+// O += P V for 16 keys of an int8 tile. Thread (g, t) loads its bytes of
+// its four key rows (P's columns 2t, 2t + 1, 8 + 2t, 9 + 2t): at D = 64 the
+// 8 bytes [8 g, 8 g + 8); at D = 128 | 256 the 16 bytes [16 g, 16 g + 16)
+// of each 128-column half, one half at a time. n8 block db then holds d =
+// v_d(db, column).
 template <int D>
 __device__ __forceinline__ void pv_int8(float (&o)[D / 8][4], const uint32_t (&pa)[4], const unsigned char* tile,
                                         int kb) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  constexpr int W = D / 32;  // words per thread per row
-  uint32_t w[4][W];          // rows of columns 2t, 2t + 1, 8 + 2t, 9 + 2t
+  constexpr int HD = D < 128 ? D : 128;  // columns per half
+  constexpr int W = HD / 32;             // words per thread per row of a half
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const int r = kb + key_row<D>(8 * (k >> 1) + 2 * t + (k & 1));
-    if constexpr (D == 64) {
-      const uint2 u = *reinterpret_cast<const uint2*>(tile + r * D + swz<D>(r, g >> 1) * 16 + (g & 1) * 8);
-      w[k][0] = u.x ^ 0x80808080u;
-      w[k][1] = u.y ^ 0x80808080u;
-    } else {
-      const uint4 u = *reinterpret_cast<const uint4*>(tile + r * D + swz<D>(r, g) * 16);
-      w[k][0] = u.x ^ 0x80808080u;
-      w[k][1] = u.y ^ 0x80808080u;
-      w[k][2] = u.z ^ 0x80808080u;
-      w[k][3] = u.w ^ 0x80808080u;
+  for (int h = 0; h < D / HD; ++h) {
+    uint32_t w[4][W];  // rows of columns 2t, 2t + 1, 8 + 2t, 9 + 2t
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int r = kb + key_row<D>(8 * (k >> 1) + 2 * t + (k & 1));
+      if constexpr (D == 64) {
+        const uint2 u = *reinterpret_cast<const uint2*>(tile + r * D + swz<D>(r, g >> 1) * 16 + (g & 1) * 8);
+        w[k][0] = u.x ^ 0x80808080u;
+        w[k][1] = u.y ^ 0x80808080u;
+      } else {
+        const uint4 u = *reinterpret_cast<const uint4*>(tile + r * D + swz<D>(r, g + 8 * h) * 16);
+        w[k][0] = u.x ^ 0x80808080u;
+        w[k][1] = u.y ^ 0x80808080u;
+        w[k][2] = u.z ^ 0x80808080u;
+        w[k][3] = u.w ^ 0x80808080u;
+      }
     }
-  }
 #pragma unroll
-  for (int db = 0; db < D / 8; db += 2) {
-    // bytes db, db + 1 of the rows, interleaved (row a, row b) per byte
-    const int wi = db >> 2, sh = db & 3;
-    const uint32_t sel = (uint32_t)(sh | (4 + sh) << 4 | (sh + 1) << 8 | (5 + sh) << 12);
-    const uint32_t lo = __byte_perm(w[0][wi], w[1][wi], sel);  // keys of columns 2t, 2t + 1
-    const uint32_t hi = __byte_perm(w[2][wi], w[3][wi], sel);  // 8 + 2t, 9 + 2t
-    mma_f16(o[db], pa, i8pair_f16(lo, SEL_LO), i8pair_f16(hi, SEL_LO));
-    mma_f16(o[db + 1], pa, i8pair_f16(lo, SEL_HI), i8pair_f16(hi, SEL_HI));
+    for (int db = 0; db < HD / 8; db += 2) {
+      // bytes db, db + 1 of the rows, interleaved (row a, row b) per byte
+      const int wi = db >> 2, sh = db & 3;
+      const uint32_t sel = (uint32_t)(sh | (4 + sh) << 4 | (sh + 1) << 8 | (5 + sh) << 12);
+      const uint32_t lo = __byte_perm(w[0][wi], w[1][wi], sel);  // keys of columns 2t, 2t + 1
+      const uint32_t hi = __byte_perm(w[2][wi], w[3][wi], sel);  // 8 + 2t, 9 + 2t
+      mma_f16(o[HD / 8 * h + db], pa, i8pair_f16(lo, SEL_LO), i8pair_f16(hi, SEL_LO));
+      mma_f16(o[HD / 8 * h + db + 1], pa, i8pair_f16(lo, SEL_HI), i8pair_f16(hi, SEL_HI));
+    }
   }
 }
 
 // O += P V for 16 window entries of a bf16 tile (row kb, stride ROWB bytes)
-// in the int8 pools' column order (v_d): thread (g, t) reads the D / 8
-// values [g D / 8, (g + 1) D / 8) of its four entries
+// in the int8 pools' column order (v_d): thread (g, t) reads the values
+// [HD h + g HD / 8, HD h + (g + 1) HD / 8) of its four entries, one
+// HD-column half h at a time (HD = min(D, 128))
 template <int D, int ROWB>
 __device__ __forceinline__ void pv_bf16_vd(float (&o)[D / 8][4], const uint32_t (&pa)[4], const unsigned char* tile,
                                            int kb) {
   const int lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
-  constexpr int W = D / 16;  // bf16 pairs per thread per row
-  uint32_t w[4][W];
+  constexpr int HD = D < 128 ? D : 128;
+  constexpr int W = HD / 16;  // bf16 pairs per thread per row of a half
 #pragma unroll
-  for (int k = 0; k < 4; ++k) {
-    const uint4* p = reinterpret_cast<const uint4*>(tile + (kb + 8 * (k >> 1) + 2 * t + (k & 1)) * ROWB + g * D / 4);
+  for (int h = 0; h < D / HD; ++h) {
+    uint32_t w[4][W];
 #pragma unroll
-    for (int i = 0; i < W / 4; ++i) {
-      const uint4 u = p[i];
-      w[k][4 * i] = u.x;
-      w[k][4 * i + 1] = u.y;
-      w[k][4 * i + 2] = u.z;
-      w[k][4 * i + 3] = u.w;
+    for (int k = 0; k < 4; ++k) {
+      const uint4* p = reinterpret_cast<const uint4*>(tile + (kb + 8 * (k >> 1) + 2 * t + (k & 1)) * ROWB +
+                                                      (HD * h + g * HD / 8) * 2);
+#pragma unroll
+      for (int i = 0; i < W / 4; ++i) {
+        const uint4 u = p[i];
+        w[k][4 * i] = u.x;
+        w[k][4 * i + 1] = u.y;
+        w[k][4 * i + 2] = u.z;
+        w[k][4 * i + 3] = u.w;
+      }
     }
-  }
 #pragma unroll
-  for (int db = 0; db < D / 8; ++db) {
-    const uint32_t sel = db & 1 ? 0x7632u : 0x5410u;  // the high or low bf16 of each word
-    mma_bf16(o[db], pa, __byte_perm(w[0][db >> 1], w[1][db >> 1], sel),
-             __byte_perm(w[2][db >> 1], w[3][db >> 1], sel));
+    for (int db = 0; db < HD / 8; ++db) {
+      const uint32_t sel = db & 1 ? 0x7632u : 0x5410u;  // the high or low bf16 of each word
+      mma_bf16(o[HD / 8 * h + db], pa, __byte_perm(w[0][db >> 1], w[1][db >> 1], sel),
+               __byte_perm(w[2][db >> 1], w[3][db >> 1], sel));
+    }
   }
 }
 
-// the d of accumulator column c (0..7) of n8 block db
+// the d of accumulator column c (0..7) of n8 block db: int8 pools take each
+// HD-column half (HD = min(D, 128)) in c-major order
 template <typename KV, int D>
 __device__ __forceinline__ int v_d(int db, int c) {
-  return sizeof(KV) == 1 ? c * (D / 8) + db : 8 * db + c;
+  constexpr int NBH = (D < 128 ? D : 128) / 8;  // n8 blocks per half
+  if (sizeof(KV) != 1) return 8 * db + c;
+  return (db / NBH) * 8 * NBH + c * NBH + db % NBH;
 }
 
 // q's A fragments (rows g < G of the 16; rows g + 8 stay zero). bf16 in
@@ -616,6 +655,35 @@ __device__ __forceinline__ void load_q(uint32_t (&qa)[D / 16][4], const __nv_bfl
       qa[ks][0] = *reinterpret_cast<const uint32_t*>(qrow + 16 * ks + 2 * t);
       qa[ks][2] = *reinterpret_cast<const uint32_t*>(qrow + 16 * ks + 8 + 2 * t);
     }
+  }
+}
+
+// load_q's fragments of every lane into shared memory, [ks][lane] as words
+// 0 and 2 (the others are zero), by the first warp; then a block barrier
+template <bool F16, int D>
+__device__ __forceinline__ void stage_q(unsigned char* dst, const __nv_bfloat16* qrow, bool live) {
+  if (threadIdx.x < 32) {
+    uint32_t qa[D / 16][4];
+    load_q<F16, D>(qa, qrow, live);
+#pragma unroll
+    for (int ks = 0; ks < D / 16; ++ks)
+      reinterpret_cast<uint2*>(dst)[ks * 32 + threadIdx.x] = make_uint2(qa[ks][0], qa[ks][2]);
+  }
+  __syncthreads();
+}
+
+// q's A fragment of k-step ks from registers (qa) or shared memory (qs)
+template <bool SMEM, int D>
+__device__ __forceinline__ void q_frag(uint32_t (&f)[4], const uint32_t (&qa)[SMEM ? 1 : D / 16][4],
+                                       const unsigned char* qs, int ks) {
+  if constexpr (SMEM) {
+    const uint2 v = reinterpret_cast<const uint2*>(qs)[ks * 32 + (threadIdx.x & 31)];
+    f[0] = v.x;
+    f[2] = v.y;
+    f[1] = f[3] = 0u;
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) f[e] = qa[ks][e];
   }
 }
 
@@ -692,8 +760,14 @@ __global__ void __launch_bounds__(MmaSmem<KV, D>::THREADS) decode_attention_mma_
   const float qk_scale = a.sm_scale * LOG2E;
 
   const bf16* qrow = static_cast<const bf16*>(a.q) + ((size_t)b * a.NH + kh * G + min(g, G - 1)) * D;
-  uint32_t qa[D / 16][4];
-  load_q<QUANT, D>(qa, qrow, g < G);
+  uint32_t qa[S::Q_SMEM ? 1 : D / 16][4];
+  unsigned char* qs = smem + S::QOFF;
+  if constexpr (S::Q_SMEM) {
+    stage_q<QUANT, D>(qs, qrow, g < G);
+  } else {
+    load_q<QUANT, D>(qa, qrow, g < G);
+  }
+  auto qf = [&](int ks, uint32_t(&f)[4]) { q_frag<S::Q_SMEM, D>(f, qa, qs, ks); };
   WarpState<D> st;
   st.m = NEG_INF;
   st.l = 0.f;
@@ -773,12 +847,12 @@ __global__ void __launch_bounds__(MmaSmem<KV, D>::THREADS) decode_attention_mma_
     auto row = [&](int nb, int e) { return kb + (QUANT ? key_row<D>(8 * nb + 2 * t + e) : 8 * nb + 2 * t + e); };
     auto ok = [&](int nb, int e) { return row(nb, e) < n; };  // rows past n are zeros
     if constexpr (QUANT) {
-      s_int8<D>(s, qa, st_k, kb);
+      s_int8<D>(s, qf, st_k, kb);
       softmax_fold<D, true>(
           st, s, ok, [&](int nb, int e) { return ksc[row(nb, e)]; }, [&](int nb, int e) { return vsc[row(nb, e)]; },
           qk_scale, a.sm_scale, a.softcap, [&](const uint32_t(&pa)[4]) { pv_int8<D>(st.o, pa, st_v, kb); });
     } else {
-      s_bf16<D, ROWB>(s, qa, smem_u32(st_k), kb);
+      s_bf16<D, ROWB>(s, qf, smem_u32(st_k), kb);
       softmax_fold<D, false>(
           st, s, ok, [](int, int) { return 1.f; }, [](int, int) { return 1.f; }, qk_scale, a.sm_scale, a.softcap,
           [&](const uint32_t(&pa)[4]) { pv_bf16<D, ROWB>(st.o, pa, smem_u32(st_v), kb); });
@@ -790,15 +864,16 @@ __global__ void __launch_bounds__(MmaSmem<KV, D>::THREADS) decode_attention_mma_
   // the burst window (bf16), folded by the last split: entry j holds the
   // token at position paged_end + j
   if (blockIdx.x == a.splits - 1 && rs.cl > 0) {
-    uint32_t qb[D / 16][4];
+    uint32_t qb[S::Q_SMEM ? 1 : D / 16][4];
     if constexpr (QUANT) {
       load_q<false, D>(qb, qrow, g < G);
-    } else {
+    } else if constexpr (!S::Q_SMEM) {  // else qs holds them
 #pragma unroll
       for (int ks = 0; ks < D / 16; ++ks)
 #pragma unroll
         for (int e = 0; e < 4; ++e) qb[ks][e] = qa[ks][e];
     }
+    auto qbf = [&](int ks, uint32_t(&f)[4]) { q_frag<S::Q_SMEM, D>(f, qb, qs, ks); };
     constexpr int WCH = 2 * D / 16;  // 16-byte chunks per window row
     const unsigned char* k_cur = static_cast<const unsigned char*>(a.k_cur);
     const unsigned char* v_cur = static_cast<const unsigned char*>(a.v_cur);
@@ -821,7 +896,7 @@ __global__ void __launch_bounds__(MmaSmem<KV, D>::THREADS) decode_attention_mma_
       if (kb < n) {
         const int first = rs.paged_end + j0, lo = rs.lo;
         float s[2][4] = {};
-        s_bf16<D, S::WROWB>(s, qb, smem_u32(wk), kb);
+        s_bf16<D, S::WROWB>(s, qbf, smem_u32(wk), kb);
         softmax_fold<D, false>(
             st, s,
             [&](int nb, int e) {
@@ -970,11 +1045,15 @@ extern "C" int decode_attention_launch(int dtype, int kv_int8, int head_dim, con
     if (dtype == 0 && head_dim == 128) return (int)launch<float, float, 128>(a, B, s);
     if (dtype == 1 && head_dim == 64) return (int)launch<bf16, bf16, 64>(a, B, s);
     if (dtype == 1 && head_dim == 128) return (int)launch<bf16, bf16, 128>(a, B, s);
+    if (dtype == 0 && head_dim == 256) return (int)launch<float, float, 256>(a, B, s);
+    if (dtype == 1 && head_dim == 256) return (int)launch<bf16, bf16, 256>(a, B, s);
   } else {
     if (dtype == 0 && head_dim == 64) return (int)launch<float, int8_t, 64>(a, B, s);
     if (dtype == 0 && head_dim == 128) return (int)launch<float, int8_t, 128>(a, B, s);
     if (dtype == 1 && head_dim == 64) return (int)launch<bf16, int8_t, 64>(a, B, s);
     if (dtype == 1 && head_dim == 128) return (int)launch<bf16, int8_t, 128>(a, B, s);
+    if (dtype == 0 && head_dim == 256) return (int)launch<float, int8_t, 256>(a, B, s);
+    if (dtype == 1 && head_dim == 256) return (int)launch<bf16, int8_t, 256>(a, B, s);
   }
   return (int)cudaErrorInvalidValue;
 }

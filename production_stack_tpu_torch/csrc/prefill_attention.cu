@@ -24,17 +24,17 @@
 //    head's group, tpw = 64 / G tokens x G heads (padding rows when G does
 //    not divide 64), so one staged K/V tile feeds every head of the group
 //    in one 64-row product; a block is two such warpgroups (2 tpw tokens,
-//    256 threads), grid (ceil(T / (2 tpw)), KH, B);
+//    256 threads; one warpgroup at D = 256), grid (ceil(T / (2 tpw)), KH, B);
 //  - the block walks history slots [max(min query pos - window + 1, 0),
 //    min(paged_end, max query pos + 1)) through the page table, then the
 //    chunk's own entries up to its last token (the causal upper triangle
 //    is never loaded), in
-//    64-key tiles copied with 16-byte cp.async into a ring of NS stages
-//    (5 at D = 64, 4 at D = 128) with one block barrier per tile; rows are
-//    stored in wgmma's 128-byte-swizzled K-major layout (a D = 64 bf16 row
-//    is one 128-byte line; D = 128 is two 64-column halves), rows past a
-//    tile's last key as zeros, so a masked key never brings stale bytes
-//    (NaN) into P V;
+//    64-key tiles (32 at D = 256) copied with 16-byte cp.async into a ring
+//    of NS stages (5 at D = 64, 4 at D = 128 and 256) with one block
+//    barrier per tile; rows are stored in wgmma's 128-byte-swizzled K-major
+//    layout (a D = 64 bf16 row is one 128-byte line; D = 128 and 256 are
+//    two and four 64-column halves), rows past a tile's last key as zeros,
+//    so a masked key never brings stale bytes (NaN) into P V;
 //  - S = Q K^T is wgmma m64n64k16 with K from the swizzled tile and Q in
 //    registers (read once with ldmatrix from its swizzled rows: Q from
 //    shared memory doubled the tile's shared-memory reads, which bounded
@@ -42,6 +42,14 @@
 //    S accumulator layout repacked to bf16) and V from the same tile,
 //    transposed; f32 accumulators, the masked online softmax in f32
 //    registers, unmasked for a warp whose rows all see all of a tile;
+//  - D = 256 (Gemma-2) breaks both budgets of that plan: a thread's O is
+//    128 f32 registers, so Q (64 more) stays in shared memory and S = Q K^T
+//    reads both operands from there (m64n32k16); and a 4-stage ring of
+//    64-key tiles would take 256 KB beside Q's 64 KB, so tiles hold 32 keys
+//    (a 128 KB ring). P V runs as two m64n128k16 products per 16 keys, one
+//    per 128-column half of V. A block is one warpgroup, with three tiles
+//    in flight; one warp per scheduler leaves every latency bare, so the
+//    capped softmax takes tanh from the SFU's exp2 and reciprocal;
 //  - the products overlap the rest: S of tile i + 1 and P V of tile i run
 //    while the next copy is issued and the softmax of tile i + 1 is
 //    computed, and every iteration issues and waits the same two wgmma
@@ -90,21 +98,32 @@ using namespace pst;
 
 // ---- bf16: tensor cores -------------------------------------------------
 
-constexpr int BKV = 64;         // keys per staged K/V tile
 constexpr int MMA_MAX_G = 8;    // query heads per KV head
 constexpr int WG_ROWS = 64;     // (token, head) rows of one warpgroup
-constexpr int N_WG = 2;         // warpgroups per block
-constexpr int MMA_THREADS = 128 * N_WG;
 
 // Shared memory of one block, every tile 1024-byte aligned (the SW128 atom):
-// Q rows [N_WG][64][D], K and V tiles [NS][64][D] in bf16, both in wgmma's
+// Q rows [N_WG][64][D], K and V tiles [NS][BKV][D] in bf16, both in wgmma's
 // K-major SW128 layout (sw128 below); with int8 pools the raw history
-// tiles [RAW_NS][64][D] int8 and the keys' page scales; the keys'
+// tiles [RAW_NS][BKV][D] int8 and the keys' page scales; the keys'
 // positions.
 template <int D, bool QUANT>
 struct MmaSmem {
+  static constexpr int BKV = D == 256 ? 32 : 64;  // keys per staged K/V tile
+  static constexpr bool Q_SMEM = D == 256;        // S = Q K^T reads Q from shared memory
+  // warpgroups per block: one at D = 256, so a 512-token chunk of a G = 2
+  // model makes 16 blocks per KV head, not 8 (one block fills an SM's
+  // shared memory either way)
+  static constexpr int N_WG = D == 256 ? 1 : 2;
+  static constexpr int THREADS = 128 * N_WG;
   static constexpr int NS = D == 64 ? 5 : 4;  // bf16 ring stages
-  static constexpr int RAW_NS = NS - 2;       // int8 stages: a raw tile converts before the ring wraps to it
+  // tiles in flight ahead of the one being folded: NS - 2 keeps a stage
+  // idle; at D = 256, whose one warpgroup issues its copies late in the
+  // tile, NS - 1 gives each copy two tiles' time to land (the stage it
+  // fills held tile i - 1, free after the barrier that opens tile i)
+  static constexpr int AHEAD = D == 256 ? NS - 1 : NS - 2;
+  // int8 stages: one per tile in flight, so a raw tile converts before the
+  // ring wraps to it
+  static constexpr int RAW_NS = AHEAD;
   static constexpr int TILE = BKV * D * 2;    // one bf16 K or V tile
   static constexpr int QB = WG_ROWS * D * 2;  // one warpgroup's Q rows
   static constexpr int RAW = BKV * D;         // one int8 K or V tile
@@ -118,15 +137,17 @@ struct MmaSmem {
   static constexpr int vscl = kscl + (QUANT ? NS * BKV * 4 : 0);
   static constexpr int qrange = vscl + (QUANT ? NS * BKV * 4 : 0);  // [N_WG][2 warps][min, max]
   static constexpr int bytes = qrange + N_WG * 16 + 1024;  // + slack to align the base
+  static_assert(bytes <= 232448, "a block holds at most 227 KB of shared memory");
 };
 
-// Byte offset of 16-byte chunk c (along D) of row r in a [64][D] bf16 tile
-// laid out as wgmma's K-major SW128 operand: 64-column halves of 64 rows x
-// 128 B (8 KB each), chunk c of row r stored at chunk c ^ (r % 8) of its
-// row. The 8 rows of an ldmatrix, or of a 16-byte store per row, then hit
-// 8 distinct bank groups.
+// Byte offset of 16-byte chunk c (along D) of row r in a [ROWS][D] bf16
+// tile laid out as wgmma's K-major SW128 operand: 64-column halves of ROWS
+// rows x 128 B, chunk c of row r stored at chunk c ^ (r % 8) of its row.
+// The 8 rows of an ldmatrix, or of a 16-byte store per row, then hit 8
+// distinct bank groups.
+template <int ROWS>
 __device__ __forceinline__ uint32_t sw128(int r, int c) {
-  return (uint32_t)((c >> 3) * (BKV * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
+  return (uint32_t)((c >> 3) * (ROWS * 128) + r * 128 + (((c & 7) ^ (r & 7)) << 4));
 }
 
 // ---- wgmma (sm_90a): one warpgroup, 64 rows, f32 accumulators in the
@@ -200,9 +221,12 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[8][4], const uint32_t (&
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
-// d += A B, m64n128k16, A (bf16 pairs) in registers, B MN-major in shared
-// memory (transposed)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t (&a)[4], uint64_t b) {
+// d[O .. O + 15] += A B, m64n128k16, A (bf16 pairs) in registers, B MN-major
+// in shared memory (transposed)
+#define PST_D4(i) "+f"(d[O + i][0]), "+f"(d[O + i][1]), "+f"(d[O + i][2]), "+f"(d[O + i][3])
+template <int O = 0, int N>
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[N][4], const uint32_t (&a)[4], uint64_t b) {
+  static_assert(O + 16 <= N, "16 accumulator blocks");
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
@@ -211,26 +235,36 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[16][4], const uint32_t 
       " %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       " %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
       "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]), "+f"(d[1][0]), "+f"(d[1][1]),
-        "+f"(d[1][2]), "+f"(d[1][3]), "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
-        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]), "+f"(d[4][0]), "+f"(d[4][1]),
-        "+f"(d[4][2]), "+f"(d[4][3]), "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
-        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]), "+f"(d[7][0]), "+f"(d[7][1]),
-        "+f"(d[7][2]), "+f"(d[7][3]), "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
-        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]), "+f"(d[10][0]), "+f"(d[10][1]),
-        "+f"(d[10][2]), "+f"(d[10][3]), "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
-        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]), "+f"(d[13][0]), "+f"(d[13][1]),
-        "+f"(d[13][2]), "+f"(d[13][3]), "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
-        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : PST_D4(0), PST_D4(1), PST_D4(2), PST_D4(3), PST_D4(4), PST_D4(5), PST_D4(6), PST_D4(7), PST_D4(8),
+        PST_D4(9), PST_D4(10), PST_D4(11), PST_D4(12), PST_D4(13), PST_D4(14), PST_D4(15)
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
 }
 
+// d (+)= A B, m64n32k16, A and B both K-major in shared memory; scale_d = 0
+// overwrites d
+__device__ __forceinline__ void wgmma_ss_k_n32(float (&d)[4][4], uint64_t a, uint64_t b, int scale_d) {
+  constexpr int O = 0;
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : PST_D4(0), PST_D4(1), PST_D4(2), PST_D4(3)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+#undef PST_D4
+
+// d += P V over the D columns of a V tile of `rows` keys whose 16 keys start
+// at shared address v: one product, or at D = 256 one per 128-column half
 template <int D>
-__device__ __forceinline__ void wgmma_rs(float (&d)[D / 8][4], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void wgmma_rs(float (&d)[D / 8][4], const uint32_t (&a)[4], uint32_t v, int rows) {
+  const uint64_t b = sw128_desc(v, rows * 128, 1024);
   if constexpr (D == 64) {
     wgmma_rs_n64(d, a, b);
-  } else {
+  } else if constexpr (D == 128) {
     wgmma_rs_n128(d, a, b);
+  } else {
+    wgmma_rs_n128<0>(d, a, b);
+    wgmma_rs_n128<16>(d, a, sw128_desc(v + 2 * rows * 128, rows * 128, 1024));
   }
 }
 
@@ -256,7 +290,7 @@ __device__ __forceinline__ void int8x16_to_bf16(uint4 raw, uint4& lo, uint4& hi)
 // laid out per 8-column block as mma.m16n8k16's: lane = 4 * g + qd holds
 // rows g and g + 8 and column pairs 2 * qd (+ 8).
 template <int D, typename KV>
-__global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
+__global__ void __launch_bounds__(MmaSmem<D, sizeof(KV) == 1>::THREADS) prefill_attention_mma_kernel(
     const __nv_bfloat16* __restrict__ q, const int* __restrict__ positions,
     const KV* __restrict__ k_pages, const KV* __restrict__ v_pages,
     const float* __restrict__ k_scales, const float* __restrict__ v_scales,
@@ -268,6 +302,8 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
   constexpr bool QUANT = sizeof(KV) == 1;
   using L = MmaSmem<D, QUANT>;
   constexpr int NS = L::NS;
+  constexpr int BKV = L::BKV;
+  constexpr int N_WG = L::N_WG;
   constexpr int CPR = D / 8;  // 16-byte bf16 chunks per row
   constexpr int NB = BKV / 8; // 8-key score blocks per tile
   extern __shared__ unsigned char smem_raw[];
@@ -310,9 +346,9 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
     const int r = x / CPR, c = x % CPR;
     const int t = wg_t0 + r / G;
     if (r < rows && t < Tn) {
-      cp_async16(qs + sw128(r, c), q + (((size_t)b * Tn + t) * NH + kh * G + r % G) * D + 8 * c);
+      cp_async16(qs + sw128<WG_ROWS>(r, c), q + (((size_t)b * Tn + t) * NH + kh * G + r % G) * D + 8 * c);
     } else {
-      *reinterpret_cast<uint4*>(qs + sw128(r, c)) = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(qs + sw128<WG_ROWS>(r, c)) = make_uint4(0u, 0u, 0u, 0u);
     }
   }
   __syncthreads();
@@ -409,8 +445,8 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
           for (int k = 0; k < HALF / RSTEP; ++k) {
             const int r = cr + k * RSTEP;
             const size_t off = slot_row(t0 + (r < n ? r : 0)) + 8 * cc;
-            cp_async16_or_zero(kd + sw128(r, cc), k_pages + off, r < n);
-            cp_async16_or_zero(vd + sw128(r, cc), v_pages + off, r < n);
+            cp_async16_or_zero(kd + sw128<BKV>(r, cc), k_pages + off, r < n);
+            cp_async16_or_zero(vd + sw128<BKV>(r, cc), v_pages + off, r < n);
           }
         }
         if (x0 < HALF) kp[kr] = kr < n ? t0 + kr : -1;
@@ -421,8 +457,8 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
         for (int k = 0; k < HALF / RSTEP; ++k) {
           const int r = cr + k * RSTEP;
           const size_t off = (((size_t)b * Tn + j0 + (r < n ? r : 0)) * KH + kh) * D + 8 * cc;
-          cp_async16_or_zero(kd + sw128(r, cc), k_cur + off, r < n);
-          cp_async16_or_zero(vd + sw128(r, cc), v_cur + off, r < n);
+          cp_async16_or_zero(kd + sw128<BKV>(r, cc), k_cur + off, r < n);
+          cp_async16_or_zero(vd + sw128<BKV>(r, cc), v_cur + off, r < n);
         }
         if (x0 < HALF) {
           if (kr < n) {
@@ -454,10 +490,10 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
         uint4 k0, k1, v0, v1;
         int8x16_to_bf16(*reinterpret_cast<const uint4*>(rk + r * D + 16 * rc), k0, k1);
         int8x16_to_bf16(*reinterpret_cast<const uint4*>(rv + r * D + 16 * rc), v0, v1);
-        *reinterpret_cast<uint4*>(kd + sw128(r, 2 * rc)) = k0;
-        *reinterpret_cast<uint4*>(kd + sw128(r, 2 * rc + 1)) = k1;
-        *reinterpret_cast<uint4*>(vd + sw128(r, 2 * rc)) = v0;
-        *reinterpret_cast<uint4*>(vd + sw128(r, 2 * rc + 1)) = v1;
+        *reinterpret_cast<uint4*>(kd + sw128<BKV>(r, 2 * rc)) = k0;
+        *reinterpret_cast<uint4*>(kd + sw128<BKV>(r, 2 * rc + 1)) = k1;
+        *reinterpret_cast<uint4*>(vd + sw128<BKV>(r, 2 * rc)) = v0;
+        *reinterpret_cast<uint4*>(vd + sw128<BKV>(r, 2 * rc + 1)) = v1;
       }
     }
   };
@@ -480,8 +516,9 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
   };
 
   // S = Q K(j)^T on the tensor cores, asynchronously: D / 16 steps of 16
-  // columns (32 bytes) along the swizzled rows, then 8 KB to the next half
-  uint32_t qa[D / 16][4];  // Q (A of S = Q K^T) in registers, read once from its swizzled rows
+  // columns (32 bytes) along the swizzled rows, then a tile's rows x 128 B
+  // to the next half
+  uint32_t qa[L::Q_SMEM ? 1 : D / 16][4];  // Q (A of S = Q K^T) in registers, read once from its swizzled rows
   auto vt_addr = [&](int j) { return smem_u32(sm + L::v + (j % NS) * L::TILE); };
   auto issue_s = [&](int j, float (&acc)[NB][4]) {
     const uint32_t kt = smem_u32(sm + L::k + (j % NS) * L::TILE);
@@ -489,7 +526,12 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
 #pragma unroll
     for (int kk = 0; kk < D / 16; ++kk) {
       const uint32_t off = (kk >> 2) * (BKV * 128) + (kk & 3) * 32;
-      wgmma_rs_k_n64(acc, qa[kk], sw128_desc(kt + off, 16, 1024), kk > 0);
+      if constexpr (L::Q_SMEM) {
+        const uint32_t qoff = (kk >> 2) * (WG_ROWS * 128) + (kk & 3) * 32;
+        wgmma_ss_k_n32(acc, sw128_desc(smem_u32(qs) + qoff, 16, 1024), sw128_desc(kt + off, 16, 1024), kk > 0);
+      } else {
+        wgmma_rs_k_n64(acc, qa[kk], sw128_desc(kt + off, 16, 1024), kk > 0);
+      }
     }
     wgmma_commit();
   };
@@ -512,6 +554,7 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
     const float* ksc = reinterpret_cast<const float*>(sm + L::kscl) + (i % NS) * BKV;
     const float* vsc = reinterpret_cast<const float*>(sm + L::vscl) + (i % NS) * BKV;
     const float f = CAPPED ? sm_scale : sm_scale * LOG2E;
+    const float inv_cap = CAPPED ? 1.f / softcap : 0.f, capf = softcap * LOG2E;
     const float kf0 = QUANT && !SCALED ? f * ksc[0] : f;  // score -> log2 domain
     const float vs0 = QUANT && !SCALED ? vsc[0] : 1.f;
     float kf[NB][2];  // per column, SCALED only
@@ -533,7 +576,12 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
           float x = s[nb][2 * hf + e];
           if constexpr (!FOLD) {
             x *= SCALED ? kf[nb][e] : kf0;
-            if constexpr (CAPPED) x = softcap * LOG2E * tanhf(x / softcap);
+            if constexpr (CAPPED) {
+              // D = 256: tanh_sfu and a multiply (as accurate as tanhf),
+              // where the one warp a scheduler leaves tanhf's branches and
+              // the division bare
+              x = D == 256 ? capf * tanh_sfu(x * inv_cap) : softcap * LOG2E * tanhf(x / softcap);
+            }
             if constexpr (MASKED) {
               const int kpos = kp[nb * 8 + 2 * qd + e];
               x = kpos >= 0 && kpos <= qp && kpos > qp - window ? x : NEG_INF;
@@ -573,7 +621,7 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
   // goes to the tensor cores; (3) O *= alpha(i), and P.V(i) goes to the
   // tensor cores; (4) the softmax of S(i + 1) runs beside P.V(i) (then int8
   // tile i + 2 converts); (5) P(i + 1) is packed once P.V(i) is done. The
-  // copy of tile i + NS - 2 starts before (2) in warpgroup 1 and after (4)
+  // copy of tile i + AHEAD starts before (2) in warpgroup 1 and after (4)
   // in warpgroup 0.
   // Every iteration issues and waits the same two wgmma groups (the last
   // repeats S of its own tile), so ptxas keeps them asynchronous; no row
@@ -615,15 +663,17 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
     cp_async_wait<0>();
   } else {
 #pragma unroll 1
-    for (int j = 0; j < NS - 2; ++j) issue(j);
-    cp_async_wait<NS - 3>();  // Q and tile 0
+    for (int j = 0; j < L::AHEAD; ++j) issue(j);
+    cp_async_wait<L::AHEAD - 1>();  // Q and tile 0
     convert(0);
     fence_async_smem();
     __syncthreads();
+    if constexpr (!L::Q_SMEM) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const int r = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
-      ldmatrix_x4(qa[kk], smem_u32(qs) + sw128(r, 2 * kk + (lane >> 4)));
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int r = 16 * warp + (lane & 7) + 8 * ((lane >> 3) & 1);
+        ldmatrix_x4(qa[kk], smem_u32(qs) + sw128<WG_ROWS>(r, 2 * kk + (lane >> 4)));
+      }
     }
     issue_s(0, s);
     wgmma_wait<0>();
@@ -636,7 +686,7 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
   for (int i = 0; i < n_tiles; ++i) {
     const bool has_next = i + 1 < n_tiles;
     if (has_next) {
-      cp_async_wait<NS - 4>();  // this thread's copies of tile i + 1
+      cp_async_wait<L::AHEAD - 2>();  // this thread's copies of tile i + 1
       if (!EARLY || i == 0) convert(i + 1);
     }
     fence_async_smem();
@@ -644,7 +694,7 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
     PHASE_MARK(0)
     // the warpgroups copy at opposite ends of the tile's steps, so that one's
     // softmax (bound by the exp2 unit) overlaps the other's copies and products
-    if (wg == 1) issue(i + NS - 2);
+    if (wg == 1) issue(i + L::AHEAD);
     PHASE_MARK(1)
     fence_regs(s);
     issue_s(has_next ? i + 1 : i, s);
@@ -662,7 +712,7 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
     wgmma_fence();
 #pragma unroll
     for (int kc = 0; kc < NB / 2; ++kc) {
-      wgmma_rs<D>(oacc, pa[kc], sw128_desc(vt_addr(i) + kc * 16 * 128, BKV * 128, 1024));
+      wgmma_rs<D>(oacc, pa[kc], vt_addr(i) + kc * 16 * 128, BKV);
     }
     wgmma_commit();
     PHASE_MARK(3)
@@ -671,7 +721,7 @@ __global__ void __launch_bounds__(MMA_THREADS) prefill_attention_mma_kernel(
     fence_regs(s);
     if (has_next) softmax_tile(i + 1);
     PHASE_MARK(5)
-    if (wg == 0) issue(i + NS - 2);
+    if (wg == 0) issue(i + L::AHEAD);
     PHASE_MARK(6)
     if constexpr (EARLY) {
       if (i + 2 < n_tiles) {
@@ -716,8 +766,9 @@ cudaError_t launch_mma(const void* q, const int* pos, const void* kp, const void
     configured = true;
   }
   const int tpw = WG_ROWS / (NH / KH);  // tokens per warpgroup
+  constexpr int N_WG = MmaSmem<D, sizeof(KV) == 1>::N_WG;
   const dim3 grid((Tn + N_WG * tpw - 1) / (N_WG * tpw), KH, B);
-  prefill_attention_mma_kernel<D, KV><<<grid, MMA_THREADS, smem, s>>>(
+  prefill_attention_mma_kernel<D, KV><<<grid, 128 * N_WG, smem, s>>>(
       static_cast<const T*>(q), pos, static_cast<const KV*>(kp), static_cast<const KV*>(vp), ks, vs,
       static_cast<const T*>(kc), static_cast<const T*>(vc), pt, lens, cl, static_cast<T*>(out), Tn, NH, KH,
       P, page_div(page_size), max_pages, layer, window, sm_scale, softcap, tpw);
@@ -1018,22 +1069,37 @@ extern "C" int prefill_attention_launch(int dtype, int kv_int8, int head_dim, co
                  page_size, max_pages, layer, window, sm_scale, softcap, s
     if (head_dim == 64) return (int)(kv_int8 ? launch_mma<64, int8_t>(PST_ARGS) : launch_mma<64, bf16>(PST_ARGS));
     if (head_dim == 128) return (int)(kv_int8 ? launch_mma<128, int8_t>(PST_ARGS) : launch_mma<128, bf16>(PST_ARGS));
+    if (head_dim == 256) return (int)(kv_int8 ? launch_mma<256, int8_t>(PST_ARGS) : launch_mma<256, bf16>(PST_ARGS));
 #undef PST_ARGS
     return (int)cudaErrorInvalidValue;
   }
   if (dtype != 0 || TQ * G > WARPS * RPW) return (int)cudaErrorInvalidValue;
   const dim3 grid((Tn + TQ - 1) / TQ, KH, B);
-#define PST_LAUNCH(DIM, KV)                                                                      \
-  prefill_attention_f32_kernel<DIM, KV><<<grid, WARPS * 32, 2 * TILE * DIM * sizeof(float), s>>>( \
-      static_cast<const float*>(q), pos, static_cast<const KV*>(k_pages),                          \
-      static_cast<const KV*>(v_pages), ks, vs, static_cast<const float*>(k_cur),                   \
-      static_cast<const float*>(v_cur), pt, lens, cl, static_cast<float*>(out), Tn, NH, KH, P,     \
-      page_size, max_pages, layer, TQ, window, sm_scale, softcap);                                 \
-  return (int)cudaGetLastError()
-  if (head_dim == 64 && !kv_int8) { PST_LAUNCH(64, float); }
-  if (head_dim == 128 && !kv_int8) { PST_LAUNCH(128, float); }
-  if (head_dim == 64 && kv_int8) { PST_LAUNCH(64, int8_t); }
-  if (head_dim == 128 && kv_int8) { PST_LAUNCH(128, int8_t); }
+  // K and V tiles of TILE rows in f32: 64 KB at D = 256, above the 48 KB a
+  // launch gets unless the kernel's limit is raised
+#define PST_LAUNCH(DIM, KV)                                                                          \
+  {                                                                                                  \
+    constexpr int smem = 2 * TILE * DIM * sizeof(float);                                             \
+    static bool configured = false;                                                                  \
+    if (smem > 48 * 1024 && !configured) {                                                           \
+      const cudaError_t err = cudaFuncSetAttribute(prefill_attention_f32_kernel<DIM, KV>,            \
+                                                   cudaFuncAttributeMaxDynamicSharedMemorySize, smem); \
+      if (err != cudaSuccess) return (int)err;                                                       \
+      configured = true;                                                                             \
+    }                                                                                                \
+    prefill_attention_f32_kernel<DIM, KV><<<grid, WARPS * 32, smem, s>>>(                            \
+        static_cast<const float*>(q), pos, static_cast<const KV*>(k_pages),                          \
+        static_cast<const KV*>(v_pages), ks, vs, static_cast<const float*>(k_cur),                   \
+        static_cast<const float*>(v_cur), pt, lens, cl, static_cast<float*>(out), Tn, NH, KH, P,     \
+        page_size, max_pages, layer, TQ, window, sm_scale, softcap);                                 \
+    return (int)cudaGetLastError();                                                                  \
+  }
+  if (head_dim == 64 && !kv_int8) PST_LAUNCH(64, float)
+  if (head_dim == 128 && !kv_int8) PST_LAUNCH(128, float)
+  if (head_dim == 256 && !kv_int8) PST_LAUNCH(256, float)
+  if (head_dim == 64 && kv_int8) PST_LAUNCH(64, int8_t)
+  if (head_dim == 128 && kv_int8) PST_LAUNCH(128, int8_t)
+  if (head_dim == 256 && kv_int8) PST_LAUNCH(256, int8_t)
 #undef PST_LAUNCH
   return (int)cudaErrorInvalidValue;
 }

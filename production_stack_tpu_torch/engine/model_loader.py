@@ -5,8 +5,9 @@ parameter tree carried over from the JAX package.
   ``torch.Generator`` on ``device`` (the presets carry no checkpoint, as in
   the JAX package, so serving needs nothing from outside).
 - ``params_from_jax(np_tree, cfg)``: the JAX package's layer-stacked tree
-  (``{"embed", "layers": {name: [L, ...]}, "final_norm", "lm_head"}``) given
-  as numpy arrays, split per layer into the port's parameter names. It takes
+  (``{"embed", "layers": {name: [L, ...]}, "final_norm"}``, plus
+  ``"lm_head"`` for an untied llama) given as numpy arrays, split per layer
+  into the port's parameter names by the config's model module. It takes
   numpy, never jax: the caller converts (``jax.device_get``).
 
 Loading local HuggingFace checkpoints is not ported yet.
@@ -16,40 +17,20 @@ from __future__ import annotations
 
 import dataclasses
 
-import numpy as np
 import torch
 
 from production_stack_tpu_torch import models
-from production_stack_tpu_torch.models import llama
 from production_stack_tpu_torch.utils.device import resolve_device
 
 
-def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
-    """numpy -> CPU tensor with the same bits. bf16 arrives as ml_dtypes'
-    bfloat16, which torch cannot read: it moves as uint16 and is viewed
-    back, so no value passes through float32."""
-    arr = np.require(arr, requirements=["C", "W"])  # torch wants a writable buffer
-    if arr.dtype.name == "bfloat16":
-        return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
-    return torch.from_numpy(arr)
-
-
-def params_from_jax(np_tree: dict, cfg: llama.LlamaConfig) -> dict[str, torch.Tensor]:
-    """The JAX package's llama parameter tree (numpy leaves) as the port's
-    parameter dict (``LlamaForCausalLM.state_dict()`` names), on the CPU."""
-    out = {"embed": tensor_from_numpy(np_tree["embed"]), "final_norm": tensor_from_numpy(np_tree["final_norm"])}
-    if not cfg.tie_word_embeddings:
-        out["lm_head"] = tensor_from_numpy(np_tree["lm_head"])
-    for name, stacked in np_tree["layers"].items():
-        if stacked.shape[0] != cfg.num_layers:
-            raise ValueError(f"layer-stacked {name} has {stacked.shape[0]} layers, config {cfg.num_layers}")
-        for i in range(cfg.num_layers):
-            out[f"layers.{i}.{name}"] = tensor_from_numpy(stacked[i])
-    return out
+def params_from_jax(np_tree: dict, cfg) -> dict[str, torch.Tensor]:
+    """The JAX package's parameter tree (numpy leaves) of the model ``cfg``
+    configures, as the port's parameter dict on the CPU, every bit kept."""
+    return models.module_for_config(cfg).params_from_jax(np_tree, cfg)
 
 
 @torch.no_grad()
-def load_params(model: llama.LlamaForCausalLM, params: dict[str, torch.Tensor]) -> None:
+def load_params(model: torch.nn.Module, params: dict[str, torch.Tensor]) -> None:
     """Copy a parameter dict into ``model``: every name must be present with
     the module's shape AND dtype (no silent casts)."""
     own = dict(model.named_parameters())
@@ -85,7 +66,7 @@ def load_model(
     mod, cfg = hit
     if max_model_len:
         cfg = dataclasses.replace(cfg, max_model_len=max_model_len)
-    net = mod.LlamaForCausalLM(cfg, device=dev)
+    net = mod.CAUSAL_LM(cfg, device=dev)
     if params is not None:
         load_params(net, params)
     else:

@@ -32,7 +32,7 @@ import torch
 
 from production_stack_tpu_torch import models
 from production_stack_tpu_torch.engine.config import resolve_attn_impl
-from production_stack_tpu_torch.engine.model_loader import tensor_from_numpy
+from production_stack_tpu_torch.utils.arrays import tensor_from_numpy
 from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
 from production_stack_tpu_torch.ops.kernels import HEAD_DIMS, MAX_GROUP
 from production_stack_tpu_torch.ops.quant import init_kv_scales, write_kv_pages_all_layers_quant
@@ -70,7 +70,7 @@ class StepInput:
 
 def check_kernel_shapes(cfg) -> None:
     """Refuse, at construction, a model the CUDA kernels cannot serve (they
-    take head_dim 64 or 128 and up to MAX_GROUP query heads per KV head),
+    take a head_dim in HEAD_DIMS and up to MAX_GROUP query heads per KV head),
     rather than failing its first request; attn_impl="plain" runs it."""
     G = cfg.num_heads // cfg.num_kv_heads
     if cfg.head_dim not in HEAD_DIMS or G > MAX_GROUP:

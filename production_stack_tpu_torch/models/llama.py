@@ -10,7 +10,7 @@ with W ``[in, out]``, so parameters carry over one to one
 
 The attention of every layer goes through the kernels of ops/kernels/ when
 ``attn_impl == "cuda"`` and through their plain versions when it is
-"plain". With ``kv_cache_dtype="int8"`` the pools hold int8 pages and the
+"plain" (models/paged_step.py, shared with models/gemma2.py). With ``kv_cache_dtype="int8"`` the pools hold int8 pages and the
 forward takes their scales (``kv_scales``, ops/quant.py): attention reads
 them through the kernels' int8 modes, a prefill chunk quantizes its K/V in
 the fused write, and a T = 1 step commits through the quantizing scatter.
@@ -28,18 +28,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
-from production_stack_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention,
-    decode_attention_ref,
-)
-from production_stack_tpu_torch.ops.kernels.prefill_attention import (
-    prefill_attention,
-    prefill_attention_ref,
-)
+from production_stack_tpu_torch.models.paged_step import PagedStep
 from production_stack_tpu_torch.ops.norms import rms_norm
-from production_stack_tpu_torch.ops.quant import write_kv_pages_all_layers_quant
 from production_stack_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_cos_sin
+from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
 
 
 @dataclass(frozen=True)
@@ -255,60 +247,30 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError("all-position logits are not ported")
         cfg = self.cfg
         B, T = input_ids.shape
-        plain = cfg.attn_impl == "plain"
-        decode = decode_attention_ref if plain else decode_attention
-        prefill = prefill_attention_ref if plain else prefill_attention
-        burst = kv_burst is not None
-        ks, vs = kv_scales if kv_scales is not None else (None, None)
-        scales = dict(k_scales=ks, v_scales=vs)
-        if burst and T != 1:
-            raise ValueError("kv_burst is a decode (T == 1) mode")
+        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales)
         x = self.embed[input_ids.long()]
         cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
-        if burst:
-            k_acc, v_acc, counts = kv_burst
-            rows = torch.arange(B, device=x.device)
-            cnt = counts.long()
-            cur_lens = (counts + 1).to(torch.int32)
-        elif T > 1:
-            cur_lens = (positions >= 0).sum(dim=1).to(torch.int32)
-        new_k, new_v = [], []
         for li, layer in enumerate(self.layers):
             h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
             q, k, v = layer.qkv(h, cfg, cos, sin)
-            if burst:
-                k_acc[li, rows, cnt] = k[:, 0]
-                v_acc[li, rows, cnt] = v[:, 0]
-                attn = decode(
-                    q[:, 0], k_pages, v_pages, page_table, kv_lens, cfg.sliding_window,
-                    k_cur=k_acc[li], v_cur=v_acc[li], cur_lens=cur_lens, layer=li, **scales,
-                )[:, None]
-            elif T == 1:
-                attn = decode(
-                    q[:, 0], k_pages, v_pages, page_table, kv_lens, cfg.sliding_window,
-                    k_cur=k[:, 0].contiguous(), v_cur=v[:, 0].contiguous(), layer=li, **scales,
-                )[:, None]
-            else:
-                k, v = k.contiguous(), v.contiguous()
-                attn = prefill(
-                    q.contiguous(), k_pages, v_pages, page_table, positions, kv_lens,
-                    k, v, cur_lens, cfg.sliding_window, layer=li, fused_write=True, **scales,
-                )
-            if T == 1 and not burst:
-                new_k.append(k)
-                new_v.append(v)
+            attn = step.attend(li, q, k, v, cfg.sliding_window)
             x = x + attn.reshape(B, T, -1) @ layer.wo
             x = layer.mlp(x, cfg)
-        if new_k and ks is not None:
-            write_kv_pages_all_layers_quant(
-                k_pages, v_pages, ks, vs, torch.stack(new_k), torch.stack(new_v), page_table, positions
-            )
-        elif new_k:
-            write_kv_pages_all_layers(
-                k_pages, v_pages, torch.stack(new_k), torch.stack(new_v), page_table, positions
-            )
+        step.finish()
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         head = self.embed.t() if cfg.tie_word_embeddings else self.lm_head
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
         x_last = x[torch.arange(B, device=x.device), last]
         return (x_last @ head).float()
+
+
+CAUSAL_LM = LlamaForCausalLM
+
+
+def params_from_jax(np_tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
+    """The JAX package's llama parameter tree (numpy leaves) as the port's
+    parameter dict (``LlamaForCausalLM.state_dict()`` names), on the CPU."""
+    out = {"embed": tensor_from_numpy(np_tree["embed"]), "final_norm": tensor_from_numpy(np_tree["final_norm"])}
+    if not cfg.tie_word_embeddings:
+        out["lm_head"] = tensor_from_numpy(np_tree["lm_head"])
+    return {**out, **unstack_layers(np_tree["layers"], cfg.num_layers)}

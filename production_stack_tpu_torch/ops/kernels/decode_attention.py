@@ -32,8 +32,10 @@ _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _bound = False
 
 # blocks the split plan aims at: about two resident blocks on each of the
-# H100's 132 SMs
-TARGET_BLOCKS = 2 * 132
+# H100's 132 SMs, or one where a block's ring fills an SM's shared memory
+# (fp pools at D = 256: the tensor-core fold's 3-stage ring takes 202 KB)
+SMS = 132
+TARGET_BLOCKS = 2 * SMS
 
 
 class SplitPlan(NamedTuple):
@@ -45,11 +47,14 @@ def split_plan(B: int, KH: int, max_pages: int, page_size: int, head_dim: int, q
     """The decode kernel's launch plan for a bucket: tiles of 128 slots for
     pool rows of at most 64 bytes (int8 at D = 64), else 64 (csrc
     DecodeSmem / the tensor-core tiles); as many splits as bring B * KH
-    blocks to about TARGET_BLOCKS, and no more than the bucket's capacity
+    blocks to about TARGET_BLOCKS (SMS for fp rows of 512 bytes or more,
+    whose blocks run one per SM), and no more than the bucket's capacity
     max_pages * page_size has tiles, so no split is under one tile."""
-    tile = 128 if head_dim * (1 if quant else 2) <= 64 else 64
+    row_bytes = head_dim * (1 if quant else 2)
+    tile = 128 if row_bytes <= 64 else 64
+    target = SMS if row_bytes >= 512 else TARGET_BLOCKS
     cap_tiles = -(-(max_pages * page_size) // tile)
-    return SplitPlan(max(1, min(TARGET_BLOCKS // max(B * KH, 1), cap_tiles)), tile)
+    return SplitPlan(max(1, min(target // max(B * KH, 1), cap_tiles)), tile)
 
 
 def stack_pools(k_pages, v_pages, layer, k_scales=None, v_scales=None):

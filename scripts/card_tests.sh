@@ -1,0 +1,10 @@
+#!/usr/bin/env bash
+# The port's card-only tests: every CUDA kernel against its plain PyTorch
+# version (tests/test_torch_cuda_attention.py, which imports no jax). Run on
+# a machine with an NVIDIA GPU; tests/conftest.py imports jax, which that
+# machine may lack, so pytest skips conftest files.
+#
+#   bash scripts/card_tests.sh [pytest arguments]
+set -euo pipefail
+cd "$(dirname "$0")/.."
+exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py -q -p no:cacheprovider "$@"

@@ -57,7 +57,7 @@ def preset(name: str) -> list[tuple[str, str]]:
     if name == "nocopy":
         return [("    if (i < n_tiles) {\n      unsigned char* st_k", "    if (i < 0) {\n      unsigned char* st_k")]
     if name.startswith("stages="):
-        return [("static constexpr int NS = QUANT || D == 128 ? 3 : 4;",
+        return [("static constexpr int NS = QUANT || D >= 128 ? 3 : 4;",
                  f"static constexpr int NS = {int(name[7:])};")]
     if name.startswith("l2="):
         return [("template <typename KV, int D>\nstruct MmaSmem {", _HINT % name[3:] + "template <typename KV, int D>\nstruct MmaSmem {"),

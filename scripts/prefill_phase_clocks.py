@@ -1,13 +1,16 @@
 #!/usr/bin/env python3
 """Where a tile's time goes inside the bf16 prefill kernel, on one GPU.
 
-    python3 scripts/prefill_phase_clocks.py
+    python3 scripts/prefill_phase_clocks.py [--case NAME]
 
 Builds csrc/prefill_attention.cu with its tile loop's step marks
 (PHASE_LOOP_BEGIN, PHASE_MARK(k), PHASE_LOOP_END, empty in the served
 build) defined as clock64() probes, into build/torch_kernels/phase_clocks/,
-and runs it on chip_smoke.py's main-path prefill case (a 512-token chunk
-after 1,536 tokens of history), bf16 pools and then int8 pools. Thread 0
+and runs it on one of chip_smoke.py's prefill cases (default its main-path
+case, a 512-token chunk after 1,536 tokens of history at llama-3.2-1b's
+heads; gemma_main_t512_h1536_bf16 is the same chunk at gemma-2-2b's, D =
+256, with its window, softcap and sm_scale), bf16 pools and then int8
+pools. Thread 0
 of each warpgroup sums the clocks between marks over every tile of every
 block; the script prints, per pool mode and warpgroup, SM clocks per tile
 for each step, and the probed kernel's time (the probes cost a little of
@@ -52,6 +55,8 @@ extern "C" int phase_clocks_take(unsigned long long* out) {{
 
 
 def main() -> int:
+    import argparse
+
     import torch
 
     if not torch.cuda.is_available():
@@ -59,6 +64,10 @@ def main() -> int:
         return 1
     import chip_smoke as c
     from production_stack_tpu_torch.ops.kernels import _build
+
+    p = argparse.ArgumentParser()
+    p.add_argument("--case", default=c.MAIN_PREFILL, choices=sorted(n for n, _ in c.PREFILL_CASES if not n.startswith(c.INT8)))
+    args = p.parse_args()
 
     out_dir = ROOT / "build/torch_kernels/phase_clocks"
     out_dir.mkdir(parents=True, exist_ok=True)
@@ -75,9 +84,10 @@ def main() -> int:
     lib.phase_clocks_take.argtypes = [P]
     buf = (ctypes.c_ulonglong * (2 * (N + 1)))()
     for quant in (False, True):
-        case = dict(dict(c.PREFILL_CASES)[c.MAIN_PREFILL], dtype=torch.bfloat16, quant=quant)
-        args, kw = c.prefill_case(case.pop("seed"), **case)
-        q, kp, vp, pt, pos, lens, kc, vc, cl = args
+        case = dict(dict(c.PREFILL_CASES)[args.case], dtype=torch.bfloat16, quant=quant)
+        inputs, kw = c.prefill_case(case.pop("seed", 2), **case)
+        q, kp, vp, pt, pos, lens, kc, vc, cl = inputs
+        window, softcap = kw["window"] or (1 << 30), kw["logit_softcap"] or 0.0
         out = torch.empty_like(q)
         B, Tn, NH, D = q.shape
         _, n_pages, page, KH, _ = kp.shape
@@ -87,7 +97,8 @@ def main() -> int:
             err = lib.prefill_attention_launch(
                 1, int(quant), D, q.data_ptr(), pos.data_ptr(), kp.data_ptr(), vp.data_ptr(), *scales,
                 kc.data_ptr(), vc.data_ptr(), pt.data_ptr(), lens.data_ptr(), cl.data_ptr(), out.data_ptr(),
-                B, Tn, NH, KH, n_pages, page, pt.shape[1], 0, 1, 1 << 30, float(D**-0.5), 0.0,
+                B, Tn, NH, KH, n_pages, page, pt.shape[1], kw["layer"], 1, window,
+                float(kw["sm_scale"] or D**-0.5), softcap,
                 torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"probed kernel launch failed: cudaError {err}")
@@ -99,10 +110,10 @@ def main() -> int:
         torch.cuda.synchronize()
         lib.phase_clocks_take(buf)
         per_wg = {}
-        for w in range(2):
+        for w in range(2 if D < 256 else 1):  # one warpgroup per block at D = 256
             tiles = max(buf[w * (N + 1) + N], 1)
             per_wg[f"warpgroup{w}"] = {name: round(buf[w * (N + 1) + k] / tiles, 1) for k, name in enumerate(STEPS)}
-        print(json.dumps({"pools": "int8" if quant else "bf16", "case": c.MAIN_PREFILL, "probed_ms": ms,
+        print(json.dumps({"pools": "int8" if quant else "bf16", "case": args.case, "probed_ms": ms,
                           "sm_clocks_per_tile": per_wg}), flush=True)
     print(c.nvidia_smi_line(), flush=True)
     return 0

@@ -33,6 +33,14 @@ print(" ".join(names))
 """
 
 
+def test_the_scan_finds_every_port_script():
+    """The scripts that drive the port are found by what they import, so a
+    new one is scanned without being listed."""
+    for script in ("scripts/profile_torch_step.py", "scripts/decode_variants.py", "scripts/prefill_phase_clocks.py"):
+        assert script in PORT_SCRIPTS
+    assert "scripts/profile_decode.py" not in PORT_SCRIPTS  # a JAX package script
+
+
 def test_every_module_imports_with_jax_blocked():
     out = subprocess.run(
         [sys.executable, "-c", _IMPORT_ALL], cwd=REPO, capture_output=True, text=True, timeout=120
@@ -46,11 +54,16 @@ def test_every_module_imports_with_jax_blocked():
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|production_stack_tpu(?!_torch))\b", re.M)
+# a script belongs to the port when it imports the port or chip_smoke.py
+_PORT_SCRIPT = re.compile(r"\b(production_stack_tpu_torch|chip_smoke)\b")
+PORT_SCRIPTS = sorted(
+    str(p.relative_to(REPO)) for p in (REPO / "scripts").glob("*.py") if _PORT_SCRIPT.search(p.read_text())
+)
 
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py", "scripts/profile_torch_step.py", "scripts/decode_variants.py"],
+    sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"] + PORT_SCRIPTS,
 )
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     text = (REPO / path).read_text()
