@@ -11,58 +11,75 @@ non-zero exit (nothing is caught):
                csrc/ (one nvcc per source, all started together).
 2. kernels  -- each CUDA kernel against its plain PyTorch version on the card,
                fp pools and int8 pools (per-page scales), at D = 64, 128
-               and 256 (gemma-2-2b's heads: window 4,096, softcap 50,
-               sm_scale 144^-0.5): ragged, burst-window, stacked-layer,
+               and 256: llama-3.2-1b's heads, qwen2.5-7b's (NH = 28,
+               KH = 4: 7 query heads per KV head), opt-125m's (NH = KH =
+               12) and gemma-2-2b's (window 4,096, softcap 50, sm_scale
+               144^-0.5): ragged, burst-window, stacked-layer,
                window+softcap, bf16/f32 and NaN-poisoned stale-slot (or
                stale-scale) cases, the decode kernel's split-KV edges
                (rows with empty splits, a deep window start, the burst on
-               a row whose last split is empty, G = 1 / 8, page 48, one row
-               at 8,192; each decode call made twice and held to the same
-               bytes), and the timing phase's inputs, each held to a bound
-               scaled to its output (TOL; D = 256 with scores that reach
-               the softcap, to the tighter TOL_CAPPED); the KV writes (fp, and the
-               quantizing write) must leave pools and scales byte-identical
-               to their plain versions, in the quantizing write's four
-               cases too (aligned chunk, chunk ending mid-page, unaligned
-               head page, other layers untouched), at D = 64/128 and 256.
+               a row whose last split is empty, G = 1 / 7 / 8, page 48,
+               one row at 8,192; each decode call made twice and held to
+               the same bytes), OPT's 3-token chunk, and the timing phase's
+               inputs, each held to a bound scaled to its output (TOL; D =
+               256 with scores that reach the softcap, to the tighter
+               TOL_CAPPED); the main cases' one-key-fewer controls must
+               fail it; the KV writes (fp, and the quantizing write) must
+               leave pools and scales byte-identical to their plain
+               versions, in the quantizing write's four cases too (aligned
+               chunk, chunk ending mid-page, unaligned head page, other
+               layers untouched), at D = 64/128 and 256.
 3. forward  -- llama-3.2-1b (two 512-token chunks) and gemma-2-2b (nine,
                past its 4,096 window) at full width and depth (bf16,
                seeded random weights), then one 8-step decode burst, with
                the kernels and with the plain versions, into bf16 pools and
                then into int8 pools (layer 0's int8 pages and scales
                byte-identical between the two).
-4. serve    -- the port's OpenAI server in-process on localhost, three
-               times (llama-3.2-1b with bf16 pools; then with int8 pools,
-               the CPU offload tier and a pool small enough to evict; then
-               gemma-2-2b with bf16 pools and one prompt of 4,301 tokens):
-               concurrent /v1/completions (one streaming) and
-               /v1/chat/completions; a greedy request repeats exactly (with
-               int8, after its prefix pages were spilled to the CPU tier
-               and restored; for gemma-2-2b, its token logprobs too); the
-               launch counters show each run went through its mode's
-               kernels and no plain version; the int8 run's /metrics carry
-               the quant and offload series.
-5. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's and
-               at gemma-2-2b's shapes), its plain version and a PyTorch
-               yardstick, with CUDA events, beside its bound; then the
-               decode kernel at small batch (1 x 2,048, 8 x 1,024, 1 x
-               8,192) and gemma-2-2b's 1 x 8,192 on a sliding and a global
-               layer, both modes, as rows of their own.
+4. hf       -- qwen2.5-7b's HF directory (its published config.json, 28
+               layers, seeded bf16 weights in shards of at most 5 GB with
+               the index) written under build/hf_models/, loaded through
+               the port's loader (config equal to the preset but for
+               max_model_len, sampled parameters byte-identical to the
+               tensors written), and its forward checked as in phase 3;
+               then opt-125m's directory (float16, as published).
+5. serve    -- the port's OpenAI server in-process on localhost, six
+               times: llama-3.2-1b with bf16 pools; with int8 pools, the
+               CPU offload tier and a pool small enough to evict; gemma-2-2b
+               with bf16 pools and one prompt of 4,301 tokens; qwen2.5-7b
+               from its directory with bf16 pools, then int8 pools; and
+               opt-125m from its directory: concurrent /v1/completions (one
+               streaming) and /v1/chat/completions; a greedy request repeats
+               exactly over at least 512 cached tokens (with int8 and the
+               tier, after its prefix pages were spilled and restored; for
+               every model but llama, its token logprobs too); the launch
+               counters show each run went through its mode's kernels and
+               no plain version; the int8 runs' /metrics carry the quant
+               (and offload) series. Then an OPT engine with int8 pools
+               must be refused. The directories are deleted.
+6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
+               qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
+               a PyTorch yardstick, with CUDA events, beside its bound; then
+               the decode kernel at small batch (1 x 2,048, 8 x 1,024, 1 x
+               8,192; qwen2.5-7b's 1 x 8,192), gemma-2-2b's 1 x 8,192 on a
+               sliding and a global layer, both modes, and opt-125m's
+               decode and prefill, as rows of their own.
 
-Then the kernel table line (each row's launches from its own path's run:
-the llama servers for D = 64, the gemma-2-2b server for its bf16 rows, and
-its int8 kernel forward for its int8 rows, which no server runs), the
-card's name and power limit, and as the last line
-``{"ok": true, "device": {...}}``. With no CUDA device, or run
-from a directory without the package, it exits non-zero and prints no
-result. f32 comparisons run with TF32 off.
+Then the kernel table line (each row's launches from its own path's runs:
+the llama and opt-125m servers for D = 64, the qwen2.5-7b servers for
+D = 128, the gemma-2-2b server for its bf16 rows and its int8 kernel
+forward for its int8 rows, which no server runs), the card's name and
+power limit, and as the last line ``{"ok": true, "device": {...}}``. With
+no CUDA device, or run from a directory without the package, it exits
+non-zero and prints no result. f32 comparisons run with TF32 off.
 """
 
 from __future__ import annotations
 
 import asyncio
 import json
+import math
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -95,7 +112,8 @@ TOL = {"float32": (1e-5, 1e-4), "bfloat16": (2.0**-6, 0.05)}
 TOL_CAPPED = {"bfloat16": (2.0**-6, 0.02)}
 
 # Where each TPU kernel's launch sits in the JAX package. Each kernel has a
-# row at head_dim 64 (llama-3.2-1b) and one at 256 ("[d256]": gemma-2-2b).
+# row at head_dim 64 (llama-3.2-1b, opt-125m), one at 128 ("[d128]":
+# qwen2.5-7b) and one at 256 ("[d256]": gemma-2-2b).
 _BASE_REPLACES = {
     "decode_attention": "production_stack_tpu/ops/pallas/paged_attention.py:67",
     "prefill_attention": "production_stack_tpu/ops/pallas/prefill_attention.py:72",
@@ -114,14 +132,17 @@ _BASE_SOURCES = {
 }
 
 
-def _d256(name: str) -> str:
-    """The head_dim-256 row of a kernel row: decode_attention[int8] ->
-    decode_attention[int8,d256]."""
-    return name[:-1] + ",d256]" if name.endswith("]") else name + "[d256]"
+def _dtag(name: str, D: int) -> str:
+    """A kernel row's name at head_dim D (64 keeps the bare name):
+    decode_attention[int8] at 256 -> decode_attention[int8,d256]."""
+    if D == 64:
+        return name
+    return name[:-1] + f",d{D}]" if name.endswith("]") else name + f"[d{D}]"
 
 
-REPLACES = {**_BASE_REPLACES, **{_d256(k): v for k, v in _BASE_REPLACES.items()}}
-SOURCES = {**_BASE_SOURCES, **{_d256(k): v for k, v in _BASE_SOURCES.items()}}
+HEAD_DIMS = (64, 128, 256)
+REPLACES = {_dtag(k, D): v for D in HEAD_DIMS for k, v in _BASE_REPLACES.items()}
+SOURCES = {_dtag(k, D): v for D in HEAD_DIMS for k, v in _BASE_SOURCES.items()}
 
 
 def emit(obj: dict) -> None:
@@ -336,8 +357,22 @@ GEMMA_DECODE = "gemma_main_b32_ctx1024_c8_bf16"
 GEMMA_DECODE_B1_8K_SLIDING = "gemma_b1_ctx8192_c8_sliding_bf16"
 GEMMA_DECODE_B1_8K_GLOBAL = "gemma_b1_ctx8192_c8_global_bf16"
 GEMMA_PREFILL = "gemma_main_t512_h1536_bf16"
+# qwen2.5-7b's attention (D = 128, G = 7: the decode fold fills 7 of its 16
+# mma rows, and a prefill warpgroup's 64 rows hold 9 tokens x 7 heads and
+# one padding row); its int8 pools hold unit-normal K/V quantized per page,
+# as GEMMA's
+QWEN = dict(NH=28, KH=4, D=128, kv_normal=True)
+QWEN_DECODE = "qwen_main_b32_ctx1024_c8_bf16"
+QWEN_DECODE_B1_8K = "qwen_b1_ctx8192_c8_bf16"
+QWEN_PREFILL = "qwen_main_t512_h1536_bf16"
+# opt-125m's (D = 64, G = 1: one row of the fold's 16, 64 tokens of one head
+# in a prefill tile)
+OPT = dict(NH=12, KH=12, D=64)
+OPT_DECODE = "opt_b8_ctx1024_c8_g1_bf16"
+OPT_PREFILL = "opt_t512_h1536_g1_bf16"
 # the cases whose one-key-fewer control must fail the bound
-CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL}
+CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECODE, QWEN_PREFILL, OPT_DECODE,
+              OPT_PREFILL}
 CONTROLLED |= {INT8 + n for n in CONTROLLED}
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
@@ -424,6 +459,24 @@ DECODE_CASES = [
     # the timing phase's inputs: a decode burst step of gemma-2-2b
     (GEMMA_DECODE, dict(GEMMA, seed=14, B=32, page=64, maxp=16, L=1, lens=[1024] * 32, C=8, cur_lens=[8] * 32,
                         window=GEMMA_WINDOW, dtype="bfloat16")),
+    # qwen2.5-7b's heads: the burst on a row whose last split is empty, with
+    # NaN past each row's history; f32; one row at 8,192; and the timing
+    # phase's decode burst step
+    ("qwen_splits_burst_last_split_empty_nan_bf16", dict(QWEN, B=3, page=64, maxp=24, L=2, layer=1,
+                                                         lens=[30, 1500, 900], C=8, cur_lens=[3, 5, 8],
+                                                         poison=True, dtype="bfloat16")),
+    ("qwen_ragged_f32", dict(QWEN, B=2, page=16, maxp=20, L=1, lens=[300, 77], C=2, cur_lens=[2, 1],
+                             dtype="float32")),
+    (QWEN_DECODE_B1_8K, dict(QWEN, seed=17, B=1, page=64, maxp=129, L=1, lens=[8192], C=8, cur_lens=[8],
+                             dtype="bfloat16")),
+    (QWEN_DECODE, dict(QWEN, seed=18, B=32, page=64, maxp=16, L=1, lens=[1024] * 32, C=8, cur_lens=[8] * 32,
+                       dtype="bfloat16")),
+    # opt-125m's heads: ragged rows with an empty one in a stacked pool, and
+    # the serve batch (8 rows at 1,024)
+    ("opt_g1_ragged_empty_row_layer1_bf16", dict(OPT, B=4, page=64, maxp=8, L=2, layer=1, lens=[0, 9, 300, 512],
+                                                 C=8, cur_lens=[0, 8, 3, 8], dtype="bfloat16")),
+    (OPT_DECODE, dict(OPT, seed=19, B=8, page=64, maxp=17, L=1, lens=[1024] * 8, C=8, cur_lens=[8] * 8,
+                      dtype="bfloat16")),
 ]
 DECODE_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in DECODE_CASES]
 
@@ -490,6 +543,22 @@ PREFILL_CASES = [
     # the timing phase's inputs: gemma-2-2b's 512-token chunk after 1,536
     (GEMMA_PREFILL, dict(GEMMA, seed=16, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
                          window=GEMMA_WINDOW, dtype="bfloat16")),
+    # qwen2.5-7b's heads: ragged rows (one padded) in a stacked pool with
+    # NaN past each chunk start; f32; the timing phase's 512 after 1,536
+    ("qwen_ragged_padded_row_layer1_nan_bf16", dict(QWEN, B=3, T=96, page=16, maxp=16, L=2, layer=1,
+                                                    computed=[100, 0, 37], chunks=[96, 61, 0], poison=True,
+                                                    dtype="bfloat16")),
+    ("qwen_history_f32", dict(QWEN, B=2, T=40, page=16, maxp=8, L=1, computed=[30, 3], chunks=[40, 29],
+                              dtype="float32")),
+    (QWEN_PREFILL, dict(QWEN, seed=20, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
+                        dtype="bfloat16")),
+    # opt-125m's heads: a 3-token chunk (the JAX OPT takes its XLA path
+    # below 16 tokens; the port takes this kernel for every chunk), and a
+    # 512-token chunk after 1,536
+    ("opt_g1_t3_chunk_bf16", dict(OPT, B=2, T=3, page=16, maxp=4, L=1, computed=[20, 0], chunks=[3, 2],
+                                  dtype="bfloat16")),
+    (OPT_PREFILL, dict(OPT, seed=21, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
+                       dtype="bfloat16")),
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
 
@@ -512,8 +581,7 @@ QWRITE_CASES += [
 
 
 def _kernel_name(base: str, quant: bool, D: int = 64) -> str:
-    name = base + "[int8]" if quant else base
-    return _d256(name) if D == 256 else name
+    return _dtag(base + "[int8]" if quant else base, D)
 
 
 def _clone_pools(args, kw):
@@ -713,23 +781,28 @@ def _forward_run(model, impl, ids, chunk, n_chunks, burst, quant=False):
 FORWARD_LOGIT_BOUND = 0.25
 FORWARD_TOP1_MIN = 0.9
 # (model, 512-token prefill chunks): llama-3.2-1b at two chunks; gemma-2-2b
-# at nine (4,608 tokens), so its even layers' 4,096 window bites
+# at nine (4,608 tokens), so its even layers' 4,096 window bites;
+# qwen2.5-7b, loaded from its HF directory, at two (phase_hf_load)
 FORWARD_RUNS = (("llama-3.2-1b", 2), ("gemma-2-2b", 9))
+QWEN_FORWARD_CHUNKS = 2
 
 
-def phase_forward(name: str, n_chunks: int) -> dict:
-    """One model with the kernels and with the plain versions, first into
-    bf16 pools, then into int8 pools. Layer 0's K/V come before any
-    attention, so its int8 pages and scales must be byte-identical between
-    the two int8 runs (the quantizing write kernel against its plain
-    version, inside the model). Returns the launch counts of the kernel
-    run into int8 pools (every count set to 0 just before it)."""
+def phase_forward(name: str, n_chunks: int, model=None) -> dict:
+    """One model (the preset ``name``, or ``model`` as loaded) with the
+    kernels and with the plain versions, first into bf16 pools, then into
+    int8 pools. Layer 0's K/V come before any attention, so its int8 pages
+    and scales must be byte-identical between the two int8 runs (the
+    quantizing write kernel against its plain version, inside the model).
+    Returns the launch counts of the kernel run into int8 pools (every
+    count set to 0 just before it)."""
     import torch
 
     from production_stack_tpu_torch.engine.model_loader import load_model
 
     t_load = time.perf_counter()
-    _, cfg, model = load_model(name, seed=0, device="cuda")
+    if model is None:
+        _, _, model = load_model(name, seed=0, device="cuda")
+    cfg = model.cfg
     load_s = time.perf_counter() - t_load
     kernels, _ = _counters()
     gen = torch.Generator().manual_seed(3)
@@ -911,8 +984,8 @@ async def _serve_requests(port: int, metric_series: tuple = (), long_prompt: int
 # the repeat request's prefix pages are evicted to the tier between its two
 # runs and restored from it for the second.
 INT8_SERVE = dict(kv_cache_dtype="int8", kv_offload_cpu_gb=1.0, num_pages=40)
-INT8_METRICS = (
-    "vllm:kv_cache_dtype_bytes_per_token", "vllm:kv_quant_pages", "vllm:kv_quant_dequant_err_max",
+QUANT_METRICS = ("vllm:kv_cache_dtype_bytes_per_token", "vllm:kv_quant_pages", "vllm:kv_quant_dequant_err_max")
+OFFLOAD_METRICS = (
     "vllm:kv_offload_saved_pages_total", "vllm:kv_offload_loaded_pages_total", "vllm:kv_offload_hit_pages_total",
     "vllm:kv_offload_max_io_pages", "vllm:kv_offload_link_bandwidth_bytes_per_sec",
 )
@@ -928,11 +1001,14 @@ GEMMA_SERVE = dict(max_model_len=8192)
 GEMMA_LONG_PROMPT = 4300
 
 
-def phase_serve(quant: bool = False, model: str = "llama-3.2-1b") -> dict:
-    """The port's OpenAI server in-process: llama-3.2-1b with bf16 pools, or
-    (``quant``) int8 pools with the CPU offload tier; or gemma-2-2b with
-    bf16 pools, one prompt past its 4,096 window and the greedy repeat held
-    to its token logprobs. Returns the launch counts of the run."""
+def phase_serve(label: str, overrides: dict) -> dict:
+    """The port's OpenAI server in-process on ``EngineConfig(**overrides)``
+    (a preset or an HF directory as ``model``; int8 pools, the CPU offload
+    tier, a longer context as the run asks): the requests of
+    ``_serve_requests``, gemma-2-2b's with one prompt past its 4,096 window,
+    and the greedy repeat held to its token logprobs too except for llama
+    (whose byte tokens decode to text). Returns the launch counts of the
+    run."""
     import socket
 
     import torch
@@ -943,10 +1019,12 @@ def phase_serve(quant: bool = False, model: str = "llama-3.2-1b") -> dict:
     with socket.socket() as sk:
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
-    gemma = model.startswith("gemma")
-    extra = INT8_SERVE if quant else GEMMA_SERVE if gemma else {}
-    cfg = EngineConfig(model=model, host="127.0.0.1", port=port, **extra)
+    quant = overrides.get("kv_cache_dtype") == "int8"
+    offload = "kv_offload_cpu_gb" in overrides
+    gemma = label.startswith("gemma")
+    cfg = EngineConfig(host="127.0.0.1", port=port, **overrides)
     kernels, plains = _counters()
+    series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
 
     async def run():
         server, runner = await serve(cfg)
@@ -957,8 +1035,8 @@ def phase_serve(quant: bool = False, model: str = "llama-3.2-1b") -> dict:
             for fn in plains.values():
                 fn.calls = 0
             t0 = time.perf_counter()
-            res = await _serve_requests(port, INT8_METRICS if quant else (), GEMMA_LONG_PROMPT if gemma else 0,
-                                        repeat_logprobs=gemma)
+            res = await _serve_requests(port, series, GEMMA_LONG_PROMPT if gemma else 0,
+                                        repeat_logprobs=not label.startswith("llama"))
             res["seconds"] = round(time.perf_counter() - t0, 3)
             res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
             res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
@@ -966,12 +1044,15 @@ def phase_serve(quant: bool = False, model: str = "llama-3.2-1b") -> dict:
                     "gpu_prefix_cache_hits_total", "kv_evicted_pages_total", "num_pages"]
             if quant:
                 keep += ["cache_dtype", "kv_cache_dtype_bytes_per_token", "kv_quant_pages",
-                         "kv_quant_dequant_err_max", "kv_offload_saved_pages_total",
-                         "kv_offload_loaded_pages_total", "kv_offload_hit_pages_total",
-                         "kv_proactive_spilled_pages_total", "kv_offload_cpu_bytes", "kv_corrupt_pages_total",
-                         "kv_offload_max_io_pages", "kv_offload_link_bandwidth_bytes_per_sec"]
+                         "kv_quant_dequant_err_max"]
+            if offload:
+                keep += ["kv_offload_saved_pages_total", "kv_offload_loaded_pages_total",
+                         "kv_offload_hit_pages_total", "kv_proactive_spilled_pages_total", "kv_offload_cpu_bytes",
+                         "kv_corrupt_pages_total", "kv_offload_max_io_pages",
+                         "kv_offload_link_bandwidth_bytes_per_sec"]
             stats = server.engine.stats()
             res["engine"] = {k: stats[k] for k in keep if k in stats}
+            res["served_name"] = server.cfg.name
             return res
         finally:
             await runner.cleanup()
@@ -980,9 +1061,8 @@ def phase_serve(quant: bool = False, model: str = "llama-3.2-1b") -> dict:
     t0 = time.perf_counter()
     res = asyncio.run(run())
     res["seconds_with_startup"] = round(time.perf_counter() - t0, 2)
-    what = f"serve[{model}{', int8' if quant else ''}]"
-    emit({"phase": "serve", "model": model, "kv_cache_dtype": cfg.kv_cache_dtype,
-          **({"config": extra} if extra else {}), **res})
+    what = f"serve[{label}]"
+    emit({"phase": "serve", "model": label, "kv_cache_dtype": cfg.kv_cache_dtype, "config": overrides, **res})
     if gemma:
         check(max(res["prompt_tokens"]) > GEMMA_WINDOW, f"{what}: no prompt ran past the sliding window")
     for k in SERVE_ROWS[quant]:
@@ -991,13 +1071,13 @@ def phase_serve(quant: bool = False, model: str = "llama-3.2-1b") -> dict:
         check(res["launches"][k] == 0, f"{what}: kernel {k} ran {res['launches'][k]} times on the main path")
     for k, n in res["plain_calls"].items():
         check(n == 0, f"{what}: plain version {k} ran {n} times on the main path")
-    if quant:
+    check(res["repeat_cached_tokens"] >= 512, f"{what}: the repeat reused {res['repeat_cached_tokens']} tokens")
+    if offload:
         e = res["engine"]
         check(e["kv_offload_saved_pages_total"] > 0, f"{what}: no page was saved to the CPU tier")
         check(e["kv_offload_loaded_pages_total"] > 0 and e["kv_offload_hit_pages_total"] > 0,
               f"{what}: no page was restored from the CPU tier")
         check(e["kv_corrupt_pages_total"] == 0, f"{what}: the CPU tier held corrupt pages")
-        check(res["repeat_cached_tokens"] >= 512, f"{what}: the repeat reused {res['repeat_cached_tokens']} tokens")
     torch.cuda.empty_cache()
     return res["launches"]
 
@@ -1177,25 +1257,206 @@ def _write_timing(case_args, quant: bool) -> dict:
 
 def phase_timing() -> dict:
     """Every kernel row at its model's main-path shapes: llama-3.2-1b's
-    (D = 64) and gemma-2-2b's ("[d256]"), fp and int8 pools; then the
-    decode kernel at small batch and gemma-2-2b's 1 x 8,192 sliding and
-    global layers, as rows of their own."""
+    (D = 64), qwen2.5-7b's ("[d128]") and gemma-2-2b's ("[d256]"), fp and
+    int8 pools; then the decode kernel at small batch, qwen2.5-7b's and
+    gemma-2-2b's 1 x 8,192 (a sliding and a global layer), and opt-125m's
+    decode and prefill (bf16, its only pool dtype), as rows of their own."""
     rows = {}
-    for suffix, dec, pre in (("", MAIN_DECODE, MAIN_PREFILL), ("d256", GEMMA_DECODE, GEMMA_PREFILL)):
-        name = _d256 if suffix else (lambda base: base)
+    for D, dec, pre in ((64, MAIN_DECODE, MAIN_PREFILL), (128, QWEN_DECODE, QWEN_PREFILL),
+                        (256, GEMMA_DECODE, GEMMA_PREFILL)):
         for quant in (False, True):
-            rows[name(_kernel_name("decode_attention", quant))] = _decode_timing(dec, quant)
+            rows[_kernel_name("decode_attention", quant, D)] = _decode_timing(dec, quant)
             row, case_args = _prefill_timing(INT8 + pre if quant else pre, quant)
-            rows[name(_kernel_name("prefill_attention", quant))] = row
-            rows[name("kv_page_write_quant" if quant else "kv_page_write")] = _write_timing(case_args, quant)
+            rows[_kernel_name("prefill_attention", quant, D)] = row
+            rows[_dtag("kv_page_write_quant" if quant else "kv_page_write", D)] = _write_timing(case_args, quant)
     for name, r in rows.items():
         emit({"phase": "timing", "kernel": name, **r})
-    for case in SMALL_BATCH_DECODE + GEMMA_WINDOW_DECODE:
+    for case in SMALL_BATCH_DECODE + (QWEN_DECODE_B1_8K,) + GEMMA_WINDOW_DECODE:
         for quant in (False, True):
             D = dict(DECODE_CASES)[case]["D"]
             emit({"phase": "timing", "kernel": _kernel_name("decode_attention", quant, D), "case": case,
                   **_decode_timing(case, quant)})
+    emit({"phase": "timing", "kernel": "decode_attention", "case": OPT_DECODE, **_decode_timing(OPT_DECODE, False)})
+    emit({"phase": "timing", "kernel": "prefill_attention", "case": OPT_PREFILL,
+          **_prefill_timing(OPT_PREFILL, False)[0]})
     return rows
+
+
+# ---------------------------------------------------------------------------
+# HF checkpoints: written from a seed as HF lays them out, then loaded and
+# served through the port's loader
+
+
+HF_ROOT = ROOT / "build" / "hf_models"
+QWEN_DIR = HF_ROOT / "qwen2.5-7b"
+OPT_DIR = HF_ROOT / "opt-125m"
+HF_SHARD_BYTES = 5 * 10**9  # save_pretrained's default max_shard_size
+# Qwen/Qwen2.5-7B's config.json as published
+QWEN_HF_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 151643,
+    "eos_token_id": 151643, "hidden_act": "silu", "hidden_size": 3584, "initializer_range": 0.02,
+    "intermediate_size": 18944, "max_position_embeddings": 131072, "max_window_layers": 28, "model_type": "qwen2",
+    "num_attention_heads": 28, "num_hidden_layers": 28, "num_key_value_heads": 4, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "sliding_window": 131072, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
+    "use_cache": True, "use_mrope": False, "use_sliding_window": False, "vocab_size": 152064,
+}
+# facebook/opt-125m's config.json as published (its weights are float16)
+OPT_HF_CONFIG = {
+    "activation_dropout": 0.0, "activation_function": "relu", "architectures": ["OPTForCausalLM"],
+    "attention_dropout": 0.0, "bos_token_id": 2, "do_layer_norm_before": True, "dropout": 0.1, "eos_token_id": 2,
+    "ffn_dim": 3072, "hidden_size": 768, "init_std": 0.02, "layerdrop": 0.0, "max_position_embeddings": 2048,
+    "model_type": "opt", "num_attention_heads": 12, "num_hidden_layers": 12, "pad_token_id": 1, "prefix": "</s>",
+    "torch_dtype": "float16", "use_cache": True, "vocab_size": 50272, "word_embed_proj_dim": 768,
+}
+# the sampled parameters held byte-identical to what was written:
+# (port name, HF name, transposed); layer 13 of 28
+_L = "model.layers.13."
+QWEN_SAMPLES = (
+    ("embed", "model.embed_tokens.weight", False),
+    ("layers.13.wq", _L + "self_attn.q_proj.weight", True),
+    ("layers.13.bq", _L + "self_attn.q_proj.bias", False),
+    ("layers.13.wk", _L + "self_attn.k_proj.weight", True),
+    ("layers.13.w_down", _L + "mlp.down_proj.weight", True),
+    ("lm_head", "lm_head.weight", True),
+)
+
+
+def _qwen2_hf_specs(c: dict, dtype) -> dict:
+    """HF's Qwen2ForCausalLM tensors, {name: (shape, dtype)}, matrices [out, in]."""
+    H, I, V = c["hidden_size"], c["intermediate_size"], c["vocab_size"]
+    NH, KH = c["num_attention_heads"], c["num_key_value_heads"]
+    q, kv = NH * (H // NH), KH * (H // NH)
+    specs = {"model.embed_tokens.weight": (V, H)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        specs.update({
+            p + "input_layernorm.weight": (H,),
+            p + "self_attn.q_proj.weight": (q, H), p + "self_attn.q_proj.bias": (q,),
+            p + "self_attn.k_proj.weight": (kv, H), p + "self_attn.k_proj.bias": (kv,),
+            p + "self_attn.v_proj.weight": (kv, H), p + "self_attn.v_proj.bias": (kv,),
+            p + "self_attn.o_proj.weight": (H, q),
+            p + "post_attention_layernorm.weight": (H,),
+            p + "mlp.gate_proj.weight": (I, H), p + "mlp.up_proj.weight": (I, H), p + "mlp.down_proj.weight": (H, I),
+        })
+    specs.update({"model.norm.weight": (H,), "lm_head.weight": (V, H)})
+    return {k: (v, dtype) for k, v in specs.items()}
+
+
+def _opt_hf_specs(c: dict, dtype) -> dict:
+    """HF's OPTForCausalLM tensors (the head is tied: no lm_head)."""
+    H, I = c["hidden_size"], c["ffn_dim"]
+    specs = {"model.decoder.embed_tokens.weight": (c["vocab_size"], H),
+             "model.decoder.embed_positions.weight": (c["max_position_embeddings"] + 2, H)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.decoder.layers.{i}."
+        for proj in ("k_proj", "v_proj", "q_proj", "out_proj"):
+            specs.update({p + f"self_attn.{proj}.weight": (H, H), p + f"self_attn.{proj}.bias": (H,)})
+        for norm in ("self_attn_layer_norm", "final_layer_norm"):
+            specs.update({p + f"{norm}.weight": (H,), p + f"{norm}.bias": (H,)})
+        specs.update({p + "fc1.weight": (I, H), p + "fc1.bias": (I,), p + "fc2.weight": (H, I), p + "fc2.bias": (H,)})
+    specs.update({"model.decoder.final_layer_norm.weight": (H,), "model.decoder.final_layer_norm.bias": (H,)})
+    return {k: (v, dtype) for k, v in specs.items()}
+
+
+def _hf_value(name: str, shape, dtype, seed: int, device="cuda"):
+    """A tensor of the checkpoint at init_params' scales, drawn on the card
+    from a seed and the tensor's name: norm weights 1, matrices (and
+    embeddings) N(0, 1/in) of HF's [out, in]; biases N(0, 0.02^2), not 0,
+    so the byte check of a bias reads real values."""
+    import zlib
+
+    import torch
+
+    if len(shape) == 1 and "norm" in name and name.endswith("weight"):
+        return torch.ones(shape, dtype=dtype, device=device)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed * 1_000_003 + zlib.crc32(name.encode()))
+    scale = 0.02 if len(shape) == 1 else shape[1] ** -0.5
+    return torch.randn(shape, generator=gen, device=device, dtype=torch.float32).mul_(scale).to(dtype)
+
+
+def phase_hf_write(path: Path, config: dict, specs: dict, seed: int = 0) -> dict:
+    """Write an HF directory: config.json and the seeded tensors in shards of
+    at most 5 GB with HF's index. Fails, with the free bytes it found, when
+    the disk cannot hold it."""
+    from production_stack_tpu_torch.utils.safetensors_io import save_sharded
+
+    nbytes = sum(math.prod(shape) * dt.itemsize for shape, dt in specs.values())
+    if path.exists():
+        shutil.rmtree(path)
+    path.mkdir(parents=True)
+    free = shutil.disk_usage(path).free
+    check(free > nbytes + (1 << 30), f"hf_write[{path.name}]: {nbytes} bytes to write, {free} bytes free at {path}")
+    t0 = time.perf_counter()
+    (path / "config.json").write_text(json.dumps(config, indent=2))
+    files = save_sharded(str(path), specs, lambda n: _hf_value(n, specs[n][0], specs[n][1], seed), HF_SHARD_BYTES)
+    secs = time.perf_counter() - t0
+    line = {"phase": "hf_write", "model": path.name, "tensors": len(specs), "bytes": nbytes, "files": files,
+            "free_bytes_before": free, "seconds": round(secs, 2), "gb_per_s": round(nbytes / secs / 1e9, 3)}
+    emit(line)
+    return line
+
+
+def phase_hf_qwen(seed: int = 0) -> None:
+    """qwen2.5-7b at full width and depth: its HF directory written (bf16,
+    sharded), loaded through the port's loader, its config held to the
+    port's preset, sampled parameters held byte-identical to the tensors
+    written (transposes included), then its kernel forward against its
+    plain forward (phase_forward), bf16 and int8 pools."""
+    import dataclasses
+
+    import torch
+
+    from production_stack_tpu_torch.engine.model_loader import load_model
+    from production_stack_tpu_torch.models import llama
+
+    specs = _qwen2_hf_specs(QWEN_HF_CONFIG, torch.bfloat16)
+    written = phase_hf_write(QWEN_DIR, QWEN_HF_CONFIG, specs, seed)
+    t0 = time.perf_counter()
+    mod, cfg, net = load_model(str(QWEN_DIR), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    preset = dataclasses.replace(llama.PRESETS["qwen2.5-7b"], max_model_len=cfg.max_model_len)
+    own = dict(net.named_parameters())
+    same = {}
+    for pname, hf, transpose in QWEN_SAMPLES:
+        want = _hf_value(hf, *specs[hf], seed)
+        same[pname] = _same_bytes(own[pname], (want.t() if transpose else want).contiguous())
+    emit({"phase": "hf_load", "model": "qwen2.5-7b", "module": mod.__name__, "seconds": round(load_s, 2),
+          "gb_per_s": round(written["bytes"] / load_s / 1e9, 3), "config_equals_preset": cfg == preset,
+          "max_model_len": cfg.max_model_len, "parameters": sum(p.numel() for p in own.values()),
+          "samples_byte_identical": same})
+    check(mod is llama and cfg == preset, f"hf_load[qwen2.5-7b]: config {cfg} differs from the preset {preset}")
+    check(all(same.values()), f"hf_load[qwen2.5-7b]: parameters differ from the tensors written: {same}")
+    phase_forward("qwen2.5-7b-hf", QWEN_FORWARD_CHUNKS, model=net)
+
+
+def phase_opt_int8_refused() -> None:
+    """An OPT engine with int8 pools is refused (the JAX OPT forward reads no
+    pool scales)."""
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    try:
+        LLMEngine(EngineConfig(model=str(OPT_DIR), kv_cache_dtype="int8", max_model_len=2048))
+    except ValueError as e:
+        emit({"phase": "refusal", "model": "opt-125m-hf", "kv_cache_dtype": "int8", "refused": str(e)})
+        check("does not support kv_cache_dtype=int8" in str(e), f"refusal[opt int8]: refused for another reason: {e}")
+        return
+    fail("refusal[opt int8]: an OPT engine with int8 pools started")
+
+
+# (label, EngineConfig overrides, head_dim of the kernel rows whose launches it
+# gives): each kernel row's launches come from its own servers' runs
+SERVE_RUNS = (
+    ("llama-3.2-1b", dict(model="llama-3.2-1b"), 64),
+    ("llama-3.2-1b, int8", dict(model="llama-3.2-1b", **INT8_SERVE), 64),
+    ("gemma-2-2b", dict(model="gemma-2-2b", **GEMMA_SERVE), 256),
+    ("qwen2.5-7b-hf", dict(model=str(QWEN_DIR)), 128),
+    ("qwen2.5-7b-hf, int8", dict(model=str(QWEN_DIR), kv_cache_dtype="int8"), 128),
+    # OPT's position table holds 2,048: the engine's default 4,096 is refused
+    ("opt-125m-hf", dict(model=str(OPT_DIR), max_model_len=2048), 64),
+)
 
 
 def main() -> int:
@@ -1218,11 +1479,18 @@ def main() -> int:
     for name, n_chunks in FORWARD_RUNS:
         counts = phase_forward(name, n_chunks)
         if name.startswith("gemma"):  # gemma-2-2b's int8 rows: the launches of its int8 kernel forward
-            launches.update({_d256(k): counts[k] for k in SERVE_ROWS[True]})
-    for quant, model in ((False, "llama-3.2-1b"), (True, "llama-3.2-1b"), (False, "gemma-2-2b")):
-        counts = phase_serve(quant, model)  # each row's launches come from its own server's run
-        rename = _d256 if model.startswith("gemma") else (lambda k: k)
-        launches.update({rename(k): counts[k] for k in SERVE_ROWS[quant]})
+            launches.update({_dtag(k, 256): counts[k] for k in SERVE_ROWS[True]})
+    try:
+        phase_hf_qwen()
+        phase_hf_write(OPT_DIR, OPT_HF_CONFIG, _opt_hf_specs(OPT_HF_CONFIG, torch.float16))
+        for label, overrides, D in SERVE_RUNS:
+            counts = phase_serve(label, overrides)
+            quant = overrides.get("kv_cache_dtype") == "int8"
+            for k in SERVE_ROWS[quant]:
+                launches[_dtag(k, D)] = launches.get(_dtag(k, D), 0) + counts[k]
+        phase_opt_int8_refused()
+    finally:
+        shutil.rmtree(HF_ROOT, ignore_errors=True)  # 15 GB of shards
     timing = phase_timing()
 
     table = []

@@ -10,7 +10,10 @@ LoRA adapters, sleep mode and live migration are not ported; a chat request
 that carries ``tools`` is refused with a 400.
 
 Run: ``python -m production_stack_tpu_torch.engine.api_server --model
-llama-3.2-1b`` (on the card; the engine raises without one).
+llama-3.2-1b`` (a preset), or ``--model /path/to/hf-dir`` (a local
+HuggingFace checkpoint, served under that path as its name unless
+``--served-model-name`` gives another), on the card; the engine raises
+without one.
 """
 
 from __future__ import annotations
@@ -406,6 +409,8 @@ class EngineServer:
         # tokenize and validate before streaming starts: errors inside the
         # generator would surface after the 200
         prompt_ids = self.engine.tokenizer.encode(prompt)
+        if not prompt_ids and self.engine.tokenizer.bos_token_id is None:
+            return _error("the prompt is empty and the tokenizer has no BOS token to start from")
         if len(prompt_ids) + 1 > self.cfg.max_model_len:
             return _error(f"prompt has {len(prompt_ids)} tokens, max_model_len is {self.cfg.max_model_len}")
         n = 1 if body.get("n") is None else int(body["n"])

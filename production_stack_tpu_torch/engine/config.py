@@ -15,7 +15,7 @@ from typing import Optional
 
 @dataclasses.dataclass
 class EngineConfig:
-    model: str = "llama-debug"          # preset name
+    model: str = "llama-debug"          # preset name or local HF directory
     served_model_name: Optional[str] = None
     tokenizer: Optional[str] = None
     host: str = "0.0.0.0"
@@ -124,6 +124,11 @@ class EngineConfig:
 # --help text for flags whose one-line meaning is not obvious from the name;
 # the dataclass comments stay the authoritative long-form docs
 _FLAG_HELP = {
+    "model": (
+        "a preset name (seeded random weights) or a local HuggingFace "
+        "directory: config.json plus *.safetensors (Llama, Mistral, Qwen2, "
+        "Gemma-2, OPT)"
+    ),
     "interactive_reserve": (
         "waiting-queue slots reserved for interactive-class requests: batch "
         "traffic sheds (429) this many slots before the queue bound, so "

@@ -76,7 +76,10 @@ class LLMEngine:
             model_cfg, attn_impl=cfg.attn_impl, kv_cache_dtype=cfg.kv_cache_dtype
         )
         self.kv_quant = cfg.kv_cache_dtype == "int8"
-        self.tokenizer = load_tokenizer(cfg.tokenizer)
+        # a checkpoint directory holds its tokenizer, as in the JAX engine
+        self.tokenizer = load_tokenizer(
+            cfg.tokenizer or (cfg.model if "/" in cfg.model or cfg.model.startswith(".") else None)
+        )
         itemsize = model.embed.element_size()
         L, KH, D = model_cfg.num_layers, model_cfg.num_kv_heads, model_cfg.head_dim
         page_bytes = 2 * L * cfg.page_size * KH * D * (1 if self.kv_quant else itemsize)
@@ -218,6 +221,10 @@ class LLMEngine:
         if prompt_token_ids is None:
             prompt_token_ids = self.tokenizer.encode(prompt or "")
         if not prompt_token_ids:
+            if self.tokenizer.bos_token_id is None:
+                # an HF tokenizer without BOS (Qwen2's): a None id would
+                # stop the engine loop at its next schedule
+                raise ValueError("the prompt is empty and the tokenizer has no BOS token to start from")
             prompt_token_ids = [self.tokenizer.bos_token_id]
         if len(prompt_token_ids) + 1 > self.cfg.max_model_len:
             raise ValueError(

@@ -25,6 +25,7 @@ kernels one by one from Python.
 from __future__ import annotations
 
 import dataclasses
+import inspect
 from typing import Any
 
 import numpy as np
@@ -99,6 +100,13 @@ class ModelRunner:
         )
         if cfg.attn_impl == "cuda":
             check_kernel_shapes(cfg)
+        self.kv_quant = cfg.kv_cache_dtype == "int8"
+        if self.kv_quant and "kv_scales" not in inspect.signature(self.module.CAUSAL_LM.forward).parameters:
+            # the JAX runner's refusal: int8 pools need a forward that reads
+            # their scales (OPT's takes none, in both packages)
+            raise ValueError(
+                f"model family {self.module.__name__.rsplit('.', 1)[-1]!r} does not support kv_cache_dtype=int8"
+            )
         model.cfg = cfg
         self.model = model
         self.cfg = cfg
@@ -107,7 +115,6 @@ class ModelRunner:
         self.k_pages, self.v_pages = self.module.init_kv_pages(
             cfg, num_pages, page_size, self.device
         )
-        self.kv_quant = cfg.kv_cache_dtype == "int8"
         self.k_scales = self.v_scales = None
         if self.kv_quant:
             self.k_scales = init_kv_scales(cfg.num_layers, num_pages, cfg.num_kv_heads, self.device)
@@ -144,10 +151,9 @@ class ModelRunner:
         return s
 
     def _forward(self, s, input_ids, positions, kv_lens, kv_burst=None):
+        kw = {"kv_scales": (self.k_scales, self.v_scales)} if self.kv_quant else {}
         return self.model(
-            input_ids, positions, self.k_pages, self.v_pages, s["page_table"],
-            kv_lens, kv_burst=kv_burst,
-            kv_scales=(self.k_scales, self.v_scales) if self.kv_quant else None,
+            input_ids, positions, self.k_pages, self.v_pages, s["page_table"], kv_lens, kv_burst=kv_burst, **kw
         )
 
     def _sample_from(self, logits, s, hist, lens):

@@ -88,6 +88,12 @@ class HFTokenizer:
         from transformers import AutoTokenizer
 
         self._tok = AutoTokenizer.from_pretrained(path, local_files_only=True)
+        # a directory with a config.json and no tokenizer files can still
+        # give a tokenizer (with an empty vocabulary, in some transformers
+        # versions) whose ids are None: refuse it, so the caller falls back
+        probe = self._tok.encode("a b", add_special_tokens=False)
+        if not probe or not all(isinstance(i, int) for i in probe):
+            raise ValueError(f"{path}: the tokenizer found there encodes 'a b' as {probe}")
         self.bos_token_id = self._tok.bos_token_id
         self.eos_token_id = self._tok.eos_token_id
         self.pad_token_id = self._tok.pad_token_id or self._tok.eos_token_id
@@ -122,6 +128,7 @@ def load_tokenizer(model_path: Optional[str]):
     if model_path:
         try:
             return HFTokenizer(model_path)
-        except Exception:
-            pass
+        except Exception as e:  # noqa: BLE001 - no transformers, no files, or an unusable tokenizer
+            logger.info("no usable tokenizer at %s (%s: %s); using the byte tokenizer",
+                        model_path, type(e).__name__, e)
     return ByteTokenizer()

@@ -68,6 +68,29 @@ class Gemma2Config:
     def tie_word_embeddings(self) -> bool:
         return True  # Gemma always ties the head to the embedding
 
+    @staticmethod
+    def from_hf_config(cfg: dict) -> "Gemma2Config":
+        """Build from a HuggingFace ``config.json`` dict
+        (Gemma2ForCausalLM), field for field as the JAX package's does."""
+        hidden = cfg["hidden_size"]
+        heads = cfg["num_attention_heads"]
+        return Gemma2Config(
+            vocab_size=cfg["vocab_size"],
+            hidden_size=hidden,
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=heads,
+            num_kv_heads=cfg.get("num_key_value_heads", heads),
+            head_dim=cfg.get("head_dim") or hidden // heads,
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-6),
+            max_model_len=cfg.get("max_position_embeddings", 8192),
+            query_pre_attn_scalar=cfg.get("query_pre_attn_scalar", 256.0),
+            attn_logit_softcap=cfg.get("attn_logit_softcapping", 50.0),
+            final_logit_softcap=cfg.get("final_logit_softcapping", 30.0),
+            sliding_window=cfg.get("sliding_window", 4096),
+        )
+
 
 PRESETS: dict[str, Gemma2Config] = {
     "gemma-2-9b": Gemma2Config(),

@@ -10,8 +10,9 @@ with W ``[in, out]``, so parameters carry over one to one
 
 The attention of every layer goes through the kernels of ops/kernels/ when
 ``attn_impl == "cuda"`` and through their plain versions when it is
-"plain" (models/paged_step.py, shared with models/gemma2.py). With ``kv_cache_dtype="int8"`` the pools hold int8 pages and the
-forward takes their scales (``kv_scales``, ops/quant.py): attention reads
+"plain" (models/paged_step.py, shared with models/gemma2.py and
+models/opt.py). With ``kv_cache_dtype="int8"`` the pools hold int8 pages
+and the forward takes their scales (``kv_scales``, ops/quant.py): attention reads
 them through the kernels' int8 modes, a prefill chunk quantizes its K/V in
 the fused write, and a T = 1 step commits through the quantizing scatter.
 Mixtral MoE, LoRA, sp/pp meshes, the "pre" write mode and all-position
@@ -59,6 +60,48 @@ class LlamaConfig:
     # "auto" (pools in ``dtype``) | "int8" (int8 pages + per-page, per-KV-head
     # f32 scales, ops/quant.py)
     kv_cache_dtype: str = "auto"
+
+    @staticmethod
+    def from_hf_config(cfg: dict) -> "LlamaConfig":
+        """Build from a HuggingFace ``config.json`` dict (LlamaForCausalLM,
+        MistralForCausalLM, Qwen2ForCausalLM; the arch from
+        ``architectures[0]``), as the JAX package's does. A Mixtral config
+        (``num_local_experts``) is refused here, before any weight is read."""
+        arch = (cfg.get("architectures") or ["LlamaForCausalLM"])[0]
+        scaling = None
+        rs = cfg.get("rope_scaling") or None
+        if rs and rs.get("rope_type", rs.get("type")) == "llama3":
+            scaling = RopeScaling(
+                factor=rs.get("factor", 8.0),
+                low_freq_factor=rs.get("low_freq_factor", 1.0),
+                high_freq_factor=rs.get("high_freq_factor", 4.0),
+                original_max_position=rs.get("original_max_position_embeddings", 8192),
+            )
+        hidden = cfg["hidden_size"]
+        heads = cfg["num_attention_heads"]
+        # Qwen2 always biases q/k/v, and windows only with use_sliding_window
+        window = cfg.get("sliding_window")
+        if arch.startswith("Qwen2") and not cfg.get("use_sliding_window", False):
+            window = None
+        out = LlamaConfig(
+            vocab_size=cfg["vocab_size"],
+            hidden_size=hidden,
+            intermediate_size=cfg["intermediate_size"],
+            num_layers=cfg["num_hidden_layers"],
+            num_heads=heads,
+            num_kv_heads=cfg.get("num_key_value_heads", heads),
+            head_dim=cfg.get("head_dim") or hidden // heads,
+            rope_theta=cfg.get("rope_theta", 10000.0),
+            rope_scaling=scaling,
+            rms_norm_eps=cfg.get("rms_norm_eps", 1e-5),
+            max_model_len=cfg.get("max_position_embeddings", 8192),
+            tie_word_embeddings=cfg.get("tie_word_embeddings", False),
+            attention_bias=cfg.get("attention_bias", arch.startswith("Qwen2")),
+            sliding_window=window,
+            num_experts=cfg.get("num_local_experts", 0) if arch.startswith("Mixtral") else 0,
+        )
+        _check_ported(out)
+        return out
 
 
 PRESETS: dict[str, LlamaConfig] = {

@@ -1,5 +1,5 @@
 """One forward step's attention over the paged KV pools, shared by the port's
-models (models/llama.py, models/gemma2.py).
+models (models/llama.py, models/gemma2.py, models/opt.py).
 
 The step is a prefill chunk (T > 1: the prefill kernel, whose fused write
 commits the chunk's K/V to the pools in place), a single decode token

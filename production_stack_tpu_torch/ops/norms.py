@@ -1,5 +1,6 @@
-"""Normalization ops: RMSNorm with its variance in float32 whatever the
-activation dtype (bf16 accumulation loses too much at hidden >= 2048)."""
+"""Normalization ops: RMSNorm and LayerNorm with their statistics in float32
+whatever the activation dtype (bf16 accumulation loses too much at hidden
+>= 2048)."""
 
 from __future__ import annotations
 
@@ -21,3 +22,14 @@ def rms_norm_1p(x: torch.Tensor, weight: torch.Tensor, eps: float = 1e-6) -> tor
     xf = x.float()
     var = (xf * xf).mean(dim=-1, keepdim=True)
     return (xf * torch.rsqrt(var + eps) * (1.0 + weight.float())).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm (the OPT family): (x - mean) * rsqrt(var + eps) * weight +
+    bias, the statistics, weight and bias in fp32, cast to x's dtype at the
+    end."""
+    xf = x.float()
+    mean = xf.mean(dim=-1, keepdim=True)
+    var = ((xf - mean) ** 2).mean(dim=-1, keepdim=True)
+    normed = (xf - mean) * torch.rsqrt(var + eps)
+    return (normed * weight.float() + bias.float()).to(x.dtype)

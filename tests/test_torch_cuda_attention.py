@@ -2,7 +2,9 @@
 the card only: the decode kernel (and its split merge), the prefill kernel
 with its fused KV write, and the two KV writes alone, in fp pools (f32,
 bf16) and int8 pools, at head_dim 64, 128 and 256 (Gemma-2: window 4,096 or
-a short one, softcap 50, sm_scale = 144**-0.5).
+a short one, softcap 50, sm_scale = 144**-0.5), and at the served models'
+head groups: qwen2.5-7b's (D = 128, 7 query heads per KV head) and
+opt-125m's (D = 64, one query head per KV head).
 
 This file imports neither jax nor the JAX package, so it runs on the card's
 machine (``pytest -m cuda tests/test_torch_cuda_attention.py``); without a
@@ -76,6 +78,13 @@ DECODE_CASES = {
     "d256_one_row_8192_sliding": (1, 8, 4, 256, 64, 129, 1, 8, [8192], [8], dict(GEMMA, window=4096)),
     # the burst on a row whose last split has no pool slot; a global layer
     "d256_burst_last_split_empty_global": (3, 8, 4, 256, 64, 24, 1, 8, [30, 1500, 900], [3, 5, 8], GEMMA),
+    # qwen2.5-7b's heads (NH = 28, KH = 4): its decode burst step at 32 x
+    # 1,024, one row at 8,192, and ragged rows with an empty one
+    "qwen_b32_ctx1024_g7_d128": (32, 28, 4, 128, 64, 16, 1, 8, [1024] * 32, [8] * 32, {}),
+    "qwen_one_row_8192_g7_d128": (1, 28, 4, 128, 64, 129, 1, 8, [8192], [8], {}),
+    "qwen_ragged_burst_g7_d128": (3, 28, 4, 128, 64, 24, 2, 8, [0, 900, 1500], [0, 8, 5], {}),
+    # opt-125m's heads (NH = KH = 12): ragged rows with an empty one
+    "opt_ragged_burst_g1_d64": (4, 12, 12, 64, 64, 17, 2, 8, [0, 9, 300, 1024], [0, 8, 3, 8], {}),
 }
 
 
@@ -129,6 +138,14 @@ PREFILL_CASES = {
     "d256_first_chunk_padded_row": (3, 48, 8, 4, 256, 64, 2, 1, (0, 0, 0), (48, 17, 0), GEMMA),
     "d256_window_bites": (2, 96, 8, 4, 256, 64, 72, 1, (4200, 30), (96, 70), dict(GEMMA, window=4096)),
     "d256_page48_unaligned_history": (2, 96, 8, 4, 256, 48, 8, 1, (101, 29), (96, 70), GEMMA),
+    # qwen2.5-7b's heads: its 512-token chunk after 1,536, and ragged rows
+    # (one padded) in a stacked pool
+    "qwen_t512_h1536_g7_d128": (1, 512, 28, 4, 128, 64, 32, 1, (1536,), (512,), {}),
+    "qwen_ragged_padded_row_g7_d128": (3, 96, 28, 4, 128, 16, 16, 2, (100, 0, 37), (96, 61, 0), dict(layer=1)),
+    # opt-125m's heads: a 3-token chunk (the JAX OPT runs XLA below 16
+    # tokens, the port this kernel), and its 512-token chunk after 1,536
+    "opt_t3_chunk_g1_d64": (2, 3, 12, 12, 64, 16, 4, 1, (20, 0), (3, 2), {}),
+    "opt_t512_h1536_g1_d64": (1, 512, 12, 12, 64, 64, 32, 1, (1536,), (512,), {}),
 }
 
 
