@@ -24,11 +24,16 @@ non-zero exit (nothing is caught):
                inputs, each held to a bound scaled to its output (TOL; D =
                256 with scores that reach the softcap, to the tighter
                TOL_CAPPED); the main cases' one-key-fewer controls must
-               fail it; the KV writes (fp, and the quantizing write) must
-               leave pools and scales byte-identical to their plain
-               versions, in the quantizing write's four cases too (aligned
-               chunk, chunk ending mid-page, unaligned head page, other
-               layers untouched), at D = 64/128 and 256.
+               fail it; the chunk's KV write, inside the same launch (fp,
+               and the quantizing write), must leave pools and scales
+               byte-identical to the writes' plain versions and other
+               layers untouched, in every prefill case and in the write
+               cases (aligned chunk, chunk ending mid-page, unaligned head
+               page, other layers untouched, G = 1 / 7 / 8, a 3-token
+               chunk over two pages, B = 2 with a padded row, pages of
+               128) at D = 64, 128 and 256, bf16 and f32, fp and int8
+               pools; the launch without the write leaves them untouched,
+               with the same attention bytes.
 3. forward  -- llama-3.2-1b (two 512-token chunks) and gemma-2-2b (nine,
                past its 4,096 window) at full width and depth (bf16,
                seeded random weights), then one 8-step decode burst, with
@@ -58,7 +63,10 @@ non-zero exit (nothing is caught):
                must be refused. The directories are deleted.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
-               a PyTorch yardstick, with CUDA events, beside its bound; then
+               a PyTorch yardstick, with CUDA events, beside its bound (the
+               prefill launch timed without and with the chunk's write: the
+               write rows' time is the difference, beside the write's
+               bound, and the whole launch's time beside its own); then
                the decode kernel at small batch (1 x 2,048, 8 x 1,024, 1 x
                8,192; qwen2.5-7b's 1 x 8,192), gemma-2-2b's 1 x 8,192 on a
                sliding and a global layer, both modes, and opt-125m's
@@ -562,21 +570,35 @@ PREFILL_CASES = [
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
 
-# the quantizing KV write alone: pools byte-identical and scales bitwise
-# equal to its plain version
-QWRITE_CASES = [
-    ("aligned_chunk_bf16", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=1,
-                                computed=[32, 0], chunks=[64, 64], dtype="bfloat16")),
-    ("chunk_ends_mid_page_bf16", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=1,
-                                      computed=[32, 16], chunks=[50, 37], dtype="bfloat16")),
-    ("unaligned_head_page_f32_d128", dict(B=2, T=64, NH=8, KH=2, D=128, page=16, maxp=8, L=1,
-                                          computed=[37, 5], chunks=[64, 40], dtype="float32")),
-    ("other_layers_untouched_bf16", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=3, layer=1,
-                                         computed=[21, 0], chunks=[60, 33], dtype="bfloat16")),
+# the chunk's KV write in the prefill launch, against the writes' plain
+# versions alone: each case with bf16 and f32 inputs, fp and int8 pools
+WRITE_CASES = [
+    ("aligned_chunk", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=1, computed=[32, 0], chunks=[64, 64])),
+    ("chunk_ends_mid_page", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=1, computed=[32, 16],
+                                 chunks=[50, 37])),
+    ("unaligned_head_page_d128", dict(B=2, T=64, NH=8, KH=2, D=128, page=16, maxp=8, L=1, computed=[37, 5],
+                                      chunks=[64, 40])),
+    ("other_layers_untouched", dict(B=2, T=64, NH=32, KH=8, D=64, page=16, maxp=8, L=3, layer=1, computed=[21, 0],
+                                    chunks=[60, 33])),
 ]
 # the same four cases at gemma-2-2b's KV heads (KH = 4, D = 256)
-QWRITE_CASES += [
-    ("d256_" + name.replace("_d128", ""), dict(kw, NH=8, KH=4, D=256)) for name, kw in QWRITE_CASES
+WRITE_CASES += [("d256_" + name.replace("_d128", ""), dict(kw, NH=8, KH=4, D=256)) for name, kw in WRITE_CASES]
+# the write's partition over the launch's blocks (fp: each block its own
+# tokens; int8: row b's page tasks to the lowest x-blocks first): opt-125m's
+# G = 1 with a 3-token chunk over two pages (one x-block), qwen2.5-7b's G = 7
+# with a chunk ending mid-page beside a padded row, G = 8 with unaligned head
+# pages, gemma-2-2b's heads with a padded row, and pages of 128
+WRITE_CASES += [
+    ("g1_t3_two_pages", dict(OPT, B=2, T=3, page=16, maxp=4, L=1, computed=[15, 0], chunks=[3, 2])),
+    ("g7_d128_mid_page_padded_row_layer1", dict(QWEN, B=2, T=96, page=16, maxp=16, L=2, layer=1, computed=[37, 0],
+                                                chunks=[90, 0])),
+    ("g8_unaligned_head_pages", dict(B=2, T=40, NH=32, KH=4, D=64, page=16, maxp=8, L=1, computed=[21, 5],
+                                     chunks=[40, 33])),
+    ("d256_padded_row", dict(GEMMA, B=2, T=48, page=16, maxp=6, L=1, computed=[13, 0], chunks=[48, 0])),
+    # pages of 128 slots: the f32 kernel stages an int8 page task in two
+    # slabs of 64
+    ("page128_slabs", dict(B=2, T=40, NH=32, KH=8, D=64, page=128, maxp=2, L=1, computed=[100, 0],
+                           chunks=[40, 33])),
 ]
 
 
@@ -599,8 +621,6 @@ def phase_kernels():
         split_plan,
     )
     from production_stack_tpu_torch.ops.kernels.prefill_attention import (
-        kv_page_write,
-        kv_page_write_quant,
         kv_page_write_quant_ref,
         kv_page_write_ref,
         prefill_attention,
@@ -653,74 +673,68 @@ def phase_kernels():
         if 0 in kw["lens"]:
             check(float(out[kw["lens"].index(0)].float().abs().max()) == 0.0, f"decode {name}: empty row not 0")
 
-    for name, kw in PREFILL_CASES:
-        kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
-        seed = kw.pop("seed", 2)
+    def fused_launch(name, kw, seed):
+        """One prefill case through the launch that attends and writes, on
+        its own copies of the pools: the output against the plain version
+        within TOL, pools and scales against the plain write alone (other
+        layers untouched), and the attention-only launch on fresh copies
+        (pools untouched, the same output bytes)."""
         quant = kw.get("quant", False)
         kernel = _kernel_name("prefill_attention", quant, kw["D"])
         args, call_kw = prefill_case(seed, **kw)
         q, kp, vp, pt, pos, lens, kc, vc, cl = args
+        layer = call_kw["layer"]
         kp_k, vp_k, skw_k = _clone_pools(args, call_kw)
         kp_r, vp_r, skw_r = _clone_pools(args, call_kw)
-        out = prefill_attention(q, kp_k, vp_k, pt, pos, lens, kc, vc, cl, fused_write=True,
-                                **dict(call_kw, **skw_k))
+        out = prefill_attention(q, kp_k, vp_k, pt, pos, lens, kc, vc, cl, fused_write=True, **dict(call_kw, **skw_k))
         torch.cuda.synchronize()
-        ref = prefill_attention_ref(q, kp_r, vp_r, pt, pos, lens, kc, vc, cl, fused_write=True,
-                                    **dict(call_kw, **skw_r))
-        same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
-        if kw.get("poison"):
+        if quant:
+            kv_page_write_quant_ref(kc, vc, lens, cl, pt, kp_r, vp_r, layer=layer, **skw_r)
+        else:
+            kv_page_write_ref(kc, vc, pos, cl, pt, kp_r, vp_r, layer=layer)
+        if kw.get("poison"):  # the plain version on clean inputs: poisoned slots must be skipped
             clean, clean_kw = prefill_case(seed, **dict(kw, poison=False))
             ref = prefill_attention_ref(*clean, **clean_kw)
+        else:
+            ref = prefill_attention_ref(*args, **call_kw)
         control = None
         if name in CONTROLLED:
             control = prefill_attention_ref(q, kp, vp, pt, pos, lens - 1, kc, vc, cl, **call_kw)
         judged(kernel, name, out, ref, kw["dtype"], control)
-        emit({"phase": "kernels", "kernel": kernel, "case": name, "fused_write_pools_byte_identical": same})
-        check(same, f"prefill {name}: fused-write pools differ from the plain version's")
         for b, c in enumerate(kw["chunks"]):
             if c == 0:
                 check(float(out[b].float().abs().max()) == 0.0, f"prefill {name}: padded row not 0")
-
-        # the write kernel alone, on its own copies of the pools
+        # the write, against its plain version alone
         wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"])
-        kp_k, vp_k, skw_k = _clone_pools(args, call_kw)
-        kp_r, vp_r, skw_r = _clone_pools(args, call_kw)
-        if quant:
-            kv_page_write_quant(kc, vc, lens, cl, pt, kp_k, vp_k, layer=call_kw["layer"], **skw_k)
-            torch.cuda.synchronize()
-            kv_page_write_quant_ref(kc, vc, lens, cl, pt, kp_r, vp_r, layer=call_kw["layer"], **skw_r)
-        else:
-            kv_page_write(kc, vc, pos, cl, pt, kp_k, vp_k, layer=call_kw["layer"])
-            torch.cuda.synchronize()
-            kv_page_write_ref(kc, vc, pos, cl, pt, kp_r, vp_r, layer=call_kw["layer"])
         same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
+        untouched = all(
+            _same_bytes(x[i], y[i]) for i in range(kw["L"]) if i != layer
+            for x, y in [(kp_k, kp), (vp_k, vp)] + [(skw_k[k], call_kw[k]) for k in skw_k]
+        )
         err = max([_pool_err(kp_k, kp_r), _pool_err(vp_k, vp_r)] + [_pool_err(skw_k[k], skw_r[k]) for k in skw_k])
-        emit({"phase": "kernels", "kernel": wkernel, "case": name, "pools_byte_identical": same, "max_abs_err": err})
-        check(same, f"{wkernel} {name}: pools differ from the plain version's")
+        # the same launch without the write, on fresh copies
+        kp_a, vp_a, skw_a = _clone_pools(args, call_kw)
+        alone = prefill_attention(q, kp_a, vp_a, pt, pos, lens, kc, vc, cl, **dict(call_kw, **skw_a))
+        torch.cuda.synchronize()
+        kept = pools_same((kp_a, vp_a), (kp, vp), skw_a, {k: call_kw[k] for k in skw_a})
+        emit({"phase": "kernels", "kernel": wkernel, "case": name, "pools_and_scales_byte_identical": same,
+              "other_layers_untouched": untouched, "max_abs_err": err,
+              "attention_only_pools_untouched": kept, "attention_only_same_output": _same_bytes(alone, out)})
+        check(same and untouched, f"{wkernel} {name}: pools or scales differ from the plain write's, "
+                                  f"or other layers changed")
+        check(kept and _same_bytes(alone, out), f"prefill {name}: the launch without the write changed the pools "
+                                                f"or gave other output bytes")
         worst[wkernel] = max(worst[wkernel], err)
 
-    for name, kw in QWRITE_CASES:
-        kw = dict(kw, dtype=getattr(torch, kw["dtype"]), quant=True)
-        args, call_kw = prefill_case(3, **kw)
-        _, kp, vp, pt, pos, lens, kc, vc, cl = args
-        kp_k, vp_k, skw_k = _clone_pools(args, call_kw)
-        kp_r, vp_r, skw_r = _clone_pools(args, call_kw)
-        kv_page_write_quant(kc, vc, lens, cl, pt, kp_k, vp_k, layer=call_kw["layer"], **skw_k)
-        torch.cuda.synchronize()
-        kv_page_write_quant_ref(kc, vc, lens, cl, pt, kp_r, vp_r, layer=call_kw["layer"], **skw_r)
-        same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
-        layer = call_kw["layer"]
-        others = [i for i in range(kw["L"]) if i != layer]
-        untouched = all(
-            _same_bytes(x[i], y[i]) for i in others
-            for x, y in ((kp_k, kp), (vp_k, vp), (skw_k["k_scales"], call_kw["k_scales"]),
-                         (skw_k["v_scales"], call_kw["v_scales"]))
-        )
-        changed = not _same_bytes(kp_k[layer], kp[layer])
-        emit({"phase": "kernels", "kernel": _kernel_name("kv_page_write_quant", False, kw["D"]), "case": name,
-              "pools_and_scales_byte_identical": same, "other_layers_untouched": untouched, "wrote": changed})
-        check(same and untouched and changed, f"kv_page_write_quant {name}: pools or scales differ from the "
-                                              f"plain version's, or other layers changed")
+    for name, kw in PREFILL_CASES:
+        kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
+        fused_launch(name, kw, kw.pop("seed", 2))
+
+    for name, kw in WRITE_CASES:
+        for dtype in ("bfloat16", "float32"):
+            for quant in (False, True):
+                case = dict(kw, dtype=getattr(torch, dtype), quant=quant)
+                fused_launch(f"{INT8 if quant else ''}write_{name}_{dtype}", case, 3)
     return worst
 
 
@@ -792,7 +806,8 @@ def phase_forward(name: str, n_chunks: int, model=None) -> dict:
     kernels and with the plain versions, first into bf16 pools, then into
     int8 pools. Layer 0's K/V come before any attention, so its int8 pages
     and scales must be byte-identical between the two int8 runs (the
-    quantizing write kernel against its plain version, inside the model).
+    quantizing write in the prefill launch against its plain version,
+    inside the model).
     Returns the launch counts of the kernel run into int8 pools (every
     count set to 0 just before it)."""
     import torch
@@ -851,7 +866,8 @@ def phase_forward(name: str, n_chunks: int, model=None) -> dict:
 
 
 # each kernel row's launch counter, as (wrapper, attribute): the int8 modes
-# of the two attention kernels count apart from their fp modes
+# of the two attention kernels count apart from their fp modes, and the
+# write rows count the prefill launches that also wrote the chunk
 def _counters():
     from production_stack_tpu_torch.ops.kernels import decode_attention as dmod
     from production_stack_tpu_torch.ops.kernels import prefill_attention as pmod
@@ -859,10 +875,10 @@ def _counters():
     kernels = {
         "decode_attention": (dmod.decode_attention, "launches"),
         "prefill_attention": (pmod.prefill_attention, "launches"),
-        "kv_page_write": (pmod.kv_page_write, "launches"),
+        "kv_page_write": (pmod.prefill_attention, "launches_write"),
         "decode_attention[int8]": (dmod.decode_attention, "launches_int8"),
         "prefill_attention[int8]": (pmod.prefill_attention, "launches_int8"),
-        "kv_page_write_quant": (pmod.kv_page_write_quant, "launches"),
+        "kv_page_write_quant": (pmod.prefill_attention, "launches_write_int8"),
     }
     plains = {
         "decode_attention_ref": dmod.decode_attention_ref,
@@ -1167,10 +1183,12 @@ def _decode_timing(case_name: str, quant: bool) -> dict:
                         + (" (KV dequantized to bf16 beforehand, not timed)" if quant else ""))
 
 
-def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, tuple]:
+def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, dict]:
     """The prefill kernel, its plain version and SDPA with a causal-offset
-    (and window) mask on one prefill case, beside the bound; also returns
-    the case's inputs for the write rows."""
+    (and window) mask on one prefill case, beside the bound; the same launch
+    with the chunk's write is timed in the same process. Returns the row and
+    what the write row needs: the case's inputs, the launch's times with and
+    without the write, and the attention's bytes and operations."""
     import torch
     import torch.nn.functional as F
 
@@ -1187,6 +1205,8 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, tuple]:
     args, kw = prefill_case(case.pop("seed"), **case)
     q, kp, vp, pt, pos, lens, kc, vc, cl = args
     ms = _time_ms(lambda: prefill_attention(*args, **kw))
+    # the chunk's write rewrites the same bytes each call (fresh pages only)
+    fused = _time_ms(lambda: prefill_attention(*args, fused_write=True, **kw))
     plain = _time_ms(lambda: prefill_attention_ref(*args, **kw))
     if quant:
         kg, vg = gather_kv_pages_quant(kp[0], vp[0], kw["k_scales"][0], kw["v_scales"][0], pt, dtype=bf16)
@@ -1204,7 +1224,8 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, tuple]:
     h_vis = hist - max(hist - window + 1, 0)  # history slots any query sees
     kv_bytes = 2 * h_vis * KH * D + 2 * (h_vis // page) * KH * 4 if quant else 2 * h_vis * KH * D * el
     nbytes = 2 * T * NH * D * el + kv_bytes + 2 * T * KH * D * el + pt.numel() * 4 + T * 4 + 8
-    b_ms, b_by = _bound(nbytes, 4 * NH * D * pairs)
+    flops = 4 * NH * D * pairs
+    b_ms, b_by = _bound(nbytes, flops)
     extra = "" if case.get("window") is None else f" window={case['window']}"
     extra += "" if case.get("softcap") is None else f" softcap={case['softcap']} sm_scale={kw['sm_scale']:.6g}"
     pool = "int8 history, bf16 q/chunk" if quant else "bf16"
@@ -1213,46 +1234,51 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, tuple]:
                library=("scaled_dot_product_attention over history dequantized to bf16 beforehand (dequant not "
                         "timed), causal-offset mask" if quant else
                         "scaled_dot_product_attention with a causal-offset mask")
-                       + (", no softcap" if case.get("softcap") else ""))
-    return row, (args, kw)
+                       + (", no softcap" if case.get("softcap") else ""),
+               ms_is="the launch without the chunk's write (fused_write=False)")
+    return row, dict(args=args, kw=kw, attention_ms=ms, fused_ms=fused, nbytes=nbytes, flops=flops)
 
 
-def _write_timing(case_args, quant: bool) -> dict:
+def _write_timing(p: dict, quant: bool) -> dict:
     """The chunk's KV write (fp: into the slots after the history; int8:
-    quantized into its fresh pages), its plain version and, for fp, the
-    index_copy_ yardstick, beside the byte bound."""
-    from production_stack_tpu_torch.ops.kernels.prefill_attention import (
-        kv_page_write,
-        kv_page_write_quant,
-        kv_page_write_quant_ref,
-        kv_page_write_ref,
-    )
+    quantized into its fresh pages) as it runs now, inside the prefill
+    launch: its time is the launch's with the write less the launch's
+    without, beside the write's own byte bound; the whole launch's time
+    beside its bound (the attention's, with the pools' written bytes
+    added). Also the write's plain version and, for fp, the index_copy_
+    yardstick."""
+    from production_stack_tpu_torch.ops.kernels.prefill_attention import kv_page_write_quant_ref, kv_page_write_ref
 
-    args, kw = case_args
+    args, kw = p["args"], p["kw"]
     q, kp, vp, pt, pos, lens, kc, vc, cl = args
     _, T, KH, D = kc.shape
     page = kp.shape[2]
     el = 2
     if quant:
         skw = dict(k_scales=kw["k_scales"], v_scales=kw["v_scales"])
-        ms = _time_ms(lambda: kv_page_write_quant(kc, vc, lens, cl, pt, kp, vp, layer=0, **skw))
         plain = _time_ms(lambda: kv_page_write_quant_ref(kc, vc, lens, cl, pt, kp, vp, layer=0, **skw))
+        lib = None
         n_pages = T // page
-        nbytes = 2 * T * KH * D * el + 2 * n_pages * page * KH * D + 2 * n_pages * KH * 4 + 8 + pt.numel() * 4
-        b_ms, b_by = _bound(nbytes, 0.0)
-        return dict(ms=ms, plain_ms=plain, library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                    shape=f"T={T} into {n_pages} fresh pages, KH={KH} D={D} page={page} bf16 -> int8",
-                    library="none: no single PyTorch call quantizes per page and scatters")
-    ms = _time_ms(lambda: kv_page_write(kc, vc, pos, cl, pt, kp, vp, layer=0))
-    plain = _time_ms(lambda: kv_page_write_ref(kc, vc, pos, cl, pt, kp, vp, layer=0))
-    p0 = pos[0].long()
-    slots = pt[0, p0 // page].long() * page + p0 % page
-    kflat, vflat = kp[0].view(-1, KH, D), vp[0].view(-1, KH, D)
-    lib = _time_ms(lambda: (kflat.index_copy_(0, slots, kc[0]), vflat.index_copy_(0, slots, vc[0])))
-    nbytes = 4 * T * KH * D * el + T * 4 + pt.numel() * 4
-    b_ms, b_by = _bound(nbytes, 0.0)
-    return dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-                shape=f"T={T} KH={KH} D={D} page={page} bf16", library="index_copy_ into the flat pool, K and V")
+        written = 2 * n_pages * page * KH * D + 2 * n_pages * KH * 4
+        read = 2 * T * KH * D * el + 8 + pt.numel() * 4
+        shape = f"T={T} into {n_pages} fresh pages, KH={KH} D={D} page={page} bf16 -> int8"
+        library = "none: no single PyTorch call quantizes per page and scatters"
+    else:
+        plain = _time_ms(lambda: kv_page_write_ref(kc, vc, pos, cl, pt, kp, vp, layer=0))
+        p0 = pos[0].long()
+        slots = pt[0, p0 // page].long() * page + p0 % page
+        kflat, vflat = kp[0].view(-1, KH, D), vp[0].view(-1, KH, D)
+        lib = _time_ms(lambda: (kflat.index_copy_(0, slots, kc[0]), vflat.index_copy_(0, slots, vc[0])))
+        written = 2 * T * KH * D * el
+        read = 2 * T * KH * D * el + T * 4 + pt.numel() * 4
+        shape = f"T={T} KH={KH} D={D} page={page} bf16"
+        library = "index_copy_ into the flat pool, K and V"
+    b_ms, b_by = _bound(read + written, 0.0)
+    f_ms, f_by = _bound(p["nbytes"] + written, p["flops"])
+    return dict(ms=p["fused_ms"] - p["attention_ms"], plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
+                ms_is="fused_ms - attention_ms: the launch with the chunk's write less the launch without",
+                attention_ms=p["attention_ms"], fused_ms=p["fused_ms"], fused_bound_ms=f_ms, fused_bound_by=f_by,
+                shape=shape, library=library)
 
 
 def phase_timing() -> dict:
@@ -1266,9 +1292,9 @@ def phase_timing() -> dict:
                         (256, GEMMA_DECODE, GEMMA_PREFILL)):
         for quant in (False, True):
             rows[_kernel_name("decode_attention", quant, D)] = _decode_timing(dec, quant)
-            row, case_args = _prefill_timing(INT8 + pre if quant else pre, quant)
+            row, fused = _prefill_timing(INT8 + pre if quant else pre, quant)
             rows[_kernel_name("prefill_attention", quant, D)] = row
-            rows[_dtag("kv_page_write_quant" if quant else "kv_page_write", D)] = _write_timing(case_args, quant)
+            rows[_dtag("kv_page_write_quant" if quant else "kv_page_write", D)] = _write_timing(fused, quant)
     for name, r in rows.items():
         emit({"phase": "timing", "kernel": name, **r})
     for case in SMALL_BATCH_DECODE + (QWEN_DECODE_B1_8K,) + GEMMA_WINDOW_DECODE:

@@ -57,8 +57,7 @@
 //    tile still runs its products, with p = 0).
 // f32 inputs take a CUDA-core fold of the same tiles (tests and references;
 // no served model runs f32). Later work: TMA-fed tiles with a producer warp
-// (the cp.async copies cost as much issue time as the softmax) and the
-// chunk's write fused into the epilogue.
+// (the cp.async copies cost as much issue time as the softmax).
 //
 // int8 history (the bf16 path): the raw int8 rows and their pages' K and V
 // scales ride the same ring (16-byte and 4-byte cp.async); each thread
@@ -70,16 +69,52 @@
 // for P V. Scales are looked up per key, so any page size works. The f32
 // kernel dequantizes history rows in f32 as it stages them.
 //
-// The KV write is a second kernel, `kv_page_write` (fp pools) or
-// `kv_page_write_quant` (int8 pools), launched by the same wrapper after
-// attention: it writes the chunk's K/V rows into their pool slots in place.
-// Attention reads only slots below paged_end and the fp write touches only
-// slots at or above it; the int8 write also rewrites a head page's scale
-// row only when the page is fresh, so running it after attention keeps it
-// clear of the attention's reads (the race the JAX kernel's comment at
-// prefill_attention.py:317-320 describes). Fusing the write into the
-// attention kernel's epilogue, so that the chunk's K/V cross device memory
-// once, is later work.
+// The chunk's KV write runs in the same launch (fused_write = 1), as the
+// TPU kernel's fused write does, after each block has stored its output:
+// every cp.async and wgmma group has been waited on, the accumulators are
+// dead, and the write reads k_cur/v_cur from device memory (the rows the
+// block's chunk tiles just read, so mostly from L2), off the ring and the
+// tile loop's registers, in a function of its own (write_chunk, not
+// inlined: the tile loop keeps its register allocation). A standalone
+// write kernel spent 7-20 us a launch on ~1 MB of copies (0.5-1.3 us at
+// the card's bandwidth); in the launch that cost goes. The write runs once
+// per block, so it is latency-bound: its loads are issued together (fp) or
+// staged by cp.async (int8). Work per block (x, kh, b), every thread
+// joining:
+//  - fp pools: KV head kh's D-element rows, K and V, of the block's own
+//    query tokens [x * N_WG * tpw, ...) (f32: [x * TQ, ...)) below
+//    cur_lens[b], each to slot positions[b, t] (-1, or a page past the
+//    table, drops), in 16-byte vectors: each (token, KV head) once;
+//  - int8 pools: row b's page tasks, one per (page overlapping the chunk's
+//    positions [kv_len - cur_len, kv_len) inside the table, K or V): task
+//    i goes to block x = i mod ceil(gridDim.x / 2), the lower half of the
+//    x-blocks, lowest x first: under the causal mask those see the fewest
+//    chunk keys and finish first, while the highest x sets the launch's
+//    end. A task is the quantizing write of one page for KV head kh: its
+//    chunk rows staged by cp.async in the block's shared memory (the Q
+//    rows and rings, free now), a block-wide f32 amax over the page's kept
+//    slots x D, a barrier, then the int8 stores; a fresh page (slot 0 at
+//    or after the chunk start)
+//    takes scale max(amax * f32(1/127), 1e-8) and is written whole, zeros
+//    past the chunk; an unaligned head page keeps its scale, clips, and
+//    only its slots in the chunk change. No thread returns early, so a
+//    block whose tokens are all padding still takes its tasks.
+// Why blocks may write while others of the launch still read:
+//  - attention reads only pool slots below paged_end = kv_len - cur_len,
+//    and the scales of the pages that hold them;
+//  - the fp write touches only slots at or above paged_end (the
+//    scheduler's chunks are contiguous from paged_end);
+//  - the int8 write rewrites a scale only on a fresh page, whose slot 0 is
+//    at or above paged_end, and never rewrites a history slot of a head
+//    page (the hazard the JAX kernel's comment at prefill_attention.py:
+//    312-320 names);
+//  - no page is one row's history and another row's written page in one
+//    batch: engine/kv_manager.py shares only whole cached pages, all below
+//    a row's paged_end (match_prefix counts page_size tokens a page), and
+//    publishes a page only once full (register_filled), after which its
+//    owner writes no slot of it; a row's written pages are its own.
+// So the pools are plain pointers here (written in the launch), never
+// const __restrict__.
 #include <type_traits>
 
 #include "attention_common.cuh"
@@ -105,7 +140,7 @@ constexpr int WG_ROWS = 64;     // (token, head) rows of one warpgroup
 // Q rows [N_WG][64][D], K and V tiles [NS][BKV][D] in bf16, both in wgmma's
 // K-major SW128 layout (sw128 below); with int8 pools the raw history
 // tiles [RAW_NS][BKV][D] int8 and the keys' page scales; the keys'
-// positions.
+// positions; the query range and the int8 write's per-warp amax.
 template <int D, bool QUANT>
 struct MmaSmem {
   static constexpr int BKV = D == 256 ? 32 : 64;  // keys per staged K/V tile
@@ -136,7 +171,8 @@ struct MmaSmem {
   static constexpr int kscl = kpos + NS * BKV * 4;
   static constexpr int vscl = kscl + (QUANT ? NS * BKV * 4 : 0);
   static constexpr int qrange = vscl + (QUANT ? NS * BKV * 4 : 0);  // [N_WG][2 warps][min, max]
-  static constexpr int bytes = qrange + N_WG * 16 + 1024;  // + slack to align the base
+  static constexpr int amax = qrange + N_WG * 16;                   // the int8 write's [warps] f32
+  static constexpr int bytes = amax + N_WG * 16 + 1024;            // + slack to align the base
   static_assert(bytes <= 232448, "a block holds at most 227 KB of shared memory");
 };
 
@@ -283,6 +319,203 @@ __device__ __forceinline__ void int8x16_to_bf16(uint4 raw, uint4& lo, uint4& hi)
   hi = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
+// ---- the chunk's KV write, run by every thread of a block after its
+// attention (the header says which block takes what) -----------------------
+
+// fp rows: 16-byte loads in flight per thread, so that a block's share of
+// the write costs a round or two of device-memory latency, not one per
+// access. The write's code runs once per block, with the instruction cache
+// cold: unrolled wider (8) it took longer on the H100.
+constexpr int WRITE_ILP = 4;
+
+// fp pools: chunk tokens [t0, t1) of row b (t1 <= cur_lens[b]), KV head
+// kh, K and V: token t's D-element row to slot positions[b, t] of `layer`,
+// in 16-byte vectors; a position of -1, or on a page past the table, drops.
+// The same bytes as ops/attention.write_kv_pages_all_layers for one layer.
+template <int D, typename T>
+__device__ __forceinline__ void write_rows(const T* __restrict__ k_cur, const T* __restrict__ v_cur,
+                                           T* k_pages, T* v_pages, const int* __restrict__ pos_b,
+                                           const int* __restrict__ pt, int b, int kh, int Tn, int KH, int P,
+                                           PageDiv pdiv, int max_pages, int layer, int t0, int t1) {
+  constexpr int VPR = D * (int)sizeof(T) / 16;  // 16-byte vectors per row
+  const int n = (t1 - t0) * VPR;
+  for (int i0 = threadIdx.x; i0 < n; i0 += WRITE_ILP * blockDim.x) {
+    uint4 k[WRITE_ILP], v[WRITE_ILP];
+    size_t dst[WRITE_ILP];
+    bool ok[WRITE_ILP];
+#pragma unroll
+    for (int r = 0; r < WRITE_ILP; ++r) {  // every load first, then every store
+      const int i = i0 + r * blockDim.x;
+      const int t = t0 + i / VPR, c = i % VPR;
+      const int pos = i < n ? pos_b[t] : -1;
+      const int pg = pos < 0 ? max_pages : pdiv.page(pos);
+      ok[r] = pg < max_pages;
+      if (ok[r]) {
+        // row starts, in 16-byte vectors
+        dst[r] = ((((size_t)layer * P + pt[pg]) * pdiv.size + pos - pg * pdiv.size) * KH + kh) * VPR + c;
+        const size_t src = (((size_t)b * Tn + t) * KH + kh) * VPR + c;
+        k[r] = reinterpret_cast<const uint4*>(k_cur)[src];
+        v[r] = reinterpret_cast<const uint4*>(v_cur)[src];
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < WRITE_ILP; ++r) {
+      if (ok[r]) {
+        reinterpret_cast<uint4*>(k_pages)[dst[r]] = k[r];
+        reinterpret_cast<uint4*>(v_pages)[dst[r]] = v[r];
+      }
+    }
+  }
+}
+
+// One value quantized into a page of scale `scale`: round(x / scale), half
+// to even, clipped to +-127 (ops/quant.py). An IEEE division, never a
+// multiply by the reciprocal: the same bytes as the JAX package.
+__device__ __forceinline__ signed char quant1(float x, float scale) {
+  return (signed char)max(-127, min(127, __float2int_rn(__fdiv_rn(x, scale))));
+}
+
+// 16 bytes of chunk K/V (8 bf16 or 4 f32 values) as floats, exactly
+template <typename T>
+__device__ __forceinline__ void unpack16(uint4 u, float (&f)[16 / sizeof(T)]) {
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    if constexpr (sizeof(T) == 2) {
+      f[2 * i] = __uint_as_float(w[i] << 16);
+      f[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
+    } else {
+      f[i] = __uint_as_float(w[i]);
+    }
+  }
+}
+
+// int8 pools: the quantizing write of logical page lp of row b for KV head
+// kh, from `cur` (k_cur or v_cur) into `pool` and its `scales` [L, P, KH]
+// (the JAX kernel's fused int8 write, prefill_attention.py:304-394). The
+// chunk holds positions [s0, e0) = [kv_len - cur_len, kv_len). A fresh page
+// (slot 0 at or after s0) takes scale max(amax * f32(1 / 127), 1e-8) over
+// its kept slots x D and is written whole, zeros past the chunk; a head
+// page that starts before s0 keeps its scale, and only its kept slots are
+// written (clipped). The page's chunk rows are staged by cp.async in the
+// block's shared memory, free once attention is done (`stage`, room for
+// `stage_slots` slots, at most the page's per copy): every copy of a slab in
+// flight at once, then the amax and the stores read shared memory; a page
+// that fits is staged once. s_amax holds one float per warp; every thread
+// joins.
+template <int D, typename T>
+__device__ __forceinline__ void write_page_quant(const T* __restrict__ cur, int8_t* pool, float* scales,
+                                                 float* s_amax, T* stage, int stage_slots,
+                                                 const int* __restrict__ pt, int b, int kh, int lp, int s0, int e0,
+                                                 int Tn, int KH, int P, int page_size, int max_pages, int layer) {
+  constexpr int E = 16 / (int)sizeof(T);  // values of one slot per 16-byte group
+  constexpr int GPR = D / E;              // groups per slot
+  const int NT = blockDim.x;
+  const int start = lp * page_size;
+  const int pid = pt[(size_t)b * max_pages + lp];
+  const bool fresh = start >= s0;  // block-uniform
+  const size_t row = (size_t)KH * D;
+  int8_t* dst = pool + ((size_t)layer * P + pid) * page_size * row + (size_t)kh * D;
+  float* sc = scales + ((size_t)layer * P + pid) * KH + kh;
+  const int slab = min(page_size, stage_slots);
+  auto kept = [&](int s) { return start + s >= s0 && start + s < e0; };
+  // the page's slots [lo, lo + n) -> stage, zeros outside the chunk
+  auto stage_slab = [&](int lo, int n) {
+    __syncthreads();  // every earlier read of the stage is done
+    for (int i = threadIdx.x; i < n * GPR; i += NT) {
+      const int s = lo + i / GPR;
+      const int t = kept(s) ? start + s - s0 : 0;
+      cp_async16_or_zero(stage + (size_t)i * E, cur + ((size_t)b * Tn + t) * row + (size_t)kh * D + (i % GPR) * E,
+                         kept(s));
+    }
+    cp_async_commit();
+    cp_async_wait<0>();
+    __syncthreads();
+  };
+  auto values = [&](int i, float (&x)[E]) { unpack16<T>(reinterpret_cast<const uint4*>(stage)[i], x); };
+  float scale;
+  if (fresh) {
+    float amax = 0.f;
+    for (int lo = 0; lo < page_size; lo += slab) {
+      const int n = min(slab, page_size - lo);
+      stage_slab(lo, n);
+      for (int i = threadIdx.x; i < n * GPR; i += NT) {
+        float x[E];
+        values(i, x);
+#pragma unroll
+        for (int e = 0; e < E; ++e) amax = fmaxf(amax, fabsf(x[e]));
+      }
+    }
+    amax = warp_max(amax);
+    // the previous task's reads of s_amax came before this task's first stage barrier
+    if ((threadIdx.x & 31) == 0) s_amax[threadIdx.x >> 5] = amax;
+    __syncthreads();
+    for (int w = 0; w < NT / 32; ++w) amax = fmaxf(amax, s_amax[w]);
+    // amax * f32(1 / 127): the JAX package's compiled programs fold amax /
+    // 127 into this multiply (ops/quant.py)
+    scale = fmaxf(__fmul_rn(amax, 1.f / 127.f), 1e-8f);
+  } else {
+    scale = *sc;
+  }
+  for (int lo = 0; lo < page_size; lo += slab) {
+    const int n = min(slab, page_size - lo);
+    if (!fresh || slab < page_size) stage_slab(lo, n);  // else the page is still staged
+    for (int i = threadIdx.x; i < n * GPR; i += NT) {
+      const int s = lo + i / GPR;
+      if (!fresh && !kept(s)) continue;  // a head page keeps its earlier slots
+      float x[E];
+      values(i, x);
+      uint32_t w[E / 4];
+#pragma unroll
+      for (int h = 0; h < E / 4; ++h) {
+        w[h] = (uint32_t)(uint8_t)quant1(x[4 * h], scale) | (uint32_t)(uint8_t)quant1(x[4 * h + 1], scale) << 8 |
+               (uint32_t)(uint8_t)quant1(x[4 * h + 2], scale) << 16 |
+               (uint32_t)(uint8_t)quant1(x[4 * h + 3], scale) << 24;
+      }
+      int8_t* o = dst + (size_t)s * row + (i % GPR) * E;
+      if constexpr (E == 8) {
+        *reinterpret_cast<uint2*>(o) = make_uint2(w[0], w[1]);
+      } else {
+        *reinterpret_cast<uint32_t*>(o) = w[0];
+      }
+    }
+  }
+  if (fresh && threadIdx.x == 0) *sc = scale;
+}
+
+// Block (x, kh, b)'s share of the chunk's write: its query tokens [t0, t1)
+// (fp pools), or row b's page tasks x, x + H, ... with H = ceil(gridDim.x /
+// 2), none for x >= H (int8 pools; K of page j is task 2 j, V task 2 j + 1),
+// staged through the block's shared memory [smem, smem + smem_bytes).
+// Not inlined, so the write's code leaves the register allocation of the
+// attention before it as it was (inlined, the int8 D = 256 kernel went from
+// 227 to 234 registers and its attention-only launch 4% slower on the H100).
+template <int D, typename T, typename KV>
+__device__ __noinline__ void write_chunk(const T* __restrict__ k_cur, const T* __restrict__ v_cur, KV* k_pages,
+                                         KV* v_pages, float* k_scales, float* v_scales, float* s_amax,
+                                         unsigned char* smem, int smem_bytes, const int* __restrict__ pos_b,
+                                         const int* __restrict__ page_table, const int* __restrict__ kv_lens,
+                                         const int* __restrict__ cur_lens, int b, int kh, int Tn, int KH, int P,
+                                         PageDiv pdiv, int max_pages, int layer, int t0, int t1) {
+  const int cl = cur_lens[b];
+  if constexpr (sizeof(KV) == 1) {
+    if (cl <= 0) return;  // block-uniform
+    const int e0 = kv_lens[b], s0 = e0 - cl;
+    const int lp0 = pdiv.page(s0);
+    const int n_pages = min(pdiv.page(e0 - 1) + 1, max_pages) - lp0;
+    const int H = (gridDim.x + 1) / 2;  // the blocks that take tasks
+    for (int i = blockIdx.x; blockIdx.x < H && i < 2 * n_pages; i += H) {
+      const bool v = i & 1;
+      write_page_quant<D>(v ? v_cur : k_cur, v ? v_pages : k_pages, v ? v_scales : k_scales, s_amax,
+                          reinterpret_cast<T*>(smem), smem_bytes / (D * (int)sizeof(T)), page_table, b, kh,
+                          lp0 + i / 2, s0, e0, Tn, KH, P, pdiv.size, max_pages, layer);
+    }
+  } else {
+    write_rows<D>(k_cur, v_cur, k_pages, v_pages, pos_b, page_table + (size_t)b * max_pages, b, kh, Tn, KH, P,
+                  pdiv, max_pages, layer, t0, min(t1, min(cl, Tn)));
+  }
+}
+
 // One block per (2 * tpw query tokens, KV head, batch row): two warpgroups,
 // each of 64 rows = tpw tokens x G heads of the KV head's group (row r is
 // token r / G, head r % G; rows past tpw * G are padding). Warp w of a
@@ -291,13 +524,11 @@ __device__ __forceinline__ void int8x16_to_bf16(uint4 raw, uint4& lo, uint4& hi)
 // rows g and g + 8 and column pairs 2 * qd (+ 8).
 template <int D, typename KV>
 __global__ void __launch_bounds__(MmaSmem<D, sizeof(KV) == 1>::THREADS) prefill_attention_mma_kernel(
-    const __nv_bfloat16* __restrict__ q, const int* __restrict__ positions,
-    const KV* __restrict__ k_pages, const KV* __restrict__ v_pages,
-    const float* __restrict__ k_scales, const float* __restrict__ v_scales,
-    const __nv_bfloat16* __restrict__ k_cur, const __nv_bfloat16* __restrict__ v_cur,
-    const int* __restrict__ page_table, const int* __restrict__ kv_lens,
+    const __nv_bfloat16* __restrict__ q, const int* __restrict__ positions, KV* k_pages, KV* v_pages,
+    float* k_scales, float* v_scales, const __nv_bfloat16* __restrict__ k_cur,
+    const __nv_bfloat16* __restrict__ v_cur, const int* __restrict__ page_table, const int* __restrict__ kv_lens,
     const int* __restrict__ cur_lens, __nv_bfloat16* __restrict__ out, int Tn, int NH, int KH, int P,
-    PageDiv pdiv, int max_pages, int layer, int window, float sm_scale, float softcap, int tpw) {
+    PageDiv pdiv, int max_pages, int layer, int window, float sm_scale, float softcap, int tpw, int fused_write) {
   using T = __nv_bfloat16;
   constexpr bool QUANT = sizeof(KV) == 1;
   using L = MmaSmem<D, QUANT>;
@@ -749,13 +980,20 @@ __global__ void __launch_bounds__(MmaSmem<D, sizeof(KV) == 1>::THREADS) prefill_
       *reinterpret_cast<uint32_t*>(o + db * 8) = pack_bf16(oacc[db][2 * hf] * inv, oacc[db][2 * hf + 1] * inv);
     }
   }
+
+  if (fused_write) {  // launch-uniform
+    // the int8 write stages pages in the Q rows and the rings, free now
+    write_chunk<D>(k_cur, v_cur, k_pages, v_pages, k_scales, v_scales, reinterpret_cast<float*>(sm + L::amax), sm,
+                   L::kpos, pos_b, page_table, kv_lens, cur_lens, b, kh, Tn, KH, P, pdiv, max_pages, layer, cta_t0,
+                   cta_t0 + N_WG * tpw);
+  }
 }
 
 template <int D, typename KV>
-cudaError_t launch_mma(const void* q, const int* pos, const void* kp, const void* vp, const float* ks,
-                       const float* vs, const void* kc, const void* vc, const int* pt, const int* lens,
-                       const int* cl, void* out, int B, int Tn, int NH, int KH, int P, int page_size,
-                       int max_pages, int layer, int window, float sm_scale, float softcap, cudaStream_t s) {
+cudaError_t launch_mma(const void* q, const int* pos, void* kp, void* vp, float* ks, float* vs, const void* kc,
+                       const void* vc, const int* pt, const int* lens, const int* cl, void* out, int B, int Tn,
+                       int NH, int KH, int P, int page_size, int max_pages, int layer, int window, float sm_scale,
+                       float softcap, int fused_write, cudaStream_t s) {
   using T = __nv_bfloat16;
   const int smem = MmaSmem<D, sizeof(KV) == 1>::bytes;
   static bool configured = false;  // idempotent; a race only repeats it
@@ -769,9 +1007,9 @@ cudaError_t launch_mma(const void* q, const int* pos, const void* kp, const void
   constexpr int N_WG = MmaSmem<D, sizeof(KV) == 1>::N_WG;
   const dim3 grid((Tn + N_WG * tpw - 1) / (N_WG * tpw), KH, B);
   prefill_attention_mma_kernel<D, KV><<<grid, 128 * N_WG, smem, s>>>(
-      static_cast<const T*>(q), pos, static_cast<const KV*>(kp), static_cast<const KV*>(vp), ks, vs,
+      static_cast<const T*>(q), pos, static_cast<KV*>(kp), static_cast<KV*>(vp), ks, vs,
       static_cast<const T*>(kc), static_cast<const T*>(vc), pt, lens, cl, static_cast<T*>(out), Tn, NH, KH,
-      P, page_div(page_size), max_pages, layer, window, sm_scale, softcap, tpw);
+      P, page_div(page_size), max_pages, layer, window, sm_scale, softcap, tpw, fused_write);
   return cudaGetLastError();
 }
 
@@ -782,19 +1020,20 @@ constexpr int RPW = 8;    // max query rows per warp (rows per block <= 64)
 
 template <int D, typename KV>
 __global__ void __launch_bounds__(WARPS * 32, 1) prefill_attention_f32_kernel(
-    const float* __restrict__ q, const int* __restrict__ positions, const KV* __restrict__ k_pages,
-    const KV* __restrict__ v_pages, const float* __restrict__ k_scales, const float* __restrict__ v_scales,
-    const float* __restrict__ k_cur, const float* __restrict__ v_cur,
+    const float* __restrict__ q, const int* __restrict__ positions, KV* k_pages, KV* v_pages, float* k_scales,
+    float* v_scales, const float* __restrict__ k_cur, const float* __restrict__ v_cur,
     const int* __restrict__ page_table, const int* __restrict__ kv_lens,
     const int* __restrict__ cur_lens, float* __restrict__ out, int Tn, int NH, int KH, int P,
-    int page_size, int max_pages, int layer, int TQ, int window, float sm_scale,
-    float softcap) {
+    PageDiv pdiv, int max_pages, int layer, int TQ, int window, float sm_scale,
+    float softcap, int fused_write) {
   using T = float;
   constexpr int E = D / 32;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   T* ks = reinterpret_cast<T*>(smem_raw);
   T* vs = ks + TILE * D;
   __shared__ int s_qmin, s_qmax;
+  __shared__ float s_amax[WARPS];  // the int8 write's per-warp amax
+  const int page_size = pdiv.size;
 
   const int t_base = blockIdx.x * TQ;
   const int kh = blockIdx.y;
@@ -921,121 +1160,13 @@ __global__ void __launch_bounds__(WARPS * 32, 1) prefill_attention_f32_kernel(
     for (int e = 0; e < E; ++e)
       store_f(&out[(((size_t)b * Tn + t) * NH + h) * D + lane * E + e], acc[i][e] * inv);
   }
-}
 
-// Copy chunk K/V rows [b, t < cur_lens[b]] to pool slot positions[b, t] of
-// `layer` (rows with position -1, or beyond the row's pages, are dropped) —
-// the same bytes as ops/attention.write_kv_pages_all_layers writes for one
-// layer. One block per chunk row; each thread moves 16-byte vectors.
-template <typename T>
-__global__ void kv_page_write_kernel(const T* __restrict__ k_cur, const T* __restrict__ v_cur,
-                                     const int* __restrict__ positions,
-                                     const int* __restrict__ cur_lens,
-                                     const int* __restrict__ page_table, T* __restrict__ k_pages,
-                                     T* __restrict__ v_pages, int Tn, int KH, int D, int P,
-                                     int page_size, int max_pages, int layer) {
-  const int t = blockIdx.x;
-  const int b = blockIdx.y;
-  if (t >= cur_lens[b]) return;
-  const int pos = positions[(size_t)b * Tn + t];
-  if (pos < 0) return;
-  const int pg = pos / page_size;
-  if (pg >= max_pages) return;
-  const int pid = page_table[(size_t)b * max_pages + pg];
-  const size_t row = (size_t)KH * D;
-  const size_t dst = (((size_t)layer * P + pid) * page_size + (pos - pg * page_size)) * row;
-  const size_t src = ((size_t)b * Tn + t) * row;
-  const int nvec = (int)(row * sizeof(T) / 16);
-  for (int i = threadIdx.x; i < nvec; i += blockDim.x) {
-    reinterpret_cast<uint4*>(k_pages + dst)[i] = reinterpret_cast<const uint4*>(k_cur + src)[i];
-    reinterpret_cast<uint4*>(v_pages + dst)[i] = reinterpret_cast<const uint4*>(v_cur + src)[i];
+  if (fused_write) {  // launch-uniform
+    // the int8 write stages pages in the K and V tiles, free now
+    write_chunk<D>(k_cur, v_cur, k_pages, v_pages, k_scales, v_scales, s_amax, smem_raw,
+                   2 * TILE * D * (int)sizeof(T), pos_b, page_table, kv_lens, cur_lens, b, kh, Tn, KH, P, pdiv,
+                   max_pages, layer, t_base, t_base + TQ);
   }
-}
-
-// One value quantized into a page of scale `scale`: round(x / scale), half
-// to even, clipped to +-127 (ops/quant.py). An IEEE division, never a
-// multiply by the reciprocal: the same bytes as the JAX package.
-__device__ __forceinline__ signed char quant1(float x, float scale) {
-  return (signed char)max(-127, min(127, __float2int_rn(__fdiv_rn(x, scale))));
-}
-
-// The int8 pools' chunk write (the JAX kernel's fused int8 write,
-// prefill_attention.py:304-394). One block of QW_THREADS per (written page
-// j, K or V and KV head task, row b): row b's chunk holds positions [s0,
-// e0) = [kv_len - cur_len, kv_len), and page j is logical page s0 / page +
-// j. The block takes an f32 abs-max over the page's kept slots x D for its
-// KV head, then writes the page's values. A fresh page (slot 0 at or after s0) takes scale
-// max(amax * f32(1 / 127), 1e-8) and is written whole, zeros past the chunk; a head
-// page that starts before s0 keeps its scale, and only its kept slots are
-// written (clipped). Bound by bytes: the chunk's fp K/V are read twice
-// (the second time from L2) and the int8 pages written once.
-constexpr int QW_THREADS = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(QW_THREADS) kv_page_write_quant_kernel(const T* __restrict__ k_cur, const T* __restrict__ v_cur,
-                                           const int* __restrict__ kv_lens,
-                                           const int* __restrict__ cur_lens,
-                                           const int* __restrict__ page_table,
-                                           int8_t* __restrict__ k_pages, int8_t* __restrict__ v_pages,
-                                           float* __restrict__ k_scales, float* __restrict__ v_scales,
-                                           int Tn, int KH, int D, int P, int page_size, int max_pages,
-                                           int layer) {
-  const int task = blockIdx.y;  // K heads 0..KH-1, then V heads
-  const int b = blockIdx.z;
-  const int cl = cur_lens[b];
-  if (cl <= 0) return;
-  const int e0 = kv_lens[b];
-  const int s0 = e0 - cl;
-  const int lp = s0 / page_size + blockIdx.x;
-  const int start = lp * page_size;
-  if (start >= e0 || lp >= max_pages) return;
-  const int pid = page_table[(size_t)b * max_pages + lp];
-  const bool fresh = start >= s0;
-  const int groups = page_size * D / 4;  // 4 values of one slot per thread step
-  const size_t row = (size_t)KH * D;
-  const size_t page_off = ((size_t)layer * P + pid) * page_size * row;
-  const int kh = task % KH;
-  const T* cur = task < KH ? k_cur : v_cur;
-  int8_t* dst = (task < KH ? k_pages : v_pages) + page_off + (size_t)kh * D;
-  float* sc = (task < KH ? k_scales : v_scales) + ((size_t)layer * P + pid) * KH + kh;
-  // group g = slot g * 4 / D, values [d0, d0 + 4); false (x = 0) past the chunk
-  auto load = [&](int g, float (&x)[4]) -> bool {
-    const int slot = 4 * g / D;
-    const int pos = start + slot;
-    if (pos < s0 || pos >= e0) {
-      x[0] = x[1] = x[2] = x[3] = 0.f;
-      return false;
-    }
-    load_e<4>(cur + ((size_t)b * Tn + (pos - s0)) * row + (size_t)kh * D + 4 * g % D, x);
-    return true;
-  };
-  float amax = 0.f;
-  if (fresh) {  // block-uniform
-    __shared__ float s_amax[QW_THREADS / 32];
-    for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-      float x[4];
-      load(g, x);
-      amax = fmaxf(amax, fmaxf(fmaxf(fabsf(x[0]), fabsf(x[1])), fmaxf(fabsf(x[2]), fabsf(x[3]))));
-    }
-    amax = warp_max(amax);
-    if ((threadIdx.x & 31) == 0) s_amax[threadIdx.x >> 5] = amax;
-    __syncthreads();
-    for (int w = 0; w < (int)(blockDim.x >> 5); ++w) amax = fmaxf(amax, s_amax[w]);
-  }
-  // amax * f32(1 / 127): the JAX package's compiled programs fold amax / 127
-  // into this multiply (ops/quant.py)
-  const float scale = fresh ? fmaxf(__fmul_rn(amax, 1.f / 127.f), 1e-8f) : *sc;
-  for (int g = threadIdx.x; g < groups; g += blockDim.x) {
-    float x[4];
-    if (!load(g, x) && !fresh) continue;  // a head page keeps its earlier slots
-    char4 qv;
-    qv.x = quant1(x[0], scale);
-    qv.y = quant1(x[1], scale);
-    qv.z = quant1(x[2], scale);
-    qv.w = quant1(x[3], scale);
-    *reinterpret_cast<char4*>(dst + (size_t)(4 * g / D) * row + 4 * g % D) = qv;
-  }
-  if (fresh && threadIdx.x == 0) *sc = scale;
 }
 
 }  // namespace
@@ -1044,29 +1175,29 @@ __global__ void __launch_bounds__(QW_THREADS) kv_page_write_quant_kernel(const T
 // 0: pools of that dtype (k_scales/v_scales ignored); 1: int8 pools with f32
 // scales [L, P, KH]. window: huge = full causal; softcap <= 0 = none. bf16
 // takes at most 8 query heads per KV head; TQ is the f32 kernel's query
-// tokens per block (TQ * NH / KH <= 64).
+// tokens per block (TQ * NH / KH <= 64). fused_write = 1: the same launch
+// also writes the chunk's K/V into `layer` of the pools (and scales) in
+// place; 0: attention only, the pools untouched.
 extern "C" int prefill_attention_launch(int dtype, int kv_int8, int head_dim, const void* q,
-                                        const void* positions, const void* k_pages,
-                                        const void* v_pages, const void* k_scales,
-                                        const void* v_scales, const void* k_cur,
-                                        const void* v_cur, const void* page_table,
-                                        const void* kv_lens, const void* cur_lens, void* out,
-                                        int B, int Tn, int NH, int KH, int P, int page_size,
-                                        int max_pages, int layer, int TQ, int window,
-                                        float sm_scale, float softcap, void* stream) {
+                                        const void* positions, void* k_pages, void* v_pages, void* k_scales,
+                                        void* v_scales, const void* k_cur, const void* v_cur,
+                                        const void* page_table, const void* kv_lens, const void* cur_lens,
+                                        void* out, int B, int Tn, int NH, int KH, int P, int page_size,
+                                        int max_pages, int layer, int TQ, int window, float sm_scale,
+                                        float softcap, int fused_write, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int* pos = static_cast<const int*>(positions);
   const int* pt = static_cast<const int*>(page_table);
   const int* lens = static_cast<const int*>(kv_lens);
   const int* cl = static_cast<const int*>(cur_lens);
-  const float* ks = static_cast<const float*>(k_scales);
-  const float* vs = static_cast<const float*>(v_scales);
+  float* ks = static_cast<float*>(k_scales);
+  float* vs = static_cast<float*>(v_scales);
   const int G = NH / KH;
   using bf16 = __nv_bfloat16;
   if (dtype == 1) {
     if (G > MMA_MAX_G) return (int)cudaErrorInvalidValue;
 #define PST_ARGS q, pos, k_pages, v_pages, ks, vs, k_cur, v_cur, pt, lens, cl, out, B, Tn, NH, KH, P, \
-                 page_size, max_pages, layer, window, sm_scale, softcap, s
+                 page_size, max_pages, layer, window, sm_scale, softcap, fused_write, s
     if (head_dim == 64) return (int)(kv_int8 ? launch_mma<64, int8_t>(PST_ARGS) : launch_mma<64, bf16>(PST_ARGS));
     if (head_dim == 128) return (int)(kv_int8 ? launch_mma<128, int8_t>(PST_ARGS) : launch_mma<128, bf16>(PST_ARGS));
     if (head_dim == 256) return (int)(kv_int8 ? launch_mma<256, int8_t>(PST_ARGS) : launch_mma<256, bf16>(PST_ARGS));
@@ -1088,10 +1219,10 @@ extern "C" int prefill_attention_launch(int dtype, int kv_int8, int head_dim, co
       configured = true;                                                                             \
     }                                                                                                \
     prefill_attention_f32_kernel<DIM, KV><<<grid, WARPS * 32, smem, s>>>(                            \
-        static_cast<const float*>(q), pos, static_cast<const KV*>(k_pages),                          \
-        static_cast<const KV*>(v_pages), ks, vs, static_cast<const float*>(k_cur),                   \
-        static_cast<const float*>(v_cur), pt, lens, cl, static_cast<float*>(out), Tn, NH, KH, P,     \
-        page_size, max_pages, layer, TQ, window, sm_scale, softcap);                                 \
+        static_cast<const float*>(q), pos, static_cast<KV*>(k_pages), static_cast<KV*>(v_pages), ks, vs, \
+        static_cast<const float*>(k_cur), static_cast<const float*>(v_cur), pt, lens, cl,            \
+        static_cast<float*>(out), Tn, NH, KH, P, page_div(page_size), max_pages, layer, TQ, window,  \
+        sm_scale, softcap, fused_write);                                                             \
     return (int)cudaGetLastError();                                                                  \
   }
   if (head_dim == 64 && !kv_int8) PST_LAUNCH(64, float)
@@ -1102,63 +1233,4 @@ extern "C" int prefill_attention_launch(int dtype, int kv_int8, int head_dim, co
   if (head_dim == 256 && kv_int8) PST_LAUNCH(256, int8_t)
 #undef PST_LAUNCH
   return (int)cudaErrorInvalidValue;
-}
-
-extern "C" int kv_page_write_launch(int dtype, const void* k_cur, const void* v_cur,
-                                    const void* positions, const void* cur_lens,
-                                    const void* page_table, void* k_pages, void* v_pages, int B,
-                                    int Tn, int KH, int D, int P, int page_size, int max_pages,
-                                    int layer, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const dim3 grid(Tn, B);
-  const int* pos = static_cast<const int*>(positions);
-  const int* cl = static_cast<const int*>(cur_lens);
-  const int* pt = static_cast<const int*>(page_table);
-  if (dtype == 0) {
-    kv_page_write_kernel<float><<<grid, 128, 0, s>>>(
-        static_cast<const float*>(k_cur), static_cast<const float*>(v_cur), pos, cl, pt,
-        static_cast<float*>(k_pages), static_cast<float*>(v_pages), Tn, KH, D, P, page_size,
-        max_pages, layer);
-  } else if (dtype == 1) {
-    kv_page_write_kernel<__nv_bfloat16><<<grid, 128, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(k_cur), static_cast<const __nv_bfloat16*>(v_cur), pos,
-        cl, pt, static_cast<__nv_bfloat16*>(k_pages), static_cast<__nv_bfloat16*>(v_pages), Tn,
-        KH, D, P, page_size, max_pages, layer);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
-}
-
-// The int8 pools' chunk write: grid (max_write = ceil(T / page) + 1 pages a
-// chunk can touch, 2 * KH tasks, B) of QW_THREADS each.
-extern "C" int kv_page_write_quant_launch(int dtype, const void* k_cur, const void* v_cur,
-                                          const void* kv_lens, const void* cur_lens,
-                                          const void* page_table, void* k_pages, void* v_pages,
-                                          void* k_scales, void* v_scales, int B, int Tn, int KH, int D,
-                                          int P, int page_size, int max_pages, int layer, int max_write,
-                                          void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (D % 4) return (int)cudaErrorInvalidValue;
-  const dim3 grid(max_write, 2 * KH, B);
-  const int threads = QW_THREADS;
-  const int* lens = static_cast<const int*>(kv_lens);
-  const int* cl = static_cast<const int*>(cur_lens);
-  const int* pt = static_cast<const int*>(page_table);
-  int8_t* kp = static_cast<int8_t*>(k_pages);
-  int8_t* vp = static_cast<int8_t*>(v_pages);
-  float* ks = static_cast<float*>(k_scales);
-  float* vs = static_cast<float*>(v_scales);
-  if (dtype == 0) {
-    kv_page_write_quant_kernel<float><<<grid, threads, 0, s>>>(
-        static_cast<const float*>(k_cur), static_cast<const float*>(v_cur), lens, cl, pt, kp, vp, ks, vs, Tn,
-        KH, D, P, page_size, max_pages, layer);
-  } else if (dtype == 1) {
-    kv_page_write_quant_kernel<__nv_bfloat16><<<grid, threads, 0, s>>>(
-        static_cast<const __nv_bfloat16*>(k_cur), static_cast<const __nv_bfloat16*>(v_cur), lens, cl, pt, kp,
-        vp, ks, vs, Tn, KH, D, P, page_size, max_pages, layer);
-  } else {
-    return (int)cudaErrorInvalidValue;
-  }
-  return (int)cudaGetLastError();
 }

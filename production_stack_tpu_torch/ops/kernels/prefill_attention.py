@@ -2,20 +2,22 @@
 the CUDA kernels (csrc/prefill_attention.cu) and their plain PyTorch
 versions.
 
-``prefill_attention`` launches the attention kernel — and, with
-``fused_write=True``, the chunk's write kernel after it — for CUDA tensors,
-and runs ``prefill_attention_ref`` for CPU tensors; there is no fallback
-between the two. Counterpart of ``ragged_paged_attention_prefill`` in the
-JAX package (production_stack_tpu/ops/pallas/prefill_attention.py), same
-arguments and layouts. Unlike JAX, the pools (and scales) update IN PLACE
-and only the attention output returns.
+``prefill_attention`` launches the attention kernel for CUDA tensors and
+runs ``prefill_attention_ref`` for CPU tensors; there is no fallback
+between the two. With ``fused_write=True`` the same launch also writes the
+chunk's K/V into its pool pages, as the TPU kernel's fused write does: one
+launch per chunk and layer. Counterpart of ``ragged_paged_attention_prefill``
+in the JAX package (production_stack_tpu/ops/pallas/prefill_attention.py),
+same arguments and layouts. Unlike JAX, the pools (and scales) update IN
+PLACE and only the attention output returns.
 
-Two pool modes: fp pools in q's dtype (write kernel ``kv_page_write``), and
-int8 pools with ``k_scales/v_scales`` [L, P, KH] f32 (ops/quant.py), where
-the history dequantizes inside the attention kernel, the chunk's own K/V
-stay fp, and ``kv_page_write_quant`` quantizes the chunk into its pages as
-the JAX kernel's fused write does. The attention wrapper counts fp launches
-in ``prefill_attention.launches`` and int8 ones in ``launches_int8``.
+Two pool modes: fp pools in q's dtype, written as ``kv_page_write_ref``
+writes them, and int8 pools with ``k_scales/v_scales`` [L, P, KH] f32
+(ops/quant.py), where the history dequantizes inside the kernel, the
+chunk's own K/V stay fp, and the write quantizes the chunk into its pages
+as ``kv_page_write_quant_ref`` does. The wrapper counts fp launches in
+``prefill_attention.launches`` and int8 ones in ``launches_int8``, and of
+those the ones that wrote in ``launches_write`` and ``launches_write_int8``.
 """
 
 from __future__ import annotations
@@ -153,98 +155,11 @@ def _lib():
     if not _bound:
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         lib.prefill_attention_launch.argtypes = [
-            I, I, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, P,
+            I, I, I, P, P, P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, I, P,
         ]
         lib.prefill_attention_launch.restype = I
-        lib.kv_page_write_launch.argtypes = [I, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, P]
-        lib.kv_page_write_launch.restype = I
-        lib.kv_page_write_quant_launch.argtypes = [
-            I, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, P,
-        ]
-        lib.kv_page_write_quant_launch.restype = I
         _bound = True
     return lib
-
-
-def _check(tensors, ints, device, what):
-    for t in tensors:
-        if t.device != device:
-            raise ValueError(f"{what} inputs must share one CUDA device")
-        if not t.is_contiguous():
-            raise ValueError(f"{what} inputs must be contiguous")
-    for t in ints:
-        if t.dtype != torch.int32:
-            raise TypeError(f"{what}: positions, page_table, kv_lens and cur_lens must be int32")
-
-
-def kv_page_write(k_cur, v_cur, positions, cur_lens, page_table, k_pages, v_pages, layer=None):
-    """Write chunk K/V [B, T, KH, D] entries j < cur_lens[b] into the slots
-    of ``positions`` [B, T] (-1 drops) of one layer of the pools, in place:
-    every other slot keeps its exact bytes."""
-    if k_cur.device.type == "cpu":
-        return kv_page_write_ref(k_cur, v_cur, positions, cur_lens, page_table, k_pages, v_pages, layer)
-    k_pages, v_pages, layer, _, _ = stack_pools(k_pages, v_pages, layer)
-    B, Tn, KH, D = k_cur.shape
-    L, P, page_size, KHp, Dp = k_pages.shape
-    if k_cur.dtype not in _DTYPES or {v_cur.dtype, k_pages.dtype, v_pages.dtype} != {k_cur.dtype}:
-        raise TypeError("kv_page_write takes f32/bf16 chunk K/V in the pools' dtype")
-    if (KHp, Dp) != (KH, D) or v_cur.shape != k_cur.shape or positions.shape != (B, Tn) or cur_lens.shape != (B,):
-        raise ValueError("kv_page_write: chunk K/V, positions and pools disagree in shape")
-    if (KH * D * k_cur.element_size()) % 16 or not 0 <= layer < L:
-        raise ValueError("kv_page_write needs 16-byte slot rows and a valid layer")
-    _check(
-        [k_cur, v_cur, positions, cur_lens, page_table, k_pages, v_pages],
-        [positions, cur_lens, page_table], k_cur.device, "kv_page_write",
-    )
-    if any(t.data_ptr() % 16 for t in (k_cur, v_cur, k_pages, v_pages)):
-        raise ValueError("kv_page_write needs 16-byte aligned chunk K/V and pools")
-    err = _lib().kv_page_write_launch(
-        _DTYPES[k_cur.dtype], k_cur.data_ptr(), v_cur.data_ptr(), positions.data_ptr(),
-        cur_lens.data_ptr(), page_table.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        B, Tn, KH, D, P, page_size, page_table.shape[1], layer,
-        torch.cuda.current_stream(k_cur.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"kv_page_write kernel launch failed: cudaError {err}")
-    kv_page_write.launches += 1
-
-
-def kv_page_write_quant(k_cur, v_cur, kv_lens, cur_lens, page_table, k_pages, v_pages,
-                        k_scales, v_scales, layer=None):
-    """Quantize chunk K/V [B, T, KH, D] (f32/bf16; entry j < cur_lens[b] at
-    position kv_lens[b] - cur_lens[b] + j) into one layer of the int8 pools
-    and their scales, in place; ``kv_page_write_quant_ref`` says what it
-    writes."""
-    if k_cur.device.type == "cpu":
-        return kv_page_write_quant_ref(k_cur, v_cur, kv_lens, cur_lens, page_table, k_pages, v_pages,
-                                       k_scales, v_scales, layer)
-    if not check_pool_mode(k_pages, v_pages, k_scales, v_scales):
-        raise TypeError("kv_page_write_quant writes int8 pools")
-    k_pages, v_pages, layer, k_scales, v_scales = stack_pools(k_pages, v_pages, layer, k_scales, v_scales)
-    B, Tn, KH, D = k_cur.shape
-    L, P, page_size, KHp, Dp = k_pages.shape
-    if k_cur.dtype not in _DTYPES or v_cur.dtype != k_cur.dtype:
-        raise TypeError("kv_page_write_quant takes f32/bf16 chunk K/V")
-    if (KHp, Dp) != (KH, D) or v_cur.shape != k_cur.shape or kv_lens.shape != (B,) or cur_lens.shape != (B,):
-        raise ValueError("kv_page_write_quant: chunk K/V, lengths and pools disagree in shape")
-    if k_scales.shape != (L, P, KH) or v_scales.shape != k_scales.shape or D % 4 or not 0 <= layer < L:
-        raise ValueError("kv_page_write_quant needs [L, P, KH] scales, D % 4 == 0 and a valid layer")
-    _check(
-        [k_cur, v_cur, kv_lens, cur_lens, page_table, k_pages, v_pages, k_scales, v_scales],
-        [kv_lens, cur_lens, page_table], k_cur.device, "kv_page_write_quant",
-    )
-    if any(t.data_ptr() % 16 for t in (k_cur, v_cur, k_pages, v_pages)):
-        raise ValueError("kv_page_write_quant needs 16-byte aligned chunk K/V and pools")
-    max_write = -(-Tn // page_size) + 1
-    err = _lib().kv_page_write_quant_launch(
-        _DTYPES[k_cur.dtype], k_cur.data_ptr(), v_cur.data_ptr(), kv_lens.data_ptr(),
-        cur_lens.data_ptr(), page_table.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        k_scales.data_ptr(), v_scales.data_ptr(), B, Tn, KH, D, P, page_size, page_table.shape[1], layer,
-        max_write, torch.cuda.current_stream(k_cur.device).cuda_stream,
-    )
-    if err:
-        raise RuntimeError(f"kv_page_write_quant kernel launch failed: cudaError {err}")
-    kv_page_write_quant.launches += 1
 
 
 def prefill_attention(
@@ -257,8 +172,8 @@ def prefill_attention(
     dtype, entry j at positions[b, j], valid for j < cur_lens[b]); returns
     [B, T, NH, D]. Pool slots at positions >= kv_lens - cur_lens are stale
     (never read). Int8 pools take ``k_scales/v_scales``. ``fused_write=True``
-    also writes the chunk's K/V into its pool slots in place: untouched
-    slots keep their exact bytes."""
+    also writes the chunk's K/V into its pool slots in place, in the same
+    launch: untouched slots keep their exact bytes."""
     if q.device.type == "cpu":
         return prefill_attention_ref(
             q, k_pages, v_pages, page_table, positions, kv_lens, k_cur, v_cur,
@@ -288,13 +203,17 @@ def prefill_attention(
         raise ValueError(f"layer {layer} out of range for {L} stacked layers")
     if quant and (k_scales.shape != (L, P, KH) or v_scales.shape != k_scales.shape):
         raise ValueError(f"k_scales/v_scales must be [L, P, KH] = {(L, P, KH)}")
-    _check(
-        [q, k_pages, v_pages, page_table, positions, kv_lens, k_cur, v_cur, cur_lens]
-        + ([k_scales, v_scales] if quant else []),
-        [positions, page_table, kv_lens, cur_lens], q.device, "prefill kernel",
-    )
+    for t in [q, k_pages, v_pages, page_table, positions, kv_lens, k_cur, v_cur, cur_lens] + (
+            [k_scales, v_scales] if quant else []):
+        if t.device != q.device:
+            raise ValueError("prefill kernel inputs must share one CUDA device")
+        if not t.is_contiguous():
+            raise ValueError("prefill kernel inputs must be contiguous")
+    if any(t.dtype != torch.int32 for t in (positions, page_table, kv_lens, cur_lens)):
+        raise TypeError("prefill kernel: positions, page_table, kv_lens and cur_lens must be int32")
     if any(t.data_ptr() % 16 for t in (q, k_pages, v_pages, k_cur, v_cur)):
         raise ValueError("prefill kernel needs 16-byte aligned q, pools and chunk K/V")
+    write = int(bool(fused_write))
     out = torch.empty_like(q)
     err = _lib().prefill_attention_launch(
         _DTYPES[q.dtype], int(quant), D, q.data_ptr(), positions.data_ptr(), k_pages.data_ptr(),
@@ -303,26 +222,24 @@ def prefill_attention(
         kv_lens.data_ptr(), cur_lens.data_ptr(), out.data_ptr(),
         B, Tn, NH, KH, P, page_size, page_table.shape[1], layer,
         max(1, ROWS_PER_BLOCK // G), NO_WINDOW if window is None else int(window),
-        float(sm_scale if sm_scale is not None else D**-0.5), float(logit_softcap or 0.0),
+        float(sm_scale if sm_scale is not None else D**-0.5), float(logit_softcap or 0.0), write,
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if err:
         raise RuntimeError(f"prefill_attention kernel launch failed: cudaError {err}")
     if quant:
         prefill_attention.launches_int8 += 1
+        prefill_attention.launches_write_int8 += write
     else:
         prefill_attention.launches += 1
-    if fused_write and quant:
-        kv_page_write_quant(k_cur, v_cur, kv_lens, cur_lens, page_table, k_pages, v_pages, k_scales, v_scales, layer)
-    elif fused_write:
-        kv_page_write(k_cur, v_cur, positions, cur_lens, page_table, k_pages, v_pages, layer)
+        prefill_attention.launches_write += write
     return out
 
 
 prefill_attention.launches = 0
 prefill_attention.launches_int8 = 0
-kv_page_write.launches = 0
-kv_page_write_quant.launches = 0
+prefill_attention.launches_write = 0
+prefill_attention.launches_write_int8 = 0
 prefill_attention_ref.calls = 0
 kv_page_write_ref.calls = 0
 kv_page_write_quant_ref.calls = 0

@@ -4,7 +4,8 @@
 # own chip_smoke.py checks its kernels once; the timing phase runs twice per
 # tree, always from THIS tree's chip_smoke.py (the same shapes, rows and
 # yardsticks) over that tree's package; after each timing, the tree's own
-# serve phases (bf16, then int8 with the CPU tier) give its serve walls.
+# llama-3.2-1b serve phases (bf16, then int8 with the CPU tier) give its
+# serve walls.
 # Both trees are built first, in parallel.
 #
 #   bash scripts/ab_torch_kernels.sh <baseline tree, e.g. an unpacked git archive> [log dir]
@@ -23,7 +24,7 @@ TIMER="$PRE; import importlib.util as u; s = u.spec_from_file_location('cs', '$H
 (cd "$BASE" && python3 -c "$OWN; c.phase_build()" > "$OUT/ab_build_before.log" 2>&1) &
 python3 -c "$OWN; c.phase_build()" > "$OUT/ab_build_after.log" 2>&1
 wait
-SERVE="$OWN; c.phase_serve(False); c.phase_serve(True)"
+SERVE="$OWN; c.phase_serve('llama-3.2-1b', dict(model='llama-3.2-1b')); c.phase_serve('llama-3.2-1b, int8', dict(model='llama-3.2-1b', **c.INT8_SERVE))"
 (cd "$BASE" && python3 -c "$OWN; c.phase_kernels()" && python3 -c "$TIMER; c.phase_timing()" && python3 -c "$SERVE") \
   > "$OUT/ab_1_before.log" 2>&1
 (python3 -c "$OWN; c.phase_kernels(); c.phase_timing()" && python3 -c "$SERVE") > "$OUT/ab_2_after.log" 2>&1
@@ -39,5 +40,6 @@ for line in sys.stdin:
     if r["phase"] == "serve":
         print("serve", r["kv_cache_dtype"], "seconds", r["seconds"], "with startup", r["seconds_with_startup"])
     else:
-        print(r["kernel"], r.get("case", "main"), "ms", r["ms"], "sdpa", r["library_ms"], "bound", r["bound_ms"])'
+        fused = " launch %s, with the write %s" % (r["attention_ms"], r["fused_ms"]) if "fused_ms" in r else ""
+        print(r["kernel"], r.get("case", "main"), "ms", r["ms"], "sdpa", r["library_ms"], "bound", r["bound_ms"], fused)'
 done

@@ -12,8 +12,9 @@ burst's commit on its own (the post-burst scatter, or the quantizing commit
 for int8 pools: torch ops, counted as "other" inside the burst). Prints one
 JSON line per profiled step: host wall ms (ending in a synchronize), device
 busy ms, the device's idle share of the wall time, and device ms by kernel
-family (decode attention, prefill attention, KV write, GEMM, other); then
-the card's name and power limit. Exits non-zero without a CUDA device.
+family (decode attention, prefill attention with the chunk's KV write in
+its launch, GEMM, other); then the card's name and power limit. Exits
+non-zero without a CUDA device.
 """
 
 from __future__ import annotations
@@ -30,7 +31,6 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 FAMILIES = (
     ("decode_attention", ("decode_attention_",)),  # the split kernels and their merge
     ("prefill_attention", ("prefill_attention_mma_kernel", "prefill_attention_f32_kernel")),
-    ("kv_page_write", ("kv_page_write_kernel", "kv_page_write_quant_kernel")),
     ("gemm", ("gemm", "cutlass", "xmma", "cublas", "sm90_", "nvjet")),
 )
 

@@ -1,6 +1,7 @@
 """The port's CUDA attention kernels against their plain PyTorch versions, on
 the card only: the decode kernel (and its split merge), the prefill kernel
-with its fused KV write, and the two KV writes alone, in fp pools (f32,
+with the chunk's KV write in the same launch (held to the writes' plain
+versions, kv_page_write_ref and kv_page_write_quant_ref), in fp pools (f32,
 bf16) and int8 pools, at head_dim 64, 128 and 256 (Gemma-2: window 4,096 or
 a short one, softcap 50, sm_scale = 144**-0.5), and at the served models'
 head groups: qwen2.5-7b's (D = 128, 7 query heads per KV head) and
@@ -149,8 +150,29 @@ PREFILL_CASES = {
 }
 
 
+# The write's partition over the launch's blocks: fp pools write each
+# block's own tokens, int8 pools hand row b's page tasks to the lowest
+# x-blocks first. Head groups G = 1, 4, 7, 8 (and gemma-2's 2) at D = 64,
+# 128 and 256; a 3-token chunk (one x-block, two pages), chunks ending
+# mid-page, unaligned head pages, B = 2 with a padded row, and pages larger
+# than the f32 kernel's staging room.
+WRITE_CASES = {
+    "write_t3_two_pages_g1_d64": (2, 3, 12, 12, 64, 16, 4, 1, (15, 0), (3, 2), {}),
+    "write_t3_two_pages_padded_row_g2_d256": (2, 3, 8, 4, 256, 16, 4, 1, (14, 0), (3, 0), GEMMA),
+    "write_t3_two_pages_g1_d128": (1, 3, 4, 4, 128, 64, 2, 1, (62,), (3,), {}),
+    "write_ends_mid_page_g4_d64": (2, 64, 32, 8, 64, 16, 8, 1, (32, 16), (50, 37), {}),
+    "write_unaligned_head_page_g7_d64": (2, 20, 28, 4, 64, 16, 4, 1, (7, 0), (20, 13), {}),
+    "write_unaligned_head_padded_row_g7_d128": (2, 96, 28, 4, 128, 16, 16, 2, (37, 0), (96, 0), dict(layer=1)),
+    "write_unaligned_head_page_g8_d64": (2, 40, 32, 4, 64, 16, 8, 1, (21, 5), (40, 33), {}),
+    "write_unaligned_head_mid_page_g2_d256": (2, 64, 8, 4, 256, 16, 10, 2, (37, 5), (60, 51), dict(GEMMA, layer=1)),
+    # pages of 128 slots: the f32 kernel stages an int8 page task in slabs of
+    # 64 (its K and V tiles), an unaligned head page and a fresh one
+    "write_page128_slabs_g4_d64": (2, 40, 32, 8, 64, 128, 2, 1, (100, 0), (40, 33), {}),
+}
+
+
 def _prefill_inputs(name, dtype, quant, device, q_scale=1.0):
-    B, T, NH, KH, D, page, maxp, L, computed, chunks, extra = PREFILL_CASES[name]
+    B, T, NH, KH, D, page, maxp, L, computed, chunks, extra = {**PREFILL_CASES, **WRITE_CASES}[name]
     rng = np.random.RandomState(sum(map(ord, name)))
     P = B * maxp + 3
     kp, vp, skw = _pools(rng, (L, P, page, KH, D), quant, dtype, device)
@@ -199,28 +221,39 @@ def test_prefill_kernel_and_fused_write_match_plain_versions(cuda_device, name, 
 @pytest.mark.cuda
 @pytest.mark.parametrize("quant", [False, True], ids=["kv_page_write", "kv_page_write_quant"])
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("name", sorted(PREFILL_CASES))
+@pytest.mark.parametrize("name", sorted(PREFILL_CASES) + sorted(WRITE_CASES))
 def test_kv_write_kernels_alone_match_plain_versions(cuda_device, name, dtype, quant):
-    """The fp write, or the quantizing write (an aligned chunk, a chunk
-    ending mid-page, an unaligned head page, other layers untouched, as the
-    cases give them), byte-identical to its plain version."""
+    """The write inside the prefill launch against its plain version alone:
+    the fp write, or the quantizing write (aligned chunks, chunks ending
+    mid-page, unaligned head pages, other layers untouched, as the cases give
+    them), pools and scales byte-identical, in one launch; the same launch
+    without the write leaves pools and scales untouched and gives the same
+    attention bytes."""
     args, skw, kw = _prefill_inputs(name, getattr(torch, dtype), quant, cuda_device)
     layer = kw.get("layer", 0)
     a, sa = _copies(args, skw)
     r, sr = _copies(args, skw)
+    counters = ("launches_int8", "launches_write_int8") if quant else ("launches", "launches_write")
+    before = [getattr(pmod.prefill_attention, k) for k in counters]
+    out = pmod.prefill_attention(*a, fused_write=True, **sa, **kw)
+    torch.cuda.synchronize()
+    assert [getattr(pmod.prefill_attention, k) for k in counters] == [n + 1 for n in before]  # one launch
     _, _, _, pt, pos, lens, kc, vc, cl = args
     if quant:
-        pmod.kv_page_write_quant(kc, vc, lens, cl, pt, a[1], a[2], layer=layer, **sa)
         pmod.kv_page_write_quant_ref(kc, vc, lens, cl, pt, r[1], r[2], layer=layer, **sr)
     else:
-        pmod.kv_page_write(kc, vc, pos, cl, pt, a[1], a[2], layer=layer)
         pmod.kv_page_write_ref(kc, vc, pos, cl, pt, r[1], r[2], layer=layer)
-    torch.cuda.synchronize()
     assert _same(a[1], r[1]) and _same(a[2], r[2])
     assert all(_same(sa[k], sr[k]) for k in sa)
     for i in range(args[1].shape[0]):
         if i != layer:
             assert _same(a[1][i], args[1][i]) and _same(a[2][i], args[2][i])
+    torch.testing.assert_close(out.float(), pmod.prefill_attention_ref(*args, **skw, **kw).float(), **TOL[dtype])
+    c, sc = _copies(args, skw)
+    alone = pmod.prefill_attention(*c, fused_write=False, **sc, **kw)
+    torch.cuda.synchronize()
+    assert _same(c[1], args[1]) and _same(c[2], args[2]) and all(_same(sc[k], skw[k]) for k in sc)
+    assert _same(alone, out)
 
 
 # -- scores that reach the softcap (D = 256) ----------------------------------------

@@ -271,7 +271,7 @@ def test_port_server_serves_gemma2_debug_on_the_cpu_through_the_plain_versions()
                        num_pages=32, page_size=8, prefill_chunk=32, kv_cache_memory_gb=0.01)
     kernels = [(dmod.decode_attention, "launches"), (dmod.decode_attention, "launches_int8"),
                (pmod.prefill_attention, "launches"), (pmod.prefill_attention, "launches_int8"),
-               (pmod.kv_page_write, "launches"), (pmod.kv_page_write_quant, "launches")]
+               (pmod.prefill_attention, "launches_write"), (pmod.prefill_attention, "launches_write_int8")]
     plains = [dmod.decode_attention_ref, pmod.prefill_attention_ref, pmod.kv_page_write_ref]
     before = [getattr(f, a) for f, a in kernels]
     calls0 = [f.calls for f in plains]

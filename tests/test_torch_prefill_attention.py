@@ -12,6 +12,7 @@ import numpy as np
 import pytest
 import torch
 
+from production_stack_tpu.ops import quant as jquant
 from production_stack_tpu.ops.pallas.prefill_attention import ragged_paged_attention_prefill
 from production_stack_tpu_torch.ops.kernels import prefill_attention as pmod
 
@@ -130,11 +131,11 @@ def test_wrappers_take_the_plain_versions_only_for_cpu_tensors():
     t = [torch.from_numpy(arrs[k].copy()) for k in ORDER]
     t2 = [x.clone() for x in t]
     counts = (pmod.prefill_attention_ref.calls, pmod.kv_page_write_ref.calls)
-    launches = (pmod.prefill_attention.launches, pmod.kv_page_write.launches)
+    launches = (pmod.prefill_attention.launches, pmod.prefill_attention.launches_write)
     out = pmod.prefill_attention(*t, fused_write=True)
     ref = pmod.prefill_attention_ref(*t2, fused_write=True)
     assert (pmod.prefill_attention_ref.calls, pmod.kv_page_write_ref.calls) == (counts[0] + 2, counts[1] + 2)
-    assert (pmod.prefill_attention.launches, pmod.kv_page_write.launches) == launches
+    assert (pmod.prefill_attention.launches, pmod.prefill_attention.launches_write) == launches
     np.testing.assert_array_equal(out.numpy(), ref.numpy())
     assert torch.equal(t[1], t2[1]) and torch.equal(t[2], t2[2])
     with pytest.raises(TypeError, match="come together"):  # fp pools take no scales
@@ -142,21 +143,55 @@ def test_wrappers_take_the_plain_versions_only_for_cpu_tensors():
 
 
 def test_write_covers_only_the_valid_chunk_entries():
-    """kv_page_write writes entries j < cur_lens at positions[b, j] and
-    nothing else: a position past cur_len (never made by the scheduler) is
-    not written."""
+    """The fp write (kv_page_write_ref, the fused write's plain version)
+    writes entries j < cur_lens at positions[b, j] and nothing else: a
+    position past cur_len (never made by the scheduler) is not written."""
     arrs = _case(B=1, T=8, computed=(3,), chunks=(5,), seed=10)
     t = {k: torch.from_numpy(arrs[k].copy()) for k in ORDER}
     pos = t["pos"].clone()
     pos[0, 5:] = torch.arange(8, 11)  # beyond cur_len: must stay unwritten
     kp0 = t["kp"].clone()
-    pmod.kv_page_write(t["kc"], t["vc"], pos, t["cl"], t["pt"], t["kp"], t["vp"])
+    pmod.kv_page_write_ref(t["kc"], t["vc"], pos, t["cl"], t["pt"], t["kp"], t["vp"])
     flat = t["kp"].view(-1, *t["kp"].shape[2:])
     for j in range(8):
         p = int(pos[0, j])
         slot = int(t["pt"][0, p // 8]) * 8 + p % 8
         want = t["kc"][0, j] if j < 5 else kp0.view(-1, *kp0.shape[2:])[slot]
         assert torch.equal(flat[slot], want)
+
+
+# the fused write's flag on CPU tensors: a 3-token chunk over two pages
+# (opt-sized chunks), and B = 2 with a padded row and an unaligned head page
+FLAG_CASES = {
+    "t3_two_pages": dict(B=2, T=3, computed=(6, 0), chunks=(3, 2), seed=30),
+    "padded_row_unaligned_head_page": dict(B=2, T=16, computed=(13, 0), chunks=(16, 0), seed=31),
+}
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("name", sorted(FLAG_CASES))
+def test_fused_write_flag_on_cpu_tensors_matches_jax_pools(name, quant):
+    """fused_write=False leaves the pools (and scales) byte-for-byte
+    untouched; fused_write=True leaves them as the JAX kernel's fused write
+    does (interpret mode): fp pools, or int8 pools and their scales."""
+    arrs = _case(**FLAG_CASES[name])
+    scales = {}
+    if quant:  # int8 pools quantized page by page, scales [P, KH]
+        arrs["kp"], scales["k_scales"] = jquant.quantize_page_host(arrs["kp"])
+        arrs["vp"], scales["v_scales"] = jquant.quantize_page_host(arrs["vp"])
+    t = [torch.from_numpy(arrs[k].copy()) for k in ORDER]
+    ts = {k: torch.from_numpy(v.copy()) for k, v in scales.items()}
+    pools = lambda: [_pool_bytes(x) for x in (t[1], t[2], *ts.values())]  # noqa: E731
+    before = pools()
+    pmod.prefill_attention(*t, fused_write=False, **ts)
+    assert pools() == before
+    pmod.prefill_attention(*t, fused_write=True, **ts)
+    jres = ragged_paged_attention_prefill(
+        *(jnp.asarray(arrs[k]) for k in ORDER), interpret=True, fused_write=True, q_block=16,
+        **{k: jnp.asarray(v) for k, v in scales.items()},
+    )
+    assert pools() == [_pool_bytes(np.asarray(x)) for x in jres[1:]]
+    assert pools() != before
 
 
 @pytest.fixture

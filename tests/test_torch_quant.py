@@ -320,13 +320,13 @@ def test_wrappers_route_int8_to_the_plain_versions_on_cpu_and_check_scales():
     t = [_t(arrs[k]) for k in ORDER]
     ks, vs = _t(arrs["ks"]), _t(arrs["vs"])
     calls = (pmod.prefill_attention_ref.calls, pmod.kv_page_write_quant_ref.calls, dmod.decode_attention_ref.calls)
-    launches = (pmod.prefill_attention.launches_int8, pmod.kv_page_write_quant.launches,
+    launches = (pmod.prefill_attention.launches_int8, pmod.prefill_attention.launches_write_int8,
                 dmod.decode_attention.launches_int8)
     pmod.prefill_attention(*t, fused_write=True, k_scales=ks, v_scales=vs)
     dmod.decode_attention(t[0][:, 0], t[1], t[2], t[3], t[5], k_scales=ks, v_scales=vs)
     assert (pmod.prefill_attention_ref.calls, pmod.kv_page_write_quant_ref.calls,
             dmod.decode_attention_ref.calls) == (calls[0] + 1, calls[1] + 1, calls[2] + 1)
-    assert (pmod.prefill_attention.launches_int8, pmod.kv_page_write_quant.launches,
+    assert (pmod.prefill_attention.launches_int8, pmod.prefill_attention.launches_write_int8,
             dmod.decode_attention.launches_int8) == launches  # no kernel ran
     with pytest.raises(TypeError, match="int8"):  # int8 pools without their scales
         pmod.prefill_attention(*t)
