@@ -59,8 +59,25 @@ non-zero exit (nothing is caught):
                every model but llama, its token logprobs too); the launch
                counters show each run went through its mode's kernels and
                no plain version; the int8 runs' /metrics carry the quant
-               (and offload) series. Then an OPT engine with int8 pools
-               must be refused. The directories are deleted.
+               (and offload) series. The llama bf16 and qwen2.5-7b bf16
+               servers run with sleep mode on and end with the engine
+               surface ("surface" lines): /stats carries the JAX keys of
+               the port's features; /slo_records one ok record per request
+               (with TTFT, ITL p99 and queue time) and none past its head;
+               /metrics the phase histograms (counts above 0), the card's
+               bytes in use, the pools' own bytes and the nvcc build's
+               seconds; /v1/embeddings unit vectors, each within EMBED_ATOL
+               of the same input embedded alone, and the largest bucket (32
+               x max_model_len tokens) with its peak memory (no kernel and
+               no plain version runs); /v1/rerank, /v2/rerank, /v1/score and a chat
+               request with tools answer 200; then sleep (llama level 1,
+               qwen2.5-7b level 2): /is_sleeping true, a completion 503,
+               torch.cuda.memory_reserved down by at least the pools' bytes
+               (and the weights' at level 2); after /wake_up the greedy
+               repeat returns the text (and logprobs) of before the sleep
+               through the kernels, no plain version running. Then an OPT
+               engine with int8 pools must be refused. The directories are
+               deleted.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -992,6 +1009,183 @@ async def _serve_requests(port: int, metric_series: tuple = (), long_prompt: int
         }
         out["usage_example"] = results[1][1]["usage"]
         out["prompt_tokens"] = [body["usage"]["prompt_tokens"] for _, body in results]
+        out["requests"] = 2 + len(results)
+    return out, repeat, first
+
+
+# /stats keys of the JAX engine's that the port's features produce (no
+# offload tier on the servers the surface phase runs on)
+STATS_KEYS = (
+    "num_requests_running", "num_requests_waiting", "num_requests_swapped", "num_preemptions_total",
+    "num_requests_shed_total", "num_requests_shed_queue_full_total", "num_requests_shed_queue_deadline_total",
+    "num_requests_shed_interactive_total", "num_requests_shed_batch_total", "engine_saturated",
+    "engine_saturated_batch", "tensor_parallel", "mesh_devices", "cache_dtype", "kv_cache_dtype_bytes_per_token",
+    "kv_quant_pages", "kv_quant_dequant_err_max", "gpu_cache_usage_perc", "gpu_prefix_cache_hits_total",
+    "gpu_prefix_cache_queries_total", "gpu_prefix_cache_hit_rate", "prompt_tokens_total", "generation_tokens_total",
+    "decode_dispatches_total", "kv_evicted_pages_total", "kv_evicted_hot_pages_total",
+    "kv_proactive_spilled_pages_total", "interactive_ttft_p99_ms", "interactive_itl_p99_ms",
+    "engine_loop_wait_seconds_total", "engine_loop_schedule_seconds_total", "engine_loop_step_seconds_total",
+    "engine_loop_apply_seconds_total", "engine_loop_emit_seconds_total",
+)
+PHASE_HISTOGRAMS = ("vllm:request_queue_time_seconds", "vllm:request_prefill_time_seconds",
+                    "vllm:time_per_output_token_seconds", "vllm:prefill_chunk_seconds")
+# an input's embedding in a batch against the same input alone (another B
+# and T bucket: bf16 GEMMs of other shapes round otherwise)
+EMBED_ATOL = 2e-3
+EMBED_INPUTS = ["The quick brown fox jumps over the lazy dog.", "hello", "a" * 300]
+
+
+def _metric(text: str, series: str) -> float:
+    """The value of ``series`` (name and labels, as printed) in a scrape."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.rsplit(" ", 1)[1])
+    fail(f"/metrics lacks {series}")
+
+
+async def _surface(server, port: int, level: int, repeat: dict, first: dict, n_requests: int) -> dict:
+    """The engine surface on a server that has answered ``n_requests``
+    requests: /stats, /slo_records, /metrics (phase histograms, device
+    telemetry), the embedding, rerank and score routes, a chat request with
+    tools, then sleep at ``level``, wake, and the greedy repeat through the
+    kernels again."""
+    import aiohttp
+    import numpy as np
+    import torch
+
+    from production_stack_tpu_torch.engine.devicemon import pool_bytes
+
+    base = f"http://127.0.0.1:{port}"
+    kernels, plains = _counters()
+    out = {}
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+        async def get(path):
+            async with s.get(base + path) as r:
+                check(r.status == 200, f"surface: GET {path} -> {r.status}")
+                return await (r.json() if "json" in r.headers.get("Content-Type", "") else r.text())
+
+        async def post(path, body=None):
+            async with s.post(base + path, json=body) as r:
+                ctype = r.headers.get("Content-Type", "")
+                return r.status, await (r.json() if "json" in ctype else r.text())
+
+        stats = await get("/stats")
+        missing = [k for k in STATS_KEYS if k not in stats]
+        check(not missing, f"surface: /stats lacks {missing}")
+        log = await get("/slo_records?since=0")
+        recs = log["records"]
+        check(len(recs) == n_requests and all(r["outcome"] == "ok" for r in recs),
+              f"surface: {len(recs)} SLO records for {n_requests} requests: {[r['outcome'] for r in recs]}")
+        for key in ("ttft_ms", "itl_p99_ms", "queue_ms"):
+            check(all(r[key] is not None for r in recs), f"surface: an SLO record lacks {key}")
+        tail = await get(f"/slo_records?since={log['head']}")
+        check(tail["records"] == [] and tail["head"] == log["head"], f"surface: since=head gave {tail}")
+        out["slo"] = {"records": len(recs), "head": log["head"],
+                      "ttft_ms": [r["ttft_ms"] for r in recs], "itl_p99_ms": [r["itl_p99_ms"] for r in recs]}
+        text = await get("/metrics")
+        m = f'{{model_name="{server.cfg.name}"}}'
+        counts = {h: _metric(text, f"{h}_count{m}") for h in PHASE_HISTOGRAMS}
+        check(all(v > 0 for v in counts.values()), f"surface: a phase histogram is empty: {counts}")
+        telemetry = {k: _metric(text, f"vllm:{k}{m}") for k in (
+            "kv_pool_device_bytes", "kv_pool_used_bytes", "hbm_headroom_bytes", "compile_seconds_total",
+            "compile_events_total", "compile_cache_entries", "engine_step_duty_cycle")}
+        telemetry["tpu_hbm_bytes_in_use"] = _metric(
+            text, f'vllm:tpu_hbm_bytes_in_use{{model_name="{server.cfg.name}",device="cuda:0"}}')
+        pool = pool_bytes(server.engine.runner)
+        check(telemetry["tpu_hbm_bytes_in_use"] > 0, "surface: no device bytes in use")
+        check(telemetry["kv_pool_device_bytes"] == pool,
+              f"surface: kv_pool_device_bytes {telemetry['kv_pool_device_bytes']} != the pools' {pool} bytes")
+        check(telemetry["compile_seconds_total"] > 0, "surface: compile_seconds_total is 0 after the build")
+        out["histogram_counts"], out["telemetry"] = counts, telemetry
+
+        # pooling routes: no kernel runs, and no plain version either
+        for fn, attr in kernels.values():
+            setattr(fn, attr, 0)
+        for fn in plains.values():
+            fn.calls = 0
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        st, emb = await post("/v1/embeddings", {"input": EMBED_INPUTS})
+        check(st == 200, f"surface: /v1/embeddings -> {st}: {emb}")
+        out["embed_peak_bytes"] = torch.cuda.max_memory_allocated() - mem0
+        vecs = np.array([d["embedding"] for d in emb["data"]])
+        norms = np.linalg.norm(vecs, axis=1)
+        check(vecs.shape == (3, server.engine.model_cfg.hidden_size) and np.allclose(norms, 1.0, atol=1e-5),
+              f"surface: embeddings {vecs.shape} with norms {norms}")
+        errs = []
+        for i, item in enumerate(EMBED_INPUTS):
+            st, alone = await post("/v1/embeddings", {"input": [item]})
+            check(st == 200, f"surface: /v1/embeddings (alone) -> {st}")
+            errs.append(float(np.abs(np.array(alone["data"][0]["embedding"]) - vecs[i]).max()))
+        out["embed_alone_max_abs_err"] = errs
+        check(max(errs) <= EMBED_ATOL, f"surface: an input alone is {max(errs)} from its batched vector")
+        # the largest bucket the route takes: 32 inputs of max_model_len tokens
+        text_max = ("abc " * server.cfg.max_model_len)[: server.cfg.max_model_len - 1]  # + BOS
+        torch.cuda.reset_peak_memory_stats()
+        mem0 = torch.cuda.memory_allocated()
+        t0 = time.perf_counter()
+        st, big = await post("/v1/embeddings", {"input": [text_max] * 32})
+        check(st == 200, f"surface: /v1/embeddings at the largest bucket -> {st}: {big}")
+        out["embed_largest_bucket"] = {"B": 32, "T": server.cfg.max_model_len,
+                                       "seconds": round(time.perf_counter() - t0, 3),
+                                       "peak_bytes": torch.cuda.max_memory_allocated() - mem0}
+        big = np.array([d["embedding"] for d in big["data"]])
+        spread = float(np.abs(big - big[0]).max())
+        check(np.allclose(np.linalg.norm(big, axis=1), 1.0, atol=1e-5) and spread <= EMBED_ATOL,
+              f"surface: the largest bucket's 32 copies of one input spread {spread}")
+        for path, body in (("/v1/rerank", {"query": "hello", "documents": ["hello", "fox", "a b c"]}),
+                           ("/v2/rerank", {"query": "hello", "documents": ["hello", "fox"]}),
+                           ("/v1/score", {"text_1": "hello", "text_2": ["hello", "fox"]})):
+            st, body = await post(path, body)
+            check(st == 200, f"surface: {path} -> {st}: {body}")
+        out["score_hello_hello"] = body["data"][0]["score"]
+        pooled = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
+        pooled.update({k: fn.calls for k, fn in plains.items()})
+        check(not any(pooled.values()), f"surface: the pooling routes ran a kernel or a plain version: {pooled}")
+        tools = [{"type": "function", "function": {"name": "get_weather", "parameters": {
+            "type": "object", "properties": {"city": {"type": "string"}}}}}]
+        st, body = await post("/v1/chat/completions", {"messages": [{"role": "user", "content": "weather in SF?"}],
+                                                       "tools": tools, "max_tokens": 8, "temperature": 0.0})
+        check(st == 200, f"surface: chat with tools -> {st}: {body}")
+        out["tools_finish_reason"] = body["choices"][0]["finish_reason"]
+
+        # sleep, then wake and repeat the greedy request through the kernels
+        params = sum(p.nbytes for p in server.engine.runner.model.parameters())
+        # blocks the allocator caches from earlier phases would count as freed
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        reserved0 = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        st, _ = await post(f"/sleep?level={level}")
+        check(st == 200, f"surface: /sleep -> {st}")
+        out["sleep_seconds"] = round(time.perf_counter() - t0, 3)
+        check((await get("/is_sleeping")) == {"is_sleeping": True}, "surface: /is_sleeping is not true")
+        st, body = await post("/v1/completions", repeat)
+        check(st == 503, f"surface: a completion while asleep -> {st}")
+        freed = reserved0 - torch.cuda.memory_reserved()
+        need = pool + (params if level >= 2 else 0)
+        out.update(level=level, freed_bytes=freed, pool_bytes=pool, weight_bytes=params, need_bytes=need)
+        check(freed >= need, f"surface: sleep level {level} freed {freed} bytes, under {need}")
+        t0 = time.perf_counter()
+        st, _ = await post("/wake_up")
+        check(st == 200, f"surface: /wake_up -> {st}")
+        out["wake_seconds"] = round(time.perf_counter() - t0, 3)
+        for fn, attr in kernels.values():
+            setattr(fn, attr, 0)
+        st, again = await post("/v1/completions", repeat)
+        check(st == 200, f"surface: the repeat after wake -> {st}")
+        out["launches_after_wake"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
+        out["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
+        same = again["choices"][0]["text"] == first["choices"][0]["text"]
+        if "logprobs" in repeat:
+            same = same and (again["choices"][0]["logprobs"]["token_logprobs"]
+                             == first["choices"][0]["logprobs"]["token_logprobs"])
+        out["greedy_repeat_after_wake_identical"] = same
+        check(same, f"surface: the greedy repeat after sleep level {level} and wake differs")
+        for k in SERVE_ROWS[False]:
+            check(out["launches_after_wake"][k] > 0, f"surface: kernel {k} was not launched after wake")
+        for k, n in out["plain_calls"].items():
+            check(n == 0, f"surface: plain version {k} ran {n} times")
     return out
 
 
@@ -1017,14 +1211,16 @@ GEMMA_SERVE = dict(max_model_len=8192)
 GEMMA_LONG_PROMPT = 4300
 
 
-def phase_serve(label: str, overrides: dict) -> dict:
+def phase_serve(label: str, overrides: dict, sleep_level: int = 0) -> dict:
     """The port's OpenAI server in-process on ``EngineConfig(**overrides)``
     (a preset or an HF directory as ``model``; int8 pools, the CPU offload
     tier, a longer context as the run asks): the requests of
     ``_serve_requests``, gemma-2-2b's with one prompt past its 4,096 window,
     and the greedy repeat held to its token logprobs too except for llama
-    (whose byte tokens decode to text). Returns the launch counts of the
-    run."""
+    (whose byte tokens decode to text). With ``sleep_level`` the server runs
+    with sleep mode on, and after the main path the engine surface is
+    checked (``_surface``), ending in a sleep at that level and a wake.
+    Returns the launch counts of the main path."""
     import socket
 
     import torch
@@ -1038,7 +1234,7 @@ def phase_serve(label: str, overrides: dict) -> dict:
     quant = overrides.get("kv_cache_dtype") == "int8"
     offload = "kv_offload_cpu_gb" in overrides
     gemma = label.startswith("gemma")
-    cfg = EngineConfig(host="127.0.0.1", port=port, **overrides)
+    cfg = EngineConfig(host="127.0.0.1", port=port, enable_sleep_mode=sleep_level > 0, **overrides)
     kernels, plains = _counters()
     series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
 
@@ -1051,8 +1247,8 @@ def phase_serve(label: str, overrides: dict) -> dict:
             for fn in plains.values():
                 fn.calls = 0
             t0 = time.perf_counter()
-            res = await _serve_requests(port, series, GEMMA_LONG_PROMPT if gemma else 0,
-                                        repeat_logprobs=not label.startswith("llama"))
+            res, repeat, first = await _serve_requests(port, series, GEMMA_LONG_PROMPT if gemma else 0,
+                                                       repeat_logprobs=not label.startswith("llama"))
             res["seconds"] = round(time.perf_counter() - t0, 3)
             res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
             res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
@@ -1069,6 +1265,9 @@ def phase_serve(label: str, overrides: dict) -> dict:
             stats = server.engine.stats()
             res["engine"] = {k: stats[k] for k in keep if k in stats}
             res["served_name"] = server.cfg.name
+            if sleep_level:
+                surface = await _surface(server, port, sleep_level, repeat, first, res["requests"])
+                emit({"phase": "surface", "model": label, **surface, "card": nvidia_smi_line()})
             return res
         finally:
             await runner.cleanup()
@@ -1473,15 +1672,17 @@ def phase_opt_int8_refused() -> None:
 
 
 # (label, EngineConfig overrides, head_dim of the kernel rows whose launches it
-# gives): each kernel row's launches come from its own servers' runs
+# gives, sleep level of its surface check or 0): each kernel row's launches
+# come from its own servers' runs; the llama bf16 server ends with the engine
+# surface and sleep level 1, qwen2.5-7b's bf16 server with level 2
 SERVE_RUNS = (
-    ("llama-3.2-1b", dict(model="llama-3.2-1b"), 64),
-    ("llama-3.2-1b, int8", dict(model="llama-3.2-1b", **INT8_SERVE), 64),
-    ("gemma-2-2b", dict(model="gemma-2-2b", **GEMMA_SERVE), 256),
-    ("qwen2.5-7b-hf", dict(model=str(QWEN_DIR)), 128),
-    ("qwen2.5-7b-hf, int8", dict(model=str(QWEN_DIR), kv_cache_dtype="int8"), 128),
+    ("llama-3.2-1b", dict(model="llama-3.2-1b"), 64, 1),
+    ("llama-3.2-1b, int8", dict(model="llama-3.2-1b", **INT8_SERVE), 64, 0),
+    ("gemma-2-2b", dict(model="gemma-2-2b", **GEMMA_SERVE), 256, 0),
+    ("qwen2.5-7b-hf", dict(model=str(QWEN_DIR)), 128, 2),
+    ("qwen2.5-7b-hf, int8", dict(model=str(QWEN_DIR), kv_cache_dtype="int8"), 128, 0),
     # OPT's position table holds 2,048: the engine's default 4,096 is refused
-    ("opt-125m-hf", dict(model=str(OPT_DIR), max_model_len=2048), 64),
+    ("opt-125m-hf", dict(model=str(OPT_DIR), max_model_len=2048), 64, 0),
 )
 
 
@@ -1509,8 +1710,8 @@ def main() -> int:
     try:
         phase_hf_qwen()
         phase_hf_write(OPT_DIR, OPT_HF_CONFIG, _opt_hf_specs(OPT_HF_CONFIG, torch.float16))
-        for label, overrides, D in SERVE_RUNS:
-            counts = phase_serve(label, overrides)
+        for label, overrides, D, sleep_level in SERVE_RUNS:
+            counts = phase_serve(label, overrides, sleep_level)
             quant = overrides.get("kv_cache_dtype") == "int8"
             for k in SERVE_ROWS[quant]:
                 launches[_dtag(k, D)] = launches.get(_dtag(k, D), 0) + counts[k]

@@ -1,13 +1,17 @@
 """OpenAI-compatible HTTP server for the port's engine (aiohttp).
 
-The JAX server's request and response JSON, trimmed to the routes of the
-serving path: ``/health``, ``/ping``, ``/version``, ``/v1/models``,
-``/metrics`` (``vllm:*`` names for what the port implements), ``/abort``,
+The JAX server's request and response JSON for the routes the port serves:
+``/health``, ``/ping``, ``/version``, ``/v1/models``, ``/metrics``
+(``vllm:*`` names for what the port implements, the device telemetry of
+engine/devicemon.py among them), ``/stats``, ``/slo_records``, ``/abort``,
 ``/tokenize``, ``/detokenize``, ``/v1/completions`` and
-``/v1/chat/completions``, streaming and not, with ``n`` parallel samples,
-logprobs, penalties, logit bias and stop strings. Tool calls, embeddings,
-LoRA adapters, sleep mode and live migration are not ported; a chat request
-that carries ``tools`` is refused with a 400.
+``/v1/chat/completions`` (streaming and not, with ``n`` parallel samples,
+logprobs, penalties, logit bias, stop strings and tool calls, parsed by
+engine/tool_parser.py in its "auto" style), ``/v1/embeddings``,
+``/v1/rerank``, ``/v2/rerank``, ``/v1/score``, and sleep mode's ``/sleep``,
+``/wake_up`` and ``/is_sleeping``. LoRA adapters, live migration, the KV
+fabric and the debug routes (``/v1/traces``, ``/v1/debug/flightrecorder``,
+``/metrics/reset``) are not ported.
 
 Run: ``python -m production_stack_tpu_torch.engine.api_server --model
 llama-3.2-1b`` (a preset), or ``--model /path/to/hf-dir`` (a local
@@ -31,18 +35,25 @@ from aiohttp import web
 
 from production_stack_tpu_torch import __version__
 from production_stack_tpu_torch.engine.config import EngineConfig, add_engine_args, config_from_args
+from production_stack_tpu_torch.engine.devicemon import DeviceMonitor
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.scheduler import SamplingParams
+from production_stack_tpu_torch.engine.tool_parser import StreamingToolParser, parse_tool_calls
 from production_stack_tpu_torch.ops.sampling import TOP_LOGPROBS
 from production_stack_tpu_torch.tracing import (
     get_flightrecorder,
-    offload_restore_hist,
     render_flightrecorder_metrics,
+    render_phase_histograms,
 )
 from production_stack_tpu_torch.utils.logging import init_logger
 from production_stack_tpu_torch.utils.metrics import LATENCY_BUCKETS, TTFT_BUCKETS, Histogram
 
 logger = init_logger(__name__)
+
+# the tool-call wire format the chat route parses (engine/tool_parser.py):
+# "auto" takes hermes tags and bare JSON, the JAX server's default; its
+# --tool-call-parser flag is not carried
+TOOL_CALL_PARSER = "auto"
 
 # Per-request TTFT hop samples for streaming requests, in ms:
 # (accept->engine-submit, submit->first engine output, first output->first
@@ -212,6 +223,39 @@ def _request_priority(headers, body) -> str:
     return p if p in ("interactive", "batch") else "interactive"
 
 
+def _resolve_tools(body: dict) -> "tuple[Optional[list], Optional[str]]":
+    """(tools to render into the chat template, parser style or None), as
+    the JAX server resolves them. Malformed ``tools`` or message
+    ``tool_calls`` raise ValueError (a 400). ``tool_choice``: "none"
+    drops the schemas, a named function narrows them to that tool,
+    "auto"/"required" render all."""
+    tools = body.get("tools")
+    if tools is not None:
+        if not isinstance(tools, list):
+            raise ValueError("'tools' must be a list")
+        for t in tools:
+            if not (isinstance(t, dict) and isinstance(t.get("function"), dict)
+                    and isinstance(t["function"].get("name"), str)):
+                raise ValueError("each tool must be {'type': 'function', 'function': {'name': ..., ...}}")
+    for msg in body.get("messages", []):
+        for c in (msg.get("tool_calls") or []) if isinstance(msg, dict) else []:
+            fn = c.get("function") if isinstance(c, dict) else None
+            if not (isinstance(fn, dict) and isinstance(fn.get("name"), str)
+                    and isinstance(fn.get("arguments", ""), str)):
+                raise ValueError("message tool_calls must carry function.name and string function.arguments")
+    choice = body.get("tool_choice", "auto" if tools else "none")
+    if not tools or choice == "none":
+        return None, None
+    if isinstance(choice, dict):
+        name = (choice.get("function") or {}).get("name")
+        tools = [t for t in tools if (t.get("function") or {}).get("name") == name]
+        if not tools:
+            raise ValueError(f"tool_choice names unknown tool {name!r}")
+    elif choice not in ("auto", "required"):
+        raise ValueError(f"invalid tool_choice {choice!r}")
+    return tools, TOOL_CALL_PARSER
+
+
 def _usage(out) -> dict:
     return {
         "prompt_tokens": out.prompt_tokens,
@@ -241,6 +285,7 @@ class EngineServer:
         self.draining = False
         # request id -> engine sequence ids, for POST /abort
         self._live_requests: dict[str, list[str]] = {}
+        self.devmon = DeviceMonitor(self.engine)
 
     # -- handlers -----------------------------------------------------------
 
@@ -318,6 +363,21 @@ class EngineServer:
              "1 while the waiting queue is at its max_waiting_seqs bound")
         emit("num_requests_shed_total", "counter", s["num_requests_shed_total"],
              "generation requests shed with 429 (queue full or queue deadline)")
+        # per-SLO-class overload surface: shed order, batch-early saturation
+        # and the interactive latency the fleet controller's latency
+        # protection scrapes
+        emit("num_requests_shed_interactive_total", "counter", s["num_requests_shed_interactive_total"],
+             "interactive-class requests shed with 429")
+        emit("num_requests_shed_batch_total", "counter", s["num_requests_shed_batch_total"],
+             "batch-class requests shed with 429")
+        emit("engine_saturated_batch", "gauge", s["engine_saturated_batch"],
+             "1 while batch-class admission is shedding (interactive reserve)")
+        emit("interactive_ttft_p99_ms", "gauge", s["interactive_ttft_p99_ms"],
+             "p99 TTFT over the recent interactive ok-request window")
+        emit("interactive_itl_p99_ms", "gauge", s["interactive_itl_p99_ms"],
+             "p99 inter-token latency over the recent interactive window")
+        emit("tensor_parallel_degree", "gauge", s["tensor_parallel"],
+             "tp mesh-axis size of the serving mesh (chips per replica)")
         emit("gpu_cache_usage_perc", "gauge", s["gpu_cache_usage_perc"])
         emit("gpu_prefix_cache_hit_rate", "gauge", s["gpu_prefix_cache_hit_rate"])
         emit("gpu_prefix_cache_hits_total", "counter", s["gpu_prefix_cache_hits_total"])
@@ -338,10 +398,60 @@ class EngineServer:
                 lines.append(f'vllm:ttft_hop_{hop}_ms{{model_name="{m}",quantile="{q}"}} {round(v, 3)}')
         lines.extend(_ttft_hist.render(f'model_name="{m}"'))
         lines.extend(_latency_hist.render(f'model_name="{m}"'))
+        lines.extend(render_phase_histograms(f'model_name="{m}"'))
         lines.extend(render_flightrecorder_metrics(f'model_name="{m}"'))
-        if self.engine._offload is not None:
-            lines.extend(offload_restore_hist.render(f'model_name="{m}"'))
+        lines.extend(self.devmon.metrics_lines(m))
         return web.Response(text="\n".join(lines) + "\n", content_type="text/plain")
+
+    async def slo_records(self, request: web.Request) -> web.Response:
+        """The engine's SLO terminal records after a cursor (``?since=<seq>``),
+        as the JAX server gives them: the router's scraper polls with its
+        last ``next`` and reads ``head`` below its cursor as an engine
+        restart. The log is a bounded ring: a scraper further behind than
+        its capacity sees a gap."""
+        try:
+            since = int(request.query.get("since", "0"))
+        except (TypeError, ValueError):
+            return web.json_response({"error": "since must be an int"}, status=400)
+        log = self.engine.slo_records
+        records: list = []
+        # a snapshot that keeps racing appends answers head = the caller's
+        # cursor ("nothing new"), never 0, which the scraper would read as a
+        # restart and count every kept record again
+        head = since
+        if log:
+            for _ in range(3):  # iterating a deque another thread appends to can raise
+                try:
+                    snap = list(log)
+                    # max, not the last: the loop thread and the event loop
+                    # (API sheds) both append, so the tail can be out of order
+                    head = max((r["seq"] for r in snap), default=0)
+                    records = [r for r in snap if r["seq"] > since]
+                    break
+                except RuntimeError:
+                    continue
+        else:
+            head = 0  # an empty log: a fresh counter, truly
+        return web.json_response({
+            "model": self.cfg.name,
+            "since": since,
+            "next": max((r["seq"] for r in records), default=since),
+            "head": head,
+            "records": records,
+        })
+
+    async def stats(self, request: web.Request) -> web.Response:
+        """JSON engine state (the machine-readable twin of /metrics for
+        autoscalers and the router's shed-aware logic)."""
+        s = dict(self.engine.stats())
+        s["saturation"] = {
+            "saturated": bool(s["engine_saturated"]),
+            "max_waiting_seqs": self.cfg.max_waiting_seqs,
+            "queue_deadline_s": self.cfg.queue_deadline_s,
+            "retry_after_s": self.engine.shed_retry_after(),
+            "draining": self.draining,
+        }
+        return web.json_response(s)
 
     async def chat_completions(self, request: web.Request) -> web.StreamResponse:
         try:
@@ -349,12 +459,11 @@ class EngineServer:
             messages = body.get("messages", [])
             if not isinstance(messages, list):
                 raise ValueError("'messages' must be a list")
+            tools, tool_style = _resolve_tools(body)
         except (ValueError, TypeError) as e:
             return _error(f"invalid request: {e}")
-        if body.get("tools") and body.get("tool_choice", "auto") != "none":
-            return _error("tool calls are not supported by the PyTorch port yet")
-        prompt = self.engine.tokenizer.apply_chat_template(messages)
-        return await self._generate(request, body, prompt, chat=True)
+        prompt = self.engine.tokenizer.apply_chat_template(messages, tools=tools)
+        return await self._generate(request, body, prompt, chat=True, tool_style=tool_style)
 
     async def completions(self, request: web.Request) -> web.StreamResponse:
         try:
@@ -366,13 +475,18 @@ class EngineServer:
             prompt = prompt[0] if prompt else ""
         return await self._generate(request, body, prompt, chat=False)
 
-    async def _generate(self, request: web.Request, body: dict, prompt: str, chat: bool) -> web.StreamResponse:
+    async def _generate(
+        self, request: web.Request, body: dict, prompt: str, chat: bool, tool_style: Optional[str] = None,
+    ) -> web.StreamResponse:
         t_accept = time.perf_counter()
         if self.draining:
             return _error("engine is draining for shutdown", 503)
+        if self.engine.is_sleeping:
+            return web.json_response({"error": "engine is sleeping"}, status=503)
         priority = _request_priority(request.headers, body)
         if self.engine.saturated(priority):
             self.engine.api_requests_shed += 1
+            self.engine.note_api_shed(request.headers.get("X-Request-Id"), priority=priority)
             return _shed_response(
                 self.engine.shed_retry_after(),
                 f"engine saturated: {self.engine.scheduler.num_waiting()} requests already waiting",
@@ -493,9 +607,16 @@ class EngineServer:
                     else:
                         lp_obj, _ = _completion_lp(self.engine.tokenizer, tok_ids, lp_entries, 0)
                 if chat:
+                    message = {"role": "assistant", "content": full}
+                    if tool_style is not None:
+                        content, tool_calls = parse_tool_calls(full, tool_style)
+                        if tool_calls:
+                            message = {"role": "assistant", "content": content or None, "tool_calls": tool_calls}
+                            if finish_reason == "stop":
+                                finish_reason = "tool_calls"
                     choices.append({
                         "index": i,
-                        "message": {"role": "assistant", "content": full},
+                        "message": message,
                         "logprobs": lp_obj,
                         "finish_reason": finish_reason,
                     })
@@ -547,6 +668,10 @@ class EngineServer:
         # the first streamed bytes track prefill completion
         role_sent = [not chat] * n
         lasts: list = [None] * n
+        parsers = tool_idx = None
+        if chat and tool_style is not None:
+            parsers = [StreamingToolParser(tool_style) for _ in range(n)]
+            tool_idx = [0] * n
         try:
             lp_offsets = [0] * n
             t_first_out = None
@@ -572,14 +697,37 @@ class EngineServer:
                 # one chunk per engine output, even an empty one: the first
                 # chunk is what clients measure TTFT against
                 if chat:
-                    choice = {
-                        "index": i,
-                        "delta": {"content": out.text_delta} if out.text_delta else {},
-                        "logprobs": lp_obj,
-                        "finish_reason": out.finish_reason,
-                    }
-                    await send({"id": oid, "object": "chat.completion.chunk", "created": created,
-                                "model": model, "choices": [choice]})
+                    finish_reason = out.finish_reason
+                    if parsers is None:
+                        deltas = [{"content": out.text_delta} if out.text_delta else {}]
+                    else:
+                        # candidate tool-call text is held back until it
+                        # parses (a tool_calls delta) or the stream ends
+                        # without a parse (flushed back as content)
+                        p = parsers[i]
+                        events = p.push(out.text_delta or "")
+                        if out.finished:
+                            events.extend(p.finish())
+                            if p.tool_calls and finish_reason == "stop":
+                                finish_reason = "tool_calls"
+                        deltas = []
+                        for ev in events:
+                            if ev[0] == "content" and ev[1]:
+                                deltas.append({"content": ev[1]})
+                            elif ev[0] == "call":
+                                deltas.append({"tool_calls": [{"index": tool_idx[i], **ev[1]}]})
+                                tool_idx[i] += 1
+                        deltas = deltas or [{}]  # a chunk per engine output, for TTFT
+                    for j, d in enumerate(deltas):
+                        last_d = j == len(deltas) - 1
+                        choice = {
+                            "index": i,
+                            "delta": d,
+                            "logprobs": lp_obj if last_d else None,
+                            "finish_reason": finish_reason if last_d else None,
+                        }
+                        await send({"id": oid, "object": "chat.completion.chunk", "created": created,
+                                    "model": model, "choices": [choice]})
                 else:
                     await send({
                         "id": oid, "object": "text_completion", "created": created, "model": model,
@@ -608,6 +756,161 @@ class EngineServer:
         await resp.write_eof()
         return resp
 
+    # -- pooling routes -------------------------------------------------------
+
+    def _check_pooling_model(self, body: dict) -> Optional[web.Response]:
+        """404 for a model name this server does not serve."""
+        model = body.get("model", self.cfg.name)
+        if model == self.cfg.name:
+            return None
+        return _error(f"model {model!r} does not exist", 404, type="NotFoundError", code=404)
+
+    def _tokenize_inputs(self, raw) -> list[list[int]]:
+        """OpenAI ``input``: str | [str] | [int] | [[int]] -> token lists."""
+        if isinstance(raw, str):
+            raw = [raw]
+        if not isinstance(raw, list):
+            raise ValueError("'input' must be a string or a list")
+        if raw and isinstance(raw[0], int):
+            raw = [raw]
+        out = []
+        for item in raw:
+            if isinstance(item, str):
+                out.append(self.engine.tokenizer.encode(item))
+            elif isinstance(item, list):
+                out.append([int(t) for t in item])
+            else:
+                raise ValueError("'input' items must be strings or token-id lists")
+        return out
+
+    async def embeddings(self, request: web.Request) -> web.Response:
+        """OpenAI /v1/embeddings: mean-pooled, L2-normalized last hidden
+        states."""
+        if self.draining:
+            return _error("engine is draining for shutdown", 503)
+        try:
+            body = await request.json()
+            inputs = self._tokenize_inputs(body.get("input", []))
+        except (ValueError, TypeError) as e:
+            return _error(f"invalid request: {e}")
+        err = self._check_pooling_model(body)
+        if err is not None:
+            return err
+        if not inputs:
+            return _error("'input' is required")
+        try:
+            vecs = await self.engine.embed(inputs)
+        except (ValueError, RuntimeError) as e:
+            return _error(str(e))
+        total = sum(len(i) for i in inputs)
+        return web.json_response({
+            "object": "list",
+            "model": body.get("model", self.cfg.name),
+            "data": [{"object": "embedding", "index": i, "embedding": v.tolist()} for i, v in enumerate(vecs)],
+            "usage": {"prompt_tokens": total, "total_tokens": total},
+        })
+
+    async def rerank(self, request: web.Request) -> web.Response:
+        """/v1/rerank and /v2/rerank: documents ordered by cosine relevance
+        to the query."""
+        if self.draining:
+            return _error("engine is draining for shutdown", 503)
+        try:
+            body = await request.json()
+            query = body["query"]
+            documents = list(body["documents"])
+            top_n = max(0, int(body.get("top_n", len(documents))))
+        except (KeyError, ValueError, TypeError) as e:
+            return _error(f"invalid request (need query, documents): {e}")
+        err = self._check_pooling_model(body)
+        if err is not None:
+            return err
+        if not documents:
+            return _error("'documents' is empty")
+        try:
+            vecs = await self.engine.embed(self._tokenize_inputs([query] + documents))
+        except (ValueError, RuntimeError) as e:
+            return _error(str(e))
+        scores = vecs[1:] @ vecs[0]
+        order = sorted(range(len(documents)), key=lambda i: -float(scores[i]))[:top_n]
+        return web.json_response({
+            "id": f"rerank-{uuid.uuid4().hex[:16]}",
+            "model": body.get("model", self.cfg.name),
+            "results": [
+                {"index": i, "document": {"text": documents[i]}, "relevance_score": float(scores[i])}
+                for i in order
+            ],
+        })
+
+    async def score(self, request: web.Request) -> web.Response:
+        """/v1/score: cosine similarity of (text_1, text_2) pairs; one
+        text_1 scores against every text_2."""
+        if self.draining:
+            return _error("engine is draining for shutdown", 503)
+        try:
+            body = await request.json()
+            t1, t2 = body["text_1"], body["text_2"]
+        except (KeyError, ValueError, TypeError) as e:
+            return _error(f"invalid request (need text_1, text_2): {e}")
+        err = self._check_pooling_model(body)
+        if err is not None:
+            return err
+
+        def as_items(x):
+            """str -> [str]; [int, ...] -> [[int, ...]]; [str | list, ...] -> itself."""
+            if isinstance(x, str):
+                return [x]
+            if isinstance(x, list) and x and isinstance(x[0], int):
+                return [x]
+            if isinstance(x, list):
+                return x
+            raise TypeError("text fields must be strings or token-id lists")
+
+        try:
+            left, right = as_items(t1), as_items(t2)
+        except TypeError as e:
+            return _error(str(e))
+        if len(left) == 1:
+            left = left * len(right)
+        if len(left) != len(right):
+            return _error("text_1 and text_2 lengths do not match")
+        try:
+            inputs = self._tokenize_inputs(left + right)
+            vecs = await self.engine.embed(inputs)
+        except (ValueError, RuntimeError) as e:
+            return _error(str(e))
+        n = len(left)
+        return web.json_response({
+            "id": f"score-{uuid.uuid4().hex[:16]}",
+            "object": "list",
+            "model": body.get("model", self.cfg.name),
+            "data": [{"index": i, "object": "score", "score": float(vecs[i] @ vecs[n + i])} for i in range(n)],
+            "usage": {"prompt_tokens": sum(len(i) for i in inputs)},
+        })
+
+    # -- sleep mode -----------------------------------------------------------
+
+    async def sleep(self, request: web.Request) -> web.Response:
+        if not self.cfg.enable_sleep_mode:
+            return web.json_response({"error": "sleep mode disabled"}, status=400)
+        try:
+            level = int(request.query.get("level", "1"))
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        # in an executor: sleep waits for the loop thread to finish its step,
+        # and this loop must keep answering probes meanwhile
+        await asyncio.get_running_loop().run_in_executor(None, self.engine.sleep, level)
+        return web.Response(text="")
+
+    async def wake_up(self, request: web.Request) -> web.Response:
+        if not self.cfg.enable_sleep_mode:
+            return web.json_response({"error": "sleep mode disabled"}, status=400)
+        await asyncio.get_running_loop().run_in_executor(None, self.engine.wake_up)
+        return web.Response(text="")
+
+    async def is_sleeping(self, request: web.Request) -> web.Response:
+        return web.json_response({"is_sleeping": self.engine.is_sleeping})
+
     # -- app ---------------------------------------------------------------
 
     def build_app(self) -> web.Application:
@@ -618,11 +921,20 @@ class EngineServer:
         r.add_get("/version", self.version)
         r.add_get("/v1/models", self.models)
         r.add_get("/metrics", self.metrics)
+        r.add_get("/stats", self.stats)
+        r.add_get("/slo_records", self.slo_records)
         r.add_post("/abort", self.abort)
         r.add_post("/tokenize", self.tokenize)
         r.add_post("/detokenize", self.detokenize)
         r.add_post("/v1/chat/completions", self.chat_completions)
         r.add_post("/v1/completions", self.completions)
+        r.add_post("/v1/embeddings", self.embeddings)
+        r.add_post("/v1/rerank", self.rerank)
+        r.add_post("/v2/rerank", self.rerank)
+        r.add_post("/v1/score", self.score)
+        r.add_post("/sleep", self.sleep)
+        r.add_post("/wake_up", self.wake_up)
+        r.add_get("/is_sleeping", self.is_sleeping)
         return app
 
 

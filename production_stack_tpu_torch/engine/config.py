@@ -92,6 +92,10 @@ class EngineConfig:
     # dump directory; None falls back to $PSTPU_FLIGHTRECORDER_DIR, else disk
     # dumps are disabled (the in-memory ring still works)
     flight_recorder_dump_dir: Optional[str] = None
+    # sleep mode (POST /sleep?level=1|2, /wake_up, GET /is_sleeping): level
+    # 1 frees the KV pools, level 2 also moves the weights to host memory;
+    # without this flag /sleep and /wake_up answer 400
+    enable_sleep_mode: bool = False
 
     # Switches of the JAX engine's features that the port does not serve
     # yet. Each must keep its default: check_supported refuses any other
@@ -107,7 +111,6 @@ class EngineConfig:
     pipeline_parallel_size: int = 1
     distributed_coordinator: Optional[str] = None
     distributed_num_processes: int = 1
-    enable_sleep_mode: bool = False
     enable_lora: bool = False
     warm_start: bool = False
     kv_remote_url: Optional[str] = None
@@ -211,7 +214,6 @@ _UNSUPPORTED = {
     "pipeline_parallel_size": "pipeline parallelism",
     "distributed_coordinator": "multi-host serving",
     "distributed_num_processes": "multi-host serving",
-    "enable_sleep_mode": "sleep mode",
     "enable_lora": "LoRA adapters",
     "warm_start": "warm-start manifests",
     "kv_remote_url": "the remote KV tier (cache server)",

@@ -12,11 +12,20 @@ logprobs. Admission control (queue bound and queue deadline) sheds as the
 JAX engine does. ``kv_cache_dtype="int8"`` serves from int8 pools (half the
 bytes per token, about twice the pages for the same memory), and the local
 offload tiers (``kv_offload_cpu_gb``, ``kv_offload_dir``) take evicted
-prefix pages and give them back on a later prefix match. Not ported yet:
-the remote tier, the KV-index controller, the fleet directory, warm start,
-the KV fabric, migration, LoRA, speculative decoding, chained bursts,
-embeddings and sleep mode (engine/config.check_supported refuses their
-flags).
+prefix pages and give them back on a later prefix match.
+
+The engine surface the rest of the stack reads and calls, as in the JAX
+engine: every finished request leaves an SLO terminal record in the bounded
+``slo_records`` log (the router scrapes it through ``GET /slo_records``) and
+feeds the per-phase histograms (tracing/metrics.py); ``stats()`` carries the
+per-class shed counters and the interactive p99 windows; ``embed`` runs the
+pooled-embedding forward; ``sleep``/``wake_up`` free and restore the pools
+(level 1) and the weights (level 2). Commands that touch device state from
+another thread (``embed``, ``sleep``, ``wake_up``) run on the loop thread
+between steps (``_run_on_device_thread``). Not ported yet: the remote tier,
+the KV-index controller, the fleet directory, warm start, the KV fabric,
+migration, LoRA, speculative decoding and chained bursts
+(engine/config.check_supported refuses their flags).
 """
 
 from __future__ import annotations
@@ -24,6 +33,8 @@ from __future__ import annotations
 import asyncio
 import collections
 import dataclasses
+import gc
+import itertools
 import os
 import queue as queue_mod
 import threading
@@ -31,6 +42,7 @@ import time
 from typing import AsyncIterator, Optional
 
 import numpy as np
+import torch
 
 from production_stack_tpu_torch import tracing
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported
@@ -45,6 +57,12 @@ from production_stack_tpu_torch.ops.quant import dequantize_page_host, kv_bytes_
 from production_stack_tpu_torch.utils.logging import init_logger
 
 logger = init_logger(__name__)
+
+
+def _slo_class(priority: str) -> str:
+    """The SLO class a record or counter files under: anything but batch is
+    interactive."""
+    return priority if priority in ("interactive", "batch") else "interactive"
 
 
 @dataclasses.dataclass
@@ -134,6 +152,7 @@ class LLMEngine:
                 "kv offload link probe: %s MB/s -> max_io_pages=%d",
                 "?" if bw is None else f"{bw / 1e6:.1f}", max_io_pages,
             )
+        self._max_io_pages = max_io_pages
         self.kv = KVPageManager(
             num_pages, cfg.page_size, offload=self._offload, max_io_pages=max_io_pages,
             spill_watermark=cfg.kv_spill_watermark,
@@ -170,6 +189,22 @@ class LLMEngine:
         # device thread, api_requests_shed on the event loop
         self.requests_shed = {"queue_full": 0, "queue_deadline": 0}
         self.api_requests_shed = 0
+        # the same split per SLO class: requests_shed_by_class on the device
+        # thread, api_requests_shed_by_class on the event loop (note_api_shed)
+        self.requests_shed_by_class = {"interactive": 0, "batch": 0}
+        self.api_requests_shed_by_class = {"interactive": 0, "batch": 0}
+        # SLO terminal records, one per finished request (and per API shed),
+        # with a cursor the router scrapes by; appended by the device thread
+        # and, for API sheds, the event loop (deque appends and the counter
+        # are atomic)
+        self.slo_records: collections.deque = collections.deque(maxlen=2048)
+        self._slo_seq = itertools.count(1)
+        # recent interactive ok requests' TTFT and inter-token p99, behind the
+        # interactive_{ttft,itl}_p99_ms gauges
+        self._interactive_ttft_ms: collections.deque = collections.deque(maxlen=64)
+        self._interactive_itl_ms: collections.deque = collections.deque(maxlen=64)
+        self._sleeping = False
+        self._sleep_level = 0
         # arrival -> first prefill dispatch, ms (the ttft_hop_admission_wait
         # gauge)
         self.admission_wait_ms: collections.deque = collections.deque(maxlen=2048)
@@ -190,8 +225,35 @@ class LLMEngine:
     def _shed(self, seq: Sequence, reason: str) -> None:
         self.scheduler._finish(seq, "shed")
         self.requests_shed[reason] += 1
+        self.requests_shed_by_class[_slo_class(seq.priority)] += 1
         self._fr.record("shed", step=self.step_idx, reason=reason, seq_id=seq.seq_id)
         self._emit(seq, "")
+
+    def note_api_shed(self, request_id: Optional[str] = None, priority: str = "interactive") -> None:
+        """A request the API layer shed before any sequence existed: its
+        per-class count, a flight-recorder event and its SLO terminal record
+        (event loop only)."""
+        priority = _slo_class(priority)
+        self.api_requests_shed_by_class[priority] += 1
+        self._fr.record("shed", step=self.step_idx, reason="api_queue_full", seq_id=None)
+        self.slo_records.append({
+            "seq": next(self._slo_seq),
+            "request_id": request_id or "unknown",
+            "model": self.cfg.name,
+            "outcome": "shed",
+            "finish_reason": "shed",
+            "priority": priority,
+            "queue_ms": 0.0,
+            "ttft_ms": None,
+            "e2e_ms": None,
+            "prompt_tokens": 0,
+            "output_tokens": 0,
+            "cached_tokens": 0,
+            "itl_p99_ms": None,
+            "kv_pages_peak": 0,
+            "trace_id": None,
+            "t": time.time(),
+        })
 
     # -- lifecycle ----------------------------------------------------------
 
@@ -231,6 +293,8 @@ class LLMEngine:
                 f"prompt has {len(prompt_token_ids)} tokens, max_model_len is "
                 f"{self.cfg.max_model_len}"
             )
+        if self._sleeping:
+            raise RuntimeError("engine is sleeping")
         out_q: asyncio.Queue = asyncio.Queue()
         loop = asyncio.get_running_loop()
         with self._lock:
@@ -267,12 +331,19 @@ class LLMEngine:
             block = False
             if item is None:
                 return
-            if isinstance(item, tuple) and item[0] == "abort":
+            if isinstance(item, tuple) and item[0] == "device_cmd":
+                item[1]()  # embedding forward / sleep / wake, serialized with steps
+            elif isinstance(item, tuple) and item[0] == "abort":
                 for s in self.scheduler.waiting + self.scheduler.running:
                     if s.seq_id == item[1] and not s.finished:
                         self.scheduler._finish(s, "abort")
                         # a consumer may still wait on its queue (POST /abort)
                         self._emit(s, "")
+            elif self._sleeping:
+                # generate() checked the flag on the event loop just before
+                # sleep set it here: answer the request, do not park it
+                item.finished = True
+                self._emit(item, "", error=True)
             elif self.scheduler.saturated(item.priority):
                 # authoritative queue bound: the API layer's check races a
                 # burst of arrivals the inbox has not drained yet
@@ -404,6 +475,15 @@ class LLMEngine:
                 tokens = np.full((len(batch.seqs),), -1, np.int32)
             else:
                 self._unfetched.clear()  # a fetch retires earlier dispatches
+                # a fetched prefill's wall is its chunk's device time (an
+                # unfetched one's is only its enqueue); a decode burst's per
+                # token while a prefill is resident is the interleave cost
+                if batch.kind == "prefill":
+                    tracing.prefill_chunk_hist.observe(step_wall)
+                elif batch.kind == "decode" and any(s.in_prefill for s in self.scheduler.running):
+                    tracing.interleaved_decode_hist.observe(
+                        step_wall / max(1, self.scheduler.decode_steps * batch.bursts)
+                    )
             self._apply_and_emit(batch, tokens, lp_data)
         logger.info("engine loop exited")
 
@@ -498,6 +578,17 @@ class LLMEngine:
         error: bool = False,
         logprobs: Optional[list] = None,
     ) -> None:
+        if tokens:
+            # inter-token gaps for the SLO record: a burst of k tokens adds
+            # its gap / k, capped at 4,096 samples a request
+            now_m = time.monotonic()
+            if seq.last_emit_time is not None and len(seq.itl_samples) < 4096:
+                seq.itl_samples.append((now_m - seq.last_emit_time) / len(tokens))
+            seq.last_emit_time = now_m
+        if seq.finished and not seq.trace_done:
+            self._record_phases(seq)
+        if seq.finished and not seq.slo_done:
+            self._record_slo(seq, error=error)
         with self._lock:
             entry = self._outputs.get(seq.seq_id)
         if entry is None:
@@ -519,6 +610,201 @@ class LLMEngine:
         )
         loop.call_soon_threadsafe(out_q.put_nowait, out)
 
+    def _record_phases(self, seq: Sequence) -> None:
+        """The finished request's phase histograms, from the times the
+        scheduler keeps: arrival -> first dispatch (queue), first dispatch ->
+        first token (prefill), first token -> finish per later token (TPOT)."""
+        seq.trace_done = True
+        end = seq.finish_time or time.monotonic()
+        fd, ft = seq.first_dispatch_time, seq.first_token_time
+        tracing.queue_time_hist.observe(max(0.0, (fd if fd is not None else end) - seq.arrival_time))
+        if fd is not None and ft is not None:
+            tracing.prefill_time_hist.observe(max(0.0, ft - fd))
+        steps = len(seq.output_ids)
+        if ft is not None and steps > 1:
+            tracing.decode_step_time_hist.observe(max(0.0, end - ft) / (steps - 1))
+
+    def _record_slo(self, seq: Sequence, error: bool = False) -> None:
+        """Append the finished request's SLO terminal record (queue wait,
+        TTFT, token counts, inter-token p99, peak KV pages, outcome) to
+        ``slo_records``, and an ok interactive request's latencies to the
+        interactive windows."""
+        seq.slo_done = True
+        end = seq.finish_time or time.monotonic()
+        fd, ft = seq.first_dispatch_time, seq.first_token_time
+        reason = "error" if error else (seq.finish_reason or "error")
+        outcome = "ok" if reason in ("stop", "length", "tool_calls") else reason
+        itl_p99_ms = None
+        if seq.itl_samples:
+            srt = sorted(seq.itl_samples)
+            itl_p99_ms = round(srt[min(len(srt) - 1, int(len(srt) * 0.99))] * 1000, 3)
+        ttft_ms = round((ft - seq.arrival_time) * 1000, 3) if ft is not None else None
+        rec = {
+            "seq": next(self._slo_seq),
+            "request_id": seq.seq_id,
+            "model": self.cfg.name,
+            "outcome": outcome,
+            "finish_reason": reason,
+            "queue_ms": round(((fd if fd is not None else end) - seq.arrival_time) * 1000, 3),
+            "ttft_ms": ttft_ms,
+            "e2e_ms": round((end - seq.arrival_time) * 1000, 3),
+            "prompt_tokens": len(seq.prompt_ids),
+            "output_tokens": len(seq.output_ids),
+            "cached_tokens": seq.num_cached,
+            "itl_p99_ms": itl_p99_ms,
+            "kv_pages_peak": seq.pages_peak,
+            "trace_id": None,  # the port records no spans (no /v1/traces)
+            "priority": seq.priority,
+            "t": time.time(),
+        }
+        self.slo_records.append(rec)
+        if outcome == "ok" and rec["priority"] == "interactive":
+            if ttft_ms is not None:
+                self._interactive_ttft_ms.append(ttft_ms)
+            if itl_p99_ms is not None:
+                self._interactive_itl_ms.append(itl_p99_ms)
+        self._fr.record(
+            "slo", step=self.step_idx, request_id=seq.seq_id, outcome=outcome, ttft_ms=ttft_ms,
+            itl_p99_ms=itl_p99_ms, output_tokens=rec["output_tokens"],
+        )
+
+    # -- commands on the loop thread ------------------------------------------
+
+    def _run_on_device_thread(self, fn, what: str = "device command"):
+        """Run ``fn`` on the engine loop's thread between steps and return
+        its result (its exception is raised here). Device state must not
+        change under a running step, and extra forwards must not race one.
+        Runs inline when the loop is not running."""
+        if self._thread is None or not self._thread.is_alive():
+            return fn()
+        done = threading.Event()
+        box: dict = {}
+
+        def cmd():
+            try:
+                box["result"] = fn()
+            except BaseException as e:  # noqa: BLE001 - raised again on the caller's thread
+                box["error"] = e
+            finally:
+                done.set()
+
+        self._inbox.put(("device_cmd", cmd))
+        if not done.wait(timeout=120):
+            raise TimeoutError(f"{what} timed out")
+        if "error" in box:
+            raise box["error"]
+        return box.get("result")
+
+    # -- embeddings -----------------------------------------------------------
+
+    _EMBED_T_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
+    _EMBED_B_BUCKETS = (1, 2, 4, 8, 16, 32)
+
+    async def embed(self, token_id_lists: list[list[int]]) -> np.ndarray:
+        """Pooled unit-norm embeddings of tokenized inputs ([N, hidden_size]
+        float32), for /v1/embeddings, /v1/rerank and /v1/score. Inputs of
+        similar length go through together, bucketed in B and T like the JAX
+        engine's, each group one forward on the loop thread."""
+        if self._sleeping:
+            raise RuntimeError("engine is sleeping")
+        if not hasattr(self.runner.module, "encode"):
+            raise ValueError(
+                f"embeddings are not supported for model family "
+                f"{self.runner.module.__name__.rsplit('.', 1)[-1]!r}"
+            )
+        for ids in token_id_lists:
+            if len(ids) > self.cfg.max_model_len:
+                raise ValueError(f"input has {len(ids)} tokens, max_model_len is {self.cfg.max_model_len}")
+
+        def bucket(n, buckets):
+            return next((b for b in buckets if n <= b), buckets[-1])
+
+        out = np.zeros((len(token_id_lists), self.model_cfg.hidden_size), np.float32)
+        loop = asyncio.get_running_loop()
+        order = sorted(range(len(token_id_lists)), key=lambda i: len(token_id_lists[i]))
+        pos = 0
+        while pos < len(order):
+            group = order[pos: pos + self._EMBED_B_BUCKETS[-1]]
+            pos += len(group)
+            B = bucket(len(group), self._EMBED_B_BUCKETS)
+            t_raw = max(max(len(token_id_lists[i]) for i in group), 1)
+            T = bucket(t_raw, self._EMBED_T_BUCKETS)
+            if T < t_raw:  # past the largest bucket: the next power of two
+                T = 1 << (t_raw - 1).bit_length()
+            input_ids = np.zeros((B, T), np.int32)
+            positions = np.full((B, T), -1, np.int32)
+            for row, i in enumerate(group):
+                ids = token_id_lists[i]
+                input_ids[row, : len(ids)] = ids
+                positions[row, : len(ids)] = np.arange(len(ids))
+
+            def encode_cmd(input_ids=input_ids, positions=positions):
+                if self._sleeping:  # it may have gone to sleep since the check above
+                    raise RuntimeError("engine is sleeping")
+                return self.runner.encode(input_ids, positions).cpu().numpy()
+
+            vecs = await loop.run_in_executor(
+                None, lambda: self._run_on_device_thread(encode_cmd, what="embedding forward")
+            )
+            for row, i in enumerate(group):
+                out[i] = vecs[row]
+            with self._lock:
+                self.total_prompt_tokens += sum(len(token_id_lists[i]) for i in group)
+        return out
+
+    # -- sleep mode -----------------------------------------------------------
+
+    def sleep(self, level: int = 1) -> None:
+        """Free device memory without ending the process: level 1 drops the
+        KV pools, level 2 also moves the weights to host memory. Running and
+        waiting requests are aborted. Runs on the loop thread."""
+        if self._sleeping:
+            return
+
+        def do_sleep():
+            if self._sleeping:
+                return  # raced with another sleep
+            self._sleeping = True
+            self._sleep_level = level
+            for s in list(self.scheduler.running) + list(self.scheduler.waiting):
+                self.scheduler._finish(s, "abort")
+                self._emit(s, "")
+            self.runner.drop_kv_pools()
+            if level >= 2:
+                self.runner.offload_params()
+            # the caching allocator gives the blocks back to the card only
+            # once nothing refers to them
+            gc.collect()
+            if self.runner.device.type == "cuda":
+                torch.cuda.empty_cache()
+
+        self._run_on_device_thread(do_sleep, what="sleep")
+
+    def wake_up(self) -> None:
+        """Undo ``sleep``: the weights back on the device (level 2), fresh
+        zeroed pools and an empty prefix cache."""
+        if not self._sleeping:
+            return
+
+        def do_wake():
+            if not self._sleeping:
+                return  # raced with another wake
+            if self._sleep_level >= 2:
+                self.runner.restore_params()
+            self.runner.reset_kv()
+            self.kv = KVPageManager(
+                self.kv.num_pages, self.kv.page_size, offload=self._offload,
+                max_io_pages=self._max_io_pages, spill_watermark=self.cfg.kv_spill_watermark,
+            )
+            self.scheduler.kv = self.kv
+            self._sleeping = False
+
+        self._run_on_device_thread(do_wake, what="wake_up")
+
+    @property
+    def is_sleeping(self) -> bool:
+        return self._sleeping
+
     # -- stats --------------------------------------------------------------
 
     def stats(self) -> dict:
@@ -528,7 +814,22 @@ class LLMEngine:
             "num_requests_swapped": self.scheduler.num_swapped(),
             "num_preemptions_total": self.scheduler.preemptions_total,
             "num_requests_shed_total": sum(self.requests_shed.values()) + self.api_requests_shed,
+            "num_requests_shed_queue_full_total": self.requests_shed["queue_full"] + self.api_requests_shed,
+            "num_requests_shed_queue_deadline_total": self.requests_shed["queue_deadline"],
+            "num_requests_shed_interactive_total": (
+                self.requests_shed_by_class["interactive"] + self.api_requests_shed_by_class["interactive"]
+            ),
+            "num_requests_shed_batch_total": (
+                self.requests_shed_by_class["batch"] + self.api_requests_shed_by_class["batch"]
+            ),
             "engine_saturated": int(self.saturated()),
+            # 1 with engine_saturated 0: the interactive reserve is holding
+            # while batch already sheds
+            "engine_saturated_batch": int(self.saturated("batch")),
+            # one card, no mesh: the router and the fleet controller read
+            # these as one replica on one device
+            "tensor_parallel": 1,
+            "mesh_devices": 1,
             "gpu_cache_usage_perc": self.kv.usage(),
             "gpu_prefix_cache_hits_total": self.kv.prefix_hits,
             "gpu_prefix_cache_queries_total": self.kv.prefix_queries,
@@ -560,4 +861,11 @@ class LLMEngine:
                 out["kv_offload_link_bandwidth_bytes_per_sec"] = round(self.kv_link_bandwidth_bytes_per_s)
         for section, secs in self.loop_seconds.items():
             out[f"engine_loop_{section}_seconds_total"] = round(secs, 3)
+        # p99 over the recent interactive ok-request windows, 0.0 while idle
+        for name, window in (
+            ("interactive_ttft_p99_ms", self._interactive_ttft_ms),
+            ("interactive_itl_p99_ms", self._interactive_itl_ms),
+        ):
+            snap = sorted(window)
+            out[name] = round(snap[min(len(snap) - 1, int(len(snap) * 0.99))], 3) if snap else 0.0
         return out

@@ -17,6 +17,12 @@ same shapes as the JAX runner's.
   scales ``k_scales/v_scales`` [L, P, KH] (ops/quant.py): the burst window
   stays in the model dtype and the burst commit is the quantizing scatter;
   ``get_pages_quant``/``set_pages_quant`` move pages with their scales.
+- ``encode``: the pooled-embedding forward of the model module's
+  ``encode`` (llama family only, as in the JAX package).
+- Sleep mode: ``drop_kv_pools`` releases the pools (level 1),
+  ``offload_params`` moves the weights to host memory (level 2),
+  ``restore_params`` and ``reset_kv`` bring both back, the pools at new
+  addresses (no kernel wrapper keeps a pointer between launches).
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -112,13 +118,8 @@ class ModelRunner:
         self.cfg = cfg
         self.page_size = page_size
         self.num_pages = num_pages
-        self.k_pages, self.v_pages = self.module.init_kv_pages(
-            cfg, num_pages, page_size, self.device
-        )
-        self.k_scales = self.v_scales = None
-        if self.kv_quant:
-            self.k_scales = init_kv_scales(cfg.num_layers, num_pages, cfg.num_kv_heads, self.device)
-            self.v_scales = init_kv_scales(cfg.num_layers, num_pages, cfg.num_kv_heads, self.device)
+        self._params_host = None
+        self._alloc_kv()
         # one generator per runner: sampled draws are reproducible per seed,
         # and (unlike jax.random) independent of how many steps were traced
         self.generator = torch.Generator(device=self.device)
@@ -342,9 +343,57 @@ class ModelRunner:
             pool[:, idx] = torch.from_numpy(np.stack([np.asarray(p, dt) for p in pages], axis=1)).to(self.device)
 
     def reset_kv(self) -> None:
-        """Zero the page pools (and reset int8 pools' scales to ones)."""
-        self.k_pages.zero_()
-        self.v_pages.zero_()
+        """Fresh zeroed page pools (and int8 pools' scales of ones): sleep
+        drops them, wake makes them anew."""
+        self.drop_kv_pools()
+        self._alloc_kv()
+
+    def _alloc_kv(self) -> None:
+        cfg = self.cfg
+        self.k_pages, self.v_pages = self.module.init_kv_pages(cfg, self.num_pages, self.page_size, self.device)
+        self.k_scales = self.v_scales = None
         if self.kv_quant:
-            self.k_scales.fill_(1.0)
-            self.v_scales.fill_(1.0)
+            self.k_scales = init_kv_scales(cfg.num_layers, self.num_pages, cfg.num_kv_heads, self.device)
+            self.v_scales = init_kv_scales(cfg.num_layers, self.num_pages, cfg.num_kv_heads, self.device)
+
+    # -- embeddings ---------------------------------------------------------
+
+    def encode(self, input_ids, positions) -> torch.Tensor:
+        """Pooled unit-norm embeddings [B, H] f32 of bucketed [B, T] inputs
+        (positions -1 = padding)."""
+        if not hasattr(self.module, "encode"):
+            raise ValueError(
+                f"embeddings are not supported for model family {self.module.__name__.rsplit('.', 1)[-1]!r}"
+            )
+        return self.module.encode(self.model, self._t(input_ids, torch.int32), self._t(positions, torch.int32))
+
+    # -- sleep mode ---------------------------------------------------------
+
+    def drop_kv_pools(self) -> None:
+        """Release the page pools and scales (sleep level 1+). The device
+        memory returns to the caching allocator once these were the last
+        references; the caller empties its cache."""
+        self.k_pages = self.v_pages = self.k_scales = self.v_scales = None
+
+    def offload_params(self) -> None:
+        """Move the weights to host memory (sleep level 2): each parameter's
+        bytes are copied to the host, then its device storage is released
+        (an empty tensor in its place). A tied head is the embedding itself
+        (no second parameter), so the tie survives the round trip. The host
+        copy is complete before any device tensor is released, so a failure
+        on the way leaves the weights on the device."""
+        params = dict(self.model.named_parameters())
+        host = {name: p.detach().to("cpu", copy=True) for name, p in params.items()}
+        for p in params.values():
+            p.data = torch.empty((0,), dtype=p.dtype, device=self.device)
+        self._params_host = host
+
+    def restore_params(self) -> None:
+        """Put back on the device the weights ``offload_params`` saved, byte
+        for byte."""
+        host = self._params_host
+        if host is None:
+            return  # never offloaded: the device weights are live
+        for name, p in self.model.named_parameters():
+            p.data = host[name].to(self.device)
+        self._params_host = None

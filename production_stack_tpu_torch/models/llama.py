@@ -15,8 +15,10 @@ models/opt.py). With ``kv_cache_dtype="int8"`` the pools hold int8 pages
 and the forward takes their scales (``kv_scales``, ops/quant.py): attention reads
 them through the kernels' int8 modes, a prefill chunk quantizes its K/V in
 the fused write, and a T = 1 step commits through the quantizing scatter.
-Mixtral MoE, LoRA, sp/pp meshes, the "pre" write mode and all-position
-logits are not ported; the model raises on them.
+``encode`` is the pooled-embedding forward behind the server's embedding,
+rerank and score routes (dense causal attention, no pages). Mixtral MoE,
+LoRA, sp/pp meshes, the "pre" write mode and all-position logits are not
+ported; the model raises on them.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from production_stack_tpu_torch.models.paged_step import PagedStep
+from production_stack_tpu_torch.ops.attention import flash_attention
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_cos_sin
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
@@ -308,6 +311,45 @@ class LlamaForCausalLM(nn.Module):
 
 
 CAUSAL_LM = LlamaForCausalLM
+
+# encode's attention holds [rows, T, NH, T] f32 scores and a few temporaries
+# of that size; it takes as many rows a call as keep the scores near this
+ENCODE_SCORE_BYTES = 1 << 30
+
+
+@torch.no_grad()
+def encode(model: LlamaForCausalLM, input_ids: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+    """Pooled-embedding forward, as the JAX package's ``encode``: one dense
+    causal pass (no KV pages), a mean-pool over the valid tokens of the final
+    normed hidden layer, L2-normalized.
+
+    input_ids [B, T] int32; positions [B, T] (-1 = padding). Returns [B, H]
+    float32 unit vectors. Attention is ``ops.attention.flash_attention``, the
+    counterpart of the XLA attention the JAX encode uses (no Pallas kernel
+    runs there, and no CUDA kernel here), over groups of rows small enough
+    that the largest bucket (32 x 4,096 at llama-3.2-1b's widths) fits the
+    card."""
+    cfg = model.cfg
+    B, T = input_ids.shape
+    rows = max(1, ENCODE_SCORE_BYTES // (T * T * cfg.num_heads * 4))
+    x = model.embed[input_ids.long()]
+    cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    valid = positions >= 0
+    kv_lens = valid.sum(dim=1).to(torch.int32)
+    for layer in model.layers:
+        h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
+        q, k, v = layer.qkv(h, cfg, cos, sin)
+        attn = torch.cat([
+            flash_attention(q[i: i + rows], k[i: i + rows], v[i: i + rows], q_positions=positions[i: i + rows],
+                            kv_lens=kv_lens[i: i + rows], window=cfg.sliding_window)
+            for i in range(0, B, rows)
+        ])
+        x = x + attn.reshape(B, T, -1) @ layer.wo
+        x = layer.mlp(x, cfg)
+    x = rms_norm(x, model.final_norm, cfg.rms_norm_eps).float()
+    mask = valid.float()[..., None]
+    pooled = (x * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1.0)
+    return pooled / pooled.norm(dim=-1, keepdim=True).clamp(min=1e-9)
 
 
 def params_from_jax(np_tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:

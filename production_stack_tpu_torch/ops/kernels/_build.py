@@ -8,6 +8,11 @@ Nothing is built at import: the first launch of a kernel builds its library,
 and ``build()`` starts one nvcc per source, all at once, for callers that
 want every kernel up front. nvcc's ptxas report (registers, shared memory,
 spills per kernel) is kept beside each library as ``<lib>.log``.
+
+Each build that ran nvcc adds its wall seconds and one event per source to
+the process's totals (``compile_totals``): the engine's ``/metrics`` reports
+them as ``vllm:compile_seconds_total`` / ``compile_events_total``
+(engine/devicemon.py), and ``cache_size`` counts the libraries on disk.
 """
 
 from __future__ import annotations
@@ -31,6 +36,10 @@ NVCC_FLAGS = (
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+# nvcc wall seconds and sources built by this process (written under _totals_lock)
+_compile_seconds_total = 0.0
+_compile_events_total = 0
+_totals_lock = threading.Lock()
 
 
 def nvcc_path() -> str:
@@ -73,9 +82,33 @@ def build(names=SOURCES) -> dict[str, float]:
             failed.append(f"{name}: nvcc exit {rc}\n{out.with_suffix('.log').read_text()[-4000:]}")
         else:
             os.replace(tmp, out)
+    if procs:
+        _count_build(time.perf_counter() - t0, len(procs) - len(failed))
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return secs
+
+
+def _count_build(seconds: float, events: int) -> None:
+    global _compile_seconds_total, _compile_events_total
+    with _totals_lock:
+        _compile_seconds_total += seconds
+        _compile_events_total += events
+    from production_stack_tpu_torch.tracing import get_flightrecorder
+
+    get_flightrecorder().record("compile", event="nvcc_build", seconds=round(seconds, 4), sources=events)
+
+
+def compile_totals() -> tuple[float, int]:
+    """(nvcc wall seconds, sources built) by this process so far."""
+    with _totals_lock:
+        return _compile_seconds_total, _compile_events_total
+
+
+def cache_size() -> tuple[int, int]:
+    """(libraries, bytes) of the built kernel libraries under BUILD_DIR."""
+    libs = list(BUILD_DIR.glob("*.so")) if BUILD_DIR.is_dir() else []
+    return len(libs), sum(p.stat().st_size for p in libs)
 
 
 def load(name: str) -> ctypes.CDLL:

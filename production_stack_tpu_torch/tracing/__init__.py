@@ -1,6 +1,7 @@
 """Engine observability for the port: the flight recorder, the ambient
 span-context slot the scheduler and KV manager publish admissions into, and
-the offload-restore histogram (``vllm:kv_offload_restore_seconds``).
+the per-phase histograms (tracing/metrics.py: queue wait, prefill, TPOT,
+offload restore, prefill chunk, interleaved decode).
 
 Only what the serving path calls lives here. The span collector and its
 ``/v1/traces`` export are not part of the port yet, so ``current_context``
@@ -17,13 +18,14 @@ from production_stack_tpu_torch.tracing.flightrecorder import (
     get_flightrecorder,
     render_flightrecorder_metrics,
 )
-
-from production_stack_tpu_torch.utils.metrics import Histogram
-
-# the JAX package's buckets (production_stack_tpu/tracing/metrics.py)
-RESTORE_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0)
-offload_restore_hist = Histogram(
-    "vllm:kv_offload_restore_seconds", RESTORE_BUCKETS, "KV offload-tier restore batch duration"
+from production_stack_tpu_torch.tracing.metrics import (
+    decode_step_time_hist,
+    interleaved_decode_hist,
+    offload_restore_hist,
+    prefill_chunk_hist,
+    prefill_time_hist,
+    queue_time_hist,
+    render_phase_histograms,
 )
 
 _current: contextvars.ContextVar = contextvars.ContextVar(
@@ -47,9 +49,15 @@ __all__ = [
     "FlightRecorder",
     "configure_flightrecorder",
     "current_context",
+    "decode_step_time_hist",
     "get_flightrecorder",
+    "interleaved_decode_hist",
     "offload_restore_hist",
+    "prefill_chunk_hist",
+    "prefill_time_hist",
+    "queue_time_hist",
     "render_flightrecorder_metrics",
+    "render_phase_histograms",
     "reset_current",
     "set_current",
 ]

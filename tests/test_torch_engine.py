@@ -150,8 +150,13 @@ def test_chat_tokenize_detokenize_and_errors(port_url):
     assert status == 400 and "out of range" in body["error"]["message"]
     status, body = _call("POST", port_url + "/v1/chat/completions", {
         "messages": [{"role": "user", "content": "x"}], "tools": [{"type": "function", "function": {"name": "f"}}],
+        "max_tokens": 3,
     })
-    assert status == 400 and "tool calls" in body["error"]["message"]
+    assert status == 200 and body["choices"][0]["message"]["role"] == "assistant"
+    status, body = _call("POST", port_url + "/v1/chat/completions", {
+        "messages": [{"role": "user", "content": "x"}], "tools": [{"type": "function"}],
+    })
+    assert status == 400 and "each tool must be" in body["error"]["message"]
 
 
 def test_n_choices_stop_strings_and_penalties(port_url):

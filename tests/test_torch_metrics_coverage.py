@@ -1,0 +1,139 @@
+"""The metrics-coverage guard for the port (scripts/check_metrics_coverage.py
+scans only the JAX package): a CPU port server's ``/metrics``, after one
+streamed request, held in both directions against the dashboards and docs.
+
+1. Every series the port emits is documented (docs/ or README.md) and
+   dashboarded, or in the script's own DASHBOARD_ALLOWLIST.
+2. Every ``vllm:`` series the JAX package emits that the dashboards chart or
+   the allowlist names is emitted by the port, unless it belongs to a
+   feature the port refuses (listed below by name, beside the
+   ``engine/config._UNSUPPORTED`` switch that refuses it, or the part of the
+   JAX package with no switch in the port) or to another process than the
+   engine (the fleet controller, the KV directory service).
+"""
+
+import asyncio
+import os
+import sys
+import threading
+
+import aiohttp
+import pytest
+
+sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "scripts"))
+import check_metrics_coverage as cmc  # noqa: E402
+
+from production_stack_tpu.testing.procs import free_port  # noqa: E402
+from production_stack_tpu_torch.engine import api_server as port_server  # noqa: E402
+from production_stack_tpu_torch.engine.config import _UNSUPPORTED, EngineConfig  # noqa: E402
+from production_stack_tpu_torch.engine.engine import LLMEngine  # noqa: E402
+
+_DIRECTORY = ("kv_directory_publishes_total", "kv_directory_withdrawals_total", "kv_directory_flush_errors_total",
+              "kv_directory_lookups_total", "kv_directory_lookup_hits_total", "kv_directory_pulled_pages_total",
+              "kv_directory_prefetched_pages_total")
+_FABRIC = ("kv_fabric_breaker_opens_total", "kv_fabric_corrupt_frames_total", "kv_fabric_fallbacks_total",
+           "kv_fabric_peer_bandwidth_bytes_per_sec", "kv_fabric_peer_probes_total", "kv_fabric_pulled_pages_total",
+           "kv_fabric_pushed_pages_total", "kv_fabric_queue_depth", "kv_fabric_received_pages_total",
+           "kv_fabric_served_pages_total", "kv_fabric_stale_generation_pulls_total")
+_TRANSFER = ("kv_transfer_received_bytes_total", "kv_transfer_received_chunks_total", "kv_transfer_sent_bytes_total",
+             "kv_transfer_sent_chunks_total", "kv_transfer_cap_evicted_offers_total", "kv_transfer_device_pages_total",
+             "kv_transfer_leaked_offers_total", "kv_transfer_pinned_offer_bytes",
+             "kv_offload_device_loaded_pages_total")
+_WARM = ("warm_start_fenced", "warm_start_generation", "warm_start_manifest_age_seconds",
+         "warm_start_restored_pages", "warm_start_spilled_pages_total", "warm_start_stale_manifests_skipped_total")
+_CHAINED = ("decode_chained_dispatches_total", "runahead_prefill_dispatches_total",
+            "engine_loop_chain_dispatch_seconds_total", "engine_loop_chain_fetch_seconds_total")
+_SPEC = ("spec_decode_draft_acceptance_rate", "spec_decode_num_accepted_tokens_total",
+         "spec_decode_num_draft_tokens_total")
+_MIGRATION = ("migration_duration_seconds", "migration_failures_total", "migration_pages_moved_total",
+              "migrations_in_total", "migrations_out_total")
+_TRACES = ("trace_buffer_capacity", "trace_spans_dropped_total", "trace_spans_recorded_total")
+
+# series of refused features -> the port's switch that refuses them
+REFUSED = {
+    **{f"vllm:{n}": "kv_directory_url" for n in _DIRECTORY},
+    **{f"vllm:{n}": "kv_fabric" for n in _FABRIC},
+    **{f"vllm:{n}": "kv_role" for n in _TRANSFER},
+    **{f"vllm:{n}": "warm_start" for n in _WARM},
+    **{f"vllm:{n}": "decode_pipeline" for n in _CHAINED},
+    **{f"vllm:{n}": "speculative_k" for n in _SPEC},
+    "vllm:kv_pool_shard_bytes": "tensor_parallel_size",
+}
+# series of JAX features the port has no switch for: not ported, and nothing
+# to refuse (the JAX engine serves migration by default; traces are a debug
+# route)
+NOT_PORTED = {
+    **{f"vllm:{n}": "live migration (/migrate_*)" for n in _MIGRATION},
+    **{f"vllm:{n}": "the span collector (/v1/traces)" for n in _TRACES},
+}
+# series other processes than the engine emit
+OTHER_PROCESS = {
+    "vllm:fleet_controller_decisions_total": "the fleet controller",
+    "vllm:fleet_controller_fleet_saturation": "the fleet controller",
+    "vllm:fleet_controller_migrations_started_total": "the fleet controller",
+    "vllm:fleet_controller_migrations_failed_total": "the fleet controller",
+    "vllm:fleet_controller_migrations_inflight": "the fleet controller",
+    "vllm:kv_directory_engines": "the KV directory service",
+    "vllm:kv_directory_entries": "the KV directory service",
+    "vllm:kv_directory_expired_entries_total": "the KV directory service",
+    "vllm:kv_directory_stale_hits_total": "the KV directory service",
+}
+
+
+@pytest.fixture(scope="module")
+def port_series() -> set:
+    """Every series name a port server's /metrics gives after one streamed
+    request, with the CPU tier on and a measured link (the CPU has none to
+    probe, so the figure is set by hand)."""
+    cfg = EngineConfig(model="llama-debug", host="127.0.0.1", port=free_port(), num_pages=16, page_size=8,
+                       max_model_len=128, prefill_chunk=32, kv_offload_cpu_gb=0.01, kv_offload_max_io_pages=4)
+    engine = LLMEngine(cfg, device="cpu")
+    engine.kv_link_bandwidth_bytes_per_s = 1e9
+    loop = asyncio.new_event_loop()
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+
+    async def scrape():
+        server, runner = await port_server.serve(cfg, engine, device="cpu")
+        try:
+            base = f"http://127.0.0.1:{cfg.port}"
+            async with aiohttp.ClientSession() as s:
+                body = {"prompt": "hello", "max_tokens": 4, "stream": True, "ignore_eos": True}
+                async with s.post(base + "/v1/completions", json=body) as r:
+                    assert r.status == 200
+                    await r.read()
+                async with s.get(base + "/metrics") as r:
+                    return await r.text()
+        finally:
+            await runner.cleanup()
+            server.engine.stop()
+
+    try:
+        text = asyncio.run_coroutine_threadsafe(scrape(), loop).result(120)
+    finally:
+        loop.call_soon_threadsafe(loop.stop)
+        th.join(10)
+    return {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+
+
+def test_every_port_series_is_documented_and_dashboarded(port_series):
+    dashboards, docs = cmc.coverage_texts()
+    assert len(port_series) > 60
+    undocumented = sorted(n for n in port_series if n not in docs)
+    undashboarded = sorted(n for n in port_series if n not in dashboards and n not in cmc.DASHBOARD_ALLOWLIST)
+    assert not undocumented and not undashboarded, (undocumented, undashboarded)
+
+
+def test_every_charted_jax_series_of_a_served_feature_is_emitted_by_the_port(port_series):
+    dashboards, _ = cmc.coverage_texts()
+    jax_series = {n for n in cmc.emitted_metrics() if n.startswith("vllm:")}
+    charted = set(cmc.METRIC_RE.findall(dashboards)) | cmc.DASHBOARD_ALLOWLIST
+    missing = (jax_series & charted) - port_series
+    assert missing == set(REFUSED) | set(NOT_PORTED) | set(OTHER_PROCESS)
+    assert not port_series & (set(REFUSED) | set(NOT_PORTED) | set(OTHER_PROCESS))
+    assert set(REFUSED.values()) <= set(_UNSUPPORTED)
+    for name in ("vllm:tpu_hbm_bytes_in_use", "vllm:hbm_headroom_bytes", "vllm:kv_pool_device_bytes",
+                 "vllm:compile_seconds_total", "vllm:request_queue_time_seconds", "vllm:prefill_chunk_seconds",
+                 "vllm:interleaved_decode_step_seconds", "vllm:engine_saturated_batch",
+                 "vllm:interactive_ttft_p99_ms", "vllm:tensor_parallel_degree"):
+        assert name in port_series
