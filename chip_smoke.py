@@ -13,12 +13,13 @@ non-zero exit (nothing is caught):
                fp pools and int8 pools (per-page scales), at D = 64, 128
                and 256: llama-3.2-1b's heads, qwen2.5-7b's (NH = 28,
                KH = 4: 7 query heads per KV head), opt-125m's (NH = KH =
-               12) and gemma-2-2b's (window 4,096, softcap 50, sm_scale
-               144^-0.5): ragged, burst-window, stacked-layer,
+               12), gemma-2-2b's (window 4,096, softcap 50, sm_scale
+               144^-0.5) and mixtral-8x7b's (NH = 32, KH = 8, D = 128:
+               G = 4): ragged, burst-window, stacked-layer,
                window+softcap, bf16/f32 and NaN-poisoned stale-slot (or
                stale-scale) cases, the decode kernel's split-KV edges
                (rows with empty splits, a deep window start, the burst on
-               a row whose last split is empty, G = 1 / 7 / 8, page 48,
+               a row whose last split is empty, G = 1 / 4 / 7 / 8, page 48,
                one row at 8,192; each decode call made twice and held to
                the same bytes), OPT's 3-token chunk, and the timing phase's
                inputs, each held to a bound scaled to its output (TOL; D =
@@ -39,20 +40,33 @@ non-zero exit (nothing is caught):
                seeded random weights), then one 8-step decode burst, with
                the kernels and with the plain versions, into bf16 pools and
                then into int8 pools (layer 0's int8 pages and scales
-               byte-identical between the two).
+               byte-identical between the two). Then llama-3.2-1b with
+               two seeded LoRA adapters (rank 8 and 16, all seven
+               targets) on a batch of rows on slots 0, 1 and 2: the kernel
+               forward against the plain forward, each adapter's rows
+               against a forward over weights merged with scale * A @ B,
+               and the slot-0 row bit-equal to the same forward without
+               LoRA buffers.
 4. hf       -- qwen2.5-7b's HF directory (its published config.json, 28
                layers, seeded bf16 weights in shards of at most 5 GB with
                the index) written under build/hf_models/, loaded through
                the port's loader (config equal to the preset but for
                max_model_len, sampled parameters byte-identical to the
                tensors written), and its forward checked as in phase 3;
-               then opt-125m's directory (float16, as published).
-5. serve    -- the port's OpenAI server in-process on localhost, six
+               then opt-125m's directory (float16, as published); after
+               the serve runs below, mixtral-8x7b's (its published
+               config.json cut to 16 of its 32 layers, 47 GB of bf16
+               shards, written after free disk and host memory are
+               checked and printed), loaded and checked the same way.
+5. serve    -- the port's OpenAI server in-process on localhost, eight
                times: llama-3.2-1b with bf16 pools; with int8 pools, the
                CPU offload tier and a pool small enough to evict; gemma-2-2b
                with bf16 pools and one prompt of 4,301 tokens; qwen2.5-7b
-               from its directory with bf16 pools, then int8 pools; and
-               opt-125m from its directory: concurrent /v1/completions (one
+               from its directory with bf16 pools, then int8 pools;
+               opt-125m from its directory; llama-3.2-1b with LoRA on all
+               seven targets and two adapters; and mixtral-8x7b from its
+               directory with LoRA on the attention targets and one
+               adapter: concurrent /v1/completions (one
                streaming) and /v1/chat/completions; a greedy request repeats
                exactly over at least 512 cached tokens (with int8 and the
                tier, after its prefix pages were spilled and restored; for
@@ -75,9 +89,16 @@ non-zero exit (nothing is caught):
                torch.cuda.memory_reserved down by at least the pools' bytes
                (and the weights' at level 2); after /wake_up the greedy
                repeat returns the text (and logprobs) of before the sleep
-               through the kernels, no plain version running. Then an OPT
-               engine with int8 pools must be refused. The directories are
-               deleted.
+               through the kernels, no plain version running. The LoRA
+               servers load their adapters over HTTP (/v1/models lists
+               them with their parent); each adapter's greedy output
+               repeats and differs from base's, a base and an adapter
+               request run in flight together, the same prompt under an
+               adapter moves no prefix-cache hit, an unload while its
+               request is in flight answers 400, a request for an
+               unloaded adapter 404, and a reload gets a fresh salt. Then
+               an OPT engine with int8 pools must be refused. The
+               directories are deleted.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -86,13 +107,16 @@ non-zero exit (nothing is caught):
                bound, and the whole launch's time beside its own); then
                the decode kernel at small batch (1 x 2,048, 8 x 1,024, 1 x
                8,192; qwen2.5-7b's 1 x 8,192), gemma-2-2b's 1 x 8,192 on a
-               sliding and a global layer, both modes, and opt-125m's
-               decode and prefill, as rows of their own.
+               sliding and a global layer, both modes, opt-125m's decode
+               and prefill, and mixtral-8x7b's (G = 4 at D = 128) decode
+               burst step and prefill chunk, both modes, as rows of their
+               own.
 
 Then the kernel table line (each row's launches from its own path's runs:
-the llama and opt-125m servers for D = 64, the qwen2.5-7b servers for
-D = 128, the gemma-2-2b server for its bf16 rows and its int8 kernel
-forward for its int8 rows, which no server runs), the card's name and
+the llama and opt-125m servers for D = 64, the qwen2.5-7b and
+mixtral-8x7b servers for D = 128, the gemma-2-2b server for its bf16 rows
+and its int8 kernel forward for its int8 rows, which no server runs), the
+card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device, or run from a directory without the package, it exits
 non-zero and prints no result. f32 comparisons run with TF32 off.
@@ -101,6 +125,8 @@ non-zero and prints no result. f32 comparisons run with TF32 off.
 from __future__ import annotations
 
 import asyncio
+import dataclasses
+import gc
 import json
 import math
 import os
@@ -395,9 +421,15 @@ QWEN_PREFILL = "qwen_main_t512_h1536_bf16"
 OPT = dict(NH=12, KH=12, D=64)
 OPT_DECODE = "opt_b8_ctx1024_c8_g1_bf16"
 OPT_PREFILL = "opt_t512_h1536_g1_bf16"
+# mixtral-8x7b's (D = 128, G = 4: the decode fold fills 4 of its 16 rows, a
+# prefill warpgroup's 64 rows hold 16 tokens x 4 heads); int8 pools of
+# unit-normal K/V quantized per page, as QWEN's
+MIXTRAL = dict(NH=32, KH=8, D=128, kv_normal=True)
+MIXTRAL_DECODE = "mixtral_main_b32_ctx1024_c8_bf16"
+MIXTRAL_PREFILL = "mixtral_main_t512_h1536_bf16"
 # the cases whose one-key-fewer control must fail the bound
 CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECODE, QWEN_PREFILL, OPT_DECODE,
-              OPT_PREFILL}
+              OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL}
 CONTROLLED |= {INT8 + n for n in CONTROLLED}
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
@@ -502,6 +534,16 @@ DECODE_CASES = [
                                                  C=8, cur_lens=[0, 8, 3, 8], dtype="bfloat16")),
     (OPT_DECODE, dict(OPT, seed=19, B=8, page=64, maxp=17, L=1, lens=[1024] * 8, C=8, cur_lens=[8] * 8,
                       dtype="bfloat16")),
+    # mixtral-8x7b's heads: the burst on a row whose last split is empty,
+    # with NaN past each row's history, in a stacked pool; f32; and the
+    # timing phase's decode burst step
+    ("mixtral_splits_burst_last_split_empty_nan_bf16", dict(MIXTRAL, B=3, page=64, maxp=24, L=2, layer=1,
+                                                            lens=[30, 1500, 900], C=8, cur_lens=[3, 5, 8],
+                                                            poison=True, dtype="bfloat16")),
+    ("mixtral_ragged_empty_row_f32", dict(MIXTRAL, B=3, page=16, maxp=20, L=1, lens=[300, 0, 77], C=2,
+                                          cur_lens=[2, 0, 1], dtype="float32")),
+    (MIXTRAL_DECODE, dict(MIXTRAL, seed=22, B=32, page=64, maxp=16, L=1, lens=[1024] * 32, C=8,
+                          cur_lens=[8] * 32, dtype="bfloat16")),
 ]
 DECODE_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in DECODE_CASES]
 
@@ -584,6 +626,16 @@ PREFILL_CASES = [
                                   dtype="bfloat16")),
     (OPT_PREFILL, dict(OPT, seed=21, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
                        dtype="bfloat16")),
+    # mixtral-8x7b's heads: ragged rows (one padded, one chunk not a
+    # multiple of a tile's 16 tokens) in a stacked pool with NaN past each
+    # chunk start; f32; the timing phase's 512 after 1,536
+    ("mixtral_ragged_padded_row_layer1_nan_bf16", dict(MIXTRAL, B=3, T=96, page=16, maxp=16, L=2, layer=1,
+                                                       computed=[100, 0, 37], chunks=[93, 61, 0], poison=True,
+                                                       dtype="bfloat16")),
+    ("mixtral_history_f32", dict(MIXTRAL, B=2, T=40, page=16, maxp=8, L=1, computed=[30, 3], chunks=[40, 29],
+                                 dtype="float32")),
+    (MIXTRAL_PREFILL, dict(MIXTRAL, seed=23, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
+                           dtype="bfloat16")),
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
 
@@ -755,10 +807,11 @@ def phase_kernels():
     return worst
 
 
-def _forward_run(model, impl, ids, chunk, n_chunks, burst, quant=False):
+def _forward_run(model, impl, ids, chunk, n_chunks, burst, quant=False, lora=None):
     """``n_chunks`` prefill chunks then one decode burst of ``burst`` steps
     through model.forward with attn_impl ``impl``, into pools of the model's
-    dtype or, with ``quant``, int8 pools and their scales. The burst reads
+    dtype or, with ``quant``, int8 pools and their scales (and with ``lora``
+    = (buffers, lora_ids) each row's adapter slot). The burst reads
     its input tokens from ``ids`` (teacher forcing), so both implementations
     see the same tokens. Returns the logits [B, V] of every chunk and burst
     step, and the pools (and scales) after the burst's commit."""
@@ -780,11 +833,12 @@ def _forward_run(model, impl, ids, chunk, n_chunks, burst, quant=False):
     kp, vp = models.module_for_config(cfg).init_kv_pages(cfg, B * maxp, page, dev)
     scales = (init_kv_scales(L, B * maxp, KH, dev), init_kv_scales(L, B * maxp, KH, dev)) if quant else None
     pt = torch.arange(B * maxp, dtype=torch.int32, device=dev).reshape(B, maxp)
+    lkw = {} if lora is None else dict(lora=lora[0], lora_ids=lora[1])
     logits = []
     for c in range(n_chunks):
         pos = torch.arange(c * chunk, (c + 1) * chunk, dtype=torch.int32, device=dev)[None].repeat(B, 1)
         lens = torch.full((B,), (c + 1) * chunk, dtype=torch.int32, device=dev)
-        lg = model(ids[:, c * chunk:(c + 1) * chunk], pos, kp, vp, pt, lens, kv_scales=scales)
+        lg = model(ids[:, c * chunk:(c + 1) * chunk], pos, kp, vp, pt, lens, kv_scales=scales, **lkw)
         logits.append(lg)
     k_acc = torch.zeros((L, B, burst, KH, D), dtype=cfg.dtype, device=dev)
     v_acc = torch.zeros_like(k_acc)
@@ -793,7 +847,7 @@ def _forward_run(model, impl, ids, chunk, n_chunks, burst, quant=False):
         pos = torch.full((B, 1), ctx + s, dtype=torch.int32, device=dev)
         lens = torch.full((B,), ctx + s + 1, dtype=torch.int32, device=dev)
         lg = model(ids[:, ctx + s][:, None], pos, kp, vp, pt, lens, kv_burst=(k_acc, v_acc, counts),
-                   kv_scales=scales)
+                   kv_scales=scales, **lkw)
         counts = counts + 1
         logits.append(lg)
     jj = torch.arange(burst, dtype=torch.int32, device=dev)[None].repeat(B, 1)
@@ -811,6 +865,11 @@ def _forward_run(model, impl, ids, chunk, n_chunks, burst, quant=False):
 # bf16 ulp is 2^-7 to 2^-5. The int8 pool runs are held to the same bound.
 FORWARD_LOGIT_BOUND = 0.25
 FORWARD_TOP1_MIN = 0.9
+# A MoE router turns those roundings into a different expert now and then
+# (where its 2nd and 3rd probabilities all but tie), and that token's
+# logits then move by O(1): the plain run takes the experts the kernel run
+# took (models/llama.py ``tape_routes``), and the lines count the
+# (layer, token) pairs where its own router would have picked otherwise.
 # (model, 512-token prefill chunks): llama-3.2-1b at two chunks; gemma-2-2b
 # at nine (4,608 tokens), so its even layers' 4,096 window bites;
 # qwen2.5-7b, loaded from its HF directory, at two (phase_hf_load)
@@ -821,7 +880,9 @@ QWEN_FORWARD_CHUNKS = 2
 def phase_forward(name: str, n_chunks: int, model=None) -> dict:
     """One model (the preset ``name``, or ``model`` as loaded) with the
     kernels and with the plain versions, first into bf16 pools, then into
-    int8 pools. Layer 0's K/V come before any attention, so its int8 pages
+    int8 pools, every compared token held to the bound (a MoE model's plain
+    run takes the experts its kernel run took). Layer 0's
+    K/V come before any attention, so its int8 pages
     and scales must be byte-identical between the two int8 runs (the
     quantizing write in the prefill launch against its plain version,
     inside the model).
@@ -830,6 +891,7 @@ def phase_forward(name: str, n_chunks: int, model=None) -> dict:
     import torch
 
     from production_stack_tpu_torch.engine.model_loader import load_model
+    from production_stack_tpu_torch.models.llama import tape_routes
 
     t_load = time.perf_counter()
     if model is None:
@@ -846,13 +908,15 @@ def phase_forward(name: str, n_chunks: int, model=None) -> dict:
         with torch.no_grad():
             for fn, attr in kernels.values():
                 setattr(fn, attr, 0)
-            lk, pools_k = _forward_run(model, "cuda", ids, chunk, n_chunks, burst, quant)
+            with tape_routes(model) as routes:
+                lk, pools_k = _forward_run(model, "cuda", ids, chunk, n_chunks, burst, quant)
             launches = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
-            lp, pools_p = _forward_run(model, "plain", ids, chunk, n_chunks, burst, quant)
+            with tape_routes(model, replay=routes.picks) as replayed:
+                lp, pools_p = _forward_run(model, "plain", ids, chunk, n_chunks, burst, quant)
         finite = all(bool(torch.isfinite(x).all()) for x in lk)
         shapes_ok = all(tuple(x.shape) == (B, cfg.vocab_size) for x in lk)
         diffs = [float((a - b).abs().max()) for a, b in zip(lk, lp)]
-        top1 = sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(lk, lp)) / (B * len(lk))
+        top1 = float(torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(lk, lp)]).float().mean())
         pool_diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(pools_k, pools_p))
         line = {
             "phase": "forward", "model": name, "layers": cfg.num_layers, "hidden": cfg.hidden_size,
@@ -863,6 +927,10 @@ def phase_forward(name: str, n_chunks: int, model=None) -> dict:
             "pool_max_abs_diff_after_commit": pool_diff, "finite": finite, "kernel_run_launches": launches,
             "seconds": round(time.perf_counter() - t0 + (0.0 if quant else load_s), 2),
         }
+        if routes.picks:
+            line.update(routed_calls=len(routes.picks),
+                        replayed_tokens=sum(t.numel() // t.shape[-1] for t in routes.picks),
+                        plain_router_would_differ=replayed.overridden)
         if quant:
             line["layer0_pages_and_scales_byte_identical"] = all(
                 _same_bytes(a[0], b[0]) for a, b in zip(pools_k, pools_p)
@@ -880,6 +948,185 @@ def phase_forward(name: str, n_chunks: int, model=None) -> dict:
     del model
     torch.cuda.empty_cache()
     return launches
+
+
+# batched multi-LoRA on llama-3.2-1b at full width and depth: adapters of
+# rank 8 and 16 on all seven targets, in slots 1 and 2, scale alpha / r =
+# 1/4: A ~ N(0, 1/in) and B ~ N(0, 1/r) make A @ B the base weight's size,
+# so each delta is a quarter of it, and it moves the logits by ~5. Deltas of
+# the weights' full size (scale 1) make a network whose bf16 roundings grow
+# past the forward bound: kernel against plain 0.34, top-1 0.87 (this phase
+# with LORA_SCALE = 1 on an NVIDIA H100 80GB HBM3, 700 W), with the same
+# attention roundings that leave the base model at 0.086. In bf16 the
+# adapter rows are held to the forward bound against the forward over
+# merged weights (the merged weight W + s A @ B rounds once, the runtime
+# path at h @ A, its product with B and the sum); in f32 (TF32 off) to
+# LORA_F32_ATOL, where only summation orders differ (measured 2.3e-5).
+LORA_TARGETS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+LORA_RANKS = (8, 16)
+LORA_SCALE = 0.25
+LORA_F32_ATOL = 1e-3
+
+
+def _lora_tensors(cfg, rank: int, seed: int, targets=LORA_TARGETS) -> dict:
+    """A seeded adapter in PEFT's orientation, f32 on the CPU: {target: (A
+    [L, rank, in], B [L, out, rank])} with A ~ N(0, 1/in), B ~ N(0, 1/rank)."""
+    import torch
+
+    from production_stack_tpu_torch.models import llama
+
+    gen = torch.Generator().manual_seed(seed)
+    out = {}
+    for t in targets:
+        din, dout = llama.lora_dims(cfg)[t]
+        a = torch.randn((cfg.num_layers, rank, din), generator=gen) * din**-0.5
+        b = torch.randn((cfg.num_layers, dout, rank), generator=gen) * rank**-0.5
+        out[t] = (a, b)
+    return out
+
+
+def _lora_forwards(model, adapters: dict, ids, chunk: int, n_chunks: int, burst: int) -> dict:
+    """On a batch of rows on slots 0, 1, 2 (``adapters``: slot -> PEFT
+    tensors): the kernel and plain forwards with LoRA buffers, each row's
+    kernel forward alone (``("alone", row)``), the kernel forward without
+    LoRA buffers, per adapter the kernel forward over the weights merged
+    with LORA_SCALE * A @ B, and layer 0's ``wq`` projection of the batch
+    against each row alone (``"proj_rows"``, _lora_proj_rows)."""
+    import torch
+
+    from production_stack_tpu_torch.models import llama
+
+    cfg = model.cfg
+    bufs = llama.init_lora_buffers(cfg, 1 + len(adapters), max(LORA_RANKS), LORA_TARGETS, device="cuda")
+    for slot, ad in adapters.items():
+        for t, (a, b) in ad.items():
+            rank = a.shape[1]
+            for li, layer in enumerate(bufs["layers"]):
+                layer["a_" + t][slot, :, :rank] = a[li].t().to(cfg.dtype).cuda()
+                layer["b_" + t][slot, :rank, :] = b[li].t().to(cfg.dtype).cuda()
+        bufs["scale"][slot] = LORA_SCALE
+    slots = torch.tensor(range(len(ids)), dtype=torch.int32, device="cuda")
+    kernels, _ = _counters()
+    out = {}
+    with torch.no_grad():
+        for fn, attr in kernels.values():
+            setattr(fn, attr, 0)
+        out["kernel"], _ = _forward_run(model, "cuda", ids, chunk, n_chunks, burst, lora=(bufs, slots))
+        out["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
+        out["plain"], _ = _forward_run(model, "plain", ids, chunk, n_chunks, burst, lora=(bufs, slots))
+        for row in range(len(ids)):
+            out["alone", row], _ = _forward_run(model, "cuda", ids[row:row + 1], chunk, n_chunks, burst,
+                                                lora=(bufs, slots[row:row + 1]))
+        out["proj_rows"] = _lora_proj_rows(model, bufs, slots)
+        out["base"], _ = _forward_run(model, "cuda", ids, chunk, n_chunks, burst)
+        for slot, ad in adapters.items():
+            saved = {}
+            for li, layer in enumerate(model.layers):
+                for t, (a, b) in ad.items():
+                    w = getattr(layer, t)
+                    saved[(li, t)] = w.detach().clone()
+                    w.copy_((w.float() + LORA_SCALE * (a[li].t() @ b[li].t()).cuda()).to(w.dtype))
+            out[slot], _ = _forward_run(model, "cuda", ids, chunk, n_chunks, burst)
+            for (li, t), w in saved.items():
+                getattr(model.layers[li], t).copy_(w)
+    return out
+
+
+def _lora_proj_rows(model, bufs, slots) -> dict:
+    """Layer 0's ``wq`` projection of a batch of rows on ``slots`` against
+    each row alone, at the shapes a server gives it (a 64-token chunk, a
+    decode step), seeded inputs: per row, whether the base product ``h @ W``
+    and the projection with its LoRA delta come out bit-equal, and the
+    largest difference."""
+    import torch
+
+    from production_stack_tpu_torch.models import llama
+
+    cfg, layer, lbufs = model.cfg, model.layers[0], bufs["layers"][0]
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    res = {}
+    for T in (64, 1):
+        h = torch.randn((len(slots), T, cfg.hidden_size), generator=gen, device="cuda").to(cfg.dtype)
+        base, full = h @ layer.wq, layer.proj(h, "wq", lbufs, llama.LoraStep(bufs, slots, cfg.dtype))
+        rows = []
+        for b in range(len(slots)):
+            one = layer.proj(h[b:b + 1], "wq", lbufs, llama.LoraStep(bufs, slots[b:b + 1], cfg.dtype))[0]
+            rows.append({"slot": int(slots[b]), "base_bit_equal": torch.equal(base[b], (h[b:b + 1] @ layer.wq)[0]),
+                         "with_delta_bit_equal": torch.equal(full[b], one),
+                         "max_abs_diff": float((full[b].float() - one.float()).abs().max())})
+        res[f"T{T}"] = rows
+    return res
+
+
+def _rows_compared(a_steps, b_steps, row) -> tuple:
+    """(max |a - b| over the steps' logits of ``row``, top-1 agreement)."""
+    diff = max(float((a[row] - b[row]).abs().max()) for a, b in zip(a_steps, b_steps))
+    top1 = sum(int(a[row].argmax() == b[row].argmax()) for a, b in zip(a_steps, b_steps)) / len(a_steps)
+    return diff, top1
+
+
+def phase_lora_forward() -> None:
+    """llama-3.2-1b with two LoRA adapters on a batch of rows on slots 0, 1
+    and 2 (two 512-token chunks and an 8-step burst), in bf16 and in f32:
+    the kernel forward against the plain forward; each row in the batch
+    against the same row alone (another batch shape, so bf16 roundings may
+    differ, within the forward bound; a row given another row's slot would
+    move by ``change_vs_base``); the slot-0 row bit-equal to the same kernel
+    forward without LoRA buffers; each adapter's row against a kernel
+    forward over the weights merged with scale * A @ B."""
+    import torch
+
+    from production_stack_tpu_torch.models import llama
+    from production_stack_tpu_torch.ops.kernels.decode_attention import split_plan
+
+    B, chunk, n_chunks, burst = 1 + len(LORA_RANKS), 512, 2, 8
+    gen = torch.Generator().manual_seed(4)
+    base_cfg = llama.PRESETS["llama-3.2-1b"]
+    ids = torch.randint(0, base_cfg.vocab_size, (B, n_chunks * chunk + burst), generator=gen,
+                        dtype=torch.int32).cuda()
+    for dtype in (torch.bfloat16, torch.float32):
+        t0 = time.perf_counter()
+        model = llama.LlamaForCausalLM(dataclasses.replace(base_cfg, dtype=dtype), device="cuda")
+        llama.init_params(model, torch.Generator(device="cuda").manual_seed(0))
+        adapters = {slot: _lora_tensors(model.cfg, rank, seed=30 + slot) for slot, rank in enumerate(LORA_RANKS, 1)}
+        runs = _lora_forwards(model, adapters, ids, chunk, n_chunks, burst)
+        bound = FORWARD_LOGIT_BOUND if dtype == torch.bfloat16 else LORA_F32_ATOL
+        rows = {}
+        for row in range(B):
+            kp = _rows_compared(runs["kernel"], runs["plain"], row)
+            alone = runs["alone", row]
+            rows[row] = {"slot": row, "kernel_vs_plain": kp,
+                         "batch_vs_alone": [*_rows_compared([x[row:row + 1] for x in runs["kernel"]], alone, 0),
+                                            [torch.equal(a[row], b[0]) for a, b in zip(runs["kernel"], alone)]]}
+            if row:
+                rows[row]["vs_merged"] = _rows_compared(runs["kernel"], runs[row], row)
+                rows[row]["change_vs_base"] = _rows_compared(runs["kernel"], runs["base"], row)[0]
+        row0_same = all(torch.equal(a[0], b[0]) for a, b in zip(runs["kernel"], runs["base"]))
+        line = {"phase": "lora_forward", "model": "llama-3.2-1b", "dtype": str(dtype).split(".")[-1],
+                "layers": model.cfg.num_layers, "targets": LORA_TARGETS, "ranks": LORA_RANKS, "scale": LORA_SCALE,
+                "chunks": [chunk] * n_chunks, "burst": burst, "rows": rows, "bound": bound,
+                "top1_min": FORWARD_TOP1_MIN, "slot0_row_bit_equal_without_lora": row0_same,
+                "wq_batch_vs_alone": runs["proj_rows"],
+                "decode_splits_batch_alone": [
+                    split_plan(n, model.cfg.num_kv_heads, -(-(n_chunks * chunk + burst) // 64), 64,
+                               model.cfg.head_dim, False).splits for n in (B, 1)],
+                "finite": all(bool(torch.isfinite(x).all()) for x in runs["kernel"]),
+                "kernel_run_launches": runs["launches"], "seconds": round(time.perf_counter() - t0, 2)}
+        emit(line)
+        what = f"lora_forward[{line['dtype']}]"
+        check(line["finite"], f"{what}: non-finite logits")
+        check(row0_same, f"{what}: the slot-0 row differs from the forward without LoRA buffers")
+        for row, r in rows.items():
+            for key in ("kernel_vs_plain", "batch_vs_alone", "vs_merged"):
+                if key in r:
+                    check(r[key][0] <= bound and r[key][1] >= FORWARD_TOP1_MIN, f"{what}: row {row} {key}: {r[key]}")
+            if row:
+                check(r["change_vs_base"] > FORWARD_LOGIT_BOUND, f"{what}: slot {row} moved nothing: {r}")
+        kinds = SERVE_ROWS[False] if dtype == torch.bfloat16 else ("decode_attention", "prefill_attention")
+        for k in kinds:
+            check(runs["launches"][k] > 0, f"{what}: kernel {k} was not launched")
+        del model, runs
+        torch.cuda.empty_cache()
 
 
 # each kernel row's launch counter, as (wrapper, attribute): the int8 modes
@@ -1011,6 +1258,169 @@ async def _serve_requests(port: int, metric_series: tuple = (), long_prompt: int
         out["prompt_tokens"] = [body["usage"]["prompt_tokens"] for _, body in results]
         out["requests"] = 2 + len(results)
     return out, repeat, first
+
+
+async def _engine_greedy(engine, seq_id: str, prompt: str, lora_name=None, max_tokens: int = 24) -> tuple:
+    """One greedy request through ``engine.generate``: (token ids, logprob
+    entries with each token's two best)."""
+    from production_stack_tpu_torch.engine.scheduler import SamplingParams
+
+    params = SamplingParams(max_tokens=max_tokens, temperature=0.0, ignore_eos=True, logprobs=2)
+    ids, lps = [], []
+    async for o in engine.generate(seq_id, prompt=prompt, params=params, lora_name=lora_name):
+        ids.extend(o.token_ids)
+        lps.extend(o.logprobs)
+    return ids, lps
+
+
+async def _together(engine, prompt: str, lora_names: tuple) -> list:
+    """One greedy request of ``prompt`` per name in ``lora_names`` (None:
+    base), queued while the engine's loop thread waits on a gate, so that
+    the scheduler sees them at once and every run of the same number of
+    requests takes the same steps at the same shapes. Returns each
+    request's (token ids, logprob entries), in order."""
+    import threading
+
+    entered, gate = threading.Event(), threading.Event()
+
+    def hold():
+        entered.set()
+        gate.wait(60)
+
+    engine._inbox.put(("device_cmd", hold))
+    for _ in range(6000):
+        if entered.is_set():
+            break
+        await asyncio.sleep(0.01)
+    check(entered.is_set(), "lora: the engine loop did not reach the gate")
+    tasks = [asyncio.ensure_future(_engine_greedy(engine, f"together-{i}-{m}-{time.monotonic_ns()}", prompt, m))
+             for i, m in enumerate(lora_names)]
+    for _ in range(6000):
+        if engine._inbox.qsize() >= len(lora_names) or any(t.done() for t in tasks):
+            break
+        await asyncio.sleep(0.01)
+    gate.set()
+    return await asyncio.gather(*tasks)
+
+
+async def _lora_requests(server, port: int, adapters: list, full: bool) -> dict:
+    """The LoRA routes on a server with ``enable_lora``: ``adapters`` (name,
+    PEFT directory) loaded over HTTP and listed by /v1/models with their
+    parent; each adapter's greedy output (text and token logprobs) repeats
+    and differs from base's; a base and an adapter request in flight
+    together, over HTTP, then queued at once (``_together``): beside base,
+    the adapter's tokens and logprobs bit-equal to the same request's
+    beside a copy of itself, base's bit-equal to base's beside base, and
+    the adapter's tokens still not base's (a request given another row's
+    slot would break one of these; a request alone runs other batch
+    shapes, whose roundings differ). With ``full`` also: the same prompt
+    under an adapter moves no prefix-cache hit (its salt keeps it off
+    base's pages) and its repeat does; an unload while the adapter's
+    request is in flight answers 400; a request for an unloaded adapter
+    404; a reload gets a fresh salt and none of the old pages."""
+    import random
+
+    import aiohttp
+
+    base = f"http://127.0.0.1:{port}"
+    engine = server.engine
+    rng = random.Random(9)
+    out = {}
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+        async def post(path, body):
+            async with s.post(base + path, json=body) as r:
+                return r.status, await r.json()
+
+        def greedy(prompt, model=None, max_tokens=24):
+            body = {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0.0, "ignore_eos": True,
+                    "logprobs": 1}
+            return dict(body, model=model) if model else body
+
+        def result(body):
+            c = body["choices"][0]
+            return c["text"], c["logprobs"]["token_logprobs"]
+
+        for i, (name, path) in enumerate(adapters):
+            st, body = await post("/v1/load_lora_adapter", {"lora_name": name, "lora_path": path})
+            check(st == 200 and body == {"status": "success", "lora_name": name, "slot": i + 1},
+                  f"lora: load {name} -> {st}: {body}")
+        async with s.get(base + "/v1/models") as r:
+            models = (await r.json())["data"]
+        out["models"] = [(m["id"], m.get("parent")) for m in models]
+        check(out["models"] == [(server.cfg.name, None)] + sorted((n, server.cfg.name) for n, _ in adapters),
+              f"lora: /v1/models lists {out['models']}")
+        # 575 bytes + BOS: a repeat hits 8 cached pages and recomputes the
+        # last 64 tokens in the first run's second chunk shape (as in
+        # _serve_requests), so greedy output repeats bit for bit
+        prompt = _prompt(rng, 575)
+        st, b0 = await post("/v1/completions", greedy(prompt))
+        check(st == 200, f"lora: base request -> {st}")
+        solo = {None: result(b0)}
+        for name, _ in adapters:
+            runs = []
+            for _ in range(2):
+                st, body = await post("/v1/completions", greedy(prompt, name))
+                check(st == 200 and body["model"] == name, f"lora: request for {name} -> {st}: {body}")
+                runs.append(result(body))
+            check(runs[0] == runs[1], f"lora: {name}'s greedy output did not repeat")
+            check(runs[0][1] != solo[None][1], f"lora: {name}'s greedy output equals base's")
+            solo[name] = runs[0]
+        out["greedy_repeat_identical"] = True
+        out["differs_from_base"] = {name: True for name, _ in adapters}
+        out["texts"] = {str(k): v[0][:40] for k, v in solo.items()}
+        # a base and an adapter request in flight together
+        name = adapters[0][0]
+        both = await asyncio.gather(post("/v1/completions", greedy(prompt)),
+                                    post("/v1/completions", greedy(prompt, name)))
+        check(all(st == 200 for st, _ in both), f"lora: base and adapter together -> {[st for st, _ in both]}")
+        out["http_together_equal_solo"] = [result(both[0][1]) == solo[None], result(both[1][1]) == solo[name]]
+        check(result(both[1][1])[1] != solo[None][1], f"lora: {name} in flight beside base gave base's output")
+        mixed = await _together(engine, prompt, (None, name))
+        same_base = await _together(engine, prompt, (None, None))
+        same_adapter = await _together(engine, prompt, (name, name))
+        out["together"] = {"base_beside_adapter_equals_beside_base": mixed[0] == same_base[0],
+                           "adapter_beside_base_equals_beside_itself": mixed[1] == same_adapter[1],
+                           "adapter_tokens_differ_from_base": mixed[1][0] != mixed[0][0]}
+        check(all(out["together"].values()), f"lora: base and {name} queued together: {out['together']}")
+        if not full:
+            return out
+        # the same prompt under an adapter: none of base's cached pages
+        fresh = _prompt(rng, 400)
+        st, _ = await post("/v1/completions", greedy(fresh, max_tokens=2))
+        hits0 = engine.kv.prefix_hits
+        st2, _ = await post("/v1/completions", greedy(fresh, name, max_tokens=2))
+        hits1 = engine.kv.prefix_hits
+        st3, _ = await post("/v1/completions", greedy(fresh, name, max_tokens=2))
+        hits2 = engine.kv.prefix_hits
+        out["prefix_hits_base_adapter_adapter"] = [hits0, hits1, hits2]
+        check(st == st2 == st3 == 200, "lora: the salt requests failed")
+        check(hits1 == hits0, f"lora: {name} hit base's cached pages ({hits0} -> {hits1})")
+        check(hits2 > hits1, f"lora: {name}'s repeat did not hit its own pages ({hits1} -> {hits2})")
+        # an unload while the adapter's request is in flight
+        long_req = asyncio.ensure_future(post("/v1/completions", greedy(prompt, name, max_tokens=512)))
+        for _ in range(200):
+            if any(q.lora_slot for q in engine.scheduler.running):
+                break
+            await asyncio.sleep(0.01)
+        st, body = await post("/v1/unload_lora_adapter", {"lora_name": name})
+        out["unload_in_flight"] = [st, body.get("error")]
+        check(st == 400 and "in-flight" in body.get("error", ""), f"lora: unload in flight -> {st}: {body}")
+        st, _ = await long_req
+        check(st == 200, f"lora: the long adapter request -> {st}")
+        salt = engine.lora.cache_salt(name)
+        st, _ = await post("/v1/unload_lora_adapter", {"lora_name": name})
+        check(st == 200, f"lora: unload -> {st}")
+        st, body = await post("/v1/completions", greedy(prompt, name))
+        out["request_after_unload"] = st
+        check(st == 404, f"lora: a request for the unloaded {name} -> {st}")
+        st, _ = await post("/v1/load_lora_adapter", {"lora_name": name, "lora_path": adapters[0][1]})
+        check(st == 200, f"lora: reload -> {st}")
+        out["salts"] = [salt.decode(), engine.lora.cache_salt(name).decode()]
+        check(salt != engine.lora.cache_salt(name), f"lora: the reload kept the salt {salt}")
+        hits0 = engine.kv.prefix_hits
+        st, body = await post("/v1/completions", greedy(fresh, name, max_tokens=2))
+        check(st == 200 and engine.kv.prefix_hits == hits0, "lora: the reload hit the old load's pages")
+    return out
 
 
 # /stats keys of the JAX engine's that the port's features produce (no
@@ -1211,7 +1621,7 @@ GEMMA_SERVE = dict(max_model_len=8192)
 GEMMA_LONG_PROMPT = 4300
 
 
-def phase_serve(label: str, overrides: dict, sleep_level: int = 0) -> dict:
+def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple = ()) -> dict:
     """The port's OpenAI server in-process on ``EngineConfig(**overrides)``
     (a preset or an HF directory as ``model``; int8 pools, the CPU offload
     tier, a longer context as the run asks): the requests of
@@ -1220,7 +1630,8 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0) -> dict:
     (whose byte tokens decode to text). With ``sleep_level`` the server runs
     with sleep mode on, and after the main path the engine surface is
     checked (``_surface``), ending in a sleep at that level and a wake.
-    Returns the launch counts of the main path."""
+    With ``lora`` = (adapters, full) the LoRA routes run on the main path
+    too (``_lora_requests``). Returns the launch counts of the main path."""
     import socket
 
     import torch
@@ -1249,6 +1660,8 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0) -> dict:
             t0 = time.perf_counter()
             res, repeat, first = await _serve_requests(port, series, GEMMA_LONG_PROMPT if gemma else 0,
                                                        repeat_logprobs=not label.startswith("llama"))
+            if lora:
+                res["lora"] = await _lora_requests(server, port, *lora)
             res["seconds"] = round(time.perf_counter() - t0, 3)
             res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
             res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
@@ -1504,6 +1917,11 @@ def phase_timing() -> dict:
     emit({"phase": "timing", "kernel": "decode_attention", "case": OPT_DECODE, **_decode_timing(OPT_DECODE, False)})
     emit({"phase": "timing", "kernel": "prefill_attention", "case": OPT_PREFILL,
           **_prefill_timing(OPT_PREFILL, False)[0]})
+    for quant in (False, True):
+        emit({"phase": "timing", "kernel": _kernel_name("decode_attention", quant, 128), "case": MIXTRAL_DECODE,
+              **_decode_timing(MIXTRAL_DECODE, quant)})
+        emit({"phase": "timing", "kernel": _kernel_name("prefill_attention", quant, 128), "case": MIXTRAL_PREFILL,
+              **_prefill_timing(INT8 + MIXTRAL_PREFILL if quant else MIXTRAL_PREFILL, quant)[0]})
     return rows
 
 
@@ -1656,6 +2074,110 @@ def phase_hf_qwen(seed: int = 0) -> None:
     phase_forward("qwen2.5-7b-hf", QWEN_FORWARD_CHUNKS, model=net)
 
 
+# mistralai/Mixtral-8x7B-v0.1's config.json as published. Its 32 layers
+# (93.4 GB in bf16) do not fit the card's 80 GB: the directory holds 16
+# (46.97 GB), leaving room for the pools, the dense expert products and the
+# plain forward the check runs in the same process
+MIXTRAL_DIR = HF_ROOT / "mixtral-8x7b"
+MIXTRAL_HF_CONFIG = {
+    "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 1, "eos_token_id": 2,
+    "hidden_act": "silu", "hidden_size": 4096, "initializer_range": 0.02, "intermediate_size": 14336,
+    "max_position_embeddings": 32768, "model_type": "mixtral", "num_attention_heads": 32, "num_experts_per_tok": 2,
+    "num_hidden_layers": 32, "num_key_value_heads": 8, "num_local_experts": 8, "output_router_logits": False,
+    "rms_norm_eps": 1e-05, "rope_theta": 1000000.0, "router_aux_loss_coef": 0.02, "sliding_window": None,
+    "tie_word_embeddings": False, "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000,
+}
+MIXTRAL_LAYERS = 16
+MIXTRAL_FORWARD_CHUNKS = 2
+_M = "model.layers.7."
+MIXTRAL_SAMPLES = (
+    ("embed", "model.embed_tokens.weight", False, None),
+    ("layers.7.wk", _M + "self_attn.k_proj.weight", True, None),
+    ("layers.7.moe_router", _M + "block_sparse_moe.gate.weight", True, None),
+    ("layers.7.moe_gate", _M + "block_sparse_moe.experts.3.w1.weight", True, 3),
+    ("layers.7.moe_up", _M + "block_sparse_moe.experts.0.w3.weight", True, 0),
+    ("layers.7.moe_down", _M + "block_sparse_moe.experts.5.w2.weight", True, 5),
+    ("lm_head", "lm_head.weight", True, None),
+)
+
+
+def _mixtral_hf_specs(c: dict, dtype) -> dict:
+    """HF's MixtralForCausalLM tensors, {name: (shape, dtype)}, matrices [out, in]."""
+    H, I, V, E = c["hidden_size"], c["intermediate_size"], c["vocab_size"], c["num_local_experts"]
+    NH, KH = c["num_attention_heads"], c["num_key_value_heads"]
+    q, kv = NH * (H // NH), KH * (H // NH)
+    specs = {"model.embed_tokens.weight": (V, H)}
+    for i in range(c["num_hidden_layers"]):
+        p = f"model.layers.{i}."
+        specs.update({
+            p + "input_layernorm.weight": (H,),
+            p + "self_attn.q_proj.weight": (q, H), p + "self_attn.k_proj.weight": (kv, H),
+            p + "self_attn.v_proj.weight": (kv, H), p + "self_attn.o_proj.weight": (H, q),
+            p + "post_attention_layernorm.weight": (H,),
+            p + "block_sparse_moe.gate.weight": (E, H),
+        })
+        for e in range(E):
+            x = p + f"block_sparse_moe.experts.{e}."
+            specs.update({x + "w1.weight": (I, H), x + "w2.weight": (H, I), x + "w3.weight": (I, H)})
+    specs.update({"model.norm.weight": (H,), "lm_head.weight": (V, H)})
+    return {k: (v, dtype) for k, v in specs.items()}
+
+
+def _host_bytes_available() -> int:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024
+    fail("/proc/meminfo has no MemAvailable")
+
+
+def phase_hf_mixtral(seed: int = 0):
+    """mixtral-8x7b at full width, MIXTRAL_LAYERS of its 32 layers: the
+    free disk and host memory printed (the phase fails if the disk cannot
+    hold the directory), then its HF directory written (bf16, sharded),
+    loaded through the port's loader, its config held to the preset at that
+    depth, sampled parameters (expert slices included) held byte-identical
+    to the tensors written, then its kernel forward against its plain
+    forward (phase_forward), bf16 and int8 pools."""
+    import torch
+
+    from production_stack_tpu_torch.engine.model_loader import load_model
+    from production_stack_tpu_torch.models import llama
+
+    HF_ROOT.mkdir(parents=True, exist_ok=True)
+    free, host = shutil.disk_usage(HF_ROOT).free, _host_bytes_available()
+    layer_bytes = sum(math.prod(shape) * 2 for name, (shape, _) in _mixtral_hf_specs(
+        dict(MIXTRAL_HF_CONFIG, num_hidden_layers=1), torch.bfloat16).items() if name.startswith("model.layers."))
+    rest = 2 * MIXTRAL_HF_CONFIG["vocab_size"] * MIXTRAL_HF_CONFIG["hidden_size"] * 2
+    need = rest + MIXTRAL_LAYERS * layer_bytes + (2 << 30)  # and 2 GiB to spare
+    emit({"phase": "hf_room", "model": "mixtral-8x7b", "free_disk_bytes": free, "host_available_bytes": host,
+          "bytes_per_layer": layer_bytes, "layers": MIXTRAL_LAYERS, "disk_bytes_needed": need})
+    check(free >= need, f"hf_room[mixtral-8x7b]: {free} bytes free on disk, {MIXTRAL_LAYERS} layers need {need}")
+    layers = MIXTRAL_LAYERS
+    config = dict(MIXTRAL_HF_CONFIG, num_hidden_layers=layers)
+    specs = _mixtral_hf_specs(config, torch.bfloat16)
+    written = phase_hf_write(MIXTRAL_DIR, config, specs, seed)
+    t0 = time.perf_counter()
+    mod, cfg, net = load_model(str(MIXTRAL_DIR), device="cuda")
+    torch.cuda.synchronize()
+    load_s = time.perf_counter() - t0
+    preset = dataclasses.replace(llama.PRESETS["mixtral-8x7b"], num_layers=layers, max_model_len=cfg.max_model_len)
+    own = dict(net.named_parameters())
+    same = {}
+    for pname, hf, transpose, expert in MIXTRAL_SAMPLES:
+        want = _hf_value(hf, *specs[hf], seed)
+        got = own[pname] if expert is None else own[pname][expert]
+        same[hf] = _same_bytes(got.contiguous(), (want.t() if transpose else want).contiguous())
+    emit({"phase": "hf_load", "model": "mixtral-8x7b", "module": mod.__name__, "layers": layers,
+          "seconds": round(load_s, 2), "gb_per_s": round(written["bytes"] / load_s / 1e9, 3),
+          "config_equals_preset_at_depth": cfg == preset, "parameters": sum(p.numel() for p in own.values()),
+          "samples_byte_identical": same, "device_bytes_allocated": torch.cuda.memory_allocated()})
+    check(mod is llama and cfg == preset, f"hf_load[mixtral-8x7b]: config {cfg} differs from the preset {preset}")
+    check(all(same.values()), f"hf_load[mixtral-8x7b]: parameters differ from the tensors written: {same}")
+    del own
+    phase_forward("mixtral-8x7b-hf", MIXTRAL_FORWARD_CHUNKS, model=net)
+
+
 def phase_opt_int8_refused() -> None:
     """An OPT engine with int8 pools is refused (the JAX OPT forward reads no
     pool scales)."""
@@ -1671,19 +2193,43 @@ def phase_opt_int8_refused() -> None:
     fail("refusal[opt int8]: an OPT engine with int8 pools started")
 
 
+# PEFT adapter directories the LoRA servers load over HTTP (seeded,
+# _lora_tensors): llama-3.2-1b's two on all seven targets, mixtral-8x7b's
+# one on its attention targets (its experts are no LoRA target)
+LORA_DIR = HF_ROOT / "lora"
+LLAMA_ADAPTERS = [("llama-lora-r8", str(LORA_DIR / "llama-r8")), ("llama-lora-r16", str(LORA_DIR / "llama-r16"))]
+MIXTRAL_ADAPTERS = [("mixtral-lora-r8", str(LORA_DIR / "mixtral-r8"))]
+ALL_TARGET_MODULES = "q_proj,k_proj,v_proj,o_proj,gate_proj,up_proj,down_proj"
+
+
+def write_lora_adapters(cfg, adapters, ranks, targets) -> None:
+    """Each (name, directory) of ``adapters`` as a PEFT adapter of the rank
+    ``ranks`` gives it on ``targets``, lora_alpha = rank * LORA_SCALE."""
+    from production_stack_tpu_torch.engine.lora import save_peft_adapter
+
+    for i, ((_, path), rank) in enumerate(zip(adapters, ranks)):
+        save_peft_adapter(path, cfg, rank, rank * LORA_SCALE, _lora_tensors(cfg, rank, seed=40 + i, targets=targets))
+
+
 # (label, EngineConfig overrides, head_dim of the kernel rows whose launches it
-# gives, sleep level of its surface check or 0): each kernel row's launches
-# come from its own servers' runs; the llama bf16 server ends with the engine
-# surface and sleep level 1, qwen2.5-7b's bf16 server with level 2
+# gives, sleep level of its surface check or 0, LoRA routes (adapters, full)
+# or ()): each kernel row's launches come from its own servers' runs; the
+# llama bf16 server ends with the engine surface and sleep level 1,
+# qwen2.5-7b's bf16 server with level 2
 SERVE_RUNS = (
-    ("llama-3.2-1b", dict(model="llama-3.2-1b"), 64, 1),
-    ("llama-3.2-1b, int8", dict(model="llama-3.2-1b", **INT8_SERVE), 64, 0),
-    ("gemma-2-2b", dict(model="gemma-2-2b", **GEMMA_SERVE), 256, 0),
-    ("qwen2.5-7b-hf", dict(model=str(QWEN_DIR)), 128, 2),
-    ("qwen2.5-7b-hf, int8", dict(model=str(QWEN_DIR), kv_cache_dtype="int8"), 128, 0),
+    ("llama-3.2-1b", dict(model="llama-3.2-1b"), 64, 1, ()),
+    ("llama-3.2-1b, int8", dict(model="llama-3.2-1b", **INT8_SERVE), 64, 0, ()),
+    ("gemma-2-2b", dict(model="gemma-2-2b", **GEMMA_SERVE), 256, 0, ()),
+    ("qwen2.5-7b-hf", dict(model=str(QWEN_DIR)), 128, 2, ()),
+    ("qwen2.5-7b-hf, int8", dict(model=str(QWEN_DIR), kv_cache_dtype="int8"), 128, 0, ()),
     # OPT's position table holds 2,048: the engine's default 4,096 is refused
-    ("opt-125m-hf", dict(model=str(OPT_DIR), max_model_len=2048), 64, 0),
+    ("opt-125m-hf", dict(model=str(OPT_DIR), max_model_len=2048), 64, 0, ()),
+    ("llama-3.2-1b, lora", dict(model="llama-3.2-1b", enable_lora=True, lora_target_modules=ALL_TARGET_MODULES),
+     64, 0, (LLAMA_ADAPTERS, True)),
 )
+# after the runs above, with qwen2.5-7b's directory deleted for its room
+MIXTRAL_SERVE = ("mixtral-8x7b-hf, lora", dict(model=str(MIXTRAL_DIR), enable_lora=True), 128, 0,
+                 (MIXTRAL_ADAPTERS, False))
 
 
 def main() -> int:
@@ -1707,17 +2253,32 @@ def main() -> int:
         counts = phase_forward(name, n_chunks)
         if name.startswith("gemma"):  # gemma-2-2b's int8 rows: the launches of its int8 kernel forward
             launches.update({_dtag(k, 256): counts[k] for k in SERVE_ROWS[True]})
+    phase_lora_forward()
+
+    def serve(label, overrides, D, sleep_level, lora):
+        counts = phase_serve(label, overrides, sleep_level, lora)
+        quant = overrides.get("kv_cache_dtype") == "int8"
+        for k in SERVE_ROWS[quant]:
+            launches[_dtag(k, D)] = launches.get(_dtag(k, D), 0) + counts[k]
+
     try:
         phase_hf_qwen()
         phase_hf_write(OPT_DIR, OPT_HF_CONFIG, _opt_hf_specs(OPT_HF_CONFIG, torch.float16))
-        for label, overrides, D, sleep_level in SERVE_RUNS:
-            counts = phase_serve(label, overrides, sleep_level)
-            quant = overrides.get("kv_cache_dtype") == "int8"
-            for k in SERVE_ROWS[quant]:
-                launches[_dtag(k, D)] = launches.get(_dtag(k, D), 0) + counts[k]
+        from production_stack_tpu_torch.models import llama
+
+        write_lora_adapters(llama.PRESETS["llama-3.2-1b"], LLAMA_ADAPTERS, LORA_RANKS, LORA_TARGETS)
+        for run in SERVE_RUNS:
+            serve(*run)
         phase_opt_int8_refused()
+        shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 47 GB
+        phase_hf_mixtral()
+        gc.collect()
+        torch.cuda.empty_cache()
+        mixtral = dataclasses.replace(llama.PRESETS["mixtral-8x7b"], num_layers=MIXTRAL_LAYERS)
+        write_lora_adapters(mixtral, MIXTRAL_ADAPTERS, LORA_RANKS[:1], LORA_TARGETS[:4])
+        serve(*MIXTRAL_SERVE)
     finally:
-        shutil.rmtree(HF_ROOT, ignore_errors=True)  # 15 GB of shards
+        shutil.rmtree(HF_ROOT, ignore_errors=True)  # up to 47 GB of shards
     timing = phase_timing()
 
     table = []

@@ -8,10 +8,14 @@ engine/devicemon.py among them), ``/stats``, ``/slo_records``, ``/abort``,
 ``/v1/chat/completions`` (streaming and not, with ``n`` parallel samples,
 logprobs, penalties, logit bias, stop strings and tool calls, parsed by
 engine/tool_parser.py in its "auto" style), ``/v1/embeddings``,
-``/v1/rerank``, ``/v2/rerank``, ``/v1/score``, and sleep mode's ``/sleep``,
-``/wake_up`` and ``/is_sleeping``. LoRA adapters, live migration, the KV
-fabric and the debug routes (``/v1/traces``, ``/v1/debug/flightrecorder``,
-``/metrics/reset``) are not ported.
+``/v1/rerank``, ``/v2/rerank``, ``/v1/score``, sleep mode's ``/sleep``,
+``/wake_up`` and ``/is_sleeping``, and with ``--enable-lora``
+``/v1/load_lora_adapter`` and ``/v1/unload_lora_adapter`` (the bodies the
+reference's LoraAdapter controller posts): a loaded adapter is a model of
+``/v1/models`` with its ``parent``, a completion or chat request names it in
+``model``, and the pooling routes refuse it (they run the base weights).
+Live migration, the KV fabric and the debug routes (``/v1/traces``,
+``/v1/debug/flightrecorder``, ``/metrics/reset``) are not ported.
 
 Run: ``python -m production_stack_tpu_torch.engine.api_server --model
 llama-3.2-1b`` (a preset), or ``--model /path/to/hf-dir`` (a local
@@ -322,16 +326,20 @@ class EngineServer:
         return web.json_response({"version": __version__})
 
     async def models(self, request: web.Request) -> web.Response:
-        return web.json_response({
-            "object": "list",
-            "data": [{
-                "id": self.cfg.name,
-                "object": "model",
-                "created": int(self.start_time),
-                "owned_by": "production-stack-tpu",
-                "max_model_len": self.cfg.max_model_len,
-            }],
-        })
+        base = {
+            "id": self.cfg.name,
+            "object": "model",
+            "created": int(self.start_time),
+            "owned_by": "production-stack-tpu",
+            "max_model_len": self.cfg.max_model_len,
+        }
+        # loaded adapters are models too, each with its parent (vLLM's
+        # convention, read by the LoraAdapter controller and the router)
+        adapters = [
+            {**base, "id": name, "parent": self.cfg.name}
+            for name in self.engine.list_lora_adapters()
+        ]
+        return web.json_response({"object": "list", "data": [base] + adapters})
 
     async def tokenize(self, request: web.Request) -> web.Response:
         body = await request.json()
@@ -492,8 +500,12 @@ class EngineServer:
                 f"engine saturated: {self.engine.scheduler.num_waiting()} requests already waiting",
             )
         model = body.get("model", self.cfg.name)
+        lora_name = None
         if model != self.cfg.name:
-            return _error(f"model {model!r} does not exist", 404, type="NotFoundError", code=404)
+            if self.engine.lora is not None and self.engine.lora.is_adapter(model):
+                lora_name = model
+            else:
+                return _error(f"model {model!r} does not exist", 404, type="NotFoundError", code=404)
         req_id = request.headers.get("X-Request-Id") or f"req-{uuid.uuid4().hex[:16]}"
         try:
             params = _sampling_params(body, vocab_size=self.engine.model_cfg.vocab_size)
@@ -538,7 +550,9 @@ class EngineServer:
         self._live_requests[req_id] = sub_ids
 
         def _gen(sid):
-            return self.engine.generate(sid, prompt_token_ids=prompt_ids, params=params, priority=priority)
+            return self.engine.generate(
+                sid, prompt_token_ids=prompt_ids, params=params, priority=priority, lora_name=lora_name
+            )
 
         def _abort_all() -> None:
             self._live_requests.pop(req_id, None)
@@ -759,10 +773,13 @@ class EngineServer:
     # -- pooling routes -------------------------------------------------------
 
     def _check_pooling_model(self, body: dict) -> Optional[web.Response]:
-        """404 for a model name this server does not serve."""
+        """404 for a model name this server does not serve, 400 for a LoRA
+        adapter's (the pooling routes run the base weights only)."""
         model = body.get("model", self.cfg.name)
         if model == self.cfg.name:
             return None
+        if self.engine.lora is not None and self.engine.lora.is_adapter(model):
+            return _error(f"model {model!r} is a LoRA adapter; pooling endpoints serve the base model")
         return _error(f"model {model!r} does not exist", 404, type="NotFoundError", code=404)
 
     def _tokenize_inputs(self, raw) -> list[list[int]]:
@@ -911,6 +928,35 @@ class EngineServer:
     async def is_sleeping(self, request: web.Request) -> web.Response:
         return web.json_response({"is_sleeping": self.engine.is_sleeping})
 
+    # -- LoRA adapters (the LoraAdapter controller's calls) ---------------------
+
+    async def load_lora_adapter(self, request: web.Request) -> web.Response:
+        """POST {"lora_name", "lora_path"}: 200 with the adapter's slot, 400
+        with the reason (missing field, no LoRA, bad checkpoint, no free
+        slot, already loaded)."""
+        body = await request.json()
+        name, path = body.get("lora_name"), body.get("lora_path")
+        if not name or not path:
+            return web.json_response({"error": "lora_name and lora_path are required"}, status=400)
+        try:
+            slot = await asyncio.get_running_loop().run_in_executor(None, self.engine.load_lora_adapter, name, path)
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        return web.json_response({"status": "success", "lora_name": name, "slot": slot})
+
+    async def unload_lora_adapter(self, request: web.Request) -> web.Response:
+        """POST {"lora_name"}: 200, or 400 when it is not loaded or requests
+        that use it are in flight."""
+        body = await request.json()
+        name = body.get("lora_name")
+        if not name:
+            return web.json_response({"error": "lora_name is required"}, status=400)
+        try:
+            await asyncio.get_running_loop().run_in_executor(None, self.engine.unload_lora_adapter, name)
+        except ValueError as e:
+            return web.json_response({"error": str(e)}, status=400)
+        return web.json_response({"status": "success", "lora_name": name})
+
     # -- app ---------------------------------------------------------------
 
     def build_app(self) -> web.Application:
@@ -935,6 +981,8 @@ class EngineServer:
         r.add_post("/sleep", self.sleep)
         r.add_post("/wake_up", self.wake_up)
         r.add_get("/is_sleeping", self.is_sleeping)
+        r.add_post("/v1/load_lora_adapter", self.load_lora_adapter)
+        r.add_post("/v1/unload_lora_adapter", self.unload_lora_adapter)
         return app
 
 

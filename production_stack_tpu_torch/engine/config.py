@@ -96,11 +96,20 @@ class EngineConfig:
     # 1 frees the KV pools, level 2 also moves the weights to host memory;
     # without this flag /sleep and /wake_up answer 400
     enable_sleep_mode: bool = False
+    # batched multi-LoRA (POST /v1/load_lora_adapter, /v1/unload_lora_adapter;
+    # a request's "model" names a loaded adapter): max_loras adapters at
+    # once (slot 0, the base model, comes on top), ranks up to max_lora_rank,
+    # applied to the HF modules lora_target_modules lists (llama family only;
+    # on Mixtral the attention projections alone)
+    enable_lora: bool = False
+    max_loras: int = 4
+    max_lora_rank: int = 16
+    lora_target_modules: str = "q_proj,k_proj,v_proj,o_proj"
 
     # Switches of the JAX engine's features that the port does not serve
     # yet. Each must keep its default: check_supported refuses any other
     # value rather than ignore it. The JAX engine's per-feature sub-knobs
-    # (LoRA ranks, fabric ports, warm-start intervals, ...) are not carried.
+    # (fabric ports, warm-start intervals, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
     decode_pipeline: int = 1            # chained decode bursts
     speculative_k: int = 0              # speculative decoding
@@ -111,7 +120,6 @@ class EngineConfig:
     pipeline_parallel_size: int = 1
     distributed_coordinator: Optional[str] = None
     distributed_num_processes: int = 1
-    enable_lora: bool = False
     warm_start: bool = False
     kv_remote_url: Optional[str] = None
     kv_controller_url: Optional[str] = None
@@ -130,7 +138,7 @@ _FLAG_HELP = {
     "model": (
         "a preset name (seeded random weights) or a local HuggingFace "
         "directory: config.json plus *.safetensors (Llama, Mistral, Qwen2, "
-        "Gemma-2, OPT)"
+        "Mixtral, Gemma-2, OPT)"
     ),
     "interactive_reserve": (
         "waiting-queue slots reserved for interactive-class requests: batch "
@@ -145,6 +153,10 @@ _FLAG_HELP = {
     "batch_prefill_share": (
         "max share of one prefill dispatch's chunk slots batch-class rows "
         "may hold while an interactive prefill is waiting (1.0 = no cap)"
+    ),
+    "lora_target_modules": (
+        "comma-separated HF module names LoRA adapters may target "
+        "(q_proj, k_proj, v_proj, o_proj, gate_proj, up_proj, down_proj)"
     ),
     "attn_impl": (
         "auto | cuda | plain: the hand-written CUDA attention kernels or "
@@ -214,7 +226,6 @@ _UNSUPPORTED = {
     "pipeline_parallel_size": "pipeline parallelism",
     "distributed_coordinator": "multi-host serving",
     "distributed_num_processes": "multi-host serving",
-    "enable_lora": "LoRA adapters",
     "warm_start": "warm-start manifests",
     "kv_remote_url": "the remote KV tier (cache server)",
     "kv_controller_url": "the KV index controller",

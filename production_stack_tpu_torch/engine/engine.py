@@ -22,10 +22,17 @@ per-class shed counters and the interactive p99 windows; ``embed`` runs the
 pooled-embedding forward; ``sleep``/``wake_up`` free and restore the pools
 (level 1) and the weights (level 2). Commands that touch device state from
 another thread (``embed``, ``sleep``, ``wake_up``) run on the loop thread
-between steps (``_run_on_device_thread``). Not ported yet: the remote tier,
-the KV-index controller, the fleet directory, warm start, the KV fabric,
-migration, LoRA, speculative decoding and chained bursts
-(engine/config.check_supported refuses their flags).
+between steps (``_run_on_device_thread``).
+
+With ``enable_lora`` the engine serves batched multi-LoRA, as the JAX engine
+does: ``load_lora_adapter`` parses a PEFT directory on the caller's thread
+and writes the adapter's slot on the loop thread; ``generate(lora_name=)``
+pins the slot for the request's life and salts its prefix-cache chain with
+the adapter's per-load salt, so base and adapter requests never share pages;
+``unload_lora_adapter`` is refused while a request holds the slot. Not
+ported yet: the remote tier, the KV-index controller, the fleet directory,
+warm start, the KV fabric, migration, speculative decoding and chained
+bursts (engine/config.check_supported refuses their flags).
 """
 
 from __future__ import annotations
@@ -48,6 +55,7 @@ from production_stack_tpu_torch import tracing
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported
 from production_stack_tpu_torch.engine.kv_manager import KVPageManager
 from production_stack_tpu_torch.engine.linkprobe import derive_max_io_pages, probe_link_bandwidth
+from production_stack_tpu_torch.engine.lora import LoRAError, LoRAManager, lora_targets
 from production_stack_tpu_torch.engine.model_loader import load_model
 from production_stack_tpu_torch.engine.runner import ModelRunner, StepInput
 from production_stack_tpu_torch.engine.scheduler import SamplingParams, Scheduler, Sequence
@@ -126,11 +134,16 @@ class LLMEngine:
             ),
         )
         num_pages = cfg.num_pages or max(64, int(cfg.kv_cache_memory_gb * 1e9 / page_bytes))
+        targets = lora_targets(cfg.lora_target_modules) if cfg.enable_lora else ()
         self.runner = ModelRunner(
             model, num_pages=num_pages, page_size=cfg.page_size, seed=cfg.seed,
-            device=device,
+            device=device, enable_lora=cfg.enable_lora, max_loras=cfg.max_loras,
+            max_lora_rank=cfg.max_lora_rank, lora_targets=targets,
         )
         self.model_cfg = self.runner.cfg
+        self.lora: Optional[LoRAManager] = None
+        if cfg.enable_lora:
+            self.lora = LoRAManager(self.runner, max_loras=cfg.max_loras, max_rank=cfg.max_lora_rank)
         self._offload = None
         if cfg.kv_offload_cpu_gb > 0 or cfg.kv_offload_dir:
             self._offload = KVOffloadConnector(
@@ -276,10 +289,13 @@ class LLMEngine:
         prompt_token_ids: Optional[list[int]] = None,
         params: Optional[SamplingParams] = None,
         priority: str = "interactive",
+        lora_name: Optional[str] = None,
     ) -> AsyncIterator[RequestOutput]:
         params = params or SamplingParams()
         if priority not in ("interactive", "batch"):
             priority = "interactive"
+        if lora_name and self.lora is None:
+            raise ValueError("LoRA is not enabled (--enable-lora)")
         if prompt_token_ids is None:
             prompt_token_ids = self.tokenizer.encode(prompt or "")
         if not prompt_token_ids:
@@ -295,6 +311,11 @@ class LLMEngine:
             )
         if self._sleeping:
             raise RuntimeError("engine is sleeping")
+        lora_slot, cache_salt = 0, b""
+        if lora_name:
+            # resolve and pin last before the sequence is queued: every
+            # later path runs inside the try/finally that releases it
+            lora_slot, cache_salt = self.lora.acquire(lora_name)
         out_q: asyncio.Queue = asyncio.Queue()
         loop = asyncio.get_running_loop()
         with self._lock:
@@ -302,7 +323,7 @@ class LLMEngine:
             self._texts[seq_id] = ""
         self._inbox.put(Sequence(
             seq_id=seq_id, prompt_ids=list(prompt_token_ids), params=params,
-            priority=priority,
+            priority=priority, lora_slot=lora_slot, cache_salt=cache_salt,
         ))
         try:
             while True:
@@ -314,6 +335,8 @@ class LLMEngine:
             with self._lock:
                 self._outputs.pop(seq_id, None)
                 self._texts.pop(seq_id, None)
+            if lora_slot:
+                self.lora.release(lora_slot)
             self._inbox.put(("abort", seq_id))
 
     def abort(self, seq_id: str) -> None:
@@ -355,6 +378,7 @@ class LLMEngine:
         inp = StepInput(
             batch.input_ids, batch.positions, batch.page_table, batch.kv_lens,
             batch.temperature, batch.top_k, batch.top_p, kv_limits=batch.kv_limits,
+            lora_ids=batch.lora_ids,
         )
         pad = len(batch.kv_lens) - len(batch.seqs)
         if batch.want_penalties:
@@ -694,6 +718,50 @@ class LLMEngine:
         if "error" in box:
             raise box["error"]
         return box.get("result")
+
+    # -- LoRA adapters --------------------------------------------------------
+
+    def _lora_cmd(self, op: str, name: str, path: Optional[str] = None):
+        """A LoRA load or unload. The checkpoint is parsed on the caller's
+        thread; the slot write (and the unload's in-use scan of the
+        scheduler) runs on the loop thread between steps, so no write lands
+        between a step's layers."""
+        if self.lora is None:
+            raise ValueError("LoRA is not enabled (--enable-lora)")
+        if op == "load":
+            # cheap checks before reading the checkpoint; load_parsed checks
+            # again under the manager's lock
+            if self.lora.is_adapter(name):
+                raise LoRAError(f"adapter {name!r} is already loaded")
+            if not self.lora.has_free_slot():
+                raise LoRAError(f"no free LoRA slots (max_loras={self.cfg.max_loras})")
+            tensors, scale = self.lora.read_checkpoint(path)
+
+            def run():
+                return self.lora.load_parsed(name, tensors, scale)
+        else:
+            def run():
+                slot = self.lora.slot_for(name)  # 0 when not loaded
+                in_use = slot != 0 and any(
+                    s.lora_slot == slot for s in self.scheduler.waiting + self.scheduler.running if not s.finished
+                )
+                return self.lora.unload(name, in_use=in_use)
+
+        return self._run_on_device_thread(run, what=f"LoRA {op} of {name!r}")
+
+    def load_lora_adapter(self, name: str, path: str) -> int:
+        """Load a PEFT adapter, served under the model name ``name``; returns
+        its slot (POST /v1/load_lora_adapter)."""
+        return self._lora_cmd("load", name, path)
+
+    def unload_lora_adapter(self, name: str) -> None:
+        """Unload an adapter; refused while requests that use it are in
+        flight (the caller retries), so a slot never changes under a running
+        sequence."""
+        self._lora_cmd("unload", name)
+
+    def list_lora_adapters(self) -> list[str]:
+        return self.lora.list_adapters() if self.lora is not None else []
 
     # -- embeddings -----------------------------------------------------------
 

@@ -9,13 +9,14 @@ package.
   carry no checkpoint, as in the JAX package, so serving needs nothing
   from outside).
 - ``load_from_hf(path, device)``: the architecture from
-  ``config.json["architectures"][0]`` (Llama, Mistral, Qwen2 → llama; OPT
-  → opt; Gemma2 → gemma2; Mixtral is refused), the config from the
-  family's ``from_hf_config``, and each weight read from the shards with
+  ``config.json["architectures"][0]`` (Llama, Mistral, Qwen2, Mixtral →
+  llama; OPT → opt; Gemma2 → gemma2), the config from the family's
+  ``from_hf_config``, and each weight read from the shards with
   utils/safetensors_io.py (no ``safetensors`` package), HF's ``[out, in]``
   matrices transposed to the port's ``[in, out]``, cast to the config's
   dtype and copied onto the device one tensor at a time, under the HF
-  names the JAX package's loader reads.
+  names the JAX package's loader reads (a Mixtral layer's experts, one HF
+  tensor each, stacked on the parameter's leading [E] axis).
 - ``params_from_jax(np_tree, cfg)``: the JAX package's layer-stacked tree
   (``{"embed", "layers": {name: [L, ...]}, "final_norm"}``, plus
   ``"lm_head"`` for an untied llama) given as numpy arrays, split per layer
@@ -101,9 +102,10 @@ def load_model(
 
 
 # -- HF weight names: {port parameter: (HF tensor, transposed)} ----------------
+# (a tuple of HF tensors fills the parameter's leading axis, one each)
 
 
-def _llama_names(cfg: llama.LlamaConfig) -> dict[str, tuple[str, bool]]:
+def _llama_names(cfg: llama.LlamaConfig) -> dict[str, tuple]:
     out = {"embed": ("model.embed_tokens.weight", False), "final_norm": ("model.norm.weight", False)}
     if not cfg.tie_word_embeddings:
         out["lm_head"] = ("lm_head.weight", True)
@@ -114,10 +116,24 @@ def _llama_names(cfg: llama.LlamaConfig) -> dict[str, tuple[str, bool]]:
         "wv": ("self_attn.v_proj.weight", True),
         "wo": ("self_attn.o_proj.weight", True),
         "mlp_norm": ("post_attention_layernorm.weight", False),
-        "w_gate": ("mlp.gate_proj.weight", True),
-        "w_up": ("mlp.up_proj.weight", True),
-        "w_down": ("mlp.down_proj.weight", True),
     }
+    if cfg.num_experts:
+        # Mixtral: the router [E, H], and per expert w1 (gate), w3 (up), w2 (down)
+        def experts(w):
+            return tuple(f"block_sparse_moe.experts.{e}.{w}.weight" for e in range(cfg.num_experts))
+
+        per_layer.update({
+            "moe_router": ("block_sparse_moe.gate.weight", True),
+            "moe_gate": (experts("w1"), True),
+            "moe_up": (experts("w3"), True),
+            "moe_down": (experts("w2"), True),
+        })
+    else:
+        per_layer.update({
+            "w_gate": ("mlp.gate_proj.weight", True),
+            "w_up": ("mlp.up_proj.weight", True),
+            "w_down": ("mlp.down_proj.weight", True),
+        })
     if cfg.attention_bias:
         per_layer.update({f"b{x}": (f"self_attn.{x}_proj.bias", False) for x in "qkv"})
     return {**out, **_layers(cfg.num_layers, "model.layers.{}.", per_layer)}
@@ -166,9 +182,12 @@ def _gemma2_names(cfg: gemma2.Gemma2Config) -> dict[str, tuple[str, bool]]:
     return {**out, **_layers(cfg.num_layers, "model.layers.{}.", per_layer)}
 
 
-def _layers(num_layers: int, prefix: str, per_layer: dict) -> dict[str, tuple[str, bool]]:
+def _layers(num_layers: int, prefix: str, per_layer: dict) -> dict[str, tuple]:
+    def full(i, hf):
+        return tuple(prefix.format(i) + h for h in hf) if isinstance(hf, tuple) else prefix.format(i) + hf
+
     return {
-        f"layers.{i}.{name}": (prefix.format(i) + hf, t)
+        f"layers.{i}.{name}": (full(i, hf), t)
         for i in range(num_layers) for name, (hf, t) in per_layer.items()
     }
 
@@ -203,15 +222,20 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None):
     if set(wanted) != set(own):
         raise AssertionError(f"weight map and model differ: {sorted(set(wanted) ^ set(own))}")
     for pname, (hf, transpose) in wanted.items():
-        if hf not in keys:
-            raise KeyError(f"{path}: the checkpoint lacks {hf!r} ({type(cfg).__name__} needs it)")
-        t = shards.get(keys[hf]).to(dev).to(cfg.dtype)
-        if transpose:
-            t = t.t()
         p = own[pname]
-        if t.shape != p.shape:
-            raise ValueError(f"{path}: {hf} gives {tuple(t.shape)} for {pname}, the config needs {tuple(p.shape)}")
-        p.copy_(t)
+        # a stacked parameter takes one HF tensor per entry of its leading axis
+        parts = zip(hf, p) if isinstance(hf, tuple) else [(hf, p)]
+        for name, dst in parts:
+            if name not in keys:
+                raise KeyError(f"{path}: the checkpoint lacks {name!r} ({type(cfg).__name__} needs it)")
+            t = shards.get(keys[name]).to(dev).to(cfg.dtype)
+            if transpose:
+                t = t.t()
+            if t.shape != dst.shape:
+                raise ValueError(
+                    f"{path}: {name} gives {tuple(t.shape)} for {pname}, the config needs {tuple(dst.shape)}"
+                )
+            dst.copy_(t)
     if max_model_len:
         # after the weights: OPT keeps the checkpoint's whole position table
         cfg = dataclasses.replace(cfg, max_model_len=max_model_len)

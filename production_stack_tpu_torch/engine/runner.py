@@ -19,10 +19,16 @@ same shapes as the JAX runner's.
   ``get_pages_quant``/``set_pages_quant`` move pages with their scales.
 - ``encode``: the pooled-embedding forward of the model module's
   ``encode`` (llama family only, as in the JAX package).
+- With ``enable_lora`` the runner holds ``max_loras + 1`` adapter slots
+  (``init_lora_buffers``; slot 0 is the base model) on the device, and each
+  forward of ``step`` and ``step_multi`` takes the batch's ``lora_ids``.
+  ``set_lora_slot``/``clear_lora_slot`` write a slot in place; the engine
+  calls them on its loop thread, between steps (engine/lora.py).
 - Sleep mode: ``drop_kv_pools`` releases the pools (level 1),
   ``offload_params`` moves the weights to host memory (level 2),
   ``restore_params`` and ``reset_kv`` bring both back, the pools at new
-  addresses (no kernel wrapper keeps a pointer between launches).
+  addresses (no kernel wrapper keeps a pointer between launches). The LoRA
+  buffers stay on the device through both levels, as in the JAX runner.
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -73,6 +79,7 @@ class StepInput:
     # OpenAI logit_bias (set together when any row has one):
     bias_ids: Any = None     # [B, K] int32 token ids, >= vocab_size = unused
     bias_vals: Any = None    # [B, K] f32 additive biases
+    lora_ids: Any = None     # [B] int32 adapter slot (0 = base); None = all base
 
 
 def check_kernel_shapes(cfg) -> None:
@@ -98,6 +105,10 @@ class ModelRunner:
         page_size: int = 16,
         seed: int = 0,
         device="cuda",
+        enable_lora: bool = False,
+        max_loras: int = 4,
+        max_lora_rank: int = 16,
+        lora_targets: tuple[str, ...] = ("wq", "wk", "wv", "wo"),
     ):
         self.device = resolve_device(device)
         self.module = models.module_for_config(model.cfg)
@@ -120,6 +131,19 @@ class ModelRunner:
         self.num_pages = num_pages
         self._params_host = None
         self._alloc_kv()
+        self.max_loras = max_loras
+        self.lora_targets = tuple(lora_targets)
+        self.lora = None
+        if enable_lora:
+            if not hasattr(self.module, "init_lora_buffers"):
+                raise ValueError(
+                    f"LoRA is not supported for model family "
+                    f"{self.module.__name__.rsplit('.', 1)[-1]!r} (llama-family only)"
+                )
+            # max_loras counts adapters; slot 0 is the base model, hence + 1
+            self.lora = self.module.init_lora_buffers(
+                cfg, max_loras + 1, max_lora_rank, self.lora_targets, device=self.device
+            )
         # one generator per runner: sampled draws are reproducible per seed,
         # and (unlike jax.random) independent of how many steps were traced
         self.generator = torch.Generator(device=self.device)
@@ -149,10 +173,15 @@ class ModelRunner:
             )
         if inp.bias_ids is not None:
             s["bias"] = (self._t(inp.bias_ids, i32), self._t(inp.bias_vals, f32))
+        if self.lora is not None:
+            ids = inp.lora_ids if inp.lora_ids is not None else np.zeros(np.asarray(inp.kv_lens).shape, np.int32)
+            s["lora_ids"] = self._t(ids, i32)
         return s
 
     def _forward(self, s, input_ids, positions, kv_lens, kv_burst=None):
         kw = {"kv_scales": (self.k_scales, self.v_scales)} if self.kv_quant else {}
+        if self.lora is not None:
+            kw.update(lora=self.lora, lora_ids=s["lora_ids"])
         return self.model(
             input_ids, positions, self.k_pages, self.v_pages, s["page_table"], kv_lens, kv_burst=kv_burst, **kw
         )
@@ -355,6 +384,31 @@ class ModelRunner:
         if self.kv_quant:
             self.k_scales = init_kv_scales(cfg.num_layers, self.num_pages, cfg.num_kv_heads, self.device)
             self.v_scales = init_kv_scales(cfg.num_layers, self.num_pages, cfg.num_kv_heads, self.device)
+
+    # -- LoRA slots (engine/lora.py drives these) ----------------------------
+
+    @torch.no_grad()
+    def set_lora_slot(self, slot: int, tensors: dict, scale: float) -> None:
+        """Write one adapter into ``slot`` in place: ``tensors`` maps
+        ``a_<t>``/``b_<t>`` to [L, in, R] / [L, R, out] arrays (cast to the
+        model's dtype), ``scale`` its alpha / r. A target it does not name
+        keeps what the slot held."""
+        if self.lora is None:
+            raise RuntimeError("runner built with enable_lora=False")
+        if not 0 < slot <= self.max_loras:
+            raise ValueError(f"slot must be in [1, {self.max_loras}], got {slot}")
+        for name, stacked in tensors.items():
+            src = torch.as_tensor(stacked).to(self.device)
+            for li, bufs in enumerate(self.lora["layers"]):
+                bufs[name][slot].copy_(src[li])
+        self.lora["scale"][slot] = scale
+
+    def clear_lora_slot(self, slot: int) -> None:
+        if self.lora is None:
+            raise RuntimeError("runner built with enable_lora=False")
+        L = len(self.lora["layers"])
+        zeros = {name: torch.zeros((L,) + tuple(t.shape[1:])) for name, t in self.lora["layers"][0].items()}
+        self.set_lora_slot(slot, zeros, 0.0)
 
     # -- embeddings ---------------------------------------------------------
 

@@ -1,8 +1,11 @@
-"""Model registry of the port: the Llama, OPT and Gemma-2 families.
+"""Model registry of the port: the Llama (with Mistral, Qwen2 and Mixtral),
+OPT and Gemma-2 families.
 
 Each model module holds ``PRESETS``, its config class (with
 ``from_hf_config``), ``init_params``, ``init_kv_pages``,
-``params_from_jax`` and one class entry, ``CAUSAL_LM``."""
+``params_from_jax`` and one class entry, ``CAUSAL_LM``. The llama module
+alone also holds ``init_lora_buffers`` (and ``lora_dims``,
+``lora_from_jax``): the runner refuses LoRA for a family without it."""
 
 from __future__ import annotations
 
@@ -15,7 +18,7 @@ _ARCH_TO_MODULE = {
     "LlamaForCausalLM": llama,
     "MistralForCausalLM": llama,
     "Qwen2ForCausalLM": llama,
-    "MixtralForCausalLM": llama,  # refused by LlamaConfig.from_hf_config (MoE)
+    "MixtralForCausalLM": llama,
     "OPTForCausalLM": opt,
     "Gemma2ForCausalLM": gemma2,
 }

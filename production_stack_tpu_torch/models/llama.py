@@ -1,4 +1,5 @@
-"""Llama family (Llama 2/3/3.x, Mistral, Qwen2/2.5 dense) in PyTorch.
+"""Llama family (Llama 2/3/3.x, Mistral, Qwen2/2.5 dense, Mixtral MoE) in
+PyTorch.
 
 The counterpart of production_stack_tpu/models/llama.py, on the serving path
 the engine runs: paged KV in layer-stacked pools ``[L, P, page, KH, D]``,
@@ -15,14 +16,23 @@ models/opt.py). With ``kv_cache_dtype="int8"`` the pools hold int8 pages
 and the forward takes their scales (``kv_scales``, ops/quant.py): attention reads
 them through the kernels' int8 modes, a prefill chunk quantizes its K/V in
 the fused write, and a T = 1 step commits through the quantizing scatter.
-``encode`` is the pooled-embedding forward behind the server's embedding,
-rerank and score routes (dense causal attention, no pages). Mixtral MoE,
-LoRA, sp/pp meshes, the "pre" write mode and all-position logits are not
+
+``num_experts > 0`` (Mixtral) swaps the MLP for the sparse-MoE block, routed
+top-k and computed densely over every expert, as the JAX package computes
+it. ``tape_routes`` records the experts each router picks, or makes a
+second forward take the experts a first one picked (``RouteTape``), so
+that two forwards which differ only by rounding can be compared token for
+token. ``lora``/``lora_ids`` add batched multi-LoRA: each row's adapter slot
+adds ``(h @ A) @ B * scale`` to every projection with a buffer
+(``init_lora_buffers``). ``encode`` is the pooled-embedding forward behind
+the server's embedding, rerank and score routes (dense causal attention, no
+pages). sp/pp meshes, the "pre" write mode and all-position logits are not
 ported; the model raises on them.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from dataclasses import dataclass
 from typing import Optional
@@ -54,7 +64,8 @@ class LlamaConfig:
     tie_word_embeddings: bool = False
     attention_bias: bool = False          # Qwen2: bias on q/k/v projections
     sliding_window: Optional[int] = None  # Mistral/Qwen2: windowed attention
-    num_experts: int = 0                  # Mixtral MoE: not ported
+    num_experts: int = 0                  # Mixtral: > 0 switches the MLP to sparse MoE
+    num_experts_per_tok: int = 2
     dtype: torch.dtype = torch.bfloat16
     # "auto" | "cuda" (the hand-written kernels) | "plain" (their PyTorch
     # versions); the runner resolves "auto" by device
@@ -67,9 +78,8 @@ class LlamaConfig:
     @staticmethod
     def from_hf_config(cfg: dict) -> "LlamaConfig":
         """Build from a HuggingFace ``config.json`` dict (LlamaForCausalLM,
-        MistralForCausalLM, Qwen2ForCausalLM; the arch from
-        ``architectures[0]``), as the JAX package's does. A Mixtral config
-        (``num_local_experts``) is refused here, before any weight is read."""
+        MistralForCausalLM, Qwen2ForCausalLM, MixtralForCausalLM; the arch
+        from ``architectures[0]``), as the JAX package's does."""
         arch = (cfg.get("architectures") or ["LlamaForCausalLM"])[0]
         scaling = None
         rs = cfg.get("rope_scaling") or None
@@ -102,6 +112,7 @@ class LlamaConfig:
             attention_bias=cfg.get("attention_bias", arch.startswith("Qwen2")),
             sliding_window=window,
             num_experts=cfg.get("num_local_experts", 0) if arch.startswith("Mixtral") else 0,
+            num_experts_per_tok=cfg.get("num_experts_per_tok", 2),
         )
         _check_ported(out)
         return out
@@ -134,6 +145,9 @@ PRESETS: dict[str, LlamaConfig] = {
         attention_bias=True,
         max_model_len=32768,
     ),
+    "mixtral-8x7b": LlamaConfig(
+        vocab_size=32000, rope_theta=1000000.0, num_experts=8, num_experts_per_tok=2, max_model_len=32768,
+    ),
     "llama-debug": LlamaConfig(
         vocab_size=512,
         hidden_size=128,
@@ -155,8 +169,10 @@ PRESETS["llama-debug-4kv-f32"] = dataclasses.replace(
     _debug, num_heads=8, num_kv_heads=4, dtype=torch.float32
 )
 PRESETS["mistral-debug"] = dataclasses.replace(_debug, sliding_window=8)
+PRESETS["mixtral-debug"] = dataclasses.replace(_debug, num_experts=4, num_experts_per_tok=2)
 
-# per-layer weight names and their [in, out] (or [n]) shapes
+# per-layer weight names and their [in, out] (or [n]) shapes; a MoE layer's
+# experts stack on a leading [E] axis
 def layer_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
     H, I = cfg.hidden_size, cfg.intermediate_size
     NH, KH, D = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -167,18 +183,18 @@ def layer_shapes(cfg: LlamaConfig) -> dict[str, tuple[int, ...]]:
         "wv": (H, KH * D),
         "wo": (NH * D, H),
         "mlp_norm": (H,),
-        "w_gate": (H, I),
-        "w_up": (H, I),
-        "w_down": (I, H),
     }
     if cfg.attention_bias:
         shapes.update({"bq": (NH * D,), "bk": (KH * D,), "bv": (KH * D,)})
+    E = cfg.num_experts
+    if E:
+        shapes.update({"moe_router": (H, E), "moe_gate": (E, H, I), "moe_up": (E, H, I), "moe_down": (E, I, H)})
+    else:
+        shapes.update({"w_gate": (H, I), "w_up": (H, I), "w_down": (I, H)})
     return shapes
 
 
 def _check_ported(cfg: LlamaConfig) -> None:
-    if cfg.num_experts:
-        raise NotImplementedError("Mixtral MoE layers are not ported")
     if cfg.kv_write_mode != "post":
         raise NotImplementedError("only kv_write_mode='post' is ported")
     if cfg.kv_cache_dtype not in ("auto", "int8"):
@@ -215,10 +231,92 @@ def init_params(model: "LlamaForCausalLM", generator: torch.Generator) -> None:
         elif leaf in ("bq", "bk", "bv"):
             p.zero_()
         else:
-            # weights are [in, out]; embed [V, H] scales by H**-0.5 too
-            fan_in = p.shape[1] if leaf == "embed" else p.shape[0]
+            # weights are [in, out] ([E, in, out] for a MoE layer's experts:
+            # the router and gate/up by H**-0.5, down by I**-0.5); embed
+            # [V, H] scales by H**-0.5 too
+            fan_in = p.shape[1] if leaf == "embed" else p.shape[-2]
             w = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
             p.copy_(w.mul_(fan_in**-0.5))
+
+
+def lora_dims(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
+    """(in_dim, out_dim) of each projection a LoRA adapter may target: the
+    attention's four, and a dense model's MLP (a MoE layer's experts are no
+    target, as in the JAX package)."""
+    H, I = cfg.hidden_size, cfg.intermediate_size
+    dims = {
+        "wq": (H, cfg.num_heads * cfg.head_dim),
+        "wk": (H, cfg.num_kv_heads * cfg.head_dim),
+        "wv": (H, cfg.num_kv_heads * cfg.head_dim),
+        "wo": (cfg.num_heads * cfg.head_dim, H),
+    }
+    if not cfg.num_experts:
+        dims.update({"w_gate": (H, I), "w_up": (H, I), "w_down": (I, H)})
+    return dims
+
+
+def init_lora_buffers(
+    cfg: LlamaConfig, max_loras: int, max_rank: int, targets=("wq", "wk", "wv", "wo"), device="cpu"
+) -> dict:
+    """Slot-stacked LoRA buffers for batched multi-adapter serving, zeros:
+    ``{"layers": [per layer {"a_<t>": [S, in, R], "b_<t>": [S, R, out]}],
+    "scale": [S] f32}`` in the model's dtype, S = ``max_loras`` slots (the
+    caller counts slot 0, the base model, which stays all zero). ``scale``
+    is each slot's ``alpha / r``."""
+    dims = lora_dims(cfg)
+    unknown = set(targets) - set(dims)
+    if unknown:
+        raise ValueError(f"unknown LoRA targets {sorted(unknown)}; known: {sorted(dims)}")
+    S, R = max_loras, max_rank
+    layers = []
+    for _ in range(cfg.num_layers):
+        bufs = {}
+        for t in targets:
+            din, dout = dims[t]
+            bufs["a_" + t] = torch.zeros((S, din, R), dtype=cfg.dtype, device=device)
+            bufs["b_" + t] = torch.zeros((S, R, dout), dtype=cfg.dtype, device=device)
+        layers.append(bufs)
+    return {"layers": layers, "scale": torch.zeros((S,), dtype=torch.float32, device=device)}
+
+
+class LoraStep:
+    """One forward's view of the LoRA buffers: each row's slot (``ids``
+    [B]) and its scale in the model's dtype, as the JAX forward casts it."""
+
+    def __init__(self, lora: dict, ids: torch.Tensor, dtype):
+        self.ids = ids.long()
+        self.scale = lora["scale"][self.ids].to(dtype)
+
+
+class RouteTape:
+    """The experts each MoE layer's router takes ([B, T, k]), one entry per
+    layer and call, in the order the forward runs them (``picks``). Given
+    ``replay`` (another run's ``picks``, a list that may grow between
+    calls), each router takes the experts recorded there, weighted by its
+    own probabilities, and ``overridden``
+    counts the (layer, token) pairs where its own top-k would have been
+    another set: where two experts all but tie, two forwards that differ
+    only by rounding would otherwise route a token apart and move its
+    logits by O(1)."""
+
+    def __init__(self, replay=None):
+        self.picks = []
+        self.replay = replay
+        self.overridden = 0
+
+
+@contextlib.contextmanager
+def tape_routes(model, replay=None):
+    """Within the block every router of ``model`` records into (or, with
+    ``replay``, replays from) one ``RouteTape``, which the block yields."""
+    tape = RouteTape(replay)
+    for layer in model.layers:
+        layer.route_tape = tape
+    try:
+        yield tape
+    finally:
+        for layer in model.layers:
+            layer.route_tape = None
 
 
 class LlamaDecoderLayer(nn.Module):
@@ -226,10 +324,22 @@ class LlamaDecoderLayer(nn.Module):
         super().__init__()
         for name, shape in layer_shapes(cfg).items():
             setattr(self, name, _param(shape, cfg.dtype, device))
+        self.route_tape: Optional[RouteTape] = None
 
-    def qkv(self, h, cfg: LlamaConfig, cos, sin):
+    def proj(self, h, name: str, lora: Optional[dict] = None, step: Optional[LoraStep] = None):
+        """``h @ W`` plus, for a projection with a LoRA buffer, each row's
+        ``((h @ A[slot]) @ B[slot]) * scale[slot]`` (``lora``: this layer's
+        buffers). Slot 0 adds exact zeros."""
+        y = h @ getattr(self, name)
+        if lora is not None and "a_" + name in lora:
+            a = lora["a_" + name][step.ids]  # [B, in, R]
+            b = lora["b_" + name][step.ids]  # [B, R, out]
+            y = y + torch.einsum("btr,bro->bto", torch.einsum("bti,bir->btr", h, a), b) * step.scale[:, None, None]
+        return y
+
+    def qkv(self, h, cfg: LlamaConfig, cos, sin, lora=None, step=None):
         B, T = h.shape[:2]
-        q, k, v = h @ self.wq, h @ self.wk, h @ self.wv
+        q, k, v = (self.proj(h, n, lora, step) for n in ("wq", "wk", "wv"))
         if cfg.attention_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
         q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -237,9 +347,53 @@ class LlamaDecoderLayer(nn.Module):
         v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
-    def mlp(self, x, cfg: LlamaConfig):
+    def mlp(self, x, cfg: LlamaConfig, lora=None, step=None):
         h = rms_norm(x, self.mlp_norm, cfg.rms_norm_eps)
-        return x + (F.silu(h @ self.w_gate) * (h @ self.w_up)) @ self.w_down
+        if cfg.num_experts:
+            return x + self.moe(h, cfg)
+        gate = F.silu(self.proj(h, "w_gate", lora, step)) * self.proj(h, "w_up", lora, step)
+        return x + self.proj(gate, "w_down", lora, step)
+
+    def route(self, h, cfg: LlamaConfig):
+        """The router's top-k: f32 softmax over the experts of ``h @
+        moe_router``, and the k largest probabilities with their experts
+        ([B, T, k] each). Equal probabilities (router logits round to the
+        model's dtype, so they tie) rank the lower expert first, as
+        ``lax.top_k`` does: a stable descending sort. A ``route_tape``
+        records the experts, or replays another run's."""
+        probs = torch.softmax((h @ self.moe_router).float(), dim=-1)  # [B, T, E]
+        topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
+        topw, topi = topw[..., : cfg.num_experts_per_tok], topi[..., : cfg.num_experts_per_tok]
+        tape = self.route_tape
+        if tape is not None and tape.replay is not None:
+            own = topi
+            topi = torch.as_tensor(tape.replay[len(tape.picks)], dtype=torch.long, device=probs.device)
+            topw = probs.gather(-1, topi)
+            tape.overridden += int((own.sort(-1).values != topi.sort(-1).values).any(-1).sum())
+        if tape is not None:
+            tape.picks.append(topi)
+        return probs, topw, topi
+
+    def moe(self, h, cfg: LlamaConfig):
+        """Mixtral's sparse-MoE MLP, computed densely over the experts as the
+        JAX package's ``_moe_block`` computes it: the router's top-k
+        (``route``), the top-k weights renormalized and scattered into a
+        dense [B, T, E] gate that is cast to the model's dtype before the
+        product; every expert's ``silu(h @ gate_e) * (h @ up_e) * gate[e]``;
+        and one contraction over experts and I together. The expert products
+        are batched over E ([E, BT, H] @ [E, H, I]), so no weight is
+        copied."""
+        B, T, H = h.shape
+        E = cfg.num_experts
+        probs, topw, topi = self.route(h, cfg)
+        topw = topw / topw.sum(dim=-1, keepdim=True).clamp(min=1e-9)
+        gate = torch.zeros_like(probs).scatter_(-1, topi, topw).to(h.dtype)
+        hx = h.reshape(1, B * T, H)
+        g = torch.matmul(hx, self.moe_gate)  # [E, BT, I]
+        u = torch.matmul(hx, self.moe_up)
+        y = F.silu(g) * u * gate.reshape(B * T, E).t()[:, :, None]
+        I = y.shape[-1]
+        return (y.transpose(0, 1).reshape(B * T, E * I) @ self.moe_down.reshape(E * I, H)).reshape(B, T, H)
 
 
 class LlamaForCausalLM(nn.Module):
@@ -268,6 +422,8 @@ class LlamaForCausalLM(nn.Module):
         kv_burst: Optional[tuple] = None,
         all_logits: bool = False,
         kv_scales: Optional[tuple] = None,
+        lora: Optional[dict] = None,
+        lora_ids: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """One forward step (prefill chunk or decode) with paged KV.
 
@@ -286,6 +442,8 @@ class LlamaForCausalLM(nn.Module):
         token is appended to its window at slot counts[b], IN PLACE, and
         attention reads pool slots < kv_lens - (counts + 1) plus the window.
         The caller commits the windows once per burst.
+        With ``lora`` (``init_lora_buffers``) and ``lora_ids`` [B] int32,
+        row b adds the deltas of adapter slot ``lora_ids[b]`` (0 = none).
 
         Returns the float32 logits [B, V] of each row's last valid token.
         """
@@ -296,12 +454,14 @@ class LlamaForCausalLM(nn.Module):
         step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales)
         x = self.embed[input_ids.long()]
         cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+        ls = None if lora is None else LoraStep(lora, lora_ids, cfg.dtype)
         for li, layer in enumerate(self.layers):
+            ll = None if lora is None else lora["layers"][li]
             h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
-            q, k, v = layer.qkv(h, cfg, cos, sin)
+            q, k, v = layer.qkv(h, cfg, cos, sin, ll, ls)
             attn = step.attend(li, q, k, v, cfg.sliding_window)
-            x = x + attn.reshape(B, T, -1) @ layer.wo
-            x = layer.mlp(x, cfg)
+            x = x + layer.proj(attn.reshape(B, T, -1), "wo", ll, ls)
+            x = layer.mlp(x, cfg, ll, ls)
         step.finish()
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         head = self.embed.t() if cfg.tie_word_embeddings else self.lm_head
@@ -313,7 +473,8 @@ class LlamaForCausalLM(nn.Module):
 CAUSAL_LM = LlamaForCausalLM
 
 # encode's attention holds [rows, T, NH, T] f32 scores and a few temporaries
-# of that size; it takes as many rows a call as keep the scores near this
+# of that size, and a MoE layer's MLP [rows, T, E, I] products; each takes
+# as many rows a call as keep its largest product near this
 ENCODE_SCORE_BYTES = 1 << 30
 
 
@@ -328,10 +489,15 @@ def encode(model: LlamaForCausalLM, input_ids: torch.Tensor, positions: torch.Te
     counterpart of the XLA attention the JAX encode uses (no Pallas kernel
     runs there, and no CUDA kernel here), over groups of rows small enough
     that the largest bucket (32 x 4,096 at llama-3.2-1b's widths) fits the
-    card."""
+    card. A MoE layer's MLP goes over row groups too: its dense expert
+    products are [rows, T, E, I] (30 GB for one call at mixtral-8x7b's
+    widths and the largest bucket)."""
     cfg = model.cfg
     B, T = input_ids.shape
     rows = max(1, ENCODE_SCORE_BYTES // (T * T * cfg.num_heads * 4))
+    itemsize = model.embed.element_size()
+    mlp_rows = max(1, ENCODE_SCORE_BYTES // (T * cfg.num_experts * cfg.intermediate_size * itemsize)) \
+        if cfg.num_experts else B
     x = model.embed[input_ids.long()]
     cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     valid = positions >= 0
@@ -345,7 +511,7 @@ def encode(model: LlamaForCausalLM, input_ids: torch.Tensor, positions: torch.Te
             for i in range(0, B, rows)
         ])
         x = x + attn.reshape(B, T, -1) @ layer.wo
-        x = layer.mlp(x, cfg)
+        x = torch.cat([layer.mlp(x[i: i + mlp_rows], cfg) for i in range(0, B, mlp_rows)])
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps).float()
     mask = valid.float()[..., None]
     pooled = (x * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1.0)
@@ -354,8 +520,21 @@ def encode(model: LlamaForCausalLM, input_ids: torch.Tensor, positions: torch.Te
 
 def params_from_jax(np_tree: dict, cfg: LlamaConfig) -> dict[str, torch.Tensor]:
     """The JAX package's llama parameter tree (numpy leaves) as the port's
-    parameter dict (``LlamaForCausalLM.state_dict()`` names), on the CPU."""
+    parameter dict (``LlamaForCausalLM.state_dict()`` names), on the CPU;
+    a MoE layer's [L, E, ...] expert leaves split on L alone."""
     out = {"embed": tensor_from_numpy(np_tree["embed"]), "final_norm": tensor_from_numpy(np_tree["final_norm"])}
     if not cfg.tie_word_embeddings:
         out["lm_head"] = tensor_from_numpy(np_tree["lm_head"])
     return {**out, **unstack_layers(np_tree["layers"], cfg.num_layers)}
+
+
+def lora_from_jax(np_lora: dict, cfg: LlamaConfig) -> dict:
+    """The JAX package's LoRA buffers (``init_lora_buffers`` there: layer
+    leaves [L, S, ...] and ``scale`` [S], as numpy) as the port's, on the
+    CPU, every bit kept."""
+    per_layer = unstack_layers(np_lora["layers"], cfg.num_layers)
+    layers = [
+        {name: per_layer[f"layers.{i}.{name}"] for name in np_lora["layers"]}
+        for i in range(cfg.num_layers)
+    ]
+    return {"layers": layers, "scale": tensor_from_numpy(np_lora["scale"])}

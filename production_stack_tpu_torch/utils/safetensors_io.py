@@ -8,15 +8,17 @@ optional ``"__metadata__"`` of strings), then the raw little-endian bytes;
 offsets count from the end of the header.
 
 - ``SafetensorsDir(path)`` indexes every ``*.safetensors`` file of a
-  directory, in sorted order as HF's loaders do, and maps each file with
+  directory (or the ``files`` named), in sorted order as HF's loaders do,
+  and maps each file with
   ``mmap``. ``get(name)`` returns one tensor at a time, a view of the
   mapped bytes (bf16 as raw 16-bit words viewed as ``torch.bfloat16``):
   nothing is read before it is asked for, so a model is never held twice
   on the host. A name found in two files, or a dtype the reader does not
   take, is refused by name when the directory is indexed.
 - ``save_sharded`` writes the format as HF lays a checkpoint out (shard
-  names and ``model.safetensors.index.json``). It serves tests and
-  ``chip_smoke.py``; nothing on the serving path writes.
+  names and ``model.safetensors.index.json``), ``save_file`` one file of
+  given tensors (a PEFT adapter's). They serve tests, ``chip_smoke.py``
+  and engine/lora.save_peft_adapter; nothing on the serving path writes.
 """
 
 from __future__ import annotations
@@ -63,8 +65,8 @@ def _read_header(f) -> tuple[dict, int]:
 class SafetensorsDir:
     """Every tensor of a directory's ``*.safetensors`` files, read lazily."""
 
-    def __init__(self, path: str):
-        files = sorted(f for f in os.listdir(path) if f.endswith(".safetensors"))
+    def __init__(self, path: str, files: Iterable[str] = ()):
+        files = sorted(files or (f for f in os.listdir(path) if f.endswith(".safetensors")))
         if not files:
             raise FileNotFoundError(f"no .safetensors in {path}")
         self._maps: list[mmap.mmap] = []
@@ -129,6 +131,23 @@ def _write_tensor(f, t: torch.Tensor) -> None:
         f.write(t.view(torch.uint8).numpy())
 
 
+def _write_file(path: str, entries: list[tuple[str, torch.dtype, tuple]], make: Callable[[str], torch.Tensor]) -> None:
+    head = _header_bytes(entries)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(head)))
+        f.write(head)
+        for name, dt, shape in entries:
+            t = make(name)
+            if tuple(t.shape) != tuple(shape) or t.dtype != dt:
+                raise ValueError(f"make({name!r}) gave {tuple(t.shape)} {t.dtype}, the spec says {(shape, dt)}")
+            _write_tensor(f, t)
+
+
+def save_file(path: str, tensors: Mapping[str, torch.Tensor]) -> None:
+    """Write ``tensors`` (in order) as one safetensors file at ``path``."""
+    _write_file(path, [(n, t.dtype, tuple(t.shape)) for n, t in tensors.items()], tensors.__getitem__)
+
+
 def save_sharded(
     directory: str,
     specs: Mapping[str, tuple[tuple, torch.dtype]],
@@ -154,15 +173,7 @@ def save_sharded(
              [f"model-{i + 1:05d}-of-{len(groups):05d}.safetensors" for i in range(len(groups))])
     os.makedirs(directory, exist_ok=True)
     for fname, group in zip(files, groups):
-        head = _header_bytes((n, specs[n][1], tuple(specs[n][0])) for n in group)
-        with open(os.path.join(directory, fname), "wb") as f:
-            f.write(struct.pack("<Q", len(head)))
-            f.write(head)
-            for n in group:
-                t = make(n)
-                if tuple(t.shape) != tuple(specs[n][0]) or t.dtype != specs[n][1]:
-                    raise ValueError(f"make({n!r}) gave {tuple(t.shape)} {t.dtype}, the spec says {specs[n]}")
-                _write_tensor(f, t)
+        _write_file(os.path.join(directory, fname), [(n, specs[n][1], tuple(specs[n][0])) for n in group], make)
     if len(files) > 1:
         total = sum(_numel(s) * d.itemsize for s, d in specs.values())
         index = {"metadata": {"total_size": total},

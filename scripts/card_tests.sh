@@ -1,13 +1,15 @@
 #!/usr/bin/env bash
 # The port's card-only tests: every CUDA kernel against its plain PyTorch
-# version (tests/test_torch_cuda_attention.py), and sleep mode's freed bytes,
+# version (tests/test_torch_cuda_attention.py); sleep mode's freed bytes,
 # restored weights and kernel outputs after wake, with the device telemetry
-# (tests/test_torch_cuda_surface.py). Neither file imports jax. Run on a
-# machine with an NVIDIA GPU; tests/conftest.py imports jax, which that
-# machine may lack, so pytest skips conftest files.
+# (tests/test_torch_cuda_surface.py); and the Mixtral MoE and LoRA forwards
+# through the kernels (tests/test_torch_cuda_moe_lora.py). No file imports
+# jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
+# which that machine may lack, so pytest skips conftest files.
 #
 #   bash scripts/card_tests.sh [pytest arguments]
 set -euo pipefail
 cd "$(dirname "$0")/.."
 exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py tests/test_torch_cuda_surface.py \
+    tests/test_torch_cuda_moe_lora.py \
     -q -p no:cacheprovider "$@"

@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """Where a serving step's device time goes in the PyTorch port, on one GPU.
 
-    python3 scripts/profile_torch_step.py [--model llama-3.2-1b|gemma-2-2b] [--batch 8] [--context 1024]
-                                          [--kv-cache-dtype auto|int8]
+    python3 scripts/profile_torch_step.py [--model llama-3.2-1b|gemma-2-2b|<HF directory>] [--batch 8]
+                                          [--context 1024] [--kv-cache-dtype auto|int8]
 
-Builds the preset (any preset of the port's model modules) with seeded random weights and a ModelRunner on the card
+Builds the preset (any preset of the port's model modules) with seeded random weights, or loads a local HF
+directory (a Mixtral one as chip_smoke.py writes it), and a ModelRunner on the card
 (bf16 pools, or int8 pools with their scales), prefills ``--batch`` rows of
 ``--context`` tokens in 512-token chunks, then profiles (torch.profiler, CPU
 + CUDA activity) the last prefill chunk, one 8-token decode burst, and the
@@ -76,7 +77,8 @@ def profile(fn) -> dict:
 
 def main() -> int:
     p = argparse.ArgumentParser()
-    p.add_argument("--model", default="llama-3.2-1b", help="a preset of the port, e.g. llama-3.2-1b or gemma-2-2b")
+    p.add_argument("--model", default="llama-3.2-1b",
+                   help="a preset of the port (e.g. llama-3.2-1b, gemma-2-2b) or a local HF directory")
     p.add_argument("--batch", type=int, default=8)
     p.add_argument("--context", type=int, default=1024, help="tokens per row before the profiled decode burst")
     p.add_argument("--kv-cache-dtype", default="auto", choices=("auto", "int8"))

@@ -17,8 +17,9 @@ safetensors reader and writer against the ``safetensors`` package.
   last-token logits within 1e-4 of the JAX forward's, and within
   tests/test_model_families.py's bounds of transformers' own (0.1, and a
   correlation above 0.999: the bf16 round trip).
-- Refusals (Mixtral by name before any weight is read, OPT past its
-  position table) and the engine around a directory: its tokenizer comes
+- A Mixtral directory (experts stacked per layer) loads byte for byte;
+  refusals (an unknown architecture by name before any weight is read, OPT
+  past its position table) and the engine around a directory: its tokenizer comes
   from the directory, and ``/v1/models`` names it as the JAX server does.
 """
 
@@ -296,12 +297,43 @@ def test_forward_on_the_loaded_directory_matches_jax_and_transformers(hf_dirs, f
 
 
 def test_mixtral_is_refused_by_name_before_any_weight_is_read(tmp_path):
+    """Mixtral was refused here before the MoE port: its directory now loads,
+    each expert's HF tensor transposed into its slot of the stacked [E, ...]
+    parameter byte for byte; an unknown architecture is still refused by
+    name, before any weight is read."""
     cfg = {"architectures": ["MixtralForCausalLM"], "vocab_size": VOCAB, "hidden_size": 64,
            "intermediate_size": 128, "num_hidden_layers": 2, "num_attention_heads": 4, "num_key_value_heads": 2,
-           "num_local_experts": 4, "num_experts_per_tok": 2}
-    (tmp_path / "config.json").write_text(json.dumps(cfg))  # no shards at all
-    with pytest.raises(NotImplementedError, match="Mixtral MoE layers are not ported"):
-        load_model(str(tmp_path), device="cpu")
+           "num_local_experts": 4, "num_experts_per_tok": 2, "max_position_embeddings": 64}
+    (tmp_path / "config.json").write_text(json.dumps(cfg))
+    H, I, E, KV = 64, 128, 4, 2 * 16
+    specs = {"model.embed_tokens.weight": ((VOCAB, H), torch.bfloat16), "model.norm.weight": ((H,), torch.bfloat16),
+             "lm_head.weight": ((VOCAB, H), torch.bfloat16)}
+    for i in range(2):
+        p = f"model.layers.{i}."
+        specs.update({p + "input_layernorm.weight": ((H,), torch.bfloat16),
+                      p + "post_attention_layernorm.weight": ((H,), torch.bfloat16),
+                      p + "self_attn.q_proj.weight": ((H, H), torch.bfloat16),
+                      p + "self_attn.k_proj.weight": ((KV, H), torch.bfloat16),
+                      p + "self_attn.v_proj.weight": ((KV, H), torch.bfloat16),
+                      p + "self_attn.o_proj.weight": ((H, H), torch.bfloat16),
+                      p + "block_sparse_moe.gate.weight": ((E, H), torch.bfloat16)})
+        for e in range(E):
+            q = p + f"block_sparse_moe.experts.{e}."
+            specs.update({q + "w1.weight": ((I, H), torch.bfloat16), q + "w3.weight": ((I, H), torch.bfloat16),
+                          q + "w2.weight": ((H, I), torch.bfloat16)})
+    g = torch.Generator().manual_seed(0)
+    made = {n: torch.randn(shape, generator=g).to(dt) for n, (shape, dt) in specs.items()}
+    sio.save_sharded(str(tmp_path), specs, made.__getitem__, max_shard_bytes=200_000)
+    _, mcfg, model = load_model(str(tmp_path), device="cpu")
+    assert (mcfg.num_experts, mcfg.num_experts_per_tok) == (4, 2)
+    own = dict(model.named_parameters())
+    assert "layers.1.w_gate" not in own
+    for i in range(2):
+        p = f"model.layers.{i}.block_sparse_moe."
+        assert _bytes(own[f"layers.{i}.moe_router"]) == _bytes(made[p + "gate.weight"].t())
+        for name, w in (("moe_gate", "w1"), ("moe_up", "w3"), ("moe_down", "w2")):
+            for e in range(E):
+                assert _bytes(own[f"layers.{i}.{name}"][e]) == _bytes(made[p + f"experts.{e}.{w}.weight"].t())
     (tmp_path / "config.json").write_text(json.dumps(dict(cfg, architectures=["FalconForCausalLM"])))
     with pytest.raises(ValueError, match="unsupported architecture 'FalconForCausalLM'"):
         load_model(str(tmp_path), device="cpu")

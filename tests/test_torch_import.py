@@ -122,7 +122,7 @@ def test_runner_resolves_attention_by_device():
     [
         ("tensor_parallel_size", 2),
         ("pipeline_parallel_size", 2),
-        ("enable_lora", True),
+        ("expert_parallel_size", 2),
         ("speculative_k", 4),
         ("kv_role", "producer"),
         ("kv_fabric", True),
@@ -198,8 +198,10 @@ def test_unported_model_features_raise():
     from production_stack_tpu_torch.engine.model_loader import load_model
     from production_stack_tpu_torch.models import llama
 
-    with pytest.raises(NotImplementedError, match="MoE"):
-        llama.LlamaForCausalLM(dataclasses.replace(llama.PRESETS["llama-debug"], num_experts=4), device="cpu")
+    model = llama.LlamaForCausalLM(llama.PRESETS["mixtral-debug"], device="cpu")  # MoE is served
+    with pytest.raises(NotImplementedError, match="all-position logits"):
+        ids = torch.zeros((1, 4), dtype=torch.int32)
+        model(ids, ids, None, None, None, None, all_logits=True)
     with pytest.raises(NotImplementedError, match="kv_write_mode"):
         llama.LlamaForCausalLM(dataclasses.replace(llama.PRESETS["llama-debug"], kv_write_mode="pre"), device="cpu")
     with pytest.raises(ValueError, match="not a preset"):
