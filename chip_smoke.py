@@ -34,7 +34,10 @@ non-zero exit (nothing is caught):
                chunk over two pages, B = 2 with a padded row, pages of
                128) at D = 64, 128 and 256, bf16 and f32, fp and int8
                pools; the launch without the write leaves them untouched,
-               with the same attention bytes.
+               with the same attention bytes. The tensor-parallel ranks'
+               head shapes too (each rank's NH/tp and KH/tp: llama-3.2-1b
+               at tp 2 and 4, qwen2.5-7b, gemma-2-2b and opt-125m at tp
+               2), the decode through decode_attention_sharded.
 3. forward  -- llama-3.2-1b (two 512-token chunks) and gemma-2-2b (nine,
                past its 4,096 window) at full width and depth (bf16,
                seeded random weights), then one 8-step decode burst, with
@@ -99,6 +102,24 @@ non-zero exit (nothing is caught):
                unloaded adapter 404, and a reload gets a fresh salt. Then
                an OPT engine with int8 pools must be refused. The
                directories are deleted.
+5b. tp       -- before that refusal, while qwen2.5-7b's directory exists:
+               two tp ranks (two processes) on the one card over gloo,
+               asked for by name: llama-3.2-1b's logits of a 512-token
+               chunk and a decode step at tp 2 against tp 1's in this run
+               (FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN); the server at tp 2
+               with bf16 pools, then with int8 pools, the CPU tier and 40
+               pages (pages spill and come back through the gathered page
+               reads; the greedy repeat repeats); an f32 copy's greedy
+               tokens at tp 2 against tp 1 (a flip only at a near-tie,
+               its margin printed); qwen2.5-7b from its directory at tp 2
+               (each rank reads its slice of every split tensor; the
+               sampled parameters joined from both ranks byte-identical to
+               what was written). Every rank's launches are read through
+               the step stream (runner.rank_stats) and each rank must
+               have launched both kernels of its mode; "tp_ranks" lines
+               give each rank's step and collective seconds and bytes
+               (gloo stages the collectives through the host: functional
+               numbers, not a tp speed figure).
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -110,12 +131,14 @@ non-zero exit (nothing is caught):
                sliding and a global layer, both modes, opt-125m's decode
                and prefill, and mixtral-8x7b's (G = 4 at D = 128) decode
                burst step and prefill chunk, both modes, as rows of their
-               own.
+               own; the tp 2 ranks' rows (llama-3.2-1b's heads in both
+               modes, qwen2.5-7b's in bf16).
 
 Then the kernel table line (each row's launches from its own path's runs:
 the llama and opt-125m servers for D = 64, the qwen2.5-7b and
 mixtral-8x7b servers for D = 128, the gemma-2-2b server for its bf16 rows
-and its int8 kernel forward for its int8 rows, which no server runs), the
+and its int8 kernel forward for its int8 rows, which no server runs; the
+[tp2] rows from the tp 2 servers, summed over both ranks), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device, or run from a directory without the package, it exits
@@ -191,9 +214,29 @@ def _dtag(name: str, D: int) -> str:
     return name[:-1] + f",d{D}]" if name.endswith("]") else name + f"[d{D}]"
 
 
+def _tptag(name: str, tp: int) -> str:
+    """A kernel row's name at a tp rank's heads (tp 1 keeps the name):
+    decode_attention[d128] at tp 2 -> decode_attention[d128,tp2]."""
+    if tp == 1:
+        return name
+    return name[:-1] + f",tp{tp}]" if name.endswith("]") else name + f"[tp{tp}]"
+
+
 HEAD_DIMS = (64, 128, 256)
 REPLACES = {_dtag(k, D): v for D in HEAD_DIMS for k, v in _BASE_REPLACES.items()}
 SOURCES = {_dtag(k, D): v for D in HEAD_DIMS for k, v in _BASE_SOURCES.items()}
+# the rows of the tp = 2 serve runs: each rank's kernels at its heads
+# (llama-3.2-1b's in fp and int8 pools, qwen2.5-7b's in bf16). A rank's
+# decode is the per-shard body of the sharded decode (decode_attention_sharded
+# in the port); each rank runs the prefill kernel too, where the JAX engine
+# keeps XLA for a multi-device prefill
+SHARDED_DECODE = "production_stack_tpu/ops/pallas/paged_attention.py:472"
+TP_SERVED = ((64, False), (64, True), (128, False))  # (head_dim, int8 pools)
+for _D, _quant in TP_SERVED:
+    for _base in (("decode_attention[int8]", "prefill_attention[int8]", "kv_page_write_quant") if _quant
+                  else ("decode_attention", "prefill_attention", "kv_page_write")):
+        REPLACES[_tptag(_dtag(_base, _D), 2)] = SHARDED_DECODE if _base.startswith("decode") else _BASE_REPLACES[_base]
+        SOURCES[_tptag(_dtag(_base, _D), 2)] = _BASE_SOURCES[_base]
 
 
 def emit(obj: dict) -> None:
@@ -427,9 +470,23 @@ OPT_PREFILL = "opt_t512_h1536_g1_bf16"
 MIXTRAL = dict(NH=32, KH=8, D=128, kv_normal=True)
 MIXTRAL_DECODE = "mixtral_main_b32_ctx1024_c8_bf16"
 MIXTRAL_PREFILL = "mixtral_main_t512_h1536_bf16"
+# the tp ranks' heads: under tensor parallelism each rank runs both kernels
+# on its NH/tp query heads and KH/tp KV heads (the decode through
+# decode_attention_sharded), shapes no tp = 1 model gives; G is tp = 1's.
+# llama-3.2-1b at tp 2 (KH 4) and 4 (KH 2), qwen2.5-7b at tp 2 (KH 2, G = 7),
+# gemma-2-2b at tp 2 (NH 4, KH 2, D = 256), opt-125m at tp 2 (KH 6, G = 1)
+TP_LLAMA = dict(NH=16, KH=4, D=64, tp=2)
+TP4_LLAMA = dict(NH=8, KH=2, D=64, tp=4)
+TP_QWEN = dict(NH=14, KH=2, D=128, kv_normal=True, tp=2)
+TP_GEMMA = dict(GEMMA, NH=4, KH=2, tp=2)
+TP_OPT = dict(NH=6, KH=6, D=64, tp=2)
+TP_DECODE = "tp2_llama_b32_ctx1024_c8_bf16"
+TP_PREFILL = "tp2_llama_t512_h1536_bf16"
+TP_QWEN_DECODE = "tp2_qwen_b32_ctx1024_c8_bf16"
+TP_QWEN_PREFILL = "tp2_qwen_t512_h1536_bf16"
 # the cases whose one-key-fewer control must fail the bound
 CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECODE, QWEN_PREFILL, OPT_DECODE,
-              OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL}
+              OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL, TP_DECODE, TP_PREFILL, TP_QWEN_DECODE, TP_QWEN_PREFILL}
 CONTROLLED |= {INT8 + n for n in CONTROLLED}
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
@@ -544,6 +601,30 @@ DECODE_CASES = [
                                           cur_lens=[2, 0, 1], dtype="float32")),
     (MIXTRAL_DECODE, dict(MIXTRAL, seed=22, B=32, page=64, maxp=16, L=1, lens=[1024] * 32, C=8,
                           cur_lens=[8] * 32, dtype="bfloat16")),
+    # the tp ranks' heads: a tp = 2 rank's decode burst step of the served
+    # models (the timing phase's inputs); at every rank shape ragged rows,
+    # the burst on rows whose last split is empty and NaN past each row's
+    # history; f32 (the f32 copy's tp run)
+    (TP_DECODE, dict(TP_LLAMA, seed=24, B=32, page=64, maxp=16, L=1, lens=[1024] * 32, C=8, cur_lens=[8] * 32,
+                     dtype="bfloat16")),
+    (TP_QWEN_DECODE, dict(TP_QWEN, seed=25, B=32, page=64, maxp=16, L=1, lens=[1024] * 32, C=8,
+                          cur_lens=[8] * 32, dtype="bfloat16")),
+    ("tp2_llama_splits_burst_last_split_empty_nan_bf16", dict(TP_LLAMA, B=3, page=64, maxp=24, L=2, layer=1,
+                                                              lens=[30, 1500, 900], C=8, cur_lens=[3, 5, 8],
+                                                              poison=True, dtype="bfloat16")),
+    ("tp4_llama_splits_burst_last_split_empty_nan_bf16", dict(TP4_LLAMA, B=3, page=64, maxp=24, L=2, layer=1,
+                                                              lens=[30, 1500, 900], C=8, cur_lens=[3, 5, 8],
+                                                              poison=True, dtype="bfloat16")),
+    ("tp2_qwen_splits_burst_last_split_empty_nan_bf16", dict(TP_QWEN, B=3, page=64, maxp=24, L=2, layer=1,
+                                                             lens=[30, 1500, 900], C=8, cur_lens=[3, 5, 8],
+                                                             poison=True, dtype="bfloat16")),
+    ("tp2_gemma_ragged_burst_window_bf16", dict(TP_GEMMA, B=4, page=64, maxp=72, L=2, layer=1,
+                                                lens=[9, 700, 4500, 4097], C=8, cur_lens=[8, 3, 5, 8],
+                                                window=GEMMA_WINDOW, dtype="bfloat16")),
+    ("tp2_opt_ragged_empty_row_bf16", dict(TP_OPT, B=4, page=64, maxp=8, L=2, layer=1, lens=[0, 9, 300, 512], C=8,
+                                           cur_lens=[0, 8, 3, 8], dtype="bfloat16")),
+    ("tp2_llama_ragged_f32", dict(TP_LLAMA, B=2, page=16, maxp=20, L=1, lens=[300, 77], C=2, cur_lens=[2, 1],
+                                  dtype="float32")),
 ]
 DECODE_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in DECODE_CASES]
 
@@ -636,6 +717,26 @@ PREFILL_CASES = [
                                  dtype="float32")),
     (MIXTRAL_PREFILL, dict(MIXTRAL, seed=23, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
                            dtype="bfloat16")),
+    # the tp ranks' heads: a tp = 2 rank's 512-token chunk after 1,536 (the
+    # timing phase's inputs); ragged rows (one padded) in a stacked pool with
+    # NaN past each chunk start; gemma-2-2b's window; opt-125m's 3-token
+    # chunk; f32
+    (TP_PREFILL, dict(TP_LLAMA, seed=26, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
+                      dtype="bfloat16")),
+    (TP_QWEN_PREFILL, dict(TP_QWEN, seed=27, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
+                           dtype="bfloat16")),
+    ("tp4_llama_ragged_padded_row_layer1_nan_bf16", dict(TP4_LLAMA, B=3, T=96, page=16, maxp=16, L=2, layer=1,
+                                                         computed=[100, 0, 37], chunks=[96, 61, 0], poison=True,
+                                                         dtype="bfloat16")),
+    ("tp2_qwen_ragged_padded_row_layer1_nan_bf16", dict(TP_QWEN, B=3, T=96, page=16, maxp=16, L=2, layer=1,
+                                                        computed=[100, 0, 37], chunks=[96, 61, 0], poison=True,
+                                                        dtype="bfloat16")),
+    ("tp2_gemma_window_bites_bf16", dict(TP_GEMMA, B=2, T=96, page=64, maxp=72, L=1, computed=[4200, 30],
+                                         chunks=[96, 70], window=GEMMA_WINDOW, dtype="bfloat16")),
+    ("tp2_opt_t3_chunk_bf16", dict(TP_OPT, B=2, T=3, page=16, maxp=4, L=1, computed=[20, 0], chunks=[3, 2],
+                                   dtype="bfloat16")),
+    ("tp2_llama_history_f32", dict(TP_LLAMA, B=2, T=40, page=16, maxp=8, L=1, computed=[30, 3], chunks=[40, 29],
+                                   dtype="float32")),
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
 
@@ -671,8 +772,8 @@ WRITE_CASES += [
 ]
 
 
-def _kernel_name(base: str, quant: bool, D: int = 64) -> str:
-    return _dtag(base + "[int8]" if quant else base, D)
+def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1) -> str:
+    return _tptag(_dtag(base + "[int8]" if quant else base, D), tp)
 
 
 def _clone_pools(args, kw):
@@ -687,6 +788,7 @@ def phase_kernels():
     from production_stack_tpu_torch.ops.kernels.decode_attention import (
         decode_attention,
         decode_attention_ref,
+        decode_attention_sharded,
         split_plan,
     )
     from production_stack_tpu_torch.ops.kernels.prefill_attention import (
@@ -696,6 +798,8 @@ def phase_kernels():
         prefill_attention_ref,
     )
 
+    # each row's largest error over its cases (the rank shapes with no row
+    # of their own, such as llama-3.2-1b at tp 4, under their own names)
     worst = {name: 0.0 for name in REPLACES}
 
     def judged(kernel, name, out, ref, dtype, control=None, **extra):
@@ -712,7 +816,7 @@ def phase_kernels():
         if control is not None:
             check(line["one_key_fewer_ratio_to_bound"] > 1.0,
                   f"{kernel} {name}: the bound does not reject a one-key-fewer output")
-        worst[kernel] = max(worst[kernel], res["max_abs_err"])
+        worst[kernel] = max(worst.get(kernel, 0.0), res["max_abs_err"])
 
     def pools_same(a, b, skw_a, skw_b):
         """Byte-identical pools and bitwise-equal scales (NaN bytes too)."""
@@ -722,17 +826,23 @@ def phase_kernels():
     for name, kw in DECODE_CASES:
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
         seed = kw.pop("seed", 1)
-        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"])
+        tp = kw.pop("tp", 1)
+        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp)
         args, call_kw = decode_case(seed, **kw)
-        out = decode_attention(*args, **call_kw)
-        again = decode_attention(*args, **call_kw)
+        if tp > 1:  # a tp rank's decode, as models/paged_step.py calls it
+            kern = lambda *a, **k: decode_attention_sharded(*a, tp=tp, **k)  # noqa: E731
+            plain = lambda *a, **k: decode_attention_sharded(*a, tp=tp, plain=True, **k)  # noqa: E731
+        else:
+            kern, plain = decode_attention, decode_attention_ref
+        out = kern(*args, **call_kw)
+        again = kern(*args, **call_kw)
         torch.cuda.synchronize()
         check(_same_bytes(out, again), f"decode {name}: two calls on the same inputs gave different bytes")
-        ref = decode_attention_ref(*args, **call_kw)
+        ref = plain(*args, **call_kw)
         if kw.get("poison"):
             # the plain version on clean inputs: poisoned slots must be skipped
             clean, clean_kw = decode_case(seed, **dict(kw, poison=False))
-            ref = decode_attention_ref(*clean, **clean_kw)
+            ref = plain(*clean, **clean_kw)
         control = None
         if name in CONTROLLED:
             q, kp, vp, pt, lens = args
@@ -749,7 +859,9 @@ def phase_kernels():
         layers untouched), and the attention-only launch on fresh copies
         (pools untouched, the same output bytes)."""
         quant = kw.get("quant", False)
-        kernel = _kernel_name("prefill_attention", quant, kw["D"])
+        kw = dict(kw)
+        tp = kw.pop("tp", 1)
+        kernel = _kernel_name("prefill_attention", quant, kw["D"], tp)
         args, call_kw = prefill_case(seed, **kw)
         q, kp, vp, pt, pos, lens, kc, vc, cl = args
         layer = call_kw["layer"]
@@ -774,7 +886,7 @@ def phase_kernels():
             if c == 0:
                 check(float(out[b].float().abs().max()) == 0.0, f"prefill {name}: padded row not 0")
         # the write, against its plain version alone
-        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"])
+        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp)
         same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
         untouched = all(
             _same_bytes(x[i], y[i]) for i in range(kw["L"]) if i != layer
@@ -793,7 +905,7 @@ def phase_kernels():
                                   f"or other layers changed")
         check(kept and _same_bytes(alone, out), f"prefill {name}: the launch without the write changed the pools "
                                                 f"or gave other output bytes")
-        worst[wkernel] = max(worst[wkernel], err)
+        worst[wkernel] = max(worst.get(wkernel, 0.0), err)
 
     for name, kw in PREFILL_CASES:
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
@@ -1133,23 +1245,13 @@ def phase_lora_forward() -> None:
 # of the two attention kernels count apart from their fp modes, and the
 # write rows count the prefill launches that also wrote the chunk
 def _counters():
-    from production_stack_tpu_torch.ops.kernels import decode_attention as dmod
-    from production_stack_tpu_torch.ops.kernels import prefill_attention as pmod
+    """(kernel rows -> (wrapper, attribute), plain versions -> function):
+    the counters engine/runner.COUNTERS names, which runner.rank_stats reads
+    on every tp rank."""
+    from production_stack_tpu_torch.engine.runner import COUNTERS
 
-    kernels = {
-        "decode_attention": (dmod.decode_attention, "launches"),
-        "prefill_attention": (pmod.prefill_attention, "launches"),
-        "kv_page_write": (pmod.prefill_attention, "launches_write"),
-        "decode_attention[int8]": (dmod.decode_attention, "launches_int8"),
-        "prefill_attention[int8]": (pmod.prefill_attention, "launches_int8"),
-        "kv_page_write_quant": (pmod.prefill_attention, "launches_write_int8"),
-    }
-    plains = {
-        "decode_attention_ref": dmod.decode_attention_ref,
-        "prefill_attention_ref": pmod.prefill_attention_ref,
-        "kv_page_write_ref": pmod.kv_page_write_ref,
-        "kv_page_write_quant_ref": pmod.kv_page_write_quant_ref,
-    }
+    kernels = {name: (fn, attr) for name, fn, attr in COUNTERS if attr != "calls"}
+    plains = {name: fn for name, fn, attr in COUNTERS if attr == "calls"}
     return kernels, plains
 
 
@@ -1621,7 +1723,14 @@ GEMMA_SERVE = dict(max_model_len=8192)
 GEMMA_LONG_PROMPT = 4300
 
 
-def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple = ()) -> dict:
+def _rank_rows(stats) -> list:
+    """runner.rank_stats' [tp, len(RANK_STATS)] as one dict per rank."""
+    from production_stack_tpu_torch.engine.runner import RANK_STATS
+
+    return [dict(zip(RANK_STATS, (float(x) for x in row))) for row in stats]
+
+
+def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple = (), prepare=None) -> dict:
     """The port's OpenAI server in-process on ``EngineConfig(**overrides)``
     (a preset or an HF directory as ``model``; int8 pools, the CPU offload
     tier, a longer context as the run asks): the requests of
@@ -1631,7 +1740,14 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     with sleep mode on, and after the main path the engine surface is
     checked (``_surface``), ending in a sleep at that level and a wake.
     With ``lora`` = (adapters, full) the LoRA routes run on the main path
-    too (``_lora_requests``). Returns the launch counts of the main path."""
+    too (``_lora_requests``). With ``tensor_parallel_size`` tp > 1 the
+    engine runs tp processes (the followers it starts), the counts are read
+    from every rank (runner.rank_stats) and each rank must have launched
+    each kernel of its mode; a "tp_ranks" line gives each rank's step and
+    collective seconds and bytes. ``prepare(engine)``, when given, runs on
+    the engine's loop thread before the main path (its launches are not
+    counted). Returns the launch counts of the main path, summed over the
+    ranks."""
     import socket
 
     import torch
@@ -1646,13 +1762,20 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     offload = "kv_offload_cpu_gb" in overrides
     gemma = label.startswith("gemma")
     cfg = EngineConfig(host="127.0.0.1", port=port, enable_sleep_mode=sleep_level > 0, **overrides)
+    tp = cfg.tensor_parallel_size
     kernels, plains = _counters()
     series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
 
     async def run():
         server, runner = await serve(cfg)
         try:
+            if prepare is not None:
+                res_prepare = await asyncio.get_running_loop().run_in_executor(
+                    None, server.engine._run_on_device_thread, lambda: prepare(server.engine), "prepare")
             # every count to 0 right before the main path, read right after
+            # (on every rank with tp ranks)
+            if tp > 1:
+                server.engine.runner.rank_stats(reset=True)
             for fn, attr in kernels.values():
                 setattr(fn, attr, 0)
             for fn in plains.values():
@@ -1663,8 +1786,21 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             if lora:
                 res["lora"] = await _lora_requests(server, port, *lora)
             res["seconds"] = round(time.perf_counter() - t0, 3)
-            res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
-            res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
+            if tp > 1:
+                ranks = _rank_rows(server.engine.runner.rank_stats())
+                res["launches_by_rank"] = [{k: int(r[k]) for k in kernels} for r in ranks]
+                res["launches"] = {k: sum(r[k] for r in res["launches_by_rank"]) for k in kernels}
+                res["plain_calls"] = {k: int(sum(r[k] for r in ranks)) for k in plains}
+                res["tp_ranks"] = [
+                    {"rank": i, "device": dev, **{k: r[k] for k in ("step_seconds", "steps", "collective_calls",
+                                                                      "collective_bytes", "collective_seconds")}}
+                    for i, (r, (dev, _)) in enumerate(zip(ranks, server.engine.runner.kv_pool_shard_layout()))
+                ]
+            else:
+                res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
+                res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
+            if prepare is not None:
+                res["prepare"] = res_prepare
             keep = ["prompt_tokens_total", "generation_tokens_total", "decode_dispatches_total",
                     "gpu_prefix_cache_hits_total", "kv_evicted_pages_total", "num_pages"]
             if quant:
@@ -1690,7 +1826,16 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     res = asyncio.run(run())
     res["seconds_with_startup"] = round(time.perf_counter() - t0, 2)
     what = f"serve[{label}]"
+    tp_ranks = res.pop("tp_ranks", None)
     emit({"phase": "serve", "model": label, "kv_cache_dtype": cfg.kv_cache_dtype, "config": overrides, **res})
+    if tp > 1:
+        # functional numbers of tp ranks over gloo, which stages every CUDA
+        # collective through the host; no NCCL tp speed figure
+        emit({"phase": "tp_ranks", "model": label, "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)",
+              "tp": tp, "ranks": tp_ranks, "main_path_seconds": res["seconds"], "card": nvidia_smi_line()})
+        for r, counts in enumerate(res["launches_by_rank"]):
+            for k in SERVE_ROWS[quant]:
+                check(counts[k] > 0, f"{what}: kernel {k} was not launched on rank {r}")
     if gemma:
         check(max(res["prompt_tokens"]) > GEMMA_WINDOW, f"{what}: no prompt ran past the sliding window")
     for k in SERVE_ROWS[quant]:
@@ -1708,6 +1853,187 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
         check(e["kv_corrupt_pages_total"] == 0, f"{what}: the CPU tier held corrupt pages")
     torch.cuda.empty_cache()
     return res["launches"]
+
+
+# tensor parallelism on the one card: two ranks (two processes) on cuda:0
+# over gloo, asked for by name (nccl refuses two ranks on one device); the
+# collectives go through the host, so the numbers of these runs are
+# functional, not a tp speed figure
+TP2 = dict(tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
+TP_SERVE_LLAMA_INT8 = dict(model="llama-3.2-1b", **INT8_SERVE, **TP2)
+# the f32 copy's greedy tokens at tp 2 against tp 1; a token may flip only
+# where tp 1's two best tokens all but tie (their logprobs this close)
+TP_F32_TOKENS = 16
+TP_NEAR_TIE = 1e-3
+
+
+# the tp forward's steps, as the forward phases compare theirs: two rows,
+# two 512-token prefill chunks, then 8 decode steps fed the seeded tokens
+# (teacher forcing), 20 rows of logits in all
+TP_FORWARD_CHUNKS, TP_FORWARD_DECODES = 2, 8
+
+
+def _tp_inputs(vocab: int) -> list:
+    """The runner's StepInputs of the tp forward's steps, on fresh pages."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.runner import StepInput
+
+    rng = np.random.RandomState(4)
+    B, T = 2, 512
+    n = TP_FORWARD_CHUNKS * T + TP_FORWARD_DECODES
+    ids = rng.randint(0, vocab, (B, n)).astype(np.int32)
+    maxp = -(-n // 64)
+    common = dict(page_table=np.arange(B * maxp, dtype=np.int32).reshape(B, maxp),
+                  temperature=np.zeros(B, np.float32), top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32))
+    steps = [(c * T, T) for c in range(TP_FORWARD_CHUNKS)]
+    steps += [(TP_FORWARD_CHUNKS * T + s, 1) for s in range(TP_FORWARD_DECODES)]
+    return [
+        StepInput(input_ids=ids[:, p: p + t], positions=np.tile(np.arange(p, p + t, dtype=np.int32), (B, 1)),
+                  kv_lens=np.full(B, p + t, np.int32), **common)
+        for p, t in steps
+    ]
+
+
+def _tp_logits(engine) -> list:
+    """The logits [B, V] of _tp_inputs' chunk and decode step through the
+    engine's runner (every rank), on the CPU; the pools are reset after."""
+    runner = engine.runner
+    out = [runner.step(inp)[1].float().cpu() for inp in _tp_inputs(engine.model_cfg.vocab_size)]
+    runner.reset_kv()
+    return out
+
+
+def phase_tp_reference(model: str = "llama-3.2-1b") -> list:
+    """tp 1's logits of _tp_inputs on ``model`` (seeded weights: every tp
+    draws the same model), for the tp 2 server's check."""
+    import torch
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    engine = LLMEngine(EngineConfig(model=model, num_pages=64))
+    try:
+        return _tp_logits(engine)
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _tp_logits_check(ref: list):
+    """``prepare`` for the tp 2 llama server: its logits against tp 1's
+    (``ref``) within the forward phases' bar."""
+    import torch
+
+    def run(engine):
+        got = _tp_logits(engine)
+        diffs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
+        top1 = float(torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(got, ref)]).float().mean())
+        flips = []  # where the two runs' best tokens differ: tp 1's two best logits there
+        for s, (a, b) in enumerate(zip(got, ref)):
+            for r in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten().tolist():
+                top = b[r].topk(2).values
+                flips.append({"step": s, "row": r, "tp1_top2_margin": float(top[0] - top[1])})
+        line = {"phase": "tp_forward", "model": "llama-3.2-1b", "tp": 2, "against": "tp 1, same run",
+                "steps": [f"prefill 2 x 512 (x{TP_FORWARD_CHUNKS})", f"decode 2 x 1 (x{TP_FORWARD_DECODES})"],
+                "max_logit_diff_per_step": diffs, "argmax_flips": flips,
+                "bound": FORWARD_LOGIT_BOUND, "top1_agreement": top1, "top1_min": FORWARD_TOP1_MIN,
+                "finite": all(bool(torch.isfinite(x).all()) for x in got),
+                "shapes": [list(x.shape) for x in got]}
+        emit(line)
+        check(line["finite"] and line["shapes"] == [list(x.shape) for x in ref], "tp_forward: bad logits")
+        check(max(diffs) <= FORWARD_LOGIT_BOUND, f"tp_forward: logit diff {max(diffs)} > {FORWARD_LOGIT_BOUND}")
+        check(top1 >= FORWARD_TOP1_MIN, f"tp_forward: top-1 agreement {top1} < {FORWARD_TOP1_MIN}")
+        return {"max_logit_diff": max(diffs), "top1_agreement": top1}
+
+    return run
+
+
+def phase_tp_f32_tokens() -> None:
+    """An f32 copy of llama-3.2-1b (its preset at float32, added here; the
+    leader hands the config to its follower): greedy tokens through the
+    engine at tp 2 against tp 1 for TP_F32_TOKENS tokens, two prompts. A
+    token that differs must sit where tp 1's two best tokens are within
+    TP_NEAR_TIE: its margin and the runs' logprob difference are printed."""
+    import random
+
+    import torch
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.models import llama
+
+    name = "llama-3.2-1b-f32"
+    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS["llama-3.2-1b"], dtype=torch.float32)
+    rng = random.Random(13)
+    prompts = [_prompt(rng, 300), _prompt(rng, 700)]
+    runs = {}
+    t0 = time.perf_counter()
+    for tp in (1, 2):
+        overrides = TP2 if tp == 2 else {}
+        engine = LLMEngine(EngineConfig(model=name, num_pages=128, decode_steps=8, **overrides))
+        engine.start()
+        try:
+            if tp == 2:
+                engine.runner.rank_stats(reset=True)
+
+            async def go():
+                return [await _engine_greedy(engine, f"f32-{tp}-{i}", p, max_tokens=TP_F32_TOKENS)
+                        for i, p in enumerate(prompts)]
+
+            runs[tp] = asyncio.run(go())
+            if tp == 2:
+                ranks = _rank_rows(engine.runner.rank_stats())
+        finally:
+            engine.stop()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+    # up to each prompt's first differing token (after it the prefixes differ)
+    flips, diffs, same = [], [], 0
+    for i, ((ids1, lp1), (ids2, lp2)) in enumerate(zip(runs[1], runs[2])):
+        j = next((j for j, (a, b) in enumerate(zip(ids1, ids2)) if a != b), len(ids1))
+        same += j
+        diffs += [abs(a["logprob"] - b["logprob"]) for a, b in zip(lp1[:j], lp2[:j])]
+        if j < len(ids1):
+            top = lp1[j]["top_logprobs"]
+            flips.append({"prompt": i, "token": j, "tp1_top2_margin": top[0] - top[1],
+                          "logprob_diff": abs(lp1[j]["logprob"] - lp2[j]["logprob"])})
+    line = {"phase": "tp_f32_tokens", "model": name, "tp": 2, "tokens_per_prompt": TP_F32_TOKENS,
+            "prompts": len(prompts), "tokens_equal_before_a_flip": same, "flips": flips, "near_tie": TP_NEAR_TIE,
+            "logprob_max_diff_before_a_flip": max(diffs, default=0.0),
+            "launches_by_rank": [{k: int(r[k]) for k in ("decode_attention", "prefill_attention", "kv_page_write")}
+                                 for r in ranks],
+            "seconds": round(time.perf_counter() - t0, 2)}
+    emit(line)
+    check(all(len(ids) == TP_F32_TOKENS for run in runs.values() for ids, _ in run), "tp_f32_tokens: short output")
+    for f in flips:
+        check(f["tp1_top2_margin"] <= TP_NEAR_TIE, f"tp_f32_tokens: a token flipped away from a near-tie: {f}")
+    for r, counts in enumerate(line["launches_by_rank"]):
+        check(all(n > 0 for n in counts.values()), f"tp_f32_tokens: rank {r} launched {counts}")
+
+
+def _tp_qwen_slices(seed: int = 0):
+    """``prepare`` for the tp 2 qwen2.5-7b server: the sampled parameters,
+    joined from both ranks' slices (runner.gathered_params), byte-identical
+    to the tensors written."""
+    import torch
+
+    specs = _qwen2_hf_specs(QWEN_HF_CONFIG, torch.bfloat16)
+
+    def run(engine):
+        got = engine.runner.gathered_params([p for p, _, _ in QWEN_SAMPLES])
+        same = {}
+        for pname, hf, transpose in QWEN_SAMPLES:
+            want = _hf_value(hf, *specs[hf], seed).cpu()
+            same[pname] = _same_bytes(got[pname], (want.t() if transpose else want).contiguous())
+        emit({"phase": "tp_hf_load", "model": "qwen2.5-7b", "tp": 2, "rank_slices_byte_identical": same})
+        check(all(same.values()), f"tp_hf_load[qwen2.5-7b]: a rank's slice differs from what was written: {same}")
+        return same
+
+    return run
 
 
 def _time_ms(fn, iters=30, warmup=3) -> float:
@@ -1760,6 +2086,7 @@ def _decode_timing(case_name: str, quant: bool) -> dict:
 
     bf16 = torch.bfloat16
     case = dict(dict(DECODE_CASES)[case_name], dtype=bf16, quant=quant)
+    case.pop("tp", None)  # a tp rank's shapes: the same kernel on its heads
     B, NH, KH, D, page, maxp = (case[k] for k in ("B", "NH", "KH", "D", "page", "maxp"))
     lens, C, cur = case["lens"], case["C"], case["cur_lens"]
     window = case.get("window") or (1 << 30)
@@ -1810,6 +2137,7 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, dict]:
 
     bf16 = torch.bfloat16
     case = dict(dict(PREFILL_CASES)[case_name], dtype=bf16, quant=quant)
+    case.pop("tp", None)
     NH, KH, D, page, T = (case[k] for k in ("NH", "KH", "D", "page", "T"))
     hist = case["computed"][0]
     window = case.get("window") or (1 << 30)
@@ -1907,6 +2235,14 @@ def phase_timing() -> dict:
             row, fused = _prefill_timing(INT8 + pre if quant else pre, quant)
             rows[_kernel_name("prefill_attention", quant, D)] = row
             rows[_dtag("kv_page_write_quant" if quant else "kv_page_write", D)] = _write_timing(fused, quant)
+    # the tp = 2 ranks' rows: llama-3.2-1b's heads in both pool modes,
+    # qwen2.5-7b's in bf16
+    for D, quant in TP_SERVED:
+        dec, pre = (TP_DECODE, TP_PREFILL) if D == 64 else (TP_QWEN_DECODE, TP_QWEN_PREFILL)
+        rows[_kernel_name("decode_attention", quant, D, 2)] = _decode_timing(dec, quant)
+        row, fused = _prefill_timing(INT8 + pre if quant else pre, quant)
+        rows[_kernel_name("prefill_attention", quant, D, 2)] = row
+        rows[_kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, D, 2)] = _write_timing(fused, quant)
     for name, r in rows.items():
         emit({"phase": "timing", "kernel": name, **r})
     for case in SMALL_BATCH_DECODE + (QWEN_DECODE_B1_8K,) + GEMMA_WINDOW_DECODE:
@@ -2255,11 +2591,13 @@ def main() -> int:
             launches.update({_dtag(k, 256): counts[k] for k in SERVE_ROWS[True]})
     phase_lora_forward()
 
-    def serve(label, overrides, D, sleep_level, lora):
-        counts = phase_serve(label, overrides, sleep_level, lora)
+    def serve(label, overrides, D, sleep_level, lora, prepare=None):
+        counts = phase_serve(label, overrides, sleep_level, lora, prepare)
         quant = overrides.get("kv_cache_dtype") == "int8"
+        tp = overrides.get("tensor_parallel_size", 1)
         for k in SERVE_ROWS[quant]:
-            launches[_dtag(k, D)] = launches.get(_dtag(k, D), 0) + counts[k]
+            row = _tptag(_dtag(k, D), tp)
+            launches[row] = launches.get(row, 0) + counts[k]
 
     try:
         phase_hf_qwen()
@@ -2269,6 +2607,13 @@ def main() -> int:
         write_lora_adapters(llama.PRESETS["llama-3.2-1b"], LLAMA_ADAPTERS, LORA_RANKS, LORA_TARGETS)
         for run in SERVE_RUNS:
             serve(*run)
+        # tensor parallelism: two ranks (processes) on the one card over
+        # gloo, with qwen2.5-7b's directory still on the disk
+        tp_ref = phase_tp_reference()
+        serve("llama-3.2-1b, tp2", dict(model="llama-3.2-1b", **TP2), 64, 0, (), _tp_logits_check(tp_ref))
+        serve("llama-3.2-1b, int8, tp2", TP_SERVE_LLAMA_INT8, 64, 0, ())
+        phase_tp_f32_tokens()
+        serve("qwen2.5-7b-hf, tp2", dict(model=str(QWEN_DIR), **TP2), 128, 0, (), _tp_qwen_slices())
         phase_opt_int8_refused()
         shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 47 GB
         phase_hf_mixtral()

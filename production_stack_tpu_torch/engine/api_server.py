@@ -21,7 +21,11 @@ Run: ``python -m production_stack_tpu_torch.engine.api_server --model
 llama-3.2-1b`` (a preset), or ``--model /path/to/hf-dir`` (a local
 HuggingFace checkpoint, served under that path as its name unless
 ``--served-model-name`` gives another), on the card; the engine raises
-without one.
+without one. ``--tensor-parallel-size N`` (alias ``--tensor-parallel``)
+serves with N processes, one per tp rank, which the engine starts and, on
+shutdown, ends; ``--tp-backend`` (nccl, the default, or gloo) and
+``--tp-device-ids`` (say ``0,0``: two ranks on the first card, with gloo)
+are the port's own knobs for them.
 """
 
 from __future__ import annotations

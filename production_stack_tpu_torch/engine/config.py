@@ -3,7 +3,9 @@
 Every field keeps the JAX engine's flag name and default, so a flag means
 the same to both servers. The port carries only the fields it reads, plus
 one switch per JAX feature it does not serve yet; check_supported refuses
-a non-default value of a switch instead of ignoring it.
+a non-default value of a switch instead of ignoring it. Two knobs are the
+port's own: ``tp_backend`` and ``tp_device_ids``, which say how its tp ranks
+(one process each) reach each other and their devices.
 """
 
 from __future__ import annotations
@@ -11,6 +13,9 @@ from __future__ import annotations
 import argparse
 import dataclasses
 from typing import Optional
+
+from production_stack_tpu_torch.parallel.group import BACKENDS as TP_BACKENDS
+from production_stack_tpu_torch.parallel.group import parse_device_ids
 
 
 @dataclasses.dataclass
@@ -105,6 +110,16 @@ class EngineConfig:
     max_loras: int = 4
     max_lora_rank: int = 16
     lora_target_modules: str = "q_proj,k_proj,v_proj,o_proj"
+    # tensor parallelism (alias --tensor-parallel): one process per rank,
+    # started by the engine, each holding 1/tp of the heads, MLP and
+    # vocabulary and 1/tp of every KV page (parallel/, engine/distributed.py)
+    tensor_parallel_size: int = 1
+    # the port's deployment knobs for its tp ranks: the torch.distributed
+    # backend (nccl, or gloo, which stages CUDA tensors through the host and
+    # so lets two ranks share one card), and the CUDA device of each rank,
+    # comma-separated (default: rank r on cuda:r)
+    tp_backend: str = "nccl"
+    tp_device_ids: Optional[str] = None
 
     # Switches of the JAX engine's features that the port does not serve
     # yet. Each must keep its default: check_supported refuses any other
@@ -113,7 +128,6 @@ class EngineConfig:
     kv_write_mode: str = "post"         # "pre" is not ported
     decode_pipeline: int = 1            # chained decode bursts
     speculative_k: int = 0              # speculative decoding
-    tensor_parallel_size: int = 1
     data_parallel_size: int = 1
     sequence_parallel_size: int = 1
     expert_parallel_size: int = 1
@@ -162,18 +176,36 @@ _FLAG_HELP = {
         "auto | cuda | plain: the hand-written CUDA attention kernels or "
         "their PyTorch versions (auto = cuda on a CUDA device)"
     ),
+    "tensor_parallel_size": (
+        "tensor-parallel ranks, one process each (started by the server); "
+        "KV heads, query heads, the MLP and the vocabulary must divide by it"
+    ),
+    "tp_backend": (
+        "nccl | gloo: the torch.distributed backend of the tp ranks (port "
+        "only). gloo stages CUDA tensors through the host, so two ranks may "
+        "share one card (--tp-device-ids 0,0); nccl refuses that"
+    ),
+    "tp_device_ids": (
+        "comma-separated CUDA device index of each tp rank (port only; "
+        "default: rank r on cuda:r)"
+    ),
 }
+# the port's own fields, which the JAX engine has not
+PORT_ONLY = ("tp_backend", "tp_device_ids")
+# extra flag names, as the JAX engine's
+_ALIASES = {"tensor_parallel_size": ("--tensor-parallel",)}
 
 
 def add_engine_args(p: argparse.ArgumentParser) -> None:
     for f in dataclasses.fields(EngineConfig):
         flag = "--" + f.name.replace("_", "-")
+        flags = (flag, *_ALIASES.get(f.name, ()))
         ftype = str(f.type)
         help_ = _FLAG_HELP.get(f.name)
         if f.name in _UNSUPPORTED:
             help_ = f"not supported by the PyTorch port yet ({_UNSUPPORTED[f.name]}); keep the default"
         if ftype == "bool" or isinstance(f.default, bool):
-            p.add_argument(flag, action=argparse.BooleanOptionalAction,
+            p.add_argument(*flags, action=argparse.BooleanOptionalAction,
                            default=f.default, help=help_)
         else:
             typ = str
@@ -181,7 +213,7 @@ def add_engine_args(p: argparse.ArgumentParser) -> None:
                 typ = int
             elif "float" in ftype or isinstance(f.default, float):
                 typ = float
-            p.add_argument(flag, type=typ, default=f.default,
+            p.add_argument(*flags, type=typ, default=f.default,
                            dest=f.name, help=help_)
 
 
@@ -219,7 +251,6 @@ _UNSUPPORTED = {
     "kv_write_mode": "the 'pre' KV write mode",
     "decode_pipeline": "chained decode bursts",
     "speculative_k": "speculative decoding",
-    "tensor_parallel_size": "tensor parallelism",
     "data_parallel_size": "in-engine data parallelism",
     "sequence_parallel_size": "sequence parallelism",
     "expert_parallel_size": "expert parallelism",
@@ -258,3 +289,11 @@ def check_supported(cfg: EngineConfig) -> None:
             f"kv_cache_dtype {cfg.kv_cache_dtype!r} is not supported by the PyTorch port; "
             f"options: {KV_CACHE_DTYPES}"
         )
+    tp = cfg.tensor_parallel_size
+    if tp < 1:
+        raise ValueError(f"tensor_parallel_size must be >= 1, got {tp}")
+    if cfg.tp_backend not in TP_BACKENDS:
+        raise ValueError(f"unknown tp_backend {cfg.tp_backend!r}; options: {TP_BACKENDS}")
+    if tp > 1 and cfg.enable_lora:
+        raise ValueError("not supported by the PyTorch port yet: LoRA with tensor parallelism")
+    parse_device_ids(cfg.tp_device_ids, tp)

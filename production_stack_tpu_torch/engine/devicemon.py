@@ -13,8 +13,14 @@ Sampled lazily on scrape (no background thread, nothing between scrapes):
 - ``vllm:hbm_headroom_bytes`` -- sum(limit) - sum(in_use).
 - ``vllm:kv_pool_device_bytes`` / ``vllm:kv_pool_used_bytes`` -- the bytes of
   the runner's page pools and their int8 scales (``nbytes`` of the tensors
-  themselves, 0 while sleep has dropped them), and that times the pool's
+  themselves, 0 while sleep has dropped them; under tp the leader's times
+  tp, every rank holding the same shapes), and that times the pool's
   occupancy.
+- ``vllm:kv_pool_shard_bytes{device=...}`` -- one row per tp rank: the bytes
+  of that rank's KV-head shard of every page (runner.kv_pool_shard_layout,
+  from the pools' shapes, so 1/tp of the pool each). Two ranks on one card
+  keep two rows: a rank's label is its device and its rank
+  (``cuda:0/tp1``); a single rank's is its device (``cuda:0``).
 - ``vllm:compile_seconds_total`` / ``vllm:compile_events_total`` -- the nvcc
   builds of the CUDA kernels this process ran (ops/kernels/_build.py, at a
   kernel's first use or an explicit build). The JAX monitor counts XLA
@@ -29,9 +35,9 @@ Sampled lazily on scrape (no background thread, nothing between scrapes):
 Why a GPU reports under ``tpu_`` names: the stack's dashboard
 (observability/tpu-stack-dashboard.json) and the prometheus-adapter rules
 that feed the autoscaler read these exact series, so a port engine keeps
-them rather than forking every consumer. The JAX monitor's per-shard pool
-rows (``kv_pool_shard_bytes``) are left out: the port refuses tensor
-parallelism, so the pool is never sharded.
+them rather than forking every consumer. The memory rows are the leader
+process's device only: a follower rank's allocator lives in its own
+process.
 """
 
 from __future__ import annotations
@@ -123,7 +129,7 @@ class DeviceMonitor:
             lines.append(f"vllm:tpu_hbm_bytes_limit{{{dl}}} {row['bytes_limit']}")
             total_use += row["bytes_in_use"]
             total_limit += row["bytes_limit"]
-        pool = pool_bytes(self.engine.runner)
+        pool = pool_bytes(self.engine.runner) * getattr(self.engine, "tensor_parallel", 1)
         secs, events = _build.compile_totals()
         entries, cache_bytes = _build.cache_size()
         lines += [
@@ -133,6 +139,13 @@ class DeviceMonitor:
             f"vllm:kv_pool_device_bytes{{{labels}}} {pool}",
             "# TYPE vllm:kv_pool_used_bytes gauge",
             f"vllm:kv_pool_used_bytes{{{labels}}} {int(pool * self.engine.kv.usage())}",
+            "# TYPE vllm:kv_pool_shard_bytes gauge",
+        ]
+        lines += [
+            f'vllm:kv_pool_shard_bytes{{{labels},device="{dev}"}} {nbytes}'
+            for dev, nbytes in self.engine.runner.kv_pool_shard_layout()
+        ]
+        lines += [
             "# TYPE vllm:compile_seconds_total counter",
             f"vllm:compile_seconds_total{{{labels}}} {round(secs, 4)}",
             "# TYPE vllm:compile_events_total counter",

@@ -29,8 +29,19 @@ does: ``load_lora_adapter`` parses a PEFT directory on the caller's thread
 and writes the adapter's slot on the loop thread; ``generate(lora_name=)``
 pins the slot for the request's life and salts its prefix-cache chain with
 the adapter's per-load salt, so base and adapter requests never share pages;
-``unload_lora_adapter`` is refused while a request holds the slot. Not
-ported yet: the remote tier, the KV-index controller, the fleet directory,
+``unload_lora_adapter`` is refused while a request holds the slot.
+
+With ``tensor_parallel_size`` tp > 1 the engine is the leader (rank 0) of
+tp processes, one per rank, which it starts itself (``spawn``) and joins
+with ``torch.distributed`` (engine/distributed.TPLeader): every rank holds
+1/tp of the weights and of every KV page, and the leader sends each runner
+call that must run everywhere to the followers before it runs it
+(``BroadcastingRunner``). Scheduling, the prefix cache and the offload tiers
+stay the leader's; page ids are the same on every rank. ``num_pages`` comes
+from the whole page's bytes, as in the JAX engine, so a tp engine has tp = 1's
+page count and each rank 1/tp of the bytes. A step error with tp ranks ends
+the process (exit 13): the ranks' collectives are out of step and no request
+could be served right. Not ported yet: the remote tier, the KV-index controller, the fleet directory,
 warm start, the KV fabric, migration, speculative decoding and chained
 bursts (engine/config.check_supported refuses their flags).
 """
@@ -40,7 +51,6 @@ from __future__ import annotations
 import asyncio
 import collections
 import dataclasses
-import gc
 import itertools
 import os
 import queue as queue_mod
@@ -53,15 +63,17 @@ import torch
 
 from production_stack_tpu_torch import tracing
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported
+from production_stack_tpu_torch.engine.distributed import TPLeader
 from production_stack_tpu_torch.engine.kv_manager import KVPageManager
 from production_stack_tpu_torch.engine.linkprobe import derive_max_io_pages, probe_link_bandwidth
 from production_stack_tpu_torch.engine.lora import LoRAError, LoRAManager, lora_targets
-from production_stack_tpu_torch.engine.model_loader import load_model
+from production_stack_tpu_torch.engine.model_loader import load_model, model_config
 from production_stack_tpu_torch.engine.runner import ModelRunner, StepInput
 from production_stack_tpu_torch.engine.scheduler import SamplingParams, Scheduler, Sequence
 from production_stack_tpu_torch.engine.tokenizer import load_tokenizer
 from production_stack_tpu_torch.kvoffload.connector import KVOffloadConnector
 from production_stack_tpu_torch.ops.quant import dequantize_page_host, kv_bytes_per_token, quantize_page_host
+from production_stack_tpu_torch.parallel.tp import check_tp
 from production_stack_tpu_torch.utils.logging import init_logger
 
 logger = init_logger(__name__)
@@ -88,25 +100,42 @@ class RequestOutput:
     logprobs: Optional[list] = None
 
 
+def build_runner(cfg: EngineConfig, device, model_cfg, params, num_pages: int, tp=None) -> ModelRunner:
+    """The engine's ModelRunner on ``device``: its model (``model_cfg``
+    resolved by model_loader.model_config; ``params`` a whole parameter
+    dict, or None for the preset's seeded weights or the directory's), and
+    ``num_pages`` pages. ``tp``: the rank's group, for the rank's part."""
+    _, _, model = load_model(
+        cfg.model, seed=cfg.seed, device=device, max_model_len=cfg.max_model_len, params=params, tp=tp,
+        config=model_cfg,
+    )
+    model.cfg = dataclasses.replace(model.cfg, attn_impl=cfg.attn_impl, kv_cache_dtype=cfg.kv_cache_dtype)
+    targets = lora_targets(cfg.lora_target_modules) if cfg.enable_lora else ()
+    return ModelRunner(
+        model, num_pages=num_pages, page_size=cfg.page_size, seed=cfg.seed,
+        device=device, enable_lora=cfg.enable_lora, max_loras=cfg.max_loras,
+        max_lora_rank=cfg.max_lora_rank, lora_targets=targets, tp=tp,
+    )
+
+
 class LLMEngine:
     def __init__(self, cfg: EngineConfig, *, device="cuda", params=None):
         """``params``: a parameter dict of the port (model_loader.
-        params_from_jax) to serve instead of the preset's seeded weights."""
+        params_from_jax) to serve instead of the preset's seeded weights;
+        whole, also under tp (each rank takes its part)."""
         check_supported(cfg)
         self.cfg = cfg
-        model_mod, model_cfg, model = load_model(
-            cfg.model, seed=cfg.seed, device=device,
-            max_model_len=cfg.max_model_len, params=params,
-        )
-        model.cfg = dataclasses.replace(
-            model_cfg, attn_impl=cfg.attn_impl, kv_cache_dtype=cfg.kv_cache_dtype
-        )
+        self.tensor_parallel = cfg.tensor_parallel_size
+        _, model_cfg = model_config(cfg.model, cfg.max_model_len)
+        check_tp(model_cfg, self.tensor_parallel)
         self.kv_quant = cfg.kv_cache_dtype == "int8"
         # a checkpoint directory holds its tokenizer, as in the JAX engine
         self.tokenizer = load_tokenizer(
             cfg.tokenizer or (cfg.model if "/" in cfg.model or cfg.model.startswith(".") else None)
         )
-        itemsize = model.embed.element_size()
+        itemsize = torch.empty((), dtype=model_cfg.dtype).element_size()
+        # the whole page (every KV head), as the JAX engine sizes the pool:
+        # a tp engine holds as many pages as tp = 1, each rank 1/tp of them
         L, KH, D = model_cfg.num_layers, model_cfg.num_kv_heads, model_cfg.head_dim
         page_bytes = 2 * L * cfg.page_size * KH * D * (1 if self.kv_quant else itemsize)
         if self.kv_quant:
@@ -134,12 +163,19 @@ class LLMEngine:
             ),
         )
         num_pages = cfg.num_pages or max(64, int(cfg.kv_cache_memory_gb * 1e9 / page_bytes))
-        targets = lora_targets(cfg.lora_target_modules) if cfg.enable_lora else ()
-        self.runner = ModelRunner(
-            model, num_pages=num_pages, page_size=cfg.page_size, seed=cfg.seed,
-            device=device, enable_lora=cfg.enable_lora, max_loras=cfg.max_loras,
-            max_lora_rank=cfg.max_lora_rank, lora_targets=targets,
-        )
+        # tp > 1: start the follower ranks and join the group before the
+        # leader loads its own part (TPLeader.close undoes both)
+        self._tp: Optional[TPLeader] = None
+        if self.tensor_parallel > 1:
+            self._tp = TPLeader(cfg, device, model_cfg, params, num_pages)
+        try:
+            group = self._tp.group if self._tp else None
+            runner = build_runner(cfg, group.device if group else device, model_cfg, params, num_pages, group)
+            self.runner = self._tp.wrap(runner) if self._tp else runner
+        except BaseException:
+            if self._tp:
+                self._tp.close()
+            raise
         self.model_cfg = self.runner.cfg
         self.lora: Optional[LoRAManager] = None
         if cfg.enable_lora:
@@ -279,6 +315,8 @@ class LLMEngine:
         self._inbox.put(None)
         if self._thread:
             self._thread.join(timeout=10)
+        if self._tp is not None:
+            self._tp.close()  # the followers leave their loops and exit
 
     # -- request api (asyncio side) -----------------------------------------
 
@@ -478,6 +516,11 @@ class LLMEngine:
                     error=repr(step_err)[:500],
                 )
                 self._fr.dump("engine_step_error", force=True)
+                if self.tensor_parallel > 1:
+                    # the ranks' collectives are out of step (a rank may be
+                    # gone): serving on would hang or give garbage
+                    logger.critical("fatal with tp ranks: exiting")
+                    os._exit(13)
                 # a deferred device error may belong to an unfetched
                 # prefill dispatch: those sequences' KV is suspect too
                 suspect = list(batch.seqs)
@@ -837,14 +880,11 @@ class LLMEngine:
             for s in list(self.scheduler.running) + list(self.scheduler.waiting):
                 self.scheduler._finish(s, "abort")
                 self._emit(s, "")
+            # each rank releases its own pools (and weights) and gives the
+            # freed blocks back to its card
             self.runner.drop_kv_pools()
             if level >= 2:
                 self.runner.offload_params()
-            # the caching allocator gives the blocks back to the card only
-            # once nothing refers to them
-            gc.collect()
-            if self.runner.device.type == "cuda":
-                torch.cuda.empty_cache()
 
         self._run_on_device_thread(do_sleep, what="sleep")
 
@@ -894,10 +934,11 @@ class LLMEngine:
             # 1 with engine_saturated 0: the interactive reserve is holding
             # while batch already sheds
             "engine_saturated_batch": int(self.saturated("batch")),
-            # one card, no mesh: the router and the fleet controller read
-            # these as one replica on one device
-            "tensor_parallel": 1,
-            "mesh_devices": 1,
+            # the tp ranks, one process and one device each (two ranks may
+            # share a card with gloo): the router and the fleet controller
+            # read these as one replica over tp devices
+            "tensor_parallel": self.tensor_parallel,
+            "mesh_devices": self.tensor_parallel,
             "gpu_cache_usage_perc": self.kv.usage(),
             "gpu_prefix_cache_hits_total": self.kv.prefix_hits,
             "gpu_prefix_cache_queries_total": self.kv.prefix_queries,

@@ -17,6 +17,14 @@ package.
   dtype and copied onto the device one tensor at a time, under the HF
   names the JAX package's loader reads (a Mixtral layer's experts, one HF
   tensor each, stacked on the parameter's leading [E] axis).
+- ``model_config(name_or_dir, max_model_len)``: the (module, config) that
+  ``load_model`` would build, without weights (the engine checks a tp split
+  against it before any rank starts).
+- With ``tp`` (a parallel/group.TPGroup) the model is that rank's
+  (parallel/tp.py): a preset draws each whole tensor from the seeded
+  generator and keeps its part, so every tp serves one model; a directory
+  reads only the rank's slice of each split tensor from the mapped shards;
+  ``params`` are whole and the rank takes its part (``shard_params``).
 - ``params_from_jax(np_tree, cfg)``: the JAX package's layer-stacked tree
   (``{"embed", "layers": {name: [L, ...]}, "final_norm"}``, plus
   ``"lm_head"`` for an untied llama) given as numpy arrays, split per layer
@@ -34,6 +42,7 @@ import torch
 
 from production_stack_tpu_torch import models
 from production_stack_tpu_torch.models import gemma2, llama, opt
+from production_stack_tpu_torch.parallel.tp import shard_params, size_rank, split_axis
 from production_stack_tpu_torch.utils.device import resolve_device
 from production_stack_tpu_torch.utils.safetensors_io import SafetensorsDir
 
@@ -65,35 +74,56 @@ def is_hf_dir(path: str) -> bool:
     return os.path.isdir(path) and os.path.exists(os.path.join(path, "config.json"))
 
 
+def _hf_config(path: str):
+    with open(os.path.join(path, "config.json")) as f:
+        hf_cfg = json.load(f)
+    mod = models.module_for_arch((hf_cfg.get("architectures") or ["LlamaForCausalLM"])[0])
+    return mod, _FAMILIES[mod][0].from_hf_config(hf_cfg)
+
+
+def model_config(model: str, max_model_len: int | None = None):
+    """(module, config) of a local HF directory or a preset, as
+    ``load_model`` builds it, without weights."""
+    if is_hf_dir(model):
+        mod, cfg = _hf_config(model)
+    else:
+        hit = models.find_preset(model)
+        if hit is None:
+            names = sorted(n for m in models.MODULES for n in m.PRESETS)
+            raise ValueError(
+                f"model {model!r} is not a preset of the port ({names}) "
+                "nor a local HF directory (config.json + *.safetensors)"
+            )
+        mod, cfg = hit
+    if max_model_len:
+        cfg = dataclasses.replace(cfg, max_model_len=max_model_len)
+    return mod, cfg
+
+
 def load_model(
     model: str,
     seed: int = 0,
     device="cuda",
     max_model_len: int | None = None,
     params: dict[str, torch.Tensor] | None = None,
+    tp=None,
+    config=None,
 ):
     """Returns (module, config, model) for a local HF directory, or for a
     preset name with weights from ``params`` when given, else seeded random
-    ones drawn on ``device``."""
+    ones drawn on ``device``. ``tp``: the tp rank's group (None: the whole
+    model). ``config``: a preset's config as the caller resolved it
+    (``model_config``), which a spawned tp rank takes from its leader."""
     dev = resolve_device(device)
     if is_hf_dir(model):
         if params is not None:
             raise ValueError(f"{model} is a checkpoint directory: it brings its own weights, not params")
-        return load_from_hf(model, device=dev, max_model_len=max_model_len)
-    hit = models.find_preset(model)
-    if hit is None:
-        names = sorted(n for m in models.MODULES for n in m.PRESETS)
-        raise ValueError(
-            f"model {model!r} is not a preset of the port ({names}) "
-            "nor a local HF directory (config.json + *.safetensors)"
-        )
-    mod, cfg = hit
-    if max_model_len:
-        # before the model is built: OPT sizes its position table from this
-        cfg = dataclasses.replace(cfg, max_model_len=max_model_len)
-    net = mod.CAUSAL_LM(cfg, device=dev)
+        return load_from_hf(model, device=dev, max_model_len=max_model_len, tp=tp)
+    mod, cfg = model_config(model, max_model_len) if config is None else (models.module_for_config(config), config)
+    # before the model is built: OPT sizes its position table from max_model_len
+    net = mod.CAUSAL_LM(cfg, device=dev, tp=tp)
     if params is not None:
-        load_params(net, params)
+        load_params(net, shard_params(params, size_rank(tp)[1], size_rank(tp)[0]))
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -201,22 +231,21 @@ _FAMILIES = {
 
 
 @torch.no_grad()
-def load_from_hf(path: str, device="cuda", max_model_len: int | None = None):
+def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=None):
     """Returns (module, config, model) for a local HF directory, its weights
-    read from the shards one tensor at a time."""
+    read from the shards one tensor at a time; a tp rank reads its slice of
+    each split tensor."""
     dev = resolve_device(device)
-    with open(os.path.join(path, "config.json")) as f:
-        hf_cfg = json.load(f)
-    mod = models.module_for_arch((hf_cfg.get("architectures") or ["LlamaForCausalLM"])[0])
-    cfg_cls, names_of, strip = _FAMILIES[mod]
-    cfg = cfg_cls.from_hf_config(hf_cfg)
+    mod, cfg = _hf_config(path)
+    _, names_of, strip = _FAMILIES[mod]
+    n, rank = size_rank(tp)
     if max_model_len and mod is opt and max_model_len > cfg.max_model_len:
         # OPT's learned position table is the checkpoint's size and cannot
         # be extended; a position past it is a device-side assert on the card
         raise ValueError(f"max_model_len={max_model_len} exceeds OPT position table ({cfg.max_model_len})")
     shards = SafetensorsDir(path)
     keys = {(k[len(strip):] if strip and k.startswith(strip) else k): k for k in shards.keys()}
-    net = mod.CAUSAL_LM(cfg, device=dev)
+    net = mod.CAUSAL_LM(cfg, device=dev, tp=tp)
     own = dict(net.named_parameters())
     wanted = names_of(cfg)
     if set(wanted) != set(own):
@@ -225,10 +254,20 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None):
         p = own[pname]
         # a stacked parameter takes one HF tensor per entry of its leading axis
         parts = zip(hf, p) if isinstance(hf, tuple) else [(hf, p)]
+        ax = split_axis(pname) if n > 1 else None
+        if ax is not None and isinstance(hf, tuple):
+            raise ValueError(f"{pname}: stacked expert weights are not split over tp")
         for name, dst in parts:
             if name not in keys:
                 raise KeyError(f"{path}: the checkpoint lacks {name!r} ({type(cfg).__name__} needs it)")
-            t = shards.get(keys[name]).to(dev).to(cfg.dtype)
+            if ax is None:
+                t = shards.get(keys[name])
+            else:
+                # the rank's slice, on the HF tensor's axis ([out, in] where transposed)
+                hf_ax = 1 - ax if transpose else ax
+                part = dst.shape[ax]
+                t = shards.get_slice(keys[name], hf_ax, rank * part, part)
+            t = t.to(dev).to(cfg.dtype)
             if transpose:
                 t = t.t()
             if t.shape != dst.shape:

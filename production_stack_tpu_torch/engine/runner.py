@@ -29,6 +29,16 @@ same shapes as the JAX runner's.
   ``restore_params`` and ``reset_kv`` bring both back, the pools at new
   addresses (no kernel wrapper keeps a pointer between launches). The LoRA
   buffers stay on the device through both levels, as in the JAX runner.
+- Tensor parallelism (``tp``, a parallel/group.TPGroup): the runner is one
+  rank's, and the leader's engine makes every call on every rank
+  (engine/distributed.py). Its pools hold KH/tp heads of every page
+  ([L, P, page, KH/tp, D], scales [L, P, KH/tp]); page ids, chains and
+  eviction are the same on every rank, one logical page being tp head
+  shards. Each sampled token is rank 0's, broadcast before it feeds the
+  next step (``_draw``). ``get_pages(_quant)`` gather the heads, so a blob
+  is the one a tp = 1 runner gives; ``set_pages(_quant)`` keep the rank's
+  slice of whole-head pages. ``rank_stats`` and ``gathered_params`` read
+  every rank's kernel counters and weights on the leader.
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -37,7 +47,9 @@ kernels one by one from Python.
 from __future__ import annotations
 
 import dataclasses
+import gc
 import inspect
+import time
 from typing import Any
 
 import numpy as np
@@ -48,6 +60,13 @@ from production_stack_tpu_torch.engine.config import resolve_attn_impl
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy
 from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
 from production_stack_tpu_torch.ops.kernels import HEAD_DIMS, MAX_GROUP
+from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_ref
+from production_stack_tpu_torch.ops.kernels.prefill_attention import (
+    kv_page_write_quant_ref,
+    kv_page_write_ref,
+    prefill_attention,
+    prefill_attention_ref,
+)
 from production_stack_tpu_torch.ops.quant import init_kv_scales, write_kv_pages_all_layers_quant
 from production_stack_tpu_torch.ops.sampling import (
     apply_logit_bias,
@@ -55,6 +74,7 @@ from production_stack_tpu_torch.ops.sampling import (
     sample,
     sample_with_logprobs,
 )
+from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_param, gather_split, rank_slice, size_rank
 from production_stack_tpu_torch.utils.device import resolve_device
 
 
@@ -80,6 +100,27 @@ class StepInput:
     bias_ids: Any = None     # [B, K] int32 token ids, >= vocab_size = unused
     bias_vals: Any = None    # [B, K] f32 additive biases
     lora_ids: Any = None     # [B] int32 adapter slot (0 = base); None = all base
+
+
+# this process's kernel launch and plain-version call counters (the
+# wrappers' attributes), by name: what ``rank_stats`` reads on every rank
+COUNTERS = (
+    ("decode_attention", decode_attention, "launches"),
+    ("prefill_attention", prefill_attention, "launches"),
+    ("kv_page_write", prefill_attention, "launches_write"),
+    ("decode_attention[int8]", decode_attention, "launches_int8"),
+    ("prefill_attention[int8]", prefill_attention, "launches_int8"),
+    ("kv_page_write_quant", prefill_attention, "launches_write_int8"),
+    ("decode_attention_ref", decode_attention_ref, "calls"),
+    ("prefill_attention_ref", prefill_attention_ref, "calls"),
+    ("kv_page_write_ref", kv_page_write_ref, "calls"),
+    ("kv_page_write_quant_ref", kv_page_write_quant_ref, "calls"),
+)
+# rank_stats' columns: the counters, then the rank's host seconds inside
+# step/step_multi, and its collectives' calls, bytes and host seconds
+RANK_STATS = tuple(name for name, _, _ in COUNTERS) + (
+    "step_seconds", "steps", "collective_calls", "collective_bytes", "collective_seconds",
+)
 
 
 def check_kernel_shapes(cfg) -> None:
@@ -109,8 +150,15 @@ class ModelRunner:
         max_loras: int = 4,
         max_lora_rank: int = 16,
         lora_targets: tuple[str, ...] = ("wq", "wk", "wv", "wo"),
+        tp=None,
     ):
         self.device = resolve_device(device)
+        self.tp = tp
+        self.tp_size = size_rank(tp)[0]
+        if tp is not None and enable_lora:
+            raise ValueError("LoRA with tensor parallelism is not supported by the port yet")
+        self.step_seconds = 0.0
+        self.steps = 0
         self.module = models.module_for_config(model.cfg)
         cfg = dataclasses.replace(
             model.cfg, attn_impl=resolve_attn_impl(model.cfg.attn_impl, self.device)
@@ -198,12 +246,19 @@ class ModelRunner:
         return out
 
     def _draw(self, logits, sample_from, s, want_lp):
+        """The sampled ids (with their logprobs when ``want_lp``); under tp
+        rank 0's ids on every rank, whatever each rank drew."""
         if want_lp:
-            return sample_with_logprobs(
+            ids, *lps = sample_with_logprobs(
                 logits, self.generator, s["temperature"], s["top_k"], s["top_p"],
                 sample_from=sample_from,
             )
-        return sample(sample_from, self.generator, s["temperature"], s["top_k"], s["top_p"])
+            return (broadcast_ids(ids, self.tp), *lps)
+        return broadcast_ids(sample(sample_from, self.generator, s["temperature"], s["top_k"], s["top_p"]), self.tp)
+
+    def _timed(self, t0: float) -> None:
+        self.step_seconds += time.perf_counter() - t0
+        self.steps += 1
 
     # -- steps --------------------------------------------------------------
 
@@ -212,10 +267,12 @@ class ModelRunner:
         """One forward + sample. Returns (token_ids [B], logits [B, V]) or,
         with ``want_logprobs``, (ids, logits, (chosen_lp [B], top_ids [B, K],
         top_lp [B, K])); device tensors — the caller fetches what it needs."""
+        t0 = time.perf_counter()
         s = self._stage(inp)
         logits = self._forward(s, s["input_ids"], s["positions"], s["kv_lens"])
         hist = s["pen"][0] if "pen" in s else None
         out = self._draw(logits, self._sample_from(logits, s, hist, s["kv_lens"]), s, want_logprobs)
+        self._timed(t0)
         if want_logprobs:
             ids, lp, tids, tlp = out
             return ids, logits, (lp, tids, tlp)
@@ -237,6 +294,7 @@ class ModelRunner:
                 return ids[:, None], (lp[:, None], tids[:, None], tlp[:, None])
             ids, _ = self.step(inp)
             return ids[:, None]
+        t0 = time.perf_counter()
         s = self._stage(inp)
         B = s["input_ids"].shape[0]
         L, _, _, KH, D = self.k_pages.shape
@@ -295,6 +353,7 @@ class ModelRunner:
                 self.k_pages, self.v_pages, k_acc, v_acc, s["page_table"], commit_pos
             )
         tokens = torch.stack(toks, dim=1)
+        self._timed(t0)
         if want_logprobs:
             lp, tids, tlp = (torch.stack(x, dim=1) for x in zip(*lps))
             return tokens, (lp, tids, tlp)
@@ -314,17 +373,18 @@ class ModelRunner:
 
     def get_pages(self, pids: "list[int]"):
         """N pages' K/V to the host in one copy: per-page ``[L, page, KH, D]``
-        numpy arrays (ks, vs)."""
+        numpy arrays (ks, vs), every KV head (gathered from the tp ranks)."""
         if not pids:
             return [], []
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
-        k = self._to_numpy(self.k_pages[:, idx])
-        v = self._to_numpy(self.v_pages[:, idx])
+        k = self._to_numpy(gather_split(self.k_pages[:, idx], 3, self.tp))
+        v = self._to_numpy(gather_split(self.v_pages[:, idx], 3, self.tp))
         return [k[:, i] for i in range(len(pids))], [v[:, i] for i in range(len(pids))]
 
     def set_pages(self, pids: "list[int]", ks, vs) -> None:
         """Write N pages (per-page ``[L, page, KH, D]`` arrays, as
-        ``get_pages`` returns them) into the pools."""
+        ``get_pages`` returns them) into the pools; a tp rank keeps its
+        heads."""
         if not pids:
             return
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
@@ -332,22 +392,27 @@ class ModelRunner:
             src = tensor_from_numpy(np.stack(list(pages), axis=1))
             if src.dtype != pool.dtype:
                 raise TypeError(f"pages are {src.dtype}, the pool holds {pool.dtype}")
-            pool[:, idx] = src.to(self.device)
+            pool[:, idx] = rank_slice(src, 3, self.tp).to(self.device)
 
     def get_pages_quant(self, pids: "list[int]"):
         """N int8 pages and their scales to the host in one copy: per page
         ``[L, page, KH, D]`` int8 and ``[L, KH]`` f32 numpy arrays (ks, vs,
-        sks, svs), the exact pool bytes."""
+        sks, svs), the exact pool bytes, every KV head (gathered from the tp
+        ranks)."""
         if not pids:
             return [], [], [], []
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
-        out = [t[:, idx].cpu().numpy() for t in (self.k_pages, self.v_pages, self.k_scales, self.v_scales)]
+        out = [
+            gather_split(t[:, idx], 3 if t.dim() == 5 else 2, self.tp).cpu().numpy()
+            for t in (self.k_pages, self.v_pages, self.k_scales, self.v_scales)
+        ]
         return tuple([a[:, i] for i in range(len(pids))] for a in out)
 
     def set_pages_quant(self, pids: "list[int]", ks, vs, sks, svs) -> None:
         """Write N int8 pages and their scales (as ``get_pages_quant`` gives
-        them). Misshaped or missing scales are refused before the pools are
-        touched: int8 pages without their scales would read as garbage."""
+        them; a tp rank keeps its heads). Misshaped or missing scales are
+        refused before the pools are touched: int8 pages without their
+        scales would read as garbage."""
         n = len(pids)
         if n == 0:
             return
@@ -356,7 +421,7 @@ class ModelRunner:
             raise ValueError(
                 f"set_pages_quant: {n} pids but {len(ks)}/{len(vs)}/{len(sks)}/{len(svs)} pages/scales"
             )
-        scale_shape = (self.k_scales.shape[0], self.k_scales.shape[2])
+        scale_shape = (self.k_scales.shape[0], self.k_scales.shape[2] * self.tp_size)
         for s in sks + svs:
             a = np.asarray(s)
             if a.shape != scale_shape or not np.issubdtype(a.dtype, np.floating):
@@ -369,7 +434,8 @@ class ModelRunner:
             (self.k_pages, ks, np.int8), (self.v_pages, vs, np.int8),
             (self.k_scales, sks, np.float32), (self.v_scales, svs, np.float32),
         ):
-            pool[:, idx] = torch.from_numpy(np.stack([np.asarray(p, dt) for p in pages], axis=1)).to(self.device)
+            src = torch.from_numpy(np.stack([np.asarray(p, dt) for p in pages], axis=1))
+            pool[:, idx] = rank_slice(src, 3 if src.dim() == 5 else 2, self.tp).to(self.device)
 
     def reset_kv(self) -> None:
         """Fresh zeroed page pools (and int8 pools' scales of ones): sleep
@@ -379,11 +445,52 @@ class ModelRunner:
 
     def _alloc_kv(self) -> None:
         cfg = self.cfg
-        self.k_pages, self.v_pages = self.module.init_kv_pages(cfg, self.num_pages, self.page_size, self.device)
+        self.k_pages, self.v_pages = self.module.init_kv_pages(
+            cfg, self.num_pages, self.page_size, self.device, tp=self.tp_size
+        )
         self.k_scales = self.v_scales = None
         if self.kv_quant:
-            self.k_scales = init_kv_scales(cfg.num_layers, self.num_pages, cfg.num_kv_heads, self.device)
-            self.v_scales = init_kv_scales(cfg.num_layers, self.num_pages, cfg.num_kv_heads, self.device)
+            kh = cfg.num_kv_heads // self.tp_size
+            self.k_scales = init_kv_scales(cfg.num_layers, self.num_pages, kh, self.device)
+            self.v_scales = init_kv_scales(cfg.num_layers, self.num_pages, kh, self.device)
+
+    def kv_pool_shard_layout(self) -> "list[tuple[str, int]]":
+        """Per-rank KV pool footprint: ``(device label, bytes)`` of every tp
+        rank, k and v pools with their int8 scales, from the pools' shapes
+        (each rank holds KH/tp heads of every page, so 1/tp of the bytes).
+        Labels are distinct per rank (parallel/group.device_labels: two
+        ranks on one card are ``cuda:0/tp0`` and ``cuda:0/tp1``)."""
+        cfg = self.cfg
+        kh = cfg.num_kv_heads // self.tp_size
+        item = 1 if self.kv_quant else torch.empty((), dtype=cfg.dtype).element_size()
+        per = 2 * cfg.num_layers * self.num_pages * self.page_size * kh * cfg.head_dim * item
+        if self.kv_quant:
+            per += 2 * cfg.num_layers * self.num_pages * kh * 4
+        labels = self.tp.labels if self.tp is not None else [f"{self.device.type}:{self.device.index or 0}"]
+        return [(label, per) for label in labels]
+
+    def rank_stats(self, reset: bool = False) -> np.ndarray:
+        """Every rank's ``RANK_STATS`` row ([tp, len(RANK_STATS)] float64,
+        rank order): its kernel launches and plain-version calls, its step
+        seconds and its collectives since the last reset; with ``reset``
+        each rank's count starts again from 0 after the read."""
+        calls, nbytes, secs = self.tp.stats() if self.tp is not None else (0, 0, 0.0)
+        row = [getattr(fn, attr) for _, fn, attr in COUNTERS]
+        row += [self.step_seconds, self.steps, calls, nbytes, secs]
+        out = gather_split(torch.tensor([row], dtype=torch.float64, device=self.device), 0, self.tp)
+        if reset:
+            for _, fn, attr in COUNTERS:
+                setattr(fn, attr, 0)
+            self.step_seconds, self.steps = 0.0, 0
+            if self.tp is not None:
+                self.tp.reset_stats()
+        return out.cpu().numpy()
+
+    def gathered_params(self, names: "list[str]") -> dict:
+        """The named parameters whole (every tp rank's part joined, bit for
+        bit), on the CPU."""
+        own = dict(self.model.named_parameters())
+        return {name: gather_param(own[name].detach(), name, self.tp).cpu() for name in names}
 
     # -- LoRA slots (engine/lora.py drives these) ----------------------------
 
@@ -426,8 +533,16 @@ class ModelRunner:
     def drop_kv_pools(self) -> None:
         """Release the page pools and scales (sleep level 1+). The device
         memory returns to the caching allocator once these were the last
-        references; the caller empties its cache."""
+        references; the card's cached blocks go back to it."""
         self.k_pages = self.v_pages = self.k_scales = self.v_scales = None
+        self._release_cached()
+
+    def _release_cached(self) -> None:
+        # the caching allocator gives blocks back to the card only once
+        # nothing refers to them
+        gc.collect()
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
 
     def offload_params(self) -> None:
         """Move the weights to host memory (sleep level 2): each parameter's
@@ -441,6 +556,7 @@ class ModelRunner:
         for p in params.values():
             p.data = torch.empty((0,), dtype=p.dtype, device=self.device)
         self._params_host = host
+        self._release_cached()
 
     def restore_params(self) -> None:
         """Put back on the device the weights ``offload_params`` saved, byte

@@ -23,6 +23,12 @@ What Gemma-2 adds to that contract:
 - a head tied to the embedding, and a final logit softcap applied after the
   f32 cast (``None`` disables it).
 
+With ``tp`` (a parallel/group.TPGroup) the model is one tensor-parallel
+rank's, split as the llama family's (parallel/tp.py): the all-reduce of
+``wo``'s and ``w_down``'s partial sums comes before their "after" norms, the
+embedding scale after the vocab-parallel lookup, and the final softcap after
+the logits are gathered.
+
 All-position logits and the "pre" write mode are not ported; the model
 raises on them.
 """
@@ -39,6 +45,7 @@ from torch import nn
 from production_stack_tpu_torch.models.paged_step import PagedStep
 from production_stack_tpu_torch.ops.norms import rms_norm_1p
 from production_stack_tpu_torch.ops.rope import apply_rope, rope_cos_sin
+from production_stack_tpu_torch.parallel.tp import all_reduce_, embed_lookup, gather_vocab, init_sharded_, shard_shape
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
 
 
@@ -149,11 +156,12 @@ def _check_ported(cfg: Gemma2Config) -> None:
 
 
 def init_kv_pages(
-    cfg: Gemma2Config, num_pages: int, page_size: int, device, dtype=None
+    cfg: Gemma2Config, num_pages: int, page_size: int, device, dtype=None, tp: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Layer-stacked page pools: [L, num_pages, page_size, KH, D] zeros, in
-    ``dtype``, else int8 for ``kv_cache_dtype="int8"``, else ``cfg.dtype``."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    """Layer-stacked page pools: [L, num_pages, page_size, KH/tp, D] zeros,
+    in ``dtype``, else int8 for ``kv_cache_dtype="int8"``, else
+    ``cfg.dtype``."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads // tp, cfg.head_dim)
     dt = dtype or (torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.dtype)
     return (
         torch.zeros(shape, dtype=dt, device=device),
@@ -171,33 +179,39 @@ def init_params(model: "Gemma2ForCausalLM", generator: torch.Generator) -> None:
     there), written in place: norms 0 (Gemma multiplies by 1 + w), the
     embedding N(0, 1/H), projections N(0, 1/fan_in). The draw comes from
     ``generator`` (on the model's device), so its bits differ from
-    ``jax.random``'s for the same seed."""
-    for name, p in model.named_parameters():
+    ``jax.random``'s for the same seed. A tp rank draws each whole tensor
+    and keeps its part."""
+    dev = model.final_norm.device
+
+    def leaf_init(name, shape):
         leaf = name.rsplit(".", 1)[-1]
         if leaf.endswith("norm"):
-            p.zero_()
-        else:
-            fan_in = p.shape[1] if leaf == "embed" else p.shape[0]
-            w = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
-            p.copy_(w.mul_(fan_in**-0.5))
+            return torch.zeros(shape, device=dev)
+        fan_in = shape[1] if leaf == "embed" else shape[0]
+        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32).mul_(fan_in**-0.5)
+
+    init_sharded_(model, leaf_init)
 
 
 class Gemma2DecoderLayer(nn.Module):
-    def __init__(self, cfg: Gemma2Config, device):
+    def __init__(self, cfg: Gemma2Config, device, tp=None):
         super().__init__()
+        n = 1 if tp is None else tp.size
         for name, shape in layer_shapes(cfg).items():
-            setattr(self, name, _param(shape, cfg.dtype, device))
+            setattr(self, name, _param(shard_shape("layers." + name, shape, n), cfg.dtype, device))
+        self.tp = tp
 
     def qkv(self, h, cfg: Gemma2Config, cos, sin):
         B, T = h.shape[:2]
-        q = (h @ self.wq).reshape(B, T, cfg.num_heads, cfg.head_dim)
-        k = (h @ self.wk).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        v = (h @ self.wv).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+        # the rank's heads: NH/tp and KH/tp (all of them at tp = 1)
+        q = (h @ self.wq).reshape(B, T, -1, cfg.head_dim)
+        k = (h @ self.wk).reshape(B, T, -1, cfg.head_dim)
+        v = (h @ self.wv).reshape(B, T, -1, cfg.head_dim)
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def mlp(self, x, cfg: Gemma2Config):
         h = rms_norm_1p(x, self.mlp_norm, cfg.rms_norm_eps)
-        out = (F.gelu(h @ self.w_gate, approximate="tanh") * (h @ self.w_up)) @ self.w_down
+        out = all_reduce_((F.gelu(h @ self.w_gate, approximate="tanh") * (h @ self.w_up)) @ self.w_down, self.tp)
         return x + rms_norm_1p(out, self.post_mlp_norm, cfg.rms_norm_eps)
 
 
@@ -205,12 +219,14 @@ class Gemma2ForCausalLM(nn.Module):
     """Decoder stack + tied head. Parameters are created empty on
     ``device``; engine/model_loader.py fills them."""
 
-    def __init__(self, cfg: Gemma2Config, device="cuda"):
+    def __init__(self, cfg: Gemma2Config, device="cuda", tp=None):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
-        self.embed = _param((cfg.vocab_size, cfg.hidden_size), cfg.dtype, device)
-        self.layers = nn.ModuleList(Gemma2DecoderLayer(cfg, device) for _ in range(cfg.num_layers))
+        self.tp = tp
+        n = 1 if tp is None else tp.size
+        self.embed = _param(shard_shape("embed", (cfg.vocab_size, cfg.hidden_size), n), cfg.dtype, device)
+        self.layers = nn.ModuleList(Gemma2DecoderLayer(cfg, device, tp) for _ in range(cfg.num_layers))
         self.final_norm = _param((cfg.hidden_size,), cfg.dtype, device)
 
     def forward(
@@ -233,23 +249,24 @@ class Gemma2ForCausalLM(nn.Module):
             raise NotImplementedError("all-position logits are not ported")
         cfg = self.cfg
         B, T = input_ids.shape
-        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales)
+        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales,
+                         tp=1 if self.tp is None else self.tp.size)
         scale = dict(sm_scale=cfg.query_pre_attn_scalar**-0.5, logit_softcap=cfg.attn_logit_softcap)
         # the scale is rounded to the model dtype before the product
-        x = self.embed[input_ids.long()] * torch.tensor(cfg.hidden_size**0.5, dtype=cfg.dtype)
+        x = embed_lookup(self.embed, input_ids, self.tp) * torch.tensor(cfg.hidden_size**0.5, dtype=cfg.dtype)
         cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta)
         eps = cfg.rms_norm_eps
         for li, layer in enumerate(self.layers):
             h = rms_norm_1p(x, layer.attn_norm, eps)
             q, k, v = layer.qkv(h, cfg, cos, sin)
             attn = step.attend(li, q, k, v, layer_window(cfg, li), **scale)
-            x = x + rms_norm_1p(attn.reshape(B, T, -1) @ layer.wo, layer.post_attn_norm, eps)
+            x = x + rms_norm_1p(all_reduce_(attn.reshape(B, T, -1) @ layer.wo, self.tp), layer.post_attn_norm, eps)
             x = layer.mlp(x, cfg)
         step.finish()
         x = rms_norm_1p(x, self.final_norm, eps)
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
         x_last = x[torch.arange(B, device=x.device), last]
-        logits = (x_last @ self.embed.t()).float()
+        logits = gather_vocab((x_last @ self.embed.t()).float(), self.tp)
         cap = cfg.final_logit_softcap
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)

@@ -28,6 +28,13 @@ adds ``(h @ A) @ B * scale`` to every projection with a buffer
 the server's embedding, rerank and score routes (dense causal attention, no
 pages). sp/pp meshes, the "pre" write mode and all-position logits are not
 ported; the model raises on them.
+
+With ``tp`` (a parallel/group.TPGroup) the model is one tensor-parallel
+rank's: it holds its slice of each split weight (parallel/tp.py: NH/tp and
+KH/tp heads, I/tp of the MLP, V/tp of the vocabulary), all-reduces after
+``wo`` and ``w_down``, looks tokens up in its vocab rows and gathers the
+logits, so every rank returns the whole [B, V]. MoE and LoRA are not split
+(the engine refuses them with tp).
 """
 
 from __future__ import annotations
@@ -45,6 +52,7 @@ from production_stack_tpu_torch.models.paged_step import PagedStep
 from production_stack_tpu_torch.ops.attention import flash_attention
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_cos_sin
+from production_stack_tpu_torch.parallel.tp import all_reduce_, embed_lookup, gather_vocab, init_sharded_, shard_shape
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
 
 
@@ -202,11 +210,12 @@ def _check_ported(cfg: LlamaConfig) -> None:
 
 
 def init_kv_pages(
-    cfg: LlamaConfig, num_pages: int, page_size: int, device, dtype=None
+    cfg: LlamaConfig, num_pages: int, page_size: int, device, dtype=None, tp: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Layer-stacked page pools: [L, num_pages, page_size, KH, D] zeros, in
-    ``dtype``, else int8 for ``kv_cache_dtype="int8"``, else ``cfg.dtype``."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    """Layer-stacked page pools: [L, num_pages, page_size, KH/tp, D] zeros,
+    in ``dtype``, else int8 for ``kv_cache_dtype="int8"``, else
+    ``cfg.dtype``."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads // tp, cfg.head_dim)
     dt = dtype or (torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.dtype)
     return (
         torch.zeros(shape, dtype=dt, device=device),
@@ -223,20 +232,23 @@ def init_params(model: "LlamaForCausalLM", generator: torch.Generator) -> None:
     """Random-normal weights with the JAX package's scales (init_params
     there), written in place: projections N(0, 1/fan_in), norms 1, biases
     0. The draw comes from ``generator`` (on the model's device), so its
-    bits differ from ``jax.random``'s for the same seed."""
-    for name, p in model.named_parameters():
+    bits differ from ``jax.random``'s for the same seed. A tp rank draws
+    each whole tensor and keeps its part, so every tp serves one model."""
+    dev = model.final_norm.device
+
+    def leaf_init(name, shape):
         leaf = name.rsplit(".", 1)[-1]
         if leaf.endswith("norm"):
-            p.fill_(1.0)
-        elif leaf in ("bq", "bk", "bv"):
-            p.zero_()
-        else:
-            # weights are [in, out] ([E, in, out] for a MoE layer's experts:
-            # the router and gate/up by H**-0.5, down by I**-0.5); embed
-            # [V, H] scales by H**-0.5 too
-            fan_in = p.shape[1] if leaf == "embed" else p.shape[-2]
-            w = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
-            p.copy_(w.mul_(fan_in**-0.5))
+            return torch.ones(shape, device=dev)
+        if leaf in ("bq", "bk", "bv"):
+            return torch.zeros(shape, device=dev)
+        # weights are [in, out] ([E, in, out] for a MoE layer's experts:
+        # the router and gate/up by H**-0.5, down by I**-0.5); embed [V, H]
+        # scales by H**-0.5 too
+        fan_in = shape[1] if leaf == "embed" else shape[-2]
+        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32).mul_(fan_in**-0.5)
+
+    init_sharded_(model, leaf_init)
 
 
 def lora_dims(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
@@ -320,10 +332,12 @@ def tape_routes(model, replay=None):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device):
+    def __init__(self, cfg: LlamaConfig, device, tp=None):
         super().__init__()
+        n = 1 if tp is None else tp.size
         for name, shape in layer_shapes(cfg).items():
-            setattr(self, name, _param(shape, cfg.dtype, device))
+            setattr(self, name, _param(shard_shape("layers." + name, shape, n), cfg.dtype, device))
+        self.tp = tp
         self.route_tape: Optional[RouteTape] = None
 
     def proj(self, h, name: str, lora: Optional[dict] = None, step: Optional[LoraStep] = None):
@@ -342,9 +356,8 @@ class LlamaDecoderLayer(nn.Module):
         q, k, v = (self.proj(h, n, lora, step) for n in ("wq", "wk", "wv"))
         if cfg.attention_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
-        k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-        v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+        # the rank's heads: NH/tp and KH/tp (all of them at tp = 1)
+        q, k, v = (x.reshape(B, T, -1, cfg.head_dim) for x in (q, k, v))
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
     def mlp(self, x, cfg: LlamaConfig, lora=None, step=None):
@@ -352,7 +365,7 @@ class LlamaDecoderLayer(nn.Module):
         if cfg.num_experts:
             return x + self.moe(h, cfg)
         gate = F.silu(self.proj(h, "w_gate", lora, step)) * self.proj(h, "w_up", lora, step)
-        return x + self.proj(gate, "w_down", lora, step)
+        return x + all_reduce_(self.proj(gate, "w_down", lora, step), self.tp)
 
     def route(self, h, cfg: LlamaConfig):
         """The router's top-k: f32 softmax over the experts of ``h @
@@ -400,16 +413,18 @@ class LlamaForCausalLM(nn.Module):
     """Decoder stack + head. Parameters are created empty on ``device``;
     engine/model_loader.py fills them (seeded init or a carried-over tree)."""
 
-    def __init__(self, cfg: LlamaConfig, device="cuda"):
+    def __init__(self, cfg: LlamaConfig, device="cuda", tp=None):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        self.tp = tp
+        n = 1 if tp is None else tp.size
         H = cfg.hidden_size
-        self.embed = _param((cfg.vocab_size, H), cfg.dtype, device)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device) for _ in range(cfg.num_layers))
+        self.embed = _param(shard_shape("embed", (cfg.vocab_size, H), n), cfg.dtype, device)
+        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device, tp) for _ in range(cfg.num_layers))
         self.final_norm = _param((H,), cfg.dtype, device)
         if not cfg.tie_word_embeddings:
-            self.lm_head = _param((H, cfg.vocab_size), cfg.dtype, device)
+            self.lm_head = _param(shard_shape("lm_head", (H, cfg.vocab_size), n), cfg.dtype, device)
 
     def forward(
         self,
@@ -451,8 +466,9 @@ class LlamaForCausalLM(nn.Module):
             raise NotImplementedError("all-position logits are not ported")
         cfg = self.cfg
         B, T = input_ids.shape
-        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales)
-        x = self.embed[input_ids.long()]
+        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales,
+                         tp=1 if self.tp is None else self.tp.size)
+        x = embed_lookup(self.embed, input_ids, self.tp)
         cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
         ls = None if lora is None else LoraStep(lora, lora_ids, cfg.dtype)
         for li, layer in enumerate(self.layers):
@@ -460,14 +476,14 @@ class LlamaForCausalLM(nn.Module):
             h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
             q, k, v = layer.qkv(h, cfg, cos, sin, ll, ls)
             attn = step.attend(li, q, k, v, cfg.sliding_window)
-            x = x + layer.proj(attn.reshape(B, T, -1), "wo", ll, ls)
+            x = x + all_reduce_(layer.proj(attn.reshape(B, T, -1), "wo", ll, ls), self.tp)
             x = layer.mlp(x, cfg, ll, ls)
         step.finish()
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         head = self.embed.t() if cfg.tie_word_embeddings else self.lm_head
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
         x_last = x[torch.arange(B, device=x.device), last]
-        return (x_last @ head).float()
+        return gather_vocab((x_last @ head).float(), self.tp)
 
 
 CAUSAL_LM = LlamaForCausalLM
@@ -498,7 +514,7 @@ def encode(model: LlamaForCausalLM, input_ids: torch.Tensor, positions: torch.Te
     itemsize = model.embed.element_size()
     mlp_rows = max(1, ENCODE_SCORE_BYTES // (T * cfg.num_experts * cfg.intermediate_size * itemsize)) \
         if cfg.num_experts else B
-    x = model.embed[input_ids.long()]
+    x = embed_lookup(model.embed, input_ids, model.tp)
     cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     valid = positions >= 0
     kv_lens = valid.sum(dim=1).to(torch.int32)
@@ -510,7 +526,7 @@ def encode(model: LlamaForCausalLM, input_ids: torch.Tensor, positions: torch.Te
                             kv_lens=kv_lens[i: i + rows], window=cfg.sliding_window)
             for i in range(0, B, rows)
         ])
-        x = x + attn.reshape(B, T, -1) @ layer.wo
+        x = x + all_reduce_(attn.reshape(B, T, -1) @ layer.wo, model.tp)
         x = torch.cat([layer.mlp(x[i: i + mlp_rows], cfg) for i in range(0, B, mlp_rows)])
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps).float()
     mask = valid.float()[..., None]

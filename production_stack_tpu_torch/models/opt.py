@@ -25,6 +25,11 @@ What OPT has that the llama family does not:
 int8 pools are not served: the JAX OPT forward takes no ``kv_scales``, and
 this one takes none either (engine/runner.py refuses the int8 pool dtype
 for it). All-position logits and the "pre" write mode raise.
+
+With ``tp`` (a parallel/group.TPGroup) the model is one tensor-parallel
+rank's, split as the llama family's (parallel/tp.py): the learned position
+table is replicated, the q/k/v and ``fc1`` biases split with their columns,
+and ``bo`` and ``fc2_b`` are added once, after the all-reduce.
 """
 
 from __future__ import annotations
@@ -39,6 +44,7 @@ from torch import nn
 
 from production_stack_tpu_torch.models.paged_step import PagedStep
 from production_stack_tpu_torch.ops.norms import layer_norm
+from production_stack_tpu_torch.parallel.tp import all_reduce_, embed_lookup, gather_vocab, init_sharded_, shard_shape
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
 
 # HF OPT reserves the first 2 position-embedding rows (legacy padding offset)
@@ -144,11 +150,11 @@ def _check_ported(cfg: OPTConfig) -> None:
 
 
 def init_kv_pages(
-    cfg: OPTConfig, num_pages: int, page_size: int, device, dtype=None
+    cfg: OPTConfig, num_pages: int, page_size: int, device, dtype=None, tp: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Layer-stacked page pools: [L, num_pages, page_size, NH, D] zeros in
-    ``dtype`` or ``cfg.dtype``."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_heads, cfg.head_dim)
+    """Layer-stacked page pools: [L, num_pages, page_size, NH/tp, D] zeros
+    in ``dtype`` or ``cfg.dtype``."""
+    shape = (cfg.num_layers, num_pages, page_size, cfg.num_heads // tp, cfg.head_dim)
     dt = dtype or cfg.dtype
     return (
         torch.zeros(shape, dtype=dt, device=device),
@@ -166,28 +172,33 @@ def init_params(model: "OPTForCausalLM", generator: torch.Generator) -> None:
     there), written in place: LayerNorm weights 1, biases 0, the token and
     position tables N(0, 1/H), projections N(0, 1/fan_in). The draw comes
     from ``generator`` (on the model's device), so its bits differ from
-    ``jax.random``'s for the same seed."""
-    for name, p in model.named_parameters():
+    ``jax.random``'s for the same seed. A tp rank draws each whole tensor
+    and keeps its part."""
+    dev = model.final_norm_w.device
+
+    def leaf_init(name, shape):
         leaf = name.rsplit(".", 1)[-1]
         if leaf.endswith("norm_w"):
-            p.fill_(1.0)
-        elif p.dim() == 1:  # every other vector is a bias
-            p.zero_()
-        else:
-            fan_in = p.shape[1] if leaf in ("embed", "pos_embed") else p.shape[0]
-            w = torch.randn(p.shape, generator=generator, device=p.device, dtype=torch.float32)
-            p.copy_(w.mul_(fan_in**-0.5))
+            return torch.ones(shape, device=dev)
+        if len(shape) == 1:  # every other vector is a bias
+            return torch.zeros(shape, device=dev)
+        fan_in = shape[1] if leaf in ("embed", "pos_embed") else shape[0]
+        return torch.randn(shape, generator=generator, device=dev, dtype=torch.float32).mul_(fan_in**-0.5)
+
+    init_sharded_(model, leaf_init)
 
 
 class OPTDecoderLayer(nn.Module):
-    def __init__(self, cfg: OPTConfig, device):
+    def __init__(self, cfg: OPTConfig, device, tp=None):
         super().__init__()
+        n = 1 if tp is None else tp.size
         for name, shape in layer_shapes(cfg).items():
-            setattr(self, name, _param(shape, cfg.dtype, device))
+            setattr(self, name, _param(shard_shape("layers." + name, shape, n), cfg.dtype, device))
+        self.tp = tp
 
     def qkv(self, h, cfg: OPTConfig):
         B, T = h.shape[:2]
-        shape = (B, T, cfg.num_heads, cfg.head_dim)
+        shape = (B, T, -1, cfg.head_dim)  # the rank's NH/tp heads
         return (
             (h @ self.wq + self.bq).reshape(shape),
             (h @ self.wk + self.bk).reshape(shape),
@@ -196,21 +207,23 @@ class OPTDecoderLayer(nn.Module):
 
     def mlp(self, x, cfg: OPTConfig):
         h = layer_norm(x, self.mlp_norm_w, self.mlp_norm_b, cfg.layer_norm_eps)
-        return x + F.relu(h @ self.fc1 + self.fc1_b) @ self.fc2 + self.fc2_b
+        return x + all_reduce_(F.relu(h @ self.fc1 + self.fc1_b) @ self.fc2, self.tp) + self.fc2_b
 
 
 class OPTForCausalLM(nn.Module):
     """Decoder stack + tied head. Parameters are created empty on
     ``device``; engine/model_loader.py fills them."""
 
-    def __init__(self, cfg: OPTConfig, device="cuda"):
+    def __init__(self, cfg: OPTConfig, device="cuda", tp=None):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
+        self.tp = tp
+        n = 1 if tp is None else tp.size
         H = cfg.hidden_size
-        self.embed = _param((cfg.vocab_size, H), cfg.dtype, device)
+        self.embed = _param(shard_shape("embed", (cfg.vocab_size, H), n), cfg.dtype, device)
         self.pos_embed = _param((cfg.max_model_len + POS_OFFSET, H), cfg.dtype, device)
-        self.layers = nn.ModuleList(OPTDecoderLayer(cfg, device) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(OPTDecoderLayer(cfg, device, tp) for _ in range(cfg.num_layers))
         self.final_norm_w = _param((H,), cfg.dtype, device)
         self.final_norm_b = _param((H,), cfg.dtype, device)
 
@@ -234,21 +247,22 @@ class OPTForCausalLM(nn.Module):
             raise NotImplementedError("all-position logits are not ported")
         cfg = self.cfg
         B, T = input_ids.shape
-        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst)
+        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst,
+                         tp=1 if self.tp is None else self.tp.size)
         pos_ids = positions.clamp(min=0).long() + POS_OFFSET
-        x = self.embed[input_ids.long()] + self.pos_embed[pos_ids]
+        x = embed_lookup(self.embed, input_ids, self.tp) + self.pos_embed[pos_ids]
         eps = cfg.layer_norm_eps
         for li, layer in enumerate(self.layers):
             h = layer_norm(x, layer.attn_norm_w, layer.attn_norm_b, eps)
             q, k, v = layer.qkv(h, cfg)
             attn = step.attend(li, q, k, v, None)
-            x = x + attn.reshape(B, T, -1) @ layer.wo + layer.bo
+            x = x + all_reduce_(attn.reshape(B, T, -1) @ layer.wo, self.tp) + layer.bo
             x = layer.mlp(x, cfg)
         step.finish()
         x = layer_norm(x, self.final_norm_w, self.final_norm_b, eps)
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
         x_last = x[torch.arange(B, device=x.device), last]
-        return (x_last @ self.embed.t()).float()
+        return gather_vocab((x_last @ self.embed.t()).float(), self.tp)
 
 
 CAUSAL_LM = OPTForCausalLM

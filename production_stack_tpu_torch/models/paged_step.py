@@ -10,6 +10,12 @@ read-only and the caller commits the window once per burst). With
 ``kv_scales`` the pools are int8: the kernels read them in their int8
 modes and the writes quantize. ``attn_impl == "plain"`` runs the kernels'
 plain PyTorch versions.
+
+Under tensor parallelism (``tp`` ranks) every tensor here is the rank's:
+q holds NH/tp heads, the pools, scales and windows KH/tp. The decode goes
+through ``decode_attention_sharded`` (the JAX package's sharded decode, per
+rank), and the prefill kernel runs on the rank's heads too, where the JAX
+engine keeps its XLA attention for a multi-device prefill.
 """
 
 from __future__ import annotations
@@ -19,10 +25,7 @@ from typing import Optional
 import torch
 
 from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
-from production_stack_tpu_torch.ops.kernels.decode_attention import (
-    decode_attention,
-    decode_attention_ref,
-)
+from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention_sharded
 from production_stack_tpu_torch.ops.kernels.prefill_attention import (
     prefill_attention,
     prefill_attention_ref,
@@ -35,10 +38,10 @@ class PagedStep:
     commit (``finish``)."""
 
     def __init__(self, attn_impl: str, positions, k_pages, v_pages, page_table, kv_lens,
-                 kv_burst: Optional[tuple] = None, kv_scales: Optional[tuple] = None):
+                 kv_burst: Optional[tuple] = None, kv_scales: Optional[tuple] = None, tp: int = 1):
         B, T = positions.shape
         plain = attn_impl == "plain"
-        self.decode = decode_attention_ref if plain else decode_attention
+        self.decode_kw = dict(tp=tp, plain=plain)
         self.prefill = prefill_attention_ref if plain else prefill_attention
         self.burst = kv_burst is not None
         if self.burst and T != 1:
@@ -65,15 +68,16 @@ class PagedStep:
         if self.burst:
             self.k_acc[li, self.rows, self.cnt] = k[:, 0]
             self.v_acc[li, self.rows, self.cnt] = v[:, 0]
-            return self.decode(
+            return decode_attention_sharded(
                 q[:, 0], *pools, self.kv_lens, window,
-                k_cur=self.k_acc[li], v_cur=self.v_acc[li], cur_lens=self.cur_lens, **kw,
+                k_cur=self.k_acc[li], v_cur=self.v_acc[li], cur_lens=self.cur_lens, **self.decode_kw, **kw,
             )[:, None]
         if self.T == 1:
             self.new_k.append(k)
             self.new_v.append(v)
-            return self.decode(
-                q[:, 0], *pools, self.kv_lens, window, k_cur=k[:, 0].contiguous(), v_cur=v[:, 0].contiguous(), **kw,
+            return decode_attention_sharded(
+                q[:, 0], *pools, self.kv_lens, window, k_cur=k[:, 0].contiguous(), v_cur=v[:, 0].contiguous(),
+                **self.decode_kw, **kw,
             )[:, None]
         return self.prefill(
             q.contiguous(), *pools, self.positions, self.kv_lens, k.contiguous(), v.contiguous(),

@@ -1,0 +1,237 @@
+"""How each weight splits over the tp ranks, and the collectives the
+forward runs between them.
+
+The counterpart of production_stack_tpu/parallel/shardings.py, with its
+tables copied leaf for leaf (``_TOP_SPLIT``, ``_LAYER_SPLIT``): the axis of
+each port tensor split over tp, or None where every rank holds it whole.
+The port's per-layer tensors are the JAX layer-stacked leaves less their
+leading [L] axis, so ``P(None, "tp")`` on ``[L, in, out]`` is axis 1 here.
+
+- Column-parallel, split on the output axis: ``wq``/``wk``/``wv`` with
+  their biases, ``w_gate``/``w_up``, ``fc1`` with ``fc1_b``. A rank holds
+  NH/tp query heads, KH/tp KV heads and I/tp of the MLP.
+- Row-parallel, split on the input axis: ``wo``, ``w_down``, ``fc2``. Each
+  rank's product is a partial sum; one ``all_reduce_`` adds them, and the
+  bias (``bo``, ``fc2_b``) comes after it.
+- Vocab-parallel: ``embed`` on its rows (``embed_lookup``: a masked lookup,
+  then an all-reduce), ``lm_head`` on its columns; the head gives each rank
+  its V/tp logits and ``gather_vocab`` gives every rank all of them.
+- Replicated: norms, ``pos_embed``, the Gemma-2 sandwich norms, the MoE
+  router.
+
+Rank r's part of a split axis is its r-th contiguous slice. With ``group``
+None (tp = 1) every function here is the identity, so the tp = 1 path runs
+exactly the code it ran before.
+
+The gathers (``gather_vocab``, ``gather_split``, ``gather_param``) are all-reduces over a
+zero-filled full tensor that each rank fills at its own slice, summed as
+int32 words: a sum of one value and zeros, exact to the bit, through the one
+collective every backend takes for CUDA tensors (gloo's all-gather of CUDA
+tensors is not relied on). They move tp times the bytes of an all-gather.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+_TOP_SPLIT = {
+    "embed": 0,  # vocab rows
+    "pos_embed": None,
+    "final_norm": None,
+    "final_norm_w": None,
+    "final_norm_b": None,
+    "lm_head": 1,  # vocab columns
+}
+_LAYER_SPLIT = {
+    "attn_norm": None,
+    "attn_norm_w": None,
+    "attn_norm_b": None,
+    "wq": 1,  # column parallel (+ bias on the out dim)
+    "bq": 0,
+    "wk": 1,
+    "bk": 0,
+    "wv": 1,
+    "bv": 0,
+    "wo": 0,  # row parallel (bias after the all-reduce)
+    "bo": None,
+    "mlp_norm": None,
+    "mlp_norm_w": None,
+    "mlp_norm_b": None,
+    "post_attn_norm": None,  # Gemma-2 sandwich norms
+    "post_mlp_norm": None,
+    "w_gate": 1,
+    "w_up": 1,
+    "w_down": 0,
+    "fc1": 1,
+    "fc1_b": 0,
+    "fc2": 0,
+    "fc2_b": None,
+    # MoE (Mixtral): each expert's FFN over tp ([E, in, out]); the port
+    # refuses MoE with tp (check_tp), the table keeps the JAX rule
+    "moe_router": None,
+    "moe_gate": 2,
+    "moe_up": 2,
+    "moe_down": 1,
+}
+
+
+def split_axis(name: str) -> Optional[int]:
+    """The axis of parameter ``name`` (``embed``, ``layers.3.wq``) split over
+    tp, or None for a replicated one."""
+    table, leaf = (_LAYER_SPLIT, name.rsplit(".", 1)[-1]) if name.startswith("layers.") else (_TOP_SPLIT, name)
+    try:
+        return table[leaf]
+    except KeyError:
+        raise KeyError(f"parameter {name!r} has no tp split rule") from None
+
+
+def shard_shape(name: str, shape, tp: int) -> tuple[int, ...]:
+    """A rank's shape of parameter ``name`` whose whole shape is ``shape``."""
+    shape = tuple(shape)
+    ax = split_axis(name)
+    if ax is None or tp == 1:
+        return shape
+    if shape[ax] % tp:
+        raise ValueError(f"{name}: axis {ax} of {shape} does not split over {tp} tp ranks")
+    return shape[:ax] + (shape[ax] // tp,) + shape[ax + 1:]
+
+
+def full_shape(name: str, shape, tp: int) -> tuple[int, ...]:
+    """The whole shape of parameter ``name`` whose rank shape is ``shape``."""
+    shape = tuple(shape)
+    ax = split_axis(name)
+    if ax is None:
+        return shape
+    return shape[:ax] + (shape[ax] * tp,) + shape[ax + 1:]
+
+
+def shard(t: torch.Tensor, name: str, rank: int, tp: int) -> torch.Tensor:
+    """Rank ``rank``'s part of the whole parameter ``t`` (a view)."""
+    ax = split_axis(name)
+    if ax is None or tp == 1:
+        return t
+    n = shard_shape(name, t.shape, tp)[ax]
+    return t.narrow(ax, rank * n, n)
+
+
+def shard_params(params: dict[str, torch.Tensor], rank: int, tp: int) -> dict[str, torch.Tensor]:
+    """Rank ``rank`` of ``tp``'s parameter dict from a whole one (a
+    ``params_from_jax`` dict, say), every bit kept."""
+    return {name: shard(t, name, rank, tp).contiguous() for name, t in params.items()}
+
+
+def check_tp(cfg, tp: int) -> None:
+    """Refuse, by name, a model that does not split over ``tp`` ranks: the
+    heads (query and KV, so GQA groups stay whole), the MLP and the
+    vocabulary must divide by tp, and a MoE model is not split."""
+    if tp == 1:
+        return
+    if getattr(cfg, "num_experts", 0):
+        raise ValueError("tensor parallelism of a MoE model (expert FFNs over tp) is not supported by the port yet")
+    for what, n in (("num_kv_heads", cfg.num_kv_heads), ("num_heads", cfg.num_heads),
+                    ("intermediate_size", cfg.intermediate_size), ("vocab_size", cfg.vocab_size)):
+        if n % tp:
+            raise ValueError(
+                f"tensor_parallel_size {tp} does not divide {what} {n}"
+                + ("; the JAX engine replicates the pool there, the port does not yet"
+                   if what == "num_kv_heads" else "")
+            )
+
+
+def size_rank(group) -> tuple[int, int]:
+    """(tp, rank) of ``group``; (1, 0) for None."""
+    return (1, 0) if group is None else (group.size, group.rank)
+
+
+def init_sharded_(model, init_leaf) -> None:
+    """Seeded weights that make the same model at every tp: for each
+    parameter of ``model`` (whose ``tp`` is its group or None), in order,
+    ``init_leaf(name, whole_shape)`` gives the whole tensor, of which the
+    rank keeps its part; one whole tensor exists at a time."""
+    n, r = size_rank(model.tp)
+    for name, p in model.named_parameters():
+        whole = init_leaf(name, full_shape(name, p.shape, n))
+        p.copy_(shard(whole, name, r, n))
+
+
+# -- collectives (the identity at tp = 1) ---------------------------------------
+
+
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of every rank's ``x`` (a row-parallel product's partial
+    sums), in place and in x's dtype; ``x`` itself at tp = 1."""
+    if group is not None:
+        group.all_reduce(x)
+    return x
+
+
+def _exact_gather(local: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Every rank's ``local`` joined along ``dim``, bit for bit (module
+    docstring); the last axis must hold a multiple of 4 bytes."""
+    dim = dim % local.dim()
+    n = local.shape[dim]
+    shape = list(local.shape)
+    shape[dim] = n * group.size
+    full = torch.zeros(shape, dtype=local.dtype, device=local.device)
+    full.narrow(dim, group.rank * n, n).copy_(local)
+    group.all_reduce(full.view(torch.int32))
+    return full
+
+
+def gather_vocab(logits: torch.Tensor, group) -> torch.Tensor:
+    """[B, V/tp] logits of each rank -> [B, V] on every rank, bit-equal on
+    all of them."""
+    if group is None:
+        return logits
+    return _exact_gather(logits.contiguous(), -1, group)
+
+
+def gather_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """Each rank's slice along ``dim`` (the KV heads of pool pages or
+    scales, a row of counters) -> the whole, bit for bit, on every rank."""
+    if group is None:
+        return x
+    return _exact_gather(x.contiguous(), dim, group)
+
+
+def gather_param(t: torch.Tensor, name: str, group) -> torch.Tensor:
+    """The whole parameter ``name`` from every rank's part of it, bit for
+    bit (a replicated one is the rank's own)."""
+    ax = split_axis(name)
+    if group is None or ax is None:
+        return t
+    return _exact_gather(t.contiguous(), ax, group)
+
+
+def rank_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+    """This rank's slice along ``dim`` of a whole tensor (its KV heads of
+    whole-head pages or scales)."""
+    if group is None:
+        return x
+    n = x.shape[dim] // group.size
+    return x.narrow(dim, group.rank * n, n)
+
+
+def embed_lookup(embed: torch.Tensor, ids: torch.Tensor, group) -> torch.Tensor:
+    """Token embeddings [B, T, H] from a vocab-parallel table: each rank
+    looks up the ids in its rows, zeros elsewhere, and the all-reduce adds
+    them (one value and zeros: the whole table's lookup)."""
+    if group is None:
+        return embed[ids.long()]
+    rows = embed.shape[0]
+    local = ids.long() - group.rank * rows
+    hit = (local >= 0) & (local < rows)
+    x = torch.where(hit[..., None], embed[local.clamp(0, rows - 1)], torch.zeros((), dtype=embed.dtype))
+    return all_reduce_(x, group)
+
+
+def broadcast_ids(ids: torch.Tensor, group) -> torch.Tensor:
+    """Rank 0's sampled ids on every rank, so every rank feeds the same
+    token into the next step whatever its own draw gave."""
+    if group is None:
+        return ids
+    ids = ids.contiguous()
+    group.broadcast(ids)
+    return ids

@@ -13,7 +13,8 @@ offsets count from the end of the header.
   ``mmap``. ``get(name)`` returns one tensor at a time, a view of the
   mapped bytes (bf16 as raw 16-bit words viewed as ``torch.bfloat16``):
   nothing is read before it is asked for, so a model is never held twice
-  on the host. A name found in two files, or a dtype the reader does not
+  on the host. ``get_slice(name, dim, start, length)`` is a slice of one
+  axis (a tp rank's part of a weight), a view of only those bytes. A name found in two files, or a dtype the reader does not
   take, is refused by name when the directory is indexed.
 - ``save_sharded`` writes the format as HF lays a checkpoint out (shard
   names and ``model.safetensors.index.json``), ``save_file`` one file of
@@ -111,6 +112,15 @@ class SafetensorsDir:
         if offset % dt.itemsize:
             raw = raw.clone()
         return raw.view(dt).reshape(shape)
+
+    def get_slice(self, name: str, dim: int, start: int, length: int) -> torch.Tensor:
+        """``get(name).narrow(dim, start, length)``: nothing outside the
+        slice is read until the caller copies it (a slice of axis 0 is one
+        contiguous byte range of the file)."""
+        t = self.get(name)
+        if not 0 <= start <= start + length <= t.shape[dim]:
+            raise ValueError(f"tensor {name!r}: slice {start}:{start + length} of axis {dim} outside {tuple(t.shape)}")
+        return t.narrow(dim, start, length)
 
 
 def _header_bytes(entries: Iterable[tuple[str, torch.dtype, tuple]]) -> bytes:

@@ -3,7 +3,9 @@
 # version (tests/test_torch_cuda_attention.py); sleep mode's freed bytes,
 # restored weights and kernel outputs after wake, with the device telemetry
 # (tests/test_torch_cuda_surface.py); and the Mixtral MoE and LoRA forwards
-# through the kernels (tests/test_torch_cuda_moe_lora.py). No file imports
+# through the kernels (tests/test_torch_cuda_moe_lora.py); both kernels at the
+# per-rank head shapes of tensor-parallel serving (tests/test_torch_cuda_tp.py).
+# No file imports
 # jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
 # which that machine may lack, so pytest skips conftest files.
 #
@@ -11,5 +13,5 @@
 set -euo pipefail
 cd "$(dirname "$0")/.."
 exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py tests/test_torch_cuda_surface.py \
-    tests/test_torch_cuda_moe_lora.py \
+    tests/test_torch_cuda_moe_lora.py tests/test_torch_cuda_tp.py \
     -q -p no:cacheprovider "$@"

@@ -122,5 +122,6 @@ def test_devicemon_reports_the_card(runner):
     assert f'vllm:kv_pool_device_bytes{{model_name="m"}} {pool}' in text
     assert f'vllm:kv_pool_used_bytes{{model_name="m"}} {pool // 4}' in text
     assert 'vllm:tpu_hbm_bytes_in_use{model_name="m",device="cuda:0"}' in text
+    assert f'vllm:kv_pool_shard_bytes{{model_name="m",device="cuda:0"}} {pool}' in text  # one rank: the pool
     entries = int(text.split('vllm:compile_cache_entries{model_name="m"} ')[1].split()[0])
     assert entries >= 2  # both kernel libraries, built before the first launch

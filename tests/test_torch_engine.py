@@ -17,7 +17,7 @@ from production_stack_tpu.engine.config import EngineConfig as JaxEngineConfig
 from production_stack_tpu.models import llama as jllama
 from production_stack_tpu.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
-from production_stack_tpu_torch.engine.config import EngineConfig
+from production_stack_tpu_torch.engine.config import PORT_ONLY, EngineConfig
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.model_loader import params_from_jax
 from production_stack_tpu_torch.models import llama as tllama
@@ -180,9 +180,11 @@ def test_n_choices_stop_strings_and_penalties(port_url):
 
 def test_engine_config_dataclass_matches_the_jax_fields():
     """Every field of the port's EngineConfig is a JAX field with the same
-    default, so a flag the port takes means the same to both servers."""
-    port = {f.name: f.default for f in dataclasses.fields(EngineConfig)}
+    default, so a flag the port takes means the same to both servers; the
+    port's own deployment knobs (PORT_ONLY) are no JAX field."""
+    port = {f.name: f.default for f in dataclasses.fields(EngineConfig) if f.name not in PORT_ONLY}
     jax_cfg = {f.name: f.default for f in dataclasses.fields(JaxEngineConfig)}
+    assert not set(PORT_ONLY) & jax_cfg.keys()
     assert port.keys() <= jax_cfg.keys()
     assert {k: v for k, v in port.items() if k != "attn_impl"} == {
         k: jax_cfg[k] for k in port if k != "attn_impl"

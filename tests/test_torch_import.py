@@ -49,7 +49,7 @@ def test_every_module_imports_with_jax_blocked():
     names = set(out.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 26  # every module was walked, the int8 KV and offload ones among them
     for mod in ("ops.quant", "engine.linkprobe", "kvoffload.serde", "kvoffload.protocol", "kvoffload.tiers",
-                "kvoffload.connector"):
+                "kvoffload.connector", "parallel.group", "parallel.tp", "engine.distributed"):
         assert f"production_stack_tpu_torch.{mod}" in names
 
 
@@ -117,26 +117,33 @@ def test_runner_resolves_attention_by_device():
         resolve_attn_impl("pallas", "cpu")
 
 
-@pytest.mark.parametrize(
-    "field,value",
-    [
-        ("tensor_parallel_size", 2),
-        ("pipeline_parallel_size", 2),
-        ("expert_parallel_size", 2),
-        ("speculative_k", 4),
-        ("kv_role", "producer"),
-        ("kv_fabric", True),
-        ("kv_write_mode", "pre"),
-        ("decode_pipeline", 4),
-        ("kv_remote_url", "127.0.0.1:9100"),
-        ("kv_controller_url", "http://127.0.0.1:9000"),
-        ("kv_directory_url", "http://127.0.0.1:9200"),
-        ("warm_start", True),
-    ],
-)
-def test_unported_features_are_refused(field, value):
-    assert field in port_config._UNSUPPORTED
+_REFUSED = [
+    # tensor parallelism is served; what it lacks, LoRA across the ranks, is
+    # refused (MoE with tp and KH % tp != 0 are refused by the engine, which
+    # reads the model: tests/test_torch_tp.py)
+    ("tensor_parallel_size", 2, {"enable_lora": True}),
+    ("data_parallel_size", 2, {}),
+    ("sequence_parallel_size", 2, {}),
+    ("pipeline_parallel_size", 2, {}),
+    ("expert_parallel_size", 2, {}),
+    ("speculative_k", 4, {}),
+    ("kv_role", "producer", {}),
+    ("kv_fabric", True, {}),
+    ("kv_write_mode", "pre", {}),
+    ("decode_pipeline", 4, {}),
+    ("kv_remote_url", "127.0.0.1:9100", {}),
+    ("kv_controller_url", "http://127.0.0.1:9000", {}),
+    ("kv_directory_url", "http://127.0.0.1:9200", {}),
+    ("warm_start", True, {}),
+]
+
+
+@pytest.mark.parametrize("field,value,also", _REFUSED, ids=[f"{f}-{v}" for f, v, _ in _REFUSED])
+def test_unported_features_are_refused(field, value, also):
+    assert (field in port_config._UNSUPPORTED) != bool(also)
     with pytest.raises(ValueError, match="not supported by the PyTorch port"):
+        check_supported(EngineConfig(**{field: value}, **also))
+    if also:  # the field alone is served
         check_supported(EngineConfig(**{field: value}))
 
 

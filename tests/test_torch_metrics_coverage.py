@@ -57,7 +57,6 @@ REFUSED = {
     **{f"vllm:{n}": "warm_start" for n in _WARM},
     **{f"vllm:{n}": "decode_pipeline" for n in _CHAINED},
     **{f"vllm:{n}": "speculative_k" for n in _SPEC},
-    "vllm:kv_pool_shard_bytes": "tensor_parallel_size",
 }
 # series of JAX features the port has no switch for: not ported, and nothing
 # to refuse (the JAX engine serves migration by default; traces are a debug
@@ -135,5 +134,5 @@ def test_every_charted_jax_series_of_a_served_feature_is_emitted_by_the_port(por
     for name in ("vllm:tpu_hbm_bytes_in_use", "vllm:hbm_headroom_bytes", "vllm:kv_pool_device_bytes",
                  "vllm:compile_seconds_total", "vllm:request_queue_time_seconds", "vllm:prefill_chunk_seconds",
                  "vllm:interleaved_decode_step_seconds", "vllm:engine_saturated_batch",
-                 "vllm:interactive_ttft_p99_ms", "vllm:tensor_parallel_degree"):
+                 "vllm:interactive_ttft_p99_ms", "vllm:tensor_parallel_degree", "vllm:kv_pool_shard_bytes"):
         assert name in port_series

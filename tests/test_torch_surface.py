@@ -87,7 +87,6 @@ REFUSED_STATS = {
 }
 REFUSED_SERIES = {
     **{f"vllm:{k}": v for k, v in REFUSED_STATS.items()},
-    "vllm:kv_pool_shard_bytes": "tensor_parallel_size",
     # live migration: the JAX engine serves it by default (its `migration`
     # flag); the port has neither the flag nor the /migrate_* routes
     **{f"vllm:{k}": "no switch: live migration" for k in (
@@ -302,6 +301,10 @@ def test_metrics_series_match_but_for_refused_features(servers):
     assert f'vllm:prefill_chunk_seconds_count{{model_name="{MODEL}"}} 0' not in text
     assert 'vllm:tpu_hbm_bytes_in_use{model_name="%s",device="host"}' % MODEL in text
     assert f'vllm:tensor_parallel_degree{{model_name="{MODEL}"}} 1' in text
+    # one pool shard row at tp = 1, the JAX engine's device label and bytes
+    rows = [line for line in text.splitlines() if line.startswith("vllm:kv_pool_shard_bytes{")]
+    jrows = [line for line in servers.got["jax"]["metrics"].splitlines() if line.startswith("vllm:kv_pool_shard_bytes{")]
+    assert rows == jrows and len(rows) == 1
 
 
 def test_the_routers_scraper_reads_a_port_engine_as_a_jax_engine(servers):
