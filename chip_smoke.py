@@ -120,6 +120,20 @@ non-zero exit (nothing is caught):
                give each rank's step and collective seconds and bytes
                (gloo stages the collectives through the host: functional
                numbers, not a tp speed figure).
+5c. dp       -- then in-engine data parallelism, every rank a process on the
+               one card over gloo: "dp_forward" holds llama-3.2-1b's logits
+               of four rows (two per dp rank) at dp 2 against dp 1's in
+               this run (FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN; flips
+               printed with dp 1's top-2 margin), and "dp_costs" gives the
+               collectives and replica-sync bytes of a prefill chunk and of
+               an 8-step burst; "dp_f32_tokens" holds an f32 copy's greedy
+               tokens of four concurrent prompts at dp 2 against dp 1 (a
+               flip only at a near-tie); the server at dp 2 with bf16 pools
+               and at dp 2 x tp 2 with int8 pools, the CPU tier and 40
+               pages answer over HTTP and repeat; every rank launched both
+               kernels of its mode and no plain version, and after each
+               serve every dp replica's pools and scales have one digest
+               (runner.replica_digest).
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -132,13 +146,16 @@ non-zero exit (nothing is caught):
                and prefill, and mixtral-8x7b's (G = 4 at D = 128) decode
                burst step and prefill chunk, both modes, as rows of their
                own; the tp 2 ranks' rows (llama-3.2-1b's heads in both
-               modes, qwen2.5-7b's in bf16).
+               modes, qwen2.5-7b's in bf16); a dp 2 rank's decode row
+               (16 x 1,024, half the 32 x 1,024 row's rows).
 
 Then the kernel table line (each row's launches from its own path's runs:
 the llama and opt-125m servers for D = 64, the qwen2.5-7b and
 mixtral-8x7b servers for D = 128, the gemma-2-2b server for its bf16 rows
 and its int8 kernel forward for its int8 rows, which no server runs; the
-[tp2] rows from the tp 2 servers, summed over both ranks), the
+[tp2] rows from the tp 2 servers, summed over both ranks, and from the dp 2
+x tp 2 int8 server's four ranks; the [dp2] row from the dp 2 server's two
+ranks), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device, or run from a directory without the package, it exits
@@ -222,6 +239,14 @@ def _tptag(name: str, tp: int) -> str:
     return name[:-1] + f",tp{tp}]" if name.endswith("]") else name + f"[tp{tp}]"
 
 
+def _dptag(name: str, dp: int) -> str:
+    """A kernel row's name at a dp rank's rows (dp 1 keeps the name):
+    decode_attention at dp 2 -> decode_attention[dp2]."""
+    if dp == 1:
+        return name
+    return name[:-1] + f",dp{dp}]" if name.endswith("]") else name + f"[dp{dp}]"
+
+
 HEAD_DIMS = (64, 128, 256)
 REPLACES = {_dtag(k, D): v for D in HEAD_DIMS for k, v in _BASE_REPLACES.items()}
 SOURCES = {_dtag(k, D): v for D in HEAD_DIMS for k, v in _BASE_SOURCES.items()}
@@ -237,6 +262,12 @@ for _D, _quant in TP_SERVED:
                   else ("decode_attention", "prefill_attention", "kv_page_write")):
         REPLACES[_tptag(_dtag(_base, _D), 2)] = SHARDED_DECODE if _base.startswith("decode") else _BASE_REPLACES[_base]
         SOURCES[_tptag(_dtag(_base, _D), 2)] = _BASE_SOURCES[_base]
+# a dp 2 rank's decode: the sharded decode on the rank's rows (B/dp), all of
+# llama-3.2-1b's heads; the dp 2 server's decode launches. Its prefill runs
+# each row as tp 1 does (the rows above take those launches)
+DP_ROW = _dptag("decode_attention", 2)
+REPLACES[DP_ROW] = SHARDED_DECODE
+SOURCES[DP_ROW] = _BASE_SOURCES["decode_attention"]
 
 
 def emit(obj: dict) -> None:
@@ -484,9 +515,16 @@ TP_DECODE = "tp2_llama_b32_ctx1024_c8_bf16"
 TP_PREFILL = "tp2_llama_t512_h1536_bf16"
 TP_QWEN_DECODE = "tp2_qwen_b32_ctx1024_c8_bf16"
 TP_QWEN_PREFILL = "tp2_qwen_t512_h1536_bf16"
+# the dp ranks' rows: a dp 2 rank holds its group's B/2 rows and all of its
+# tp group's heads; llama-3.2-1b at dp 2 (the [dp2] row: 16 of the 32 x
+# 1,024 row's rows) and at dp 2 x tp 2
+DP_LLAMA = dict(NH=32, KH=8, D=64, dp=2)
+DP_TP_LLAMA = dict(NH=16, KH=4, D=64, tp=2, dp=2)
+DP_DECODE = "dp2_llama_b16_ctx1024_c8_bf16"
 # the cases whose one-key-fewer control must fail the bound
 CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECODE, QWEN_PREFILL, OPT_DECODE,
-              OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL, TP_DECODE, TP_PREFILL, TP_QWEN_DECODE, TP_QWEN_PREFILL}
+              OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL, TP_DECODE, TP_PREFILL, TP_QWEN_DECODE, TP_QWEN_PREFILL,
+              DP_DECODE}
 CONTROLLED |= {INT8 + n for n in CONTROLLED}
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
@@ -625,6 +663,14 @@ DECODE_CASES = [
                                            cur_lens=[0, 8, 3, 8], dtype="bfloat16")),
     ("tp2_llama_ragged_f32", dict(TP_LLAMA, B=2, page=16, maxp=20, L=1, lens=[300, 77], C=2, cur_lens=[2, 1],
                                   dtype="float32")),
+    # the dp ranks' rows: a dp 2 rank's burst step (the timing phase's
+    # inputs) and, at dp 2 x tp 2, ragged rows with an empty one, the burst
+    # on rows whose last split is empty and NaN past each row's history
+    (DP_DECODE, dict(DP_LLAMA, seed=28, B=16, page=64, maxp=16, L=1, lens=[1024] * 16, C=8, cur_lens=[8] * 16,
+                     dtype="bfloat16")),
+    ("dp2tp2_llama_ragged_burst_nan_bf16", dict(DP_TP_LLAMA, B=4, page=64, maxp=24, L=2, layer=1,
+                                                lens=[0, 30, 1500, 900], C=8, cur_lens=[0, 3, 5, 8], poison=True,
+                                                dtype="bfloat16")),
 ]
 DECODE_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in DECODE_CASES]
 
@@ -737,6 +783,12 @@ PREFILL_CASES = [
                                    dtype="bfloat16")),
     ("tp2_llama_history_f32", dict(TP_LLAMA, B=2, T=40, page=16, maxp=8, L=1, computed=[30, 3], chunks=[40, 29],
                                    dtype="float32")),
+    # a dp 2 rank's chunk of the dp_forward phase (two rows of 512 after
+    # 512), and at dp 2 x tp 2 a padded row beside a ragged one
+    ("dp2_llama_b2_t512_h512_bf16", dict(DP_LLAMA, seed=29, B=2, T=512, page=64, maxp=16, L=1, computed=[512, 512],
+                                         chunks=[512, 512], dtype="bfloat16")),
+    ("dp2tp2_llama_padded_row_nan_bf16", dict(DP_TP_LLAMA, B=2, T=96, page=16, maxp=16, L=2, layer=1,
+                                              computed=[0, 100], chunks=[0, 96], poison=True, dtype="bfloat16")),
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
 
@@ -772,8 +824,8 @@ WRITE_CASES += [
 ]
 
 
-def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1) -> str:
-    return _tptag(_dtag(base + "[int8]" if quant else base, D), tp)
+def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1) -> str:
+    return _dptag(_tptag(_dtag(base + "[int8]" if quant else base, D), tp), dp)
 
 
 def _clone_pools(args, kw):
@@ -826,10 +878,10 @@ def phase_kernels():
     for name, kw in DECODE_CASES:
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
         seed = kw.pop("seed", 1)
-        tp = kw.pop("tp", 1)
-        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp)
+        tp, dp = kw.pop("tp", 1), kw.pop("dp", 1)
+        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp)
         args, call_kw = decode_case(seed, **kw)
-        if tp > 1:  # a tp rank's decode, as models/paged_step.py calls it
+        if tp > 1 or dp > 1:  # a (dp, tp) rank's decode, as models/paged_step.py calls it
             kern = lambda *a, **k: decode_attention_sharded(*a, tp=tp, **k)  # noqa: E731
             plain = lambda *a, **k: decode_attention_sharded(*a, tp=tp, plain=True, **k)  # noqa: E731
         else:
@@ -860,8 +912,8 @@ def phase_kernels():
         (pools untouched, the same output bytes)."""
         quant = kw.get("quant", False)
         kw = dict(kw)
-        tp = kw.pop("tp", 1)
-        kernel = _kernel_name("prefill_attention", quant, kw["D"], tp)
+        tp, dp = kw.pop("tp", 1), kw.pop("dp", 1)
+        kernel = _kernel_name("prefill_attention", quant, kw["D"], tp, dp)
         args, call_kw = prefill_case(seed, **kw)
         q, kp, vp, pt, pos, lens, kc, vc, cl = args
         layer = call_kw["layer"]
@@ -886,7 +938,7 @@ def phase_kernels():
             if c == 0:
                 check(float(out[b].float().abs().max()) == 0.0, f"prefill {name}: padded row not 0")
         # the write, against its plain version alone
-        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp)
+        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp, dp)
         same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
         untouched = all(
             _same_bytes(x[i], y[i]) for i in range(kw["L"]) if i != layer
@@ -1375,12 +1427,13 @@ async def _engine_greedy(engine, seq_id: str, prompt: str, lora_name=None, max_t
     return ids, lps
 
 
-async def _together(engine, prompt: str, lora_names: tuple) -> list:
-    """One greedy request of ``prompt`` per name in ``lora_names`` (None:
-    base), queued while the engine's loop thread waits on a gate, so that
-    the scheduler sees them at once and every run of the same number of
-    requests takes the same steps at the same shapes. Returns each
-    request's (token ids, logprob entries), in order."""
+async def _together(engine, prompt, lora_names: tuple, max_tokens: int = 24) -> list:
+    """One greedy request of ``prompt`` (or of ``prompt[i]``, given a list)
+    per name in ``lora_names`` (None: base), queued while the engine's loop
+    thread waits on a gate, so that the scheduler sees them at once and
+    every run of the same number of requests takes the same steps at the
+    same shapes. Returns each request's (token ids, logprob entries), in
+    order."""
     import threading
 
     entered, gate = threading.Event(), threading.Event()
@@ -1395,8 +1448,10 @@ async def _together(engine, prompt: str, lora_names: tuple) -> list:
             break
         await asyncio.sleep(0.01)
     check(entered.is_set(), "lora: the engine loop did not reach the gate")
-    tasks = [asyncio.ensure_future(_engine_greedy(engine, f"together-{i}-{m}-{time.monotonic_ns()}", prompt, m))
-             for i, m in enumerate(lora_names)]
+    prompts = [prompt] * len(lora_names) if isinstance(prompt, str) else prompt
+    tasks = [asyncio.ensure_future(_engine_greedy(engine, f"together-{i}-{m}-{time.monotonic_ns()}", p, m,
+                                                  max_tokens=max_tokens))
+             for i, (p, m) in enumerate(zip(prompts, lora_names))]
     for _ in range(6000):
         if engine._inbox.qsize() >= len(lora_names) or any(t.done() for t in tasks):
             break
@@ -1740,11 +1795,14 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     with sleep mode on, and after the main path the engine surface is
     checked (``_surface``), ending in a sleep at that level and a wake.
     With ``lora`` = (adapters, full) the LoRA routes run on the main path
-    too (``_lora_requests``). With ``tensor_parallel_size`` tp > 1 the
-    engine runs tp processes (the followers it starts), the counts are read
-    from every rank (runner.rank_stats) and each rank must have launched
-    each kernel of its mode; a "tp_ranks" line gives each rank's step and
-    collective seconds and bytes. ``prepare(engine)``, when given, runs on
+    too (``_lora_requests``). With ``tensor_parallel_size`` tp or
+    ``data_parallel_size`` dp > 1 the engine runs dp x tp processes (the
+    followers it starts), the counts are read from every rank
+    (runner.rank_stats) and each rank must have launched each kernel of its
+    mode; a "tp_ranks" (with dp > 1 "dp_ranks") line gives each rank's step
+    and collective seconds and bytes. With dp > 1 every dp replica of a
+    KV-head shard must hold the same pools and scales after the main path
+    (runner.replica_digest). ``prepare(engine)``, when given, runs on
     the engine's loop thread before the main path (its launches are not
     counted). Returns the launch counts of the main path, summed over the
     ranks."""
@@ -1762,7 +1820,8 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     offload = "kv_offload_cpu_gb" in overrides
     gemma = label.startswith("gemma")
     cfg = EngineConfig(host="127.0.0.1", port=port, enable_sleep_mode=sleep_level > 0, **overrides)
-    tp = cfg.tensor_parallel_size
+    tp, dp = cfg.tensor_parallel_size, cfg.data_parallel_size
+    ranks = dp * tp
     kernels, plains = _counters()
     series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
 
@@ -1773,8 +1832,8 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
                 res_prepare = await asyncio.get_running_loop().run_in_executor(
                     None, server.engine._run_on_device_thread, lambda: prepare(server.engine), "prepare")
             # every count to 0 right before the main path, read right after
-            # (on every rank with tp ranks)
-            if tp > 1:
+            # (on every rank with dp or tp ranks)
+            if ranks > 1:
                 server.engine.runner.rank_stats(reset=True)
             for fn, attr in kernels.values():
                 setattr(fn, attr, 0)
@@ -1786,16 +1845,21 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             if lora:
                 res["lora"] = await _lora_requests(server, port, *lora)
             res["seconds"] = round(time.perf_counter() - t0, 3)
-            if tp > 1:
-                ranks = _rank_rows(server.engine.runner.rank_stats())
-                res["launches_by_rank"] = [{k: int(r[k]) for k in kernels} for r in ranks]
+            if ranks > 1:
+                rows = _rank_rows(server.engine.runner.rank_stats())
+                res["launches_by_rank"] = [{k: int(r[k]) for k in kernels} for r in rows]
                 res["launches"] = {k: sum(r[k] for r in res["launches_by_rank"]) for k in kernels}
-                res["plain_calls"] = {k: int(sum(r[k] for r in ranks)) for k in plains}
+                res["plain_calls"] = {k: int(sum(r[k] for r in rows)) for k in plains}
                 res["tp_ranks"] = [
                     {"rank": i, "device": dev, **{k: r[k] for k in ("step_seconds", "steps", "collective_calls",
                                                                       "collective_bytes", "collective_seconds")}}
-                    for i, (r, (dev, _)) in enumerate(zip(ranks, server.engine.runner.kv_pool_shard_layout()))
+                    for i, (r, (dev, _)) in enumerate(zip(rows, server.engine.runner.kv_pool_shard_layout()))
                 ]
+            if dp > 1:
+                digests = [bytes(d).hex() for d in server.engine.runner.replica_digest()]
+                res["replica_digests"] = [h[:16] for h in digests]
+                res["replica_digests_equal"] = all(
+                    len({digests[d * tp + t] for d in range(dp)}) == 1 for t in range(tp))
             else:
                 res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
                 res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
@@ -1828,14 +1892,17 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     what = f"serve[{label}]"
     tp_ranks = res.pop("tp_ranks", None)
     emit({"phase": "serve", "model": label, "kv_cache_dtype": cfg.kv_cache_dtype, "config": overrides, **res})
-    if tp > 1:
-        # functional numbers of tp ranks over gloo, which stages every CUDA
-        # collective through the host; no NCCL tp speed figure
-        emit({"phase": "tp_ranks", "model": label, "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)",
-              "tp": tp, "ranks": tp_ranks, "main_path_seconds": res["seconds"], "card": nvidia_smi_line()})
+    if ranks > 1:
+        # functional numbers of ranks over gloo, which stages every CUDA
+        # collective through the host; no NCCL dp or tp speed figure
+        emit({"phase": "dp_ranks" if dp > 1 else "tp_ranks", "model": label,
+              "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)", "dp": dp, "tp": tp, "ranks": tp_ranks,
+              "main_path_seconds": res["seconds"], "card": nvidia_smi_line()})
         for r, counts in enumerate(res["launches_by_rank"]):
             for k in SERVE_ROWS[quant]:
                 check(counts[k] > 0, f"{what}: kernel {k} was not launched on rank {r}")
+    if dp > 1:
+        check(res["replica_digests_equal"], f"{what}: the dp replicas' pools differ: {res['replica_digests']}")
     if gemma:
         check(max(res["prompt_tokens"]) > GEMMA_WINDOW, f"{what}: no prompt ran past the sliding window")
     for k in SERVE_ROWS[quant]:
@@ -1861,26 +1928,37 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
 # functional, not a tp speed figure
 TP2 = dict(tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
 TP_SERVE_LLAMA_INT8 = dict(model="llama-3.2-1b", **INT8_SERVE, **TP2)
-# the f32 copy's greedy tokens at tp 2 against tp 1; a token may flip only
-# where tp 1's two best tokens all but tie (their logprobs this close)
+# in-engine data parallelism on the one card, the same way: dp 2 (two
+# ranks) and dp 2 x tp 2 (four), every rank a process on cuda:0
+DP2 = dict(data_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
+DP2_TP2 = dict(data_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
+DP_SERVE_LLAMA_INT8 = dict(model="llama-3.2-1b", **INT8_SERVE, **DP2_TP2)
+# the f32 copy's greedy tokens at tp 2 (dp 2) against tp 1 (dp 1); a token
+# may flip only where the reference's two best tokens all but tie (their
+# logprobs this close)
 TP_F32_TOKENS = 16
 TP_NEAR_TIE = 1e-3
 
 
 # the tp forward's steps, as the forward phases compare theirs: two rows,
 # two 512-token prefill chunks, then 8 decode steps fed the seeded tokens
-# (teacher forcing), 20 rows of logits in all
+# (teacher forcing), 20 rows of logits in all; the dp forward's the same
+# with four rows, two on each dp rank
 TP_FORWARD_CHUNKS, TP_FORWARD_DECODES = 2, 8
+DP_FORWARD_ROWS = 4
+# pages of the forward engines: every row's 17 pages
+FORWARD_PAGES = 128
 
 
-def _tp_inputs(vocab: int) -> list:
-    """The runner's StepInputs of the tp forward's steps, on fresh pages."""
+def _tp_inputs(vocab: int, B: int = 2) -> list:
+    """The runner's StepInputs of the tp (dp) forward's steps, ``B`` rows,
+    on fresh pages."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.runner import StepInput
 
     rng = np.random.RandomState(4)
-    B, T = 2, 512
+    T = 512
     n = TP_FORWARD_CHUNKS * T + TP_FORWARD_DECODES
     ids = rng.randint(0, vocab, (B, n)).astype(np.int32)
     maxp = -(-n // 64)
@@ -1895,26 +1973,27 @@ def _tp_inputs(vocab: int) -> list:
     ]
 
 
-def _tp_logits(engine) -> list:
+def _tp_logits(engine, rows: int = 2) -> list:
     """The logits [B, V] of _tp_inputs' chunk and decode step through the
     engine's runner (every rank), on the CPU; the pools are reset after."""
     runner = engine.runner
-    out = [runner.step(inp)[1].float().cpu() for inp in _tp_inputs(engine.model_cfg.vocab_size)]
+    out = [runner.step(inp)[1].float().cpu() for inp in _tp_inputs(engine.model_cfg.vocab_size, rows)]
     runner.reset_kv()
     return out
 
 
-def phase_tp_reference(model: str = "llama-3.2-1b") -> list:
-    """tp 1's logits of _tp_inputs on ``model`` (seeded weights: every tp
-    draws the same model), for the tp 2 server's check."""
+def phase_tp_reference(model: str = "llama-3.2-1b", rows: int = 2) -> list:
+    """tp 1's (dp 1's) logits of _tp_inputs on ``model`` (seeded weights:
+    every tp and dp draws the same model), for the tp 2 server's and the dp
+    forward's checks."""
     import torch
 
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import LLMEngine
 
-    engine = LLMEngine(EngineConfig(model=model, num_pages=64))
+    engine = LLMEngine(EngineConfig(model=model, num_pages=FORWARD_PAGES))
     try:
-        return _tp_logits(engine)
+        return _tp_logits(engine, rows)
     finally:
         engine.stop()
         del engine
@@ -1922,41 +2001,111 @@ def phase_tp_reference(model: str = "llama-3.2-1b") -> list:
         torch.cuda.empty_cache()
 
 
-def _tp_logits_check(ref: list):
-    """``prepare`` for the tp 2 llama server: its logits against tp 1's
-    (``ref``) within the forward phases' bar."""
+def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2):
+    """``run(engine)``: the engine's logits of _tp_inputs (``rows`` rows) at
+    ``mesh`` ({"tp": 2} or {"dp": 2}) against one rank's (``ref``) within the
+    forward phases' bar, the flips printed with the reference's top-2
+    margin."""
     import torch
 
+    against = " x ".join(f"{k} 1" for k in mesh)
+
     def run(engine):
-        got = _tp_logits(engine)
+        got = _tp_logits(engine, rows)
         diffs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
         top1 = float(torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(got, ref)]).float().mean())
-        flips = []  # where the two runs' best tokens differ: tp 1's two best logits there
+        flips = []  # where the two runs' best tokens differ: the reference's two best logits there
         for s, (a, b) in enumerate(zip(got, ref)):
             for r in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten().tolist():
                 top = b[r].topk(2).values
-                flips.append({"step": s, "row": r, "tp1_top2_margin": float(top[0] - top[1])})
-        line = {"phase": "tp_forward", "model": "llama-3.2-1b", "tp": 2, "against": "tp 1, same run",
-                "steps": [f"prefill 2 x 512 (x{TP_FORWARD_CHUNKS})", f"decode 2 x 1 (x{TP_FORWARD_DECODES})"],
+                flips.append({"step": s, "row": r, "reference_top2_margin": float(top[0] - top[1])})
+        line = {"phase": phase, "model": "llama-3.2-1b", **mesh, "against": f"{against}, same run",
+                "steps": [f"prefill {rows} x 512 (x{TP_FORWARD_CHUNKS})", f"decode {rows} x 1 (x{TP_FORWARD_DECODES})"],
                 "max_logit_diff_per_step": diffs, "argmax_flips": flips,
                 "bound": FORWARD_LOGIT_BOUND, "top1_agreement": top1, "top1_min": FORWARD_TOP1_MIN,
                 "finite": all(bool(torch.isfinite(x).all()) for x in got),
                 "shapes": [list(x.shape) for x in got]}
         emit(line)
-        check(line["finite"] and line["shapes"] == [list(x.shape) for x in ref], "tp_forward: bad logits")
-        check(max(diffs) <= FORWARD_LOGIT_BOUND, f"tp_forward: logit diff {max(diffs)} > {FORWARD_LOGIT_BOUND}")
-        check(top1 >= FORWARD_TOP1_MIN, f"tp_forward: top-1 agreement {top1} < {FORWARD_TOP1_MIN}")
+        check(line["finite"] and line["shapes"] == [list(x.shape) for x in ref], f"{phase}: bad logits")
+        check(max(diffs) <= FORWARD_LOGIT_BOUND, f"{phase}: logit diff {max(diffs)} > {FORWARD_LOGIT_BOUND}")
+        check(top1 >= FORWARD_TOP1_MIN, f"{phase}: top-1 agreement {top1} < {FORWARD_TOP1_MIN}")
         return {"max_logit_diff": max(diffs), "top1_agreement": top1}
 
     return run
 
 
-def phase_tp_f32_tokens() -> None:
+def _dp_costs(engine) -> dict:
+    """What the dp ranks move beside the forward, for one prefill chunk of
+    _tp_inputs (DP_FORWARD_ROWS rows of 512) and one 8-step burst after it,
+    as each rank counted it (rank_stats): its collective calls, bytes and
+    host seconds, and the replica sync's gathered bytes and the pages it
+    copied into the rank's replica (parallel/dp.py; the gathered buffer
+    holds dp x the largest group's pages, a page being every layer's K and
+    V of the rank's KV heads). Every rank must have synced in both."""
+    import dataclasses as dc
+
+    runner = engine.runner
+    inps = _tp_inputs(engine.model_cfg.vocab_size, DP_FORWARD_ROWS)
+    burst = dc.replace(inps[TP_FORWARD_CHUNKS], kv_limits=None)
+    runner.reset_kv()
+    runner.rank_stats(reset=True)
+    out = {}
+    for what, run in (
+        ("prefill_chunk", lambda: runner.step(inps[0], want_logits=False)),
+        ("burst_8", lambda: runner.step_multi(burst, 8)),
+    ):
+        if what == "burst_8":
+            runner.step(inps[1], want_logits=False)  # the second chunk, then the burst after it
+            runner.rank_stats(reset=True)
+        t0 = time.perf_counter()
+        run()
+        wall = time.perf_counter() - t0
+        rows = _rank_rows(runner.rank_stats(reset=True))
+        out[what] = {
+            "wall_seconds": round(wall, 4),
+            "sync_gathered_bytes_by_rank": [int(r["sync_bytes"]) for r in rows],
+            "sync_pages_copied_in_by_rank": [int(r["sync_pages"]) for r in rows],
+            "collective_calls_by_rank": [int(r["collective_calls"]) for r in rows],
+            "collective_bytes_by_rank": [int(r["collective_bytes"]) for r in rows],
+            "collective_seconds_by_rank": [round(r["collective_seconds"], 4) for r in rows],
+        }
+        check(all(r["sync_bytes"] > 0 and r["sync_pages"] > 0 for r in rows),
+              f"dp_costs: a rank did not sync its replica after the {what}: {out[what]}")
+    runner.reset_kv()
+    return out
+
+
+def phase_dp_forward(ref: list) -> None:
+    """llama-3.2-1b at dp 2 (two ranks on the one card over gloo, full
+    width and depth): its logits of four rows, two per dp rank, against dp
+    1's (``ref``), then what a chunk and a burst move between the ranks
+    ("dp_costs"; host-staged gloo, not a speed figure)."""
+    import torch
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    engine = LLMEngine(EngineConfig(model="llama-3.2-1b", num_pages=FORWARD_PAGES, **DP2))
+    try:
+        _logits_check(ref, "dp_forward", {"dp": 2}, DP_FORWARD_ROWS)(engine)
+        emit({"phase": "dp_costs", "model": "llama-3.2-1b", "dp": 2, "rows": DP_FORWARD_ROWS,
+              "backend": "gloo (host-staged CUDA tensors)", **_dp_costs(engine), "card": nvidia_smi_line()})
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool) -> None:
     """An f32 copy of llama-3.2-1b (its preset at float32, added here; the
-    leader hands the config to its follower): greedy tokens through the
-    engine at tp 2 against tp 1 for TP_F32_TOKENS tokens, two prompts. A
-    token that differs must sit where tp 1's two best tokens are within
-    TP_NEAR_TIE: its margin and the runs' logprob difference are printed."""
+    leader hands the config to its followers): greedy tokens through the
+    engine at ``overrides`` (tp 2, or dp 2) against one rank's for
+    TP_F32_TOKENS tokens, ``n_prompts`` prompts, one after another or, with
+    ``together``, queued at once (``_together``: at dp 2 both dp groups
+    hold rows). A token that differs must sit where the reference's two
+    best tokens are within TP_NEAR_TIE: its margin and the runs' logprob
+    difference are printed."""
     import random
 
     import torch
@@ -1968,23 +2117,24 @@ def phase_tp_f32_tokens() -> None:
     name = "llama-3.2-1b-f32"
     llama.PRESETS[name] = dataclasses.replace(llama.PRESETS["llama-3.2-1b"], dtype=torch.float32)
     rng = random.Random(13)
-    prompts = [_prompt(rng, 300), _prompt(rng, 700)]
+    prompts = [_prompt(rng, 300 + 400 * (i % 2) + 37 * (i // 2)) for i in range(n_prompts)]
     runs = {}
     t0 = time.perf_counter()
-    for tp in (1, 2):
-        overrides = TP2 if tp == 2 else {}
-        engine = LLMEngine(EngineConfig(model=name, num_pages=128, decode_steps=8, **overrides))
+    for parallel in (False, True):
+        engine = LLMEngine(EngineConfig(model=name, num_pages=128, decode_steps=8, **(overrides if parallel else {})))
         engine.start()
         try:
-            if tp == 2:
+            if parallel:
                 engine.runner.rank_stats(reset=True)
 
             async def go():
-                return [await _engine_greedy(engine, f"f32-{tp}-{i}", p, max_tokens=TP_F32_TOKENS)
+                if together:
+                    return await _together(engine, prompts, (None,) * len(prompts), max_tokens=TP_F32_TOKENS)
+                return [await _engine_greedy(engine, f"f32-{parallel}-{i}", p, max_tokens=TP_F32_TOKENS)
                         for i, p in enumerate(prompts)]
 
-            runs[tp] = asyncio.run(go())
-            if tp == 2:
+            runs[parallel] = asyncio.run(go())
+            if parallel:
                 ranks = _rank_rows(engine.runner.rank_stats())
         finally:
             engine.stop()
@@ -1993,26 +2143,27 @@ def phase_tp_f32_tokens() -> None:
             torch.cuda.empty_cache()
     # up to each prompt's first differing token (after it the prefixes differ)
     flips, diffs, same = [], [], 0
-    for i, ((ids1, lp1), (ids2, lp2)) in enumerate(zip(runs[1], runs[2])):
+    for i, ((ids1, lp1), (ids2, lp2)) in enumerate(zip(runs[False], runs[True])):
         j = next((j for j, (a, b) in enumerate(zip(ids1, ids2)) if a != b), len(ids1))
         same += j
         diffs += [abs(a["logprob"] - b["logprob"]) for a, b in zip(lp1[:j], lp2[:j])]
         if j < len(ids1):
             top = lp1[j]["top_logprobs"]
-            flips.append({"prompt": i, "token": j, "tp1_top2_margin": top[0] - top[1],
+            flips.append({"prompt": i, "token": j, "reference_top2_margin": top[0] - top[1],
                           "logprob_diff": abs(lp1[j]["logprob"] - lp2[j]["logprob"])})
-    line = {"phase": "tp_f32_tokens", "model": name, "tp": 2, "tokens_per_prompt": TP_F32_TOKENS,
-            "prompts": len(prompts), "tokens_equal_before_a_flip": same, "flips": flips, "near_tie": TP_NEAR_TIE,
-            "logprob_max_diff_before_a_flip": max(diffs, default=0.0),
+    mesh = {k: overrides.get(f, 1) for k, f in (("dp", "data_parallel_size"), ("tp", "tensor_parallel_size"))}
+    line = {"phase": phase, "model": name, **mesh, "tokens_per_prompt": TP_F32_TOKENS,
+            "prompts": len(prompts), "concurrent": together, "tokens_equal_before_a_flip": same, "flips": flips,
+            "near_tie": TP_NEAR_TIE, "logprob_max_diff_before_a_flip": max(diffs, default=0.0),
             "launches_by_rank": [{k: int(r[k]) for k in ("decode_attention", "prefill_attention", "kv_page_write")}
                                  for r in ranks],
             "seconds": round(time.perf_counter() - t0, 2)}
     emit(line)
-    check(all(len(ids) == TP_F32_TOKENS for run in runs.values() for ids, _ in run), "tp_f32_tokens: short output")
+    check(all(len(ids) == TP_F32_TOKENS for run in runs.values() for ids, _ in run), f"{phase}: short output")
     for f in flips:
-        check(f["tp1_top2_margin"] <= TP_NEAR_TIE, f"tp_f32_tokens: a token flipped away from a near-tie: {f}")
+        check(f["reference_top2_margin"] <= TP_NEAR_TIE, f"{phase}: a token flipped away from a near-tie: {f}")
     for r, counts in enumerate(line["launches_by_rank"]):
-        check(all(n > 0 for n in counts.values()), f"tp_f32_tokens: rank {r} launched {counts}")
+        check(all(n > 0 for n in counts.values()), f"{phase}: rank {r} launched {counts}")
 
 
 def _tp_qwen_slices(seed: int = 0):
@@ -2086,7 +2237,8 @@ def _decode_timing(case_name: str, quant: bool) -> dict:
 
     bf16 = torch.bfloat16
     case = dict(dict(DECODE_CASES)[case_name], dtype=bf16, quant=quant)
-    case.pop("tp", None)  # a tp rank's shapes: the same kernel on its heads
+    case.pop("tp", None)  # a rank's shapes: the same kernel on its rows and heads
+    case.pop("dp", None)
     B, NH, KH, D, page, maxp = (case[k] for k in ("B", "NH", "KH", "D", "page", "maxp"))
     lens, C, cur = case["lens"], case["C"], case["cur_lens"]
     window = case.get("window") or (1 << 30)
@@ -2138,6 +2290,7 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, dict]:
     bf16 = torch.bfloat16
     case = dict(dict(PREFILL_CASES)[case_name], dtype=bf16, quant=quant)
     case.pop("tp", None)
+    case.pop("dp", None)
     NH, KH, D, page, T = (case[k] for k in ("NH", "KH", "D", "page", "T"))
     hist = case["computed"][0]
     window = case.get("window") or (1 << 30)
@@ -2243,6 +2396,8 @@ def phase_timing() -> dict:
         row, fused = _prefill_timing(INT8 + pre if quant else pre, quant)
         rows[_kernel_name("prefill_attention", quant, D, 2)] = row
         rows[_kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, D, 2)] = _write_timing(fused, quant)
+    # a dp 2 rank's decode: 16 rows of the 32 x 1,024 burst step
+    rows[DP_ROW] = _decode_timing(DP_DECODE, False)
     for name, r in rows.items():
         emit({"phase": "timing", "kernel": name, **r})
     for case in SMALL_BATCH_DECODE + (QWEN_DECODE_B1_8K,) + GEMMA_WINDOW_DECODE:
@@ -2594,9 +2749,11 @@ def main() -> int:
     def serve(label, overrides, D, sleep_level, lora, prepare=None):
         counts = phase_serve(label, overrides, sleep_level, lora, prepare)
         quant = overrides.get("kv_cache_dtype") == "int8"
-        tp = overrides.get("tensor_parallel_size", 1)
+        tp, dp = overrides.get("tensor_parallel_size", 1), overrides.get("data_parallel_size", 1)
         for k in SERVE_ROWS[quant]:
             row = _tptag(_dtag(k, D), tp)
+            if dp > 1 and tp == 1 and k == "decode_attention":
+                row = _dptag(row, dp)  # the dp rank's rows, all heads: the [dp2] row
             launches[row] = launches.get(row, 0) + counts[k]
 
     try:
@@ -2610,10 +2767,17 @@ def main() -> int:
         # tensor parallelism: two ranks (processes) on the one card over
         # gloo, with qwen2.5-7b's directory still on the disk
         tp_ref = phase_tp_reference()
-        serve("llama-3.2-1b, tp2", dict(model="llama-3.2-1b", **TP2), 64, 0, (), _tp_logits_check(tp_ref))
+        serve("llama-3.2-1b, tp2", dict(model="llama-3.2-1b", **TP2), 64, 0, (),
+              _logits_check(tp_ref, "tp_forward", {"tp": 2}))
         serve("llama-3.2-1b, int8, tp2", TP_SERVE_LLAMA_INT8, 64, 0, ())
-        phase_tp_f32_tokens()
+        phase_f32_tokens("tp_f32_tokens", TP2, n_prompts=2, together=False)
         serve("qwen2.5-7b-hf, tp2", dict(model=str(QWEN_DIR), **TP2), 128, 0, (), _tp_qwen_slices())
+        # in-engine data parallelism: dp 2, then dp 2 x tp 2, every rank a
+        # process on the one card over gloo
+        phase_dp_forward(phase_tp_reference(rows=DP_FORWARD_ROWS))
+        phase_f32_tokens("dp_f32_tokens", DP2, n_prompts=4, together=True)
+        serve("llama-3.2-1b, dp2", dict(model="llama-3.2-1b", **DP2), 64, 0, ())
+        serve("llama-3.2-1b, int8, dp2 x tp2", DP_SERVE_LLAMA_INT8, 64, 0, ())
         phase_opt_int8_refused()
         shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 47 GB
         phase_hf_mixtral()

@@ -23,9 +23,11 @@ HuggingFace checkpoint, served under that path as its name unless
 ``--served-model-name`` gives another), on the card; the engine raises
 without one. ``--tensor-parallel-size N`` (alias ``--tensor-parallel``)
 serves with N processes, one per tp rank, which the engine starts and, on
-shutdown, ends; ``--tp-backend`` (nccl, the default, or gloo) and
-``--tp-device-ids`` (say ``0,0``: two ranks on the first card, with gloo)
-are the port's own knobs for them.
+shutdown, ends; ``--data-parallel-size M`` makes M such groups, M x N
+processes, each group serving its share of every batch's rows;
+``--tp-backend`` (nccl, the default, or gloo) and ``--tp-device-ids`` (say
+``0,0``: two ranks on the first card, with gloo) are the port's own knobs
+for all of them.
 """
 
 from __future__ import annotations

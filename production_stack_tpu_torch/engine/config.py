@@ -4,8 +4,8 @@ Every field keeps the JAX engine's flag name and default, so a flag means
 the same to both servers. The port carries only the fields it reads, plus
 one switch per JAX feature it does not serve yet; check_supported refuses
 a non-default value of a switch instead of ignoring it. Two knobs are the
-port's own: ``tp_backend`` and ``tp_device_ids``, which say how its tp ranks
-(one process each) reach each other and their devices.
+port's own: ``tp_backend`` and ``tp_device_ids``, which say how its ranks
+(dp x tp processes, one each) reach each other and their devices.
 """
 
 from __future__ import annotations
@@ -114,10 +114,14 @@ class EngineConfig:
     # started by the engine, each holding 1/tp of the heads, MLP and
     # vocabulary and 1/tp of every KV page (parallel/, engine/distributed.py)
     tensor_parallel_size: int = 1
-    # the port's deployment knobs for its tp ranks: the torch.distributed
-    # backend (nccl, or gloo, which stages CUDA tensors through the host and
-    # so lets two ranks share one card), and the CUDA device of each rank,
-    # comma-separated (default: rank r on cuda:r)
+    # in-engine data parallelism: dp groups of tp ranks, each serving its
+    # B/dp rows of every step with a whole replica of the pool (dp x tp
+    # processes in all, rank r at (r // tp, r % tp); parallel/dp.py)
+    data_parallel_size: int = 1
+    # the port's deployment knobs for its ranks (all dp x tp of them): the
+    # torch.distributed backend (nccl, or gloo, which stages CUDA tensors
+    # through the host and so lets ranks share one card), and the CUDA
+    # device of each rank, comma-separated (default: rank r on cuda:r)
     tp_backend: str = "nccl"
     tp_device_ids: Optional[str] = None
 
@@ -128,7 +132,6 @@ class EngineConfig:
     kv_write_mode: str = "post"         # "pre" is not ported
     decode_pipeline: int = 1            # chained decode bursts
     speculative_k: int = 0              # speculative decoding
-    data_parallel_size: int = 1
     sequence_parallel_size: int = 1
     expert_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -180,14 +183,19 @@ _FLAG_HELP = {
         "tensor-parallel ranks, one process each (started by the server); "
         "KV heads, query heads, the MLP and the vocabulary must divide by it"
     ),
+    "data_parallel_size": (
+        "in-engine data-parallel groups, each a tp group serving its share "
+        "of every batch's rows with a whole replica of the KV pool; the "
+        "server starts dp x tp processes"
+    ),
     "tp_backend": (
-        "nccl | gloo: the torch.distributed backend of the tp ranks (port "
-        "only). gloo stages CUDA tensors through the host, so two ranks may "
-        "share one card (--tp-device-ids 0,0); nccl refuses that"
+        "nccl | gloo: the torch.distributed backend of the engine's dp x tp "
+        "ranks (port only). gloo stages CUDA tensors through the host, so "
+        "ranks may share one card (--tp-device-ids 0,0); nccl refuses that"
     ),
     "tp_device_ids": (
-        "comma-separated CUDA device index of each tp rank (port only; "
-        "default: rank r on cuda:r)"
+        "comma-separated CUDA device index of each of the dp x tp ranks, "
+        "rank r = d * tp + t (port only; default: rank r on cuda:r)"
     ),
 }
 # the port's own fields, which the JAX engine has not
@@ -251,7 +259,6 @@ _UNSUPPORTED = {
     "kv_write_mode": "the 'pre' KV write mode",
     "decode_pipeline": "chained decode bursts",
     "speculative_k": "speculative decoding",
-    "data_parallel_size": "in-engine data parallelism",
     "sequence_parallel_size": "sequence parallelism",
     "expert_parallel_size": "expert parallelism",
     "pipeline_parallel_size": "pipeline parallelism",
@@ -268,6 +275,15 @@ _UNSUPPORTED = {
 
 def check_supported(cfg: EngineConfig) -> None:
     """Raise on any non-default value of a feature the port lacks."""
+    dp = cfg.data_parallel_size
+    if dp < 1:
+        raise ValueError(f"data_parallel_size must be >= 1, got {dp}")
+    if dp > 1 and cfg.pipeline_parallel_size > 1:
+        # the JAX engine's own refusal (engine/engine.py)
+        raise ValueError(
+            "pipeline parallelism does not compose with in-engine data parallelism; "
+            "use router-level replicas for DP"
+        )
     defaults = EngineConfig()
     bad = sorted(
         {
@@ -296,4 +312,6 @@ def check_supported(cfg: EngineConfig) -> None:
         raise ValueError(f"unknown tp_backend {cfg.tp_backend!r}; options: {TP_BACKENDS}")
     if tp > 1 and cfg.enable_lora:
         raise ValueError("not supported by the PyTorch port yet: LoRA with tensor parallelism")
-    parse_device_ids(cfg.tp_device_ids, tp)
+    if dp > 1 and cfg.enable_lora:
+        raise ValueError("not supported by the PyTorch port yet: LoRA with in-engine data parallelism")
+    parse_device_ids(cfg.tp_device_ids, dp * tp)

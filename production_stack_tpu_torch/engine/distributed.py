@@ -1,19 +1,20 @@
-"""The tp ranks' lockstep: the leader's step stream and the followers'
+"""The engine ranks' lockstep: the leader's step stream and the followers'
 replay.
 
 The port's own copy of production_stack_tpu/engine/distributed.py (its
 codec, frames, handshake, ``StepBroadcaster``, ``BroadcastingRunner`` and
-``follower_loop``), for the tp processes of one engine rather than the
-hosts of a multi-host set:
+``follower_loop``), for the dp x tp rank processes of one engine rather
+than the hosts of a multi-host set:
 
 - Rank 0 (the leader) runs the real engine: HTTP API, scheduler, tokenizer,
   prefix cache. Every runner call that must run on every rank (``REPLICATED``)
   is first sent -- method name plus numpy arguments in a non-executable
   tagged binary format -- to every follower, then run locally.
-- Ranks 1..tp-1 (the followers) run ``follower_loop``: they read each call
-  and make the same one on their own ``ModelRunner``. The collectives inside
-  a forward then meet (parallel/tp.py): they go over the process group, never
-  over this stream.
+- Ranks 1..dp*tp-1 (the followers) run ``follower_loop``: they read each
+  call and make the same one on their own ``ModelRunner``. The collectives
+  inside a call then meet (parallel/tp.py, parallel/dp.py): they go over the
+  process groups, never over this stream. Every rank gets the whole call
+  (a step's every row): each takes its dp group's rows itself.
 
 Security model, as in the JAX copy: every connection starts with a
 random-nonce HMAC handshake and every frame carries an HMAC over (sequence
@@ -24,7 +25,7 @@ follower, inject calls or replay old ones. The secret is the caller's
 and plain scalars (no pickle). The leader listens on localhost only: its
 followers are its own child processes.
 
-Failure model: tp ranks cannot survive losing one. Any error of a
+Failure model: the ranks cannot survive losing one. Any error of a
 replicated call on the leader (a lost follower included) exits the leader
 (``os._exit(13)``, as the JAX engine does in multi-host mode), and a
 follower dies on any replay error: its sockets close, so the leader's next
@@ -62,9 +63,9 @@ _HELLO_NONCE_LEN = 32
 
 # runner methods every rank must run, in the leader's order: each changes
 # device state or runs a collective (engine/runner.py). The page moves
-# gather or scatter the KV-head shards at the serde boundary; sleep level 2
-# moves each rank's own weight shards; ``rank_stats`` and
-# ``gathered_params`` read every rank's counters and weights.
+# gather or scatter the KV-head shards at the serde boundary (and keep the
+# dp replicas equal); sleep level 2 moves each rank's own weight shards;
+# ``rank_stats``, ``replica_digest`` and ``gathered_params`` read every rank's counters, pools and weights.
 REPLICATED = (
     "step",
     "step_multi",
@@ -78,6 +79,7 @@ REPLICATED = (
     "offload_params",
     "restore_params",
     "rank_stats",
+    "replica_digest",
     "gathered_params",
 )
 
@@ -366,7 +368,7 @@ class BroadcastingRunner:
                 self._bc.broadcast(name, args, kwargs)
                 return attr(*args, **kwargs)
             except Exception:
-                logger.exception("replicated call %s failed with tp ranks; exiting", name)
+                logger.exception("replicated call %s failed with follower ranks; exiting", name)
                 os._exit(13)
 
         return call
@@ -436,7 +438,7 @@ def follower_loop(
         sock.close()
 
 
-# -- the tp processes of one engine --------------------------------------------
+# -- the rank processes of one engine ------------------------------------------
 
 
 def _free_port() -> int:
@@ -448,13 +450,15 @@ def _free_port() -> int:
 def tp_follower_main(cfg, rank: int, devices, init_method: str, sync_port: int, secret: bytes,
                      model_cfg, params, num_pages: int) -> None:
     """A follower rank's process (``spawn``ed by ``TPLeader``): join the
-    group on ``devices[rank]`` (made current before anything touches CUDA),
-    build the rank's runner and replay the leader's calls until it closes
-    the stream. Any error ends the process."""
+    ranks as global ``rank``, at (d, t) = (rank // tp, rank % tp), on
+    ``devices[rank]`` (made current before anything touches CUDA), build
+    the rank's runner and replay the leader's calls until it closes the
+    stream. Any error ends the process."""
     from production_stack_tpu_torch.engine.engine import build_runner
     from production_stack_tpu_torch.parallel.group import TPGroup
 
-    group = TPGroup.init(rank, cfg.tensor_parallel_size, cfg.tp_backend, devices, init_method)
+    group = TPGroup.init(rank, cfg.data_parallel_size, cfg.tensor_parallel_size, cfg.tp_backend, devices,
+                         init_method)
     try:
         runner = build_runner(cfg, group.device, model_cfg, params, num_pages, group)
         follower_loop(runner, "127.0.0.1", sync_port, secret=secret)
@@ -463,7 +467,8 @@ def tp_follower_main(cfg, rank: int, devices, init_method: str, sync_port: int, 
 
 
 class TPLeader:
-    """The leader's side of an engine's tp ranks: starts ranks 1..tp-1 as
+    """The leader's side of an engine's dp x tp ranks: starts ranks
+    1..dp*tp-1 as
     ``spawn``ed processes (the leader may already hold a CUDA context, which
     ``fork`` would copy into a broken child), joins the group as rank 0 on a
     free localhost port, then (``wrap``) waits for the followers' step
@@ -487,8 +492,9 @@ class TPLeader:
             rank_devices,
         )
 
-        tp = cfg.tensor_parallel_size
-        devices = rank_devices(device, tp, parse_device_ids(cfg.tp_device_ids, tp))
+        dp, tp = cfg.data_parallel_size, cfg.tensor_parallel_size
+        world = dp * tp
+        devices = rank_devices(device, world, parse_device_ids(cfg.tp_device_ids, world))
         check_backend(cfg.tp_backend, devices)
         if resolve_attn_impl(cfg.attn_impl, devices[0]) == "cuda":
             _build.build()
@@ -501,23 +507,23 @@ class TPLeader:
         init_method = f"tcp://127.0.0.1:{_free_port()}"
         ctx = tmp.get_context("spawn")
         try:
-            for r in range(1, tp):
+            for r in range(1, world):
                 p = ctx.Process(
-                    target=tp_follower_main, name=f"tp-rank-{r}", daemon=True,
+                    target=tp_follower_main, name=f"rank-{r}" if dp > 1 else f"tp-rank-{r}", daemon=True,
                     args=(cfg, r, devices, init_method, self._sync_port, self._secret, model_cfg, params, num_pages),
                 )
                 p.start()
                 self.procs.append(p)
-            self.group = TPGroup.init(0, tp, cfg.tp_backend, devices, init_method)
+            self.group = TPGroup.init(0, dp, tp, cfg.tp_backend, devices, init_method)
         except BaseException:
             self.close()
             raise
-        logger.info("tp group of %d ranks on %s over %s", tp, self.group.labels, cfg.tp_backend)
+        logger.info("%d ranks (dp %d x tp %d) on %s over %s", world, dp, tp, self.group.labels, cfg.tp_backend)
 
     def _alive(self) -> None:
         dead = [(p.name, p.exitcode) for p in self.procs if not p.is_alive()]
         if dead:
-            raise RuntimeError(f"tp follower(s) exited before joining the step stream: {dead}")
+            raise RuntimeError(f"follower rank(s) exited before joining the step stream: {dead}")
 
     def wrap(self, runner) -> BroadcastingRunner:
         """The leader's runner behind the step stream, once every follower
@@ -533,7 +539,7 @@ class TPLeader:
             except RuntimeError:
                 if self._closing.is_set():
                     return  # close() ended them (it sets the flag first)
-                logger.critical("a tp follower exited while serving: %s; exiting",
+                logger.critical("a follower rank exited while serving: %s; exiting",
                                 [(p.name, p.exitcode) for p in self.procs if not p.is_alive()])
                 os._exit(13)
 

@@ -41,7 +41,15 @@ stay the leader's; page ids are the same on every rank. ``num_pages`` comes
 from the whole page's bytes, as in the JAX engine, so a tp engine has tp = 1's
 page count and each rank 1/tp of the bytes. A step error with tp ranks ends
 the process (exit 13): the ranks' collectives are out of step and no request
-could be served right. Not ported yet: the remote tier, the KV-index controller, the fleet directory,
+could be served right.
+
+With ``data_parallel_size`` dp > 1 the engine runs dp x tp processes, rank r
+at (d, t) = (r // tp, r % tp) as the JAX mesh orders them: each dp group d
+is a tp group over the whole model and serves its B/dp contiguous rows of
+every step, and every rank holds the whole pool of its KV heads (replicated
+over dp, as in the JAX engine; the runner copies each step's written pages
+into the other replicas). The scheduler pads every batch to a multiple of
+dp (``batch_multiple``), the padded rows inert, as the JAX engine's does. Not ported yet: the remote tier, the KV-index controller, the fleet directory,
 warm start, the KV fabric, migration, speculative decoding and chained
 bursts (engine/config.check_supported refuses their flags).
 """
@@ -73,6 +81,7 @@ from production_stack_tpu_torch.engine.scheduler import SamplingParams, Schedule
 from production_stack_tpu_torch.engine.tokenizer import load_tokenizer
 from production_stack_tpu_torch.kvoffload.connector import KVOffloadConnector
 from production_stack_tpu_torch.ops.quant import dequantize_page_host, kv_bytes_per_token, quantize_page_host
+from production_stack_tpu_torch.parallel.dp import check_dp
 from production_stack_tpu_torch.parallel.tp import check_tp
 from production_stack_tpu_torch.utils.logging import init_logger
 
@@ -104,10 +113,11 @@ def build_runner(cfg: EngineConfig, device, model_cfg, params, num_pages: int, t
     """The engine's ModelRunner on ``device``: its model (``model_cfg``
     resolved by model_loader.model_config; ``params`` a whole parameter
     dict, or None for the preset's seeded weights or the directory's), and
-    ``num_pages`` pages. ``tp``: the rank's group, for the rank's part."""
+    ``num_pages`` pages. ``tp``: the rank's parallel/group.TPGroup; the
+    model takes its tp group's part (the whole model at tp = 1)."""
     _, _, model = load_model(
-        cfg.model, seed=cfg.seed, device=device, max_model_len=cfg.max_model_len, params=params, tp=tp,
-        config=model_cfg,
+        cfg.model, seed=cfg.seed, device=device, max_model_len=cfg.max_model_len, params=params,
+        tp=tp if tp is not None and tp.size > 1 else None, config=model_cfg,
     )
     model.cfg = dataclasses.replace(model.cfg, attn_impl=cfg.attn_impl, kv_cache_dtype=cfg.kv_cache_dtype)
     targets = lora_targets(cfg.lora_target_modules) if cfg.enable_lora else ()
@@ -126,8 +136,10 @@ class LLMEngine:
         check_supported(cfg)
         self.cfg = cfg
         self.tensor_parallel = cfg.tensor_parallel_size
+        self.data_parallel = cfg.data_parallel_size
         _, model_cfg = model_config(cfg.model, cfg.max_model_len)
-        check_tp(model_cfg, self.tensor_parallel)
+        check_tp(model_cfg, self.tensor_parallel)  # per tp group
+        check_dp(model_cfg, self.data_parallel)
         self.kv_quant = cfg.kv_cache_dtype == "int8"
         # a checkpoint directory holds its tokenizer, as in the JAX engine
         self.tokenizer = load_tokenizer(
@@ -163,10 +175,10 @@ class LLMEngine:
             ),
         )
         num_pages = cfg.num_pages or max(64, int(cfg.kv_cache_memory_gb * 1e9 / page_bytes))
-        # tp > 1: start the follower ranks and join the group before the
-        # leader loads its own part (TPLeader.close undoes both)
+        # dp x tp > 1: start the follower ranks and join the group before
+        # the leader loads its own part (TPLeader.close undoes both)
         self._tp: Optional[TPLeader] = None
-        if self.tensor_parallel > 1:
+        if self.data_parallel * self.tensor_parallel > 1:
             self._tp = TPLeader(cfg, device, model_cfg, params, num_pages)
         try:
             group = self._tp.group if self._tp else None
@@ -213,6 +225,7 @@ class LLMEngine:
             prefill_chunk=cfg.prefill_chunk if cfg.enable_chunked_prefill else 10**9,
             prefill_batch=cfg.prefill_batch,
             enable_prefix_caching=cfg.enable_prefix_caching,
+            batch_multiple=cfg.data_parallel_size,
             decode_steps=cfg.decode_steps,
             max_waiting_seqs=cfg.max_waiting_seqs,
             queue_deadline_s=cfg.queue_deadline_s,
@@ -468,13 +481,13 @@ class LLMEngine:
         ):
             # every chunk is intermediate: the sampled tokens are discarded,
             # so nothing is fetched (the launches queue behind each other)
-            runner.step(inp)
+            runner.step(inp, want_logits=False)
             self._unfetched.append(batch)
             return None, None
         if wlp:
-            ids, _, lps = runner.step(inp, want_logprobs=True)
+            ids, _, lps = runner.step(inp, want_logprobs=True, want_logits=False)
             return ids.cpu().numpy(), tuple(x.cpu().numpy()[:, None] for x in lps)
-        ids, _ = runner.step(inp)
+        ids, _ = runner.step(inp, want_logits=False)
         return ids.cpu().numpy(), None
 
     def _run_loop(self) -> None:
@@ -516,10 +529,10 @@ class LLMEngine:
                     error=repr(step_err)[:500],
                 )
                 self._fr.dump("engine_step_error", force=True)
-                if self.tensor_parallel > 1:
+                if self._tp is not None:
                     # the ranks' collectives are out of step (a rank may be
                     # gone): serving on would hang or give garbage
-                    logger.critical("fatal with tp ranks: exiting")
+                    logger.critical("fatal with dp/tp ranks: exiting")
                     os._exit(13)
                 # a deferred device error may belong to an unfetched
                 # prefill dispatch: those sequences' KV is suspect too
@@ -838,6 +851,7 @@ class LLMEngine:
             group = order[pos: pos + self._EMBED_B_BUCKETS[-1]]
             pos += len(group)
             B = bucket(len(group), self._EMBED_B_BUCKETS)
+            B = -(-B // self.data_parallel) * self.data_parallel  # rows split over dp, as a step's
             t_raw = max(max(len(token_id_lists[i]) for i in group), 1)
             T = bucket(t_raw, self._EMBED_T_BUCKETS)
             if T < t_raw:  # past the largest bucket: the next power of two
@@ -934,11 +948,11 @@ class LLMEngine:
             # 1 with engine_saturated 0: the interactive reserve is holding
             # while batch already sheds
             "engine_saturated_batch": int(self.saturated("batch")),
-            # the tp ranks, one process and one device each (two ranks may
+            # the dp x tp ranks, one process and one device each (ranks may
             # share a card with gloo): the router and the fleet controller
-            # read these as one replica over tp devices
+            # read these as one replica over mesh_devices devices
             "tensor_parallel": self.tensor_parallel,
-            "mesh_devices": self.tensor_parallel,
+            "mesh_devices": self.data_parallel * self.tensor_parallel,
             "gpu_cache_usage_perc": self.kv.usage(),
             "gpu_prefix_cache_hits_total": self.kv.prefix_hits,
             "gpu_prefix_cache_queries_total": self.kv.prefix_queries,

@@ -39,6 +39,16 @@ same shapes as the JAX runner's.
   is the one a tp = 1 runner gives; ``set_pages(_quant)`` keep the rank's
   slice of whole-head pages. ``rank_stats`` and ``gathered_params`` read
   every rank's kernel counters and weights on the leader.
+- Data parallelism (``tp.dp``, the ranks holding the same KV heads, one per
+  dp group): dp group d serves rows [d * B/dp, (d + 1) * B/dp) of every step
+  (``_stage`` slices every row-leading input, parallel/dp.py) and every
+  rank holds the whole pool of its KV heads, replicated over dp as the JAX
+  engine's ``KV_PAGES_SPEC`` is. ``step``, ``step_multi`` and ``encode``
+  gather their results over dp (a burst once, at its end: a group's rows
+  stay its own for the whole burst); after a call that writes the pools,
+  the whole pages each dp group wrote, with their scales, are copied into
+  every other replica (``dp.sync_replicas``), so the replicas stay byte
+  for byte equal. ``replica_digest`` reads each rank's pools.
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -48,6 +58,7 @@ from __future__ import annotations
 
 import dataclasses
 import gc
+import hashlib
 import inspect
 import time
 from typing import Any
@@ -74,6 +85,7 @@ from production_stack_tpu_torch.ops.sampling import (
     sample,
     sample_with_logprobs,
 )
+from production_stack_tpu_torch.parallel import dp as dpmod
 from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_param, gather_split, rank_slice, size_rank
 from production_stack_tpu_torch.utils.device import resolve_device
 
@@ -117,9 +129,12 @@ COUNTERS = (
     ("kv_page_write_quant_ref", kv_page_write_quant_ref, "calls"),
 )
 # rank_stats' columns: the counters, then the rank's host seconds inside
-# step/step_multi, and its collectives' calls, bytes and host seconds
+# step/step_multi, its collectives' calls, bytes and host seconds, and the
+# dp replica sync's gathered bytes and the pages it copied into the rank's
+# replica
 RANK_STATS = tuple(name for name, _, _ in COUNTERS) + (
     "step_seconds", "steps", "collective_calls", "collective_bytes", "collective_seconds",
+    "sync_bytes", "sync_pages",
 )
 
 
@@ -153,12 +168,24 @@ class ModelRunner:
         tp=None,
     ):
         self.device = resolve_device(device)
-        self.tp = tp
-        self.tp_size = size_rank(tp)[0]
-        if tp is not None and enable_lora:
+        # tp: this rank's parallel/group.TPGroup (None: one process). Its tp
+        # group runs the forward's collectives, its dp group the row gathers
+        # and the replica sync, its world the per-rank reads; a group of one
+        # rank is None here, so a dp = 1 or tp = 1 axis runs the code it ran
+        # without it
+        self.ranks = tp
+        self.tp = tp if tp is not None and tp.size > 1 else None
+        self.dp = tp.dp if tp is not None and tp.dp.size > 1 else None
+        self.world = tp.world if tp is not None and tp.world.size > 1 else None
+        self.tp_size = size_rank(self.tp)[0]
+        if self.tp is not None and enable_lora:
             raise ValueError("LoRA with tensor parallelism is not supported by the port yet")
+        if self.dp is not None and enable_lora:
+            raise ValueError("LoRA with data parallelism is not supported by the port yet")
         self.step_seconds = 0.0
         self.steps = 0
+        self.sync_bytes = 0
+        self.sync_pages = 0
         self.module = models.module_for_config(model.cfg)
         cfg = dataclasses.replace(
             model.cfg, attn_impl=resolve_attn_impl(model.cfg.attn_impl, self.device)
@@ -203,6 +230,11 @@ class ModelRunner:
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device, non_blocking=True)
 
     def _stage(self, inp: StepInput) -> dict:
+        """The step's inputs on the device: under dp only this rank's rows
+        of every row-leading input (every input here leads with B)."""
+        inp = dataclasses.replace(inp, **{
+            f.name: dpmod.row_slice(getattr(inp, f.name), self.dp) for f in dataclasses.fields(StepInput)
+        })
         i32, f32 = torch.int32, torch.float32
         s = dict(
             input_ids=self._t(inp.input_ids, i32),
@@ -224,6 +256,8 @@ class ModelRunner:
         if self.lora is not None:
             ids = inp.lora_ids if inp.lora_ids is not None else np.zeros(np.asarray(inp.kv_lens).shape, np.int32)
             s["lora_ids"] = self._t(ids, i32)
+        if inp.kv_limits is not None:
+            s["kv_limits"] = self._t(inp.kv_limits, i32)
         return s
 
     def _forward(self, s, input_ids, positions, kv_lens, kv_burst=None):
@@ -247,36 +281,61 @@ class ModelRunner:
 
     def _draw(self, logits, sample_from, s, want_lp):
         """The sampled ids (with their logprobs when ``want_lp``); under tp
-        rank 0's ids on every rank, whatever each rank drew."""
+        the tp group's first rank's ids on every rank of the group,
+        whatever each rank drew. Under dp every rank draws the whole batch's
+        noise and takes its rows' (ops/sampling.sample's ``batch_rows``)."""
+        B = logits.shape[0]
+        rows = (self.dp.rank * B, self.dp.size * B) if self.dp is not None else None
         if want_lp:
             ids, *lps = sample_with_logprobs(
                 logits, self.generator, s["temperature"], s["top_k"], s["top_p"],
-                sample_from=sample_from,
+                sample_from=sample_from, batch_rows=rows,
             )
             return (broadcast_ids(ids, self.tp), *lps)
-        return broadcast_ids(sample(sample_from, self.generator, s["temperature"], s["top_k"], s["top_p"]), self.tp)
+        ids = sample(sample_from, self.generator, s["temperature"], s["top_k"], s["top_p"], rows)
+        return broadcast_ids(ids, self.tp)
 
     def _timed(self, t0: float) -> None:
         self.step_seconds += time.perf_counter() - t0
         self.steps += 1
 
+    def _pools(self) -> list:
+        return [t for t in (self.k_pages, self.v_pages, self.k_scales, self.v_scales) if t is not None]
+
+    def _sync_replicas(self, inp: StepInput, positions) -> None:
+        """After a call that wrote the pools at ``positions`` (the whole
+        step's [B, T], -1 for no write): the pages each other dp group wrote,
+        copied into this rank's replica (parallel/dp.py). The bytes gathered
+        and the pages copied in add to ``rank_stats``' sync columns."""
+        if self.dp is None:
+            return
+        pages = dpmod.group_pages(np.asarray(inp.page_table), positions, self.page_size, self.dp.size)
+        self.sync_bytes += dpmod.sync_replicas(self._pools(), pages, self.dp)
+        self.sync_pages += sum(len(p) for g, p in enumerate(pages) if g != self.dp.rank)
+
     # -- steps --------------------------------------------------------------
 
     @torch.no_grad()
-    def step(self, inp: StepInput, want_logprobs: bool = False):
+    def step(self, inp: StepInput, want_logprobs: bool = False, want_logits: bool = True):
         """One forward + sample. Returns (token_ids [B], logits [B, V]) or,
         with ``want_logprobs``, (ids, logits, (chosen_lp [B], top_ids [B, K],
-        top_lp [B, K])); device tensors — the caller fetches what it needs."""
+        top_lp [B, K])); device tensors — the caller fetches what it needs.
+        Under dp every rank returns all B rows, gathered; ``want_logits``
+        False returns None for the logits and skips their gather (the
+        engine reads none: [B, V] through the host is MBs a step)."""
         t0 = time.perf_counter()
         s = self._stage(inp)
         logits = self._forward(s, s["input_ids"], s["positions"], s["kv_lens"])
         hist = s["pen"][0] if "pen" in s else None
         out = self._draw(logits, self._sample_from(logits, s, hist, s["kv_lens"]), s, want_logprobs)
+        self._sync_replicas(inp, np.asarray(inp.positions))
+        out = [dpmod.gather_rows(x, self.dp) for x in (out if want_logprobs else (out,))]
+        logits = dpmod.gather_rows(logits, self.dp) if want_logits else None
         self._timed(t0)
         if want_logprobs:
             ids, lp, tids, tlp = out
             return ids, logits, (lp, tids, tlp)
-        return out, logits
+        return out[0], logits
 
     @torch.no_grad()
     def step_multi(self, inp: StepInput, k: int, want_logprobs: bool = False):
@@ -290,17 +349,21 @@ class ModelRunner:
         tokens."""
         if k == 1:
             if want_logprobs:
-                ids, _, (lp, tids, tlp) = self.step(inp, want_logprobs=True)
+                ids, _, (lp, tids, tlp) = self.step(inp, want_logprobs=True, want_logits=False)
                 return ids[:, None], (lp[:, None], tids[:, None], tlp[:, None])
-            ids, _ = self.step(inp)
+            ids, _ = self.step(inp, want_logits=False)
             return ids[:, None]
         t0 = time.perf_counter()
         s = self._stage(inp)
+        # the positions the burst commits, one rule on the host for the
+        # write here and for the replica sync (parallel/dp.burst_positions)
+        commit = dpmod.burst_positions(inp.positions, inp.kv_lens, inp.kv_limits, k)
+        commit_pos = self._t(dpmod.row_slice(commit, self.dp), torch.int32)
         B = s["input_ids"].shape[0]
         L, _, _, KH, D = self.k_pages.shape
         dev = self.device
-        if inp.kv_limits is not None:
-            limits = self._t(inp.kv_limits, torch.int32)
+        if "kv_limits" in s:
+            limits = s["kv_limits"]
         else:
             limits = torch.full((B,), np.iinfo(np.int32).max // 2, dtype=torch.int32, device=dev)
         # the window holds the commit's fp input (int8 pools included)
@@ -308,7 +371,6 @@ class ModelRunner:
         v_acc = torch.zeros_like(k_acc)
         counts = torch.zeros((B,), dtype=torch.int32, device=dev)
         ids, pos, lens = s["input_ids"], s["positions"], s["kv_lens"]
-        pos0 = pos[:, 0].clone()
         rows = torch.arange(B, device=dev)
         hist = None
         if "pen" in s:
@@ -338,11 +400,7 @@ class ModelRunner:
             lens = lens + active.to(torch.int32)
             ids = torch.where(active, nxt, 0)[:, None].to(torch.int32)
         # one commit for the burst: window entry j of row b holds the token
-        # at position pos0 + j (valid for j < counts)
-        jj = torch.arange(k, dtype=torch.int32, device=dev)[None, :]
-        commit_pos = torch.where(
-            (jj < counts[:, None]) & (pos0[:, None] >= 0), pos0[:, None] + jj, -1
-        ).to(torch.int32)
+        # at commit_pos[b, j] (the first counts[b] entries; -1 after them)
         if self.kv_quant:
             write_kv_pages_all_layers_quant(
                 self.k_pages, self.v_pages, self.k_scales, self.v_scales, k_acc, v_acc,
@@ -352,12 +410,12 @@ class ModelRunner:
             write_kv_pages_all_layers(
                 self.k_pages, self.v_pages, k_acc, v_acc, s["page_table"], commit_pos
             )
-        tokens = torch.stack(toks, dim=1)
-        self._timed(t0)
+        self._sync_replicas(inp, commit)
+        tokens = dpmod.gather_rows(torch.stack(toks, dim=1), self.dp)
         if want_logprobs:
-            lp, tids, tlp = (torch.stack(x, dim=1) for x in zip(*lps))
-            return tokens, (lp, tids, tlp)
-        return tokens
+            lps = tuple(dpmod.gather_rows(torch.stack(x, dim=1), self.dp) for x in zip(*lps))
+        self._timed(t0)
+        return (tokens, lps) if want_logprobs else tokens
 
     # -- page access (offload / transfer surfaces) --------------------------
 
@@ -373,7 +431,8 @@ class ModelRunner:
 
     def get_pages(self, pids: "list[int]"):
         """N pages' K/V to the host in one copy: per-page ``[L, page, KH, D]``
-        numpy arrays (ks, vs), every KV head (gathered from the tp ranks)."""
+        numpy arrays (ks, vs), every KV head (gathered from the tp ranks of
+        the caller's dp group: each dp group reads its own replica)."""
         if not pids:
             return [], []
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
@@ -455,40 +514,55 @@ class ModelRunner:
             self.v_scales = init_kv_scales(cfg.num_layers, self.num_pages, kh, self.device)
 
     def kv_pool_shard_layout(self) -> "list[tuple[str, int]]":
-        """Per-rank KV pool footprint: ``(device label, bytes)`` of every tp
-        rank, k and v pools with their int8 scales, from the pools' shapes
-        (each rank holds KH/tp heads of every page, so 1/tp of the bytes).
-        Labels are distinct per rank (parallel/group.device_labels: two
-        ranks on one card are ``cuda:0/tp0`` and ``cuda:0/tp1``)."""
+        """Per-rank KV pool footprint: ``(device label, bytes)`` of every
+        rank, dp x tp rows, k and v pools with their int8 scales, from the
+        pools' shapes (each rank holds KH/tp heads of every page, so 1/tp of
+        the bytes; each dp group a whole replica). Labels are distinct per
+        rank (parallel/group.device_labels: two ranks on one card are
+        ``cuda:0/tp0`` and ``cuda:0/tp1``, or ``cuda:0/dp0tp0`` ... with
+        dp > 1)."""
         cfg = self.cfg
         kh = cfg.num_kv_heads // self.tp_size
         item = 1 if self.kv_quant else torch.empty((), dtype=cfg.dtype).element_size()
         per = 2 * cfg.num_layers * self.num_pages * self.page_size * kh * cfg.head_dim * item
         if self.kv_quant:
             per += 2 * cfg.num_layers * self.num_pages * kh * 4
-        labels = self.tp.labels if self.tp is not None else [f"{self.device.type}:{self.device.index or 0}"]
+        labels = self.ranks.labels if self.ranks is not None else [f"{self.device.type}:{self.device.index or 0}"]
         return [(label, per) for label in labels]
 
     def rank_stats(self, reset: bool = False) -> np.ndarray:
-        """Every rank's ``RANK_STATS`` row ([tp, len(RANK_STATS)] float64,
-        rank order): its kernel launches and plain-version calls, its step
-        seconds and its collectives since the last reset; with ``reset``
-        each rank's count starts again from 0 after the read."""
-        calls, nbytes, secs = self.tp.stats() if self.tp is not None else (0, 0, 0.0)
+        """Every rank's ``RANK_STATS`` row ([dp x tp, len(RANK_STATS)]
+        float64, global rank order): its kernel launches and plain-version
+        calls, its step seconds and its collectives (tp and dp) since the
+        last reset; with ``reset`` each rank's count starts again from 0
+        after the read."""
+        calls, nbytes, secs = self.ranks.stats() if self.ranks is not None else (0, 0, 0.0)
         row = [getattr(fn, attr) for _, fn, attr in COUNTERS]
-        row += [self.step_seconds, self.steps, calls, nbytes, secs]
-        out = gather_split(torch.tensor([row], dtype=torch.float64, device=self.device), 0, self.tp)
+        row += [self.step_seconds, self.steps, calls, nbytes, secs, self.sync_bytes, self.sync_pages]
+        out = gather_split(torch.tensor([row], dtype=torch.float64, device=self.device), 0, self.world)
         if reset:
             for _, fn, attr in COUNTERS:
                 setattr(fn, attr, 0)
             self.step_seconds, self.steps = 0.0, 0
-            if self.tp is not None:
-                self.tp.reset_stats()
+            self.sync_bytes = self.sync_pages = 0
+            if self.ranks is not None:
+                self.ranks.reset_stats()
         return out.cpu().numpy()
 
+    def replica_digest(self) -> np.ndarray:
+        """Every rank's sha256 of its pools and scales ([dp x tp, 32] uint8,
+        global rank order; a diagnostic): the ranks of one tp column are the
+        dp replicas of one KV-head shard and must give the same digest."""
+        h = hashlib.sha256()
+        for t in self._pools():
+            for layer in t:  # a layer at a time through the host
+                h.update(layer.contiguous().view(torch.uint8).cpu().numpy())
+        own = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8)[None].to(self.device)
+        return gather_split(own, 0, self.world).cpu().numpy()
+
     def gathered_params(self, names: "list[str]") -> dict:
-        """The named parameters whole (every tp rank's part joined, bit for
-        bit), on the CPU."""
+        """The named parameters whole (every tp rank's part joined over the
+        caller's tp group, bit for bit), on the CPU."""
         own = dict(self.model.named_parameters())
         return {name: gather_param(own[name].detach(), name, self.tp).cpu() for name in names}
 
@@ -521,12 +595,14 @@ class ModelRunner:
 
     def encode(self, input_ids, positions) -> torch.Tensor:
         """Pooled unit-norm embeddings [B, H] f32 of bucketed [B, T] inputs
-        (positions -1 = padding)."""
+        (positions -1 = padding); under dp each group embeds its rows and
+        every rank returns all B."""
         if not hasattr(self.module, "encode"):
             raise ValueError(
                 f"embeddings are not supported for model family {self.module.__name__.rsplit('.', 1)[-1]!r}"
             )
-        return self.module.encode(self.model, self._t(input_ids, torch.int32), self._t(positions, torch.int32))
+        ids, pos = (self._t(dpmod.row_slice(x, self.dp), torch.int32) for x in (input_ids, positions))
+        return dpmod.gather_rows(self.module.encode(self.model, ids, pos), self.dp)
 
     # -- sleep mode ---------------------------------------------------------
 

@@ -12,10 +12,12 @@ modes and the writes quantize. ``attn_impl == "plain"`` runs the kernels'
 plain PyTorch versions.
 
 Under tensor parallelism (``tp`` ranks) every tensor here is the rank's:
-q holds NH/tp heads, the pools, scales and windows KH/tp. The decode goes
-through ``decode_attention_sharded`` (the JAX package's sharded decode, per
-rank), and the prefill kernel runs on the rank's heads too, where the JAX
-engine keeps its XLA attention for a multi-device prefill.
+q holds NH/tp heads, the pools, scales and windows KH/tp. Under data
+parallelism the runner hands the step its dp group's B/dp rows (the pools
+stay whole: page ids are global). The decode goes through
+``decode_attention_sharded`` (the JAX package's sharded decode, per (dp,
+tp) rank), and the prefill kernel runs on the rank's rows and heads too,
+where the JAX engine keeps its XLA attention for a multi-device prefill.
 """
 
 from __future__ import annotations

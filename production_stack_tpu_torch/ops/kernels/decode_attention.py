@@ -218,25 +218,28 @@ decode_attention_ref.calls = 0
 
 def decode_attention_sharded(
     q, k_pages, v_pages, page_table, seq_lens, window=None, *, tp: int = 1, plain: bool = False,
-    k_scales=None, v_scales=None, k_cur=None, v_cur=None, **kw,
+    k_scales=None, v_scales=None, k_cur=None, v_cur=None, cur_lens=None, **kw,
 ):
-    """One tp rank's decode attention: the counterpart, on the tp axis, of
+    """One (dp, tp) rank's decode attention: the counterpart of
     ``ragged_paged_attention_decode_sharded``
     (production_stack_tpu/ops/pallas/paged_attention.py:472), which runs the
     TPU decode kernel per (dp, tp) shard under a ``shard_map``.
 
-    The contract is the JAX function's per shard: the rank holds NH/tp query
-    heads ``q`` [B, NH/tp, D] and KH/tp KV heads of the pools [L, P, page,
-    KH/tp, D], contiguous slices of the whole heads, so GQA groups stay
-    whole (query head h reads KV head h // G, on the same rank); the int8
-    scales [L, P, KH/tp] and the burst window ``k_cur/v_cur`` [B, C, KH/tp,
-    D] are sliced on KH alike; page ids are global pool coordinates, valid
-    on every rank. Attention never crosses a head, so the rank runs the
-    decode kernel (``decode_attention``), or with ``plain`` its plain
-    version, on its slice, and needs no collective: the row-parallel ``wo``
-    after it all-reduces. Where the JAX function lays the shards over a mesh
-    inside one program, here each tp process calls this on its own slice
-    (models/paged_step.py). Batch rows over dp wait for in-engine dp.
+    The contract is the JAX function's per shard. Rows: the rank holds its
+    dp group's B/dp rows of ``q``, ``page_table``, ``seq_lens``, the burst
+    window ``k_cur/v_cur`` and ``cur_lens``. Heads: NH/tp query heads ``q``
+    [B/dp, NH/tp, D] and KH/tp KV heads of the pools [L, P, page, KH/tp, D],
+    contiguous slices of the whole heads, so GQA groups stay whole (query
+    head h reads KV head h // G, on the same rank); the int8 scales [L, P,
+    KH/tp] and the window [B/dp, C, KH/tp, D] are sliced on KH alike. Page
+    ids are global pool coordinates, valid on every rank: the pools are
+    replicated over dp. Attention never crosses a row or a head, so the rank
+    runs the decode kernel (``decode_attention``), or with ``plain`` its
+    plain version, on its shard and needs no collective: the row-parallel
+    ``wo`` after it all-reduces over tp, and the runner gathers the rows
+    over dp. Where the JAX function lays the shards over a mesh inside one
+    program, here each rank process calls this on its own shard
+    (models/paged_step.py).
     """
     NHl, KHl = q.shape[1], k_pages.shape[-2]
     if NHl % KHl:
@@ -247,6 +250,11 @@ def decode_attention_sharded(
     for name, t, ax in (("k_scales", k_scales, -1), ("k_cur", k_cur, -2)):
         if t is not None and t.shape[ax] != KHl:
             raise ValueError(f"{name} holds {t.shape[ax]} KV heads, the rank's pools {KHl}: slice it on KH")
+    rows = {name: t.shape[0] for name, t in (("q", q), ("page_table", page_table), ("seq_lens", seq_lens),
+                                             ("k_cur", k_cur), ("v_cur", v_cur), ("cur_lens", cur_lens))
+            if t is not None}
+    if len(set(rows.values())) > 1:
+        raise ValueError(f"the rank's row-leading inputs disagree on their rows {rows}: slice each on the same dp rows")
     fn = decode_attention_ref if plain else decode_attention
     return fn(q, k_pages, v_pages, page_table, seq_lens, window, k_scales=k_scales, v_scales=v_scales,
-              k_cur=k_cur, v_cur=v_cur, **kw)
+              k_cur=k_cur, v_cur=v_cur, cur_lens=cur_lens, **kw)

@@ -47,13 +47,22 @@ def sample(
     temperature: torch.Tensor,
     top_k: torch.Tensor,
     top_p: torch.Tensor,
+    batch_rows: tuple[int, int] | None = None,
 ) -> torch.Tensor:
     """Next token ids [B] int32 from logits [B, V]; temperature [B] (0 =>
-    greedy row), top_k [B] (0 or >= CANDIDATES => off), top_p [B] (1 => off)."""
+    greedy row), top_k [B] (0 or >= CANDIDATES => off), top_p [B] (1 => off).
+
+    ``batch_rows`` (first, total): these B rows are rows first .. first + B
+    of a batch of ``total`` (a dp rank's share). The race noise is drawn for
+    the whole batch and these rows' part taken, so every row gets the noise
+    it gets when one process samples the whole batch, and no two dp ranks
+    share theirs."""
     greedy_ids = logits.float().argmax(dim=-1).to(torch.int32)
     scaled, cand_ids = truncate_candidates(logits, temperature, top_k, top_p)
     probs = torch.softmax(scaled, dim=-1)
-    race = torch.empty_like(probs).exponential_(1.0, generator=generator)
+    first, total = batch_rows if batch_rows is not None else (0, probs.shape[0])
+    race = torch.empty((total, probs.shape[1]), dtype=probs.dtype, device=probs.device)
+    race = race.exponential_(1.0, generator=generator)[first: first + probs.shape[0]]
     sampled_rank = (probs / race).argmax(dim=-1, keepdim=True)
     sampled_ids = torch.gather(cand_ids, 1, sampled_rank)[:, 0].to(torch.int32)
     return torch.where(temperature <= 0.0, greedy_ids, sampled_ids)
@@ -66,6 +75,7 @@ def sample_with_logprobs(
     top_k: torch.Tensor,
     top_p: torch.Tensor,
     sample_from: torch.Tensor | None = None,
+    batch_rows: tuple[int, int] | None = None,
 ):
     """``sample`` plus logprobs of the RAW distribution (log-softmax of the
     unscaled logits, independent of temperature/truncation/penalties);
@@ -76,7 +86,7 @@ def sample_with_logprobs(
     """
     ids = sample(
         logits if sample_from is None else sample_from,
-        generator, temperature, top_k, top_p,
+        generator, temperature, top_k, top_p, batch_rows,
     )
     logprobs = torch.log_softmax(logits.float(), dim=-1)
     chosen = torch.gather(logprobs, 1, ids[:, None].long())[:, 0]

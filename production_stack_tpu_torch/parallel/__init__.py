@@ -1,3 +1,4 @@
-"""Tensor parallelism of the port: one process per tp rank
-(``group.py``) and the split of every weight with the collectives the
-forward runs (``tp.py``)."""
+"""Parallelism of the port: one process per (dp, tp) rank (``group.py``),
+the split of every weight with the collectives the forward runs
+(``tp.py``), and the batch rows over dp with the pools' replica sync
+(``dp.py``)."""

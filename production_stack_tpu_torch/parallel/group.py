@@ -1,23 +1,28 @@
-"""The tp process group: one process per tensor-parallel rank, each on its
-own device, joined by ``torch.distributed``.
+"""The engine's ranks: one process per (dp, tp) rank, each on its own
+device, joined by ``torch.distributed``.
 
-The counterpart of production_stack_tpu/parallel/mesh.py for the one axis
-the port serves, tp. Where the JAX engine lays a device mesh under one
-program and lets GSPMD insert the collectives, the port runs one process
-per rank (engine/engine.py starts them) and the forward calls its
-collectives itself (parallel/tp.py).
+The counterpart of production_stack_tpu/parallel/mesh.py for the two axes
+the port serves, dp and tp. Where the JAX engine lays a (dp, tp) device
+mesh under one program and lets GSPMD insert the collectives, the port runs
+one process per rank (engine/engine.py starts them) and calls its
+collectives itself (parallel/tp.py over a tp group, parallel/dp.py over a
+dp group). Rank r sits at (d, t) = (r // tp, r % tp), the mesh's order with
+tp innermost: each dp group d is a tp group over the whole model, and the
+ranks of one t (one per dp group) hold the same KV heads, the replicas of
+one pool shard.
 
 The backend is named by the caller, never guessed: ``nccl`` (the default)
 needs a CUDA device per rank and refuses two ranks on one device; ``gloo``
-takes CUDA or CPU tensors and stages CUDA ones through the host, so two
+takes CUDA or CPU tensors and stages CUDA ones through the host, so several
 ranks may share one card (a functional test of the path, not a speed
-figure) and a CPU engine can run tp in tests. Rank r runs on
+figure) and a CPU engine can run dp and tp in tests. Rank r runs on
 ``devices[r]``: ``cuda:r`` unless ``tp_device_ids`` maps the ranks
-(``"0,0"``: both on the first card).
+(``"0,0,0,0"``: four ranks on the first card).
 
-``TPGroup`` counts what crosses the group (calls, bytes, host seconds inside
-the collectives). On gloo a collective of CUDA tensors waits for the device
-to finish the work queued before it, so its seconds include that wait.
+``TPGroup`` counts what crosses any of its groups (calls, bytes, host
+seconds inside the collectives). On gloo a collective of CUDA tensors waits
+for the device to finish the work queued before it, so its seconds include
+that wait.
 """
 
 from __future__ import annotations
@@ -35,21 +40,24 @@ BACKENDS = ("nccl", "gloo")
 TIMEOUT_S = 300.0
 
 
-def parse_device_ids(spec: Optional[str], tp: int) -> Optional[list[int]]:
-    """``"0,0"`` -> [0, 0]: one CUDA device index per rank (None: rank r on
-    device r)."""
+def parse_device_ids(spec: Optional[str], ranks: int) -> Optional[list[int]]:
+    """``"0,0"`` -> [0, 0]: one CUDA device index per rank of the engine,
+    dp x tp of them (None: rank r on device r)."""
     if spec is None or spec == "":
         return None
     try:
         ids = [int(x) for x in str(spec).split(",")]
     except ValueError:
         raise ValueError(f"tp_device_ids {spec!r} must be comma-separated device indices") from None
-    if len(ids) != tp or min(ids) < 0:
-        raise ValueError(f"tp_device_ids {spec!r} must name one device index >= 0 for each of the {tp} tp ranks")
+    if len(ids) != ranks or min(ids) < 0:
+        raise ValueError(
+            f"tp_device_ids {spec!r} must name one device index >= 0 for each of the engine's {ranks} ranks "
+            "(data_parallel_size x tensor_parallel_size)"
+        )
     return ids
 
 
-def rank_devices(device, tp: int, device_ids: Optional[list[int]] = None) -> list[torch.device]:
+def rank_devices(device, ranks: int, device_ids: Optional[list[int]] = None) -> list[torch.device]:
     """The device of each rank: every rank on the CPU for a CPU engine, else
     ``cuda:<device_ids[r]>`` (``cuda:r`` by default). Raises for a CUDA
     index the machine lacks."""
@@ -57,13 +65,13 @@ def rank_devices(device, tp: int, device_ids: Optional[list[int]] = None) -> lis
     if dev.type == "cpu":
         if device_ids is not None:
             raise ValueError("tp_device_ids name CUDA devices; a CPU engine runs every rank on the CPU")
-        return [dev] * tp
-    ids = device_ids if device_ids is not None else list(range(tp))
+        return [dev] * ranks
+    ids = device_ids if device_ids is not None else list(range(ranks))
     n = torch.cuda.device_count()
     if max(ids) >= n:
         raise ValueError(
-            f"tensor_parallel_size {tp} needs CUDA devices {sorted(set(ids))}, this machine has {n} devices; "
-            "two ranks may share a card with --tp-backend gloo --tp-device-ids 0,0"
+            f"{ranks} ranks (data_parallel_size x tensor_parallel_size) need CUDA devices {sorted(set(ids))}, "
+            f"this machine has {n} devices; ranks may share a card with --tp-backend gloo --tp-device-ids 0,0"
         )
     return [torch.device("cuda", i) for i in ids]
 
@@ -84,65 +92,102 @@ def check_backend(backend: str, devices: list[torch.device]) -> None:
         )
 
 
-def device_labels(devices: list[torch.device]) -> list[str]:
+def device_labels(devices: list[torch.device], dp: int = 1) -> list[str]:
     """One distinct label per rank: ``cuda:0`` for a single rank, else the
-    device and the rank (``cuda:0/tp1``), so two ranks on one card stay two
-    rows."""
+    device and the rank (``cuda:0/tp1``; with dp > 1 ``cuda:0/dp1tp0``), so
+    ranks on one card stay rows of their own."""
     names = [f"{d.type}:{d.index or 0}" for d in devices]
     if len(devices) == 1:
         return names
-    return [f"{name}/tp{r}" for r, name in enumerate(names)]
+    if dp == 1:
+        return [f"{name}/tp{r}" for r, name in enumerate(names)]
+    tp = len(devices) // dp
+    return [f"{name}/dp{r // tp}tp{r % tp}" for r, name in enumerate(names)]
 
 
-class TPGroup:
-    """This process's rank in the tp group, with the collectives the port
-    runs over it and their counts."""
+class Group:
+    """One collective group of the engine's ranks: this process's ``rank``
+    in it, its ``size``, and the collectives the port runs over it, each
+    counted in ``counts`` (the process's ``TPGroup``). A group of one rank
+    runs no collective."""
 
-    def __init__(self, rank: int, size: int, backend: str, devices: list[torch.device]):
-        self.rank, self.size, self.backend = rank, size, backend
-        self.devices = devices
-        self.device = devices[rank]
-        self.labels = device_labels(devices)
+    def __init__(self, rank: int, size: int, pg, first: int, counts: "TPGroup"):
+        # pg None: the default group (every rank); first: the global rank of
+        # the group's first member, the source of its broadcasts
+        self.rank, self.size, self.pg, self.first = rank, size, pg, first
+        self._counts = counts
+
+    def _run(self, op, t: torch.Tensor) -> None:
+        if self.size == 1:
+            return
+        t0 = time.perf_counter()
+        op(t)
+        c = self._counts
+        c.seconds += time.perf_counter() - t0
+        c.calls += 1
+        c.bytes += t.nbytes
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        """Sum ``t`` over the group's ranks, in place."""
+        self._run(lambda x: dist.all_reduce(x, group=self.pg), t)
+
+    def broadcast(self, t: torch.Tensor) -> None:
+        """The group's first rank's ``t`` on every rank of the group, in
+        place (``src`` is that rank's global rank, which every torch
+        version takes)."""
+        self._run(lambda x: dist.broadcast(x, src=self.first, group=self.pg), t)
+
+
+class TPGroup(Group):
+    """This process's rank among the engine's dp x tp ranks: its tp group
+    (``rank``, ``size`` and the collectives the forward runs), ``dp`` (the
+    ranks holding the same KV heads, one per dp group: the replicas of its
+    pool shard), ``world`` (every rank), the device and label of every
+    rank, and the counts of what crosses any of the three."""
+
+    def __init__(self, world_rank: int, dp: int, tp: int, backend: str, devices: list[torch.device],
+                 pgs: tuple = (None, None)):
+        d, t = divmod(world_rank, tp)
         self.calls = 0
         self.bytes = 0
         self.seconds = 0.0
+        tp_pg, dp_pg = pgs
+        super().__init__(t, tp, tp_pg, d * tp, self)
+        self.dp = Group(d, dp, dp_pg, t, self)
+        self.world = Group(world_rank, dp * tp, None, 0, self)
+        self.backend = backend
+        self.devices = devices
+        self.device = devices[world_rank]
+        self.labels = device_labels(devices, dp)
 
     @classmethod
-    def init(cls, rank: int, size: int, backend: str, devices: list[torch.device], init_method: str,
+    def init(cls, rank: int, dp: int, tp: int, backend: str, devices: list[torch.device], init_method: str,
              timeout_s: float = TIMEOUT_S) -> "TPGroup":
-        """Join the group as ``rank`` (a barrier: returns once every rank
-        has joined), after making the rank's device current. The group is
-        the process's default ``torch.distributed`` group: a process takes
-        part in one tp group at a time."""
+        """Join the engine's ranks as global ``rank`` (a barrier: returns
+        once every rank has joined), after making the rank's device
+        current. The world is the process's default ``torch.distributed``
+        group, so a process takes part in one engine's ranks at a time. With
+        dp > 1 every rank makes every tp and dp subgroup, in one order, as
+        ``dist.new_group`` asks, even those it is not in."""
         check_backend(backend, devices)
         if dist.is_initialized():
             raise RuntimeError("this process is already in a tp group: one tp engine per process at a time")
         if devices[rank].type == "cuda":
             torch.cuda.set_device(devices[rank])
-        dist.init_process_group(
-            backend, init_method=init_method, world_size=size, rank=rank,
-            timeout=datetime.timedelta(seconds=timeout_s),
-        )
-        return cls(rank, size, backend, devices)
+        timeout = datetime.timedelta(seconds=timeout_s)
+        dist.init_process_group(backend, init_method=init_method, world_size=dp * tp, rank=rank, timeout=timeout)
+        pgs = (None, None)
+        if dp > 1 and tp > 1:
+            d, t = divmod(rank, tp)
+            tps = [dist.new_group([g * tp + c for c in range(tp)], timeout=timeout) for g in range(dp)]
+            dps = [dist.new_group([g * tp + c for g in range(dp)], timeout=timeout) for c in range(tp)]
+            pgs = (tps[d], dps[t])
+        # dp == 1: the tp group is the world; tp == 1: the dp group is
+        return cls(rank, dp, tp, backend, devices, pgs)
 
     def close(self) -> None:
         if dist.is_initialized():
             dist.destroy_process_group()
-
-    def _run(self, op, t: torch.Tensor) -> None:
-        t0 = time.perf_counter()
-        op(t)
-        self.seconds += time.perf_counter() - t0
-        self.calls += 1
-        self.bytes += t.nbytes
-
-    def all_reduce(self, t: torch.Tensor) -> None:
-        """Sum ``t`` over the ranks, in place."""
-        self._run(dist.all_reduce, t)
-
-    def broadcast(self, t: torch.Tensor) -> None:
-        """Rank 0's ``t`` on every rank, in place."""
-        self._run(lambda x: dist.broadcast(x, src=0), t)
 
     def stats(self) -> tuple[int, int, float]:
         return self.calls, self.bytes, self.seconds

@@ -228,8 +228,9 @@ def embed_lookup(embed: torch.Tensor, ids: torch.Tensor, group) -> torch.Tensor:
 
 
 def broadcast_ids(ids: torch.Tensor, group) -> torch.Tensor:
-    """Rank 0's sampled ids on every rank, so every rank feeds the same
-    token into the next step whatever its own draw gave."""
+    """The tp group's first rank's sampled ids on every rank of the group,
+    so each rank feeds the same token into the next step whatever its own
+    draw gave."""
     if group is None:
         return ids
     ids = ids.contiguous()

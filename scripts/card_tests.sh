@@ -4,7 +4,9 @@
 # restored weights and kernel outputs after wake, with the device telemetry
 # (tests/test_torch_cuda_surface.py); and the Mixtral MoE and LoRA forwards
 # through the kernels (tests/test_torch_cuda_moe_lora.py); both kernels at the
-# per-rank head shapes of tensor-parallel serving (tests/test_torch_cuda_tp.py).
+# per-rank head shapes of tensor-parallel serving (tests/test_torch_cuda_tp.py);
+# both kernels at the dp ranks' row shapes and a dp 2 engine's replicas
+# (tests/test_torch_cuda_dp.py).
 # No file imports
 # jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
 # which that machine may lack, so pytest skips conftest files.
@@ -13,5 +15,5 @@
 set -euo pipefail
 cd "$(dirname "$0")/.."
 exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py tests/test_torch_cuda_surface.py \
-    tests/test_torch_cuda_moe_lora.py tests/test_torch_cuda_tp.py \
+    tests/test_torch_cuda_moe_lora.py tests/test_torch_cuda_tp.py tests/test_torch_cuda_dp.py \
     -q -p no:cacheprovider "$@"

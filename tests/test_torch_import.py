@@ -49,7 +49,7 @@ def test_every_module_imports_with_jax_blocked():
     names = set(out.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 26  # every module was walked, the int8 KV and offload ones among them
     for mod in ("ops.quant", "engine.linkprobe", "kvoffload.serde", "kvoffload.protocol", "kvoffload.tiers",
-                "kvoffload.connector", "parallel.group", "parallel.tp", "engine.distributed"):
+                "kvoffload.connector", "parallel.group", "parallel.tp", "parallel.dp", "engine.distributed"):
         assert f"production_stack_tpu_torch.{mod}" in names
 
 
@@ -118,11 +118,12 @@ def test_runner_resolves_attention_by_device():
 
 
 _REFUSED = [
-    # tensor parallelism is served; what it lacks, LoRA across the ranks, is
-    # refused (MoE with tp and KH % tp != 0 are refused by the engine, which
-    # reads the model: tests/test_torch_tp.py)
+    # tensor and in-engine data parallelism are served; what they lack,
+    # LoRA across the ranks, is refused (MoE with tp or dp and KH % tp != 0
+    # are refused by the engine, which reads the model: tests/test_torch_tp.py,
+    # tests/test_torch_dp.py)
     ("tensor_parallel_size", 2, {"enable_lora": True}),
-    ("data_parallel_size", 2, {}),
+    ("data_parallel_size", 2, {"enable_lora": True}),
     ("sequence_parallel_size", 2, {}),
     ("pipeline_parallel_size", 2, {}),
     ("expert_parallel_size", 2, {}),

@@ -65,7 +65,7 @@ from production_stack_tpu_torch.engine.model_loader import (
     load_model,
     params_from_jax,
 )
-from production_stack_tpu_torch.engine.runner import ModelRunner, StepInput
+from production_stack_tpu_torch.engine.runner import RANK_STATS, ModelRunner, StepInput
 from production_stack_tpu_torch.engine.scheduler import SamplingParams
 from production_stack_tpu_torch.kvoffload.serde import get_serde
 from production_stack_tpu_torch.models import gemma2 as tgemma
@@ -108,14 +108,13 @@ def _rank(r, tp):
 # -- the sharded decode against ragged_paged_attention_decode_sharded ---------
 
 
-@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
-@pytest.mark.parametrize("burst", [False, True], ids=["pool", "burst"])
-@pytest.mark.parametrize("tp", [2, 4])
-def test_sharded_decode_matches_the_jax_sharded_kernel(eight_devices, tp, burst, quant):
-    """Each rank's decode_attention_sharded on its heads (q's NH/tp, the
-    pools', scales' and window's KH/tp), joined on heads, equals the JAX
-    function on the (dp, tp) = (1, tp) mesh in interpret mode."""
-    rng = np.random.RandomState(7 + tp)
+def _sharded_decode_case(dp, tp, burst, quant):
+    """Each (d, t) shard's decode_attention_sharded on its rows (q's,
+    the page table's, the lengths' and the window's B/dp) and heads (q's
+    NH/tp, the pools', scales' and window's KH/tp), joined on rows and
+    heads, against the JAX function on the (dp, tp) mesh in interpret
+    mode."""
+    rng = np.random.RandomState(7 + tp + 10 * (dp - 1))
     B, NH, KH, D, page, P, maxp, L, C = 4, 8, 4, 32, 8, 32, 4, 2, 3
     q = rng.randn(B, NH, D).astype(np.float32)
     if quant:
@@ -133,23 +132,61 @@ def test_sharded_decode_matches_the_jax_sharded_kernel(eight_devices, tp, burst,
     jkw = {k: jnp.asarray(v) for k, v in kw.items()}
     if quant:
         jkw.update(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
-    mesh = make_mesh(dp=1, tp=tp)
+    mesh = make_mesh(dp=dp, tp=tp)
     ref = jax.jit(lambda *a: ragged_paged_attention_decode_sharded(mesh, *a, interpret=True, layer=1, **jkw))(
         jnp.asarray(q), jnp.asarray(kp), jnp.asarray(vp), jnp.asarray(pt), jnp.asarray(lens)
     )
-    outs = []
-    for r in range(tp):
-        g = _rank(r, tp)
+    rows = []
+    for d in range(dp):
+        rg = _rank(d, dp)
 
-        def sl(x, dim, g=g):
-            return None if x is None else rank_slice(torch.from_numpy(x), dim, g).contiguous()
+        def rw(x, rg=rg):
+            return None if x is None else rank_slice(torch.from_numpy(x), 0, rg).contiguous()
 
-        outs.append(decode_attention_sharded(
-            sl(q, 1), sl(kp, 3), sl(vp, 3), torch.from_numpy(pt), torch.from_numpy(lens), tp=tp, layer=1,
-            k_scales=sl(ks, 2), v_scales=sl(vs, 2), k_cur=sl(kw.get("k_cur"), 2), v_cur=sl(kw.get("v_cur"), 2),
-            cur_lens=None if not burst else torch.from_numpy(kw["cur_lens"]),
-        ))
-    np.testing.assert_allclose(torch.cat(outs, dim=1).numpy(), np.asarray(ref), **F32)
+        outs = []
+        for t in range(tp):
+            g = _rank(t, tp)
+
+            def sl(x, dim, g=g):
+                return None if x is None else rank_slice(rw(x), dim, g).contiguous()
+
+            outs.append(decode_attention_sharded(
+                sl(q, 1), torch.from_numpy(kp).narrow(3, t * KH // tp, KH // tp).contiguous(),
+                torch.from_numpy(vp).narrow(3, t * KH // tp, KH // tp).contiguous(), rw(pt), rw(lens), tp=tp,
+                layer=1, k_scales=None if ks is None else torch.from_numpy(ks).narrow(2, t * KH // tp, KH // tp),
+                v_scales=None if vs is None else torch.from_numpy(vs).narrow(2, t * KH // tp, KH // tp),
+                k_cur=sl(kw.get("k_cur"), 2), v_cur=sl(kw.get("v_cur"), 2), cur_lens=rw(kw.get("cur_lens")),
+                plain=True,
+            ))
+        rows.append(torch.cat(outs, dim=1))
+    np.testing.assert_allclose(torch.cat(rows, dim=0).numpy(), np.asarray(ref), **F32)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("burst", [False, True], ids=["pool", "burst"])
+@pytest.mark.parametrize("tp", [2, 4])
+def test_sharded_decode_matches_the_jax_sharded_kernel(eight_devices, tp, burst, quant):
+    """Each tp rank's decode_attention_sharded on its heads, joined on
+    heads, equals the JAX function on the (dp, tp) = (1, tp) mesh in
+    interpret mode."""
+    _sharded_decode_case(1, tp, burst, quant)
+
+
+@pytest.mark.parametrize("quant", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("burst", [False, True], ids=["pool", "burst"])
+@pytest.mark.parametrize("dp,tp", [(2, 1), (2, 2)])
+def test_sharded_decode_on_dp_rows_matches_the_jax_sharded_kernel(eight_devices, dp, tp, burst, quant):
+    """The dp axis: each (d, t) shard on its B/dp rows and its heads,
+    joined on both, equals the JAX function on the (dp, tp) mesh."""
+    _sharded_decode_case(dp, tp, burst, quant)
+
+
+def test_sharded_decode_refuses_rows_that_disagree():
+    q = torch.zeros(2, 4, 32)
+    pool = torch.zeros(1, 4, 8, 2, 32)
+    with pytest.raises(ValueError, match="disagree on their rows"):
+        decode_attention_sharded(q, pool, pool, torch.zeros(4, 1, dtype=torch.int32), torch.ones(4, dtype=torch.int32),
+                                 tp=2)
 
 
 def test_sharded_decode_refuses_split_groups():
@@ -328,8 +365,10 @@ def test_tp4_page_blob_matches_jax_and_restores_into_tp1_and_tp2(llama_runs):
 
 def test_rank_stats_and_gathered_params_read_every_rank(llama_runs):
     stats = llama_runs["rank_stats"]
-    assert stats.shape == (2, 15) and (stats[:, 6] > 0).all()  # decode_attention_ref ran on both ranks
-    assert (stats[:, 11] > 0).all()  # steps on both ranks
+    col = RANK_STATS.index
+    assert stats.shape == (2, len(RANK_STATS)) and (stats[:, col("decode_attention_ref")] > 0).all()
+    assert (stats[:, col("steps")] > 0).all()  # steps on both ranks
+    assert (stats[:, [col("sync_bytes"), col("sync_pages")]] == 0).all()  # no dp replicas to sync
     for name, t in llama_runs["gathered"].items():
         assert torch.equal(t, llama_runs["whole"][name]), name
 
@@ -377,7 +416,7 @@ def test_tp_past_the_kv_heads_is_refused():
     (dict(model="llama-debug", tensor_parallel_size=4), "does not divide num_kv_heads 2; the JAX engine replicates"),
     (dict(model="mixtral-debug", tensor_parallel_size=2), "MoE"),
     (dict(model=MODEL, tensor_parallel_size=2, enable_lora=True), "LoRA with tensor parallelism"),
-    (dict(model=MODEL, data_parallel_size=2), "in-engine data parallelism"),
+    (dict(model=MODEL, data_parallel_size=2, pipeline_parallel_size=2), "in-engine data parallelism"),
     (dict(model=MODEL, sequence_parallel_size=2), "sequence parallelism"),
     (dict(model=MODEL, expert_parallel_size=2), "expert parallelism"),
     (dict(model=MODEL, pipeline_parallel_size=2), "pipeline parallelism"),
