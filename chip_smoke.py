@@ -34,7 +34,9 @@ non-zero exit (nothing is caught):
                chunk over two pages, B = 2 with a padded row, pages of
                128) at D = 64, 128 and 256, bf16 and f32, fp and int8
                pools; the launch without the write leaves them untouched,
-               with the same attention bytes. The tensor-parallel ranks'
+               with the same attention bytes. The prefill kernel at
+               step_spec's verify shape (T = 5 after 1,024 and 4,096
+               tokens), with its one-key-fewer control. The tensor-parallel ranks'
                head shapes too (each rank's NH/tp and KH/tp: llama-3.2-1b
                at tp 2 and 4, qwen2.5-7b, gemma-2-2b and opt-125m at tp
                2), the decode through decode_attention_sharded.
@@ -134,6 +136,30 @@ non-zero exit (nothing is caught):
                kernels of its mode and no plain version, and after each
                serve every dp replica's pools and scales have one digest
                (runner.replica_digest).
+5d. spec   -- after the tp = 1 serve runs: "spec_chain" runs an f32 copy
+               of llama-3.2-1b at full width and depth through the runner:
+               step_spec (8 rounds, k 4, n 3) on four rows whose prompts
+               repeat 3-grams, against step_multi's greedy tokens (a
+               differing token only at a near-tie, TP_NEAR_TIE; rows 0 and
+               1 hold their next 4 greedy tokens after an earlier copy of
+               their trailing 3-gram, so round 1 accepts them; the
+               acceptance rate and tokens per verify round printed), and
+               step_multi_pipelined (4 bursts of 8, fetch_group 4) against
+               4 calls of step_multi: tokens equal and pools byte-identical.
+               Then llama-3.2-1b served three more times over HTTP:
+               decode_pipeline 4 with bf16 pools (a lone greedy request's
+               token ids equal to the same request's at decode_pipeline 1, the
+               "chained_lone" line; 8 streams arriving 0.5 s apart behind
+               a long one must give chained and run-ahead prefill
+               dispatches on /metrics), decode_pipeline 4 with int8 pools,
+               the CPU tier and 40 pages (the greedy repeat across a spill
+               and a restore), and speculative_k 4 with bf16 pools (the
+               draft counters move, the acceptance rate in [0, 1], a
+               logprobs request gets 400, a repetitive prompt ends by
+               length; its decode is verify rounds: no decode kernel, and
+               L prefill launches per prefill step and per round). Each
+               prints output tok/s, ITL from /slo_records, the chain
+               seconds and the card.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -147,7 +173,10 @@ non-zero exit (nothing is caught):
                burst step and prefill chunk, both modes, as rows of their
                own; the tp 2 ranks' rows (llama-3.2-1b's heads in both
                modes, qwen2.5-7b's in bf16); a dp 2 rank's decode row
-               (16 x 1,024, half the 32 x 1,024 row's rows).
+               (16 x 1,024, half the 32 x 1,024 row's rows); the prefill
+               kernel at step_spec's verify shape (T = 5: llama-3.2-1b's
+               32 x 1,024, the [verify] row; gemma-2-2b's 8 x 4,096 on a
+               sliding and a global layer, as lines of their own).
 
 Then the kernel table line (each row's launches from its own path's runs:
 the llama and opt-125m servers for D = 64, the qwen2.5-7b and
@@ -155,7 +184,7 @@ mixtral-8x7b servers for D = 128, the gemma-2-2b server for its bf16 rows
 and its int8 kernel forward for its int8 rows, which no server runs; the
 [tp2] rows from the tp 2 servers, summed over both ranks, and from the dp 2
 x tp 2 int8 server's four ranks; the [dp2] row from the dp 2 server's two
-ranks), the
+ranks; the [verify] row from the spec server's verify rounds, L a round), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device, or run from a directory without the package, it exits
@@ -268,6 +297,11 @@ for _D, _quant in TP_SERVED:
 DP_ROW = _dptag("decode_attention", 2)
 REPLACES[DP_ROW] = SHARDED_DECODE
 SOURCES[DP_ROW] = _BASE_SOURCES["decode_attention"]
+# the prefill kernel at step_spec's verify shape (llama-3.2-1b, T = 5): the
+# spec server's verify rounds, where the JAX engine runs its XLA attention
+# below 16 tokens; the same TPU kernel replaced
+REPLACES["prefill_attention[verify]"] = _BASE_REPLACES["prefill_attention"]
+SOURCES["prefill_attention[verify]"] = _BASE_SOURCES["prefill_attention"]
 
 
 def emit(obj: dict) -> None:
@@ -521,10 +555,20 @@ TP_QWEN_PREFILL = "tp2_qwen_t512_h1536_bf16"
 DP_LLAMA = dict(NH=32, KH=8, D=64, dp=2)
 DP_TP_LLAMA = dict(NH=16, KH=4, D=64, tp=2, dp=2)
 DP_DECODE = "dp2_llama_b16_ctx1024_c8_bf16"
+# step_spec's verify forward: the prefill kernel at T = 1 + k = 5 (k = 4)
+# after a long history, one launch per layer and round: llama-3.2-1b's heads
+# at 32 rows after 1,024 tokens (the [verify] row, whose launches are the
+# spec server's verify rounds) and gemma-2-2b's at 8 rows after 4,096, on a
+# sliding layer (window 4,096) and a global one
+VERIFY_K = 4
+VERIFY_LLAMA = "verify_llama_b32_t5_h1024_bf16"
+VERIFY_GEMMA_SLIDING = "verify_gemma_b8_t5_h4096_sliding_bf16"
+VERIFY_GEMMA_GLOBAL = "verify_gemma_b8_t5_h4096_global_bf16"
+VERIFY_ROW = "prefill_attention[verify]"
 # the cases whose one-key-fewer control must fail the bound
 CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECODE, QWEN_PREFILL, OPT_DECODE,
               OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL, TP_DECODE, TP_PREFILL, TP_QWEN_DECODE, TP_QWEN_PREFILL,
-              DP_DECODE}
+              DP_DECODE, VERIFY_LLAMA, VERIFY_GEMMA_SLIDING, VERIFY_GEMMA_GLOBAL}
 CONTROLLED |= {INT8 + n for n in CONTROLLED}
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
@@ -791,6 +835,16 @@ PREFILL_CASES = [
                                               computed=[0, 100], chunks=[0, 96], poison=True, dtype="bfloat16")),
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
+# the verify shapes (bf16 pools only: speculative decoding refuses int8);
+# ``row`` names the table row the llama case's error goes to
+PREFILL_CASES += [
+    (VERIFY_LLAMA, dict(seed=30, row=VERIFY_ROW, B=32, T=1 + VERIFY_K, NH=32, KH=8, D=64, page=64, maxp=17, L=1,
+                        computed=[1024] * 32, chunks=[1 + VERIFY_K] * 32, dtype="bfloat16")),
+    (VERIFY_GEMMA_SLIDING, dict(GEMMA, seed=31, B=8, T=1 + VERIFY_K, page=64, maxp=65, L=1, computed=[4096] * 8,
+                                chunks=[1 + VERIFY_K] * 8, window=GEMMA_WINDOW, dtype="bfloat16")),
+    (VERIFY_GEMMA_GLOBAL, dict(GEMMA, seed=32, B=8, T=1 + VERIFY_K, page=64, maxp=65, L=1, computed=[4096] * 8,
+                               chunks=[1 + VERIFY_K] * 8, dtype="bfloat16")),
+]
 
 # the chunk's KV write in the prefill launch, against the writes' plain
 # versions alone: each case with bf16 and f32 inputs, fp and int8 pools
@@ -913,7 +967,7 @@ def phase_kernels():
         quant = kw.get("quant", False)
         kw = dict(kw)
         tp, dp = kw.pop("tp", 1), kw.pop("dp", 1)
-        kernel = _kernel_name("prefill_attention", quant, kw["D"], tp, dp)
+        kernel = kw.pop("row", None) or _kernel_name("prefill_attention", quant, kw["D"], tp, dp)
         args, call_kw = prefill_case(seed, **kw)
         q, kp, vp, pt, pos, lens, kc, vc, cl = args
         layer = call_kw["layer"]
@@ -1785,7 +1839,8 @@ def _rank_rows(stats) -> list:
     return [dict(zip(RANK_STATS, (float(x) for x in row))) for row in stats]
 
 
-def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple = (), prepare=None) -> dict:
+def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple = (), prepare=None,
+                extra=None) -> dict:
     """The port's OpenAI server in-process on ``EngineConfig(**overrides)``
     (a preset or an HF directory as ``model``; int8 pools, the CPU offload
     tier, a longer context as the run asks): the requests of
@@ -1804,8 +1859,14 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     KV-head shard must hold the same pools and scales after the main path
     (runner.replica_digest). ``prepare(engine)``, when given, runs on
     the engine's loop thread before the main path (its launches are not
-    counted). Returns the launch counts of the main path, summed over the
-    ranks."""
+    counted). ``extra(server, port)``, when given, is a coroutine of more
+    requests run at the end of the main path (its launches counted), whose
+    result the serve line carries under "extra". With ``speculative_k`` the
+    decode dispatches are verify rounds: the decode kernel must not run, and
+    the prefill kernel must have run L times per prefill step and per verify
+    round (engine.spec_verify_forwards), exactly. Returns the launch counts
+    of the main path, summed over the ranks (a spec server's verify
+    launches under VERIFY_ROW, apart from its chunks')."""
     import socket
 
     import torch
@@ -1821,6 +1882,7 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     gemma = label.startswith("gemma")
     cfg = EngineConfig(host="127.0.0.1", port=port, enable_sleep_mode=sleep_level > 0, **overrides)
     tp, dp = cfg.tensor_parallel_size, cfg.data_parallel_size
+    spec = cfg.speculative_k > 0
     ranks = dp * tp
     kernels, plains = _counters()
     series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
@@ -1839,12 +1901,18 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
                 setattr(fn, attr, 0)
             for fn in plains.values():
                 fn.calls = 0
+            server.engine.spec_verify_forwards = 0
+            steps0 = server.engine.runner.steps
             t0 = time.perf_counter()
             res, repeat, first = await _serve_requests(port, series, GEMMA_LONG_PROMPT if gemma else 0,
                                                        repeat_logprobs=not label.startswith("llama"))
             if lora:
                 res["lora"] = await _lora_requests(server, port, *lora)
+            if extra is not None:
+                res["extra"] = await extra(server, port)
             res["seconds"] = round(time.perf_counter() - t0, 3)
+            res["runner_steps"] = server.engine.runner.steps - steps0
+            res["verify_forwards"] = server.engine.spec_verify_forwards
             if ranks > 1:
                 rows = _rank_rows(server.engine.runner.rank_stats())
                 res["launches_by_rank"] = [{k: int(r[k]) for k in kernels} for r in rows]
@@ -1878,6 +1946,7 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             stats = server.engine.stats()
             res["engine"] = {k: stats[k] for k in keep if k in stats}
             res["served_name"] = server.cfg.name
+            res["num_layers"] = server.engine.model_cfg.num_layers
             if sleep_level:
                 surface = await _surface(server, port, sleep_level, repeat, first, res["requests"])
                 emit({"phase": "surface", "model": label, **surface, "card": nvidia_smi_line()})
@@ -1905,7 +1974,21 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
         check(res["replica_digests_equal"], f"{what}: the dp replicas' pools differ: {res['replica_digests']}")
     if gemma:
         check(max(res["prompt_tokens"]) > GEMMA_WINDOW, f"{what}: no prompt ran past the sliding window")
+    if spec:
+        # every decode dispatch is verify rounds through the prefill kernel:
+        # L launches per prefill step and per round, the decode kernel none
+        L = res["num_layers"]
+        rounds = res["verify_forwards"]
+        prefill_steps = res["runner_steps"] - rounds // cfg.decode_steps
+        n = res["launches"]["prefill_attention"]
+        check(rounds > 0, f"{what}: no verify round ran")
+        check(res["launches"]["decode_attention"] == 0,
+              f"{what}: a spec server ran the decode kernel {res['launches']['decode_attention']} times")
+        check(n >= L * rounds + L and n == L * (prefill_steps + rounds),
+              f"{what}: {n} prefill launches for {rounds} verify rounds and {prefill_steps} prefill steps of {L} layers")
     for k in SERVE_ROWS[quant]:
+        if spec and k == "decode_attention":
+            continue  # checked to be 0 above
         check(res["launches"][k] > 0, f"{what}: kernel {k} was not launched on the main path")
     for k in SERVE_ROWS[not quant]:  # an int8 pool never reaches an fp mode, nor the other way round
         check(res["launches"][k] == 0, f"{what}: kernel {k} ran {res['launches'][k]} times on the main path")
@@ -1919,7 +2002,302 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
               f"{what}: no page was restored from the CPU tier")
         check(e["kv_corrupt_pages_total"] == 0, f"{what}: the CPU tier held corrupt pages")
     torch.cuda.empty_cache()
-    return res["launches"]
+    launches = dict(res["launches"])
+    if spec:
+        verify = res["num_layers"] * res["verify_forwards"]
+        launches[VERIFY_ROW] = verify
+        launches["prefill_attention"] -= verify
+    return launches
+
+
+# -- chained and speculative decode -----------------------------------------
+
+# the chained server's lone greedy request, held to the same request at
+# decode_pipeline 1 (one page of prompt and output, so both runs take the
+# same batch, chunk and page-table buckets: the same kernels at the same
+# shapes)
+LONE_PROMPT = "A lone request, decoded in chained bursts: "
+LONE_TOKENS = 16
+SPEC_K = VERIFY_K
+
+
+async def _slo_numbers(s, base: str, since: int) -> dict:
+    """The server's own latency records since cursor ``since``: each
+    request's mean inter-token gap ((e2e - ttft) / (tokens - 1)) and its own
+    ITL p99, as p50 and p99 over the requests."""
+    async with s.get(f"{base}/slo_records?since={since}") as r:
+        recs = (await r.json())["records"]
+    gaps = sorted((x["e2e_ms"] - x["ttft_ms"]) / (x["output_tokens"] - 1) for x in recs
+                  if x["ttft_ms"] is not None and x["output_tokens"] > 1)
+    p99s = sorted(x["itl_p99_ms"] for x in recs if x["itl_p99_ms"] is not None)
+
+    def q(xs, f):
+        return round(xs[min(len(xs) - 1, int(len(xs) * f))], 3) if xs else None
+
+    return {"requests": len(recs), "itl_mean_ms_p50": q(gaps, 0.5), "itl_mean_ms_p99": q(gaps, 0.99),
+            "itl_p99_ms_p50": q(p99s, 0.5), "itl_p99_ms_p99": q(p99s, 0.99)}
+
+
+async def _load_numbers(s, base: str, since: int, tokens: int, wall: float) -> dict:
+    async with s.get(base + "/stats") as r:
+        stats = await r.json()
+    return {"output_tokens": tokens, "wall_seconds": round(wall, 3),
+            "output_tokens_per_second": round(tokens / wall, 2), **await _slo_numbers(s, base, since),
+            "chain_dispatch_seconds": stats["engine_loop_chain_dispatch_seconds_total"],
+            "chain_fetch_seconds": stats["engine_loop_chain_fetch_seconds_total"],
+            "decode_chained_dispatches_total": stats["decode_chained_dispatches_total"],
+            "runahead_prefill_dispatches_total": stats["runahead_prefill_dispatches_total"],
+            "card": nvidia_smi_line()}
+
+
+async def _staggered(s, base: str, n: int = 8, gap: float = 0.5, max_tokens: int = 64) -> tuple:
+    """``n`` streamed greedy completions arriving ``gap`` seconds apart
+    behind one long request already decoding: (output tokens, wall). At
+    two arrivals a second the scheduler's chain cap still lets the long
+    request chain, so most arrivals land while a chain is being dispatched
+    and run ahead; at eight a second the cap shortens the chains (their
+    expected arrivals stay under half a request), and on the card one
+    arrival in eight ran ahead."""
+    import random
+
+    rng = random.Random(17)
+
+    async def stream(prompt, tokens):
+        body = {"prompt": prompt, "max_tokens": tokens, "temperature": 0.0, "ignore_eos": True, "stream": True,
+                "stream_options": {"include_usage": True}}
+        usage = None
+        async with s.post(base + "/v1/completions", json=body) as r:
+            check(r.status == 200, f"staggered: a stream -> {r.status}")
+            async for raw in r.content:
+                line = raw.decode().strip()
+                if line.startswith("data: {"):
+                    usage = json.loads(line[6:]).get("usage") or usage
+        check(usage is not None and usage["completion_tokens"] == tokens, f"staggered: usage {usage}")
+        return tokens
+
+    t0 = time.perf_counter()
+    tasks = [asyncio.ensure_future(stream(_prompt(rng, 300), 6 * max_tokens))]
+    await asyncio.sleep(0.3)  # the long one decodes in chains by now
+    for i in range(n):
+        tasks.append(asyncio.ensure_future(stream(_prompt(rng, 100 + 40 * i), max_tokens)))
+        await asyncio.sleep(gap)
+    done = await asyncio.gather(*tasks)
+    return sum(done), time.perf_counter() - t0
+
+
+async def _lone_ids(engine) -> list:
+    """The lone greedy request's token ids through ``engine.generate`` (the
+    byte tokenizer decodes llama-3.2-1b's ids past 255 to no text, so ids
+    are compared, not text)."""
+    from production_stack_tpu_torch.engine.scheduler import SamplingParams
+
+    ids = []
+    async for o in engine.generate(f"lone-{time.monotonic_ns()}", prompt=LONE_PROMPT, params=SamplingParams(
+            max_tokens=LONE_TOKENS, temperature=0.0, ignore_eos=True)):
+        ids.extend(o.token_ids)
+    return ids
+
+
+async def _chained_requests(server, port: int) -> dict:
+    """The chained server's own requests: the lone greedy one (its token
+    ids are held to decode_pipeline 1's after the run), then 8 streams
+    arriving apart behind a long one, which must make chains and run-ahead
+    prefills (/metrics), with the load's numbers."""
+    import aiohttp
+
+    base = f"http://127.0.0.1:{port}"
+    out = {"lone_ids": await _lone_ids(server.engine)}
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+        async with s.get(base + "/slo_records?since=0") as r:
+            since = (await r.json())["head"]
+        tokens, wall = await _staggered(s, base)
+        async with s.get(base + "/metrics") as r:
+            text = await r.text()
+        m = f'{{model_name="{server.cfg.name}"}}'
+        out["metrics"] = {k: _metric(text, f"vllm:{k}{m}") for k in (
+            "decode_chained_dispatches_total", "runahead_prefill_dispatches_total", "decode_dispatches_total")}
+        out["load"] = await _load_numbers(s, base, since, tokens, wall)
+    check(out["metrics"]["decode_chained_dispatches_total"] > 0, f"chained: no chained dispatch: {out['metrics']}")
+    check(out["metrics"]["runahead_prefill_dispatches_total"] > 0, f"chained: no run-ahead prefill: {out['metrics']}")
+    return out
+
+
+async def _pipelined_int8_requests(server, port: int) -> dict:
+    """The int8 chained server's chain counters after the main path."""
+    import aiohttp
+
+    async with aiohttp.ClientSession() as s:
+        async with s.get(f"http://127.0.0.1:{port}/stats") as r:
+            stats = await r.json()
+    return {k: stats[k] for k in ("decode_chained_dispatches_total", "runahead_prefill_dispatches_total",
+                                  "engine_loop_chain_dispatch_seconds_total", "engine_loop_chain_fetch_seconds_total")}
+
+
+async def _spec_requests(server, port: int) -> dict:
+    """The spec server's own requests: a logprobs request gets 400, a
+    repetitive greedy prompt ends by length, the draft counters move, and
+    the load of 8 staggered streams gives its numbers."""
+    import aiohttp
+
+    base = f"http://127.0.0.1:{port}"
+    out = {}
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+        async def post(body):
+            async with s.post(base + "/v1/completions", json=body) as r:
+                return r.status, await r.json()
+
+        st, body = await post({"prompt": "hello", "max_tokens": 4, "logprobs": 1})
+        out["logprobs_request"] = [st, body.get("error", {}).get("message")]
+        check(st == 400, f"spec: a logprobs request -> {st}")
+        st, body = await post({"prompt": "ab ab ab ab " * 20, "max_tokens": 96, "temperature": 0.0,
+                               "ignore_eos": True})
+        check(st == 200 and body["choices"][0]["finish_reason"] == "length"
+              and body["usage"]["completion_tokens"] == 96, f"spec: the repetitive prompt -> {st}: {body}")
+        async with s.get(base + "/slo_records?since=0") as r:
+            since = (await r.json())["head"]
+        tokens, wall = await _staggered(s, base)
+        async with s.get(base + "/stats") as r:
+            stats = await r.json()
+        out["spec"] = {k: stats[k] for k in ("spec_decode_num_draft_tokens_total",
+                                             "spec_decode_num_accepted_tokens_total",
+                                             "spec_decode_draft_acceptance_rate")}
+        out["load"] = await _load_numbers(s, base, since, tokens, wall)
+    check(out["spec"]["spec_decode_num_draft_tokens_total"] > 0, f"spec: no draft token: {out['spec']}")
+    check(0.0 <= out["spec"]["spec_decode_draft_acceptance_rate"] <= 1.0, f"spec: acceptance {out['spec']}")
+    return out
+
+
+def phase_lone_unchained(ids: list) -> None:
+    """The chained server's lone greedy request again at decode_pipeline 1,
+    through an engine in-process: the same token ids."""
+    import torch
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    engine = LLMEngine(EngineConfig(model="llama-3.2-1b"))
+    engine.start()
+    try:
+        unchained = asyncio.run(_lone_ids(engine))
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+    emit({"phase": "chained_lone", "model": "llama-3.2-1b", "tokens": len(ids), "ids_head": ids[:6],
+          "ids_equal_to_decode_pipeline_1": unchained == ids})
+    check(len(ids) == LONE_TOKENS and unchained == ids,
+          "chained: the lone greedy request at decode_pipeline 4 differs from decode_pipeline 1")
+
+
+def phase_spec_chain() -> None:
+    """An f32 copy of llama-3.2-1b at full width and depth (as
+    phase_f32_tokens makes it), four rows whose prompts repeat 3-grams,
+    through the runner on the card: step_spec (8 rounds, k 4, n 3) against
+    step_multi's greedy tokens (a token that differs must sit at a near tie:
+    step_multi's two best logprobs within TP_NEAR_TIE; rows 0 and 1 carry
+    their next 4 greedy tokens after an earlier copy of their trailing
+    3-gram in the history, so round 1 accepts them), then
+    step_multi_pipelined (4 bursts of 8, fetch_group 4) against 4 calls of
+    step_multi: the same tokens and byte-identical pools (the same kernels
+    at the same shapes). Prints the acceptance rate and the tokens per
+    verify forward."""
+    import numpy as np
+    import torch
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.runner import HostTokens, StepInput
+    from production_stack_tpu_torch.models import llama
+
+    name = "llama-3.2-1b-f32"
+    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS["llama-3.2-1b"], dtype=torch.float32)
+    engine = LLMEngine(EngineConfig(model=name, num_pages=64))
+    r = engine.runner
+    _, plains = _counters()
+    for fn in plains.values():
+        fn.calls = 0
+    B, T, steps, n, burst, bursts = 4, 192, 8, 3, 8, 4
+    vocab = llama.PRESETS[name].vocab_size
+    rng = np.random.RandomState(21)
+    prompts = np.stack([np.tile(rng.randint(1, vocab, 3), T)[:T] for _ in range(B)]).astype(np.int32)
+    # rows 0 and 1 stop repeating halfway, so their trailing 3-gram occurs
+    # only where it is planted below
+    prompts[:2, T // 2:] = rng.randint(1, vocab, (2, T - T // 2))
+    common = dict(page_table=np.arange(B * 8, dtype=np.int32).reshape(B, 8), temperature=np.zeros(B, np.float32),
+                  top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32))
+    total = steps * (SPEC_K + 1)
+
+    def prefill():
+        r.reset_kv()
+        ids, _ = r.step(StepInput(input_ids=prompts, positions=np.tile(np.arange(T, dtype=np.int32), (B, 1)),
+                                  kv_lens=np.full(B, T, np.int32), **common), want_logits=False)
+        return ids.cpu().numpy()
+
+    def decode_input(first, limit):
+        return StepInput(input_ids=first[:, None].astype(np.int32), positions=np.full((B, 1), T, np.int32),
+                         kv_lens=np.full(B, T + 1, np.int32), kv_limits=np.full(B, limit, np.int32), **common)
+
+    t0 = time.perf_counter()
+    try:
+        first = prefill()
+        ref, (_, _, top_lp) = r.step_multi(decode_input(first, T + total), total, want_logprobs=True)
+        ref, margin = ref.cpu().numpy(), (top_lp[..., 0] - top_lp[..., 1]).cpu().numpy()
+        hist = np.zeros((B, 512), np.int32)
+        hist[:, :T], hist[:, T] = prompts, first
+        hist[:2, 20: 20 + n] = np.concatenate([prompts[:2, T - 2:], first[:2, None]], axis=1)
+        hist[:2, 20 + n: 20 + n + SPEC_K] = ref[:2, :SPEC_K]
+        prefill()
+        spec = r.step_spec(decode_input(first, 8 * 64), hist, steps=steps, spec_k=SPEC_K, ngram=n).cpu().numpy()
+        equal, flips = 0, []
+        for b in range(B):
+            got = spec[b][spec[b] >= 0]
+            j = next((j for j, (x, y) in enumerate(zip(got, ref[b])) if x != y), len(got))
+            equal += j
+            if j < len(got):
+                flips.append({"row": b, "token": j, "reference_top2_margin": float(margin[b, j])})
+        emitted = spec >= 0
+        row_rounds = int(emitted.any(axis=2).sum())
+        accepted = int(emitted.sum()) - row_rounds
+        # the chain against separate bursts, from the same prefill
+        prefill()
+        groups = r.step_multi_pipelined(decode_input(first, T + bursts * burst), burst, bursts, fetch_group=4)
+        check(len(groups) == 1 and isinstance(groups[0], HostTokens), f"spec_chain: groups {groups}")
+        chained = groups[0].numpy()
+        pools = (r.k_pages.clone(), r.v_pages.clone())
+        prefill()
+        cur, sep = decode_input(first, T + bursts * burst), []
+        for _ in range(bursts):
+            t = r.step_multi(cur, burst).cpu().numpy()
+            sep.append(t)
+            cur = dataclasses.replace(cur, input_ids=t[:, -1:].astype(np.int32), positions=cur.positions + burst,
+                                      kv_lens=cur.kv_lens + burst)
+        torch.cuda.synchronize()
+        pools_same = _same_bytes(pools[0], r.k_pages) and _same_bytes(pools[1], r.v_pages)
+        plain = {k: fn.calls for k, fn in plains.items()}
+    finally:
+        engine.stop()
+        del engine, r
+        gc.collect()
+        torch.cuda.empty_cache()
+    line = {"phase": "spec_chain", "model": name, "rows": B, "prompt_tokens": T,
+            "spec": {"steps": steps, "k": SPEC_K, "ngram": n, "tokens_equal_before_a_flip": equal,
+                     "emitted": int(emitted.sum()), "flips": flips, "near_tie": TP_NEAR_TIE,
+                     "draft_tokens": row_rounds * SPEC_K, "accepted_tokens": accepted,
+                     "acceptance_rate": round(accepted / max(1, row_rounds * SPEC_K), 4),
+                     "tokens_per_verify_forward": round(int(emitted.sum()) / max(1, row_rounds), 4)},
+            "chain": {"bursts": bursts, "k": burst, "fetch_group": 4,
+                      "tokens_equal": bool((chained == np.concatenate(sep, axis=1)).all()),
+                      "pools_byte_identical": pools_same},
+            "plain_calls": plain, "seconds": round(time.perf_counter() - t0, 2), "card": nvidia_smi_line()}
+    emit(line)
+    for f in flips:
+        check(f["reference_top2_margin"] <= TP_NEAR_TIE, f"spec_chain: a token flipped away from a near-tie: {f}")
+    for b in range(2):  # round 1 accepts the planted drafts, unless a near-tie flip came first
+        flipped = any(f["row"] == b and f["token"] <= SPEC_K for f in flips)
+        check(flipped or (spec[b][0] >= 0).all(), f"spec_chain: row {b}'s round 1 did not accept its planted drafts")
+    check(line["chain"]["tokens_equal"] and pools_same, f"spec_chain: the chain differs: {line['chain']}")
+    check(not any(plain.values()), f"spec_chain: a plain version ran: {plain}")
 
 
 # tensor parallelism on the one card: two ranks (two processes) on cuda:0
@@ -2291,8 +2669,9 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, dict]:
     case = dict(dict(PREFILL_CASES)[case_name], dtype=bf16, quant=quant)
     case.pop("tp", None)
     case.pop("dp", None)
-    NH, KH, D, page, T = (case[k] for k in ("NH", "KH", "D", "page", "T"))
-    hist = case["computed"][0]
+    case.pop("row", None)
+    B, NH, KH, D, page, T = (case[k] for k in ("B", "NH", "KH", "D", "page", "T"))
+    hist = case["computed"][0]  # the timed cases' rows hold one history and one chunk length each
     window = case.get("window") or (1 << 30)
     G = NH // KH
     args, kw = prefill_case(case.pop("seed"), **case)
@@ -2316,14 +2695,14 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, dict]:
     pairs = sum(min(hist + t + 1, window) for t in range(T))  # visible (query, key) pairs per head
     h_vis = hist - max(hist - window + 1, 0)  # history slots any query sees
     kv_bytes = 2 * h_vis * KH * D + 2 * (h_vis // page) * KH * 4 if quant else 2 * h_vis * KH * D * el
-    nbytes = 2 * T * NH * D * el + kv_bytes + 2 * T * KH * D * el + pt.numel() * 4 + T * 4 + 8
-    flops = 4 * NH * D * pairs
+    nbytes = B * (2 * T * NH * D * el + kv_bytes + 2 * T * KH * D * el + T * 4 + 8) + pt.numel() * 4
+    flops = B * 4 * NH * D * pairs
     b_ms, b_by = _bound(nbytes, flops)
     extra = "" if case.get("window") is None else f" window={case['window']}"
     extra += "" if case.get("softcap") is None else f" softcap={case['softcap']} sm_scale={kw['sm_scale']:.6g}"
     pool = "int8 history, bf16 q/chunk" if quant else "bf16"
     row = dict(ms=ms, plain_ms=plain, library_ms=lib, bound_ms=b_ms, bound_by=b_by,
-               shape=f"B=1 T={T} history={hist} NH={NH} KH={KH} D={D} page={page}{extra} {pool}",
+               shape=f"B={B} T={T} history={hist} NH={NH} KH={KH} D={D} page={page}{extra} {pool}",
                library=("scaled_dot_product_attention over history dequantized to bf16 beforehand (dequant not "
                         "timed), causal-offset mask" if quant else
                         "scaled_dot_product_attention with a causal-offset mask")
@@ -2398,6 +2777,9 @@ def phase_timing() -> dict:
         rows[_kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, D, 2)] = _write_timing(fused, quant)
     # a dp 2 rank's decode: 16 rows of the 32 x 1,024 burst step
     rows[DP_ROW] = _decode_timing(DP_DECODE, False)
+    # step_spec's verify forward (llama-3.2-1b's heads; gemma-2-2b's below)
+    row, fused = _prefill_timing(VERIFY_LLAMA, False)
+    rows[VERIFY_ROW] = dict(row, fused_ms=fused["fused_ms"])
     for name, r in rows.items():
         emit({"phase": "timing", "kernel": name, **r})
     for case in SMALL_BATCH_DECODE + (QWEN_DECODE_B1_8K,) + GEMMA_WINDOW_DECODE:
@@ -2408,6 +2790,10 @@ def phase_timing() -> dict:
     emit({"phase": "timing", "kernel": "decode_attention", "case": OPT_DECODE, **_decode_timing(OPT_DECODE, False)})
     emit({"phase": "timing", "kernel": "prefill_attention", "case": OPT_PREFILL,
           **_prefill_timing(OPT_PREFILL, False)[0]})
+    for case in (VERIFY_GEMMA_SLIDING, VERIFY_GEMMA_GLOBAL):
+        row, fused = _prefill_timing(case, False)
+        emit({"phase": "timing", "kernel": "prefill_attention[d256]", "case": case, **row,
+              "fused_ms": fused["fused_ms"]})
     for quant in (False, True):
         emit({"phase": "timing", "kernel": _kernel_name("decode_attention", quant, 128), "case": MIXTRAL_DECODE,
               **_decode_timing(MIXTRAL_DECODE, quant)})
@@ -2746,11 +3132,11 @@ def main() -> int:
             launches.update({_dtag(k, 256): counts[k] for k in SERVE_ROWS[True]})
     phase_lora_forward()
 
-    def serve(label, overrides, D, sleep_level, lora, prepare=None):
-        counts = phase_serve(label, overrides, sleep_level, lora, prepare)
+    def serve(label, overrides, D, sleep_level, lora, prepare=None, extra=None):
+        counts = phase_serve(label, overrides, sleep_level, lora, prepare, extra)
         quant = overrides.get("kv_cache_dtype") == "int8"
         tp, dp = overrides.get("tensor_parallel_size", 1), overrides.get("data_parallel_size", 1)
-        for k in SERVE_ROWS[quant]:
+        for k in SERVE_ROWS[quant] + ((VERIFY_ROW,) if VERIFY_ROW in counts else ()):
             row = _tptag(_dtag(k, D), tp)
             if dp > 1 and tp == 1 and k == "decode_attention":
                 row = _dptag(row, dp)  # the dp rank's rows, all heads: the [dp2] row
@@ -2764,6 +3150,23 @@ def main() -> int:
         write_lora_adapters(llama.PRESETS["llama-3.2-1b"], LLAMA_ADAPTERS, LORA_RANKS, LORA_TARGETS)
         for run in SERVE_RUNS:
             serve(*run)
+        # chained and speculative decode: the runner on an f32 copy, then
+        # llama-3.2-1b served chained (bf16, then int8 with the CPU tier)
+        # and speculative
+        phase_spec_chain()
+        chained = {}
+
+        async def chained_requests(server, port):
+            chained.update(await _chained_requests(server, port))
+            return chained
+
+        serve("llama-3.2-1b, pipeline4", dict(model="llama-3.2-1b", decode_pipeline=4), 64, 0, (),
+              extra=chained_requests)
+        phase_lone_unchained(chained["lone_ids"])
+        serve("llama-3.2-1b, int8, pipeline4", dict(model="llama-3.2-1b", **INT8_SERVE, decode_pipeline=4), 64, 0,
+              (), extra=_pipelined_int8_requests)
+        serve("llama-3.2-1b, spec4", dict(model="llama-3.2-1b", speculative_k=SPEC_K), 64, 0, (),
+              extra=_spec_requests)
         # tensor parallelism: two ranks (processes) on the one card over
         # gloo, with qwen2.5-7b's directory still on the disk
         tp_ref = phase_tp_reference()

@@ -27,7 +27,10 @@ shutdown, ends; ``--data-parallel-size M`` makes M such groups, M x N
 processes, each group serving its share of every batch's rows;
 ``--tp-backend`` (nccl, the default, or gloo) and ``--tp-device-ids`` (say
 ``0,0``: two ranks on the first card, with gloo) are the port's own knobs
-for all of them.
+for all of them. ``--decode-pipeline N`` chains up to N decode bursts a
+dispatch; ``--speculative-k K`` (with ``--speculative-ngram``) decodes by
+n-gram draft and verify, and then answers 400 to a request with penalties,
+logit_bias, min_tokens or logprobs, as the JAX server does.
 """
 
 from __future__ import annotations
@@ -399,8 +402,10 @@ class EngineServer:
         emit("prompt_tokens_total", "counter", s["prompt_tokens_total"])
         emit("generation_tokens_total", "counter", s["generation_tokens_total"])
         emit("decode_dispatches_total", "counter", s["decode_dispatches_total"])
-        for k in sorted(s):  # kv eviction, int8 KV, offload and engine-loop sections
-            if k.startswith(("kv_", "engine_loop_")):
+        emit("decode_chained_dispatches_total", "counter", s["decode_chained_dispatches_total"])
+        emit("runahead_prefill_dispatches_total", "counter", s["runahead_prefill_dispatches_total"])
+        for k in sorted(s):  # kv eviction, int8 KV, offload, speculative decode and engine-loop sections
+            if k.startswith(("kv_", "spec_decode_", "engine_loop_")):
                 emit(k, "counter" if k.endswith("_total") else "gauge", s[k])
         hops = _ttft_hop_quantiles()
         waits = list(self.engine.admission_wait_ms)
@@ -521,6 +526,9 @@ class EngineServer:
                 and -2.0 <= params.frequency_penalty <= 2.0
                 and params.repetition_penalty > 0):
             return _error("penalties out of range: presence/frequency in [-2, 2], repetition > 0")
+        if (params.wants_penalties or params.logit_bias or params.min_tokens > 0) and self.cfg.speculative_k:
+            return _error("sampling penalties, logit_bias, and min_tokens are not supported with "
+                          "speculative decoding")
         # logprobs: completions takes an int (top count), chat takes
         # logprobs=true + top_logprobs=N
         lp_count = None
@@ -532,6 +540,8 @@ class EngineServer:
         if lp_count is not None:
             if not 0 <= lp_count <= TOP_LOGPROBS:
                 return _error(f"logprobs must be in [0, {TOP_LOGPROBS}]")
+            if self.cfg.speculative_k:
+                return _error("logprobs are not supported with speculative decoding")
             params.logprobs = lp_count
         stream = bool(body.get("stream", False))
         created = int(time.time())

@@ -57,8 +57,21 @@ class EngineConfig:
     prefill_chunk: int = 512
     prefill_batch: int = 4
     # fused decode burst: tokens produced per dispatch (runner.step_multi);
-    # surplus tokens after EOS are discarded host-side
+    # surplus tokens after EOS are discarded host-side. With speculative
+    # decoding on, the number of draft+verify rounds per dispatch instead
     decode_steps: int = 8
+    # chained decode bursts per dispatch when the batch is quiescent: burst
+    # j+1's input token comes from burst j's tokens on the device, so a chain
+    # of m bursts is fetched once (runner.step_multi_pipelined), a group of
+    # four bursts at a time; the scheduler caps the chain by the arrival rate
+    # and the measured burst time, and prefills of new arrivals run ahead
+    # behind an in-flight chain
+    decode_pipeline: int = 1
+    # speculative decoding (prompt lookup, runner.step_spec): draft length
+    # per round (0 = off), and the n-gram the draft matches; bf16/f32 pools
+    # only, no penalties, logit_bias, min_tokens or logprobs
+    speculative_k: int = 0
+    speculative_ngram: int = 3
     enable_prefix_caching: bool = True
     enable_chunked_prefill: bool = True
     # attention implementation, threaded into the model config:
@@ -130,8 +143,6 @@ class EngineConfig:
     # value rather than ignore it. The JAX engine's per-feature sub-knobs
     # (fabric ports, warm-start intervals, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
-    decode_pipeline: int = 1            # chained decode bursts
-    speculative_k: int = 0              # speculative decoding
     sequence_parallel_size: int = 1
     expert_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -188,6 +199,16 @@ _FLAG_HELP = {
         "of every batch's rows with a whole replica of the KV pool; the "
         "server starts dp x tp processes"
     ),
+    "decode_pipeline": (
+        "chained decode bursts per dispatch while no request waits (1 = off): "
+        "one fetch per chain, in groups of four bursts, with run-ahead prefills "
+        "queued behind it"
+    ),
+    "speculative_k": (
+        "speculative decoding: n-gram draft tokens verified per round (0 = off; "
+        "not with --kv-cache-dtype int8, penalties, logit_bias, min_tokens or logprobs)"
+    ),
+    "speculative_ngram": "the n-gram the speculative draft looks up in the request's own tokens",
     "tp_backend": (
         "nccl | gloo: the torch.distributed backend of the engine's dp x tp "
         "ranks (port only). gloo stages CUDA tensors through the host, so "
@@ -257,8 +278,6 @@ def resolve_attn_impl(attn_impl: str, device) -> str:
 # accepted and then ignored would misreport what is being served)
 _UNSUPPORTED = {
     "kv_write_mode": "the 'pre' KV write mode",
-    "decode_pipeline": "chained decode bursts",
-    "speculative_k": "speculative decoding",
     "sequence_parallel_size": "sequence parallelism",
     "expert_parallel_size": "expert parallelism",
     "pipeline_parallel_size": "pipeline parallelism",
@@ -274,7 +293,10 @@ _UNSUPPORTED = {
 
 
 def check_supported(cfg: EngineConfig) -> None:
-    """Raise on any non-default value of a feature the port lacks."""
+    """Raise on any non-default value of a feature the port lacks
+    (``_UNSUPPORTED``), on a combination the port does not serve (LoRA with
+    tp or dp ranks), and on one the JAX engine refuses too (int8 pools with
+    speculative decoding, in its words)."""
     dp = cfg.data_parallel_size
     if dp < 1:
         raise ValueError(f"data_parallel_size must be >= 1, got {dp}")
@@ -304,6 +326,11 @@ def check_supported(cfg: EngineConfig) -> None:
         raise ValueError(
             f"kv_cache_dtype {cfg.kv_cache_dtype!r} is not supported by the PyTorch port; "
             f"options: {KV_CACHE_DTYPES}"
+        )
+    if cfg.kv_cache_dtype == "int8" and cfg.speculative_k:
+        raise ValueError(
+            "--kv-cache-dtype int8 is not compatible with "
+            "--speculative-k (the spec scan carries raw pool blocks)"
         )
     tp = cfg.tensor_parallel_size
     if tp < 1:

@@ -69,6 +69,8 @@ _HELLO_NONCE_LEN = 32
 REPLICATED = (
     "step",
     "step_multi",
+    "step_multi_pipelined",
+    "step_spec",
     "encode",
     "get_pages",
     "set_pages",

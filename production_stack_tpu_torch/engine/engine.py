@@ -8,11 +8,19 @@ handlers) submits sequences through a thread-safe inbox and receives
 The loop runs the main serving path: chunked prefill with prefix caching,
 then fused decode bursts of ``decode_steps`` tokens, with greedy and
 temperature sampling, penalties, logit bias, min_tokens, stop strings and
-logprobs. Admission control (queue bound and queue deadline) sheds as the
-JAX engine does. ``kv_cache_dtype="int8"`` serves from int8 pools (half the
-bytes per token, about twice the pages for the same memory), and the local
-offload tiers (``kv_offload_cpu_gb``, ``kv_offload_dir``) take evicted
-prefix pages and give them back on a later prefix match.
+logprobs. With ``decode_pipeline`` > 1 a quiescent batch decodes in chains
+of bursts (``runner.step_multi_pipelined``) fetched a group of four bursts
+at a time and applied and streamed group by group; while a chain is in
+flight, prefill chunks of new arrivals are dispatched behind it
+(``_runahead_prefills``), and the scheduler caps the chain by the recent
+arrival rate and the measured burst time. With ``speculative_k`` each
+decode dispatch runs ``decode_steps`` rounds of n-gram draft and verify
+(``runner.step_spec``). Admission control (queue bound and queue deadline)
+sheds as the JAX engine does. ``kv_cache_dtype="int8"`` serves from int8
+pools (half the bytes per token, about twice the pages for the same
+memory), and the local offload tiers (``kv_offload_cpu_gb``,
+``kv_offload_dir``) take evicted prefix pages and give them back on a later
+prefix match.
 
 The engine surface the rest of the stack reads and calls, as in the JAX
 engine: every finished request leaves an SLO terminal record in the bounded
@@ -49,9 +57,11 @@ is a tp group over the whole model and serves its B/dp contiguous rows of
 every step, and every rank holds the whole pool of its KV heads (replicated
 over dp, as in the JAX engine; the runner copies each step's written pages
 into the other replicas). The scheduler pads every batch to a multiple of
-dp (``batch_multiple``), the padded rows inert, as the JAX engine's does. Not ported yet: the remote tier, the KV-index controller, the fleet directory,
-warm start, the KV fabric, migration, speculative decoding and chained
-bursts (engine/config.check_supported refuses their flags).
+dp (``batch_multiple``), the padded rows inert, as the JAX engine's does.
+
+Not ported yet: the remote tier, the KV-index controller, the fleet
+directory, warm start, the KV fabric, migration, the "pre" KV write mode and
+the sp, ep and pp axes (engine/config.check_supported refuses their flags).
 """
 
 from __future__ import annotations
@@ -133,7 +143,7 @@ class LLMEngine:
         """``params``: a parameter dict of the port (model_loader.
         params_from_jax) to serve instead of the preset's seeded weights;
         whole, also under tp (each rank takes its part)."""
-        check_supported(cfg)
+        check_supported(cfg)  # int8 with speculative_k too, in the JAX engine's words
         self.cfg = cfg
         self.tensor_parallel = cfg.tensor_parallel_size
         self.data_parallel = cfg.data_parallel_size
@@ -227,15 +237,23 @@ class LLMEngine:
             enable_prefix_caching=cfg.enable_prefix_caching,
             batch_multiple=cfg.data_parallel_size,
             decode_steps=cfg.decode_steps,
+            decode_pipeline=cfg.decode_pipeline,
+            spec_k=cfg.speculative_k,
+            spec_ngram=cfg.speculative_ngram,
             max_waiting_seqs=cfg.max_waiting_seqs,
             queue_deadline_s=cfg.queue_deadline_s,
             interactive_reserve=cfg.interactive_reserve,
             batch_queue_deadline_s=cfg.batch_queue_deadline_s,
             batch_prefill_share=cfg.batch_prefill_share,
         )
+        # this loop dispatches run-ahead prefills behind in-flight chains
+        # (_runahead_prefills), which licenses the scheduler's one-extra-burst
+        # chaining floor past the admission-wait budget
+        self.scheduler.runahead_available = True
         self._inbox: queue_mod.Queue = queue_mod.Queue()
-        # prefill dispatches whose results were never fetched; a deferred
-        # device error taints these sequences too
+        # prefill dispatches whose results were never fetched (and run-ahead
+        # prefills queued behind a chain); a deferred device error taints
+        # these sequences too
         self._unfetched: list = []
         # two-writer maps (event-loop generate() registers/pops, device
         # thread _emit/_process_token reads/writes): every touch holds _lock
@@ -247,6 +265,16 @@ class LLMEngine:
         self.total_prompt_tokens = 0
         self.total_generation_tokens = 0
         self.decode_dispatches_total = 0
+        self.decode_chained_dispatches_total = 0
+        # prefill dispatches queued behind an in-flight chain (run-ahead)
+        self.runahead_prefill_dispatches_total = 0
+        self.spec_draft_tokens = 0     # drafts proposed (row-rounds * spec_k)
+        self.spec_accepted_tokens = 0  # drafts the target accepted
+        self.spec_verify_forwards = 0  # verify forwards run (dispatches * rounds)
+        # recent arrival times and the per-burst wall-time EMA: the
+        # scheduler's adaptive chain depth reads both
+        self._arrival_times: collections.deque = collections.deque(maxlen=64)
+        self._burst_seconds = 0.05
         # load-shed accounting, one writer per counter: requests_shed on the
         # device thread, api_requests_shed on the event loop
         self.requests_shed = {"queue_full": 0, "queue_deadline": 0}
@@ -270,7 +298,9 @@ class LLMEngine:
         # arrival -> first prefill dispatch, ms (the ttft_hop_admission_wait
         # gauge)
         self.admission_wait_ms: collections.deque = collections.deque(maxlen=2048)
-        self.loop_seconds = {"wait": 0.0, "schedule": 0.0, "step": 0.0, "apply": 0.0, "emit": 0.0}
+        self._inline_seconds = 0.0
+        self.loop_seconds = {"wait": 0.0, "schedule": 0.0, "step": 0.0, "apply": 0.0, "emit": 0.0,
+                             "chain_dispatch": 0.0, "chain_fetch": 0.0}
         self.step_idx = 0
 
     # -- admission control --------------------------------------------------
@@ -395,35 +425,60 @@ class LLMEngine:
 
     # -- engine loop (device thread) ----------------------------------------
 
-    def _drain_inbox(self, block: bool) -> None:
+    def _drain_inbox(self, block: bool, defer_aborts: bool = False) -> list:
+        """Take the queued arrivals, aborts and device commands. With
+        ``defer_aborts`` (run-ahead, while a chain is in flight) aborts are
+        returned instead of applied: an abort frees the sequence's pages,
+        and a page that a dispatched, unfetched chain still writes must not
+        go to a run-ahead admission. The caller queues them again; they run
+        at the next ordinary drain, after the chain was applied."""
+        deferred: list = []
         timeout = 0.5 if block else None
         while True:
             try:
                 item = self._inbox.get(block=block, timeout=timeout)
             except queue_mod.Empty:
-                return
+                return deferred
             block = False
             if item is None:
-                return
+                return deferred
             if isinstance(item, tuple) and item[0] == "device_cmd":
                 item[1]()  # embedding forward / sleep / wake, serialized with steps
             elif isinstance(item, tuple) and item[0] == "abort":
+                if defer_aborts:
+                    deferred.append(item)
+                    continue
                 for s in self.scheduler.waiting + self.scheduler.running:
                     if s.seq_id == item[1] and not s.finished:
                         self.scheduler._finish(s, "abort")
                         # a consumer may still wait on its queue (POST /abort)
                         self._emit(s, "")
-            elif self._sleeping:
-                # generate() checked the flag on the event loop just before
-                # sleep set it here: answer the request, do not park it
-                item.finished = True
-                self._emit(item, "", error=True)
-            elif self.scheduler.saturated(item.priority):
-                # authoritative queue bound: the API layer's check races a
-                # burst of arrivals the inbox has not drained yet
-                self._shed(item, "queue_full")
             else:
-                self.scheduler.add(item)
+                self._accept(item)
+
+    def _accept(self, seq: Sequence) -> None:
+        self._arrival_times.append(time.monotonic())
+        if self._sleeping:
+            # generate() checked the flag on the event loop just before
+            # sleep set it here: answer the request, do not park it
+            seq.finished = True
+            self._emit(seq, "", error=True)
+        elif self.scheduler.saturated(seq.priority):
+            # authoritative queue bound: the API layer's check races a
+            # burst of arrivals the inbox has not drained yet
+            self._shed(seq, "queue_full")
+        else:
+            self.scheduler.add(seq)
+
+    def _recent_arrival_rate(self, window: float = 1.0) -> float:
+        """Arrivals per second over the trailing ``window`` seconds."""
+        now = time.monotonic()
+        n = 0
+        for t in reversed(self._arrival_times):
+            if now - t > window:
+                break
+            n += 1
+        return n / window
 
     def _step_input(self, batch) -> StepInput:
         inp = StepInput(
@@ -464,17 +519,33 @@ class LLMEngine:
         return inp
 
     def _dispatch(self, batch):
-        """Run one scheduled batch; returns (tokens, lp_data), with tokens
-        None for an all-intermediate prefill whose fetch is skipped."""
+        """Run one scheduled batch; returns (tokens, lp_data, fetched).
+        An all-intermediate prefill is not fetched (its tokens are -1s), and
+        a chain without logprobs is applied and streamed group by group here
+        (tokens None)."""
         inp = self._step_input(batch)
         runner = self.runner
+        sched = self.scheduler
         wlp = batch.want_logprobs
-        if batch.kind == "decode" and self.scheduler.decode_steps > 1:
+        if batch.kind == "decode" and sched.spec_k and batch.history is not None:
+            tokens = runner.step_spec(
+                inp, batch.history, sched.decode_steps, sched.spec_k, sched.spec_ngram
+            ).cpu().numpy()  # [B, steps, 1 + spec_k], -1 where nothing was emitted
+            emitted = tokens >= 0
+            rounds = int(emitted.any(axis=2).sum())
+            self.spec_verify_forwards += sched.decode_steps
+            self.spec_draft_tokens += rounds * sched.spec_k
+            # each round emits its accepted drafts and one bonus token
+            self.spec_accepted_tokens += int(emitted.sum()) - rounds
+            return tokens, None, True
+        if batch.kind == "decode" and sched.decode_steps > 1:
             self.decode_dispatches_total += 1
+            if batch.bursts > 1:
+                return self._chain(batch, inp)
             if wlp:
-                toks, lps = runner.step_multi(inp, self.scheduler.decode_steps, True)
-                return toks.cpu().numpy(), tuple(x.cpu().numpy() for x in lps)
-            return runner.step_multi(inp, self.scheduler.decode_steps).cpu().numpy(), None
+                toks, lps = runner.step_multi(inp, sched.decode_steps, True)
+                return toks.cpu().numpy(), tuple(x.cpu().numpy() for x in lps), True
+            return runner.step_multi(inp, sched.decode_steps).cpu().numpy(), None, True
         if batch.kind == "prefill" and not any(
             s.num_computed + c >= len(s.prompt_ids)
             for s, c in zip(batch.seqs, batch.chunk_sizes)
@@ -483,12 +554,128 @@ class LLMEngine:
             # so nothing is fetched (the launches queue behind each other)
             runner.step(inp, want_logits=False)
             self._unfetched.append(batch)
-            return None, None
+            return np.full((len(batch.seqs),), -1, np.int32), None, False
         if wlp:
             ids, _, lps = runner.step(inp, want_logprobs=True, want_logits=False)
-            return ids.cpu().numpy(), tuple(x.cpu().numpy()[:, None] for x in lps)
+            return ids.cpu().numpy(), tuple(x.cpu().numpy()[:, None] for x in lps), True
         ids, _ = runner.step(inp, want_logits=False)
-        return ids.cpu().numpy(), None
+        return ids.cpu().numpy(), None, True
+
+    def _chain(self, batch, inp):
+        """A chained decode dispatch of ``batch.bursts`` bursts. With
+        logprobs the whole chain is fetched at once and returned. Without,
+        each group of four bursts is copied to the host as its bursts end;
+        meanwhile the prefill chunks of new arrivals are dispatched behind
+        the chain (run-ahead), then every group is applied and streamed as
+        it lands, then the run-ahead's final chunk. A row that finishes
+        mid-chain keeps computing masked tokens that are discarded, and its
+        freed pages go to no one before the next ``schedule()`` (this
+        thread)."""
+        self.decode_chained_dispatches_total += 1
+        steps = self.scheduler.decode_steps
+        wlp = batch.want_logprobs
+        t_chain = time.perf_counter()
+        outs = self.runner.step_multi_pipelined(inp, steps, batch.bursts, wlp, fetch_group=0 if wlp else 4)
+        t_disp = time.perf_counter()
+        self.loop_seconds["chain_dispatch"] += t_disp - t_chain
+        inline = 0.0
+        if wlp:
+            tokens = torch.cat([o[0] for o in outs], dim=1).cpu().numpy()
+            lp_data = tuple(torch.cat([o[1][x] for o in outs], dim=1).cpu().numpy() for x in range(3))
+            result = (tokens, lp_data, True)
+        else:
+            ra_done, ra_inter = self._runahead_prefills(batch)
+            ae0 = self.loop_seconds["apply"] + self.loop_seconds["emit"]
+            for group in outs:
+                self._apply_and_emit(batch, group.numpy())
+            # the chain's fetches retire what was queued before it; the
+            # run-ahead's intermediate chunks came after, so they stay
+            # suspect until a later fetch (the run-ahead's final chunk is one)
+            self._unfetched = ra_inter
+            for ra, ids in ra_done:
+                self._apply_and_emit(ra, ids.cpu().numpy())
+            if ra_done:
+                self._unfetched = []
+            inline = self.loop_seconds["apply"] + self.loop_seconds["emit"] - ae0
+            self._inline_seconds += inline
+            result = (None, None, False)
+        self.loop_seconds["chain_fetch"] += time.perf_counter() - t_disp - inline
+        # per-burst wall time, apply and emit included: a mild overestimate
+        # that errs toward shorter chains and so toward a shorter admission
+        # wait under arrivals
+        dt = (time.perf_counter() - t_chain) / batch.bursts
+        self._burst_seconds = 0.7 * self._burst_seconds + 0.3 * dt
+        return result
+
+    @staticmethod
+    def _runahead_allowed(s: Sequence) -> bool:
+        """Rows whose prefill needs no penalty, logit-bias, EOS-ban or
+        logprob staging: the run-ahead dispatch stages none; the others wait
+        for the normal path."""
+        return (
+            not s.params.wants_penalties
+            and s.params.logprobs is None
+            and not s.params.logit_bias
+            and (s.params.ignore_eos or len(s.output_ids) >= s.params.min_tokens)
+        )
+
+    def _runahead_prefills(self, chain_batch):
+        """Dispatch prefill chunks of sequences outside an in-flight chain,
+        queued behind its bursts on the device. Returns (final dispatches to
+        fetch, intermediate batches). Stops at the first dispatch holding a
+        final chunk, so one fetch retires every intermediate before it.
+        Aborts that arrive meanwhile are queued again here, before anything
+        can raise: they run at the next ordinary drain, after the chain was
+        applied."""
+        for item in self._drain_inbox(block=False, defer_aborts=True):
+            self._inbox.put(item)
+        ra_done: list = []
+        ra_inter: list = []
+        if self._sleeping:
+            return ra_done, ra_inter
+        exclude = {id(s) for s in chain_batch.seqs}
+        for _ in range(4):  # bound the work queued behind one chain
+            ra = self.scheduler.schedule_prefill_runahead(exclude, allow=self._runahead_allowed)
+            if ra is None:
+                break
+            self._record_sched(ra)
+            self._note_first_dispatch(ra)
+            self.runahead_prefill_dispatches_total += 1
+            inp = self._step_input(ra)
+            if not any(s.num_computed + c >= len(s.prompt_ids) for s, c in zip(ra.seqs, ra.chunk_sizes)):
+                # all intermediate: not fetched, progress applied now so the
+                # next plan sees it
+                self.runner.step(inp, want_logits=False)
+                self._unfetched.append(ra)
+                ra_inter.append(ra)
+                self._apply_and_emit(ra, np.full((len(ra.seqs),), -1, np.int32))
+            else:
+                ids, _ = self.runner.step(inp, want_logits=False)
+                ra_done.append((ra, ids))
+                break
+        return ra_done, ra_inter
+
+    def _record_sched(self, batch) -> None:
+        self.step_idx += 1
+        self._fr.record(
+            "sched", step=self.step_idx, batch_kind=batch.kind,
+            rows=len(batch.seqs), bursts=batch.bursts,
+            chunk_tokens=sum(batch.chunk_sizes) if batch.chunk_sizes else 0,
+            running=self.scheduler.num_running(),
+            waiting=self.scheduler.num_waiting(),
+            kv_usage=round(self.kv.usage(), 4),
+        )
+
+    def _note_first_dispatch(self, batch) -> None:
+        """The admission wait (arrival -> first prefill dispatch) of rows
+        reaching the device for the first time, in the loop or run ahead."""
+        if batch.kind != "prefill":
+            return
+        now = time.monotonic()
+        for s in batch.seqs:
+            if s.first_dispatch_time is None:
+                s.first_dispatch_time = now
+                self.admission_wait_ms.append((now - s.arrival_time) * 1000)
 
     def _run_loop(self) -> None:
         logger.info("engine loop started (model=%s)", self.cfg.name)
@@ -498,30 +685,27 @@ class LLMEngine:
             for s in self.scheduler.expired_waiting():
                 if not s.shed_exempt:
                     self._shed(s, "queue_deadline")
+            # the adaptive chain depth's inputs (scheduler.schedule)
+            sched = self.scheduler
+            sched.arrival_rate = self._recent_arrival_rate()
+            sched.burst_seconds = self._burst_seconds
+            sched.last_arrival_age = (
+                time.monotonic() - self._arrival_times[-1] if self._arrival_times else float("inf")
+            )
             t0 = time.perf_counter()
             self.loop_seconds["wait"] += t0 - t_sec
-            batch = self.scheduler.schedule()
+            batch = sched.schedule()
             self.loop_seconds["schedule"] += time.perf_counter() - t0
             if batch is None:
                 continue
-            self.step_idx += 1
-            self._fr.record(
-                "sched", step=self.step_idx, batch_kind=batch.kind,
-                rows=len(batch.seqs),
-                chunk_tokens=sum(batch.chunk_sizes) if batch.chunk_sizes else 0,
-                running=self.scheduler.num_running(),
-                waiting=self.scheduler.num_waiting(),
-                kv_usage=round(self.kv.usage(), 4),
-            )
-            if batch.kind == "prefill":
-                now = time.monotonic()
-                for s in batch.seqs:
-                    if s.first_dispatch_time is None:
-                        s.first_dispatch_time = now
-                        self.admission_wait_ms.append((now - s.arrival_time) * 1000)
+            self._record_sched(batch)
+            self._note_first_dispatch(batch)
             t_step = time.perf_counter()
+            # apply and emit seconds a chain spends inline, kept out of the
+            # step section so the sections stay disjoint
+            self._inline_seconds = 0.0
             try:
-                tokens, lp_data = self._dispatch(batch)
+                tokens, lp_data, fetched = self._dispatch(batch)
             except Exception as step_err:
                 logger.exception("engine step failed; aborting batch")
                 self._fr.record(
@@ -545,15 +729,13 @@ class LLMEngine:
                         self.scheduler._finish(s, "error")
                         self._emit(s, "", error=True)
                 continue
-            step_wall = time.perf_counter() - t_step
+            step_wall = time.perf_counter() - t_step - self._inline_seconds
             self.loop_seconds["step"] += step_wall
             self._fr.record(
                 "step", step=self.step_idx, batch_kind=batch.kind,
-                wall_ms=round(step_wall * 1000, 3), fetched=tokens is not None,
+                wall_ms=round(step_wall * 1000, 3), bursts=batch.bursts, fetched=fetched,
             )
-            if tokens is None:
-                tokens = np.full((len(batch.seqs),), -1, np.int32)
-            else:
+            if fetched:
                 self._unfetched.clear()  # a fetch retires earlier dispatches
                 # a fetched prefill's wall is its chunk's device time (an
                 # unfetched one's is only its enqueue); a decode burst's per
@@ -564,7 +746,8 @@ class LLMEngine:
                     tracing.interleaved_decode_hist.observe(
                         step_wall / max(1, self.scheduler.decode_steps * batch.bursts)
                     )
-            self._apply_and_emit(batch, tokens, lp_data)
+            if tokens is not None:
+                self._apply_and_emit(batch, tokens, lp_data)
         logger.info("engine loop exited")
 
     def _apply_and_emit(self, batch, tokens, lp_data=None) -> None:
@@ -960,6 +1143,8 @@ class LLMEngine:
             "prompt_tokens_total": self.total_prompt_tokens,
             "generation_tokens_total": self.total_generation_tokens,
             "decode_dispatches_total": self.decode_dispatches_total,
+            "decode_chained_dispatches_total": self.decode_chained_dispatches_total,
+            "runahead_prefill_dispatches_total": self.runahead_prefill_dispatches_total,
             "kv_evicted_pages_total": self.kv.evicted_pages_total,
             "kv_evicted_hot_pages_total": self.kv.evicted_hot_pages_total,
             "kv_proactive_spilled_pages_total": self.kv.proactive_spilled_pages_total,
@@ -982,6 +1167,14 @@ class LLMEngine:
             out["kv_offload_max_io_pages"] = self.kv.max_io_pages
             if self.kv_link_bandwidth_bytes_per_s is not None:
                 out["kv_offload_link_bandwidth_bytes_per_sec"] = round(self.kv_link_bandwidth_bytes_per_s)
+        if self.cfg.speculative_k:
+            # accepted read before drafts: the loop adds drafts first, so a
+            # snapshot never shows more accepted than drafted
+            accepted = self.spec_accepted_tokens
+            drafts = self.spec_draft_tokens
+            out["spec_decode_num_draft_tokens_total"] = drafts
+            out["spec_decode_num_accepted_tokens_total"] = accepted
+            out["spec_decode_draft_acceptance_rate"] = accepted / drafts if drafts else 0.0
         for section, secs in self.loop_seconds.items():
             out[f"engine_loop_{section}_seconds_total"] = round(secs, 3)
         # p99 over the recent interactive ok-request windows, 0.0 while idle

@@ -13,6 +13,16 @@ same shapes as the JAX runner's.
   read-only through the burst; each step appends its K/V to a small
   [L, B, k, KH, D] window that the decode kernel reads beside the pool, and
   one scatter commits the whole burst at the end.
+- ``step_multi_pipelined``: a chain of bursts with no fetch between them:
+  burst j + 1's input ids are burst j's last tokens, still on the device,
+  and its positions and lengths the host's mirror of the burst's activity
+  rule. With ``fetch_group`` g the tokens come back a group of g bursts at
+  a time, each group's host copy started at its boundary (``HostTokens``).
+- ``step_spec``: ``steps`` rounds of speculative decode: an n-gram draft of
+  k tokens from the row's own history (``ngram_draft``), one verify forward
+  over 1 + k positions with all-position logits (the prefill kernel, whose
+  fused write puts the drafts' K/V in place), and exact acceptance of the
+  leading matches plus one bonus token.
 - With ``kv_cache_dtype="int8"`` (``kv_quant``) the pools are int8 with
   scales ``k_scales/v_scales`` [L, P, KH] (ops/quant.py): the burst window
   stays in the model dtype and the burst commit is the quantizing scatter;
@@ -150,6 +160,48 @@ def check_kernel_shapes(cfg) -> None:
         )
 
 
+def ngram_draft(buf: torch.Tensor, pos: torch.Tensor, n: int, k: int) -> torch.Tensor:
+    """Prompt-lookup draft: the k tokens that followed the most recent
+    earlier occurrence of each row's trailing n-gram ``buf[pos - n + 1 ..
+    pos]``, all windows compared at once on the device. A row with no match
+    repeats its current token (verify then almost surely rejects it, at no
+    extra cost: the verify forward's width is fixed).
+
+    buf: [B, H] int32 token history; pos: [B] the current token's position.
+    Returns [B, k] int32."""
+    B, H = buf.shape
+    dev = buf.device
+    tail_idx = (pos[:, None] + torch.arange(-n + 1, 1, device=dev)[None, :]).clamp(0, H - 1).long()
+    tail = buf.gather(1, tail_idx)                                     # [B, n]
+    match = (buf.unfold(1, n, 1) == tail[:, None, :]).all(dim=-1)       # [B, H - n + 1]
+    starts = torch.arange(match.shape[1], device=dev)[None, :]
+    # the match and the k tokens after it must lie in known history (which
+    # also keeps the trailing n-gram from matching itself)
+    ok = match & (starts + n + k - 1 <= pos[:, None])
+    best = torch.where(ok, starts, -1).max(dim=1).values               # [B], the latest match
+    d_idx = (best[:, None] + n + torch.arange(k, device=dev)[None, :]).clamp(0, H - 1)
+    draft = buf.gather(1, d_idx)
+    cur = buf.gather(1, pos.clamp(0, H - 1)[:, None].long())
+    return torch.where((best >= 0)[:, None], draft, cur)
+
+
+class HostTokens:
+    """One group of a chain's tokens on their way to the host: the copy
+    into pinned memory is queued on the current stream behind the group's
+    bursts, and an event recorded after it. ``numpy()`` waits for that event
+    alone, so earlier groups are read while later bursts still run."""
+
+    def __init__(self, tokens: torch.Tensor):
+        self.host = torch.empty(tokens.shape, dtype=tokens.dtype, pin_memory=True)
+        self.host.copy_(tokens, non_blocking=True)
+        self.event = torch.cuda.Event()
+        self.event.record()
+
+    def numpy(self) -> np.ndarray:
+        self.event.synchronize()
+        return self.host.numpy()
+
+
 class ModelRunner:
     """Holds the model and the KV pools on one device and runs its steps."""
 
@@ -184,6 +236,9 @@ class ModelRunner:
             raise ValueError("LoRA with data parallelism is not supported by the port yet")
         self.step_seconds = 0.0
         self.steps = 0
+        # the device history a burst with penalties left (this rank's rows),
+        # read by the next burst of a chain
+        self._last_hist = None
         self.sync_bytes = 0
         self.sync_pages = 0
         self.module = models.module_for_config(model.cfg)
@@ -227,13 +282,24 @@ class ModelRunner:
     # -- staging ------------------------------------------------------------
 
     def _t(self, x, dtype) -> torch.Tensor:
+        """``x`` on the runner's device as ``dtype``. A tensor already there
+        passes through (a chained burst's input ids stay on the device: a
+        trip through the host would be the sync that chaining removes)."""
+        if isinstance(x, torch.Tensor) and x.device.type == self.device.type and (
+            self.device.index is None or x.device.index == self.device.index
+        ):
+            return x if x.dtype == dtype else x.to(dtype)
         return torch.as_tensor(np.asarray(x), dtype=dtype).to(self.device, non_blocking=True)
 
-    def _stage(self, inp: StepInput) -> dict:
+    def _stage(self, inp: StepInput, hist=None) -> dict:
         """The step's inputs on the device: under dp only this rank's rows
-        of every row-leading input (every input here leads with B)."""
+        of every row-leading input (every input here leads with B). ``hist``,
+        already this rank's rows on the device, takes the place of
+        ``inp.history`` (a chained burst reads the history its previous
+        burst left on the device)."""
         inp = dataclasses.replace(inp, **{
             f.name: dpmod.row_slice(getattr(inp, f.name), self.dp) for f in dataclasses.fields(StepInput)
+            if not (f.name == "history" and hist is not None)
         })
         i32, f32 = torch.int32, torch.float32
         s = dict(
@@ -247,7 +313,7 @@ class ModelRunner:
         )
         if inp.history is not None and inp.presence is not None:
             s["pen"] = (
-                self._t(inp.history, i32), self._t(inp.prompt_lens, i32),
+                self._t(inp.history, i32) if hist is None else hist, self._t(inp.prompt_lens, i32),
                 self._t(inp.presence, f32), self._t(inp.frequency, f32),
                 self._t(inp.repetition, f32),
             )
@@ -260,12 +326,13 @@ class ModelRunner:
             s["kv_limits"] = self._t(inp.kv_limits, i32)
         return s
 
-    def _forward(self, s, input_ids, positions, kv_lens, kv_burst=None):
+    def _forward(self, s, input_ids, positions, kv_lens, kv_burst=None, all_logits=False):
         kw = {"kv_scales": (self.k_scales, self.v_scales)} if self.kv_quant else {}
         if self.lora is not None:
             kw.update(lora=self.lora, lora_ids=s["lora_ids"])
         return self.model(
-            input_ids, positions, self.k_pages, self.v_pages, s["page_table"], kv_lens, kv_burst=kv_burst, **kw
+            input_ids, positions, self.k_pages, self.v_pages, s["page_table"], kv_lens, kv_burst=kv_burst,
+            all_logits=all_logits, **kw
         )
 
     def _sample_from(self, logits, s, hist, lens):
@@ -346,15 +413,23 @@ class ModelRunner:
         A row continues while it was active and ``kv_lens < kv_limits``;
         once it stops its position goes to -1, so its later steps attend to
         nothing and write nothing, and the host discards its surplus
-        tokens."""
-        if k == 1:
+        tokens. With penalties the history the burst leaves (its tokens
+        recorded, this rank's rows, on the device) stays on ``_last_hist``
+        for a chained next burst."""
+        return self._burst(inp, k, want_logprobs)
+
+    def _burst(self, inp: StepInput, k: int, want_logprobs: bool, hist=None):
+        """``step_multi``, reading the penalties' history from ``hist`` (this
+        rank's rows, on the device) instead of ``inp.history`` when given."""
+        self._last_hist = None
+        if k == 1 and hist is None:
             if want_logprobs:
                 ids, _, (lp, tids, tlp) = self.step(inp, want_logprobs=True, want_logits=False)
                 return ids[:, None], (lp[:, None], tids[:, None], tlp[:, None])
             ids, _ = self.step(inp, want_logits=False)
             return ids[:, None]
         t0 = time.perf_counter()
-        s = self._stage(inp)
+        s = self._stage(inp, hist)
         # the positions the burst commits, one rule on the host for the
         # write here and for the replica sync (parallel/dp.burst_positions)
         commit = dpmod.burst_positions(inp.positions, inp.kv_lens, inp.kv_limits, k)
@@ -411,11 +486,154 @@ class ModelRunner:
                 self.k_pages, self.v_pages, k_acc, v_acc, s["page_table"], commit_pos
             )
         self._sync_replicas(inp, commit)
+        self._last_hist = hist
         tokens = dpmod.gather_rows(torch.stack(toks, dim=1), self.dp)
         if want_logprobs:
             lps = tuple(dpmod.gather_rows(torch.stack(x, dim=1), self.dp) for x in zip(*lps))
         self._timed(t0)
         return (tokens, lps) if want_logprobs else tokens
+
+    @torch.no_grad()
+    def step_multi_pipelined(self, inp: StepInput, k: int, bursts: int, want_logprobs: bool = False,
+                             fetch_group: int = 0) -> list:
+        """``bursts`` chained k-step bursts with no fetch between them.
+        Returns each burst's result as ``step_multi`` gives it (device
+        tensors) or, with ``fetch_group`` g > 0 and no logprobs, one
+        ``HostTokens`` per group of g bursts ([B, <= g * k] tokens; a plain
+        tensor on the CPU): at each group boundary the group's tokens are
+        joined on the device and their copy to pinned host memory is queued
+        behind its bursts, so the caller can apply group j while the later
+        groups still run.
+
+        Burst j + 1's input ids are burst j's last tokens on the device. Its
+        positions and lengths come from the host's mirror of step_multi's
+        rule (a row goes on while active and kv_lens < kv_limits; a row that
+        stops gets position -1, so the later bursts' steps attend to nothing
+        and write nothing). With penalties, burst j + 1 reads the history
+        burst j left on the device (``_last_hist``): the host's copy is stale
+        past the seam. ``inp.kv_limits`` must cover the whole chain (the
+        scheduler sizes them so)."""
+        grouped = fetch_group > 0 and not want_logprobs
+        if bursts <= 1:
+            res = self._burst(inp, k, want_logprobs)
+            return [self._to_host(res) if grouped else res]
+        pos = np.asarray(inp.positions, np.int64)[:, 0].copy()
+        lens = np.asarray(inp.kv_lens, np.int64).copy()
+        limits = np.asarray(inp.kv_limits, np.int64)
+        outs, group = [], []
+        cur, hist = inp, None
+        for j in range(bursts):
+            res = self._burst(cur, k, want_logprobs, hist)
+            toks = res[0] if want_logprobs else res
+            if grouped:
+                group.append(res)
+                if len(group) == fetch_group or j == bursts - 1:
+                    outs.append(self._to_host(torch.cat(group, dim=1)))
+                    group = []
+            else:
+                outs.append(res)
+            if j == bursts - 1:
+                break
+            for _ in range(k):  # the burst's own rule, step by step
+                active = (pos >= 0) & (lens < limits)
+                pos = np.where(active, pos + 1, -1)
+                lens = lens + active
+            hist = self._last_hist if inp.history is not None else None
+            cur = dataclasses.replace(
+                inp, input_ids=toks[:, -1:], positions=pos[:, None].astype(np.int32),
+                kv_lens=lens.astype(np.int32),
+            )
+        return outs
+
+    @staticmethod
+    def _to_host(tokens: torch.Tensor):
+        """A group's tokens on their way to the host: on the card a
+        ``HostTokens`` (copy queued now, waited for on ``numpy()``); on the
+        CPU the tensor itself."""
+        return HostTokens(tokens) if tokens.is_cuda else tokens
+
+    @torch.no_grad()
+    def step_spec(self, inp: StepInput, history, steps: int, spec_k: int, ngram: int) -> torch.Tensor:
+        """``steps`` rounds of speculative decode, each a draft, one verify
+        forward and exact acceptance, with no host sync between rounds.
+
+        The draft is prompt lookup (``ngram_draft``): the k tokens that
+        followed the most recent earlier match of the row's trailing
+        ``ngram`` tokens in its history. The verify forward scores the
+        current token and the k drafts at once (T = 1 + k; all-position
+        logits), and a token is sampled at every position (each row's
+        sampling parameters repeated T times, from the runner's generator).
+        The draft is deterministic, so accepting the leading drafts the
+        samples agree with, then the first sample that disagrees (or the
+        sample after the last draft: the bonus token), is exact rejection
+        sampling: the output has the target's distribution.
+
+        inp: a decode step ([B, 1] inputs) with ``kv_limits``: a row stays
+        active while kv_lens + spec_k <= kv_limits (each round writes k
+        drafts past its length). history: [B, H] int32, the row's prompt
+        and output ids by position, 0-padded; it stays on the device and
+        takes each round's emitted tokens. Returns [B, steps, 1 + spec_k]
+        int32 tokens, -1 where nothing was emitted.
+
+        The pools are written in place by the verify forward's prefill
+        launches (its fused write): an inactive row has positions -1 and
+        writes nothing, and ``kv_limits`` keeps every draft inside the row's
+        own pages. Slots past the last accepted token hold the rejected
+        drafts' K/V; attention never reads them (kv_lens masks them) and the
+        next dispatch writes over them. Under dp every rank draws the whole
+        batch's B x T noise and takes its rows', and the pages each group
+        wrote are copied into the other replicas after the last round."""
+        if self.kv_quant:
+            raise ValueError(
+                "speculative decoding is not supported with "
+                "kv_cache_dtype=int8 (the spec scan carries raw pool blocks)"
+            )
+        if inp.kv_limits is None:
+            raise ValueError("step_spec needs kv_limits (a row runs while kv_lens + spec_k <= kv_limits)")
+        t0 = time.perf_counter()
+        s = self._stage(inp)
+        k, T = spec_k, 1 + spec_k
+        h0 = self._t(dpmod.row_slice(history, self.dp), torch.int32)
+        B, H = h0.shape
+        dev = self.device
+        # one sentinel column past the end takes the writes that drop
+        buf = torch.cat([h0, torch.zeros((B, 1), dtype=torch.int32, device=dev)], dim=1)
+        known = buf[:, :H]
+        pos, lens, limits = s["positions"][:, 0], s["kv_lens"], s["kv_limits"]
+        j = torch.arange(T, dtype=torch.int32, device=dev)[None, :]
+        rows = torch.arange(B, device=dev)[:, None]
+        per_pos = {name: s[name].repeat_interleave(T) for name in ("temperature", "top_k", "top_p")}
+        toks = []
+        for _ in range(steps):
+            active = (pos >= 0) & (lens + k <= limits)
+            p0 = pos.clamp(min=0)
+            cur = known.gather(1, p0.clamp(max=H - 1)[:, None].long())
+            draft = ngram_draft(known, p0, ngram, k)
+            pos_in = torch.where(active[:, None], p0[:, None] + j, -1).to(torch.int32)
+            lens_in = torch.where(active, lens + k, 0).to(torch.int32)
+            logits = self._forward(s, torch.cat([cur, draft], dim=1), pos_in, lens_in, all_logits=True)
+            flat = logits.reshape(B * T, -1)
+            t = self._draw(flat, flat, per_pos, False).reshape(B, T)
+            # the leading run of drafts the samples agree with, then the
+            # first sample that disagrees (after k matches: the bonus)
+            m = (t[:, :k] == draft).to(torch.int32).cumprod(dim=1).sum(dim=1)
+            bonus = t.gather(1, m[:, None].long())
+            upd = torch.where(j == m[:, None], bonus, torch.cat([draft, cur], dim=1))
+            emit = active[:, None] & (j <= m[:, None])
+            slots = p0[:, None] + 1 + j
+            buf[rows, torch.where(emit & (slots < H), slots, H).long()] = upd
+            toks.append(torch.where(emit, upd, -1))
+            emitted = ((m + 1) * active).to(torch.int32)
+            pos = torch.where(active, pos + emitted, -1)
+            lens = lens + emitted
+        out = dpmod.gather_rows(torch.stack(toks, dim=1), self.dp)
+        if self.dp is not None:
+            # the replicas: every group's written positions need the final
+            # lengths of all rows (a [B] fetch)
+            lens_f = dpmod.gather_rows(lens, self.dp).cpu().numpy()
+            self._sync_replicas(inp, dpmod.spec_positions(inp.positions, inp.kv_lens, inp.kv_limits, lens_f, k))
+        self._timed(t0)
+        return out
 
     # -- page access (offload / transfer surfaces) --------------------------
 

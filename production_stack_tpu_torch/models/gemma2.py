@@ -244,9 +244,8 @@ class Gemma2ForCausalLM(nn.Module):
         """One forward step (prefill chunk or decode) with paged KV; the
         arguments, the in-place pool updates and the result are those of
         ``LlamaForCausalLM.forward``. Returns the float32 logits [B, V] of
-        each row's last valid token, soft-capped."""
-        if all_logits:
-            raise NotImplementedError("all-position logits are not ported")
+        each row's last valid token (with ``all_logits`` [B, T, V] of every
+        position), soft-capped."""
         cfg = self.cfg
         B, T = input_ids.shape
         step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales,
@@ -264,9 +263,10 @@ class Gemma2ForCausalLM(nn.Module):
             x = layer.mlp(x, cfg)
         step.finish()
         x = rms_norm_1p(x, self.final_norm, eps)
-        last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
-        x_last = x[torch.arange(B, device=x.device), last]
-        logits = gather_vocab((x_last @ self.embed.t()).float(), self.tp)
+        if not all_logits:
+            last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
+            x = x[torch.arange(B, device=x.device), last]
+        logits = gather_vocab((x @ self.embed.t()).float(), self.tp)
         cap = cfg.final_logit_softcap
         if cap is not None:
             logits = cap * torch.tanh(logits / cap)

@@ -460,10 +460,10 @@ class LlamaForCausalLM(nn.Module):
         With ``lora`` (``init_lora_buffers``) and ``lora_ids`` [B] int32,
         row b adds the deltas of adapter slot ``lora_ids[b]`` (0 = none).
 
-        Returns the float32 logits [B, V] of each row's last valid token.
+        Returns the float32 logits [B, V] of each row's last valid token, or
+        with ``all_logits`` [B, T, V] of every position (speculative verify:
+        T is 1 + the draft length).
         """
-        if all_logits:
-            raise NotImplementedError("all-position logits are not ported")
         cfg = self.cfg
         B, T = input_ids.shape
         step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales,
@@ -481,6 +481,8 @@ class LlamaForCausalLM(nn.Module):
         step.finish()
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         head = self.embed.t() if cfg.tie_word_embeddings else self.lm_head
+        if all_logits:
+            return gather_vocab((x @ head).float(), self.tp)
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
         x_last = x[torch.arange(B, device=x.device), last]
         return gather_vocab((x_last @ head).float(), self.tp)

@@ -242,9 +242,7 @@ class OPTForCausalLM(nn.Module):
         arguments, the in-place pool updates and the result are those of
         ``LlamaForCausalLM.forward``, without ``kv_scales`` (no int8
         pools). Returns the float32 logits [B, V] of each row's last valid
-        token."""
-        if all_logits:
-            raise NotImplementedError("all-position logits are not ported")
+        token (with ``all_logits`` [B, T, V] of every position)."""
         cfg = self.cfg
         B, T = input_ids.shape
         step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst,
@@ -260,9 +258,10 @@ class OPTForCausalLM(nn.Module):
             x = layer.mlp(x, cfg)
         step.finish()
         x = layer_norm(x, self.final_norm_w, self.final_norm_b, eps)
-        last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
-        x_last = x[torch.arange(B, device=x.device), last]
-        return gather_vocab((x_last @ self.embed.t()).float(), self.tp)
+        if not all_logits:
+            last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
+            x = x[torch.arange(B, device=x.device), last]
+        return gather_vocab((x @ self.embed.t()).float(), self.tp)
 
 
 CAUSAL_LM = OPTForCausalLM

@@ -16,7 +16,8 @@ shardings.py (``P("dp", ...)`` on every row-leading step input) and of
   slots were equal in every replica already, and an int8 page's zeroed tail
   travels with it). Every rank lists what every group wrote from the step's
   whole inputs (``written_pages``, ``burst_positions``), which the step
-  stream gives every rank.
+  stream gives every rank; after a speculative dispatch also from the rows'
+  final lengths (``spec_positions``), which every rank gathers.
 
 With ``group`` None (dp = 1) every function here is the identity.
 """
@@ -80,6 +81,22 @@ def burst_positions(positions, kv_lens, kv_limits, k: int) -> np.ndarray:
     count = np.where(p0 >= 0, np.minimum(k, np.maximum(1, limits - lens + 1)), 0)
     j = np.arange(k)[None, :]
     return np.where(j < count[:, None], p0[:, None] + j, -1)
+
+
+def spec_positions(positions, kv_lens, kv_limits, lens_final, k: int) -> np.ndarray:
+    """The positions [B, W] a speculative dispatch (runner.step_spec) may
+    have written, -1 for none: a row that emitted (``lens_final`` past its
+    ``kv_lens``) wrote from its current token's position kv_lens - 1 up to
+    at most its last round's kv_len - 1 + k, which lies under both
+    lens_final - 1 + k and its ``kv_limits`` (a round runs only while kv_len +
+    k <= kv_limits, inside the row's own pages). A page in that range that
+    the rounds did not reach is the row's own too, so syncing it is exact."""
+    lo = np.asarray(kv_lens, np.int64) - 1
+    hi = np.minimum(np.asarray(lens_final, np.int64) - 1 + k, np.asarray(kv_limits, np.int64) - 1)
+    wrote = (np.asarray(positions)[:, 0] >= 0) & (np.asarray(lens_final) > np.asarray(kv_lens))
+    width = int(max(1, (hi - lo + 1)[wrote].max(initial=1)))
+    p = lo[:, None] + np.arange(width)[None, :]
+    return np.where(wrote[:, None] & (p <= hi[:, None]), p, -1)
 
 
 def group_pages(page_table, positions, page_size: int, dp: int) -> list[np.ndarray]:

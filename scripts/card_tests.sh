@@ -6,7 +6,10 @@
 # through the kernels (tests/test_torch_cuda_moe_lora.py); both kernels at the
 # per-rank head shapes of tensor-parallel serving (tests/test_torch_cuda_tp.py);
 # both kernels at the dp ranks' row shapes and a dp 2 engine's replicas
-# (tests/test_torch_cuda_dp.py).
+# (tests/test_torch_cuda_dp.py); the prefill kernel at step_spec's verify
+# shape, step_spec and step_multi_pipelined through the kernels, and a
+# chain's fetch groups arriving through their events
+# (tests/test_torch_cuda_spec.py).
 # No file imports
 # jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
 # which that machine may lack, so pytest skips conftest files.
@@ -16,4 +19,5 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py tests/test_torch_cuda_surface.py \
     tests/test_torch_cuda_moe_lora.py tests/test_torch_cuda_tp.py tests/test_torch_cuda_dp.py \
+    tests/test_torch_cuda_spec.py \
     -q -p no:cacheprovider "$@"

@@ -85,6 +85,7 @@ def main() -> int:
     buf = (ctypes.c_ulonglong * (2 * (N + 1)))()
     for quant in (False, True):
         case = dict(dict(c.PREFILL_CASES)[args.case], dtype=torch.bfloat16, quant=quant)
+        case.pop("row", None)
         inputs, kw = c.prefill_case(case.pop("seed", 2), **case)
         q, kp, vp, pt, pos, lens, kc, vc, cl = inputs
         window, softcap = kw["window"] or (1 << 30), kw["logit_softcap"] or 0.0

@@ -37,7 +37,7 @@ from production_stack_tpu_torch.kvoffload.serde import get_serde
 from production_stack_tpu_torch.models import llama as tllama
 from production_stack_tpu_torch.parallel import dp as dpmod
 from production_stack_tpu_torch.parallel.group import device_labels, parse_device_ids
-from test_torch_tp import F32, MODEL, PORT_TP, SMALL
+from test_torch_tp import F32, MODEL, PORT_TP, SMALL, spec_then_chain
 
 MESHES = [(2, 1), (2, 2)]  # (dp, tp)
 
@@ -366,6 +366,42 @@ def test_penalties_bias_logprobs_and_sleep_at_dp2_match_dp1():
     assert 11 not in out[2][1][0] and len(out[1][0][1]) == 8
     assert [ids for ids, _ in again] == [ids for ids, _ in out[2]]
     assert bytes(digests[0]) == bytes(digests[1])
+
+
+def test_spec_and_chained_decode_at_dp2_match_dp1():
+    """step_spec and a chain at dp 2 on the f32 twin, two greedy rows and two
+    sampled ones (one of each per dp group: every rank draws the whole
+    batch's B x T verify noise and takes its rows'): dp 1's tokens, and
+    after the spec both dp replicas hold the same pools (each group's
+    written pages synced from the final lengths)."""
+    out = {}
+    for dp in (1, 2):
+        engine = LLMEngine(EngineConfig(model=MODEL, data_parallel_size=dp, **PORT_TP, **SMALL), device="cpu")
+        try:
+            out[dp] = spec_then_chain(engine, [0.0, 1.0, 0.0, 1.0])
+        finally:
+            engine.stop()
+    np.testing.assert_array_equal(out[2][0], out[1][0])
+    np.testing.assert_array_equal(out[2][1], out[1][1])
+    assert (out[1][0] >= 0).sum() > 4 * 3
+    digests = out[2][2]
+    assert digests.shape == (2, 32) and bytes(digests[0]) == bytes(digests[1])
+
+
+def test_spec_positions_cover_what_step_spec_writes():
+    """dp.spec_positions lists, per row that emitted, kv_lens - 1 up to
+    min(final lens - 1 + k, kv_limits - 1), which covers every position a
+    round wrote; a pad row and a row that ran no round list nothing."""
+    B, T, k = 3, 9, 3
+    pos = np.array([[T], [T], [-1]], np.int32)
+    lens0 = np.array([T + 1, T + 1, 0], np.int32)
+    limits = np.array([40, T + 1 + k, 0], np.int32)
+    got = dpmod.spec_positions(pos, lens0, limits, np.array([T + 9, T + 2, 0]), k)
+    assert got[0][got[0] >= 0].tolist() == list(range(T, T + 9 + k))
+    assert got[1][got[1] >= 0].tolist() == list(range(T, T + 1 + k))  # capped by its limit
+    assert (got[2] == -1).all()
+    # a row that could not run a round (lens + k > limits) emitted nothing
+    assert (dpmod.spec_positions(pos[:1], lens0[:1], np.array([T + 2]), lens0[:1], k) == -1).all()
 
 
 def test_sampled_rows_at_dp2_draw_dp1s_noise():

@@ -121,31 +121,48 @@ _REFUSED = [
     # tensor and in-engine data parallelism are served; what they lack,
     # LoRA across the ranks, is refused (MoE with tp or dp and KH % tp != 0
     # are refused by the engine, which reads the model: tests/test_torch_tp.py,
-    # tests/test_torch_dp.py)
+    # tests/test_torch_dp.py). Speculative decoding is served; with int8
+    # pools it is refused in the JAX engine's words
     ("tensor_parallel_size", 2, {"enable_lora": True}),
     ("data_parallel_size", 2, {"enable_lora": True}),
     ("sequence_parallel_size", 2, {}),
     ("pipeline_parallel_size", 2, {}),
     ("expert_parallel_size", 2, {}),
-    ("speculative_k", 4, {}),
+    ("speculative_k", 4, {"kv_cache_dtype": "int8"}),
     ("kv_role", "producer", {}),
     ("kv_fabric", True, {}),
     ("kv_write_mode", "pre", {}),
-    ("decode_pipeline", 4, {}),
     ("kv_remote_url", "127.0.0.1:9100", {}),
     ("kv_controller_url", "http://127.0.0.1:9000", {}),
     ("kv_directory_url", "http://127.0.0.1:9200", {}),
     ("warm_start", True, {}),
 ]
+# the refusals in the JAX engine's words rather than the port's
+_JAX_WORDS = {"speculative_k": "--kv-cache-dtype int8 is not compatible with --speculative-k"}
 
 
 @pytest.mark.parametrize("field,value,also", _REFUSED, ids=[f"{f}-{v}" for f, v, _ in _REFUSED])
 def test_unported_features_are_refused(field, value, also):
     assert (field in port_config._UNSUPPORTED) != bool(also)
-    with pytest.raises(ValueError, match="not supported by the PyTorch port"):
+    with pytest.raises(ValueError, match=_JAX_WORDS.get(field, "not supported by the PyTorch port")):
         check_supported(EngineConfig(**{field: value}, **also))
     if also:  # the field alone is served
         check_supported(EngineConfig(**{field: value}))
+
+
+def test_chained_and_speculative_decode_flags_are_served():
+    """--decode-pipeline, --speculative-k and --speculative-ngram parse into
+    the config and pass check_supported (the engine reads all three)."""
+    import argparse
+
+    p = argparse.ArgumentParser()
+    port_config.add_engine_args(p)
+    args = p.parse_args(["--decode-pipeline", "4", "--speculative-k", "3", "--speculative-ngram", "2"])
+    cfg = port_config.config_from_args(args)
+    assert (cfg.decode_pipeline, cfg.speculative_k, cfg.speculative_ngram) == (4, 3, 2)
+    check_supported(cfg)
+    check_supported(EngineConfig(decode_pipeline=4, kv_cache_dtype="int8"))
+    assert not {"decode_pipeline", "speculative_k", "speculative_ngram"} & set(port_config._UNSUPPORTED)
 
 
 def test_defaults_are_supported():
@@ -206,10 +223,15 @@ def test_unported_model_features_raise():
     from production_stack_tpu_torch.engine.model_loader import load_model
     from production_stack_tpu_torch.models import llama
 
-    model = llama.LlamaForCausalLM(llama.PRESETS["mixtral-debug"], device="cpu")  # MoE is served
-    with pytest.raises(NotImplementedError, match="all-position logits"):
-        ids = torch.zeros((1, 4), dtype=torch.int32)
-        model(ids, ids, None, None, None, None, all_logits=True)
+    # MoE is served, and all-position logits (speculative verify): the last
+    # position's row is the last-token forward's logits
+    _, cfg, model = load_model("mixtral-debug", device="cpu")
+    ids = torch.arange(1, 5, dtype=torch.int32)[None]
+    pos = torch.arange(4, dtype=torch.int32)[None]
+    pt, lens = torch.zeros((1, 1), dtype=torch.int32), torch.tensor([4], dtype=torch.int32)
+    out = [model(ids, pos, *llama.init_kv_pages(cfg, 2, 8, "cpu"), pt, lens, all_logits=a) for a in (True, False)]
+    assert out[0].shape == (1, 4, cfg.vocab_size) and torch.isfinite(out[0]).all()
+    torch.testing.assert_close(out[0][:, -1], out[1], rtol=0, atol=1e-6)
     with pytest.raises(NotImplementedError, match="kv_write_mode"):
         llama.LlamaForCausalLM(dataclasses.replace(llama.PRESETS["llama-debug"], kv_write_mode="pre"), device="cpu")
     with pytest.raises(ValueError, match="not a preset"):

@@ -8,12 +8,17 @@ streamed request, held in both directions against the dashboards and docs.
    the allowlist names is emitted by the port, unless it belongs to a
    feature the port refuses (listed below by name, beside the
    ``engine/config._UNSUPPORTED`` switch that refuses it, or the part of the
-   JAX package with no switch in the port) or to another process than the
-   engine (the fleet controller, the KV directory service).
+   JAX package with no switch in the port), to a setting both servers emit
+   it at only (speculative decoding's series), or to another process than
+   the engine (the fleet controller, the KV directory service).
+3. A port server at decode_pipeline 4 and one at speculative_k 2 give the
+   chained and speculative series and /stats keys a JAX server gives at the
+   same settings.
 """
 
 import asyncio
 import os
+import re
 import sys
 import threading
 
@@ -23,6 +28,8 @@ import pytest
 sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)), os.pardir, "scripts"))
 import check_metrics_coverage as cmc  # noqa: E402
 
+from production_stack_tpu.engine import api_server as jax_server  # noqa: E402
+from production_stack_tpu.engine.config import EngineConfig as JaxEngineConfig  # noqa: E402
 from production_stack_tpu.testing.procs import free_port  # noqa: E402
 from production_stack_tpu_torch.engine import api_server as port_server  # noqa: E402
 from production_stack_tpu_torch.engine.config import _UNSUPPORTED, EngineConfig  # noqa: E402
@@ -55,9 +62,9 @@ REFUSED = {
     **{f"vllm:{n}": "kv_fabric" for n in _FABRIC},
     **{f"vllm:{n}": "kv_role" for n in _TRANSFER},
     **{f"vllm:{n}": "warm_start" for n in _WARM},
-    **{f"vllm:{n}": "decode_pipeline" for n in _CHAINED},
-    **{f"vllm:{n}": "speculative_k" for n in _SPEC},
 }
+# series both servers emit only at a setting other than the default
+SETTING_ONLY = {f"vllm:{n}": "speculative_k" for n in _SPEC}
 # series of JAX features the port has no switch for: not ported, and nothing
 # to refuse (the JAX engine serves migration by default; traces are a debug
 # route)
@@ -128,11 +135,64 @@ def test_every_charted_jax_series_of_a_served_feature_is_emitted_by_the_port(por
     jax_series = {n for n in cmc.emitted_metrics() if n.startswith("vllm:")}
     charted = set(cmc.METRIC_RE.findall(dashboards)) | cmc.DASHBOARD_ALLOWLIST
     missing = (jax_series & charted) - port_series
-    assert missing == set(REFUSED) | set(NOT_PORTED) | set(OTHER_PROCESS)
-    assert not port_series & (set(REFUSED) | set(NOT_PORTED) | set(OTHER_PROCESS))
+    assert missing == set(REFUSED) | set(NOT_PORTED) | set(OTHER_PROCESS) | set(SETTING_ONLY)
+    assert not port_series & (set(REFUSED) | set(NOT_PORTED) | set(OTHER_PROCESS) | set(SETTING_ONLY))
     assert set(REFUSED.values()) <= set(_UNSUPPORTED)
+    assert not set(SETTING_ONLY.values()) & set(_UNSUPPORTED)
+    assert {f"vllm:{n}" for n in _CHAINED} <= port_series
     for name in ("vllm:tpu_hbm_bytes_in_use", "vllm:hbm_headroom_bytes", "vllm:kv_pool_device_bytes",
                  "vllm:compile_seconds_total", "vllm:request_queue_time_seconds", "vllm:prefill_chunk_seconds",
                  "vllm:interleaved_decode_step_seconds", "vllm:engine_saturated_batch",
                  "vllm:interactive_ttft_p99_ms", "vllm:tensor_parallel_degree", "vllm:kv_pool_shard_bytes"):
         assert name in port_series
+
+
+# the JAX engine's /stats keys of chained and speculative decode
+# (production_stack_tpu/engine/engine.py stats())
+CHAIN_STATS = ("decode_chained_dispatches_total", "runahead_prefill_dispatches_total",
+               "engine_loop_chain_dispatch_seconds_total", "engine_loop_chain_fetch_seconds_total")
+SPEC_STATS = ("spec_decode_num_draft_tokens_total", "spec_decode_num_accepted_tokens_total",
+              "spec_decode_draft_acceptance_rate")
+_NEW = re.compile(r"^vllm:(spec_decode_|decode_chained|runahead_|engine_loop_chain_)")
+
+
+@pytest.mark.parametrize("setting,keys", [({"decode_pipeline": 4}, CHAIN_STATS),
+                                          ({"speculative_k": 2}, CHAIN_STATS + SPEC_STATS)],
+                         ids=["decode_pipeline", "speculative_k"])
+def test_chained_and_spec_servers_expose_the_jax_servers_series_and_stats(setting, keys):
+    """After one greedy request, a port server and a JAX server at the same
+    setting: the same chained and speculative ``vllm:`` series, and /stats
+    with the JAX engine's keys of both features."""
+    small = dict(model="llama-debug", host="127.0.0.1", num_pages=32, page_size=8, max_model_len=128,
+                 prefill_chunk=32, decode_steps=2, **setting)
+
+    async def scrape(server_mod, cfg, engine=None):
+        srv, run = await (server_mod.serve(cfg, engine, device="cpu") if engine else server_mod.serve(cfg))
+        try:
+            base = f"http://127.0.0.1:{cfg.port}"
+            async with aiohttp.ClientSession() as s:
+                body = {"prompt": "ab ab ab ab", "max_tokens": 12, "temperature": 0.0, "ignore_eos": True}
+                async with s.post(base + "/v1/completions", json=body) as r:
+                    assert r.status == 200
+                async with s.get(base + "/metrics") as r:
+                    text = await r.text()
+                async with s.get(base + "/stats") as r:
+                    stats = await r.json()
+        finally:
+            await run.cleanup()
+            srv.engine.stop()
+        names = {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+        return {n for n in names if _NEW.match(n)}, stats
+
+    async def both():
+        pcfg = EngineConfig(**small, port=free_port())
+        port = await scrape(port_server, pcfg, LLMEngine(pcfg, device="cpu"))
+        jax = await scrape(jax_server, JaxEngineConfig(**small, port=free_port()))
+        return port, jax
+
+    (pnames, pstats), (jnames, jstats) = asyncio.run(both())
+    assert pnames == jnames and {f"vllm:{k}" for k in keys} <= pnames
+    assert {k for k in keys if k in pstats} == {k for k in keys if k in jstats} == set(keys)
+    if "speculative_k" in setting:
+        assert pstats["spec_decode_num_draft_tokens_total"] > 0
+        assert 0.0 <= pstats["spec_decode_draft_acceptance_rate"] <= 1.0

@@ -373,6 +373,58 @@ def test_rank_stats_and_gathered_params_read_every_rank(llama_runs):
         assert torch.equal(t, llama_runs["whole"][name]), name
 
 
+def spec_then_chain(engine, temperature):
+    """Runner calls through ``engine`` (every rank): a 4-row prefill chunk,
+    step_spec (3 rounds, k 3, n 2) from the sampled first tokens, run twice
+    from the same state: the second time each row's history holds an
+    earlier copy of its trailing bigram followed by the first run's next 3
+    tokens, so a greedy row's first round accepts all 3 drafts. Then a chain
+    of 3 bursts of 2 from where each row's spec ended. Returns (the second
+    spec's tokens [4, 3, 4], the chain's tokens [4, 6], every rank's pool
+    digest after the spec)."""
+    r = engine.runner
+    B, T, maxp = 4, 16, 8
+    base = np.random.RandomState(8).randint(1, 512, 5)
+    prompts = np.stack([np.tile(np.roll(base, i), 4)[:T] for i in range(B)]).astype(np.int32)
+    common = dict(page_table=(1 + np.arange(B * maxp, dtype=np.int32)).reshape(B, maxp),
+                  temperature=np.asarray(temperature, np.float32), top_k=np.zeros(B, np.int32),
+                  top_p=np.ones(B, np.float32))
+    first = r.step(StepInput(input_ids=prompts, positions=np.tile(np.arange(T, dtype=np.int32), (B, 1)),
+                             kv_lens=np.full(B, T, np.int32), **common), want_logits=False)[0].numpy()
+    hist = np.zeros((B, 64), np.int32)
+    hist[:, :T], hist[:, T] = prompts, first
+    inp = StepInput(input_ids=first[:, None].astype(np.int32), positions=np.full((B, 1), T, np.int32),
+                    kv_lens=np.full(B, T + 1, np.int32), kv_limits=np.full(B, maxp * 8, np.int32), **common)
+    probe = r.step_spec(inp, hist, steps=3, spec_k=3, ngram=2).numpy()
+    hist[:, 2], hist[:, 3] = prompts[:, T - 1], first
+    hist[:, 4:7] = np.array([row[row >= 0][:3] for row in probe.reshape(B, -1)])
+    spec = r.step_spec(inp, hist, steps=3, spec_k=3, ngram=2).numpy()
+    digests = r.replica_digest()
+    lens = T + 1 + (spec >= 0).sum(axis=(1, 2))
+    last = np.array([row[row >= 0][-1] for row in spec.reshape(B, -1)], np.int32)
+    chain = r.step_multi_pipelined(StepInput(input_ids=last[:, None], positions=(lens - 1)[:, None].astype(np.int32),
+                                             kv_lens=lens.astype(np.int32), kv_limits=(lens + 5).astype(np.int32),
+                                             **common), 2, 3, fetch_group=4)
+    return spec, np.concatenate([c.numpy() for c in chain], axis=1), digests
+
+
+def test_spec_and_chained_decode_at_tp2_match_tp1():
+    """The f32 twin's greedy step_spec and chained tokens at tp 2 (every
+    rank runs the calls; the drafts agree because the ids are rank 0's) are
+    tp 1's, and some drafts were accepted."""
+    out = {}
+    for tp in (1, 2):
+        engine = LLMEngine(EngineConfig(model=MODEL, tensor_parallel_size=tp, **PORT_TP, **SMALL), device="cpu")
+        try:
+            out[tp] = spec_then_chain(engine, [0.0] * 4)
+        finally:
+            engine.stop()
+    np.testing.assert_array_equal(out[2][0], out[1][0])
+    np.testing.assert_array_equal(out[2][1], out[1][1])
+    assert (out[1][0] >= 0).sum() > 4 * 3  # more than one token per round somewhere
+    assert out[2][2].shape == (2, 32)
+
+
 @pytest.mark.parametrize("family,model,tp", [
     ("opt", "opt-debug-f32", 1), ("opt", "opt-debug-f32", 2), ("opt", "opt-debug-f32", 4),
     ("gemma2", "gemma2-debug-f32", 1), ("gemma2", "gemma2-debug-f32", 2),
