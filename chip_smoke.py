@@ -160,6 +160,31 @@ non-zero exit (nothing is caught):
                L prefill launches per prefill step and per round). Each
                prints output tok/s, ITL from /slo_records, the chain
                seconds and the card.
+5e. stack  -- after the spec runs: the engine inside the stack's services.
+               The port's cache server and KV-index controller start as
+               subprocesses (``python -m production_stack_tpu_torch.
+               kvoffload.{cache_server,controller}``); llama-3.2-1b (bf16,
+               40 pages, the cache server as its only offload tier, warm
+               start on, the debug routes on) serves a greedy request,
+               then three longer ones over HTTP, one under a traceparent
+               this phase made: ``/v1/traces`` holds engine.queue,
+               engine.prefill and engine.decode spans whose parent chain
+               reaches that span, ``/v1/debug/flightrecorder`` "sched"
+               events carry its trace id, the controller's ``lookup_url``
+               (what the router's kvaware routing calls) names this
+               engine, and ``/metrics/reset`` empties the hop windows. The
+               server drains (spilling the warm manifest) and stops; a
+               fresh engine over the same namespace restores it before it
+               serves, and its first request, the first prompt again, is
+               a prefix hit with the first incarnation's greedy token ids;
+               both kernels launched in each incarnation. Then an int8
+               server with the cache server as its only tier (int8 blobs
+               over TCP, restored through the kernels). The "stack" line
+               gives the warm restore's pages and seconds, the first
+               request's TTFT after the restart beside the cold engine's,
+               each engine's second request (the same prompt, a prefix
+               hit in both) and the remote tier's bytes and seconds, with
+               the card.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -1878,7 +1903,7 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
         sk.bind(("127.0.0.1", 0))
         port = sk.getsockname()[1]
     quant = overrides.get("kv_cache_dtype") == "int8"
-    offload = "kv_offload_cpu_gb" in overrides
+    offload = "kv_offload_cpu_gb" in overrides or "kv_remote_url" in overrides
     gemma = label.startswith("gemma")
     cfg = EngineConfig(host="127.0.0.1", port=port, enable_sleep_mode=sleep_level > 0, **overrides)
     tp, dp = cfg.tensor_parallel_size, cfg.data_parallel_size
@@ -1997,10 +2022,10 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     check(res["repeat_cached_tokens"] >= 512, f"{what}: the repeat reused {res['repeat_cached_tokens']} tokens")
     if offload:
         e = res["engine"]
-        check(e["kv_offload_saved_pages_total"] > 0, f"{what}: no page was saved to the CPU tier")
+        check(e["kv_offload_saved_pages_total"] > 0, f"{what}: no page was saved to the offload tier")
         check(e["kv_offload_loaded_pages_total"] > 0 and e["kv_offload_hit_pages_total"] > 0,
-              f"{what}: no page was restored from the CPU tier")
-        check(e["kv_corrupt_pages_total"] == 0, f"{what}: the CPU tier held corrupt pages")
+              f"{what}: no page was restored from the offload tier")
+        check(e["kv_corrupt_pages_total"] == 0, f"{what}: the offload tier held corrupt pages")
     torch.cuda.empty_cache()
     launches = dict(res["launches"])
     if spec:
@@ -3109,6 +3134,305 @@ MIXTRAL_SERVE = ("mixtral-8x7b-hf, lora", dict(model=str(MIXTRAL_DIR), enable_lo
                  (MIXTRAL_ADAPTERS, False))
 
 
+# -- the stack's services ------------------------------------------------------
+
+STACK_NAMESPACE = "chip-stack"
+STACK_POOL = dict(model="llama-3.2-1b", num_pages=40)
+# the first prompt: 1,100 bytes + BOS = 17 full pages and a tail; the three
+# HTTP prompts after it (900 to 1,000 bytes each, 15 to 16 pages) overrun the
+# 40-page pool with it, so prefix pages spill to the cache server
+STACK_FIRST_BYTES = 1100
+STACK_TOKENS = 16
+
+
+def _start_service(module: str, port: int) -> "subprocess.Popen":
+    """One of the port's frame servers as a subprocess, once it accepts
+    connections (60 s at most)."""
+    import socket
+
+    import tempfile
+
+    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    log = tempfile.TemporaryFile()  # its log, read if it dies before it listens
+    proc = subprocess.Popen(
+        [sys.executable, "-m", f"production_stack_tpu_torch.kvoffload.{module}", "--host", "127.0.0.1",
+         "--port", str(port)],
+        cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log,
+    )
+    deadline = time.time() + 60
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            log.seek(0)
+            fail(f"stack: {module} exited with {proc.returncode}: {log.read()[-2000:].decode(errors='replace')}")
+        try:
+            with socket.create_connection(("127.0.0.1", port), timeout=1):
+                return proc
+        except OSError:
+            time.sleep(0.2)
+    proc.kill()
+    fail(f"stack: {module} did not listen on {port} within 60 s")
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("127.0.0.1", 0))
+        return sk.getsockname()[1]
+
+
+class _Timed:
+    """Seconds and calls of one method, summed over every instance, while
+    installed (a measurement of this run, not the port's)."""
+
+    def __init__(self, cls, name: str):
+        self.cls, self.name, self.orig = cls, name, getattr(cls, name)
+        self.seconds, self.calls = 0.0, 0
+        orig = self.orig
+
+        def timed(obj, *a, **kw):
+            t0 = time.perf_counter()
+            try:
+                return orig(obj, *a, **kw)
+            finally:
+                self.seconds += time.perf_counter() - t0
+                self.calls += 1
+
+        setattr(cls, name, timed)
+
+    def remove(self) -> None:
+        setattr(self.cls, self.name, self.orig)
+
+
+def phase_stack(serve=None, launches: "dict | None" = None) -> None:
+    """The engine inside the stack's services (docstring, 5e). ``serve`` is
+    main's serve(), which runs phase_serve and adds its launches to the
+    kernel rows; the two incarnations' launches are added to ``launches``
+    here. Without them (the phase run alone) phase_serve runs directly and
+    the launches are only checked."""
+    if launches is None:
+        launches = {}
+    if serve is None:
+        def serve(label, overrides, D, sleep_level, lora, prepare=None, extra=None):
+            phase_serve(label, overrides, sleep_level, lora, prepare, extra)
+    import random
+
+    import aiohttp
+    import torch
+
+    from production_stack_tpu_torch.engine.api_server import serve as serve_http
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.scheduler import SamplingParams
+    from production_stack_tpu_torch.kvoffload.controller import ControllerClient
+    from production_stack_tpu_torch.kvoffload.protocol import BlockingClient
+    from production_stack_tpu_torch.kvoffload.tiers import RemoteTier
+    from production_stack_tpu_torch.kvoffload.warmstart import WarmStartManager
+    from production_stack_tpu_torch.tracing import SpanContext
+
+    kernels, plains = _counters()
+    cs_port, ctl_port = _free_port(), _free_port()
+    procs = [_start_service("cache_server", cs_port), _start_service("controller", ctl_port)]
+    timers = [_Timed(RemoteTier, "get"), _Timed(RemoteTier, "put"), _Timed(WarmStartManager, "restore")]
+    rng = random.Random(14)
+    first_prompt = _prompt(rng, STACK_FIRST_BYTES)
+    http_prompts = [_prompt(rng, 900 + 50 * i) for i in range(3)]
+    remote = SpanContext.new_root()
+    try:
+        cfg = EngineConfig(host="127.0.0.1", port=_free_port(), **STACK_POOL,
+                           kv_remote_url=f"127.0.0.1:{cs_port}", kv_controller_url=f"127.0.0.1:{ctl_port}",
+                           warm_start=True, warm_start_namespace=STACK_NAMESPACE, warm_start_interval_s=0,
+                           enable_debug_endpoints=True, kv_instance_id="chip-stack-0")
+        base = f"http://127.0.0.1:{cfg.port}"
+        url = f"http://127.0.0.1:{cfg.port}"
+
+        def zero_counts():
+            for fn, attr in kernels.values():
+                setattr(fn, attr, 0)
+            for fn in plains.values():
+                fn.calls = 0
+
+        async def greedy(engine, rid):
+            """The first prompt through LLMEngine.generate: token ids, the
+            cached tokens of its prefill, and its TTFT."""
+            ids, cached, ttft = [], 0, None
+            t0 = time.perf_counter()
+            params = SamplingParams(max_tokens=STACK_TOKENS, temperature=0.0, ignore_eos=True)
+            async for out in engine.generate(rid, prompt=first_prompt, params=params):
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+                ids.extend(out.token_ids)
+                cached = out.cached_tokens
+            return ids, cached, ttft
+
+        async def first_life():
+            server, runner = await serve_http(cfg)
+            out = {}
+            try:
+                zero_counts()
+                out["ids"], out["cached"], out["ttft_s"] = await greedy(server.engine, "stack-first")
+                # the same prompt again: a prefix hit in a live engine, to
+                # set beside the restarted engine's first and second hits
+                _, out["cached_again"], out["ttft_again_s"] = await greedy(server.engine, "stack-first-again")
+                async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+                    async def post(i, p):
+                        headers = {"traceparent": remote.to_traceparent()} if i == 0 else {}
+                        body = {"prompt": p, "max_tokens": STACK_TOKENS, "temperature": 0.0, "ignore_eos": True}
+                        async with s.post(base + "/v1/completions", json=body, headers=headers) as r:
+                            return r.status, await r.json()
+
+                    for st, body in await asyncio.gather(*(post(i, p) for i, p in enumerate(http_prompts))):
+                        check(st == 200, f"stack: completion -> {st}: {body}")
+                    async with s.get(base + "/v1/traces", params={"trace_id": remote.trace_id}) as r:
+                        traces = await r.json()
+                    async with s.get(base + "/v1/debug/flightrecorder",
+                                     params={"trace_id": remote.trace_id, "kind": "sched"}) as r:
+                        sched = await r.json()
+                    # kvaware v1's call, for the last prompt served: the
+                    # reporter thread sends its admits behind the request
+                    last_ids = server.engine.tokenizer.encode(http_prompts[-1])
+                    ctl = ControllerClient(f"127.0.0.1:{ctl_port}")
+                    deadline = time.time() + 10
+                    looked = None
+                    while time.time() < deadline:
+                        looked = await ctl.lookup(last_ids)
+                        if looked.get("url") == url:
+                            break
+                        await asyncio.sleep(0.1)
+                    await ctl.close()
+                    async with s.get(base + "/metrics") as r:
+                        before_reset = await r.text()
+                    async with s.post(base + "/metrics/reset") as r:
+                        check(r.status == 200, f"stack: POST /metrics/reset -> {r.status}")
+                    async with s.get(base + "/metrics") as r:
+                        after_reset = await r.text()
+                out["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
+                out["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
+                t0 = time.perf_counter()
+                await server.drain(timeout=60)
+                out["drain_s"] = time.perf_counter() - t0
+                out["spilled_pages"] = server.engine.warm.spilled_pages_total
+                out["manifest_pages"] = len(server.engine.kv.warm_candidates(cfg.warm_start_max_pages))
+                out["stats"] = server.engine.stats()
+            finally:
+                await runner.cleanup()
+                server.engine.stop()
+            spans = traces["traces"][0]["spans"] if traces.get("traces") else []
+            by_id = {sp["span_id"]: sp for sp in spans}
+
+            def reaches(sp):
+                seen = 0
+                while sp is not None and seen < 16:
+                    if sp["parent_id"] == remote.span_id:
+                        return True
+                    sp, seen = by_id.get(sp["parent_id"]), seen + 1
+                return False
+
+            names = {sp["name"] for sp in spans if reaches(sp)}
+            out["trace_spans"] = sorted(names)
+            out["sched_events"] = len(sched.get("events", []))
+            out["lookup"] = looked
+            out["hops_before_reset"] = "vllm:ttft_hop_" in before_reset
+            out["hops_after_reset"] = "vllm:ttft_hop_" in after_reset
+            return out
+
+        async def second_life():
+            # the engine is built off the event loop here only to time it
+            t0 = time.perf_counter()
+            engine = LLMEngine(cfg)
+            build_s = time.perf_counter() - t0
+            server, runner = await serve_http(cfg, engine)
+            out = {"build_s": build_s, "restored_pages": engine.warm.restored_pages,
+                   "generation": engine.warm.generation}
+            try:
+                zero_counts()
+                out["ids"], out["cached"], out["ttft_s"] = await greedy(engine, "stack-again")
+                _, out["cached_again"], out["ttft_again_s"] = await greedy(engine, "stack-again-2")
+                out["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
+                out["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
+                out["stats"] = engine.stats()
+            finally:
+                await runner.cleanup()
+                engine.stop()
+            return out
+
+        one = asyncio.run(first_life())
+        restore = timers[2]
+        restore_s0 = restore.seconds
+        two = asyncio.run(second_life())
+        restore_s = restore.seconds - restore_s0
+        for life, res in (("first", one), ("restarted", two)):
+            for k in SERVE_ROWS[False]:
+                check(res["launches"][k] > 0, f"stack: kernel {k} was not launched by the {life} engine")
+            for k, n in res["plain_calls"].items():
+                check(n == 0, f"stack: plain version {k} ran {n} times in the {life} engine")
+        check({"engine.request", "engine.queue", "engine.prefill", "engine.decode"} <= set(one["trace_spans"]),
+              f"stack: /v1/traces under the given traceparent holds {one['trace_spans']}")
+        check(one["sched_events"] > 0, "stack: no flight-recorder sched event carries the trace id")
+        check(one["lookup"] and one["lookup"].get("url") == url,
+              f"stack: the controller's lookup names {one['lookup']}, not {url}")
+        check(one["hops_before_reset"] and not one["hops_after_reset"],
+              "stack: /metrics/reset did not empty the hop windows")
+        check(one["stats"]["kv_offload_saved_pages_total"] > 0, "stack: no page was saved to the cache server")
+        check(one["spilled_pages"] >= 0 and one["stats"]["warm_start_generation"] == 1,
+              f"stack: the first engine's warm state {one['stats']}")
+        check(two["restored_pages"] > 0, "stack: the restarted engine restored no page")
+        check(two["generation"] == 2, f"stack: the restarted engine claimed generation {two['generation']}")
+        check(two["cached"] > 0, "stack: the first request after the restart was not a prefix hit")
+        check(two["ids"] == one["ids"], f"stack: greedy ids after the restart {two['ids']} != {one['ids']}")
+        check(two["stats"]["kv_corrupt_pages_total"] == 0, "stack: corrupt pages after the restart")
+        hdr, _ = BlockingClient("127.0.0.1", cs_port).request({"op": "stats"})
+        get_t, put_t = timers[0], timers[1]
+        emit({
+            "phase": "stack", "model": "llama-3.2-1b", "pool_pages": STACK_POOL["num_pages"],
+            "trace_spans": one["trace_spans"], "sched_events_with_trace": one["sched_events"],
+            "controller_lookup": one["lookup"],
+            "warm_restore_pages": two["restored_pages"], "warm_restore_s": round(restore_s, 4),
+            "warm_manifest_pages": one["manifest_pages"], "drain_s": round(one["drain_s"], 4),
+            "restarted_engine_build_s": round(two["build_s"], 3),
+            "ttft_cold_s": round(one["ttft_s"], 4), "ttft_after_restart_s": round(two["ttft_s"], 4),
+            "cached_tokens_after_restart": two["cached"], "prompt_tokens": len(first_prompt) + 1,
+            # the second request of each engine, the same prompt: a prefix
+            # hit in both (in the pool the first request filled, and in the
+            # restored pages), each engine's first-request costs paid
+            "ttft_hit_live_engine_s": round(one["ttft_again_s"], 4), "cached_tokens_live": one["cached_again"],
+            "ttft_second_after_restart_s": round(two["ttft_again_s"], 4),
+            "remote_tier": {
+                "put_calls": put_t.calls, "put_s": round(put_t.seconds, 4),
+                "get_calls": get_t.calls, "get_s": round(get_t.seconds, 4),
+                "server_used_bytes": hdr["used_bytes"], "server_entries": hdr["entries"],
+                "server_puts": hdr["puts"], "server_gets": hdr["gets"], "server_hits": hdr["hits"],
+            },
+            "launches": {"first": one["launches"], "restarted": two["launches"]},
+            "card": nvidia_smi_line(),
+        })
+        for life in (one, two):
+            for k in SERVE_ROWS[False]:
+                launches[_dtag(k, 64)] = launches.get(_dtag(k, 64), 0) + life["launches"][k]
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # int8 pools with the cache server as the only tier: int8 blobs
+        # cross TCP and come back through the int8 kernels (phase_serve
+        # holds saved, restored and hit pages above 0 and corrupt at 0)
+        puts0, gets0 = put_t.calls, get_t.calls
+        serve("llama-3.2-1b, int8, remote tier",
+              dict(model="llama-3.2-1b", kv_cache_dtype="int8", num_pages=40, kv_remote_url=f"127.0.0.1:{cs_port}"),
+              64, 0, ())
+        check(put_t.calls > puts0 and get_t.calls > gets0, "stack: the int8 server moved no blob over TCP")
+    finally:
+        for t in timers:
+            t.remove()
+        for proc in procs:
+            proc.terminate()
+        for proc in procs:
+            try:
+                proc.wait(timeout=10)
+            except subprocess.TimeoutExpired:
+                proc.kill()
+                proc.wait(timeout=10)
+
+
 def main() -> int:
     try:
         import torch
@@ -3167,6 +3491,9 @@ def main() -> int:
               (), extra=_pipelined_int8_requests)
         serve("llama-3.2-1b, spec4", dict(model="llama-3.2-1b", speculative_k=SPEC_K), 64, 0, (),
               extra=_spec_requests)
+        # the engine inside the stack's services: cache server, controller,
+        # spans under a traceparent, debug routes, a warm restart
+        phase_stack(serve, launches)
         # tensor parallelism: two ranks (processes) on the one card over
         # gloo, with qwen2.5-7b's directory still on the disk
         tp_ref = phase_tp_reference()

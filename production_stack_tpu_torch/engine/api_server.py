@@ -7,15 +7,23 @@ engine/devicemon.py among them), ``/stats``, ``/slo_records``, ``/abort``,
 ``/tokenize``, ``/detokenize``, ``/v1/completions`` and
 ``/v1/chat/completions`` (streaming and not, with ``n`` parallel samples,
 logprobs, penalties, logit bias, stop strings and tool calls, parsed by
-engine/tool_parser.py in its "auto" style), ``/v1/embeddings``,
+engine/tool_parser.py in the ``--tool-call-parser`` style, "auto" by default;
+"off" renders and parses no tools), ``/v1/embeddings``,
 ``/v1/rerank``, ``/v2/rerank``, ``/v1/score``, sleep mode's ``/sleep``,
 ``/wake_up`` and ``/is_sleeping``, and with ``--enable-lora``
 ``/v1/load_lora_adapter`` and ``/v1/unload_lora_adapter`` (the bodies the
 reference's LoraAdapter controller posts): a loaded adapter is a model of
 ``/v1/models`` with its ``parent``, a completion or chat request names it in
 ``model``, and the pooling routes refuse it (they run the base weights).
-Live migration, the KV fabric and the debug routes (``/v1/traces``,
-``/v1/debug/flightrecorder``, ``/metrics/reset``) are not ported.
+With ``--enable-debug-endpoints`` the debug routes are registered too:
+``/v1/traces`` (the span ring: each request's ``engine.request`` span under
+the caller's ``traceparent``, or under a root this server makes, and the
+engine's queue, prefill and decode spans under it), ``/v1/debug/flightrecorder``
+(the engine's event ring, filterable by request id, trace id, kind and step)
+and ``POST /metrics/reset`` (empties the TTFT hop windows, the latency and
+phase histograms, the span ring and the flight recorder). On SIGTERM the
+server drains, then spills the warm-start manifest (``--warm-start``).
+Live migration and the KV fabric are not ported.
 
 Run: ``python -m production_stack_tpu_torch.engine.api_server --model
 llama-3.2-1b`` (a preset), or ``--model /path/to/hf-dir`` (a local
@@ -54,19 +62,20 @@ from production_stack_tpu_torch.engine.scheduler import SamplingParams
 from production_stack_tpu_torch.engine.tool_parser import StreamingToolParser, parse_tool_calls
 from production_stack_tpu_torch.ops.sampling import TOP_LOGPROBS
 from production_stack_tpu_torch.tracing import (
+    configure_tracing,
+    export_for_query,
+    flightrecorder,
+    get_collector,
     get_flightrecorder,
+    render_collector_metrics,
     render_flightrecorder_metrics,
     render_phase_histograms,
+    reset_phase_histograms,
 )
 from production_stack_tpu_torch.utils.logging import init_logger
 from production_stack_tpu_torch.utils.metrics import LATENCY_BUCKETS, TTFT_BUCKETS, Histogram
 
 logger = init_logger(__name__)
-
-# the tool-call wire format the chat route parses (engine/tool_parser.py):
-# "auto" takes hermes tags and bare JSON, the JAX server's default; its
-# --tool-call-parser flag is not carried
-TOOL_CALL_PARSER = "auto"
 
 # Per-request TTFT hop samples for streaming requests, in ms:
 # (accept->engine-submit, submit->first engine output, first output->first
@@ -236,12 +245,13 @@ def _request_priority(headers, body) -> str:
     return p if p in ("interactive", "batch") else "interactive"
 
 
-def _resolve_tools(body: dict) -> "tuple[Optional[list], Optional[str]]":
+def _resolve_tools(body: dict, parser: str = "auto") -> "tuple[Optional[list], Optional[str]]":
     """(tools to render into the chat template, parser style or None), as
     the JAX server resolves them. Malformed ``tools`` or message
     ``tool_calls`` raise ValueError (a 400). ``tool_choice``: "none"
     drops the schemas, a named function narrows them to that tool,
-    "auto"/"required" render all."""
+    "auto"/"required" render all. ``parser`` is the server's
+    ``tool_call_parser``: "off" renders and parses no tools."""
     tools = body.get("tools")
     if tools is not None:
         if not isinstance(tools, list):
@@ -257,7 +267,7 @@ def _resolve_tools(body: dict) -> "tuple[Optional[list], Optional[str]]":
                     and isinstance(fn.get("arguments", ""), str)):
                 raise ValueError("message tool_calls must carry function.name and string function.arguments")
     choice = body.get("tool_choice", "auto" if tools else "none")
-    if not tools or choice == "none":
+    if not tools or choice == "none" or parser == "off":
         return None, None
     if isinstance(choice, dict):
         name = (choice.get("function") or {}).get("name")
@@ -266,7 +276,7 @@ def _resolve_tools(body: dict) -> "tuple[Optional[list], Optional[str]]":
             raise ValueError(f"tool_choice names unknown tool {name!r}")
     elif choice not in ("auto", "required"):
         raise ValueError(f"invalid tool_choice {choice!r}")
-    return tools, TOOL_CALL_PARSER
+    return tools, parser
 
 
 def _usage(out) -> dict:
@@ -330,6 +340,11 @@ class EngineServer:
         deadline = time.time() + timeout
         while time.time() < deadline and self.engine.scheduler.has_work():
             await asyncio.sleep(0.2)
+        # the warm-start manifest, after in-flight requests finished (their
+        # pages are registered by now), so the next incarnation restores it
+        n = await asyncio.get_running_loop().run_in_executor(None, self.engine.warm_spill)
+        if n:
+            logger.info("drain: warm-start manifest spilled (%d pages)", n)
 
     async def version(self, request: web.Request) -> web.Response:
         return web.json_response({"version": __version__})
@@ -405,7 +420,7 @@ class EngineServer:
         emit("decode_chained_dispatches_total", "counter", s["decode_chained_dispatches_total"])
         emit("runahead_prefill_dispatches_total", "counter", s["runahead_prefill_dispatches_total"])
         for k in sorted(s):  # kv eviction, int8 KV, offload, speculative decode and engine-loop sections
-            if k.startswith(("kv_", "spec_decode_", "engine_loop_")):
+            if k.startswith(("kv_", "spec_decode_", "engine_loop_", "warm_start_")):
                 emit(k, "counter" if k.endswith("_total") else "gauge", s[k])
         hops = _ttft_hop_quantiles()
         waits = list(self.engine.admission_wait_ms)
@@ -418,6 +433,8 @@ class EngineServer:
         lines.extend(_ttft_hist.render(f'model_name="{m}"'))
         lines.extend(_latency_hist.render(f'model_name="{m}"'))
         lines.extend(render_phase_histograms(f'model_name="{m}"'))
+        # span loss (ring wrap, unsampled) and the flight recorder's health
+        lines.extend(render_collector_metrics(f'model_name="{m}"'))
         lines.extend(render_flightrecorder_metrics(f'model_name="{m}"'))
         lines.extend(self.devmon.metrics_lines(m))
         return web.Response(text="\n".join(lines) + "\n", content_type="text/plain")
@@ -472,13 +489,40 @@ class EngineServer:
         }
         return web.json_response(s)
 
+    # -- debug routes (--enable-debug-endpoints) ----------------------------
+
+    async def traces(self, request: web.Request) -> web.Response:
+        """The span ring's export: ?trace_id= filters to one trace, ?limit=
+        caps the trace count (default 50)."""
+        payload, status = export_for_query(request.query)
+        return web.json_response(payload, status=status)
+
+    async def flightrecorder(self, request: web.Request) -> web.Response:
+        """The flight recorder's export. Filters: ?request_id= ?trace_id=
+        ?kind= ?since_step= ?until_step= ?limit=."""
+        payload, status = flightrecorder.export_for_query(request.query)
+        return web.json_response(payload, status=status)
+
+    async def metrics_reset(self, request: web.Request) -> web.Response:
+        """Empty the TTFT hop windows, the latency and phase histograms, the
+        span ring and the flight recorder, so a benchmark phase's quantiles
+        are its own. Counters and serving stats are untouched."""
+        _ttft_hops.clear()
+        _ttft_hist.reset()
+        _latency_hist.reset()
+        reset_phase_histograms()
+        get_collector().reset()
+        get_flightrecorder().reset()
+        self.engine.admission_wait_ms.clear()
+        return web.json_response({"status": "ok"})
+
     async def chat_completions(self, request: web.Request) -> web.StreamResponse:
         try:
             body = await request.json()
             messages = body.get("messages", [])
             if not isinstance(messages, list):
                 raise ValueError("'messages' must be a list")
-            tools, tool_style = _resolve_tools(body)
+            tools, tool_style = _resolve_tools(body, self.cfg.tool_call_parser)
         except (ValueError, TypeError) as e:
             return _error(f"invalid request: {e}")
         prompt = self.engine.tokenizer.apply_chat_template(messages, tools=tools)
@@ -498,6 +542,12 @@ class EngineServer:
         self, request: web.Request, body: dict, prompt: str, chat: bool, tool_style: Optional[str] = None,
     ) -> web.StreamResponse:
         t_accept = time.perf_counter()
+        t_accept_wall = time.time()
+        # adopt the caller's traceparent (its sampled flag wins) or root a
+        # trace here: this request's engine.request span, whose context
+        # parents the queue, prefill and decode spans the engine records
+        collector = get_collector()
+        trace_ctx = collector.root_from_headers(request.headers).child()
         if self.draining:
             return _error("engine is draining for shutdown", 503)
         if self.engine.is_sleeping:
@@ -566,8 +616,11 @@ class EngineServer:
         self._live_requests[req_id] = sub_ids
 
         def _gen(sid):
+            # with n > 1 only choice 0 carries the context: sibling phase
+            # spans under one engine.request would sum past its wall time
             return self.engine.generate(
-                sid, prompt_token_ids=prompt_ids, params=params, priority=priority, lora_name=lora_name
+                sid, prompt_token_ids=prompt_ids, params=params, priority=priority, lora_name=lora_name,
+                trace=trace_ctx if sid == sub_ids[0] else None,
             )
 
         def _abort_all() -> None:
@@ -656,6 +709,10 @@ class EngineServer:
             if t_first_box[0] is not None:
                 _ttft_hist.observe(t_first_box[0] - t_accept)
             _latency_hist.observe(time.perf_counter() - t_accept)
+            collector.record(
+                "engine.request", trace_ctx, t_accept_wall, time.perf_counter() - t_accept,
+                request_id=req_id, model=model, stream=False, n=n,
+            )
             self._live_requests.pop(req_id, None)
             return web.json_response(
                 {"id": oid, "object": kind, "created": created, "model": model,
@@ -783,6 +840,10 @@ class EngineServer:
             raise
         self._live_requests.pop(req_id, None)
         _latency_hist.observe(time.perf_counter() - t_accept)
+        collector.record(
+            "engine.request", trace_ctx, t_accept_wall, time.perf_counter() - t_accept,
+            request_id=req_id, model=model, stream=True, n=n,
+        )
         await resp.write_eof()
         return resp
 
@@ -985,6 +1046,13 @@ class EngineServer:
         r.add_get("/metrics", self.metrics)
         r.add_get("/stats", self.stats)
         r.add_get("/slo_records", self.slo_records)
+        if self.cfg.enable_debug_endpoints:
+            # unauthenticated debug surfaces, for benchmark and test runs:
+            # the traces and the recorder expose request ids and timings,
+            # and a reset wipes live observability windows
+            r.add_get("/v1/traces", self.traces)
+            r.add_get("/v1/debug/flightrecorder", self.flightrecorder)
+            r.add_post("/metrics/reset", self.metrics_reset)
         r.add_post("/abort", self.abort)
         r.add_post("/tokenize", self.tokenize)
         r.add_post("/detokenize", self.detokenize)
@@ -1005,6 +1073,7 @@ class EngineServer:
 async def serve(cfg: EngineConfig, engine: Optional[LLMEngine] = None, device="cuda"):
     """Build the engine (unless given), start its loop and the HTTP site;
     returns (server, aiohttp AppRunner). The caller stops both."""
+    configure_tracing(sample_rate=cfg.trace_sample_rate, capacity=cfg.trace_buffer_size)
     server = EngineServer(cfg, engine, device=device)
     server.engine.start()
     runner = web.AppRunner(server.build_app())

@@ -80,6 +80,9 @@ class EngineConfig:
     # "auto" resolves to "cuda" on a CUDA device and "plain" on the CPU
     # (resolve_attn_impl). Asking for "cuda" on the CPU raises.
     attn_impl: str = "auto"
+    # tool-call extraction from chat completions (engine/tool_parser.py):
+    # auto | hermes | json | off ("off" renders no tools and parses none)
+    tool_call_parser: str = "auto"
     # KV cache dtype: "auto" (= the model's dtype) | "int8": int8 pages with
     # per-page, per-KV-head f32 scales (ops/quant.py), read by the kernels'
     # int8 modes and written by the quantizing KV write and commit; the
@@ -101,7 +104,38 @@ class EngineConfig:
     # eviction (0 or >= 1 disables)
     kv_spill_watermark: float = 0.9
     kv_serde: str = "naive"
+    # the remote KV tier: the shared cache server (kvoffload/cache_server.py)
+    # every offloaded page is written through to and a local miss reads back
+    kv_remote_url: Optional[str] = None
+    # the KV-index controller (kvoffload/controller.py): the engine registers
+    # under kv_instance_id at its advertised URL and reports the chunk hashes
+    # it admits and evicts, which the router's kvaware routing looks up
+    kv_controller_url: Optional[str] = None
+    kv_instance_id: Optional[str] = None
+    advertise_host: Optional[str] = None  # URL other pods reach this engine at
+    # warm-start manifests (kvoffload/warmstart.py): on drain and every
+    # warm_start_interval_s the engine spills its hottest chain-head pages
+    # and the prefix-index metadata to the offload tier under a
+    # generation-fenced namespace, and restores them at startup before it
+    # serves. Needs an offload tier; a disk or remote one survives the process
+    warm_start: bool = False
+    # seconds between periodic manifest spills; <= 0 spills only on drain
+    warm_start_interval_s: float = 60.0
+    # manifest namespace in the offload tier (default: kv_instance_id, else
+    # "<model>-<port>")
+    warm_start_namespace: Optional[str] = None
+    # manifest size cap in pages (highest-reuse-score chain heads first)
+    warm_start_max_pages: int = 256
     seed: int = 0
+    # register the unauthenticated debug routes (GET /v1/traces, GET
+    # /v1/debug/flightrecorder, POST /metrics/reset); benchmark and test
+    # harnesses only
+    enable_debug_endpoints: bool = False
+    # distributed tracing (tracing/): head-sampling rate for traces rooted
+    # at this engine (a request with a traceparent keeps the caller's
+    # decision; 0.0 records nothing), and the span ring's size
+    trace_sample_rate: float = 1.0
+    trace_buffer_size: int = 4096
     # engine flight recorder (tracing/flightrecorder.py): a bounded ring of
     # structured engine events (scheduler dispatches, KV evictions, admission
     # sheds), dumped to disk on SIGTERM drain and exported in /metrics
@@ -110,6 +144,12 @@ class EngineConfig:
     # dump directory; None falls back to $PSTPU_FLIGHTRECORDER_DIR, else disk
     # dumps are disabled (the in-memory ring still works)
     flight_recorder_dump_dir: Optional[str] = None
+    # TTFT breach watermark in ms: a request finishing with TTFT above this
+    # triggers a (rate-limited) anomaly dump; 0 disables
+    flight_recorder_ttft_watermark_ms: float = 0.0
+    # shed-burst trigger: this many admission sheds within a 5 s window
+    # dump the recorder; 0 disables
+    flight_recorder_shed_burst: int = 10
     # sleep mode (POST /sleep?level=1|2, /wake_up, GET /is_sleeping): level
     # 1 frees the KV pools, level 2 also moves the weights to host memory;
     # without this flag /sleep and /wake_up answer 400
@@ -141,17 +181,15 @@ class EngineConfig:
     # Switches of the JAX engine's features that the port does not serve
     # yet. Each must keep its default: check_supported refuses any other
     # value rather than ignore it. The JAX engine's per-feature sub-knobs
-    # (fabric ports, warm-start intervals, ...) are not carried.
+    # (fabric ports, directory flush intervals, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
     sequence_parallel_size: int = 1
     expert_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     distributed_coordinator: Optional[str] = None
     distributed_num_processes: int = 1
-    warm_start: bool = False
-    kv_remote_url: Optional[str] = None
-    kv_controller_url: Optional[str] = None
     kv_directory_url: Optional[str] = None
+    warm_prefetch_on_boot: int = 0      # needs the fleet KV directory
     kv_role: str = "none"               # disaggregated prefill
     kv_fabric: bool = False
 
@@ -218,6 +256,36 @@ _FLAG_HELP = {
         "comma-separated CUDA device index of each of the dp x tp ranks, "
         "rank r = d * tp + t (port only; default: rank r on cuda:r)"
     ),
+    "warm_start": (
+        "spill a warm-start manifest (hot chain-head KV pages + prefix-index "
+        "metadata) to the offload tier on drain and every "
+        "--warm-start-interval-s, and restore it on startup before reporting "
+        "ready — engine restarts keep their hot prefixes. Needs an offload "
+        "tier (--kv-offload-dir / --kv-remote-url for restart durability)"
+    ),
+    "warm_start_interval_s": (
+        "seconds between periodic warm-start manifest spills (bounds how "
+        "much warm state a hard crash loses); <= 0 spills only on SIGTERM "
+        "drain"
+    ),
+    "warm_start_namespace": (
+        "offload-tier namespace for this engine's warm-start manifests; "
+        "restarts/replacements reusing a namespace fence the previous "
+        "incarnation by generation (default: --kv-instance-id, else "
+        "<model>-<port>)"
+    ),
+    "warm_start_max_pages": (
+        "cap on pages a warm-start manifest covers (highest-reuse-score "
+        "chain heads kept first)"
+    ),
+    "flight_recorder_ttft_watermark_ms": (
+        "dump the flight recorder when a request's TTFT exceeds this many "
+        "milliseconds (rate-limited; 0 = off)"
+    ),
+    "flight_recorder_shed_burst": (
+        "dump the flight recorder when this many admission sheds land "
+        "within 5 s (0 = off)"
+    ),
 }
 # the port's own fields, which the JAX engine has not
 PORT_ONLY = ("tp_backend", "tp_device_ids")
@@ -256,6 +324,7 @@ def config_from_args(args: argparse.Namespace) -> EngineConfig:
 
 
 ATTN_IMPLS = ("auto", "cuda", "plain")
+TOOL_CALL_PARSERS = ("auto", "hermes", "json", "off")
 KV_CACHE_DTYPES = ("auto", "int8")
 
 
@@ -283,10 +352,8 @@ _UNSUPPORTED = {
     "pipeline_parallel_size": "pipeline parallelism",
     "distributed_coordinator": "multi-host serving",
     "distributed_num_processes": "multi-host serving",
-    "warm_start": "warm-start manifests",
-    "kv_remote_url": "the remote KV tier (cache server)",
-    "kv_controller_url": "the KV index controller",
     "kv_directory_url": "the fleet KV directory",
+    "warm_prefetch_on_boot": "warm prefetch on boot (the fleet KV directory)",
     "kv_role": "disaggregated prefill",
     "kv_fabric": "the KV fabric",
 }
@@ -321,6 +388,10 @@ def check_supported(cfg: EngineConfig) -> None:
     if cfg.attn_impl not in ATTN_IMPLS:
         raise ValueError(
             f"unknown attn_impl {cfg.attn_impl!r}; options: {ATTN_IMPLS}"
+        )
+    if cfg.tool_call_parser not in TOOL_CALL_PARSERS:
+        raise ValueError(
+            f"unknown tool_call_parser {cfg.tool_call_parser!r}; options: {TOOL_CALL_PARSERS}"
         )
     if cfg.kv_cache_dtype not in KV_CACHE_DTYPES:
         raise ValueError(

@@ -59,9 +59,24 @@ over dp, as in the JAX engine; the runner copies each step's written pages
 into the other replicas). The scheduler pads every batch to a multiple of
 dp (``batch_multiple``), the padded rows inert, as the JAX engine's does.
 
-Not ported yet: the remote tier, the KV-index controller, the fleet
-directory, warm start, the KV fabric, migration, the "pre" KV write mode and
-the sp, ep and pp axes (engine/config.check_supported refuses their flags).
+The engine lives inside the stack's services as the JAX engine does. A
+request's trace context (``generate(trace=)``, the server's
+``engine.request`` span) parents the ``engine.queue``, ``engine.prefill`` and
+``engine.decode`` spans it records at the request's finish, and the offload
+tiers' spill and restore spans; the flight recorder's "sched" events carry
+the batch's trace ids. ``kv_remote_url`` adds the shared cache server as the
+last offload tier; ``kv_controller_url`` registers the engine with the
+KV-index controller under its advertised URL and reports the chunk hashes it
+admits and evicts, which the router's kvaware routing looks up; with
+``warm_start`` the engine restores its previous incarnation's manifest
+before it serves, spills one every ``warm_start_interval_s`` while idle, and
+a last one when the server drains (``warm_spill``). With dp or tp ranks the
+offload tiers and warm start move pages through the runner's page calls,
+which every rank runs.
+
+Not ported yet: the fleet directory (and warm prefetch on boot), the KV
+fabric, migration, the "pre" KV write mode and the sp, ep and pp axes
+(engine/config.check_supported refuses their flags).
 """
 
 from __future__ import annotations
@@ -90,6 +105,7 @@ from production_stack_tpu_torch.engine.runner import ModelRunner, StepInput
 from production_stack_tpu_torch.engine.scheduler import SamplingParams, Scheduler, Sequence
 from production_stack_tpu_torch.engine.tokenizer import load_tokenizer
 from production_stack_tpu_torch.kvoffload.connector import KVOffloadConnector
+from production_stack_tpu_torch.kvoffload.warmstart import WarmStartManager
 from production_stack_tpu_torch.ops.quant import dequantize_page_host, kv_bytes_per_token, quantize_page_host
 from production_stack_tpu_torch.parallel.dp import check_dp
 from production_stack_tpu_torch.parallel.tp import check_tp
@@ -202,15 +218,7 @@ class LLMEngine:
         self.lora: Optional[LoRAManager] = None
         if cfg.enable_lora:
             self.lora = LoRAManager(self.runner, max_loras=cfg.max_loras, max_rank=cfg.max_lora_rank)
-        self._offload = None
-        if cfg.kv_offload_cpu_gb > 0 or cfg.kv_offload_dir:
-            self._offload = KVOffloadConnector(
-                self.runner,
-                cpu_bytes=int(cfg.kv_offload_cpu_gb * 1e9),
-                disk_path=cfg.kv_offload_dir,
-                disk_bytes=int(cfg.kv_offload_disk_gb * 1e9) if cfg.kv_offload_dir else 0,
-                serde=cfg.kv_serde,
-            )
+        self._offload = self._make_offload_connector(cfg)
         # offload I/O budget: an explicit >= 0 is taken as it is; -1 derives
         # it from a startup link probe (0 = unbounded on PCIe-class links)
         self.kv_link_bandwidth_bytes_per_s = None
@@ -228,6 +236,26 @@ class LLMEngine:
             num_pages, cfg.page_size, offload=self._offload, max_io_pages=max_io_pages,
             spill_watermark=cfg.kv_spill_watermark,
         )
+        # warm-start manifests: restore the previous incarnation's hot
+        # working set into the pool before the server exists, so the first
+        # requests after a restart hit warm prefixes. The loop has not
+        # started, so the batched page uploads race nothing
+        self.warm: Optional[WarmStartManager] = None
+        if cfg.warm_start:
+            if self._offload is None:
+                logger.warning(
+                    "--warm-start needs an offload tier that survives "
+                    "restarts (--kv-offload-dir or --kv-remote-url); disabled"
+                )
+            else:
+                self.warm = WarmStartManager(
+                    self.kv, self._offload,
+                    namespace=cfg.warm_start_namespace or cfg.kv_instance_id or f"{cfg.name}-{cfg.port}",
+                    interval_s=cfg.warm_start_interval_s,
+                    max_pages=cfg.warm_start_max_pages,
+                    model=cfg.name,
+                )
+                self.warm.restore()
         self.scheduler = Scheduler(
             self.kv,
             max_num_seqs=cfg.max_num_seqs,
@@ -283,6 +311,8 @@ class LLMEngine:
         # thread, api_requests_shed_by_class on the event loop (note_api_shed)
         self.requests_shed_by_class = {"interactive": 0, "batch": 0}
         self.api_requests_shed_by_class = {"interactive": 0, "batch": 0}
+        # recent shed times, for the flight recorder's shed-burst dump
+        self._shed_times: collections.deque = collections.deque(maxlen=64)
         # SLO terminal records, one per finished request (and per API shed),
         # with a cursor the router scrapes by; appended by the device thread
         # and, for API sheds, the event loop (deque appends and the counter
@@ -314,11 +344,69 @@ class LLMEngine:
     def can_shed_queued(self) -> bool:
         return self.scheduler.queue_deadline_s > 0 or self.scheduler.max_waiting_seqs > 0
 
+    def _make_offload_connector(self, cfg: EngineConfig) -> Optional[KVOffloadConnector]:
+        """The offload connector when any tier or the KV-index controller is
+        configured (with the controller alone it only reports)."""
+        if not (cfg.kv_offload_cpu_gb > 0 or cfg.kv_offload_dir or cfg.kv_remote_url or cfg.kv_controller_url):
+            return None
+        return KVOffloadConnector(
+            self.runner,
+            cpu_bytes=int(cfg.kv_offload_cpu_gb * 1e9),
+            disk_path=cfg.kv_offload_dir,
+            disk_bytes=int(cfg.kv_offload_disk_gb * 1e9) if cfg.kv_offload_dir else 0,
+            remote_url=cfg.kv_remote_url,
+            serde=cfg.kv_serde,
+            controller_url=cfg.kv_controller_url,
+            instance_id=cfg.kv_instance_id or f"{cfg.name}-{cfg.port}",
+            engine_url=self._advertised_url(cfg),
+        )
+
+    @staticmethod
+    def _advertised_url(cfg: EngineConfig) -> str:
+        """The URL other pods (the router, the KV controller's clients) reach
+        this engine at. A wildcard bind address would never match a
+        discovered endpoint, so it resolves to the host name's address."""
+        host = cfg.advertise_host or cfg.host
+        if host in ("0.0.0.0", "::", ""):
+            import socket
+
+            try:
+                host = socket.gethostbyname(socket.gethostname())
+            except OSError:
+                host = "127.0.0.1"
+            if cfg.kv_controller_url:
+                logger.warning(
+                    "--advertise-host not set; registering with the KV index as %s "
+                    "(set it to the pod IP for kvaware routing)", host,
+                )
+        return f"http://{host}:{cfg.port}"
+
+    def _note_shed(self, reason: str, seq: Optional[Sequence] = None) -> None:
+        """The flight recorder's shed event and the shed-burst dump: a burst
+        of sheds is the overload postmortem moment. Called from the loop
+        thread (engine sheds) and the event loop (API sheds)."""
+        fr = self._fr
+        now = time.monotonic()
+        self._shed_times.append(now)
+        if not fr.enabled:
+            return
+        fr.record(
+            "shed", step=self.step_idx, reason=reason,
+            seq_id=seq.seq_id if seq is not None else None,
+            waiting=self.scheduler.num_waiting(),
+            running=self.scheduler.num_running(),
+            trace_id=getattr(seq.trace if seq is not None else None, "trace_id", None),
+        )
+        burst = self.cfg.flight_recorder_shed_burst
+        if burst > 0 and sum(1 for t in list(self._shed_times) if now - t <= 5.0) >= burst:
+            # off-thread: neither caller may pay the ring's serialization
+            fr.dump_async("shed_burst")
+
     def _shed(self, seq: Sequence, reason: str) -> None:
         self.scheduler._finish(seq, "shed")
         self.requests_shed[reason] += 1
         self.requests_shed_by_class[_slo_class(seq.priority)] += 1
-        self._fr.record("shed", step=self.step_idx, reason=reason, seq_id=seq.seq_id)
+        self._note_shed(reason, seq)
         self._emit(seq, "")
 
     def note_api_shed(self, request_id: Optional[str] = None, priority: str = "interactive") -> None:
@@ -327,7 +415,7 @@ class LLMEngine:
         (event loop only)."""
         priority = _slo_class(priority)
         self.api_requests_shed_by_class[priority] += 1
-        self._fr.record("shed", step=self.step_idx, reason="api_queue_full", seq_id=None)
+        self._note_shed("api_queue_full")
         self.slo_records.append({
             "seq": next(self._slo_seq),
             "request_id": request_id or "unknown",
@@ -358,6 +446,8 @@ class LLMEngine:
         self._inbox.put(None)
         if self._thread:
             self._thread.join(timeout=10)
+        if self._offload is not None:
+            self._offload.stop()  # the controller reporter deregisters
         if self._tp is not None:
             self._tp.close()  # the followers leave their loops and exit
 
@@ -371,7 +461,10 @@ class LLMEngine:
         params: Optional[SamplingParams] = None,
         priority: str = "interactive",
         lora_name: Optional[str] = None,
+        trace: Optional[object] = None,
     ) -> AsyncIterator[RequestOutput]:
+        """Stream a request's outputs. ``trace``: the tracing.SpanContext
+        its phase spans parent under (the server's engine.request span)."""
         params = params or SamplingParams()
         if priority not in ("interactive", "batch"):
             priority = "interactive"
@@ -404,7 +497,7 @@ class LLMEngine:
             self._texts[seq_id] = ""
         self._inbox.put(Sequence(
             seq_id=seq_id, prompt_ids=list(prompt_token_ids), params=params,
-            priority=priority, lora_slot=lora_slot, cache_salt=cache_salt,
+            priority=priority, lora_slot=lora_slot, cache_salt=cache_salt, trace=trace,
         ))
         try:
             while True:
@@ -656,14 +749,28 @@ class LLMEngine:
         return ra_done, ra_inter
 
     def _record_sched(self, batch) -> None:
+        """The flight recorder's "sched" event: the batch and the queue
+        depths, stamped with the step index and the members' trace ids, so
+        a slow request's spans cross-link to the dispatches that served it."""
         self.step_idx += 1
+        if not self._fr.enabled:
+            return
+        trace_ids = [
+            s.trace.trace_id for s in batch.seqs
+            if s.trace is not None and getattr(s.trace, "sampled", False)
+        ][:4]
         self._fr.record(
             "sched", step=self.step_idx, batch_kind=batch.kind,
+            tp=self.tensor_parallel,
             rows=len(batch.seqs), bursts=batch.bursts,
             chunk_tokens=sum(batch.chunk_sizes) if batch.chunk_sizes else 0,
+            seq_ids=[s.seq_id for s in batch.seqs[:8]],
+            trace_ids=trace_ids,
+            gate=getattr(self.scheduler, "last_gate", None),
             running=self.scheduler.num_running(),
             waiting=self.scheduler.num_waiting(),
             kv_usage=round(self.kv.usage(), 4),
+            trace_id=trace_ids[0] if trace_ids else None,
         )
 
     def _note_first_dispatch(self, batch) -> None:
@@ -685,6 +792,10 @@ class LLMEngine:
             for s in self.scheduler.expired_waiting():
                 if not s.shed_exempt:
                     self._shed(s, "queue_deadline")
+            if self.warm is not None:
+                # the periodic manifest (crash protection): in an idle loop
+                # turn, forced past twice the interval
+                self.warm.maybe_spill(busy=self.scheduler.has_work())
             # the adaptive chain depth's inputs (scheduler.schedule)
             sched = self.scheduler
             sched.arrival_rate = self._recent_arrival_rate()
@@ -849,7 +960,10 @@ class LLMEngine:
                 seq.itl_samples.append((now_m - seq.last_emit_time) / len(tokens))
             seq.last_emit_time = now_m
         if seq.finished and not seq.trace_done:
-            self._record_phases(seq)
+            try:
+                self._record_phase_trace(seq)
+            except Exception:  # noqa: BLE001 - observability never fails a request
+                logger.exception("phase trace recording failed")
         if seq.finished and not seq.slo_done:
             self._record_slo(seq, error=error)
         with self._lock:
@@ -873,19 +987,48 @@ class LLMEngine:
         )
         loop.call_soon_threadsafe(out_q.put_nowait, out)
 
-    def _record_phases(self, seq: Sequence) -> None:
-        """The finished request's phase histograms, from the times the
-        scheduler keeps: arrival -> first dispatch (queue), first dispatch ->
-        first token (prefill), first token -> finish per later token (TPOT)."""
+    def _record_phase_trace(self, seq: Sequence) -> None:
+        """The finished request's phase histograms and, when it carries a
+        sampled trace context, its spans, from the times the scheduler
+        keeps: arrival -> first dispatch (engine.queue), first dispatch ->
+        first token (engine.prefill), first token -> finish (engine.decode).
+        Runs once per request, at its finish."""
         seq.trace_done = True
-        end = seq.finish_time or time.monotonic()
+        now_m = time.monotonic()
+        anchor = time.time() - now_m  # monotonic -> wall clock
+        end = seq.finish_time or now_m
         fd, ft = seq.first_dispatch_time, seq.first_token_time
-        tracing.queue_time_hist.observe(max(0.0, (fd if fd is not None else end) - seq.arrival_time))
-        if fd is not None and ft is not None:
-            tracing.prefill_time_hist.observe(max(0.0, ft - fd))
+        queue_s = max(0.0, (fd if fd is not None else end) - seq.arrival_time)
+        prefill_s = max(0.0, ft - fd) if fd is not None and ft is not None else 0.0
+        decode_s = max(0.0, end - ft) if ft is not None else 0.0
         steps = len(seq.output_ids)
+        tracing.queue_time_hist.observe(queue_s)
+        if fd is not None and ft is not None:
+            tracing.prefill_time_hist.observe(prefill_s)
         if ft is not None and steps > 1:
-            tracing.decode_step_time_hist.observe(max(0.0, end - ft) / (steps - 1))
+            tracing.decode_step_time_hist.observe(decode_s / (steps - 1))
+        tr = seq.trace
+        if tr is None or not getattr(tr, "sampled", False):
+            return
+        col = tracing.get_collector()
+        # the scheduler made the phase contexts at admission, so offload
+        # spill and restore spans nest under the phase whose window holds them
+        col.record("engine.queue", seq.queue_span or tr.child(), anchor + seq.arrival_time, queue_s,
+                   seq_id=seq.seq_id)
+        if fd is not None and ft is not None:
+            col.record(
+                "engine.prefill", seq.prefill_span or tr.child(), anchor + fd, prefill_s,
+                seq_id=seq.seq_id, prompt_tokens=len(seq.prompt_ids), cached_tokens=seq.num_cached,
+            )
+        if ft is not None:
+            attrs = {"seq_id": seq.seq_id, "output_tokens": steps, "finish_reason": seq.finish_reason}
+            if steps > 1:
+                attrs["per_token_ms"] = round(decode_s / (steps - 1) * 1000, 3)
+            if seq.lora_slot:
+                attrs["lora_slot"] = seq.lora_slot  # the adapter slot that served the decode
+            if self.cfg.speculative_k:
+                attrs["spec_k"] = self.cfg.speculative_k
+            col.record("engine.decode", seq.decode_span or tr.child(), anchor + ft, decode_s, **attrs)
 
     def _record_slo(self, seq: Sequence, error: bool = False) -> None:
         """Append the finished request's SLO terminal record (queue wait,
@@ -916,7 +1059,7 @@ class LLMEngine:
             "cached_tokens": seq.num_cached,
             "itl_p99_ms": itl_p99_ms,
             "kv_pages_peak": seq.pages_peak,
-            "trace_id": None,  # the port records no spans (no /v1/traces)
+            "trace_id": getattr(seq.trace, "trace_id", None),
             "priority": seq.priority,
             "t": time.time(),
         }
@@ -926,10 +1069,15 @@ class LLMEngine:
                 self._interactive_ttft_ms.append(ttft_ms)
             if itl_p99_ms is not None:
                 self._interactive_itl_ms.append(itl_p99_ms)
-        self._fr.record(
-            "slo", step=self.step_idx, request_id=seq.seq_id, outcome=outcome, ttft_ms=ttft_ms,
-            itl_p99_ms=itl_p99_ms, output_tokens=rec["output_tokens"],
-        )
+        fr = self._fr
+        if fr.enabled:
+            fr.record(
+                "slo", step=self.step_idx, trace_id=rec["trace_id"], request_id=seq.seq_id, outcome=outcome,
+                ttft_ms=ttft_ms, itl_p99_ms=itl_p99_ms, output_tokens=rec["output_tokens"],
+            )
+            watermark = self.cfg.flight_recorder_ttft_watermark_ms
+            if watermark > 0 and ttft_ms is not None and ttft_ms > watermark:
+                fr.dump_async("ttft_breach")  # off the loop thread
 
     # -- commands on the loop thread ------------------------------------------
 
@@ -1060,6 +1208,20 @@ class LLMEngine:
                 self.total_prompt_tokens += sum(len(token_id_lists[i]) for i in group)
         return out
 
+    # -- warm start -----------------------------------------------------------
+
+    def warm_spill(self) -> int:
+        """The last warm-start manifest spill, which the server's drain
+        calls after in-flight requests finished. Runs on the loop thread, so
+        its page fetches come between steps. 0 without ``warm_start``."""
+        if self.warm is None:
+            return 0
+        try:
+            return int(self._run_on_device_thread(lambda: self.warm.spill("drain"), what="warm-start spill") or 0)
+        except Exception:  # noqa: BLE001 - shutdown must not hang on a spill
+            logger.exception("warm-start drain spill failed")
+            return 0
+
     # -- sleep mode -----------------------------------------------------------
 
     def sleep(self, level: int = 1) -> None:
@@ -1102,6 +1264,10 @@ class LLMEngine:
                 max_io_pages=self._max_io_pages, spill_watermark=self.cfg.kv_spill_watermark,
             )
             self.scheduler.kv = self.kv
+            if self.warm is not None:
+                # the manifest's pages are the new manager's: the old one's
+                # page ids name pages of the dropped pools
+                self.warm.kv = self.kv
             self._sleeping = False
 
         self._run_on_device_thread(do_wake, what="wake_up")
@@ -1167,6 +1333,8 @@ class LLMEngine:
             out["kv_offload_max_io_pages"] = self.kv.max_io_pages
             if self.kv_link_bandwidth_bytes_per_s is not None:
                 out["kv_offload_link_bandwidth_bytes_per_sec"] = round(self.kv_link_bandwidth_bytes_per_s)
+        if self.warm is not None:
+            out.update(self.warm.stats())
         if self.cfg.speculative_k:
             # accepted read before drafts: the loop adds drafts first, so a
             # snapshot never shows more accepted than drafted

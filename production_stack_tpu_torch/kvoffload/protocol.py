@@ -1,12 +1,15 @@
-"""Wire protocol of the KV cache server, the port's copy of
-production_stack_tpu/kvoffload/protocol.py: one frame = ``u32 header_len |
-u32 payload_len | header JSON | payload bytes``. The remote tier
-(kvoffload/tiers.RemoteTier) speaks it with the blocking client; the cache
-server itself is not ported, and the engine refuses ``kv_remote_url``.
+"""Wire protocol of the KV cache server and the KV-index controller, the
+port's copy of production_stack_tpu/kvoffload/protocol.py: one frame =
+``u32 header_len | u32 payload_len | header JSON | payload bytes``. The
+servers (kvoffload/cache_server.py, kvoffload/controller.py) and the
+router-side controller client speak it with the asyncio endpoint; the
+engine's remote tier (kvoffload/tiers.RemoteTier) and controller reporter
+with the blocking client.
 """
 
 from __future__ import annotations
 
+import asyncio
 import json
 import socket
 import struct
@@ -20,6 +23,26 @@ MAX_PAYLOAD = 1 << 30
 def pack(header: dict, payload: bytes = b"") -> bytes:
     hdr = json.dumps(header).encode()
     return _FRAME.pack(len(hdr), len(payload)) + hdr + payload
+
+
+# -- asyncio endpoint ---------------------------------------------------------
+
+
+async def read_frame(reader: asyncio.StreamReader) -> tuple[dict, bytes]:
+    raw = await reader.readexactly(_FRAME.size)
+    hlen, plen = _FRAME.unpack(raw)
+    if hlen > MAX_HEADER or plen > MAX_PAYLOAD:
+        raise ValueError(f"oversized frame: header={hlen} payload={plen}")
+    hdr = json.loads(await reader.readexactly(hlen)) if hlen else {}
+    payload = await reader.readexactly(plen) if plen else b""
+    return hdr, payload
+
+
+async def write_frame(
+    writer: asyncio.StreamWriter, header: dict, payload: bytes = b""
+) -> None:
+    writer.write(pack(header, payload))
+    await writer.drain()
 
 
 # -- blocking endpoint (engine-side worker thread) ----------------------------

@@ -88,6 +88,21 @@ def verify_blob(blob: bytes) -> dict:
     return hdr
 
 
+def seal_bytes(payload: bytes, kind: str = "raw", **attrs) -> bytes:
+    """Wrap arbitrary bytes in the same verifiable envelope KV pages use:
+    non-page tier entries (warm-start manifests, head pointers) get the same
+    corruption detection as page blobs."""
+    return _seal({"kind": kind, **attrs}, payload)
+
+
+def unseal_bytes(blob: bytes) -> tuple[dict, bytes]:
+    """Verify and open a :func:`seal_bytes` envelope; returns (header, body).
+    Raises :class:`KVIntegrityError` on corruption."""
+    hdr = verify_blob(blob)
+    (n,) = _HDR.unpack_from(blob)
+    return hdr, bytes(memoryview(blob)[_HDR.size + n :])
+
+
 def _dtype_name(dt: np.dtype) -> str:
     return "bfloat16" if dt == BF16 else np.dtype(dt).name
 

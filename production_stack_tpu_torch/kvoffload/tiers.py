@@ -3,14 +3,20 @@ port's copy of production_stack_tpu/kvoffload/tiers.py. Keys are chunk-hash
 hex strings (the rolling hashes of engine/kv_manager.py); values are serde
 blobs.
 
-Policy: ``put`` writes to DRAM (and through to the remote tier); DRAM
-eviction spills to disk; disk eviction drops the blob locally. ``get`` walks
-DRAM -> disk -> remote and promotes hits to DRAM. Every ``get`` verifies the
-blob's checksum and version first: a corrupt blob is quarantined (deleted
-from the tier that served it, counted in ``corrupt_pages``) and the walk
-goes on, so a bad page is never served. The engine configures the local
-tiers only; the remote tier stays unreachable until the cache server is
-ported (``kv_remote_url`` is refused).
+Policy: ``put`` writes to DRAM (and through to the remote tier, the cache
+server of kvoffload/cache_server.py, so other engines and a restarted one
+can share); DRAM eviction spills to disk; disk eviction drops the blob
+locally. ``get`` walks DRAM -> disk -> remote and promotes hits to DRAM.
+Evictions that remove the *last local* copy surface through
+``on_local_drop`` so the engine can tell the KV-index controller. A remote
+error is a miss (the engine recomputes), never an error of the request.
+
+Integrity: every ``get`` verifies the blob's checksum and version first: a
+corrupt blob is quarantined (deleted from the tier that served it, counted
+in ``corrupt_pages``) and the walk goes on, so a bit-flip on disk falls back
+to the remote copy and, failing that, to recompute. A bad page is never
+served. Mutable keys (warm-start heads) are read with ``get_authoritative``,
+shared sources first.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ from __future__ import annotations
 import os
 import threading
 from collections import OrderedDict
-from typing import Optional
+from typing import Callable, Optional
 
 from production_stack_tpu_torch.kvoffload.protocol import BlockingClient, parse_hostport
 from production_stack_tpu_torch.kvoffload.serde import KVIntegrityError, verify_blob
@@ -98,6 +104,18 @@ class DiskTier:
             return None
         self._index.move_to_end(key)
         return blob
+
+    def get_fresh(self, key: str) -> Optional[bytes]:
+        """Read the file directly, bypassing this process's in-memory index:
+        a concurrent incarnation sharing the directory (rolling upgrade on
+        one host) may have written the key after our index was built. Does
+        not touch index/LRU state — mutable-key reads must stay side-effect
+        free."""
+        try:
+            with open(self._file(key), "rb") as f:
+                return f.read()
+        except OSError:
+            return None
 
     def put(self, key: str, blob: bytes) -> list[str]:
         """Write; returns keys evicted (dropped entirely)."""
@@ -188,7 +206,8 @@ class RemoteTier:
 
 
 class TieredKVStore:
-    """The per-engine offload hierarchy. Thread-safe."""
+    """The per-engine offload hierarchy. Thread-safe for the engine loop +
+    background reporters."""
 
     def __init__(
         self,
@@ -197,12 +216,14 @@ class TieredKVStore:
         disk_path: Optional[str] = None,
         disk_bytes: int = 0,
         remote_url: Optional[str] = None,
+        on_local_drop: Optional[Callable[[str], None]] = None,
     ):
         self.cpu = CPUTier(cpu_bytes) if cpu_bytes > 0 else None
         self.disk = (
             DiskTier(disk_path, disk_bytes) if disk_path and disk_bytes > 0 else None
         )
         self.remote = RemoteTier(remote_url) if remote_url else None
+        self.on_local_drop = on_local_drop
         self._lock = threading.RLock()
         # bumped from every thread that reads the store — shared `+=` on a
         # dict slot loses increments without the lock
@@ -225,21 +246,36 @@ class TieredKVStore:
             self.cpu is not None or self.disk is not None or self.remote is not None
         )
 
+    def durable(self) -> bool:
+        """True if some tier survives process death (disk or remote) — the
+        prerequisite for warm-start state to mean anything across restarts."""
+        return self.disk is not None or self.remote is not None
+
     def _spill(self, evicted: list[tuple[str, bytes]]) -> None:
         for k, b in evicted:
             if self.disk is not None:
-                self.dropped_evictions += len(self.disk.put(k, b))
+                for dropped in self.disk.put(k, b):
+                    self._dropped_locally(dropped)
             else:
-                self.dropped_evictions += 1
+                self._dropped_locally(k)
 
-    def put(self, key: str, blob: bytes) -> None:
-        """Write to the local tiers (host RAM first, spilling to disk) and
-        through to the remote tier."""
+    def _dropped_locally(self, key: str) -> None:
+        self.dropped_evictions += 1
+        if self.on_local_drop is not None and not self.contains_local(key):
+            self.on_local_drop(key)
+
+    def put_local(self, key: str, blob: bytes) -> None:
+        """Insert into the local tiers only (no remote write-through) — used
+        for chunks *received* from a peer, which already live remotely."""
         with self._lock:
             if self.cpu is not None:
                 self._spill(self.cpu.put(key, blob))
             elif self.disk is not None:
-                self.dropped_evictions += len(self.disk.put(key, blob))
+                for dropped in self.disk.put(key, blob):
+                    self._dropped_locally(dropped)
+
+    def put(self, key: str, blob: bytes) -> None:
+        self.put_local(key, blob)
         if self.remote is not None:
             self.remote.put(key, blob)
 
@@ -261,6 +297,31 @@ class TieredKVStore:
             except Exception:  # noqa: BLE001 - quarantine is best-effort
                 pass
             return False
+
+    def get_authoritative(self, key: str) -> Optional[bytes]:
+        """Read a MUTABLE key (warm-start head pointer), preferring SHARED
+        sources over this process's private caches: remote first, then the
+        disk FILE (bypassing this process's in-memory index — another
+        incarnation sharing the directory may have written it after our
+        index was built), DRAM last. The ordinary ``get`` walk is designed
+        for immutable content-addressed blobs, where a local copy is as good
+        as any; for a mutable key it would return our own stale copy and,
+        e.g., blind an old engine incarnation to the newer generation that
+        fenced it."""
+        if self.remote is not None:
+            blob = self.remote.get(key)
+            if blob is not None and self._verified(key, blob, "remote", self.remote):
+                return blob
+        with self._lock:
+            if self.disk is not None:
+                blob = self.disk.get_fresh(key)
+                if blob is not None and self._verified(key, blob, "disk", self.disk):
+                    return blob
+            if self.cpu is not None:
+                blob = self.cpu.get(key)
+                if blob is not None and self._verified(key, blob, "cpu", self.cpu):
+                    return blob
+        return None
 
     def get(self, key: str) -> Optional[bytes]:
         with self._lock:
@@ -288,6 +349,28 @@ class TieredKVStore:
                 return blob
         self.misses += 1
         return None
+
+    def persist(self, key: str, force: bool = False) -> bool:
+        """Ensure a DRAM-tier blob also has a process-death-durable local
+        copy: copy it to the disk tier if one exists (remote copies are
+        already written through by ``put``). Warm-start state must outlive
+        the process — a cpu+disk hierarchy otherwise holds the newest (last
+        to evict) blobs only in DRAM. ``force`` re-copies even when the key
+        is already on disk: content-addressed page blobs are immutable (skip
+        is safe and cheap), but MUTABLE keys (the warm-start head pointer)
+        would otherwise keep a stale durable copy forever. Returns True if a
+        durable local copy exists afterwards."""
+        with self._lock:
+            if self.disk is None:
+                return False
+            if not force and key in self.disk:
+                return True
+            blob = self.cpu.get(key) if self.cpu is not None else None
+            if blob is None:
+                return key in self.disk
+            for dropped in self.disk.put(key, blob):
+                self._dropped_locally(dropped)
+            return key in self.disk
 
     def contains_local(self, key: str) -> bool:
         with self._lock:

@@ -73,3 +73,9 @@ def render_phase_histograms(labels: str) -> list[str]:
     for h in PHASE_HISTOGRAMS:
         lines.extend(h.render(labels))
     return lines
+
+
+def reset_phase_histograms() -> None:
+    """Debug/bench only (the /metrics/reset endpoint)."""
+    for h in PHASE_HISTOGRAMS:
+        h.reset()

@@ -47,9 +47,11 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 26  # every module was walked, the int8 KV and offload ones among them
+    assert len(names) >= 31  # every module was walked, the int8 KV, offload and stack-service ones among them
     for mod in ("ops.quant", "engine.linkprobe", "kvoffload.serde", "kvoffload.protocol", "kvoffload.tiers",
-                "kvoffload.connector", "parallel.group", "parallel.tp", "parallel.dp", "engine.distributed"):
+                "kvoffload.connector", "parallel.group", "parallel.tp", "parallel.dp", "engine.distributed",
+                "tracing.context", "tracing.collector", "kvoffload.cache_server", "kvoffload.controller",
+                "kvoffload.warmstart"):
         assert f"production_stack_tpu_torch.{mod}" in names
 
 
@@ -132,10 +134,8 @@ _REFUSED = [
     ("kv_role", "producer", {}),
     ("kv_fabric", True, {}),
     ("kv_write_mode", "pre", {}),
-    ("kv_remote_url", "127.0.0.1:9100", {}),
-    ("kv_controller_url", "http://127.0.0.1:9000", {}),
     ("kv_directory_url", "http://127.0.0.1:9200", {}),
-    ("warm_start", True, {}),
+    ("warm_prefetch_on_boot", 8, {}),
 ]
 # the refusals in the JAX engine's words rather than the port's
 _JAX_WORDS = {"speculative_k": "--kv-cache-dtype int8 is not compatible with --speculative-k"}
@@ -148,6 +148,32 @@ def test_unported_features_are_refused(field, value, also):
         check_supported(EngineConfig(**{field: value}, **also))
     if also:  # the field alone is served
         check_supported(EngineConfig(**{field: value}))
+
+
+# the stack services the engine talks to: the remote tier (cache server),
+# the KV-index controller and warm-start manifests, with their flags
+_SERVED = [
+    ("kv_remote_url", "127.0.0.1:9100", ["--kv-remote-url", "127.0.0.1:9100"]),
+    ("kv_controller_url", "http://127.0.0.1:9000",
+     ["--kv-controller-url", "http://127.0.0.1:9000", "--kv-instance-id", "e0", "--advertise-host", "10.0.0.2"]),
+    ("warm_start", True, ["--warm-start", "--warm-start-namespace", "ns", "--warm-start-interval-s", "5",
+                          "--warm-start-max-pages", "32", "--kv-offload-dir", "/tmp/kv"]),
+]
+
+
+@pytest.mark.parametrize("field,value,argv", _SERVED, ids=[f for f, _, _ in _SERVED])
+def test_stack_service_features_are_served(field, value, argv):
+    """Once refused, now served: the switch passes check_supported and its
+    flags parse into the config."""
+    import argparse
+
+    assert field not in port_config._UNSUPPORTED
+    check_supported(EngineConfig(**{field: value}))
+    p = argparse.ArgumentParser()
+    port_config.add_engine_args(p)
+    cfg = port_config.config_from_args(p.parse_args(argv))
+    assert getattr(cfg, field) == value
+    check_supported(cfg)
 
 
 def test_chained_and_speculative_decode_flags_are_served():
@@ -204,8 +230,8 @@ def test_every_config_field_is_read_or_refused():
     assert "self.served_model_name" in config_py.read_text() and "cfg.name" in src
 
 
-@pytest.mark.parametrize("flag", ["--compilation-cache-dir", "--tool-call-parser", "--prefill-fused-kv-write",
-                                  "--decode-pages-per-block", "--kv-fabric-port", "--trace-sample-rate"])
+@pytest.mark.parametrize("flag", ["--compilation-cache-dir", "--kv-directory-flush-s", "--prefill-fused-kv-write",
+                                  "--decode-pages-per-block", "--kv-fabric-port", "--migrate-attach-timeout-s"])
 def test_cli_does_not_register_flags_the_port_ignores(flag):
     import argparse
 

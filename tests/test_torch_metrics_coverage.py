@@ -54,23 +54,19 @@ _SPEC = ("spec_decode_draft_acceptance_rate", "spec_decode_num_accepted_tokens_t
          "spec_decode_num_draft_tokens_total")
 _MIGRATION = ("migration_duration_seconds", "migration_failures_total", "migration_pages_moved_total",
               "migrations_in_total", "migrations_out_total")
-_TRACES = ("trace_buffer_capacity", "trace_spans_dropped_total", "trace_spans_recorded_total")
 
 # series of refused features -> the port's switch that refuses them
 REFUSED = {
     **{f"vllm:{n}": "kv_directory_url" for n in _DIRECTORY},
     **{f"vllm:{n}": "kv_fabric" for n in _FABRIC},
     **{f"vllm:{n}": "kv_role" for n in _TRANSFER},
-    **{f"vllm:{n}": "warm_start" for n in _WARM},
 }
 # series both servers emit only at a setting other than the default
 SETTING_ONLY = {f"vllm:{n}": "speculative_k" for n in _SPEC}
 # series of JAX features the port has no switch for: not ported, and nothing
-# to refuse (the JAX engine serves migration by default; traces are a debug
-# route)
+# to refuse (the JAX engine serves migration by default)
 NOT_PORTED = {
     **{f"vllm:{n}": "live migration (/migrate_*)" for n in _MIGRATION},
-    **{f"vllm:{n}": "the span collector (/v1/traces)" for n in _TRACES},
 }
 # series other processes than the engine emit
 OTHER_PROCESS = {
@@ -89,10 +85,11 @@ OTHER_PROCESS = {
 @pytest.fixture(scope="module")
 def port_series() -> set:
     """Every series name a port server's /metrics gives after one streamed
-    request, with the CPU tier on and a measured link (the CPU has none to
-    probe, so the figure is set by hand)."""
+    request, with the CPU tier and warm start on and a measured link (the
+    CPU has none to probe, so the figure is set by hand)."""
     cfg = EngineConfig(model="llama-debug", host="127.0.0.1", port=free_port(), num_pages=16, page_size=8,
-                       max_model_len=128, prefill_chunk=32, kv_offload_cpu_gb=0.01, kv_offload_max_io_pages=4)
+                       max_model_len=128, prefill_chunk=32, kv_offload_cpu_gb=0.01, kv_offload_max_io_pages=4,
+                       warm_start=True)
     engine = LLMEngine(cfg, device="cpu")
     engine.kv_link_bandwidth_bytes_per_s = 1e9
     loop = asyncio.new_event_loop()
@@ -140,6 +137,9 @@ def test_every_charted_jax_series_of_a_served_feature_is_emitted_by_the_port(por
     assert set(REFUSED.values()) <= set(_UNSUPPORTED)
     assert not set(SETTING_ONLY.values()) & set(_UNSUPPORTED)
     assert {f"vllm:{n}" for n in _CHAINED} <= port_series
+    assert {f"vllm:{n}" for n in _WARM} <= port_series
+    assert {"vllm:trace_buffer_capacity", "vllm:trace_spans_dropped_total",
+            "vllm:trace_spans_recorded_total"} <= port_series
     for name in ("vllm:tpu_hbm_bytes_in_use", "vllm:hbm_headroom_bytes", "vllm:kv_pool_device_bytes",
                  "vllm:compile_seconds_total", "vllm:request_queue_time_seconds", "vllm:prefill_chunk_seconds",
                  "vllm:interleaved_decode_step_seconds", "vllm:engine_saturated_batch",

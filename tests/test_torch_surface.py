@@ -89,10 +89,6 @@ REFUSED_SERIES = {
         "migration_duration_seconds", "migration_fabric_pages_total", "migration_failures_total",
         "migration_pages_moved_total", "migrations_in_total", "migrations_out_total",
     )},
-    # the span collector behind /v1/traces, a debug route not ported
-    **{f"vllm:{k}": "no switch: the span collector (/v1/traces)" for k in (
-        "trace_buffer_capacity", "trace_spans_dropped_total", "trace_spans_recorded_total",
-    )},
 }
 
 
