@@ -185,6 +185,28 @@ non-zero exit (nothing is caught):
                each engine's second request (the same prompt, a prefix
                hit in both) and the remote tier's bytes and seconds, with
                the card.
+5f. disagg -- after the stack phase: disaggregated prefill. For each of
+               TCP blobs, the KV fabric (frames of 4 layers), CUDA IPC
+               (``--kv-transfer-device``) and, with int8 pools, the
+               fabric: a producer api_server subprocess (llama-3.2-1b
+               bf16, 64-token pages) and a consumer engine behind a port
+               server in this process. The phase sends the router's two
+               requests itself: the 1,101-token prompt with max_tokens=1
+               and ``kv_transfer_params`` to the producer, then the whole
+               request (16 greedy tokens with their top-5 logprobs,
+               streamed) to the consumer. The consumer must restore all 17
+               full pages (1,088 cached tokens), byte-identical across the
+               three bf16 transports and equal to the blobs' bytes (the
+               producer's pool bytes); answer a cold monolithic engine's
+               ids on the same prompt (int8: a cold int8 engine's), with
+               every logprob within 0.1 of its; the producer launches the prefill kernel
+               with its write and no decode, the consumer the decode
+               kernel and the prefill kernel once a layer (the 13-token
+               tail); the int8 pair only the int8 kernels; the device run
+               ships every page over CUDA IPC with no TCP blob. A "disagg"
+               line per transport: pages and MiB, the producer's push
+               seconds, the consumer's TTFT beside a cold monolithic
+               engine's on the same prompt, the launches, the card.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -209,7 +231,9 @@ mixtral-8x7b servers for D = 128, the gemma-2-2b server for its bf16 rows
 and its int8 kernel forward for its int8 rows, which no server runs; the
 [tp2] rows from the tp 2 servers, summed over both ranks, and from the dp 2
 x tp 2 int8 server's four ranks; the [dp2] row from the dp 2 server's two
-ranks; the [verify] row from the spec server's verify rounds, L a round), the
+ranks; the [verify] row from the spec server's verify rounds, L a round;
+the D = 64 rows also count the disagg phase's producers' and consumers'
+launches), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device, or run from a directory without the package, it exits
@@ -3433,6 +3457,406 @@ def phase_stack(serve=None, launches: "dict | None" = None) -> None:
                 proc.wait(timeout=10)
 
 
+# -- disaggregated prefill -----------------------------------------------------
+
+# the prompt: 1,100 bytes + BOS = 17 full 64-token pages (2 MiB each in
+# bf16) and a 13-token tail the consumer prefills itself
+DISAGG_PROMPT_BYTES = 1100
+DISAGG_TOKENS = 16
+DISAGG_PAGES = (DISAGG_PROMPT_BYTES + 1) // 64
+DISAGG_STREAM_LAYERS = 4
+# each request asks for the top logprobs of every token: the consumer's,
+# decoded over the shipped pages, must match a cold monolithic engine's on
+# the same prompt within DISAGG_LOGPROB_TOL (bf16 logits; the two engines
+# prefill the tail in different chunks), beside equal ids
+DISAGG_LOGPROBS = 5
+DISAGG_LOGPROB_TOL = 0.1
+# (label, both engines' overrides, the producer's own): the KV ships as TCP
+# blobs, as fabric frames of 4 layers, device to device over CUDA IPC, and,
+# for int8 pools, over the fabric (their only path)
+DISAGG_RUNS = (
+    ("tcp", {}, {}),
+    ("fabric", dict(kv_fabric=True), dict(kv_fabric_stream_layers=DISAGG_STREAM_LAYERS)),
+    ("device", dict(kv_transfer_device=True), {}),
+    ("fabric, int8", dict(kv_fabric=True, kv_cache_dtype="int8"), dict(kv_fabric_stream_layers=DISAGG_STREAM_LAYERS)),
+)
+
+
+def disagg_producer_main() -> None:
+    """A disagg producer: the port's api_server in this process with the
+    engine flags after the first argument, which names the JSON file this
+    writes at SIGTERM: the kernel launches and plain-version calls of the
+    process (its counts start at 0 with it), and the seconds the engine
+    spent in ``_push_finished_kv`` (the finished prefill to its answer)."""
+    import argparse
+
+    import torch
+
+    from production_stack_tpu_torch.engine import api_server
+    from production_stack_tpu_torch.engine.config import add_engine_args, config_from_args
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    out_path = sys.argv[1]
+    p = argparse.ArgumentParser()
+    add_engine_args(p)
+    cfg = config_from_args(p.parse_args(sys.argv[2:]))
+    push = _Timed(LLMEngine, "_push_finished_kv")
+    parts = _disagg_timers(producer=True)
+    kernels, plains = _counters()
+
+    async def run():
+        server, runner = await api_server.serve(cfg)
+        await api_server._wait_for_termination()
+        out = {"launches": {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()},
+               "plain_calls": {k: fn.calls for k, fn in plains.items()},
+               "push_s": push.seconds, "push_calls": push.calls,
+               "parts": {name: [t.calls, round(t.seconds, 4)] for name, t in parts.items()}}
+        await runner.cleanup()
+        server.engine.stop()
+        Path(out_path).write_text(json.dumps(out))
+
+    asyncio.run(run())
+
+
+def _disagg_timers(producer: bool) -> dict:
+    """Calls and seconds of the transfer's steps in this process (installed
+    for the run; a measurement, not the port's): on a producer the fabric
+    push, the blob pushes, the device offers (the page copy, and the IPC
+    export inside it) and their page_query/page_ready round trips; on a
+    consumer the device pulls, their handle fetch from the producer and the
+    handle's open (the rest of a pull is its copy, the synchronize and the
+    close), and the staged pages' writes into the pool."""
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.runner import ModelRunner
+    from production_stack_tpu_torch.kvoffload.transfer import DeviceKVEndpoint, KVTransferSender
+
+    if producer:
+        spots = (("fabric_push", LLMEngine, "_fabric_stream_push"), ("blob_push", KVTransferSender, "push"),
+                 ("device_page", KVTransferSender, "push_device"),
+                 ("offer", ModelRunner, "kv_offer_page"), ("ipc_export", DeviceKVEndpoint, "_export"))
+    else:
+        spots = (("pull", ModelRunner, "kv_pull_page"), ("handle_fetch", DeviceKVEndpoint, "_fetch_handle"),
+                 ("ipc_open", DeviceKVEndpoint, "_open"), ("restore", ModelRunner, "kv_restore_page"))
+    return {name: _Timed(cls, attr) for name, cls, attr in spots}
+
+
+def _wait_http(url: str, proc, timeout: float, what: str, log) -> None:
+    import urllib.request
+
+    deadline = time.time() + timeout
+    while time.time() < deadline:
+        if proc.poll() is not None:
+            log.seek(0)
+            fail(f"disagg: {what} exited with {proc.returncode}: {log.read()[-3000:].decode(errors='replace')}")
+        try:
+            with urllib.request.urlopen(url, timeout=2):
+                return
+        except OSError:
+            time.sleep(0.3)
+    proc.kill()
+    fail(f"disagg: {what} did not answer {url} within {timeout:.0f} s")
+
+
+def _stop_proc(proc) -> None:
+    import signal
+
+    if proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+    try:
+        proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait(timeout=10)
+
+
+def _kv_keys(stats: dict) -> dict:
+    """The transfer and fabric counters of an engine's stats."""
+    return {k: v for k, v in stats.items() if k.startswith(("kv_transfer", "kv_fabric", "kv_offload_device"))}
+
+
+def _page_bytes(engine, keys: list) -> list:
+    """The consumer pool's bytes of the pages ``keys`` name (k, v and, in
+    int8 pools, the scales), read after its request."""
+    pids = [engine.kv.hash_to_page[bytes.fromhex(k)] for k in keys]
+    if engine.kv_quant:
+        ks, vs, sks, svs = engine.runner.get_pages_quant(pids)
+        return [a.tobytes() + b.tobytes() + c.tobytes() + d.tobytes() for a, b, c, d in zip(ks, vs, sks, svs)]
+    ks, vs = engine.runner.get_pages(pids)
+    return [a.tobytes() + b.tobytes() for a, b in zip(ks, vs)]
+
+
+def _blob_bytes(engine, keys: list) -> list:
+    """The same pages as the consumer's store holds them (the blobs or
+    frames the producer shipped, its exact pool bytes)."""
+    from production_stack_tpu_torch.kvoffload import serde as serde_mod
+
+    out = []
+    for key in keys:
+        blob = engine._offload.store.get(key)
+        check(blob is not None, f"disagg: the consumer's store lacks page {key[:12]}")
+        if engine.kv_quant:
+            qk, sk, qv, sv = serde_mod.get_serde("int8page").deserialize_quant(blob)
+            out.append(qk.tobytes() + qv.tobytes() + sk.tobytes() + sv.tobytes())
+        else:
+            k, v = serde_mod.deserialize(blob)
+            out.append(k.tobytes() + v.tobytes())
+    return out
+
+
+async def _stream_ttft(base: str, body: dict) -> float:
+    """One streamed completion: the seconds to its first chunk."""
+    import aiohttp
+
+    t0 = time.perf_counter()
+    ttft = None
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+        async with s.post(base + "/v1/completions", json=dict(body, stream=True)) as r:
+            if r.status != 200:
+                fail(f"disagg: streamed completion -> {r.status}: {await r.text()}")
+            async for raw in r.content:
+                line = raw.decode().strip()
+                if not line.startswith("data:") or line == "data: [DONE]":
+                    continue
+                if ttft is None:
+                    ttft = time.perf_counter() - t0
+    return ttft
+
+
+def phase_disagg(launches: "dict | None" = None) -> None:
+    """Disaggregated prefill on the one card (docstring, 5f): for each of
+    DISAGG_RUNS a producer api_server subprocess and a consumer engine in
+    this process behind a port server; the router's two requests driven
+    here; the restored pages, ids, launches and counters checked. The
+    launches of the main path are added to ``launches``' D = 64 rows."""
+    if launches is None:
+        launches = {}
+    import random
+    import tempfile
+
+    import torch
+
+    from production_stack_tpu_torch.engine.api_server import serve as serve_http
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.kv_manager import prefix_hashes
+
+    kernels, plains = _counters()
+    prompt = _prompt(random.Random(15), DISAGG_PROMPT_BYTES)
+    body = {"model": "llama-3.2-1b", "prompt": prompt, "max_tokens": DISAGG_TOKENS, "temperature": 0.0,
+            "ignore_eos": True, "logprobs": DISAGG_LOGPROBS}
+
+    def zero_counts():
+        for fn, attr in kernels.values():
+            setattr(fn, attr, 0)
+        for fn in plains.values():
+            fn.calls = 0
+
+    def record(engine, got: dict) -> None:
+        """Keep the ids, logprobs and cached tokens ``engine`` streams."""
+        orig = engine.generate
+
+        async def recording(seq_id, *a, **kw):
+            async for out in orig(seq_id, *a, **kw):
+                row = got.setdefault(seq_id, {"ids": [], "logprobs": [], "cached": 0})
+                row["ids"].extend(out.token_ids)
+                row["logprobs"].extend(out.logprobs or [])
+                row["cached"] = out.cached_tokens
+                yield out
+
+        engine.generate = recording
+
+    async def cold(overrides: dict):
+        """A monolithic engine's answer to the same prompt, the first request
+        of a fresh engine: its ids and logprobs (what the consumer's must
+        match) and its TTFT (the number set beside the consumer's)."""
+        cfg = EngineConfig(model="llama-3.2-1b", host="127.0.0.1", port=_free_port(), **overrides)
+        server, runner = await serve_http(cfg)
+        got = {}
+        record(server.engine, got)
+        try:
+            ttft = await _stream_ttft(f"http://127.0.0.1:{cfg.port}", body)
+        finally:
+            await runner.cleanup()
+            server.engine.stop()
+        (row,) = got.values()
+        return dict(row, ttft_s=ttft)
+
+    colds = {}
+    for quant in (False, True):
+        colds[quant] = asyncio.run(cold(dict(kv_cache_dtype="int8") if quant else {}))
+        check(len(colds[quant]["ids"]) == DISAGG_TOKENS and len(colds[quant]["logprobs"]) == DISAGG_TOKENS,
+              f"disagg: the cold engine answered {colds[quant]}")
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    def one(label: str, both: dict, prod_only: dict) -> dict:
+        cport, rport, pport = _free_port(), _free_port(), _free_port()
+        ccfg = EngineConfig(model="llama-3.2-1b", host="127.0.0.1", port=cport, kv_role="consumer",
+                            kv_transfer_port=rport, **both)
+        args = ["--model", "llama-3.2-1b", "--host", "127.0.0.1", "--port", str(pport), "--kv-role", "producer",
+                "--kv-peer-url", f"127.0.0.1:{rport}"]
+        for k, v in {**both, **prod_only}.items():
+            flag = "--" + k.replace("_", "-")
+            args += [flag] if v is True else [flag, str(v)]
+        if both.get("kv_fabric"):
+            args += ["--kv-fabric-peer", f"http://127.0.0.1:{cport}"]  # resolved through GET /kv_fabric
+        out_json = Path(tempfile.mkdtemp()) / "producer.json"
+        log = tempfile.TemporaryFile()
+        env = dict(os.environ, PYTHONPATH=str(ROOT), PSTPU_LOG_LEVEL="WARNING")
+        # the producer boots while the consumer is built here
+        proc = subprocess.Popen(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke as c; "
+             "c.disagg_producer_main()", str(out_json), *args],
+            cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log,
+        )
+        res = {"label": label, "fabric_on": bool(both.get("kv_fabric"))}
+        parts = _disagg_timers(producer=False)
+        try:
+            async def consumer():
+                server, runner = await serve_http(ccfg)
+                engine = server.engine
+                got = {}
+                record(engine, got)  # the consumer's ids and logprobs, as the server streams them
+                try:
+                    await asyncio.get_running_loop().run_in_executor(
+                        None, _wait_http, f"http://127.0.0.1:{pport}/health", proc, 180, "the producer", log)
+                    zero_counts()
+                    import aiohttp
+
+                    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+                        # the router's phase 1: the prompt with max_tokens=1
+                        t0 = time.perf_counter()
+                        pbody = dict(body, max_tokens=1, kv_transfer_params={"request_id": f"disagg-{label}"})
+                        async with s.post(f"http://127.0.0.1:{pport}/v1/completions", json=pbody) as r:
+                            if r.status != 200:
+                                fail(f"disagg {label}: producer -> {r.status}: {await r.text()}")
+                            await r.read()
+                        res["prefill_request_s"] = time.perf_counter() - t0
+                        # phase 2: the whole request to the consumer
+                        res["ttft_s"] = await _stream_ttft(f"http://127.0.0.1:{cport}", body)
+                        async with s.get(f"http://127.0.0.1:{pport}/stats") as r:
+                            res["producer_stats"] = await r.json()
+                        async with s.get(f"http://127.0.0.1:{cport}/metrics") as r:
+                            res["consumer_metrics"] = await r.text()
+                        async with s.get(f"http://127.0.0.1:{cport}/kv_fabric") as r:
+                            res["kv_fabric"] = await r.json()
+                    res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
+                    res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
+                    res["stats"] = engine.stats()
+                    (row,) = got.values()
+                    res["ids"], res["logprobs"], res["cached"] = row["ids"], row["logprobs"], row["cached"]
+                    keys = [h.hex() for h in prefix_hashes(engine.tokenizer.encode(prompt), 64)]
+                    res["keys"] = keys
+                    res["pages"] = _page_bytes(engine, keys)
+                    if not both.get("kv_transfer_device"):
+                        res["blobs"] = _blob_bytes(engine, keys)
+                    res["page_bytes"] = engine.kv_page_bytes
+                finally:
+                    await runner.cleanup()
+                    engine.stop()
+
+            asyncio.run(consumer())
+        finally:
+            _stop_proc(proc)
+            res["parts"] = {name: [t.calls, round(t.seconds, 4)] for name, t in parts.items()}
+            for t in parts.values():
+                t.remove()
+        check(proc.returncode == 0 and out_json.exists(),
+              f"disagg {label}: the producer exited with {proc.returncode}")
+        res["producer"] = json.loads(out_json.read_text())
+        gc.collect()
+        torch.cuda.empty_cache()
+        return res
+
+    def lp_diff(a: list, b: list) -> float:
+        """The largest gap between two answers' logprobs, position by
+        position: the chosen token's and the sorted top ones'."""
+        gaps = [abs(x["logprob"] - y["logprob"]) for x, y in zip(a, b)]
+        gaps += [abs(p - q) for x, y in zip(a, b) for p, q in zip(x["top_logprobs"], y["top_logprobs"])]
+        return max(gaps) if gaps and len(a) == len(b) else float("inf")
+
+    runs = [one(*run) for run in DISAGG_RUNS]
+    card = nvidia_smi_line()
+    for r in runs:  # the lines first, then the checks
+        st, pst = r["stats"], r["producer_stats"]
+        c = colds["int8" in r["label"]]
+        r["cold_ids"], r["lp_diff"] = c["ids"], lp_diff(r["logprobs"], c["logprobs"])
+        pages = (st.get("kv_fabric_received_pages_total", 0) + st["kv_transfer_received_chunks_total"]
+                 + st["kv_transfer_device_pages_total"])
+        emit({
+            "phase": "disagg", "transport": r["label"], "model": "llama-3.2-1b", "pages": pages,
+            "mib": round(pages * r["page_bytes"] / 2**20, 3),
+            "blob_bytes": st["kv_transfer_received_bytes_total"],
+            "push_s": round(r["producer"]["push_s"], 4), "push_calls": r["producer"]["push_calls"],
+            "prefill_request_s": round(r["prefill_request_s"], 4),
+            "consumer_ttft_s": round(r["ttft_s"], 4), "cold_ttft_s": round(c["ttft_s"], 4),
+            "cached_tokens": r["cached"], "ids": r["ids"], "cold_ids": r["cold_ids"],
+            "logprob_max_diff_vs_cold": round(r["lp_diff"], 5), "logprob_tol": DISAGG_LOGPROB_TOL,
+            "producer_launches": r["producer"]["launches"], "consumer_launches": r["launches"],
+            # [calls, seconds] of the transfer's steps in each process
+            "producer_parts": r["producer"]["parts"], "consumer_parts": r["parts"],
+            "card": card,
+        })
+    for r in runs:
+        label, st, pst, prod = r["label"], r["stats"], r["producer_stats"], r["producer"]
+        quant = "int8" in label
+        fp, q = SERVE_ROWS[False], SERVE_ROWS[True]
+        check(st["kv_offload_hit_pages_total"] >= DISAGG_PAGES and r["cached"] == 64 * DISAGG_PAGES,
+              f"disagg {label}: the consumer restored {st['kv_offload_hit_pages_total']} pages, cached {r['cached']}")
+        check(len(r["ids"]) == DISAGG_TOKENS, f"disagg {label}: {len(r['ids'])} ids")
+        # the consumer's answer over the shipped pages is the cold
+        # monolithic engine's (int8 pools: a cold int8 engine's)
+        check(r["ids"] == r["cold_ids"], f"disagg {label}: ids {r['ids']} != the cold engine's {r['cold_ids']}")
+        check(r["lp_diff"] <= DISAGG_LOGPROB_TOL,
+              f"disagg {label}: logprobs {r['lp_diff']:.4f} from the cold engine's (tolerance {DISAGG_LOGPROB_TOL})")
+        check(st["kv_corrupt_pages_total"] == 0, f"disagg {label}: corrupt pages on the consumer")
+        # the producer ran the prefill kernel with its fused write and no
+        # decode; the consumer the decode kernel and the prefill kernel for
+        # the tail only (one 13-token chunk: a launch per layer)
+        rows = q if quant else fp
+        other = fp if quant else q
+        check(prod["launches"][rows[1]] > 0 and prod["launches"][rows[2]] > 0,
+              f"disagg {label}: producer launches {prod['launches']}")
+        check(prod["launches"][rows[0]] == 0, f"disagg {label}: the producer decoded {prod['launches']}")
+        check(r["launches"][rows[0]] > 0 and r["launches"][rows[1]] == 16,
+              f"disagg {label}: consumer launches {r['launches']}")
+        for who, counts in (("producer", prod), ("consumer", r)):
+            check(all(counts["launches"][k] == 0 for k in other),
+                  f"disagg {label}: the {who} ran the other mode's kernels {counts['launches']}")
+            check(all(n == 0 for n in counts["plain_calls"].values()),
+                  f"disagg {label}: the {who} ran plain versions {counts['plain_calls']}")
+        check(r["kv_fabric"].get("enabled") == r["fabric_on"], f"disagg {label}: GET /kv_fabric {r['kv_fabric']}")
+        if "blobs" in r:
+            check(r["pages"] == r["blobs"], f"disagg {label}: restored pages differ from the shipped bytes")
+        if label.startswith("fabric"):
+            # the client counts a page once per frame: 16 layers in windows of 4
+            windows = -(-16 // DISAGG_STREAM_LAYERS)
+            check(st["kv_fabric_received_pages_total"] == DISAGG_PAGES and pst["kv_fabric_pushed_pages_total"]
+                  == windows * DISAGG_PAGES and pst["kv_fabric_fallbacks_total"] == 0
+                  and st["kv_fabric_corrupt_frames_total"] == 0 and pst["kv_fabric_corrupt_frames_total"] == 0,
+                  f"disagg {label}: fabric counters {_kv_keys(st)} / {_kv_keys(pst)}")
+            check("vllm:kv_fabric_peer_bandwidth_bytes_per_sec" in r["consumer_metrics"],
+                  f"disagg {label}: /metrics lacks the fabric bandwidth gauge")
+        if label == "tcp":
+            check(pst["kv_transfer_sent_chunks_total"] == DISAGG_PAGES
+                  and st["kv_transfer_received_chunks_total"] == DISAGG_PAGES,
+                  f"disagg tcp: {_kv_keys(pst)} / {_kv_keys(st)}")
+        if label == "device":
+            # every page over CUDA IPC: no blob crossed, and admission wrote
+            # the staged device pages
+            check(pst["kv_transfer_device_pages_total"] == DISAGG_PAGES and pst["kv_transfer_sent_chunks_total"] == 0
+                  and st["kv_transfer_device_pages_total"] == DISAGG_PAGES
+                  and st["kv_transfer_received_chunks_total"] == 0
+                  and st["kv_offload_device_loaded_pages_total"] == DISAGG_PAGES,
+                  f"disagg device: producer {_kv_keys(pst)} / consumer {_kv_keys(st)}")
+        for k in rows:
+            launches[_dtag(k, 64)] = launches.get(_dtag(k, 64), 0) + prod["launches"][k] + r["launches"][k]
+    fp_runs = [r for r in runs if "int8" not in r["label"]]
+    for r in fp_runs[1:]:
+        check(r["pages"] == fp_runs[0]["pages"], f"disagg {r['label']}: restored pages differ from the tcp run's")
+        check(r["ids"] == fp_runs[0]["ids"], f"disagg {r['label']}: ids {r['ids']} != tcp's {fp_runs[0]['ids']}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3494,6 +3918,9 @@ def main() -> int:
         # the engine inside the stack's services: cache server, controller,
         # spans under a traceparent, debug routes, a warm restart
         phase_stack(serve, launches)
+        # disaggregated prefill: a producer subprocess and a consumer here,
+        # the KV over TCP blobs, the fabric, CUDA IPC, and int8 over the fabric
+        phase_disagg(launches)
         # tensor parallelism: two ranks (processes) on the one card over
         # gloo, with qwen2.5-7b's directory still on the disk
         tp_ref = phase_tp_reference()

@@ -23,7 +23,13 @@ engine's queue, prefill and decode spans under it), ``/v1/debug/flightrecorder``
 and ``POST /metrics/reset`` (empties the TTFT hop windows, the latency and
 phase histograms, the span ring and the flight recorder). On SIGTERM the
 server drains, then spills the warm-start manifest (``--warm-start``).
-Live migration and the KV fabric are not ported.
+``GET /kv_fabric`` answers the engine's KV fabric listener (its address,
+generation, dtype family and page size, or ``enabled: false``), which a
+disaggregated-prefill producer's ``--kv-fabric-peer`` URL resolves, and
+``/metrics`` carries the fabric's push and pull histograms and the probed
+per-peer bandwidth the router's disaggregated_prefill mode scrapes to pick
+a decode engine. Live migration (``/migratable``, ``/migrate_*``) is not
+ported.
 
 Run: ``python -m production_stack_tpu_torch.engine.api_server --model
 llama-3.2-1b`` (a preset), or ``--model /path/to/hf-dir`` (a local
@@ -430,6 +436,24 @@ class EngineServer:
             lines.append(f"# TYPE vllm:ttft_hop_{hop}_ms gauge")
             for q, v in qs.items():
                 lines.append(f'vllm:ttft_hop_{hop}_ms{{model_name="{m}",quantile="{q}"}} {round(v, 3)}')
+        fab = self.engine._fabric_client
+        if fab is not None:
+            # the fabric's latency histograms and the per-peer probed
+            # bandwidth the router's decode pick scrapes (its kv_fabric_*
+            # counters came with the kv_ sweep)
+            lines.extend(fab.push_hist.render(f'model_name="{m}"'))
+            lines.extend(fab.pull_hist.render(f'model_name="{m}"'))
+            lines.append("# HELP vllm:kv_fabric_peer_bandwidth_bytes_per_sec "
+                         "probed engine-to-engine fabric bandwidth per peer")
+            lines.append("# TYPE vllm:kv_fabric_peer_bandwidth_bytes_per_sec gauge")
+            peers = fab.probe_cache.snapshot()
+            if not peers:
+                # a zero placeholder keeps the name scrapeable before the
+                # first probe
+                lines.append(f'vllm:kv_fabric_peer_bandwidth_bytes_per_sec{{model_name="{m}",peer="none"}} 0')
+            for addr, link in sorted(peers.items()):
+                lines.append(f'vllm:kv_fabric_peer_bandwidth_bytes_per_sec{{model_name="{m}",peer="{addr}"}} '
+                             f"{round(link.bandwidth, 1)}")
         lines.extend(_ttft_hist.render(f'model_name="{m}"'))
         lines.extend(_latency_hist.render(f'model_name="{m}"'))
         lines.extend(render_phase_histograms(f'model_name="{m}"'))
@@ -438,6 +462,20 @@ class EngineServer:
         lines.extend(render_flightrecorder_metrics(f'model_name="{m}"'))
         lines.extend(self.devmon.metrics_lines(m))
         return web.Response(text="\n".join(lines) + "\n", content_type="text/plain")
+
+    async def kv_fabric_info(self, request: web.Request) -> web.Response:
+        """Fabric discovery: a disagg producer resolves this engine's fabric
+        listener (and its generation and dtype facts) here."""
+        srv = self.engine._fabric_server
+        if srv is None:
+            return web.json_response({"enabled": False})
+        return web.json_response({
+            "enabled": True,
+            "addr": srv.address,
+            "generation": srv.generation,
+            "quant": srv.quant,
+            "page_size": srv.page_size,
+        })
 
     async def slo_records(self, request: web.Request) -> web.Response:
         """The engine's SLO terminal records after a cursor (``?since=<seq>``),
@@ -1046,6 +1084,7 @@ class EngineServer:
         r.add_get("/metrics", self.metrics)
         r.add_get("/stats", self.stats)
         r.add_get("/slo_records", self.slo_records)
+        r.add_get("/kv_fabric", self.kv_fabric_info)
         if self.cfg.enable_debug_endpoints:
             # unauthenticated debug surfaces, for benchmark and test runs:
             # the traces and the recorder expose request ids and timings,

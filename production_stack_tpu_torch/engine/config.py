@@ -177,11 +177,44 @@ class EngineConfig:
     # device of each rank, comma-separated (default: rank r on cuda:r)
     tp_backend: str = "nccl"
     tp_device_ids: Optional[str] = None
+    # disaggregated prefill role: none | producer | consumer. A producer
+    # ships each finished prefill's full pages to kv_peer_url (the
+    # consumer's receiver) before it answers; a consumer listens on
+    # kv_transfer_port and restores the received pages through its offload
+    # path (it always gets a CPU tier for them)
+    kv_role: str = "none"
+    kv_transfer_port: int = 55555
+    kv_peer_url: Optional[str] = None
+    # device-to-device KV between a producer and a consumer on one host:
+    # pages move over CUDA IPC (kvoffload/transfer.DeviceKVEndpoint) instead
+    # of host serde + TCP blobs. Both roles must enable it; a page whose pull
+    # fails ships as a blob. fp pools and tp = dp = 1 only
+    kv_transfer_device: bool = False
+    # host the producer's IPC endpoint listens at (the consumer asks it for
+    # a page's handles)
+    kv_transfer_device_host: str = "127.0.0.1"
+    # staging budget for device-pulled pages awaiting admission (consumer)
+    kv_transfer_stage_mb: int = 1024
+    # the peer-to-peer KV fabric (kvfabric/): versioned, CRC-framed (pages,
+    # scales) frames engine to engine, so int8 pools ship with their exact
+    # scales. A disagg producer streams a finished prefill's pages over it
+    # first and falls back to TCP blobs (vllm:kv_fabric_fallbacks_total)
+    kv_fabric: bool = False
+    # fabric listener port; 0 binds an ephemeral port (GET /kv_fabric)
+    kv_fabric_port: int = 0
+    # bounded per-request retries below the per-peer breaker
+    kv_fabric_retries: int = 2
+    # disagg producer: the decode peer's fabric listener ("host:port") or
+    # its HTTP URL (GET /kv_fabric then resolves the advertised listener)
+    kv_fabric_peer: Optional[str] = None
+    # streamed disagg prefill: layers shipped per frame (the consumer
+    # assembles windows into whole pages); 0 ships whole pages in one frame
+    kv_fabric_stream_layers: int = 0
 
     # Switches of the JAX engine's features that the port does not serve
     # yet. Each must keep its default: check_supported refuses any other
     # value rather than ignore it. The JAX engine's per-feature sub-knobs
-    # (fabric ports, directory flush intervals, ...) are not carried.
+    # (directory flush intervals, migration knobs, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
     sequence_parallel_size: int = 1
     expert_parallel_size: int = 1
@@ -190,8 +223,6 @@ class EngineConfig:
     distributed_num_processes: int = 1
     kv_directory_url: Optional[str] = None
     warm_prefetch_on_boot: int = 0      # needs the fleet KV directory
-    kv_role: str = "none"               # disaggregated prefill
-    kv_fabric: bool = False
 
     @property
     def name(self) -> str:
@@ -282,6 +313,33 @@ _FLAG_HELP = {
         "dump the flight recorder when a request's TTFT exceeds this many "
         "milliseconds (rate-limited; 0 = off)"
     ),
+    "kv_role": (
+        "disaggregated prefill role: none | producer (ships finished "
+        "prefills' pages to --kv-peer-url) | consumer (receives them on "
+        "--kv-transfer-port)"
+    ),
+    "kv_transfer_device": (
+        "disaggregated prefill: move pages device to device over CUDA IPC "
+        "(both engines on one host; fp pools, tp = dp = 1), a blob per "
+        "page that fails"
+    ),
+    "kv_transfer_device_host": "host the producer's CUDA IPC endpoint listens at",
+    "kv_transfer_stage_mb": "consumer: MiB of device-pulled pages staged before admission",
+    "kv_fabric": (
+        "peer-to-peer KV fabric: engine-to-engine (pages, scales) frames for "
+        "streamed disagg prefill (the path for int8 pools), with TCP-blob "
+        "fallback on any failure"
+    ),
+    "kv_fabric_port": "fabric listener port (0 = ephemeral; advertised on GET /kv_fabric)",
+    "kv_fabric_retries": "bounded fabric retries per request, below the per-peer breaker",
+    "kv_fabric_peer": (
+        "disagg producer: decode peer's fabric listener (host:port) or its "
+        "HTTP URL (resolved via GET /kv_fabric)"
+    ),
+    "kv_fabric_stream_layers": (
+        "streamed disagg prefill: layers per fabric frame so decode starts "
+        "before the last layer lands (0 = whole pages per frame)"
+    ),
     "flight_recorder_shed_burst": (
         "dump the flight recorder when this many admission sheds land "
         "within 5 s (0 = off)"
@@ -354,17 +412,38 @@ _UNSUPPORTED = {
     "distributed_num_processes": "multi-host serving",
     "kv_directory_url": "the fleet KV directory",
     "warm_prefetch_on_boot": "warm prefetch on boot (the fleet KV directory)",
-    "kv_role": "disaggregated prefill",
-    "kv_fabric": "the KV fabric",
 }
 
 
-def check_supported(cfg: EngineConfig) -> None:
+KV_ROLES = ("none", "producer", "consumer")
+
+
+def check_supported(cfg: EngineConfig, device=None) -> None:
     """Raise on any non-default value of a feature the port lacks
     (``_UNSUPPORTED``), on a combination the port does not serve (LoRA with
-    tp or dp ranks), and on one the JAX engine refuses too (int8 pools with
-    speculative decoding, in its words)."""
+    tp or dp ranks; device KV transfer with ranks, across hosts or, given
+    ``device``, off the card), and on one the JAX engine refuses too (int8
+    pools with speculative decoding, or with disaggregated prefill but no
+    fabric; a producer without a peer; in its words)."""
     dp = cfg.data_parallel_size
+    if cfg.kv_transfer_device:
+        # the CUDA IPC endpoint moves whole pages between two single-rank
+        # engines on one host
+        if cfg.distributed_num_processes > 1:
+            raise ValueError(
+                "not supported by the PyTorch port yet: device KV transfer "
+                "(--kv-transfer-device) across hosts"
+            )
+        if dp * cfg.tensor_parallel_size > 1:
+            raise ValueError(
+                "not supported by the PyTorch port yet: device KV transfer "
+                "(--kv-transfer-device) with tp or dp ranks; the TCP and fabric paths serve them"
+            )
+        if device is not None and not str(device).startswith("cuda"):
+            raise ValueError(
+                "not supported by the PyTorch port: device KV transfer "
+                "(--kv-transfer-device) off the card (CUDA IPC needs a CUDA device)"
+            )
     if dp < 1:
         raise ValueError(f"data_parallel_size must be >= 1, got {dp}")
     if dp > 1 and cfg.pipeline_parallel_size > 1:
@@ -403,6 +482,17 @@ def check_supported(cfg: EngineConfig) -> None:
             "--kv-cache-dtype int8 is not compatible with "
             "--speculative-k (the spec scan carries raw pool blocks)"
         )
+    if cfg.kv_role not in KV_ROLES:
+        raise ValueError(f"unknown kv_role {cfg.kv_role!r}; options: {KV_ROLES}")
+    if cfg.kv_cache_dtype == "int8" and (cfg.kv_role != "none" or cfg.kv_transfer_device) and not cfg.kv_fabric:
+        raise ValueError(
+            "--kv-cache-dtype int8 with disaggregated-prefill or "
+            "device KV transfer requires --kv-fabric (fabric frames "
+            "carry the per-page scales; the raw page paths would "
+            "ship quantized bytes without them)"
+        )
+    if cfg.kv_role == "producer" and not cfg.kv_peer_url:
+        raise ValueError("kv_role=producer requires --kv-peer-url")
     tp = cfg.tensor_parallel_size
     if tp < 1:
         raise ValueError(f"tensor_parallel_size must be >= 1, got {tp}")

@@ -74,8 +74,18 @@ a last one when the server drains (``warm_spill``). With dp or tp ranks the
 offload tiers and warm start move pages through the runner's page calls,
 which every rank runs.
 
-Not ported yet: the fleet directory (and warm prefetch on boot), the KV
-fabric, migration, the "pre" KV write mode and the sp, ep and pp axes
+Disaggregated prefill, as in the JAX engine: a ``kv_role="producer"`` engine,
+at a sequence's finish and before it answers, ships the sequence's full
+pages to its decode peer (``_push_finished_kv``): over the KV fabric first
+(``kv_fabric``, layer-windowed (pages, scales) frames, the only path for
+int8 pools), then per page device to device (``kv_transfer_device``: CUDA
+IPC between the two engine processes, fp pools, tp = dp = 1) or as a TCP
+blob to the consumer's receiver. A ``kv_role="consumer"`` engine lands blobs
+and frames in its offload store (it always has a CPU tier) and device pages
+in its staging, and its admission restores them like any offloaded prefix.
+
+Not ported yet: the fleet directory (and warm prefetch on boot), migration,
+the "pre" KV write mode and the sp, ep and pp axes
 (engine/config.check_supported refuses their flags).
 """
 
@@ -105,6 +115,7 @@ from production_stack_tpu_torch.engine.runner import ModelRunner, StepInput
 from production_stack_tpu_torch.engine.scheduler import SamplingParams, Scheduler, Sequence
 from production_stack_tpu_torch.engine.tokenizer import load_tokenizer
 from production_stack_tpu_torch.kvoffload.connector import KVOffloadConnector
+from production_stack_tpu_torch.kvoffload.serde import get_serde
 from production_stack_tpu_torch.kvoffload.warmstart import WarmStartManager
 from production_stack_tpu_torch.ops.quant import dequantize_page_host, kv_bytes_per_token, quantize_page_host
 from production_stack_tpu_torch.parallel.dp import check_dp
@@ -159,7 +170,9 @@ class LLMEngine:
         """``params``: a parameter dict of the port (model_loader.
         params_from_jax) to serve instead of the preset's seeded weights;
         whole, also under tp (each rank takes its part)."""
-        check_supported(cfg)  # int8 with speculative_k too, in the JAX engine's words
+        # int8 with speculative_k, or with a disagg role but no fabric, and a
+        # producer without a peer too, in the JAX engine's words
+        check_supported(cfg, device)
         self.cfg = cfg
         self.tensor_parallel = cfg.tensor_parallel_size
         self.data_parallel = cfg.data_parallel_size
@@ -256,6 +269,44 @@ class LLMEngine:
                     model=cfg.name,
                 )
                 self.warm.restore()
+        # disaggregated prefill: a producer pushes each finished prefill's
+        # pages to its decode peer; a consumer receives them into its store
+        # (TCP blobs) or its device staging (kv_transfer_device)
+        self._kv_sender = None
+        self._kv_receiver = None
+        if cfg.kv_role == "producer":
+            from production_stack_tpu_torch.kvoffload.transfer import KVTransferSender
+
+            self._kv_sender = KVTransferSender(cfg.kv_peer_url)
+        elif cfg.kv_role == "consumer":
+            from production_stack_tpu_torch.kvoffload.transfer import KVTransferReceiver
+
+            self._kv_receiver = KVTransferReceiver(self._offload.store, host=cfg.host, port=cfg.kv_transfer_port)
+            self._kv_receiver.start()
+        if cfg.kv_transfer_device and cfg.kv_role != "none":
+            # no TCP fallback for an endpoint that cannot start: it raises
+            self.runner.kv_endpoint_start(cfg.kv_transfer_device_host)
+            self._arm_device_kv()
+        # the peer-to-peer KV fabric: the listener serves resident pages off
+        # the pools (gathers run on the loop thread) and lands pushed frames
+        # as blobs in the local store, where admission's restore finds them;
+        # a producer streams its finished prefills over it first
+        self._fabric_server = None
+        self._fabric_client = None
+        self._fabric_peer_addr: Optional[str] = None
+        if cfg.kv_fabric:
+            from production_stack_tpu_torch.kvfabric import FrameAssembler, KVFabricClient, KVFabricServer
+
+            self._fabric_asm = FrameAssembler()
+            self._fabric_client = KVFabricClient(retries=cfg.kv_fabric_retries)
+            self._fabric_server = KVFabricServer(
+                host=cfg.host, port=cfg.kv_fabric_port,
+                generation=self.warm.generation if self.warm is not None else int(time.time()),
+                quant=self.kv_quant, page_size=cfg.page_size, nlayers=model_cfg.num_layers,
+                pages_fn=self._fabric_pages, sink_fn=self._fabric_sink,
+                advertise_host=cfg.advertise_host or None,
+            )
+            self._fabric_server.start()
         self.scheduler = Scheduler(
             self.kv,
             max_num_seqs=cfg.max_num_seqs,
@@ -346,7 +397,11 @@ class LLMEngine:
 
     def _make_offload_connector(self, cfg: EngineConfig) -> Optional[KVOffloadConnector]:
         """The offload connector when any tier or the KV-index controller is
-        configured (with the controller alone it only reports)."""
+        configured (with the controller alone it only reports). A
+        disaggregated-prefill consumer always gets a CPU tier: received KV
+        lands there before admission restores it into the pool."""
+        if cfg.kv_role == "consumer" and cfg.kv_offload_cpu_gb <= 0:
+            cfg = dataclasses.replace(cfg, kv_offload_cpu_gb=2.0)
         if not (cfg.kv_offload_cpu_gb > 0 or cfg.kv_offload_dir or cfg.kv_remote_url or cfg.kv_controller_url):
             return None
         return KVOffloadConnector(
@@ -446,6 +501,18 @@ class LLMEngine:
         self._inbox.put(None)
         if self._thread:
             self._thread.join(timeout=10)
+        if self._kv_sender is not None:
+            self._kv_sender.close()
+        if self._kv_receiver is not None:
+            self._kv_receiver.stop()
+            if self._kv_receiver.staging is not None:
+                self._kv_receiver.staging.clear()
+        if self.runner.kv_endpoint is not None:
+            self.runner.kv_endpoint.close()
+        if self._fabric_server is not None:
+            self._fabric_server.stop()
+        if self._fabric_client is not None:
+            self._fabric_client.close()
         if self._offload is not None:
             self._offload.stop()  # the controller reporter deregisters
         if self._tp is not None:
@@ -869,6 +936,14 @@ class LLMEngine:
         events = self.scheduler.apply_step(batch, tokens, self.tokenizer.eos_token_id)
         if batch.kind == "prefill":
             self.total_prompt_tokens += sum(batch.chunk_sizes)
+        if self._kv_sender is not None:
+            # ship KV before emitting the finish event: the prefill HTTP
+            # response must not return until the decode peer holds the KV
+            pushed = set()
+            for s, _, _, _ in events:
+                if s.finished and s.seq_id not in pushed:
+                    pushed.add(s.seq_id)
+                    self._push_finished_kv(s)
         t_emit = time.perf_counter()
         self.loop_seconds["apply"] += t_emit - t_apply
         grouped: dict[str, tuple[Sequence, list[int], list]] = {}
@@ -1078,6 +1153,179 @@ class LLMEngine:
             watermark = self.cfg.flight_recorder_ttft_watermark_ms
             if watermark > 0 and ttft_ms is not None and ttft_ms > watermark:
                 fr.dump_async("ttft_breach")  # off the loop thread
+
+    # -- disaggregated prefill and the KV fabric ------------------------------
+
+    def _arm_device_kv(self) -> None:
+        """Wire the runner's CUDA IPC endpoint into the role: a producer
+        offers pages through it (one producer process, one consumer
+        process), a consumer pulls them into device staging, which admission
+        consults before the host tiers."""
+        from production_stack_tpu_torch.kvoffload.transfer import DeviceStaging
+
+        ep = self.runner.kv_endpoint
+        if self._kv_sender is not None:
+            self._kv_sender.enable_device(ep.address, self.runner.kv_offer_page, ep.retire)
+        if self._kv_receiver is not None:
+            staging = DeviceStaging(self.cfg.kv_transfer_stage_mb << 20, on_expire=self.runner.kv_unstage_page)
+            self._offload.device_staging = staging
+            self._kv_receiver.staging = staging
+            self._kv_receiver.pull_fn = self.runner.kv_pull_page
+            self._kv_receiver.unstage_fn = self.runner.kv_unstage_page
+
+    def _push_finished_kv(self, seq: Sequence) -> None:
+        """Producer role: push every hashed page of a finished sequence to the
+        decode peer: over the fabric first, then per page device to device
+        (fp pools) or as a TCP blob. Runs on the loop thread right after
+        scheduler._finish registered the pages, so their ids are still valid
+        (nothing else has allocated since)."""
+        from production_stack_tpu_torch.engine.kv_manager import prefix_hashes
+
+        hashes = list(prefix_hashes(seq.prompt_ids + seq.output_ids, self.kv.page_size, seq.cache_salt))
+        if self._fabric_client is not None:
+            # the whole chain as (pages, scales) frames; what the fabric
+            # could not cover falls through to the per-page paths below
+            # (counted on kv_fabric_fallbacks_total)
+            hashes = self._fabric_stream_push(hashes)
+        for h in hashes:
+            pid = self.kv.hash_to_page.get(h)
+            if pid is None:
+                continue
+            key = h.hex()
+            if self._kv_sender.device_armed and not self.kv_quant:
+                # the device path: the page is copied and offered only once
+                # the consumer reserved staging for it; a refused or failed
+                # page falls through to the TCP blob push
+                kp = self.runner.k_pages
+                page_nbytes = 2 * kp[:, 0].numel() * kp.element_size()
+                if self._kv_sender.push_device(key, page_nbytes, pid):
+                    continue
+            blob = self._offload.store.get(key) if self._offload is not None else None
+            if blob is None:
+                if self.kv_quant:
+                    # int8 pools ship their exact bytes and scales (serde v3)
+                    ks, vs, sks, svs = self.runner.get_pages_quant([pid])
+                    blob = get_serde("int8page").serialize_quant(ks[0], sks[0], vs[0], svs[0])
+                else:
+                    ks, vs = self.runner.get_pages([pid])
+                    serde = self._offload.serde if self._offload is not None else get_serde(self.cfg.kv_serde)
+                    blob = serde.serialize(ks[0], vs[0])
+            self._kv_sender.push(key, blob)
+
+    def _fabric_gather(self, keys: "list[str]"):
+        """Resident pages for hex ``keys`` off the pools: (found_keys, ks,
+        vs, sks, svs) host arrays, sks/svs None on fp pools. Runs on the
+        loop thread (the runner's page calls run on every rank)."""
+        found, pids = [], []
+        for key in keys:
+            try:
+                pid = self.kv.hash_to_page.get(bytes.fromhex(key))
+            except ValueError:
+                pid = None
+            if pid is not None:
+                found.append(key)
+                pids.append(pid)
+        if not pids:
+            return [], [], [], None, None
+        if self.kv_quant:
+            ks, vs, sks, svs = self.runner.get_pages_quant(pids)
+            return found, ks, vs, sks, svs
+        ks, vs = self.runner.get_pages(pids)
+        return found, ks, vs, None, None
+
+    def _fabric_pages(self, keys: "list[str]"):
+        """The fabric listener's pull handler: resident pages for ``keys`` as
+        one wire frame. Called on the listener's worker thread; the gather
+        runs on the loop thread."""
+        from production_stack_tpu_torch.kvfabric import wire as fabric_wire
+
+        found, ks, vs, sks, svs = self._run_on_device_thread(lambda: self._fabric_gather(keys), what="fabric gather")
+        if not found:
+            return [], b""
+        return found, fabric_wire.encode_frame(found, ks, vs, sks, svs, nlayers=int(ks[0].shape[0]))
+
+    def _fabric_sink(self, frame: dict) -> int:
+        """The fabric listener's push handler: assemble layer windows into
+        whole pages and land them as local tier blobs, where admission's
+        restore finds them. Quant frames keep their scales verbatim (a serde
+        v3 blob)."""
+        if self._offload is None:
+            return 0
+        stored = 0
+        for key, (k, v, sk, sv) in self._fabric_asm.add(frame):
+            if sk is not None:
+                blob = get_serde("int8page").serialize_quant(k, sk, v, sv)
+            else:
+                blob = self._offload.serde.serialize(k, v)
+            self._offload.store.put_local(key, blob)
+            stored += 1
+        return stored
+
+    def _resolve_fabric_peer(self) -> Optional[str]:
+        """The decode peer's fabric listener address. ``--kv-fabric-peer``
+        is the address itself ("host:port") or the peer's HTTP URL, which
+        GET /kv_fabric resolves (the peer may bind an ephemeral port).
+        Cached; cleared after a fabric failure so the next push resolves
+        again."""
+        if self._fabric_peer_addr is not None:
+            return self._fabric_peer_addr
+        target = self.cfg.kv_fabric_peer
+        if not target:
+            return None
+        addr = target
+        if target.startswith("http"):
+            try:
+                import json
+                import urllib.request
+
+                with urllib.request.urlopen(target.rstrip("/") + "/kv_fabric", timeout=5) as r:
+                    info = json.loads(r.read())
+                addr = info.get("addr") if info.get("enabled", True) else None
+            except Exception as e:  # noqa: BLE001 - the blob path covers it
+                logger.warning("fabric peer resolve failed for %s: %s", target, e)
+                addr = None
+        self._fabric_peer_addr = addr
+        return addr
+
+    def _fabric_stream_push(self, hashes: list) -> list:
+        """Streamed disagg prefill: ship a finished prefill's page chain to
+        the decode peer as layer-windowed (pages, scales) frames
+        (``--kv-fabric-stream-layers`` layers each), so the consumer lands
+        pages before the last layer arrives. Returns the hashes NOT covered
+        (no peer, gather or push failure): the per-page paths are their
+        fallback, counted on kv_fabric_fallbacks_total."""
+        addr = self._resolve_fabric_peer()
+        if addr is None:
+            return hashes
+        from production_stack_tpu_torch.kvfabric import wire as fabric_wire
+
+        try:
+            found, ks, vs, sks, svs = self._fabric_gather([h.hex() for h in hashes])
+        except Exception as e:  # noqa: BLE001 - fall back to TCP blobs
+            logger.warning("fabric page gather failed: %s", e)
+            self._fabric_client.count_fallback(len(hashes))
+            return hashes
+        if not found:
+            return []
+        nlayers = int(ks[0].shape[0])
+        win = self.cfg.kv_fabric_stream_layers or nlayers
+        for lo in range(0, nlayers, win):
+            hi = min(lo + win, nlayers)
+            frame = fabric_wire.encode_frame(
+                found, [k[lo:hi] for k in ks], [v[lo:hi] for v in vs],
+                [x[lo:hi] for x in sks] if sks is not None else None,
+                [x[lo:hi] for x in svs] if svs is not None else None,
+                layers=(lo, hi), nlayers=nlayers,
+            )
+            if not self._fabric_client.push(addr, frame):
+                # mid-stream failure: drop the cached peer (it may have
+                # restarted on a new port) and let the TCP path ship the
+                # whole chain; the consumer's assembler bounds the partial
+                # windows left behind
+                self._fabric_peer_addr = None
+                self._fabric_client.count_fallback(len(found))
+                return hashes
+        return []
 
     # -- commands on the loop thread ------------------------------------------
 
@@ -1335,6 +1583,37 @@ class LLMEngine:
                 out["kv_offload_link_bandwidth_bytes_per_sec"] = round(self.kv_link_bandwidth_bytes_per_s)
         if self.warm is not None:
             out.update(self.warm.stats())
+        if self._kv_sender is not None:
+            out["kv_transfer_sent_chunks_total"] = self._kv_sender.sent_chunks
+            out["kv_transfer_sent_bytes_total"] = self._kv_sender.sent_bytes
+            out["kv_transfer_device_pages_total"] = self._kv_sender.device_pages
+        if self._kv_receiver is not None:
+            out["kv_transfer_received_chunks_total"] = self._kv_receiver.received_chunks
+            out["kv_transfer_received_bytes_total"] = self._kv_receiver.received_bytes
+            out["kv_transfer_device_pages_total"] = self._kv_receiver.device_pages
+            # pushes the receiver refused on their checksum are corrupt pages too
+            out["kv_corrupt_pages_total"] += self._kv_receiver.corrupt_chunks
+        if self._offload is not None and self._offload.device_staging is not None:
+            out["kv_offload_device_loaded_pages_total"] = self._offload.device_loaded_pages
+        if self.runner.kv_endpoint is not None:
+            # offer retirement: pinned device bytes and the upper bound on
+            # offers never pulled
+            out.update(self.runner.kv_endpoint.stats())
+        if self._fabric_server is not None:
+            # the fabric's volume, its tier fallbacks, frames quarantined on
+            # either side, generation-fenced pulls, and the live op depth
+            # peers fold into transfer-cost scores
+            srv, cli = self._fabric_server.stats(), self._fabric_client.stats()
+            out["kv_fabric_pushed_pages_total"] = cli["pushed_pages"]
+            out["kv_fabric_pulled_pages_total"] = cli["pulled_pages"]
+            out["kv_fabric_served_pages_total"] = srv["served_pages"]
+            out["kv_fabric_received_pages_total"] = srv["received_pages"]
+            out["kv_fabric_fallbacks_total"] = cli["fallbacks"]
+            out["kv_fabric_corrupt_frames_total"] = cli["corrupt_frames"] + srv["corrupt_frames"]
+            out["kv_fabric_stale_generation_pulls_total"] = srv["stale_generation_pulls"]
+            out["kv_fabric_breaker_opens_total"] = cli["breaker_opens"]
+            out["kv_fabric_peer_probes_total"] = cli["probes"]
+            out["kv_fabric_queue_depth"] = srv["queue_depth"]
         if self.cfg.speculative_k:
             # accepted read before drafts: the loop adds drafts first, so a
             # snapshot never shows more accepted than drafted

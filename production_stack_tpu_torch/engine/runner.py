@@ -49,6 +49,11 @@ same shapes as the JAX runner's.
   is the one a tp = 1 runner gives; ``set_pages(_quant)`` keep the rank's
   slice of whole-head pages. ``rank_stats`` and ``gathered_params`` read
   every rank's kernel counters and weights on the leader.
+- Disaggregated prefill's device path: ``kv_endpoint_start`` starts this
+  process's CUDA IPC endpoint, a producer's ``kv_offer_page`` offers a copy
+  of a page, a consumer's ``kv_pull_page`` copies it into ``kv_staged`` and
+  ``kv_restore_page`` writes it into the pool with ``set_page_device``, the
+  device-tensor counterpart of ``set_pages``.
 - Data parallelism (``tp.dp``, the ranks holding the same KV heads, one per
   dp group): dp group d serves rows [d * B/dp, (d + 1) * B/dp) of every step
   (``_stage`` slices every row-leading input, parallel/dp.py) and every
@@ -98,6 +103,9 @@ from production_stack_tpu_torch.ops.sampling import (
 from production_stack_tpu_torch.parallel import dp as dpmod
 from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_param, gather_split, rank_slice, size_rank
 from production_stack_tpu_torch.utils.device import resolve_device
+from production_stack_tpu_torch.utils.logging import init_logger
+
+logger = init_logger(__name__)
 
 
 @dataclasses.dataclass
@@ -278,6 +286,11 @@ class ModelRunner:
         # and (unlike jax.random) independent of how many steps were traced
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(seed)
+        # the device KV path (disaggregated prefill, kv_endpoint_start): this
+        # process's CUDA IPC endpoint and, on a consumer, the pages pulled
+        # and awaiting admission (key -> (k, v, deadline))
+        self.kv_endpoint = None
+        self.kv_staged: dict[str, tuple] = {}
 
     # -- staging ------------------------------------------------------------
 
@@ -713,6 +726,85 @@ class ModelRunner:
         ):
             src = torch.from_numpy(np.stack([np.asarray(p, dt) for p in pages], axis=1))
             pool[:, idx] = rank_slice(src, 3 if src.dim() == 5 else 2, self.tp).to(self.device)
+
+    def set_page_device(self, pid: int, k: torch.Tensor, v: torch.Tensor) -> None:
+        """Write one page's K/V (``[L, page, KH, D]`` tensors, on a device)
+        into the pools without a host copy: the device counterpart of
+        ``set_pages`` (a tp rank keeps its heads)."""
+        for pool, src in ((self.k_pages, k), (self.v_pages, v)):
+            if src.dtype != pool.dtype:
+                raise TypeError(f"pages are {src.dtype}, the pool holds {pool.dtype}")
+            pool[:, pid] = rank_slice(src, 2, self.tp).to(self.device)
+
+    # -- device-to-device KV (disaggregated prefill, one process a role) -----
+    # The JAX runner's calls of the same names, on one process: the
+    # producer copies a page and offers it (kv_offer_page), the consumer's
+    # receiver pulls it into kv_staged on its own thread (kv_pull_page), and
+    # admission writes it into the pool on the loop thread (kv_restore_page).
+
+    def kv_endpoint_start(self, host: str = "127.0.0.1") -> None:
+        """Start this process's CUDA IPC endpoint (idempotent)."""
+        if self.kv_endpoint is not None:
+            return
+        if self.device.type != "cuda":
+            raise ValueError("device KV transfer needs a CUDA device (CUDA IPC)")
+        from production_stack_tpu_torch.kvoffload.transfer import DeviceKVEndpoint
+
+        self.kv_endpoint = DeviceKVEndpoint(self.device, host=host)
+
+    def kv_offer_page(self, pid: int, uuid: int) -> tuple:
+        """Copy page ``pid``'s K and V into one fresh [2, L, page, KH, D]
+        tensor (never a view of the pool, whose page is reused once its
+        sequence is freed; one IPC handle a page) and offer it under
+        ``uuid``. Returns (shape, dtype) of K for the consumer's
+        page_ready."""
+        kv = torch.stack((self.k_pages[:, pid], self.v_pages[:, pid]))
+        self.kv_endpoint.offer_fixed(int(uuid), kv)
+        return list(kv.shape[1:]), str(kv.dtype).removeprefix("torch.")
+
+    # pulled pages outlive the consumer's staging entry (DeviceStaging ttl
+    # 120 s): its expiry, not this sweep, is what drops a page
+    KV_STAGED_TTL_S = 240.0
+
+    def kv_pull_page(self, addr: str, uuid: int, shape, dtype, key: str) -> int:
+        """Pull a page from its producer endpoint into ``kv_staged``; returns
+        the staged bytes, 0 on failure (the address is then marked dead and
+        the producer ships the page as a blob)."""
+        self._kv_staged_sweep()
+        try:
+            k, v = self.kv_endpoint.pull(addr, int(uuid), shape, dtype)
+        except Exception as e:  # noqa: BLE001
+            self.kv_endpoint.mark_dead(addr)
+            logger.warning("device kv pull failed: %s", e)
+            return 0
+        self.kv_staged[key] = (k, v, time.monotonic() + self.KV_STAGED_TTL_S)
+        return int(k.numel() * k.element_size()) * 2
+
+    def kv_restore_page(self, key: str, pid: int) -> None:
+        """Write a staged page into the pool, device to device."""
+        entry = self.kv_staged.pop(key, None)
+        if entry is None:
+            raise KeyError(f"kv_restore_page: page {key!r} is not staged")
+        k, v = entry[0], entry[1]
+        self.set_page_device(pid, k, v)
+        if k.is_cuda:
+            # the staged tensors came from the pull's copy stream; the write
+            # above is queued on this one: without this the next pull could
+            # take their memory and overwrite it before the write read it
+            cur = torch.cuda.current_stream(k.device)
+            k.record_stream(cur)
+            v.record_stream(cur)
+
+    def kv_unstage_page(self, key: str) -> None:
+        """Drop a staged page (staging expiry, or a failed pull)."""
+        self.kv_staged.pop(key, None)
+
+    def _kv_staged_sweep(self) -> None:
+        """Drop staged pages past their deadline (bounds the device memory a
+        page whose staging entry never expired could hold)."""
+        now = time.monotonic()
+        for k in [k for k, (_, _, d) in list(self.kv_staged.items()) if d < now]:
+            self.kv_staged.pop(k, None)
 
     def reset_kv(self) -> None:
         """Fresh zeroed page pools (and int8 pools' scales of ones): sleep

@@ -9,7 +9,8 @@ scheduler, warm start from its restore and spills), so it never raises into
 the loop:
 - ``save_pages``: one device-to-host copy per <= 64 pages, serialize, put;
 - ``load_pages``: get, deserialize, one host-to-device copy per <= 64 pages;
-- ``load_pages_sparse``: the same, skipping a missing page instead of
+- ``load_page``: one page, a staged device page first;
+- ``load_pages_sparse``: the same as ``load_pages``, skipping a missing page instead of
   ending the chain there (warm-start manifests);
 - ``report_admit``/``report_evict``: queued to the controller reporter's
   thread, so an index update never blocks a step.
@@ -132,6 +133,11 @@ class KVOffloadConnector:
         )
         self.saved_pages = 0
         self.loaded_pages = 0
+        # device-pulled pages awaiting admission (disaggregated prefill's
+        # device path), consulted before the host-blob tiers so admission
+        # never pays a serde round trip for them
+        self.device_staging = None
+        self.device_loaded_pages = 0
 
     def _on_local_drop(self, key: str) -> None:
         # last local copy gone; remote copies (shared server) still count as
@@ -235,6 +241,14 @@ class KVOffloadConnector:
 
         for pid, h in pairs:
             try:
+                if self.device_staging is not None and self.device_staging.contains(h.hex()):
+                    # a staged device page: flush the host batch first so
+                    # the restored prefix stays in chain order, then write
+                    # it device to device
+                    if not flush() or not self.load_page(pid, h):
+                        return done
+                    done += 1
+                    continue
                 blob = self.store.get(h.hex())  # verifies and quarantines
                 if blob is None:
                     break
@@ -291,8 +305,29 @@ class KVOffloadConnector:
 
     def has(self, h: bytes) -> bool:
         try:
+            if self.device_staging is not None and self.device_staging.contains(h.hex()):
+                return True
             return self.store.contains(h.hex())
         except Exception:
+            return False
+
+    def load_page(self, pid: int, h: bytes) -> bool:
+        """Restore one page into the pool; False if it is neither staged nor
+        in a tier (or unreadable). Never raises."""
+        try:
+            if self.device_staging is not None and self.device_staging.pop(h.hex()):
+                self.runner.kv_restore_page(h.hex(), pid)  # device to device
+                self.device_loaded_pages += 1
+                self.loaded_pages += 1
+                return True
+            blob = self.store.get(h.hex())
+            if blob is None:
+                return False
+            self._set_pool_pages([pid], [self._deserialize_for_pool(blob)])
+            self.loaded_pages += 1
+            return True
+        except Exception:
+            logger.exception("kv offload load_page failed for %s", h.hex())
             return False
 
     # -- controller index reporting ------------------------------------------

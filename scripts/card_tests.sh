@@ -9,7 +9,11 @@
 # (tests/test_torch_cuda_dp.py); the prefill kernel at step_spec's verify
 # shape, step_spec and step_multi_pipelined through the kernels, and a
 # chain's fetch groups arriving through their events
-# (tests/test_torch_cuda_spec.py).
+# (tests/test_torch_cuda_spec.py); disaggregated prefill's device path: a
+# page copied over CUDA IPC between two processes, the offer retirement, a
+# producer process shipping every page device to device, a killed
+# producer's pages falling back to TCP blobs, and a staged page's restore
+# queued behind other work while more pulls land (tests/test_torch_cuda_disagg.py).
 # No file imports
 # jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
 # which that machine may lack, so pytest skips conftest files.
@@ -19,5 +23,5 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py tests/test_torch_cuda_surface.py \
     tests/test_torch_cuda_moe_lora.py tests/test_torch_cuda_tp.py tests/test_torch_cuda_dp.py \
-    tests/test_torch_cuda_spec.py \
+    tests/test_torch_cuda_spec.py tests/test_torch_cuda_disagg.py \
     -q -p no:cacheprovider "$@"

@@ -47,11 +47,12 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 31  # every module was walked, the int8 KV, offload and stack-service ones among them
+    assert len(names) >= 37  # every module was walked, the int8 KV, offload, stack-service and fabric ones among them
     for mod in ("ops.quant", "engine.linkprobe", "kvoffload.serde", "kvoffload.protocol", "kvoffload.tiers",
                 "kvoffload.connector", "parallel.group", "parallel.tp", "parallel.dp", "engine.distributed",
                 "tracing.context", "tracing.collector", "kvoffload.cache_server", "kvoffload.controller",
-                "kvoffload.warmstart"):
+                "kvoffload.warmstart", "kvoffload.transfer", "kvfabric", "kvfabric.wire", "kvfabric.peers",
+                "kvfabric.client", "kvfabric.server"):
         assert f"production_stack_tpu_torch.{mod}" in names
 
 
@@ -131,8 +132,10 @@ _REFUSED = [
     ("pipeline_parallel_size", 2, {}),
     ("expert_parallel_size", 2, {}),
     ("speculative_k", 4, {"kv_cache_dtype": "int8"}),
-    ("kv_role", "producer", {}),
-    ("kv_fabric", True, {}),
+    # disaggregated prefill and the fabric are served; the device path is
+    # refused with tp ranks and off the card (check_supported's device)
+    ("kv_transfer_device", True, {"tensor_parallel_size": 2}),
+    ("kv_transfer_device", True, {"device": "cpu"}),
     ("kv_write_mode", "pre", {}),
     ("kv_directory_url", "http://127.0.0.1:9200", {}),
     ("warm_prefetch_on_boot", 8, {}),
@@ -141,11 +144,15 @@ _REFUSED = [
 _JAX_WORDS = {"speculative_k": "--kv-cache-dtype int8 is not compatible with --speculative-k"}
 
 
-@pytest.mark.parametrize("field,value,also", _REFUSED, ids=[f"{f}-{v}" for f, v, _ in _REFUSED])
+@pytest.mark.parametrize("field,value,also", _REFUSED,
+                         ids=[f"{f}-{v}" + (f"-{next(iter(a))}" if f == "kv_transfer_device" else "")
+                              for f, v, a in _REFUSED])
 def test_unported_features_are_refused(field, value, also):
     assert (field in port_config._UNSUPPORTED) != bool(also)
+    kw = dict(also)
+    device = kw.pop("device", None)
     with pytest.raises(ValueError, match=_JAX_WORDS.get(field, "not supported by the PyTorch port")):
-        check_supported(EngineConfig(**{field: value}, **also))
+        check_supported(EngineConfig(**{field: value}, **kw), device=device)
     if also:  # the field alone is served
         check_supported(EngineConfig(**{field: value}))
 
@@ -158,6 +165,16 @@ _SERVED = [
      ["--kv-controller-url", "http://127.0.0.1:9000", "--kv-instance-id", "e0", "--advertise-host", "10.0.0.2"]),
     ("warm_start", True, ["--warm-start", "--warm-start-namespace", "ns", "--warm-start-interval-s", "5",
                           "--warm-start-max-pages", "32", "--kv-offload-dir", "/tmp/kv"]),
+]
+
+
+_SERVED += [
+    # disaggregated prefill's roles and the KV fabric, with their flags
+    ("kv_role", "consumer", ["--kv-role", "consumer", "--kv-transfer-port", "0", "--kv-transfer-device",
+                             "--kv-transfer-stage-mb", "64"]),
+    ("kv_fabric", True, ["--kv-fabric", "--kv-fabric-port", "0", "--kv-fabric-retries", "1", "--kv-fabric-peer",
+                         "http://10.0.0.4:8100", "--kv-fabric-stream-layers", "4", "--kv-role", "producer",
+                         "--kv-peer-url", "127.0.0.1:55555", "--kv-transfer-device-host", "10.0.0.3"]),
 ]
 
 
@@ -239,8 +256,17 @@ def test_cli_does_not_register_flags_the_port_ignores(flag):
     port_config.add_engine_args(p)
     args = p.parse_args(["--model", "llama-3.2-1b", "--page-size", "32", "--attn-impl", "plain"])
     assert port_config.config_from_args(args) == EngineConfig(model="llama-3.2-1b", page_size=32, attn_impl="plain")
+    if flag in _NOW_SERVED:  # a flag of a feature the port serves now parses into its field
+        field, value = _NOW_SERVED[flag]
+        assert getattr(port_config.config_from_args(p.parse_args([flag, "1"])), field) == value
+        return
     with pytest.raises(SystemExit):
         p.parse_args([flag, "1"])
+
+
+# flags of the list above whose features the port has come to serve (the KV
+# fabric's listener port)
+_NOW_SERVED = {"--kv-fabric-port": ("kv_fabric_port", 1)}
 
 
 def test_unported_model_features_raise():

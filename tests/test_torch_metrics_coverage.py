@@ -2,7 +2,8 @@
 scans only the JAX package): a CPU port server's ``/metrics``, after one
 streamed request, held in both directions against the dashboards and docs.
 
-1. Every series the port emits is documented (docs/ or README.md) and
+1. Every series the port emits (a disaggregated-prefill consumer and
+   producer with the fabric on) is documented (docs/ or README.md) and
    dashboarded, or in the script's own DASHBOARD_ALLOWLIST.
 2. Every ``vllm:`` series the JAX package emits that the dashboards chart or
    the allowlist names is emitted by the port, unless it belongs to a
@@ -55,11 +56,11 @@ _SPEC = ("spec_decode_draft_acceptance_rate", "spec_decode_num_accepted_tokens_t
 _MIGRATION = ("migration_duration_seconds", "migration_failures_total", "migration_pages_moved_total",
               "migrations_in_total", "migrations_out_total")
 
-# series of refused features -> the port's switch that refuses them
+# series of refused features -> the port's switch that refuses them (the
+# fabric's and the transfer's are served since the port serves disaggregated
+# prefill: the fixture's servers emit them)
 REFUSED = {
     **{f"vllm:{n}": "kv_directory_url" for n in _DIRECTORY},
-    **{f"vllm:{n}": "kv_fabric" for n in _FABRIC},
-    **{f"vllm:{n}": "kv_role" for n in _TRANSFER},
 }
 # series both servers emit only at a setting other than the default
 SETTING_ONLY = {f"vllm:{n}": "speculative_k" for n in _SPEC}
@@ -84,39 +85,56 @@ OTHER_PROCESS = {
 
 @pytest.fixture(scope="module")
 def port_series() -> set:
-    """Every series name a port server's /metrics gives after one streamed
-    request, with the CPU tier and warm start on and a measured link (the
-    CPU has none to probe, so the figure is set by hand)."""
-    cfg = EngineConfig(model="llama-debug", host="127.0.0.1", port=free_port(), num_pages=16, page_size=8,
-                       max_model_len=128, prefill_chunk=32, kv_offload_cpu_gb=0.01, kv_offload_max_io_pages=4,
-                       warm_start=True)
-    engine = LLMEngine(cfg, device="cpu")
-    engine.kv_link_bandwidth_bytes_per_s = 1e9
+    """Every series name two port servers' /metrics give after one streamed
+    request: a disaggregated-prefill consumer (the CPU tier, warm start, the
+    fabric and a measured link: the CPU has none to probe, so the figure is
+    set by hand) and its producer, both with the device path armed on a
+    stand-in endpoint (tests/test_torch_disagg.py; the CPU has no CUDA IPC)."""
+    from test_torch_disagg import _arm
+
+    ccfg = EngineConfig(model="llama-debug", host="127.0.0.1", port=free_port(), num_pages=16, page_size=8,
+                        max_model_len=128, prefill_chunk=32, kv_offload_cpu_gb=0.01, kv_offload_max_io_pages=4,
+                        warm_start=True, kv_role="consumer", kv_transfer_port=0, kv_fabric=True)
+    consumer = LLMEngine(ccfg, device="cpu")
+    consumer.kv_link_bandwidth_bytes_per_s = 1e9
+    pcfg = EngineConfig(model="llama-debug", host="127.0.0.1", port=free_port(), num_pages=16, page_size=8,
+                        max_model_len=128, prefill_chunk=32, kv_role="producer", kv_fabric=True,
+                        kv_peer_url=f"127.0.0.1:{consumer._kv_receiver.bound_port}",
+                        kv_fabric_peer=consumer._fabric_server.address)
+    producer = LLMEngine(pcfg, device="cpu")
+    for eng in (consumer, producer):
+        _arm(eng)
     loop = asyncio.new_event_loop()
     th = threading.Thread(target=loop.run_forever, daemon=True)
     th.start()
 
     async def scrape():
-        server, runner = await port_server.serve(cfg, engine, device="cpu")
+        served = [await port_server.serve(cfg, eng, device="cpu") for cfg, eng in ((ccfg, consumer), (pcfg, producer))]
         try:
-            base = f"http://127.0.0.1:{cfg.port}"
+            texts = []
             async with aiohttp.ClientSession() as s:
-                body = {"prompt": "hello", "max_tokens": 4, "stream": True, "ignore_eos": True}
-                async with s.post(base + "/v1/completions", json=body) as r:
-                    assert r.status == 200
-                    await r.read()
-                async with s.get(base + "/metrics") as r:
-                    return await r.text()
+                for cfg in (pcfg, ccfg):  # the producer's prefill, then the consumer's request
+                    base = f"http://127.0.0.1:{cfg.port}"
+                    body = {"prompt": "hello, a prompt of two pages", "max_tokens": 4, "stream": True,
+                            "ignore_eos": True}
+                    async with s.post(base + "/v1/completions", json=body) as r:
+                        assert r.status == 200
+                        await r.read()
+                for cfg in (ccfg, pcfg):
+                    async with s.get(f"http://127.0.0.1:{cfg.port}/metrics") as r:
+                        texts.append(await r.text())
+            return texts
         finally:
-            await runner.cleanup()
-            server.engine.stop()
+            for server, runner in served:
+                await runner.cleanup()
+                server.engine.stop()
 
     try:
-        text = asyncio.run_coroutine_threadsafe(scrape(), loop).result(120)
+        texts = asyncio.run_coroutine_threadsafe(scrape(), loop).result(120)
     finally:
         loop.call_soon_threadsafe(loop.stop)
         th.join(10)
-    return {line.split()[2] for line in text.splitlines() if line.startswith("# TYPE ")}
+    return {line.split()[2] for text in texts for line in text.splitlines() if line.startswith("# TYPE ")}
 
 
 def test_every_port_series_is_documented_and_dashboarded(port_series):
@@ -138,6 +156,7 @@ def test_every_charted_jax_series_of_a_served_feature_is_emitted_by_the_port(por
     assert not set(SETTING_ONLY.values()) & set(_UNSUPPORTED)
     assert {f"vllm:{n}" for n in _CHAINED} <= port_series
     assert {f"vllm:{n}" for n in _WARM} <= port_series
+    assert {f"vllm:{n}" for n in _FABRIC + _TRANSFER} <= port_series  # both groups, from a role with the fabric on
     assert {"vllm:trace_buffer_capacity", "vllm:trace_spans_dropped_total",
             "vllm:trace_spans_recorded_total"} <= port_series
     for name in ("vllm:tpu_hbm_bytes_in_use", "vllm:hbm_headroom_bytes", "vllm:kv_pool_device_bytes",

@@ -734,6 +734,10 @@ LOCAL_ONLY = {
     "set_lora_slot": "LoRA is refused with tp",
     "clear_lora_slot": "LoRA is refused with tp",
     "kv_pool_shard_layout": "reads the pools' shapes, from the scrape thread",
+    # disaggregated prefill's device path (CUDA IPC), refused with tp or dp ranks
+    **{name: "the device KV path is refused with tp or dp ranks" for name in (
+        "kv_endpoint_start", "kv_offer_page", "kv_pull_page", "kv_restore_page", "kv_unstage_page",
+        "set_page_device")},
 }
 
 
