@@ -207,6 +207,42 @@ non-zero exit (nothing is caught):
                line per transport: pages and MiB, the producer's push
                seconds, the consumer's TTFT beside a cold monolithic
                engine's on the same prompt, the launches, the card.
+5g. fleet  -- after the disagg phase: the fleet KV directory and live
+               migration. The port's cache server with ``--directory
+               --metrics-port`` as a subprocess; engines A and B
+               (llama-3.2-1b bf16, full width and depth, a CPU tier, the
+               cache server as the remote tier and the directory, the
+               fabric) behind port servers in this process; the unchanged
+               router (``python -m production_stack_tpu.router.app
+               --routing-logic kvaware --kv-directory-url``) as a
+               subprocess. A's first request, straight to A, is the
+               unmigrated run (128 greedy tokens of a 1,091-token prompt:
+               17 full pages and a tail) and a cold engine's TTFT; the
+               same request streamed through the router goes to A (the
+               directory names A resident); after 16 tokens A's
+               ``/migrate_out`` moves it to B through the shared tier (B's
+               fabric listener is down, so the ship falls back: A saves
+               the 17 pages to the cache server, B fetches and restores
+               them), after 8 more on B, B's moves it back to A over the
+               fabric; the router splices both hops. The client's one
+               stream must carry 128 tokens, one [DONE] and no control
+               event, its ids equal to the unmigrated run's (a first
+               difference only where that run's top-2 margin is under
+               FORWARD_LOGIT_BOUND); each source listed the stream on
+               ``/migratable``; each hop moved 17 pages on its own path
+               (the migration and fabric counters); each target launched
+               the prefill kernel for the tail chunk alone (16 launches)
+               and the decode kernel; no plain version ran. A second
+               request with the same 17-page prefix goes through the
+               router to an engine the directory's ``dir_lookup`` names
+               resident (a resident route; that engine's prefix hits move
+               17 pages). Engine C boots with ``warm_prefetch_on_boot``
+               64 and restores the 17 shared pages on its first request.
+               The lines give each hop's freeze-to-commit seconds and
+               pages, the client's gap at each splice against the stream's
+               median gap, C's boot prefetch and its first TTFT against
+               the cold one, the launches per engine and the phase's
+               seconds, each with the card.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -233,7 +269,7 @@ and its int8 kernel forward for its int8 rows, which no server runs; the
 x tp 2 int8 server's four ranks; the [dp2] row from the dp 2 server's two
 ranks; the [verify] row from the spec server's verify rounds, L a round;
 the D = 64 rows also count the disagg phase's producers' and consumers'
-launches), the
+launches and the fleet phase's engines'), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device, or run from a directory without the package, it exits
@@ -3169,9 +3205,9 @@ STACK_FIRST_BYTES = 1100
 STACK_TOKENS = 16
 
 
-def _start_service(module: str, port: int) -> "subprocess.Popen":
-    """One of the port's frame servers as a subprocess, once it accepts
-    connections (60 s at most)."""
+def _start_service(module: str, port: int, *extra: str) -> "subprocess.Popen":
+    """One of the port's frame servers as a subprocess (``extra``: more of
+    its flags), once it accepts connections (60 s at most)."""
     import socket
 
     import tempfile
@@ -3180,7 +3216,7 @@ def _start_service(module: str, port: int) -> "subprocess.Popen":
     log = tempfile.TemporaryFile()  # its log, read if it dies before it listens
     proc = subprocess.Popen(
         [sys.executable, "-m", f"production_stack_tpu_torch.kvoffload.{module}", "--host", "127.0.0.1",
-         "--port", str(port)],
+         "--port", str(port), *extra],
         cwd=ROOT, env=env, stdout=subprocess.DEVNULL, stderr=log,
     )
     deadline = time.time() + 60
@@ -3857,6 +3893,383 @@ def phase_disagg(launches: "dict | None" = None) -> None:
         check(r["ids"] == fp_runs[0]["ids"], f"disagg {r['label']}: ids {r['ids']} != tcp's {fp_runs[0]['ids']}")
 
 
+# the fleet phase: the prompt (1,091 tokens with BOS: 17 full 64-token pages
+# and a 3-token tail), the stream's length, the tokens each hop's source has
+# emitted of the stream before its /migrate_out (the second hop must freeze
+# before the stream's 62nd token, or its snapshot would hold an 18th full
+# page), engine C's boot prefetch and the pool of each engine
+FLEET_PROMPT_BYTES = 1090
+FLEET_PAGES = (FLEET_PROMPT_BYTES + 1) // 64
+FLEET_TOKENS = 128
+FLEET_HOPS = (16, 8)
+FLEET_PREFETCH = 64
+FLEET_POOL_PAGES = 256
+
+
+class _ThreadCount:
+    """A kernel wrapper's launch counter that also files each launch under
+    the thread that made it, an engine's loop thread, so the phase tells
+    two engines of this process apart (a measurement of this run, not the
+    port's: installed for the fleet phase, then the plain count is put
+    back)."""
+
+    def __init__(self, total: int):
+        import collections
+
+        self.total = total
+        self.by = collections.Counter()
+
+    def __iadd__(self, n):
+        import threading
+
+        self.total += int(n)
+        self.by[threading.get_ident()] += int(n)
+        return self
+
+
+def _fleet_launches(counters: dict, ident: int) -> dict:
+    return {name: c.by[ident] for name, c in counters.items()}
+
+
+def phase_fleet(launches: "dict | None" = None) -> None:
+    """The fleet KV directory and live migration (docstring, 5g): the port's
+    cache server with the directory, engines A and B behind the unchanged
+    router's kvaware routing, one stream migrated A -> B through the shared
+    tier and B -> A over the fabric, a second request routed by the
+    directory, and engine C's boot prefetch. The launches of its engines are
+    added to ``launches``' D = 64 rows."""
+    if launches is None:
+        launches = {}
+    import random
+    import statistics
+    import tempfile
+
+    import aiohttp
+    import torch
+
+    from production_stack_tpu_torch.engine.api_server import serve as serve_http
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.scheduler import SamplingParams
+    from production_stack_tpu_torch.kvoffload.protocol import BlockingClient
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    kernels, plains = _counters()
+    counters = {}
+    for name, (fn, attr) in kernels.items():
+        counters[name] = _ThreadCount(getattr(fn, attr))
+        setattr(fn, attr, counters[name])
+    plain0 = {k: fn.calls for k, fn in plains.items()}
+    cport, mport, rport = _free_port(), _free_port(), _free_port()
+    cache_url = f"127.0.0.1:{cport}"
+    procs = [_start_service("cache_server", cport, "--directory", "--metrics-port", str(mport))]
+    prompt = _prompt(random.Random(16), FLEET_PROMPT_BYTES)
+    rid = "fleet-mig"
+    body = {"model": "llama-3.2-1b", "prompt": prompt, "max_tokens": FLEET_TOKENS, "temperature": 0.0,
+            "ignore_eos": True, "stream": True}
+    legs: list = []  # one per generate call: [engine label, seq id, ids, outputs, cached tokens]
+
+    def record(engine, label: str) -> None:
+        orig = engine.generate
+
+        async def recording(seq_id, *a, **kw):
+            leg = [label, seq_id, [], 0, 0]
+            legs.append(leg)
+            async for out in orig(seq_id, *a, **kw):
+                if not (out.finished and out.finish_reason == "migrated"):  # its repeat of the last id
+                    leg[2].extend(out.token_ids)
+                    leg[3] += 1
+                leg[4] = out.cached_tokens
+                yield out
+
+        engine.generate = recording
+
+    def engine_cfg(**kw):
+        return EngineConfig(model="llama-3.2-1b", host="127.0.0.1", port=_free_port(), num_pages=FLEET_POOL_PAGES,
+                            kv_offload_cpu_gb=2.0, kv_offload_max_io_pages=0, kv_remote_url=cache_url,
+                            kv_directory_url=cache_url, kv_directory_flush_s=0.2, **kw)
+
+    def dir_request(hdr: dict) -> dict:
+        c = BlockingClient("127.0.0.1", cport, timeout=10)
+        try:
+            return c.request(hdr)[0]
+        finally:
+            c.close()
+
+    async def stream(base: str, out: dict, headers: dict, body: dict = body) -> None:
+        """A streamed completion: each data event's arrival time and line."""
+        out.update(times=[], lines=[])
+        t0 = time.perf_counter()
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            async with s.post(base + "/v1/completions", json=body, headers=headers) as r:
+                out["status"] = r.status
+                async for raw in r.content:
+                    line = raw.decode().strip()
+                    if line.startswith("data:"):
+                        out["times"].append(time.perf_counter() - t0)
+                        out["lines"].append(line)
+
+    async def get_json(url: str):
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=60)) as s:
+            async with s.get(url) as r:
+                return await r.json()
+
+    async def metrics_text(url: str) -> str:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=60)) as s:
+            async with s.get(url + "/metrics") as r:
+                return await r.text()
+
+    def metric(text: str, name: str) -> float:
+        total = 0.0
+        for line in text.splitlines():
+            if line.startswith(name + "{") or line.startswith(name + " "):
+                total += float(line.rsplit(" ", 1)[1])
+        return total
+
+    res: dict = {}
+
+    async def fleet():
+        servers = {}
+        for label in ("A", "B"):
+            cfg = engine_cfg(kv_fabric=True)
+            server, runner = await serve_http(cfg)
+            record(server.engine, label)
+            servers[label] = (server.engine, runner, f"http://127.0.0.1:{cfg.port}")
+        eng = {k: v[0] for k, v in servers.items()}
+        url = {k: v[2] for k, v in servers.items()}
+        router = subprocess.Popen(
+            [sys.executable, "-m", "production_stack_tpu.router.app", "--host", "127.0.0.1", "--port", str(rport),
+             "--static-backends", f"{url['A']},{url['B']}", "--static-models", "llama-3.2-1b,llama-3.2-1b",
+             "--routing-logic", "kvaware", "--kv-directory-url", cache_url, "--engine-stats-interval", "1"],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=subprocess.DEVNULL,
+            stderr=(router_log := tempfile.TemporaryFile()),
+        )
+        procs.append(router)
+        base = f"http://127.0.0.1:{rport}"
+        try:
+            await asyncio.get_running_loop().run_in_executor(
+                None, _wait_http, base + "/health", router, 120, "the router", router_log)
+            # the unmigrated run: A's first request, straight to A
+            ref: dict = {}
+            await stream(url["A"], ref, {"X-Request-Id": "fleet-ref"})
+            ref_ids = legs[-1][2]
+            check(len(ref_ids) == FLEET_TOKENS, f"fleet: the unmigrated run gave {len(ref_ids)} ids")
+            # a cold engine's first request, in a process the first one
+            # warmed: B's, with a prompt of the same length and no page in
+            # common (B must not hold the stream's prefix)
+            cold: dict = {}
+            other = _prompt(random.Random(17), FLEET_PROMPT_BYTES)
+            await stream(url["B"], cold, {"X-Request-Id": "fleet-cold"}, dict(body, prompt=other, max_tokens=8))
+            res["cold_ttft_s"] = cold["times"][0]
+            await asyncio.sleep(1.0)  # A's resident claims reach the directory (flush 0.2 s)
+            # the stream through the router: the directory names A resident
+            client: dict = {}
+            task = asyncio.create_task(stream(base, client, {"X-Request-Id": rid}))
+            hops = []
+            order = ("A", "B", "A")
+            for h, at in enumerate(FLEET_HOPS):
+                src, dst = order[h], order[h + 1]
+                deadline = time.time() + 120
+                while not any(leg[0] == src and leg[1] == rid and len(leg[2]) >= at for leg in legs[-1:]):
+                    check(time.time() < deadline and not task.done(), f"fleet hop {h + 1}: the stream stalled")
+                    await asyncio.sleep(0.005)
+                listed = (await get_json(url[src] + "/migratable"))["requests"]
+                check(any(r["request_id"] == rid and r["migratable"] for r in listed),
+                      f"fleet hop {h + 1}: {src}'s /migratable lists {listed}")
+                if h == 0:
+                    # the first hop's target has its fabric listener down: the
+                    # ship falls back to the shared tier (the cache server),
+                    # as any failed fabric ship does; the second hop goes
+                    # over the fabric. (The other order would not reach the
+                    # shared tier: pages a fabric landed sit in the local
+                    # tiers alone, where the tier save finds them and writes
+                    # nothing.)
+                    eng[dst]._fabric_server.stop()
+                before = {k: (e.stats(), e.migration.stats(), e.migration.duration_hist._sum, e.kv.offload_hits)
+                          for k, e in eng.items()}
+                per_thread = {k: _fleet_launches(counters, e._thread.ident) for k, e in eng.items()}
+                t0 = time.perf_counter()
+                async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=300)) as s:
+                    async with s.post(url[src] + "/migrate_out", json={"request_id": rid, "target_url": url[dst]}) as r:
+                        mo = dict(await r.json(), status=r.status)
+                hops.append(dict(h=h + 1, src=src, dst=dst, mo=mo, migrate_out_s=time.perf_counter() - t0,
+                                 before=before, per_thread=per_thread))
+                check(mo["status"] == 200 and mo.get("migrated"), f"fleet hop {h + 1}: /migrate_out -> {mo}")
+            await asyncio.wait_for(task, 600)
+            end_threads = {k: _fleet_launches(counters, e._thread.ident) for k, e in eng.items()}
+            res["client"], res["hops"] = client, hops
+            res["legs"] = [list(leg) for leg in legs if leg[1] == rid]
+            res["ref_ids"] = ref_ids
+            res["after"] = {k: (e.stats(), e.migration.stats(), e.migration.duration_hist._sum, e.kv.offload_hits)
+                            for k, e in eng.items()}
+            res["end_threads"] = end_threads
+            res["threads"] = {k: e._thread.ident for k, e in eng.items()}
+            # the margin at the first id the spliced stream differs in (bf16)
+            ids = [i for leg in res["legs"] for i in leg[2]]
+            j = next((j for j, (a, b) in enumerate(zip(ids, ref_ids)) if a != b), None)
+            res["first_diff"] = j
+            if j is not None:
+                p = SamplingParams(max_tokens=1, temperature=0.0, ignore_eos=True, logprobs=2)
+                top = None
+                async for o in eng["A"].generate("fleet-margin", prompt_token_ids=eng["A"].tokenizer.encode(prompt)
+                                                 + ref_ids[:j], params=p):
+                    top = top or o.logprobs[0]["top_logprobs"]
+                res["margin"] = top[0] - top[1]
+            # the second request: the same 17-page prefix, another tail
+            await asyncio.sleep(1.0)  # the hops' resident claims reach the directory
+            prompt2 = prompt[: 64 * FLEET_PAGES - 1] + "and a question of its own about it"
+            tokens2 = eng["A"].tokenizer.encode(prompt2)
+            res["dir_lookup"] = await asyncio.get_running_loop().run_in_executor(
+                None, dir_request, {"op": "dir_lookup", "tokens": tokens2})
+            hits0 = {k: e.kv.prefix_hits for k, e in eng.items()}
+            rtext0 = await metrics_text(base)
+            second: dict = {}
+            await stream(base, second, {"X-Request-Id": "fleet-second"}, dict(body, prompt=prompt2, max_tokens=8))
+            res["second"] = {"leg": next(list(leg) for leg in legs if leg[1] == "fleet-second"),
+                             "hits": {k: e.kv.prefix_hits - hits0[k] for k, e in eng.items()}, "url": url,
+                             "routes": {c: metric(await metrics_text(base), f"vllm_router:kvaware_v2_{c}_routes_total")
+                                        - metric(rtext0, f"vllm_router:kvaware_v2_{c}_routes_total")
+                                        for c in ("resident", "restorable", "cold")}}
+            rtext = await metrics_text(base)
+            res["router"] = {n: metric(rtext, f"vllm_router:{n}")
+                             for n in ("session_repins_total", "migration_splice_failures_total")}
+            res["cache_metrics"] = await metrics_text(f"http://127.0.0.1:{mport}")
+            res["dump"] = await asyncio.get_running_loop().run_in_executor(None, dir_request, {"op": "dir_dump"})
+            # engine C: boots with the fleet's warmest chunks prefetched (the
+            # admission pull off, so only the boot prefetch can restore)
+            ccfg = engine_cfg(warm_prefetch_on_boot=FLEET_PREFETCH, kv_directory_pull=False)
+            server, crunner = await serve_http(ccfg)
+            record(server.engine, "C")
+            c = server.engine
+            try:
+                res["C_boot"] = (c.kv_directory_prefetched_pages, c.kv_directory_prefetch_seconds)
+                first: dict = {}
+                await stream(f"http://127.0.0.1:{ccfg.port}", first, {"X-Request-Id": "fleet-c"},
+                             dict(body, max_tokens=8))
+                res["C_first"] = dict(ttft_s=first["times"][0], leg=next(list(leg) for leg in legs
+                                                                          if leg[1] == "fleet-c"),
+                                      offload_hits=c.kv.offload_hits, stats=c.stats(),
+                                      launches=_fleet_launches(counters, c._thread.ident))
+            finally:
+                await crunner.cleanup()
+                c.stop()
+        finally:
+            for engine, runner, _ in servers.values():
+                await runner.cleanup()
+                engine.stop()
+
+    try:
+        asyncio.run(fleet())
+    finally:
+        for p in procs:
+            _stop_proc(p)
+        for name, (fn, attr) in kernels.items():
+            setattr(fn, attr, counters[name].total)
+        gc.collect()
+        torch.cuda.empty_cache()
+    # the lines first, then the checks
+    client, hops = res["client"], res["hops"]
+    events = [i for i, line in enumerate(client["lines"]) if '"choices": [{' in line]
+    gaps = [client["times"][b] - client["times"][a] for a, b in zip(events, events[1:])]
+    median_gap = statistics.median(gaps)
+    legs_out = res["legs"]
+    splice_at = [sum(leg[3] for leg in legs_out[: k + 1]) for k in range(len(legs_out) - 1)]
+    for k, hop in enumerate(hops):
+        src, dst = hop["src"], hop["dst"]
+        sa, ms, ds, oh = res["after"][src]
+        sb, mb, db, _ = hop["before"][src]
+        da, _, _, dh = res["after"][dst]
+        dbf = hop["before"][dst]
+        # the target's launches from this hop's start to the stream's end:
+        # the continuation's alone (the target serves nothing else then)
+        tl = {n: res["end_threads"][dst][n] - hop["per_thread"][dst][n] for n in SERVE_ROWS[False]}
+        i = splice_at[k]
+        hop["line"] = {
+            "phase": "fleet", "hop": hop["h"], "source": src, "target": dst,
+            "path": "shared tier (the target's fabric listener down)" if k == 0 else "fabric",
+            "pages_moved": hop["mo"].get("pages_moved"),
+            "migration_pages_moved": ms["migration_pages_moved_total"] - mb["migration_pages_moved_total"],
+            "migration_fabric_pages": ms["migration_fabric_pages_total"] - mb["migration_fabric_pages_total"],
+            "fabric_pushed_pages": sa["kv_fabric_pushed_pages_total"] - sb["kv_fabric_pushed_pages_total"],
+            "fabric_received_pages": da["kv_fabric_received_pages_total"] - dbf[0]["kv_fabric_received_pages_total"],
+            "fabric_fallbacks": sa["kv_fabric_fallbacks_total"] - sb["kv_fabric_fallbacks_total"],
+            "tier_saved_pages": sa["kv_offload_saved_pages_total"] - sb["kv_offload_saved_pages_total"],
+            "target_restored_pages": dh - dbf[3],
+            # vllm:migration_duration_seconds (from the frozen sequence's
+            # ship to its commit) and the whole /migrate_out call
+            "freeze_to_commit_s": round(ds - db, 4), "migrate_out_s": round(hop["migrate_out_s"], 4),
+            "target_launches": tl,
+            "splice_gap_s": round(client["times"][events[i]] - client["times"][events[i - 1]], 4),
+            "median_gap_s": round(median_gap, 4), "tokens_per_event": 8, "card": card,
+        }
+        emit(hop["line"])
+    ids = [i for leg in legs_out for i in leg[2]]
+    second = res["second"]
+    engines_res = res["dir_lookup"].get("engines") or {}
+    best = max((v["resident_tokens"] for v in engines_res.values()), default=0)
+    named = sorted(u for u, v in engines_res.items() if v["resident_tokens"] == best)
+    routed_url = second["url"][second["leg"][0]]
+    cboot_pages, cboot_s = res["C_boot"]
+    cfirst = res["C_first"]
+    emit({"phase": "fleet", "stream_tokens": len(ids), "legs": [[leg[0], len(leg[2])] for leg in legs_out],
+          "ids_equal_before_a_flip": res["first_diff"] if res["first_diff"] is not None else len(ids),
+          "first_diff_top2_margin": res.get("margin"), "margin_bar": FORWARD_LOGIT_BOUND,
+          "router": res["router"], "second_request": {"routed_to": second["leg"][0], "cached": second["leg"][4],
+                                                      "directory_resident": named, "prefix_hit_pages": second["hits"],
+                                                      "route_classes": second["routes"]},
+          "card": card})
+    emit({"phase": "fleet", "engine": "C", "boot_prefetch_pages": cboot_pages,
+          "boot_prefetch_s": round(cboot_s, 4), "first_ttft_s": round(cfirst["ttft_s"], 4),
+          "cold_engine_first_ttft_s": round(res["cold_ttft_s"], 4), "first_cached_tokens": cfirst["leg"][4],
+          "first_restored_pages": cfirst["offload_hits"], "card": card})
+    plain_calls = {k: fn.calls - plain0[k] for k, fn in plains.items()}
+    all_threads = dict(res["end_threads"], C=cfirst["launches"])
+    for n in SERVE_ROWS[False]:
+        launches[n] = launches.get(n, 0) + sum(t[n] for t in all_threads.values())
+    emit({"phase": "fleet", "launches": {k: {n: t[n] for n in SERVE_ROWS[False]} for k, t in all_threads.items()},
+          "plain_calls": plain_calls, "seconds": round(time.perf_counter() - t_phase, 2), "card": card})
+    # the checks
+    check(client["status"] == 200 and sum('"[DONE]"' in x or x == "data: [DONE]" for x in client["lines"]) == 1
+          and not any("pstpu_migration" in x for x in client["lines"]),
+          f"fleet: the client's stream {client['status']} ends {client['lines'][-3:]}")
+    usage = json.loads([x for x in client["lines"] if '"usage"' in x][-1][len("data: "):])["usage"]
+    check(usage["completion_tokens"] == FLEET_TOKENS and len(ids) == FLEET_TOKENS,
+          f"fleet: the client got {usage} and the legs {len(ids)} ids")
+    check([leg[0] for leg in legs_out] == ["A", "B", "A"], f"fleet: the stream's legs {legs_out}")
+    j = res["first_diff"]
+    check(j is None or res["margin"] < FORWARD_LOGIT_BOUND,
+          f"fleet: the spliced ids differ at {j} where the unmigrated run's top-2 margin is {res.get('margin')}")
+    check(res["router"]["session_repins_total"] == 2 and res["router"]["migration_splice_failures_total"] == 0,
+          f"fleet: the router's splices {res['router']}")
+    for k, hop in enumerate(hops):
+        line = hop["line"]
+        check(line["pages_moved"] == FLEET_PAGES and line["migration_pages_moved"] == FLEET_PAGES,
+              f"fleet hop {k + 1}: {line}")
+        if k == 0:
+            # through the cache server: saved there by the source, fetched
+            # and restored by the target
+            check(line["migration_fabric_pages"] == 0 and line["fabric_fallbacks"] == FLEET_PAGES
+                  and line["tier_saved_pages"] == FLEET_PAGES and line["fabric_received_pages"] == 0
+                  and line["target_restored_pages"] == FLEET_PAGES, f"fleet hop 1 (shared tier): {line}")
+        else:
+            # engine to engine; the target (the stream's first engine) still
+            # holds the prefix in its pool, a prefix hit, so it restores none
+            check(line["migration_fabric_pages"] == FLEET_PAGES and line["fabric_received_pages"] == FLEET_PAGES
+                  and line["fabric_pushed_pages"] == FLEET_PAGES and line["tier_saved_pages"] == 0,
+                  f"fleet hop 2 (fabric): {line}")
+        # the target prefilled the tail chunk alone (one launch a layer) and decoded
+        tl = line["target_launches"]
+        check(tl["prefill_attention"] == 16 and tl["kv_page_write"] == 16 and tl["decode_attention"] > 0,
+              f"fleet hop {k + 1}: the target's launches {tl}")
+    check(named and routed_url in named and second["leg"][4] >= 64 * FLEET_PAGES
+          and second["hits"][second["leg"][0]] >= FLEET_PAGES and second["routes"]["resident"] == 1,
+          f"fleet: the second request went to {routed_url} (the directory names {named}): {second}")
+    check(cboot_pages >= FLEET_PAGES and cfirst["leg"][4] >= 64 * FLEET_PAGES
+          and cfirst["offload_hits"] >= FLEET_PAGES, f"fleet: engine C's boot prefetch {res['C_boot']}: {cfirst}")
+    check("vllm:kv_directory_entries" in res["cache_metrics"], "fleet: the cache server's metrics page")
+    check(all(n == 0 for n in plain_calls.values()), f"fleet: plain versions ran {plain_calls}")
+
+
 def main() -> int:
     try:
         import torch
@@ -3921,6 +4334,10 @@ def main() -> int:
         # disaggregated prefill: a producer subprocess and a consumer here,
         # the KV over TCP blobs, the fabric, CUDA IPC, and int8 over the fabric
         phase_disagg(launches)
+        # the fleet: the KV directory in the cache server, two engines behind
+        # the router's kvaware routing, a stream migrated there and back, the
+        # directory's routing and a third engine's boot prefetch
+        phase_fleet(launches)
         # tensor parallelism: two ranks (processes) on the one card over
         # gloo, with qwen2.5-7b's directory still on the disk
         tp_ref = phase_tp_reference()

@@ -28,8 +28,21 @@ generation, dtype family and page size, or ``enabled: false``), which a
 disaggregated-prefill producer's ``--kv-fabric-peer`` URL resolves, and
 ``/metrics`` carries the fabric's push and pull histograms and the probed
 per-peer bandwidth the router's disaggregated_prefill mode scrapes to pick
-a decode engine. Live migration (``/migratable``, ``/migrate_*``) is not
-ported.
+a decode engine. Live migration, as the JAX server serves it (the engine's
+``migration``, on by default; with ``--no-migration`` the routes answer
+501): ``GET /migratable`` lists the live single-choice streams with their
+progress and whether each can move (the fleet controller's victim listing);
+``POST /migrate_out`` freezes a stream, ships its snapshot to the target's
+``POST /migrate_in`` (its pages over the fabric when both engines run one,
+else through the offload tiers), and on the target's acceptance ends the
+stream's leg with the ``pstpu_migration`` control event instead of
+``[DONE]``, which the unchanged router splices; a refused or failed ship
+rolls back and the stream goes on here. The target parks the continuation
+until ``POST /migrate_attach`` streams it (aborted past
+``--migrate-attach-timeout-s``), in the client's wire shape, with a final
+usage block that counts the whole request across every hop. ``/metrics``
+carries the migration counters and ``vllm:migration_duration_seconds``, and,
+with ``--kv-directory-url``, the ``vllm:kv_directory_*`` series.
 
 Run: ``python -m production_stack_tpu_torch.engine.api_server --model
 llama-3.2-1b`` (a preset), or ``--model /path/to/hf-dir`` (a local
@@ -66,6 +79,14 @@ from production_stack_tpu_torch.engine.devicemon import DeviceMonitor
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.scheduler import SamplingParams
 from production_stack_tpu_torch.engine.tool_parser import StreamingToolParser, parse_tool_calls
+from production_stack_tpu_torch.kvoffload.serde import KVIntegrityError
+from production_stack_tpu_torch.migration import (
+    MigrationError,
+    continuation_params,
+    snapshot_from_wire,
+    snapshot_to_wire,
+    unmigratable_reason,
+)
 from production_stack_tpu_torch.ops.sampling import TOP_LOGPROBS
 from production_stack_tpu_torch.tracing import (
     configure_tracing,
@@ -312,8 +333,20 @@ class EngineServer:
         # SIGTERM: /health flips to 503, new generation requests are refused
         # and in-flight ones finish
         self.draining = False
-        # request id -> engine sequence ids, for POST /abort
-        self._live_requests: dict[str, list[str]] = {}
+        # request id -> (engine sequence ids, accept time, streaming, meta),
+        # for POST /abort and live migration: the meta carries what a
+        # migration target needs to go on in the client's wire shape (the
+        # response id, chat or completion, created, model, prompt tokens,
+        # priority) and, on a migrated-in stream, the tokens earlier hops
+        # emitted ("prior_completion")
+        self._live_requests: dict[str, tuple] = {}
+        # live migration, all owned by the event loop: request id ->
+        # {"target", "request_id"} set by a committed /migrate_out (the
+        # control event), and request id -> a parked migrated-in
+        # continuation ({"q", "task", "snap", "t"}) awaiting /migrate_attach
+        self._migrated_out: dict[str, dict] = {}
+        self._parked: dict[str, dict] = {}
+        self._mig_session = None  # aiohttp client for /migrate_in ships
         self.devmon = DeviceMonitor(self.engine)
 
     # -- handlers -----------------------------------------------------------
@@ -333,10 +366,10 @@ class EngineServer:
         req_id = body.get("request_id") or request.query.get("request_id")
         if not req_id:
             return _error("request_id required")
-        sub_ids = self._live_requests.pop(req_id, None)
-        for sid in sub_ids or [req_id]:
+        entry = self._live_requests.pop(req_id, None)
+        for sid in entry[0] if entry else [req_id]:
             self.engine.abort(sid)
-        return web.json_response({"request_id": req_id, "aborted": sub_ids is not None})
+        return web.json_response({"request_id": req_id, "aborted": entry is not None})
 
     async def drain(self, timeout: float = 30.0) -> None:
         """Stop accepting generation work and wait for in-flight requests to
@@ -454,6 +487,12 @@ class EngineServer:
             for addr, link in sorted(peers.items()):
                 lines.append(f'vllm:kv_fabric_peer_bandwidth_bytes_per_sec{{model_name="{m}",peer="{addr}"}} '
                              f"{round(link.bandwidth, 1)}")
+        mig = self.engine.migration
+        if mig is not None:
+            # live migration: its counters and the freeze-to-commit histogram
+            for k, v in sorted(mig.stats().items()):
+                emit(k, "counter", v)
+            lines.extend(mig.duration_hist.render(f'model_name="{m}"'))
         lines.extend(_ttft_hist.render(f'model_name="{m}"'))
         lines.extend(_latency_hist.render(f'model_name="{m}"'))
         lines.extend(render_phase_histograms(f'model_name="{m}"'))
@@ -476,6 +515,294 @@ class EngineServer:
             "quant": srv.quant,
             "page_size": srv.page_size,
         })
+
+    # -- live sequence migration ------------------------------------------------
+
+    async def _mig_client(self):
+        """The shared client session that ships snapshots to targets."""
+        import aiohttp
+
+        if self._mig_session is None or self._mig_session.closed:
+            self._mig_session = aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=30, sock_connect=5))
+        return self._mig_session
+
+    async def _close_mig_client(self, app=None) -> None:
+        if self._mig_session is not None and not self._mig_session.closed:
+            await self._mig_session.close()
+        self._mig_session = None
+
+    async def migratable(self, request: web.Request) -> web.Response:
+        """The fleet controller's victim listing: live single-choice
+        streaming requests, their progress and whether each can move. A
+        read of scheduler state off the loop thread: a race can mis-list a
+        request for one tick; the freeze checks again."""
+        out: list = []
+        if self.engine.migration is not None:
+            running = {s.seq_id: s for s in list(self.engine.scheduler.running)}
+            for rid, (sub_ids, _, streaming, meta) in list(self._live_requests.items()):
+                if not streaming or len(sub_ids) != 1:
+                    continue
+                seq = running.get(sub_ids[0])
+                if seq is None or seq.finished:
+                    continue
+                reason = unmigratable_reason(seq)
+                out.append({
+                    "request_id": rid,
+                    "output_tokens": len(seq.output_ids),
+                    "prompt_tokens": len(seq.prompt_ids),
+                    "age_s": round(time.monotonic() - seq.arrival_time, 3),
+                    "migratable": reason is None,
+                    "reason": reason,
+                    # the SLO class, for the controller's latency protection
+                    "priority": meta.get("priority") or "interactive",
+                })
+        return web.json_response({"requests": out})
+
+    async def migrate_out(self, request: web.Request) -> web.Response:
+        """Freeze a running stream, ship its snapshot to the target engine's
+        /migrate_in, then commit (the stream's leg ends with the control
+        event the router splices on) or roll back (the sequence decodes on
+        here; the client saw nothing)."""
+        mig = self.engine.migration
+        if mig is None:
+            return web.json_response({"migrated": False, "error": "migration disabled"}, status=501)
+        try:
+            body = await request.json()
+            rid = body["request_id"]
+            target = str(body["target_url"]).rstrip("/")
+        except (KeyError, TypeError, ValueError):
+            return web.json_response({"migrated": False, "error": "request_id and target_url required"},
+                                     status=400)
+        entry = self._live_requests.get(rid)
+        if entry is None:
+            return web.json_response({"migrated": False, "error": f"request {rid!r} is not live"}, status=409)
+        sub_ids, _, streaming, meta = entry
+        if not streaming or len(sub_ids) != 1:
+            return web.json_response({"migrated": False, "error": "only single-choice streaming requests migrate"},
+                                     status=409)
+        loop = asyncio.get_running_loop()
+        snap_meta = {**meta, "request_id": rid}
+        # the target's fabric listener first, so the freeze can ship the
+        # page chain engine to engine; a target without one (or that does
+        # not answer) gets the pages through the tiers
+        fabric_addr = None
+        if self.engine._fabric_client is not None:
+            try:
+                session = await self._mig_client()
+                async with session.get(f"{target}/kv_fabric") as resp:
+                    if resp.status == 200:
+                        info = await resp.json()
+                        if info.get("enabled"):
+                            fabric_addr = info.get("addr")
+            except Exception as e:  # noqa: BLE001 - the tier path covers it
+                logger.debug("fabric resolve for %s failed: %s", target, e)
+        try:
+            # the loop thread's work, off the event loop
+            snap = await loop.run_in_executor(
+                None, lambda: mig.freeze_and_snapshot(sub_ids[0], snap_meta, fabric_addr)
+            )
+        except MigrationError as e:
+            return web.json_response({"migrated": False, "error": str(e)}, status=409)
+        ok, detail = False, ""
+        try:
+            session = await self._mig_client()
+            async with session.post(
+                f"{target}/migrate_in", data=snapshot_to_wire(snap),
+                headers={"Content-Type": "application/octet-stream"},
+            ) as resp:
+                detail = (await resp.text())[:200]
+                ok = resp.status == 200
+        except Exception as e:  # noqa: BLE001 - any failed ship rolls back
+            detail = repr(e)
+        if not ok:
+            # the sequence goes back into the running set and streams on
+            await loop.run_in_executor(None, mig.rollback, sub_ids[0])
+            logger.warning("migrate_out %s -> %s refused: %s", rid, target, detail)
+            return web.json_response({"migrated": False, "error": detail or "target refused"}, status=502)
+        # the control event's data before the commit, whose terminal emit
+        # races the streaming loop's read of it; dropped after a minute if
+        # the client left between freeze and commit and nothing reads it
+        self._migrated_out[rid] = {"target": target, "request_id": rid}
+        loop.call_later(60.0, self._migrated_out.pop, rid, None)
+        await loop.run_in_executor(None, mig.commit, sub_ids[0], len(snap.page_hashes))
+        logger.info("migrated %s -> %s (%d pages restorable)", rid, target, len(snap.page_hashes))
+        return web.json_response({"migrated": True, "target": target, "pages_moved": len(snap.page_hashes)})
+
+    async def migrate_in(self, request: web.Request) -> web.Response:
+        """Accept a sealed snapshot and park the continuation: its KV blobs
+        are fetched into the local tiers, the sequence is admitted again
+        through the ordinary prefix-cache path (the shipped pages restore,
+        the tail is prefilled), and its outputs wait for /migrate_attach."""
+        mig = self.engine.migration
+        if mig is None:
+            return web.json_response({"accepted": False, "error": "migration disabled"}, status=501)
+        if self.draining:
+            return web.json_response({"accepted": False, "error": "draining"}, status=503)
+        if self.engine.is_sleeping:
+            return web.json_response({"accepted": False, "error": "sleeping"}, status=503)
+        if self.engine.saturated():
+            # a saturated target refuses: 429 tells the controller to pick a
+            # cooler one
+            return _shed_response(self.engine.shed_retry_after(),
+                                  "engine saturated; pick a cooler migration target")
+        data = await request.read()
+        try:
+            snap = snapshot_from_wire(data)
+            params = continuation_params(snap)
+        except (KVIntegrityError, ValueError, KeyError, TypeError) as e:
+            return web.json_response({"accepted": False, "error": f"bad snapshot: {e}"}, status=400)
+        if snap.model != self.cfg.name:
+            return web.json_response(
+                {"accepted": False, "error": f"model mismatch: {snap.model!r} != {self.cfg.name!r}"}, status=409
+            )
+        rid = snap.request_id
+        if rid in self._parked or rid in self._live_requests:
+            return web.json_response({"accepted": False, "error": f"{rid!r} already live here"}, status=409)
+        loop = asyncio.get_running_loop()
+        q: asyncio.Queue = asyncio.Queue()
+        task = loop.create_task(self._pump_migrated(snap, params, q))
+        self._parked[rid] = {"q": q, "task": task, "snap": snap, "t": time.monotonic()}
+        # the continuation is itself a live stream that can move again; its
+        # meta counts the tokens of every earlier hop, since a later freeze
+        # snapshots only this engine's output
+        self._live_requests[rid] = (
+            [rid], time.monotonic(), True,
+            {**snap.meta,
+             "prior_completion": snap.output_len + int(snap.meta.get("prior_completion") or 0)},
+        )
+        # a router that died mid-handoff must not leave a sequence decoding
+        loop.call_later(max(1.0, self.cfg.migrate_attach_timeout_s), self._expire_parked, rid)
+        mig.note_migrate_in()
+        return web.json_response({"accepted": True, "request_id": rid, "restorable_pages": len(snap.page_hashes)})
+
+    async def _pump_migrated(self, snap, params, q: asyncio.Queue) -> None:
+        """A parked continuation's pump: the snapshot's blobs into the
+        local tiers (in an executor: tier reads block), then decoding, its
+        outputs buffered for the attach. Shed-exempt: the stream is
+        mid-flight."""
+        loop = asyncio.get_running_loop()
+        try:
+            if snap.page_hashes and snap.page_size == self.cfg.page_size:
+                await loop.run_in_executor(None, self.engine.migration.prefetch_pages, snap.page_hashes)
+            p = snap.meta.get("priority")
+            # every earlier leg's ids (a chained migration's snapshot counts
+            # the legs before its source in prior_completion): the text goes
+            # on from theirs
+            emitted = snap.output_len + int(snap.meta.get("prior_completion") or 0)
+            async for out in self.engine.generate(
+                snap.request_id, prompt_token_ids=snap.tokens, params=params, shed_exempt=True,
+                priority=p if p in ("interactive", "batch") else "interactive",
+                text_context=snap.tokens[len(snap.tokens) - emitted:],
+            ):
+                await q.put(out)
+        except asyncio.CancelledError:
+            raise
+        except Exception as e:  # noqa: BLE001 - surfaced on the attach stream
+            await q.put(e)
+        finally:
+            self._live_requests.pop(snap.request_id, None)
+            await q.put(None)
+
+    def _expire_parked(self, rid: str) -> None:
+        parked = self._parked.pop(rid, None)
+        if parked is None:
+            return  # attached, or already expired
+        parked["task"].cancel()
+        self.engine.abort(rid)
+        self.engine.migration.failures += 1
+        logger.warning("migrated-in continuation %s expired unattached; aborted", rid)
+
+    async def migrate_attach(self, request: web.Request) -> web.StreamResponse:
+        """Stream a parked continuation in the client's wire shape. The
+        final usage block counts the whole request (every hop's tokens), so
+        the spliced stream reads as an unmigrated one."""
+        if self.engine.migration is None:
+            return _error("migration disabled", 501)
+        try:
+            body = await request.json()
+        except Exception:  # noqa: BLE001 - an attach may name its id in the query
+            body = {}
+        rid = body.get("request_id") or request.query.get("request_id")
+        if not rid:
+            return _error("request_id required")
+        # a short grace for reordering: the source commits (ending its leg)
+        # only after /migrate_in answered, so the entry is normally here
+        deadline = time.monotonic() + 10.0
+        parked = self._parked.pop(rid, None)
+        while parked is None and time.monotonic() < deadline:
+            await asyncio.sleep(0.05)
+            parked = self._parked.pop(rid, None)
+        if parked is None:
+            return _error(f"no parked continuation for {rid!r}", 404)
+        snap, q = parked["snap"], parked["q"]
+        meta = snap.meta
+        chat = bool(meta.get("chat"))
+        oid = meta.get("oid") or (("chatcmpl-" if chat else "cmpl-") + rid)
+        created = int(meta.get("created") or time.time())
+        model = meta.get("model") or snap.model
+        kind = "chat.completion" if chat else "text_completion"
+        resp = web.StreamResponse(
+            status=200, headers={"Content-Type": "text/event-stream", "Cache-Control": "no-cache", "X-Request-Id": rid},
+        )
+        await resp.prepare(request)
+
+        async def send(obj: dict):
+            await resp.write(f"data: {json.dumps(obj)}\n\n".encode())
+
+        new_tokens = 0
+        try:
+            while True:
+                out = await q.get()
+                if out is None:
+                    break
+                if isinstance(out, Exception):
+                    await send({"error": {"message": f"migrated continuation failed: {out}",
+                                          "type": "upstream_error", "code": 502}})
+                    await resp.write_eof()
+                    return resp
+                if (
+                    out.finished
+                    and out.finish_reason == "migrated"
+                    and (mi := self._migrated_out.pop(rid, None)) is not None
+                ):
+                    # the continuation moved again: hand the splice the
+                    # next hop and end this leg
+                    await send({"pstpu_migration": mi})
+                    await resp.write_eof()
+                    return resp
+                new_tokens = out.completion_tokens
+                if out.finished and out.finish_reason in ("abort", "error", "shed"):
+                    await send({"error": {"message": f"migrated continuation ended with {out.finish_reason!r}",
+                                          "type": "upstream_error", "code": 502}})
+                    await resp.write_eof()
+                    return resp
+                if chat:
+                    delta = {"content": out.text_delta} if out.text_delta else {}
+                    choice = {"index": 0, "delta": delta, "finish_reason": out.finish_reason}
+                    obj = "chat.completion.chunk"
+                else:
+                    choice = {"index": 0, "text": out.text_delta, "logprobs": None,
+                              "finish_reason": out.finish_reason}
+                    obj = "text_completion"
+                await send({"id": oid, "object": obj, "created": created, "model": model, "choices": [choice]})
+            prompt_tokens = int(meta.get("prompt_tokens") or snap.prompt_len)
+            # the whole request: every earlier hop's tokens, the tokens
+            # emitted when this hop froze, and this continuation's
+            completion = int(meta.get("prior_completion") or 0) + snap.output_len + new_tokens
+            await send({
+                "id": oid, "object": f"{kind}.chunk" if chat else kind, "created": created, "model": model,
+                "choices": [],
+                "usage": {"prompt_tokens": prompt_tokens, "completion_tokens": completion,
+                          "total_tokens": prompt_tokens + completion},
+            })
+            await resp.write(b"data: [DONE]\n\n")
+        except (ConnectionResetError, asyncio.CancelledError):
+            # the splicing router (or the client) went away: free the sequence
+            parked["task"].cancel()
+            self.engine.abort(rid)
+            raise
+        await resp.write_eof()
+        return resp
 
     async def slo_records(self, request: web.Request) -> web.Response:
         """The engine's SLO terminal records after a cursor (``?since=<seq>``),
@@ -651,7 +978,11 @@ class EngineServer:
         # after choice 0's first output, when its prompt pages are in the
         # prefix cache, so they share the prompt KV.
         sub_ids = [req_id] if n == 1 else [f"{req_id}#{i}" for i in range(n)]
-        self._live_requests[req_id] = sub_ids
+        self._live_requests[req_id] = (
+            sub_ids, time.monotonic(), stream,
+            {"oid": oid, "chat": chat, "created": created, "model": model,
+             "prompt_tokens": len(prompt_ids), "priority": priority},
+        )
 
         def _gen(sid):
             # with n > 1 only choice 0 carries the context: sibling phase
@@ -797,12 +1128,26 @@ class EngineServer:
         if chat and tool_style is not None:
             parsers = [StreamingToolParser(tool_style) for _ in range(n)]
             tool_idx = [0] * n
+        migrated_away = False
         try:
             lp_offsets = [0] * n
             t_first_out = None
             for_first_hop = True
             async for i, out in _chain_first(first_item, merged):
                 lasts[i] = out
+                if (
+                    out.finished
+                    and out.finish_reason == "migrated"
+                    and (mi := self._migrated_out.pop(req_id, None)) is not None
+                ):
+                    # the continuation decodes on the target now: the
+                    # control event the router's splice watches for ends
+                    # this leg without [DONE], and the router (or a client
+                    # talking to the engine) attaches to the target's
+                    # /migrate_attach for the rest of the stream
+                    await send({"pstpu_migration": mi})
+                    migrated_away = True
+                    break
                 if i == 0 and t_first_out is None:
                     t_first_out = time.perf_counter()
                 if not role_sent[i]:
@@ -867,16 +1212,19 @@ class EngineServer:
                         (time.perf_counter() - t_first_out) * 1000,
                     ))
                     _ttft_hist.observe(t_first_out - t_accept)
-            if lasts[0] is not None:
+            if lasts[0] is not None and not migrated_away:
                 await send({
                     "id": oid, "object": f"{kind}.chunk" if chat else kind, "created": created,
                     "model": model, "choices": [], "usage": _summed_usage(lasts),
                 })
-            await resp.write(b"data: [DONE]\n\n")
+            if not migrated_away:
+                await resp.write(b"data: [DONE]\n\n")
         except (ConnectionResetError, asyncio.CancelledError):
             _abort_all()
+            self._migrated_out.pop(req_id, None)
             raise
         self._live_requests.pop(req_id, None)
+        self._migrated_out.pop(req_id, None)
         _latency_hist.observe(time.perf_counter() - t_accept)
         collector.record(
             "engine.request", trace_ctx, t_accept_wall, time.perf_counter() - t_accept,
@@ -1093,6 +1441,12 @@ class EngineServer:
             r.add_get("/v1/debug/flightrecorder", self.flightrecorder)
             r.add_post("/metrics/reset", self.metrics_reset)
         r.add_post("/abort", self.abort)
+        # live migration: registered with --no-migration too (the handlers
+        # answer 501), so the route surface stays the JAX server's
+        r.add_get("/migratable", self.migratable)
+        r.add_post("/migrate_out", self.migrate_out)
+        r.add_post("/migrate_in", self.migrate_in)
+        r.add_post("/migrate_attach", self.migrate_attach)
         r.add_post("/tokenize", self.tokenize)
         r.add_post("/detokenize", self.detokenize)
         r.add_post("/v1/chat/completions", self.chat_completions)
@@ -1106,6 +1460,7 @@ class EngineServer:
         r.add_get("/is_sleeping", self.is_sleeping)
         r.add_post("/v1/load_lora_adapter", self.load_lora_adapter)
         r.add_post("/v1/unload_lora_adapter", self.unload_lora_adapter)
+        app.on_cleanup.append(self._close_mig_client)
         return app
 
 

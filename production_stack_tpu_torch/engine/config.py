@@ -126,6 +126,42 @@ class EngineConfig:
     warm_start_namespace: Optional[str] = None
     # manifest size cap in pages (highest-reuse-score chain heads first)
     warm_start_max_pages: int = 256
+    # the fleet-wide KV directory (kvdirectory/), hosted by the cache
+    # server. When set, the engine publishes directory entries (prefix-cache
+    # inserts -> resident claims; confirmed spills and warm-start saves ->
+    # shared-tier claims; withdrawals on eviction) batched every
+    # kv_directory_flush_s, and pulls fleet-warm prefixes: at admission, the
+    # chunks past the local prefix match that the directory reports
+    # restorable are fetched into the local host tiers (from the owning
+    # engine over the fabric when it runs one, else from the shared tier),
+    # so the loop thread's restore finds them locally. Entries are fenced by
+    # the warm-start generation (a boot epoch without warm_start). Usually
+    # the same address as kv_remote_url
+    kv_directory_url: Optional[str] = None
+    # seconds between directory publish-batch flushes
+    kv_directory_flush_s: float = 5.0
+    # consult the directory at admission and prefetch restorable prefix
+    # blobs into the local tiers (--no-kv-directory-pull = publish-only)
+    kv_directory_pull: bool = True
+    # cap on pages one admission may prefetch
+    kv_directory_pull_max_pages: int = 256
+    # scale-up warm-up: pull the fleet's top-N warm chunks (the cache
+    # server's dir_top_prefixes) into the local offload tiers while the
+    # engine is built, before the server reports ready, so its first
+    # requests restore those prefixes instead of prefilling them. Needs
+    # kv_directory_url and an offload tier; 0 disables
+    warm_prefetch_on_boot: int = 0
+    # live sequence migration (migration/): serve POST /migrate_out (freeze
+    # a running stream, ship its KV chain over the fabric or the offload
+    # tiers and its sampling and decode state to a target engine), POST
+    # /migrate_in (park the continuation), POST /migrate_attach (stream it)
+    # and GET /migratable (the fleet controller's victim listing).
+    # --no-migration turns them off (501); without an offload tier or the
+    # fabric a migration ships no pages and the target recomputes them
+    migration: bool = True
+    # seconds a parked /migrate_in continuation waits for its
+    # /migrate_attach before it is aborted
+    migrate_attach_timeout_s: float = 30.0
     seed: int = 0
     # register the unauthenticated debug routes (GET /v1/traces, GET
     # /v1/debug/flightrecorder, POST /metrics/reset); benchmark and test
@@ -198,7 +234,10 @@ class EngineConfig:
     # the peer-to-peer KV fabric (kvfabric/): versioned, CRC-framed (pages,
     # scales) frames engine to engine, so int8 pools ship with their exact
     # scales. A disagg producer streams a finished prefill's pages over it
-    # first and falls back to TCP blobs (vllm:kv_fabric_fallbacks_total)
+    # first and falls back to TCP blobs (vllm:kv_fabric_fallbacks_total); a
+    # directory pull fetches an owner's resident pages over it, and a
+    # migration ships its page chain over it, each with the tiers as the
+    # fallback
     kv_fabric: bool = False
     # fabric listener port; 0 binds an ephemeral port (GET /kv_fabric)
     kv_fabric_port: int = 0
@@ -214,15 +253,13 @@ class EngineConfig:
     # Switches of the JAX engine's features that the port does not serve
     # yet. Each must keep its default: check_supported refuses any other
     # value rather than ignore it. The JAX engine's per-feature sub-knobs
-    # (directory flush intervals, migration knobs, ...) are not carried.
+    # of these (the multi-host knobs, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
     sequence_parallel_size: int = 1
     expert_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     distributed_coordinator: Optional[str] = None
     distributed_num_processes: int = 1
-    kv_directory_url: Optional[str] = None
-    warm_prefetch_on_boot: int = 0      # needs the fleet KV directory
 
     @property
     def name(self) -> str:
@@ -327,8 +364,9 @@ _FLAG_HELP = {
     "kv_transfer_stage_mb": "consumer: MiB of device-pulled pages staged before admission",
     "kv_fabric": (
         "peer-to-peer KV fabric: engine-to-engine (pages, scales) frames for "
-        "streamed disagg prefill (the path for int8 pools), with TCP-blob "
-        "fallback on any failure"
+        "streamed disagg prefill (the path for int8 pools), directory "
+        "resident pulls and migration ships, with tier fallback on any "
+        "failure"
     ),
     "kv_fabric_port": "fabric listener port (0 = ephemeral; advertised on GET /kv_fabric)",
     "kv_fabric_retries": "bounded fabric retries per request, below the per-peer breaker",
@@ -343,6 +381,32 @@ _FLAG_HELP = {
     "flight_recorder_shed_burst": (
         "dump the flight recorder when this many admission sheds land "
         "within 5 s (0 = off)"
+    ),
+    "kv_directory_url": (
+        "fleet-wide KV directory address (the cache server; usually the "
+        "same as --kv-remote-url): publish this engine's prefix-cache "
+        "claims and pull fleet-warm prefixes from the shared tier"
+    ),
+    "kv_directory_flush_s": "seconds between dirty-batched directory publish flushes",
+    "kv_directory_pull": (
+        "prefetch directory-reported restorable prefix blobs into the "
+        "local tiers at request admission (--no-kv-directory-pull = "
+        "publish-only)"
+    ),
+    "kv_directory_pull_max_pages": "cap on pages one admission may prefetch from the shared tier",
+    "warm_prefetch_on_boot": (
+        "pull this many top fleet-warm chunks (cache server "
+        "dir_top_prefixes) into the local offload tiers before /ready, so "
+        "a scaled-up engine starts warm; needs --kv-directory-url (0 = off)"
+    ),
+    "migration": (
+        "serve the live-sequence-migration endpoints (/migrate_out, "
+        "/migrate_in, /migrate_attach, /migratable) so running streams can "
+        "move between engines without dropping; --no-migration disables"
+    ),
+    "migrate_attach_timeout_s": (
+        "seconds a parked migrated-in continuation waits for the router's "
+        "/migrate_attach before it is aborted"
     ),
 }
 # the port's own fields, which the JAX engine has not
@@ -410,8 +474,6 @@ _UNSUPPORTED = {
     "pipeline_parallel_size": "pipeline parallelism",
     "distributed_coordinator": "multi-host serving",
     "distributed_num_processes": "multi-host serving",
-    "kv_directory_url": "the fleet KV directory",
-    "warm_prefetch_on_boot": "warm prefetch on boot (the fleet KV directory)",
 }
 
 

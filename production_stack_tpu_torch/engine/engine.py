@@ -84,9 +84,28 @@ blob to the consumer's receiver. A ``kv_role="consumer"`` engine lands blobs
 and frames in its offload store (it always has a CPU tier) and device pages
 in its staging, and its admission restores them like any offloaded prefix.
 
-Not ported yet: the fleet directory (and warm prefetch on boot), migration,
-the "pre" KV write mode and the sp, ep and pp axes
-(engine/config.check_supported refuses their flags).
+The fleet, as in the JAX engine. With ``kv_directory_url`` the engine
+publishes its prefix-cache claims to the fleet KV directory the cache server
+hosts (kvdirectory.DirectoryPublisher: resident pages as they are
+registered, shared-tier blobs as spills and warm-start saves confirm them,
+withdrawals on eviction, batched off the loop thread), and at admission
+pulls the chunks of a prompt the directory names past the local prefix
+match into its local tiers (kvdirectory.DirectoryPuller: from the engine
+that holds them resident over the KV fabric, else from the shared tier), so
+the restore finds them locally; ``warm_prefetch_on_boot`` pulls the fleet's
+warmest chunks before the server reports ready. Live migration
+(``migration``, migration.MigrationManager): a running stream is frozen on
+the loop thread (out of the running set, pages kept, in ``_frozen``), its
+full pages shipped over the fabric to the target (``fabric_ship_pairs``) or
+saved through the tiers, then finished with reason "migrated" on commit or
+put back into the running set on rollback; the target re-admits the token
+history through the ordinary prefix-cache path, so the shipped pages restore
+and the tail chunk is prefilled. Directory and migration move pages only
+through the offload tiers' page calls and the fabric, which serve tp and dp
+ranks.
+
+Not ported yet: the "pre" KV write mode, the sp, ep and pp axes and
+multi-host serving (engine/config.check_supported refuses their flags).
 """
 
 from __future__ import annotations
@@ -269,6 +288,59 @@ class LLMEngine:
                     model=cfg.name,
                 )
                 self.warm.restore()
+        # the fleet KV directory: the publisher advertises this engine's
+        # prefix-cache claims (batched, off the loop thread); the puller
+        # fetches fleet-warm prefixes at admission. Made after the warm
+        # restore, so the generation fence follows the warm-start generation
+        # (a boot epoch without warm start: wall-clock seconds grow across
+        # restarts, which is all the fence needs)
+        self._kvdir_pub = None
+        self._kvdir_pull = None
+        if cfg.kv_directory_url:
+            from production_stack_tpu_torch.kvdirectory import DirectoryPublisher, DirectoryPuller
+
+            shared_tier = self._offload.store.remote is not None
+            self._kvdir_pub = DirectoryPublisher(
+                cfg.kv_directory_url,
+                engine_url=self._advertised_url(cfg),
+                page_size=cfg.page_size,
+                generation=self.warm.generation if self.warm is not None else int(time.time()),
+                flush_interval_s=cfg.kv_directory_flush_s,
+                # shared-tier claims need the write-through remote tier:
+                # without one this engine's blobs are private, and its
+                # resident claims alone feed the router's ranking
+                shared_enabled=shared_tier,
+            )
+            self.kv.directory = self._kvdir_pub
+            if self.kv.hash_to_page:
+                # the warm restore ran before the publisher existed: its
+                # working set is advertised under the new generation
+                self._kvdir_pub.publish_resident([
+                    (h, self.kv.pages[pid].depth, self.kv.pages[pid].hits)
+                    for h, pid in self.kv.hash_to_page.items()
+                ])
+            if cfg.kv_directory_pull and shared_tier:
+                # the shared tier is the remote cache server: without one
+                # every pull would miss after a directory round trip
+                self._kvdir_pull = DirectoryPuller(
+                    cfg.kv_directory_url, self.kv, self._offload.store, cfg.page_size,
+                    max_pages=cfg.kv_directory_pull_max_pages,
+                )
+            elif cfg.kv_directory_pull:
+                logger.warning(
+                    "--kv-directory-pull needs --kv-remote-url (the shared "
+                    "tier blobs are pulled from the cache server); "
+                    "publish-only mode"
+                )
+        # scale-up warm-up: the fleet's warmest chunks into the local tiers
+        # before the server exists; the first matching request's admission
+        # restores them through the ordinary offload path
+        self.kv_directory_prefetched_pages = 0
+        self.kv_directory_prefetch_seconds = 0.0
+        if cfg.warm_prefetch_on_boot > 0 and cfg.kv_directory_url:
+            t0 = time.perf_counter()
+            self.kv_directory_prefetched_pages = self._boot_prefetch(cfg)
+            self.kv_directory_prefetch_seconds = time.perf_counter() - t0
         # disaggregated prefill: a producer pushes each finished prefill's
         # pages to its decode peer; a consumer receives them into its store
         # (TCP blobs) or its device staging (kv_transfer_device)
@@ -307,6 +379,12 @@ class LLMEngine:
                 advertise_host=cfg.advertise_host or None,
             )
             self._fabric_server.start()
+            if self._kvdir_pull is not None:
+                # resident pages come engine to engine: the puller gets the
+                # fabric client and this engine's URL (it never pulls from
+                # itself); the shared tier stays its fallback
+                self._kvdir_pull.enable_fabric(self._fabric_client, self._advertised_url(cfg),
+                                               serde=self._offload.serde)
         self.scheduler = Scheduler(
             self.kv,
             max_num_seqs=cfg.max_num_seqs,
@@ -329,6 +407,15 @@ class LLMEngine:
         # (_runahead_prefills), which licenses the scheduler's one-extra-burst
         # chaining floor past the admission-wait budget
         self.scheduler.runahead_available = True
+        # live migration: a frozen sequence is out of the running set but
+        # keeps its pages while the target decides; freeze, commit, rollback
+        # and abort all run on the loop thread, which alone touches this map
+        self._frozen: dict[str, Sequence] = {}
+        self.migration = None
+        if cfg.migration:
+            from production_stack_tpu_torch.migration import MigrationManager
+
+            self.migration = MigrationManager(self)
         self._inbox: queue_mod.Queue = queue_mod.Queue()
         # prefill dispatches whose results were never fetched (and run-ahead
         # prefills queued behind a chain); a deferred device error taints
@@ -402,7 +489,10 @@ class LLMEngine:
         lands there before admission restores it into the pool."""
         if cfg.kv_role == "consumer" and cfg.kv_offload_cpu_gb <= 0:
             cfg = dataclasses.replace(cfg, kv_offload_cpu_gb=2.0)
-        if not (cfg.kv_offload_cpu_gb > 0 or cfg.kv_offload_dir or cfg.kv_remote_url or cfg.kv_controller_url):
+        if not (
+            cfg.kv_offload_cpu_gb > 0 or cfg.kv_offload_dir or cfg.kv_remote_url or cfg.kv_controller_url
+            or cfg.kv_directory_url
+        ):
             return None
         return KVOffloadConnector(
             self.runner,
@@ -415,6 +505,40 @@ class LLMEngine:
             instance_id=cfg.kv_instance_id or f"{cfg.name}-{cfg.port}",
             engine_url=self._advertised_url(cfg),
         )
+
+    def _boot_prefetch(self, cfg: EngineConfig) -> int:
+        """The scale-up prefetch: ask the cache server for the fleet's top
+        warm chunks (``dir_top_prefixes``, chain heads first) and pull their
+        blobs into the local tiers. Runs while the engine is built, before
+        the server reports ready. Never raises: a directory that is down
+        means a cold boot."""
+        try:
+            from production_stack_tpu_torch.kvoffload.protocol import BlockingClient, parse_hostport
+
+            host, port = parse_hostport(cfg.kv_directory_url, default_port=8200)
+            client = BlockingClient(host, port, timeout=10)
+            try:
+                hdr, _ = client.request({
+                    "op": "dir_top_prefixes",
+                    "limit": cfg.warm_prefetch_on_boot,
+                    "page_size": cfg.page_size,
+                })
+            finally:
+                client.close()
+            keys = hdr.get("hashes") or []
+            store = self._offload.store
+            n = 0
+            for key in keys:
+                try:
+                    if store.contains_local(key) or store.get(key) is not None:
+                        n += 1
+                except Exception:  # noqa: BLE001 - one bad blob: keep pulling
+                    logger.exception("boot prefetch failed for %s", key)
+            logger.info("warm prefetch on boot: pulled %d/%d fleet-warm chunks into local tiers", n, len(keys))
+            return n
+        except Exception as e:  # noqa: BLE001 - a directory that is down means a cold boot
+            logger.warning("warm prefetch on boot failed: %s", e)
+            return 0
 
     @staticmethod
     def _advertised_url(cfg: EngineConfig) -> str:
@@ -429,7 +553,7 @@ class LLMEngine:
                 host = socket.gethostbyname(socket.gethostname())
             except OSError:
                 host = "127.0.0.1"
-            if cfg.kv_controller_url:
+            if cfg.kv_controller_url or cfg.kv_directory_url:
                 logger.warning(
                     "--advertise-host not set; registering with the KV index as %s "
                     "(set it to the pod IP for kvaware routing)", host,
@@ -501,6 +625,8 @@ class LLMEngine:
         self._inbox.put(None)
         if self._thread:
             self._thread.join(timeout=10)
+        if self._kvdir_pub is not None:
+            self._kvdir_pub.stop()
         if self._kv_sender is not None:
             self._kv_sender.close()
         if self._kv_receiver is not None:
@@ -529,9 +655,15 @@ class LLMEngine:
         priority: str = "interactive",
         lora_name: Optional[str] = None,
         trace: Optional[object] = None,
+        shed_exempt: bool = False,
+        text_context: Optional[list[int]] = None,
     ) -> AsyncIterator[RequestOutput]:
         """Stream a request's outputs. ``trace``: the tracing.SpanContext
-        its phase spans parent under (the server's engine.request span)."""
+        its phase spans parent under (the server's engine.request span).
+        ``shed_exempt`` and ``text_context``: a migrated continuation, which
+        admission control must not shed, and the ids its earlier legs
+        emitted (the tail of ``prompt_token_ids``), whose text its own
+        deltas follow on from."""
         params = params or SamplingParams()
         if priority not in ("interactive", "batch"):
             priority = "interactive"
@@ -552,6 +684,16 @@ class LLMEngine:
             )
         if self._sleeping:
             raise RuntimeError("engine is sleeping")
+        if self._kvdir_pull is not None and not lora_name:
+            # the fleet-warm pull: the directory's restorable prefix blobs
+            # into the local tiers before the sequence reaches the
+            # scheduler, so the loop thread's restore reads them locally.
+            # A hint, never a gate (its own timeout and backoff); adapter
+            # prompts are salted and never shared across the fleet
+            try:
+                await self._kvdir_pull.maybe_prefetch(prompt_token_ids)
+            except Exception:  # noqa: BLE001 - a failed pull means a prefill
+                logger.exception("kv directory prefetch failed")
         lora_slot, cache_salt = 0, b""
         if lora_name:
             # resolve and pin last before the sequence is queued: every
@@ -559,12 +701,15 @@ class LLMEngine:
             lora_slot, cache_salt = self.lora.acquire(lora_name)
         out_q: asyncio.Queue = asyncio.Queue()
         loop = asyncio.get_running_loop()
+        text_context = list(text_context or [])
         with self._lock:
             self._outputs[seq_id] = (loop, out_q)
-            self._texts[seq_id] = ""
+            # what the earlier legs sent: their text, held back as they held it
+            self._texts[seq_id] = self._held(self.tokenizer.decode(text_context), params.stop) if text_context else ""
         self._inbox.put(Sequence(
             seq_id=seq_id, prompt_ids=list(prompt_token_ids), params=params,
             priority=priority, lora_slot=lora_slot, cache_salt=cache_salt, trace=trace,
+            shed_exempt=shed_exempt, text_context=text_context,
         ))
         try:
             while True:
@@ -587,11 +732,14 @@ class LLMEngine:
 
     def _drain_inbox(self, block: bool, defer_aborts: bool = False) -> list:
         """Take the queued arrivals, aborts and device commands. With
-        ``defer_aborts`` (run-ahead, while a chain is in flight) aborts are
-        returned instead of applied: an abort frees the sequence's pages,
-        and a page that a dispatched, unfetched chain still writes must not
-        go to a run-ahead admission. The caller queues them again; they run
-        at the next ordinary drain, after the chain was applied."""
+        ``defer_aborts`` (run-ahead, while a chain is in flight) aborts and
+        device commands are returned instead of applied: an abort frees the
+        sequence's pages, and a page that a dispatched, unfetched chain
+        still writes must not go to a run-ahead admission; a command (a
+        migration's freeze, a sleep) must not change the running set or the
+        pools under the chain, whose bursts are applied after this drain.
+        The caller queues them again; they run at the next ordinary drain,
+        after the chain was applied."""
         deferred: list = []
         timeout = 0.5 if block else None
         while True:
@@ -603,11 +751,21 @@ class LLMEngine:
             if item is None:
                 return deferred
             if isinstance(item, tuple) and item[0] == "device_cmd":
-                item[1]()  # embedding forward / sleep / wake, serialized with steps
+                if defer_aborts:
+                    deferred.append(item)
+                    continue
+                item[1]()  # embedding forward / sleep / wake / migration, serialized with steps
             elif isinstance(item, tuple) and item[0] == "abort":
                 if defer_aborts:
                     deferred.append(item)
                     continue
+                # a frozen sequence (mid-migration) is in no scheduler
+                # queue; an abort (the client left during the handoff) must
+                # still free it
+                frozen = self._frozen.pop(item[1], None)
+                if frozen is not None and not frozen.finished:
+                    self.scheduler._finish(frozen, "abort")
+                    self._emit(frozen, "")
                 for s in self.scheduler.waiting + self.scheduler.running:
                     if s.seq_id == item[1] and not s.finished:
                         self.scheduler._finish(s, "abort")
@@ -623,9 +781,10 @@ class LLMEngine:
             # sleep set it here: answer the request, do not park it
             seq.finished = True
             self._emit(seq, "", error=True)
-        elif self.scheduler.saturated(seq.priority):
+        elif self.scheduler.saturated(seq.priority) and not seq.shed_exempt:
             # authoritative queue bound: the API layer's check races a
-            # burst of arrivals the inbox has not drained yet
+            # burst of arrivals the inbox has not drained yet (a migrated
+            # continuation is mid-flight: shedding it would drop a stream)
             self._shed(seq, "queue_full")
         else:
             self.scheduler.add(seq)
@@ -968,22 +1127,10 @@ class LLMEngine:
         """Detokenize incrementally, check stop strings, emit the delta (one
         token or a whole decode burst; ``logprobs`` aligns with
         ``new_tokens`` when requested)."""
-        raw = full = self.tokenizer.decode(seq.output_ids)
-        if not seq.finished and full.endswith("�"):
-            # hold back a trailing incomplete byte sequence until later
-            # tokens complete it; it flushes on the finishing emit
-            full = full.rstrip("�")
-        if not seq.finished and seq.params.stop:
-            # hold back a trailing PARTIAL stop-string match, so the emitted
-            # text does not depend on where a dispatch ends
-            hold = 0
-            for s in seq.params.stop:
-                for j in range(min(len(s) - 1, len(full)), hold, -1):
-                    if full.endswith(s[:j]):
-                        hold = j
-                        break
-            if hold:
-                full = full[: len(full) - hold]
+        ctx = seq.text_context
+        raw = full = self.tokenizer.decode(ctx + seq.output_ids)
+        if not seq.finished:
+            full = self._held(full, seq.params.stop)
         with self._lock:
             prev = self._texts.get(seq.seq_id, "")
         delta = full[len(prev):] if full.startswith(prev) else full
@@ -993,7 +1140,7 @@ class LLMEngine:
             base = len(seq.output_ids) - len(new_tokens)
             hit = None  # (keep, text_at_keep, stop_index)
             for m in range(1, len(new_tokens) + 1):
-                txt = self.tokenizer.decode(seq.output_ids[: base + m])
+                txt = self.tokenizer.decode(ctx + seq.output_ids[: base + m])
                 for stop in seq.params.stop:
                     idx = txt.find(stop)
                     if idx >= 0:
@@ -1018,6 +1165,22 @@ class LLMEngine:
             if seq.seq_id in self._texts:
                 self._texts[seq.seq_id] = prev + delta
         self._emit(seq, delta, tokens=new_tokens, logprobs=logprobs)
+
+    @staticmethod
+    def _held(full: str, stop) -> str:
+        """The text a stream has sent so far out of ``full``: a trailing
+        incomplete byte sequence is held back until later tokens complete
+        it, and a trailing partial stop-string match, so the emitted text
+        does not depend on where a dispatch ends (both flush on the
+        finishing emit)."""
+        full = full.rstrip("�")
+        hold = 0
+        for s in stop or ():
+            for j in range(min(len(s) - 1, len(full)), hold, -1):
+                if full.endswith(s[:j]):
+                    hold = j
+                    break
+        return full[: len(full) - hold] if hold else full
 
     def _emit(
         self,
@@ -1327,14 +1490,46 @@ class LLMEngine:
                 return hashes
         return []
 
+    def fabric_ship_pairs(self, addr: str, pairs: "list[tuple[int, str]]") -> "list[str]":
+        """Ship explicit ``(pid, key_hex)`` pages to the fabric listener at
+        ``addr``: a migration's freeze-and-ship, whose frozen sequence's
+        pages are not in hash_to_page yet (they are registered at its
+        finish). Returns the keys shipped, all or none. The gather runs on
+        the loop thread (inline when the caller is already there, as the
+        freeze is)."""
+        if self._fabric_client is None or not pairs:
+            return []
+        from production_stack_tpu_torch.kvfabric import wire as fabric_wire
+
+        def gather():
+            pids = [p for p, _ in pairs]
+            if self.kv_quant:
+                return self.runner.get_pages_quant(pids)
+            return (*self.runner.get_pages(pids), None, None)
+
+        try:
+            ks, vs, sks, svs = self._run_on_device_thread(gather, what="fabric migration gather")
+        except Exception as e:  # noqa: BLE001 - the tier save is the fallback
+            logger.warning("fabric migration gather failed: %s", e)
+            self._fabric_client.count_fallback(len(pairs))
+            return []
+        keys = [k for _, k in pairs]
+        frame = fabric_wire.encode_frame(keys, ks, vs, sks, svs, nlayers=int(ks[0].shape[0]))
+        if self._fabric_client.push(addr, frame):
+            return keys
+        self._fabric_client.count_fallback(len(pairs))
+        return []
+
     # -- commands on the loop thread ------------------------------------------
 
     def _run_on_device_thread(self, fn, what: str = "device command"):
         """Run ``fn`` on the engine loop's thread between steps and return
         its result (its exception is raised here). Device state must not
         change under a running step, and extra forwards must not race one.
-        Runs inline when the loop is not running."""
-        if self._thread is None or not self._thread.is_alive():
+        Runs inline when the loop is not running, and when called on the loop
+        thread itself (a migration's freeze gathers its pages from there):
+        queueing would wait on itself."""
+        if self._thread is None or not self._thread.is_alive() or threading.current_thread() is self._thread:
             return fn()
         done = threading.Event()
         box: dict = {}
@@ -1512,6 +1707,9 @@ class LLMEngine:
                 max_io_pages=self._max_io_pages, spill_watermark=self.cfg.kv_spill_watermark,
             )
             self.scheduler.kv = self.kv
+            self.kv.directory = self._kvdir_pub  # fleet publishes go on
+            if self._kvdir_pull is not None:
+                self._kvdir_pull.kv = self.kv
             if self.warm is not None:
                 # the manifest's pages are the new manager's: the old one's
                 # page ids name pages of the dropped pools
@@ -1583,6 +1781,22 @@ class LLMEngine:
                 out["kv_offload_link_bandwidth_bytes_per_sec"] = round(self.kv_link_bandwidth_bytes_per_s)
         if self.warm is not None:
             out.update(self.warm.stats())
+        if self._kvdir_pub is not None:
+            # the fleet directory, publish side
+            p = self._kvdir_pub.stats()
+            out["kv_directory_publishes_total"] = p["kv_directory_publishes_total"]
+            out["kv_directory_withdrawals_total"] = p["kv_directory_withdrawals_total"]
+            out["kv_directory_flush_errors_total"] = p["kv_directory_flush_errors_total"]
+        if self.cfg.warm_prefetch_on_boot > 0:
+            # chunks pulled into the local tiers before the server was ready
+            out["kv_directory_prefetched_pages_total"] = self.kv_directory_prefetched_pages
+        if self._kvdir_pull is not None:
+            # and the pull side: lookups and hits, and the blobs fetched
+            # into the local tiers
+            q = self._kvdir_pull.stats()
+            out["kv_directory_lookups_total"] = q["kv_directory_lookups_total"]
+            out["kv_directory_lookup_hits_total"] = q["kv_directory_lookup_hits_total"]
+            out["kv_directory_pulled_pages_total"] = q["kv_directory_pulled_pages_total"]
         if self._kv_sender is not None:
             out["kv_transfer_sent_chunks_total"] = self._kv_sender.sent_chunks
             out["kv_transfer_sent_bytes_total"] = self._kv_sender.sent_bytes

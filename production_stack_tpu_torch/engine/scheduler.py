@@ -95,6 +95,11 @@ class Sequence:
     # is preempted first under page pressure — the whole degradation order
     # under overload keys off this field
     priority: str = "interactive"
+    # a migrated continuation's tokens emitted on earlier engines (the tail
+    # of its prompt): its text is decoded after them, so a character or a
+    # stop string split across the handoff comes out as in an unmigrated
+    # stream
+    text_context: list[int] = field(default_factory=list)
     # distributed-tracing context (tracing.SpanContext of the engine.request
     # span) — phase spans for this sequence parent under it; None = untraced
     trace: Optional[object] = None

@@ -1,8 +1,8 @@
 """Peer-to-peer KV fabric, the port's copy of production_stack_tpu/kvfabric/:
 one engine-to-engine transfer plane of versioned, CRC-framed (pages, scales)
 frames. The port's engines use it for disaggregated prefill's streamed push
-(the only path for int8 pools); the fleet directory's resident-page pulls and
-live migration, its other users in the JAX engine, are not ported yet."""
+(the only path for int8 pools), the fleet directory's resident-page pulls
+and live migration's page-chain ships, each with the tiers as its fallback."""
 
 from production_stack_tpu_torch.kvfabric.client import KVFabricClient
 from production_stack_tpu_torch.kvfabric.peers import (

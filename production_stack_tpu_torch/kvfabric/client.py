@@ -2,8 +2,9 @@
 copy of production_stack_tpu/kvfabric/client.py.
 
 One ``KVFabricClient`` per engine serves every mover — streamed disagg
-prefill pushes, and in the JAX engine directory resident-page pulls and
-migration page-chain ships, which the port does not serve yet. It owns:
+prefill pushes, the fleet directory's resident-page pulls
+(kvdirectory.DirectoryPuller) and live migration's page-chain ships
+(``LLMEngine.fabric_ship_pairs``). It owns:
 
 - one lazily-connected :class:`BlockingClient` per peer address (guarded by
   a per-peer lock: callers run on the device thread, the puller executor,

@@ -1,8 +1,9 @@
 """Engine-side KV offload connector: the device page pools (engine/runner.py)
 to the tiered blob store (kvoffload/tiers.py: host RAM, disk and the remote
 cache server) and to the KV-index controller (kvoffload/controller.py). The
-port's copy of production_stack_tpu/kvoffload/connector.py; device KV staging
-(disaggregated prefill) is not ported.
+port's copy of production_stack_tpu/kvoffload/connector.py, with the device
+staging of disaggregated prefill (``device_staging``: pages a consumer
+pulled device to device, written into the pool by ``load_page``).
 
 Runs on the engine's device thread (KVPageManager calls it from inside the
 scheduler, warm start from its restore and spills), so it never raises into

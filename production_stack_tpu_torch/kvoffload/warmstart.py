@@ -367,6 +367,22 @@ class WarmStartManager:
             return 0
         self.last_manifest_ts = now
         self.spilled_pages_total += len(saved)
+        d = getattr(self.kv, "directory", None)
+        if d is not None:
+            if d.generation != self.generation:
+                # a generation taken over mid-life (_try_takeover): its first
+                # publish fences everything this engine advertised, and the
+                # publisher sends deltas only, so the live working set is
+                # advertised again under the new generation
+                d.generation = self.generation
+                d.publish_resident([
+                    (h, self.kv.pages[pid].depth, self.kv.pages[pid].hits)
+                    for h, pid in self.kv.hash_to_page.items()
+                ])
+            # every manifest entry's blob is confirmed in the tier (written
+            # through to the cache server when there is one): the fleet
+            # directory's shared claims, so another engine can pull them
+            d.publish_shared([(h, dep, hits) for _, h, dep, hits in entries])
         logger.info(
             "warm-start: generation %d manifest written (%s): %d pages "
             "(%d blobs newly saved)", self.generation, reason, len(entries),

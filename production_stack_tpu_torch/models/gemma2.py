@@ -29,8 +29,9 @@ rank's, split as the llama family's (parallel/tp.py): the all-reduce of
 embedding scale after the vocab-parallel lookup, and the final softcap after
 the logits are gathered.
 
-All-position logits and the "pre" write mode are not ported; the model
-raises on them.
+``all_logits=True`` returns every position's logits, after the final
+softcap (speculative decode's verify). The "pre" write mode is not ported;
+the model raises on it.
 """
 
 from __future__ import annotations

@@ -26,8 +26,9 @@ token. ``lora``/``lora_ids`` add batched multi-LoRA: each row's adapter slot
 adds ``(h @ A) @ B * scale`` to every projection with a buffer
 (``init_lora_buffers``). ``encode`` is the pooled-embedding forward behind
 the server's embedding, rerank and score routes (dense causal attention, no
-pages). sp/pp meshes, the "pre" write mode and all-position logits are not
-ported; the model raises on them.
+pages). ``all_logits=True`` returns every position's logits (speculative
+decode's verify). sp/pp meshes and the "pre" write mode are not ported; the
+model raises on them.
 
 With ``tp`` (a parallel/group.TPGroup) the model is one tensor-parallel
 rank's: it holds its slice of each split weight (parallel/tp.py: NH/tp and

@@ -13,8 +13,10 @@
 # page copied over CUDA IPC between two processes, the offer retirement, a
 # producer process shipping every page device to device, a killed
 # producer's pages falling back to TCP blobs, and a staged page's restore
-# queued behind other work while more pulls land (tests/test_torch_cuda_disagg.py).
-# No file imports
+# queued behind other work while more pulls land (tests/test_torch_cuda_disagg.py);
+# live migration between two engines through the kernels, over the KV fabric
+# and through a shared disk tier, the restored pages byte for byte
+# (tests/test_torch_cuda_fleet.py). No file imports
 # jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
 # which that machine may lack, so pytest skips conftest files.
 #
@@ -23,5 +25,5 @@ set -euo pipefail
 cd "$(dirname "$0")/.."
 exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py tests/test_torch_cuda_surface.py \
     tests/test_torch_cuda_moe_lora.py tests/test_torch_cuda_tp.py tests/test_torch_cuda_dp.py \
-    tests/test_torch_cuda_spec.py tests/test_torch_cuda_disagg.py \
+    tests/test_torch_cuda_spec.py tests/test_torch_cuda_disagg.py tests/test_torch_cuda_fleet.py \
     -q -p no:cacheprovider "$@"

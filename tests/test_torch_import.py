@@ -137,8 +137,6 @@ _REFUSED = [
     ("kv_transfer_device", True, {"tensor_parallel_size": 2}),
     ("kv_transfer_device", True, {"device": "cpu"}),
     ("kv_write_mode", "pre", {}),
-    ("kv_directory_url", "http://127.0.0.1:9200", {}),
-    ("warm_prefetch_on_boot", 8, {}),
 ]
 # the refusals in the JAX engine's words rather than the port's
 _JAX_WORDS = {"speculative_k": "--kv-cache-dtype int8 is not compatible with --speculative-k"}
@@ -265,8 +263,10 @@ def test_cli_does_not_register_flags_the_port_ignores(flag):
 
 
 # flags of the list above whose features the port has come to serve (the KV
-# fabric's listener port)
-_NOW_SERVED = {"--kv-fabric-port": ("kv_fabric_port", 1)}
+# fabric's listener port; the fleet directory's flush interval and live
+# migration's attach timeout)
+_NOW_SERVED = {"--kv-fabric-port": ("kv_fabric_port", 1), "--kv-directory-flush-s": ("kv_directory_flush_s", 1.0),
+               "--migrate-attach-timeout-s": ("migrate_attach_timeout_s", 1.0)}
 
 
 def test_unported_model_features_raise():

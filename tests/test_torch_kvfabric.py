@@ -6,7 +6,8 @@ copies: the wire format ((pages, scales) frames, integrity quarantine,
 version fencing, whole pages over every kv head), frame-to-blob landing, the assembler, the
 client and server over loopback (breaker, generation fence, quarantine on
 both ends), and transfer-cost peer scoring. The directory puller's fabric
-path waits for the port's fleet directory. Then frames across the packages:
+path is in tests/test_torch_kvdirectory.py, a migration's fabric handoff in
+tests/test_torch_migration.py. Then frames across the packages:
 a frame the JAX package encodes decodes in the port byte for byte, and the
 reverse, for f32, bf16 and int8 pages with their scales.
 """

@@ -19,6 +19,7 @@ process; the router is a subprocess, each wait with its own timeout.
 import asyncio
 import json
 import re
+import socket
 import threading
 import time
 
@@ -174,13 +175,22 @@ def test_a_corrupt_remote_blob_is_a_miss_and_a_dead_server_is_a_miss(loop):
     cs.put("k", bytes(bad))
     assert st.get("k") is None and cs.corrupt == 1  # the server quarantined it
     st.remote._client.close()
-    server.close()  # new connections are refused from here on
-    assert st.get("other") is None and st.stats()["remote_errors"] >= 1  # recompute, not an error
 
+    async def close():
+        # on the server's own loop: an asyncio server is not thread-safe (a
+        # close from this thread raced the loop's teardown of the closed
+        # connection: both woke the server's waiters, and the second raised)
+        server.close()
+        await server.wait_closed()
 
-def test_cache_server_cli_refuses_the_directory_by_name():
-    with pytest.raises(SystemExit):
-        cache_server.main(["--directory"])
+    loop.run(close())
+    # the dead server's port, kept bound and never listening: a connect is
+    # refused, and no other process (nor the client's own source port) can
+    # take the port the way a freed one can be taken
+    with socket.socket() as dead:
+        dead.bind(("127.0.0.1", 0))
+        st.remote._client.port = dead.getsockname()[1]
+        assert st.get("other") is None and st.stats()["remote_errors"] >= 1  # recompute, not an error
 
 
 # -- the controller (tests/test_kvoffload.py TestController) -------------------

@@ -3,15 +3,17 @@ scans only the JAX package): a CPU port server's ``/metrics``, after one
 streamed request, held in both directions against the dashboards and docs.
 
 1. Every series the port emits (a disaggregated-prefill consumer and
-   producer with the fabric on) is documented (docs/ or README.md) and
-   dashboarded, or in the script's own DASHBOARD_ALLOWLIST.
+   producer with the fabric on, in a fleet with the KV directory, and the
+   port cache server's ``--metrics-port`` page) is documented (docs/ or
+   README.md) and dashboarded, or in the script's own DASHBOARD_ALLOWLIST.
 2. Every ``vllm:`` series the JAX package emits that the dashboards chart or
    the allowlist names is emitted by the port, unless it belongs to a
    feature the port refuses (listed below by name, beside the
    ``engine/config._UNSUPPORTED`` switch that refuses it, or the part of the
    JAX package with no switch in the port), to a setting both servers emit
    it at only (speculative decoding's series), or to another process than
-   the engine (the fleet controller, the KV directory service).
+   the engine and the cache server (the fleet controller, which stays the
+   JAX package's).
 3. A port server at decode_pipeline 4 and one at speculative_k 2 give the
    chained and speculative series and /stats keys a JAX server gives at the
    same settings.
@@ -35,6 +37,7 @@ from production_stack_tpu.testing.procs import free_port  # noqa: E402
 from production_stack_tpu_torch.engine import api_server as port_server  # noqa: E402
 from production_stack_tpu_torch.engine.config import _UNSUPPORTED, EngineConfig  # noqa: E402
 from production_stack_tpu_torch.engine.engine import LLMEngine  # noqa: E402
+from production_stack_tpu_torch.kvoffload import cache_server  # noqa: E402
 
 _DIRECTORY = ("kv_directory_publishes_total", "kv_directory_withdrawals_total", "kv_directory_flush_errors_total",
               "kv_directory_lookups_total", "kv_directory_lookup_hits_total", "kv_directory_pulled_pages_total",
@@ -57,44 +60,50 @@ _MIGRATION = ("migration_duration_seconds", "migration_failures_total", "migrati
               "migrations_in_total", "migrations_out_total")
 
 # series of refused features -> the port's switch that refuses them (the
-# fabric's and the transfer's are served since the port serves disaggregated
-# prefill: the fixture's servers emit them)
-REFUSED = {
-    **{f"vllm:{n}": "kv_directory_url" for n in _DIRECTORY},
-}
+# fixture's servers emit the series of every feature the port serves)
+REFUSED: dict = {}
 # series both servers emit only at a setting other than the default
 SETTING_ONLY = {f"vllm:{n}": "speculative_k" for n in _SPEC}
 # series of JAX features the port has no switch for: not ported, and nothing
-# to refuse (the JAX engine serves migration by default)
-NOT_PORTED = {
-    **{f"vllm:{n}": "live migration (/migrate_*)" for n in _MIGRATION},
-}
-# series other processes than the engine emit
+# to refuse
+NOT_PORTED: dict = {}
+# series other processes than the engine and the cache server emit (the
+# fleet controller stays the JAX package's: the port's engines serve it)
 OTHER_PROCESS = {
     "vllm:fleet_controller_decisions_total": "the fleet controller",
     "vllm:fleet_controller_fleet_saturation": "the fleet controller",
     "vllm:fleet_controller_migrations_started_total": "the fleet controller",
     "vllm:fleet_controller_migrations_failed_total": "the fleet controller",
     "vllm:fleet_controller_migrations_inflight": "the fleet controller",
-    "vllm:kv_directory_engines": "the KV directory service",
-    "vllm:kv_directory_entries": "the KV directory service",
-    "vllm:kv_directory_expired_entries_total": "the KV directory service",
-    "vllm:kv_directory_stale_hits_total": "the KV directory service",
 }
+# the KV directory service's own series, on the port cache server's
+# --metrics-port page
+_DIRECTORY_SERVICE = ("kv_directory_engines", "kv_directory_entries", "kv_directory_expired_entries_total",
+                      "kv_directory_stale_hits_total")
 
 
 @pytest.fixture(scope="module")
 def port_series() -> set:
     """Every series name two port servers' /metrics give after one streamed
-    request: a disaggregated-prefill consumer (the CPU tier, warm start, the
-    fabric and a measured link: the CPU has none to probe, so the figure is
-    set by hand) and its producer, both with the device path armed on a
-    stand-in endpoint (tests/test_torch_disagg.py; the CPU has no CUDA IPC)."""
+    request, and the port cache server's metrics page: a disaggregated-
+    prefill consumer (the CPU tier, warm start, the fabric, the fleet
+    directory with boot prefetch, and a measured link: the CPU has none to
+    probe, so the figure is set by hand) and its producer, both with the
+    device path armed on a stand-in endpoint (tests/test_torch_disagg.py;
+    the CPU has no CUDA IPC), and the cache server hosting the directory."""
     from test_torch_disagg import _arm
 
+    loop = asyncio.new_event_loop()
+    th = threading.Thread(target=loop.run_forever, daemon=True)
+    th.start()
+    cport, mport = free_port(), free_port()
+    asyncio.run_coroutine_threadsafe(
+        cache_server.serve("127.0.0.1", cport, 1 << 24, directory=True, metrics_port=mport), loop).result(30)
+    directory = dict(kv_remote_url=f"127.0.0.1:{cport}", kv_directory_url=f"127.0.0.1:{cport}",
+                     warm_prefetch_on_boot=4)
     ccfg = EngineConfig(model="llama-debug", host="127.0.0.1", port=free_port(), num_pages=16, page_size=8,
                         max_model_len=128, prefill_chunk=32, kv_offload_cpu_gb=0.01, kv_offload_max_io_pages=4,
-                        warm_start=True, kv_role="consumer", kv_transfer_port=0, kv_fabric=True)
+                        warm_start=True, kv_role="consumer", kv_transfer_port=0, kv_fabric=True, **directory)
     consumer = LLMEngine(ccfg, device="cpu")
     consumer.kv_link_bandwidth_bytes_per_s = 1e9
     pcfg = EngineConfig(model="llama-debug", host="127.0.0.1", port=free_port(), num_pages=16, page_size=8,
@@ -104,9 +113,6 @@ def port_series() -> set:
     producer = LLMEngine(pcfg, device="cpu")
     for eng in (consumer, producer):
         _arm(eng)
-    loop = asyncio.new_event_loop()
-    th = threading.Thread(target=loop.run_forever, daemon=True)
-    th.start()
 
     async def scrape():
         served = [await port_server.serve(cfg, eng, device="cpu") for cfg, eng in ((ccfg, consumer), (pcfg, producer))]
@@ -120,8 +126,9 @@ def port_series() -> set:
                     async with s.post(base + "/v1/completions", json=body) as r:
                         assert r.status == 200
                         await r.read()
-                for cfg in (ccfg, pcfg):
-                    async with s.get(f"http://127.0.0.1:{cfg.port}/metrics") as r:
+                for base in (f"http://127.0.0.1:{ccfg.port}", f"http://127.0.0.1:{pcfg.port}",
+                             f"http://127.0.0.1:{mport}"):
+                    async with s.get(f"{base}/metrics") as r:
                         texts.append(await r.text())
             return texts
         finally:
@@ -157,6 +164,9 @@ def test_every_charted_jax_series_of_a_served_feature_is_emitted_by_the_port(por
     assert {f"vllm:{n}" for n in _CHAINED} <= port_series
     assert {f"vllm:{n}" for n in _WARM} <= port_series
     assert {f"vllm:{n}" for n in _FABRIC + _TRANSFER} <= port_series  # both groups, from a role with the fabric on
+    # the fleet directory (the engine's side and the cache server's page)
+    # and live migration, served now
+    assert {f"vllm:{n}" for n in _DIRECTORY + _DIRECTORY_SERVICE + _MIGRATION} <= port_series
     assert {"vllm:trace_buffer_capacity", "vllm:trace_spans_dropped_total",
             "vllm:trace_spans_recorded_total"} <= port_series
     for name in ("vllm:tpu_hbm_bytes_in_use", "vllm:hbm_headroom_bytes", "vllm:kv_pool_device_bytes",

@@ -83,12 +83,6 @@ IDS = {"request_id", "trace_id"}
 REFUSED_STATS: dict = {}
 REFUSED_SERIES = {
     **{f"vllm:{k}": v for k, v in REFUSED_STATS.items()},
-    # live migration: the JAX engine serves it by default (its `migration`
-    # flag); the port has neither the flag nor the /migrate_* routes
-    **{f"vllm:{k}": "no switch: live migration" for k in (
-        "migration_duration_seconds", "migration_fabric_pages_total", "migration_failures_total",
-        "migration_pages_moved_total", "migrations_in_total", "migrations_out_total",
-    )},
 }
 
 
