@@ -106,7 +106,9 @@ non-zero exit (nothing is caught):
                directories are deleted.
 5b. tp       -- before that refusal, while qwen2.5-7b's directory exists:
                two tp ranks (two processes) on the one card over gloo,
-               asked for by name: llama-3.2-1b's logits of a 512-token
+               asked for by name (llama-3.2-1b at full width cut to
+               RANK_LAYERS = 8 of its 16 layers in 5b and 5c, to keep the
+               smoke inside its time limit): llama-3.2-1b's logits of a 512-token
                chunk and a decode step at tp 2 against tp 1's in this run
                (FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN); the server at tp 2
                with bf16 pools, then with int8 pools, the CPU tier and 40
@@ -243,6 +245,22 @@ non-zero exit (nothing is caught):
                median gap, C's boot prefetch and its first TTFT against
                the cold one, the launches per engine and the phase's
                seconds, each with the card.
+5h. ep     -- after the one-rank mixtral-8x7b serve (whose prepare records
+               its logits of two rows, two 512-token chunks and 8 decode
+               steps, and the experts its routers took) and before its
+               directory is deleted: mixtral-8x7b-hf at ep 2 (4 experts a
+               rank) and at ep 2 x tp 2 (4 experts of I/2, 16 query and 4
+               KV heads a rank), every rank a gloo process on the one
+               card: each engine's logits of the same steps, with the one
+               rank's experts replayed on every rank
+               (runner.replay_routes), held to FORWARD_LOGIT_BOUND and
+               FORWARD_TOP1_MIN ("ep_forward"), then served over HTTP;
+               then a seeded mixtral-8x7b at full width cut to 4 layers at
+               dp 2 against its own one rank ("dp_moe_forward") and served.
+               Every rank launched both kernels and no plain version; the
+               ep and dp replicas' pools have one digest; "ep_ranks" and
+               "dp_ranks" lines give each rank's device bytes, collective
+               share, expert all-reduces and launches.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -255,8 +273,10 @@ non-zero exit (nothing is caught):
                and prefill, and mixtral-8x7b's (G = 4 at D = 128) decode
                burst step and prefill chunk, both modes, as rows of their
                own; the tp 2 ranks' rows (llama-3.2-1b's heads in both
-               modes, qwen2.5-7b's in bf16); a dp 2 rank's decode row
-               (16 x 1,024, half the 32 x 1,024 row's rows); the prefill
+               modes, qwen2.5-7b's in bf16); a dp 2 rank's decode rows
+               (16 x 1,024, half the 32 x 1,024 row's rows, at
+               llama-3.2-1b's heads and at mixtral-8x7b's, [d128,dp2]);
+               the ep 2 x tp 2 rank's decode and prefill ([ep2tp2]); the prefill
                kernel at step_spec's verify shape (T = 5: llama-3.2-1b's
                32 x 1,024, the [verify] row; gemma-2-2b's 8 x 4,096 on a
                sliding and a global layer, as lines of their own).
@@ -267,9 +287,12 @@ mixtral-8x7b servers for D = 128, the gemma-2-2b server for its bf16 rows
 and its int8 kernel forward for its int8 rows, which no server runs; the
 [tp2] rows from the tp 2 servers, summed over both ranks, and from the dp 2
 x tp 2 int8 server's four ranks; the [dp2] row from the dp 2 server's two
-ranks; the [verify] row from the spec server's verify rounds, L a round;
+ranks; the [d128,dp2] row from the dp 2 mixtral server's two ranks; the
+[ep2tp2] rows from mixtral's ep 2 x tp 2 server's four ranks; the
+[verify] row from the spec server's verify rounds, L a round;
 the D = 64 rows also count the disagg phase's producers' and consumers'
-launches and the fleet phase's engines'), the
+launches and the fleet phase's engines'; each phase ends with a
+"phase_seconds" line), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``. With
 no CUDA device, or run from a directory without the package, it exits
@@ -353,6 +376,16 @@ def _tptag(name: str, tp: int) -> str:
     return name[:-1] + f",tp{tp}]" if name.endswith("]") else name + f"[tp{tp}]"
 
 
+def _eptag(name: str, ep: int, tp: int) -> str:
+    """A kernel row's name at an (ep, tp) rank's heads (ep 1 keeps the
+    name): decode_attention[d128] at ep 2 x tp 2 ->
+    decode_attention[d128,ep2tp2]."""
+    if ep == 1:
+        return name
+    tag = f"ep{ep}tp{tp}"
+    return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
+
+
 def _dptag(name: str, dp: int) -> str:
     """A kernel row's name at a dp rank's rows (dp 1 keeps the name):
     decode_attention at dp 2 -> decode_attention[dp2]."""
@@ -380,13 +413,23 @@ for _D, _quant in TP_SERVED:
 # llama-3.2-1b's heads; the dp 2 server's decode launches. Its prefill runs
 # each row as tp 1 does (the rows above take those launches)
 DP_ROW = _dptag("decode_attention", 2)
-REPLACES[DP_ROW] = SHARDED_DECODE
-SOURCES[DP_ROW] = _BASE_SOURCES["decode_attention"]
+# the dp 2 MoE serve's decode: mixtral-8x7b's heads on a dp 2 rank's rows
+DP_MIXTRAL_ROW = _dptag(_dtag("decode_attention", 128), 2)
+for _row in (DP_ROW, DP_MIXTRAL_ROW):
+    REPLACES[_row] = SHARDED_DECODE
+    SOURCES[_row] = _BASE_SOURCES["decode_attention"]
 # the prefill kernel at step_spec's verify shape (llama-3.2-1b, T = 5): the
 # spec server's verify rounds, where the JAX engine runs its XLA attention
 # below 16 tokens; the same TPU kernel replaced
 REPLACES["prefill_attention[verify]"] = _BASE_REPLACES["prefill_attention"]
 SOURCES["prefill_attention[verify]"] = _BASE_SOURCES["prefill_attention"]
+# mixtral-8x7b's ep 2 x tp 2 ranks (phase_ep_ranks): each rank's decode,
+# the sharded decode on its tp place's heads (the same on both ep ranks),
+# and its prefill chunk; the ep 2 x tp 2 server's launches
+EP_ROWS = {_eptag(_dtag(k, 128), 2, 2): k for k in ("decode_attention", "prefill_attention")}
+for _row, _base in EP_ROWS.items():
+    REPLACES[_row] = SHARDED_DECODE if _base.startswith("decode") else _BASE_REPLACES[_base]
+    SOURCES[_row] = _BASE_SOURCES[_base]
 
 
 def emit(obj: dict) -> None:
@@ -640,6 +683,17 @@ TP_QWEN_PREFILL = "tp2_qwen_t512_h1536_bf16"
 DP_LLAMA = dict(NH=32, KH=8, D=64, dp=2)
 DP_TP_LLAMA = dict(NH=16, KH=4, D=64, tp=2, dp=2)
 DP_DECODE = "dp2_llama_b16_ctx1024_c8_bf16"
+# mixtral-8x7b at a dp 2 rank (the [d128,dp2] row: the dp 2 MoE serve's
+# decode): 16 of the 32 x 1,024 row's rows, all 32 query and 8 KV heads
+DP_MIXTRAL = dict(MIXTRAL, dp=2)
+DP_MIXTRAL_DECODE = "dp2_mixtral_b16_ctx1024_c8_bf16"
+# mixtral-8x7b at an ep 2 x tp 2 rank: NH/tp = 16 query heads and KH/tp = 4
+# KV heads (G = 4, as at one rank); the attention is replicated along ep,
+# so both ep ranks of a tp place run these shapes (at ep 2 alone a rank's
+# are one rank's, the MIXTRAL cases)
+EP_MIXTRAL = dict(NH=16, KH=4, D=128, kv_normal=True, tp=2, ep=2)
+EP_DECODE = "ep2tp2_mixtral_b32_ctx1024_c8_bf16"
+EP_PREFILL = "ep2tp2_mixtral_t512_h1536_bf16"
 # step_spec's verify forward: the prefill kernel at T = 1 + k = 5 (k = 4)
 # after a long history, one launch per layer and round: llama-3.2-1b's heads
 # at 32 rows after 1,024 tokens (the [verify] row, whose launches are the
@@ -653,7 +707,7 @@ VERIFY_ROW = "prefill_attention[verify]"
 # the cases whose one-key-fewer control must fail the bound
 CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECODE, QWEN_PREFILL, OPT_DECODE,
               OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL, TP_DECODE, TP_PREFILL, TP_QWEN_DECODE, TP_QWEN_PREFILL,
-              DP_DECODE, VERIFY_LLAMA, VERIFY_GEMMA_SLIDING, VERIFY_GEMMA_GLOBAL}
+              DP_DECODE, DP_MIXTRAL_DECODE, VERIFY_LLAMA, VERIFY_GEMMA_SLIDING, VERIFY_GEMMA_GLOBAL, EP_DECODE, EP_PREFILL}
 CONTROLLED |= {INT8 + n for n in CONTROLLED}
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
@@ -797,9 +851,19 @@ DECODE_CASES = [
     # on rows whose last split is empty and NaN past each row's history
     (DP_DECODE, dict(DP_LLAMA, seed=28, B=16, page=64, maxp=16, L=1, lens=[1024] * 16, C=8, cur_lens=[8] * 16,
                      dtype="bfloat16")),
+    (DP_MIXTRAL_DECODE, dict(DP_MIXTRAL, seed=35, B=16, page=64, maxp=16, L=1, lens=[1024] * 16, C=8,
+                             cur_lens=[8] * 16, dtype="bfloat16")),
     ("dp2tp2_llama_ragged_burst_nan_bf16", dict(DP_TP_LLAMA, B=4, page=64, maxp=24, L=2, layer=1,
                                                 lens=[0, 30, 1500, 900], C=8, cur_lens=[0, 3, 5, 8], poison=True,
                                                 dtype="bfloat16")),
+    # mixtral-8x7b's ep 2 x tp 2 rank heads: the burst step (the timing
+    # phase's inputs) and ragged rows with an empty one, the burst on rows
+    # whose last split is empty and NaN past each row's history
+    (EP_DECODE, dict(EP_MIXTRAL, seed=33, B=32, page=64, maxp=16, L=1, lens=[1024] * 32, C=8, cur_lens=[8] * 32,
+                     dtype="bfloat16")),
+    ("ep2tp2_mixtral_ragged_burst_nan_bf16", dict(EP_MIXTRAL, B=4, page=64, maxp=24, L=2, layer=1,
+                                                  lens=[0, 30, 1500, 900], C=8, cur_lens=[0, 3, 5, 8], poison=True,
+                                                  dtype="bfloat16")),
 ]
 DECODE_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in DECODE_CASES]
 
@@ -918,6 +982,14 @@ PREFILL_CASES = [
                                          chunks=[512, 512], dtype="bfloat16")),
     ("dp2tp2_llama_padded_row_nan_bf16", dict(DP_TP_LLAMA, B=2, T=96, page=16, maxp=16, L=2, layer=1,
                                               computed=[0, 100], chunks=[0, 96], poison=True, dtype="bfloat16")),
+    # mixtral-8x7b's ep 2 x tp 2 rank heads: the timing phase's 512 after
+    # 1,536, and ragged rows (one padded) in a stacked pool with NaN past
+    # each chunk start
+    (EP_PREFILL, dict(EP_MIXTRAL, seed=34, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
+                      dtype="bfloat16")),
+    ("ep2tp2_mixtral_ragged_padded_row_layer1_nan_bf16", dict(EP_MIXTRAL, B=3, T=96, page=16, maxp=16, L=2, layer=1,
+                                                              computed=[100, 0, 37], chunks=[96, 61, 0],
+                                                              poison=True, dtype="bfloat16")),
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
 # the verify shapes (bf16 pools only: speculative decoding refuses int8);
@@ -963,8 +1035,9 @@ WRITE_CASES += [
 ]
 
 
-def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1) -> str:
-    return _dptag(_tptag(_dtag(base + "[int8]" if quant else base, D), tp), dp)
+def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1, ep: int = 1) -> str:
+    name = _dtag(base + "[int8]" if quant else base, D)
+    return _dptag(_eptag(name, ep, tp) if ep > 1 else _tptag(name, tp), dp)
 
 
 def _clone_pools(args, kw):
@@ -1017,10 +1090,10 @@ def phase_kernels():
     for name, kw in DECODE_CASES:
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
         seed = kw.pop("seed", 1)
-        tp, dp = kw.pop("tp", 1), kw.pop("dp", 1)
-        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp)
+        tp, dp, ep = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1)
+        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp, ep)
         args, call_kw = decode_case(seed, **kw)
-        if tp > 1 or dp > 1:  # a (dp, tp) rank's decode, as models/paged_step.py calls it
+        if tp > 1 or dp > 1 or ep > 1:  # a (dp, ep, tp) rank's decode, as models/paged_step.py calls it
             kern = lambda *a, **k: decode_attention_sharded(*a, tp=tp, **k)  # noqa: E731
             plain = lambda *a, **k: decode_attention_sharded(*a, tp=tp, plain=True, **k)  # noqa: E731
         else:
@@ -1051,8 +1124,8 @@ def phase_kernels():
         (pools untouched, the same output bytes)."""
         quant = kw.get("quant", False)
         kw = dict(kw)
-        tp, dp = kw.pop("tp", 1), kw.pop("dp", 1)
-        kernel = kw.pop("row", None) or _kernel_name("prefill_attention", quant, kw["D"], tp, dp)
+        tp, dp, ep = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1)
+        kernel = kw.pop("row", None) or _kernel_name("prefill_attention", quant, kw["D"], tp, dp, ep)
         args, call_kw = prefill_case(seed, **kw)
         q, kp, vp, pt, pos, lens, kc, vc, cl = args
         layer = call_kw["layer"]
@@ -1077,7 +1150,7 @@ def phase_kernels():
             if c == 0:
                 check(float(out[b].float().abs().max()) == 0.0, f"prefill {name}: padded row not 0")
         # the write, against its plain version alone
-        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp, dp)
+        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp, dp, ep)
         same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
         untouched = all(
             _same_bytes(x[i], y[i]) for i in range(kw["L"]) if i != layer
@@ -1219,7 +1292,7 @@ def phase_forward(name: str, n_chunks: int, model=None) -> dict:
         finite = all(bool(torch.isfinite(x).all()) for x in lk)
         shapes_ok = all(tuple(x.shape) == (B, cfg.vocab_size) for x in lk)
         diffs = [float((a - b).abs().max()) for a, b in zip(lk, lp)]
-        top1 = float(torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(lk, lp)]).float().mean())
+        top1 = float(torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(lk, lp)]).double().mean())
         pool_diff = max(float((a.float() - b.float()).abs().max()) for a, b in zip(pools_k, pools_p))
         line = {
             "phase": "forward", "model": name, "layers": cfg.num_layers, "hidden": cfg.hidden_size,
@@ -1935,14 +2008,16 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     with sleep mode on, and after the main path the engine surface is
     checked (``_surface``), ending in a sleep at that level and a wake.
     With ``lora`` = (adapters, full) the LoRA routes run on the main path
-    too (``_lora_requests``). With ``tensor_parallel_size`` tp or
-    ``data_parallel_size`` dp > 1 the engine runs dp x tp processes (the
-    followers it starts), the counts are read from every rank
-    (runner.rank_stats) and each rank must have launched each kernel of its
-    mode; a "tp_ranks" (with dp > 1 "dp_ranks") line gives each rank's step
-    and collective seconds and bytes. With dp > 1 every dp replica of a
-    KV-head shard must hold the same pools and scales after the main path
-    (runner.replica_digest). ``prepare(engine)``, when given, runs on
+    too (``_lora_requests``). With ``tensor_parallel_size`` tp,
+    ``expert_parallel_size`` ep or ``data_parallel_size`` dp > 1 the engine
+    runs dp x ep x tp processes (the followers it starts), the counts are
+    read from every rank (runner.rank_stats) and each rank must have
+    launched each kernel of its mode; a "tp_ranks" (with dp > 1 "dp_ranks",
+    with ep > 1 "ep_ranks") line gives each rank's device bytes allocated,
+    step and collective seconds and bytes (and the collectives' share of
+    the step), its expert group's all-reduces and its launches. With dp or
+    ep > 1 every dp and ep replica of a KV-head shard must hold the same
+    pools and scales after the main path (runner.replica_digest). ``prepare(engine)``, when given, runs on
     the engine's loop thread before the main path (its launches are not
     counted). ``extra(server, port)``, when given, is a coroutine of more
     requests run at the end of the main path (its launches counted), whose
@@ -1966,9 +2041,9 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     offload = "kv_offload_cpu_gb" in overrides or "kv_remote_url" in overrides
     gemma = label.startswith("gemma")
     cfg = EngineConfig(host="127.0.0.1", port=port, enable_sleep_mode=sleep_level > 0, **overrides)
-    tp, dp = cfg.tensor_parallel_size, cfg.data_parallel_size
+    tp, dp, ep = cfg.tensor_parallel_size, cfg.data_parallel_size, cfg.expert_parallel_size
     spec = cfg.speculative_k > 0
-    ranks = dp * tp
+    ranks = dp * ep * tp
     kernels, plains = _counters()
     series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
 
@@ -2004,15 +2079,19 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
                 res["launches"] = {k: sum(r[k] for r in res["launches_by_rank"]) for k in kernels}
                 res["plain_calls"] = {k: int(sum(r[k] for r in rows)) for k in plains}
                 res["tp_ranks"] = [
-                    {"rank": i, "device": dev, **{k: r[k] for k in ("step_seconds", "steps", "collective_calls",
-                                                                      "collective_bytes", "collective_seconds")}}
+                    {"rank": i, "device": dev,
+                     **{k: r[k] for k in ("device_bytes", "step_seconds", "steps", "collective_calls",
+                                          "collective_bytes", "collective_seconds", "expert_calls", "expert_bytes")},
+                     "collective_share_of_step": r["collective_seconds"] / max(r["step_seconds"], 1e-9),
+                     "launches": res["launches_by_rank"][i]}
                     for i, (r, (dev, _)) in enumerate(zip(rows, server.engine.runner.kv_pool_shard_layout()))
                 ]
-            if dp > 1:
+            if dp * ep > 1:
+                # the ranks of one tp place t, r = (d * ep + e) * tp + t
                 digests = [bytes(d).hex() for d in server.engine.runner.replica_digest()]
                 res["replica_digests"] = [h[:16] for h in digests]
                 res["replica_digests_equal"] = all(
-                    len({digests[d * tp + t] for d in range(dp)}) == 1 for t in range(tp))
+                    len({digests[r] for r in range(t, ranks, tp)}) == 1 for t in range(tp))
             else:
                 res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
                 res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
@@ -2049,14 +2128,14 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     if ranks > 1:
         # functional numbers of ranks over gloo, which stages every CUDA
         # collective through the host; no NCCL dp or tp speed figure
-        emit({"phase": "dp_ranks" if dp > 1 else "tp_ranks", "model": label,
-              "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)", "dp": dp, "tp": tp, "ranks": tp_ranks,
-              "main_path_seconds": res["seconds"], "card": nvidia_smi_line()})
+        emit({"phase": "ep_ranks" if ep > 1 else "dp_ranks" if dp > 1 else "tp_ranks", "model": label,
+              "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)", "dp": dp, "ep": ep, "tp": tp,
+              "ranks": tp_ranks, "main_path_seconds": res["seconds"], "card": nvidia_smi_line()})
         for r, counts in enumerate(res["launches_by_rank"]):
             for k in SERVE_ROWS[quant]:
                 check(counts[k] > 0, f"{what}: kernel {k} was not launched on rank {r}")
-    if dp > 1:
-        check(res["replica_digests_equal"], f"{what}: the dp replicas' pools differ: {res['replica_digests']}")
+    if dp * ep > 1:
+        check(res["replica_digests_equal"], f"{what}: the dp or ep replicas' pools differ: {res['replica_digests']}")
     if gemma:
         check(max(res["prompt_tokens"]) > GEMMA_WINDOW, f"{what}: no prompt ran past the sliding window")
     if spec:
@@ -2390,12 +2469,18 @@ def phase_spec_chain() -> None:
 # collectives go through the host, so the numbers of these runs are
 # functional, not a tp speed figure
 TP2 = dict(tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
-TP_SERVE_LLAMA_INT8 = dict(model="llama-3.2-1b", **INT8_SERVE, **TP2)
+# the llama tp and dp phases run llama-3.2-1b at full width with its depth
+# cut to RANK_LAYERS of its 16 layers (_rank_llama registers the preset):
+# the host-staged collectives cost per layer, and the smoke, grown by the
+# ep phase, must stay well inside its time limit
+RANK_LAYERS = 8
+RANK_LLAMA = f"llama-3.2-1b-l{RANK_LAYERS}"
+TP_SERVE_LLAMA_INT8 = dict(model=RANK_LLAMA, **INT8_SERVE, **TP2)
 # in-engine data parallelism on the one card, the same way: dp 2 (two
 # ranks) and dp 2 x tp 2 (four), every rank a process on cuda:0
 DP2 = dict(data_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
 DP2_TP2 = dict(data_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
-DP_SERVE_LLAMA_INT8 = dict(model="llama-3.2-1b", **INT8_SERVE, **DP2_TP2)
+DP_SERVE_LLAMA_INT8 = dict(model=RANK_LLAMA, **INT8_SERVE, **DP2_TP2)
 # the f32 copy's greedy tokens at tp 2 (dp 2) against tp 1 (dp 1); a token
 # may flip only where the reference's two best tokens all but tie (their
 # logprobs this close)
@@ -2445,10 +2530,18 @@ def _tp_logits(engine, rows: int = 2) -> list:
     return out
 
 
-def phase_tp_reference(model: str = "llama-3.2-1b", rows: int = 2) -> list:
+def _rank_llama() -> None:
+    """Register RANK_LLAMA: llama-3.2-1b cut to RANK_LAYERS layers (the
+    leader hands the config to its followers)."""
+    from production_stack_tpu_torch.models import llama
+
+    llama.PRESETS[RANK_LLAMA] = dataclasses.replace(llama.PRESETS["llama-3.2-1b"], num_layers=RANK_LAYERS)
+
+
+def phase_tp_reference(model: str = RANK_LLAMA, rows: int = 2, prepare=None) -> list:
     """tp 1's (dp 1's) logits of _tp_inputs on ``model`` (seeded weights:
     every tp and dp draws the same model), for the tp 2 server's and the dp
-    forward's checks."""
+    forward's checks; with ``prepare``, what ``prepare(engine)`` gives."""
     import torch
 
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -2456,7 +2549,7 @@ def phase_tp_reference(model: str = "llama-3.2-1b", rows: int = 2) -> list:
 
     engine = LLMEngine(EngineConfig(model=model, num_pages=FORWARD_PAGES))
     try:
-        return _tp_logits(engine, rows)
+        return prepare(engine) if prepare is not None else _tp_logits(engine, rows)
     finally:
         engine.stop()
         del engine
@@ -2464,35 +2557,54 @@ def phase_tp_reference(model: str = "llama-3.2-1b", rows: int = 2) -> list:
         torch.cuda.empty_cache()
 
 
-def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2):
+def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, model: str = RANK_LLAMA):
     """``run(engine)``: the engine's logits of _tp_inputs (``rows`` rows) at
     ``mesh`` ({"tp": 2} or {"dp": 2}) against one rank's (``ref``) within the
     forward phases' bar, the flips printed with the reference's top-2
-    margin."""
+    margin. With ``picks`` (a MoE reference's routes, _moe_reference) every
+    rank's routers take the experts the one rank took (runner.replay_routes,
+    a replicated call: no token routed apart by a near-tie, PR 10's rule),
+    and the line counts the (layer, token) pairs of the leader's rows where
+    its own router would have picked otherwise."""
     import torch
 
-    against = " x ".join(f"{k} 1" for k in mesh)
+    against = " x ".join(f"{k} 1" for k in mesh) + (", its experts replayed on every rank" if picks else "")
 
     def run(engine):
-        got = _tp_logits(engine, rows)
+        tape = None
+        if picks is None:
+            got = _tp_logits(engine, rows)
+        else:
+            engine.runner.replay_routes(picks)
+            try:
+                got = _tp_logits(engine, rows)
+                tape = engine.runner.route_tape
+            finally:
+                engine.runner.replay_routes(None)
         diffs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
-        top1 = float(torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(got, ref)]).float().mean())
+        top1 = float(torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(got, ref)]).double().mean())
         flips = []  # where the two runs' best tokens differ: the reference's two best logits there
         for s, (a, b) in enumerate(zip(got, ref)):
             for r in torch.nonzero(a.argmax(-1) != b.argmax(-1)).flatten().tolist():
                 top = b[r].topk(2).values
                 flips.append({"step": s, "row": r, "reference_top2_margin": float(top[0] - top[1])})
-        line = {"phase": phase, "model": "llama-3.2-1b", **mesh, "against": f"{against}, same run",
+        line = {"phase": phase, "model": model, **mesh, "against": f"{against}, same run",
                 "steps": [f"prefill {rows} x 512 (x{TP_FORWARD_CHUNKS})", f"decode {rows} x 1 (x{TP_FORWARD_DECODES})"],
                 "max_logit_diff_per_step": diffs, "argmax_flips": flips,
                 "bound": FORWARD_LOGIT_BOUND, "top1_agreement": top1, "top1_min": FORWARD_TOP1_MIN,
                 "finite": all(bool(torch.isfinite(x).all()) for x in got),
                 "shapes": [list(x.shape) for x in got]}
+        if tape is not None:
+            line.update(replayed_calls=len(tape.picks), leader_router_would_differ=tape.overridden)
         emit(line)
         check(line["finite"] and line["shapes"] == [list(x.shape) for x in ref], f"{phase}: bad logits")
+        check(tape is None or len(tape.picks) == len(picks), f"{phase}: not every routed call was replayed")
         check(max(diffs) <= FORWARD_LOGIT_BOUND, f"{phase}: logit diff {max(diffs)} > {FORWARD_LOGIT_BOUND}")
         check(top1 >= FORWARD_TOP1_MIN, f"{phase}: top-1 agreement {top1} < {FORWARD_TOP1_MIN}")
-        return {"max_logit_diff": max(diffs), "top1_agreement": top1}
+        out = {"max_logit_diff": max(diffs), "top1_agreement": top1}
+        if tape is not None:
+            out["leader_router_would_differ"] = tape.overridden
+        return out
 
     return run
 
@@ -2539,8 +2651,8 @@ def _dp_costs(engine) -> dict:
 
 
 def phase_dp_forward(ref: list) -> None:
-    """llama-3.2-1b at dp 2 (two ranks on the one card over gloo, full
-    width and depth): its logits of four rows, two per dp rank, against dp
+    """RANK_LLAMA at dp 2 (two ranks on the one card over gloo, full width,
+    RANK_LAYERS layers): its logits of four rows, two per dp rank, against dp
     1's (``ref``), then what a chunk and a burst move between the ranks
     ("dp_costs"; host-staged gloo, not a speed figure)."""
     import torch
@@ -2548,10 +2660,10 @@ def phase_dp_forward(ref: list) -> None:
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import LLMEngine
 
-    engine = LLMEngine(EngineConfig(model="llama-3.2-1b", num_pages=FORWARD_PAGES, **DP2))
+    engine = LLMEngine(EngineConfig(model=RANK_LLAMA, num_pages=FORWARD_PAGES, **DP2))
     try:
         _logits_check(ref, "dp_forward", {"dp": 2}, DP_FORWARD_ROWS)(engine)
-        emit({"phase": "dp_costs", "model": "llama-3.2-1b", "dp": 2, "rows": DP_FORWARD_ROWS,
+        emit({"phase": "dp_costs", "model": RANK_LLAMA, "dp": 2, "rows": DP_FORWARD_ROWS,
               "backend": "gloo (host-staged CUDA tensors)", **_dp_costs(engine), "card": nvidia_smi_line()})
     finally:
         engine.stop()
@@ -2561,7 +2673,7 @@ def phase_dp_forward(ref: list) -> None:
 
 
 def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool) -> None:
-    """An f32 copy of llama-3.2-1b (its preset at float32, added here; the
+    """An f32 copy of RANK_LLAMA (its preset at float32, added here; the
     leader hands the config to its followers): greedy tokens through the
     engine at ``overrides`` (tp 2, or dp 2) against one rank's for
     TP_F32_TOKENS tokens, ``n_prompts`` prompts, one after another or, with
@@ -2577,8 +2689,8 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.models import llama
 
-    name = "llama-3.2-1b-f32"
-    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS["llama-3.2-1b"], dtype=torch.float32)
+    name = f"{RANK_LLAMA}-f32"
+    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS[RANK_LLAMA], dtype=torch.float32)
     rng = random.Random(13)
     prompts = [_prompt(rng, 300 + 400 * (i % 2) + 37 * (i // 2)) for i in range(n_prompts)]
     runs = {}
@@ -2700,8 +2812,8 @@ def _decode_timing(case_name: str, quant: bool) -> dict:
 
     bf16 = torch.bfloat16
     case = dict(dict(DECODE_CASES)[case_name], dtype=bf16, quant=quant)
-    case.pop("tp", None)  # a rank's shapes: the same kernel on its rows and heads
-    case.pop("dp", None)
+    for k in ("tp", "dp", "ep"):  # a rank's shapes: the same kernel on its rows and heads
+        case.pop(k, None)
     B, NH, KH, D, page, maxp = (case[k] for k in ("B", "NH", "KH", "D", "page", "maxp"))
     lens, C, cur = case["lens"], case["C"], case["cur_lens"]
     window = case.get("window") or (1 << 30)
@@ -2752,9 +2864,8 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, dict]:
 
     bf16 = torch.bfloat16
     case = dict(dict(PREFILL_CASES)[case_name], dtype=bf16, quant=quant)
-    case.pop("tp", None)
-    case.pop("dp", None)
-    case.pop("row", None)
+    for k in ("tp", "dp", "ep", "row"):
+        case.pop(k, None)
     B, NH, KH, D, page, T = (case[k] for k in ("B", "NH", "KH", "D", "page", "T"))
     hist = case["computed"][0]  # the timed cases' rows hold one history and one chunk length each
     window = case.get("window") or (1 << 30)
@@ -2860,8 +2971,15 @@ def phase_timing() -> dict:
         row, fused = _prefill_timing(INT8 + pre if quant else pre, quant)
         rows[_kernel_name("prefill_attention", quant, D, 2)] = row
         rows[_kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, D, 2)] = _write_timing(fused, quant)
-    # a dp 2 rank's decode: 16 rows of the 32 x 1,024 burst step
+    # a dp 2 rank's decode: 16 rows of the 32 x 1,024 burst step, llama-3.2-1b's
+    # heads and mixtral-8x7b's
     rows[DP_ROW] = _decode_timing(DP_DECODE, False)
+    rows[DP_MIXTRAL_ROW] = _decode_timing(DP_MIXTRAL_DECODE, False)
+    # an ep 2 x tp 2 rank of mixtral-8x7b: its decode burst step and its
+    # prefill chunk at its tp place's heads
+    for row, base in EP_ROWS.items():
+        rows[row] = (_decode_timing(EP_DECODE, False) if base.startswith("decode")
+                     else _prefill_timing(EP_PREFILL, False)[0])
     # step_spec's verify forward (llama-3.2-1b's heads; gemma-2-2b's below)
     row, fused = _prefill_timing(VERIFY_LLAMA, False)
     rows[VERIFY_ROW] = dict(row, fused_ms=fused["fused_ms"])
@@ -3138,6 +3256,63 @@ def phase_hf_mixtral(seed: int = 0):
     check(all(same.values()), f"hf_load[mixtral-8x7b]: parameters differ from the tensors written: {same}")
     del own
     phase_forward("mixtral-8x7b-hf", MIXTRAL_FORWARD_CHUNKS, model=net)
+
+
+# -- Mixtral across ranks: expert parallelism, and MoE under tp and dp ---------
+
+# ep 2, ep 2 x tp 2 and dp 2, every rank a process on cuda:0 over gloo
+EP2 = dict(expert_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
+EP2_TP2 = dict(expert_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
+# the dp 2 serve: two whole replicas of the 16-layer directory would need
+# ~94 GB, so a seeded preset at full width with its depth cut to 4 layers
+MIXTRAL_DP_LAYERS = 4
+MIXTRAL_DP_PRESET = f"mixtral-8x7b-l{MIXTRAL_DP_LAYERS}"
+
+
+def _moe_reference(store: dict, rows: int = 2):
+    """``prepare`` for a one-rank Mixtral engine: its logits of _tp_inputs
+    (``rows`` rows) and the experts its routers took ([B, T, k] per layer
+    and step, numpy) into ``store``, the reference of the ranks' runs."""
+    def run(engine):
+        from production_stack_tpu_torch.models.llama import tape_routes
+
+        with tape_routes(engine.runner.model) as tape:
+            store["logits"] = _tp_logits(engine, rows)
+        store["picks"] = [p.cpu().numpy() for p in tape.picks]
+        return {"reference_steps": len(store["logits"]), "rows": rows, "routed_calls": len(tape.picks)}
+
+    return run
+
+
+def phase_ep_ranks(serve, ref: dict) -> None:
+    """Mixtral across ranks on the one card, after its one-rank serve (whose
+    logits and routes are ``ref``) and before its directory is deleted:
+    mixtral-8x7b-hf served at ep 2 (4 experts a rank) and at ep 2 x tp 2
+    (4 experts of I/2 a rank, 16 query and 4 KV heads), each first held to
+    the one-rank logits with its routes replayed ("ep_forward"); then a
+    seeded mixtral-8x7b at full width cut to MIXTRAL_DP_LAYERS layers at dp
+    2 against its own one rank ("dp_moe_forward") and
+    served. ``serve`` is main's, which checks every rank's launches, the
+    replicas' digests and the plain versions, and books the [ep2tp2] rows'
+    launches. An "ep_ranks" / "dp_ranks" line a serve gives each rank's
+    device bytes, collective share and expert all-reduces."""
+    import torch
+
+    from production_stack_tpu_torch.models import llama
+
+    for label, mesh, overrides in (("ep2", {"ep": 2}, EP2), ("ep2 x tp2", {"ep": 2, "tp": 2}, EP2_TP2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        serve(f"mixtral-8x7b-hf, {label}", dict(model=str(MIXTRAL_DIR), **overrides), 128, 0, (),
+              _logits_check(ref["logits"], "ep_forward", mesh, picks=ref["picks"], model="mixtral-8x7b-hf"))
+    llama.PRESETS[MIXTRAL_DP_PRESET] = dataclasses.replace(llama.PRESETS["mixtral-8x7b"], num_layers=MIXTRAL_DP_LAYERS)
+    gc.collect()
+    torch.cuda.empty_cache()
+    dp_ref = {}
+    phase_tp_reference(MIXTRAL_DP_PRESET, rows=DP_FORWARD_ROWS, prepare=_moe_reference(dp_ref, DP_FORWARD_ROWS))
+    serve(f"{MIXTRAL_DP_PRESET}, dp2", dict(model=MIXTRAL_DP_PRESET, **DP2), 128, 0, (),
+          _logits_check(dp_ref["logits"], "dp_moe_forward", {"dp": 2}, DP_FORWARD_ROWS, dp_ref["picks"],
+                        MIXTRAL_DP_PRESET))
 
 
 def phase_opt_int8_refused() -> None:
@@ -4283,22 +4458,36 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     t_start = time.perf_counter()
+    t_last = [t_start]
+
+    def clock(name: str) -> None:
+        """The seconds since the last clock line: the phase that ends here."""
+        now = time.perf_counter()
+        emit({"phase": "phase_seconds", "name": name, "seconds": round(now - t_last[0], 2),
+              "total_seconds": round(now - t_start, 2)})
+        t_last[0] = now
 
     phase_build()
+    clock("build")
     worst = phase_kernels()
+    clock("kernels")
     launches = {}
     for name, n_chunks in FORWARD_RUNS:
         counts = phase_forward(name, n_chunks)
         if name.startswith("gemma"):  # gemma-2-2b's int8 rows: the launches of its int8 kernel forward
             launches.update({_dtag(k, 256): counts[k] for k in SERVE_ROWS[True]})
     phase_lora_forward()
+    clock("forward")
 
     def serve(label, overrides, D, sleep_level, lora, prepare=None, extra=None):
         counts = phase_serve(label, overrides, sleep_level, lora, prepare, extra)
         quant = overrides.get("kv_cache_dtype") == "int8"
         tp, dp = overrides.get("tensor_parallel_size", 1), overrides.get("data_parallel_size", 1)
+        ep = overrides.get("expert_parallel_size", 1)
         for k in SERVE_ROWS[quant] + ((VERIFY_ROW,) if VERIFY_ROW in counts else ()):
-            row = _tptag(_dtag(k, D), tp)
+            # an ep rank runs its tp place's heads: the [ep2tp2] rows at ep 2
+            # x tp 2, one rank's rows at ep 2 alone
+            row = _eptag(_dtag(k, D), ep, tp) if ep > 1 and tp > 1 else _tptag(_dtag(k, D), tp)
             if dp > 1 and tp == 1 and k == "decode_attention":
                 row = _dptag(row, dp)  # the dp rank's rows, all heads: the [dp2] row
             launches[row] = launches.get(row, 0) + counts[k]
@@ -4311,6 +4500,7 @@ def main() -> int:
         write_lora_adapters(llama.PRESETS["llama-3.2-1b"], LLAMA_ADAPTERS, LORA_RANKS, LORA_TARGETS)
         for run in SERVE_RUNS:
             serve(*run)
+        clock("hf and serve runs")
         # chained and speculative decode: the runner on an f32 copy, then
         # llama-3.2-1b served chained (bf16, then int8 with the CPU tier)
         # and speculative
@@ -4328,30 +4518,37 @@ def main() -> int:
               (), extra=_pipelined_int8_requests)
         serve("llama-3.2-1b, spec4", dict(model="llama-3.2-1b", speculative_k=SPEC_K), 64, 0, (),
               extra=_spec_requests)
+        clock("spec and chained")
         # the engine inside the stack's services: cache server, controller,
         # spans under a traceparent, debug routes, a warm restart
         phase_stack(serve, launches)
+        clock("stack")
         # disaggregated prefill: a producer subprocess and a consumer here,
         # the KV over TCP blobs, the fabric, CUDA IPC, and int8 over the fabric
         phase_disagg(launches)
+        clock("disagg")
         # the fleet: the KV directory in the cache server, two engines behind
         # the router's kvaware routing, a stream migrated there and back, the
         # directory's routing and a third engine's boot prefetch
         phase_fleet(launches)
+        clock("fleet")
         # tensor parallelism: two ranks (processes) on the one card over
         # gloo, with qwen2.5-7b's directory still on the disk
+        _rank_llama()
         tp_ref = phase_tp_reference()
-        serve("llama-3.2-1b, tp2", dict(model="llama-3.2-1b", **TP2), 64, 0, (),
+        serve(f"{RANK_LLAMA}, tp2", dict(model=RANK_LLAMA, **TP2), 64, 0, (),
               _logits_check(tp_ref, "tp_forward", {"tp": 2}))
-        serve("llama-3.2-1b, int8, tp2", TP_SERVE_LLAMA_INT8, 64, 0, ())
+        serve(f"{RANK_LLAMA}, int8, tp2", TP_SERVE_LLAMA_INT8, 64, 0, ())
         phase_f32_tokens("tp_f32_tokens", TP2, n_prompts=2, together=False)
         serve("qwen2.5-7b-hf, tp2", dict(model=str(QWEN_DIR), **TP2), 128, 0, (), _tp_qwen_slices())
+        clock("tp")
         # in-engine data parallelism: dp 2, then dp 2 x tp 2, every rank a
         # process on the one card over gloo
         phase_dp_forward(phase_tp_reference(rows=DP_FORWARD_ROWS))
         phase_f32_tokens("dp_f32_tokens", DP2, n_prompts=4, together=True)
-        serve("llama-3.2-1b, dp2", dict(model="llama-3.2-1b", **DP2), 64, 0, ())
-        serve("llama-3.2-1b, int8, dp2 x tp2", DP_SERVE_LLAMA_INT8, 64, 0, ())
+        serve(f"{RANK_LLAMA}, dp2", dict(model=RANK_LLAMA, **DP2), 64, 0, ())
+        serve(f"{RANK_LLAMA}, int8, dp2 x tp2", DP_SERVE_LLAMA_INT8, 64, 0, ())
+        clock("dp")
         phase_opt_int8_refused()
         shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 47 GB
         phase_hf_mixtral()
@@ -4359,10 +4556,17 @@ def main() -> int:
         torch.cuda.empty_cache()
         mixtral = dataclasses.replace(llama.PRESETS["mixtral-8x7b"], num_layers=MIXTRAL_LAYERS)
         write_lora_adapters(mixtral, MIXTRAL_ADAPTERS, LORA_RANKS[:1], LORA_TARGETS[:4])
-        serve(*MIXTRAL_SERVE)
+        ep_ref = {}  # the one-rank server's routed logits, the ep ranks' reference
+        serve(*MIXTRAL_SERVE, prepare=_moe_reference(ep_ref))
+        clock("mixtral")
+        # Mixtral across ranks: ep 2 and ep 2 x tp 2 from the directory,
+        # then dp 2 of a seeded cut-depth copy
+        phase_ep_ranks(serve, ep_ref)
+        clock("ep_ranks")
     finally:
         shutil.rmtree(HF_ROOT, ignore_errors=True)  # up to 47 GB of shards
     timing = phase_timing()
+    clock("timing")
 
     table = []
     for name in REPLACES:

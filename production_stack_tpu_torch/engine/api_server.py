@@ -52,6 +52,8 @@ without one. ``--tensor-parallel-size N`` (alias ``--tensor-parallel``)
 serves with N processes, one per tp rank, which the engine starts and, on
 shutdown, ends; ``--data-parallel-size M`` makes M such groups, M x N
 processes, each group serving its share of every batch's rows;
+``--expert-parallel-size K`` splits a MoE model's experts over K ranks in
+each group (M x K x N processes; a dense model is replicated over them);
 ``--tp-backend`` (nccl, the default, or gloo) and ``--tp-device-ids`` (say
 ``0,0``: two ranks on the first card, with gloo) are the port's own knobs
 for all of them. ``--decode-pipeline N`` chains up to N decode bursts a

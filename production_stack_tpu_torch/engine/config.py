@@ -5,7 +5,7 @@ the same to both servers. The port carries only the fields it reads, plus
 one switch per JAX feature it does not serve yet; check_supported refuses
 a non-default value of a switch instead of ignoring it. Two knobs are the
 port's own: ``tp_backend`` and ``tp_device_ids``, which say how its ranks
-(dp x tp processes, one each) reach each other and their devices.
+(dp x ep x tp processes, one each) reach each other and their devices.
 """
 
 from __future__ import annotations
@@ -203,11 +203,16 @@ class EngineConfig:
     # started by the engine, each holding 1/tp of the heads, MLP and
     # vocabulary and 1/tp of every KV page (parallel/, engine/distributed.py)
     tensor_parallel_size: int = 1
-    # in-engine data parallelism: dp groups of tp ranks, each serving its
-    # B/dp rows of every step with a whole replica of the pool (dp x tp
-    # processes in all, rank r at (r // tp, r % tp); parallel/dp.py)
+    # in-engine data parallelism: dp replicas of ep x tp ranks, each serving
+    # its B/dp rows of every step with a whole replica of the pool
+    # (parallel/dp.py)
     data_parallel_size: int = 1
-    # the port's deployment knobs for its ranks (all dp x tp of them): the
+    # expert parallelism: a MoE model's experts split over ep ranks (E/ep
+    # each, parallel/ep.py), the attention replicated along them; dense
+    # models ignore it (their ep ranks replicate the whole computation).
+    # dp x ep x tp processes in all, rank r = (d * ep + e) * tp + t
+    expert_parallel_size: int = 1
+    # the port's deployment knobs for its ranks (all dp x ep x tp of them): the
     # torch.distributed backend (nccl, or gloo, which stages CUDA tensors
     # through the host and so lets ranks share one card), and the CUDA
     # device of each rank, comma-separated (default: rank r on cuda:r)
@@ -256,7 +261,6 @@ class EngineConfig:
     # of these (the multi-host knobs, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
     sequence_parallel_size: int = 1
-    expert_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     distributed_coordinator: Optional[str] = None
     distributed_num_processes: int = 1
@@ -303,7 +307,12 @@ _FLAG_HELP = {
     "data_parallel_size": (
         "in-engine data-parallel groups, each a tp group serving its share "
         "of every batch's rows with a whole replica of the KV pool; the "
-        "server starts dp x tp processes"
+        "server starts dp x ep x tp processes"
+    ),
+    "expert_parallel_size": (
+        "expert-parallel ranks of a MoE model, each holding num_experts / ep "
+        "experts (which ep must divide), attention replicated along them; "
+        "dense models ignore it; the server starts dp x ep x tp processes"
     ),
     "decode_pipeline": (
         "chained decode bursts per dispatch while no request waits (1 = off): "
@@ -316,13 +325,13 @@ _FLAG_HELP = {
     ),
     "speculative_ngram": "the n-gram the speculative draft looks up in the request's own tokens",
     "tp_backend": (
-        "nccl | gloo: the torch.distributed backend of the engine's dp x tp "
+        "nccl | gloo: the torch.distributed backend of the engine's dp x ep x tp "
         "ranks (port only). gloo stages CUDA tensors through the host, so "
         "ranks may share one card (--tp-device-ids 0,0); nccl refuses that"
     ),
     "tp_device_ids": (
-        "comma-separated CUDA device index of each of the dp x tp ranks, "
-        "rank r = d * tp + t (port only; default: rank r on cuda:r)"
+        "comma-separated CUDA device index of each of the dp x ep x tp ranks, "
+        "rank r = (d * ep + e) * tp + t (port only; default: rank r on cuda:r)"
     ),
     "warm_start": (
         "spill a warm-start manifest (hot chain-head KV pages + prefix-index "
@@ -470,7 +479,6 @@ def resolve_attn_impl(attn_impl: str, device) -> str:
 _UNSUPPORTED = {
     "kv_write_mode": "the 'pre' KV write mode",
     "sequence_parallel_size": "sequence parallelism",
-    "expert_parallel_size": "expert parallelism",
     "pipeline_parallel_size": "pipeline parallelism",
     "distributed_coordinator": "multi-host serving",
     "distributed_num_processes": "multi-host serving",
@@ -483,11 +491,11 @@ KV_ROLES = ("none", "producer", "consumer")
 def check_supported(cfg: EngineConfig, device=None) -> None:
     """Raise on any non-default value of a feature the port lacks
     (``_UNSUPPORTED``), on a combination the port does not serve (LoRA with
-    tp or dp ranks; device KV transfer with ranks, across hosts or, given
+    tp, dp or ep ranks; device KV transfer with ranks, across hosts or, given
     ``device``, off the card), and on one the JAX engine refuses too (int8
     pools with speculative decoding, or with disaggregated prefill but no
     fabric; a producer without a peer; in its words)."""
-    dp = cfg.data_parallel_size
+    dp, ep = cfg.data_parallel_size, cfg.expert_parallel_size
     if cfg.kv_transfer_device:
         # the CUDA IPC endpoint moves whole pages between two single-rank
         # engines on one host
@@ -496,10 +504,10 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
                 "not supported by the PyTorch port yet: device KV transfer "
                 "(--kv-transfer-device) across hosts"
             )
-        if dp * cfg.tensor_parallel_size > 1:
+        if dp * ep * cfg.tensor_parallel_size > 1:
             raise ValueError(
                 "not supported by the PyTorch port yet: device KV transfer "
-                "(--kv-transfer-device) with tp or dp ranks; the TCP and fabric paths serve them"
+                "(--kv-transfer-device) with tp or dp ranks, or ep ranks; the TCP and fabric paths serve them"
             )
         if device is not None and not str(device).startswith("cuda"):
             raise ValueError(
@@ -508,6 +516,8 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
             )
     if dp < 1:
         raise ValueError(f"data_parallel_size must be >= 1, got {dp}")
+    if ep < 1:
+        raise ValueError(f"expert_parallel_size must be >= 1, got {ep}")
     if dp > 1 and cfg.pipeline_parallel_size > 1:
         # the JAX engine's own refusal (engine/engine.py)
         raise ValueError(
@@ -564,4 +574,6 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
         raise ValueError("not supported by the PyTorch port yet: LoRA with tensor parallelism")
     if dp > 1 and cfg.enable_lora:
         raise ValueError("not supported by the PyTorch port yet: LoRA with in-engine data parallelism")
-    parse_device_ids(cfg.tp_device_ids, dp * tp)
+    if ep > 1 and cfg.enable_lora:
+        raise ValueError("not supported by the PyTorch port yet: LoRA with expert parallelism")
+    parse_device_ids(cfg.tp_device_ids, dp * ep * tp)

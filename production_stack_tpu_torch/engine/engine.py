@@ -59,6 +59,15 @@ over dp, as in the JAX engine; the runner copies each step's written pages
 into the other replicas). The scheduler pads every batch to a multiple of
 dp (``batch_multiple``), the padded rows inert, as the JAX engine's does.
 
+With ``expert_parallel_size`` ep > 1 each dp replica is ep x tp ranks,
+rank r = (d * ep + e) * tp + t (the JAX mesh's (dp, ep, tp) order): a MoE
+model's experts split over ep (E/ep a rank, parallel/ep.py) and a MoE
+layer's output is summed over the replica's ep x tp ranks; the attention,
+the pools and everything else are replicated along ep, every ep rank
+writing the same pages. A dense model's ep ranks replicate it whole.
+``mesh_devices`` counts dp x ep x tp, as the JAX engine reads it from its
+mesh.
+
 The engine lives inside the stack's services as the JAX engine does. A
 request's trace context (``generate(trace=)``, the server's
 ``engine.request`` span) parents the ``engine.queue``, ``engine.prefill`` and
@@ -137,7 +146,7 @@ from production_stack_tpu_torch.kvoffload.connector import KVOffloadConnector
 from production_stack_tpu_torch.kvoffload.serde import get_serde
 from production_stack_tpu_torch.kvoffload.warmstart import WarmStartManager
 from production_stack_tpu_torch.ops.quant import dequantize_page_host, kv_bytes_per_token, quantize_page_host
-from production_stack_tpu_torch.parallel.dp import check_dp
+from production_stack_tpu_torch.parallel.ep import check_ep
 from production_stack_tpu_torch.parallel.tp import check_tp
 from production_stack_tpu_torch.utils.logging import init_logger
 
@@ -170,10 +179,13 @@ def build_runner(cfg: EngineConfig, device, model_cfg, params, num_pages: int, t
     resolved by model_loader.model_config; ``params`` a whole parameter
     dict, or None for the preset's seeded weights or the directory's), and
     ``num_pages`` pages. ``tp``: the rank's parallel/group.TPGroup; the
-    model takes its tp group's part (the whole model at tp = 1)."""
+    model takes its tp group's part (the whole model at tp = 1) and, a MoE
+    model, its expert group's experts (the ep x tp ranks of its dp
+    replica, over which its MoE layers sum)."""
     _, _, model = load_model(
         cfg.model, seed=cfg.seed, device=device, max_model_len=cfg.max_model_len, params=params,
         tp=tp if tp is not None and tp.size > 1 else None, config=model_cfg,
+        experts=tp.expert if tp is not None and tp.expert.size > 1 else None,
     )
     model.cfg = dataclasses.replace(model.cfg, attn_impl=cfg.attn_impl, kv_cache_dtype=cfg.kv_cache_dtype)
     targets = lora_targets(cfg.lora_target_modules) if cfg.enable_lora else ()
@@ -195,9 +207,11 @@ class LLMEngine:
         self.cfg = cfg
         self.tensor_parallel = cfg.tensor_parallel_size
         self.data_parallel = cfg.data_parallel_size
+        self.expert_parallel = cfg.expert_parallel_size
+        self.mesh_devices = self.data_parallel * self.expert_parallel * self.tensor_parallel
         _, model_cfg = model_config(cfg.model, cfg.max_model_len)
         check_tp(model_cfg, self.tensor_parallel)  # per tp group
-        check_dp(model_cfg, self.data_parallel)
+        check_ep(model_cfg, self.expert_parallel)
         self.kv_quant = cfg.kv_cache_dtype == "int8"
         # a checkpoint directory holds its tokenizer, as in the JAX engine
         self.tokenizer = load_tokenizer(
@@ -233,10 +247,10 @@ class LLMEngine:
             ),
         )
         num_pages = cfg.num_pages or max(64, int(cfg.kv_cache_memory_gb * 1e9 / page_bytes))
-        # dp x tp > 1: start the follower ranks and join the group before
+        # dp x ep x tp > 1: start the follower ranks and join the group before
         # the leader loads its own part (TPLeader.close undoes both)
         self._tp: Optional[TPLeader] = None
-        if self.data_parallel * self.tensor_parallel > 1:
+        if self.mesh_devices > 1:
             self._tp = TPLeader(cfg, device, model_cfg, params, num_pages)
         try:
             group = self._tp.group if self._tp else None
@@ -1743,11 +1757,11 @@ class LLMEngine:
             # 1 with engine_saturated 0: the interactive reserve is holding
             # while batch already sheds
             "engine_saturated_batch": int(self.saturated("batch")),
-            # the dp x tp ranks, one process and one device each (ranks may
+            # the dp x ep x tp ranks, one process and one device each (ranks may
             # share a card with gloo): the router and the fleet controller
             # read these as one replica over mesh_devices devices
             "tensor_parallel": self.tensor_parallel,
-            "mesh_devices": self.data_parallel * self.tensor_parallel,
+            "mesh_devices": self.mesh_devices,
             "gpu_cache_usage_perc": self.kv.usage(),
             "gpu_prefix_cache_hits_total": self.kv.prefix_hits,
             "gpu_prefix_cache_queries_total": self.kv.prefix_queries,

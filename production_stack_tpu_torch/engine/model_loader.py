@@ -21,10 +21,13 @@ package.
   ``load_model`` would build, without weights (the engine checks a tp split
   against it before any rank starts).
 - With ``tp`` (a parallel/group.TPGroup) the model is that rank's
-  (parallel/tp.py): a preset draws each whole tensor from the seeded
-  generator and keeps its part, so every tp serves one model; a directory
-  reads only the rank's slice of each split tensor from the mapped shards;
-  ``params`` are whole and the rank takes its part (``shard_params``).
+  (parallel/tp.py), and with ``experts`` (its ``TPGroup.expert``, for a
+  MoE model split over ep) it holds E/ep of the experts too: a preset draws each whole tensor from the seeded
+  generator and keeps its part, so every (ep, tp) serves one model; a
+  directory reads only the rank's slice of each split tensor from the
+  mapped shards (of a Mixtral layer, only its experts' tensors, each on its
+  I slice); ``params`` are whole and the rank takes its part
+  (``shard_params``).
 - ``params_from_jax(np_tree, cfg)``: the JAX package's layer-stacked tree
   (``{"embed", "layers": {name: [L, ...]}, "final_norm"}``, plus
   ``"lm_head"`` for an untied llama) given as numpy arrays, split per layer
@@ -42,7 +45,8 @@ import torch
 
 from production_stack_tpu_torch import models
 from production_stack_tpu_torch.models import gemma2, llama, opt
-from production_stack_tpu_torch.parallel.tp import shard_params, size_rank, split_axis
+from production_stack_tpu_torch.parallel.ep import expert_range
+from production_stack_tpu_torch.parallel.tp import expert_axis, expert_place, shard_params, size_rank, split_axis
 from production_stack_tpu_torch.utils.device import resolve_device
 from production_stack_tpu_torch.utils.safetensors_io import SafetensorsDir
 
@@ -108,22 +112,27 @@ def load_model(
     params: dict[str, torch.Tensor] | None = None,
     tp=None,
     config=None,
+    experts=None,
 ):
     """Returns (module, config, model) for a local HF directory, or for a
     preset name with weights from ``params`` when given, else seeded random
     ones drawn on ``device``. ``tp``: the tp rank's group (None: the whole
-    model). ``config``: a preset's config as the caller resolved it
-    (``model_config``), which a spawned tp rank takes from its leader."""
+    model); ``experts``: its expert group, for a MoE model split over ep
+    (a dense model ignores it). ``config``: a preset's config as the caller
+    resolved it (``model_config``), which a spawned rank takes from its
+    leader."""
     dev = resolve_device(device)
     if is_hf_dir(model):
         if params is not None:
             raise ValueError(f"{model} is a checkpoint directory: it brings its own weights, not params")
-        return load_from_hf(model, device=dev, max_model_len=max_model_len, tp=tp)
+        return load_from_hf(model, device=dev, max_model_len=max_model_len, tp=tp, experts=experts)
     mod, cfg = model_config(model, max_model_len) if config is None else (models.module_for_config(config), config)
     # before the model is built: OPT sizes its position table from max_model_len
-    net = mod.CAUSAL_LM(cfg, device=dev, tp=tp)
+    net = _build(mod, cfg, dev, tp, experts)
     if params is not None:
-        load_params(net, shard_params(params, size_rank(tp)[1], size_rank(tp)[0]))
+        n, r = size_rank(tp)
+        m, e = expert_place(getattr(net, "experts", None))
+        load_params(net, shard_params(params, r, n, e, m))
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -230,11 +239,19 @@ _FAMILIES = {
 }
 
 
+def _build(mod, cfg, device, tp, experts):
+    """The family's model, empty; the expert group goes to a MoE model
+    alone (the llama family's)."""
+    if experts is not None and getattr(cfg, "num_experts", 0):
+        return mod.CAUSAL_LM(cfg, device=device, tp=tp, experts=experts)
+    return mod.CAUSAL_LM(cfg, device=device, tp=tp)
+
+
 @torch.no_grad()
-def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=None):
+def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=None, experts=None):
     """Returns (module, config, model) for a local HF directory, its weights
     read from the shards one tensor at a time; a tp rank reads its slice of
-    each split tensor."""
+    each split tensor, and an ep rank only its experts' tensors."""
     dev = resolve_device(device)
     mod, cfg = _hf_config(path)
     _, names_of, strip = _FAMILIES[mod]
@@ -245,18 +262,25 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=
         raise ValueError(f"max_model_len={max_model_len} exceeds OPT position table ({cfg.max_model_len})")
     shards = SafetensorsDir(path)
     keys = {(k[len(strip):] if strip and k.startswith(strip) else k): k for k in shards.keys()}
-    net = mod.CAUSAL_LM(cfg, device=dev, tp=tp)
+    net = _build(mod, cfg, dev, tp, experts)
+    m, e = expert_place(getattr(net, "experts", None))
     own = dict(net.named_parameters())
     wanted = names_of(cfg)
     if set(wanted) != set(own):
         raise AssertionError(f"weight map and model differ: {sorted(set(wanted) ^ set(own))}")
     for pname, (hf, transpose) in wanted.items():
         p = own[pname]
-        # a stacked parameter takes one HF tensor per entry of its leading axis
-        parts = zip(hf, p) if isinstance(hf, tuple) else [(hf, p)]
         ax = split_axis(pname) if n > 1 else None
-        if ax is not None and isinstance(hf, tuple):
-            raise ValueError(f"{pname}: stacked expert weights are not split over tp")
+        if isinstance(hf, tuple):
+            # a stacked parameter takes one HF tensor per entry of its
+            # leading axis: an ep rank's experts, each split like a 2-D
+            # weight on the axis after the experts'
+            if expert_axis(pname) is not None:
+                hf = tuple(hf[i] for i in expert_range(len(hf), m, e))
+            parts = zip(hf, p)
+            ax = None if ax is None else ax - 1
+        else:
+            parts = [(hf, p)]
         for name, dst in parts:
             if name not in keys:
                 raise KeyError(f"{path}: the checkpoint lacks {name!r} ({type(cfg).__name__} needs it)")

@@ -64,6 +64,17 @@ same shapes as the JAX runner's.
   the whole pages each dp group wrote, with their scales, are copied into
   every other replica (``dp.sync_replicas``), so the replicas stay byte
   for byte equal. ``replica_digest`` reads each rank's pools.
+- Expert parallelism (``tp.expert.ep_size`` > 1): the ep ranks of one (dp, tp)
+  place run the same step on the same rows and heads (the model holds E/ep
+  of a MoE model's experts and sums its MoE layers over the expert group,
+  the ep x tp ranks of its dp replica) and write the same pages, so their
+  pools are ep replicas of one shard, equal byte for byte with nothing
+  copied between them. The sampled ids are the expert group's first
+  rank's (``_draw``). A page read gathers the KV heads over the rank's own
+  tp group, so each ep replica reads its own copy and the leader returns
+  the (d 0, e 0) one; a page write lands on every ep replica.
+  ``gathered_params`` joins the experts over the expert group, and
+  ``replay_routes`` makes every rank's routers take another run's experts.
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -101,7 +112,8 @@ from production_stack_tpu_torch.ops.sampling import (
     sample_with_logprobs,
 )
 from production_stack_tpu_torch.parallel import dp as dpmod
-from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_param, gather_split, rank_slice, size_rank
+from production_stack_tpu_torch.parallel.ep import gather_param
+from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_split, rank_slice, size_rank
 from production_stack_tpu_torch.utils.device import resolve_device
 from production_stack_tpu_torch.utils.logging import init_logger
 
@@ -147,12 +159,13 @@ COUNTERS = (
     ("kv_page_write_quant_ref", kv_page_write_quant_ref, "calls"),
 )
 # rank_stats' columns: the counters, then the rank's host seconds inside
-# step/step_multi, its collectives' calls, bytes and host seconds, and the
-# dp replica sync's gathered bytes and the pages it copied into the rank's
-# replica
+# step/step_multi, its collectives' calls, bytes and host seconds, the dp
+# replica sync's gathered bytes and the pages it copied into the rank's
+# replica, the expert group's all-reduces (calls, bytes), and the bytes the
+# rank's process holds allocated on its device (0 on the CPU)
 RANK_STATS = tuple(name for name, _, _ in COUNTERS) + (
     "step_seconds", "steps", "collective_calls", "collective_bytes", "collective_seconds",
-    "sync_bytes", "sync_pages",
+    "sync_bytes", "sync_pages", "expert_calls", "expert_bytes", "device_bytes",
 )
 
 
@@ -229,12 +242,14 @@ class ModelRunner:
     ):
         self.device = resolve_device(device)
         # tp: this rank's parallel/group.TPGroup (None: one process). Its tp
-        # group runs the forward's collectives, its dp group the row gathers
-        # and the replica sync, its world the per-rank reads; a group of one
-        # rank is None here, so a dp = 1 or tp = 1 axis runs the code it ran
-        # without it
+        # group runs the forward's collectives, its expert group (ep x tp)
+        # the MoE sums and the sampled ids' broadcast, its dp group the row
+        # gathers and the replica sync, its world the per-rank reads; a
+        # group of one rank is None here, so a dp = 1, ep = 1 or tp = 1 axis
+        # runs the code it ran without it
         self.ranks = tp
         self.tp = tp if tp is not None and tp.size > 1 else None
+        self.expert = tp.expert if tp is not None and tp.expert.size > 1 else None
         self.dp = tp.dp if tp is not None and tp.dp.size > 1 else None
         self.world = tp.world if tp is not None and tp.world.size > 1 else None
         self.tp_size = size_rank(self.tp)[0]
@@ -242,6 +257,8 @@ class ModelRunner:
             raise ValueError("LoRA with tensor parallelism is not supported by the port yet")
         if self.dp is not None and enable_lora:
             raise ValueError("LoRA with data parallelism is not supported by the port yet")
+        if tp is not None and tp.expert.ep_size > 1 and enable_lora:
+            raise ValueError("LoRA with expert parallelism is not supported by the port yet")
         self.step_seconds = 0.0
         self.steps = 0
         # the device history a burst with penalties left (this rank's rows),
@@ -291,6 +308,9 @@ class ModelRunner:
         # and awaiting admission (key -> (k, v, deadline))
         self.kv_endpoint = None
         self.kv_staged: dict[str, tuple] = {}
+        # a MoE model's replayed routes (replay_routes), None when its
+        # routers pick their own experts
+        self.route_tape = None
 
     # -- staging ------------------------------------------------------------
 
@@ -361,9 +381,10 @@ class ModelRunner:
 
     def _draw(self, logits, sample_from, s, want_lp):
         """The sampled ids (with their logprobs when ``want_lp``); under tp
-        the tp group's first rank's ids on every rank of the group,
-        whatever each rank drew. Under dp every rank draws the whole batch's
-        noise and takes its rows' (ops/sampling.sample's ``batch_rows``)."""
+        or ep the expert group's first rank's ids on every rank of the
+        group (its dp replica's ep x tp ranks), whatever each rank drew.
+        Under dp every rank draws the whole batch's noise and takes its
+        rows' (ops/sampling.sample's ``batch_rows``)."""
         B = logits.shape[0]
         rows = (self.dp.rank * B, self.dp.size * B) if self.dp is not None else None
         if want_lp:
@@ -371,9 +392,9 @@ class ModelRunner:
                 logits, self.generator, s["temperature"], s["top_k"], s["top_p"],
                 sample_from=sample_from, batch_rows=rows,
             )
-            return (broadcast_ids(ids, self.tp), *lps)
+            return (broadcast_ids(ids, self.expert), *lps)
         ids = sample(sample_from, self.generator, s["temperature"], s["top_k"], s["top_p"], rows)
-        return broadcast_ids(ids, self.tp)
+        return broadcast_ids(ids, self.expert)
 
     def _timed(self, t0: float) -> None:
         self.step_seconds += time.perf_counter() - t0
@@ -825,12 +846,13 @@ class ModelRunner:
 
     def kv_pool_shard_layout(self) -> "list[tuple[str, int]]":
         """Per-rank KV pool footprint: ``(device label, bytes)`` of every
-        rank, dp x tp rows, k and v pools with their int8 scales, from the
-        pools' shapes (each rank holds KH/tp heads of every page, so 1/tp of
-        the bytes; each dp group a whole replica). Labels are distinct per
-        rank (parallel/group.device_labels: two ranks on one card are
-        ``cuda:0/tp0`` and ``cuda:0/tp1``, or ``cuda:0/dp0tp0`` ... with
-        dp > 1)."""
+        rank, dp x ep x tp rows, k and v pools with their int8 scales, from
+        the pools' shapes (each rank holds KH/tp heads of every page, so
+        1/tp of the bytes; each dp group, and each ep rank in it, a whole
+        replica). Labels are distinct per rank (parallel/group.device_labels:
+        two ranks on one card are ``cuda:0/tp0`` and ``cuda:0/tp1``, or
+        ``cuda:0/dp0tp0`` ... with dp > 1, ``cuda:0/dp0ep1tp0`` ... with
+        ep > 1)."""
         cfg = self.cfg
         kh = cfg.num_kv_heads // self.tp_size
         item = 1 if self.kv_quant else torch.empty((), dtype=cfg.dtype).element_size()
@@ -841,14 +863,16 @@ class ModelRunner:
         return [(label, per) for label in labels]
 
     def rank_stats(self, reset: bool = False) -> np.ndarray:
-        """Every rank's ``RANK_STATS`` row ([dp x tp, len(RANK_STATS)]
+        """Every rank's ``RANK_STATS`` row ([dp x ep x tp, len(RANK_STATS)]
         float64, global rank order): its kernel launches and plain-version
-        calls, its step seconds and its collectives (tp and dp) since the
-        last reset; with ``reset`` each rank's count starts again from 0
+        calls, its step seconds and its collectives (tp, expert and dp) since
+        the last reset; with ``reset`` each rank's count starts again from 0
         after the read."""
         calls, nbytes, secs = self.ranks.stats() if self.ranks is not None else (0, 0, 0.0)
         row = [getattr(fn, attr) for _, fn, attr in COUNTERS]
         row += [self.step_seconds, self.steps, calls, nbytes, secs, self.sync_bytes, self.sync_pages]
+        row += [self.ranks.expert_calls, self.ranks.expert_bytes] if self.ranks is not None else [0, 0]
+        row += [torch.cuda.memory_allocated(self.device) if self.device.type == "cuda" else 0]
         out = gather_split(torch.tensor([row], dtype=torch.float64, device=self.device), 0, self.world)
         if reset:
             for _, fn, attr in COUNTERS:
@@ -860,9 +884,10 @@ class ModelRunner:
         return out.cpu().numpy()
 
     def replica_digest(self) -> np.ndarray:
-        """Every rank's sha256 of its pools and scales ([dp x tp, 32] uint8,
-        global rank order; a diagnostic): the ranks of one tp column are the
-        dp replicas of one KV-head shard and must give the same digest."""
+        """Every rank's sha256 of its pools and scales ([dp x ep x tp, 32]
+        uint8, global rank order; a diagnostic): the ranks of one tp column
+        are the dp and ep replicas of one KV-head shard and must give the
+        same digest."""
         h = hashlib.sha256()
         for t in self._pools():
             for layer in t:  # a layer at a time through the host
@@ -872,9 +897,31 @@ class ModelRunner:
 
     def gathered_params(self, names: "list[str]") -> dict:
         """The named parameters whole (every tp rank's part joined over the
-        caller's tp group, bit for bit), on the CPU."""
+        caller's tp group, an expert tensor's over its expert group, bit for
+        bit), on the CPU."""
         own = dict(self.model.named_parameters())
-        return {name: gather_param(own[name].detach(), name, self.tp).cpu() for name in names}
+        return {name: gather_param(own[name].detach(), name, self.ranks).cpu() for name in names}
+
+    def replay_routes(self, picks=None) -> None:
+        """Make every MoE router of this rank's model take the experts
+        ``picks`` lists ([B, T, k] per layer and forward, in the order the
+        forwards run, the whole batch's rows; under dp the rank takes its
+        own), each weighted by its own probabilities, recording into a fresh
+        ``route_tape`` (models/llama.RouteTape), until a call with None.
+        A replicated call: every rank of the expert group must take the same
+        experts, or a token's sum would mix two routings. It lets a run at
+        any (dp, ep, tp) take the experts another run took, as
+        ``tape_routes`` does within one process."""
+        from production_stack_tpu_torch.models.llama import RouteTape
+
+        if not getattr(self.cfg, "num_experts", 0):
+            raise ValueError("route replay needs a MoE model")
+        tape = None
+        if picks is not None:
+            tape = RouteTape([self._t(dpmod.row_slice(np.asarray(p), self.dp), torch.long) for p in picks])
+        for layer in self.model.layers:
+            layer.route_tape = tape
+        self.route_tape = tape
 
     # -- LoRA slots (engine/lora.py drives these) ----------------------------
 

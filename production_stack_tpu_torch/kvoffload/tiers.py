@@ -177,12 +177,15 @@ class RemoteTier:
             logger.warning("remote kv get failed: %s", e)
             return None
 
-    def put(self, key: str, blob: bytes) -> None:
+    def put(self, key: str, blob: bytes) -> bool:
+        """Store ``blob``; True once the server acknowledged it."""
         try:
-            self._request({"op": "put", "key": key}, blob)
+            hdr, _ = self._request({"op": "put", "key": key}, blob)
+            return bool(hdr.get("ok"))
         except Exception as e:
             self.errors += 1
             logger.warning("remote kv put failed: %s", e)
+            return False
 
     def __contains__(self, key: str) -> bool:
         try:
@@ -238,6 +241,11 @@ class TieredKVStore:
         # quarantined (vllm:kv_corrupt_pages_total); nonzero means a tier is
         # flipping bits or a rolling upgrade crossed an incompatible format
         self.corrupt_pages = 0
+        # local blobs the remote tier has not acknowledged: landed with
+        # put_local (a peer's frame), or a put whose write-through failed;
+        # write_through uploads them, and a drop from the local tiers forgets
+        # them
+        self._unshared: set[str] = set()  # guarded-by: _lock
 
     def enabled(self) -> bool:
         # NB: explicit None checks — the tiers define __len__, so an *empty*
@@ -261,23 +269,38 @@ class TieredKVStore:
 
     def _dropped_locally(self, key: str) -> None:
         self.dropped_evictions += 1
-        if self.on_local_drop is not None and not self.contains_local(key):
-            self.on_local_drop(key)
+        if not self.contains_local(key):
+            self._unshared.discard(key)
+            if self.on_local_drop is not None:
+                self.on_local_drop(key)
 
     def put_local(self, key: str, blob: bytes) -> None:
         """Insert into the local tiers only (no remote write-through) — used
-        for chunks *received* from a peer, which already live remotely."""
+        for chunks *received* from a peer. The remote tier may lack them:
+        ``write_through`` gives it one when a caller needs it shared."""
         with self._lock:
-            if self.cpu is not None:
-                self._spill(self.cpu.put(key, blob))
-            elif self.disk is not None:
-                for dropped in self.disk.put(key, blob):
-                    self._dropped_locally(dropped)
+            self._put_local(key, blob)
+            if self.remote is not None and self.contains_local(key):
+                self._unshared.add(key)
+
+    def _put_local(self, key: str, blob: bytes) -> None:
+        if self.cpu is not None:
+            self._spill(self.cpu.put(key, blob))
+        elif self.disk is not None:
+            for dropped in self.disk.put(key, blob):
+                self._dropped_locally(dropped)
 
     def put(self, key: str, blob: bytes) -> None:
-        self.put_local(key, blob)
-        if self.remote is not None:
-            self.remote.put(key, blob)
+        with self._lock:
+            self._put_local(key, blob)
+        if self.remote is None:
+            return
+        shared = self.remote.put(key, blob)
+        with self._lock:
+            if shared:
+                self._unshared.discard(key)
+            elif self.contains_local(key):
+                self._unshared.add(key)
 
     def _verified(self, key: str, blob: bytes, tier_name: str, tier) -> bool:
         """True if ``blob`` passes its integrity check; on failure the entry
@@ -371,6 +394,32 @@ class TieredKVStore:
             for dropped in self.disk.put(key, blob):
                 self._dropped_locally(dropped)
             return key in self.disk
+
+    def write_through(self, key: str) -> bool:
+        """Give the remote tier a local blob it has not acknowledged (one
+        that landed with ``put_local``, or whose ``put`` failed to reach
+        it). True if the remote tier holds ``key`` afterwards; False without
+        a remote tier or the server's acknowledgement. A blob ``put`` wrote
+        through costs no request; only a key held neither locally nor as
+        unshared asks the server."""
+        if self.remote is None:
+            return False
+        with self._lock:
+            if key not in self._unshared:
+                if self.contains_local(key):
+                    return True
+                blob = None
+            else:
+                blob = self.cpu.get(key) if self.cpu is not None else None
+                if blob is None and self.disk is not None:
+                    blob = self.disk.get(key)
+        if blob is None:
+            return key in self.remote
+        if not self.remote.put(key, blob):
+            return False
+        with self._lock:
+            self._unshared.discard(key)
+        return True
 
     def contains_local(self, key: str) -> bool:
         with self._lock:

@@ -141,11 +141,22 @@ class MigrationManager:
                 # restores (same contract as warm-start manifests)
                 for h in hashes[:confirmed]:
                     store.persist(h.hex())
-            if engine.kv.directory is not None and confirmed:
+            shared = confirmed
+            if store.remote is not None:
+                # save_pages counts a page already local as saved, and a
+                # page a peer's fabric frame landed is local only (put_local):
+                # write such blobs through before any shared claim, so a
+                # target that shares only the remote tier finds them (a blob
+                # put wrote through costs no request). The claims stop at
+                # the first blob the remote tier lacks
+                shared = 0
+                while shared < confirmed and store.write_through(hashes[shared].hex()):
+                    shared += 1
+            if engine.kv.directory is not None and shared:
                 # truthful fleet hint: these blobs are confirmed in the
                 # shared tier (when one exists; publish_shared gates itself)
                 engine.kv.directory.publish_shared([
-                    (h, i, 1.0) for i, h in enumerate(hashes[:confirmed])
+                    (h, i, 1.0) for i, h in enumerate(hashes[:shared])
                 ])
         # freeze: out of the running set, pages kept, no more decode steps
         sched.running.remove(seq)

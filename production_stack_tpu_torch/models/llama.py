@@ -32,10 +32,15 @@ model raises on them.
 
 With ``tp`` (a parallel/group.TPGroup) the model is one tensor-parallel
 rank's: it holds its slice of each split weight (parallel/tp.py: NH/tp and
-KH/tp heads, I/tp of the MLP, V/tp of the vocabulary), all-reduces after
-``wo`` and ``w_down``, looks tokens up in its vocab rows and gathers the
-logits, so every rank returns the whole [B, V]. MoE and LoRA are not split
-(the engine refuses them with tp).
+KH/tp heads, I/tp of the MLP and of each expert's FFN, V/tp of the
+vocabulary), all-reduces after ``wo`` and ``w_down``, looks tokens up in
+its vocab rows and gathers the logits, so every rank returns the whole
+[B, V]. With ``experts`` (the rank's ``TPGroup.expert``: the ep x tp ranks
+of its dp replica) a MoE model is one expert-parallel rank's too: it holds
+E/ep experts (parallel/tp.py splits them, parallel/ep.py), routes every token over all E with the
+replicated router, weighs its own experts' products by their columns of
+the dense gate, and one all-reduce over the expert group sums the layer's
+output. LoRA is not split (the engine refuses it with ranks).
 """
 
 from __future__ import annotations
@@ -53,7 +58,15 @@ from production_stack_tpu_torch.models.paged_step import PagedStep
 from production_stack_tpu_torch.ops.attention import flash_attention
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_cos_sin
-from production_stack_tpu_torch.parallel.tp import all_reduce_, embed_lookup, gather_vocab, init_sharded_, shard_shape
+from production_stack_tpu_torch.parallel.ep import expert_range
+from production_stack_tpu_torch.parallel.tp import (
+    all_reduce_,
+    embed_lookup,
+    expert_place,
+    gather_vocab,
+    init_sharded_,
+    shard_shape,
+)
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
 
 
@@ -233,8 +246,9 @@ def init_params(model: "LlamaForCausalLM", generator: torch.Generator) -> None:
     """Random-normal weights with the JAX package's scales (init_params
     there), written in place: projections N(0, 1/fan_in), norms 1, biases
     0. The draw comes from ``generator`` (on the model's device), so its
-    bits differ from ``jax.random``'s for the same seed. A tp rank draws
-    each whole tensor and keeps its part, so every tp serves one model."""
+    bits differ from ``jax.random``'s for the same seed. A tp or ep rank
+    draws each whole tensor and keeps its part, so every (ep, tp) serves
+    one model."""
     dev = model.final_norm.device
 
     def leaf_init(name, shape):
@@ -333,12 +347,18 @@ def tape_routes(model, replay=None):
 
 
 class LlamaDecoderLayer(nn.Module):
-    def __init__(self, cfg: LlamaConfig, device, tp=None):
+    def __init__(self, cfg: LlamaConfig, device, tp=None, experts=None):
         super().__init__()
         n = 1 if tp is None else tp.size
+        m, e = expert_place(experts)
         for name, shape in layer_shapes(cfg).items():
-            setattr(self, name, _param(shard_shape("layers." + name, shape, n), cfg.dtype, device))
+            setattr(self, name, _param(shard_shape("layers." + name, shape, n, m), cfg.dtype, device))
         self.tp = tp
+        # a MoE layer's output sums over the expert group (ep x tp ranks;
+        # without one, over tp); its experts are [first_expert,
+        # first_expert + E/ep)
+        self.moe_group = experts if experts is not None else tp
+        self.first_expert = expert_range(cfg.num_experts, m, e).start
         self.route_tape: Optional[RouteTape] = None
 
     def proj(self, h, name: str, lora: Optional[dict] = None, step: Optional[LoraStep] = None):
@@ -396,33 +416,45 @@ class LlamaDecoderLayer(nn.Module):
         product; every expert's ``silu(h @ gate_e) * (h @ up_e) * gate[e]``;
         and one contraction over experts and I together. The expert products
         are batched over E ([E, BT, H] @ [E, H, I]), so no weight is
-        copied."""
+        copied.
+
+        An ep x tp rank holds E/ep experts and I/tp of each: it routes over
+        all E (the router is replicated), takes its experts' columns of the
+        gate, contracts over its experts and its I, and the all-reduce over
+        the expert group adds the ranks' partial sums."""
         B, T, H = h.shape
         E = cfg.num_experts
         probs, topw, topi = self.route(h, cfg)
         topw = topw / topw.sum(dim=-1, keepdim=True).clamp(min=1e-9)
         gate = torch.zeros_like(probs).scatter_(-1, topi, topw).to(h.dtype)
+        El = self.moe_gate.shape[0]  # this rank's experts (E at ep = 1)
+        gate = gate.reshape(B * T, E)[:, self.first_expert: self.first_expert + El]
         hx = h.reshape(1, B * T, H)
-        g = torch.matmul(hx, self.moe_gate)  # [E, BT, I]
+        g = torch.matmul(hx, self.moe_gate)  # [El, BT, I/tp]
         u = torch.matmul(hx, self.moe_up)
-        y = F.silu(g) * u * gate.reshape(B * T, E).t()[:, :, None]
+        y = F.silu(g) * u * gate.t()[:, :, None]
         I = y.shape[-1]
-        return (y.transpose(0, 1).reshape(B * T, E * I) @ self.moe_down.reshape(E * I, H)).reshape(B, T, H)
+        out = (y.transpose(0, 1).reshape(B * T, El * I) @ self.moe_down.reshape(El * I, H)).reshape(B, T, H)
+        return all_reduce_(out, self.moe_group)
 
 
 class LlamaForCausalLM(nn.Module):
     """Decoder stack + head. Parameters are created empty on ``device``;
     engine/model_loader.py fills them (seeded init or a carried-over tree)."""
 
-    def __init__(self, cfg: LlamaConfig, device="cuda", tp=None):
+    def __init__(self, cfg: LlamaConfig, device="cuda", tp=None, experts=None):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
         self.tp = tp
+        # experts: the expert group of a MoE model split over ranks (the
+        # ep x tp ranks of its dp replica; None: one rank); a dense model
+        # has none
+        self.experts = experts if cfg.num_experts else None
         n = 1 if tp is None else tp.size
         H = cfg.hidden_size
         self.embed = _param(shard_shape("embed", (cfg.vocab_size, H), n), cfg.dtype, device)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device, tp) for _ in range(cfg.num_layers))
+        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device, tp, self.experts) for _ in range(cfg.num_layers))
         self.final_norm = _param((H,), cfg.dtype, device)
         if not cfg.tie_word_embeddings:
             self.lm_head = _param(shard_shape("lm_head", (H, cfg.vocab_size), n), cfg.dtype, device)

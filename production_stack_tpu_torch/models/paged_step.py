@@ -14,9 +14,11 @@ plain PyTorch versions.
 Under tensor parallelism (``tp`` ranks) every tensor here is the rank's:
 q holds NH/tp heads, the pools, scales and windows KH/tp. Under data
 parallelism the runner hands the step its dp group's B/dp rows (the pools
-stay whole: page ids are global). The decode goes through
+stay whole: page ids are global). Under expert parallelism the attention
+is replicated: every ep rank of a (dp, tp) place runs the same step on the
+same rows, heads and pages, so nothing here depends on ep. The decode goes through
 ``decode_attention_sharded`` (the JAX package's sharded decode, per (dp,
-tp) rank), and the prefill kernel runs on the rank's rows and heads too,
+ep, tp) rank), and the prefill kernel runs on the rank's rows and heads too,
 where the JAX engine keeps its XLA attention for a multi-device prefill.
 """
 

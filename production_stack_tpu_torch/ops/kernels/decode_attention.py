@@ -220,10 +220,11 @@ def decode_attention_sharded(
     q, k_pages, v_pages, page_table, seq_lens, window=None, *, tp: int = 1, plain: bool = False,
     k_scales=None, v_scales=None, k_cur=None, v_cur=None, cur_lens=None, **kw,
 ):
-    """One (dp, tp) rank's decode attention: the counterpart of
+    """One (dp, ep, tp) rank's decode attention: the counterpart of
     ``ragged_paged_attention_decode_sharded``
     (production_stack_tpu/ops/pallas/paged_attention.py:472), which runs the
-    TPU decode kernel per (dp, tp) shard under a ``shard_map``.
+    TPU decode kernel per (dp, tp) shard under a ``shard_map`` whose ep axis
+    replicates the decode activations.
 
     The contract is the JAX function's per shard. Rows: the rank holds its
     dp group's B/dp rows of ``q``, ``page_table``, ``seq_lens``, the burst
@@ -240,6 +241,14 @@ def decode_attention_sharded(
     over dp. Where the JAX function lays the shards over a mesh inside one
     program, here each rank process calls this on its own shard
     (models/paged_step.py).
+
+    ep: a 1-token decode shards nothing over the experts' axis, so the JAX
+    function maps ep with every input replicated along it, and each (sp,
+    ep) shard computes its (dp, tp) slice again. Here the same, with no
+    argument for it: rank (d, e, t) calls this on its (d, t) slice, which
+    is the same on every e (its pools are the ep replicas of one shard,
+    written alike by every ep rank: ``KV_PAGES_SPEC`` shards tp only), and
+    gets the same bytes.
     """
     NHl, KHl = q.shape[1], k_pages.shape[-2]
     if NHl % KHl:

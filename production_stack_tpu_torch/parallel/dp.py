@@ -30,12 +30,6 @@ import torch
 from production_stack_tpu_torch.parallel.tp import _exact_gather
 
 
-def check_dp(cfg, dp: int) -> None:
-    """Refuse, by name, a model the port does not serve under dp."""
-    if dp > 1 and getattr(cfg, "num_experts", 0):
-        raise ValueError("in-engine data parallelism of a MoE model is not supported by the port yet")
-
-
 def row_slice(x, group):
     """This rank's contiguous B/dp rows of a row-leading array (numpy or
     torch; None passes). A step whose B does not divide by dp is refused:

@@ -1,15 +1,24 @@
-"""The engine's ranks: one process per (dp, tp) rank, each on its own
+"""The engine's ranks: one process per (dp, ep, tp) rank, each on its own
 device, joined by ``torch.distributed``.
 
-The counterpart of production_stack_tpu/parallel/mesh.py for the two axes
-the port serves, dp and tp. Where the JAX engine lays a (dp, tp) device
-mesh under one program and lets GSPMD insert the collectives, the port runs
-one process per rank (engine/engine.py starts them) and calls its
-collectives itself (parallel/tp.py over a tp group, parallel/dp.py over a
-dp group). Rank r sits at (d, t) = (r // tp, r % tp), the mesh's order with
-tp innermost: each dp group d is a tp group over the whole model, and the
-ranks of one t (one per dp group) hold the same KV heads, the replicas of
-one pool shard.
+The counterpart of production_stack_tpu/parallel/mesh.py for the three axes
+the port serves, dp, ep and tp. Where the JAX engine lays a (dp, ep, tp)
+device mesh under one program and lets GSPMD insert the collectives, the
+port runs one process per rank (engine/engine.py starts them) and calls its
+collectives itself (parallel/tp.py over a tp group, parallel/ep.py over an
+expert group, parallel/dp.py over a dp group). Rank r sits at (d, e, t)
+with r = (d * ep + e) * tp + t, the mesh's order (pp, dp, sp, ep, tp) with
+tp innermost:
+
+- a tp group, the tp ranks of one (d, e), splits the heads, the dense MLP,
+  the vocabulary and each expert's FFN;
+- an expert group, the ep x tp ranks of one dp replica d, holds the experts
+  (E/ep a rank) and sums a MoE layer's output with one all-reduce; the
+  attention, the router, the norms and the embeddings are replicated along
+  ep, so the ranks of one (d, t) hold the same KV heads and write the same
+  pages (the JAX ``KV_PAGES_SPEC`` shards tp only);
+- a dp group, the dp ranks of one (e, t), are the replicas of one pool
+  shard across the dp replicas.
 
 The backend is named by the caller, never guessed: ``nccl`` (the default)
 needs a CUDA device per rank and refuses two ranks on one device; ``gloo``
@@ -42,7 +51,7 @@ TIMEOUT_S = 300.0
 
 def parse_device_ids(spec: Optional[str], ranks: int) -> Optional[list[int]]:
     """``"0,0"`` -> [0, 0]: one CUDA device index per rank of the engine,
-    dp x tp of them (None: rank r on device r)."""
+    dp x ep x tp of them (None: rank r on device r)."""
     if spec is None or spec == "":
         return None
     try:
@@ -52,7 +61,7 @@ def parse_device_ids(spec: Optional[str], ranks: int) -> Optional[list[int]]:
     if len(ids) != ranks or min(ids) < 0:
         raise ValueError(
             f"tp_device_ids {spec!r} must name one device index >= 0 for each of the engine's {ranks} ranks "
-            "(data_parallel_size x tensor_parallel_size)"
+            "(data_parallel_size x expert_parallel_size x tensor_parallel_size)"
         )
     return ids
 
@@ -70,8 +79,9 @@ def rank_devices(device, ranks: int, device_ids: Optional[list[int]] = None) -> 
     n = torch.cuda.device_count()
     if max(ids) >= n:
         raise ValueError(
-            f"{ranks} ranks (data_parallel_size x tensor_parallel_size) need CUDA devices {sorted(set(ids))}, "
-            f"this machine has {n} devices; ranks may share a card with --tp-backend gloo --tp-device-ids 0,0"
+            f"{ranks} ranks (data_parallel_size x expert_parallel_size x tensor_parallel_size) need CUDA "
+            f"devices {sorted(set(ids))}, this machine has {n} devices; ranks may share a card with "
+            "--tp-backend gloo --tp-device-ids 0,0"
         )
     return [torch.device("cuda", i) for i in ids]
 
@@ -92,17 +102,20 @@ def check_backend(backend: str, devices: list[torch.device]) -> None:
         )
 
 
-def device_labels(devices: list[torch.device], dp: int = 1) -> list[str]:
+def device_labels(devices: list[torch.device], dp: int = 1, ep: int = 1) -> list[str]:
     """One distinct label per rank: ``cuda:0`` for a single rank, else the
-    device and the rank (``cuda:0/tp1``; with dp > 1 ``cuda:0/dp1tp0``), so
-    ranks on one card stay rows of their own."""
+    device and the rank (``cuda:0/tp1``; with dp > 1 ``cuda:0/dp1tp0``; with
+    ep > 1 ``cuda:0/dp0ep1tp0``), so ranks on one card stay rows of their
+    own."""
     names = [f"{d.type}:{d.index or 0}" for d in devices]
     if len(devices) == 1:
         return names
-    if dp == 1:
+    if dp == 1 and ep == 1:
         return [f"{name}/tp{r}" for r, name in enumerate(names)]
-    tp = len(devices) // dp
-    return [f"{name}/dp{r // tp}tp{r % tp}" for r, name in enumerate(names)]
+    tp = len(devices) // (dp * ep)
+    if ep == 1:
+        return [f"{name}/dp{r // tp}tp{r % tp}" for r, name in enumerate(names)]
+    return [f"{name}/dp{r // (ep * tp)}ep{r // tp % ep}tp{r % tp}" for r, name in enumerate(names)]
 
 
 class Group:
@@ -139,51 +152,69 @@ class Group:
 
 
 class TPGroup(Group):
-    """This process's rank among the engine's dp x tp ranks: its tp group
-    (``rank``, ``size`` and the collectives the forward runs), ``dp`` (the
-    ranks holding the same KV heads, one per dp group: the replicas of its
+    """This process's rank among the engine's dp x ep x tp ranks: its tp
+    group (``rank``, ``size`` and the collectives the forward runs),
+    ``expert`` (the ep x tp ranks of its dp replica, at rank e * tp + t:
+    the MoE layers' all-reduce and the sampled ids' broadcast; it holds
+    the rank's place on the ep axis), ``dp`` (the ranks holding the
+    same KV heads at the same e, one per dp replica: the replicas of its
     pool shard), ``world`` (every rank), the device and label of every
-    rank, and the counts of what crosses any of the three."""
+    rank, and the counts of what crosses any of them (``expert_calls`` and
+    ``expert_bytes`` count the expert group's all-reduces alone)."""
 
     def __init__(self, world_rank: int, dp: int, tp: int, backend: str, devices: list[torch.device],
-                 pgs: tuple = (None, None)):
-        d, t = divmod(world_rank, tp)
+                 pgs: tuple = (None, None, None), ep: int = 1):
+        d, rest = divmod(world_rank, ep * tp)
+        e, t = divmod(rest, tp)
         self.calls = 0
         self.bytes = 0
         self.seconds = 0.0
-        tp_pg, dp_pg = pgs
-        super().__init__(t, tp, tp_pg, d * tp, self)
-        self.dp = Group(d, dp, dp_pg, t, self)
-        self.world = Group(world_rank, dp * tp, None, 0, self)
+        self.expert_calls = 0
+        self.expert_bytes = 0
+        tp_pg, expert_pg, dp_pg = pgs
+        super().__init__(t, tp, tp_pg, (d * ep + e) * tp, self)
+        self.expert = ExpertGroup(rest, ep * tp, expert_pg, d * ep * tp, self, e, ep)
+        self.dp = Group(d, dp, dp_pg, rest, self)
+        self.world = Group(world_rank, dp * ep * tp, None, 0, self)
         self.backend = backend
         self.devices = devices
         self.device = devices[world_rank]
-        self.labels = device_labels(devices, dp)
+        self.labels = device_labels(devices, dp, ep)
 
     @classmethod
     def init(cls, rank: int, dp: int, tp: int, backend: str, devices: list[torch.device], init_method: str,
-             timeout_s: float = TIMEOUT_S) -> "TPGroup":
+             timeout_s: float = TIMEOUT_S, ep: int = 1) -> "TPGroup":
         """Join the engine's ranks as global ``rank`` (a barrier: returns
         once every rank has joined), after making the rank's device
         current. The world is the process's default ``torch.distributed``
-        group, so a process takes part in one engine's ranks at a time. With
-        dp > 1 every rank makes every tp and dp subgroup, in one order, as
-        ``dist.new_group`` asks, even those it is not in."""
+        group, so a process takes part in one engine's ranks at a time.
+        Every rank makes every tp, expert and dp subgroup that is neither
+        the world nor a single rank (nor, at ep = 1, the tp group again), in
+        one order, as ``dist.new_group`` asks, even those it is not in."""
         check_backend(backend, devices)
         if dist.is_initialized():
             raise RuntimeError("this process is already in a tp group: one tp engine per process at a time")
         if devices[rank].type == "cuda":
             torch.cuda.set_device(devices[rank])
         timeout = datetime.timedelta(seconds=timeout_s)
-        dist.init_process_group(backend, init_method=init_method, world_size=dp * tp, rank=rank, timeout=timeout)
-        pgs = (None, None)
-        if dp > 1 and tp > 1:
-            d, t = divmod(rank, tp)
-            tps = [dist.new_group([g * tp + c for c in range(tp)], timeout=timeout) for g in range(dp)]
-            dps = [dist.new_group([g * tp + c for g in range(dp)], timeout=timeout) for c in range(tp)]
-            pgs = (tps[d], dps[t])
-        # dp == 1: the tp group is the world; tp == 1: the dp group is
-        return cls(rank, dp, tp, backend, devices, pgs)
+        dist.init_process_group(backend, init_method=init_method, world_size=dp * ep * tp, rank=rank,
+                                timeout=timeout)
+        d, rest = divmod(rank, ep * tp)
+        tp_pg = expert_pg = dp_pg = None  # None: the world, or a group of one rank
+        if tp > 1 and dp * ep > 1:  # one per (d, e)
+            tps = [dist.new_group([g * tp + c for c in range(tp)], timeout=timeout) for g in range(dp * ep)]
+            tp_pg = tps[rank // tp]
+        if ep * tp > 1 and dp > 1:  # one per d; at ep = 1 the tp group
+            if ep == 1:
+                expert_pg = tp_pg
+            else:
+                experts = [dist.new_group([g * ep * tp + c for c in range(ep * tp)], timeout=timeout)
+                           for g in range(dp)]
+                expert_pg = experts[d]
+        if dp > 1 and ep * tp > 1:  # one per (e, t)
+            dps = [dist.new_group([g * ep * tp + c for g in range(dp)], timeout=timeout) for c in range(ep * tp)]
+            dp_pg = dps[rest]
+        return cls(rank, dp, tp, backend, devices, (tp_pg, expert_pg, dp_pg), ep=ep)
 
     def close(self) -> None:
         if dist.is_initialized():
@@ -194,3 +225,21 @@ class TPGroup(Group):
 
     def reset_stats(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
+        self.expert_calls = self.expert_bytes = 0
+
+
+class ExpertGroup(Group):
+    """The ep x tp ranks of one dp replica, and the rank's place on its ep
+    axis (``ep_rank`` of ``ep_size``): its all-reduces (a MoE layer's sums,
+    an expert tensor's gather) also add to ``expert_calls`` and
+    ``expert_bytes`` of the process's ``TPGroup``."""
+
+    def __init__(self, rank: int, size: int, pg, first: int, counts: "TPGroup", ep_rank: int, ep_size: int):
+        super().__init__(rank, size, pg, first, counts)
+        self.ep_rank, self.ep_size = ep_rank, ep_size
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        super().all_reduce(t)
+        if self.size > 1:
+            self._counts.expert_calls += 1
+            self._counts.expert_bytes += t.nbytes

@@ -18,6 +18,15 @@ leading [L] axis, so ``P(None, "tp")`` on ``[L, in, out]`` is axis 1 here.
   its V/tp logits and ``gather_vocab`` gives every rank all of them.
 - Replicated: norms, ``pos_embed``, the Gemma-2 sandwich norms, the MoE
   router.
+- Each MoE expert's FFN (``moe_gate``/``moe_up`` on I, ``moe_down`` on its
+  input I): one all-reduce over the expert group sums a MoE layer's
+  output (parallel/ep.py).
+- A MoE layer's experts (``_EXPERT_SPLIT``, axis 0 of the three expert
+  tensors) split over ep as well: rank (e, t) of an expert group holds
+  experts [e * E/ep, (e + 1) * E/ep), and of each the t-th I/tp slice, the
+  JAX ``moe_*`` rows ``P("ep", None, "tp")`` and ``P("ep", "tp", None)``.
+  ``shard_shape``, ``full_shape``, ``shard`` and ``shard_params`` take the
+  (ep, e) place with ep = 1 by default.
 
 Rank r's part of a split axis is its r-th contiguous slice. With ``group``
 None (tp = 1) every function here is the identity, so the tp = 1 path runs
@@ -68,13 +77,16 @@ _LAYER_SPLIT = {
     "fc1_b": 0,
     "fc2": 0,
     "fc2_b": None,
-    # MoE (Mixtral): each expert's FFN over tp ([E, in, out]); the port
-    # refuses MoE with tp (check_tp), the table keeps the JAX rule
+    # MoE (Mixtral): each expert's FFN over tp ([E, in, out]); the experts'
+    # axis splits over ep (parallel/ep.py)
     "moe_router": None,
     "moe_gate": 2,
     "moe_up": 2,
     "moe_down": 1,
 }
+# the experts' axis of each per-layer expert tensor ([E, in, out]), split
+# over ep
+_EXPERT_SPLIT = {"moe_gate": 0, "moe_up": 0, "moe_down": 0}
 
 
 def split_axis(name: str) -> Optional[int]:
@@ -87,49 +99,60 @@ def split_axis(name: str) -> Optional[int]:
         raise KeyError(f"parameter {name!r} has no tp split rule") from None
 
 
-def shard_shape(name: str, shape, tp: int) -> tuple[int, ...]:
+def expert_axis(name: str) -> Optional[int]:
+    """The axis of parameter ``name`` split over ep, or None for one that
+    every ep rank holds (all but a MoE layer's experts)."""
+    if not name.startswith("layers."):
+        return None
+    return _EXPERT_SPLIT.get(name.rsplit(".", 1)[-1])
+
+
+def _splits(name: str, tp: int, ep: int) -> list[tuple[int, int, str]]:
+    """(axis, ranks, axis name) of each axis of ``name`` split over more
+    than one rank."""
+    return [(ax, n, what) for ax, n, what in ((split_axis(name), tp, "tp"), (expert_axis(name), ep, "ep"))
+            if ax is not None and n > 1]
+
+
+def shard_shape(name: str, shape, tp: int, ep: int = 1) -> tuple[int, ...]:
     """A rank's shape of parameter ``name`` whose whole shape is ``shape``."""
     shape = tuple(shape)
-    ax = split_axis(name)
-    if ax is None or tp == 1:
-        return shape
-    if shape[ax] % tp:
-        raise ValueError(f"{name}: axis {ax} of {shape} does not split over {tp} tp ranks")
-    return shape[:ax] + (shape[ax] // tp,) + shape[ax + 1:]
+    for ax, n, what in _splits(name, tp, ep):
+        if shape[ax] % n:
+            raise ValueError(f"{name}: axis {ax} of {shape} does not split over {n} {what} ranks")
+        shape = shape[:ax] + (shape[ax] // n,) + shape[ax + 1:]
+    return shape
 
 
-def full_shape(name: str, shape, tp: int) -> tuple[int, ...]:
+def full_shape(name: str, shape, tp: int, ep: int = 1) -> tuple[int, ...]:
     """The whole shape of parameter ``name`` whose rank shape is ``shape``."""
     shape = tuple(shape)
-    ax = split_axis(name)
-    if ax is None:
-        return shape
-    return shape[:ax] + (shape[ax] * tp,) + shape[ax + 1:]
+    for ax, n, _ in _splits(name, tp, ep):
+        shape = shape[:ax] + (shape[ax] * n,) + shape[ax + 1:]
+    return shape
 
 
-def shard(t: torch.Tensor, name: str, rank: int, tp: int) -> torch.Tensor:
-    """Rank ``rank``'s part of the whole parameter ``t`` (a view)."""
-    ax = split_axis(name)
-    if ax is None or tp == 1:
-        return t
-    n = shard_shape(name, t.shape, tp)[ax]
-    return t.narrow(ax, rank * n, n)
+def shard(t: torch.Tensor, name: str, rank: int, tp: int, e: int = 0, ep: int = 1) -> torch.Tensor:
+    """Rank (e, ``rank``)'s part of the whole parameter ``t`` (a view)."""
+    part = shard_shape(name, t.shape, tp, ep)
+    for ax, _, what in _splits(name, tp, ep):
+        t = t.narrow(ax, (rank if what == "tp" else e) * part[ax], part[ax])
+    return t
 
 
-def shard_params(params: dict[str, torch.Tensor], rank: int, tp: int) -> dict[str, torch.Tensor]:
-    """Rank ``rank`` of ``tp``'s parameter dict from a whole one (a
-    ``params_from_jax`` dict, say), every bit kept."""
-    return {name: shard(t, name, rank, tp).contiguous() for name, t in params.items()}
+def shard_params(params: dict[str, torch.Tensor], rank: int, tp: int, e: int = 0, ep: int = 1
+                 ) -> dict[str, torch.Tensor]:
+    """Rank (e, ``rank``) of (ep, ``tp``)'s parameter dict from a whole one
+    (a ``params_from_jax`` dict, say), every bit kept."""
+    return {name: shard(t, name, rank, tp, e, ep).contiguous() for name, t in params.items()}
 
 
 def check_tp(cfg, tp: int) -> None:
     """Refuse, by name, a model that does not split over ``tp`` ranks: the
-    heads (query and KV, so GQA groups stay whole), the MLP and the
-    vocabulary must divide by tp, and a MoE model is not split."""
+    heads (query and KV, so GQA groups stay whole), the MLP (each expert's,
+    for a MoE model) and the vocabulary must divide by tp."""
     if tp == 1:
         return
-    if getattr(cfg, "num_experts", 0):
-        raise ValueError("tensor parallelism of a MoE model (expert FFNs over tp) is not supported by the port yet")
     for what, n in (("num_kv_heads", cfg.num_kv_heads), ("num_heads", cfg.num_heads),
                     ("intermediate_size", cfg.intermediate_size), ("vocab_size", cfg.vocab_size)):
         if n % tp:
@@ -145,15 +168,23 @@ def size_rank(group) -> tuple[int, int]:
     return (1, 0) if group is None else (group.size, group.rank)
 
 
+def expert_place(experts) -> tuple[int, int]:
+    """(ep, e) of an expert group (parallel/group.ExpertGroup: its
+    ``ep_size`` and ``ep_rank``); (1, 0) for None."""
+    return (1, 0) if experts is None else (experts.ep_size, experts.ep_rank)
+
+
 def init_sharded_(model, init_leaf) -> None:
-    """Seeded weights that make the same model at every tp: for each
-    parameter of ``model`` (whose ``tp`` is its group or None), in order,
-    ``init_leaf(name, whole_shape)`` gives the whole tensor, of which the
-    rank keeps its part; one whole tensor exists at a time."""
+    """Seeded weights that make the same model at every (ep, tp): for each
+    parameter of ``model`` (whose ``tp`` is its tp group and ``experts``,
+    where it has one, its expert group; each None when not split), in
+    order, ``init_leaf(name, whole_shape)`` gives the whole tensor, of
+    which the rank keeps its part; one whole tensor exists at a time."""
     n, r = size_rank(model.tp)
+    m, e = expert_place(getattr(model, "experts", None))
     for name, p in model.named_parameters():
-        whole = init_leaf(name, full_shape(name, p.shape, n))
-        p.copy_(shard(whole, name, r, n))
+        whole = init_leaf(name, full_shape(name, p.shape, n, m))
+        p.copy_(shard(whole, name, r, n, e, m))
 
 
 # -- collectives (the identity at tp = 1) ---------------------------------------
@@ -228,9 +259,10 @@ def embed_lookup(embed: torch.Tensor, ids: torch.Tensor, group) -> torch.Tensor:
 
 
 def broadcast_ids(ids: torch.Tensor, group) -> torch.Tensor:
-    """The tp group's first rank's sampled ids on every rank of the group,
-    so each rank feeds the same token into the next step whatever its own
-    draw gave."""
+    """The group's first rank's sampled ids on every rank of the group (the
+    runner's expert group: the ep x tp ranks of its dp replica), so each
+    rank feeds the same token into the next step whatever its own draw
+    gave."""
     if group is None:
         return ids
     ids = ids.contiguous()

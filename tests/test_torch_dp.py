@@ -437,7 +437,8 @@ def test_sampled_rows_at_dp2_draw_dp1s_noise():
     (dict(data_parallel_size=0), "data_parallel_size must be >= 1"),
     (dict(data_parallel_size=2, pipeline_parallel_size=2), "does not compose with in-engine data parallelism"),
     (dict(data_parallel_size=2, enable_lora=True, **PORT_TP), "LoRA with in-engine data parallelism"),
-    (dict(model="mixtral-debug", data_parallel_size=2, **PORT_TP), "data parallelism of a MoE model"),
+    (dict(model="mixtral-debug", data_parallel_size=2, expert_parallel_size=3, **PORT_TP),
+     "expert_parallel_size 3 does not divide num_experts 4"),
     (dict(data_parallel_size=2, tensor_parallel_size=2, tp_device_ids="0,0", **PORT_TP),
      "one device index >= 0 for each of the engine's 4 ranks"),
     (dict(data_parallel_size=2), "tp_backend 'nccl' needs a CUDA device per rank"),

@@ -49,7 +49,7 @@ def test_every_module_imports_with_jax_blocked():
     names = set(out.stdout.strip().splitlines()[-1].split())
     assert len(names) >= 37  # every module was walked, the int8 KV, offload, stack-service and fabric ones among them
     for mod in ("ops.quant", "engine.linkprobe", "kvoffload.serde", "kvoffload.protocol", "kvoffload.tiers",
-                "kvoffload.connector", "parallel.group", "parallel.tp", "parallel.dp", "engine.distributed",
+                "kvoffload.connector", "parallel.group", "parallel.tp", "parallel.dp", "parallel.ep", "engine.distributed",
                 "tracing.context", "tracing.collector", "kvoffload.cache_server", "kvoffload.controller",
                 "kvoffload.warmstart", "kvoffload.transfer", "kvfabric", "kvfabric.wire", "kvfabric.peers",
                 "kvfabric.client", "kvfabric.server"):
@@ -121,16 +121,17 @@ def test_runner_resolves_attention_by_device():
 
 
 _REFUSED = [
-    # tensor and in-engine data parallelism are served; what they lack,
-    # LoRA across the ranks, is refused (MoE with tp or dp and KH % tp != 0
-    # are refused by the engine, which reads the model: tests/test_torch_tp.py,
-    # tests/test_torch_dp.py). Speculative decoding is served; with int8
-    # pools it is refused in the JAX engine's words
+    # tensor, in-engine data and expert parallelism are served; what they
+    # lack, LoRA across the ranks, is refused (KH % tp != 0 and an ep that
+    # does not divide the experts are refused by the engine, which reads the
+    # model: tests/test_torch_tp.py, tests/test_torch_ep.py). Speculative
+    # decoding is served; with int8 pools it is refused in the JAX engine's
+    # words
     ("tensor_parallel_size", 2, {"enable_lora": True}),
     ("data_parallel_size", 2, {"enable_lora": True}),
     ("sequence_parallel_size", 2, {}),
     ("pipeline_parallel_size", 2, {}),
-    ("expert_parallel_size", 2, {}),
+    ("expert_parallel_size", 2, {"enable_lora": True}),
     ("speculative_k", 4, {"kv_cache_dtype": "int8"}),
     # disaggregated prefill and the fabric are served; the device path is
     # refused with tp ranks and off the card (check_supported's device)

@@ -225,6 +225,52 @@ def test_remote_tier_speaks_the_cache_servers_frames(tmp_path):
         stop()
 
 
+class _CountingRemote:
+    """A remote tier in memory that counts the requests it answers; a put
+    of a key in ``fail`` is not acknowledged."""
+
+    def __init__(self, fail=()):
+        self.blobs, self.requests, self.fail = {}, 0, set(fail)
+
+    def put(self, key, blob):
+        self.requests += 1
+        if key in self.fail:
+            return False
+        self.blobs[key] = blob
+        return True
+
+    def __contains__(self, key):
+        self.requests += 1
+        return key in self.blobs
+
+
+def test_write_through_asks_the_remote_tier_only_for_blobs_it_has_not_acknowledged():
+    """A blob ``put`` wrote through costs write_through no request; a blob
+    that landed with ``put_local`` (a peer's frame), or whose put the server
+    did not acknowledge, is uploaded once; a key the store never held asks
+    the server; a blob dropped from the local tiers is forgotten."""
+    st = TieredKVStore(cpu_bytes=1 << 20)
+    st.remote = remote = _CountingRemote(fail={"lost"})
+    blob = _blob()
+    st.put("saved", blob)
+    st.put("lost", blob)
+    st.put_local("landed", blob)
+    assert remote.requests == 2 and set(remote.blobs) == {"saved"}
+    assert st.write_through("saved") and remote.requests == 2
+    assert st.write_through("landed") and remote.requests == 3 and remote.blobs["landed"] == blob
+    assert st.write_through("landed") and remote.requests == 3
+    assert not st.write_through("lost") and remote.requests == 4
+    remote.fail.clear()
+    assert st.write_through("lost") and remote.requests == 5 and "lost" in remote.blobs
+    assert not st.write_through("never") and remote.requests == 6
+    small = TieredKVStore(cpu_bytes=len(blob) + 1)
+    small.remote = remote = _CountingRemote()
+    small.put_local("a", blob)
+    small.put_local("b", blob)  # evicts "a", its only local copy
+    assert not small.write_through("a") and remote.requests == 1 and not remote.blobs
+    assert small.write_through("b") and remote.requests == 2
+
+
 # -- the connector: fp pools through the naive serde ----------------------------
 
 

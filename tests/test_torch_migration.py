@@ -325,6 +325,76 @@ def test_a_tp2_source_migrates_to_a_tp1_target_with_equal_tokens(params):
         dst.stop()
 
 
+def _hop(src, seq_id, sp, fabric_addr=None, after=6, **prompt):
+    """Start ``seq_id`` on ``src``, freeze it once ``after`` ids came, and
+    ship it (over the fabric to ``fabric_addr``, else through the tiers).
+    Returns (the ids ``src`` emitted, the terminal output's repeat of the
+    last one included; the sealed snapshot)."""
+
+    async def run():
+        loop = asyncio.get_running_loop()
+        got, frozen = [], asyncio.Event()
+
+        async def stream():
+            async for out in src.generate(seq_id, params=sp, **prompt):
+                got.extend(out.token_ids)
+                if len(got) >= after:
+                    frozen.set()
+                if out.finished:
+                    return out.finish_reason
+
+        task = asyncio.create_task(stream())
+        await frozen.wait()
+        snap = await loop.run_in_executor(None, src.migration.freeze_and_snapshot, seq_id, {"request_id": seq_id},
+                                          fabric_addr)
+        snap = snapshot_from_wire(snapshot_to_wire(snap))
+        await loop.run_in_executor(None, src.migration.commit, seq_id, len(snap.page_hashes))
+        assert await task == "migrated"
+        return got, snap
+
+    return asyncio.run(run())
+
+
+def test_a_fabric_hop_then_a_tier_hop_leaves_the_pages_on_the_cache_server(params):
+    """A stream goes A -> B over the fabric (its pages land in B's local
+    tier alone), decodes on, and goes B -> C through the tiers, C sharing
+    only the cache server with B. B's save finds the fabric-landed blobs
+    local and counts them saved; the tier path writes them through before
+    it claims them shared, so the cache server holds every page of the
+    snapshot and C restores them all, with the unmigrated run's ids."""
+    from production_stack_tpu_torch.kvoffload.tiers import RemoteTier
+
+    loop = _Loop()
+    cport = free_port()
+    loop.run(cache_server.serve("127.0.0.1", cport, 1 << 26))
+    addr = f"127.0.0.1:{cport}"
+    a = _port(params, kv_fabric=True)
+    b = _port(params, kv_fabric=True, kv_offload_cpu_gb=0.05, kv_remote_url=addr, kv_offload_max_io_pages=0)
+    c = _port(params, kv_offload_cpu_gb=0.05, kv_remote_url=addr, kv_offload_max_io_pages=0)
+    remote = RemoteTier(addr)
+    sp = SamplingParams(max_tokens=40, temperature=0.0, ignore_eos=True)
+    try:
+        base, _ = asyncio.run(_collect(a, "baseline", sp, prompt=PROMPT))
+        _, snap1 = _hop(a, "mig", sp, b._fabric_server.address, prompt=PROMPT)
+        assert len(snap1.page_hashes) >= 8 and a.migration.fabric_pages == len(snap1.page_hashes)
+        assert b.migration.prefetch_pages(snap1.page_hashes) == len(snap1.page_hashes)
+        assert not any(h in remote for h in snap1.page_hashes)  # the fabric hop wrote B's local tier alone
+        _, snap2 = _hop(b, "mig", continuation_params(snap1), after=8, prompt_token_ids=snap1.tokens)
+        assert snap2.page_hashes[: len(snap1.page_hashes)] == snap1.page_hashes
+        assert all(h in remote for h in snap2.page_hashes)
+        hits0 = c.kv.offload_hits
+        assert c.migration.prefetch_pages(snap2.page_hashes) == len(snap2.page_hashes)
+        cont, reason = asyncio.run(_collect(c, "mig", continuation_params(snap2), prompt_ids=snap2.tokens))
+        assert reason == "length" and c.kv.offload_hits - hits0 == len(snap2.page_hashes)
+        assert snap2.tokens[: len(snap1.tokens)] == snap1.tokens
+        assert snap2.tokens[snap1.prompt_len:] + cont == base
+    finally:
+        remote.close()
+        for eng in (a, b, c):
+            eng.stop()
+        loop.close()
+
+
 # -- over HTTP ------------------------------------------------------------------
 
 
