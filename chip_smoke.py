@@ -39,7 +39,9 @@ non-zero exit (nothing is caught):
                tokens), with its one-key-fewer control. The tensor-parallel ranks'
                head shapes too (each rank's NH/tp and KH/tp: llama-3.2-1b
                at tp 2 and 4, qwen2.5-7b, gemma-2-2b and opt-125m at tp
-               2), the decode through decode_attention_sharded.
+               2), the decode through decode_attention_sharded, and the
+               pipeline stages' (one 8-row microbatch on a stage's
+               8-layer pool, llama-3.2-1b at pp 2 and pp 2 x tp 2).
 3. forward  -- llama-3.2-1b (two 512-token chunks) and gemma-2-2b (nine,
                past its 4,096 window) at full width and depth (bf16,
                seeded random weights), then one 8-step decode burst, with
@@ -107,8 +109,8 @@ non-zero exit (nothing is caught):
 5b. tp       -- before that refusal, while qwen2.5-7b's directory exists:
                two tp ranks (two processes) on the one card over gloo,
                asked for by name (llama-3.2-1b at full width cut to
-               RANK_LAYERS = 8 of its 16 layers in 5b and 5c, to keep the
-               smoke inside its time limit): llama-3.2-1b's logits of a 512-token
+               RANK_LAYERS = 4 of its 16 layers in 5b, 5c and 5i's f32
+               tokens, to keep the smoke inside its time limit): llama-3.2-1b's logits of a 512-token
                chunk and a decode step at tp 2 against tp 1's in this run
                (FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN); the server at tp 2
                with bf16 pools, then with int8 pools, the CPU tier and 40
@@ -261,6 +263,22 @@ non-zero exit (nothing is caught):
                ep and dp replicas' pools have one digest; "ep_ranks" and
                "dp_ranks" lines give each rank's device bytes, collective
                share, expert all-reduces and launches.
+5i. pp     -- after the dp runs, while qwen2.5-7b's directory exists:
+               llama-3.2-1b at full width and depth (16 layers, 8 a
+               stage) at pp 2 and at pp 2 x tp 2, every rank a gloo
+               process on the one card: each engine's logits of the tp
+               forward's steps against one rank's ("pp_forward",
+               FORWARD_LOGIT_BOUND and FORWARD_TOP1_MIN), a 32-row decode
+               step whose decode launches every stage counts (4
+               microbatches x 8 layers: "pp_step"), then served over HTTP;
+               the f32 copy of RANK_LLAMA's greedy tokens at pp 2 against
+               pp 1 ("pp_f32_tokens"); qwen2.5-7b from its directory at pp
+               2, each stage's bytes read equal to its 14 layers and the
+               shared tensors, sampled parameters of both stages
+               byte-identical to what was written ("pp_hf_load"), served.
+               Every stage rank launched both kernels and no plain
+               version; "pp_ranks" lines give each rank's device bytes,
+               relays (calls, bytes, seconds) and collective share.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -276,7 +294,10 @@ non-zero exit (nothing is caught):
                modes, qwen2.5-7b's in bf16); a dp 2 rank's decode rows
                (16 x 1,024, half the 32 x 1,024 row's rows, at
                llama-3.2-1b's heads and at mixtral-8x7b's, [d128,dp2]);
-               the ep 2 x tp 2 rank's decode and prefill ([ep2tp2]); the prefill
+               the ep 2 x tp 2 rank's decode and prefill ([ep2tp2]); a
+               pipeline stage's decode of one 8-row microbatch and its
+               prefill chunk on its 8-layer pool, at pp 2 and pp 2 x tp 2
+               ([pp2], [pp2tp2]); the prefill
                kernel at step_spec's verify shape (T = 5: llama-3.2-1b's
                32 x 1,024, the [verify] row; gemma-2-2b's 8 x 4,096 on a
                sliding and a global layer, as lines of their own).
@@ -288,7 +309,10 @@ and its int8 kernel forward for its int8 rows, which no server runs; the
 [tp2] rows from the tp 2 servers, summed over both ranks, and from the dp 2
 x tp 2 int8 server's four ranks; the [dp2] row from the dp 2 server's two
 ranks; the [d128,dp2] row from the dp 2 mixtral server's two ranks; the
-[ep2tp2] rows from mixtral's ep 2 x tp 2 server's four ranks; the
+[ep2tp2] rows from mixtral's ep 2 x tp 2 server's four ranks; the [pp2]
+and [pp2tp2] rows from llama-3.2-1b's pp 2 and pp 2 x tp 2 servers' ranks
+(qwen2.5-7b's pp 2 server books to the [d128] rows, every stage's chunk
+writes to the kv_page_write rows of its heads); the
 [verify] row from the spec server's verify rounds, L a round;
 the D = 64 rows also count the disagg phase's producers' and consumers'
 launches and the fleet phase's engines'; each phase ends with a
@@ -386,6 +410,16 @@ def _eptag(name: str, ep: int, tp: int) -> str:
     return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
 
 
+def _pptag(name: str, pp: int, tp: int) -> str:
+    """A kernel row's name at a pipeline stage rank (pp 1 keeps the name):
+    decode_attention at pp 2 -> decode_attention[pp2], at pp 2 x tp 2 ->
+    decode_attention[pp2tp2]."""
+    if pp == 1:
+        return name
+    tag = f"pp{pp}" + (f"tp{tp}" if tp > 1 else "")
+    return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
+
+
 def _dptag(name: str, dp: int) -> str:
     """A kernel row's name at a dp rank's rows (dp 1 keeps the name):
     decode_attention at dp 2 -> decode_attention[dp2]."""
@@ -428,6 +462,14 @@ SOURCES["prefill_attention[verify]"] = _BASE_SOURCES["prefill_attention"]
 # and its prefill chunk; the ep 2 x tp 2 server's launches
 EP_ROWS = {_eptag(_dtag(k, 128), 2, 2): k for k in ("decode_attention", "prefill_attention")}
 for _row, _base in EP_ROWS.items():
+    REPLACES[_row] = SHARDED_DECODE if _base.startswith("decode") else _BASE_REPLACES[_base]
+    SOURCES[_row] = _BASE_SOURCES[_base]
+# llama-3.2-1b's pipeline stage ranks (phase_pp_ranks): each stage's decode,
+# the sharded decode on one microbatch's rows over the stage's pool (its
+# pp mapping), and its prefill chunk on the stage's pool, at pp 2 (all
+# heads) and pp 2 x tp 2 (the tp place's heads); the pp servers' launches
+PP_ROWS = {_pptag(k, 2, tp): (k, tp) for tp in (1, 2) for k in ("decode_attention", "prefill_attention")}
+for _row, (_base, _) in PP_ROWS.items():
     REPLACES[_row] = SHARDED_DECODE if _base.startswith("decode") else _BASE_REPLACES[_base]
     SOURCES[_row] = _BASE_SOURCES[_base]
 
@@ -694,6 +736,20 @@ DP_MIXTRAL_DECODE = "dp2_mixtral_b16_ctx1024_c8_bf16"
 EP_MIXTRAL = dict(NH=16, KH=4, D=128, kv_normal=True, tp=2, ep=2)
 EP_DECODE = "ep2tp2_mixtral_b32_ctx1024_c8_bf16"
 EP_PREFILL = "ep2tp2_mixtral_t512_h1536_bf16"
+# llama-3.2-1b at a pipeline stage: the stage's pool holds 8 of the 16
+# layers (L = 8, a local layer index), and a 32-row decode step runs as
+# four microbatches of 8 rows (parallel/pipeline.microbatches), each row
+# with its token's K/V beside the pool (C = 1, no burst window under pp);
+# at pp 2 all heads, at pp 2 x tp 2 the tp place's 16 query and 4 KV
+# heads. The prefill chunk: 512 after 1,536 on the stage's pool
+PP_LLAMA = dict(NH=32, KH=8, D=64, pp=2)
+PP_TP_LLAMA = dict(NH=16, KH=4, D=64, tp=2, pp=2)
+PP_DECODE = "pp2_llama_mb8_ctx1024_stage_l8_bf16"
+PP_TP_DECODE = "pp2tp2_llama_mb8_ctx1024_stage_l8_bf16"
+PP_PREFILL = "pp2_llama_t512_h1536_stage_l8_bf16"
+PP_TP_PREFILL = "pp2tp2_llama_t512_h1536_stage_l8_bf16"
+PP_CASES = {(1, "decode_attention"): PP_DECODE, (2, "decode_attention"): PP_TP_DECODE,
+            (1, "prefill_attention"): PP_PREFILL, (2, "prefill_attention"): PP_TP_PREFILL}
 # step_spec's verify forward: the prefill kernel at T = 1 + k = 5 (k = 4)
 # after a long history, one launch per layer and round: llama-3.2-1b's heads
 # at 32 rows after 1,024 tokens (the [verify] row, whose launches are the
@@ -708,7 +764,7 @@ VERIFY_ROW = "prefill_attention[verify]"
 CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECODE, QWEN_PREFILL, OPT_DECODE,
               OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL, TP_DECODE, TP_PREFILL, TP_QWEN_DECODE, TP_QWEN_PREFILL,
               DP_DECODE, DP_MIXTRAL_DECODE, VERIFY_LLAMA, VERIFY_GEMMA_SLIDING, VERIFY_GEMMA_GLOBAL, EP_DECODE, EP_PREFILL}
-CONTROLLED |= {INT8 + n for n in CONTROLLED}
+CONTROLLED |= {INT8 + n for n in CONTROLLED} | set(PP_CASES.values())
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
 # TOL_CAPPED
@@ -866,6 +922,19 @@ DECODE_CASES = [
                                                   dtype="bfloat16")),
 ]
 DECODE_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in DECODE_CASES]
+# the pipeline stages' decode (bf16 pools only: int8 pools are refused at
+# pp): one microbatch of a 32-row step on a stage's pool (the timing
+# phase's inputs), and ragged rows with an empty one on the stage's last
+# layer with NaN past each row's history
+DECODE_CASES += [
+    (PP_DECODE, dict(PP_LLAMA, seed=36, B=8, page=64, maxp=16, L=8, layer=5, lens=[1024] * 8, C=1,
+                     cur_lens=[1] * 8, dtype="bfloat16")),
+    (PP_TP_DECODE, dict(PP_TP_LLAMA, seed=37, B=8, page=64, maxp=16, L=8, layer=5, lens=[1024] * 8, C=1,
+                        cur_lens=[1] * 8, dtype="bfloat16")),
+    ("pp2tp2_llama_ragged_stage_last_layer_nan_bf16", dict(PP_TP_LLAMA, B=4, page=64, maxp=24, L=8, layer=7,
+                                                           lens=[0, 30, 1500, 900], C=1, cur_lens=[0, 1, 1, 1],
+                                                           poison=True, dtype="bfloat16")),
+]
 
 PREFILL_CASES = [
     ("history+unaligned+tail_bf16", dict(B=3, T=64, NH=32, KH=8, D=64, page=16, maxp=10, L=2, layer=1,
@@ -992,6 +1061,19 @@ PREFILL_CASES = [
                                                               poison=True, dtype="bfloat16")),
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
+# the pipeline stages' prefill on a stage's pool (bf16 only, as the decode
+# above): the timing phase's 512 after 1,536, and ragged rows (one padded)
+# on the stage's last layer with NaN past each chunk start
+PREFILL_CASES += [
+    (PP_PREFILL, dict(PP_LLAMA, seed=38, B=1, T=512, page=64, maxp=32, L=8, layer=3, computed=[1536],
+                      chunks=[512], dtype="bfloat16")),
+    (PP_TP_PREFILL, dict(PP_TP_LLAMA, seed=39, B=1, T=512, page=64, maxp=32, L=8, layer=3, computed=[1536],
+                         chunks=[512], dtype="bfloat16")),
+    ("pp2tp2_llama_ragged_padded_row_stage_last_layer_nan_bf16", dict(PP_TP_LLAMA, B=3, T=96, page=16, maxp=16, L=8,
+                                                                      layer=7, computed=[100, 0, 37],
+                                                                      chunks=[96, 61, 0], poison=True,
+                                                                      dtype="bfloat16")),
+]
 # the verify shapes (bf16 pools only: speculative decoding refuses int8);
 # ``row`` names the table row the llama case's error goes to
 PREFILL_CASES += [
@@ -1035,8 +1117,10 @@ WRITE_CASES += [
 ]
 
 
-def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1, ep: int = 1) -> str:
+def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1, ep: int = 1, pp: int = 1) -> str:
     name = _dtag(base + "[int8]" if quant else base, D)
+    if pp > 1:
+        return _pptag(name, pp, tp)
     return _dptag(_eptag(name, ep, tp) if ep > 1 else _tptag(name, tp), dp)
 
 
@@ -1090,10 +1174,10 @@ def phase_kernels():
     for name, kw in DECODE_CASES:
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
         seed = kw.pop("seed", 1)
-        tp, dp, ep = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1)
-        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp, ep)
+        tp, dp, ep, pp = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1), kw.pop("pp", 1)
+        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp, ep, pp)
         args, call_kw = decode_case(seed, **kw)
-        if tp > 1 or dp > 1 or ep > 1:  # a (dp, ep, tp) rank's decode, as models/paged_step.py calls it
+        if tp > 1 or dp > 1 or ep > 1 or pp > 1:  # a (pp, dp, ep, tp) rank's decode, as models/paged_step.py calls it
             kern = lambda *a, **k: decode_attention_sharded(*a, tp=tp, **k)  # noqa: E731
             plain = lambda *a, **k: decode_attention_sharded(*a, tp=tp, plain=True, **k)  # noqa: E731
         else:
@@ -1124,8 +1208,8 @@ def phase_kernels():
         (pools untouched, the same output bytes)."""
         quant = kw.get("quant", False)
         kw = dict(kw)
-        tp, dp, ep = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1)
-        kernel = kw.pop("row", None) or _kernel_name("prefill_attention", quant, kw["D"], tp, dp, ep)
+        tp, dp, ep, pp = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1), kw.pop("pp", 1)
+        kernel = kw.pop("row", None) or _kernel_name("prefill_attention", quant, kw["D"], tp, dp, ep, pp)
         args, call_kw = prefill_case(seed, **kw)
         q, kp, vp, pt, pos, lens, kc, vc, cl = args
         layer = call_kw["layer"]
@@ -1150,7 +1234,7 @@ def phase_kernels():
             if c == 0:
                 check(float(out[b].float().abs().max()) == 0.0, f"prefill {name}: padded row not 0")
         # the write, against its plain version alone
-        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp, dp, ep)
+        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp, dp, ep, pp)
         same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
         untouched = all(
             _same_bytes(x[i], y[i]) for i in range(kw["L"]) if i != layer
@@ -2010,12 +2094,15 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     With ``lora`` = (adapters, full) the LoRA routes run on the main path
     too (``_lora_requests``). With ``tensor_parallel_size`` tp,
     ``expert_parallel_size`` ep or ``data_parallel_size`` dp > 1 the engine
-    runs dp x ep x tp processes (the followers it starts), the counts are
-    read from every rank (runner.rank_stats) and each rank must have
-    launched each kernel of its mode; a "tp_ranks" (with dp > 1 "dp_ranks",
-    with ep > 1 "ep_ranks") line gives each rank's device bytes allocated,
-    step and collective seconds and bytes (and the collectives' share of
-    the step), its expert group's all-reduces and its launches. With dp or
+    runs dp x ep x tp processes (the followers it starts; with
+    ``pipeline_parallel_size`` pp, pp x tp), the counts are read from every
+    rank (runner.rank_stats) and each rank must have launched each kernel
+    of its mode; a "tp_ranks" (with dp > 1 "dp_ranks", with ep > 1
+    "ep_ranks", with pp > 1 "pp_ranks") line gives each rank's device bytes
+    allocated, step and collective seconds and bytes (and the collectives'
+    share of the step), its expert group's all-reduces, its stage relays
+    (calls, bytes, seconds and their share of the step), the bytes its
+    model read from a directory and its launches. With dp or
     ep > 1 every dp and ep replica of a KV-head shard must hold the same
     pools and scales after the main path (runner.replica_digest). ``prepare(engine)``, when given, runs on
     the engine's loop thread before the main path (its launches are not
@@ -2042,8 +2129,9 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     gemma = label.startswith("gemma")
     cfg = EngineConfig(host="127.0.0.1", port=port, enable_sleep_mode=sleep_level > 0, **overrides)
     tp, dp, ep = cfg.tensor_parallel_size, cfg.data_parallel_size, cfg.expert_parallel_size
+    pp = cfg.pipeline_parallel_size
     spec = cfg.speculative_k > 0
-    ranks = dp * ep * tp
+    ranks = pp * dp * ep * tp
     kernels, plains = _counters()
     series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
 
@@ -2081,8 +2169,10 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
                 res["tp_ranks"] = [
                     {"rank": i, "device": dev,
                      **{k: r[k] for k in ("device_bytes", "step_seconds", "steps", "collective_calls",
-                                          "collective_bytes", "collective_seconds", "expert_calls", "expert_bytes")},
+                                          "collective_bytes", "collective_seconds", "expert_calls", "expert_bytes",
+                                          "relay_calls", "relay_bytes", "relay_seconds", "loaded_bytes")},
                      "collective_share_of_step": r["collective_seconds"] / max(r["step_seconds"], 1e-9),
+                     "relay_share_of_step": r["relay_seconds"] / max(r["step_seconds"], 1e-9),
                      "launches": res["launches_by_rank"][i]}
                     for i, (r, (dev, _)) in enumerate(zip(rows, server.engine.runner.kv_pool_shard_layout()))
                 ]
@@ -2128,8 +2218,9 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     if ranks > 1:
         # functional numbers of ranks over gloo, which stages every CUDA
         # collective through the host; no NCCL dp or tp speed figure
-        emit({"phase": "ep_ranks" if ep > 1 else "dp_ranks" if dp > 1 else "tp_ranks", "model": label,
-              "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)", "dp": dp, "ep": ep, "tp": tp,
+        emit({"phase": "pp_ranks" if pp > 1 else "ep_ranks" if ep > 1 else "dp_ranks" if dp > 1 else "tp_ranks",
+              "model": label, "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)", "pp": pp, "dp": dp, "ep": ep,
+              "tp": tp,
               "ranks": tp_ranks, "main_path_seconds": res["seconds"], "card": nvidia_smi_line()})
         for r, counts in enumerate(res["launches_by_rank"]):
             for k in SERVE_ROWS[quant]:
@@ -2472,8 +2563,9 @@ TP2 = dict(tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
 # the llama tp and dp phases run llama-3.2-1b at full width with its depth
 # cut to RANK_LAYERS of its 16 layers (_rank_llama registers the preset):
 # the host-staged collectives cost per layer, and the smoke, grown by the
-# ep phase, must stay well inside its time limit
-RANK_LAYERS = 8
+# ep and pp phases, must stay well inside its time limit (a whole call
+# took 927.75 s on one H100 80GB HBM3 at 700 W with 8 layers here)
+RANK_LAYERS = 4
 RANK_LLAMA = f"llama-3.2-1b-l{RANK_LAYERS}"
 TP_SERVE_LLAMA_INT8 = dict(model=RANK_LLAMA, **INT8_SERVE, **TP2)
 # in-engine data parallelism on the one card, the same way: dp 2 (two
@@ -2675,7 +2767,7 @@ def phase_dp_forward(ref: list) -> None:
 def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool) -> None:
     """An f32 copy of RANK_LLAMA (its preset at float32, added here; the
     leader hands the config to its followers): greedy tokens through the
-    engine at ``overrides`` (tp 2, or dp 2) against one rank's for
+    engine at ``overrides`` (tp 2, dp 2 or pp 2) against one rank's for
     TP_F32_TOKENS tokens, ``n_prompts`` prompts, one after another or, with
     ``together``, queued at once (``_together``: at dp 2 both dp groups
     hold rows). A token that differs must sit where the reference's two
@@ -2726,7 +2818,8 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
             top = lp1[j]["top_logprobs"]
             flips.append({"prompt": i, "token": j, "reference_top2_margin": top[0] - top[1],
                           "logprob_diff": abs(lp1[j]["logprob"] - lp2[j]["logprob"])})
-    mesh = {k: overrides.get(f, 1) for k, f in (("dp", "data_parallel_size"), ("tp", "tensor_parallel_size"))}
+    mesh = {k: overrides.get(f, 1) for k, f in (("pp", "pipeline_parallel_size"), ("dp", "data_parallel_size"),
+                                                ("tp", "tensor_parallel_size"))}
     line = {"phase": phase, "model": name, **mesh, "tokens_per_prompt": TP_F32_TOKENS,
             "prompts": len(prompts), "concurrent": together, "tokens_equal_before_a_flip": same, "flips": flips,
             "near_tie": TP_NEAR_TIE, "logprob_max_diff_before_a_flip": max(diffs, default=0.0),
@@ -2812,7 +2905,7 @@ def _decode_timing(case_name: str, quant: bool) -> dict:
 
     bf16 = torch.bfloat16
     case = dict(dict(DECODE_CASES)[case_name], dtype=bf16, quant=quant)
-    for k in ("tp", "dp", "ep"):  # a rank's shapes: the same kernel on its rows and heads
+    for k in ("tp", "dp", "ep", "pp"):  # a rank's shapes: the same kernel on its rows and heads
         case.pop(k, None)
     B, NH, KH, D, page, maxp = (case[k] for k in ("B", "NH", "KH", "D", "page", "maxp"))
     lens, C, cur = case["lens"], case["C"], case["cur_lens"]
@@ -2864,7 +2957,7 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, dict]:
 
     bf16 = torch.bfloat16
     case = dict(dict(PREFILL_CASES)[case_name], dtype=bf16, quant=quant)
-    for k in ("tp", "dp", "ep", "row"):
+    for k in ("tp", "dp", "ep", "pp", "row"):
         case.pop(k, None)
     B, NH, KH, D, page, T = (case[k] for k in ("B", "NH", "KH", "D", "page", "T"))
     hist = case["computed"][0]  # the timed cases' rows hold one history and one chunk length each
@@ -2980,6 +3073,11 @@ def phase_timing() -> dict:
     for row, base in EP_ROWS.items():
         rows[row] = (_decode_timing(EP_DECODE, False) if base.startswith("decode")
                      else _prefill_timing(EP_PREFILL, False)[0])
+    # llama-3.2-1b's pipeline stages: a stage's decode of one 8-row
+    # microbatch and its prefill chunk, on the stage's 8-layer pool
+    for row, (base, tp) in PP_ROWS.items():
+        case = PP_CASES[(tp, base)]
+        rows[row] = _decode_timing(case, False) if base.startswith("decode") else _prefill_timing(case, False)[0]
     # step_spec's verify forward (llama-3.2-1b's heads; gemma-2-2b's below)
     row, fused = _prefill_timing(VERIFY_LLAMA, False)
     rows[VERIFY_ROW] = dict(row, fused_ms=fused["fused_ms"])
@@ -3313,6 +3411,126 @@ def phase_ep_ranks(serve, ref: dict) -> None:
     serve(f"{MIXTRAL_DP_PRESET}, dp2", dict(model=MIXTRAL_DP_PRESET, **DP2), 128, 0, (),
           _logits_check(dp_ref["logits"], "dp_moe_forward", {"dp": 2}, DP_FORWARD_ROWS, dp_ref["picks"],
                         MIXTRAL_DP_PRESET))
+
+
+# pipeline parallelism on the one card: pp 2 (two stage ranks) and pp 2 x
+# tp 2 (four), every rank a process on cuda:0 over gloo
+PP2 = dict(pipeline_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
+PP2_TP2 = dict(pipeline_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
+# the decode step whose launches a stage counts: 32 rows, four microbatches
+# of 8 at pp 2, each running the stage's 8 layers
+PP_STEP_ROWS = 32
+# qwen2.5-7b at pp 2: the sampled parameters read back through the stages,
+# layer 13 (stage 0's last) and layer 27 (stage 1's last)
+_L27 = "model.layers.27."
+QWEN_PP_SAMPLES = QWEN_SAMPLES + (
+    ("layers.27.wq", _L27 + "self_attn.q_proj.weight", True),
+    ("layers.27.bv", _L27 + "self_attn.v_proj.bias", False),
+    ("layers.27.w_up", _L27 + "mlp.up_proj.weight", True),
+)
+
+
+def _pp_step_launches(engine) -> dict:
+    """One decode step of PP_STEP_ROWS rows on fresh pools through every
+    stage: each stage's decode launches, which must be microbatches x its
+    layers (4 x 8 for llama-3.2-1b at pp 2, where pp 1 launches 16)."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.runner import StepInput
+    from production_stack_tpu_torch.parallel.pipeline import microbatches
+
+    runner, cfg = engine.runner, engine.model_cfg
+    B, pp = PP_STEP_ROWS, engine.pipeline_parallel
+    maxp = 17
+    inp = StepInput(input_ids=np.ones((B, 1), np.int32), positions=np.full((B, 1), 1024, np.int32),
+                    page_table=np.arange(B * maxp, dtype=np.int32).reshape(B, maxp) % engine.kv.num_pages,
+                    kv_lens=np.full(B, 1025, np.int32), temperature=np.zeros(B, np.float32),
+                    top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32))
+    runner.reset_kv()
+    runner.rank_stats(reset=True)
+    runner.step(inp, want_logits=False)
+    rows = _rank_rows(runner.rank_stats(reset=True))
+    runner.reset_kv()
+    M = microbatches(B, pp)
+    want = M * cfg.num_layers // pp
+    got = [int(r["decode_attention"]) for r in rows]
+    check(got == [want] * len(rows), f"pp_step: stage decode launches {got}, expected {want} on every rank")
+    return {"step_rows": B, "microbatches": M, "rows_a_microbatch": B // M,
+            "decode_launches_by_rank": got, "pp1_launches": cfg.num_layers,
+            "relay_calls_by_rank": [int(r["relay_calls"]) for r in rows],
+            "relay_bytes_by_rank": [int(r["relay_bytes"]) for r in rows]}
+
+
+def _pp_qwen_reads(seed: int = 0):
+    """``prepare`` for the pp 2 qwen2.5-7b server: each stage's bytes read
+    from the directory (runner.rank_stats' loaded_bytes) equal to its 14
+    layers' tensors and the embedding, final norm and head, as written; the
+    sampled parameters of both stages, read back through them
+    (runner.gathered_params), byte-identical to what was written."""
+    import torch
+
+    from production_stack_tpu_torch.parallel.pipeline import stage_range
+
+    specs = _qwen2_hf_specs(QWEN_HF_CONFIG, torch.bfloat16)
+    L = QWEN_HF_CONFIG["num_hidden_layers"]
+
+    def nbytes(names):
+        return sum(math.prod(specs[n][0]) * specs[n][1].itemsize for n in names)
+
+    def run(engine):
+        pp = engine.pipeline_parallel
+        rows = _rank_rows(engine.runner.rank_stats())
+        shared = [n for n in specs if not n.startswith("model.layers.")]
+        want = [nbytes(shared + [n for n in specs for i in stage_range(L, pp, p)
+                                 if n.startswith(f"model.layers.{i}.")]) for p in range(pp)]
+        got = [int(r["loaded_bytes"]) for r in rows]
+        params = engine.runner.gathered_params([p for p, _, _ in QWEN_PP_SAMPLES])
+        same = {}
+        for pname, hf, transpose in QWEN_PP_SAMPLES:
+            w = _hf_value(hf, *specs[hf], seed).cpu()
+            same[pname] = _same_bytes(params[pname], (w.t() if transpose else w).contiguous())
+        line = {"phase": "pp_hf_load", "model": "qwen2.5-7b", "pp": pp, "layers_a_stage": L // pp,
+                "bytes_read_by_stage": got, "expected_by_stage": want, "directory_bytes": nbytes(list(specs)),
+                "samples_byte_identical": same}
+        emit(line)
+        check(got == want, f"pp_hf_load: stages read {got} bytes, their layers and shared tensors hold {want}")
+        check(all(same.values()), f"pp_hf_load: a parameter read through the stages differs: {same}")
+        return {"bytes_read_by_stage": got}
+
+    return run
+
+
+def phase_pp_ranks(serve) -> None:
+    """Pipeline parallelism on the one card, while qwen2.5-7b's directory
+    exists: llama-3.2-1b at full width and depth (16 layers, 8 a stage)
+    held to one rank's logits ("pp_forward": the tp forward's steps,
+    FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN) and served at pp 2 and pp 2 x
+    tp 2, each with a 32-row decode step whose launches every stage counts
+    ("pp_step"); the f32 copy of RANK_LLAMA's greedy tokens at pp 2
+    against pp 1 ("pp_f32_tokens"); qwen2.5-7b from its directory at pp 2,
+    each stage reading only its 14 layers ("pp_hf_load"). ``serve`` is
+    main's: it checks every rank's launches and the plain versions, and
+    books the [pp2] and [pp2tp2] rows' launches; its "pp_ranks" lines give
+    each rank's device bytes, relays and collective share."""
+    import torch
+
+    ref = phase_tp_reference(model="llama-3.2-1b")
+    for label, mesh, overrides in (("pp2", {"pp": 2}, PP2), ("pp2 x tp2", {"pp": 2, "tp": 2}, PP2_TP2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        logits = _logits_check(ref, "pp_forward", mesh, model="llama-3.2-1b")
+
+        def prepare(engine, logits=logits, mesh=mesh):
+            out = logits(engine)
+            step = _pp_step_launches(engine)
+            emit({"phase": "pp_step", "model": "llama-3.2-1b", **mesh, **step, "card": nvidia_smi_line()})
+            return dict(out, **step)
+
+        serve(f"llama-3.2-1b, {label}", dict(model="llama-3.2-1b", **overrides), 64, 0, (), prepare)
+    phase_f32_tokens("pp_f32_tokens", PP2, n_prompts=2, together=False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve("qwen2.5-7b-hf, pp2", dict(model=str(QWEN_DIR), **PP2), 128, 0, (), _pp_qwen_reads())
 
 
 def phase_opt_int8_refused() -> None:
@@ -4483,13 +4701,15 @@ def main() -> int:
         counts = phase_serve(label, overrides, sleep_level, lora, prepare, extra)
         quant = overrides.get("kv_cache_dtype") == "int8"
         tp, dp = overrides.get("tensor_parallel_size", 1), overrides.get("data_parallel_size", 1)
-        ep = overrides.get("expert_parallel_size", 1)
+        ep, pp = overrides.get("expert_parallel_size", 1), overrides.get("pipeline_parallel_size", 1)
         for k in SERVE_ROWS[quant] + ((VERIFY_ROW,) if VERIFY_ROW in counts else ()):
             # an ep rank runs its tp place's heads: the [ep2tp2] rows at ep 2
             # x tp 2, one rank's rows at ep 2 alone
             row = _eptag(_dtag(k, D), ep, tp) if ep > 1 and tp > 1 else _tptag(_dtag(k, D), tp)
             if dp > 1 and tp == 1 and k == "decode_attention":
                 row = _dptag(row, dp)  # the dp rank's rows, all heads: the [dp2] row
+            if pp > 1 and D == 64 and k != "kv_page_write":
+                row = _pptag(k, pp, tp)  # a stage's microbatches on its pool: the [pp2] and [pp2tp2] rows
             launches[row] = launches.get(row, 0) + counts[k]
 
     try:
@@ -4549,6 +4769,10 @@ def main() -> int:
         serve(f"{RANK_LLAMA}, dp2", dict(model=RANK_LLAMA, **DP2), 64, 0, ())
         serve(f"{RANK_LLAMA}, int8, dp2 x tp2", DP_SERVE_LLAMA_INT8, 64, 0, ())
         clock("dp")
+        # pipeline parallelism: pp 2 and pp 2 x tp 2, every rank a process
+        # on the one card over gloo, with qwen2.5-7b's directory still there
+        phase_pp_ranks(serve)
+        clock("pp_ranks")
         phase_opt_int8_refused()
         shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 47 GB
         phase_hf_mixtral()

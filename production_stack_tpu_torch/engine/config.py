@@ -212,7 +212,12 @@ class EngineConfig:
     # models ignore it (their ep ranks replicate the whole computation).
     # dp x ep x tp processes in all, rank r = (d * ep + e) * tp + t
     expert_parallel_size: int = 1
-    # the port's deployment knobs for its ranks (all dp x ep x tp of them): the
+    # pipeline parallelism (the llama family): the layer stack in pp
+    # contiguous stages, each step in microbatches relayed from stage to
+    # stage (parallel/pipeline.py); pp x tp processes, rank r = p * tp + t
+    # (dp = ep = 1)
+    pipeline_parallel_size: int = 1
+    # the port's deployment knobs for its ranks (all pp x dp x ep x tp of them): the
     # torch.distributed backend (nccl, or gloo, which stages CUDA tensors
     # through the host and so lets ranks share one card), and the CUDA
     # device of each rank, comma-separated (default: rank r on cuda:r)
@@ -261,7 +266,6 @@ class EngineConfig:
     # of these (the multi-host knobs, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
     sequence_parallel_size: int = 1
-    pipeline_parallel_size: int = 1
     distributed_coordinator: Optional[str] = None
     distributed_num_processes: int = 1
 
@@ -313,6 +317,12 @@ _FLAG_HELP = {
         "expert-parallel ranks of a MoE model, each holding num_experts / ep "
         "experts (which ep must divide), attention replicated along them; "
         "dense models ignore it; the server starts dp x ep x tp processes"
+    ),
+    "pipeline_parallel_size": (
+        "pipeline stages of a llama-family model, each holding num_layers / pp "
+        "layers (which pp must divide) and their share of every KV page; each "
+        "step runs in microbatches relayed stage to stage; the server starts "
+        "pp x tp processes"
     ),
     "decode_pipeline": (
         "chained decode bursts per dispatch while no request waits (1 = off): "
@@ -479,7 +489,6 @@ def resolve_attn_impl(attn_impl: str, device) -> str:
 _UNSUPPORTED = {
     "kv_write_mode": "the 'pre' KV write mode",
     "sequence_parallel_size": "sequence parallelism",
-    "pipeline_parallel_size": "pipeline parallelism",
     "distributed_coordinator": "multi-host serving",
     "distributed_num_processes": "multi-host serving",
 }
@@ -491,11 +500,15 @@ KV_ROLES = ("none", "producer", "consumer")
 def check_supported(cfg: EngineConfig, device=None) -> None:
     """Raise on any non-default value of a feature the port lacks
     (``_UNSUPPORTED``), on a combination the port does not serve (LoRA with
-    tp, dp or ep ranks; device KV transfer with ranks, across hosts or, given
-    ``device``, off the card), and on one the JAX engine refuses too (int8
-    pools with speculative decoding, or with disaggregated prefill but no
-    fabric; a producer without a peer; in its words)."""
-    dp, ep = cfg.data_parallel_size, cfg.expert_parallel_size
+    tp, dp, ep or pp ranks; pp with ep ranks or speculative decoding;
+    device KV transfer with ranks, across hosts or, given ``device``, off
+    the card), and on one the JAX engine refuses too (pp with in-engine dp;
+    int8 pools with pp, with speculative decoding, or with disaggregated
+    prefill but no fabric; a producer without a peer; in its words). The
+    refusals that read the model (a pp that does not divide its layers, a
+    family without pp stages, a MoE model at pp) are
+    parallel/pipeline.check_pp's, which the engine calls."""
+    dp, ep, pp = cfg.data_parallel_size, cfg.expert_parallel_size, cfg.pipeline_parallel_size
     if cfg.kv_transfer_device:
         # the CUDA IPC endpoint moves whole pages between two single-rank
         # engines on one host
@@ -504,10 +517,10 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
                 "not supported by the PyTorch port yet: device KV transfer "
                 "(--kv-transfer-device) across hosts"
             )
-        if dp * ep * cfg.tensor_parallel_size > 1:
+        if pp * dp * ep * cfg.tensor_parallel_size > 1:
             raise ValueError(
                 "not supported by the PyTorch port yet: device KV transfer "
-                "(--kv-transfer-device) with tp or dp ranks, or ep ranks; the TCP and fabric paths serve them"
+                "(--kv-transfer-device) with tp or dp ranks, or ep or pp ranks; the TCP and fabric paths serve them"
             )
         if device is not None and not str(device).startswith("cuda"):
             raise ValueError(
@@ -518,7 +531,9 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
         raise ValueError(f"data_parallel_size must be >= 1, got {dp}")
     if ep < 1:
         raise ValueError(f"expert_parallel_size must be >= 1, got {ep}")
-    if dp > 1 and cfg.pipeline_parallel_size > 1:
+    if pp < 1:
+        raise ValueError(f"pipeline_parallel_size must be >= 1, got {pp}")
+    if dp > 1 and pp > 1:
         # the JAX engine's own refusal (engine/engine.py)
         raise ValueError(
             "pipeline parallelism does not compose with in-engine data parallelism; "
@@ -554,6 +569,13 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
             "--kv-cache-dtype int8 is not compatible with "
             "--speculative-k (the spec scan carries raw pool blocks)"
         )
+    if cfg.kv_cache_dtype == "int8" and (cfg.sequence_parallel_size > 1 or pp > 1):
+        # the JAX engine's own refusal (engine/engine.py)
+        raise ValueError("--kv-cache-dtype int8 does not compose with sp/pp meshes")
+    if pp > 1 and ep > 1:
+        raise ValueError("not supported by the PyTorch port yet: pipeline parallelism with expert parallelism")
+    if pp > 1 and cfg.speculative_k:
+        raise ValueError("not supported by the PyTorch port yet: speculative decoding with pipeline parallelism")
     if cfg.kv_role not in KV_ROLES:
         raise ValueError(f"unknown kv_role {cfg.kv_role!r}; options: {KV_ROLES}")
     if cfg.kv_cache_dtype == "int8" and (cfg.kv_role != "none" or cfg.kv_transfer_device) and not cfg.kv_fabric:
@@ -576,4 +598,6 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
         raise ValueError("not supported by the PyTorch port yet: LoRA with in-engine data parallelism")
     if ep > 1 and cfg.enable_lora:
         raise ValueError("not supported by the PyTorch port yet: LoRA with expert parallelism")
-    parse_device_ids(cfg.tp_device_ids, dp * ep * tp)
+    if pp > 1 and cfg.enable_lora:
+        raise ValueError("not supported by the PyTorch port yet: LoRA with pipeline parallelism")
+    parse_device_ids(cfg.tp_device_ids, pp * dp * ep * tp)

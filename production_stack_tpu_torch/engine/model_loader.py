@@ -27,7 +27,12 @@ package.
   directory reads only the rank's slice of each split tensor from the
   mapped shards (of a Mixtral layer, only its experts' tensors, each on its
   I slice); ``params`` are whole and the rank takes its part
-  (``shard_params``).
+  (``shard_params``). With ``stage`` (its ``TPGroup.stage``, pp > 1) the
+  model is one pipeline stage's: a preset draws every layer and keeps its
+  stage's, a directory reads only the stage's ``model.layers.{i}`` tensors
+  (and the embedding, final norm and head every stage holds), ``params``
+  give the stage their layers. A directory's model carries the bytes read
+  from its shards (``loaded_bytes``).
 - ``params_from_jax(np_tree, cfg)``: the JAX package's layer-stacked tree
   (``{"embed", "layers": {name: [L, ...]}, "final_norm"}``, plus
   ``"lm_head"`` for an untied llama) given as numpy arrays, split per layer
@@ -46,6 +51,7 @@ import torch
 from production_stack_tpu_torch import models
 from production_stack_tpu_torch.models import gemma2, llama, opt
 from production_stack_tpu_torch.parallel.ep import expert_range
+from production_stack_tpu_torch.parallel.pipeline import local_name
 from production_stack_tpu_torch.parallel.tp import expert_axis, expert_place, shard_params, size_rank, split_axis
 from production_stack_tpu_torch.utils.device import resolve_device
 from production_stack_tpu_torch.utils.safetensors_io import SafetensorsDir
@@ -113,26 +119,27 @@ def load_model(
     tp=None,
     config=None,
     experts=None,
+    stage=None,
 ):
     """Returns (module, config, model) for a local HF directory, or for a
     preset name with weights from ``params`` when given, else seeded random
     ones drawn on ``device``. ``tp``: the tp rank's group (None: the whole
     model); ``experts``: its expert group, for a MoE model split over ep
-    (a dense model ignores it). ``config``: a preset's config as the caller
-    resolved it (``model_config``), which a spawned rank takes from its
-    leader."""
+    (a dense model ignores it); ``stage``: its stage group under pp (None:
+    every layer). ``config``: a preset's config as the caller resolved it
+    (``model_config``), which a spawned rank takes from its leader."""
     dev = resolve_device(device)
     if is_hf_dir(model):
         if params is not None:
             raise ValueError(f"{model} is a checkpoint directory: it brings its own weights, not params")
-        return load_from_hf(model, device=dev, max_model_len=max_model_len, tp=tp, experts=experts)
+        return load_from_hf(model, device=dev, max_model_len=max_model_len, tp=tp, experts=experts, stage=stage)
     mod, cfg = model_config(model, max_model_len) if config is None else (models.module_for_config(config), config)
     # before the model is built: OPT sizes its position table from max_model_len
-    net = _build(mod, cfg, dev, tp, experts)
+    net = _build(mod, cfg, dev, tp, experts, stage)
     if params is not None:
         n, r = size_rank(tp)
         m, e = expert_place(getattr(net, "experts", None))
-        load_params(net, shard_params(params, r, n, e, m))
+        load_params(net, shard_params(params, r, n, e, m, stage=getattr(net, "stage", None)))
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -239,19 +246,24 @@ _FAMILIES = {
 }
 
 
-def _build(mod, cfg, device, tp, experts):
+def _build(mod, cfg, device, tp, experts, stage=None):
     """The family's model, empty; the expert group goes to a MoE model
-    alone (the llama family's)."""
+    alone, the stage group to a family that serves pp (the llama
+    family's)."""
+    kw = {}
     if experts is not None and getattr(cfg, "num_experts", 0):
-        return mod.CAUSAL_LM(cfg, device=device, tp=tp, experts=experts)
-    return mod.CAUSAL_LM(cfg, device=device, tp=tp)
+        kw["experts"] = experts
+    if stage is not None and stage.size > 1:
+        kw["stage"] = stage
+    return mod.CAUSAL_LM(cfg, device=device, tp=tp, **kw)
 
 
 @torch.no_grad()
-def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=None, experts=None):
+def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=None, experts=None, stage=None):
     """Returns (module, config, model) for a local HF directory, its weights
     read from the shards one tensor at a time; a tp rank reads its slice of
-    each split tensor, and an ep rank only its experts' tensors."""
+    each split tensor, an ep rank only its experts' tensors, and a pipeline
+    stage only its layers' (the model's ``loaded_bytes``: what was read)."""
     dev = resolve_device(device)
     mod, cfg = _hf_config(path)
     _, names_of, strip = _FAMILIES[mod]
@@ -262,12 +274,15 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=
         raise ValueError(f"max_model_len={max_model_len} exceeds OPT position table ({cfg.max_model_len})")
     shards = SafetensorsDir(path)
     keys = {(k[len(strip):] if strip and k.startswith(strip) else k): k for k in shards.keys()}
-    net = _build(mod, cfg, dev, tp, experts)
+    net = _build(mod, cfg, dev, tp, experts, stage)
     m, e = expert_place(getattr(net, "experts", None))
     own = dict(net.named_parameters())
-    wanted = names_of(cfg)
+    # the stage's layers under its own names (every layer without pp)
+    wanted = {held: v for name, v in names_of(cfg).items()
+              if (held := local_name(name, cfg.num_layers, getattr(net, "stage", None))) is not None}
     if set(wanted) != set(own):
         raise AssertionError(f"weight map and model differ: {sorted(set(wanted) ^ set(own))}")
+    read = 0
     for pname, (hf, transpose) in wanted.items():
         p = own[pname]
         ax = split_axis(pname) if n > 1 else None
@@ -291,6 +306,7 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=
                 hf_ax = 1 - ax if transpose else ax
                 part = dst.shape[ax]
                 t = shards.get_slice(keys[name], hf_ax, rank * part, part)
+            read += t.nbytes
             t = t.to(dev).to(cfg.dtype)
             if transpose:
                 t = t.t()
@@ -299,6 +315,7 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=
                     f"{path}: {name} gives {tuple(t.shape)} for {pname}, the config needs {tuple(dst.shape)}"
                 )
             dst.copy_(t)
+    net.loaded_bytes = read
     if max_model_len:
         # after the weights: OPT keeps the checkpoint's whole position table
         cfg = dataclasses.replace(cfg, max_model_len=max_model_len)

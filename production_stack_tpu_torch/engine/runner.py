@@ -75,6 +75,20 @@ same shapes as the JAX runner's.
   the (d 0, e 0) one; a page write lands on every ep replica.
   ``gathered_params`` joins the experts over the expert group, and
   ``replay_routes`` makes every rank's routers take another run's experts.
+- Pipeline parallelism (``tp.stage.size`` pp > 1; dp = ep = 1): the rank
+  is one stage of one tp place. Its model holds L/pp layers
+  (models/llama.py runs each step in microbatches through the stages) and
+  its pools ``[L/pp, P, page, KH/tp, D]`` those layers' pages, as the JAX
+  ``KV_PAGES_SPEC_PP`` shards them. There is no deferred burst, as in the
+  JAX runner: ``step_multi`` runs k forwards, each T == 1 step committing
+  its own K/V (only the pages its active rows write change), so
+  ``step_multi_pipelined`` serves pp too. The sampled ids are world rank
+  0's, broadcast to every stage (``_draw``). ``get_pages`` gathers a
+  page's layers over the stage group and its heads over the tp group, so a
+  page reaches the host whole, as the JAX runner's ``device_get`` of the
+  pp-sharded pool gives it; ``set_pages`` keeps the stage's layers and the
+  rank's heads. ``gathered_params`` takes a layer's tensors from the stage
+  that holds it (``layers.{i}`` by the model's layer number).
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -112,6 +126,7 @@ from production_stack_tpu_torch.ops.sampling import (
     sample_with_logprobs,
 )
 from production_stack_tpu_torch.parallel import dp as dpmod
+from production_stack_tpu_torch.parallel import pipeline
 from production_stack_tpu_torch.parallel.ep import gather_param
 from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_split, rank_slice, size_rank
 from production_stack_tpu_torch.utils.device import resolve_device
@@ -161,11 +176,15 @@ COUNTERS = (
 # rank_stats' columns: the counters, then the rank's host seconds inside
 # step/step_multi, its collectives' calls, bytes and host seconds, the dp
 # replica sync's gathered bytes and the pages it copied into the rank's
-# replica, the expert group's all-reduces (calls, bytes), and the bytes the
-# rank's process holds allocated on its device (0 on the CPU)
+# replica, the expert group's all-reduces (calls, bytes), the bytes the
+# rank's process holds allocated on its device (0 on the CPU), the stage
+# relays and hand-overs (calls, bytes, host seconds; part of the
+# collectives too) and the bytes its model read from a checkpoint
+# directory (0 for a preset)
 RANK_STATS = tuple(name for name, _, _ in COUNTERS) + (
     "step_seconds", "steps", "collective_calls", "collective_bytes", "collective_seconds",
     "sync_bytes", "sync_pages", "expert_calls", "expert_bytes", "device_bytes",
+    "relay_calls", "relay_bytes", "relay_seconds", "loaded_bytes",
 )
 
 
@@ -252,6 +271,13 @@ class ModelRunner:
         self.expert = tp.expert if tp is not None and tp.expert.size > 1 else None
         self.dp = tp.dp if tp is not None and tp.dp.size > 1 else None
         self.world = tp.world if tp is not None and tp.world.size > 1 else None
+        stage = getattr(tp, "stage", None)
+        # the pipeline stage group (None at pp = 1): the relays, the page
+        # gathers over the layer axis
+        self.stage = stage if stage is not None and stage.size > 1 else None
+        # the sampled ids' source: the expert group's first rank, or under
+        # pp world rank 0, whose ids every stage feeds back
+        self.ids_group = self.world if self.stage is not None else self.expert
         self.tp_size = size_rank(self.tp)[0]
         if self.tp is not None and enable_lora:
             raise ValueError("LoRA with tensor parallelism is not supported by the port yet")
@@ -259,6 +285,8 @@ class ModelRunner:
             raise ValueError("LoRA with data parallelism is not supported by the port yet")
         if tp is not None and tp.expert.ep_size > 1 and enable_lora:
             raise ValueError("LoRA with expert parallelism is not supported by the port yet")
+        if self.stage is not None and enable_lora:
+            raise ValueError("LoRA with pipeline parallelism is not supported by the port yet")
         self.step_seconds = 0.0
         self.steps = 0
         # the device history a burst with penalties left (this rank's rows),
@@ -267,6 +295,9 @@ class ModelRunner:
         self.sync_bytes = 0
         self.sync_pages = 0
         self.module = models.module_for_config(model.cfg)
+        # the JAX runner's refusals: a family without "pp" in MESH_AXES, a
+        # pp that does not divide the layers
+        pipeline.check_pp(self.module, model.cfg, pipeline.stage_place(self.stage)[0])
         cfg = dataclasses.replace(
             model.cfg, attn_impl=resolve_attn_impl(model.cfg.attn_impl, self.device)
         )
@@ -382,7 +413,8 @@ class ModelRunner:
     def _draw(self, logits, sample_from, s, want_lp):
         """The sampled ids (with their logprobs when ``want_lp``); under tp
         or ep the expert group's first rank's ids on every rank of the
-        group (its dp replica's ep x tp ranks), whatever each rank drew.
+        group (its dp replica's ep x tp ranks), under pp world rank 0's on
+        every stage, whatever each rank drew.
         Under dp every rank draws the whole batch's noise and takes its
         rows' (ops/sampling.sample's ``batch_rows``)."""
         B = logits.shape[0]
@@ -392,9 +424,9 @@ class ModelRunner:
                 logits, self.generator, s["temperature"], s["top_k"], s["top_p"],
                 sample_from=sample_from, batch_rows=rows,
             )
-            return (broadcast_ids(ids, self.expert), *lps)
+            return (broadcast_ids(ids, self.ids_group), *lps)
         ids = sample(sample_from, self.generator, s["temperature"], s["top_k"], s["top_p"], rows)
-        return broadcast_ids(ids, self.expert)
+        return broadcast_ids(ids, self.ids_group)
 
     def _timed(self, t0: float) -> None:
         self.step_seconds += time.perf_counter() - t0
@@ -449,7 +481,8 @@ class ModelRunner:
         nothing and write nothing, and the host discards its surplus
         tokens. With penalties the history the burst leaves (its tokens
         recorded, this rank's rows, on the device) stays on ``_last_hist``
-        for a chained next burst."""
+        for a chained next burst. On a pipeline stage each of the k forwards
+        commits its own K/V (no burst window, as the JAX runner under pp)."""
         return self._burst(inp, k, want_logprobs)
 
     def _burst(self, inp: StepInput, k: int, want_logprobs: bool, hist=None):
@@ -475,10 +508,12 @@ class ModelRunner:
             limits = s["kv_limits"]
         else:
             limits = torch.full((B,), np.iinfo(np.int32).max // 2, dtype=torch.int32, device=dev)
-        # the window holds the commit's fp input (int8 pools included)
-        k_acc = torch.zeros((L, B, k, KH, D), dtype=self.cfg.dtype, device=dev)
-        v_acc = torch.zeros_like(k_acc)
         counts = torch.zeros((B,), dtype=torch.int32, device=dev)
+        windowed = self.stage is None  # a pipeline stage commits each step's K/V in its forward
+        if windowed:
+            # the window holds the commit's fp input (int8 pools included)
+            k_acc = torch.zeros((L, B, k, KH, D), dtype=self.cfg.dtype, device=dev)
+            v_acc = torch.zeros_like(k_acc)
         ids, pos, lens = s["input_ids"], s["positions"], s["kv_lens"]
         rows = torch.arange(B, device=dev)
         hist = None
@@ -491,7 +526,7 @@ class ModelRunner:
             hist = hist_ext[:, :H]
         toks, lps = [], []
         for _ in range(k):
-            logits = self._forward(s, ids, pos, lens, kv_burst=(k_acc, v_acc, counts))
+            logits = self._forward(s, ids, pos, lens, kv_burst=(k_acc, v_acc, counts) if windowed else None)
             out = self._draw(logits, self._sample_from(logits, s, hist, lens), s, want_logprobs)
             nxt = out[0] if want_logprobs else out
             toks.append(nxt)
@@ -510,12 +545,12 @@ class ModelRunner:
             ids = torch.where(active, nxt, 0)[:, None].to(torch.int32)
         # one commit for the burst: window entry j of row b holds the token
         # at commit_pos[b, j] (the first counts[b] entries; -1 after them)
-        if self.kv_quant:
+        if windowed and self.kv_quant:
             write_kv_pages_all_layers_quant(
                 self.k_pages, self.v_pages, self.k_scales, self.v_scales, k_acc, v_acc,
                 s["page_table"], commit_pos,
             )
-        else:
+        elif windowed:
             write_kv_pages_all_layers(
                 self.k_pages, self.v_pages, k_acc, v_acc, s["page_table"], commit_pos
             )
@@ -681,21 +716,33 @@ class ModelRunner:
             return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
         return t.numpy()
 
+    def _whole(self, t: torch.Tensor, heads: int) -> torch.Tensor:
+        """Pages or scales of this rank ([L/pp, N, ...], KV heads on axis
+        ``heads``) with every KV head (over the tp group) and every layer
+        (over the stage group)."""
+        return gather_split(gather_split(t, heads, self.tp), 0, self.stage)
+
+    def _own(self, t: torch.Tensor, heads: int) -> torch.Tensor:
+        """This rank's part of whole pages or scales: its stage's layers and
+        its KV heads."""
+        return rank_slice(rank_slice(t, heads, self.tp), 0, self.stage)
+
     def get_pages(self, pids: "list[int]"):
         """N pages' K/V to the host in one copy: per-page ``[L, page, KH, D]``
         numpy arrays (ks, vs), every KV head (gathered from the tp ranks of
-        the caller's dp group: each dp group reads its own replica)."""
+        the caller's dp group: each dp group reads its own replica) and
+        every layer (gathered from the stages)."""
         if not pids:
             return [], []
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
-        k = self._to_numpy(gather_split(self.k_pages[:, idx], 3, self.tp))
-        v = self._to_numpy(gather_split(self.v_pages[:, idx], 3, self.tp))
+        k = self._to_numpy(self._whole(self.k_pages[:, idx], 3))
+        v = self._to_numpy(self._whole(self.v_pages[:, idx], 3))
         return [k[:, i] for i in range(len(pids))], [v[:, i] for i in range(len(pids))]
 
     def set_pages(self, pids: "list[int]", ks, vs) -> None:
         """Write N pages (per-page ``[L, page, KH, D]`` arrays, as
         ``get_pages`` returns them) into the pools; a tp rank keeps its
-        heads."""
+        heads, a stage its layers."""
         if not pids:
             return
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
@@ -703,18 +750,18 @@ class ModelRunner:
             src = tensor_from_numpy(np.stack(list(pages), axis=1))
             if src.dtype != pool.dtype:
                 raise TypeError(f"pages are {src.dtype}, the pool holds {pool.dtype}")
-            pool[:, idx] = rank_slice(src, 3, self.tp).to(self.device)
+            pool[:, idx] = self._own(src, 3).to(self.device)
 
     def get_pages_quant(self, pids: "list[int]"):
         """N int8 pages and their scales to the host in one copy: per page
         ``[L, page, KH, D]`` int8 and ``[L, KH]`` f32 numpy arrays (ks, vs,
         sks, svs), the exact pool bytes, every KV head (gathered from the tp
-        ranks)."""
+        ranks) and layer (from the stages)."""
         if not pids:
             return [], [], [], []
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
         out = [
-            gather_split(t[:, idx], 3 if t.dim() == 5 else 2, self.tp).cpu().numpy()
+            self._whole(t[:, idx], 3 if t.dim() == 5 else 2).cpu().numpy()
             for t in (self.k_pages, self.v_pages, self.k_scales, self.v_scales)
         ]
         return tuple([a[:, i] for i in range(len(pids))] for a in out)
@@ -732,7 +779,7 @@ class ModelRunner:
             raise ValueError(
                 f"set_pages_quant: {n} pids but {len(ks)}/{len(vs)}/{len(sks)}/{len(svs)} pages/scales"
             )
-        scale_shape = (self.k_scales.shape[0], self.k_scales.shape[2] * self.tp_size)
+        scale_shape = (self.cfg.num_layers, self.k_scales.shape[2] * self.tp_size)
         for s in sks + svs:
             a = np.asarray(s)
             if a.shape != scale_shape or not np.issubdtype(a.dtype, np.floating):
@@ -746,16 +793,16 @@ class ModelRunner:
             (self.k_scales, sks, np.float32), (self.v_scales, svs, np.float32),
         ):
             src = torch.from_numpy(np.stack([np.asarray(p, dt) for p in pages], axis=1))
-            pool[:, idx] = rank_slice(src, 3 if src.dim() == 5 else 2, self.tp).to(self.device)
+            pool[:, idx] = self._own(src, 3 if src.dim() == 5 else 2).to(self.device)
 
     def set_page_device(self, pid: int, k: torch.Tensor, v: torch.Tensor) -> None:
         """Write one page's K/V (``[L, page, KH, D]`` tensors, on a device)
         into the pools without a host copy: the device counterpart of
-        ``set_pages`` (a tp rank keeps its heads)."""
+        ``set_pages`` (a tp rank keeps its heads, a stage its layers)."""
         for pool, src in ((self.k_pages, k), (self.v_pages, v)):
             if src.dtype != pool.dtype:
                 raise TypeError(f"pages are {src.dtype}, the pool holds {pool.dtype}")
-            pool[:, pid] = rank_slice(src, 2, self.tp).to(self.device)
+            pool[:, pid] = self._own(src, 2).to(self.device)
 
     # -- device-to-device KV (disaggregated prefill, one process a role) -----
     # The JAX runner's calls of the same names, on one process: the
@@ -834,45 +881,53 @@ class ModelRunner:
         self._alloc_kv()
 
     def _alloc_kv(self) -> None:
+        """The rank's pools: its stage's L/pp layers (every layer at pp 1)
+        and its KV heads of every page."""
         cfg = self.cfg
+        kw = {"pp": self.stage.size} if self.stage is not None else {}
         self.k_pages, self.v_pages = self.module.init_kv_pages(
-            cfg, self.num_pages, self.page_size, self.device, tp=self.tp_size
+            cfg, self.num_pages, self.page_size, self.device, tp=self.tp_size, **kw
         )
         self.k_scales = self.v_scales = None
         if self.kv_quant:
             kh = cfg.num_kv_heads // self.tp_size
-            self.k_scales = init_kv_scales(cfg.num_layers, self.num_pages, kh, self.device)
-            self.v_scales = init_kv_scales(cfg.num_layers, self.num_pages, kh, self.device)
+            self.k_scales = init_kv_scales(self.k_pages.shape[0], self.num_pages, kh, self.device)
+            self.v_scales = init_kv_scales(self.k_pages.shape[0], self.num_pages, kh, self.device)
 
     def kv_pool_shard_layout(self) -> "list[tuple[str, int]]":
         """Per-rank KV pool footprint: ``(device label, bytes)`` of every
-        rank, dp x ep x tp rows, k and v pools with their int8 scales, from
-        the pools' shapes (each rank holds KH/tp heads of every page, so
-        1/tp of the bytes; each dp group, and each ep rank in it, a whole
-        replica). Labels are distinct per rank (parallel/group.device_labels:
-        two ranks on one card are ``cuda:0/tp0`` and ``cuda:0/tp1``, or
-        ``cuda:0/dp0tp0`` ... with dp > 1, ``cuda:0/dp0ep1tp0`` ... with
-        ep > 1)."""
+        rank, pp x dp x ep x tp rows, k and v pools with their int8 scales,
+        from the pools' shapes (each rank holds KH/tp heads of its stage's
+        L/pp layers of every page, so 1/(pp x tp) of the bytes; each dp
+        group, and each ep rank in it, a whole replica). Labels are distinct
+        per rank (parallel/group.device_labels: two ranks on one card are
+        ``cuda:0/tp0`` and ``cuda:0/tp1``, or ``cuda:0/dp0tp0`` ... with dp >
+        1, ``cuda:0/dp0ep1tp0`` ... with ep > 1, ``cuda:0/pp1tp0`` ... with pp
+        > 1)."""
         cfg = self.cfg
         kh = cfg.num_kv_heads // self.tp_size
+        L = cfg.num_layers // pipeline.stage_place(self.stage)[0]
         item = 1 if self.kv_quant else torch.empty((), dtype=cfg.dtype).element_size()
-        per = 2 * cfg.num_layers * self.num_pages * self.page_size * kh * cfg.head_dim * item
+        per = 2 * L * self.num_pages * self.page_size * kh * cfg.head_dim * item
         if self.kv_quant:
-            per += 2 * cfg.num_layers * self.num_pages * kh * 4
+            per += 2 * L * self.num_pages * kh * 4
         labels = self.ranks.labels if self.ranks is not None else [f"{self.device.type}:{self.device.index or 0}"]
         return [(label, per) for label in labels]
 
     def rank_stats(self, reset: bool = False) -> np.ndarray:
-        """Every rank's ``RANK_STATS`` row ([dp x ep x tp, len(RANK_STATS)]
-        float64, global rank order): its kernel launches and plain-version
-        calls, its step seconds and its collectives (tp, expert and dp) since
-        the last reset; with ``reset`` each rank's count starts again from 0
-        after the read."""
-        calls, nbytes, secs = self.ranks.stats() if self.ranks is not None else (0, 0, 0.0)
+        """Every rank's ``RANK_STATS`` row ([pp x dp x ep x tp,
+        len(RANK_STATS)] float64, global rank order): its kernel launches and
+        plain-version calls, its step seconds and its collectives (tp,
+        expert, dp and stage) since the last reset; with ``reset`` each
+        rank's count starts again from 0 after the read."""
+        r = self.ranks
+        calls, nbytes, secs = r.stats() if r is not None else (0, 0, 0.0)
         row = [getattr(fn, attr) for _, fn, attr in COUNTERS]
         row += [self.step_seconds, self.steps, calls, nbytes, secs, self.sync_bytes, self.sync_pages]
-        row += [self.ranks.expert_calls, self.ranks.expert_bytes] if self.ranks is not None else [0, 0]
+        row += [r.expert_calls, r.expert_bytes] if r is not None else [0, 0]
         row += [torch.cuda.memory_allocated(self.device) if self.device.type == "cuda" else 0]
+        row += [r.relay_calls, r.relay_bytes, r.relay_seconds] if r is not None else [0, 0, 0.0]
+        row += [getattr(self.model, "loaded_bytes", 0)]
         out = gather_split(torch.tensor([row], dtype=torch.float64, device=self.device), 0, self.world)
         if reset:
             for _, fn, attr in COUNTERS:
@@ -884,10 +939,10 @@ class ModelRunner:
         return out.cpu().numpy()
 
     def replica_digest(self) -> np.ndarray:
-        """Every rank's sha256 of its pools and scales ([dp x ep x tp, 32]
-        uint8, global rank order; a diagnostic): the ranks of one tp column
-        are the dp and ep replicas of one KV-head shard and must give the
-        same digest."""
+        """Every rank's sha256 of its pools and scales ([pp x dp x ep x tp,
+        32] uint8, global rank order; a diagnostic): the ranks of one tp
+        column of one stage are the dp and ep replicas of one KV-head shard
+        and must give the same digest."""
         h = hashlib.sha256()
         for t in self._pools():
             for layer in t:  # a layer at a time through the host
@@ -897,10 +952,14 @@ class ModelRunner:
 
     def gathered_params(self, names: "list[str]") -> dict:
         """The named parameters whole (every tp rank's part joined over the
-        caller's tp group, an expert tensor's over its expert group, bit for
-        bit), on the CPU."""
+        caller's tp group, an expert tensor's over its expert group, a
+        layer's taken from the stage that holds it, ``layers.{i}`` by the
+        model's layer number; bit for bit), on the CPU."""
         own = dict(self.model.named_parameters())
-        return {name: gather_param(own[name].detach(), name, self.ranks).cpu() for name in names}
+        L = self.cfg.num_layers
+        return {name: gather_param(pipeline.gather_layer_param(own, name, L, self.stage).detach(), name,
+                                   self.ranks).cpu()
+                for name in names}
 
     def replay_routes(self, picks=None) -> None:
         """Make every MoE router of this rank's model take the experts

@@ -5,7 +5,11 @@ Each model module holds ``PRESETS``, its config class (with
 ``from_hf_config``), ``init_params``, ``init_kv_pages``,
 ``params_from_jax`` and one class entry, ``CAUSAL_LM``. The llama module
 alone also holds ``init_lora_buffers`` (and ``lora_dims``,
-``lora_from_jax``): the runner refuses LoRA for a family without it."""
+``lora_from_jax``): the runner refuses LoRA for a family without it.
+``MESH_AXES``, where a module has it, names the mesh axes its forward
+serves (the JAX modules' attribute): llama's includes "pp", Gemma-2's is
+("dp", "tp"), and a module without one (OPT) serves ("dp", "tp")
+(parallel/pipeline.check_pp reads it)."""
 
 from __future__ import annotations
 

@@ -31,7 +31,8 @@ the logits are gathered.
 
 ``all_logits=True`` returns every position's logits, after the final
 softcap (speculative decode's verify). The "pre" write mode is not ported;
-the model raises on it.
+the model raises on it. ``MESH_AXES`` is the JAX module's: no pp stages
+(parallel/pipeline.check_pp refuses them in the JAX runner's words).
 """
 
 from __future__ import annotations
@@ -99,6 +100,9 @@ class Gemma2Config:
             sliding_window=cfg.get("sliding_window", 4096),
         )
 
+
+# the mesh axes this family's forward serves, as the JAX module declares them
+MESH_AXES = ("dp", "tp")
 
 PRESETS: dict[str, Gemma2Config] = {
     "gemma-2-9b": Gemma2Config(),

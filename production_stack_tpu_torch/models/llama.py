@@ -27,8 +27,8 @@ adds ``(h @ A) @ B * scale`` to every projection with a buffer
 (``init_lora_buffers``). ``encode`` is the pooled-embedding forward behind
 the server's embedding, rerank and score routes (dense causal attention, no
 pages). ``all_logits=True`` returns every position's logits (speculative
-decode's verify). sp/pp meshes and the "pre" write mode are not ported; the
-model raises on them.
+decode's verify). The sp axis and the "pre" write mode are not ported; the
+model raises on the latter.
 
 With ``tp`` (a parallel/group.TPGroup) the model is one tensor-parallel
 rank's: it holds its slice of each split weight (parallel/tp.py: NH/tp and
@@ -41,6 +41,17 @@ E/ep experts (parallel/tp.py splits them, parallel/ep.py), routes every token ov
 replicated router, weighs its own experts' products by their columns of
 the dense gate, and one all-reduce over the expert group sums the layer's
 output. LoRA is not split (the engine refuses it with ranks).
+
+With ``stage`` (the rank's ``TPGroup.stage``: the pp ranks of its tp
+place) the model is one pipeline stage's (parallel/pipeline.py): it builds
+only its L/pp contiguous layers, named from 0, and holds the embedding,
+the final norm and the head whole, as the JAX specs replicate them over
+pp. Its forward runs the batch in ``microbatches(B, pp)`` microbatches:
+stage 0 embeds, each stage runs its layers on a microbatch's rows over its
+own pools [L/pp, P, page, KH/tp, D] (``layer`` the local index) and relays
+it on; the last stage's final hidden states of what the head reads reach
+every stage, where the head runs as at pp 1. ``MESH_AXES`` names the mesh
+axes the family serves, as the JAX module's does (sp is not ported).
 """
 
 from __future__ import annotations
@@ -58,6 +69,7 @@ from production_stack_tpu_torch.models.paged_step import PagedStep
 from production_stack_tpu_torch.ops.attention import flash_attention
 from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_cos_sin
+from production_stack_tpu_torch.parallel import pipeline
 from production_stack_tpu_torch.parallel.ep import expert_range
 from production_stack_tpu_torch.parallel.tp import (
     all_reduce_,
@@ -139,6 +151,9 @@ class LlamaConfig:
         _check_ported(out)
         return out
 
+
+# the mesh axes this family's forward serves (the JAX module's less sp)
+MESH_AXES = ("dp", "tp", "ep", "pp")
 
 PRESETS: dict[str, LlamaConfig] = {
     "llama-3-8b": LlamaConfig(),
@@ -224,12 +239,12 @@ def _check_ported(cfg: LlamaConfig) -> None:
 
 
 def init_kv_pages(
-    cfg: LlamaConfig, num_pages: int, page_size: int, device, dtype=None, tp: int = 1
+    cfg: LlamaConfig, num_pages: int, page_size: int, device, dtype=None, tp: int = 1, pp: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Layer-stacked page pools: [L, num_pages, page_size, KH/tp, D] zeros,
-    in ``dtype``, else int8 for ``kv_cache_dtype="int8"``, else
-    ``cfg.dtype``."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads // tp, cfg.head_dim)
+    """Layer-stacked page pools: [L/pp, num_pages, page_size, KH/tp, D]
+    zeros (a stage's layers), in ``dtype``, else int8 for
+    ``kv_cache_dtype="int8"``, else ``cfg.dtype``."""
+    shape = (cfg.num_layers // pp, num_pages, page_size, cfg.num_kv_heads // tp, cfg.head_dim)
     dt = dtype or (torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.dtype)
     return (
         torch.zeros(shape, dtype=dt, device=device),
@@ -442,7 +457,7 @@ class LlamaForCausalLM(nn.Module):
     """Decoder stack + head. Parameters are created empty on ``device``;
     engine/model_loader.py fills them (seeded init or a carried-over tree)."""
 
-    def __init__(self, cfg: LlamaConfig, device="cuda", tp=None, experts=None):
+    def __init__(self, cfg: LlamaConfig, device="cuda", tp=None, experts=None, stage=None):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
@@ -451,10 +466,14 @@ class LlamaForCausalLM(nn.Module):
         # ep x tp ranks of its dp replica; None: one rank); a dense model
         # has none
         self.experts = experts if cfg.num_experts else None
+        # stage: the pp ranks of this rank's tp place (None: every layer here)
+        self.stage = stage if stage is not None and stage.size > 1 else None
+        pp, p = pipeline.stage_place(self.stage)
         n = 1 if tp is None else tp.size
         H = cfg.hidden_size
         self.embed = _param(shard_shape("embed", (cfg.vocab_size, H), n), cfg.dtype, device)
-        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device, tp, self.experts) for _ in range(cfg.num_layers))
+        n_layers = len(pipeline.stage_range(cfg.num_layers, pp, p))
+        self.layers = nn.ModuleList(LlamaDecoderLayer(cfg, device, tp, self.experts) for _ in range(n_layers))
         self.final_norm = _param((H,), cfg.dtype, device)
         if not cfg.tie_word_embeddings:
             self.lm_head = _param(shard_shape("lm_head", (H, cfg.vocab_size), n), cfg.dtype, device)
@@ -496,14 +515,58 @@ class LlamaForCausalLM(nn.Module):
         Returns the float32 logits [B, V] of each row's last valid token, or
         with ``all_logits`` [B, T, V] of every position (speculative verify:
         T is 1 + the draft length).
+
+        On a pipeline stage (``stage``) the pools are the stage's and the
+        step runs in microbatches (parallel/pipeline.run); every stage
+        returns the whole logits. Neither ``kv_burst`` nor LoRA is taken
+        there: each T == 1 step commits its own K/V, as the JAX runner's
+        ``_multi_step_fn`` does under pp.
         """
         cfg = self.cfg
         B, T = input_ids.shape
-        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales,
-                         tp=1 if self.tp is None else self.tp.size)
-        x = embed_lookup(self.embed, input_ids, self.tp)
+        tp = 1 if self.tp is None else self.tp.size
         cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+        last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
+        if self.stage is not None:
+            if kv_burst is not None or lora is not None:
+                raise ValueError("a pipeline stage takes neither kv_burst nor LoRA")
+
+            def body(x, r):
+                step = PagedStep(cfg.attn_impl, positions[r], k_pages, v_pages, page_table[r], kv_lens[r],
+                                 kv_scales=kv_scales, tp=tp)
+                x = self._decoder(x, step, cos[r], sin[r])
+                step.finish()
+                return x
+
+            def keep(y, r):
+                return y if all_logits else y[torch.arange(y.shape[0], device=y.device), last[r]]
+
+            out = torch.empty((B, T, cfg.hidden_size) if all_logits else (B, cfg.hidden_size), dtype=cfg.dtype,
+                              device=self.final_norm.device)
+            x = pipeline.run(self.stage, B, lambda r: embed_lookup(self.embed, input_ids[r], self.tp), body, keep,
+                             out, ((T, cfg.hidden_size), cfg.dtype))
+            x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+            return gather_vocab((x @ self._head()).float(), self.tp)
+        step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales, tp=tp)
+        x = embed_lookup(self.embed, input_ids, self.tp)
         ls = None if lora is None else LoraStep(lora, lora_ids, cfg.dtype)
+        x = self._decoder(x, step, cos, sin, lora, ls)
+        step.finish()
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        if all_logits:
+            return gather_vocab((x @ self._head()).float(), self.tp)
+        x_last = x[torch.arange(B, device=x.device), last]
+        return gather_vocab((x_last @ self._head()).float(), self.tp)
+
+    def _head(self) -> torch.Tensor:
+        return self.embed.t() if self.cfg.tie_word_embeddings else self.lm_head
+
+    def _decoder(self, x, step: PagedStep, cos, sin, lora=None, ls=None) -> torch.Tensor:
+        """This model's layers on ``x`` [B, T, H], their attention through
+        ``step`` (whose ``layer`` is the index into this model's, or stage's,
+        layers)."""
+        cfg = self.cfg
+        B, T = x.shape[:2]
         for li, layer in enumerate(self.layers):
             ll = None if lora is None else lora["layers"][li]
             h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
@@ -511,14 +574,7 @@ class LlamaForCausalLM(nn.Module):
             attn = step.attend(li, q, k, v, cfg.sliding_window)
             x = x + all_reduce_(layer.proj(attn.reshape(B, T, -1), "wo", ll, ls), self.tp)
             x = layer.mlp(x, cfg, ll, ls)
-        step.finish()
-        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
-        head = self.embed.t() if cfg.tie_word_embeddings else self.lm_head
-        if all_logits:
-            return gather_vocab((x @ head).float(), self.tp)
-        last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
-        x_last = x[torch.arange(B, device=x.device), last]
-        return gather_vocab((x_last @ head).float(), self.tp)
+        return x
 
 
 CAUSAL_LM = LlamaForCausalLM
@@ -542,27 +598,40 @@ def encode(model: LlamaForCausalLM, input_ids: torch.Tensor, positions: torch.Te
     that the largest bucket (32 x 4,096 at llama-3.2-1b's widths) fits the
     card. A MoE layer's MLP goes over row groups too: its dense expert
     products are [rows, T, E, I] (30 GB for one call at mixtral-8x7b's
-    widths and the largest bucket)."""
+    widths and the largest bucket). On a pipeline stage the batch goes
+    through the stages as one microbatch and every stage pools the last
+    stage's output."""
     cfg = model.cfg
     B, T = input_ids.shape
     rows = max(1, ENCODE_SCORE_BYTES // (T * T * cfg.num_heads * 4))
     itemsize = model.embed.element_size()
     mlp_rows = max(1, ENCODE_SCORE_BYTES // (T * cfg.num_experts * cfg.intermediate_size * itemsize)) \
         if cfg.num_experts else B
-    x = embed_lookup(model.embed, input_ids, model.tp)
     cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
     valid = positions >= 0
     kv_lens = valid.sum(dim=1).to(torch.int32)
-    for layer in model.layers:
-        h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
-        q, k, v = layer.qkv(h, cfg, cos, sin)
-        attn = torch.cat([
-            flash_attention(q[i: i + rows], k[i: i + rows], v[i: i + rows], q_positions=positions[i: i + rows],
-                            kv_lens=kv_lens[i: i + rows], window=cfg.sliding_window)
-            for i in range(0, B, rows)
-        ])
-        x = x + all_reduce_(attn.reshape(B, T, -1) @ layer.wo, model.tp)
-        x = torch.cat([layer.mlp(x[i: i + mlp_rows], cfg) for i in range(0, B, mlp_rows)])
+
+    def layers(x, _rows):
+        for layer in model.layers:
+            h = rms_norm(x, layer.attn_norm, cfg.rms_norm_eps)
+            q, k, v = layer.qkv(h, cfg, cos, sin)
+            attn = torch.cat([
+                flash_attention(q[i: i + rows], k[i: i + rows], v[i: i + rows], q_positions=positions[i: i + rows],
+                                kv_lens=kv_lens[i: i + rows], window=cfg.sliding_window)
+                for i in range(0, B, rows)
+            ])
+            x = x + all_reduce_(attn.reshape(B, T, -1) @ layer.wo, model.tp)
+            x = torch.cat([layer.mlp(x[i: i + mlp_rows], cfg) for i in range(0, B, mlp_rows)])
+        return x
+
+    def embed(r):
+        return embed_lookup(model.embed, input_ids[r], model.tp)
+
+    if model.stage is not None:  # the whole batch as one microbatch through the stages
+        out = torch.empty((B, T, cfg.hidden_size), dtype=cfg.dtype, device=model.final_norm.device)
+        x = pipeline.run(model.stage, B, embed, layers, lambda y, r: y, out, ((T, cfg.hidden_size), cfg.dtype), M=1)
+    else:
+        x = layers(embed(slice(None)), None)
     x = rms_norm(x, model.final_norm, cfg.rms_norm_eps).float()
     mask = valid.float()[..., None]
     pooled = (x * mask).sum(dim=1) / mask.sum(dim=1).clamp(min=1.0)

@@ -20,6 +20,18 @@ same rows, heads and pages, so nothing here depends on ep. The decode goes throu
 ``decode_attention_sharded`` (the JAX package's sharded decode, per (dp,
 ep, tp) rank), and the prefill kernel runs on the rank's rows and heads too,
 where the JAX engine keeps its XLA attention for a multi-device prefill.
+
+Under pipeline parallelism (models/llama.py with a ``stage``) a step is
+made per microbatch: ``positions``, ``page_table`` and ``kv_lens`` are the
+microbatch's rows, the pools are the stage's own [L/pp, P, page, KH/tp, D]
+and ``attend``'s ``li`` is the index into them (not the model's layer
+number). A decode microbatch takes the T == 1 path (the decode kernel with
+the token's K/V, then ``finish``'s one scatter into the stage's layers:
+only the pages holding the microbatch's positions change), a prefill
+microbatch the prefill kernel with its fused write, as the JAX
+``serving_layer_pipeline`` runs its stage's layers on one microbatch (its
+prefill by XLA attention, which the port replaces by the kernel as it does
+at tp). There is no burst window under pp.
 """
 
 from __future__ import annotations

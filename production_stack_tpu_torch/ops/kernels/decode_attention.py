@@ -249,6 +249,15 @@ def decode_attention_sharded(
     is the same on every e (its pools are the ep replicas of one shard,
     written alike by every ep rank: ``KV_PAGES_SPEC`` shards tp only), and
     gets the same bytes.
+
+    pp: the JAX function runs inside ``serving_layer_pipeline``'s
+    ``shard_map`` on a stage's per-layer pool slices (``KV_PAGES_SPEC_PP``
+    shards the layer axis over pp), one microbatch's rows at a time, with
+    the token's K/V as ``k_cur``/``v_cur``. Here the same: a stage rank
+    calls this with its stage's pools [L/pp, P, page, KH/tp, D], ``layer``
+    the index into them, and one microbatch's rows of ``q``,
+    ``page_table``, ``seq_lens`` and the token's K/V (models/llama.py,
+    models/paged_step.py). Only sp is not mapped: the port serves no sp.
     """
     NHl, KHl = q.shape[1], k_pages.shape[-2]
     if NHl % KHl:

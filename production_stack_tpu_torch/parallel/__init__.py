@@ -1,4 +1,5 @@
-"""Parallelism of the port: one process per (dp, tp) rank (``group.py``),
-the split of every weight with the collectives the forward runs
-(``tp.py``), and the batch rows over dp with the pools' replica sync
-(``dp.py``)."""
+"""Parallelism of the port: one process per (pp, dp, ep, tp) rank
+(``group.py``), the split of every weight with the collectives the forward
+runs (``tp.py``), the experts over ep (``ep.py``), the batch rows over dp
+with the pools' replica sync (``dp.py``), and the layer stack in pipeline
+stages with their microbatch relays (``pipeline.py``)."""

@@ -1,14 +1,15 @@
-"""The engine's ranks: one process per (dp, ep, tp) rank, each on its own
-device, joined by ``torch.distributed``.
+"""The engine's ranks: one process per (pp, dp, ep, tp) rank, each on its
+own device, joined by ``torch.distributed``.
 
-The counterpart of production_stack_tpu/parallel/mesh.py for the three axes
-the port serves, dp, ep and tp. Where the JAX engine lays a (dp, ep, tp)
-device mesh under one program and lets GSPMD insert the collectives, the
-port runs one process per rank (engine/engine.py starts them) and calls its
-collectives itself (parallel/tp.py over a tp group, parallel/ep.py over an
-expert group, parallel/dp.py over a dp group). Rank r sits at (d, e, t)
-with r = (d * ep + e) * tp + t, the mesh's order (pp, dp, sp, ep, tp) with
-tp innermost:
+The counterpart of production_stack_tpu/parallel/mesh.py for the four axes
+the port serves, pp, dp, ep and tp. Where the JAX engine lays a (pp, dp,
+ep, tp) device mesh under one program and lets GSPMD and ``shard_map``
+insert the collectives, the port runs one process per rank
+(engine/engine.py starts them) and calls its collectives itself
+(parallel/tp.py over a tp group, parallel/ep.py over an expert group,
+parallel/dp.py over a dp group, parallel/pipeline.py over a stage group).
+Rank r sits at (p, d, e, t) with r = ((p * dp + d) * ep + e) * tp + t, the
+mesh's order (pp, dp, sp, ep, tp) with pp outermost and tp innermost:
 
 - a tp group, the tp ranks of one (d, e), splits the heads, the dense MLP,
   the vocabulary and each expert's FFN;
@@ -17,8 +18,14 @@ tp innermost:
   attention, the router, the norms and the embeddings are replicated along
   ep, so the ranks of one (d, t) hold the same KV heads and write the same
   pages (the JAX ``KV_PAGES_SPEC`` shards tp only);
-- a dp group, the dp ranks of one (e, t), are the replicas of one pool
-  shard across the dp replicas.
+- a dp group, the dp ranks of one (p, e, t), are the replicas of one pool
+  shard across the dp replicas;
+- a stage group, the pp ranks of one (d, e, t), holds the layer stack in
+  pp contiguous stages: it relays a microbatch's activations from stage p
+  to stage p + 1 (``send_next``/``recv_prev``, over the two ranks' own
+  group), hands the last stage's final hidden states to every stage
+  (``broadcast_from_last``) and gathers a page's layers.
+  In this port dp = ep = 1 whenever pp > 1 (engine/config.check_supported).
 
 The backend is named by the caller, never guessed: ``nccl`` (the default)
 needs a CUDA device per rank and refuses two ranks on one device; ``gloo``
@@ -29,9 +36,12 @@ figure) and a CPU engine can run dp and tp in tests. Rank r runs on
 (``"0,0,0,0"``: four ranks on the first card).
 
 ``TPGroup`` counts what crosses any of its groups (calls, bytes, host
-seconds inside the collectives). On gloo a collective of CUDA tensors waits
-for the device to finish the work queued before it, so its seconds include
-that wait.
+seconds inside the collectives), and the stage relays and hand-overs apart
+as well (``relay_calls``, ``relay_bytes``, ``relay_seconds``). On gloo a
+collective of CUDA tensors waits for the device to finish the work queued
+before it, so its seconds include that wait. The relays are broadcasts over
+a two-rank group, which every backend takes for CUDA tensors (gloo's
+``send``/``recv`` take CPU tensors only), moved as bytes.
 """
 
 from __future__ import annotations
@@ -49,9 +59,13 @@ BACKENDS = ("nccl", "gloo")
 TIMEOUT_S = 300.0
 
 
+_AXES_NAMED = ("pipeline_parallel_size x data_parallel_size x expert_parallel_size x "
+               "tensor_parallel_size")
+
+
 def parse_device_ids(spec: Optional[str], ranks: int) -> Optional[list[int]]:
     """``"0,0"`` -> [0, 0]: one CUDA device index per rank of the engine,
-    dp x ep x tp of them (None: rank r on device r)."""
+    pp x dp x ep x tp of them (None: rank r on device r)."""
     if spec is None or spec == "":
         return None
     try:
@@ -61,7 +75,7 @@ def parse_device_ids(spec: Optional[str], ranks: int) -> Optional[list[int]]:
     if len(ids) != ranks or min(ids) < 0:
         raise ValueError(
             f"tp_device_ids {spec!r} must name one device index >= 0 for each of the engine's {ranks} ranks "
-            "(data_parallel_size x expert_parallel_size x tensor_parallel_size)"
+            f"({_AXES_NAMED})"
         )
     return ids
 
@@ -79,7 +93,7 @@ def rank_devices(device, ranks: int, device_ids: Optional[list[int]] = None) -> 
     n = torch.cuda.device_count()
     if max(ids) >= n:
         raise ValueError(
-            f"{ranks} ranks (data_parallel_size x expert_parallel_size x tensor_parallel_size) need CUDA "
+            f"{ranks} ranks ({_AXES_NAMED}) need CUDA "
             f"devices {sorted(set(ids))}, this machine has {n} devices; ranks may share a card with "
             "--tp-backend gloo --tp-device-ids 0,0"
         )
@@ -102,20 +116,26 @@ def check_backend(backend: str, devices: list[torch.device]) -> None:
         )
 
 
-def device_labels(devices: list[torch.device], dp: int = 1, ep: int = 1) -> list[str]:
+def device_labels(devices: list[torch.device], dp: int = 1, ep: int = 1, pp: int = 1) -> list[str]:
     """One distinct label per rank: ``cuda:0`` for a single rank, else the
     device and the rank (``cuda:0/tp1``; with dp > 1 ``cuda:0/dp1tp0``; with
-    ep > 1 ``cuda:0/dp0ep1tp0``), so ranks on one card stay rows of their
-    own."""
+    ep > 1 ``cuda:0/dp0ep1tp0``; with pp > 1 the stage first,
+    ``cuda:0/pp1tp0``), so ranks on one card stay rows of their own."""
     names = [f"{d.type}:{d.index or 0}" for d in devices]
     if len(devices) == 1:
         return names
-    if dp == 1 and ep == 1:
-        return [f"{name}/tp{r}" for r, name in enumerate(names)]
-    tp = len(devices) // (dp * ep)
-    if ep == 1:
-        return [f"{name}/dp{r // tp}tp{r % tp}" for r, name in enumerate(names)]
-    return [f"{name}/dp{r // (ep * tp)}ep{r // tp % ep}tp{r % tp}" for r, name in enumerate(names)]
+    per = len(devices) // pp  # the ranks of one stage
+    tp = per // (dp * ep)
+
+    def place(r):
+        if dp == 1 and ep == 1:
+            return f"tp{r}"
+        if ep == 1:
+            return f"dp{r // tp}tp{r % tp}"
+        return f"dp{r // (ep * tp)}ep{r // tp % ep}tp{r % tp}"
+
+    stage = (lambda r: f"pp{r // per}") if pp > 1 else (lambda r: "")
+    return [f"{name}/{stage(r)}{place(r % per)}" for r, name in enumerate(names)]
 
 
 class Group:
@@ -130,15 +150,20 @@ class Group:
         self.rank, self.size, self.pg, self.first = rank, size, pg, first
         self._counts = counts
 
-    def _run(self, op, t: torch.Tensor) -> None:
+    def _run(self, op, t: torch.Tensor, relay: bool = False) -> None:
         if self.size == 1:
             return
         t0 = time.perf_counter()
         op(t)
         c = self._counts
-        c.seconds += time.perf_counter() - t0
+        dt = time.perf_counter() - t0
+        c.seconds += dt
         c.calls += 1
         c.bytes += t.nbytes
+        if relay:
+            c.relay_seconds += dt
+            c.relay_calls += 1
+            c.relay_bytes += t.nbytes
 
     def all_reduce(self, t: torch.Tensor) -> None:
         """Sum ``t`` over the group's ranks, in place."""
@@ -152,69 +177,95 @@ class Group:
 
 
 class TPGroup(Group):
-    """This process's rank among the engine's dp x ep x tp ranks: its tp
-    group (``rank``, ``size`` and the collectives the forward runs),
-    ``expert`` (the ep x tp ranks of its dp replica, at rank e * tp + t:
+    """This process's rank among the engine's pp x dp x ep x tp ranks: its
+    tp group (``rank``, ``size`` and the collectives the forward runs),
+    ``expert`` (the ep x tp ranks of its (p, d) place, at rank e * tp + t:
     the MoE layers' all-reduce and the sampled ids' broadcast; it holds
     the rank's place on the ep axis), ``dp`` (the ranks holding the
-    same KV heads at the same e, one per dp replica: the replicas of its
-    pool shard), ``world`` (every rank), the device and label of every
-    rank, and the counts of what crosses any of them (``expert_calls`` and
-    ``expert_bytes`` count the expert group's all-reduces alone)."""
+    same KV heads at the same (p, e), one per dp replica: the replicas of
+    its pool shard), ``stage`` (the pp ranks of its (d, e, t) place, at
+    rank p: the relays between stages), ``world`` (every rank), the device
+    and label of every rank, and the counts of what crosses any of them
+    (``expert_calls`` and ``expert_bytes`` count the expert group's
+    all-reduces alone; ``relay_*`` the stage group's relays and
+    hand-overs)."""
 
     def __init__(self, world_rank: int, dp: int, tp: int, backend: str, devices: list[torch.device],
-                 pgs: tuple = (None, None, None), ep: int = 1):
-        d, rest = divmod(world_rank, ep * tp)
-        e, t = divmod(rest, tp)
+                 pgs: tuple = (None, None, None, None, None), ep: int = 1, pp: int = 1):
+        per = dp * ep * tp  # the ranks of one stage
+        p, rest = divmod(world_rank, per)
+        d, place = divmod(rest, ep * tp)
+        e, t = divmod(place, tp)
         self.calls = 0
         self.bytes = 0
         self.seconds = 0.0
         self.expert_calls = 0
         self.expert_bytes = 0
-        tp_pg, expert_pg, dp_pg = pgs
-        super().__init__(t, tp, tp_pg, (d * ep + e) * tp, self)
-        self.expert = ExpertGroup(rest, ep * tp, expert_pg, d * ep * tp, self, e, ep)
-        self.dp = Group(d, dp, dp_pg, rest, self)
-        self.world = Group(world_rank, dp * ep * tp, None, 0, self)
+        self.relay_calls = 0
+        self.relay_bytes = 0
+        self.relay_seconds = 0.0
+        tp_pg, expert_pg, dp_pg, stage_pg, pair_pgs = pgs
+        super().__init__(t, tp, tp_pg, world_rank - t, self)
+        self.expert = ExpertGroup(place, ep * tp, expert_pg, world_rank - place, self, e, ep)
+        self.dp = Group(d, dp, dp_pg, world_rank - d * ep * tp, self)
+        self.stage = StageGroup(p, pp, stage_pg, rest, self, per, pair_pgs or {})
+        self.world = Group(world_rank, pp * per, None, 0, self)
         self.backend = backend
         self.devices = devices
         self.device = devices[world_rank]
-        self.labels = device_labels(devices, dp, ep)
+        self.labels = device_labels(devices, dp, ep, pp)
 
     @classmethod
     def init(cls, rank: int, dp: int, tp: int, backend: str, devices: list[torch.device], init_method: str,
-             timeout_s: float = TIMEOUT_S, ep: int = 1) -> "TPGroup":
+             timeout_s: float = TIMEOUT_S, ep: int = 1, pp: int = 1) -> "TPGroup":
         """Join the engine's ranks as global ``rank`` (a barrier: returns
         once every rank has joined), after making the rank's device
         current. The world is the process's default ``torch.distributed``
         group, so a process takes part in one engine's ranks at a time.
-        Every rank makes every tp, expert and dp subgroup that is neither
-        the world nor a single rank (nor, at ep = 1, the tp group again), in
-        one order, as ``dist.new_group`` asks, even those it is not in."""
+        Every rank makes every tp, expert, dp and stage subgroup that is
+        neither the world nor a single rank (nor, at ep = 1, the tp group
+        again), then at pp > 2 the two-rank relay group of every pair of
+        neighbouring stages, in one order, as ``dist.new_group`` asks, even
+        those it is not in."""
         check_backend(backend, devices)
         if dist.is_initialized():
             raise RuntimeError("this process is already in a tp group: one tp engine per process at a time")
         if devices[rank].type == "cuda":
             torch.cuda.set_device(devices[rank])
         timeout = datetime.timedelta(seconds=timeout_s)
-        dist.init_process_group(backend, init_method=init_method, world_size=dp * ep * tp, rank=rank,
+        per = dp * ep * tp
+        dist.init_process_group(backend, init_method=init_method, world_size=pp * per, rank=rank,
                                 timeout=timeout)
-        d, rest = divmod(rank, ep * tp)
-        tp_pg = expert_pg = dp_pg = None  # None: the world, or a group of one rank
-        if tp > 1 and dp * ep > 1:  # one per (d, e)
-            tps = [dist.new_group([g * tp + c for c in range(tp)], timeout=timeout) for g in range(dp * ep)]
+        p, rest = divmod(rank, per)
+        place = rest % (ep * tp)
+
+        def new(ranks):
+            return dist.new_group(ranks, timeout=timeout)
+
+        tp_pg = expert_pg = dp_pg = stage_pg = None  # None: the world, or a group of one rank
+        if tp > 1 and pp * dp * ep > 1:  # one per (p, d, e)
+            tps = [new([g * tp + c for c in range(tp)]) for g in range(pp * dp * ep)]
             tp_pg = tps[rank // tp]
-        if ep * tp > 1 and dp > 1:  # one per d; at ep = 1 the tp group
+        if ep * tp > 1 and pp * dp > 1:  # one per (p, d); at ep = 1 the tp group
             if ep == 1:
                 expert_pg = tp_pg
             else:
-                experts = [dist.new_group([g * ep * tp + c for c in range(ep * tp)], timeout=timeout)
-                           for g in range(dp)]
-                expert_pg = experts[d]
-        if dp > 1 and ep * tp > 1:  # one per (e, t)
-            dps = [dist.new_group([g * ep * tp + c for g in range(dp)], timeout=timeout) for c in range(ep * tp)]
-            dp_pg = dps[rest]
-        return cls(rank, dp, tp, backend, devices, (tp_pg, expert_pg, dp_pg), ep=ep)
+                experts = [new([g * ep * tp + c for c in range(ep * tp)]) for g in range(pp * dp)]
+                expert_pg = experts[rank // (ep * tp)]
+        if dp > 1 and pp * ep * tp > 1:  # one per (p, e, t)
+            dps = [new([q * per + g * ep * tp + c for g in range(dp)]) for q in range(pp) for c in range(ep * tp)]
+            dp_pg = dps[p * ep * tp + place]
+        if pp > 1 and per > 1:  # one per (d, e, t)
+            stages = [new([q * per + c for q in range(pp)]) for c in range(per)]
+            stage_pg = stages[rest]
+        pairs = {0: stage_pg} if pp == 2 else {}
+        if pp > 2:  # stages q and q + 1 of each (d, e, t)
+            for c in range(per):
+                for q in range(pp - 1):
+                    pg = new([q * per + c, (q + 1) * per + c])
+                    if c == rest:
+                        pairs[q] = pg
+        return cls(rank, dp, tp, backend, devices, (tp_pg, expert_pg, dp_pg, stage_pg, pairs), ep=ep, pp=pp)
 
     def close(self) -> None:
         if dist.is_initialized():
@@ -226,6 +277,7 @@ class TPGroup(Group):
     def reset_stats(self) -> None:
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
         self.expert_calls = self.expert_bytes = 0
+        self.relay_calls, self.relay_bytes, self.relay_seconds = 0, 0, 0.0
 
 
 class ExpertGroup(Group):
@@ -243,3 +295,40 @@ class ExpertGroup(Group):
         if self.size > 1:
             self._counts.expert_calls += 1
             self._counts.expert_bytes += t.nbytes
+
+
+class StageGroup(Group):
+    """The pp ranks of one (d, e, t) place, stage ``rank`` of ``size``: the
+    pipeline's relays (parallel/pipeline.py). Stage q's rank is q *
+    ``stride`` + the place's offset; ``pairs[q]`` is the group of stages q
+    and q + 1 this rank is in (the stage group itself at pp = 2). Every
+    relay and hand-over moves the tensor's bytes (a broadcast of uint8,
+    which every backend takes, exact) and adds to the ``relay_*`` counts as
+    well as to the collective counts."""
+
+    def __init__(self, rank: int, size: int, pg, first: int, counts: "TPGroup", stride: int, pairs: dict):
+        super().__init__(rank, size, pg, first, counts)
+        self.stride, self.pairs = stride, pairs
+
+    def _global(self, q: int) -> int:
+        return self.first + q * self.stride
+
+    def _bcast(self, t: torch.Tensor, src_stage: int, pg) -> None:
+        raw = t.view(torch.uint8)
+        self._run(lambda x: dist.broadcast(x, src=self._global(src_stage), group=pg), raw, relay=True)
+
+    def send_next(self, x: torch.Tensor) -> None:
+        """Hand ``x`` (contiguous) to stage rank + 1; waits for it to take it."""
+        self._bcast(x, self.rank, self.pairs[self.rank])
+
+    def recv_prev(self, buf: torch.Tensor) -> torch.Tensor:
+        """Stage rank - 1's ``send_next``, into ``buf`` (contiguous, its shape
+        and dtype); returns ``buf``."""
+        self._bcast(buf, self.rank - 1, self.pairs[self.rank - 1])
+        return buf
+
+    def broadcast_from_last(self, t: torch.Tensor) -> torch.Tensor:
+        """The last stage's ``t`` on every stage, in place (the JAX
+        pipeline's closing ``psum`` of the last stage's outputs)."""
+        self._bcast(t, self.size - 1, self.pg)
+        return t

@@ -32,6 +32,15 @@ Rank r's part of a split axis is its r-th contiguous slice. With ``group``
 None (tp = 1) every function here is the identity, so the tp = 1 path runs
 exactly the code it ran before.
 
+The layer axis splits over pp (parallel/pipeline.py, the JAX
+``param_specs_for(pp=True)``: ``P("pp", ...)`` on every layer-stacked
+leaf): stage p holds layers [p * L/pp, (p + 1) * L/pp), which it names
+``layers.0`` ... ``layers.{L/pp - 1}``; the embedding, the final norm and
+the head are every stage's. ``shard_params`` and ``init_sharded_`` take
+the stage (``stage``, a parallel/group.StageGroup or None); a per-layer
+tensor itself has no layer axis here, so ``shard_shape`` and ``shard`` are
+the same at every stage.
+
 The gathers (``gather_vocab``, ``gather_split``, ``gather_param``) are all-reduces over a
 zero-filled full tensor that each rank fills at its own slice, summed as
 int32 words: a sum of one value and zeros, exact to the bit, through the one
@@ -140,11 +149,20 @@ def shard(t: torch.Tensor, name: str, rank: int, tp: int, e: int = 0, ep: int = 
     return t
 
 
-def shard_params(params: dict[str, torch.Tensor], rank: int, tp: int, e: int = 0, ep: int = 1
+def shard_params(params: dict[str, torch.Tensor], rank: int, tp: int, e: int = 0, ep: int = 1, stage=None
                  ) -> dict[str, torch.Tensor]:
     """Rank (e, ``rank``) of (ep, ``tp``)'s parameter dict from a whole one
-    (a ``params_from_jax`` dict, say), every bit kept."""
-    return {name: shard(t, name, rank, tp, e, ep).contiguous() for name, t in params.items()}
+    (a ``params_from_jax`` dict, say), every bit kept; with ``stage`` (pp >
+    1) only the stage's layers, under the stage's names."""
+    from production_stack_tpu_torch.parallel.pipeline import local_name  # pipeline imports this module
+
+    L = 1 + max((int(n.split(".")[1]) for n in params if n.startswith("layers.")), default=-1)
+    out = {}
+    for name, t in params.items():
+        own = local_name(name, L, stage)
+        if own is not None:
+            out[own] = shard(t, name, rank, tp, e, ep).contiguous()
+    return out
 
 
 def check_tp(cfg, tp: int) -> None:
@@ -175,16 +193,35 @@ def expert_place(experts) -> tuple[int, int]:
 
 
 def init_sharded_(model, init_leaf) -> None:
-    """Seeded weights that make the same model at every (ep, tp): for each
-    parameter of ``model`` (whose ``tp`` is its tp group and ``experts``,
-    where it has one, its expert group; each None when not split), in
-    order, ``init_leaf(name, whole_shape)`` gives the whole tensor, of
-    which the rank keeps its part; one whole tensor exists at a time."""
+    """Seeded weights that make the same model at every (pp, ep, tp): for
+    each parameter of the whole model, in the order of a one-stage
+    ``model.named_parameters()`` (``model.tp`` is its tp group,
+    ``experts`` and ``stage``, where it has them, its expert and stage
+    groups; each None when not split), ``init_leaf(name, whole_shape)``
+    gives the whole tensor, of which the rank keeps its part: a stage draws
+    the other stages' layers too, and drops them. One whole tensor exists
+    at a time."""
+    from production_stack_tpu_torch.parallel.pipeline import local_name, stage_place  # pipeline imports this module
+
     n, r = size_rank(model.tp)
     m, e = expert_place(getattr(model, "experts", None))
-    for name, p in model.named_parameters():
+    stage = getattr(model, "stage", None)
+    own = dict(model.named_parameters())
+    names = list(own)
+    if stage_place(stage)[0] > 1:
+        # the stage's layer block in named_parameters' order, widened to
+        # every layer of the model
+        layer = [nm for nm in names if nm.startswith("layers.")]
+        leaves = [nm.split(".", 2)[2] for nm in layer if nm.startswith("layers.0.")]
+        at = names.index(layer[0])
+        rest = [nm for nm in names if not nm.startswith("layers.")]
+        names = rest[:at] + [f"layers.{i}.{leaf}" for i in range(model.cfg.num_layers) for leaf in leaves] + rest[at:]
+    for name in names:
+        held = local_name(name, model.cfg.num_layers, stage)
+        p = own[held] if held is not None else own["layers.0." + name.split(".", 2)[2]]
         whole = init_leaf(name, full_shape(name, p.shape, n, m))
-        p.copy_(shard(whole, name, r, n, e, m))
+        if held is not None:
+            p.copy_(shard(whole, name, r, n, e, m))
 
 
 # -- collectives (the identity at tp = 1) ---------------------------------------

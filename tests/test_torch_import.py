@@ -121,16 +121,17 @@ def test_runner_resolves_attention_by_device():
 
 
 _REFUSED = [
-    # tensor, in-engine data and expert parallelism are served; what they
-    # lack, LoRA across the ranks, is refused (KH % tp != 0 and an ep that
-    # does not divide the experts are refused by the engine, which reads the
-    # model: tests/test_torch_tp.py, tests/test_torch_ep.py). Speculative
-    # decoding is served; with int8 pools it is refused in the JAX engine's
-    # words
+    # tensor, in-engine data, expert and pipeline parallelism are served;
+    # what they lack, LoRA across the ranks, is refused (KH % tp != 0, an ep
+    # that does not divide the experts and a pp that does not divide the
+    # layers are refused by the engine, which reads the model:
+    # tests/test_torch_tp.py, tests/test_torch_ep.py, tests/test_torch_pp.py).
+    # Speculative decoding is served; with int8 pools it is refused in the
+    # JAX engine's words
     ("tensor_parallel_size", 2, {"enable_lora": True}),
     ("data_parallel_size", 2, {"enable_lora": True}),
     ("sequence_parallel_size", 2, {}),
-    ("pipeline_parallel_size", 2, {}),
+    ("pipeline_parallel_size", 2, {"enable_lora": True}),
     ("expert_parallel_size", 2, {"enable_lora": True}),
     ("speculative_k", 4, {"kv_cache_dtype": "int8"}),
     # disaggregated prefill and the fabric are served; the device path is
