@@ -41,7 +41,9 @@ non-zero exit (nothing is caught):
                at tp 2 and 4, qwen2.5-7b, gemma-2-2b and opt-125m at tp
                2), the decode through decode_attention_sharded, and the
                pipeline stages' (one 8-row microbatch on a stage's
-               8-layer pool, llama-3.2-1b at pp 2 and pp 2 x tp 2).
+               8-layer pool, llama-3.2-1b at pp 2 and pp 2 x tp 2) and the
+               sequence ranks' (one row of 8,223 on llama-3.2-1b's pool, at
+               sp 2 and sp 2 x tp 2).
 3. forward  -- llama-3.2-1b (two 512-token chunks) and gemma-2-2b (nine,
                past its 4,096 window) at full width and depth (bf16,
                seeded random weights), then one 8-step decode burst, with
@@ -264,13 +266,13 @@ non-zero exit (nothing is caught):
                "dp_ranks" lines give each rank's device bytes, collective
                share, expert all-reduces and launches.
 5i. pp     -- after the dp runs, while qwen2.5-7b's directory exists:
-               llama-3.2-1b at full width and depth (16 layers, 8 a
-               stage) at pp 2 and at pp 2 x tp 2, every rank a gloo
+               RANK_LLAMA (llama-3.2-1b at full width, 4 of its 16 layers,
+               2 a stage) at pp 2 and at pp 2 x tp 2, every rank a gloo
                process on the one card: each engine's logits of the tp
-               forward's steps against one rank's ("pp_forward",
-               FORWARD_LOGIT_BOUND and FORWARD_TOP1_MIN), a 32-row decode
-               step whose decode launches every stage counts (4
-               microbatches x 8 layers: "pp_step"), then served over HTTP;
+               forward's steps against the tp phase's one rank
+               ("pp_forward", FORWARD_LOGIT_BOUND and FORWARD_TOP1_MIN), a
+               32-row decode step whose decode launches every stage counts
+               (4 microbatches x 2 layers: "pp_step"), then served over HTTP;
                the f32 copy of RANK_LLAMA's greedy tokens at pp 2 against
                pp 1 ("pp_f32_tokens"); qwen2.5-7b from its directory at pp
                2, each stage's bytes read equal to its 14 layers and the
@@ -279,6 +281,23 @@ non-zero exit (nothing is caught):
                Every stage rank launched both kernels and no plain
                version; "pp_ranks" lines give each rank's device bytes,
                relays (calls, bytes, seconds) and collective share.
+5j. sp     -- after the pp runs: llama-3.2-1b at full width and depth,
+               max_model_len 16,384 and prefill_chunk 2,048, at sp 2 and
+               at sp 2 x tp 2, every rank a gloo process on the one card:
+               each engine's logits of an 8,191-token row in four chunks
+               (the last of 2,047, padded to a multiple of sp) and 32
+               teacher-forced decode steps against one rank's
+               ("sp_forward", FORWARD_LOGIT_BOUND and FORWARD_TOP1_MIN),
+               with what every rank moved in those steps ("sp_costs": the
+               ring's calls, bytes and seconds, the collectives' share,
+               device bytes); then served over HTTP, the 8,191-token
+               prompt for 32 greedy tokens beside a streamed completion
+               and a chat: every sequence rank launched the decode kernel
+               and neither the prefill kernel (a chunk goes through the
+               ring) nor a plain version, the sequence ranks of each tp
+               place hold byte-identical pools ("sp_ranks" lines); the f32
+               copy of RANK_LLAMA's greedy tokens at sp 2 against one
+               rank's ("sp_f32_tokens").
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -297,7 +316,9 @@ non-zero exit (nothing is caught):
                the ep 2 x tp 2 rank's decode and prefill ([ep2tp2]); a
                pipeline stage's decode of one 8-row microbatch and its
                prefill chunk on its 8-layer pool, at pp 2 and pp 2 x tp 2
-               ([pp2], [pp2tp2]); the prefill
+               ([pp2], [pp2tp2]); a sequence rank's decode of the long
+               prompt's last step, at sp 2 and sp 2 x tp 2 ([sp2],
+               [sp2tp2]); the prefill
                kernel at step_spec's verify shape (T = 5: llama-3.2-1b's
                32 x 1,024, the [verify] row; gemma-2-2b's 8 x 4,096 on a
                sliding and a global layer, as lines of their own).
@@ -310,7 +331,9 @@ and its int8 kernel forward for its int8 rows, which no server runs; the
 x tp 2 int8 server's four ranks; the [dp2] row from the dp 2 server's two
 ranks; the [d128,dp2] row from the dp 2 mixtral server's two ranks; the
 [ep2tp2] rows from mixtral's ep 2 x tp 2 server's four ranks; the [pp2]
-and [pp2tp2] rows from llama-3.2-1b's pp 2 and pp 2 x tp 2 servers' ranks
+and [pp2tp2] rows from RANK_LLAMA's pp 2 and pp 2 x tp 2 servers' ranks;
+the [sp2] and [sp2tp2] rows from llama-3.2-1b's sp 2 and sp 2 x tp 2
+servers' ranks
 (qwen2.5-7b's pp 2 server books to the [d128] rows, every stage's chunk
 writes to the kv_page_write rows of its heads); the
 [verify] row from the spec server's verify rounds, L a round;
@@ -420,6 +443,16 @@ def _pptag(name: str, pp: int, tp: int) -> str:
     return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
 
 
+def _sptag(name: str, sp: int, tp: int) -> str:
+    """A kernel row's name at a sequence-parallel rank (sp 1 keeps the
+    name): decode_attention at sp 2 -> decode_attention[sp2], at sp 2 x tp 2
+    -> decode_attention[sp2tp2]."""
+    if sp == 1:
+        return name
+    tag = f"sp{sp}" + (f"tp{tp}" if tp > 1 else "")
+    return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
+
+
 def _dptag(name: str, dp: int) -> str:
     """A kernel row's name at a dp rank's rows (dp 1 keeps the name):
     decode_attention at dp 2 -> decode_attention[dp2]."""
@@ -472,6 +505,15 @@ PP_ROWS = {_pptag(k, 2, tp): (k, tp) for tp in (1, 2) for k in ("decode_attentio
 for _row, (_base, _) in PP_ROWS.items():
     REPLACES[_row] = SHARDED_DECODE if _base.startswith("decode") else _BASE_REPLACES[_base]
     SOURCES[_row] = _BASE_SOURCES[_base]
+# llama-3.2-1b's sequence-parallel ranks (phase_sp_ranks): each rank's
+# decode, the sharded decode on its sp mapping (every sequence rank runs the
+# whole step on its tp place's heads over its replica of the pool), at sp 2
+# (all heads) and sp 2 x tp 2; the sp servers' decode launches. A chunk at
+# sp goes through the ring, no kernel, as in the JAX forward
+SP_ROWS = {_sptag("decode_attention", 2, tp): tp for tp in (1, 2)}
+for _row in SP_ROWS:
+    REPLACES[_row] = SHARDED_DECODE
+    SOURCES[_row] = _BASE_SOURCES["decode_attention"]
 
 
 def emit(obj: dict) -> None:
@@ -748,6 +790,17 @@ PP_DECODE = "pp2_llama_mb8_ctx1024_stage_l8_bf16"
 PP_TP_DECODE = "pp2tp2_llama_mb8_ctx1024_stage_l8_bf16"
 PP_PREFILL = "pp2_llama_t512_h1536_stage_l8_bf16"
 PP_TP_PREFILL = "pp2tp2_llama_t512_h1536_stage_l8_bf16"
+# a sequence rank's decode after the sp phase's 8,191-token prompt: one row
+# of 8,223 tokens (its last decode step), the burst window of 8, on
+# llama-3.2-1b's 16-layer pool, at sp 2 (all heads) and sp 2 x tp 2 (the tp
+# place's 16 query and 4 KV heads). Like the 1 x 8,192 case they have no
+# one-key-fewer control: one key of 8,223 moves the output by less than
+# the bound
+SP_LLAMA = dict(NH=32, KH=8, D=64, sp=2)
+SP_TP_LLAMA = dict(NH=16, KH=4, D=64, tp=2, sp=2)
+SP_DECODE = "sp2_llama_b1_ctx8223_c8_bf16"
+SP_TP_DECODE = "sp2tp2_llama_b1_ctx8223_c8_bf16"
+SP_CASES = {1: SP_DECODE, 2: SP_TP_DECODE}
 PP_CASES = {(1, "decode_attention"): PP_DECODE, (2, "decode_attention"): PP_TP_DECODE,
             (1, "prefill_attention"): PP_PREFILL, (2, "prefill_attention"): PP_TP_PREFILL}
 # step_spec's verify forward: the prefill kernel at T = 1 + k = 5 (k = 4)
@@ -935,6 +988,18 @@ DECODE_CASES += [
                                                            lens=[0, 30, 1500, 900], C=1, cur_lens=[0, 1, 1, 1],
                                                            poison=True, dtype="bfloat16")),
 ]
+# the sequence ranks' decode (bf16 pools only: int8 pools are refused at
+# sp): the long prompt's last decode step (the timing phase's inputs), and
+# ragged burst rows with an empty one and NaN past each row's history
+DECODE_CASES += [
+    (SP_DECODE, dict(SP_LLAMA, seed=40, B=1, page=64, maxp=129, L=16, layer=11, lens=[8223], C=8, cur_lens=[8],
+                     dtype="bfloat16")),
+    (SP_TP_DECODE, dict(SP_TP_LLAMA, seed=41, B=1, page=64, maxp=129, L=16, layer=11, lens=[8223], C=8,
+                        cur_lens=[8], dtype="bfloat16")),
+    ("sp2tp2_llama_ragged_burst_nan_bf16", dict(SP_TP_LLAMA, B=4, page=64, maxp=24, L=2, layer=1,
+                                                lens=[0, 30, 1500, 900], C=8, cur_lens=[0, 3, 5, 8], poison=True,
+                                                dtype="bfloat16")),
+]
 
 PREFILL_CASES = [
     ("history+unaligned+tail_bf16", dict(B=3, T=64, NH=32, KH=8, D=64, page=16, maxp=10, L=2, layer=1,
@@ -1117,8 +1182,11 @@ WRITE_CASES += [
 ]
 
 
-def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1, ep: int = 1, pp: int = 1) -> str:
+def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1, ep: int = 1, pp: int = 1,
+                 sp: int = 1) -> str:
     name = _dtag(base + "[int8]" if quant else base, D)
+    if sp > 1:
+        return _sptag(name, sp, tp)
     if pp > 1:
         return _pptag(name, pp, tp)
     return _dptag(_eptag(name, ep, tp) if ep > 1 else _tptag(name, tp), dp)
@@ -1175,9 +1243,11 @@ def phase_kernels():
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
         seed = kw.pop("seed", 1)
         tp, dp, ep, pp = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1), kw.pop("pp", 1)
-        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp, ep, pp)
+        sp = kw.pop("sp", 1)
+        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp, ep, pp, sp)
         args, call_kw = decode_case(seed, **kw)
-        if tp > 1 or dp > 1 or ep > 1 or pp > 1:  # a (pp, dp, ep, tp) rank's decode, as models/paged_step.py calls it
+        if tp > 1 or dp > 1 or ep > 1 or pp > 1 or sp > 1:
+            # a (pp, dp, sp, ep, tp) rank's decode, as models/paged_step.py calls it
             kern = lambda *a, **k: decode_attention_sharded(*a, tp=tp, **k)  # noqa: E731
             plain = lambda *a, **k: decode_attention_sharded(*a, tp=tp, plain=True, **k)  # noqa: E731
         else:
@@ -2093,18 +2163,24 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     checked (``_surface``), ending in a sleep at that level and a wake.
     With ``lora`` = (adapters, full) the LoRA routes run on the main path
     too (``_lora_requests``). With ``tensor_parallel_size`` tp,
-    ``expert_parallel_size`` ep or ``data_parallel_size`` dp > 1 the engine
-    runs dp x ep x tp processes (the followers it starts; with
-    ``pipeline_parallel_size`` pp, pp x tp), the counts are read from every
-    rank (runner.rank_stats) and each rank must have launched each kernel
-    of its mode; a "tp_ranks" (with dp > 1 "dp_ranks", with ep > 1
-    "ep_ranks", with pp > 1 "pp_ranks") line gives each rank's device bytes
+    ``expert_parallel_size`` ep, ``data_parallel_size`` dp or
+    ``sequence_parallel_size`` sp > 1 the engine runs dp x sp x ep x tp
+    processes (the followers it starts; with ``pipeline_parallel_size`` pp,
+    pp x tp), the counts are read from every rank (runner.rank_stats) and
+    each rank must have launched each kernel of its mode; a "tp_ranks"
+    (with dp > 1 "dp_ranks", with ep > 1 "ep_ranks", with pp > 1
+    "pp_ranks", with sp > 1 "sp_ranks") line gives each rank's device bytes
     allocated, step and collective seconds and bytes (and the collectives'
-    share of the step), its expert group's all-reduces, its stage relays
-    (calls, bytes, seconds and their share of the step), the bytes its
-    model read from a directory and its launches. With dp or
-    ep > 1 every dp and ep replica of a KV-head shard must hold the same
-    pools and scales after the main path (runner.replica_digest). ``prepare(engine)``, when given, runs on
+    share of the step), its expert group's all-reduces, its stage relays and
+    its sequence group's ring (calls, bytes, seconds and their share of the
+    step), the bytes its model read from a directory and its launches. With
+    dp, sp or ep > 1 every dp, sp and ep replica of a KV-head shard must
+    hold the same pools and scales after the main path
+    (runner.replica_digest). With sp > 1 the first concurrent prompt is
+    SP_PROMPT tokens long, each chunk goes through the ring (no rank may
+    launch the prefill kernel or the paged-KV write, and every rank's
+    sequence group must have carried the chunks' K/V), and /stats and
+    /metrics must count every rank. ``prepare(engine)``, when given, runs on
     the engine's loop thread before the main path (its launches are not
     counted). ``extra(server, port)``, when given, is a coroutine of more
     requests run at the end of the main path (its launches counted), whose
@@ -2129,9 +2205,12 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     gemma = label.startswith("gemma")
     cfg = EngineConfig(host="127.0.0.1", port=port, enable_sleep_mode=sleep_level > 0, **overrides)
     tp, dp, ep = cfg.tensor_parallel_size, cfg.data_parallel_size, cfg.expert_parallel_size
-    pp = cfg.pipeline_parallel_size
+    pp, sp = cfg.pipeline_parallel_size, cfg.sequence_parallel_size
     spec = cfg.speculative_k > 0
-    ranks = pp * dp * ep * tp
+    ranks = pp * dp * sp * ep * tp
+    # at sp a chunk goes through the ring: the decode kernel is a rank's only one
+    want = ("decode_attention",) if sp > 1 else SERVE_ROWS[quant]
+    long_prompt = GEMMA_LONG_PROMPT if gemma else SP_PROMPT - 1 if sp > 1 else 0
     kernels, plains = _counters()
     series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
 
@@ -2152,12 +2231,14 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             server.engine.spec_verify_forwards = 0
             steps0 = server.engine.runner.steps
             t0 = time.perf_counter()
-            res, repeat, first = await _serve_requests(port, series, GEMMA_LONG_PROMPT if gemma else 0,
+            res, repeat, first = await _serve_requests(port, series, long_prompt,
                                                        repeat_logprobs=not label.startswith("llama"))
             if lora:
                 res["lora"] = await _lora_requests(server, port, *lora)
             if extra is not None:
                 res["extra"] = await extra(server, port)
+            if sp > 1:
+                res["mesh"] = await _mesh_rows(port, ranks)
             res["seconds"] = round(time.perf_counter() - t0, 3)
             res["runner_steps"] = server.engine.runner.steps - steps0
             res["verify_forwards"] = server.engine.spec_verify_forwards
@@ -2170,14 +2251,16 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
                     {"rank": i, "device": dev,
                      **{k: r[k] for k in ("device_bytes", "step_seconds", "steps", "collective_calls",
                                           "collective_bytes", "collective_seconds", "expert_calls", "expert_bytes",
-                                          "relay_calls", "relay_bytes", "relay_seconds", "loaded_bytes")},
+                                          "relay_calls", "relay_bytes", "relay_seconds", "ring_calls",
+                                          "ring_bytes", "ring_seconds", "loaded_bytes")},
                      "collective_share_of_step": r["collective_seconds"] / max(r["step_seconds"], 1e-9),
                      "relay_share_of_step": r["relay_seconds"] / max(r["step_seconds"], 1e-9),
+                     "ring_share_of_step": r["ring_seconds"] / max(r["step_seconds"], 1e-9),
                      "launches": res["launches_by_rank"][i]}
                     for i, (r, (dev, _)) in enumerate(zip(rows, server.engine.runner.kv_pool_shard_layout()))
                 ]
-            if dp * ep > 1:
-                # the ranks of one tp place t, r = (d * ep + e) * tp + t
+            if dp * sp * ep > 1:
+                # the ranks of one tp place t, r = ((d * sp + s) * ep + e) * tp + t
                 digests = [bytes(d).hex() for d in server.engine.runner.replica_digest()]
                 res["replica_digests"] = [h[:16] for h in digests]
                 res["replica_digests_equal"] = all(
@@ -2218,15 +2301,23 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     if ranks > 1:
         # functional numbers of ranks over gloo, which stages every CUDA
         # collective through the host; no NCCL dp or tp speed figure
-        emit({"phase": "pp_ranks" if pp > 1 else "ep_ranks" if ep > 1 else "dp_ranks" if dp > 1 else "tp_ranks",
-              "model": label, "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)", "pp": pp, "dp": dp, "ep": ep,
-              "tp": tp,
+        emit({"phase": "pp_ranks" if pp > 1 else "sp_ranks" if sp > 1 else "ep_ranks" if ep > 1
+              else "dp_ranks" if dp > 1 else "tp_ranks",
+              "model": label, "backend": f"{cfg.tp_backend} (host-staged CUDA tensors)", "pp": pp, "dp": dp, "sp": sp,
+              "ep": ep, "tp": tp,
               "ranks": tp_ranks, "main_path_seconds": res["seconds"], "card": nvidia_smi_line()})
         for r, counts in enumerate(res["launches_by_rank"]):
-            for k in SERVE_ROWS[quant]:
+            for k in want:
                 check(counts[k] > 0, f"{what}: kernel {k} was not launched on rank {r}")
-    if dp * ep > 1:
-        check(res["replica_digests_equal"], f"{what}: the dp or ep replicas' pools differ: {res['replica_digests']}")
+    if dp * sp * ep > 1:
+        check(res["replica_digests_equal"],
+              f"{what}: the dp, sp or ep replicas' pools differ: {res['replica_digests']}")
+    if sp > 1:
+        for r, (counts, row) in enumerate(zip(res["launches_by_rank"], tp_ranks)):
+            others = {k: n for k, n in counts.items() if k not in want and n}
+            check(not others, f"{what}: rank {r} launched {others} (a chunk at sp goes through the ring)")
+            check(row["ring_calls"] > 0, f"{what}: rank {r} moved nothing over its sequence group")
+        check(SP_PROMPT in res["prompt_tokens"], f"{what}: no prompt of {SP_PROMPT} tokens ran")
     if gemma:
         check(max(res["prompt_tokens"]) > GEMMA_WINDOW, f"{what}: no prompt ran past the sliding window")
     if spec:
@@ -2241,7 +2332,7 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
               f"{what}: a spec server ran the decode kernel {res['launches']['decode_attention']} times")
         check(n >= L * rounds + L and n == L * (prefill_steps + rounds),
               f"{what}: {n} prefill launches for {rounds} verify rounds and {prefill_steps} prefill steps of {L} layers")
-    for k in SERVE_ROWS[quant]:
+    for k in want:
         if spec and k == "decode_attention":
             continue  # checked to be 0 above
         check(res["launches"][k] > 0, f"{what}: kernel {k} was not launched on the main path")
@@ -2649,11 +2740,13 @@ def phase_tp_reference(model: str = RANK_LLAMA, rows: int = 2, prepare=None) -> 
         torch.cuda.empty_cache()
 
 
-def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, model: str = RANK_LLAMA):
+def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, model: str = RANK_LLAMA,
+                  logits_fn=None, steps=None):
     """``run(engine)``: the engine's logits of _tp_inputs (``rows`` rows) at
     ``mesh`` ({"tp": 2} or {"dp": 2}) against one rank's (``ref``) within the
     forward phases' bar, the flips printed with the reference's top-2
-    margin. With ``picks`` (a MoE reference's routes, _moe_reference) every
+    margin. ``logits_fn(engine)`` and ``steps`` (their description) take the
+    place of _tp_inputs' steps. With ``picks`` (a MoE reference's routes, _moe_reference) every
     rank's routers take the experts the one rank took (runner.replay_routes,
     a replicated call: no token routed apart by a near-tie, PR 10's rule),
     and the line counts the (layer, token) pairs of the leader's rows where
@@ -2664,7 +2757,9 @@ def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, 
 
     def run(engine):
         tape = None
-        if picks is None:
+        if logits_fn is not None:
+            got = logits_fn(engine)
+        elif picks is None:
             got = _tp_logits(engine, rows)
         else:
             engine.runner.replay_routes(picks)
@@ -2681,7 +2776,8 @@ def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, 
                 top = b[r].topk(2).values
                 flips.append({"step": s, "row": r, "reference_top2_margin": float(top[0] - top[1])})
         line = {"phase": phase, "model": model, **mesh, "against": f"{against}, same run",
-                "steps": [f"prefill {rows} x 512 (x{TP_FORWARD_CHUNKS})", f"decode {rows} x 1 (x{TP_FORWARD_DECODES})"],
+                "steps": steps or [f"prefill {rows} x 512 (x{TP_FORWARD_CHUNKS})",
+                                   f"decode {rows} x 1 (x{TP_FORWARD_DECODES})"],
                 "max_logit_diff_per_step": diffs, "argmax_flips": flips,
                 "bound": FORWARD_LOGIT_BOUND, "top1_agreement": top1, "top1_min": FORWARD_TOP1_MIN,
                 "finite": all(bool(torch.isfinite(x).all()) for x in got),
@@ -2767,7 +2863,7 @@ def phase_dp_forward(ref: list) -> None:
 def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool) -> None:
     """An f32 copy of RANK_LLAMA (its preset at float32, added here; the
     leader hands the config to its followers): greedy tokens through the
-    engine at ``overrides`` (tp 2, dp 2 or pp 2) against one rank's for
+    engine at ``overrides`` (tp 2, dp 2, pp 2 or sp 2) against one rank's for
     TP_F32_TOKENS tokens, ``n_prompts`` prompts, one after another or, with
     ``together``, queued at once (``_together``: at dp 2 both dp groups
     hold rows). A token that differs must sit where the reference's two
@@ -2819,7 +2915,7 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
             flips.append({"prompt": i, "token": j, "reference_top2_margin": top[0] - top[1],
                           "logprob_diff": abs(lp1[j]["logprob"] - lp2[j]["logprob"])})
     mesh = {k: overrides.get(f, 1) for k, f in (("pp", "pipeline_parallel_size"), ("dp", "data_parallel_size"),
-                                                ("tp", "tensor_parallel_size"))}
+                                                ("sp", "sequence_parallel_size"), ("tp", "tensor_parallel_size"))}
     line = {"phase": phase, "model": name, **mesh, "tokens_per_prompt": TP_F32_TOKENS,
             "prompts": len(prompts), "concurrent": together, "tokens_equal_before_a_flip": same, "flips": flips,
             "near_tie": TP_NEAR_TIE, "logprob_max_diff_before_a_flip": max(diffs, default=0.0),
@@ -2831,7 +2927,11 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
     for f in flips:
         check(f["reference_top2_margin"] <= TP_NEAR_TIE, f"{phase}: a token flipped away from a near-tie: {f}")
     for r, counts in enumerate(line["launches_by_rank"]):
-        check(all(n > 0 for n in counts.values()), f"{phase}: rank {r} launched {counts}")
+        # at sp a chunk goes through the ring: no prefill kernel, no write
+        want = {k: n for k, n in counts.items() if mesh["sp"] == 1 or k == "decode_attention"}
+        check(all(n > 0 for n in want.values()), f"{phase}: rank {r} launched {counts}")
+        check(mesh["sp"] == 1 or counts["prefill_attention"] == counts["kv_page_write"] == 0,
+              f"{phase}: a sequence rank ran the prefill kernel: {counts}")
 
 
 def _tp_qwen_slices(seed: int = 0):
@@ -2905,7 +3005,7 @@ def _decode_timing(case_name: str, quant: bool) -> dict:
 
     bf16 = torch.bfloat16
     case = dict(dict(DECODE_CASES)[case_name], dtype=bf16, quant=quant)
-    for k in ("tp", "dp", "ep", "pp"):  # a rank's shapes: the same kernel on its rows and heads
+    for k in ("tp", "dp", "ep", "pp", "sp"):  # a rank's shapes: the same kernel on its rows and heads
         case.pop(k, None)
     B, NH, KH, D, page, maxp = (case[k] for k in ("B", "NH", "KH", "D", "page", "maxp"))
     lens, C, cur = case["lens"], case["C"], case["cur_lens"]
@@ -3078,6 +3178,10 @@ def phase_timing() -> dict:
     for row, (base, tp) in PP_ROWS.items():
         case = PP_CASES[(tp, base)]
         rows[row] = _decode_timing(case, False) if base.startswith("decode") else _prefill_timing(case, False)[0]
+    # llama-3.2-1b's sequence ranks: the long prompt's last decode step on
+    # the rank's replica of the pool, all heads (sp 2) or the tp place's
+    for row, tp in SP_ROWS.items():
+        rows[row] = _decode_timing(SP_CASES[tp], False)
     # step_spec's verify forward (llama-3.2-1b's heads; gemma-2-2b's below)
     row, fused = _prefill_timing(VERIFY_LLAMA, False)
     rows[VERIFY_ROW] = dict(row, fused_ms=fused["fused_ms"])
@@ -3433,7 +3537,7 @@ QWEN_PP_SAMPLES = QWEN_SAMPLES + (
 def _pp_step_launches(engine) -> dict:
     """One decode step of PP_STEP_ROWS rows on fresh pools through every
     stage: each stage's decode launches, which must be microbatches x its
-    layers (4 x 8 for llama-3.2-1b at pp 2, where pp 1 launches 16)."""
+    layers (4 x 2 for RANK_LLAMA at pp 2, where pp 1 launches 4)."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.runner import StepInput
@@ -3500,37 +3604,182 @@ def _pp_qwen_reads(seed: int = 0):
     return run
 
 
-def phase_pp_ranks(serve) -> None:
+def phase_pp_ranks(serve, ref: list) -> None:
     """Pipeline parallelism on the one card, while qwen2.5-7b's directory
-    exists: llama-3.2-1b at full width and depth (16 layers, 8 a stage)
-    held to one rank's logits ("pp_forward": the tp forward's steps,
-    FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN) and served at pp 2 and pp 2 x
-    tp 2, each with a 32-row decode step whose launches every stage counts
-    ("pp_step"); the f32 copy of RANK_LLAMA's greedy tokens at pp 2
-    against pp 1 ("pp_f32_tokens"); qwen2.5-7b from its directory at pp 2,
-    each stage reading only its 14 layers ("pp_hf_load"). ``serve`` is
-    main's: it checks every rank's launches and the plain versions, and
-    books the [pp2] and [pp2tp2] rows' launches; its "pp_ranks" lines give
-    each rank's device bytes, relays and collective share."""
+    exists: RANK_LLAMA (llama-3.2-1b at full width, RANK_LAYERS layers)
+    held to one rank's logits (``ref``, the tp phase's: "pp_forward": the
+    tp forward's steps, FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN) and served
+    at pp 2 and pp 2 x tp 2, each with a 32-row decode step whose launches
+    every stage counts ("pp_step"); the f32 copy of RANK_LLAMA's greedy
+    tokens at pp 2 against pp 1 ("pp_f32_tokens"); qwen2.5-7b from its
+    directory at pp 2, each stage reading only its 14 layers
+    ("pp_hf_load"). ``serve`` is main's: it checks every rank's launches
+    and the plain versions, and books the [pp2] and [pp2tp2] rows'
+    launches; its "pp_ranks" lines give each rank's device bytes, relays
+    and collective share."""
     import torch
 
-    ref = phase_tp_reference(model="llama-3.2-1b")
     for label, mesh, overrides in (("pp2", {"pp": 2}, PP2), ("pp2 x tp2", {"pp": 2, "tp": 2}, PP2_TP2)):
         gc.collect()
         torch.cuda.empty_cache()
-        logits = _logits_check(ref, "pp_forward", mesh, model="llama-3.2-1b")
+        logits = _logits_check(ref, "pp_forward", mesh)
 
         def prepare(engine, logits=logits, mesh=mesh):
             out = logits(engine)
             step = _pp_step_launches(engine)
-            emit({"phase": "pp_step", "model": "llama-3.2-1b", **mesh, **step, "card": nvidia_smi_line()})
+            emit({"phase": "pp_step", "model": RANK_LLAMA, **mesh, **step, "card": nvidia_smi_line()})
             return dict(out, **step)
 
-        serve(f"llama-3.2-1b, {label}", dict(model="llama-3.2-1b", **overrides), 64, 0, (), prepare)
+        serve(f"{RANK_LLAMA}, {label}", dict(model=RANK_LLAMA, **overrides), 64, 0, (), prepare)
     phase_f32_tokens("pp_f32_tokens", PP2, n_prompts=2, together=False)
     gc.collect()
     torch.cuda.empty_cache()
     serve("qwen2.5-7b-hf, pp2", dict(model=str(QWEN_DIR), **PP2), 128, 0, (), _pp_qwen_reads())
+
+
+# sequence parallelism on the one card: sp 2 (two ranks) and sp 2 x tp 2
+# (four), every rank a process on cuda:0 over gloo (host-staged: the
+# numbers of these runs are functional, not an sp speed figure)
+SP2 = dict(sequence_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
+SP2_TP2 = dict(sequence_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
+# llama-3.2-1b at full width and depth on a long prompt: 8,191 tokens in
+# chunks of 2,048, the last of 2,047 (its padding to a multiple of sp
+# runs), then 32 decode steps; the default 4 GB pool
+SP_SERVE = dict(model="llama-3.2-1b", max_model_len=16384, prefill_chunk=2048)
+SP_PROMPT, SP_CHUNK, SP_DECODES = 8191, 2048, 32
+SP_STEPS = [f"prefill 1 x {SP_CHUNK} (x{SP_PROMPT // SP_CHUNK}), 1 x {SP_PROMPT % SP_CHUNK}",
+            f"decode 1 x 1 (x{SP_DECODES})"]
+
+
+def _sp_inputs(vocab: int) -> list:
+    """The runner's StepInputs of the sp forward's steps: one row of seeded
+    ids, SP_PROMPT tokens in chunks of SP_CHUNK, then SP_DECODES decode
+    steps fed the seeded tokens (teacher forcing), on fresh pages."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.runner import StepInput
+
+    n = SP_PROMPT + SP_DECODES
+    ids = np.random.RandomState(6).randint(0, vocab, (1, n)).astype(np.int32)
+    common = dict(page_table=np.arange(-(-n // 64), dtype=np.int32)[None], temperature=np.zeros(1, np.float32),
+                  top_k=np.zeros(1, np.int32), top_p=np.ones(1, np.float32))
+    steps = [(p, min(SP_CHUNK, SP_PROMPT - p)) for p in range(0, SP_PROMPT, SP_CHUNK)]
+    steps += [(SP_PROMPT + s, 1) for s in range(SP_DECODES)]
+    return [StepInput(input_ids=ids[:, p: p + t], positions=np.arange(p, p + t, dtype=np.int32)[None],
+                      kv_lens=np.array([p + t], np.int32), **common) for p, t in steps]
+
+
+def _sp_logits(engine, costs: "dict | None" = None) -> list:
+    """The logits [1, V] of _sp_inputs' steps through the engine's runner
+    (every rank), on the CPU; the pools are reset after. With ``costs``,
+    each rank's rank_stats over the prefill chunks and over the decode
+    steps, and their wall seconds, go into it."""
+    runner = engine.runner
+    inps = _sp_inputs(engine.model_cfg.vocab_size)
+    chunks = len(inps) - SP_DECODES
+    runner.reset_kv()
+    runner.rank_stats(reset=True)
+    out = []
+    t0 = time.perf_counter()
+    for i, inp in enumerate(inps):
+        out.append(runner.step(inp)[1].float().cpu())
+        if costs is not None and i == chunks - 1:
+            costs["prefill"] = (time.perf_counter() - t0, _rank_rows(runner.rank_stats(reset=True)))
+            t0 = time.perf_counter()
+    if costs is not None:
+        costs["decode"] = (time.perf_counter() - t0, _rank_rows(runner.rank_stats(reset=True)))
+    runner.reset_kv()
+    return out
+
+
+def _sp_reference() -> list:
+    """One rank's logits of _sp_inputs (llama-3.2-1b's seeded weights, the
+    prefill kernel on every chunk)."""
+    import torch
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+
+    engine = LLMEngine(EngineConfig(**SP_SERVE))
+    try:
+        return _sp_logits(engine)
+    finally:
+        engine.stop()
+        del engine
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def _sp_cost_rows(part: tuple, chunks: int) -> dict:
+    """What each rank moved in one part of _sp_logits (rank_stats rows):
+    the sequence group's traffic (the ring's rotations and the token
+    gathers) and all collectives, their host seconds against the step's."""
+    wall, rows = part
+    return {
+        "wall_seconds": wall,
+        "ring_calls_by_rank": [int(r["ring_calls"]) for r in rows],
+        "ring_bytes_by_rank": [int(r["ring_bytes"]) for r in rows],
+        "ring_bytes_a_step_by_rank": [r["ring_bytes"] / chunks for r in rows],
+        "ring_seconds_by_rank": [r["ring_seconds"] for r in rows],
+        "collective_bytes_by_rank": [int(r["collective_bytes"]) for r in rows],
+        "collective_seconds_by_rank": [r["collective_seconds"] for r in rows],
+        "step_seconds_by_rank": [r["step_seconds"] for r in rows],
+        "collective_share_of_step_by_rank": [r["collective_seconds"] / max(r["step_seconds"], 1e-9) for r in rows],
+        "ring_share_of_step_by_rank": [r["ring_seconds"] / max(r["step_seconds"], 1e-9) for r in rows],
+    }
+
+
+async def _mesh_rows(port: int, ranks: int) -> dict:
+    """/stats' mesh_devices and /metrics' pool rows, one a rank."""
+    import re
+
+    import aiohttp
+
+    base = f"http://127.0.0.1:{port}"
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=60)) as s:
+        async with s.get(base + "/stats") as r:
+            devices = (await r.json())["mesh_devices"]
+        async with s.get(base + "/metrics") as r:
+            rows = re.findall(r'vllm:kv_pool_shard_bytes\{[^}]*device="([^"]+)"', await r.text())
+    check(devices == ranks and len(rows) == ranks,
+          f"serve: mesh_devices {devices}, pool rows {rows} for {ranks} ranks")
+    return {"mesh_devices": devices, "pool_rows": rows}
+
+
+def phase_sp_ranks(serve) -> None:
+    """Sequence parallelism on the one card: llama-3.2-1b at full width and
+    depth at sp 2 and sp 2 x tp 2, each server's logits of an 8,191-token
+    prompt in four chunks and 32 decode steps held to one rank's before the
+    main path ("sp_forward"), with what the ranks moved in those steps
+    ("sp_costs"); then its main path, whose first concurrent prompt is
+    SP_PROMPT tokens long. ``serve`` is main's: it checks every rank's
+    launches (the decode kernel's and no other), the plain versions and the
+    sp replicas' digests, and books the [sp2] and [sp2tp2] rows' launches.
+    Then the f32 copy of RANK_LLAMA's greedy tokens at sp 2 against one
+    rank's ("sp_f32_tokens")."""
+    import torch
+
+    ref = _sp_reference()
+    chunks = SP_PROMPT // SP_CHUNK + 1
+    for label, mesh, overrides in (("sp2", {"sp": 2}, SP2), ("sp2 x tp2", {"sp": 2, "tp": 2}, SP2_TP2)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        costs = {}
+        logits = _logits_check(ref, "sp_forward", mesh, rows=1, model="llama-3.2-1b",
+                               logits_fn=lambda e, costs=costs: _sp_logits(e, costs), steps=SP_STEPS)
+
+        def prepare(engine, logits=logits, costs=costs, mesh=mesh):
+            out = logits(engine)
+            emit({"phase": "sp_costs", "model": "llama-3.2-1b", **mesh, "backend": "gloo (host-staged CUDA tensors)",
+                  "prefill_chunks": chunks, "decode_steps": SP_DECODES,
+                  "prefill": _sp_cost_rows(costs["prefill"], chunks),
+                  "decode": _sp_cost_rows(costs["decode"], SP_DECODES),
+                  "device_bytes_by_rank": [int(r["device_bytes"]) for r in costs["decode"][1]],
+                  "card": nvidia_smi_line()})
+            return out
+
+        serve(f"llama-3.2-1b, {label}", dict(SP_SERVE, **overrides), 64, 0, (), prepare)
+    phase_f32_tokens("sp_f32_tokens", SP2, n_prompts=2, together=False)
 
 
 def phase_opt_int8_refused() -> None:
@@ -4702,6 +4951,7 @@ def main() -> int:
         quant = overrides.get("kv_cache_dtype") == "int8"
         tp, dp = overrides.get("tensor_parallel_size", 1), overrides.get("data_parallel_size", 1)
         ep, pp = overrides.get("expert_parallel_size", 1), overrides.get("pipeline_parallel_size", 1)
+        sp = overrides.get("sequence_parallel_size", 1)
         for k in SERVE_ROWS[quant] + ((VERIFY_ROW,) if VERIFY_ROW in counts else ()):
             # an ep rank runs its tp place's heads: the [ep2tp2] rows at ep 2
             # x tp 2, one rank's rows at ep 2 alone
@@ -4710,6 +4960,10 @@ def main() -> int:
                 row = _dptag(row, dp)  # the dp rank's rows, all heads: the [dp2] row
             if pp > 1 and D == 64 and k != "kv_page_write":
                 row = _pptag(k, pp, tp)  # a stage's microbatches on its pool: the [pp2] and [pp2tp2] rows
+            if sp > 1:
+                if k != "decode_attention":
+                    continue  # a chunk at sp goes through the ring
+                row = _sptag(k, sp, tp)  # every sequence rank's whole step: the [sp2] and [sp2tp2] rows
             launches[row] = launches.get(row, 0) + counts[k]
 
     try:
@@ -4771,8 +5025,12 @@ def main() -> int:
         clock("dp")
         # pipeline parallelism: pp 2 and pp 2 x tp 2, every rank a process
         # on the one card over gloo, with qwen2.5-7b's directory still there
-        phase_pp_ranks(serve)
+        phase_pp_ranks(serve, tp_ref)
         clock("pp_ranks")
+        # sequence parallelism: sp 2 and sp 2 x tp 2 on an 8,191-token
+        # prompt, every rank a process on the one card over gloo
+        phase_sp_ranks(serve)
+        clock("sp_ranks")
         phase_opt_int8_refused()
         shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 47 GB
         phase_hf_mixtral()

@@ -14,6 +14,7 @@ import argparse
 import dataclasses
 from typing import Optional
 
+from production_stack_tpu_torch.engine.scheduler import Scheduler
 from production_stack_tpu_torch.parallel.group import BACKENDS as TP_BACKENDS
 from production_stack_tpu_torch.parallel.group import parse_device_ids
 
@@ -217,7 +218,12 @@ class EngineConfig:
     # stage (parallel/pipeline.py); pp x tp processes, rank r = p * tp + t
     # (dp = ep = 1)
     pipeline_parallel_size: int = 1
-    # the port's deployment knobs for its ranks (all pp x dp x ep x tp of them): the
+    # sequence parallelism (the dense llama family): a prefill chunk's tokens
+    # split over sp ranks with ring attention (parallel/ring_attention.py),
+    # the weights and the pools whole on each; a decode step runs whole on
+    # every rank. sp x tp processes, rank r = s * tp + t (dp = ep = pp = 1)
+    sequence_parallel_size: int = 1
+    # the port's deployment knobs for its ranks (all pp x dp x sp x ep x tp of them): the
     # torch.distributed backend (nccl, or gloo, which stages CUDA tensors
     # through the host and so lets ranks share one card), and the CUDA
     # device of each rank, comma-separated (default: rank r on cuda:r)
@@ -265,7 +271,6 @@ class EngineConfig:
     # value rather than ignore it. The JAX engine's per-feature sub-knobs
     # of these (the multi-host knobs, ...) are not carried.
     kv_write_mode: str = "post"         # "pre" is not ported
-    sequence_parallel_size: int = 1
     distributed_coordinator: Optional[str] = None
     distributed_num_processes: int = 1
 
@@ -323,6 +328,12 @@ _FLAG_HELP = {
         "layers (which pp must divide) and their share of every KV page; each "
         "step runs in microbatches relayed stage to stage; the server starts "
         "pp x tp processes"
+    ),
+    "sequence_parallel_size": (
+        "sequence-parallel ranks of a dense llama-family model: each prefill "
+        "chunk's tokens split over them with ring attention, the weights and "
+        "the KV pool whole on each, decode replicated; the server starts sp x tp "
+        "processes"
     ),
     "decode_pipeline": (
         "chained decode bursts per dispatch while no request waits (1 = off): "
@@ -488,7 +499,6 @@ def resolve_attn_impl(attn_impl: str, device) -> str:
 # accepted and then ignored would misreport what is being served)
 _UNSUPPORTED = {
     "kv_write_mode": "the 'pre' KV write mode",
-    "sequence_parallel_size": "sequence parallelism",
     "distributed_coordinator": "multi-host serving",
     "distributed_num_processes": "multi-host serving",
 }
@@ -500,15 +510,18 @@ KV_ROLES = ("none", "producer", "consumer")
 def check_supported(cfg: EngineConfig, device=None) -> None:
     """Raise on any non-default value of a feature the port lacks
     (``_UNSUPPORTED``), on a combination the port does not serve (LoRA with
-    tp, dp, ep or pp ranks; pp with ep ranks or speculative decoding;
-    device KV transfer with ranks, across hosts or, given ``device``, off
-    the card), and on one the JAX engine refuses too (pp with in-engine dp;
-    int8 pools with pp, with speculative decoding, or with disaggregated
-    prefill but no fabric; a producer without a peer; in its words). The
-    refusals that read the model (a pp that does not divide its layers, a
-    family without pp stages, a MoE model at pp) are
-    parallel/pipeline.check_pp's, which the engine calls."""
+    tp, dp, sp, ep or pp ranks; pp with ep ranks or speculative decoding;
+    sp with dp, ep or pp ranks or speculative decoding; device KV transfer
+    with ranks, across hosts or, given ``device``, off the card), and on
+    one the JAX engine refuses too (pp with in-engine dp; int8 pools with
+    sp or pp, with speculative decoding, or with disaggregated prefill but
+    no fabric; a producer without a peer; in its words). The refusals that
+    read the model (a pp that does not divide its layers, a family without
+    pp stages or sp, a MoE model at pp or sp) are
+    parallel/pipeline.check_pp's and parallel/ring_attention.check_sp's,
+    which the engine calls."""
     dp, ep, pp = cfg.data_parallel_size, cfg.expert_parallel_size, cfg.pipeline_parallel_size
+    sp = cfg.sequence_parallel_size
     if cfg.kv_transfer_device:
         # the CUDA IPC endpoint moves whole pages between two single-rank
         # engines on one host
@@ -517,10 +530,11 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
                 "not supported by the PyTorch port yet: device KV transfer "
                 "(--kv-transfer-device) across hosts"
             )
-        if pp * dp * ep * cfg.tensor_parallel_size > 1:
+        if pp * dp * sp * ep * cfg.tensor_parallel_size > 1:
             raise ValueError(
                 "not supported by the PyTorch port yet: device KV transfer "
-                "(--kv-transfer-device) with tp or dp ranks, or ep or pp ranks; the TCP and fabric paths serve them"
+                "(--kv-transfer-device) with tp or dp ranks, or sp, ep or pp ranks; the TCP and fabric paths serve "
+                "them"
             )
         if device is not None and not str(device).startswith("cuda"):
             raise ValueError(
@@ -533,6 +547,13 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
         raise ValueError(f"expert_parallel_size must be >= 1, got {ep}")
     if pp < 1:
         raise ValueError(f"pipeline_parallel_size must be >= 1, got {pp}")
+    if sp < 1:
+        raise ValueError(f"sequence_parallel_size must be >= 1, got {sp}")
+    if cfg.prefill_chunk > Scheduler.CHUNK_BUCKETS[-1]:
+        raise ValueError(
+            f"not supported by the PyTorch port: prefill_chunk {cfg.prefill_chunk} above "
+            f"{Scheduler.CHUNK_BUCKETS[-1]}, the scheduler's largest chunk"
+        )
     if dp > 1 and pp > 1:
         # the JAX engine's own refusal (engine/engine.py)
         raise ValueError(
@@ -569,13 +590,23 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
             "--kv-cache-dtype int8 is not compatible with "
             "--speculative-k (the spec scan carries raw pool blocks)"
         )
-    if cfg.kv_cache_dtype == "int8" and (cfg.sequence_parallel_size > 1 or pp > 1):
+    if cfg.kv_cache_dtype == "int8" and (sp > 1 or pp > 1):
         # the JAX engine's own refusal (engine/engine.py)
         raise ValueError("--kv-cache-dtype int8 does not compose with sp/pp meshes")
     if pp > 1 and ep > 1:
         raise ValueError("not supported by the PyTorch port yet: pipeline parallelism with expert parallelism")
     if pp > 1 and cfg.speculative_k:
         raise ValueError("not supported by the PyTorch port yet: speculative decoding with pipeline parallelism")
+    if sp > 1:
+        # the sequence ranks split a chunk's tokens of one whole-model
+        # replica; the other axes and a verify forward (T = 1 + k through
+        # the ring) are later work
+        for other, what in ((dp, "in-engine data parallelism"), (ep, "expert parallelism"),
+                            (pp, "pipeline parallelism")):
+            if other > 1:
+                raise ValueError(f"not supported by the PyTorch port yet: sequence parallelism with {what}")
+        if cfg.speculative_k:
+            raise ValueError("not supported by the PyTorch port yet: speculative decoding with sequence parallelism")
     if cfg.kv_role not in KV_ROLES:
         raise ValueError(f"unknown kv_role {cfg.kv_role!r}; options: {KV_ROLES}")
     if cfg.kv_cache_dtype == "int8" and (cfg.kv_role != "none" or cfg.kv_transfer_device) and not cfg.kv_fabric:
@@ -600,4 +631,6 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
         raise ValueError("not supported by the PyTorch port yet: LoRA with expert parallelism")
     if pp > 1 and cfg.enable_lora:
         raise ValueError("not supported by the PyTorch port yet: LoRA with pipeline parallelism")
-    parse_device_ids(cfg.tp_device_ids, pp * dp * ep * tp)
+    if sp > 1 and cfg.enable_lora:
+        raise ValueError("not supported by the PyTorch port yet: LoRA with sequence parallelism")
+    parse_device_ids(cfg.tp_device_ids, pp * dp * sp * ep * tp)

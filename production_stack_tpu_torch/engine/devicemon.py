@@ -17,12 +17,14 @@ Sampled lazily on scrape (no background thread, nothing between scrapes):
   tp, every rank holding the same shapes: the one logical pool, as the JAX
   monitor's num_pages x page bytes, with no dp replica counted again), and
   that times the pool's occupancy.
-- ``vllm:kv_pool_shard_bytes{device=...}`` -- one row per rank, all dp x tp
-  of them: the bytes of that rank's KV-head shard of every page
-  (runner.kv_pool_shard_layout, from the pools' shapes, so 1/tp of the pool
-  each; every dp group holds a whole replica). Ranks on one card keep a row
+- ``vllm:kv_pool_shard_bytes{device=...}`` -- one row per rank, all pp x
+  dp x sp x ep x tp of them: the bytes of that rank's KV-head shard of
+  every page (runner.kv_pool_shard_layout, from the pools' shapes, so
+  1/tp of the pool each, 1/(pp x tp) under pp; every dp group, and every
+  sp and ep rank, holds a whole replica). Ranks on one card keep a row
   each: a rank's label is its device and its rank (``cuda:0/tp1``, with
-  dp > 1 ``cuda:0/dp1tp0``); a single rank's is its device (``cuda:0``).
+  dp > 1 ``cuda:0/dp1tp0``, with sp > 1 ``cuda:0/sp1tp0``); a single
+  rank's is its device (``cuda:0``).
 - ``vllm:compile_seconds_total`` / ``vllm:compile_events_total`` -- the nvcc
   builds of the CUDA kernels this process ran (ops/kernels/_build.py, at a
   kernel's first use or an explicit build). The JAX monitor counts XLA

@@ -3,19 +3,20 @@ replay.
 
 The port's own copy of production_stack_tpu/engine/distributed.py (its
 codec, frames, handshake, ``StepBroadcaster``, ``BroadcastingRunner`` and
-``follower_loop``), for the pp x dp x ep x tp rank processes of one engine
+``follower_loop``), for the pp x dp x sp x ep x tp rank processes of one engine
 rather than the hosts of a multi-host set:
 
 - Rank 0 (the leader) runs the real engine: HTTP API, scheduler, tokenizer,
   prefix cache. Every runner call that must run on every rank (``REPLICATED``)
   is first sent -- method name plus numpy arguments in a non-executable
   tagged binary format -- to every follower, then run locally.
-- Ranks 1..pp*dp*ep*tp-1 (the followers) run ``follower_loop``: they read
-  each call and make the same one on their own ``ModelRunner``. The
+- Ranks 1..pp*dp*sp*ep*tp-1 (the followers) run ``follower_loop``: they
+  read each call and make the same one on their own ``ModelRunner``. The
   collectives inside a call then meet (parallel/tp.py, parallel/ep.py,
-  parallel/dp.py, parallel/pipeline.py): they go over the process groups,
-  never over this stream. Every rank gets the whole call (a step's every
-  row): each takes its dp group's rows itself, and every pipeline stage
+  parallel/dp.py, parallel/ring_attention.py, parallel/pipeline.py): they
+  go over the process groups, never over this stream. Every rank gets the
+  whole call (a step's every row and token): each takes its dp group's
+  rows and its sequence rank's tokens itself, and every pipeline stage
   runs the whole step's microbatches through its own layers.
 
 Security model, as in the JAX copy: every connection starts with a
@@ -459,12 +460,15 @@ def tp_follower_main(cfg, rank: int, devices, init_method: str, sync_port: int, 
     ranks as global ``rank``, at (p, d, e, t) with rank = ((p * dp + d) * ep
     + e) * tp + t, on ``devices[rank]`` (made current before anything
     touches CUDA), build the rank's runner and replay the leader's calls
-    until it closes the stream. Any error ends the process."""
+    until it closes the stream. Any error ends the process. With sp > 1 the
+    rank sits at (s, t), rank = s * tp + t (parallel/group.py gives the
+    general order)."""
     from production_stack_tpu_torch.engine.engine import build_runner
     from production_stack_tpu_torch.parallel.group import TPGroup
 
     group = TPGroup.init(rank, cfg.data_parallel_size, cfg.tensor_parallel_size, cfg.tp_backend, devices,
-                         init_method, ep=cfg.expert_parallel_size, pp=cfg.pipeline_parallel_size)
+                         init_method, ep=cfg.expert_parallel_size, pp=cfg.pipeline_parallel_size,
+                         sp=cfg.sequence_parallel_size)
     try:
         runner = build_runner(cfg, group.device, model_cfg, params, num_pages, group)
         follower_loop(runner, "127.0.0.1", sync_port, secret=secret)
@@ -473,8 +477,8 @@ def tp_follower_main(cfg, rank: int, devices, init_method: str, sync_port: int, 
 
 
 class TPLeader:
-    """The leader's side of an engine's pp x dp x ep x tp ranks: starts ranks
-    1..pp*dp*ep*tp-1 as
+    """The leader's side of an engine's pp x dp x sp x ep x tp ranks: starts
+    ranks 1..pp*dp*sp*ep*tp-1 as
     ``spawn``ed processes (the leader may already hold a CUDA context, which
     ``fork`` would copy into a broken child), joins the group as rank 0 on a
     free localhost port, then (``wrap``) waits for the followers' step
@@ -499,8 +503,8 @@ class TPLeader:
         )
 
         dp, ep, tp = cfg.data_parallel_size, cfg.expert_parallel_size, cfg.tensor_parallel_size
-        pp = cfg.pipeline_parallel_size
-        world = pp * dp * ep * tp
+        pp, sp = cfg.pipeline_parallel_size, cfg.sequence_parallel_size
+        world = pp * dp * sp * ep * tp
         devices = rank_devices(device, world, parse_device_ids(cfg.tp_device_ids, world))
         check_backend(cfg.tp_backend, devices)
         if resolve_attn_impl(cfg.attn_impl, devices[0]) == "cuda":
@@ -516,16 +520,17 @@ class TPLeader:
         try:
             for r in range(1, world):
                 p = ctx.Process(
-                    target=tp_follower_main, name=f"rank-{r}" if pp * dp * ep > 1 else f"tp-rank-{r}", daemon=True,
+                    target=tp_follower_main, name=f"rank-{r}" if pp * dp * sp * ep > 1 else f"tp-rank-{r}",
+                    daemon=True,
                     args=(cfg, r, devices, init_method, self._sync_port, self._secret, model_cfg, params, num_pages),
                 )
                 p.start()
                 self.procs.append(p)
-            self.group = TPGroup.init(0, dp, tp, cfg.tp_backend, devices, init_method, ep=ep, pp=pp)
+            self.group = TPGroup.init(0, dp, tp, cfg.tp_backend, devices, init_method, ep=ep, pp=pp, sp=sp)
         except BaseException:
             self.close()
             raise
-        logger.info("%d ranks (pp %d x dp %d x ep %d x tp %d) on %s over %s", world, pp, dp, ep, tp,
+        logger.info("%d ranks (pp %d x dp %d x sp %d x ep %d x tp %d) on %s over %s", world, pp, dp, sp, ep, tp,
                     self.group.labels, cfg.tp_backend)
 
     def _alive(self) -> None:

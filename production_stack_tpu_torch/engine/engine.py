@@ -65,8 +65,8 @@ model's experts split over ep (E/ep a rank, parallel/ep.py) and a MoE
 layer's output is summed over the replica's ep x tp ranks; the attention,
 the pools and everything else are replicated along ep, every ep rank
 writing the same pages. A dense model's ep ranks replicate it whole.
-``mesh_devices`` counts pp x dp x ep x tp, as the JAX engine reads it from
-its mesh.
+``mesh_devices`` counts pp x dp x sp x ep x tp, as the JAX engine reads it
+from its mesh.
 
 With ``pipeline_parallel_size`` pp > 1 (dp = ep = 1) the engine runs pp x tp
 processes, rank r = p * tp + t: stage p holds layers [p * L/pp, (p + 1) *
@@ -78,6 +78,17 @@ the JAX engine sizes it), each rank holding 1/(pp x tp) of every page.
 Refused by name at start-up: pp with ep ranks, a MoE model, LoRA,
 speculative decoding, int8 pools, in-engine dp, Gemma-2 or OPT, and a pp
 that does not divide the layers.
+
+With ``sequence_parallel_size`` sp > 1 (dp = ep = pp = 1) the engine runs
+sp x tp processes, rank r = s * tp + t (the JAX mesh's (sp, tp) order):
+each prefill chunk's tokens split over the sequence ranks of a tp place,
+its attention through the ring (parallel/ring_attention.py), every
+sequence rank holding the whole model of its tp place and a whole replica
+of its pool shard, into which it writes every chunk and every decoded
+token itself; a decode step runs whole on every sequence rank. The pool's
+page count is that of sp 1. Refused by name at start-up: sp with dp, ep
+or pp ranks, a MoE model, LoRA, speculative decoding, device KV transfer,
+int8 pools, and Gemma-2 or OPT (the last two in the JAX engine's words).
 
 The engine lives inside the stack's services as the JAX engine does. A
 request's trace context (``generate(trace=)``, the server's
@@ -159,6 +170,7 @@ from production_stack_tpu_torch.kvoffload.warmstart import WarmStartManager
 from production_stack_tpu_torch.ops.quant import dequantize_page_host, kv_bytes_per_token, quantize_page_host
 from production_stack_tpu_torch.parallel.ep import check_ep
 from production_stack_tpu_torch.parallel.pipeline import check_pp
+from production_stack_tpu_torch.parallel.ring_attention import check_sp
 from production_stack_tpu_torch.parallel.tp import check_tp
 from production_stack_tpu_torch.utils.logging import init_logger
 
@@ -193,12 +205,14 @@ def build_runner(cfg: EngineConfig, device, model_cfg, params, num_pages: int, t
     ``num_pages`` pages. ``tp``: the rank's parallel/group.TPGroup; the
     model takes its tp group's part (the whole model at tp = 1), a MoE
     model its expert group's experts (the ep x tp ranks of its dp replica,
-    over which its MoE layers sum), and under pp its stage's layers."""
+    over which its MoE layers sum), under pp its stage's layers, and under
+    sp its sequence group (a chunk's token split)."""
     _, _, model = load_model(
         cfg.model, seed=cfg.seed, device=device, max_model_len=cfg.max_model_len, params=params,
         tp=tp if tp is not None and tp.size > 1 else None, config=model_cfg,
         experts=tp.expert if tp is not None and tp.expert.size > 1 else None,
         stage=tp.stage if tp is not None and tp.stage.size > 1 else None,
+        seq=tp.seq if tp is not None and tp.seq.size > 1 else None,
     )
     model.cfg = dataclasses.replace(model.cfg, attn_impl=cfg.attn_impl, kv_cache_dtype=cfg.kv_cache_dtype)
     targets = lora_targets(cfg.lora_target_modules) if cfg.enable_lora else ()
@@ -222,11 +236,14 @@ class LLMEngine:
         self.data_parallel = cfg.data_parallel_size
         self.expert_parallel = cfg.expert_parallel_size
         self.pipeline_parallel = cfg.pipeline_parallel_size
-        self.mesh_devices = self.pipeline_parallel * self.data_parallel * self.expert_parallel * self.tensor_parallel
+        self.sequence_parallel = cfg.sequence_parallel_size
+        self.mesh_devices = (self.pipeline_parallel * self.data_parallel * self.sequence_parallel
+                             * self.expert_parallel * self.tensor_parallel)
         module, model_cfg = model_config(cfg.model, cfg.max_model_len)
         check_tp(model_cfg, self.tensor_parallel)  # per tp group
         check_ep(model_cfg, self.expert_parallel)
         check_pp(module, model_cfg, self.pipeline_parallel)
+        check_sp(module, model_cfg, self.sequence_parallel)
         self.kv_quant = cfg.kv_cache_dtype == "int8"
         # a checkpoint directory holds its tokenizer, as in the JAX engine
         self.tokenizer = load_tokenizer(
@@ -235,7 +252,8 @@ class LLMEngine:
         itemsize = torch.empty((), dtype=model_cfg.dtype).element_size()
         # the whole page (every KV head of every layer), as the JAX engine
         # sizes the pool: a tp or pp engine holds as many pages as one rank,
-        # each rank 1/tp of the heads of its stage's 1/pp of the layers
+        # each rank 1/tp of the heads of its stage's 1/pp of the layers (and
+        # every sequence rank all of its tp place's)
         L, KH, D = model_cfg.num_layers, model_cfg.num_kv_heads, model_cfg.head_dim
         page_bytes = 2 * L * cfg.page_size * KH * D * (1 if self.kv_quant else itemsize)
         if self.kv_quant:
@@ -263,7 +281,7 @@ class LLMEngine:
             ),
         )
         num_pages = cfg.num_pages or max(64, int(cfg.kv_cache_memory_gb * 1e9 / page_bytes))
-        # pp x dp x ep x tp > 1: start the follower ranks and join the group before
+        # pp x dp x sp x ep x tp > 1: start the follower ranks and join the group before
         # the leader loads its own part (TPLeader.close undoes both)
         self._tp: Optional[TPLeader] = None
         if self.mesh_devices > 1:

@@ -31,8 +31,11 @@ package.
   model is one pipeline stage's: a preset draws every layer and keeps its
   stage's, a directory reads only the stage's ``model.layers.{i}`` tensors
   (and the embedding, final norm and head every stage holds), ``params``
-  give the stage their layers. A directory's model carries the bytes read
-  from its shards (``loaded_bytes``).
+  give the stage their layers. With ``seq`` (its ``TPGroup.seq``, sp > 1)
+  the weights are replicated along sp: a sequence rank draws or reads what
+  its tp place alone would, the same on every rank of its sequence group.
+  A directory's model carries the bytes read from its shards
+  (``loaded_bytes``).
 - ``params_from_jax(np_tree, cfg)``: the JAX package's layer-stacked tree
   (``{"embed", "layers": {name: [L, ...]}, "final_norm"}``, plus
   ``"lm_head"`` for an untied llama) given as numpy arrays, split per layer
@@ -120,22 +123,26 @@ def load_model(
     config=None,
     experts=None,
     stage=None,
+    seq=None,
 ):
     """Returns (module, config, model) for a local HF directory, or for a
     preset name with weights from ``params`` when given, else seeded random
     ones drawn on ``device``. ``tp``: the tp rank's group (None: the whole
     model); ``experts``: its expert group, for a MoE model split over ep
-    (a dense model ignores it); ``stage``: its stage group under pp (None:
+    (a dense model ignores it); ``seq``: its sequence group under sp (the
+    weights are whole on every sequence rank: it reads and draws what its tp
+    place alone would); ``stage``: its stage group under pp (None:
     every layer). ``config``: a preset's config as the caller resolved it
     (``model_config``), which a spawned rank takes from its leader."""
     dev = resolve_device(device)
     if is_hf_dir(model):
         if params is not None:
             raise ValueError(f"{model} is a checkpoint directory: it brings its own weights, not params")
-        return load_from_hf(model, device=dev, max_model_len=max_model_len, tp=tp, experts=experts, stage=stage)
+        return load_from_hf(model, device=dev, max_model_len=max_model_len, tp=tp, experts=experts, stage=stage,
+                            seq=seq)
     mod, cfg = model_config(model, max_model_len) if config is None else (models.module_for_config(config), config)
     # before the model is built: OPT sizes its position table from max_model_len
-    net = _build(mod, cfg, dev, tp, experts, stage)
+    net = _build(mod, cfg, dev, tp, experts, stage, seq)
     if params is not None:
         n, r = size_rank(tp)
         m, e = expert_place(getattr(net, "experts", None))
@@ -246,11 +253,13 @@ _FAMILIES = {
 }
 
 
-def _build(mod, cfg, device, tp, experts, stage=None):
+def _build(mod, cfg, device, tp, experts, stage=None, seq=None):
     """The family's model, empty; the expert group goes to a MoE model
-    alone, the stage group to a family that serves pp (the llama
-    family's)."""
+    alone, the stage and sequence groups to a family that serves pp and sp
+    (the llama family's)."""
     kw = {}
+    if seq is not None and seq.size > 1:
+        kw["seq"] = seq
     if experts is not None and getattr(cfg, "num_experts", 0):
         kw["experts"] = experts
     if stage is not None and stage.size > 1:
@@ -259,11 +268,13 @@ def _build(mod, cfg, device, tp, experts, stage=None):
 
 
 @torch.no_grad()
-def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=None, experts=None, stage=None):
+def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=None, experts=None, stage=None,
+                 seq=None):
     """Returns (module, config, model) for a local HF directory, its weights
     read from the shards one tensor at a time; a tp rank reads its slice of
     each split tensor, an ep rank only its experts' tensors, and a pipeline
-    stage only its layers' (the model's ``loaded_bytes``: what was read)."""
+    stage only its layers' (the model's ``loaded_bytes``: what was read); a
+    sequence rank reads what its tp place alone reads."""
     dev = resolve_device(device)
     mod, cfg = _hf_config(path)
     _, names_of, strip = _FAMILIES[mod]
@@ -274,7 +285,7 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=
         raise ValueError(f"max_model_len={max_model_len} exceeds OPT position table ({cfg.max_model_len})")
     shards = SafetensorsDir(path)
     keys = {(k[len(strip):] if strip and k.startswith(strip) else k): k for k in shards.keys()}
-    net = _build(mod, cfg, dev, tp, experts, stage)
+    net = _build(mod, cfg, dev, tp, experts, stage, seq)
     m, e = expert_place(getattr(net, "experts", None))
     own = dict(net.named_parameters())
     # the stage's layers under its own names (every layer without pp)

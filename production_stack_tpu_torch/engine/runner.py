@@ -89,6 +89,19 @@ same shapes as the JAX runner's.
   pp-sharded pool gives it; ``set_pages`` keeps the stage's layers and the
   rank's heads. ``gathered_params`` takes a layer's tensors from the stage
   that holds it (``layers.{i}`` by the model's layer number).
+- Sequence parallelism (``tp.seq.size`` sp > 1; dp = ep = pp = 1): the
+  sp ranks of one tp place hold the same weights and the same pool shard
+  (replicated along sp, as the JAX ``KV_PAGES_SPEC`` shards tp only). A
+  prefill chunk's tokens split over them (models/llama.py: the ring of
+  parallel/ring_attention.py), after which every rank writes the whole
+  chunk into its own pools; a decode step and a burst run whole on every
+  rank, each writing its own pools, so the sp replicas stay byte for byte
+  equal with nothing copied between them. The sampled ids are world rank
+  0's, broadcast to every rank (``_draw``). A page read gathers the KV
+  heads over the rank's own tp group, so each sp replica reads its own
+  copy and the leader returns the s = 0 one; a page write lands on every
+  sp replica. ``rank_stats``' ring columns count what crossed the
+  sequence group.
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -179,12 +192,15 @@ COUNTERS = (
 # replica, the expert group's all-reduces (calls, bytes), the bytes the
 # rank's process holds allocated on its device (0 on the CPU), the stage
 # relays and hand-overs (calls, bytes, host seconds; part of the
-# collectives too) and the bytes its model read from a checkpoint
-# directory (0 for a preset)
+# collectives too), the bytes its model read from a checkpoint
+# directory (0 for a preset) and what crossed its sequence group (the
+# ring's rotations and the token gathers: calls, bytes, host seconds; part
+# of the collectives too)
 RANK_STATS = tuple(name for name, _, _ in COUNTERS) + (
     "step_seconds", "steps", "collective_calls", "collective_bytes", "collective_seconds",
     "sync_bytes", "sync_pages", "expert_calls", "expert_bytes", "device_bytes",
     "relay_calls", "relay_bytes", "relay_seconds", "loaded_bytes",
+    "ring_calls", "ring_bytes", "ring_seconds",
 )
 
 
@@ -275,9 +291,13 @@ class ModelRunner:
         # the pipeline stage group (None at pp = 1): the relays, the page
         # gathers over the layer axis
         self.stage = stage if stage is not None and stage.size > 1 else None
+        seq = getattr(tp, "seq", None)
+        # the sequence group (None at sp = 1): a chunk's token split
+        self.seq = seq if seq is not None and seq.size > 1 else None
         # the sampled ids' source: the expert group's first rank, or under
-        # pp world rank 0, whose ids every stage feeds back
-        self.ids_group = self.world if self.stage is not None else self.expert
+        # pp or sp world rank 0, whose ids every stage or sequence rank
+        # feeds back
+        self.ids_group = self.world if self.stage is not None or self.seq is not None else self.expert
         self.tp_size = size_rank(self.tp)[0]
         if self.tp is not None and enable_lora:
             raise ValueError("LoRA with tensor parallelism is not supported by the port yet")
@@ -287,6 +307,8 @@ class ModelRunner:
             raise ValueError("LoRA with expert parallelism is not supported by the port yet")
         if self.stage is not None and enable_lora:
             raise ValueError("LoRA with pipeline parallelism is not supported by the port yet")
+        if self.seq is not None and enable_lora:
+            raise ValueError("LoRA with sequence parallelism is not supported by the port yet")
         self.step_seconds = 0.0
         self.steps = 0
         # the device history a burst with penalties left (this rank's rows),
@@ -730,8 +752,9 @@ class ModelRunner:
     def get_pages(self, pids: "list[int]"):
         """N pages' K/V to the host in one copy: per-page ``[L, page, KH, D]``
         numpy arrays (ks, vs), every KV head (gathered from the tp ranks of
-        the caller's dp group: each dp group reads its own replica) and
-        every layer (gathered from the stages)."""
+        the caller's dp group and sequence rank: each dp group and each sp
+        rank reads its own replica) and every layer (gathered from the
+        stages)."""
         if not pids:
             return [], []
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
@@ -742,7 +765,8 @@ class ModelRunner:
     def set_pages(self, pids: "list[int]", ks, vs) -> None:
         """Write N pages (per-page ``[L, page, KH, D]`` arrays, as
         ``get_pages`` returns them) into the pools; a tp rank keeps its
-        heads, a stage its layers."""
+        heads, a stage its layers, and every dp, sp and ep replica takes
+        them."""
         if not pids:
             return
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
@@ -896,14 +920,14 @@ class ModelRunner:
 
     def kv_pool_shard_layout(self) -> "list[tuple[str, int]]":
         """Per-rank KV pool footprint: ``(device label, bytes)`` of every
-        rank, pp x dp x ep x tp rows, k and v pools with their int8 scales,
-        from the pools' shapes (each rank holds KH/tp heads of its stage's
-        L/pp layers of every page, so 1/(pp x tp) of the bytes; each dp
-        group, and each ep rank in it, a whole replica). Labels are distinct
+        rank, pp x dp x sp x ep x tp rows, k and v pools with their int8
+        scales, from the pools' shapes (each rank holds KH/tp heads of its
+        stage's L/pp layers of every page, so 1/(pp x tp) of the bytes; each
+        dp group, and each sp and ep rank in it, a whole replica). Labels are distinct
         per rank (parallel/group.device_labels: two ranks on one card are
         ``cuda:0/tp0`` and ``cuda:0/tp1``, or ``cuda:0/dp0tp0`` ... with dp >
-        1, ``cuda:0/dp0ep1tp0`` ... with ep > 1, ``cuda:0/pp1tp0`` ... with pp
-        > 1)."""
+        1, ``cuda:0/dp0ep1tp0`` ... with ep > 1, ``cuda:0/sp1tp0`` ... with sp
+        > 1, ``cuda:0/pp1tp0`` ... with pp > 1)."""
         cfg = self.cfg
         kh = cfg.num_kv_heads // self.tp_size
         L = cfg.num_layers // pipeline.stage_place(self.stage)[0]
@@ -915,10 +939,10 @@ class ModelRunner:
         return [(label, per) for label in labels]
 
     def rank_stats(self, reset: bool = False) -> np.ndarray:
-        """Every rank's ``RANK_STATS`` row ([pp x dp x ep x tp,
+        """Every rank's ``RANK_STATS`` row ([pp x dp x sp x ep x tp,
         len(RANK_STATS)] float64, global rank order): its kernel launches and
         plain-version calls, its step seconds and its collectives (tp,
-        expert, dp and stage) since the last reset; with ``reset`` each
+        expert, dp, sequence and stage) since the last reset; with ``reset`` each
         rank's count starts again from 0 after the read."""
         r = self.ranks
         calls, nbytes, secs = r.stats() if r is not None else (0, 0, 0.0)
@@ -928,6 +952,7 @@ class ModelRunner:
         row += [torch.cuda.memory_allocated(self.device) if self.device.type == "cuda" else 0]
         row += [r.relay_calls, r.relay_bytes, r.relay_seconds] if r is not None else [0, 0, 0.0]
         row += [getattr(self.model, "loaded_bytes", 0)]
+        row += [r.ring_calls, r.ring_bytes, r.ring_seconds] if r is not None else [0, 0, 0.0]
         out = gather_split(torch.tensor([row], dtype=torch.float64, device=self.device), 0, self.world)
         if reset:
             for _, fn, attr in COUNTERS:
@@ -939,10 +964,10 @@ class ModelRunner:
         return out.cpu().numpy()
 
     def replica_digest(self) -> np.ndarray:
-        """Every rank's sha256 of its pools and scales ([pp x dp x ep x tp,
-        32] uint8, global rank order; a diagnostic): the ranks of one tp
-        column of one stage are the dp and ep replicas of one KV-head shard
-        and must give the same digest."""
+        """Every rank's sha256 of its pools and scales ([pp x dp x sp x ep x
+        tp, 32] uint8, global rank order; a diagnostic): the ranks of one tp
+        column of one stage are the dp, sp and ep replicas of one KV-head
+        shard and must give the same digest."""
         h = hashlib.sha256()
         for t in self._pools():
             for layer in t:  # a layer at a time through the host

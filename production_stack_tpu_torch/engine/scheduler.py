@@ -168,9 +168,12 @@ def _bucket(n: int, buckets: tuple[int, ...]) -> int:
 
 class Scheduler:
     DECODE_BATCH_BUCKETS = (1, 2, 4, 8, 16, 32, 64, 128, 256)
-    CHUNK_BUCKETS = (16, 32, 64, 128, 256, 512, 1024)
+    # a chunk's T up to 8,192 (the JAX scheduler's buckets end at 1,024, past
+    # which its batch arrays are too narrow for the chunk); a prefill_chunk
+    # above the last one is refused (engine/config.check_supported)
+    CHUNK_BUCKETS = (16, 32, 64, 128, 256, 512, 1024, 2048, 4096, 8192)
     PAGE_BUCKETS = (2, 4, 8, 16, 32, 64, 128, 256, 512, 1024)
-    HISTORY_BUCKETS = CHUNK_BUCKETS + (2048, 4096, 8192, 16384, 32768)
+    HISTORY_BUCKETS = CHUNK_BUCKETS + (16384, 32768)
 
     def __init__(
         self,

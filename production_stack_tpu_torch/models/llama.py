@@ -27,8 +27,8 @@ adds ``(h @ A) @ B * scale`` to every projection with a buffer
 (``init_lora_buffers``). ``encode`` is the pooled-embedding forward behind
 the server's embedding, rerank and score routes (dense causal attention, no
 pages). ``all_logits=True`` returns every position's logits (speculative
-decode's verify). The sp axis and the "pre" write mode are not ported; the
-model raises on the latter.
+decode's verify). The "pre" write mode is not ported; the model raises on
+it.
 
 With ``tp`` (a parallel/group.TPGroup) the model is one tensor-parallel
 rank's: it holds its slice of each split weight (parallel/tp.py: NH/tp and
@@ -50,8 +50,25 @@ pp. Its forward runs the batch in ``microbatches(B, pp)`` microbatches:
 stage 0 embeds, each stage runs its layers on a microbatch's rows over its
 own pools [L/pp, P, page, KH/tp, D] (``layer`` the local index) and relays
 it on; the last stage's final hidden states of what the head reads reach
-every stage, where the head runs as at pp 1. ``MESH_AXES`` names the mesh
-axes the family serves, as the JAX module's does (sp is not ported).
+every stage, where the head runs as at pp 1.
+
+With ``seq`` (the rank's ``TPGroup.seq``: the sp ranks of its tp place) the
+model is one sequence-parallel rank's, as the JAX forward shards a chunk's
+tokens over ``sp``: the weights and the pools are whole along sp
+(replicated, the JAX ``KV_PAGES_SPEC`` shards tp only). A prefill chunk
+(T > 1) pads to a multiple of sp (pads at position -1) and the rank runs
+the embedding, the norms, the projections and the MLP on its T/sp tokens;
+every layer's attention is models/paged_step.py's sp step (the chunk's K/V
+gathered over the group, the rank's queries through
+parallel/ring_attention.ring_attention_serving, or with a sliding window
+``ops.attention.flash_attention`` with explicit positions, as the JAX
+forward falls back). The prefill kernel does not run, as the JAX forward
+keeps its kernel for one device (``prefill_kernel_ok`` needs sp = 1):
+after the layers each rank writes the whole chunk's K/V into its own pools,
+and each row's last valid hidden state is gathered from the rank that
+holds it, so every rank returns the whole [B, V]. A decode step (T = 1) and a burst are not split: every sequence
+rank runs them whole, the decode kernel included. ``MESH_AXES`` names the
+mesh axes the family serves, as the JAX module's does.
 """
 
 from __future__ import annotations
@@ -71,6 +88,7 @@ from production_stack_tpu_torch.ops.norms import rms_norm
 from production_stack_tpu_torch.ops.rope import RopeScaling, apply_rope, rope_cos_sin
 from production_stack_tpu_torch.parallel import pipeline
 from production_stack_tpu_torch.parallel.ep import expert_range
+from production_stack_tpu_torch.parallel.ring_attention import pad_tokens, token_slice
 from production_stack_tpu_torch.parallel.tp import (
     all_reduce_,
     embed_lookup,
@@ -152,8 +170,8 @@ class LlamaConfig:
         return out
 
 
-# the mesh axes this family's forward serves (the JAX module's less sp)
-MESH_AXES = ("dp", "tp", "ep", "pp")
+# the mesh axes this family's forward serves (the JAX module's)
+MESH_AXES = ("dp", "tp", "sp", "ep", "pp")
 
 PRESETS: dict[str, LlamaConfig] = {
     "llama-3-8b": LlamaConfig(),
@@ -457,11 +475,14 @@ class LlamaForCausalLM(nn.Module):
     """Decoder stack + head. Parameters are created empty on ``device``;
     engine/model_loader.py fills them (seeded init or a carried-over tree)."""
 
-    def __init__(self, cfg: LlamaConfig, device="cuda", tp=None, experts=None, stage=None):
+    def __init__(self, cfg: LlamaConfig, device="cuda", tp=None, experts=None, stage=None, seq=None):
         super().__init__()
         _check_ported(cfg)
         self.cfg = cfg
         self.tp = tp
+        # seq: the sp ranks of this rank's tp place (None: a chunk's every
+        # token here)
+        self.seq = seq if seq is not None and seq.size > 1 else None
         # experts: the expert group of a MoE model split over ranks (the
         # ep x tp ranks of its dp replica; None: one rank); a dense model
         # has none
@@ -521,9 +542,18 @@ class LlamaForCausalLM(nn.Module):
         returns the whole logits. Neither ``kv_burst`` nor LoRA is taken
         there: each T == 1 step commits its own K/V, as the JAX runner's
         ``_multi_step_fn`` does under pp.
+
+        On a sequence rank (``seq``) a chunk (T > 1) runs its T/sp tokens
+        through the ring (``_chunk_sp``) and every rank returns the whole
+        logits; it takes neither ``all_logits``, int8 pools nor LoRA. T = 1
+        runs whole on every sequence rank.
         """
         cfg = self.cfg
         B, T = input_ids.shape
+        if self.seq is not None and T > 1:
+            if all_logits or kv_scales is not None or lora is not None:
+                raise ValueError("a sequence-parallel chunk takes neither all_logits, int8 pools nor LoRA")
+            return self._chunk_sp(input_ids, positions, k_pages, v_pages, page_table, kv_lens)
         tp = 1 if self.tp is None else self.tp.size
         cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
@@ -560,6 +590,34 @@ class LlamaForCausalLM(nn.Module):
 
     def _head(self) -> torch.Tensor:
         return self.embed.t() if self.cfg.tie_word_embeddings else self.lm_head
+
+    def _chunk_sp(self, input_ids, positions, k_pages, v_pages, page_table, kv_lens) -> torch.Tensor:
+        """A prefill chunk on this sequence rank (the JAX forward at sp with
+        T > 1): the chunk padded to a multiple of sp, the rank's T/sp tokens
+        through the layers with their attention through the ring
+        (models/paged_step.py), the whole chunk's K/V committed into this
+        rank's pools after the layers (``finish``). Returns the whole [B, V]
+        logits."""
+        cfg, seq = self.cfg, self.seq
+        B = input_ids.shape[0]
+        pos = pad_tokens(positions, seq.size, value=-1)
+        pos_l = token_slice(pos, seq)
+        Tl = pos_l.shape[1]
+        cos, sin = rope_cos_sin(pos_l.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+        tp = 1 if self.tp is None else self.tp.size
+        step = PagedStep(cfg.attn_impl, pos, k_pages, v_pages, page_table, kv_lens, tp=tp, seq=seq)
+        x = embed_lookup(self.embed, token_slice(pad_tokens(input_ids, seq.size), seq), self.tp)
+        x = self._decoder(x, step, cos, sin)
+        step.finish()
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        # each row's last valid token sits on rank last // Tl: every rank's
+        # candidate rows, gathered, and the owner's taken
+        last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
+        owner = torch.div(last, Tl, rounding_mode="floor")
+        rows = torch.arange(B, device=x.device)
+        mine = x[rows, (last - seq.rank * Tl).clamp(0, Tl - 1)]
+        x_last = seq.all_gather(mine[:, None], 1)[rows, owner]
+        return gather_vocab((x_last @ self._head()).float(), self.tp)
 
     def _decoder(self, x, step: PagedStep, cos, sin, lora=None, ls=None) -> torch.Tensor:
         """This model's layers on ``x`` [B, T, H], their attention through

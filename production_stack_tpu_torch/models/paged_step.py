@@ -32,6 +32,20 @@ microbatch the prefill kernel with its fused write, as the JAX
 ``serving_layer_pipeline`` runs its stage's layers on one microbatch (its
 prefill by XLA attention, which the port replaces by the kernel as it does
 at tp). There is no burst window under pp.
+
+Under sequence parallelism (models/llama.py with a ``seq``) a prefill chunk
+is split along its tokens: ``positions`` are the whole chunk's, padded to a
+multiple of sp (pads at -1), and ``attend`` takes the rank's T/sp queries
+and K/V. It gathers the chunk's K/V over the sequence group, reads the
+layer's pool slots for the rows' pages (``gather_kv_pages``; the pools are
+whole on every sequence rank), and attends the rank's queries to the slots
+before the chunk and the chunk itself (``stale_kv_positions``) through the
+ring (parallel/ring_attention.ring_attention_serving), or with a sliding
+window through ``flash_attention`` with explicit positions, as the JAX
+forward does at sp. No fused write: ``finish`` commits the whole chunk's
+K/V of every layer into the rank's pools with one scatter, as the JAX
+forward's ``write_kv_pages_all_layers`` does after its layer scan. A decode
+step and a burst take their paths above whole on every sequence rank.
 """
 
 from __future__ import annotations
@@ -40,13 +54,19 @@ from typing import Optional
 
 import torch
 
-from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
+from production_stack_tpu_torch.ops.attention import (
+    flash_attention,
+    gather_kv_pages,
+    stale_kv_positions,
+    write_kv_pages_all_layers,
+)
 from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention_sharded
 from production_stack_tpu_torch.ops.kernels.prefill_attention import (
     prefill_attention,
     prefill_attention_ref,
 )
 from production_stack_tpu_torch.ops.quant import write_kv_pages_all_layers_quant
+from production_stack_tpu_torch.parallel.ring_attention import ring_attention_serving, token_slice
 
 
 class PagedStep:
@@ -54,7 +74,7 @@ class PagedStep:
     commit (``finish``)."""
 
     def __init__(self, attn_impl: str, positions, k_pages, v_pages, page_table, kv_lens,
-                 kv_burst: Optional[tuple] = None, kv_scales: Optional[tuple] = None, tp: int = 1):
+                 kv_burst: Optional[tuple] = None, kv_scales: Optional[tuple] = None, tp: int = 1, seq=None):
         B, T = positions.shape
         plain = attn_impl == "plain"
         self.decode_kw = dict(tp=tp, plain=plain)
@@ -73,12 +93,21 @@ class PagedStep:
             self.cur_lens = (counts + 1).to(torch.int32)
         elif T > 1:
             self.cur_lens = (positions >= 0).sum(dim=1).to(torch.int32)
+        # seq: a chunk split over the sequence ranks (None: every token here)
+        self.seq = seq if seq is not None and seq.size > 1 and T > 1 else None
+        if self.seq is not None:
+            if self.burst or kv_scales is not None:
+                raise ValueError("a sequence-parallel chunk takes neither kv_burst nor int8 pools")
+            self.q_positions = token_slice(positions, self.seq)
+            self.kv_pos = stale_kv_positions(page_table, positions, k_pages.shape[2])
         self.new_k, self.new_v = [], []
 
     def attend(self, li: int, q, k, v, window, **kw) -> torch.Tensor:
         """Layer li's attention of q [B, T, NH, D] with this step's k, v
         [B, T, KH, D]; ``kw`` (sm_scale, logit_softcap) go to the kernels.
         Returns [B, T, NH, D]."""
+        if self.seq is not None:
+            return self._attend_sp(li, q, k, v, window, **kw)
         kw = dict(kw, k_scales=self.ks, v_scales=self.vs, layer=li)
         pools = (self.k_pages, self.v_pages, self.page_table)
         if self.burst:
@@ -100,10 +129,27 @@ class PagedStep:
             self.cur_lens, window, fused_write=True, **kw,
         )
 
+    def _attend_sp(self, li: int, q, k, v, window, sm_scale=None) -> torch.Tensor:
+        """Layer li's attention of this sequence rank's queries q [B, T/sp,
+        NH, D] (its k, v beside them): the chunk's K/V gathered over the
+        group and kept for ``finish``, the layer's pool slots read for the
+        rows' pages, and the queries against both. Returns [B, T/sp, NH,
+        D]."""
+        k, v = self.seq.all_gather(k, 1), self.seq.all_gather(v, 1)  # the whole chunk's
+        self.new_k.append(k)
+        self.new_v.append(v)
+        kc, vc = gather_kv_pages(self.k_pages[li], self.v_pages[li], self.page_table)
+        kc, vc = torch.cat([kc, k.to(kc.dtype)], dim=1), torch.cat([vc, v.to(vc.dtype)], dim=1)
+        if window is None:
+            return ring_attention_serving(self.seq, q, kc, vc, self.q_positions, self.kv_pos, sm_scale=sm_scale)
+        return flash_attention(q, kc, vc, q_positions=self.q_positions, kv_lens=self.kv_lens, sm_scale=sm_scale,
+                               window=window, kv_positions=self.kv_pos)
+
     def finish(self) -> None:
         """After the layers: commit a single decode token's K/V of every
-        layer to the pools, in place (a prefill chunk wrote its own; a burst
-        leaves the commit to the caller)."""
+        layer to the pools, in place, or a sequence-parallel chunk's whole
+        K/V (a prefill chunk on one rank wrote its own; a burst leaves the
+        commit to the caller)."""
         if not self.new_k:
             return
         k, v = torch.stack(self.new_k), torch.stack(self.new_v)

@@ -220,7 +220,7 @@ def decode_attention_sharded(
     q, k_pages, v_pages, page_table, seq_lens, window=None, *, tp: int = 1, plain: bool = False,
     k_scales=None, v_scales=None, k_cur=None, v_cur=None, cur_lens=None, **kw,
 ):
-    """One (dp, ep, tp) rank's decode attention: the counterpart of
+    """One (dp, sp, ep, tp) rank's decode attention: the counterpart of
     ``ragged_paged_attention_decode_sharded``
     (production_stack_tpu/ops/pallas/paged_attention.py:472), which runs the
     TPU decode kernel per (dp, tp) shard under a ``shard_map`` whose ep axis
@@ -257,7 +257,15 @@ def decode_attention_sharded(
     calls this with its stage's pools [L/pp, P, page, KH/tp, D], ``layer``
     the index into them, and one microbatch's rows of ``q``,
     ``page_table``, ``seq_lens`` and the token's K/V (models/llama.py,
-    models/paged_step.py). Only sp is not mapped: the port serves no sp.
+    models/paged_step.py).
+
+    sp: a decode step (T = 1) is not split over the sequence axis, so the
+    JAX function maps sp with every input replicated along it (its
+    ``manual`` axes include sp), and each sp shard computes its (dp, tp)
+    slice again. Here the same: rank (s, t) calls this on its (d, t) slice,
+    which is the same on every s, over pools that are the sp replicas of
+    one shard (``KV_PAGES_SPEC`` shards tp only; every sequence rank writes
+    every chunk and token into its own), and gets the same bytes.
     """
     NHl, KHl = q.shape[1], k_pages.shape[-2]
     if NHl % KHl:

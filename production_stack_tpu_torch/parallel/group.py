@@ -1,31 +1,39 @@
-"""The engine's ranks: one process per (pp, dp, ep, tp) rank, each on its
-own device, joined by ``torch.distributed``.
+"""The engine's ranks: one process per (pp, dp, sp, ep, tp) rank, each on
+its own device, joined by ``torch.distributed``.
 
-The counterpart of production_stack_tpu/parallel/mesh.py for the four axes
-the port serves, pp, dp, ep and tp. Where the JAX engine lays a (pp, dp,
-ep, tp) device mesh under one program and lets GSPMD and ``shard_map``
-insert the collectives, the port runs one process per rank
-(engine/engine.py starts them) and calls its collectives itself
-(parallel/tp.py over a tp group, parallel/ep.py over an expert group,
-parallel/dp.py over a dp group, parallel/pipeline.py over a stage group).
-Rank r sits at (p, d, e, t) with r = ((p * dp + d) * ep + e) * tp + t, the
-mesh's order (pp, dp, sp, ep, tp) with pp outermost and tp innermost:
+The counterpart of production_stack_tpu/parallel/mesh.py for the five axes
+of its mesh. Where the JAX engine lays a (pp, dp, sp, ep, tp) device mesh
+under one program and lets GSPMD and ``shard_map`` insert the collectives,
+the port runs one process per rank (engine/engine.py starts them) and calls
+its collectives itself (parallel/tp.py over a tp group, parallel/ep.py over
+an expert group, parallel/dp.py over a dp group,
+parallel/ring_attention.py over a sequence group, parallel/pipeline.py
+over a stage group). Rank r sits at (p, d, s, e, t) with
+r = (((p * dp + d) * sp + s) * ep + e) * tp + t, the mesh's order
+(pp, dp, sp, ep, tp) with pp outermost and tp innermost:
 
-- a tp group, the tp ranks of one (d, e), splits the heads, the dense MLP,
-  the vocabulary and each expert's FFN;
-- an expert group, the ep x tp ranks of one dp replica d, holds the experts
+- a tp group, the tp ranks of one (p, d, s, e), splits the heads, the
+  dense MLP, the vocabulary and each expert's FFN;
+- an expert group, the ep x tp ranks of one (p, d, s), holds the experts
   (E/ep a rank) and sums a MoE layer's output with one all-reduce; the
   attention, the router, the norms and the embeddings are replicated along
   ep, so the ranks of one (d, t) hold the same KV heads and write the same
   pages (the JAX ``KV_PAGES_SPEC`` shards tp only);
-- a dp group, the dp ranks of one (p, e, t), are the replicas of one pool
-  shard across the dp replicas;
-- a stage group, the pp ranks of one (d, e, t), holds the layer stack in
-  pp contiguous stages: it relays a microbatch's activations from stage p
-  to stage p + 1 (``send_next``/``recv_prev``, over the two ranks' own
+- a dp group, the dp ranks of one (p, s, e, t), are the replicas of one
+  pool shard across the dp replicas;
+- a sequence group, the sp ranks of one (p, d, e, t), splits a prefill
+  chunk's tokens: it joins the chunk's K/V along the tokens
+  (``all_gather``) and rotates the ring's KV blocks from rank s to rank
+  s + 1 (``rotate``, over two-rank groups); the weights and the pools are
+  replicated along it (the JAX ``KV_PAGES_SPEC`` shards tp only), so its
+  ranks are also the replicas of one pool shard;
+- a stage group, the pp ranks of one (d, s, e, t), holds the layer stack
+  in pp contiguous stages: it relays a microbatch's activations from stage
+  p to stage p + 1 (``send_next``/``recv_prev``, over the two ranks' own
   group), hands the last stage's final hidden states to every stage
   (``broadcast_from_last``) and gathers a page's layers.
-  In this port dp = ep = 1 whenever pp > 1 (engine/config.check_supported).
+  In this port dp = ep = 1 whenever pp > 1, and dp = ep = pp = 1 whenever
+  sp > 1 (engine/config.check_supported).
 
 The backend is named by the caller, never guessed: ``nccl`` (the default)
 needs a CUDA device per rank and refuses two ranks on one device; ``gloo``
@@ -36,12 +44,15 @@ figure) and a CPU engine can run dp and tp in tests. Rank r runs on
 (``"0,0,0,0"``: four ranks on the first card).
 
 ``TPGroup`` counts what crosses any of its groups (calls, bytes, host
-seconds inside the collectives), and the stage relays and hand-overs apart
-as well (``relay_calls``, ``relay_bytes``, ``relay_seconds``). On gloo a
+seconds inside the collectives), the stage relays and hand-overs apart as
+well (``relay_calls``, ``relay_bytes``, ``relay_seconds``), and what crosses
+the sequence group apart too (``ring_calls``, ``ring_bytes``,
+``ring_seconds``: the ring's rotations and the token gathers). On gloo a
 collective of CUDA tensors waits for the device to finish the work queued
-before it, so its seconds include that wait. The relays are broadcasts over
-a two-rank group, which every backend takes for CUDA tensors (gloo's
-``send``/``recv`` take CPU tensors only), moved as bytes.
+before it, so its seconds include that wait. The relays and the ring's
+rotations are broadcasts over a two-rank group, which every backend takes
+for CUDA tensors (gloo's ``send``/``recv`` take CPU tensors only), moved as
+bytes.
 """
 
 from __future__ import annotations
@@ -59,13 +70,13 @@ BACKENDS = ("nccl", "gloo")
 TIMEOUT_S = 300.0
 
 
-_AXES_NAMED = ("pipeline_parallel_size x data_parallel_size x expert_parallel_size x "
-               "tensor_parallel_size")
+_AXES_NAMED = ("pipeline_parallel_size x data_parallel_size x sequence_parallel_size x "
+               "expert_parallel_size x tensor_parallel_size")
 
 
 def parse_device_ids(spec: Optional[str], ranks: int) -> Optional[list[int]]:
     """``"0,0"`` -> [0, 0]: one CUDA device index per rank of the engine,
-    pp x dp x ep x tp of them (None: rank r on device r)."""
+    pp x dp x sp x ep x tp of them (None: rank r on device r)."""
     if spec is None or spec == "":
         return None
     try:
@@ -116,18 +127,24 @@ def check_backend(backend: str, devices: list[torch.device]) -> None:
         )
 
 
-def device_labels(devices: list[torch.device], dp: int = 1, ep: int = 1, pp: int = 1) -> list[str]:
+def device_labels(devices: list[torch.device], dp: int = 1, ep: int = 1, pp: int = 1, sp: int = 1) -> list[str]:
     """One distinct label per rank: ``cuda:0`` for a single rank, else the
     device and the rank (``cuda:0/tp1``; with dp > 1 ``cuda:0/dp1tp0``; with
-    ep > 1 ``cuda:0/dp0ep1tp0``; with pp > 1 the stage first,
-    ``cuda:0/pp1tp0``), so ranks on one card stay rows of their own."""
+    ep > 1 ``cuda:0/dp0ep1tp0``; with sp > 1 ``cuda:0/sp1tp0``; with pp > 1
+    the stage first, ``cuda:0/pp1tp0``), so ranks on one card stay rows of
+    their own."""
     names = [f"{d.type}:{d.index or 0}" for d in devices]
     if len(devices) == 1:
         return names
     per = len(devices) // pp  # the ranks of one stage
-    tp = per // (dp * ep)
+    tp = per // (dp * sp * ep)
 
     def place(r):
+        if sp > 1:
+            d, rest = divmod(r, sp * ep * tp)
+            s, rest = divmod(rest, ep * tp)
+            e, t = divmod(rest, tp)
+            return (f"dp{d}" if dp > 1 else "") + f"sp{s}" + (f"ep{e}" if ep > 1 else "") + f"tp{t}"
         if dp == 1 and ep == 1:
             return f"tp{r}"
         if ep == 1:
@@ -150,7 +167,7 @@ class Group:
         self.rank, self.size, self.pg, self.first = rank, size, pg, first
         self._counts = counts
 
-    def _run(self, op, t: torch.Tensor, relay: bool = False) -> None:
+    def _run(self, op, t: torch.Tensor, relay: bool = False, ring: bool = False) -> None:
         if self.size == 1:
             return
         t0 = time.perf_counter()
@@ -164,6 +181,10 @@ class Group:
             c.relay_seconds += dt
             c.relay_calls += 1
             c.relay_bytes += t.nbytes
+        if ring:
+            c.ring_seconds += dt
+            c.ring_calls += 1
+            c.ring_bytes += t.nbytes
 
     def all_reduce(self, t: torch.Tensor) -> None:
         """Sum ``t`` over the group's ranks, in place."""
@@ -177,24 +198,27 @@ class Group:
 
 
 class TPGroup(Group):
-    """This process's rank among the engine's pp x dp x ep x tp ranks: its
-    tp group (``rank``, ``size`` and the collectives the forward runs),
-    ``expert`` (the ep x tp ranks of its (p, d) place, at rank e * tp + t:
-    the MoE layers' all-reduce and the sampled ids' broadcast; it holds
+    """This process's rank among the engine's pp x dp x sp x ep x tp ranks:
+    its tp group (``rank``, ``size`` and the collectives the forward runs),
+    ``expert`` (the ep x tp ranks of its (p, d, s) place, at rank e * tp +
+    t: the MoE layers' all-reduce and the sampled ids' broadcast; it holds
     the rank's place on the ep axis), ``dp`` (the ranks holding the
-    same KV heads at the same (p, e), one per dp replica: the replicas of
-    its pool shard), ``stage`` (the pp ranks of its (d, e, t) place, at
-    rank p: the relays between stages), ``world`` (every rank), the device
-    and label of every rank, and the counts of what crosses any of them
-    (``expert_calls`` and ``expert_bytes`` count the expert group's
-    all-reduces alone; ``relay_*`` the stage group's relays and
-    hand-overs)."""
+    same KV heads at the same (p, s, e), one per dp replica: the replicas of
+    its pool shard), ``seq`` (the sp ranks of its (p, d, e, t) place, at
+    rank s: a chunk's token split and the ring), ``stage`` (the pp ranks of
+    its (d, s, e, t) place, at rank p: the relays between stages),
+    ``world`` (every rank), the device and label of every rank, and the
+    counts of what crosses any of them (``expert_calls`` and
+    ``expert_bytes`` count the expert group's all-reduces alone; ``relay_*``
+    the stage group's relays and hand-overs; ``ring_*`` the sequence
+    group's rotations and gathers)."""
 
     def __init__(self, world_rank: int, dp: int, tp: int, backend: str, devices: list[torch.device],
-                 pgs: tuple = (None, None, None, None, None), ep: int = 1, pp: int = 1):
-        per = dp * ep * tp  # the ranks of one stage
+                 pgs: tuple = (None, None, None, None, None, None, None), ep: int = 1, pp: int = 1, sp: int = 1):
+        per = dp * sp * ep * tp  # the ranks of one stage
         p, rest = divmod(world_rank, per)
-        d, place = divmod(rest, ep * tp)
+        d, within = divmod(rest, sp * ep * tp)
+        s, place = divmod(within, ep * tp)
         e, t = divmod(place, tp)
         self.calls = 0
         self.bytes = 0
@@ -204,68 +228,94 @@ class TPGroup(Group):
         self.relay_calls = 0
         self.relay_bytes = 0
         self.relay_seconds = 0.0
-        tp_pg, expert_pg, dp_pg, stage_pg, pair_pgs = pgs
+        self.ring_calls = 0
+        self.ring_bytes = 0
+        self.ring_seconds = 0.0
+        tp_pg, expert_pg, dp_pg, stage_pg, pair_pgs, seq_pg, ring_pgs = pgs
         super().__init__(t, tp, tp_pg, world_rank - t, self)
         self.expert = ExpertGroup(place, ep * tp, expert_pg, world_rank - place, self, e, ep)
-        self.dp = Group(d, dp, dp_pg, world_rank - d * ep * tp, self)
+        self.dp = Group(d, dp, dp_pg, world_rank - d * sp * ep * tp, self)
+        self.seq = SeqGroup(s, sp, seq_pg, world_rank - s * ep * tp, self, ep * tp, ring_pgs or {})
         self.stage = StageGroup(p, pp, stage_pg, rest, self, per, pair_pgs or {})
         self.world = Group(world_rank, pp * per, None, 0, self)
         self.backend = backend
         self.devices = devices
         self.device = devices[world_rank]
-        self.labels = device_labels(devices, dp, ep, pp)
+        self.labels = device_labels(devices, dp, ep, pp, sp)
 
     @classmethod
     def init(cls, rank: int, dp: int, tp: int, backend: str, devices: list[torch.device], init_method: str,
-             timeout_s: float = TIMEOUT_S, ep: int = 1, pp: int = 1) -> "TPGroup":
+             timeout_s: float = TIMEOUT_S, ep: int = 1, pp: int = 1, sp: int = 1) -> "TPGroup":
         """Join the engine's ranks as global ``rank`` (a barrier: returns
         once every rank has joined), after making the rank's device
         current. The world is the process's default ``torch.distributed``
         group, so a process takes part in one engine's ranks at a time.
-        Every rank makes every tp, expert, dp and stage subgroup that is
-        neither the world nor a single rank (nor, at ep = 1, the tp group
-        again), then at pp > 2 the two-rank relay group of every pair of
-        neighbouring stages, in one order, as ``dist.new_group`` asks, even
-        those it is not in."""
+        Every rank makes every tp, expert, dp, sequence and stage subgroup
+        that is neither the world nor a single rank (nor, at ep = 1, the tp
+        group again), then at pp > 2 the two-rank relay group of every pair
+        of neighbouring stages and at sp > 2 the two-rank ring group of
+        every pair of neighbouring sequence ranks, in one order, as
+        ``dist.new_group`` asks, even those it is not in."""
         check_backend(backend, devices)
         if dist.is_initialized():
             raise RuntimeError("this process is already in a tp group: one tp engine per process at a time")
         if devices[rank].type == "cuda":
             torch.cuda.set_device(devices[rank])
         timeout = datetime.timedelta(seconds=timeout_s)
-        per = dp * ep * tp
+        per = dp * sp * ep * tp
         dist.init_process_group(backend, init_method=init_method, world_size=pp * per, rank=rank,
                                 timeout=timeout)
         p, rest = divmod(rank, per)
-        place = rest % (ep * tp)
+        d, within = divmod(rest, sp * ep * tp)
+        place = within % (ep * tp)
 
         def new(ranks):
             return dist.new_group(ranks, timeout=timeout)
 
-        tp_pg = expert_pg = dp_pg = stage_pg = None  # None: the world, or a group of one rank
-        if tp > 1 and pp * dp * ep > 1:  # one per (p, d, e)
-            tps = [new([g * tp + c for c in range(tp)]) for g in range(pp * dp * ep)]
+        # None: the world, or a group of one rank
+        tp_pg = expert_pg = dp_pg = seq_pg = stage_pg = None
+        if tp > 1 and pp * dp * sp * ep > 1:  # one per (p, d, s, e)
+            tps = [new([g * tp + c for c in range(tp)]) for g in range(pp * dp * sp * ep)]
             tp_pg = tps[rank // tp]
-        if ep * tp > 1 and pp * dp > 1:  # one per (p, d); at ep = 1 the tp group
+        if ep * tp > 1 and pp * dp * sp > 1:  # one per (p, d, s); at ep = 1 the tp group
             if ep == 1:
                 expert_pg = tp_pg
             else:
-                experts = [new([g * ep * tp + c for c in range(ep * tp)]) for g in range(pp * dp)]
+                experts = [new([g * ep * tp + c for c in range(ep * tp)]) for g in range(pp * dp * sp)]
                 expert_pg = experts[rank // (ep * tp)]
-        if dp > 1 and pp * ep * tp > 1:  # one per (p, e, t)
-            dps = [new([q * per + g * ep * tp + c for g in range(dp)]) for q in range(pp) for c in range(ep * tp)]
-            dp_pg = dps[p * ep * tp + place]
-        if pp > 1 and per > 1:  # one per (d, e, t)
+        if dp > 1 and pp * sp * ep * tp > 1:  # one per (p, s, e, t)
+            dps = [new([q * per + g * sp * ep * tp + c for g in range(dp)])
+                   for q in range(pp) for c in range(sp * ep * tp)]
+            dp_pg = dps[p * sp * ep * tp + within]
+        # the sequence ranks of each (p, d, e, t): ranks q * per + g * sp *
+        # ep * tp + s * ep * tp + c for s in range(sp)
+        seqs = [[q * per + g * sp * ep * tp + s * ep * tp + c for s in range(sp)]
+                for q in range(pp) for g in range(dp) for c in range(ep * tp)]
+        mine = (p * dp + d) * ep * tp + place
+        if sp > 1 and pp * dp * ep * tp > 1:
+            seq_pgs = [new(ranks) for ranks in seqs]
+            seq_pg = seq_pgs[mine]
+        if pp > 1 and per > 1:  # one per (d, s, e, t)
             stages = [new([q * per + c for q in range(pp)]) for c in range(per)]
             stage_pg = stages[rest]
         pairs = {0: stage_pg} if pp == 2 else {}
-        if pp > 2:  # stages q and q + 1 of each (d, e, t)
+        if pp > 2:  # stages q and q + 1 of each (d, s, e, t)
             for c in range(per):
                 for q in range(pp - 1):
                     pg = new([q * per + c, (q + 1) * per + c])
                     if c == rest:
                         pairs[q] = pg
-        return cls(rank, dp, tp, backend, devices, (tp_pg, expert_pg, dp_pg, stage_pg, pairs), ep=ep, pp=pp)
+        # the ring's pairs: sequence ranks s and s + 1 (mod sp); at sp = 2
+        # both pairs are the sequence group itself
+        rings = {0: seq_pg, 1: seq_pg} if sp == 2 else {}
+        if sp > 2:
+            for i, ranks in enumerate(seqs):
+                for s in range(sp):
+                    pg = new([ranks[s], ranks[(s + 1) % sp]])
+                    if i == mine:
+                        rings[s] = pg
+        return cls(rank, dp, tp, backend, devices, (tp_pg, expert_pg, dp_pg, stage_pg, pairs, seq_pg, rings),
+                   ep=ep, pp=pp, sp=sp)
 
     def close(self) -> None:
         if dist.is_initialized():
@@ -278,6 +328,7 @@ class TPGroup(Group):
         self.calls, self.bytes, self.seconds = 0, 0, 0.0
         self.expert_calls = self.expert_bytes = 0
         self.relay_calls, self.relay_bytes, self.relay_seconds = 0, 0, 0.0
+        self.ring_calls, self.ring_bytes, self.ring_seconds = 0, 0, 0.0
 
 
 class ExpertGroup(Group):
@@ -332,3 +383,62 @@ class StageGroup(Group):
         pipeline's closing ``psum`` of the last stage's outputs)."""
         self._bcast(t, self.size - 1, self.pg)
         return t
+
+
+class SeqGroup(Group):
+    """The sp ranks of one (p, d, e, t) place, sequence rank ``rank`` of
+    ``size``: a prefill chunk's token split (parallel/ring_attention.py,
+    models/llama.py). Sequence rank q's global rank is ``first`` + q *
+    ``stride``; ``rings[q]`` is the group of ranks q and q + 1 (mod sp)
+    this rank is in (the sequence group itself at sp = 2). Everything that
+    crosses the group adds to the ``ring_*`` counts as well as to the
+    collective counts."""
+
+    def __init__(self, rank: int, size: int, pg, first: int, counts: "TPGroup", stride: int, rings: dict):
+        super().__init__(rank, size, pg, first, counts)
+        self.stride, self.rings = stride, rings
+
+    def all_reduce(self, t: torch.Tensor) -> None:
+        self._run(lambda x: dist.all_reduce(x, group=self.pg), t, ring=True)
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """Every sequence rank's ``x`` joined along ``dim`` in rank order,
+        bit for bit, on every rank (parallel/tp._exact_gather: an
+        all-reduce of int32 words over a zero-filled whole)."""
+        if self.size == 1:
+            return x
+        from production_stack_tpu_torch.parallel.tp import _exact_gather  # tp imports nothing of this module
+
+        return _exact_gather(x.contiguous(), dim, self)
+
+    def _bcast(self, buf: torch.Tensor, src: int) -> None:
+        """Sequence rank ``src``'s ``buf`` (uint8) on sequence rank src + 1,
+        over their two-rank group."""
+        self._run(lambda x: dist.broadcast(x, src=self.first + src * self.stride, group=self.rings[src]), buf,
+                  ring=True)
+
+    def rotate(self, *tensors: torch.Tensor) -> tuple:
+        """The ring's step: this rank's ``tensors`` go to sequence rank
+        rank + 1 and rank - 1's come in their place (``lax.ppermute`` with
+        the permutation i -> i + 1 mod sp). The tensors move together as one
+        buffer of their bytes (exact), in two broadcasts: an even rank sends
+        first and then receives, an odd one the other way round, so no
+        cycle of ranks waits on itself. Returns the received tensors, in
+        their shapes and dtypes."""
+        if self.size == 1:
+            return tensors
+        out = torch.cat([t.contiguous().reshape(-1).view(torch.uint8) for t in tensors])
+        got = torch.empty_like(out)
+        prev = (self.rank - 1) % self.size
+        if self.rank % 2 == 0:
+            self._bcast(out, self.rank)
+            self._bcast(got, prev)
+        else:
+            self._bcast(got, prev)
+            self._bcast(out, self.rank)
+        res, at = [], 0
+        for t in tensors:
+            n = t.numel() * t.element_size()
+            res.append(got[at: at + n].view(t.dtype).reshape(t.shape))
+            at += n
+        return tuple(res)

@@ -41,6 +41,10 @@ the stage (``stage``, a parallel/group.StageGroup or None); a per-layer
 tensor itself has no layer axis here, so ``shard_shape`` and ``shard`` are
 the same at every stage.
 
+Nothing splits over sp: every rank of a sequence group holds its tp
+place's parameters whole (the JAX specs name no "sp" axis), seeded or read
+as at sp = 1.
+
 The gathers (``gather_vocab``, ``gather_split``, ``gather_param``) are all-reduces over a
 zero-filled full tensor that each rank fills at its own slice, summed as
 int32 words: a sum of one value and zeros, exact to the bit, through the one

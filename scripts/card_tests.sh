@@ -19,9 +19,10 @@
 # (tests/test_torch_cuda_fleet.py); both kernels at mixtral-8x7b's ep 2 x tp 2
 # rank heads and an ep 2 engine's replicas (tests/test_torch_cuda_ep.py); a pp 2
 # engine's forward against pp 1's, both kernels launched by every stage
-# (tests/test_torch_cuda_pp.py). No
-# file imports
-# jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
+# (tests/test_torch_cuda_pp.py); the decode kernel at a sequence rank's
+# shapes and an sp 2 engine's forward against one rank's, the decode kernel
+# launched by every sequence rank and no prefill kernel
+# (tests/test_torch_cuda_sp.py). No file imports jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
 # which that machine may lack, so pytest skips conftest files.
 #
 #   bash scripts/card_tests.sh [pytest arguments]
@@ -30,5 +31,5 @@ cd "$(dirname "$0")/.."
 exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py tests/test_torch_cuda_surface.py \
     tests/test_torch_cuda_moe_lora.py tests/test_torch_cuda_tp.py tests/test_torch_cuda_dp.py \
     tests/test_torch_cuda_spec.py tests/test_torch_cuda_disagg.py tests/test_torch_cuda_fleet.py \
-    tests/test_torch_cuda_ep.py tests/test_torch_cuda_pp.py \
+    tests/test_torch_cuda_ep.py tests/test_torch_cuda_pp.py tests/test_torch_cuda_sp.py \
     -q -p no:cacheprovider "$@"

@@ -121,16 +121,17 @@ def test_runner_resolves_attention_by_device():
 
 
 _REFUSED = [
-    # tensor, in-engine data, expert and pipeline parallelism are served;
-    # what they lack, LoRA across the ranks, is refused (KH % tp != 0, an ep
-    # that does not divide the experts and a pp that does not divide the
-    # layers are refused by the engine, which reads the model:
-    # tests/test_torch_tp.py, tests/test_torch_ep.py, tests/test_torch_pp.py).
+    # tensor, in-engine data, sequence, expert and pipeline parallelism are
+    # served; what they lack, LoRA across the ranks and sp beside dp, is
+    # refused (KH % tp != 0, an ep that does not divide the experts and a pp
+    # that does not divide the layers are refused by the engine, which reads
+    # the model: tests/test_torch_tp.py, tests/test_torch_ep.py,
+    # tests/test_torch_pp.py, tests/test_torch_sp.py).
     # Speculative decoding is served; with int8 pools it is refused in the
     # JAX engine's words
     ("tensor_parallel_size", 2, {"enable_lora": True}),
     ("data_parallel_size", 2, {"enable_lora": True}),
-    ("sequence_parallel_size", 2, {}),
+    ("sequence_parallel_size", 2, {"data_parallel_size": 2}),
     ("pipeline_parallel_size", 2, {"enable_lora": True}),
     ("expert_parallel_size", 2, {"enable_lora": True}),
     ("speculative_k", 4, {"kv_cache_dtype": "int8"}),

@@ -416,6 +416,11 @@ def test_the_publisher_batches_and_keeps_the_order(servers, server):
         pub.withdraw([hashes[-1]], "all")  # queued after the publish: it wins
         eng = _wait_dump(addr, url, lambda e: e.get("resident_chunks") == 3)
         assert eng["resident_chunks"] == 3 and eng["generation"] == 3
+        # the publisher's thread counts a batch once the server has answered
+        # it, which may be after the dump above already shows the batch
+        deadline = time.time() + 10
+        while (pub.publishes, pub.withdrawals) != (4, 1) and time.time() < deadline:
+            time.sleep(0.01)
         assert pub.publishes == 4 and pub.withdrawals == 1
     finally:
         pub.stop()

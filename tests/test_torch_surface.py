@@ -152,6 +152,11 @@ def servers():
     psrv, prun = lp.run(port_server.serve(pcfg, _port_engine(pcfg), device="cpu"))
     urls = {"jax": f"http://127.0.0.1:{jcfg.port}", "port": f"http://127.0.0.1:{pcfg.port}"}
     got = {}
+    # the phase histograms are the process's: an engine of an earlier test
+    # file in this worker process would have counted its requests there
+    from production_stack_tpu_torch.tracing import reset_phase_histograms
+
+    reset_phase_histograms()
     for tag, base in urls.items():
         g = got[tag] = {"empty": [call(base, "GET", f"/slo_records?since={n}")[1] for n in (0, 3)]}
         g["answers"] = [call(base, "POST", path, body, headers) for path, body, headers in REQUESTS]

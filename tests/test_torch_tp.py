@@ -469,7 +469,7 @@ def test_tp_past_the_kv_heads_is_refused():
     (dict(model="mixtral-debug", tensor_parallel_size=2, expert_parallel_size=3, **PORT_TP), "MoE"),
     (dict(model=MODEL, tensor_parallel_size=2, enable_lora=True), "LoRA with tensor parallelism"),
     (dict(model=MODEL, data_parallel_size=2, pipeline_parallel_size=2), "in-engine data parallelism"),
-    (dict(model=MODEL, sequence_parallel_size=2), "sequence parallelism"),
+    (dict(model=MODEL, sequence_parallel_size=2, data_parallel_size=2), "sequence parallelism"),
     (dict(model=MODEL, expert_parallel_size=2, enable_lora=True), "expert parallelism"),
     (dict(model=MODEL, pipeline_parallel_size=2, speculative_k=4), "pipeline parallelism"),
     (dict(model=MODEL, tensor_parallel_size=2), "tp_backend 'nccl' needs a CUDA device per rank"),
