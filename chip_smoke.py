@@ -212,15 +212,25 @@ non-zero exit (nothing is caught):
                ships every page over CUDA IPC with no TCP blob. A "disagg"
                line per transport: pages and MiB, the producer's push
                seconds, the consumer's TTFT beside a cold monolithic
-               engine's on the same prompt, the launches, the card.
+               engine's on the same prompt, the launches, the card. After
+               the TCP pair, the consumer's pools dropped (sleep, wake),
+               the same prompt goes once more through the port's router
+               (``production_stack_tpu_torch.router.app``,
+               ``--routing-logic disaggregated_prefill``) over the same
+               producer and consumer under a fresh request id: its ids
+               must be the direct run's, the producer must launch the
+               prefill kernel with its write and no decode, the consumer
+               must restore the 17 pages, prefill the tail and decode; a
+               "router" line gives the router's routes per backend and
+               its TTFT beside the engines' for that request.
 5g. fleet  -- after the disagg phase: the fleet KV directory and live
                migration. The port's cache server with ``--directory
                --metrics-port`` as a subprocess; engines A and B
                (llama-3.2-1b bf16, full width and depth, a CPU tier, the
                cache server as the remote tier and the directory, the
-               fabric) behind port servers in this process; the unchanged
-               router (``python -m production_stack_tpu.router.app
-               --routing-logic kvaware --kv-directory-url``) as a
+               fabric) behind port servers in this process; the port's
+               router (``production_stack_tpu_torch.router.app`` with
+               ``--routing-logic kvaware --kv-directory-url``) as a
                subprocess. A's first request, straight to A, is the
                unmigrated run (128 greedy tokens of a 1,091-token prompt:
                17 full pages and a tail) and a cold engine's TTFT; the
@@ -248,7 +258,9 @@ non-zero exit (nothing is caught):
                pages, the client's gap at each splice against the stream's
                median gap, C's boot prefetch and its first TTFT against
                the cold one, the launches per engine and the phase's
-               seconds, each with the card.
+               seconds, each with the card; a "router" line gives the
+               router's routes per backend and its TTFT of the stream and
+               the second request beside the engines' and the client's.
 5h. ep     -- after the one-rank mixtral-8x7b serve (whose prepare records
                its logits of two rows, two 512-token chunks and 8 decode
                steps, and the experts its routers took) and before its
@@ -4152,6 +4164,9 @@ DISAGG_LOGPROB_TOL = 0.1
 # (label, both engines' overrides, the producer's own): the KV ships as TCP
 # blobs, as fabric frames of 4 layers, device to device over CUDA IPC, and,
 # for int8 pools, over the fabric (their only path)
+# after the direct pair of this run, the same prompt goes once more through
+# the port's router (disaggregated_prefill) under this request id
+DISAGG_ROUTED = ("tcp", "disagg-routed")
 DISAGG_RUNS = (
     ("tcp", {}, {}),
     ("fabric", dict(kv_fabric=True), dict(kv_fabric_stream_layers=DISAGG_STREAM_LAYERS)),
@@ -4165,7 +4180,9 @@ def disagg_producer_main() -> None:
     engine flags after the first argument, which names the JSON file this
     writes at SIGTERM: the kernel launches and plain-version calls of the
     process (its counts start at 0 with it), and the seconds the engine
-    spent in ``_push_finished_kv`` (the finished prefill to its answer)."""
+    spent in ``_push_finished_kv`` (the finished prefill to its answer). At
+    SIGUSR1 it writes the counts so far to that name with ``.usr1``
+    added."""
     import argparse
 
     import torch
@@ -4183,13 +4200,25 @@ def disagg_producer_main() -> None:
     parts = _disagg_timers(producer=True)
     kernels, plains = _counters()
 
+    def counts() -> dict:
+        return {"launches": {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()},
+                "plain_calls": {k: fn.calls for k, fn in plains.items()},
+                "push_s": push.seconds, "push_calls": push.calls,
+                "parts": {name: [t.calls, round(t.seconds, 4)] for name, t in parts.items()}}
+
+    def snapshot() -> None:
+        """SIGUSR1: the counts so far, beside the final file (``.usr1``)."""
+        tmp = Path(out_path + ".tmp")
+        tmp.write_text(json.dumps(counts()))
+        tmp.replace(out_path + ".usr1")
+
     async def run():
+        import signal
+
         server, runner = await api_server.serve(cfg)
+        asyncio.get_running_loop().add_signal_handler(signal.SIGUSR1, snapshot)
         await api_server._wait_for_termination()
-        out = {"launches": {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()},
-               "plain_calls": {k: fn.calls for k, fn in plains.items()},
-               "push_s": push.seconds, "push_calls": push.calls,
-               "parts": {name: [t.calls, round(t.seconds, 4)] for name, t in parts.items()}}
+        out = counts()
         await runner.cleanup()
         server.engine.stop()
         Path(out_path).write_text(json.dumps(out))
@@ -4248,6 +4277,85 @@ def _stop_proc(proc) -> None:
         proc.wait(timeout=10)
 
 
+ROUTER_MODULE = "production_stack_tpu_torch.router.app"
+
+
+def _start_router(port: int, *flags: str) -> tuple:
+    """The port's router as a subprocess on ``port`` (``flags``: its
+    backends and routing) and the file its log goes to. The caller waits
+    for /health with _wait_http, which fails the phase if the router dies;
+    nothing else is started in its place."""
+    import tempfile
+
+    log = tempfile.TemporaryFile()
+    proc = subprocess.Popen(
+        [sys.executable, "-m", ROUTER_MODULE, "--host", "127.0.0.1", "--port", str(port), *flags],
+        cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT), PSTPU_DRAIN_NOTICE="0"), stdout=subprocess.DEVNULL,
+        stderr=log,
+    )
+    return proc, log
+
+
+def _histogram_quantile(text: str, name: str, q: float) -> "float | None":
+    """Prometheus' histogram_quantile over the histogram ``name`` of a
+    /metrics page (its label sets summed): linear inside the bucket the
+    rank falls in; the top finite bound when it falls in +Inf."""
+    import re
+
+    cum: dict = {}
+    for line in text.splitlines():
+        if line.startswith(name + "_bucket{"):
+            le = re.search(r'le="([^"]+)"', line).group(1)
+            cum[float(le)] = cum.get(float(le), 0.0) + float(line.rsplit(" ", 1)[1])
+    total = cum.get(math.inf, 0.0)
+    if not total:
+        return None
+    rank, lo, lo_count = q * total, 0.0, 0.0
+    for le in sorted(cum):
+        if cum[le] >= rank:
+            if le == math.inf:
+                return lo
+            return lo + (le - lo) * (rank - lo_count) / (cum[le] - lo_count)
+        lo, lo_count = le, cum[le]
+    return lo
+
+
+def _first_records(pages: dict, ids: list) -> dict:
+    """For each request id, the engine and TTFT (ms) of its first SLO
+    record (the earliest finished) among ``pages``: engine label ->
+    GET /slo_records?since=0."""
+    out = {}
+    for rid in ids:
+        recs = [(r["t"], label, r["ttft_ms"]) for label, page in pages.items() for r in page.get("records", [])
+                if r.get("request_id") == rid]
+        if recs:
+            _, label, ttft = min(recs)
+            out[rid] = {"engine": label, "ttft_ms": ttft}
+    return out
+
+
+def _router_line(of: str, text: str, engine: dict, client_ttft_s: list, card: str) -> dict:
+    """A "router" line: the router's module, the requests it sent each
+    backend (vllm_router:finished_requests), its own TTFT of them
+    (vllm_router:time_to_first_token_seconds: p50 as histogram_quantile
+    reads the buckets, and the exact mean) beside the engines' TTFT of the
+    same requests (``engine``: _first_records) and the client's."""
+    import re
+    import statistics
+
+    name = "vllm_router:time_to_first_token_seconds"
+    routes = {m.group(1): float(m.group(2)) for m in re.finditer(
+        r'^vllm_router:finished_requests\{server="([^"]+)"\} (\S+)$', text, re.M)}
+    count = sum(float(v) for v in re.findall(rf"^{name}_count\{{[^}}]*\}} (\S+)$", text, re.M))
+    total = sum(float(v) for v in re.findall(rf"^{name}_sum\{{[^}}]*\}} (\S+)$", text, re.M))
+    ms = [e["ttft_ms"] for e in engine.values() if e["ttft_ms"] is not None]
+    return {"phase": "router", "of": of, "module": ROUTER_MODULE, "routes": routes, "router_ttft_count": count,
+            "router_ttft_p50_s": _histogram_quantile(text, name, 0.5),
+            "router_ttft_mean_s": total / count if count else None, "engine_ttft": engine,
+            "engine_ttft_p50_ms": statistics.median(ms) if ms else None,
+            "client_ttft_s": [round(x, 4) for x in client_ttft_s], "card": card}
+
+
 def _kv_keys(stats: dict) -> dict:
     """The transfer and fabric counters of an engine's stats."""
     return {k: v for k, v in stats.items() if k.startswith(("kv_transfer", "kv_fabric", "kv_offload_device"))}
@@ -4282,14 +4390,14 @@ def _blob_bytes(engine, keys: list) -> list:
     return out
 
 
-async def _stream_ttft(base: str, body: dict) -> float:
+async def _stream_ttft(base: str, body: dict, headers: "dict | None" = None) -> float:
     """One streamed completion: the seconds to its first chunk."""
     import aiohttp
 
     t0 = time.perf_counter()
     ttft = None
     async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
-        async with s.post(base + "/v1/completions", json=dict(body, stream=True)) as r:
+        async with s.post(base + "/v1/completions", json=dict(body, stream=True), headers=headers) as r:
             if r.status != 200:
                 fail(f"disagg: streamed completion -> {r.status}: {await r.text()}")
             async for raw in r.content:
@@ -4305,7 +4413,8 @@ def phase_disagg(launches: "dict | None" = None) -> None:
     """Disaggregated prefill on the one card (docstring, 5f): for each of
     DISAGG_RUNS a producer api_server subprocess and a consumer engine in
     this process behind a port server; the router's two requests driven
-    here; the restored pages, ids, launches and counters checked. The
+    here, then, in the DISAGG_ROUTED run, the same prompt through the port's
+    router; the restored pages, ids, launches and counters checked. The
     launches of the main path are added to ``launches``' D = 64 rows."""
     if launches is None:
         launches = {}
@@ -4429,9 +4538,63 @@ def phase_disagg(launches: "dict | None" = None) -> None:
                     if not both.get("kv_transfer_device"):
                         res["blobs"] = _blob_bytes(engine, keys)
                     res["page_bytes"] = engine.kv_page_bytes
+                    if label == DISAGG_ROUTED[0]:
+                        res["routed"] = await routed(engine, got)
                 finally:
                     await runner.cleanup()
                     engine.stop()
+
+            async def routed(engine, got: dict) -> dict:
+                """The same prompt once more, through the port's router in
+                disaggregated_prefill mode over this producer and consumer,
+                under a fresh request id. The consumer's pools are dropped
+                first (sleep, then wake), so it restores the pages again.
+                The counts before it: the producer's (written at SIGUSR1)
+                and this process's."""
+                import signal
+
+                import aiohttp
+
+                loop = asyncio.get_running_loop()
+                await loop.run_in_executor(None, engine.sleep, 1)
+                await loop.run_in_executor(None, engine.wake_up)
+                out = {"stats0": engine.stats(), "launches0": {k: getattr(fn, attr) for k, (fn, attr) in
+                                                               kernels.items()},
+                       "plain0": {k: fn.calls for k, fn in plains.items()}}
+                usr1 = Path(str(out_json) + ".usr1")
+                proc.send_signal(signal.SIGUSR1)
+                deadline = time.time() + 60
+                while not usr1.exists():
+                    check(time.time() < deadline and proc.poll() is None,
+                          f"disagg {label}: the producer wrote no counts at SIGUSR1")
+                    await asyncio.sleep(0.05)
+                out["producer0"] = json.loads(usr1.read_text())
+                port = _free_port()
+                urls = f"http://127.0.0.1:{pport},http://127.0.0.1:{cport}"
+                router, rlog = _start_router(
+                    port, "--static-backends", urls, "--static-models", "llama-3.2-1b,llama-3.2-1b",
+                    "--static-model-labels", "prefill,decode", "--routing-logic", "disaggregated_prefill",
+                    "--prefill-model-labels", "prefill", "--decode-model-labels", "decode",
+                    "--engine-stats-interval", "1")
+                base = f"http://127.0.0.1:{port}"
+                try:
+                    await loop.run_in_executor(None, _wait_http, base + "/health", router, 120, "the router", rlog)
+                    out["client_ttft_s"] = await _stream_ttft(base, body, {"X-Request-Id": DISAGG_ROUTED[1]})
+                    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=60)) as s:
+                        async with s.get(base + "/metrics") as r:
+                            out["router_metrics"] = await r.text()
+                        out["slo"] = {}
+                        for who, u in (("producer", pport), ("consumer", cport)):
+                            async with s.get(f"http://127.0.0.1:{u}/slo_records?since=0") as r:
+                                out["slo"][who] = await r.json()
+                finally:
+                    _stop_proc(router)
+                out["launches"] = {k: getattr(fn, attr) - out["launches0"][k] for k, (fn, attr) in kernels.items()}
+                out["plain_calls"] = {k: fn.calls - out["plain0"][k] for k, fn in plains.items()}
+                out["stats"] = engine.stats()
+                row = got.get(DISAGG_ROUTED[1], {"ids": [], "cached": 0})
+                out["ids"], out["cached"] = row["ids"], row["cached"]
+                return out
 
             asyncio.run(consumer())
         finally:
@@ -4461,20 +4624,50 @@ def phase_disagg(launches: "dict | None" = None) -> None:
         r["cold_ids"], r["lp_diff"] = c["ids"], lp_diff(r["logprobs"], c["logprobs"])
         pages = (st.get("kv_fabric_received_pages_total", 0) + st["kv_transfer_received_chunks_total"]
                  + st["kv_transfer_device_pages_total"])
+        # the producer's counts of the direct pair: in the DISAGG_ROUTED run,
+        # those of its SIGUSR1 snapshot, before the routed request
+        prod = r["routed"]["producer0"] if "routed" in r else r["producer"]
         emit({
             "phase": "disagg", "transport": r["label"], "model": "llama-3.2-1b", "pages": pages,
             "mib": round(pages * r["page_bytes"] / 2**20, 3),
             "blob_bytes": st["kv_transfer_received_bytes_total"],
-            "push_s": round(r["producer"]["push_s"], 4), "push_calls": r["producer"]["push_calls"],
+            "push_s": round(prod["push_s"], 4), "push_calls": prod["push_calls"],
             "prefill_request_s": round(r["prefill_request_s"], 4),
             "consumer_ttft_s": round(r["ttft_s"], 4), "cold_ttft_s": round(c["ttft_s"], 4),
             "cached_tokens": r["cached"], "ids": r["ids"], "cold_ids": r["cold_ids"],
             "logprob_max_diff_vs_cold": round(r["lp_diff"], 5), "logprob_tol": DISAGG_LOGPROB_TOL,
-            "producer_launches": r["producer"]["launches"], "consumer_launches": r["launches"],
+            "producer_launches": prod["launches"], "consumer_launches": r["launches"],
             # [calls, seconds] of the transfer's steps in each process
-            "producer_parts": r["producer"]["parts"], "consumer_parts": r["parts"],
+            "producer_parts": prod["parts"], "consumer_parts": r["parts"],
             "card": card,
         })
+    routed_run = next(r for r in runs if r["label"] == DISAGG_ROUTED[0])
+    rt = routed_run["routed"]
+    final = routed_run["producer"]
+    rt["producer_launches"] = {k: final["launches"][k] - rt["producer0"]["launches"][k] for k in final["launches"]}
+    rt["producer_plain_calls"] = {k: final["plain_calls"][k] - rt["producer0"]["plain_calls"][k]
+                                  for k in final["plain_calls"]}
+    rt["restored"] = rt["stats"]["kv_offload_hit_pages_total"] - rt["stats0"]["kv_offload_hit_pages_total"]
+    emit(_router_line("disagg", rt["router_metrics"],
+                      {who: _first_records({who: rt["slo"][who]}, [DISAGG_ROUTED[1]])[DISAGG_ROUTED[1]]
+                       for who in ("producer", "consumer")}, [rt["client_ttft_s"]], card))
+    emit({"phase": "disagg", "transport": DISAGG_ROUTED[0], "through": ROUTER_MODULE, "ids": rt["ids"],
+          "direct_ids": routed_run["ids"], "cached_tokens": rt["cached"], "restored_pages": rt["restored"],
+          "producer_launches": rt["producer_launches"], "consumer_launches": rt["launches"], "card": card})
+    fp = SERVE_ROWS[False]
+    check(rt["ids"] == routed_run["ids"],
+          f"disagg through the router: ids {rt['ids']} != the direct run's {routed_run['ids']}")
+    check(rt["restored"] >= DISAGG_PAGES and rt["cached"] == 64 * DISAGG_PAGES,
+          f"disagg through the router: the consumer restored {rt['restored']} pages, cached {rt['cached']}")
+    check(rt["producer_launches"][fp[1]] > 0 and rt["producer_launches"][fp[2]] > 0
+          and rt["producer_launches"][fp[0]] == 0,
+          f"disagg through the router: producer launches {rt['producer_launches']}")
+    check(rt["launches"][fp[0]] > 0 and rt["launches"][fp[1]] == 16,
+          f"disagg through the router: consumer launches {rt['launches']}")
+    check(all(n == 0 for n in list(rt["plain_calls"].values()) + list(rt["producer_plain_calls"].values())),
+          f"disagg through the router: plain versions ran {rt['plain_calls']} / {rt['producer_plain_calls']}")
+    for k in fp:  # the producer's are in its final counts, added below
+        launches[_dtag(k, 64)] = launches.get(_dtag(k, 64), 0) + rt["launches"][k]
     for r in runs:
         label, st, pst, prod = r["label"], r["stats"], r["producer_stats"], r["producer"]
         quant = "int8" in label
@@ -4575,7 +4768,7 @@ def _fleet_launches(counters: dict, ident: int) -> dict:
 
 def phase_fleet(launches: "dict | None" = None) -> None:
     """The fleet KV directory and live migration (docstring, 5g): the port's
-    cache server with the directory, engines A and B behind the unchanged
+    cache server with the directory, engines A and B behind the port's
     router's kvaware routing, one stream migrated A -> B through the shared
     tier and B -> A over the fabric, a second request routed by the
     directory, and engine C's boot prefetch. The launches of its engines are
@@ -4584,7 +4777,6 @@ def phase_fleet(launches: "dict | None" = None) -> None:
         launches = {}
     import random
     import statistics
-    import tempfile
 
     import aiohttp
     import torch
@@ -4679,13 +4871,9 @@ def phase_fleet(launches: "dict | None" = None) -> None:
             servers[label] = (server.engine, runner, f"http://127.0.0.1:{cfg.port}")
         eng = {k: v[0] for k, v in servers.items()}
         url = {k: v[2] for k, v in servers.items()}
-        router = subprocess.Popen(
-            [sys.executable, "-m", "production_stack_tpu.router.app", "--host", "127.0.0.1", "--port", str(rport),
-             "--static-backends", f"{url['A']},{url['B']}", "--static-models", "llama-3.2-1b,llama-3.2-1b",
-             "--routing-logic", "kvaware", "--kv-directory-url", cache_url, "--engine-stats-interval", "1"],
-            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=subprocess.DEVNULL,
-            stderr=(router_log := tempfile.TemporaryFile()),
-        )
+        router, router_log = _start_router(
+            rport, "--static-backends", f"{url['A']},{url['B']}", "--static-models", "llama-3.2-1b,llama-3.2-1b",
+            "--routing-logic", "kvaware", "--kv-directory-url", cache_url, "--engine-stats-interval", "1")
         procs.append(router)
         base = f"http://127.0.0.1:{rport}"
         try:
@@ -4775,6 +4963,9 @@ def phase_fleet(launches: "dict | None" = None) -> None:
             rtext = await metrics_text(base)
             res["router"] = {n: metric(rtext, f"vllm_router:{n}")
                              for n in ("session_repins_total", "migration_splice_failures_total")}
+            slo = {k: await get_json(url[k] + "/slo_records?since=0") for k in ("A", "B")}
+            res["router_line"] = _router_line("fleet", rtext, _first_records(slo, [rid, "fleet-second"]),
+                                              [client["times"][0], second["times"][0]], card)
             res["cache_metrics"] = await metrics_text(f"http://127.0.0.1:{mport}")
             res["dump"] = await asyncio.get_running_loop().run_in_executor(None, dir_request, {"op": "dir_dump"})
             # engine C: boots with the fleet's warmest chunks prefetched (the
@@ -4860,6 +5051,7 @@ def phase_fleet(launches: "dict | None" = None) -> None:
                                                       "directory_resident": named, "prefix_hit_pages": second["hits"],
                                                       "route_classes": second["routes"]},
           "card": card})
+    emit(res["router_line"])
     emit({"phase": "fleet", "engine": "C", "boot_prefetch_pages": cboot_pages,
           "boot_prefetch_s": round(cboot_s, 4), "first_ttft_s": round(cfirst["ttft_s"], 4),
           "cold_engine_first_ttft_s": round(res["cold_ttft_s"], 4), "first_cached_tokens": cfirst["leg"][4],

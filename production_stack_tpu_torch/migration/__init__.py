@@ -7,11 +7,19 @@ snapshotted into a sealed wire document, shipped to another engine, and
 resumed mid-stream with bit-identical greedy continuation. The router splices
 the continued SSE stream so the client sees one uninterrupted response.
 
-The fleet controller that decides rebalance, drain and warm-up stays the JAX
-package's (``scripts/fleet_controller.py``, a separate process that imports
-no jax): it drives port engines through their ``/migratable`` and
-``/migrate_*`` routes.
+``controller`` is the port's copy of the saturation-driven fleet controller
+that decides rebalance, drain and warm-up (``scripts/fleet_controller_torch.py``
+is its CLI): it drives engines through their ``/migratable`` and
+``/migrate_*`` routes, and imports neither the JAX package nor torch.
 """
+
+from production_stack_tpu_torch.migration.controller import (  # noqa: F401
+    Action,
+    BackendView,
+    ControllerPolicy,
+    FleetController,
+    FleetDecider,
+)
 
 from production_stack_tpu_torch.migration.manager import (  # noqa: F401
     MigrationError,

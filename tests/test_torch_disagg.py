@@ -22,8 +22,8 @@ as the reference):
   and unreserve, the staging TTL and byte cap, a dead producer marked and
   failed fast, the per-page fallback to blobs, an offer retired with its
   answer or by age, and a pair whose every page went "device to device";
-- the unchanged JAX router in disaggregated_prefill mode over two port
-  servers streams a monolithic port server's text; /kv_fabric answers as a
+- the port's router in disaggregated_prefill mode over two port servers
+  streams a monolithic port server's text; /kv_fabric answers as a
   JAX server's does and /metrics carries the fabric gauge the router reads;
 - a TCP and fabric pair with a tp 2 (gloo) producer, then a tp 2 consumer;
 - the refusals.
@@ -474,6 +474,9 @@ def _stream_text(base, prompt):
 
 
 def test_the_jax_router_streams_a_monolithic_servers_text_over_two_port_servers(params, engines):
+    """The port's router (the JAX router once, hence the name) in
+    disaggregated_prefill mode over a port producer and consumer streams a
+    monolithic port server's text."""
     loop = _Loop()
     servers = []
     try:
@@ -488,7 +491,7 @@ def test_the_jax_router_streams_a_monolithic_servers_text_over_two_port_servers(
                            kv_fabric=True, kv_fabric_peer=curl)  # resolved through GET /kv_fabric
         _, murl = serve()
         rport = free_port()
-        router = start_proc(["-m", "production_stack_tpu.router.app", "--port", str(rport),
+        router = start_proc(["-m", "production_stack_tpu_torch.router.app", "--port", str(rport),
                              "--static-backends", f"{purl},{curl}", "--static-models", "m,m",
                              "--static-model-labels", "prefill,decode", "--routing-logic", "disaggregated_prefill",
                              "--prefill-model-labels", "prefill", "--decode-model-labels", "decode",
@@ -512,7 +515,7 @@ def test_the_jax_router_streams_a_monolithic_servers_text_over_two_port_servers(
         assert info["enabled"] and info["addr"] == cons._fabric_server.address and info["page_size"] == 8
         assert requests.get(f"{murl}/kv_fabric", timeout=10).json() == {"enabled": False}
         # the gauge the router's decode pick scrapes, as its scraper reads it
-        from production_stack_tpu.router.engine_stats import EngineStats
+        from production_stack_tpu_torch.router.engine_stats import EngineStats
 
         text = requests.get(f"{purl}/metrics", timeout=10).text
         assert 'vllm:kv_fabric_peer_bandwidth_bytes_per_sec{model_name="m",peer="none"} 0' in text

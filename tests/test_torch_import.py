@@ -1,7 +1,10 @@
 """The PyTorch port stands alone: it imports with jax blocked, loads no module
-of the JAX package, its sources name neither, its entry points run on the
-card unless the caller asks for the CPU, and it refuses what it lacks."""
+of the JAX package, its sources name neither and start none of its modules by
+name, its router and fleet controller run with jax and torch blocked, its
+entry points run on the card unless the caller asks for the CPU, and it
+refuses what it lacks."""
 
+import json
 import pathlib
 import re
 import subprocess
@@ -47,13 +50,81 @@ def test_every_module_imports_with_jax_blocked():
     )
     assert out.returncode == 0, out.stderr[-2000:]
     names = set(out.stdout.strip().splitlines()[-1].split())
-    assert len(names) >= 37  # every module was walked, the int8 KV, offload, stack-service and fabric ones among them
+    # every module was walked: the int8 KV, offload, stack-service, fabric
+    # and router ones among them
+    assert len(names) >= 89
     for mod in ("ops.quant", "engine.linkprobe", "kvoffload.serde", "kvoffload.protocol", "kvoffload.tiers",
                 "kvoffload.connector", "parallel.group", "parallel.tp", "parallel.dp", "parallel.ep", "engine.distributed",
                 "tracing.context", "tracing.collector", "kvoffload.cache_server", "kvoffload.controller",
                 "kvoffload.warmstart", "kvoffload.transfer", "kvfabric", "kvfabric.wire", "kvfabric.peers",
-                "kvfabric.client", "kvfabric.server"):
+                "kvfabric.client", "kvfabric.server", "migration.controller", "utils.signals", "router", "router.app",
+                "router.batch_service", "router.callbacks", "router.dynamic_config", "router.engine_stats",
+                "router.feature_gates", "router.files_service", "router.hashtrie", "router.parser", "router.pii",
+                "router.request_service", "router.request_stats", "router.resilience", "router.rewriter",
+                "router.routing_logic", "router.semantic_cache", "router.service_discovery", "router.slo",
+                "router.utils"):
         assert f"production_stack_tpu_torch.{mod}" in names
+
+
+# runs a module (``-m``) or a script of the port, its arguments after it,
+# with jax and torch blocked, and prints at exit what it loaded of the JAX
+# package and whether torch was loaded
+_BLOCKED = r"""
+import atexit, runpy, sys
+sys.modules["jax"] = sys.modules["torch"] = None  # an import of either raises
+atexit.register(lambda: print("LOADED", sorted(
+    m for m in sys.modules if m == "production_stack_tpu" or m.startswith("production_stack_tpu.")),
+    sys.modules["torch"] is not None, flush=True))
+target, sys.argv = sys.argv[1], sys.argv[1:]
+if target.endswith(".py"):
+    runpy.run_path(target, run_name="__main__")
+else:
+    runpy.run_module(target, run_name="__main__", alter_sys=True)
+"""
+
+
+def test_the_router_and_the_fleet_controller_run_with_jax_and_torch_blocked():
+    """``python -m production_stack_tpu_torch.router.app`` serves /health and
+    /metrics with kvaware routing (the tokenizer and the directory client
+    loaded) and drains on SIGTERM, and scripts/fleet_controller_torch.py
+    makes a tick, with neither jax nor torch importable; neither loads a
+    module of the JAX package."""
+    import signal
+    import socket
+    import time
+    import urllib.request
+
+    def free_port():
+        with socket.socket() as s:
+            s.bind(("127.0.0.1", 0))
+            return s.getsockname()[1]
+
+    port, dead = free_port(), f"http://127.0.0.1:{free_port()}"
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "PSTPU_DRAIN_NOTICE": "0"}
+    router = subprocess.Popen(
+        [sys.executable, "-c", _BLOCKED, "production_stack_tpu_torch.router.app", "--host", "127.0.0.1", "--port",
+         str(port), "--static-backends", dead, "--static-models", "m", "--routing-logic", "kvaware",
+         "--kv-directory-url", "127.0.0.1:1"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        deadline = time.time() + 60
+        while True:
+            assert router.poll() is None and time.time() < deadline, router.stdout.read()[-3000:]
+            try:
+                with urllib.request.urlopen(f"http://127.0.0.1:{port}/metrics", timeout=2) as r:
+                    assert b"vllm_router:kvaware_v2_cold_routes_total 0" in r.read()
+                break
+            except OSError:
+                time.sleep(0.2)
+        router.send_signal(signal.SIGTERM)
+        out = router.communicate(timeout=60)[0]
+    finally:
+        router.kill()
+    assert router.returncode == 0 and "LOADED [] False" in out, out[-3000:]
+    ctl = subprocess.run([sys.executable, "-c", _BLOCKED, "scripts/fleet_controller_torch.py", "--engines", dead,
+                          "--once"], cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
+    assert ctl.returncode == 0 and "LOADED [] False" in ctl.stdout, ctl.stdout[-2000:] + ctl.stderr[-2000:]
+    assert json.loads(ctl.stdout[ctl.stdout.index("["):ctl.stdout.index("LOADED")]) == []
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|production_stack_tpu(?!_torch))\b", re.M)
@@ -64,13 +135,39 @@ PORT_SCRIPTS = sorted(
 )
 
 
-@pytest.mark.parametrize(
-    "path",
-    sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"] + PORT_SCRIPTS,
-)
+_PORT_SOURCES = sorted(str(p.relative_to(REPO)) for p in PKG.rglob("*.py")) + ["chip_smoke.py"] + PORT_SCRIPTS
+
+
+@pytest.mark.parametrize("path", _PORT_SOURCES)
 def test_source_imports_neither_jax_nor_the_jax_package(path):
     text = (REPO / path).read_text()
     assert not _FORBIDDEN.search(text), _FORBIDDEN.search(text).group(0)
+
+
+# a module of the JAX package started or loaded by its name: an argument
+# after ``-m`` (in a list or a command line), importlib.import_module, or
+# runpy's run_module
+_STARTED = re.compile(
+    r"""(-m["']?\s*,?\s*["']?|import_module\(\s*f?["']|run_module\(\s*f?["'])production_stack_tpu(?!_torch)\b""")
+
+
+def test_the_started_by_name_guard_sees_each_form():
+    for text in ('[sys.executable, "-m", "production_stack_tpu.router.app"]',
+                 "start_proc(['-m', 'production_stack_tpu.engine.api_server'])",
+                 "python -m production_stack_tpu.router.app --port 8000",
+                 'importlib.import_module("production_stack_tpu.router.parser")',
+                 "runpy.run_module('production_stack_tpu.router.app', run_name='__main__')"):
+        assert _STARTED.search(text), text
+    for text in ('[sys.executable, "-m", "production_stack_tpu_torch.router.app"]',
+                 'importlib.import_module(f"production_stack_tpu_torch.{name}")',
+                 '"replaces": "production_stack_tpu/ops/pallas/paged_attention.py:67"'):
+        assert not _STARTED.search(text), text
+
+
+@pytest.mark.parametrize("path", _PORT_SOURCES)
+def test_source_starts_no_module_of_the_jax_package_by_name(path):
+    text = (REPO / path).read_text()
+    assert not _STARTED.search(text), _STARTED.search(text).group(0)
 
 
 @pytest.fixture

@@ -8,7 +8,7 @@ the cache server that hosts it) against the JAX package's, on the CPU.
   a snapshot of either package loads into the other.
 - The cache server over the wire: a port and a JAX cache server take the
   same frames and give the JAX ``DirectoryClient`` the same answers, the
-  router's kvaware v2 ranking the same pick, and their ``--metrics-port``
+  port's router's kvaware v2 ranking the same pick, and their ``--metrics-port``
   pages the same ``vllm:kv_directory_*`` series.
 - The publisher and the puller (TestPublisherWire, TestPublisherBounds,
   TestPullerWire, and tests/test_kvfabric.py TestDirectoryPullerFabric) on
@@ -44,8 +44,6 @@ from production_stack_tpu.kvdirectory import DirectoryClient as JaxDirectoryClie
 from production_stack_tpu.kvdirectory import directory as jdirectory
 from production_stack_tpu.kvoffload import cache_server as jcache_server
 from production_stack_tpu.models import llama as jllama
-from production_stack_tpu.router.routing_logic import KvawareRouter
-from production_stack_tpu.router.service_discovery import EndpointInfo
 from production_stack_tpu.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig
@@ -61,6 +59,8 @@ from production_stack_tpu_torch.kvoffload.protocol import BlockingClient
 from production_stack_tpu_torch.kvoffload.serde import get_serde
 from production_stack_tpu_torch.kvoffload.tiers import TieredKVStore
 from production_stack_tpu_torch.models import llama as tllama
+from production_stack_tpu_torch.router.routing_logic import KvawareRouter
+from production_stack_tpu_torch.router.service_discovery import EndpointInfo
 
 MODEL = "llama-debug-4kv-f32"
 A, B, C = "http://a:1", "http://b:1", "http://c:1"

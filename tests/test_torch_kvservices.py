@@ -8,7 +8,7 @@ the remote-tier corruption cases) and tests/test_warm_restart.py
 a port engine on the f32 twin, each over its own cache server and
 controller, put the same keys into their servers (blobs alike in headers
 but the checksum, K/V within 2e-5), answer the same controller lookups and write
-the same warm manifests but for times and generations; the unchanged JAX
+the same warm manifests but for times and generations; the port's
 router's kvaware routing sends a prompt to the port engine that holds its
 prefix; and a port engine restarted over the same disk tier or cache server,
 at tp 1 and at tp 2, hits at least half of its prefix pages on its first
@@ -530,7 +530,7 @@ def test_the_engine_reports_admits_to_the_controller_under_its_advertised_url(lo
 
 
 def test_kvaware_router_sends_a_prefix_to_the_port_engine_that_holds_it(loop):
-    """The unchanged JAX router with --routing-logic kvaware in front of two
+    """The port's router with --routing-logic kvaware in front of two
     port engines that report to the port's controller: each of two long
     prompts, first served by one engine directly (so the router's own
     prefix trie knows nothing), goes through the router to that engine."""
@@ -543,7 +543,7 @@ def test_kvaware_router_sends_a_prefix_to_the_port_engine_that_holds_it(loop):
         engines.append(loop.run(port_server.serve(cfg, LLMEngine(cfg, device="cpu"), device="cpu")))
         urls.append(f"http://127.0.0.1:{cfg.port}")
     rport = free_port()
-    router = start_proc(["-m", "production_stack_tpu.router.app", "--port", str(rport),
+    router = start_proc(["-m", "production_stack_tpu_torch.router.app", "--port", str(rport),
                          "--static-backends", ",".join(urls), "--static-models", "m,m",
                          "--routing-logic", "kvaware", "--kv-controller-url", f"127.0.0.1:{cport}",
                          "--engine-stats-interval", "1"])

@@ -12,12 +12,13 @@ against the JAX package's, on the CPU.
 - Across the packages over HTTP, a JAX server to a port server and back,
   both over one cache server: the spliced ids equal the unmigrated run's,
   and with a port target the client's text too.
-- The unchanged JAX router splices a port engine's migrated stream into one
+- The port's router splices a port engine's migrated stream into one
   stream whose text and usage equal an unmigrated run's
   (test_real_engine_http_migration_via_router); a ship to a dead target
   rolls back and the stream finishes on its source.
-- The unchanged fleet controller (scripts/fleet_controller.py --once) over
-  a port engine and a JAX engine migrates a stream off the port engine.
+- The JAX package's fleet controller (scripts/fleet_controller.py --once)
+  over a port engine and a JAX engine migrates a stream off the port engine
+  (the port's own controller: tests/test_torch_router.py).
 - int8 pools: a migration's explicit-page fabric handoff lands the source's
   int8 pages and scales bit for bit (test_int8_migration_handoff_bit_identical).
 - A tp 2 source (gloo ranks) migrates to a tp 1 target with the f32 tokens
@@ -553,7 +554,7 @@ def test_greedy_continuation_across_the_packages_over_http(params, direction):
 
 def _start_router(urls):
     port = free_port()
-    proc = start_proc(["-m", "production_stack_tpu.router.app", "--port", str(port), "--static-backends",
+    proc = start_proc(["-m", "production_stack_tpu_torch.router.app", "--port", str(port), "--static-backends",
                        ",".join(urls), "--static-models", ",".join(["m"] * len(urls)), "--engine-stats-interval",
                        "1", "--retry-backoff-base", "0.01"])
     return proc, f"http://127.0.0.1:{port}"
@@ -581,7 +582,7 @@ def pair(params):
 
 
 def test_real_engine_http_migration_via_router(pair):
-    """The unchanged JAX router in front of two port servers: a stream
+    """The port's router in front of two port servers: a stream
     migrated mid-decode reaches the client as one stream (no control
     event, [DONE] once) whose text and usage equal an unmigrated run's; the
     router counts the re-pin and the engines the migration."""

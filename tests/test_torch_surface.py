@@ -9,8 +9,8 @@ the same requests in the same order, then
   log and for a snapshot that keeps racing appends;
 - ``/stats`` and ``/metrics``: the same keys and series, but for those of
   features the port refuses, each listed with the switch that refuses it;
-- the router's own ``EngineStats.from_scrape`` and ``SLOMonitor.ingest`` read
-  both engines alike;
+- the router's own ``EngineStats.from_scrape`` and ``SLOMonitor.ingest``, the
+  JAX router's and the port's, read both engines alike;
 - sleep level 1 and level 2: 503 while asleep, then the greedy text of
   before the sleep and of the JAX engine; level 2 puts back every parameter
   byte for byte, with a tied head still the embedding itself;
@@ -52,6 +52,9 @@ from production_stack_tpu_torch.engine.model_loader import params_from_jax
 from production_stack_tpu_torch.engine.runner import ModelRunner, StepInput
 from production_stack_tpu_torch.engine.tokenizer import ByteTokenizer as PortByteTokenizer
 from production_stack_tpu_torch.models import llama as tllama
+from production_stack_tpu_torch.router.engine_stats import EngineStats as PortEngineStats
+from production_stack_tpu_torch.router.slo import SLOMonitor as PortSLOMonitor
+from production_stack_tpu_torch.router.utils import SingletonMeta as PortSingletonMeta
 
 MODEL = "llama-debug-4kv-f32"
 # the CPU tier is on in both, so the offload series are compared too; an
@@ -300,29 +303,39 @@ def test_metrics_series_match_but_for_refused_features(servers):
 
 
 def test_the_routers_scraper_reads_a_port_engine_as_a_jax_engine(servers):
-    j = EngineStats.from_scrape(servers.got["jax"]["metrics"])
-    p = EngineStats.from_scrape(servers.got["port"]["metrics"])
-    assert p == j
-    assert p.tensor_parallel == 1.0 and p.kv_cache_dtype_bytes_per_token > 0 and p.gpu_prefix_cache_hits_total > 0
+    """The JAX router's scraper and the port's read both engines alike."""
+    got = []
+    for stats in (EngineStats, PortEngineStats):
+        j = stats.from_scrape(servers.got["jax"]["metrics"])
+        p = stats.from_scrape(servers.got["port"]["metrics"])
+        assert p == j
+        assert p.tensor_parallel == 1.0 and p.kv_cache_dtype_bytes_per_token > 0 and p.gpu_prefix_cache_hits_total > 0
+        got.append(dataclasses.asdict(p))
+    assert got[1] == got[0]
 
 
 def test_the_routers_slo_monitor_reads_a_port_engine_as_a_jax_engine(servers):
-    saved = SingletonMeta._instances.pop(SLOMonitor, None)
-    try:
-        mon = SLOMonitor(ttft_ms=1e9, itl_ms=1e9)  # every ok record attains: times differ by package
-        counts = {tag: mon.ingest(tag, servers.got[tag]["slo"][0]) for tag in ("jax", "port")}
-        assert counts["port"] == counts["jax"] == len(REQUESTS)
-        assert mon.cursor("port") == mon.cursor("jax") == len(REQUESTS)
-        lines = {tag: sorted(l.replace(f'server="{tag}"', "server=S") for l in mon.render() if f'"{tag}"' in l)
-                 for tag in ("jax", "port")}
-        assert lines["port"] == lines["jax"] and lines["port"]
-        assert mon.interactive_attainment("port") == mon.interactive_attainment("jax") == 1.0
-        # a head below the cursor is an engine restart: the cursor resets
-        assert mon.ingest("port", servers.got["port"]["empty"][0]) == 0 and mon.cursor("port") == 0
-    finally:
-        SingletonMeta._instances.pop(SLOMonitor, None)
-        if saved is not None:
-            SingletonMeta._instances[SLOMonitor] = saved
+    """The JAX router's SLO monitor and the port's read both engines alike."""
+    renders = []
+    for monitor, singletons in ((SLOMonitor, SingletonMeta), (PortSLOMonitor, PortSingletonMeta)):
+        saved = singletons._instances.pop(monitor, None)
+        try:
+            mon = monitor(ttft_ms=1e9, itl_ms=1e9)  # every ok record attains: times differ by package
+            counts = {tag: mon.ingest(tag, servers.got[tag]["slo"][0]) for tag in ("jax", "port")}
+            assert counts["port"] == counts["jax"] == len(REQUESTS)
+            assert mon.cursor("port") == mon.cursor("jax") == len(REQUESTS)
+            lines = {tag: sorted(l.replace(f'server="{tag}"', "server=S") for l in mon.render() if f'"{tag}"' in l)
+                     for tag in ("jax", "port")}
+            assert lines["port"] == lines["jax"] and lines["port"]
+            assert mon.interactive_attainment("port") == mon.interactive_attainment("jax") == 1.0
+            # a head below the cursor is an engine restart: the cursor resets
+            assert mon.ingest("port", servers.got["port"]["empty"][0]) == 0 and mon.cursor("port") == 0
+            renders.append(lines)
+        finally:
+            singletons._instances.pop(monitor, None)
+            if saved is not None:
+                singletons._instances[monitor] = saved
+    assert renders[1] == renders[0]
 
 
 def _param_bytes(model) -> dict:

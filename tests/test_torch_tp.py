@@ -74,6 +74,7 @@ from production_stack_tpu_torch.models import opt as topt
 from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention_sharded
 from production_stack_tpu_torch.parallel.group import check_backend
 from production_stack_tpu_torch.parallel.tp import rank_slice, shard_params, split_axis
+from production_stack_tpu_torch.router.engine_stats import EngineStats as PortEngineStats
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy
 from production_stack_tpu_torch.utils.safetensors_io import SafetensorsDir, save_file, save_sharded
 from test_torch_surface import _Loop
@@ -595,6 +596,7 @@ def test_http_tp2_server_serves_tp1_text_and_advertises_its_shape():
     rows = re.findall(r'vllm:kv_pool_shard_bytes\{[^}]*device="([^"]+)"[^}]*\} (\d+)', m)
     assert [d for d, _ in rows] == ["cpu:0/tp0", "cpu:0/tp1"] and len({v for _, v in rows}) == 1
     assert EngineStats.from_scrape(m).tensor_parallel == 2
+    assert PortEngineStats.from_scrape(m).tensor_parallel == 2  # the port's router reads it alike
 
 
 _LEADER = """

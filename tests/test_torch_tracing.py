@@ -9,7 +9,7 @@ on the f32 twin answer the same request under one caller's traceparent with
 ``/v1/traces`` exports of the same span names, parent links and attribute
 keys; the port's flight recorder carries the trace id on its "sched" events;
 ``/metrics/reset`` empties the windows; the debug routes exist only with
-``enable_debug_endpoints``; and the unchanged JAX router (a subprocess) in
+``enable_debug_endpoints``; and the port's router (a subprocess) in
 front of a JAX engine and a port engine gets both to answer, each engine's
 spans nested under the router's, which scripts/trace_report merges.
 """
@@ -361,10 +361,11 @@ def test_the_ttft_watermark_and_a_shed_burst_dump_the_recorder(tmp_path):
 
 
 def test_the_jax_router_nests_a_jax_and_a_port_engines_spans_under_its_own(tmp_path):
-    """The unchanged JAX router (a subprocess, round robin) in front of a JAX
-    engine and a port engine serving the same model name: both answer, and
-    in every routed trace the engine's request span is the child of the
-    router's proxy span; trace_report merges the three exports."""
+    """The port's router (the JAX router once, hence the name; a subprocess,
+    round robin) in front of a JAX engine and a port engine serving the same
+    model name: both answer, and in every routed trace the engine's request
+    span is the child of the router's proxy span; trace_report merges the
+    three exports."""
 
     class _Loop:
         def __init__(self):
@@ -385,13 +386,15 @@ def test_the_jax_router_nests_a_jax_and_a_port_engines_spans_under_its_own(tmp_p
     psrv, prun = loop.run(port_server.serve(pcfg, pengine, device="cpu"))
     urls = [f"http://127.0.0.1:{jcfg.port}", f"http://127.0.0.1:{pcfg.port}"]
     rport = free_port()
-    router = start_proc(["-m", "production_stack_tpu.router.app", "--port", str(rport),
+    router = start_proc(["-m", "production_stack_tpu_torch.router.app", "--port", str(rport),
                          "--static-backends", ",".join(urls), "--static-models", "m,m",
                          "--routing-logic", "roundrobin", "--engine-stats-interval", "1",
                          "--enable-debug-endpoints"])
     router_url = f"http://127.0.0.1:{rport}"
     try:
         wait_healthy(f"{router_url}/health", router, timeout=60)
+        for u in urls:  # each package's span ring holds only this test's traces
+            assert requests.post(f"{u}/metrics/reset", timeout=10).status_code == 200
         ids = []
         for i in range(4):
             r = requests.post(f"{router_url}/v1/completions",
