@@ -64,7 +64,7 @@ non-zero exit (nothing is caught):
                tensors written), and its forward checked as in phase 3;
                then opt-125m's directory (float16, as published); after
                the serve runs below, mixtral-8x7b's (its published
-               config.json cut to 16 of its 32 layers, 47 GB of bf16
+               config.json cut to 8 of its 32 layers, 23 GB of bf16
                shards, written after free disk and host memory are
                checked and printed), loaded and checked the same way.
 5. serve    -- the port's OpenAI server in-process on localhost, eight
@@ -310,6 +310,23 @@ non-zero exit (nothing is caught):
                place hold byte-identical pools ("sp_ranks" lines); the f32
                copy of RANK_LLAMA's greedy tokens at sp 2 against one
                rank's ("sp_f32_tokens").
+5k. LoRA on ranks -- inside 5b, 5c, 5h, 5i and 5j: the engines of the
+               rank paths serve LoRA. Each one-rank reference loads its
+               adapters (RANK_LLAMA's own two, rank 8 and 16 on all seven
+               targets; llama-3.2-1b's at sp; mixtral-8x7b's on its
+               attention at ep) and puts rows on them ("lora_reference":
+               each adapter row moved off base by more than
+               FORWARD_LOGIT_BOUND); each rank engine's logits check loads
+               the same adapters first and unloads them after, and a
+               "lora_ranks" line holds the adapter rows to
+               FORWARD_LOGIT_BOUND of one rank's and gives each rank's LoRA
+               buffer bytes (runner.rank_stats) against one rank's (tp 2,
+               dp 2, pp 2, pp 2 x tp 2, sp 2, sp 2 x tp 2, ep 2, ep 2 x tp
+               2); the f32 tokens run with base and adapter prompts; the tp
+               2, dp 2, pp 2 x tp 2, sp 2 and ep 2 x tp 2 servers end their
+               main path with the LoRA routes (_lora_requests,
+               LORA_LIGHT_TOKENS a request), whose launches add to their
+               kernel rows. A "phase_seconds" line sums what LoRA added.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -1852,7 +1869,9 @@ async def _lora_requests(server, port: int, adapters: list, full: bool) -> dict:
     under an adapter moves no prefix-cache hit (its salt keeps it off
     base's pages) and its repeat does; an unload while the adapter's
     request is in flight answers 400; a request for an unloaded adapter
-    404; a reload gets a fresh salt and none of the old pages."""
+    404; a reload gets a fresh salt and none of the old pages. Without
+    ``full`` each request is LORA_LIGHT_TOKENS tokens long (the rank
+    servers', whose steps cost their collectives), with it 24."""
     import random
 
     import aiohttp
@@ -1866,7 +1885,7 @@ async def _lora_requests(server, port: int, adapters: list, full: bool) -> dict:
             async with s.post(base + path, json=body) as r:
                 return r.status, await r.json()
 
-        def greedy(prompt, model=None, max_tokens=24):
+        def greedy(prompt, model=None, max_tokens=24 if full else LORA_LIGHT_TOKENS):
             body = {"prompt": prompt, "max_tokens": max_tokens, "temperature": 0.0, "ignore_eos": True,
                     "logprobs": 1}
             return dict(body, model=model) if model else body
@@ -1884,10 +1903,11 @@ async def _lora_requests(server, port: int, adapters: list, full: bool) -> dict:
         out["models"] = [(m["id"], m.get("parent")) for m in models]
         check(out["models"] == [(server.cfg.name, None)] + sorted((n, server.cfg.name) for n, _ in adapters),
               f"lora: /v1/models lists {out['models']}")
-        # 575 bytes + BOS: a repeat hits 8 cached pages and recomputes the
-        # last 64 tokens in the first run's second chunk shape (as in
+        # a chunk and 63 bytes + BOS (575 at the default chunk of 512): a
+        # repeat hits the chunk's cached pages and recomputes the last 64
+        # tokens in the first run's second chunk shape (as in
         # _serve_requests), so greedy output repeats bit for bit
-        prompt = _prompt(rng, 575)
+        prompt = _prompt(rng, server.cfg.prefill_chunk + 63)
         st, b0 = await post("/v1/completions", greedy(prompt))
         check(st == 200, f"lora: base request -> {st}")
         solo = {None: result(b0)}
@@ -1910,9 +1930,10 @@ async def _lora_requests(server, port: int, adapters: list, full: bool) -> dict:
         check(all(st == 200 for st, _ in both), f"lora: base and adapter together -> {[st for st, _ in both]}")
         out["http_together_equal_solo"] = [result(both[0][1]) == solo[None], result(both[1][1]) == solo[name]]
         check(result(both[1][1])[1] != solo[None][1], f"lora: {name} in flight beside base gave base's output")
-        mixed = await _together(engine, prompt, (None, name))
-        same_base = await _together(engine, prompt, (None, None))
-        same_adapter = await _together(engine, prompt, (name, name))
+        tokens = 24 if full else LORA_LIGHT_TOKENS
+        mixed = await _together(engine, prompt, (None, name), tokens)
+        same_base = await _together(engine, prompt, (None, None), tokens)
+        same_adapter = await _together(engine, prompt, (name, name), tokens)
         out["together"] = {"base_beside_adapter_equals_beside_base": mixed[0] == same_base[0],
                            "adapter_beside_base_equals_beside_itself": mixed[1] == same_adapter[1],
                            "adapter_tokens_differ_from_base": mixed[1][0] != mixed[0][0]}
@@ -2246,7 +2267,11 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             res, repeat, first = await _serve_requests(port, series, long_prompt,
                                                        repeat_logprobs=not label.startswith("llama"))
             if lora:
+                t_lora = time.perf_counter()
                 res["lora"] = await _lora_requests(server, port, *lora)
+                res["lora"]["seconds"] = round(time.perf_counter() - t_lora, 3)
+                if ranks > 1:
+                    LORA_SECONDS[f"lora routes {label}"] = res["lora"]["seconds"]
             if extra is not None:
                 res["extra"] = await extra(server, port)
             if sp > 1:
@@ -2298,7 +2323,8 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             res["num_layers"] = server.engine.model_cfg.num_layers
             if sleep_level:
                 surface = await _surface(server, port, sleep_level, repeat, first, res["requests"])
-                emit({"phase": "surface", "model": label, **surface, "card": nvidia_smi_line()})
+                card = await asyncio.to_thread(nvidia_smi_line)
+                emit({"phase": "surface", "model": label, **surface, "card": card})
             return res
         finally:
             await runner.cleanup()
@@ -2405,7 +2431,7 @@ async def _load_numbers(s, base: str, since: int, tokens: int, wall: float) -> d
             "chain_fetch_seconds": stats["engine_loop_chain_fetch_seconds_total"],
             "decode_chained_dispatches_total": stats["decode_chained_dispatches_total"],
             "runahead_prefill_dispatches_total": stats["runahead_prefill_dispatches_total"],
-            "card": nvidia_smi_line()}
+            "card": await asyncio.to_thread(nvidia_smi_line)}
 
 
 async def _staggered(s, base: str, n: int = 8, gap: float = 0.5, max_tokens: int = 64) -> tuple:
@@ -2693,9 +2719,9 @@ DP_FORWARD_ROWS = 4
 FORWARD_PAGES = 128
 
 
-def _tp_inputs(vocab: int, B: int = 2) -> list:
+def _tp_inputs(vocab: int, B: int = 2, lora: bool = False) -> list:
     """The runner's StepInputs of the tp (dp) forward's steps, ``B`` rows,
-    on fresh pages."""
+    on fresh pages; with ``lora`` the rows on adapter slots LORA_ROW_SLOTS."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.runner import StepInput
@@ -2706,7 +2732,8 @@ def _tp_inputs(vocab: int, B: int = 2) -> list:
     ids = rng.randint(0, vocab, (B, n)).astype(np.int32)
     maxp = -(-n // 64)
     common = dict(page_table=np.arange(B * maxp, dtype=np.int32).reshape(B, maxp),
-                  temperature=np.zeros(B, np.float32), top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32))
+                  temperature=np.zeros(B, np.float32), top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32),
+                  lora_ids=np.asarray(LORA_ROW_SLOTS[:B], np.int32) if lora else None)
     steps = [(c * T, T) for c in range(TP_FORWARD_CHUNKS)]
     steps += [(TP_FORWARD_CHUNKS * T + s, 1) for s in range(TP_FORWARD_DECODES)]
     return [
@@ -2716,13 +2743,34 @@ def _tp_inputs(vocab: int, B: int = 2) -> list:
     ]
 
 
-def _tp_logits(engine, rows: int = 2) -> list:
+def _tp_logits(engine, rows: int = 2, lora: "bool | None" = None) -> list:
     """The logits [B, V] of _tp_inputs' chunk and decode step through the
-    engine's runner (every rank), on the CPU; the pools are reset after."""
+    engine's runner (every rank), on the CPU; the pools are reset after. On
+    an engine that serves LoRA (unless ``lora`` is False) the rows take
+    LORA_ROW_SLOTS."""
     runner = engine.runner
-    out = [runner.step(inp)[1].float().cpu() for inp in _tp_inputs(engine.model_cfg.vocab_size, rows)]
+    lora = engine.lora is not None if lora is None else lora
+    out = [runner.step(inp)[1].float().cpu() for inp in _tp_inputs(engine.model_cfg.vocab_size, rows, lora)]
     runner.reset_kv()
     return out
+
+
+def _lora_bytes(engine) -> list:
+    """Each rank's LoRA buffer bytes (runner.rank_stats)."""
+    return [int(r["lora_bytes"]) for r in _rank_rows(engine.runner.rank_stats())]
+
+
+def _with_adapters(engine, adapters, fn):
+    """``fn()`` with ``adapters`` (name, PEFT directory) loaded into the
+    engine (on its loop thread, or inline when it is not running), unloaded
+    after: the main path loads them again over HTTP, into the same slots."""
+    for name, path in adapters:
+        engine.load_lora_adapter(name, path)
+    try:
+        return fn()
+    finally:
+        for name, _ in adapters:
+            engine.unload_lora_adapter(name)
 
 
 def _rank_llama() -> None:
@@ -2733,18 +2781,25 @@ def _rank_llama() -> None:
     llama.PRESETS[RANK_LLAMA] = dataclasses.replace(llama.PRESETS["llama-3.2-1b"], num_layers=RANK_LAYERS)
 
 
-def phase_tp_reference(model: str = RANK_LLAMA, rows: int = 2, prepare=None) -> list:
+def phase_tp_reference(model: str = RANK_LLAMA, rows: int = 2, prepare=None, adapters=()) -> list:
     """tp 1's (dp 1's) logits of _tp_inputs on ``model`` (seeded weights:
     every tp and dp draws the same model), for the tp 2 server's and the dp
-    forward's checks; with ``prepare``, what ``prepare(engine)`` gives."""
+    forward's checks; with ``prepare``, what ``prepare(engine)`` gives. With
+    ``adapters`` the engine serves LoRA with them loaded, its rows on
+    LORA_ROW_SLOTS: a "lora_reference" line gives how far the adapter rows
+    move from the same rows on slot 0 (more than the ranks' bar, or
+    agreeing with one rank's would show nothing) and the buffers' bytes."""
     import torch
 
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import LLMEngine
 
-    engine = LLMEngine(EngineConfig(model=model, num_pages=FORWARD_PAGES))
+    engine = LLMEngine(EngineConfig(model=model, num_pages=FORWARD_PAGES, **(RANK_LORA if adapters else {})))
     try:
-        return prepare(engine) if prepare is not None else _tp_logits(engine, rows)
+        if not adapters:
+            return prepare(engine) if prepare is not None else _tp_logits(engine, rows)
+        return _lora_reference(engine, model, adapters, lambda: _tp_logits(engine, rows),
+                               lambda: _tp_logits(engine, rows, lora=False), LORA_ROW_SLOTS[:rows])
     finally:
         engine.stop()
         del engine
@@ -2752,8 +2807,27 @@ def phase_tp_reference(model: str = RANK_LLAMA, rows: int = 2, prepare=None) -> 
         torch.cuda.empty_cache()
 
 
+def _lora_reference(engine, model: str, adapters, lora_fn, base_fn, slots) -> list:
+    """One rank's logits with ``adapters`` loaded (``lora_fn()``, rows on
+    ``slots``), held apart from the same rows on slot 0 (``base_fn()``):
+    each adapter row must move by more than FORWARD_LOGIT_BOUND, or the
+    ranks' agreement with it would not show the adapter was applied."""
+    t0 = time.perf_counter()
+    ref = _with_adapters(engine, adapters, lora_fn)
+    base = base_fn()
+    LORA_ONE_RANK_BYTES[model] = _lora_bytes(engine)[0]
+    rows = [r for r, slot in enumerate(slots) if slot]
+    moved = {r: max(float((a[r] - b[r]).abs().max()) for a, b in zip(ref, base)) for r in rows}
+    emit({"phase": "lora_reference", "model": model, "adapters": [n for n, _ in adapters], "row_slots": list(slots),
+          "adapter_row_change_vs_base": moved, "bound": FORWARD_LOGIT_BOUND,
+          "lora_bytes": LORA_ONE_RANK_BYTES[model], "seconds": round(time.perf_counter() - t0, 2)})
+    for r, d in moved.items():
+        check(d > FORWARD_LOGIT_BOUND, f"lora_reference[{model}]: row {r}'s adapter moved its logits by {d}")
+    return ref
+
+
 def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, model: str = RANK_LLAMA,
-                  logits_fn=None, steps=None):
+                  logits_fn=None, steps=None, adapters=(), slots=None):
     """``run(engine)``: the engine's logits of _tp_inputs (``rows`` rows) at
     ``mesh`` ({"tp": 2} or {"dp": 2}) against one rank's (``ref``) within the
     forward phases' bar, the flips printed with the reference's top-2
@@ -2762,12 +2836,17 @@ def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, 
     rank's routers take the experts the one rank took (runner.replay_routes,
     a replicated call: no token routed apart by a near-tie, PR 10's rule),
     and the line counts the (layer, token) pairs of the leader's rows where
-    its own router would have picked otherwise."""
+    its own router would have picked otherwise. With ``adapters`` (the
+    reference's, _lora_reference) they are loaded for the check and
+    unloaded after it, the rows on ``slots`` (LORA_ROW_SLOTS by default),
+    and a "lora_ranks" line holds the adapter rows alone to the same bar
+    with each rank's LoRA buffer bytes against one rank's."""
     import torch
 
     against = " x ".join(f"{k} 1" for k in mesh) + (", its experts replayed on every rank" if picks else "")
+    slots = LORA_ROW_SLOTS[:rows] if slots is None else slots
 
-    def run(engine):
+    def logits(engine):
         tape = None
         if logits_fn is not None:
             got = logits_fn(engine)
@@ -2780,6 +2859,13 @@ def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, 
                 tape = engine.runner.route_tape
             finally:
                 engine.runner.replay_routes(None)
+        return got, tape
+
+    def run(engine):
+        t0 = time.perf_counter()
+        got, tape = _with_adapters(engine, adapters, lambda: logits(engine))
+        if adapters:
+            _lora_ranks_line(engine, got, ref, phase, mesh, model, adapters, slots, time.perf_counter() - t0)
         diffs = [float((a - b).abs().max()) for a, b in zip(got, ref)]
         top1 = float(torch.cat([a.argmax(-1) == b.argmax(-1) for a, b in zip(got, ref)]).double().mean())
         flips = []  # where the two runs' best tokens differ: the reference's two best logits there
@@ -2807,6 +2893,34 @@ def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, 
         return out
 
     return run
+
+
+def _lora_ranks_line(engine, got, ref, phase, mesh, model, adapters, slots, seconds) -> None:
+    """The "lora_ranks" line of a logits check with adapters: the adapter
+    rows' largest logit difference from one rank's, held to
+    FORWARD_LOGIT_BOUND, their top-1 agreement and flips with the
+    reference's top-2 margin there (the check's line holds every row's
+    top-1 to FORWARD_TOP1_MIN: an adapter row alone gives as few as ten
+    steps), each rank's LoRA buffer bytes against the one-rank reference's,
+    and the check's seconds (loads, steps, unloads)."""
+    import torch
+
+    rows = [r for r, slot in enumerate(slots) if slot]
+    diff = max(float((a[rows] - b[rows]).abs().max()) for a, b in zip(got, ref))
+    top1 = float(torch.cat([a[rows].argmax(-1) == b[rows].argmax(-1) for a, b in zip(got, ref)]).double().mean())
+    flips = [{"step": s, "row": r, "reference_top2_margin": float(b[r].topk(2).values.diff().abs())}
+             for s, (a, b) in enumerate(zip(got, ref)) for r in rows if a[r].argmax() != b[r].argmax()]
+    per_rank = _lora_bytes(engine)
+    one = LORA_ONE_RANK_BYTES.get(model)
+    LORA_SECONDS[f"{phase} {mesh}"] = seconds
+    emit({"phase": "lora_ranks", "model": model, **mesh, "of": phase, "adapters": [n for n, _ in adapters],
+          "row_slots": list(slots), "adapter_rows": rows, "max_logit_diff": diff, "top1_agreement": top1,
+          "argmax_flips": flips, "bound": FORWARD_LOGIT_BOUND, "lora_bytes_by_rank": per_rank,
+          "one_rank_lora_bytes": one, "rank_share_of_one_rank": [b / one for b in per_rank] if one else None,
+          "seconds": round(seconds, 2), "card": nvidia_smi_line()})
+    check(diff <= FORWARD_LOGIT_BOUND, f"lora_ranks[{phase} {mesh}]: adapter rows' logit diff {diff}")
+    check(one is not None and len(set(per_rank)) == 1 and 0 < per_rank[0] <= one,
+          f"lora_ranks[{phase} {mesh}]: LoRA bytes by rank {per_rank} against one rank's {one}")
 
 
 def _dp_costs(engine) -> dict:
@@ -2852,17 +2966,18 @@ def _dp_costs(engine) -> dict:
 
 def phase_dp_forward(ref: list) -> None:
     """RANK_LLAMA at dp 2 (two ranks on the one card over gloo, full width,
-    RANK_LAYERS layers): its logits of four rows, two per dp rank, against dp
-    1's (``ref``), then what a chunk and a burst move between the ranks
+    RANK_LAYERS layers) with RANK_ADAPTERS: its logits of four rows, two
+    per dp rank, each dp group with an adapter row, against dp 1's
+    (``ref``), then what a chunk and a burst move between the ranks
     ("dp_costs"; host-staged gloo, not a speed figure)."""
     import torch
 
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import LLMEngine
 
-    engine = LLMEngine(EngineConfig(model=RANK_LLAMA, num_pages=FORWARD_PAGES, **DP2))
+    engine = LLMEngine(EngineConfig(model=RANK_LLAMA, num_pages=FORWARD_PAGES, **DP2, **RANK_LORA))
     try:
-        _logits_check(ref, "dp_forward", {"dp": 2}, DP_FORWARD_ROWS)(engine)
+        _logits_check(ref, "dp_forward", {"dp": 2}, DP_FORWARD_ROWS, adapters=RANK_ADAPTERS)(engine)
         emit({"phase": "dp_costs", "model": RANK_LLAMA, "dp": 2, "rows": DP_FORWARD_ROWS,
               "backend": "gloo (host-staged CUDA tensors)", **_dp_costs(engine), "card": nvidia_smi_line()})
     finally:
@@ -2878,7 +2993,8 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
     engine at ``overrides`` (tp 2, dp 2, pp 2 or sp 2) against one rank's for
     TP_F32_TOKENS tokens, ``n_prompts`` prompts, one after another or, with
     ``together``, queued at once (``_together``: at dp 2 both dp groups
-    hold rows). A token that differs must sit where the reference's two
+    hold rows). Both engines serve LoRA with RANK_ADAPTERS loaded, the
+    prompts under F32_LORA_NAMES (base and adapters mixed). A token that differs must sit where the reference's two
     best tokens are within TP_NEAR_TIE: its margin and the runs' logprob
     difference are printed."""
     import random
@@ -2893,10 +3009,14 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
     llama.PRESETS[name] = dataclasses.replace(llama.PRESETS[RANK_LLAMA], dtype=torch.float32)
     rng = random.Random(13)
     prompts = [_prompt(rng, 300 + 400 * (i % 2) + 37 * (i // 2)) for i in range(n_prompts)]
+    names = F32_LORA_NAMES[:n_prompts]
     runs = {}
     t0 = time.perf_counter()
     for parallel in (False, True):
-        engine = LLMEngine(EngineConfig(model=name, num_pages=128, decode_steps=8, **(overrides if parallel else {})))
+        engine = LLMEngine(EngineConfig(model=name, num_pages=128, decode_steps=8, **RANK_LORA,
+                                        **(overrides if parallel else {})))
+        for adapter, path in RANK_ADAPTERS:
+            engine.load_lora_adapter(adapter, path)
         engine.start()
         try:
             if parallel:
@@ -2904,9 +3024,9 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
 
             async def go():
                 if together:
-                    return await _together(engine, prompts, (None,) * len(prompts), max_tokens=TP_F32_TOKENS)
-                return [await _engine_greedy(engine, f"f32-{parallel}-{i}", p, max_tokens=TP_F32_TOKENS)
-                        for i, p in enumerate(prompts)]
+                    return await _together(engine, prompts, names, max_tokens=TP_F32_TOKENS)
+                return [await _engine_greedy(engine, f"f32-{parallel}-{i}", p, m, max_tokens=TP_F32_TOKENS)
+                        for i, (p, m) in enumerate(zip(prompts, names))]
 
             runs[parallel] = asyncio.run(go())
             if parallel:
@@ -2929,7 +3049,8 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
     mesh = {k: overrides.get(f, 1) for k, f in (("pp", "pipeline_parallel_size"), ("dp", "data_parallel_size"),
                                                 ("sp", "sequence_parallel_size"), ("tp", "tensor_parallel_size"))}
     line = {"phase": phase, "model": name, **mesh, "tokens_per_prompt": TP_F32_TOKENS,
-            "prompts": len(prompts), "concurrent": together, "tokens_equal_before_a_flip": same, "flips": flips,
+            "prompts": len(prompts), "adapters": names, "concurrent": together,
+            "tokens_equal_before_a_flip": same, "flips": flips,
             "near_tie": TP_NEAR_TIE, "logprob_max_diff_before_a_flip": max(diffs, default=0.0),
             "launches_by_rank": [{k: int(r[k]) for k in ("decode_attention", "prefill_attention", "kv_page_write")}
                                  for r in ranks],
@@ -3369,9 +3490,10 @@ def phase_hf_qwen(seed: int = 0) -> None:
 
 
 # mistralai/Mixtral-8x7B-v0.1's config.json as published. Its 32 layers
-# (93.4 GB in bf16) do not fit the card's 80 GB: the directory holds 16
-# (46.97 GB), leaving room for the pools, the dense expert products and the
-# plain forward the check runs in the same process
+# (93.4 GB in bf16) do not fit the card's 80 GB: the directory holds 8
+# (16 until the LoRA rank serves grew the smoke: the cut keeps it inside
+# its time limit), leaving room for the pools, the dense expert products
+# and the plain forward the check runs in the same process
 MIXTRAL_DIR = HF_ROOT / "mixtral-8x7b"
 MIXTRAL_HF_CONFIG = {
     "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 1, "eos_token_id": 2,
@@ -3381,7 +3503,7 @@ MIXTRAL_HF_CONFIG = {
     "rms_norm_eps": 1e-05, "rope_theta": 1000000.0, "router_aux_loss_coef": 0.02, "sliding_window": None,
     "tie_word_embeddings": False, "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000,
 }
-MIXTRAL_LAYERS = 16
+MIXTRAL_LAYERS = 8
 MIXTRAL_FORWARD_CHUNKS = 2
 _M = "model.layers.7."
 MIXTRAL_SAMPLES = (
@@ -3477,23 +3599,29 @@ def phase_hf_mixtral(seed: int = 0):
 # ep 2, ep 2 x tp 2 and dp 2, every rank a process on cuda:0 over gloo
 EP2 = dict(expert_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
 EP2_TP2 = dict(expert_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
-# the dp 2 serve: two whole replicas of the 16-layer directory would need
-# ~94 GB, so a seeded preset at full width with its depth cut to 4 layers
+# the dp 2 serve: a seeded preset at full width with its depth cut to 4 layers
 MIXTRAL_DP_LAYERS = 4
 MIXTRAL_DP_PRESET = f"mixtral-8x7b-l{MIXTRAL_DP_LAYERS}"
 
 
-def _moe_reference(store: dict, rows: int = 2):
+def _moe_reference(store: dict, rows: int = 2, adapters=(), model: str = "mixtral-8x7b-hf"):
     """``prepare`` for a one-rank Mixtral engine: its logits of _tp_inputs
     (``rows`` rows) and the experts its routers took ([B, T, k] per layer
-    and step, numpy) into ``store``, the reference of the ranks' runs."""
+    and step, numpy) into ``store``, the reference of the ranks' runs; with
+    ``adapters`` (the engine serves LoRA) the rows on LORA_ROW_SLOTS with
+    them loaded (_lora_reference)."""
     def run(engine):
         from production_stack_tpu_torch.models.llama import tape_routes
 
-        with tape_routes(engine.runner.model) as tape:
-            store["logits"] = _tp_logits(engine, rows)
-        store["picks"] = [p.cpu().numpy() for p in tape.picks]
-        return {"reference_steps": len(store["logits"]), "rows": rows, "routed_calls": len(tape.picks)}
+        def taped():
+            with tape_routes(engine.runner.model) as tape:
+                logits = _tp_logits(engine, rows)
+            store["picks"] = [p.cpu().numpy() for p in tape.picks]
+            return logits
+
+        store["logits"] = _lora_reference(engine, model, adapters, taped, lambda: _tp_logits(engine, rows, False),
+                                          LORA_ROW_SLOTS[:rows]) if adapters else taped()
+        return {"reference_steps": len(store["logits"]), "rows": rows, "routed_calls": len(store["picks"])}
 
     return run
 
@@ -3503,7 +3631,9 @@ def phase_ep_ranks(serve, ref: dict) -> None:
     logits and routes are ``ref``) and before its directory is deleted:
     mixtral-8x7b-hf served at ep 2 (4 experts a rank) and at ep 2 x tp 2
     (4 experts of I/2 a rank, 16 query and 4 KV heads), each first held to
-    the one-rank logits with its routes replayed ("ep_forward"); then a
+    the one-rank logits with its routes replayed, an adapter row of
+    MIXTRAL_ADAPTERS among them ("ep_forward" and "lora_ranks"; the LoRA
+    routes on the ep 2 x tp 2 server's main path); then a
     seeded mixtral-8x7b at full width cut to MIXTRAL_DP_LAYERS layers at dp
     2 against its own one rank ("dp_moe_forward") and
     served. ``serve`` is main's, which checks every rank's launches, the
@@ -3517,8 +3647,10 @@ def phase_ep_ranks(serve, ref: dict) -> None:
     for label, mesh, overrides in (("ep2", {"ep": 2}, EP2), ("ep2 x tp2", {"ep": 2, "tp": 2}, EP2_TP2)):
         gc.collect()
         torch.cuda.empty_cache()
-        serve(f"mixtral-8x7b-hf, {label}", dict(model=str(MIXTRAL_DIR), **overrides), 128, 0, (),
-              _logits_check(ref["logits"], "ep_forward", mesh, picks=ref["picks"], model="mixtral-8x7b-hf"))
+        serve(f"mixtral-8x7b-hf, {label}", dict(model=str(MIXTRAL_DIR), **overrides, enable_lora=True), 128, 0,
+              (MIXTRAL_ADAPTERS, False) if label == "ep2 x tp2" else (),
+              _logits_check(ref["logits"], "ep_forward", mesh, picks=ref["picks"], model="mixtral-8x7b-hf",
+                            adapters=MIXTRAL_ADAPTERS))
     llama.PRESETS[MIXTRAL_DP_PRESET] = dataclasses.replace(llama.PRESETS["mixtral-8x7b"], num_layers=MIXTRAL_DP_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3619,9 +3751,11 @@ def _pp_qwen_reads(seed: int = 0):
 def phase_pp_ranks(serve, ref: list) -> None:
     """Pipeline parallelism on the one card, while qwen2.5-7b's directory
     exists: RANK_LLAMA (llama-3.2-1b at full width, RANK_LAYERS layers)
-    held to one rank's logits (``ref``, the tp phase's: "pp_forward": the
-    tp forward's steps, FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN) and served
-    at pp 2 and pp 2 x tp 2, each with a 32-row decode step whose launches
+    held to one rank's logits (``ref``, the tp phase's, an adapter row of
+    RANK_ADAPTERS among them: "pp_forward" and "lora_ranks": the tp
+    forward's steps, FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN) and served at
+    pp 2 and pp 2 x tp 2 (the LoRA routes on the pp 2 x tp 2 server's main
+    path), each with a 32-row decode step whose launches
     every stage counts ("pp_step"); the f32 copy of RANK_LLAMA's greedy
     tokens at pp 2 against pp 1 ("pp_f32_tokens"); qwen2.5-7b from its
     directory at pp 2, each stage reading only its 14 layers
@@ -3634,7 +3768,7 @@ def phase_pp_ranks(serve, ref: list) -> None:
     for label, mesh, overrides in (("pp2", {"pp": 2}, PP2), ("pp2 x tp2", {"pp": 2, "tp": 2}, PP2_TP2)):
         gc.collect()
         torch.cuda.empty_cache()
-        logits = _logits_check(ref, "pp_forward", mesh)
+        logits = _logits_check(ref, "pp_forward", mesh, adapters=RANK_ADAPTERS)
 
         def prepare(engine, logits=logits, mesh=mesh):
             out = logits(engine)
@@ -3642,7 +3776,8 @@ def phase_pp_ranks(serve, ref: list) -> None:
             emit({"phase": "pp_step", "model": RANK_LLAMA, **mesh, **step, "card": nvidia_smi_line()})
             return dict(out, **step)
 
-        serve(f"{RANK_LLAMA}, {label}", dict(model=RANK_LLAMA, **overrides), 64, 0, (), prepare)
+        serve(f"{RANK_LLAMA}, {label}", dict(model=RANK_LLAMA, **overrides, **RANK_LORA), 64, 0,
+              (RANK_ADAPTERS, False) if label == "pp2 x tp2" else (), prepare)
     phase_f32_tokens("pp_f32_tokens", PP2, n_prompts=2, together=False)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3663,10 +3798,11 @@ SP_STEPS = [f"prefill 1 x {SP_CHUNK} (x{SP_PROMPT // SP_CHUNK}), 1 x {SP_PROMPT 
             f"decode 1 x 1 (x{SP_DECODES})"]
 
 
-def _sp_inputs(vocab: int) -> list:
+def _sp_inputs(vocab: int, lora: bool = False) -> list:
     """The runner's StepInputs of the sp forward's steps: one row of seeded
     ids, SP_PROMPT tokens in chunks of SP_CHUNK, then SP_DECODES decode
-    steps fed the seeded tokens (teacher forcing), on fresh pages."""
+    steps fed the seeded tokens (teacher forcing), on fresh pages; with
+    ``lora`` the row on adapter slot SP_LORA_SLOT."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.runner import StepInput
@@ -3674,20 +3810,22 @@ def _sp_inputs(vocab: int) -> list:
     n = SP_PROMPT + SP_DECODES
     ids = np.random.RandomState(6).randint(0, vocab, (1, n)).astype(np.int32)
     common = dict(page_table=np.arange(-(-n // 64), dtype=np.int32)[None], temperature=np.zeros(1, np.float32),
-                  top_k=np.zeros(1, np.int32), top_p=np.ones(1, np.float32))
+                  top_k=np.zeros(1, np.int32), top_p=np.ones(1, np.float32),
+                  lora_ids=np.array([SP_LORA_SLOT], np.int32) if lora else None)
     steps = [(p, min(SP_CHUNK, SP_PROMPT - p)) for p in range(0, SP_PROMPT, SP_CHUNK)]
     steps += [(SP_PROMPT + s, 1) for s in range(SP_DECODES)]
     return [StepInput(input_ids=ids[:, p: p + t], positions=np.arange(p, p + t, dtype=np.int32)[None],
                       kv_lens=np.array([p + t], np.int32), **common) for p, t in steps]
 
 
-def _sp_logits(engine, costs: "dict | None" = None) -> list:
+def _sp_logits(engine, costs: "dict | None" = None, lora: "bool | None" = None) -> list:
     """The logits [1, V] of _sp_inputs' steps through the engine's runner
     (every rank), on the CPU; the pools are reset after. With ``costs``,
     each rank's rank_stats over the prefill chunks and over the decode
-    steps, and their wall seconds, go into it."""
+    steps, and their wall seconds, go into it. On an engine that serves
+    LoRA (unless ``lora`` is False) the row takes SP_LORA_SLOT."""
     runner = engine.runner
-    inps = _sp_inputs(engine.model_cfg.vocab_size)
+    inps = _sp_inputs(engine.model_cfg.vocab_size, engine.lora is not None if lora is None else lora)
     chunks = len(inps) - SP_DECODES
     runner.reset_kv()
     runner.rank_stats(reset=True)
@@ -3706,15 +3844,17 @@ def _sp_logits(engine, costs: "dict | None" = None) -> list:
 
 def _sp_reference() -> list:
     """One rank's logits of _sp_inputs (llama-3.2-1b's seeded weights, the
-    prefill kernel on every chunk)."""
+    prefill kernel on every chunk), the row on SP_LORA_SLOT with
+    LLAMA_ADAPTERS loaded (_lora_reference)."""
     import torch
 
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import LLMEngine
 
-    engine = LLMEngine(EngineConfig(**SP_SERVE))
+    engine = LLMEngine(EngineConfig(**SP_SERVE, **RANK_LORA))
     try:
-        return _sp_logits(engine)
+        return _lora_reference(engine, "llama-3.2-1b", LLAMA_ADAPTERS, lambda: _sp_logits(engine),
+                               lambda: _sp_logits(engine, lora=False), (SP_LORA_SLOT,))
     finally:
         engine.stop()
         del engine
@@ -3764,7 +3904,9 @@ def phase_sp_ranks(serve) -> None:
     prompt in four chunks and 32 decode steps held to one rank's before the
     main path ("sp_forward"), with what the ranks moved in those steps
     ("sp_costs"); then its main path, whose first concurrent prompt is
-    SP_PROMPT tokens long. ``serve`` is main's: it checks every rank's
+    SP_PROMPT tokens long. Both servers serve LoRA: the prompt's row is on
+    an adapter of LLAMA_ADAPTERS (full depth), and the sp 2 server's main
+    path ends with the LoRA routes (_lora_requests). ``serve`` is main's: it checks every rank's
     launches (the decode kernel's and no other), the plain versions and the
     sp replicas' digests, and books the [sp2] and [sp2tp2] rows' launches.
     Then the f32 copy of RANK_LLAMA's greedy tokens at sp 2 against one
@@ -3778,7 +3920,8 @@ def phase_sp_ranks(serve) -> None:
         torch.cuda.empty_cache()
         costs = {}
         logits = _logits_check(ref, "sp_forward", mesh, rows=1, model="llama-3.2-1b",
-                               logits_fn=lambda e, costs=costs: _sp_logits(e, costs), steps=SP_STEPS)
+                               logits_fn=lambda e, costs=costs: _sp_logits(e, costs), steps=SP_STEPS,
+                               adapters=LLAMA_ADAPTERS, slots=(SP_LORA_SLOT,))
 
         def prepare(engine, logits=logits, costs=costs, mesh=mesh):
             out = logits(engine)
@@ -3790,7 +3933,8 @@ def phase_sp_ranks(serve) -> None:
                   "card": nvidia_smi_line()})
             return out
 
-        serve(f"llama-3.2-1b, {label}", dict(SP_SERVE, **overrides), 64, 0, (), prepare)
+        serve(f"llama-3.2-1b, {label}", dict(SP_SERVE, **overrides, **RANK_LORA), 64, 0,
+              (LLAMA_ADAPTERS, False) if label == "sp2" else (), prepare)
     phase_f32_tokens("sp_f32_tokens", SP2, n_prompts=2, together=False)
 
 
@@ -3816,6 +3960,26 @@ LORA_DIR = HF_ROOT / "lora"
 LLAMA_ADAPTERS = [("llama-lora-r8", str(LORA_DIR / "llama-r8")), ("llama-lora-r16", str(LORA_DIR / "llama-r16"))]
 MIXTRAL_ADAPTERS = [("mixtral-lora-r8", str(LORA_DIR / "mixtral-r8"))]
 ALL_TARGET_MODULES = "q_proj,k_proj,v_proj,o_proj,gate_proj,up_proj,down_proj"
+
+# LoRA on the rank serves: RANK_LLAMA's own adapters (its RANK_LAYERS
+# layers, all seven targets, ranks 8 and 16), llama-3.2-1b's
+# LLAMA_ADAPTERS at sp and mixtral-8x7b's MIXTRAL_ADAPTERS at ep, each
+# loaded before a logits check and unloaded after it, then loaded over HTTP
+# on the main path. The rows of _tp_inputs take slots LORA_ROW_SLOTS (row 0
+# base; at four rows, two a dp group, each group holds an adapter row),
+# _sp_inputs' one row SP_LORA_SLOT, the f32 copy's prompts F32_LORA_NAMES
+# (base and the rank-16 adapter at two prompts, every kind at four)
+RANK_ADAPTERS = [("rank-lora-r8", str(LORA_DIR / "rank-r8")), ("rank-lora-r16", str(LORA_DIR / "rank-r16"))]
+RANK_LORA = dict(enable_lora=True, lora_target_modules=ALL_TARGET_MODULES)
+LORA_ROW_SLOTS = (0, 1, 2, 1)
+SP_LORA_SLOT = 2
+LORA_LIGHT_TOKENS = 8
+F32_LORA_NAMES = (None, RANK_ADAPTERS[1][0], RANK_ADAPTERS[0][0], None)
+# each one-rank reference's LoRA buffer bytes, by model (the lora_ranks
+# lines' comparison), and the seconds the LoRA additions took on the rank
+# serves, by what ran
+LORA_ONE_RANK_BYTES: dict = {}
+LORA_SECONDS: dict = {}
 
 
 def write_lora_adapters(cfg, adapters, ranks, targets) -> None:
@@ -4571,8 +4735,8 @@ def phase_disagg(launches: "dict | None" = None) -> None:
                 out["producer0"] = json.loads(usr1.read_text())
                 port = _free_port()
                 urls = f"http://127.0.0.1:{pport},http://127.0.0.1:{cport}"
-                router, rlog = _start_router(
-                    port, "--static-backends", urls, "--static-models", "llama-3.2-1b,llama-3.2-1b",
+                router, rlog = await asyncio.to_thread(
+                    _start_router, port, "--static-backends", urls, "--static-models", "llama-3.2-1b,llama-3.2-1b",
                     "--static-model-labels", "prefill,decode", "--routing-logic", "disaggregated_prefill",
                     "--prefill-model-labels", "prefill", "--decode-model-labels", "decode",
                     "--engine-stats-interval", "1")
@@ -4871,8 +5035,9 @@ def phase_fleet(launches: "dict | None" = None) -> None:
             servers[label] = (server.engine, runner, f"http://127.0.0.1:{cfg.port}")
         eng = {k: v[0] for k, v in servers.items()}
         url = {k: v[2] for k, v in servers.items()}
-        router, router_log = _start_router(
-            rport, "--static-backends", f"{url['A']},{url['B']}", "--static-models", "llama-3.2-1b,llama-3.2-1b",
+        router, router_log = await asyncio.to_thread(
+            _start_router, rport, "--static-backends", f"{url['A']},{url['B']}",
+            "--static-models", "llama-3.2-1b,llama-3.2-1b",
             "--routing-logic", "kvaware", "--kv-directory-url", cache_url, "--engine-stats-interval", "1")
         procs.append(router)
         base = f"http://127.0.0.1:{rport}"
@@ -5164,6 +5329,8 @@ def main() -> int:
         from production_stack_tpu_torch.models import llama
 
         write_lora_adapters(llama.PRESETS["llama-3.2-1b"], LLAMA_ADAPTERS, LORA_RANKS, LORA_TARGETS)
+        _rank_llama()
+        write_lora_adapters(llama.PRESETS[RANK_LLAMA], RANK_ADAPTERS, LORA_RANKS, LORA_TARGETS)
         for run in SERVE_RUNS:
             serve(*run)
         clock("hf and serve runs")
@@ -5200,19 +5367,18 @@ def main() -> int:
         clock("fleet")
         # tensor parallelism: two ranks (processes) on the one card over
         # gloo, with qwen2.5-7b's directory still on the disk
-        _rank_llama()
-        tp_ref = phase_tp_reference()
-        serve(f"{RANK_LLAMA}, tp2", dict(model=RANK_LLAMA, **TP2), 64, 0, (),
-              _logits_check(tp_ref, "tp_forward", {"tp": 2}))
+        tp_ref = phase_tp_reference(adapters=RANK_ADAPTERS)
+        serve(f"{RANK_LLAMA}, tp2", dict(model=RANK_LLAMA, **TP2, **RANK_LORA), 64, 0, (RANK_ADAPTERS, False),
+              _logits_check(tp_ref, "tp_forward", {"tp": 2}, adapters=RANK_ADAPTERS))
         serve(f"{RANK_LLAMA}, int8, tp2", TP_SERVE_LLAMA_INT8, 64, 0, ())
         phase_f32_tokens("tp_f32_tokens", TP2, n_prompts=2, together=False)
         serve("qwen2.5-7b-hf, tp2", dict(model=str(QWEN_DIR), **TP2), 128, 0, (), _tp_qwen_slices())
         clock("tp")
         # in-engine data parallelism: dp 2, then dp 2 x tp 2, every rank a
         # process on the one card over gloo
-        phase_dp_forward(phase_tp_reference(rows=DP_FORWARD_ROWS))
+        phase_dp_forward(phase_tp_reference(rows=DP_FORWARD_ROWS, adapters=RANK_ADAPTERS))
         phase_f32_tokens("dp_f32_tokens", DP2, n_prompts=4, together=True)
-        serve(f"{RANK_LLAMA}, dp2", dict(model=RANK_LLAMA, **DP2), 64, 0, ())
+        serve(f"{RANK_LLAMA}, dp2", dict(model=RANK_LLAMA, **DP2, **RANK_LORA), 64, 0, (RANK_ADAPTERS, False))
         serve(f"{RANK_LLAMA}, int8, dp2 x tp2", DP_SERVE_LLAMA_INT8, 64, 0, ())
         clock("dp")
         # pipeline parallelism: pp 2 and pp 2 x tp 2, every rank a process
@@ -5224,21 +5390,26 @@ def main() -> int:
         phase_sp_ranks(serve)
         clock("sp_ranks")
         phase_opt_int8_refused()
-        shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 47 GB
+        shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 23 GB
         phase_hf_mixtral()
         gc.collect()
         torch.cuda.empty_cache()
         mixtral = dataclasses.replace(llama.PRESETS["mixtral-8x7b"], num_layers=MIXTRAL_LAYERS)
         write_lora_adapters(mixtral, MIXTRAL_ADAPTERS, LORA_RANKS[:1], LORA_TARGETS[:4])
         ep_ref = {}  # the one-rank server's routed logits, the ep ranks' reference
-        serve(*MIXTRAL_SERVE, prepare=_moe_reference(ep_ref))
+        serve(*MIXTRAL_SERVE, prepare=_moe_reference(ep_ref, adapters=MIXTRAL_ADAPTERS))
         clock("mixtral")
         # Mixtral across ranks: ep 2 and ep 2 x tp 2 from the directory,
         # then dp 2 of a seeded cut-depth copy
         phase_ep_ranks(serve, ep_ref)
         clock("ep_ranks")
+        # what the LoRA additions to the rank phases took, inside the
+        # phases' own lines above
+        emit({"phase": "phase_seconds", "name": "lora_ranks (within tp, dp, pp_ranks, sp_ranks, ep_ranks)",
+              "seconds": round(sum(LORA_SECONDS.values()), 2), "parts": {k: round(v, 2) for k, v in
+                                                                         LORA_SECONDS.items()}})
     finally:
-        shutil.rmtree(HF_ROOT, ignore_errors=True)  # up to 47 GB of shards
+        shutil.rmtree(HF_ROOT, ignore_errors=True)  # up to 23 GB of shards
     timing = phase_timing()
     clock("timing")
 

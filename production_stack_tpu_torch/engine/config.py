@@ -509,17 +509,19 @@ KV_ROLES = ("none", "producer", "consumer")
 
 def check_supported(cfg: EngineConfig, device=None) -> None:
     """Raise on any non-default value of a feature the port lacks
-    (``_UNSUPPORTED``), on a combination the port does not serve (LoRA with
-    tp, dp, sp, ep or pp ranks; pp with ep ranks or speculative decoding;
-    sp with dp, ep or pp ranks or speculative decoding; device KV transfer
-    with ranks, across hosts or, given ``device``, off the card), and on
+    (``_UNSUPPORTED``), on a combination the port does not serve (pp with
+    ep ranks or speculative decoding; sp with dp, ep or pp ranks or
+    speculative decoding; device KV transfer with ranks, across hosts or,
+    given ``device``, off the card), and on
     one the JAX engine refuses too (pp with in-engine dp; int8 pools with
     sp or pp, with speculative decoding, or with disaggregated prefill but
     no fabric; a producer without a peer; in its words). The refusals that
     read the model (a pp that does not divide its layers, a family without
     pp stages or sp, a MoE model at pp or sp) are
     parallel/pipeline.check_pp's and parallel/ring_attention.check_sp's,
-    which the engine calls."""
+    which the engine calls. LoRA is served at every rank layout the port
+    serves; on a family without adapters (Gemma-2, OPT) the runner refuses
+    it in the JAX runner's words."""
     dp, ep, pp = cfg.data_parallel_size, cfg.expert_parallel_size, cfg.pipeline_parallel_size
     sp = cfg.sequence_parallel_size
     if cfg.kv_transfer_device:
@@ -623,14 +625,4 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
         raise ValueError(f"tensor_parallel_size must be >= 1, got {tp}")
     if cfg.tp_backend not in TP_BACKENDS:
         raise ValueError(f"unknown tp_backend {cfg.tp_backend!r}; options: {TP_BACKENDS}")
-    if tp > 1 and cfg.enable_lora:
-        raise ValueError("not supported by the PyTorch port yet: LoRA with tensor parallelism")
-    if dp > 1 and cfg.enable_lora:
-        raise ValueError("not supported by the PyTorch port yet: LoRA with in-engine data parallelism")
-    if ep > 1 and cfg.enable_lora:
-        raise ValueError("not supported by the PyTorch port yet: LoRA with expert parallelism")
-    if pp > 1 and cfg.enable_lora:
-        raise ValueError("not supported by the PyTorch port yet: LoRA with pipeline parallelism")
-    if sp > 1 and cfg.enable_lora:
-        raise ValueError("not supported by the PyTorch port yet: LoRA with sequence parallelism")
     parse_device_ids(cfg.tp_device_ids, pp * dp * sp * ep * tp)

@@ -69,7 +69,10 @@ _HELLO_NONCE_LEN = 32
 # gather or scatter the KV-head shards at the serde boundary (and keep the
 # dp replicas equal); sleep level 2 moves each rank's own weight shards;
 # ``rank_stats``, ``replica_digest`` and ``gathered_params`` read every rank's counters, pools and weights;
-# ``replay_routes`` gives every rank's MoE routers the same experts.
+# ``replay_routes`` gives every rank's MoE routers the same experts; the
+# LoRA slot writes take the whole adapter (numpy arrays and a float) and
+# each rank keeps its part, ``gathered_lora`` and ``lora_digest`` read the
+# slots back.
 REPLICATED = (
     "step",
     "step_multi",
@@ -88,6 +91,10 @@ REPLICATED = (
     "replica_digest",
     "gathered_params",
     "replay_routes",
+    "set_lora_slot",
+    "clear_lora_slot",
+    "gathered_lora",
+    "lora_digest",
 )
 
 

@@ -37,7 +37,12 @@ does: ``load_lora_adapter`` parses a PEFT directory on the caller's thread
 and writes the adapter's slot on the loop thread; ``generate(lora_name=)``
 pins the slot for the request's life and salts its prefix-cache chain with
 the adapter's per-load salt, so base and adapter requests never share pages;
-``unload_lora_adapter`` is refused while a request holds the slot.
+``unload_lora_adapter`` is refused while a request holds the slot. With
+ranks (every axis below) the slot writes are replicated runner calls: each
+rank keeps its tp part of its stage's layers of the adapter, every dp, sp
+and ep replica the same (engine/runner.set_lora_slot); the engine wraps its
+runner before it builds the LoRA manager, so every write reaches every
+rank.
 
 With ``tensor_parallel_size`` tp > 1 the engine is the leader (rank 0) of
 tp processes, one per rank, which it starts itself (``spawn``) and joins
@@ -75,7 +80,7 @@ ranks (parallel/pipeline.py), every step running in microbatches through
 the stages. The step stream, the scheduler and the pool's page count are
 those of pp 1 (``num_pages`` from the whole page, every layer's bytes, as
 the JAX engine sizes it), each rank holding 1/(pp x tp) of every page.
-Refused by name at start-up: pp with ep ranks, a MoE model, LoRA,
+Refused by name at start-up: pp with ep ranks, a MoE model,
 speculative decoding, int8 pools, in-engine dp, Gemma-2 or OPT, and a pp
 that does not divide the layers.
 
@@ -87,7 +92,7 @@ sequence rank holding the whole model of its tp place and a whole replica
 of its pool shard, into which it writes every chunk and every decoded
 token itself; a decode step runs whole on every sequence rank. The pool's
 page count is that of sp 1. Refused by name at start-up: sp with dp, ep
-or pp ranks, a MoE model, LoRA, speculative decoding, device KV transfer,
+or pp ranks, a MoE model, speculative decoding, device KV transfer,
 int8 pools, and Gemma-2 or OPT (the last two in the JAX engine's words).
 
 The engine lives inside the stack's services as the JAX engine does. A
@@ -297,6 +302,7 @@ class LLMEngine:
         self.model_cfg = self.runner.cfg
         self.lora: Optional[LoRAManager] = None
         if cfg.enable_lora:
+            # on the wrapped runner: with ranks its slot writes reach every rank
             self.lora = LoRAManager(self.runner, max_loras=cfg.max_loras, max_rank=cfg.max_lora_rank)
         self._offload = self._make_offload_connector(cfg)
         # offload I/O budget: an explicit >= 0 is taken as it is; -1 derives

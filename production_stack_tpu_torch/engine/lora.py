@@ -13,7 +13,9 @@ The reference stack reaches LoRA through vLLM's ``--enable-lora`` and the
   HF module names to the port's projection names, pads the rank to the
   configured maximum, and refuses what it would apply only in part.
 - ``load_parsed`` writes a free slot; slot 0 is the base model and stays
-  all zero. Each load versions the adapter's prefix-cache salt
+  all zero. The runner may be an engine's ranks behind the step stream
+  (engine/distributed.py): the whole adapter goes to every rank as numpy
+  arrays, and each keeps its part (engine/runner.set_lora_slot). Each load versions the adapter's prefix-cache salt
   (``lora:{name}:{gen}``), so a reload under the same name never matches
   pages cached under the old weights.
 """
@@ -28,6 +30,7 @@ from typing import Optional
 import torch
 
 from production_stack_tpu_torch.models.llama import lora_dims
+from production_stack_tpu_torch.utils.arrays import numpy_from_tensor
 from production_stack_tpu_torch.utils.logging import init_logger
 from production_stack_tpu_torch.utils.safetensors_io import SafetensorsDir, save_file
 
@@ -148,7 +151,9 @@ class LoRAManager:
                     f"no free LoRA slots (max_loras={self.max_loras}, loaded={sorted(self._slots)})"
                 )
             slot = free[0]
-            self.runner.set_lora_slot(slot, tensors, scale)
+            # numpy arrays: with ranks the call crosses the step stream,
+            # whose codec carries arrays and plain values only
+            self.runner.set_lora_slot(slot, {k: numpy_from_tensor(v) for k, v in tensors.items()}, scale)
             self._gen += 1
             self._salt_gen[name] = self._gen
             self._slots[name] = slot

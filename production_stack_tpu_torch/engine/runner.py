@@ -33,7 +33,12 @@ same shapes as the JAX runner's.
   (``init_lora_buffers``; slot 0 is the base model) on the device, and each
   forward of ``step`` and ``step_multi`` takes the batch's ``lora_ids``.
   ``set_lora_slot``/``clear_lora_slot`` write a slot in place; the engine
-  calls them on its loop thread, between steps (engine/lora.py).
+  calls them on its loop thread, between steps (engine/lora.py). With
+  ranks they are replicated calls: ``set_lora_slot`` takes the whole
+  adapter and each rank keeps its tp part of its stage's layers (the
+  buffers split like their projections, parallel/tp.py); every dp, sp and
+  ep replica holds the same. ``gathered_lora`` reads the buffers back
+  whole, ``lora_digest`` each rank's.
 - Sleep mode: ``drop_kv_pools`` releases the pools (level 1),
   ``offload_params`` moves the weights to host memory (level 2),
   ``restore_params`` and ``reset_kv`` bring both back, the pools at new
@@ -121,7 +126,7 @@ import torch
 
 from production_stack_tpu_torch import models
 from production_stack_tpu_torch.engine.config import resolve_attn_impl
-from production_stack_tpu_torch.utils.arrays import tensor_from_numpy
+from production_stack_tpu_torch.utils.arrays import numpy_from_tensor, tensor_from_numpy
 from production_stack_tpu_torch.ops.attention import write_kv_pages_all_layers
 from production_stack_tpu_torch.ops.kernels import HEAD_DIMS, MAX_GROUP
 from production_stack_tpu_torch.ops.kernels.decode_attention import decode_attention, decode_attention_ref
@@ -141,7 +146,7 @@ from production_stack_tpu_torch.ops.sampling import (
 from production_stack_tpu_torch.parallel import dp as dpmod
 from production_stack_tpu_torch.parallel import pipeline
 from production_stack_tpu_torch.parallel.ep import gather_param
-from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_split, rank_slice, size_rank
+from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_split, rank_slice, shard, size_rank
 from production_stack_tpu_torch.utils.device import resolve_device
 from production_stack_tpu_torch.utils.logging import init_logger
 
@@ -195,12 +200,12 @@ COUNTERS = (
 # collectives too), the bytes its model read from a checkpoint
 # directory (0 for a preset) and what crossed its sequence group (the
 # ring's rotations and the token gathers: calls, bytes, host seconds; part
-# of the collectives too)
+# of the collectives too), and the bytes of its LoRA buffers (0 without)
 RANK_STATS = tuple(name for name, _, _ in COUNTERS) + (
     "step_seconds", "steps", "collective_calls", "collective_bytes", "collective_seconds",
     "sync_bytes", "sync_pages", "expert_calls", "expert_bytes", "device_bytes",
     "relay_calls", "relay_bytes", "relay_seconds", "loaded_bytes",
-    "ring_calls", "ring_bytes", "ring_seconds",
+    "ring_calls", "ring_bytes", "ring_seconds", "lora_bytes",
 )
 
 
@@ -299,16 +304,6 @@ class ModelRunner:
         # feeds back
         self.ids_group = self.world if self.stage is not None or self.seq is not None else self.expert
         self.tp_size = size_rank(self.tp)[0]
-        if self.tp is not None and enable_lora:
-            raise ValueError("LoRA with tensor parallelism is not supported by the port yet")
-        if self.dp is not None and enable_lora:
-            raise ValueError("LoRA with data parallelism is not supported by the port yet")
-        if tp is not None and tp.expert.ep_size > 1 and enable_lora:
-            raise ValueError("LoRA with expert parallelism is not supported by the port yet")
-        if self.stage is not None and enable_lora:
-            raise ValueError("LoRA with pipeline parallelism is not supported by the port yet")
-        if self.seq is not None and enable_lora:
-            raise ValueError("LoRA with sequence parallelism is not supported by the port yet")
         self.step_seconds = 0.0
         self.steps = 0
         # the device history a burst with penalties left (this rank's rows),
@@ -348,9 +343,11 @@ class ModelRunner:
                     f"LoRA is not supported for model family "
                     f"{self.module.__name__.rsplit('.', 1)[-1]!r} (llama-family only)"
                 )
-            # max_loras counts adapters; slot 0 is the base model, hence + 1
+            # max_loras counts adapters; slot 0 is the base model, hence + 1;
+            # the rank's part of each buffer, its stage's layers
             self.lora = self.module.init_lora_buffers(
-                cfg, max_loras + 1, max_lora_rank, self.lora_targets, device=self.device
+                cfg, max_loras + 1, max_lora_rank, self.lora_targets, device=self.device, tp=self.tp_size,
+                pp=pipeline.stage_place(self.stage)[0],
             )
         # one generator per runner: sampled draws are reproducible per seed,
         # and (unlike jax.random) independent of how many steps were traced
@@ -728,16 +725,6 @@ class ModelRunner:
 
     # -- page access (offload / transfer surfaces) --------------------------
 
-    @staticmethod
-    def _to_numpy(t: torch.Tensor) -> np.ndarray:
-        """The JAX layout and dtype: bf16 as ml_dtypes' bfloat16."""
-        t = t.cpu()
-        if t.dtype == torch.bfloat16:
-            import ml_dtypes
-
-            return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
-        return t.numpy()
-
     def _whole(self, t: torch.Tensor, heads: int) -> torch.Tensor:
         """Pages or scales of this rank ([L/pp, N, ...], KV heads on axis
         ``heads``) with every KV head (over the tp group) and every layer
@@ -758,8 +745,8 @@ class ModelRunner:
         if not pids:
             return [], []
         idx = torch.as_tensor(list(pids), dtype=torch.long, device=self.device)
-        k = self._to_numpy(self._whole(self.k_pages[:, idx], 3))
-        v = self._to_numpy(self._whole(self.v_pages[:, idx], 3))
+        k = numpy_from_tensor(self._whole(self.k_pages[:, idx], 3))
+        v = numpy_from_tensor(self._whole(self.v_pages[:, idx], 3))
         return [k[:, i] for i in range(len(pids))], [v[:, i] for i in range(len(pids))]
 
     def set_pages(self, pids: "list[int]", ks, vs) -> None:
@@ -953,6 +940,7 @@ class ModelRunner:
         row += [r.relay_calls, r.relay_bytes, r.relay_seconds] if r is not None else [0, 0, 0.0]
         row += [getattr(self.model, "loaded_bytes", 0)]
         row += [r.ring_calls, r.ring_bytes, r.ring_seconds] if r is not None else [0, 0, 0.0]
+        row += [sum(t.numel() * t.element_size() for t in self._lora_tensors())]
         out = gather_split(torch.tensor([row], dtype=torch.float64, device=self.device), 0, self.world)
         if reset:
             for _, fn, attr in COUNTERS:
@@ -1009,28 +997,74 @@ class ModelRunner:
 
     # -- LoRA slots (engine/lora.py drives these) ----------------------------
 
-    @torch.no_grad()
-    def set_lora_slot(self, slot: int, tensors: dict, scale: float) -> None:
-        """Write one adapter into ``slot`` in place: ``tensors`` maps
-        ``a_<t>``/``b_<t>`` to [L, in, R] / [L, R, out] arrays (cast to the
-        model's dtype), ``scale`` its alpha / r. A target it does not name
-        keeps what the slot held."""
+    def _check_lora_slot(self, slot: int) -> None:
         if self.lora is None:
             raise RuntimeError("runner built with enable_lora=False")
         if not 0 < slot <= self.max_loras:
             raise ValueError(f"slot must be in [1, {self.max_loras}], got {slot}")
+
+    @torch.no_grad()
+    def set_lora_slot(self, slot: int, tensors: dict, scale: float) -> None:
+        """Write one adapter into ``slot`` in place: ``tensors`` maps
+        ``a_<t>``/``b_<t>`` to the whole adapter's [L, in, R] / [L, R, out]
+        numpy arrays (as the step stream carries them; cast to the model's
+        dtype), ``scale`` its alpha / r. A replicated call: each
+        rank copies in its tp part of each (parallel/tp.split_axis) for its
+        stage's layers, global layer i at its stage-local index. A target it
+        does not name keeps what the slot held."""
+        self._check_lora_slot(slot)
+        L = self.cfg.num_layers
+        held = pipeline.stage_range(L, *pipeline.stage_place(self.stage))
+        n, r = size_rank(self.tp)
         for name, stacked in tensors.items():
-            src = torch.as_tensor(stacked).to(self.device)
+            src = tensor_from_numpy(stacked)
+            if src.shape[0] != L:
+                raise ValueError(f"LoRA {name} holds {src.shape[0]} layers, the model {L}")
+            src = shard(src[held.start:held.stop], "layers.0." + name, r, n).to(self.device)
             for li, bufs in enumerate(self.lora["layers"]):
                 bufs[name][slot].copy_(src[li])
         self.lora["scale"][slot] = scale
 
+    @torch.no_grad()
     def clear_lora_slot(self, slot: int) -> None:
+        """Zero ``slot`` (its scale too) in this rank's buffers."""
+        self._check_lora_slot(slot)
+        for bufs in self.lora["layers"]:
+            for t in bufs.values():
+                t[slot].zero_()
+        self.lora["scale"][slot] = 0.0
+
+    def _lora_tensors(self) -> list:
+        """This rank's LoRA buffers and scales (none without LoRA)."""
         if self.lora is None:
-            raise RuntimeError("runner built with enable_lora=False")
-        L = len(self.lora["layers"])
-        zeros = {name: torch.zeros((L,) + tuple(t.shape[1:])) for name, t in self.lora["layers"][0].items()}
-        self.set_lora_slot(slot, zeros, 0.0)
+            return []
+        return [t for bufs in self.lora["layers"] for t in bufs.values()] + [self.lora["scale"]]
+
+    def gathered_lora(self) -> dict:
+        """The LoRA buffers whole, as a one-rank runner holds them
+        (``init_lora_buffers``' dict: every tp rank's part joined over the
+        caller's tp group, the stages' layers over the stage group; bit for
+        bit), copied to the CPU."""
+        layers = [{name: gather_param(t, f"layers.{li}.{name}", self.ranks) for name, t in bufs.items()}
+                  for li, bufs in enumerate(self.lora["layers"])]
+        if self.stage is not None:
+            whole = {name: gather_split(torch.stack([x[name] for x in layers]), 0, self.stage)
+                     for name in layers[0]}
+            layers = [{name: t[i] for name, t in whole.items()} for i in range(self.cfg.num_layers)]
+        # copies: a replicated buffer is the rank's own, which a later
+        # slot write changes
+        return {"layers": [{name: t.to("cpu", copy=True) for name, t in x.items()} for x in layers],
+                "scale": self.lora["scale"].to("cpu", copy=True)}
+
+    def lora_digest(self) -> np.ndarray:
+        """Every rank's sha256 of its LoRA buffers and scales ([pp x dp x
+        sp x ep x tp, 32] uint8, global rank order): the dp, sp and ep
+        replicas of one (stage, tp place) hold the same buffers."""
+        h = hashlib.sha256()
+        for t in self._lora_tensors():
+            h.update(t.contiguous().view(torch.uint8).cpu().numpy())
+        own = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8)[None].to(self.device)
+        return gather_split(own, 0, self.world).cpu().numpy()
 
     # -- embeddings ---------------------------------------------------------
 

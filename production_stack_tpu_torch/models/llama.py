@@ -40,7 +40,11 @@ of its dp replica) a MoE model is one expert-parallel rank's too: it holds
 E/ep experts (parallel/tp.py splits them, parallel/ep.py), routes every token over all E with the
 replicated router, weighs its own experts' products by their columns of
 the dense gate, and one all-reduce over the expert group sums the layer's
-output. LoRA is not split (the engine refuses it with ranks).
+output. The LoRA slot buffers are the rank's too (``init_lora_buffers``
+with ``tp``; parallel/tp.py splits them like their projections): a
+column-parallel target's delta lands on the rank's own columns, and a
+row-parallel one's partial delta is summed by the all-reduce after ``wo``
+or ``w_down`` with the base product, so adapters add no collective.
 
 With ``stage`` (the rank's ``TPGroup.stage``: the pp ranks of its tp
 place) the model is one pipeline stage's (parallel/pipeline.py): it builds
@@ -48,7 +52,8 @@ only its L/pp contiguous layers, named from 0, and holds the embedding,
 the final norm and the head whole, as the JAX specs replicate them over
 pp. Its forward runs the batch in ``microbatches(B, pp)`` microbatches:
 stage 0 embeds, each stage runs its layers on a microbatch's rows over its
-own pools [L/pp, P, page, KH/tp, D] (``layer`` the local index) and relays
+own pools [L/pp, P, page, KH/tp, D] and LoRA buffers (``layer`` the
+local index; a microbatch's rows take their own adapter slots) and relays
 it on; the last stage's final hidden states of what the head reads reach
 every stage, where the head runs as at pp 1.
 
@@ -57,7 +62,8 @@ model is one sequence-parallel rank's, as the JAX forward shards a chunk's
 tokens over ``sp``: the weights and the pools are whole along sp
 (replicated, the JAX ``KV_PAGES_SPEC`` shards tp only). A prefill chunk
 (T > 1) pads to a multiple of sp (pads at position -1) and the rank runs
-the embedding, the norms, the projections and the MLP on its T/sp tokens;
+the embedding, the norms, the projections (with their LoRA deltas: the
+rows are whole, so each keeps its slot) and the MLP on its T/sp tokens;
 every layer's attention is models/paged_step.py's sp step (the chunk's K/V
 gathered over the group, the rank's queries through
 parallel/ring_attention.ring_attention_serving, or with a sliding window
@@ -96,6 +102,7 @@ from production_stack_tpu_torch.parallel.tp import (
     gather_vocab,
     init_sharded_,
     shard_shape,
+    split_axis,
 )
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
 
@@ -316,26 +323,29 @@ def lora_dims(cfg: LlamaConfig) -> dict[str, tuple[int, int]]:
 
 
 def init_lora_buffers(
-    cfg: LlamaConfig, max_loras: int, max_rank: int, targets=("wq", "wk", "wv", "wo"), device="cpu"
+    cfg: LlamaConfig, max_loras: int, max_rank: int, targets=("wq", "wk", "wv", "wo"), device="cpu",
+    tp: int = 1, pp: int = 1,
 ) -> dict:
     """Slot-stacked LoRA buffers for batched multi-adapter serving, zeros:
     ``{"layers": [per layer {"a_<t>": [S, in, R], "b_<t>": [S, R, out]}],
     "scale": [S] f32}`` in the model's dtype, S = ``max_loras`` slots (the
     caller counts slot 0, the base model, which stays all zero). ``scale``
-    is each slot's ``alpha / r``."""
+    is each slot's ``alpha / r``. A tp rank's buffers hold its part of each
+    split one (parallel/tp.split_axis: ``b`` of a column-parallel target
+    out/tp wide, ``a`` of a row-parallel one in/tp), a pipeline stage's
+    its L/pp layers."""
     dims = lora_dims(cfg)
     unknown = set(targets) - set(dims)
     if unknown:
         raise ValueError(f"unknown LoRA targets {sorted(unknown)}; known: {sorted(dims)}")
     S, R = max_loras, max_rank
-    layers = []
-    for _ in range(cfg.num_layers):
-        bufs = {}
-        for t in targets:
-            din, dout = dims[t]
-            bufs["a_" + t] = torch.zeros((S, din, R), dtype=cfg.dtype, device=device)
-            bufs["b_" + t] = torch.zeros((S, R, dout), dtype=cfg.dtype, device=device)
-        layers.append(bufs)
+    shapes = {}
+    for t in targets:
+        din, dout = dims[t]
+        shapes["a_" + t] = shard_shape("layers.0.a_" + t, (S, din, R), tp)
+        shapes["b_" + t] = shard_shape("layers.0.b_" + t, (S, R, dout), tp)
+    layers = [{name: torch.zeros(shape, dtype=cfg.dtype, device=device) for name, shape in shapes.items()}
+              for _ in range(cfg.num_layers // pp)]
     return {"layers": layers, "scale": torch.zeros((S,), dtype=torch.float32, device=device)}
 
 
@@ -537,34 +547,39 @@ class LlamaForCausalLM(nn.Module):
         with ``all_logits`` [B, T, V] of every position (speculative verify:
         T is 1 + the draft length).
 
-        On a pipeline stage (``stage``) the pools are the stage's and the
-        step runs in microbatches (parallel/pipeline.run); every stage
-        returns the whole logits. Neither ``kv_burst`` nor LoRA is taken
-        there: each T == 1 step commits its own K/V, as the JAX runner's
+        With tp the pools and the LoRA buffers are the rank's
+        (``init_lora_buffers`` with ``tp``).
+
+        On a pipeline stage (``stage``) the pools and the LoRA buffers are
+        the stage's and the step runs in microbatches
+        (parallel/pipeline.run), each with its rows' adapter slots; every
+        stage returns the whole logits. ``kv_burst`` is not taken there:
+        each T == 1 step commits its own K/V, as the JAX runner's
         ``_multi_step_fn`` does under pp.
 
         On a sequence rank (``seq``) a chunk (T > 1) runs its T/sp tokens
-        through the ring (``_chunk_sp``) and every rank returns the whole
-        logits; it takes neither ``all_logits``, int8 pools nor LoRA. T = 1
-        runs whole on every sequence rank.
+        through the ring (``_chunk_sp``), every row with its adapter slot,
+        and every rank returns the whole logits; it takes neither
+        ``all_logits`` nor int8 pools. T = 1 runs whole on every sequence
+        rank.
         """
         cfg = self.cfg
         B, T = input_ids.shape
         if self.seq is not None and T > 1:
-            if all_logits or kv_scales is not None or lora is not None:
-                raise ValueError("a sequence-parallel chunk takes neither all_logits, int8 pools nor LoRA")
-            return self._chunk_sp(input_ids, positions, k_pages, v_pages, page_table, kv_lens)
+            if all_logits or kv_scales is not None:
+                raise ValueError("a sequence-parallel chunk takes neither all_logits nor int8 pools")
+            return self._chunk_sp(input_ids, positions, k_pages, v_pages, page_table, kv_lens, lora, lora_ids)
         tp = 1 if self.tp is None else self.tp.size
         cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
         if self.stage is not None:
-            if kv_burst is not None or lora is not None:
-                raise ValueError("a pipeline stage takes neither kv_burst nor LoRA")
+            if kv_burst is not None:
+                raise ValueError("a pipeline stage takes no kv_burst")
 
             def body(x, r):
                 step = PagedStep(cfg.attn_impl, positions[r], k_pages, v_pages, page_table[r], kv_lens[r],
                                  kv_scales=kv_scales, tp=tp)
-                x = self._decoder(x, step, cos[r], sin[r])
+                x = self._decoder(x, step, cos[r], sin[r], lora, None if lora is None else lora_ids[r])
                 step.finish()
                 return x
 
@@ -579,8 +594,7 @@ class LlamaForCausalLM(nn.Module):
             return gather_vocab((x @ self._head()).float(), self.tp)
         step = PagedStep(cfg.attn_impl, positions, k_pages, v_pages, page_table, kv_lens, kv_burst, kv_scales, tp=tp)
         x = embed_lookup(self.embed, input_ids, self.tp)
-        ls = None if lora is None else LoraStep(lora, lora_ids, cfg.dtype)
-        x = self._decoder(x, step, cos, sin, lora, ls)
+        x = self._decoder(x, step, cos, sin, lora, lora_ids)
         step.finish()
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         if all_logits:
@@ -591,13 +605,14 @@ class LlamaForCausalLM(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed.t() if self.cfg.tie_word_embeddings else self.lm_head
 
-    def _chunk_sp(self, input_ids, positions, k_pages, v_pages, page_table, kv_lens) -> torch.Tensor:
+    def _chunk_sp(self, input_ids, positions, k_pages, v_pages, page_table, kv_lens, lora=None,
+                  lora_ids=None) -> torch.Tensor:
         """A prefill chunk on this sequence rank (the JAX forward at sp with
         T > 1): the chunk padded to a multiple of sp, the rank's T/sp tokens
         through the layers with their attention through the ring
-        (models/paged_step.py), the whole chunk's K/V committed into this
-        rank's pools after the layers (``finish``). Returns the whole [B, V]
-        logits."""
+        (models/paged_step.py) and each row's LoRA deltas, the whole chunk's
+        K/V committed into this rank's pools after the layers (``finish``).
+        Returns the whole [B, V] logits."""
         cfg, seq = self.cfg, self.seq
         B = input_ids.shape[0]
         pos = pad_tokens(positions, seq.size, value=-1)
@@ -607,7 +622,7 @@ class LlamaForCausalLM(nn.Module):
         tp = 1 if self.tp is None else self.tp.size
         step = PagedStep(cfg.attn_impl, pos, k_pages, v_pages, page_table, kv_lens, tp=tp, seq=seq)
         x = embed_lookup(self.embed, token_slice(pad_tokens(input_ids, seq.size), seq), self.tp)
-        x = self._decoder(x, step, cos, sin)
+        x = self._decoder(x, step, cos, sin, lora, lora_ids)
         step.finish()
         x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
         # each row's last valid token sits on rank last // Tl: every rank's
@@ -619,11 +634,12 @@ class LlamaForCausalLM(nn.Module):
         x_last = seq.all_gather(mine[:, None], 1)[rows, owner]
         return gather_vocab((x_last @ self._head()).float(), self.tp)
 
-    def _decoder(self, x, step: PagedStep, cos, sin, lora=None, ls=None) -> torch.Tensor:
+    def _decoder(self, x, step: PagedStep, cos, sin, lora=None, lora_ids=None) -> torch.Tensor:
         """This model's layers on ``x`` [B, T, H], their attention through
         ``step`` (whose ``layer`` is the index into this model's, or stage's,
-        layers)."""
+        layers), each row with its adapter slot's deltas (``lora_ids``)."""
         cfg = self.cfg
+        ls = None if lora is None else LoraStep(lora, lora_ids, cfg.dtype)
         B, T = x.shape[:2]
         for li, layer in enumerate(self.layers):
             ll = None if lora is None else lora["layers"][li]
@@ -716,3 +732,21 @@ def lora_from_jax(np_lora: dict, cfg: LlamaConfig) -> dict:
         for i in range(cfg.num_layers)
     ]
     return {"layers": layers, "scale": tensor_from_numpy(np_lora["scale"])}
+
+
+def join_lora(parts: list, tp: int = 1) -> dict:
+    """The whole LoRA buffers from every rank's (``init_lora_buffers``
+    dicts of pp x tp ranks in stage-major order, ``parts[p * tp + t]``),
+    every bit kept: each layer's split buffers joined over the stage's tp
+    ranks on their ``split_axis``, the stages' layers one after another.
+    The scales are every rank's."""
+    layers = []
+    for p in range(len(parts) // tp):
+        stage = parts[p * tp:(p + 1) * tp]
+        for li, own in enumerate(stage[0]["layers"]):
+            layers.append({
+                name: t if (ax := split_axis(f"layers.{li}.{name}")) is None
+                else torch.cat([r["layers"][li][name] for r in stage], dim=ax)
+                for name, t in own.items()
+            })
+    return {"layers": layers, "scale": parts[0]["scale"]}

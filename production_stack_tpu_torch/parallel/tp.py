@@ -45,6 +45,17 @@ Nothing splits over sp: every rank of a sequence group holds its tp
 place's parameters whole (the JAX specs name no "sp" axis), seeded or read
 as at sp = 1.
 
+The LoRA slot buffers (models/llama.init_lora_buffers: per layer ``a_<t>``
+[S, in, R] and ``b_<t>`` [S, R, out]) split like their projections, by the
+same ``_LAYER_SPLIT`` rows (``split_axis`` of ``layers.{i}.a_<t>``): a
+column-parallel target's ``b`` on its out axis, so the rank's delta lands
+on its own heads or columns; a row-parallel target's (``wo``, ``w_down``)
+``a`` on its in axis, so ``(h_r @ A_r) @ B`` is the rank's partial delta,
+which the all-reduce after the projection sums with the base product. The
+other factor is every rank's. They split over neither ep (no expert is a
+target: attention is the same on every ep rank) nor sp, and over pp by
+layer, as the weights.
+
 The gathers (``gather_vocab``, ``gather_split``, ``gather_param``) are all-reduces over a
 zero-filled full tensor that each rank fills at its own slice, summed as
 int32 words: a sum of one value and zeros, exact to the bit, through the one
@@ -102,12 +113,28 @@ _LAYER_SPLIT = {
 _EXPERT_SPLIT = {"moe_gate": 0, "moe_up": 0, "moe_down": 0}
 
 
+def _lora_axis(leaf: str) -> Optional[int]:
+    """The tp axis of LoRA buffer ``a_<t>`` ([S, in, R]) or ``b_<t>`` ([S,
+    R, out]; any one leading axis, slots or layers), from its projection's
+    row in ``_LAYER_SPLIT``: a column-parallel target splits ``b`` on its out
+    axis in the weight's blocks, a row-parallel one ``a`` on its in axis;
+    the other factor is every rank's."""
+    kind, _, target = leaf.partition("_")
+    ax = _LAYER_SPLIT[target]
+    if kind not in ("a", "b") or ax not in (0, 1):
+        raise KeyError(leaf)
+    return {("a", 0): 1, ("b", 1): 2}.get((kind, ax))
+
+
 def split_axis(name: str) -> Optional[int]:
     """The axis of parameter ``name`` (``embed``, ``layers.3.wq``) split over
-    tp, or None for a replicated one."""
-    table, leaf = (_LAYER_SPLIT, name.rsplit(".", 1)[-1]) if name.startswith("layers.") else (_TOP_SPLIT, name)
+    tp, or None for a replicated one; a LoRA buffer (``layers.3.a_wo``)
+    splits as ``_lora_axis`` derives from its projection's rule."""
+    leaf = name.rsplit(".", 1)[-1]
     try:
-        return table[leaf]
+        if not name.startswith("layers."):
+            return _TOP_SPLIT[name]
+        return _LAYER_SPLIT[leaf] if leaf in _LAYER_SPLIT else _lora_axis(leaf)
     except KeyError:
         raise KeyError(f"parameter {name!r} has no tp split rule") from None
 

@@ -1,4 +1,5 @@
-"""numpy arrays (a JAX parameter tree) to tensors with every bit kept."""
+"""numpy arrays (a JAX parameter tree) to tensors and back, with every bit
+kept."""
 
 from __future__ import annotations
 
@@ -14,6 +15,17 @@ def tensor_from_numpy(arr: np.ndarray) -> torch.Tensor:
     if arr.dtype.name == "bfloat16":
         return torch.from_numpy(arr.view(np.uint16)).view(torch.bfloat16)
     return torch.from_numpy(arr)
+
+
+def numpy_from_tensor(t: torch.Tensor) -> np.ndarray:
+    """A tensor as a numpy array on the host, in the JAX layout and dtype:
+    bf16 as ml_dtypes' bfloat16 (``tensor_from_numpy``'s inverse)."""
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        import ml_dtypes
+
+        return t.view(torch.uint16).numpy().view(ml_dtypes.bfloat16)
+    return t.numpy()
 
 
 def unstack_layers(stacked_tree: dict, num_layers: int) -> dict[str, torch.Tensor]:

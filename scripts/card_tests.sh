@@ -4,7 +4,8 @@
 # restored weights and kernel outputs after wake, with the device telemetry
 # (tests/test_torch_cuda_surface.py); and the Mixtral MoE and LoRA forwards
 # through the kernels (tests/test_torch_cuda_moe_lora.py); both kernels at the
-# per-rank head shapes of tensor-parallel serving (tests/test_torch_cuda_tp.py);
+# per-rank head shapes of tensor-parallel serving, and LoRA at tp 2 against
+# tp 1 (tests/test_torch_cuda_tp.py);
 # both kernels at the dp ranks' row shapes and a dp 2 engine's replicas
 # (tests/test_torch_cuda_dp.py); the prefill kernel at step_spec's verify
 # shape, step_spec and step_multi_pipelined through the kernels, and a

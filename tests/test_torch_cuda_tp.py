@@ -5,11 +5,21 @@ write in its launch) on NH/tp query heads and KH/tp KV heads, shapes no
 tp = 1 model gives. Held to their plain versions as
 tests/test_torch_cuda_attention.py holds the tp = 1 shapes (same
 tolerances; two decode calls give the same bytes; pools and scales after
-the write byte-identical), in bf16 pools and int8 pools.
+the write byte-identical), in bf16 pools and int8 pools. Then LoRA at
+tp 2: llama-3.2-1b at full width cut to four layers, seeded, with a
+seeded PEFT adapter on all seven targets, at tp 1 and at tp 2 (two ranks on
+the one card over gloo, each holding its part of the slot buffers): a row
+on the adapter beside a base row through a 256-token chunk and six decode
+steps, the adapter row's logits within 0.25 of tp 1's with the same
+greedy token on at least 90% of its steps (the bar the chip smoke holds
+every rank layout to) and moved by the adapter by more than that bar;
+every rank launched both kernels and no plain version.
 
 This file imports neither jax nor the JAX package; without a card every
 test skips.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -96,3 +106,76 @@ def test_prefill_and_fused_write_at_rank_shapes_match_plain_versions(cuda_device
     assert _same(ka[1], kb[1]) and _same(ka[2], kb[2])
     for k in sa:
         assert _same(sa[k], sb[k]), k
+
+
+LORA_LAYERS, LORA_PROMPT, LORA_DECODES = 4, 256, 6
+BOUND, TOP1 = 0.25, 0.9
+
+
+def _lora_steps(vocab, lora_ids):
+    from production_stack_tpu_torch.engine.runner import StepInput
+
+    B = len(lora_ids)
+    n = LORA_PROMPT + LORA_DECODES
+    ids = np.random.RandomState(4).randint(0, vocab, (B, n)).astype(np.int32)
+    maxp = -(-n // 64)
+    common = dict(page_table=np.arange(B * maxp, dtype=np.int32).reshape(B, maxp),
+                  temperature=np.zeros(B, np.float32), top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32),
+                  lora_ids=np.asarray(lora_ids, np.int32))
+    steps = [(0, LORA_PROMPT)] + [(LORA_PROMPT + s, 1) for s in range(LORA_DECODES)]
+    return [StepInput(input_ids=ids[:, p: p + t], positions=np.tile(np.arange(p, p + t, dtype=np.int32), (B, 1)),
+                      kv_lens=np.full(B, p + t, np.int32), **common) for p, t in steps]
+
+
+def _lora_run(tp, adapter):
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.engine.runner import RANK_STATS
+    from production_stack_tpu_torch.models import llama
+
+    name = f"llama-3.2-1b-l{LORA_LAYERS}"
+    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS["llama-3.2-1b"], num_layers=LORA_LAYERS)
+    kw = dict(tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0") if tp > 1 else {}
+    engine = LLMEngine(EngineConfig(model=name, num_pages=64, max_model_len=1024, enable_lora=True,
+                                    lora_target_modules="q_proj,k_proj,v_proj,o_proj,gate_proj,up_proj,down_proj",
+                                    **kw))
+    try:
+        engine.load_lora_adapter("card-lora", adapter)
+        r = engine.runner
+        r.rank_stats(reset=True)
+        vocab = engine.model_cfg.vocab_size
+        logits = [r.step(inp)[1].float().cpu() for inp in _lora_steps(vocab, [0, 1])]
+        stats = [dict(zip(RANK_STATS, row)) for row in r.rank_stats(reset=True)]
+        r.reset_kv()
+        base = [r.step(inp)[1].float().cpu() for inp in _lora_steps(vocab, [0, 0])]
+        return logits, base, stats
+    finally:
+        engine.stop()
+        torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_lora_at_tp2_matches_tp1_and_every_rank_launches_both_kernels(cuda_device, tmp_path):
+    from production_stack_tpu_torch.engine.lora import save_peft_adapter
+    from production_stack_tpu_torch.models import llama
+
+    cfg = dataclasses.replace(llama.PRESETS["llama-3.2-1b"], num_layers=LORA_LAYERS)
+    gen = torch.Generator().manual_seed(5)
+    tensors = {t: (torch.randn((LORA_LAYERS, 16, din), generator=gen) * din**-0.5,
+                   torch.randn((LORA_LAYERS, dout, 16), generator=gen) * 16**-0.5)
+               for t, (din, dout) in llama.lora_dims(cfg).items()}
+    save_peft_adapter(str(tmp_path), cfg, 16, 16.0, tensors)
+    ref, base, _ = _lora_run(1, str(tmp_path))
+    got, _, stats = _lora_run(2, str(tmp_path))
+    diffs = [float((a[1] - b[1]).abs().max()) for a, b in zip(got, ref)]
+    top1 = float(np.mean([int(a[1].argmax() == b[1].argmax()) for a, b in zip(got, ref)]))
+    moved = max(float((a[1] - b[1]).abs().max()) for a, b in zip(ref, base))
+    assert all(bool(torch.isfinite(x).all()) for x in got)
+    assert max(diffs) <= BOUND, diffs
+    assert top1 >= TOP1, top1
+    assert moved > BOUND, moved
+    assert len(stats) == 2
+    for t, row in enumerate(stats):
+        assert row["decode_attention"] > 0 and row["prefill_attention"] > 0, (t, row)
+        assert row["decode_attention_ref"] == row["prefill_attention_ref"] == 0, (t, row)
+        assert 0 < row["lora_bytes"], (t, row)

@@ -37,6 +37,7 @@ from production_stack_tpu_torch.kvoffload.serde import get_serde
 from production_stack_tpu_torch.models import llama as tllama
 from production_stack_tpu_torch.parallel import dp as dpmod
 from production_stack_tpu_torch.parallel.group import device_labels, parse_device_ids
+from test_torch_lora_ranks import rank_runner
 from test_torch_tp import F32, MODEL, PORT_TP, SMALL, spec_then_chain
 
 MESHES = [(2, 1), (2, 2)]  # (dp, tp)
@@ -433,10 +434,25 @@ def test_sampled_rows_at_dp2_draw_dp1s_noise():
 # -- refusals and the layout ------------------------------------------------------
 
 
+@pytest.mark.parametrize("tp", [1, 2])
+def test_lora_with_dp_ranks_is_served_with_replicated_buffers(tp):
+    """Once refused, now served: the config passes check_supported, and
+    each dp replica's rank holds its tp place's part of every slot buffer,
+    the same on both replicas (tests/test_torch_lora_ranks.py serves dp 2
+    and dp 2 x tp 2 against the JAX engine)."""
+    check_supported(EngineConfig(model=MODEL, data_parallel_size=2, tensor_parallel_size=tp, enable_lora=True,
+                                 **PORT_TP))
+    bufs = [rank_runner(d=d, dp=2, t=tp - 1, tp=tp).lora for d in range(2)]
+    for lora in bufs:
+        assert len(lora["layers"]) == 2
+        assert lora["layers"][1]["b_w_up"].shape == (3, 16, 256 // tp)
+        assert lora["layers"][1]["a_w_down"].shape == (3, 256 // tp, 16)
+    assert all(bufs[0]["layers"][0][k].shape == bufs[1]["layers"][0][k].shape for k in bufs[0]["layers"][0])
+
+
 @pytest.mark.parametrize("overrides,match", [
     (dict(data_parallel_size=0), "data_parallel_size must be >= 1"),
     (dict(data_parallel_size=2, pipeline_parallel_size=2), "does not compose with in-engine data parallelism"),
-    (dict(data_parallel_size=2, enable_lora=True, **PORT_TP), "LoRA with in-engine data parallelism"),
     (dict(model="mixtral-debug", data_parallel_size=2, expert_parallel_size=3, **PORT_TP),
      "expert_parallel_size 3 does not divide num_experts 4"),
     (dict(data_parallel_size=2, tensor_parallel_size=2, tp_device_ids="0,0", **PORT_TP),

@@ -71,6 +71,7 @@ from production_stack_tpu_torch.parallel import tp as tpmod
 from production_stack_tpu_torch.parallel.group import device_labels, parse_device_ids
 from production_stack_tpu_torch.parallel.tp import split_axis
 from production_stack_tpu_torch.utils.safetensors_io import save_sharded
+from test_torch_lora_ranks import rank_runner
 from test_torch_surface import _Loop
 
 F32 = dict(atol=2e-5, rtol=2e-5)
@@ -576,25 +577,32 @@ def test_labels_and_device_ids_count_the_ep_ranks():
 @pytest.mark.parametrize("overrides,match", [
     (dict(model=MODEL, expert_parallel_size=3), "expert_parallel_size 3 does not divide num_experts 4"),
     (dict(model=MODEL, expert_parallel_size=0), "expert_parallel_size must be >= 1"),
-    (dict(model=MODEL, expert_parallel_size=2, enable_lora=True), "LoRA with expert parallelism"),
     (dict(model=MODEL, expert_parallel_size=2, sequence_parallel_size=2), "sequence parallelism"),
     (dict(model=MODEL, expert_parallel_size=2, pipeline_parallel_size=2), "pipeline parallelism"),
     (dict(model=MODEL, expert_parallel_size=2, distributed_num_processes=2), "multi-host serving"),
     (dict(model=MODEL, expert_parallel_size=2, tp_device_ids="0,0,0", **GLOO), "one device index"),
     (dict(model=MODEL, expert_parallel_size=2, kv_transfer_device=True), "device KV transfer"),
-], ids=["ep-3", "ep-0", "lora", "sp", "pp", "multihost", "device-ids", "device-kv"])
+], ids=["ep-3", "ep-0", "sp", "pp", "multihost", "device-ids", "device-kv"])
 def test_unsupported_ep_setups_are_refused_by_name(overrides, match):
     cfg = EngineConfig(**{**SMALL, **overrides})
     with pytest.raises(ValueError, match=match):
         LLMEngine(cfg, device="cpu")
 
 
-def test_the_runner_refuses_lora_on_an_ep_rank():
-    _, _, model = load_model(DENSE, device="cpu")
-    one = _rank(0, 1)
-    ranks = types.SimpleNamespace(size=1, expert=_experts(0, 2, 0, 1), dp=one, world=_rank(0, 2))
-    with pytest.raises(ValueError, match="LoRA with expert parallelism"):
-        ModelRunner(model, num_pages=8, page_size=8, device="cpu", enable_lora=True, tp=ranks)
+@pytest.mark.parametrize("tp", [1, 2])
+def test_the_runner_builds_lora_buffers_on_an_ep_rank(tp):
+    """Once refused, now served: an ep rank holds its tp place's part of
+    every slot buffer, the same on every e (attention is every ep rank's;
+    tests/test_torch_lora_experts.py serves Mixtral at ep against the JAX
+    engine)."""
+    check_supported(EngineConfig(model=MODEL, expert_parallel_size=2, tensor_parallel_size=tp, enable_lora=True,
+                                 **GLOO))
+    bufs = [rank_runner(MODEL, ("wq", "wk", "wv", "wo"), e=e, ep=2, t=tp - 1, tp=tp).lora["layers"][0]
+            for e in range(2)]
+    for layer in bufs:
+        assert set(layer) == {f"{ab}_{t}" for ab in "ab" for t in ("wq", "wk", "wv", "wo")}
+        assert layer["b_wq"].shape == (3, 16, 128 // tp) and layer["a_wo"].shape == (3, 128 // tp, 16)
+    assert all(bufs[0][k].shape == bufs[1][k].shape for k in bufs[0])
 
 
 # -- HTTP ----------------------------------------------------------------------------

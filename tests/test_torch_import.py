@@ -219,18 +219,14 @@ def test_runner_resolves_attention_by_device():
 
 _REFUSED = [
     # tensor, in-engine data, sequence, expert and pipeline parallelism are
-    # served; what they lack, LoRA across the ranks and sp beside dp, is
-    # refused (KH % tp != 0, an ep that does not divide the experts and a pp
-    # that does not divide the layers are refused by the engine, which reads
-    # the model: tests/test_torch_tp.py, tests/test_torch_ep.py,
-    # tests/test_torch_pp.py, tests/test_torch_sp.py).
+    # served, LoRA on each of them too (_LORA_SERVED); what they lack, sp
+    # beside dp, is refused (KH % tp != 0, an ep that does not divide the
+    # experts and a pp that does not divide the layers are refused by the
+    # engine, which reads the model: tests/test_torch_tp.py,
+    # tests/test_torch_ep.py, tests/test_torch_pp.py, tests/test_torch_sp.py).
     # Speculative decoding is served; with int8 pools it is refused in the
     # JAX engine's words
-    ("tensor_parallel_size", 2, {"enable_lora": True}),
-    ("data_parallel_size", 2, {"enable_lora": True}),
     ("sequence_parallel_size", 2, {"data_parallel_size": 2}),
-    ("pipeline_parallel_size", 2, {"enable_lora": True}),
-    ("expert_parallel_size", 2, {"enable_lora": True}),
     ("speculative_k", 4, {"kv_cache_dtype": "int8"}),
     # disaggregated prefill and the fabric are served; the device path is
     # refused with tp ranks and off the card (check_supported's device)
@@ -253,6 +249,44 @@ def test_unported_features_are_refused(field, value, also):
         check_supported(EngineConfig(**{field: value}, **kw), device=device)
     if also:  # the field alone is served
         check_supported(EngineConfig(**{field: value}))
+
+
+# LoRA across the ranks: once refused, now served on every axis (the
+# rank's part of each slot buffer; tests/test_torch_lora_ranks.py and its
+# two companions serve them against the JAX engine)
+_LORA_SERVED = [
+    ("tensor_parallel_size", 2, "t"),
+    ("data_parallel_size", 2, "d"),
+    ("pipeline_parallel_size", 2, "p"),
+    ("expert_parallel_size", 2, "e"),
+]
+
+
+@pytest.mark.parametrize("field,value,axis", _LORA_SERVED, ids=[f for f, _, _ in _LORA_SERVED])
+def test_lora_with_ranks_is_served(field, value, axis):
+    """The config passes check_supported, and the axis's last rank (its
+    groups stand-ins) builds its share of the slot buffers: at tp its part
+    of each split buffer, at pp its stage's layers, at dp and ep the
+    whole."""
+    import types
+
+    from production_stack_tpu_torch.engine.model_loader import load_model
+    from production_stack_tpu_torch.engine.runner import ModelRunner
+
+    check_supported(EngineConfig(**{field: value}, enable_lora=True, tp_backend="gloo"))
+    place = types.SimpleNamespace(rank=value - 1, size=value)
+    one = types.SimpleNamespace(rank=0, size=1)
+    tp, ep = (value if axis == "t" else 1), (value if axis == "e" else 1)
+    stage = place if axis == "p" else None
+    _, _, model = load_model("llama-debug", device="cpu", tp=place if axis == "t" else None, stage=stage)
+    ranks = types.SimpleNamespace(size=tp, rank=tp - 1, expert=types.SimpleNamespace(size=ep * tp, ep_size=ep),
+                                  dp=place if axis == "d" else one, world=place, stage=stage, seq=None)
+    lora = ModelRunner(model, num_pages=8, page_size=8, device="cpu", enable_lora=True, tp=ranks).lora
+    # llama-debug: 2 layers, NH 4 x D 32 = 128 query columns, KH 2 x 32
+    assert len(lora["layers"]) == (1 if axis == "p" else 2)
+    layer = lora["layers"][0]
+    assert layer["b_wq"].shape == (5, 16, 128 // tp) and layer["b_wk"].shape == (5, 16, 64 // tp)
+    assert layer["a_wo"].shape == (5, 128 // tp, 16) and layer["a_wq"].shape == (5, 128, 16)
 
 
 # the stack services the engine talks to: the remote tier (cache server),

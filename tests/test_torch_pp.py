@@ -66,6 +66,7 @@ from production_stack_tpu_torch.models import llama as tllama
 from production_stack_tpu_torch.parallel import pipeline
 from production_stack_tpu_torch.parallel.group import device_labels, parse_device_ids
 from production_stack_tpu_torch.parallel.tp import shard_params
+from test_torch_lora_ranks import rank_runner
 
 F32 = dict(atol=2e-5, rtol=2e-5)
 MODEL = "llama-debug-4kv-f32"  # 2 layers, KH 4
@@ -546,11 +547,25 @@ def test_pp_refusals_in_the_jax_engines_words(eight_devices, overrides):
     (dict(model="mixtral-debug", pipeline_parallel_size=2, expert_parallel_size=2),
      "pipeline parallelism with expert parallelism"),
     (dict(model="mixtral-debug", pipeline_parallel_size=2), "pipeline parallelism with a MoE model"),
-    (dict(model="llama-debug", pipeline_parallel_size=2, enable_lora=True), "LoRA with pipeline parallelism"),
     (dict(model="llama-debug", pipeline_parallel_size=2, speculative_k=4),
      "speculative decoding with pipeline parallelism"),
     (dict(model="llama-debug", pipeline_parallel_size=0), "pipeline_parallel_size must be >= 1"),
-], ids=["ep", "moe", "lora", "spec", "pp-0"])
+], ids=["ep", "moe", "spec", "pp-0"])
 def test_unserved_pp_combinations_are_refused_by_name(overrides, match):
     with pytest.raises(ValueError, match=match):
         LLMEngine(EngineConfig(**overrides, max_model_len=128, num_pages=16, page_size=8, **GLOO), device="cpu")
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_lora_at_pp_is_served_with_each_stages_layers(tp):
+    """Once refused, now served: the config passes check_supported, and a
+    stage's runner holds its L/pp layers of the slot buffers, its tp part
+    of each (tests/test_torch_lora_stages.py serves pp 2 and pp 2 x tp 2
+    against the JAX engine)."""
+    check_supported(EngineConfig(model=MODEL, pipeline_parallel_size=2, tensor_parallel_size=tp, enable_lora=True,
+                                 **GLOO))
+    for p in range(2):
+        lora = rank_runner(p=p, pp=2, t=tp - 1, tp=tp).lora
+        assert len(lora["layers"]) == 1 and lora["scale"].shape == (3,)
+        assert lora["layers"][0]["b_wk"].shape == (3, 16, 128 // tp)
+        assert lora["layers"][0]["a_wo"].shape == (3, 256 // tp, 16)

@@ -56,6 +56,7 @@ from production_stack_tpu_torch.engine.scheduler import SamplingParams
 from production_stack_tpu_torch.models import llama as tllama
 from production_stack_tpu_torch.parallel import ring_attention as tring
 from production_stack_tpu_torch.parallel.group import device_labels, parse_device_ids
+from test_torch_lora_ranks import rank_runner
 
 F32 = dict(atol=2e-5, rtol=2e-5)
 MODEL = "llama-debug-4kv-f32"  # 2 layers, NH 8, KH 4
@@ -605,12 +606,24 @@ def test_sp_refusals_in_the_jax_engines_words(eight_devices, overrides):
     (dict(model="mixtral-debug", sequence_parallel_size=2), "sequence parallelism with a MoE model"),
     (dict(model="llama-debug", sequence_parallel_size=2, pipeline_parallel_size=2),
      "sequence parallelism with pipeline parallelism"),
-    (dict(model="llama-debug", sequence_parallel_size=2, enable_lora=True), "LoRA with sequence parallelism"),
     (dict(model="llama-debug", sequence_parallel_size=2, speculative_k=4),
      "speculative decoding with sequence parallelism"),
     (dict(model="llama-debug", sequence_parallel_size=2, kv_transfer_device=True), "device KV transfer"),
     (dict(model="llama-debug", sequence_parallel_size=0), "sequence_parallel_size must be >= 1"),
-], ids=["dp", "ep", "moe", "pp", "lora", "spec", "device-kv", "sp-0"])
+], ids=["dp", "ep", "moe", "pp", "spec", "device-kv", "sp-0"])
 def test_unserved_sp_combinations_are_refused_by_name(overrides, match):
     with pytest.raises(ValueError, match=match):
         LLMEngine(EngineConfig(**overrides, max_model_len=128, num_pages=16, page_size=8, **GLOO), device="cpu")
+
+
+@pytest.mark.parametrize("tp", [1, 2])
+def test_lora_at_sp_is_served_with_replicated_buffers(tp):
+    """Once refused, now served: the config passes check_supported, and
+    both sequence ranks of a tp place hold its part of every slot buffer
+    (tests/test_torch_lora_stages.py serves sp 2 x tp 2 against the JAX
+    engine)."""
+    check_supported(EngineConfig(model="llama-debug", sequence_parallel_size=2, tensor_parallel_size=tp,
+                                 enable_lora=True, **GLOO))
+    for s in range(2):
+        layer = rank_runner(s=s, sp=2, t=tp - 1, tp=tp).lora["layers"][0]
+        assert layer["b_wv"].shape == (3, 16, 128 // tp) and layer["a_w_down"].shape == (3, 256 // tp, 16)

@@ -77,6 +77,7 @@ from production_stack_tpu_torch.parallel.tp import rank_slice, shard_params, spl
 from production_stack_tpu_torch.router.engine_stats import EngineStats as PortEngineStats
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy
 from production_stack_tpu_torch.utils.safetensors_io import SafetensorsDir, save_file, save_sharded
+from test_torch_lora_ranks import rank_runner
 from test_torch_surface import _Loop
 
 F32 = dict(atol=2e-5, rtol=2e-5)
@@ -468,10 +469,8 @@ def test_tp_past_the_kv_heads_is_refused():
 @pytest.mark.parametrize("overrides,match", [
     (dict(model="llama-debug", tensor_parallel_size=4), "does not divide num_kv_heads 2; the JAX engine replicates"),
     (dict(model="mixtral-debug", tensor_parallel_size=2, expert_parallel_size=3, **PORT_TP), "MoE"),
-    (dict(model=MODEL, tensor_parallel_size=2, enable_lora=True), "LoRA with tensor parallelism"),
     (dict(model=MODEL, data_parallel_size=2, pipeline_parallel_size=2), "in-engine data parallelism"),
     (dict(model=MODEL, sequence_parallel_size=2, data_parallel_size=2), "sequence parallelism"),
-    (dict(model=MODEL, expert_parallel_size=2, enable_lora=True), "expert parallelism"),
     (dict(model=MODEL, pipeline_parallel_size=2, speculative_k=4), "pipeline parallelism"),
     (dict(model=MODEL, tensor_parallel_size=2), "tp_backend 'nccl' needs a CUDA device per rank"),
     (dict(model=MODEL, tensor_parallel_size=2, tp_backend="mpi"), "unknown tp_backend"),
@@ -481,6 +480,20 @@ def test_unsupported_tp_setups_are_refused_by_name(overrides, match):
     cfg = EngineConfig(**{**SMALL, **overrides})
     with pytest.raises(ValueError, match=match):
         LLMEngine(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("overrides", [dict(tensor_parallel_size=2), dict(expert_parallel_size=2)],
+                         ids=["tp2", "ep2"])
+def test_lora_with_tp_or_ep_ranks_is_served_with_rank_shaped_buffers(overrides):
+    """Once refused, now served: the config passes check_supported, and a
+    rank's runner holds its tp part of every slot buffer (an ep rank the
+    whole; tests/test_torch_lora_ranks.py serves both against the JAX
+    engine)."""
+    check_supported(EngineConfig(model=MODEL, enable_lora=True, **PORT_TP, **overrides))
+    tp, ep = overrides.get("tensor_parallel_size", 1), overrides.get("expert_parallel_size", 1)
+    layer = rank_runner(t=tp - 1, tp=tp, e=ep - 1, ep=ep).lora["layers"][0]
+    assert layer["b_wq"].shape == (3, 16, 256 // tp) and layer["a_wo"].shape == (3, 256 // tp, 16)
+    assert layer["a_wq"].shape == (3, 128, 16) and layer["b_w_down"].shape == (3, 16, 128)
 
 
 def test_nccl_with_two_ranks_on_one_device_is_refused_naming_gloo():
@@ -733,8 +746,6 @@ def test_a_follower_that_dies_before_connecting_ends_the_wait():
 
 # runner methods that run on the leader alone, and why
 LOCAL_ONLY = {
-    "set_lora_slot": "LoRA is refused with tp",
-    "clear_lora_slot": "LoRA is refused with tp",
     "kv_pool_shard_layout": "reads the pools' shapes, from the scrape thread",
     # disaggregated prefill's device path (CUDA IPC), refused with tp or dp ranks
     **{name: "the device KV path is refused with tp or dp ranks" for name in (
