@@ -327,6 +327,26 @@ non-zero exit (nothing is caught):
                main path with the LoRA routes (_lora_requests,
                LORA_LIGHT_TOKENS a request), whose launches add to their
                kernel rows. A "phase_seconds" line sums what LoRA added.
+5l. chaos  -- after the fleet phase: the stack's chaos drill with a real
+               engine. Two of the port's fake engines
+               (``production_stack_tpu_torch.testing.fake_engine``) as
+               subprocesses, one ``--fail-rate 1.0`` and one ``--hang``,
+               and llama-3.2-1b (bf16, full width and depth, max_num_seqs
+               and max_waiting_seqs 4) in this process behind the port's
+               router (a retry budget of 3, a 3 s TTFT deadline, a
+               breaker threshold of 3 with a 300 s cooldown). 16
+               sequential greedy requests of 16 tokens, each prompt sent
+               straight to the engine first: every routed answer a 200
+               with the direct text, no request over the budget in the
+               router's /v1/traces, both fakes' breakers open and the
+               engine's closed, both kernels launched. Then 24 concurrent
+               streamed requests of 64 tokens: only 200s (at least 4) and
+               429s with Retry-After, at least one 429, no more client 429s
+               than the engine's vllm:num_requests_shed_total delta, the
+               engine's breaker still closed. A "chaos" line gives the
+               status counts, the most attempts, the breaker states, the
+               burst's TTFT p50, the sheds, the launches and the seconds,
+               with the card.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -367,7 +387,7 @@ servers' ranks
 writes to the kv_page_write rows of its heads); the
 [verify] row from the spec server's verify rounds, L a round;
 the D = 64 rows also count the disagg phase's producers' and consumers'
-launches and the fleet phase's engines'; each phase ends with a
+launches, the fleet phase's engines' and the chaos phase's engine's; each phase ends with a
 "phase_seconds" line), the
 card's name and
 power limit, and as the last line ``{"ok": true, "device": {...}}``. With
@@ -2007,6 +2027,16 @@ def _metric(text: str, series: str) -> float:
         if line.startswith(series + " "):
             return float(line.rsplit(" ", 1)[1])
     fail(f"/metrics lacks {series}")
+
+
+def _metric_total(text: str, name: str) -> float:
+    """The sum of ``name``'s series over all their labels in a scrape (0
+    when it has none)."""
+    total = 0.0
+    for line in text.splitlines():
+        if line.startswith(name + "{") or line.startswith(name + " "):
+            total += float(line.rsplit(" ", 1)[1])
+    return total
 
 
 async def _surface(server, port: int, level: int, repeat: dict, first: dict, n_requests: int) -> dict:
@@ -4573,6 +4603,49 @@ async def _stream_ttft(base: str, body: dict, headers: "dict | None" = None) -> 
     return ttft
 
 
+async def _complete(to: str, req: dict, headers: "dict | None" = None, out: "dict | None" = None,
+                    s=None) -> dict:
+    """One completion at ``to`` through the session ``s`` (a new one when
+    None): its status and Retry-After, then the JSON body, or a 200
+    stream's data lines, each with its arrival time. ``out`` (a new dict
+    when None) is filled as the answer arrives and returned."""
+    import aiohttp
+
+    out = {} if out is None else out
+    out.update(times=[], lines=[])
+    if s is None:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
+            return await _complete(to, req, headers, out, s)
+    t0 = time.perf_counter()
+    async with s.post(to + "/v1/completions", json=req, headers=headers) as r:
+        out.update(status=r.status, retry_after=r.headers.get("Retry-After"))
+        if r.status != 200 or not req.get("stream"):
+            text = await r.text()
+            try:
+                out["json"] = json.loads(text)
+            except ValueError:
+                out["text"] = text
+            return out
+        async for raw in r.content:
+            line = raw.decode().strip()
+            if line.startswith("data:"):
+                out["times"].append(time.perf_counter() - t0)
+                out["lines"].append(line)
+    return out
+
+
+async def _get(url: str, as_json: bool = False, s=None):
+    """A GET of ``url`` through the session ``s`` (a new one when None):
+    its body as text, or parsed when ``as_json``."""
+    import aiohttp
+
+    if s is None:
+        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=60)) as s:
+            return await _get(url, as_json, s)
+    async with s.get(url) as r:
+        return await (r.json() if as_json else r.text())
+
+
 def phase_disagg(launches: "dict | None" = None) -> None:
     """Disaggregated prefill on the one card (docstring, 5f): for each of
     DISAGG_RUNS a producer api_server subprocess and a consumer engine in
@@ -4994,36 +5067,6 @@ def phase_fleet(launches: "dict | None" = None) -> None:
         finally:
             c.close()
 
-    async def stream(base: str, out: dict, headers: dict, body: dict = body) -> None:
-        """A streamed completion: each data event's arrival time and line."""
-        out.update(times=[], lines=[])
-        t0 = time.perf_counter()
-        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=600)) as s:
-            async with s.post(base + "/v1/completions", json=body, headers=headers) as r:
-                out["status"] = r.status
-                async for raw in r.content:
-                    line = raw.decode().strip()
-                    if line.startswith("data:"):
-                        out["times"].append(time.perf_counter() - t0)
-                        out["lines"].append(line)
-
-    async def get_json(url: str):
-        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=60)) as s:
-            async with s.get(url) as r:
-                return await r.json()
-
-    async def metrics_text(url: str) -> str:
-        async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=60)) as s:
-            async with s.get(url + "/metrics") as r:
-                return await r.text()
-
-    def metric(text: str, name: str) -> float:
-        total = 0.0
-        for line in text.splitlines():
-            if line.startswith(name + "{") or line.startswith(name + " "):
-                total += float(line.rsplit(" ", 1)[1])
-        return total
-
     res: dict = {}
 
     async def fleet():
@@ -5046,7 +5089,7 @@ def phase_fleet(launches: "dict | None" = None) -> None:
                 None, _wait_http, base + "/health", router, 120, "the router", router_log)
             # the unmigrated run: A's first request, straight to A
             ref: dict = {}
-            await stream(url["A"], ref, {"X-Request-Id": "fleet-ref"})
+            await _complete(url["A"], body, {"X-Request-Id": "fleet-ref"}, ref)
             ref_ids = legs[-1][2]
             check(len(ref_ids) == FLEET_TOKENS, f"fleet: the unmigrated run gave {len(ref_ids)} ids")
             # a cold engine's first request, in a process the first one
@@ -5054,12 +5097,12 @@ def phase_fleet(launches: "dict | None" = None) -> None:
             # common (B must not hold the stream's prefix)
             cold: dict = {}
             other = _prompt(random.Random(17), FLEET_PROMPT_BYTES)
-            await stream(url["B"], cold, {"X-Request-Id": "fleet-cold"}, dict(body, prompt=other, max_tokens=8))
+            await _complete(url["B"], dict(body, prompt=other, max_tokens=8), {"X-Request-Id": "fleet-cold"}, cold)
             res["cold_ttft_s"] = cold["times"][0]
             await asyncio.sleep(1.0)  # A's resident claims reach the directory (flush 0.2 s)
             # the stream through the router: the directory names A resident
             client: dict = {}
-            task = asyncio.create_task(stream(base, client, {"X-Request-Id": rid}))
+            task = asyncio.create_task(_complete(base, body, {"X-Request-Id": rid}, client))
             hops = []
             order = ("A", "B", "A")
             for h, at in enumerate(FLEET_HOPS):
@@ -5068,7 +5111,7 @@ def phase_fleet(launches: "dict | None" = None) -> None:
                 while not any(leg[0] == src and leg[1] == rid and len(leg[2]) >= at for leg in legs[-1:]):
                     check(time.time() < deadline and not task.done(), f"fleet hop {h + 1}: the stream stalled")
                     await asyncio.sleep(0.005)
-                listed = (await get_json(url[src] + "/migratable"))["requests"]
+                listed = (await _get(url[src] + "/migratable", as_json=True))["requests"]
                 check(any(r["request_id"] == rid and r["migratable"] for r in listed),
                       f"fleet hop {h + 1}: {src}'s /migratable lists {listed}")
                 if h == 0:
@@ -5117,21 +5160,22 @@ def phase_fleet(launches: "dict | None" = None) -> None:
             res["dir_lookup"] = await asyncio.get_running_loop().run_in_executor(
                 None, dir_request, {"op": "dir_lookup", "tokens": tokens2})
             hits0 = {k: e.kv.prefix_hits for k, e in eng.items()}
-            rtext0 = await metrics_text(base)
+            rtext0 = await _get(base + "/metrics")
             second: dict = {}
-            await stream(base, second, {"X-Request-Id": "fleet-second"}, dict(body, prompt=prompt2, max_tokens=8))
+            await _complete(base, dict(body, prompt=prompt2, max_tokens=8), {"X-Request-Id": "fleet-second"}, second)
             res["second"] = {"leg": next(list(leg) for leg in legs if leg[1] == "fleet-second"),
                              "hits": {k: e.kv.prefix_hits - hits0[k] for k, e in eng.items()}, "url": url,
-                             "routes": {c: metric(await metrics_text(base), f"vllm_router:kvaware_v2_{c}_routes_total")
-                                        - metric(rtext0, f"vllm_router:kvaware_v2_{c}_routes_total")
+                             "routes": {c: _metric_total(await _get(base + "/metrics"),
+                                                         f"vllm_router:kvaware_v2_{c}_routes_total")
+                                        - _metric_total(rtext0, f"vllm_router:kvaware_v2_{c}_routes_total")
                                         for c in ("resident", "restorable", "cold")}}
-            rtext = await metrics_text(base)
-            res["router"] = {n: metric(rtext, f"vllm_router:{n}")
+            rtext = await _get(base + "/metrics")
+            res["router"] = {n: _metric_total(rtext, f"vllm_router:{n}")
                              for n in ("session_repins_total", "migration_splice_failures_total")}
-            slo = {k: await get_json(url[k] + "/slo_records?since=0") for k in ("A", "B")}
+            slo = {k: await _get(url[k] + "/slo_records?since=0", as_json=True) for k in ("A", "B")}
             res["router_line"] = _router_line("fleet", rtext, _first_records(slo, [rid, "fleet-second"]),
                                               [client["times"][0], second["times"][0]], card)
-            res["cache_metrics"] = await metrics_text(f"http://127.0.0.1:{mport}")
+            res["cache_metrics"] = await _get(f"http://127.0.0.1:{mport}/metrics")
             res["dump"] = await asyncio.get_running_loop().run_in_executor(None, dir_request, {"op": "dir_dump"})
             # engine C: boots with the fleet's warmest chunks prefetched (the
             # admission pull off, so only the boot prefetch can restore)
@@ -5142,8 +5186,8 @@ def phase_fleet(launches: "dict | None" = None) -> None:
             try:
                 res["C_boot"] = (c.kv_directory_prefetched_pages, c.kv_directory_prefetch_seconds)
                 first: dict = {}
-                await stream(f"http://127.0.0.1:{ccfg.port}", first, {"X-Request-Id": "fleet-c"},
-                             dict(body, max_tokens=8))
+                await _complete(f"http://127.0.0.1:{ccfg.port}", dict(body, max_tokens=8), {"X-Request-Id": "fleet-c"},
+                                first)
                 res["C_first"] = dict(ttft_s=first["times"][0], leg=next(list(leg) for leg in legs
                                                                           if leg[1] == "fleet-c"),
                                       offload_hits=c.kv.offload_hits, stats=c.stats(),
@@ -5269,6 +5313,189 @@ def phase_fleet(launches: "dict | None" = None) -> None:
     check(all(n == 0 for n in plain_calls.values()), f"fleet: plain versions ran {plain_calls}")
 
 
+CHAOS_REQUESTS = 16  # sequential failover requests, each with its own prompt
+CHAOS_TOKENS = 16
+CHAOS_BURST = 24  # concurrent requests of the overload burst
+CHAOS_BURST_TOKENS = 64
+CHAOS_SEATS = 4  # the engine's max_num_seqs and max_waiting_seqs
+# under one 64-token page: no request shares a cached page with another, so
+# each routed answer is computed as its direct twin was
+CHAOS_PROMPT_BYTES = 40
+CHAOS_RETRY_BUDGET = 3
+CHAOS_BREAKER_THRESHOLD = 3
+# scripts/chaos_check_torch.py's 1.0 s TTFT deadline is sized for fakes: a
+# burst request queued on the real engine gets its first byte only once a
+# seat frees (the four ahead of it decode 64 tokens), so the deadline here
+# is 3 s; each of the hung fake's attempts costs that much until its
+# breaker opens
+CHAOS_TTFT_DEADLINE = 3.0
+CHAOS_FAKE_MODULE = "production_stack_tpu_torch.testing.fake_engine"
+
+
+def phase_chaos(launches: "dict | None" = None) -> None:
+    """The stack's chaos drill with a real engine (docstring, 5l): two of
+    the port's fake engines as subprocesses, one failing every request and
+    one hanging, and an in-process llama-3.2-1b engine behind the port's
+    router with retries, a TTFT deadline and circuit breakers. Sequential
+    requests fail over to the engine with its own text; a concurrent burst
+    past its seats sheds with 429 + Retry-After. The launches of its engine
+    are added to ``launches``' D = 64 rows."""
+    if launches is None:
+        launches = {}
+    import random
+    import statistics
+    import tempfile
+
+    import aiohttp
+    import torch
+
+    from production_stack_tpu_torch.engine.api_server import serve as serve_http
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.router.resilience import CLOSED, OPEN
+
+    t_phase = time.perf_counter()
+    card = nvidia_smi_line()
+    kernels, plains = _counters()
+    plain0 = {k: fn.calls for k, fn in plains.items()}
+
+    def launched() -> dict:
+        return {n: getattr(*kernels[n]) for n in SERVE_ROWS[False]}
+
+    rng = random.Random(22)
+    prompts = [_prompt(rng, CHAOS_PROMPT_BYTES) for _ in range(CHAOS_REQUESTS + CHAOS_BURST)]
+    fakes = {"fail": (_free_port(), "--fail-rate", "1.0"), "hang": (_free_port(), "--hang")}
+    url = {k: f"http://127.0.0.1:{v[0]}" for k, v in fakes.items()}
+    procs, logs = {}, {}
+    for k, (port, *fault) in fakes.items():
+        logs[k] = tempfile.TemporaryFile()
+        procs[k] = subprocess.Popen(
+            [sys.executable, "-m", CHAOS_FAKE_MODULE, "--port", str(port), "--model", "llama-3.2-1b", *fault],
+            cwd=ROOT, env=dict(os.environ, PYTHONPATH=str(ROOT)), stdout=subprocess.DEVNULL, stderr=logs[k])
+    rport = _free_port()
+    base = f"http://127.0.0.1:{rport}"
+    res: dict = {}
+
+    def body(prompt: str, n: int, stream: bool = False) -> dict:
+        return {"model": "llama-3.2-1b", "prompt": prompt, "max_tokens": n, "temperature": 0.0,
+                "ignore_eos": True, "stream": stream}
+
+    def breakers(text: str) -> dict:
+        return {k: int(_metric_total(text, f'vllm_router:circuit_state{{backend="{u}"}}'))
+                for k, u in url.items()}
+
+    async def chaos():
+        cfg = EngineConfig(model="llama-3.2-1b", host="127.0.0.1", port=_free_port(), max_num_seqs=CHAOS_SEATS,
+                           max_waiting_seqs=CHAOS_SEATS, enable_debug_endpoints=True)
+        server, runner = await serve_http(cfg)
+        url["engine"] = f"http://127.0.0.1:{cfg.port}"
+        loop = asyncio.get_running_loop()
+        try:
+            for k in fakes:
+                await loop.run_in_executor(None, _wait_http, url[k] + "/health", procs[k], 60, f"the {k} fake",
+                                           logs[k])
+            backends = [url["fail"], url["hang"], url["engine"]]
+            procs["router"], logs["router"] = await asyncio.to_thread(
+                _start_router, rport, "--static-backends", ",".join(backends),
+                "--static-models", ",".join(["llama-3.2-1b"] * 3), "--engine-stats-interval", "1",
+                "--retry-max-attempts", str(CHAOS_RETRY_BUDGET), "--retry-backoff-base", "0.01",
+                "--deadline-ttft", str(CHAOS_TTFT_DEADLINE), "--deadline-inter-chunk", "2.0",
+                "--breaker-failure-threshold", str(CHAOS_BREAKER_THRESHOLD), "--breaker-cooldown", "300",
+                "--trace-buffer-size", "16384", "--enable-debug-endpoints")
+            await loop.run_in_executor(None, _wait_http, base + "/health", procs["router"], 120, "the router",
+                                       logs["router"])
+            async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=300)) as s:
+                # each prompt straight to the engine first (this warms it too)
+                res["direct"] = [await _complete(url["engine"], body(p, CHAOS_TOKENS), s=s)
+                                 for p in prompts[:CHAOS_REQUESTS]]
+                t0, l0 = time.perf_counter(), launched()
+                res["routed"] = [await _complete(base, body(p, CHAOS_TOKENS), s=s) for p in prompts[:CHAOS_REQUESTS]]
+                res["failover_s"] = time.perf_counter() - t0
+                res["failover_launches"] = {n: v - l0[n] for n, v in launched().items()}
+                res["failover_router"] = await _get(base + "/metrics", s=s)
+                res["traces"] = await _get(base + "/v1/traces?limit=16384", as_json=True, s=s)
+                e0 = await _get(url["engine"] + "/metrics", s=s)
+                t0 = time.perf_counter()
+                res["burst"] = await asyncio.gather(*(_complete(base, body(p, CHAOS_BURST_TOKENS, stream=True), s=s)
+                                                      for p in prompts[CHAOS_REQUESTS:]))
+                res["burst_s"] = time.perf_counter() - t0
+                e1 = await _get(url["engine"] + "/metrics", s=s)
+                res["sheds"] = (_metric_total(e1, "vllm:num_requests_shed_total")
+                                - _metric_total(e0, "vllm:num_requests_shed_total"))
+                res["burst_router"] = await _get(base + "/metrics", s=s)
+        finally:
+            await runner.cleanup()
+            server.engine.stop()
+
+    l_start = launched()
+    try:
+        asyncio.run(chaos())
+    finally:
+        for k in ("router", "fail", "hang"):
+            if k in procs:
+                _stop_proc(procs[k])
+        gc.collect()
+        torch.cuda.empty_cache()
+    phase_launches = {n: v - l_start[n] for n, v in launched().items()}
+    for n in SERVE_ROWS[False]:
+        launches[n] = launches.get(n, 0) + phase_launches[n]
+    plain_calls = {k: fn.calls - plain0[k] for k, fn in plains.items()}
+    # the lines first, then the checks
+    attempts: dict = {}
+    for trace in res["traces"].get("traces", []):
+        for span in trace["spans"]:
+            if span["name"] == "router.proxy":
+                rid = span["attrs"].get("request_id")
+                attempts[rid] = attempts.get(rid, 0) + 1
+    routed, direct, burst = res["routed"], res["direct"], res["burst"]
+    texts_equal = sum(r["status"] == 200 and d["status"] == 200
+                      and r["json"]["choices"][0]["text"] == d["json"]["choices"][0]["text"]
+                      for r, d in zip(routed, direct))
+    ok_burst = [b for b in burst if b["status"] == 200]
+    shed_burst = [b for b in burst if b["status"] == 429]
+    ttfts = [b["times"][0] for b in ok_burst if b["times"]]
+    failover_breakers, burst_breakers = breakers(res["failover_router"]), breakers(res["burst_router"])
+
+    def statuses(rs) -> dict:
+        out: dict = {}
+        for r in rs:
+            out[str(r["status"])] = out.get(str(r["status"]), 0) + 1
+        return out
+
+    emit({"phase": "chaos", "failover": {"statuses": statuses(routed), "texts_equal_direct": texts_equal,
+                                         "max_attempts": max(attempts.values(), default=0),
+                                         "traced_requests": len(attempts), "retry_budget": CHAOS_RETRY_BUDGET,
+                                         "breakers": failover_breakers, "seconds": round(res["failover_s"], 4),
+                                         "launches": res["failover_launches"]},
+          "overload": {"statuses": statuses(burst), "ttft_p50_s": round(statistics.median(ttfts), 4) if ttfts else None,
+                       "engine_sheds": res["sheds"], "breakers": burst_breakers,
+                       "seats": CHAOS_SEATS, "seconds": round(res["burst_s"], 4)},
+          "launches": phase_launches, "plain_calls": plain_calls,
+          "seconds": round(time.perf_counter() - t_phase, 2), "card": card})
+    # the checks: failover
+    check(all(d["status"] == 200 for d in direct), f"chaos: the engine's direct answers {statuses(direct)}")
+    check(statuses(routed) == {"200": CHAOS_REQUESTS}, f"chaos: the routed failover requests {statuses(routed)}")
+    check(texts_equal == CHAOS_REQUESTS, f"chaos: {texts_equal} of {CHAOS_REQUESTS} routed texts are the direct ones")
+    check(len(attempts) >= CHAOS_REQUESTS and max(attempts.values()) <= CHAOS_RETRY_BUDGET,
+          f"chaos: proxy attempts per request {attempts} (budget {CHAOS_RETRY_BUDGET})")
+    check(failover_breakers == {"fail": OPEN, "hang": OPEN, "engine": CLOSED},
+          f"chaos: the breakers after failover {failover_breakers}")
+    fl = res["failover_launches"]
+    check(fl["decode_attention"] > 0 and fl["prefill_attention"] > 0,
+          f"chaos: the failover requests' launches {fl}")
+    # the checks: overload
+    bad = [(b["status"], b.get("json")) for b in burst if b["status"] not in (200, 429)]
+    check(not bad, f"chaos: the burst's other statuses {bad}")
+    check(all(b["retry_after"] is not None and float(b["retry_after"]) > 0 for b in shed_burst),
+          f"chaos: a 429 without Retry-After: {[b['retry_after'] for b in shed_burst]}")
+    check(shed_burst and len(ok_burst) >= CHAOS_SEATS,
+          f"chaos: the burst's statuses {statuses(burst)} (at least one 429 and {CHAOS_SEATS} 200s)")
+    check(len(shed_burst) <= res["sheds"], f"chaos: {len(shed_burst)} client 429s, {res['sheds']} engine sheds")
+    check(all(b["lines"] and b["lines"][-1] == "data: [DONE]" for b in ok_burst),
+          "chaos: a 200 stream of the burst did not end with [DONE]")
+    check(burst_breakers["engine"] == CLOSED, f"chaos: the breakers after the burst {burst_breakers}")
+    check(all(n == 0 for n in plain_calls.values()), f"chaos: plain versions ran {plain_calls}")
+
+
 def main() -> int:
     try:
         import torch
@@ -5365,6 +5592,10 @@ def main() -> int:
         # directory's routing and a third engine's boot prefetch
         phase_fleet(launches)
         clock("fleet")
+        # the chaos drill: a real engine behind the router beside a failing
+        # and a hung fake; failover, then an overload burst that sheds
+        phase_chaos(launches)
+        clock("chaos")
         # tensor parallelism: two ranks (processes) on the one card over
         # gloo, with qwen2.5-7b's directory still on the disk
         tp_ref = phase_tp_reference(adapters=RANK_ADAPTERS)

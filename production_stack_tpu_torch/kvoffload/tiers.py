@@ -268,11 +268,15 @@ class TieredKVStore:
                 self._dropped_locally(k)
 
     def _dropped_locally(self, key: str) -> None:
-        self.dropped_evictions += 1
-        if not self.contains_local(key):
-            self._unshared.discard(key)
-            if self.on_local_drop is not None:
-                self.on_local_drop(key)
+        # every caller already holds the RLock (_spill under put_local, get
+        # and persist); taking it again costs a re-entry and keeps
+        # `_unshared` under its lock wherever this is called from
+        with self._lock:
+            self.dropped_evictions += 1
+            if not self.contains_local(key):
+                self._unshared.discard(key)
+                if self.on_local_drop is not None:
+                    self.on_local_drop(key)
 
     def put_local(self, key: str, blob: bytes) -> None:
         """Insert into the local tiers only (no remote write-through) — used

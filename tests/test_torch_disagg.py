@@ -53,7 +53,7 @@ from production_stack_tpu.engine.engine import LLMEngine as JaxEngine
 from production_stack_tpu.engine.scheduler import SamplingParams as JaxSamplingParams
 from production_stack_tpu.kvoffload import serde as jserde
 from production_stack_tpu.models import llama as jllama
-from production_stack_tpu.testing.procs import free_port, start_proc, stop_proc, wait_healthy
+from production_stack_tpu_torch.testing.procs import free_port, start_proc, stop_proc, wait_healthy
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import LLMEngine

@@ -56,7 +56,7 @@ from production_stack_tpu.kvoffload import serde as jserde
 from production_stack_tpu.models import llama as jllama
 from production_stack_tpu.ops.pallas.paged_attention import ragged_paged_attention_decode_sharded
 from production_stack_tpu.parallel.mesh import make_mesh
-from production_stack_tpu.testing.procs import free_port
+from production_stack_tpu_torch.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported
 from production_stack_tpu_torch.engine.engine import LLMEngine

@@ -38,7 +38,7 @@ from production_stack_tpu.engine.runner import StepInput as JaxStepInput
 from production_stack_tpu.models import gemma2 as jgemma
 from production_stack_tpu.ops.attention import write_kv_pages_all_layers as jax_commit
 from production_stack_tpu.ops.quant import write_kv_pages_all_layers_quant as jax_commit_quant
-from production_stack_tpu.testing.procs import free_port
+from production_stack_tpu_torch.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import LLMEngine

@@ -373,7 +373,7 @@ def test_server_answers_from_a_directory_and_repeats_greedy_text(hf_dirs, family
     its cached prefix gives the same tokens."""
     import aiohttp
 
-    from production_stack_tpu.testing.procs import free_port
+    from production_stack_tpu_torch.testing.procs import free_port
 
     path = hf_dirs[family][1]["bf16"]
     cfg = EngineConfig(model=path, host="127.0.0.1", port=free_port(), num_pages=32, page_size=8,
@@ -431,7 +431,7 @@ def test_an_empty_prompt_without_a_bos_token_is_refused_not_scheduled():
     from, and a None id would stop the engine loop at its next schedule."""
     import aiohttp
 
-    from production_stack_tpu.testing.procs import free_port
+    from production_stack_tpu_torch.testing.procs import free_port
 
     cfg = EngineConfig(model="llama-debug", host="127.0.0.1", port=free_port(), num_pages=16, page_size=8,
                        max_model_len=64)

@@ -39,9 +39,15 @@ print(" ".join(names))
 def test_the_scan_finds_every_port_script():
     """The scripts that drive the port are found by what they import, so a
     new one is scanned without being listed."""
-    for script in ("scripts/profile_torch_step.py", "scripts/decode_variants.py", "scripts/prefill_phase_clocks.py"):
+    for script in ("scripts/profile_torch_step.py", "scripts/decode_variants.py", "scripts/prefill_phase_clocks.py",
+                   "scripts/chaos_check_torch.py", "scripts/kv_directory_report_torch.py",
+                   "scripts/fleet_controller_torch.py"):
         assert script in PORT_SCRIPTS
-    assert "scripts/profile_decode.py" not in PORT_SCRIPTS  # a JAX package script
+    for script in ("scripts/profile_decode.py", "scripts/chaos_check.py", "scripts/kv_directory_report.py"):
+        assert script not in PORT_SCRIPTS  # JAX package scripts
+    # the port's test fleet is scanned with the package
+    for mod in ("__init__", "procs", "trace_gen", "fake_engine", "fake_apiserver"):
+        assert f"production_stack_tpu_torch/testing/{mod}.py" in _PORT_SOURCES
 
 
 def test_every_module_imports_with_jax_blocked():
@@ -52,7 +58,7 @@ def test_every_module_imports_with_jax_blocked():
     names = set(out.stdout.strip().splitlines()[-1].split())
     # every module was walked: the int8 KV, offload, stack-service, fabric
     # and router ones among them
-    assert len(names) >= 89
+    assert len(names) >= 94
     for mod in ("ops.quant", "engine.linkprobe", "kvoffload.serde", "kvoffload.protocol", "kvoffload.tiers",
                 "kvoffload.connector", "parallel.group", "parallel.tp", "parallel.dp", "parallel.ep", "engine.distributed",
                 "tracing.context", "tracing.collector", "kvoffload.cache_server", "kvoffload.controller",
@@ -62,19 +68,21 @@ def test_every_module_imports_with_jax_blocked():
                 "router.feature_gates", "router.files_service", "router.hashtrie", "router.parser", "router.pii",
                 "router.request_service", "router.request_stats", "router.resilience", "router.rewriter",
                 "router.routing_logic", "router.semantic_cache", "router.service_discovery", "router.slo",
-                "router.utils"):
+                "router.utils", "testing", "testing.procs", "testing.trace_gen", "testing.fake_engine",
+                "testing.fake_apiserver"):
         assert f"production_stack_tpu_torch.{mod}" in names
 
 
 # runs a module (``-m``) or a script of the port, its arguments after it,
 # with jax and torch blocked, and prints at exit what it loaded of the JAX
-# package and whether torch was loaded
+# package and whether torch was loaded, then the port's modules it loaded
 _BLOCKED = r"""
 import atexit, runpy, sys
 sys.modules["jax"] = sys.modules["torch"] = None  # an import of either raises
 atexit.register(lambda: print("LOADED", sorted(
     m for m in sys.modules if m == "production_stack_tpu" or m.startswith("production_stack_tpu.")),
-    sys.modules["torch"] is not None, flush=True))
+    sys.modules["torch"] is not None, "\nPORT", sorted(
+    m for m in sys.modules if m.startswith("production_stack_tpu_torch.")), flush=True))
 target, sys.argv = sys.argv[1], sys.argv[1:]
 if target.endswith(".py"):
     runpy.run_path(target, run_name="__main__")
@@ -86,9 +94,12 @@ else:
 def test_the_router_and_the_fleet_controller_run_with_jax_and_torch_blocked():
     """``python -m production_stack_tpu_torch.router.app`` serves /health and
     /metrics with kvaware routing (the tokenizer and the directory client
-    loaded) and drains on SIGTERM, and scripts/fleet_controller_torch.py
-    makes a tick, with neither jax nor torch importable; neither loads a
-    module of the JAX package."""
+    loaded) and drains on SIGTERM, scripts/fleet_controller_torch.py makes a
+    tick, and ``python -m production_stack_tpu_torch.testing.fake_engine``
+    with its directory, fabric and migration flags answers a completion (the
+    chain hashes, the tokenizer, the serde and the directory client loaded),
+    lists /migratable and drains on SIGTERM, with neither jax nor torch
+    importable; none loads a module of the JAX package."""
     import signal
     import socket
     import time
@@ -125,6 +136,39 @@ def test_the_router_and_the_fleet_controller_run_with_jax_and_torch_blocked():
                           "--once"], cwd=REPO, env=env, capture_output=True, text=True, timeout=60)
     assert ctl.returncode == 0 and "LOADED [] False" in ctl.stdout, ctl.stdout[-2000:] + ctl.stderr[-2000:]
     assert json.loads(ctl.stdout[ctl.stdout.index("["):ctl.stdout.index("LOADED")]) == []
+
+    fport = free_port()
+    fake = subprocess.Popen(
+        [sys.executable, "-c", _BLOCKED, "production_stack_tpu_torch.testing.fake_engine", "--port", str(fport),
+         "--model", "m", "--speed", "500", "--kv-directory-url", "127.0.0.1:1", "--fabric", "--migration"],
+        cwd=REPO, env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    base = f"http://127.0.0.1:{fport}"
+    try:
+        deadline = time.time() + 60
+        while True:
+            assert fake.poll() is None and time.time() < deadline, fake.stdout.read()[-3000:]
+            try:
+                with urllib.request.urlopen(f"{base}/health", timeout=2):
+                    break
+            except OSError:
+                time.sleep(0.2)
+        req = urllib.request.Request(f"{base}/v1/completions", data=json.dumps(
+            {"model": "m", "prompt": "a prompt of two pages " * 3, "max_tokens": 4}).encode(),
+            headers={"Content-Type": "application/json"})
+        with urllib.request.urlopen(req, timeout=30) as r:
+            assert json.loads(r.read())["choices"][0]["text"]
+        with urllib.request.urlopen(f"{base}/migratable", timeout=5) as r:
+            json.loads(r.read())
+        with urllib.request.urlopen(f"{base}/metrics", timeout=5) as r:
+            assert b"fake:served_total" in r.read()
+        fake.send_signal(signal.SIGTERM)
+        out = fake.communicate(timeout=60)[0]
+    finally:
+        fake.kill()
+    assert fake.returncode == 0 and "LOADED [] False" in out, out[-3000:]
+    for mod in ("production_stack_tpu_torch.engine.kv_manager", "production_stack_tpu_torch.engine.tokenizer",
+                "production_stack_tpu_torch.kvoffload.serde", "production_stack_tpu_torch.kvoffload.protocol"):
+        assert repr(mod) in out[out.index("PORT"):], mod  # loaded on the request path
 
 
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|production_stack_tpu(?!_torch))\b", re.M)
@@ -168,6 +212,9 @@ def test_the_started_by_name_guard_sees_each_form():
 def test_source_starts_no_module_of_the_jax_package_by_name(path):
     text = (REPO / path).read_text()
     assert not _STARTED.search(text), _STARTED.search(text).group(0)
+    # the port has its own test fleet: no port source names the JAX one
+    # (whose process helpers set the JAX platform for what they start)
+    assert not re.search(r"\bproduction_stack_tpu\.testing\b", text)
 
 
 @pytest.fixture

@@ -44,7 +44,7 @@ from production_stack_tpu.kvdirectory import DirectoryClient as JaxDirectoryClie
 from production_stack_tpu.kvdirectory import directory as jdirectory
 from production_stack_tpu.kvoffload import cache_server as jcache_server
 from production_stack_tpu.models import llama as jllama
-from production_stack_tpu.testing.procs import free_port
+from production_stack_tpu_torch.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import LLMEngine

@@ -41,7 +41,7 @@ from production_stack_tpu.engine.config import EngineConfig as JaxEngineConfig
 from production_stack_tpu.engine.engine import LLMEngine as JaxEngine
 from production_stack_tpu.engine.runner import StepInput as JaxStepInput
 from production_stack_tpu.engine.scheduler import SamplingParams as JaxSamplingParams
-from production_stack_tpu.testing.procs import free_port
+from production_stack_tpu_torch.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine import lora as tlora
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported

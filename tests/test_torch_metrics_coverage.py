@@ -33,7 +33,7 @@ import check_metrics_coverage as cmc  # noqa: E402
 
 from production_stack_tpu.engine import api_server as jax_server  # noqa: E402
 from production_stack_tpu.engine.config import EngineConfig as JaxEngineConfig  # noqa: E402
-from production_stack_tpu.testing.procs import free_port  # noqa: E402
+from production_stack_tpu_torch.testing.procs import free_port  # noqa: E402
 from production_stack_tpu_torch.engine import api_server as port_server  # noqa: E402
 from production_stack_tpu_torch.engine.config import _UNSUPPORTED, EngineConfig  # noqa: E402
 from production_stack_tpu_torch.engine.engine import LLMEngine  # noqa: E402

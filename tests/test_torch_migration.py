@@ -46,7 +46,7 @@ from production_stack_tpu.engine.config import EngineConfig as JaxEngineConfig
 from production_stack_tpu.engine.engine import LLMEngine as JaxEngine
 from production_stack_tpu.migration import state as jstate
 from production_stack_tpu.models import llama as jllama
-from production_stack_tpu.testing.procs import REPO_ROOT, cpu_env, free_port, start_proc, stop_proc, wait_healthy
+from production_stack_tpu_torch.testing.procs import REPO_ROOT, cpu_env, free_port, start_proc, stop_proc, wait_healthy
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import LLMEngine

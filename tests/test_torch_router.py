@@ -43,7 +43,7 @@ import numpy as np
 import pytest
 import requests
 
-from production_stack_tpu.testing.procs import REPO_ROOT, cpu_env, free_port, start_proc, stop_proc, wait_healthy
+from production_stack_tpu_torch.testing.procs import REPO_ROOT, cpu_env, free_port, start_proc, stop_proc, wait_healthy
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import LLMEngine

@@ -47,7 +47,7 @@ from production_stack_tpu.models import llama as jllama
 from production_stack_tpu.parallel import compat
 from production_stack_tpu.parallel import ring_attention as jring
 from production_stack_tpu.parallel.mesh import make_mesh
-from production_stack_tpu.testing.procs import free_port
+from production_stack_tpu_torch.testing.procs import free_port
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.model_loader import load_model, params_from_jax

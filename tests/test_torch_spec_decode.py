@@ -38,7 +38,7 @@ from production_stack_tpu.engine.scheduler import SamplingParams as JaxSamplingP
 from production_stack_tpu.models import gemma2 as jgemma
 from production_stack_tpu.models import llama as jllama
 from production_stack_tpu.models import opt as jopt
-from production_stack_tpu.testing.procs import free_port
+from production_stack_tpu_torch.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import LLMEngine

@@ -42,7 +42,7 @@ from production_stack_tpu.models import llama as jllama
 from production_stack_tpu.router.engine_stats import EngineStats
 from production_stack_tpu.router.slo import SLOMonitor
 from production_stack_tpu.router.utils import SingletonMeta
-from production_stack_tpu.testing.procs import free_port
+from production_stack_tpu_torch.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine import tool_parser as ptool
 from production_stack_tpu_torch.engine.config import EngineConfig

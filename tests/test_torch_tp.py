@@ -44,7 +44,7 @@ from production_stack_tpu.models import opt as jopt
 from production_stack_tpu.ops.pallas.paged_attention import ragged_paged_attention_decode_sharded
 from production_stack_tpu.parallel.mesh import make_mesh
 from production_stack_tpu.router.engine_stats import EngineStats
-from production_stack_tpu.testing.procs import free_port
+from production_stack_tpu_torch.testing.procs import free_port
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine import distributed as dist_mod
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported

@@ -29,7 +29,7 @@ import requests
 from production_stack_tpu.engine import api_server as jax_server
 from production_stack_tpu.engine.config import EngineConfig as JaxEngineConfig
 from production_stack_tpu.models import llama as jllama
-from production_stack_tpu.testing.procs import free_port, start_proc, stop_proc, wait_healthy
+from production_stack_tpu_torch.testing.procs import free_port, start_proc, stop_proc, wait_healthy
 from production_stack_tpu_torch.engine import api_server as port_server
 from production_stack_tpu_torch.engine.config import EngineConfig
 from production_stack_tpu_torch.engine.engine import LLMEngine
