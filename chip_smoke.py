@@ -56,15 +56,16 @@ non-zero exit (nothing is caught):
                against a forward over weights merged with scale * A @ B,
                and the slot-0 row bit-equal to the same forward without
                LoRA buffers.
-4. hf       -- qwen2.5-7b's HF directory (its published config.json, 28
-               layers, seeded bf16 weights in shards of at most 5 GB with
-               the index) written under build/hf_models/, loaded through
-               the port's loader (config equal to the preset but for
-               max_model_len, sampled parameters byte-identical to the
+4. hf       -- qwen2.5-7b's HF directory (its published config.json cut
+               to 8 of its 28 layers, seeded bf16 weights in shards of at
+               most 5 GB with the index) written under build/hf_models/,
+               loaded through the port's loader (config equal to the
+               preset at that depth but for max_model_len, sampled
+               parameters byte-identical to the
                tensors written), and its forward checked as in phase 3;
                then opt-125m's directory (float16, as published); after
                the serve runs below, mixtral-8x7b's (its published
-               config.json cut to 8 of its 32 layers, 23 GB of bf16
+               config.json cut to 4 of its 32 layers, 12 GB of bf16
                shards, written after free disk and host memory are
                checked and printed), loaded and checked the same way.
 5. serve    -- the port's OpenAI server in-process on localhost, eight
@@ -287,13 +288,14 @@ non-zero exit (nothing is caught):
                (4 microbatches x 2 layers: "pp_step"), then served over HTTP;
                the f32 copy of RANK_LLAMA's greedy tokens at pp 2 against
                pp 1 ("pp_f32_tokens"); qwen2.5-7b from its directory at pp
-               2, each stage's bytes read equal to its 14 layers and the
+               2, each stage's bytes read equal to its 4 layers and the
                shared tensors, sampled parameters of both stages
                byte-identical to what was written ("pp_hf_load"), served.
                Every stage rank launched both kernels and no plain
                version; "pp_ranks" lines give each rank's device bytes,
                relays (calls, bytes, seconds) and collective share.
-5j. sp     -- after the pp runs: llama-3.2-1b at full width and depth,
+5j. sp     -- after the pp runs: RANK_LLAMA (llama-3.2-1b at full
+               width, 4 of its 16 layers, as 5b, 5c and 5i run it),
                max_model_len 16,384 and prefill_chunk 2,048, at sp 2 and
                at sp 2 x tp 2, every rank a gloo process on the one card:
                each engine's logits of an 8,191-token row in four chunks
@@ -347,6 +349,28 @@ non-zero exit (nothing is caught):
                status counts, the most attempts, the breaker states, the
                burst's TTFT p50, the sheds, the launches and the seconds,
                with the card.
+5m. multihost -- after the sp runs: multi-host serving, two host
+               processes (each the port's api_server.serve with its
+               --distributed-process-id) on the one card over gloo,
+               RANK_LLAMA at dp 2 x tp 2 (two ranks a host) and pp 2 (one
+               stage a host). bf16 with RANK_ADAPTERS, this process the
+               leader and the follower host a subprocess
+               (``multihost_host_main``): the tp phase's one-rank logits
+               ("multihost_forward", "lora_ranks"), every rank's LoRA
+               slots changed by a load (the follower host's log shows the
+               replayed slot write), the dp replicas' weights equal across
+               hosts; then four streamed requests through the leader, one
+               under an adapter loaded over HTTP: TTFT and ITL, both
+               kernels and the write launched on every rank of both hosts
+               and no plain version, each rank's collectives' share of its
+               step, the step stream's frames and bytes by method; the
+               leader's stop ends the follower host with exit 0
+               ("multihost" lines; the launches go to the [tp2] and [pp2]
+               rows). Then an f32 copy's greedy tokens at both layouts
+               (both hosts subprocesses) against one rank's in this
+               process, flips only at near-ties, and at pp 2 the follower
+               host's processes killed: the leader must exit 13
+               ("multihost_f32_tokens").
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -1973,7 +1997,7 @@ async def _lora_requests(server, port: int, adapters: list, full: bool) -> dict:
         check(hits1 == hits0, f"lora: {name} hit base's cached pages ({hits0} -> {hits1})")
         check(hits2 > hits1, f"lora: {name}'s repeat did not hit its own pages ({hits1} -> {hits2})")
         # an unload while the adapter's request is in flight
-        long_req = asyncio.ensure_future(post("/v1/completions", greedy(prompt, name, max_tokens=512)))
+        long_req = asyncio.ensure_future(post("/v1/completions", greedy(prompt, name, max_tokens=LORA_LONG_TOKENS)))
         for _ in range(200):
             if any(q.lora_slot for q in engine.scheduler.running):
                 break
@@ -3017,6 +3041,24 @@ def phase_dp_forward(ref: list) -> None:
         torch.cuda.empty_cache()
 
 
+def _token_flips(ref: list, got: list) -> tuple:
+    """Two runs' greedy (ids, logprob entries) per prompt, compared up to
+    each prompt's first differing token (after it the prefixes differ): the
+    tokens equal before a flip, the flips (with the reference's top-2
+    margin there and the runs' logprob difference) and the logprob
+    differences before them."""
+    flips, diffs, same = [], [], 0
+    for i, ((ids1, lp1), (ids2, lp2)) in enumerate(zip(ref, got)):
+        j = next((j for j, (a, b) in enumerate(zip(ids1, ids2)) if a != b), len(ids1))
+        same += j
+        diffs += [abs(a["logprob"] - b["logprob"]) for a, b in zip(lp1[:j], lp2[:j])]
+        if j < len(ids1):
+            top = lp1[j]["top_logprobs"]
+            flips.append({"prompt": i, "token": j, "reference_top2_margin": top[0] - top[1],
+                          "logprob_diff": abs(lp1[j]["logprob"] - lp2[j]["logprob"])})
+    return same, flips, diffs
+
+
 def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool) -> None:
     """An f32 copy of RANK_LLAMA (its preset at float32, added here; the
     leader hands the config to its followers): greedy tokens through the
@@ -3066,16 +3108,7 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
             del engine
             gc.collect()
             torch.cuda.empty_cache()
-    # up to each prompt's first differing token (after it the prefixes differ)
-    flips, diffs, same = [], [], 0
-    for i, ((ids1, lp1), (ids2, lp2)) in enumerate(zip(runs[False], runs[True])):
-        j = next((j for j, (a, b) in enumerate(zip(ids1, ids2)) if a != b), len(ids1))
-        same += j
-        diffs += [abs(a["logprob"] - b["logprob"]) for a, b in zip(lp1[:j], lp2[:j])]
-        if j < len(ids1):
-            top = lp1[j]["top_logprobs"]
-            flips.append({"prompt": i, "token": j, "reference_top2_margin": top[0] - top[1],
-                          "logprob_diff": abs(lp1[j]["logprob"] - lp2[j]["logprob"])})
+    same, flips, diffs = _token_flips(runs[False], runs[True])
     mesh = {k: overrides.get(f, 1) for k, f in (("pp", "pipeline_parallel_size"), ("dp", "data_parallel_size"),
                                                 ("sp", "sequence_parallel_size"), ("tp", "tensor_parallel_size"))}
     line = {"phase": phase, "model": name, **mesh, "tokens_per_prompt": TP_F32_TOKENS,
@@ -3103,7 +3136,7 @@ def _tp_qwen_slices(seed: int = 0):
     to the tensors written."""
     import torch
 
-    specs = _qwen2_hf_specs(QWEN_HF_CONFIG, torch.bfloat16)
+    specs = _qwen2_hf_specs(QWEN_WRITTEN_CONFIG, torch.bfloat16)
 
     def run(engine):
         got = engine.runner.gathered_params([p for p, _, _ in QWEN_SAMPLES])
@@ -3388,6 +3421,10 @@ QWEN_HF_CONFIG = {
     "rope_theta": 1000000.0, "sliding_window": 131072, "tie_word_embeddings": False, "torch_dtype": "bfloat16",
     "use_cache": True, "use_mrope": False, "use_sliding_window": False, "vocab_size": 152064,
 }
+# the directory holds QWEN_LAYERS of its 28 layers (all of them until the
+# multi-host phase grew the smoke: the cut keeps it inside its time limit)
+QWEN_LAYERS = 8
+QWEN_WRITTEN_CONFIG = dict(QWEN_HF_CONFIG, num_hidden_layers=QWEN_LAYERS)
 # facebook/opt-125m's config.json as published (its weights are float16)
 OPT_HF_CONFIG = {
     "activation_dropout": 0.0, "activation_function": "relu", "architectures": ["OPTForCausalLM"],
@@ -3397,14 +3434,14 @@ OPT_HF_CONFIG = {
     "torch_dtype": "float16", "use_cache": True, "vocab_size": 50272, "word_embed_proj_dim": 768,
 }
 # the sampled parameters held byte-identical to what was written:
-# (port name, HF name, transposed); layer 13 of 28
-_L = "model.layers.13."
+# (port name, HF name, transposed); layer 3 of 8
+_L = "model.layers.3."
 QWEN_SAMPLES = (
     ("embed", "model.embed_tokens.weight", False),
-    ("layers.13.wq", _L + "self_attn.q_proj.weight", True),
-    ("layers.13.bq", _L + "self_attn.q_proj.bias", False),
-    ("layers.13.wk", _L + "self_attn.k_proj.weight", True),
-    ("layers.13.w_down", _L + "mlp.down_proj.weight", True),
+    ("layers.3.wq", _L + "self_attn.q_proj.weight", True),
+    ("layers.3.bq", _L + "self_attn.q_proj.bias", False),
+    ("layers.3.wk", _L + "self_attn.k_proj.weight", True),
+    ("layers.3.w_down", _L + "mlp.down_proj.weight", True),
     ("lm_head", "lm_head.weight", True),
 )
 
@@ -3486,11 +3523,12 @@ def phase_hf_write(path: Path, config: dict, specs: dict, seed: int = 0) -> dict
 
 
 def phase_hf_qwen(seed: int = 0) -> None:
-    """qwen2.5-7b at full width and depth: its HF directory written (bf16,
-    sharded), loaded through the port's loader, its config held to the
-    port's preset, sampled parameters held byte-identical to the tensors
-    written (transposes included), then its kernel forward against its
-    plain forward (phase_forward), bf16 and int8 pools."""
+    """qwen2.5-7b at full width, QWEN_LAYERS of its 28 layers: its HF
+    directory written (bf16, sharded), loaded through the port's loader,
+    its config held to the port's preset at that depth, sampled parameters
+    held byte-identical to the tensors written (transposes included), then
+    its kernel forward against its plain forward (phase_forward), bf16 and
+    int8 pools."""
     import dataclasses
 
     import torch
@@ -3498,13 +3536,14 @@ def phase_hf_qwen(seed: int = 0) -> None:
     from production_stack_tpu_torch.engine.model_loader import load_model
     from production_stack_tpu_torch.models import llama
 
-    specs = _qwen2_hf_specs(QWEN_HF_CONFIG, torch.bfloat16)
-    written = phase_hf_write(QWEN_DIR, QWEN_HF_CONFIG, specs, seed)
+    specs = _qwen2_hf_specs(QWEN_WRITTEN_CONFIG, torch.bfloat16)
+    written = phase_hf_write(QWEN_DIR, QWEN_WRITTEN_CONFIG, specs, seed)
     t0 = time.perf_counter()
     mod, cfg, net = load_model(str(QWEN_DIR), device="cuda")
     torch.cuda.synchronize()
     load_s = time.perf_counter() - t0
-    preset = dataclasses.replace(llama.PRESETS["qwen2.5-7b"], max_model_len=cfg.max_model_len)
+    preset = dataclasses.replace(llama.PRESETS["qwen2.5-7b"], num_layers=QWEN_LAYERS,
+                                 max_model_len=cfg.max_model_len)
     own = dict(net.named_parameters())
     same = {}
     for pname, hf, transpose in QWEN_SAMPLES:
@@ -3520,10 +3559,11 @@ def phase_hf_qwen(seed: int = 0) -> None:
 
 
 # mistralai/Mixtral-8x7B-v0.1's config.json as published. Its 32 layers
-# (93.4 GB in bf16) do not fit the card's 80 GB: the directory holds 8
-# (16 until the LoRA rank serves grew the smoke: the cut keeps it inside
-# its time limit), leaving room for the pools, the dense expert products
-# and the plain forward the check runs in the same process
+# (93.4 GB in bf16) do not fit the card's 80 GB: the directory holds 4
+# (16 until the LoRA rank serves grew the smoke, 8 until the multi-host
+# phase did: each cut keeps it inside its time limit), leaving room for
+# the pools, the dense expert products and the plain forward the check
+# runs in the same process
 MIXTRAL_DIR = HF_ROOT / "mixtral-8x7b"
 MIXTRAL_HF_CONFIG = {
     "architectures": ["MixtralForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 1, "eos_token_id": 2,
@@ -3533,16 +3573,16 @@ MIXTRAL_HF_CONFIG = {
     "rms_norm_eps": 1e-05, "rope_theta": 1000000.0, "router_aux_loss_coef": 0.02, "sliding_window": None,
     "tie_word_embeddings": False, "torch_dtype": "bfloat16", "use_cache": True, "vocab_size": 32000,
 }
-MIXTRAL_LAYERS = 8
+MIXTRAL_LAYERS = 4
 MIXTRAL_FORWARD_CHUNKS = 2
-_M = "model.layers.7."
+_M = "model.layers.3."
 MIXTRAL_SAMPLES = (
     ("embed", "model.embed_tokens.weight", False, None),
-    ("layers.7.wk", _M + "self_attn.k_proj.weight", True, None),
-    ("layers.7.moe_router", _M + "block_sparse_moe.gate.weight", True, None),
-    ("layers.7.moe_gate", _M + "block_sparse_moe.experts.3.w1.weight", True, 3),
-    ("layers.7.moe_up", _M + "block_sparse_moe.experts.0.w3.weight", True, 0),
-    ("layers.7.moe_down", _M + "block_sparse_moe.experts.5.w2.weight", True, 5),
+    ("layers.3.wk", _M + "self_attn.k_proj.weight", True, None),
+    ("layers.3.moe_router", _M + "block_sparse_moe.gate.weight", True, None),
+    ("layers.3.moe_gate", _M + "block_sparse_moe.experts.3.w1.weight", True, 3),
+    ("layers.3.moe_up", _M + "block_sparse_moe.experts.0.w3.weight", True, 0),
+    ("layers.3.moe_down", _M + "block_sparse_moe.experts.5.w2.weight", True, 5),
     ("lm_head", "lm_head.weight", True, None),
 )
 
@@ -3699,12 +3739,12 @@ PP2_TP2 = dict(pipeline_parallel_size=2, tensor_parallel_size=2, tp_backend="glo
 # of 8 at pp 2, each running the stage's 8 layers
 PP_STEP_ROWS = 32
 # qwen2.5-7b at pp 2: the sampled parameters read back through the stages,
-# layer 13 (stage 0's last) and layer 27 (stage 1's last)
-_L27 = "model.layers.27."
+# layer 3 (stage 0's last) and layer 7 (stage 1's last)
+_L7 = "model.layers.7."
 QWEN_PP_SAMPLES = QWEN_SAMPLES + (
-    ("layers.27.wq", _L27 + "self_attn.q_proj.weight", True),
-    ("layers.27.bv", _L27 + "self_attn.v_proj.bias", False),
-    ("layers.27.w_up", _L27 + "mlp.up_proj.weight", True),
+    ("layers.7.wq", _L7 + "self_attn.q_proj.weight", True),
+    ("layers.7.bv", _L7 + "self_attn.v_proj.bias", False),
+    ("layers.7.w_up", _L7 + "mlp.up_proj.weight", True),
 )
 
 
@@ -3749,8 +3789,8 @@ def _pp_qwen_reads(seed: int = 0):
 
     from production_stack_tpu_torch.parallel.pipeline import stage_range
 
-    specs = _qwen2_hf_specs(QWEN_HF_CONFIG, torch.bfloat16)
-    L = QWEN_HF_CONFIG["num_hidden_layers"]
+    specs = _qwen2_hf_specs(QWEN_WRITTEN_CONFIG, torch.bfloat16)
+    L = QWEN_WRITTEN_CONFIG["num_hidden_layers"]
 
     def nbytes(names):
         return sum(math.prod(specs[n][0]) * specs[n][1].itemsize for n in names)
@@ -3788,7 +3828,7 @@ def phase_pp_ranks(serve, ref: list) -> None:
     path), each with a 32-row decode step whose launches
     every stage counts ("pp_step"); the f32 copy of RANK_LLAMA's greedy
     tokens at pp 2 against pp 1 ("pp_f32_tokens"); qwen2.5-7b from its
-    directory at pp 2, each stage reading only its 14 layers
+    directory at pp 2, each stage reading only its 4 layers
     ("pp_hf_load"). ``serve`` is main's: it checks every rank's launches
     and the plain versions, and books the [pp2] and [pp2tp2] rows'
     launches; its "pp_ranks" lines give each rank's device bytes, relays
@@ -3819,10 +3859,11 @@ def phase_pp_ranks(serve, ref: list) -> None:
 # numbers of these runs are functional, not an sp speed figure)
 SP2 = dict(sequence_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
 SP2_TP2 = dict(sequence_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
-# llama-3.2-1b at full width and depth on a long prompt: 8,191 tokens in
-# chunks of 2,048, the last of 2,047 (its padding to a multiple of sp
-# runs), then 32 decode steps; the default 4 GB pool
-SP_SERVE = dict(model="llama-3.2-1b", max_model_len=16384, prefill_chunk=2048)
+# RANK_LLAMA (llama-3.2-1b at full width, 4 of its 16 layers, as the
+# other rank phases, to keep the smoke inside its limit) on a long
+# prompt: 8,191 tokens in chunks of 2,048, the last of 2,047 (its padding
+# to a multiple of sp runs), then 32 decode steps; the default 4 GB pool
+SP_SERVE = dict(model=RANK_LLAMA, max_model_len=16384, prefill_chunk=2048)
 SP_PROMPT, SP_CHUNK, SP_DECODES = 8191, 2048, 32
 SP_STEPS = [f"prefill 1 x {SP_CHUNK} (x{SP_PROMPT // SP_CHUNK}), 1 x {SP_PROMPT % SP_CHUNK}",
             f"decode 1 x 1 (x{SP_DECODES})"]
@@ -3873,9 +3914,9 @@ def _sp_logits(engine, costs: "dict | None" = None, lora: "bool | None" = None) 
 
 
 def _sp_reference() -> list:
-    """One rank's logits of _sp_inputs (llama-3.2-1b's seeded weights, the
+    """One rank's logits of _sp_inputs (RANK_LLAMA's seeded weights, the
     prefill kernel on every chunk), the row on SP_LORA_SLOT with
-    LLAMA_ADAPTERS loaded (_lora_reference)."""
+    RANK_ADAPTERS loaded (_lora_reference)."""
     import torch
 
     from production_stack_tpu_torch.engine.config import EngineConfig
@@ -3883,7 +3924,7 @@ def _sp_reference() -> list:
 
     engine = LLMEngine(EngineConfig(**SP_SERVE, **RANK_LORA))
     try:
-        return _lora_reference(engine, "llama-3.2-1b", LLAMA_ADAPTERS, lambda: _sp_logits(engine),
+        return _lora_reference(engine, RANK_LLAMA, RANK_ADAPTERS, lambda: _sp_logits(engine),
                                lambda: _sp_logits(engine, lora=False), (SP_LORA_SLOT,))
     finally:
         engine.stop()
@@ -3929,13 +3970,13 @@ async def _mesh_rows(port: int, ranks: int) -> dict:
 
 
 def phase_sp_ranks(serve) -> None:
-    """Sequence parallelism on the one card: llama-3.2-1b at full width and
-    depth at sp 2 and sp 2 x tp 2, each server's logits of an 8,191-token
+    """Sequence parallelism on the one card: RANK_LLAMA (full width, 4
+    layers) at sp 2 and sp 2 x tp 2, each server's logits of an 8,191-token
     prompt in four chunks and 32 decode steps held to one rank's before the
     main path ("sp_forward"), with what the ranks moved in those steps
     ("sp_costs"); then its main path, whose first concurrent prompt is
     SP_PROMPT tokens long. Both servers serve LoRA: the prompt's row is on
-    an adapter of LLAMA_ADAPTERS (full depth), and the sp 2 server's main
+    an adapter of RANK_ADAPTERS, and the sp 2 server's main
     path ends with the LoRA routes (_lora_requests). ``serve`` is main's: it checks every rank's
     launches (the decode kernel's and no other), the plain versions and the
     sp replicas' digests, and books the [sp2] and [sp2tp2] rows' launches.
@@ -3949,13 +3990,13 @@ def phase_sp_ranks(serve) -> None:
         gc.collect()
         torch.cuda.empty_cache()
         costs = {}
-        logits = _logits_check(ref, "sp_forward", mesh, rows=1, model="llama-3.2-1b",
+        logits = _logits_check(ref, "sp_forward", mesh, rows=1, model=RANK_LLAMA,
                                logits_fn=lambda e, costs=costs: _sp_logits(e, costs), steps=SP_STEPS,
-                               adapters=LLAMA_ADAPTERS, slots=(SP_LORA_SLOT,))
+                               adapters=RANK_ADAPTERS, slots=(SP_LORA_SLOT,))
 
         def prepare(engine, logits=logits, costs=costs, mesh=mesh):
             out = logits(engine)
-            emit({"phase": "sp_costs", "model": "llama-3.2-1b", **mesh, "backend": "gloo (host-staged CUDA tensors)",
+            emit({"phase": "sp_costs", "model": RANK_LLAMA, **mesh, "backend": "gloo (host-staged CUDA tensors)",
                   "prefill_chunks": chunks, "decode_steps": SP_DECODES,
                   "prefill": _sp_cost_rows(costs["prefill"], chunks),
                   "decode": _sp_cost_rows(costs["decode"], SP_DECODES),
@@ -3963,8 +4004,8 @@ def phase_sp_ranks(serve) -> None:
                   "card": nvidia_smi_line()})
             return out
 
-        serve(f"llama-3.2-1b, {label}", dict(SP_SERVE, **overrides, **RANK_LORA), 64, 0,
-              (LLAMA_ADAPTERS, False) if label == "sp2" else (), prepare)
+        serve(f"{RANK_LLAMA}, {label}", dict(SP_SERVE, **overrides, **RANK_LORA), 64, 0,
+              (RANK_ADAPTERS, False) if label == "sp2" else (), prepare)
     phase_f32_tokens("sp_f32_tokens", SP2, n_prompts=2, together=False)
 
 
@@ -4004,6 +4045,9 @@ RANK_LORA = dict(enable_lora=True, lora_target_modules=ALL_TARGET_MODULES)
 LORA_ROW_SLOTS = (0, 1, 2, 1)
 SP_LORA_SLOT = 2
 LORA_LIGHT_TOKENS = 8
+# the adapter request an unload meets in flight (512 until the multi-host
+# phase grew the smoke: it is in flight for its whole decode either way)
+LORA_LONG_TOKENS = 128
 F32_LORA_NAMES = (None, RANK_ADAPTERS[1][0], RANK_ADAPTERS[0][0], None)
 # each one-rank reference's LoRA buffer bytes, by model (the lora_ranks
 # lines' comparison), and the seconds the LoRA additions took on the rank
@@ -5496,6 +5540,432 @@ def phase_chaos(launches: "dict | None" = None) -> None:
     check(all(n == 0 for n in plain_calls.values()), f"chaos: plain versions ran {plain_calls}")
 
 
+# -- multi-host serving: two host processes on the one card --------------------
+
+# RANK_LLAMA over two host processes on the one H100 over gloo, each an
+# api_server.serve with its --distributed-process-id: dp 2 x tp 2 (two
+# ranks a host, the JAX e2e's layout scaled down) and pp 2 (one stage a
+# host, the reference's cross-node pp). The leader (process 0) of the bf16
+# runs is this process, the follower host a subprocess; the f32 runs' hosts
+# are both subprocesses, the last ended by killing its follower host.
+MH_LAYOUTS = (
+    ("dp2 x tp2", {"dp": 2, "tp": 2}, dict(data_parallel_size=2, tensor_parallel_size=2, tp_device_ids="0,0")),
+    ("pp2", {"pp": 2}, dict(pipeline_parallel_size=2, tp_device_ids="0")),
+)
+MH_LOGS = ROOT / "build" / "multihost"
+# the main path through the leader: MH_REQUESTS streamed greedy completions
+# at once (the last under RANK_ADAPTERS' first adapter, loaded over HTTP)
+MH_REQUESTS, MH_TOKENS, MH_PROMPT_BYTES = 4, 32, 600
+MH_READY_S = 240.0  # a host's start, its ranks' spawn and the rendezvous
+MH_KILL_EXIT_S = 20.0  # the leader's exit after its follower host is killed
+
+
+def _mh_config(overrides: dict, pid: int, coord: int, sync: int, **extra) -> dict:
+    """The EngineConfig fields of host ``pid`` of a two-host engine on this
+    machine: the coordinator and the step stream on localhost."""
+    return dict(overrides, **extra, host="127.0.0.1", tp_backend="gloo", distributed_num_processes=2,
+                distributed_coordinator=f"127.0.0.1:{coord}", distributed_process_id=pid, worker_sync_port=sync)
+
+
+def multihost_host_main() -> None:
+    """A host process of phase_multihost:
+
+        python3 -c 'import chip_smoke as c; c.multihost_host_main()' '<json>'
+
+    registers RANK_LLAMA and its f32 copy, then runs the port's
+    api_server.serve on the EngineConfig fields of the JSON's "cfg". A
+    follower host (process id 1) returns when the leader closes the step
+    stream (exit 0). A leader (id 0) with "ids_out" runs the f32 greedy
+    requests of "prompts" through its engine, writes their ids and logprob
+    entries and each rank's launches to that file, and serves until SIGTERM."""
+    import signal
+
+    import torch
+
+    from production_stack_tpu_torch.engine.api_server import serve
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.models import llama
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _rank_llama()
+    llama.PRESETS[f"{RANK_LLAMA}-f32"] = dataclasses.replace(llama.PRESETS[RANK_LLAMA], dtype=torch.float32)
+    args = json.loads(sys.argv[1])
+
+    async def run():
+        server, site = await serve(EngineConfig(**args["cfg"]))
+        engine = server.engine
+        engine.runner.rank_stats(reset=True)
+        runs = [await _engine_greedy(engine, f"mh-f32-{i}", p, max_tokens=TP_F32_TOKENS)
+                for i, p in enumerate(args["prompts"])]
+        rows = _rank_rows(engine.runner.rank_stats())
+        kernels, plains = _counters()
+        out = {"runs": runs, "launches_by_rank": [{k: int(r[k]) for k in SERVE_ROWS[False]} for r in rows],
+               "plain_calls_by_rank": [{k: int(r[k]) for k in plains} for r in rows],
+               "labels": [d for d, _ in engine.runner.kv_pool_shard_layout()]}
+        tmp = Path(args["ids_out"] + ".tmp")
+        tmp.write_text(json.dumps(out))
+        tmp.replace(args["ids_out"])
+        stop = asyncio.Event()
+        asyncio.get_running_loop().add_signal_handler(signal.SIGTERM, stop.set)
+        await stop.wait()
+        await site.cleanup()
+        engine.stop()
+
+    asyncio.run(run())
+
+
+def _mh_start(name: str, cfg: dict, **extra) -> tuple:
+    """A host process (its own session, so that its loss takes all its
+    processes) on ``cfg``; (process, log path). The follower host logs at
+    INFO, where its replayed control calls show."""
+    MH_LOGS.mkdir(parents=True, exist_ok=True)
+    log = MH_LOGS / f"{name}.log"
+    env = dict(os.environ, PYTHONPATH=str(ROOT), PSTPU_LOG_LEVEL="INFO" if cfg["distributed_process_id"] else
+               os.environ.get("PSTPU_LOG_LEVEL", "WARNING"))
+    with open(log, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, "-c", "import chip_smoke as c; c.multihost_host_main()", json.dumps(dict(cfg=cfg, **extra))],
+            cwd=str(ROOT), env=env, stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+    return proc, log
+
+
+def _mh_end(proc, sig=None, timeout: float = 60.0) -> "int | None":
+    """Send ``sig`` to the host's session (None: none), wait up to
+    ``timeout`` for its exit code (None past it), then kill whatever of the
+    session is left."""
+    import signal
+
+    try:
+        if sig is not None and proc.poll() is None:
+            os.killpg(proc.pid, sig)
+        try:
+            return proc.wait(timeout=timeout)
+        except subprocess.TimeoutExpired:
+            return None
+    finally:
+        try:
+            os.killpg(proc.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        proc.wait(timeout=10)
+
+
+def _mh_tail(log: Path) -> str:
+    return log.read_text()[-3000:] if log.exists() else ""
+
+
+async def _mh_requests(port: int, adapter: str) -> dict:
+    """The main path through the leader: MH_REQUESTS greedy completions of
+    MH_TOKENS tokens streamed at once, the last under ``adapter``; each one's
+    TTFT and mean inter-token gap as the client saw them."""
+    import random
+
+    import aiohttp
+
+    rng = random.Random(29)
+    base = f"http://127.0.0.1:{port}"
+
+    async def one(s, i):
+        body = {"prompt": _prompt(rng, MH_PROMPT_BYTES + 11 * i), "max_tokens": MH_TOKENS, "temperature": 0.0,
+                "ignore_eos": True, "stream": True}
+        if i == MH_REQUESTS - 1:
+            body["model"] = adapter
+        t0 = time.perf_counter()
+        first = last = None
+        usage = None
+        async with s.post(base + "/v1/completions", json=body) as r:
+            check(r.status == 200, f"multihost: request {i} -> {r.status}")
+            async for raw in r.content:
+                line = raw.decode().strip()
+                if not line.startswith("data: ") or line == "data: [DONE]":
+                    continue
+                chunk = json.loads(line[6:])
+                usage = chunk.get("usage") or usage
+                if any(c.get("text") is not None for c in chunk["choices"]):
+                    last = time.perf_counter()
+                    first = first or last
+        n = usage["completion_tokens"] if usage else 0
+        check(n == MH_TOKENS, f"multihost: request {i} gave {n} tokens")
+        return first - t0, (last - first) / (n - 1)
+
+    async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=300)) as s:
+        async with s.post(base + "/v1/load_lora_adapter",
+                          json={"lora_name": adapter, "lora_path": dict(RANK_ADAPTERS)[adapter]}) as r:
+            check(r.status == 200, f"multihost: adapter load -> {r.status}")
+        t0 = time.perf_counter()
+        timed = await asyncio.gather(*(one(s, i) for i in range(MH_REQUESTS)))
+        wall = time.perf_counter() - t0
+    ttft, itl = sorted(t for t, _ in timed), sorted(g for _, g in timed)
+    return {"requests": MH_REQUESTS, "tokens_each": MH_TOKENS, "wall_seconds": round(wall, 4),
+            "ttft_s": [round(t, 4) for t, _ in timed], "ttft_p50_s": round(ttft[len(ttft) // 2], 4),
+            "itl_s": [round(g, 5) for _, g in timed], "itl_p50_s": round(itl[len(itl) // 2], 5)}
+
+
+def _mh_serve(label: str, mesh: dict, overrides: dict, ref: list, book) -> None:
+    """RANK_LLAMA bf16 with RANK_ADAPTERS over two hosts at ``overrides``:
+    this process the leader (api_server.serve with process id 0), the
+    follower host a subprocess. Before the main path (on the engine's loop
+    thread): the logits of _tp_inputs against one rank's (``ref``) with the
+    adapters loaded ("multihost_forward" and "lora_ranks" lines), every
+    rank's LoRA slots changed by the load (the follower host's too:
+    runner.lora_digest) and each host's weights the leader's where they are
+    replicas (runner.params_digest). The main path (_mh_requests) with every
+    count at 0 before it: both kernels launched on every rank of both hosts
+    and no plain version, each rank's collectives' share of its step
+    seconds, the step stream's frames and bytes. The leader's stop closes
+    the stream and the follower host exits 0, its log showing the replayed
+    slot writes. ``book(overrides, counts)`` books the launches."""
+    import signal
+
+    import torch
+
+    from production_stack_tpu_torch.engine.api_server import serve
+    from production_stack_tpu_torch.engine.config import EngineConfig
+
+    t_start = time.perf_counter()
+    coord, sync, port = _free_port(), _free_port(), _free_port()
+    fields = dict(model=RANK_LLAMA, num_pages=FORWARD_PAGES, **RANK_LORA, **overrides)
+    follower, log = _mh_start(f"bf16-{_mh_tag(mesh)}-host1", _mh_config(fields, 1, coord, sync))
+    cfg = EngineConfig(port=port, **_mh_config(fields, 0, coord, sync))
+    kernels, plains = _counters()
+    want = SERVE_ROWS[False]
+    logits = _logits_check(ref, "multihost_forward", mesh, adapters=RANK_ADAPTERS)
+    res = {}
+
+    def prepare(engine):
+        runner = engine.runner
+        res["forward"] = logits(engine)
+        res["lora_digests"] = [bytes(d).hex() for d in runner.lora_digest()]
+        res["lora_digests_loaded"] = [bytes(d).hex() for d in _with_adapters(engine, RANK_ADAPTERS[:1],
+                                                                               runner.lora_digest)]
+        res["params_digests"] = [bytes(d).hex() for d in runner.params_digest()]
+
+    async def run():
+        server, site = await serve(cfg)
+        engine = server.engine
+        res["startup_seconds"] = round(time.perf_counter() - t_start, 2)
+        try:
+            await asyncio.get_running_loop().run_in_executor(
+                None, engine._run_on_device_thread, lambda: prepare(engine), "prepare")
+            runner, bc = engine.runner, engine._tp.bc
+            runner.rank_stats(reset=True)
+            bc.reset_stats()
+            steps0 = runner.steps
+            res["main_path"] = await _mh_requests(port, RANK_ADAPTERS[0][0])
+            res["rows"] = _rank_rows(runner.rank_stats())
+            res["stream"] = {"runner_steps": runner.steps - steps0, "followers": engine.mesh_devices - 1,
+                             "method_frames": dict(bc.method_frames), "method_bytes": dict(bc.method_bytes)}
+            res["labels"] = [d for d, _ in runner.kv_pool_shard_layout()]
+        finally:
+            await site.cleanup()
+            engine.stop()
+
+    try:
+        asyncio.run(run())
+        res["follower_exit"] = _mh_end(follower, timeout=60)
+    finally:
+        _mh_end(follower, signal.SIGKILL, timeout=10)
+    gc.collect()
+    torch.cuda.empty_cache()
+    rows = res["rows"]
+    ranks = len(rows)
+    launches = [{k: int(r[k]) for k in kernels} for r in rows]
+    plain = [{k: int(r[k]) for k in plains} for r in rows]
+    stream = res["stream"]
+    flog = log.read_text()
+    # the replicas of one tp place: ranks t, t + tp, ... (at pp the stages
+    # hold different layers: their logits above hold them to one rank)
+    tp = overrides.get("tensor_parallel_size", 1)
+    replicas = [{res["params_digests"][r] for r in range(t, ranks, tp)} for t in range(tp)] \
+        if overrides.get("data_parallel_size", 1) > 1 else []
+    line = {
+        "phase": "multihost", "model": RANK_LLAMA, "kv_cache_dtype": "auto", **mesh, "hosts": 2,
+        "ranks_a_host": ranks // 2, "backend": "gloo (host-staged CUDA tensors), both hosts on the one card",
+        "labels": res["labels"], "forward": res["forward"], **res["main_path"],
+        "launches_by_rank": launches, "plain_calls_by_rank": plain,
+        "collective_share_of_step_by_rank": [round(r["collective_seconds"] / max(r["step_seconds"], 1e-9), 4)
+                                             for r in rows],
+        "step_seconds_by_rank": [round(r["step_seconds"], 4) for r in rows],
+        "stream_frames": sum(stream["method_frames"].values()), "stream_bytes": sum(stream["method_bytes"].values()),
+        "runner_steps": stream["runner_steps"],
+        "stream_frames_by_method": stream["method_frames"], "stream_bytes_by_method": stream["method_bytes"],
+        # the step calls' frames alone (the adapter's slot write is one large frame)
+        "stream_bytes_a_step_frame_a_follower": sum(n for m, n in stream["method_bytes"].items() if m.startswith("step"))
+        / max(sum(n for m, n in stream["method_frames"].items() if m.startswith("step")) * stream["followers"], 1),
+        "lora_slot_written_by_rank": [a != b for a, b in zip(res["lora_digests_loaded"], res["lora_digests"])],
+        "weights_replicas_equal": all(len(x) == 1 for x in replicas),
+        "follower_replayed_set_lora_slot": "follower replayed set_lora_slot" in flog,
+        "follower_host_exit": res["follower_exit"], "startup_seconds": res["startup_seconds"],
+        "seconds": round(time.perf_counter() - t_start, 2), "card": nvidia_smi_line(),
+    }
+    emit(line)
+    what = f"multihost[{label}]"
+    check(line["labels"][ranks // 2].startswith("host1/"), f"{what}: no rank on the follower host: {line['labels']}")
+    for r, counts in enumerate(launches):
+        for k in want:
+            check(counts[k] > 0, f"{what}: kernel {k} was not launched on rank {r} ({line['labels'][r]})")
+        check(not any(plain[r].values()), f"{what}: rank {r} ran a plain version: {plain[r]}")
+    check(all(line["lora_slot_written_by_rank"]), f"{what}: a rank's LoRA slots did not change: {line}")
+    check(line["weights_replicas_equal"], f"{what}: a host's weights differ from their replica's")
+    check(line["follower_replayed_set_lora_slot"], f"{what}: the follower host's log shows no slot write")
+    check(res["follower_exit"] == 0, f"{what}: the follower host exited {res['follower_exit']}:\n{_mh_tail(log)}")
+    check(line["stream_frames"] > 0 and stream["runner_steps"] > 0, f"{what}: nothing crossed the step stream")
+    book(overrides, {k: sum(c[k] for c in launches) for k in want})
+
+
+def _mh_tag(mesh: dict) -> str:
+    return "".join(f"{k}{v}" for k, v in mesh.items())
+
+
+def _mh_f32_start(mesh: dict, overrides: dict, prompts: list) -> dict:
+    """Start the f32 copy of RANK_LLAMA over two host subprocesses at
+    ``overrides``; the leader runs the greedy requests of ``prompts`` as
+    soon as its engine is up and writes their ids (multihost_host_main).
+    Returns what _mh_f32_end reads."""
+    coord, sync, port = _free_port(), _free_port(), _free_port()
+    fields = dict(model=f"{RANK_LLAMA}-f32", num_pages=128, decode_steps=8, **overrides)
+    tag = _mh_tag(mesh)
+    ids_out = MH_LOGS / f"f32-{tag}.json"
+    ids_out.parent.mkdir(parents=True, exist_ok=True)
+    ids_out.unlink(missing_ok=True)
+    t_start = time.perf_counter()
+    follower, flog = _mh_start(f"f32-{tag}-host1", _mh_config(fields, 1, coord, sync))
+    leader, llog = _mh_start(f"f32-{tag}-host0", dict(_mh_config(fields, 0, coord, sync), port=port),
+                             ids_out=str(ids_out), prompts=prompts)
+    return dict(t_start=t_start, ids_out=ids_out, follower=follower, flog=flog, leader=leader, llog=llog)
+
+
+def _mh_f32_end(label: str, mesh: dict, run: dict, ref: list, kill: bool) -> None:
+    """A two-host f32 engine of _mh_f32_start: the leader's greedy tokens
+    against one rank's (``ref``; a token may flip only at a near-tie,
+    TP_NEAR_TIE), each rank's launches. Then with ``kill`` the follower
+    host (every process of it) is killed and the leader must exit 13 within
+    MH_KILL_EXIT_S; without, the leader's SIGTERM ends both hosts with exit
+    0. Both hosts are gone when it returns."""
+    import signal
+
+    t_start, ids_out = run["t_start"], run["ids_out"]
+    leader, llog, follower, flog = run["leader"], run["llog"], run["follower"], run["flog"]
+    line = {"phase": "multihost_f32_tokens", "model": f"{RANK_LLAMA}-f32", **mesh, "hosts": 2}
+    try:
+        deadline = t_start + MH_READY_S
+        while not ids_out.exists():
+            states = (leader.poll(), follower.poll())
+            check(states == (None, None) and time.perf_counter() < deadline,
+                  f"multihost_f32[{label}]: a host ended or stalled ({states}):\n{_mh_tail(llog)}\n---\n"
+                  f"{_mh_tail(flog)}")
+            time.sleep(0.2)
+        got = json.loads(ids_out.read_text())
+        line["ready_seconds"] = round(time.perf_counter() - t_start, 2)
+        if kill:
+            os.killpg(follower.pid, signal.SIGKILL)
+            t0 = time.perf_counter()
+            line["leader_exit_after_follower_host_killed"] = _mh_end(leader, timeout=MH_KILL_EXIT_S)
+            line["leader_exit_seconds"] = round(time.perf_counter() - t0, 3)
+        else:
+            line["leader_exit"] = _mh_end(leader, signal.SIGTERM)
+            line["follower_host_exit"] = _mh_end(follower)
+    finally:
+        _mh_end(leader, signal.SIGKILL, timeout=10)
+        _mh_end(follower, signal.SIGKILL, timeout=10)
+    runs = [(ids, lps) for ids, lps in got["runs"]]
+    same, flips, diffs = _token_flips(ref, runs)
+    line.update(labels=got["labels"], tokens_per_prompt=TP_F32_TOKENS, prompts=len(runs),
+                tokens_equal_before_a_flip=same, tokens=sum(len(ids) for ids, _ in ref), flips=flips,
+                near_tie=TP_NEAR_TIE, logprob_max_diff_before_a_flip=max(diffs, default=0.0),
+                launches_by_rank=got["launches_by_rank"], seconds=round(time.perf_counter() - t_start, 2),
+                card=nvidia_smi_line())
+    emit(line)
+    what = f"multihost_f32[{label}]"
+    check(all(len(ids) == TP_F32_TOKENS for ids, _ in runs), f"{what}: short output")
+    for f in flips:
+        check(f["reference_top2_margin"] <= TP_NEAR_TIE, f"{what}: a token flipped away from a near-tie: {f}")
+    for r, counts in enumerate(got["launches_by_rank"]):
+        check(all(n > 0 for n in counts.values()), f"{what}: rank {r} launched {counts}")
+        check(not any(got["plain_calls_by_rank"][r].values()), f"{what}: rank {r} ran a plain version")
+    if kill:
+        check(line["leader_exit_after_follower_host_killed"] == 13,
+              f"{what}: the leader exited {line['leader_exit_after_follower_host_killed']} after its follower host "
+              f"was killed:\n{_mh_tail(llog)}")
+    else:
+        check(line["leader_exit"] == 0 and line["follower_host_exit"] == 0,
+              f"{what}: exits {line['leader_exit']}, {line['follower_host_exit']}")
+
+
+def phase_multihost(book, ref: list) -> None:
+    """Multi-host serving on the one card: two host processes (each the
+    port's api_server.serve with its --distributed-process-id) over gloo,
+    RANK_LLAMA at dp 2 x tp 2 and at pp 2. The bf16 runs (_mh_serve: the
+    logits against one rank's, ``ref`` being the tp phase's, the LoRA slots
+    on both hosts, every rank's launches on the main path, TTFT and ITL
+    through the leader, the collectives' share, the stream's bytes), then
+    the f32 copy's greedy tokens of both layouts at once (their host
+    processes start together and while this process computes one rank's
+    tokens) against one rank's, the pp 2 pair ended by killing its
+    follower host, whose loss must end the leader with exit 13."""
+    import random
+    import signal
+
+    import torch
+
+    from production_stack_tpu_torch.engine.config import EngineConfig
+    from production_stack_tpu_torch.engine.engine import LLMEngine
+    from production_stack_tpu_torch.models import llama
+
+    for label, mesh, overrides in MH_LAYOUTS:
+        _mh_serve(label, mesh, overrides, ref, book)
+    name = f"{RANK_LLAMA}-f32"
+    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS[RANK_LLAMA], dtype=torch.float32)
+    rng = random.Random(13)
+    prompts = [_prompt(rng, 300 + 400 * i) for i in range(2)]
+    runs = []
+    try:
+        for _, mesh, overrides in MH_LAYOUTS:
+            runs.append(_mh_f32_start(mesh, overrides, prompts))
+        engine = LLMEngine(EngineConfig(model=name, num_pages=128, decode_steps=8))
+        engine.start()
+        try:
+            async def go():
+                return [await _engine_greedy(engine, f"mh-ref-{i}", p, max_tokens=TP_F32_TOKENS)
+                        for i, p in enumerate(prompts)]
+
+            ref_ids = asyncio.run(go())
+        finally:
+            engine.stop()
+            del engine
+            gc.collect()
+            torch.cuda.empty_cache()
+        for i, ((label, mesh, _), run) in enumerate(zip(MH_LAYOUTS, runs)):
+            _mh_f32_end(label, mesh, run, ref_ids, kill=i == len(MH_LAYOUTS) - 1)
+    finally:
+        for run in runs:
+            _mh_end(run["leader"], signal.SIGKILL, timeout=10)
+            _mh_end(run["follower"], signal.SIGKILL, timeout=10)
+
+
+def book_launches(launches: dict, overrides: dict, counts: dict, D: int) -> None:
+    """Add a served run's launches (``counts``, summed over its ranks) to
+    the kernel table's rows of their shapes at the run's rank layout
+    (``overrides``: its EngineConfig fields) and head dim ``D``."""
+    quant = overrides.get("kv_cache_dtype") == "int8"
+    tp, dp = overrides.get("tensor_parallel_size", 1), overrides.get("data_parallel_size", 1)
+    ep, pp = overrides.get("expert_parallel_size", 1), overrides.get("pipeline_parallel_size", 1)
+    sp = overrides.get("sequence_parallel_size", 1)
+    for k in SERVE_ROWS[quant] + ((VERIFY_ROW,) if VERIFY_ROW in counts else ()):
+        # an ep rank runs its tp place's heads: the [ep2tp2] rows at ep 2
+        # x tp 2, one rank's rows at ep 2 alone
+        row = _eptag(_dtag(k, D), ep, tp) if ep > 1 and tp > 1 else _tptag(_dtag(k, D), tp)
+        if dp > 1 and tp == 1 and k == "decode_attention":
+            row = _dptag(row, dp)  # the dp rank's rows, all heads: the [dp2] row
+        if pp > 1 and D == 64 and k != "kv_page_write":
+            row = _pptag(k, pp, tp)  # a stage's microbatches on its pool: the [pp2] and [pp2tp2] rows
+        if sp > 1:
+            if k != "decode_attention":
+                continue  # a chunk at sp goes through the ring
+            row = _sptag(k, sp, tp)  # every sequence rank's whole step: the [sp2] and [sp2tp2] rows
+        launches[row] = launches.get(row, 0) + counts[k]
+
+
 def main() -> int:
     try:
         import torch
@@ -5531,27 +6001,12 @@ def main() -> int:
     clock("forward")
 
     def serve(label, overrides, D, sleep_level, lora, prepare=None, extra=None):
-        counts = phase_serve(label, overrides, sleep_level, lora, prepare, extra)
-        quant = overrides.get("kv_cache_dtype") == "int8"
-        tp, dp = overrides.get("tensor_parallel_size", 1), overrides.get("data_parallel_size", 1)
-        ep, pp = overrides.get("expert_parallel_size", 1), overrides.get("pipeline_parallel_size", 1)
-        sp = overrides.get("sequence_parallel_size", 1)
-        for k in SERVE_ROWS[quant] + ((VERIFY_ROW,) if VERIFY_ROW in counts else ()):
-            # an ep rank runs its tp place's heads: the [ep2tp2] rows at ep 2
-            # x tp 2, one rank's rows at ep 2 alone
-            row = _eptag(_dtag(k, D), ep, tp) if ep > 1 and tp > 1 else _tptag(_dtag(k, D), tp)
-            if dp > 1 and tp == 1 and k == "decode_attention":
-                row = _dptag(row, dp)  # the dp rank's rows, all heads: the [dp2] row
-            if pp > 1 and D == 64 and k != "kv_page_write":
-                row = _pptag(k, pp, tp)  # a stage's microbatches on its pool: the [pp2] and [pp2tp2] rows
-            if sp > 1:
-                if k != "decode_attention":
-                    continue  # a chunk at sp goes through the ring
-                row = _sptag(k, sp, tp)  # every sequence rank's whole step: the [sp2] and [sp2tp2] rows
-            launches[row] = launches.get(row, 0) + counts[k]
+        book_launches(launches, overrides, phase_serve(label, overrides, sleep_level, lora, prepare, extra), D)
 
     try:
         phase_hf_qwen()
+        gc.collect()
+        torch.cuda.empty_cache()  # the blocks qwen2.5-7b's load and forward left cached
         phase_hf_write(OPT_DIR, OPT_HF_CONFIG, _opt_hf_specs(OPT_HF_CONFIG, torch.float16))
         from production_stack_tpu_torch.models import llama
 
@@ -5620,6 +6075,10 @@ def main() -> int:
         # prompt, every rank a process on the one card over gloo
         phase_sp_ranks(serve)
         clock("sp_ranks")
+        # multi-host serving: two host processes, each an api_server.serve
+        # with its process id, at dp 2 x tp 2 and pp 2 on the one card
+        phase_multihost(lambda overrides, counts: book_launches(launches, overrides, counts, 64), tp_ref)
+        clock("multihost")
         phase_opt_int8_refused()
         shutil.rmtree(QWEN_DIR)  # room on the disk for mixtral-8x7b's 23 GB
         phase_hf_mixtral()

@@ -78,6 +78,7 @@ from aiohttp import web
 from production_stack_tpu_torch import __version__
 from production_stack_tpu_torch.engine.config import EngineConfig, add_engine_args, config_from_args
 from production_stack_tpu_torch.engine.devicemon import DeviceMonitor
+from production_stack_tpu_torch.engine.distributed import follower_host_main, resolve_process_id
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.scheduler import SamplingParams
 from production_stack_tpu_torch.engine.tool_parser import StreamingToolParser, parse_tool_calls
@@ -328,9 +329,9 @@ def _summed_usage(lasts) -> dict:
 
 
 class EngineServer:
-    def __init__(self, cfg: EngineConfig, engine: Optional[LLMEngine] = None, device="cuda"):
+    def __init__(self, cfg: EngineConfig, engine: Optional[LLMEngine] = None, device="cuda", params=None):
         self.cfg = cfg
-        self.engine = engine or LLMEngine(cfg, device=device)
+        self.engine = engine or LLMEngine(cfg, device=device, params=params)
         self.start_time = time.time()
         # SIGTERM: /health flips to 503, new generation requests are refused
         # and in-flight ones finish
@@ -1466,11 +1467,32 @@ class EngineServer:
         return app
 
 
-async def serve(cfg: EngineConfig, engine: Optional[LLMEngine] = None, device="cuda"):
-    """Build the engine (unless given), start its loop and the HTTP site;
-    returns (server, aiohttp AppRunner). The caller stops both."""
+async def serve(cfg: EngineConfig, engine: Optional[LLMEngine] = None, device="cuda", params=None):
+    """Build the engine (unless given; ``params`` a whole parameter dict to
+    serve instead of the preset's seeded weights), start its loop and the
+    HTTP site; returns (server, aiohttp AppRunner). The caller stops both.
+
+    With ``distributed_num_processes`` > 1 (and no engine given), the
+    JAX server's multi-host branch: a process whose id
+    (distributed.resolve_process_id) is not 0 is a follower host. It runs
+    its block of ranks (distributed.follower_host_main), with no HTTP site
+    and with the offload tiers, the controller, the remote cache and the KV
+    role switched off (they are the leader's), blocks until the leader
+    closes the step stream, and then raises ``SystemExit(0)``. Process 0
+    builds the engine over every host's ranks and serves as one host does;
+    its LoRA manager and offload connector hold the broadcasting runner, so
+    their page moves and slot writes reach every host. Across hosts work the
+    offload tiers (the replicated page calls), sleep levels 1 and 2, LoRA
+    (the adapter crosses the step stream: no shared filesystem),
+    disaggregated prefill over TCP blobs and the fabric (the device path is
+    refused), and the KV-index controller (fed by the leader alone)."""
+    if cfg.distributed_num_processes > 1 and engine is None:
+        pid = resolve_process_id(cfg)
+        if pid != 0:
+            await asyncio.get_running_loop().run_in_executor(None, follower_host_main, cfg, pid, device, params)
+            raise SystemExit(0)
     configure_tracing(sample_rate=cfg.trace_sample_rate, capacity=cfg.trace_buffer_size)
-    server = EngineServer(cfg, engine, device=device)
+    server = EngineServer(cfg, engine, device=device, params=params)
     server.engine.start()
     runner = web.AppRunner(server.build_app())
     await runner.setup()

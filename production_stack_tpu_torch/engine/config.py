@@ -266,13 +266,23 @@ class EngineConfig:
     # assembles windows into whole pages); 0 ships whole pages in one frame
     kv_fabric_stream_layers: int = 0
 
+    # multi-host serving (engine/distributed.py): distributed_num_processes
+    # host processes form one engine of pp x dp x sp x ep x tp ranks, host h
+    # holding global ranks [h * L, (h + 1) * L), L = ranks / processes. The
+    # ranks rendezvous at distributed_coordinator ("host:port" of process
+    # 0's c10d store); process 0 (the leader) serves HTTP and streams its
+    # runner calls from worker_sync_port (all interfaces) to every other
+    # rank. distributed_process_id: this process's index (default: the
+    # JAX_PROCESS_ID env var, else the StatefulSet hostname's ordinal)
+    distributed_coordinator: Optional[str] = None   # host:port of process 0
+    distributed_num_processes: int = 1
+    distributed_process_id: Optional[int] = None    # default: hostname -N suffix
+    worker_sync_port: int = 8477
+
     # Switches of the JAX engine's features that the port does not serve
     # yet. Each must keep its default: check_supported refuses any other
-    # value rather than ignore it. The JAX engine's per-feature sub-knobs
-    # of these (the multi-host knobs, ...) are not carried.
+    # value rather than ignore it.
     kv_write_mode: str = "post"         # "pre" is not ported
-    distributed_coordinator: Optional[str] = None
-    distributed_num_processes: int = 1
 
     @property
     def name(self) -> str:
@@ -346,13 +356,31 @@ _FLAG_HELP = {
     ),
     "speculative_ngram": "the n-gram the speculative draft looks up in the request's own tokens",
     "tp_backend": (
-        "nccl | gloo: the torch.distributed backend of the engine's dp x ep x tp "
+        "nccl | gloo: the torch.distributed backend of the engine's pp x dp x sp x ep x tp "
         "ranks (port only). gloo stages CUDA tensors through the host, so "
-        "ranks may share one card (--tp-device-ids 0,0); nccl refuses that"
+        "ranks may share one card (--tp-device-ids 0,0) and hosts may join; nccl refuses both"
     ),
     "tp_device_ids": (
-        "comma-separated CUDA device index of each of the dp x ep x tp ranks, "
-        "rank r = (d * ep + e) * tp + t (port only; default: rank r on cuda:r)"
+        "comma-separated CUDA device index of each of this host's ranks (all "
+        "pp x dp x sp x ep x tp of them on one host), in global rank order, "
+        "r = (((p * dp + d) * sp + s) * ep + e) * tp + t (port only; default: "
+        "the host's i-th rank on cuda:i)"
+    ),
+    "distributed_coordinator": (
+        "host:port of process 0's rendezvous (a c10d TCP store) for multi-host "
+        "serving; every host process names the same one"
+    ),
+    "distributed_num_processes": (
+        "host processes that form one engine, each running an equal block of its "
+        "ranks (the port needs --tp-backend gloo across hosts)"
+    ),
+    "distributed_process_id": (
+        "this host process's index, 0 = the leader that serves HTTP (default: "
+        "JAX_PROCESS_ID, else the hostname's -N suffix, as a StatefulSet names pods)"
+    ),
+    "worker_sync_port": (
+        "the port the leader's step stream listens on (all interfaces) with more than "
+        "one process; every other host's ranks dial <coordinator host>:<this port>"
     ),
     "warm_start": (
         "spill a warm-start manifest (hot chain-head KV pages + prefix-index "
@@ -499,8 +527,6 @@ def resolve_attn_impl(attn_impl: str, device) -> str:
 # accepted and then ignored would misreport what is being served)
 _UNSUPPORTED = {
     "kv_write_mode": "the 'pre' KV write mode",
-    "distributed_coordinator": "multi-host serving",
-    "distributed_num_processes": "multi-host serving",
 }
 
 
@@ -512,7 +538,9 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
     (``_UNSUPPORTED``), on a combination the port does not serve (pp with
     ep ranks or speculative decoding; sp with dp, ep or pp ranks or
     speculative decoding; device KV transfer with ranks, across hosts or,
-    given ``device``, off the card), and on
+    given ``device``, off the card; a multi-host engine without a
+    coordinator, with a number of processes that does not divide its ranks,
+    or over NCCL: ``check_hosts``), and on
     one the JAX engine refuses too (pp with in-engine dp; int8 pools with
     sp or pp, with speculative decoding, or with disaggregated prefill but
     no fabric; a producer without a peer; in its words). The refusals that
@@ -625,4 +653,34 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
         raise ValueError(f"tensor_parallel_size must be >= 1, got {tp}")
     if cfg.tp_backend not in TP_BACKENDS:
         raise ValueError(f"unknown tp_backend {cfg.tp_backend!r}; options: {TP_BACKENDS}")
-    parse_device_ids(cfg.tp_device_ids, pp * dp * sp * ep * tp)
+    parse_device_ids(cfg.tp_device_ids, check_hosts(cfg))
+
+
+def check_hosts(cfg: EngineConfig) -> int:
+    """The ranks one host process runs (all pp x dp x sp x ep x tp of them
+    on one host): refuses a multi-host engine without a coordinator (in
+    the JAX engine's words), a number of processes that does not divide
+    the ranks, and NCCL across hosts."""
+    n = cfg.distributed_num_processes
+    world = (cfg.pipeline_parallel_size * cfg.data_parallel_size * cfg.sequence_parallel_size
+             * cfg.expert_parallel_size * cfg.tensor_parallel_size)
+    if n < 1:
+        raise ValueError(f"distributed_num_processes must be >= 1, got {n}")
+    if n == 1:
+        return world
+    if not cfg.distributed_coordinator:
+        raise ValueError("--distributed-num-processes > 1 requires --distributed-coordinator (multi-host serving)")
+    host, _, port = cfg.distributed_coordinator.rpartition(":")
+    if not host or not port.isdigit():
+        raise ValueError(f"--distributed-coordinator {cfg.distributed_coordinator!r} must be host:port")
+    if world % n:
+        raise ValueError(
+            f"multi-host serving: {n} processes do not divide the engine's {world} ranks "
+            f"(pipeline x data x sequence x expert x tensor parallel sizes); each host runs the same number"
+        )
+    if cfg.tp_backend == "nccl":
+        raise ValueError(
+            "not supported by the PyTorch port yet: NCCL across hosts (--tp-backend nccl with "
+            "--distributed-num-processes > 1); ask for --tp-backend gloo"
+        )
+    return world // n

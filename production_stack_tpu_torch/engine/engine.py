@@ -46,7 +46,7 @@ rank.
 
 With ``tensor_parallel_size`` tp > 1 the engine is the leader (rank 0) of
 tp processes, one per rank, which it starts itself (``spawn``) and joins
-with ``torch.distributed`` (engine/distributed.TPLeader): every rank holds
+with ``torch.distributed`` (engine/distributed.RankBlock): every rank holds
 1/tp of the weights and of every KV page, and the leader sends each runner
 call that must run everywhere to the followers before it runs it
 (``BroadcastingRunner``). Scheduling, the prefix cache and the offload tiers
@@ -140,8 +140,15 @@ and the tail chunk is prefilled. Directory and migration move pages only
 through the offload tiers' page calls and the fabric, which serve tp and dp
 ranks.
 
-Not ported yet: the "pre" KV write mode, the sp axis and multi-host
-serving (engine/config.check_supported refuses their flags).
+With ``distributed_num_processes`` n > 1 the ranks are split over n host
+processes, equal blocks of consecutive global ranks (engine/distributed.py):
+this engine is built on process 0 only, the leader, which starts its own
+block and joins every rank over the coordinator's rendezvous; every other
+host process runs its block's runners alone (distributed.follower_host_main,
+api_server.serve's branch) and builds no engine.
+
+Not ported yet: the "pre" KV write mode (engine/config.check_supported
+refuses its flag).
 """
 
 from __future__ import annotations
@@ -161,7 +168,7 @@ import torch
 
 from production_stack_tpu_torch import tracing
 from production_stack_tpu_torch.engine.config import EngineConfig, check_supported
-from production_stack_tpu_torch.engine.distributed import TPLeader
+from production_stack_tpu_torch.engine.distributed import RankBlock, resolve_process_id
 from production_stack_tpu_torch.engine.kv_manager import KVPageManager
 from production_stack_tpu_torch.engine.linkprobe import derive_max_io_pages, probe_link_bandwidth
 from production_stack_tpu_torch.engine.lora import LoRAError, LoRAManager, lora_targets
@@ -228,14 +235,54 @@ def build_runner(cfg: EngineConfig, device, model_cfg, params, num_pages: int, t
     )
 
 
+def engine_geometry(cfg: EngineConfig, device) -> tuple:
+    """(model config, pool pages) of the engine ``cfg``
+    describes, after the refusals that need no weights (check_supported,
+    and those that read the model: tp, ep, pp and sp against its shape).
+    Every host of a multi-host engine derives the same pool from the same
+    flags. ``num_pages`` comes from the whole page's bytes (every KV head
+    of every layer), as the JAX engine sizes the pool: a tp or pp engine
+    holds as many pages as one rank, each rank 1/tp of the heads of its
+    stage's 1/pp of the layers (and every sequence rank all of its tp
+    place's); int8 pages count their f32 scale rows too."""
+    # int8 with speculative_k, or with a disagg role but no fabric, and a
+    # producer without a peer too, in the JAX engine's words
+    check_supported(cfg, device)
+    module, model_cfg = model_config(cfg.model, cfg.max_model_len)
+    check_tp(model_cfg, cfg.tensor_parallel_size)  # per tp group
+    check_ep(model_cfg, cfg.expert_parallel_size)
+    check_pp(module, model_cfg, cfg.pipeline_parallel_size)
+    check_sp(module, model_cfg, cfg.sequence_parallel_size)
+    return model_cfg, cfg.num_pages or max(64, int(cfg.kv_cache_memory_gb * 1e9 / page_bytes(cfg, model_cfg)))
+
+
+def page_bytes(cfg: EngineConfig, model_cfg) -> int:
+    """One whole page's bytes in the pool: K and V of every KV head of every
+    layer (int8: one byte an element, plus the k and v scale rows)."""
+    quant = cfg.kv_cache_dtype == "int8"
+    itemsize = torch.empty((), dtype=model_cfg.dtype).element_size()
+    L, KH, D = model_cfg.num_layers, model_cfg.num_kv_heads, model_cfg.head_dim
+    n = 2 * L * cfg.page_size * KH * D * (1 if quant else itemsize)
+    if quant:
+        # the pages' f32 scale rows (k and v, per KV head) ride the pool
+        # budget too: int8 about doubles the pages kv_cache_memory_gb holds
+        n += 2 * L * KH * 4
+    return n
+
+
 class LLMEngine:
     def __init__(self, cfg: EngineConfig, *, device="cuda", params=None):
         """``params``: a parameter dict of the port (model_loader.
         params_from_jax) to serve instead of the preset's seeded weights;
-        whole, also under tp (each rank takes its part)."""
-        # int8 with speculative_k, or with a disagg role but no fabric, and a
-        # producer without a peer too, in the JAX engine's words
-        check_supported(cfg, device)
+        whole, also under tp (each rank takes its part). With
+        ``distributed_num_processes`` > 1 this is process 0's engine (the
+        leader of every host's ranks); another process id is refused."""
+        model_cfg, num_pages = engine_geometry(cfg, device)
+        if cfg.distributed_num_processes > 1 and resolve_process_id(cfg) != 0:
+            raise ValueError(
+                "a follower host of a multi-host engine builds no engine: run api_server.serve "
+                "(or distributed.follower_host_main) with its process id"
+            )
         self.cfg = cfg
         self.tensor_parallel = cfg.tensor_parallel_size
         self.data_parallel = cfg.data_parallel_size
@@ -244,28 +291,14 @@ class LLMEngine:
         self.sequence_parallel = cfg.sequence_parallel_size
         self.mesh_devices = (self.pipeline_parallel * self.data_parallel * self.sequence_parallel
                              * self.expert_parallel * self.tensor_parallel)
-        module, model_cfg = model_config(cfg.model, cfg.max_model_len)
-        check_tp(model_cfg, self.tensor_parallel)  # per tp group
-        check_ep(model_cfg, self.expert_parallel)
-        check_pp(module, model_cfg, self.pipeline_parallel)
-        check_sp(module, model_cfg, self.sequence_parallel)
         self.kv_quant = cfg.kv_cache_dtype == "int8"
         # a checkpoint directory holds its tokenizer, as in the JAX engine
         self.tokenizer = load_tokenizer(
             cfg.tokenizer or (cfg.model if "/" in cfg.model or cfg.model.startswith(".") else None)
         )
         itemsize = torch.empty((), dtype=model_cfg.dtype).element_size()
-        # the whole page (every KV head of every layer), as the JAX engine
-        # sizes the pool: a tp or pp engine holds as many pages as one rank,
-        # each rank 1/tp of the heads of its stage's 1/pp of the layers (and
-        # every sequence rank all of its tp place's)
         L, KH, D = model_cfg.num_layers, model_cfg.num_kv_heads, model_cfg.head_dim
-        page_bytes = 2 * L * cfg.page_size * KH * D * (1 if self.kv_quant else itemsize)
-        if self.kv_quant:
-            # the pages' f32 scale rows (k and v, per KV head) ride the pool
-            # budget too: int8 about doubles the pages kv_cache_memory_gb holds
-            page_bytes += 2 * L * KH * 4
-        self.kv_page_bytes = page_bytes
+        self.kv_page_bytes = page_bytes(cfg, model_cfg)
         # bytes one token costs the pool, and a startup quantize-dequantize
         # round trip on seeded normal data: the relative error bound of the
         # int8 math on this build (vllm:kv_quant_dequant_err_max)
@@ -285,12 +318,12 @@ class LLMEngine:
                 or os.environ.get("PSTPU_FLIGHTRECORDER_DIR")
             ),
         )
-        num_pages = cfg.num_pages or max(64, int(cfg.kv_cache_memory_gb * 1e9 / page_bytes))
-        # pp x dp x sp x ep x tp > 1: start the follower ranks and join the group before
-        # the leader loads its own part (TPLeader.close undoes both)
-        self._tp: Optional[TPLeader] = None
+        # pp x dp x sp x ep x tp > 1: start this host's follower ranks and
+        # join every host's before the leader loads its own part
+        # (RankBlock.close undoes both)
+        self._tp: Optional[RankBlock] = None
         if self.mesh_devices > 1:
-            self._tp = TPLeader(cfg, device, model_cfg, params, num_pages)
+            self._tp = RankBlock(cfg, device, model_cfg, params, num_pages)
         try:
             group = self._tp.group if self._tp else None
             runner = build_runner(cfg, group.device if group else device, model_cfg, params, num_pages, group)
@@ -312,7 +345,7 @@ class LLMEngine:
         if cfg.kv_offload_max_io_pages < 0 and self._offload is not None:
             bw = probe_link_bandwidth(self.runner.device)
             self.kv_link_bandwidth_bytes_per_s = bw
-            max_io_pages = derive_max_io_pages(bw, page_bytes)
+            max_io_pages = derive_max_io_pages(bw, self.kv_page_bytes)
             logger.info(
                 "kv offload link probe: %s MB/s -> max_io_pages=%d",
                 "?" if bw is None else f"{bw / 1e6:.1f}", max_io_pages,

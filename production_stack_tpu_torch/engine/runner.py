@@ -893,7 +893,11 @@ class ModelRunner:
 
     def _alloc_kv(self) -> None:
         """The rank's pools: its stage's L/pp layers (every layer at pp 1)
-        and its KV heads of every page."""
+        and its KV heads of every page. Cached blocks are released first,
+        so a pool is not carved out of a block that earlier work left in
+        the caching allocator beside live tensors: sleep then gives all of
+        its bytes back to the card."""
+        self._release_cached()
         cfg = self.cfg
         kw = {"pp": self.stage.size} if self.stage is not None else {}
         self.k_pages, self.v_pages = self.module.init_kv_pages(
@@ -960,6 +964,19 @@ class ModelRunner:
         for t in self._pools():
             for layer in t:  # a layer at a time through the host
                 h.update(layer.contiguous().view(torch.uint8).cpu().numpy())
+        own = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8)[None].to(self.device)
+        return gather_split(own, 0, self.world).cpu().numpy()
+
+    def params_digest(self) -> np.ndarray:
+        """Every rank's sha256 of its parameters, by name ([pp x dp x sp x
+        ep x tp, 32] uint8, global rank order): the dp, sp and ep replicas
+        of one (stage, tp place) hold the same part of the same weights,
+        on whatever host each runs (a diagnostic: each host loads its own
+        copy)."""
+        h = hashlib.sha256()
+        for name, t in sorted(self.model.named_parameters()):
+            h.update(name.encode())
+            h.update(t.detach().contiguous().view(torch.uint8).cpu().numpy())
         own = torch.frombuffer(bytearray(h.digest()), dtype=torch.uint8)[None].to(self.device)
         return gather_split(own, 0, self.world).cpu().numpy()
 

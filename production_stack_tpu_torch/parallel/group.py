@@ -35,6 +35,16 @@ r = (((p * dp + d) * sp + s) * ep + e) * tp + t, the mesh's order
   In this port dp = ep = 1 whenever pp > 1, and dp = ep = pp = 1 whenever
   sp > 1 (engine/config.check_supported).
 
+Multi-host serving splits the ranks into equal blocks, one per host
+process: host h of n runs global ranks [h * L, (h + 1) * L), L = ranks / n
+(``host_ranks``), so the split falls on the outermost axes, as the JAX
+``make_mesh`` reshapes the global device list (process 0's devices first).
+Every rank joins over the coordinator's c10d TCP store
+(``tcp://host:port``, hosted by global rank 0), which also carries the
+step stream's secret (engine/distributed.resolve_sync_secret). A host
+names only its own devices (``tp_device_ids``: L indices); rank r runs on
+its host's ``r % L``-th.
+
 The backend is named by the caller, never guessed: ``nccl`` (the default)
 needs a CUDA device per rank and refuses two ranks on one device; ``gloo``
 takes CUDA or CPU tensors and stages CUDA ones through the host, so several
@@ -58,6 +68,7 @@ bytes.
 from __future__ import annotations
 
 import datetime
+import os
 import time
 from typing import Optional
 
@@ -66,8 +77,9 @@ import torch.distributed as dist
 
 BACKENDS = ("nccl", "gloo")
 # rendezvous and per-collective timeout: a rank that dies is seen at once
-# (its sockets close); one that hangs ends the set after this long
-TIMEOUT_S = 300.0
+# (its sockets close); one that hangs, or a host that never joins, ends the
+# set after this long (PSTPU_RANK_TIMEOUT_S)
+TIMEOUT_S = float(os.environ.get("PSTPU_RANK_TIMEOUT_S", "300"))
 
 
 _AXES_NAMED = ("pipeline_parallel_size x data_parallel_size x sequence_parallel_size x "
@@ -75,8 +87,9 @@ _AXES_NAMED = ("pipeline_parallel_size x data_parallel_size x sequence_parallel_
 
 
 def parse_device_ids(spec: Optional[str], ranks: int) -> Optional[list[int]]:
-    """``"0,0"`` -> [0, 0]: one CUDA device index per rank of the engine,
-    pp x dp x sp x ep x tp of them (None: rank r on device r)."""
+    """``"0,0"`` -> [0, 0]: one CUDA device index per rank this host runs
+    (all pp x dp x sp x ep x tp of them on one host; None: its i-th rank on
+    device i)."""
     if spec is None or spec == "":
         return None
     try:
@@ -86,7 +99,7 @@ def parse_device_ids(spec: Optional[str], ranks: int) -> Optional[list[int]]:
     if len(ids) != ranks or min(ids) < 0:
         raise ValueError(
             f"tp_device_ids {spec!r} must name one device index >= 0 for each of the engine's {ranks} ranks "
-            f"({_AXES_NAMED})"
+            f"on this host ({_AXES_NAMED}, over distributed_num_processes)"
         )
     return ids
 
@@ -127,13 +140,36 @@ def check_backend(backend: str, devices: list[torch.device]) -> None:
         )
 
 
-def device_labels(devices: list[torch.device], dp: int = 1, ep: int = 1, pp: int = 1, sp: int = 1) -> list[str]:
+def host_ranks(world: int, hosts: int, host: int) -> range:
+    """The global ranks host process ``host`` of ``hosts`` runs: an equal
+    block of consecutive ranks, the outermost axes split first."""
+    if hosts < 1 or world % hosts or not 0 <= host < hosts:
+        raise ValueError(f"{hosts} host processes cannot split {world} ranks into equal blocks (host {host})")
+    per = world // hosts
+    return range(host * per, (host + 1) * per)
+
+
+def rank_place(rank: int, dp: int, tp: int, ep: int = 1, pp: int = 1, sp: int = 1) -> tuple:
+    """(p, d, s, e, t) of global ``rank``: r = (((p * dp + d) * sp + s) * ep
+    + e) * tp + t."""
+    per = dp * sp * ep * tp
+    p, rest = divmod(rank, per)
+    d, within = divmod(rest, sp * ep * tp)
+    s, place = divmod(within, ep * tp)
+    e, t = divmod(place, tp)
+    return p, d, s, e, t
+
+
+def device_labels(devices: list[torch.device], dp: int = 1, ep: int = 1, pp: int = 1, sp: int = 1,
+                  hosts: int = 1) -> list[str]:
     """One distinct label per rank: ``cuda:0`` for a single rank, else the
     device and the rank (``cuda:0/tp1``; with dp > 1 ``cuda:0/dp1tp0``; with
     ep > 1 ``cuda:0/dp0ep1tp0``; with sp > 1 ``cuda:0/sp1tp0``; with pp > 1
     the stage first, ``cuda:0/pp1tp0``), so ranks on one card stay rows of
-    their own."""
-    names = [f"{d.type}:{d.index or 0}" for d in devices]
+    their own; across hosts the host first (``host1/cuda:0/dp1tp0``)."""
+    per_host = len(devices) // hosts
+    names = [(f"host{r // per_host}/" if hosts > 1 else "") + f"{d.type}:{d.index or 0}"
+             for r, d in enumerate(devices)]
     if len(devices) == 1:
         return names
     per = len(devices) // pp  # the ranks of one stage
@@ -214,12 +250,12 @@ class TPGroup(Group):
     group's rotations and gathers)."""
 
     def __init__(self, world_rank: int, dp: int, tp: int, backend: str, devices: list[torch.device],
-                 pgs: tuple = (None, None, None, None, None, None, None), ep: int = 1, pp: int = 1, sp: int = 1):
+                 pgs: tuple = (None, None, None, None, None, None, None), ep: int = 1, pp: int = 1, sp: int = 1,
+                 hosts: int = 1, store=None):
         per = dp * sp * ep * tp  # the ranks of one stage
-        p, rest = divmod(world_rank, per)
-        d, within = divmod(rest, sp * ep * tp)
-        s, place = divmod(within, ep * tp)
-        e, t = divmod(place, tp)
+        p, d, s, e, t = rank_place(world_rank, dp, tp, ep, pp, sp)
+        rest = world_rank - p * per
+        place = e * tp + t
         self.calls = 0
         self.bytes = 0
         self.seconds = 0.0
@@ -241,14 +277,23 @@ class TPGroup(Group):
         self.backend = backend
         self.devices = devices
         self.device = devices[world_rank]
-        self.labels = device_labels(devices, dp, ep, pp, sp)
+        self.hosts = hosts
+        self.labels = device_labels(devices, dp, ep, pp, sp, hosts)
+        # the rendezvous' c10d store (global rank 0 hosts it): the step
+        # stream's secret crosses it between hosts
+        self.store = store
 
     @classmethod
     def init(cls, rank: int, dp: int, tp: int, backend: str, devices: list[torch.device], init_method: str,
-             timeout_s: float = TIMEOUT_S, ep: int = 1, pp: int = 1, sp: int = 1) -> "TPGroup":
+             timeout_s: float = TIMEOUT_S, ep: int = 1, pp: int = 1, sp: int = 1, hosts: int = 1) -> "TPGroup":
         """Join the engine's ranks as global ``rank`` (a barrier: returns
-        once every rank has joined), after making the rank's device
-        current. The world is the process's default ``torch.distributed``
+        once every rank has joined, or raises past ``timeout_s``), after
+        making the rank's device current. ``init_method`` is
+        ``tcp://host:port``: a c10d TCP store that global rank 0 starts
+        there and every other rank dials (retrying until the timeout, so a
+        rank may start before rank 0 listens); with ``hosts`` > 1 the
+        ranks are ``hosts`` blocks of the world, one per host process. The
+        world is the process's default ``torch.distributed``
         group, so a process takes part in one engine's ranks at a time.
         Every rank makes every tp, expert, dp, sequence and stage subgroup
         that is neither the world nor a single rank (nor, at ep = 1, the tp
@@ -263,8 +308,11 @@ class TPGroup(Group):
             torch.cuda.set_device(devices[rank])
         timeout = datetime.timedelta(seconds=timeout_s)
         per = dp * sp * ep * tp
-        dist.init_process_group(backend, init_method=init_method, world_size=pp * per, rank=rank,
-                                timeout=timeout)
+        if not init_method.startswith("tcp://"):
+            raise ValueError(f"init_method {init_method!r} must be tcp://host:port")
+        host, _, port = init_method[len("tcp://"):].rpartition(":")
+        store = dist.TCPStore(host, int(port), pp * per, rank == 0, timeout=timeout, wait_for_workers=False)
+        dist.init_process_group(backend, store=store, world_size=pp * per, rank=rank, timeout=timeout)
         p, rest = divmod(rank, per)
         d, within = divmod(rest, sp * ep * tp)
         place = within % (ep * tp)
@@ -315,7 +363,7 @@ class TPGroup(Group):
                     if i == mine:
                         rings[s] = pg
         return cls(rank, dp, tp, backend, devices, (tp_pg, expert_pg, dp_pg, stage_pg, pairs, seq_pg, rings),
-                   ep=ep, pp=pp, sp=sp)
+                   ep=ep, pp=pp, sp=sp, hosts=hosts, store=store)
 
     def close(self) -> None:
         if dist.is_initialized():

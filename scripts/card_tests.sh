@@ -23,7 +23,10 @@
 # (tests/test_torch_cuda_pp.py); the decode kernel at a sequence rank's
 # shapes and an sp 2 engine's forward against one rank's, the decode kernel
 # launched by every sequence rank and no prefill kernel
-# (tests/test_torch_cuda_sp.py). No file imports jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
+# (tests/test_torch_cuda_sp.py); a pp 2 engine over two host processes
+# (a follower host subprocess, process id 1) against pp 1's forward, both
+# kernels launched by the stage on each host (tests/test_torch_cuda_multihost.py).
+# No file imports jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,
 # which that machine may lack, so pytest skips conftest files.
 #
 #   bash scripts/card_tests.sh [pytest arguments]
@@ -33,4 +36,5 @@ exec python3 -m pytest --noconftest -m cuda tests/test_torch_cuda_attention.py t
     tests/test_torch_cuda_moe_lora.py tests/test_torch_cuda_tp.py tests/test_torch_cuda_dp.py \
     tests/test_torch_cuda_spec.py tests/test_torch_cuda_disagg.py tests/test_torch_cuda_fleet.py \
     tests/test_torch_cuda_ep.py tests/test_torch_cuda_pp.py tests/test_torch_cuda_sp.py \
+    tests/test_torch_cuda_multihost.py \
     -q -p no:cacheprovider "$@"

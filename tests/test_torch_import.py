@@ -171,6 +171,50 @@ def test_the_router_and_the_fleet_controller_run_with_jax_and_torch_blocked():
         assert repr(mod) in out[out.index("PORT"):], mod  # loaded on the request path
 
 
+# a multi-host follower host (api_server.serve's branch for a process id
+# other than 0) on the CPU with jax blocked, its coordinator dead; at exit
+# what it loaded of the JAX package, then the port's modules it loaded
+_FOLLOWER_HOST = r"""
+import asyncio, atexit, sys
+sys.modules["jax"] = None  # an import of jax raises
+atexit.register(lambda: print("LOADED", sorted(
+    m for m in sys.modules if m == "production_stack_tpu" or m.startswith("production_stack_tpu.")),
+    "\nPORT", sorted(m for m in sys.modules if m.startswith("production_stack_tpu_torch.")), flush=True))
+from production_stack_tpu_torch.engine.api_server import serve
+from production_stack_tpu_torch.engine.config import EngineConfig
+
+if __name__ == "__main__":
+    asyncio.run(serve(EngineConfig(model="llama-debug", data_parallel_size=2, tensor_parallel_size=2,
+                                   tp_backend="gloo", distributed_num_processes=2, distributed_process_id=1,
+                                   distributed_coordinator=sys.argv[1]), device="cpu"))
+"""
+
+
+def test_a_follower_host_that_cannot_reach_its_leader_exits_nonzero_with_jax_blocked():
+    """The multi-host path (engine.distributed's follower host, its rank
+    block, parallel.group's rendezvous) with jax blocked: with no leader at
+    the coordinator, the follower host and its spawned rank give up after
+    the rank timeout (PSTPU_RANK_TIMEOUT_S), exit non-zero and leave no
+    process behind, having loaded nothing of the JAX package."""
+    import socket
+    import time
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        dead = f"127.0.0.1:{s.getsockname()[1]}"
+    env = {"PATH": "/usr/bin:/bin", "PYTHONPATH": str(REPO), "PSTPU_RANK_TIMEOUT_S": "3"}
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-c", _FOLLOWER_HOST, dead], cwd=REPO, env=env, capture_output=True,
+                         text=True, timeout=120)
+    assert out.returncode != 0 and time.monotonic() - t0 < 90, out.stderr[-3000:]
+    assert "LOADED []" in out.stdout, out.stdout[-2000:]
+    port = out.stdout[out.stdout.index("PORT"):]
+    for mod in ("engine.distributed", "parallel.group", "engine.api_server"):
+        assert f"'production_stack_tpu_torch.{mod}'" in port, mod
+    assert "DistStoreError" in out.stderr or "TimeoutError" in out.stderr or "timed out" in out.stderr, \
+        out.stderr[-3000:]
+
+
 _FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|production_stack_tpu(?!_torch))\b", re.M)
 # a script belongs to the port when it imports the port or chip_smoke.py
 _PORT_SCRIPT = re.compile(r"\b(production_stack_tpu_torch|chip_smoke)\b")

@@ -28,6 +28,7 @@ manager on the wrapped runner, and the refusals that stay (Gemma-2, OPT).
 """
 
 import asyncio
+import dataclasses
 import time
 import types
 
@@ -154,8 +155,11 @@ def run_mesh(mesh, adapters, model=MODEL, lora=LORA, planted=None):
     res = {}
     try:
         res["params"] = params_from_jax(jax.device_get(jeng.runner.params), cfg)
-        pcfg = EngineConfig(model=model, **mesh, **GLOO, **SMALL, **lora, host="127.0.0.1", port=free_port())
+        pcfg = EngineConfig(model=model, **mesh, **GLOO, **SMALL, **lora, host="127.0.0.1")
         peng = LLMEngine(pcfg, device="cpu", params=res["params"])
+        # the HTTP port is picked once the ranks' gloo connections hold
+        # theirs: a free port picked before could be taken by one of them
+        pcfg = dataclasses.replace(pcfg, port=free_port())
         srv, app = lp.run(port_server.serve(pcfg, peng, device="cpu"))
         base = f"http://127.0.0.1:{pcfg.port}"
 

@@ -57,6 +57,7 @@ from production_stack_tpu_torch.engine.distributed import (
     _send_msg,
     _unpack_call,
     follower_loop,
+    listen_socket,
 )
 from production_stack_tpu_torch.engine.engine import LLMEngine
 from production_stack_tpu_torch.engine.model_loader import (
@@ -716,7 +717,7 @@ def test_broadcast_and_follow():
 
     t = threading.Thread(target=lambda: time.sleep(0.2) or follower(), daemon=True)
     t.start()
-    bc = StepBroadcaster(port, 1, timeout=30, secret=SECRET)
+    bc = StepBroadcaster(listen_socket("127.0.0.1", port, 1), 1, timeout=30, secret=SECRET)
     wrapped = BroadcastingRunner(leader_runner, bc)
     arr = np.arange(6).reshape(2, 3)
     assert wrapped.step(arr, k=2) == "local-result"
@@ -741,7 +742,7 @@ def test_a_follower_that_dies_before_connecting_ends_the_wait():
         raise RuntimeError("tp follower(s) exited before joining the step stream")
 
     with pytest.raises(RuntimeError, match="exited before joining"):
-        StepBroadcaster(free_port(), 1, timeout=30, secret=SECRET, alive=alive)
+        StepBroadcaster(listen_socket("127.0.0.1", 0, 1), 1, timeout=30, secret=SECRET, alive=alive)
 
 
 # runner methods that run on the leader alone, and why
