@@ -43,10 +43,15 @@ non-zero exit (nothing is caught):
                pipeline stages' (one 8-row microbatch on a stage's
                8-layer pool, llama-3.2-1b at pp 2 and pp 2 x tp 2) and the
                sequence ranks' (one row of 8,223 on llama-3.2-1b's pool, at
-               sp 2 and sp 2 x tp 2).
-3. forward  -- llama-3.2-1b (two 512-token chunks) and gemma-2-2b (nine,
-               past its 4,096 window) at full width and depth (bf16,
-               seeded random weights), then one 8-step decode burst, with
+               sp 2 and sp 2 x tp 2); Qwen2.5-1.5B's tp 4 rank (3 query
+               heads on one KV head shared with its neighbour, G = 3: its
+               own rows, fp and int8), and mixtral-8x7b's pp 2 x ep 2
+               stage rank (an 8-row microbatch and a chunk on its 2-layer
+               pool) and sp 2 x ep 2 sequence rank (one row of 4,104).
+3. forward  -- llama-3.2-1b (two 512-token chunks) at full width and
+               depth and gemma-2-2b (nine, past its 4,096 window) at full
+               width, GEMMA_LAYERS = 8 of its 26 layers (bf16, seeded
+               random weights), then one 8-step decode burst, with
                the kernels and with the plain versions, into bf16 pools and
                then into int8 pools (layer 0's int8 pages and scales
                byte-identical between the two). Then llama-3.2-1b with
@@ -57,7 +62,7 @@ non-zero exit (nothing is caught):
                and the slot-0 row bit-equal to the same forward without
                LoRA buffers.
 4. hf       -- qwen2.5-7b's HF directory (its published config.json cut
-               to 8 of its 28 layers, seeded bf16 weights in shards of at
+               to 4 of its 28 layers, seeded bf16 weights in shards of at
                most 5 GB with the index) written under build/hf_models/,
                loaded through the port's loader (config equal to the
                preset at that depth but for max_model_len, sampled
@@ -71,7 +76,7 @@ non-zero exit (nothing is caught):
 5. serve    -- the port's OpenAI server in-process on localhost, eight
                times: llama-3.2-1b with bf16 pools; with int8 pools, the
                CPU offload tier and a pool small enough to evict; gemma-2-2b
-               with bf16 pools and one prompt of 4,301 tokens; qwen2.5-7b
+               (8 layers) with bf16 pools and one prompt of 4,301 tokens; qwen2.5-7b
                from its directory with bf16 pools, then int8 pools;
                opt-125m from its directory; llama-3.2-1b with LoRA on all
                seven targets and two adapters; and mixtral-8x7b from its
@@ -272,8 +277,20 @@ non-zero exit (nothing is caught):
                rank's experts replayed on every rank
                (runner.replay_routes), held to FORWARD_LOGIT_BOUND and
                FORWARD_TOP1_MIN ("ep_forward"), then served over HTTP;
-               then a seeded mixtral-8x7b at full width cut to 4 layers at
-               dp 2 against its own one rank ("dp_moe_forward") and served.
+               then mixtral-8x7b-hf at pp 2 x ep 2 (each stage's 2 layers,
+               4 experts a rank), held the same way, its adapter row
+               included, with each stage replaying its layers' routes a
+               microbatch at a time ("moe_stages"), and at sp 2 x ep 2
+               (max_model_len 8,192): a 4,096-token row in two chunks of
+               2,048 and 8 decode steps against the one rank's logits of those
+               steps (taken in the same prepare, its routes taped), each
+               sequence rank replaying its tokens' routes ("moe_seq", with
+               "moe_seq_costs"), both served over HTTP (the sp 2 x ep 2
+               main path's first prompt 4,096 tokens, in chunks of 512,
+               the prefill_chunk at which the greedy repeat recomputes in
+               the first run's chunk shape); then a seeded
+               mixtral-8x7b at full width cut to 4 layers at dp 2 against
+               its own one rank ("dp_moe_forward") and served.
                Every rank launched both kernels and no plain version; the
                ep and dp replicas' pools have one digest; "ep_ranks" and
                "dp_ranks" lines give each rank's device bytes, collective
@@ -288,7 +305,7 @@ non-zero exit (nothing is caught):
                (4 microbatches x 2 layers: "pp_step"), then served over HTTP;
                the f32 copy of RANK_LLAMA's greedy tokens at pp 2 against
                pp 1 ("pp_f32_tokens"); qwen2.5-7b from its directory at pp
-               2, each stage's bytes read equal to its 4 layers and the
+               2, each stage's bytes read equal to its 2 layers and the
                shared tensors, sampled parameters of both stages
                byte-identical to what was written ("pp_hf_load"), served.
                Every stage rank launched both kernels and no plain
@@ -349,6 +366,21 @@ non-zero exit (nothing is caught):
                status counts, the most attempts, the breaker states, the
                burst's TTFT p50, the sheds, the launches and the seconds,
                with the card.
+5n. shared_heads -- after the tp runs: Qwen2.5-1.5B's HF directory (its
+               published config.json, 12 query and 2 KV heads, a tied head,
+               cut to 4 of its 28 layers; seeded bf16) at tp 4, four gloo
+               ranks on the one card, each with 3 query heads and one KV
+               head shared with its neighbour: tp 1's logits of the tp
+               forward's steps against tp 4's ("shared_heads"); its first
+               page gathered at tp 4 (2 KV heads, tp 1's layout, layer 0
+               against tp 1's), tp 1's page written into every rank and
+               read back byte for byte, the two ranks of each share one
+               digest, each rank's pool half of tp 1's
+               ("shared_heads_pages"); served over HTTP, every rank
+               launching the decode and prefill kernels and the write, no
+               plain version (the [tp4kh2] rows); an f32 copy of the shape
+               (a seeded preset) giving tp 1's greedy tokens at tp 4
+               ("shared_heads_f32_tokens"). The directory is deleted after.
 5m. multihost -- after the sp runs: multi-host serving, two host
                processes (each the port's api_server.serve with its
                --distributed-process-id) on the one card over gloo,
@@ -391,7 +423,10 @@ non-zero exit (nothing is caught):
                prefill chunk on its 8-layer pool, at pp 2 and pp 2 x tp 2
                ([pp2], [pp2tp2]); a sequence rank's decode of the long
                prompt's last step, at sp 2 and sp 2 x tp 2 ([sp2],
-               [sp2tp2]); the prefill
+               [sp2tp2]); Qwen2.5-1.5B's tp 4 rank's decode and prefill
+               ([tp4kh2]); mixtral-8x7b's pp 2 x ep 2 stage rank's decode
+               and prefill ([pp2ep2]) and sp 2 x ep 2 sequence rank's
+               decode ([sp2ep2]); the prefill
                kernel at step_spec's verify shape (T = 5: llama-3.2-1b's
                32 x 1,024, the [verify] row; gemma-2-2b's 8 x 4,096 on a
                sliding and a global layer, as lines of their own).
@@ -406,7 +441,9 @@ ranks; the [d128,dp2] row from the dp 2 mixtral server's two ranks; the
 [ep2tp2] rows from mixtral's ep 2 x tp 2 server's four ranks; the [pp2]
 and [pp2tp2] rows from RANK_LLAMA's pp 2 and pp 2 x tp 2 servers' ranks;
 the [sp2] and [sp2tp2] rows from llama-3.2-1b's sp 2 and sp 2 x tp 2
-servers' ranks
+servers' ranks; the [tp4kh2] rows from the Qwen2.5-1.5B tp 4 server's
+four ranks, the [pp2ep2] and [sp2ep2] rows from mixtral's pp 2 x ep 2 and
+sp 2 x ep 2 servers' ranks
 (qwen2.5-7b's pp 2 server books to the [d128] rows, every stage's chunk
 writes to the kv_page_write rows of its heads); the
 [verify] row from the spec server's verify rounds, L a round;
@@ -488,12 +525,15 @@ def _dtag(name: str, D: int) -> str:
     return name[:-1] + f",d{D}]" if name.endswith("]") else name + f"[d{D}]"
 
 
-def _tptag(name: str, tp: int) -> str:
+def _tptag(name: str, tp: int, kh: "int | None" = None) -> str:
     """A kernel row's name at a tp rank's heads (tp 1 keeps the name):
-    decode_attention[d128] at tp 2 -> decode_attention[d128,tp2]."""
+    decode_attention[d128] at tp 2 -> decode_attention[d128,tp2]; at a tp
+    that shares the model's ``kh`` KV heads (tp > kh), tp 4 over 2 ->
+    decode_attention[d128,tp4kh2]."""
     if tp == 1:
         return name
-    return name[:-1] + f",tp{tp}]" if name.endswith("]") else name + f"[tp{tp}]"
+    tag = f"tp{tp}" + (f"kh{kh}" if kh and tp > kh else "")
+    return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
 
 
 def _eptag(name: str, ep: int, tp: int) -> str:
@@ -506,23 +546,25 @@ def _eptag(name: str, ep: int, tp: int) -> str:
     return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
 
 
-def _pptag(name: str, pp: int, tp: int) -> str:
+def _pptag(name: str, pp: int, tp: int, ep: int = 1) -> str:
     """A kernel row's name at a pipeline stage rank (pp 1 keeps the name):
     decode_attention at pp 2 -> decode_attention[pp2], at pp 2 x tp 2 ->
-    decode_attention[pp2tp2]."""
+    decode_attention[pp2tp2], decode_attention[d128] at pp 2 x ep 2 ->
+    decode_attention[d128,pp2ep2]."""
     if pp == 1:
         return name
-    tag = f"pp{pp}" + (f"tp{tp}" if tp > 1 else "")
+    tag = f"pp{pp}" + (f"ep{ep}" if ep > 1 else "") + (f"tp{tp}" if tp > 1 else "")
     return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
 
 
-def _sptag(name: str, sp: int, tp: int) -> str:
+def _sptag(name: str, sp: int, tp: int, ep: int = 1) -> str:
     """A kernel row's name at a sequence-parallel rank (sp 1 keeps the
     name): decode_attention at sp 2 -> decode_attention[sp2], at sp 2 x tp 2
-    -> decode_attention[sp2tp2]."""
+    -> decode_attention[sp2tp2], decode_attention[d128] at sp 2 x ep 2 ->
+    decode_attention[d128,sp2ep2]."""
     if sp == 1:
         return name
-    tag = f"sp{sp}" + (f"tp{tp}" if tp > 1 else "")
+    tag = f"sp{sp}" + (f"ep{ep}" if ep > 1 else "") + (f"tp{tp}" if tp > 1 else "")
     return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
 
 
@@ -587,6 +629,19 @@ SP_ROWS = {_sptag("decode_attention", 2, tp): tp for tp in (1, 2)}
 for _row in SP_ROWS:
     REPLACES[_row] = SHARDED_DECODE
     SOURCES[_row] = _BASE_SOURCES["decode_attention"]
+# Qwen2.5-1.5B at tp 4 (phase_shared_heads): each rank's 3 query heads on
+# the one KV head it shares with its neighbour, its decode (the sharded
+# decode at a shared head) and its prefill chunk, the tp 4 server's
+# launches. mixtral-8x7b at pp 2 x ep 2 (phase_ep_ranks' "moe_stages"): a
+# stage rank's decode of one microbatch and its prefill chunk on its
+# 2-layer pool, all heads; at sp 2 x ep 2 ("moe_seq"): a sequence rank's
+# decode of the long prompt's step (its chunks go through the ring)
+KH_ROWS = {_tptag(_dtag(k, 128), 4, 2): k for k in ("decode_attention", "prefill_attention")}
+PP_EP_ROWS = {_pptag(_dtag(k, 128), 2, 1, 2): k for k in ("decode_attention", "prefill_attention")}
+SP_EP_ROWS = {_sptag(_dtag("decode_attention", 128), 2, 1, 2): "decode_attention"}
+for _row, _base in {**KH_ROWS, **PP_EP_ROWS, **SP_EP_ROWS}.items():
+    REPLACES[_row] = SHARDED_DECODE if _base.startswith("decode") else _BASE_REPLACES[_base]
+    SOURCES[_row] = _BASE_SOURCES[_base]
 
 
 def emit(obj: dict) -> None:
@@ -874,6 +929,22 @@ SP_TP_LLAMA = dict(NH=16, KH=4, D=64, tp=2, sp=2)
 SP_DECODE = "sp2_llama_b1_ctx8223_c8_bf16"
 SP_TP_DECODE = "sp2tp2_llama_b1_ctx8223_c8_bf16"
 SP_CASES = {1: SP_DECODE, 2: SP_TP_DECODE}
+# Qwen2.5-1.5B at a tp 4 rank: NH 12 / 4 = 3 query heads and one of its 2
+# KV heads, shared with the rank beside it (G = 3 at D = 128); ``kh`` is
+# the model's KV heads, which the row's name carries
+KH_QWEN15 = dict(NH=3, KH=1, D=128, kv_normal=True, tp=4, kh=2)
+KH_DECODE = "tp4kh2_qwen15_b32_ctx1024_c8_bf16"
+KH_PREFILL = "tp4kh2_qwen15_t512_h1536_bf16"
+# mixtral-8x7b at a pp 2 x ep 2 stage rank: all 32 query and 8 KV heads
+# (attention is replicated along ep), one 8-row microbatch on the stage's
+# pool of 2 of the directory's 4 layers; at an sp 2 x ep 2 sequence rank:
+# the long prompt's last decode step (4,096 tokens and 8 more) on the
+# rank's replica of the 4-layer pool
+PP_EP_MIXTRAL = dict(MIXTRAL, pp=2, ep=2)
+PP_EP_DECODE = "pp2ep2_mixtral_mb8_ctx1024_stage_l2_bf16"
+PP_EP_PREFILL = "pp2ep2_mixtral_t512_h1536_stage_l2_bf16"
+SP_EP_MIXTRAL = dict(MIXTRAL, sp=2, ep=2)
+SP_EP_DECODE = "sp2ep2_mixtral_b1_ctx4104_c8_bf16"
 PP_CASES = {(1, "decode_attention"): PP_DECODE, (2, "decode_attention"): PP_TP_DECODE,
             (1, "prefill_attention"): PP_PREFILL, (2, "prefill_attention"): PP_TP_PREFILL}
 # step_spec's verify forward: the prefill kernel at T = 1 + k = 5 (k = 4)
@@ -889,8 +960,9 @@ VERIFY_ROW = "prefill_attention[verify]"
 # the cases whose one-key-fewer control must fail the bound
 CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECODE, QWEN_PREFILL, OPT_DECODE,
               OPT_PREFILL, MIXTRAL_DECODE, MIXTRAL_PREFILL, TP_DECODE, TP_PREFILL, TP_QWEN_DECODE, TP_QWEN_PREFILL,
-              DP_DECODE, DP_MIXTRAL_DECODE, VERIFY_LLAMA, VERIFY_GEMMA_SLIDING, VERIFY_GEMMA_GLOBAL, EP_DECODE, EP_PREFILL}
-CONTROLLED |= {INT8 + n for n in CONTROLLED} | set(PP_CASES.values())
+              DP_DECODE, DP_MIXTRAL_DECODE, VERIFY_LLAMA, VERIFY_GEMMA_SLIDING, VERIFY_GEMMA_GLOBAL, EP_DECODE, EP_PREFILL,
+              KH_DECODE, KH_PREFILL}
+CONTROLLED |= {INT8 + n for n in CONTROLLED} | set(PP_CASES.values()) | {PP_EP_DECODE, PP_EP_PREFILL}
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
 # TOL_CAPPED
@@ -1046,6 +1118,15 @@ DECODE_CASES = [
     ("ep2tp2_mixtral_ragged_burst_nan_bf16", dict(EP_MIXTRAL, B=4, page=64, maxp=24, L=2, layer=1,
                                                   lens=[0, 30, 1500, 900], C=8, cur_lens=[0, 3, 5, 8], poison=True,
                                                   dtype="bfloat16")),
+    # Qwen2.5-1.5B's tp 4 rank (3 query heads on a shared KV head): the
+    # burst step (the timing phase's inputs) and ragged rows with an empty
+    # one, the burst on rows whose last split is empty and NaN past each
+    # row's history
+    (KH_DECODE, dict(KH_QWEN15, seed=42, B=32, page=64, maxp=16, L=1, lens=[1024] * 32, C=8, cur_lens=[8] * 32,
+                     dtype="bfloat16")),
+    ("tp4kh2_qwen15_ragged_burst_nan_bf16", dict(KH_QWEN15, B=4, page=64, maxp=24, L=2, layer=1,
+                                                 lens=[0, 30, 1500, 900], C=8, cur_lens=[0, 3, 5, 8], poison=True,
+                                                 dtype="bfloat16")),
 ]
 DECODE_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in DECODE_CASES]
 # the pipeline stages' decode (bf16 pools only: int8 pools are refused at
@@ -1060,6 +1141,12 @@ DECODE_CASES += [
     ("pp2tp2_llama_ragged_stage_last_layer_nan_bf16", dict(PP_TP_LLAMA, B=4, page=64, maxp=24, L=8, layer=7,
                                                            lens=[0, 30, 1500, 900], C=1, cur_lens=[0, 1, 1, 1],
                                                            poison=True, dtype="bfloat16")),
+    # mixtral-8x7b's pp 2 x ep 2 stage rank, the same two shapes
+    (PP_EP_DECODE, dict(PP_EP_MIXTRAL, seed=43, B=8, page=64, maxp=16, L=2, layer=1, lens=[1024] * 8, C=1,
+                        cur_lens=[1] * 8, dtype="bfloat16")),
+    ("pp2ep2_mixtral_ragged_stage_last_layer_nan_bf16", dict(PP_EP_MIXTRAL, B=4, page=64, maxp=24, L=2, layer=1,
+                                                             lens=[0, 30, 1500, 900], C=1, cur_lens=[0, 1, 1, 1],
+                                                             poison=True, dtype="bfloat16")),
 ]
 # the sequence ranks' decode (bf16 pools only: int8 pools are refused at
 # sp): the long prompt's last decode step (the timing phase's inputs), and
@@ -1072,6 +1159,9 @@ DECODE_CASES += [
     ("sp2tp2_llama_ragged_burst_nan_bf16", dict(SP_TP_LLAMA, B=4, page=64, maxp=24, L=2, layer=1,
                                                 lens=[0, 30, 1500, 900], C=8, cur_lens=[0, 3, 5, 8], poison=True,
                                                 dtype="bfloat16")),
+    # mixtral-8x7b's sp 2 x ep 2 sequence rank: the long prompt's last step
+    (SP_EP_DECODE, dict(SP_EP_MIXTRAL, seed=44, B=1, page=64, maxp=65, L=4, layer=3, lens=[4104], C=8,
+                        cur_lens=[8], dtype="bfloat16")),
 ]
 
 PREFILL_CASES = [
@@ -1197,6 +1287,14 @@ PREFILL_CASES = [
     ("ep2tp2_mixtral_ragged_padded_row_layer1_nan_bf16", dict(EP_MIXTRAL, B=3, T=96, page=16, maxp=16, L=2, layer=1,
                                                               computed=[100, 0, 37], chunks=[96, 61, 0],
                                                               poison=True, dtype="bfloat16")),
+    # Qwen2.5-1.5B's tp 4 rank: the timing phase's 512 after 1,536 (21
+    # tokens x 3 heads, one padding row, in each 64-row warpgroup), and
+    # ragged rows (one padded) with NaN past each chunk start
+    (KH_PREFILL, dict(KH_QWEN15, seed=45, B=1, T=512, page=64, maxp=32, L=1, computed=[1536], chunks=[512],
+                      dtype="bfloat16")),
+    ("tp4kh2_qwen15_ragged_padded_row_layer1_nan_bf16", dict(KH_QWEN15, B=3, T=96, page=16, maxp=16, L=2, layer=1,
+                                                             computed=[100, 0, 37], chunks=[96, 61, 0],
+                                                             poison=True, dtype="bfloat16")),
 ]
 PREFILL_CASES += [(INT8 + name, dict(kw, quant=True)) for name, kw in PREFILL_CASES]
 # the pipeline stages' prefill on a stage's pool (bf16 only, as the decode
@@ -1211,6 +1309,8 @@ PREFILL_CASES += [
                                                                       layer=7, computed=[100, 0, 37],
                                                                       chunks=[96, 61, 0], poison=True,
                                                                       dtype="bfloat16")),
+    (PP_EP_PREFILL, dict(PP_EP_MIXTRAL, seed=46, B=1, T=512, page=64, maxp=32, L=2, layer=1, computed=[1536],
+                         chunks=[512], dtype="bfloat16")),
 ]
 # the verify shapes (bf16 pools only: speculative decoding refuses int8);
 # ``row`` names the table row the llama case's error goes to
@@ -1256,13 +1356,13 @@ WRITE_CASES += [
 
 
 def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1, ep: int = 1, pp: int = 1,
-                 sp: int = 1) -> str:
+                 sp: int = 1, kh: "int | None" = None) -> str:
     name = _dtag(base + "[int8]" if quant else base, D)
     if sp > 1:
-        return _sptag(name, sp, tp)
+        return _sptag(name, sp, tp, ep)
     if pp > 1:
-        return _pptag(name, pp, tp)
-    return _dptag(_eptag(name, ep, tp) if ep > 1 else _tptag(name, tp), dp)
+        return _pptag(name, pp, tp, ep)
+    return _dptag(_eptag(name, ep, tp) if ep > 1 else _tptag(name, tp, kh), dp)
 
 
 def _clone_pools(args, kw):
@@ -1316,8 +1416,8 @@ def phase_kernels():
         kw = dict(kw, dtype=getattr(torch, kw["dtype"]))
         seed = kw.pop("seed", 1)
         tp, dp, ep, pp = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1), kw.pop("pp", 1)
-        sp = kw.pop("sp", 1)
-        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp, ep, pp, sp)
+        sp, kh = kw.pop("sp", 1), kw.pop("kh", None)
+        kernel = _kernel_name("decode_attention", kw.get("quant", False), kw["D"], tp, dp, ep, pp, sp, kh)
         args, call_kw = decode_case(seed, **kw)
         if tp > 1 or dp > 1 or ep > 1 or pp > 1 or sp > 1:
             # a (pp, dp, sp, ep, tp) rank's decode, as models/paged_step.py calls it
@@ -1352,7 +1452,8 @@ def phase_kernels():
         quant = kw.get("quant", False)
         kw = dict(kw)
         tp, dp, ep, pp = kw.pop("tp", 1), kw.pop("dp", 1), kw.pop("ep", 1), kw.pop("pp", 1)
-        kernel = kw.pop("row", None) or _kernel_name("prefill_attention", quant, kw["D"], tp, dp, ep, pp)
+        kh = kw.pop("kh", None)
+        kernel = kw.pop("row", None) or _kernel_name("prefill_attention", quant, kw["D"], tp, dp, ep, pp, kh=kh)
         args, call_kw = prefill_case(seed, **kw)
         q, kp, vp, pt, pos, lens, kc, vc, cl = args
         layer = call_kw["layer"]
@@ -1377,7 +1478,8 @@ def phase_kernels():
             if c == 0:
                 check(float(out[b].float().abs().max()) == 0.0, f"prefill {name}: padded row not 0")
         # the write, against its plain version alone
-        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp, dp, ep, pp)
+        wkernel = _kernel_name("kv_page_write_quant" if quant else "kv_page_write", False, kw["D"], tp, dp, ep, pp,
+                               kh=kh)
         same = pools_same((kp_k, vp_k), (kp_r, vp_r), skw_k, skw_r)
         untouched = all(
             _same_bytes(x[i], y[i]) for i in range(kw["L"]) if i != layer
@@ -1476,7 +1578,12 @@ FORWARD_TOP1_MIN = 0.9
 # (model, 512-token prefill chunks): llama-3.2-1b at two chunks; gemma-2-2b
 # at nine (4,608 tokens), so its even layers' 4,096 window bites;
 # qwen2.5-7b, loaded from its HF directory, at two (phase_hf_load)
-FORWARD_RUNS = (("llama-3.2-1b", 2), ("gemma-2-2b", 9))
+# gemma-2-2b at full width with its depth cut to GEMMA_LAYERS of 26 (its
+# layers alternate sliding and global, so both kinds run), to keep the
+# smoke inside its time limit
+GEMMA_LAYERS = 8
+GEMMA_MODEL = f"gemma-2-2b-l{GEMMA_LAYERS}"
+FORWARD_RUNS = (("llama-3.2-1b", 2), (GEMMA_MODEL, 9))
 QWEN_FORWARD_CHUNKS = 2
 
 
@@ -2239,7 +2346,7 @@ def _rank_rows(stats) -> list:
 
 
 def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple = (), prepare=None,
-                extra=None) -> dict:
+                extra=None, sp_prompt: int = 0) -> dict:
     """The port's OpenAI server in-process on ``EngineConfig(**overrides)``
     (a preset or an HF directory as ``model``; int8 pools, the CPU offload
     tier, a longer context as the run asks): the requests of
@@ -2261,10 +2368,11 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     share of the step), its expert group's all-reduces, its stage relays and
     its sequence group's ring (calls, bytes, seconds and their share of the
     step), the bytes its model read from a directory and its launches. With
-    dp, sp or ep > 1 every dp, sp and ep replica of a KV-head shard must
-    hold the same pools and scales after the main path
+    dp, sp or ep > 1 every dp, sp and ep replica of a stage's KV-head shard
+    must hold the same pools and scales after the main path
     (runner.replica_digest). With sp > 1 the first concurrent prompt is
-    SP_PROMPT tokens long, each chunk goes through the ring (no rank may
+    ``sp_prompt`` (SP_PROMPT by default) tokens long, each chunk goes
+    through the ring (no rank may
     launch the prefill kernel or the paged-KV write, and every rank's
     sequence group must have carried the chunks' K/V), and /stats and
     /metrics must count every rank. ``prepare(engine)``, when given, runs on
@@ -2297,7 +2405,8 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     ranks = pp * dp * sp * ep * tp
     # at sp a chunk goes through the ring: the decode kernel is a rank's only one
     want = ("decode_attention",) if sp > 1 else SERVE_ROWS[quant]
-    long_prompt = GEMMA_LONG_PROMPT if gemma else SP_PROMPT - 1 if sp > 1 else 0
+    sp_prompt = sp_prompt or SP_PROMPT
+    long_prompt = GEMMA_LONG_PROMPT if gemma else sp_prompt - 1 if sp > 1 else 0
     kernels, plains = _counters()
     series = (QUANT_METRICS if quant else ()) + (OFFLOAD_METRICS if offload else ())
 
@@ -2350,12 +2459,15 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
                      "launches": res["launches_by_rank"][i]}
                     for i, (r, (dev, _)) in enumerate(zip(rows, server.engine.runner.kv_pool_shard_layout()))
                 ]
-            if dp * sp * ep > 1:
-                # the ranks of one tp place t, r = ((d * sp + s) * ep + e) * tp + t
-                digests = [bytes(d).hex() for d in server.engine.runner.replica_digest()]
-                res["replica_digests"] = [h[:16] for h in digests]
-                res["replica_digests_equal"] = all(
-                    len({digests[r] for r in range(t, ranks, tp)}) == 1 for t in range(tp))
+                if dp * sp * ep > 1:
+                    # the ranks of one tp place t of one stage p, r = p * per +
+                    # ((d * sp + s) * ep + e) * tp + t (a stage's layers are its own)
+                    digests = [bytes(d).hex() for d in server.engine.runner.replica_digest()]
+                    per = ranks // pp
+                    res["replica_digests"] = [h[:16] for h in digests]
+                    res["replica_digests_equal"] = all(
+                        len({digests[p * per + r] for r in range(t, per, tp)}) == 1
+                        for p in range(pp) for t in range(tp))
             else:
                 res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
                 res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
@@ -2409,7 +2521,7 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             others = {k: n for k, n in counts.items() if k not in want and n}
             check(not others, f"{what}: rank {r} launched {others} (a chunk at sp goes through the ring)")
             check(row["ring_calls"] > 0, f"{what}: rank {r} moved nothing over its sequence group")
-        check(SP_PROMPT in res["prompt_tokens"], f"{what}: no prompt of {SP_PROMPT} tokens ran")
+        check(sp_prompt in res["prompt_tokens"], f"{what}: no prompt of {sp_prompt} tokens ran")
     if gemma:
         check(max(res["prompt_tokens"]) > GEMMA_WINDOW, f"{what}: no prompt ran past the sliding window")
     if spec:
@@ -2887,7 +2999,8 @@ def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, 
     forward phases' bar, the flips printed with the reference's top-2
     margin. ``logits_fn(engine)`` and ``steps`` (their description) take the
     place of _tp_inputs' steps. With ``picks`` (a MoE reference's routes, _moe_reference) every
-    rank's routers take the experts the one rank took (runner.replay_routes,
+    rank's routers take the experts the one rank took, each rank its own
+    part of them (runner.replay_routes,
     a replicated call: no token routed apart by a near-tie, PR 10's rule),
     and the line counts the (layer, token) pairs of the leader's rows where
     its own router would have picked otherwise. With ``adapters`` (the
@@ -2901,19 +3014,14 @@ def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, 
     slots = LORA_ROW_SLOTS[:rows] if slots is None else slots
 
     def logits(engine):
-        tape = None
-        if logits_fn is not None:
-            got = logits_fn(engine)
-        elif picks is None:
-            got = _tp_logits(engine, rows)
-        else:
-            engine.runner.replay_routes(picks)
-            try:
-                got = _tp_logits(engine, rows)
-                tape = engine.runner.route_tape
-            finally:
-                engine.runner.replay_routes(None)
-        return got, tape
+        fn = logits_fn or (lambda e: _tp_logits(e, rows))
+        if picks is None:
+            return fn(engine), None
+        engine.runner.replay_routes(picks)
+        try:
+            return fn(engine), engine.runner.route_tape
+        finally:
+            engine.runner.replay_routes(None)
 
     def run(engine):
         t0 = time.perf_counter()
@@ -2938,7 +3046,10 @@ def _logits_check(ref: list, phase: str, mesh: dict, rows: int = 2, picks=None, 
             line.update(replayed_calls=len(tape.picks), leader_router_would_differ=tape.overridden)
         emit(line)
         check(line["finite"] and line["shapes"] == [list(x.shape) for x in ref], f"{phase}: bad logits")
-        check(tape is None or len(tape.picks) == len(picks), f"{phase}: not every routed call was replayed")
+        # the leader's routers took every entry it replays (a stage's layers,
+        # a sequence rank's tokens: runner.replay_routes)
+        check(tape is None or (len(tape.picks) == len(tape.replay) > 0),
+              f"{phase}: not every routed call was replayed")
         check(max(diffs) <= FORWARD_LOGIT_BOUND, f"{phase}: logit diff {max(diffs)} > {FORWARD_LOGIT_BOUND}")
         check(top1 >= FORWARD_TOP1_MIN, f"{phase}: top-1 agreement {top1} < {FORWARD_TOP1_MIN}")
         out = {"max_logit_diff": max(diffs), "top1_agreement": top1}
@@ -3059,16 +3170,18 @@ def _token_flips(ref: list, got: list) -> tuple:
     return same, flips, diffs
 
 
-def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool) -> None:
-    """An f32 copy of RANK_LLAMA (its preset at float32, added here; the
-    leader hands the config to its followers): greedy tokens through the
-    engine at ``overrides`` (tp 2, dp 2, pp 2 or sp 2) against one rank's for
-    TP_F32_TOKENS tokens, ``n_prompts`` prompts, one after another or, with
-    ``together``, queued at once (``_together``: at dp 2 both dp groups
-    hold rows). Both engines serve LoRA with RANK_ADAPTERS loaded, the
-    prompts under F32_LORA_NAMES (base and adapters mixed). A token that differs must sit where the reference's two
-    best tokens are within TP_NEAR_TIE: its margin and the runs' logprob
-    difference are printed."""
+def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool, base: str = RANK_LLAMA,
+                     lora: bool = True) -> None:
+    """An f32 copy of ``base`` (RANK_LLAMA by default; its preset at
+    float32, added here; the leader hands the config to its followers):
+    greedy tokens through the engine at ``overrides`` (tp 2, dp 2, pp 2, sp
+    2 or tp 4) against one rank's for TP_F32_TOKENS tokens, ``n_prompts``
+    prompts, one after another or, with ``together``, queued at once
+    (``_together``: at dp 2 both dp groups hold rows). With ``lora`` both
+    engines serve LoRA with RANK_ADAPTERS loaded, the prompts under
+    F32_LORA_NAMES (base and adapters mixed). A token that differs must sit
+    where the reference's two best tokens are within TP_NEAR_TIE: its
+    margin and the runs' logprob difference are printed."""
     import random
 
     import torch
@@ -3077,17 +3190,17 @@ def phase_f32_tokens(phase: str, overrides: dict, n_prompts: int, together: bool
     from production_stack_tpu_torch.engine.engine import LLMEngine
     from production_stack_tpu_torch.models import llama
 
-    name = f"{RANK_LLAMA}-f32"
-    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS[RANK_LLAMA], dtype=torch.float32)
+    name = f"{base}-f32"
+    llama.PRESETS[name] = dataclasses.replace(llama.PRESETS[base], dtype=torch.float32)
     rng = random.Random(13)
     prompts = [_prompt(rng, 300 + 400 * (i % 2) + 37 * (i // 2)) for i in range(n_prompts)]
-    names = F32_LORA_NAMES[:n_prompts]
+    names = F32_LORA_NAMES[:n_prompts] if lora else (None,) * n_prompts
     runs = {}
     t0 = time.perf_counter()
     for parallel in (False, True):
-        engine = LLMEngine(EngineConfig(model=name, num_pages=128, decode_steps=8, **RANK_LORA,
+        engine = LLMEngine(EngineConfig(model=name, num_pages=128, decode_steps=8, **(RANK_LORA if lora else {}),
                                         **(overrides if parallel else {})))
-        for adapter, path in RANK_ADAPTERS:
+        for adapter, path in RANK_ADAPTERS if lora else ():
             engine.load_lora_adapter(adapter, path)
         engine.start()
         try:
@@ -3201,7 +3314,7 @@ def _decode_timing(case_name: str, quant: bool) -> dict:
 
     bf16 = torch.bfloat16
     case = dict(dict(DECODE_CASES)[case_name], dtype=bf16, quant=quant)
-    for k in ("tp", "dp", "ep", "pp", "sp"):  # a rank's shapes: the same kernel on its rows and heads
+    for k in ("tp", "dp", "ep", "pp", "sp", "kh"):  # a rank's shapes: the same kernel on its rows and heads
         case.pop(k, None)
     B, NH, KH, D, page, maxp = (case[k] for k in ("B", "NH", "KH", "D", "page", "maxp"))
     lens, C, cur = case["lens"], case["C"], case["cur_lens"]
@@ -3253,7 +3366,7 @@ def _prefill_timing(case_name: str, quant: bool) -> tuple[dict, dict]:
 
     bf16 = torch.bfloat16
     case = dict(dict(PREFILL_CASES)[case_name], dtype=bf16, quant=quant)
-    for k in ("tp", "dp", "ep", "pp", "row"):
+    for k in ("tp", "dp", "ep", "pp", "kh", "row"):
         case.pop(k, None)
     B, NH, KH, D, page, T = (case[k] for k in ("B", "NH", "KH", "D", "page", "T"))
     hist = case["computed"][0]  # the timed cases' rows hold one history and one chunk length each
@@ -3378,6 +3491,16 @@ def phase_timing() -> dict:
     # the rank's replica of the pool, all heads (sp 2) or the tp place's
     for row, tp in SP_ROWS.items():
         rows[row] = _decode_timing(SP_CASES[tp], False)
+    # Qwen2.5-1.5B's tp 4 rank (3 query heads on a shared KV head) and
+    # mixtral-8x7b's pp 2 x ep 2 stage and sp 2 x ep 2 sequence ranks
+    for row, base in KH_ROWS.items():
+        rows[row] = _decode_timing(KH_DECODE, False) if base.startswith("decode") else _prefill_timing(
+            KH_PREFILL, False)[0]
+    for row, base in PP_EP_ROWS.items():
+        rows[row] = _decode_timing(PP_EP_DECODE, False) if base.startswith("decode") else _prefill_timing(
+            PP_EP_PREFILL, False)[0]
+    for row in SP_EP_ROWS:
+        rows[row] = _decode_timing(SP_EP_DECODE, False)
     # step_spec's verify forward (llama-3.2-1b's heads; gemma-2-2b's below)
     row, fused = _prefill_timing(VERIFY_LLAMA, False)
     rows[VERIFY_ROW] = dict(row, fused_ms=fused["fused_ms"])
@@ -3422,8 +3545,9 @@ QWEN_HF_CONFIG = {
     "use_cache": True, "use_mrope": False, "use_sliding_window": False, "vocab_size": 152064,
 }
 # the directory holds QWEN_LAYERS of its 28 layers (all of them until the
-# multi-host phase grew the smoke: the cut keeps it inside its time limit)
-QWEN_LAYERS = 8
+# multi-host phase grew the smoke, 8 until the shared-head and Mixtral
+# stage and sequence phases did: the cuts keep it inside its time limit)
+QWEN_LAYERS = 4
 QWEN_WRITTEN_CONFIG = dict(QWEN_HF_CONFIG, num_hidden_layers=QWEN_LAYERS)
 # facebook/opt-125m's config.json as published (its weights are float16)
 OPT_HF_CONFIG = {
@@ -3434,7 +3558,7 @@ OPT_HF_CONFIG = {
     "torch_dtype": "float16", "use_cache": True, "vocab_size": 50272, "word_embed_proj_dim": 768,
 }
 # the sampled parameters held byte-identical to what was written:
-# (port name, HF name, transposed); layer 3 of 8
+# (port name, HF name, transposed); layer 3 of 4
 _L = "model.layers.3."
 QWEN_SAMPLES = (
     ("embed", "model.embed_tokens.weight", False),
@@ -3463,7 +3587,9 @@ def _qwen2_hf_specs(c: dict, dtype) -> dict:
             p + "post_attention_layernorm.weight": (H,),
             p + "mlp.gate_proj.weight": (I, H), p + "mlp.up_proj.weight": (I, H), p + "mlp.down_proj.weight": (H, I),
         })
-    specs.update({"model.norm.weight": (H,), "lm_head.weight": (V, H)})
+    specs["model.norm.weight"] = (H,)
+    if not c.get("tie_word_embeddings"):
+        specs["lm_head.weight"] = (V, H)
     return {k: (v, dtype) for k, v in specs.items()}
 
 
@@ -3664,34 +3790,169 @@ def phase_hf_mixtral(seed: int = 0):
     phase_forward("mixtral-8x7b-hf", MIXTRAL_FORWARD_CHUNKS, model=net)
 
 
+# -- KV heads shared by tp ranks: Qwen2.5-1.5B at tp 4 --------------------------
+
+QWEN15_DIR = HF_ROOT / "qwen2.5-1.5b"
+# Qwen/Qwen2.5-1.5B's config.json as published: 12 query heads over 2 KV
+# heads, so at tp 4 each KV head is shared by 2 ranks
+QWEN15_HF_CONFIG = {
+    "architectures": ["Qwen2ForCausalLM"], "attention_dropout": 0.0, "bos_token_id": 151643,
+    "eos_token_id": 151643, "hidden_act": "silu", "hidden_size": 1536, "initializer_range": 0.02,
+    "intermediate_size": 8960, "max_position_embeddings": 131072, "max_window_layers": 28, "model_type": "qwen2",
+    "num_attention_heads": 12, "num_hidden_layers": 28, "num_key_value_heads": 2, "rms_norm_eps": 1e-06,
+    "rope_theta": 1000000.0, "sliding_window": 131072, "tie_word_embeddings": True, "torch_dtype": "bfloat16",
+    "use_cache": True, "use_mrope": False, "use_sliding_window": False, "vocab_size": 151936,
+}
+# 4 of its 28 layers, as RANK_LLAMA is cut for the rank phases
+QWEN15_LAYERS = 4
+QWEN15_WRITTEN_CONFIG = dict(QWEN15_HF_CONFIG, num_hidden_layers=QWEN15_LAYERS)
+# the same shape as a seeded preset, whose f32 copy gives the greedy tokens
+QWEN15_PRESET = f"qwen2.5-1.5b-l{QWEN15_LAYERS}"
+TP4 = dict(tensor_parallel_size=4, tp_backend="gloo", tp_device_ids="0,0,0,0")
+
+
+def _first_chunk_page(engine) -> list:
+    """Page 0 (row 0's first 64 tokens, every layer and KV head) as the
+    engine gathers it after _tp_inputs' first chunk; the pools are reset
+    after."""
+    runner = engine.runner
+    runner.reset_kv()
+    runner.step(_tp_inputs(engine.model_cfg.vocab_size)[0], want_logits=False)
+    page = [x[0] for x in runner.get_pages([0])]
+    runner.reset_kv()
+    return page
+
+
+def _shared_reference(engine) -> tuple:
+    """``prepare`` for the tp 1 engine: its logits of _tp_inputs and its
+    page 0 after the first chunk."""
+    return _tp_logits(engine), _first_chunk_page(engine)
+
+
+def _shared_heads_check(ref_logits: list, ref_page: list):
+    """``prepare`` for the tp 4 server: its logits against tp 1's
+    ("shared_heads", the forward phases' bar), then the pages: its page 0
+    after the first chunk, gathered over the ranks, has the model's 2 KV
+    heads (one replica of each, not 4) in tp 1's layout, beside tp 1's
+    page; tp 1's page written into every rank reads back byte for byte;
+    the two ranks of each share hold byte-identical pools, the two shares
+    different ones; each rank's pool is one KV head, half tp 1's bytes
+    ("shared_heads_pages")."""
+    import numpy as np
+
+    def run(engine):
+        out = _logits_check(ref_logits, "shared_heads", {"tp": 4}, model="qwen2.5-1.5b-hf")(engine)
+        runner = engine.runner
+        page = _first_chunk_page(engine)
+        runner.set_pages([5], *([x] for x in ref_page))
+        back = [x[0] for x in runner.get_pages([5])]
+        digests = [bytes(d) for d in runner.replica_digest()]
+        layout = runner.kv_pool_shard_layout()
+        heads = int(runner.k_pages.shape[3])
+        runner.reset_kv()
+        whole = engine.kv_page_bytes * engine.kv.num_pages
+        diffs = [float(np.abs(a.astype(np.float32) - b.astype(np.float32)).max()) for a, b in zip(page, ref_page)]
+        line = {"phase": "shared_heads_pages", "model": "qwen2.5-1.5b-hf", "tp": 4, "kv_heads": 2,
+                "rank_kv_heads": heads, "page_shape": list(page[0].shape), "tp1_page_shape": list(ref_page[0].shape),
+                "layer0_byte_identical_to_tp1": all(a[0].tobytes() == b[0].tobytes() for a, b in zip(page, ref_page)),
+                "max_abs_diff_to_tp1_kv": diffs,
+                "tp1_page_round_trip_byte_identical": [a.tobytes() == b.tobytes() for a, b in zip(back, ref_page)],
+                "share_digests_equal": [digests[0] == digests[1], digests[2] == digests[3]],
+                "shares_differ": digests[0] != digests[2],
+                "pool_bytes_by_rank": [b for _, b in layout], "tp1_pool_bytes": whole,
+                "card": nvidia_smi_line()}
+        emit(line)
+        check(line["page_shape"] == line["tp1_page_shape"] and heads == 1,
+              f"shared_heads_pages: tp 4 gathers pages {line['page_shape']}, tp 1 {line['tp1_page_shape']}, "
+              f"a rank holds {heads} KV heads")
+        check(all(line["tp1_page_round_trip_byte_identical"]), "shared_heads_pages: tp 1's page read back differs")
+        check(all(line["share_digests_equal"]) and line["shares_differ"],
+              f"shared_heads_pages: the shares' pools {digests}")
+        check(all(np.isfinite(a).all() for a in page), "shared_heads_pages: non-finite K/V")
+        check(line["pool_bytes_by_rank"] == [whole // 2] * 4,
+              f"shared_heads_pages: pool bytes by rank {line['pool_bytes_by_rank']}, tp 1's {whole}")
+        return dict(out, layer0_byte_identical_to_tp1=line["layer0_byte_identical_to_tp1"])
+
+    return run
+
+
+def phase_shared_heads(serve) -> None:
+    """KV heads shared by tp ranks on the one card: Qwen2.5-1.5B's HF
+    directory (its published config.json cut to QWEN15_LAYERS of its 28
+    layers, seeded bf16 weights, a tied head) written, tp 1's logits of the
+    tp forward's steps and its first page taken from it, then served at tp
+    4 (four gloo rank processes, 3 query heads and one shared KV head a
+    rank) with _shared_heads_check before the main path; ``serve`` checks
+    every rank's launches and the plain versions, and books the [tp4kh2]
+    rows. Then an f32 copy of the same shape (a seeded preset) gives tp 1's
+    greedy tokens at tp 4 ("shared_heads_f32_tokens"). The directory is
+    deleted after."""
+    import torch
+
+    from production_stack_tpu_torch.models import llama
+
+    phase_hf_write(QWEN15_DIR, QWEN15_WRITTEN_CONFIG, _qwen2_hf_specs(QWEN15_WRITTEN_CONFIG, torch.bfloat16))
+    ref_logits, ref_page = phase_tp_reference(str(QWEN15_DIR), prepare=_shared_reference)
+    serve("qwen2.5-1.5b-hf, tp4", dict(model=str(QWEN15_DIR), max_model_len=4096, **TP4), 128, 0, (),
+          _shared_heads_check(ref_logits, ref_page), kh=2)
+    llama.PRESETS[QWEN15_PRESET] = dataclasses.replace(llama.LlamaConfig.from_hf_config(QWEN15_WRITTEN_CONFIG),
+                                                       max_model_len=4096)
+    phase_f32_tokens("shared_heads_f32_tokens", TP4, n_prompts=2, together=False, base=QWEN15_PRESET, lora=False)
+    shutil.rmtree(QWEN15_DIR)
+
+
 # -- Mixtral across ranks: expert parallelism, and MoE under tp and dp ---------
 
 # ep 2, ep 2 x tp 2 and dp 2, every rank a process on cuda:0 over gloo
 EP2 = dict(expert_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
 EP2_TP2 = dict(expert_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
+# mixtral-8x7b across stages and sequence ranks, every rank a process on
+# cuda:0 over gloo: pp 2 x ep 2 (each stage's 2 layers, 4 experts a rank),
+# and sp 2 x ep 2 (a chunk's tokens over 2 sequence ranks, each with 4
+# experts a rank), whose logits check runs a prompt of MOE_SP_PROMPT
+# tokens in chunks of SP_CHUNK through the runner. Its server takes
+# chunks of 512: the greedy repeat of _serve_requests recomputes its tail
+# in the shape of the first run's second chunk only there: at 2,048 a
+# 576-token chunk against a 64-token tail rounds apart in bf16, which a
+# near-tied router can turn into another token
+PP2_EP2 = dict(pipeline_parallel_size=2, expert_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
+SP2_EP2 = dict(sequence_parallel_size=2, expert_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0",
+               max_model_len=8192, prefill_chunk=512)
+MOE_SP_PROMPT, MOE_SP_DECODES = 4096, 8
 # the dp 2 serve: a seeded preset at full width with its depth cut to 4 layers
 MIXTRAL_DP_LAYERS = 4
 MIXTRAL_DP_PRESET = f"mixtral-8x7b-l{MIXTRAL_DP_LAYERS}"
 
 
-def _moe_reference(store: dict, rows: int = 2, adapters=(), model: str = "mixtral-8x7b-hf"):
+def _moe_reference(store: dict, rows: int = 2, adapters=(), model: str = "mixtral-8x7b-hf", seq: bool = False):
     """``prepare`` for a one-rank Mixtral engine: its logits of _tp_inputs
     (``rows`` rows) and the experts its routers took ([B, T, k] per layer
     and step, numpy) into ``store``, the reference of the ranks' runs; with
     ``adapters`` (the engine serves LoRA) the rows on LORA_ROW_SLOTS with
-    them loaded (_lora_reference)."""
+    them loaded (_lora_reference). With ``seq`` also the logits and routes
+    of the long prompt's steps (MOE_SP_PROMPT tokens in chunks of SP_CHUNK,
+    then MOE_SP_DECODES; no adapter row), under "seq_logits" and
+    "seq_picks": the sequence ranks' reference."""
     def run(engine):
         from production_stack_tpu_torch.models.llama import tape_routes
 
-        def taped():
+        def taped(fn, key):
             with tape_routes(engine.runner.model) as tape:
-                logits = _tp_logits(engine, rows)
-            store["picks"] = [p.cpu().numpy() for p in tape.picks]
+                logits = fn()
+            store[key] = [p.cpu().numpy() for p in tape.picks]
             return logits
 
-        store["logits"] = _lora_reference(engine, model, adapters, taped, lambda: _tp_logits(engine, rows, False),
-                                          LORA_ROW_SLOTS[:rows]) if adapters else taped()
-        return {"reference_steps": len(store["logits"]), "rows": rows, "routed_calls": len(store["picks"])}
+        def tp_steps():
+            return taped(lambda: _tp_logits(engine, rows), "picks")
+
+        store["logits"] = _lora_reference(engine, model, adapters, tp_steps, lambda: _tp_logits(engine, rows, False),
+                                          LORA_ROW_SLOTS[:rows]) if adapters else tp_steps()
+        out = {"reference_steps": len(store["logits"]), "rows": rows, "routed_calls": len(store["picks"])}
+        if seq:
+            store["seq_logits"] = taped(lambda: _sp_logits(engine, lora=False, prompt=MOE_SP_PROMPT,
+                                                           decodes=MOE_SP_DECODES), "seq_picks")
+            out["seq_routed_calls"] = len(store["seq_picks"])
+        return out
 
     return run
 
@@ -3703,7 +3964,13 @@ def phase_ep_ranks(serve, ref: dict) -> None:
     (4 experts of I/2 a rank, 16 query and 4 KV heads), each first held to
     the one-rank logits with its routes replayed, an adapter row of
     MIXTRAL_ADAPTERS among them ("ep_forward" and "lora_ranks"; the LoRA
-    routes on the ep 2 x tp 2 server's main path); then a
+    routes on the ep 2 x tp 2 server's main path); at pp 2 x ep 2 (each
+    stage's 2 layers, 4 experts a rank), held the same way, each stage
+    replaying its layers' routes, the adapter row among them
+    ("moe_stages", "lora_ranks"); at sp 2 x ep 2 on a
+    MOE_SP_PROMPT-token prompt in chunks of SP_CHUNK, held to the one
+    rank's logits of those steps with each sequence rank replaying its
+    tokens' routes ("moe_seq", "moe_seq_costs"); then a
     seeded mixtral-8x7b at full width cut to MIXTRAL_DP_LAYERS layers at dp
     2 against its own one rank ("dp_moe_forward") and
     served. ``serve`` is main's, which checks every rank's launches, the
@@ -3721,6 +3988,41 @@ def phase_ep_ranks(serve, ref: dict) -> None:
               (MIXTRAL_ADAPTERS, False) if label == "ep2 x tp2" else (),
               _logits_check(ref["logits"], "ep_forward", mesh, picks=ref["picks"], model="mixtral-8x7b-hf",
                             adapters=MIXTRAL_ADAPTERS))
+    # across stages: the one rank's steps with its experts replayed, each
+    # stage its layers' routes a microbatch at a time, its adapter row on
+    # MIXTRAL_ADAPTERS as the reference's ("moe_stages", "lora_ranks")
+    gc.collect()
+    torch.cuda.empty_cache()
+    serve("mixtral-8x7b-hf, pp2 x ep2", dict(model=str(MIXTRAL_DIR), **PP2_EP2, enable_lora=True), 128, 0, (),
+          _logits_check(ref["logits"], "moe_stages", {"pp": 2, "ep": 2}, picks=ref["picks"], model="mixtral-8x7b-hf",
+                        adapters=MIXTRAL_ADAPTERS))
+    # across sequence ranks: the long prompt's chunks and steps with the
+    # one rank's experts replayed, each sequence rank its tokens' routes
+    # ("moe_seq", with what the ranks moved: "moe_seq_costs")
+    gc.collect()
+    torch.cuda.empty_cache()
+    costs = {}
+    seq_logits = _logits_check(ref["seq_logits"], "moe_seq", {"sp": 2, "ep": 2}, rows=1, picks=ref["seq_picks"],
+                               model="mixtral-8x7b-hf",
+                               steps=[f"prefill 1 x {SP_CHUNK} (x{MOE_SP_PROMPT // SP_CHUNK})",
+                                      f"decode 1 x 1 (x{MOE_SP_DECODES})"],
+                               logits_fn=lambda e: _sp_logits(e, costs, lora=False, prompt=MOE_SP_PROMPT,
+                                                              decodes=MOE_SP_DECODES))
+
+    def seq_prepare(engine):
+        out = seq_logits(engine)
+        chunks = MOE_SP_PROMPT // SP_CHUNK
+        emit({"phase": "moe_seq_costs", "model": "mixtral-8x7b-hf", "sp": 2, "ep": 2,
+              "backend": "gloo (host-staged CUDA tensors)", "prefill_chunks": chunks,
+              "decode_steps": MOE_SP_DECODES, "prefill": _sp_cost_rows(costs["prefill"], chunks),
+              "decode": _sp_cost_rows(costs["decode"], MOE_SP_DECODES),
+              "device_bytes_by_rank": [int(r["device_bytes"]) for r in costs["decode"][1]],
+              "expert_bytes_by_rank": [int(r["expert_bytes"]) for r in costs["decode"][1]],
+              "card": nvidia_smi_line()})
+        return out
+
+    serve("mixtral-8x7b-hf, sp2 x ep2", dict(model=str(MIXTRAL_DIR), **SP2_EP2), 128, 0, (), seq_prepare,
+          sp_prompt=MOE_SP_PROMPT)
     llama.PRESETS[MIXTRAL_DP_PRESET] = dataclasses.replace(llama.PRESETS["mixtral-8x7b"], num_layers=MIXTRAL_DP_LAYERS)
     gc.collect()
     torch.cuda.empty_cache()
@@ -3739,12 +4041,12 @@ PP2_TP2 = dict(pipeline_parallel_size=2, tensor_parallel_size=2, tp_backend="glo
 # of 8 at pp 2, each running the stage's 8 layers
 PP_STEP_ROWS = 32
 # qwen2.5-7b at pp 2: the sampled parameters read back through the stages,
-# layer 3 (stage 0's last) and layer 7 (stage 1's last)
-_L7 = "model.layers.7."
+# layer 1 (stage 0's last) and layer 3 (stage 1's last)
+_L1 = "model.layers.1."
 QWEN_PP_SAMPLES = QWEN_SAMPLES + (
-    ("layers.7.wq", _L7 + "self_attn.q_proj.weight", True),
-    ("layers.7.bv", _L7 + "self_attn.v_proj.bias", False),
-    ("layers.7.w_up", _L7 + "mlp.up_proj.weight", True),
+    ("layers.1.wq", _L1 + "self_attn.q_proj.weight", True),
+    ("layers.1.bv", _L1 + "self_attn.v_proj.bias", False),
+    ("layers.1.w_up", _L1 + "mlp.up_proj.weight", True),
 )
 
 
@@ -3781,7 +4083,7 @@ def _pp_step_launches(engine) -> dict:
 
 def _pp_qwen_reads(seed: int = 0):
     """``prepare`` for the pp 2 qwen2.5-7b server: each stage's bytes read
-    from the directory (runner.rank_stats' loaded_bytes) equal to its 14
+    from the directory (runner.rank_stats' loaded_bytes) equal to its
     layers' tensors and the embedding, final norm and head, as written; the
     sampled parameters of both stages, read back through them
     (runner.gathered_params), byte-identical to what was written."""
@@ -3828,7 +4130,7 @@ def phase_pp_ranks(serve, ref: list) -> None:
     path), each with a 32-row decode step whose launches
     every stage counts ("pp_step"); the f32 copy of RANK_LLAMA's greedy
     tokens at pp 2 against pp 1 ("pp_f32_tokens"); qwen2.5-7b from its
-    directory at pp 2, each stage reading only its 4 layers
+    directory at pp 2, each stage reading only its 2 layers
     ("pp_hf_load"). ``serve`` is main's: it checks every rank's launches
     and the plain versions, and books the [pp2] and [pp2tp2] rows'
     launches; its "pp_ranks" lines give each rank's device bytes, relays
@@ -3869,35 +4171,37 @@ SP_STEPS = [f"prefill 1 x {SP_CHUNK} (x{SP_PROMPT // SP_CHUNK}), 1 x {SP_PROMPT 
             f"decode 1 x 1 (x{SP_DECODES})"]
 
 
-def _sp_inputs(vocab: int, lora: bool = False) -> list:
+def _sp_inputs(vocab: int, lora: bool = False, prompt: int = SP_PROMPT, decodes: int = SP_DECODES) -> list:
     """The runner's StepInputs of the sp forward's steps: one row of seeded
-    ids, SP_PROMPT tokens in chunks of SP_CHUNK, then SP_DECODES decode
+    ids, ``prompt`` tokens in chunks of SP_CHUNK, then ``decodes`` decode
     steps fed the seeded tokens (teacher forcing), on fresh pages; with
     ``lora`` the row on adapter slot SP_LORA_SLOT."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.runner import StepInput
 
-    n = SP_PROMPT + SP_DECODES
+    n = prompt + decodes
     ids = np.random.RandomState(6).randint(0, vocab, (1, n)).astype(np.int32)
     common = dict(page_table=np.arange(-(-n // 64), dtype=np.int32)[None], temperature=np.zeros(1, np.float32),
                   top_k=np.zeros(1, np.int32), top_p=np.ones(1, np.float32),
                   lora_ids=np.array([SP_LORA_SLOT], np.int32) if lora else None)
-    steps = [(p, min(SP_CHUNK, SP_PROMPT - p)) for p in range(0, SP_PROMPT, SP_CHUNK)]
-    steps += [(SP_PROMPT + s, 1) for s in range(SP_DECODES)]
+    steps = [(p, min(SP_CHUNK, prompt - p)) for p in range(0, prompt, SP_CHUNK)]
+    steps += [(prompt + s, 1) for s in range(decodes)]
     return [StepInput(input_ids=ids[:, p: p + t], positions=np.arange(p, p + t, dtype=np.int32)[None],
                       kv_lens=np.array([p + t], np.int32), **common) for p, t in steps]
 
 
-def _sp_logits(engine, costs: "dict | None" = None, lora: "bool | None" = None) -> list:
-    """The logits [1, V] of _sp_inputs' steps through the engine's runner
-    (every rank), on the CPU; the pools are reset after. With ``costs``,
-    each rank's rank_stats over the prefill chunks and over the decode
-    steps, and their wall seconds, go into it. On an engine that serves
-    LoRA (unless ``lora`` is False) the row takes SP_LORA_SLOT."""
+def _sp_logits(engine, costs: "dict | None" = None, lora: "bool | None" = None, prompt: int = SP_PROMPT,
+               decodes: int = SP_DECODES) -> list:
+    """The logits [1, V] of _sp_inputs' steps (``prompt`` tokens, then
+    ``decodes`` steps) through the engine's runner (every rank), on the
+    CPU; the pools are reset after. With ``costs``, each rank's rank_stats
+    over the prefill chunks and over the decode steps, and their wall
+    seconds, go into it. On an engine that serves LoRA (unless ``lora`` is
+    False) the row takes SP_LORA_SLOT."""
     runner = engine.runner
-    inps = _sp_inputs(engine.model_cfg.vocab_size, engine.lora is not None if lora is None else lora)
-    chunks = len(inps) - SP_DECODES
+    inps = _sp_inputs(engine.model_cfg.vocab_size, engine.lora is not None if lora is None else lora, prompt, decodes)
+    chunks = len(inps) - decodes
     runner.reset_kv()
     runner.rank_stats(reset=True)
     out = []
@@ -4073,7 +4377,7 @@ def write_lora_adapters(cfg, adapters, ranks, targets) -> None:
 SERVE_RUNS = (
     ("llama-3.2-1b", dict(model="llama-3.2-1b"), 64, 1, ()),
     ("llama-3.2-1b, int8", dict(model="llama-3.2-1b", **INT8_SERVE), 64, 0, ()),
-    ("gemma-2-2b", dict(model="gemma-2-2b", **GEMMA_SERVE), 256, 0, ()),
+    (GEMMA_MODEL, dict(model=GEMMA_MODEL, **GEMMA_SERVE), 256, 0, ()),
     ("qwen2.5-7b-hf", dict(model=str(QWEN_DIR)), 128, 2, ()),
     ("qwen2.5-7b-hf, int8", dict(model=str(QWEN_DIR), kv_cache_dtype="int8"), 128, 0, ()),
     # OPT's position table holds 2,048: the engine's default 4,096 is refused
@@ -5943,10 +6247,11 @@ def phase_multihost(book, ref: list) -> None:
             _mh_end(run["follower"], signal.SIGKILL, timeout=10)
 
 
-def book_launches(launches: dict, overrides: dict, counts: dict, D: int) -> None:
+def book_launches(launches: dict, overrides: dict, counts: dict, D: int, kh: "int | None" = None) -> None:
     """Add a served run's launches (``counts``, summed over its ranks) to
     the kernel table's rows of their shapes at the run's rank layout
-    (``overrides``: its EngineConfig fields) and head dim ``D``."""
+    (``overrides``: its EngineConfig fields), head dim ``D`` and, for a tp
+    that shares them, the model's ``kh`` KV heads."""
     quant = overrides.get("kv_cache_dtype") == "int8"
     tp, dp = overrides.get("tensor_parallel_size", 1), overrides.get("data_parallel_size", 1)
     ep, pp = overrides.get("expert_parallel_size", 1), overrides.get("pipeline_parallel_size", 1)
@@ -5955,14 +6260,19 @@ def book_launches(launches: dict, overrides: dict, counts: dict, D: int) -> None
         # an ep rank runs its tp place's heads: the [ep2tp2] rows at ep 2
         # x tp 2, one rank's rows at ep 2 alone
         row = _eptag(_dtag(k, D), ep, tp) if ep > 1 and tp > 1 else _tptag(_dtag(k, D), tp)
+        if kh and tp > kh and k != "kv_page_write":
+            row = _tptag(_dtag(k, D), tp, kh)  # a rank's shared KV head: the [tp4kh2] rows
         if dp > 1 and tp == 1 and k == "decode_attention":
             row = _dptag(row, dp)  # the dp rank's rows, all heads: the [dp2] row
         if pp > 1 and D == 64 and k != "kv_page_write":
             row = _pptag(k, pp, tp)  # a stage's microbatches on its pool: the [pp2] and [pp2tp2] rows
+        if pp > 1 and ep > 1 and k != "kv_page_write":
+            row = _pptag(_dtag(k, D), pp, tp, ep)  # a MoE stage's ep rank: the [pp2ep2] rows
         if sp > 1:
             if k != "decode_attention":
                 continue  # a chunk at sp goes through the ring
-            row = _sptag(k, sp, tp)  # every sequence rank's whole step: the [sp2] and [sp2tp2] rows
+            # every sequence rank's whole step: the [sp2], [sp2tp2] and [sp2ep2] rows
+            row = _sptag(_dtag(k, D), sp, tp, ep)
         launches[row] = launches.get(row, 0) + counts[k]
 
 
@@ -5978,6 +6288,9 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    from production_stack_tpu_torch.models import gemma2
+
+    gemma2.PRESETS[GEMMA_MODEL] = dataclasses.replace(gemma2.PRESETS["gemma-2-2b"], num_layers=GEMMA_LAYERS)
     t_start = time.perf_counter()
     t_last = [t_start]
 
@@ -6000,8 +6313,9 @@ def main() -> int:
     phase_lora_forward()
     clock("forward")
 
-    def serve(label, overrides, D, sleep_level, lora, prepare=None, extra=None):
-        book_launches(launches, overrides, phase_serve(label, overrides, sleep_level, lora, prepare, extra), D)
+    def serve(label, overrides, D, sleep_level, lora, prepare=None, extra=None, kh=None, sp_prompt=SP_PROMPT):
+        counts = phase_serve(label, overrides, sleep_level, lora, prepare, extra, sp_prompt)
+        book_launches(launches, overrides, counts, D, kh)
 
     try:
         phase_hf_qwen()
@@ -6060,6 +6374,10 @@ def main() -> int:
         phase_f32_tokens("tp_f32_tokens", TP2, n_prompts=2, together=False)
         serve("qwen2.5-7b-hf, tp2", dict(model=str(QWEN_DIR), **TP2), 128, 0, (), _tp_qwen_slices())
         clock("tp")
+        # KV heads shared by tp ranks: Qwen2.5-1.5B's directory at tp 4,
+        # two ranks on each of its two KV heads
+        phase_shared_heads(serve)
+        clock("shared_heads")
         # in-engine data parallelism: dp 2, then dp 2 x tp 2, every rank a
         # process on the one card over gloo
         phase_dp_forward(phase_tp_reference(rows=DP_FORWARD_ROWS, adapters=RANK_ADAPTERS))
@@ -6087,7 +6405,7 @@ def main() -> int:
         mixtral = dataclasses.replace(llama.PRESETS["mixtral-8x7b"], num_layers=MIXTRAL_LAYERS)
         write_lora_adapters(mixtral, MIXTRAL_ADAPTERS, LORA_RANKS[:1], LORA_TARGETS[:4])
         ep_ref = {}  # the one-rank server's routed logits, the ep ranks' reference
-        serve(*MIXTRAL_SERVE, prepare=_moe_reference(ep_ref, adapters=MIXTRAL_ADAPTERS))
+        serve(*MIXTRAL_SERVE, prepare=_moe_reference(ep_ref, adapters=MIXTRAL_ADAPTERS, seq=True))
         clock("mixtral")
         # Mixtral across ranks: ep 2 and ep 2 x tp 2 from the directory,
         # then dp 2 of a seeded cut-depth copy

@@ -215,13 +215,14 @@ class EngineConfig:
     expert_parallel_size: int = 1
     # pipeline parallelism (the llama family): the layer stack in pp
     # contiguous stages, each step in microbatches relayed from stage to
-    # stage (parallel/pipeline.py); pp x tp processes, rank r = p * tp + t
-    # (dp = ep = 1)
+    # stage (parallel/pipeline.py); pp x ep x tp processes, rank r = (p * ep
+    # + e) * tp + t (dp = 1)
     pipeline_parallel_size: int = 1
-    # sequence parallelism (the dense llama family): a prefill chunk's tokens
+    # sequence parallelism (the llama family): a prefill chunk's tokens
     # split over sp ranks with ring attention (parallel/ring_attention.py),
     # the weights and the pools whole on each; a decode step runs whole on
-    # every rank. sp x tp processes, rank r = s * tp + t (dp = ep = pp = 1)
+    # every rank. sp x ep x tp processes, rank r = (s * ep + e) * tp + t
+    # (dp = pp = 1)
     sequence_parallel_size: int = 1
     # the port's deployment knobs for its ranks (all pp x dp x sp x ep x tp of them): the
     # torch.distributed backend (nccl, or gloo, which stages CUDA tensors
@@ -321,7 +322,9 @@ _FLAG_HELP = {
     ),
     "tensor_parallel_size": (
         "tensor-parallel ranks, one process each (started by the server); "
-        "KV heads, query heads, the MLP and the vocabulary must divide by it"
+        "query heads, the MLP and the vocabulary must divide by it, and the KV "
+        "heads divide by it or it by them (each KV head then shared by "
+        "tp / num_kv_heads ranks)"
     ),
     "data_parallel_size": (
         "in-engine data-parallel groups, each a tp group serving its share "
@@ -335,15 +338,16 @@ _FLAG_HELP = {
     ),
     "pipeline_parallel_size": (
         "pipeline stages of a llama-family model, each holding num_layers / pp "
-        "layers (which pp must divide) and their share of every KV page; each "
-        "step runs in microbatches relayed stage to stage; the server starts "
-        "pp x tp processes"
+        "layers (which pp must divide) and their share of every KV page (a MoE "
+        "model's experts of them over its ep ranks); each step runs in "
+        "microbatches relayed stage to stage; the server starts pp x ep x tp "
+        "processes"
     ),
     "sequence_parallel_size": (
-        "sequence-parallel ranks of a dense llama-family model: each prefill "
-        "chunk's tokens split over them with ring attention, the weights and "
-        "the KV pool whole on each, decode replicated; the server starts sp x tp "
-        "processes"
+        "sequence-parallel ranks of a llama-family model: each prefill "
+        "chunk's tokens split over them with ring attention (a MoE model's "
+        "experts over its ep ranks), the weights and the KV pool whole on "
+        "each, decode replicated; the server starts sp x ep x tp processes"
     ),
     "decode_pipeline": (
         "chained decode bursts per dispatch while no request waits (1 = off): "
@@ -536,8 +540,7 @@ KV_ROLES = ("none", "producer", "consumer")
 def check_supported(cfg: EngineConfig, device=None) -> None:
     """Raise on any non-default value of a feature the port lacks
     (``_UNSUPPORTED``), on a combination the port does not serve (pp with
-    ep ranks or speculative decoding; sp with dp, ep or pp ranks or
-    speculative decoding; device KV transfer with ranks, across hosts or,
+    speculative decoding; sp with dp or pp ranks or speculative decoding; device KV transfer with ranks, across hosts or,
     given ``device``, off the card; a multi-host engine without a
     coordinator, with a number of processes that does not divide its ranks,
     or over NCCL: ``check_hosts``), and on
@@ -545,7 +548,7 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
     sp or pp, with speculative decoding, or with disaggregated prefill but
     no fabric; a producer without a peer; in its words). The refusals that
     read the model (a pp that does not divide its layers, a family without
-    pp stages or sp, a MoE model at pp or sp) are
+    pp stages or sp) are
     parallel/pipeline.check_pp's and parallel/ring_attention.check_sp's,
     which the engine calls. LoRA is served at every rank layout the port
     serves; on a family without adapters (Gemma-2, OPT) the runner refuses
@@ -623,16 +626,13 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
     if cfg.kv_cache_dtype == "int8" and (sp > 1 or pp > 1):
         # the JAX engine's own refusal (engine/engine.py)
         raise ValueError("--kv-cache-dtype int8 does not compose with sp/pp meshes")
-    if pp > 1 and ep > 1:
-        raise ValueError("not supported by the PyTorch port yet: pipeline parallelism with expert parallelism")
     if pp > 1 and cfg.speculative_k:
         raise ValueError("not supported by the PyTorch port yet: speculative decoding with pipeline parallelism")
     if sp > 1:
-        # the sequence ranks split a chunk's tokens of one whole-model
-        # replica; the other axes and a verify forward (T = 1 + k through
-        # the ring) are later work
-        for other, what in ((dp, "in-engine data parallelism"), (ep, "expert parallelism"),
-                            (pp, "pipeline parallelism")):
+        # the sequence ranks split a chunk's tokens of one replica (its
+        # experts over its ep ranks); dp and pp around them and a verify
+        # forward (T = 1 + k through the ring) are later work
+        for other, what in ((dp, "in-engine data parallelism"), (pp, "pipeline parallelism")):
             if other > 1:
                 raise ValueError(f"not supported by the PyTorch port yet: sequence parallelism with {what}")
         if cfg.speculative_k:

@@ -52,7 +52,10 @@ call that must run everywhere to the followers before it runs it
 (``BroadcastingRunner``). Scheduling, the prefix cache and the offload tiers
 stay the leader's; page ids are the same on every rank. ``num_pages`` comes
 from the whole page's bytes, as in the JAX engine, so a tp engine has tp = 1's
-page count and each rank 1/tp of the bytes. A step error with tp ranks ends
+page count and each rank 1/tp of the bytes. Where tp is a multiple of the
+model's KV heads (Qwen2.5-1.5B's 2 at tp 4), each KV head is shared by tp/KH
+ranks, each holding it whole (its page bytes 1/KH of the whole), where the
+JAX engine replicates the whole pool. A step error with tp ranks ends
 the process (exit 13): the ranks' collectives are out of step and no request
 could be served right.
 
@@ -73,27 +76,29 @@ writing the same pages. A dense model's ep ranks replicate it whole.
 ``mesh_devices`` counts pp x dp x sp x ep x tp, as the JAX engine reads it
 from its mesh.
 
-With ``pipeline_parallel_size`` pp > 1 (dp = ep = 1) the engine runs pp x tp
-processes, rank r = p * tp + t: stage p holds layers [p * L/pp, (p + 1) *
-L/pp) of the llama family's models and their pages, split over its tp
-ranks (parallel/pipeline.py), every step running in microbatches through
-the stages. The step stream, the scheduler and the pool's page count are
-those of pp 1 (``num_pages`` from the whole page, every layer's bytes, as
-the JAX engine sizes it), each rank holding 1/(pp x tp) of every page.
-Refused by name at start-up: pp with ep ranks, a MoE model,
-speculative decoding, int8 pools, in-engine dp, Gemma-2 or OPT, and a pp
-that does not divide the layers.
+With ``pipeline_parallel_size`` pp > 1 (dp = 1) the engine runs pp x ep x tp
+processes, rank r = (p * ep + e) * tp + t: stage p holds layers [p * L/pp,
+(p + 1) * L/pp) of the llama family's models and their pages, split over
+its tp ranks (parallel/pipeline.py), a MoE model's experts of them over its
+ep ranks, every step running in microbatches through the stages. The step
+stream, the scheduler and the pool's page count are those of pp 1
+(``num_pages`` from the whole page, every layer's bytes, as the JAX engine
+sizes it), each rank holding 1/(pp x tp) of every page. Refused by name at
+start-up: speculative decoding, int8 pools, in-engine dp, Gemma-2 or OPT,
+and a pp that does not divide the layers.
 
-With ``sequence_parallel_size`` sp > 1 (dp = ep = pp = 1) the engine runs
-sp x tp processes, rank r = s * tp + t (the JAX mesh's (sp, tp) order):
-each prefill chunk's tokens split over the sequence ranks of a tp place,
-its attention through the ring (parallel/ring_attention.py), every
-sequence rank holding the whole model of its tp place and a whole replica
-of its pool shard, into which it writes every chunk and every decoded
-token itself; a decode step runs whole on every sequence rank. The pool's
-page count is that of sp 1. Refused by name at start-up: sp with dp, ep
-or pp ranks, a MoE model, speculative decoding, device KV transfer,
-int8 pools, and Gemma-2 or OPT (the last two in the JAX engine's words).
+With ``sequence_parallel_size`` sp > 1 (dp = pp = 1) the engine runs sp x
+ep x tp processes, rank r = (s * ep + e) * tp + t (the JAX mesh's (sp, ep,
+tp) order): each prefill chunk's tokens split over the sequence ranks of
+an (ep, tp) place, its attention through the ring
+(parallel/ring_attention.py) and a MoE layer's tokens through the expert
+group of the rank's sequence place, every sequence rank holding the whole
+model of its place and a whole replica of its pool shard, into which it
+writes every chunk and every decoded token itself; a decode step runs
+whole on every sequence rank. The pool's page count is that of sp 1.
+Refused by name at start-up: sp with dp or pp ranks, speculative decoding,
+device KV transfer, int8 pools, and Gemma-2 or OPT (the last two in the JAX
+engine's words).
 
 The engine lives inside the stack's services as the JAX engine does. A
 request's trace context (``generate(trace=)``, the server's
@@ -243,8 +248,9 @@ def engine_geometry(cfg: EngineConfig, device) -> tuple:
     flags. ``num_pages`` comes from the whole page's bytes (every KV head
     of every layer), as the JAX engine sizes the pool: a tp or pp engine
     holds as many pages as one rank, each rank 1/tp of the heads of its
-    stage's 1/pp of the layers (and every sequence rank all of its tp
-    place's); int8 pages count their f32 scale rows too."""
+    stage's 1/pp of the layers (one KV head where tp/KH ranks share each;
+    every sequence rank all of its tp place's); int8 pages count their f32
+    scale rows too."""
     # int8 with speculative_k, or with a disagg role but no fabric, and a
     # producer without a peer too, in the JAX engine's words
     check_supported(cfg, device)

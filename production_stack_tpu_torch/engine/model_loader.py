@@ -55,7 +55,14 @@ from production_stack_tpu_torch import models
 from production_stack_tpu_torch.models import gemma2, llama, opt
 from production_stack_tpu_torch.parallel.ep import expert_range
 from production_stack_tpu_torch.parallel.pipeline import local_name
-from production_stack_tpu_torch.parallel.tp import expert_axis, expert_place, shard_params, size_rank, split_axis
+from production_stack_tpu_torch.parallel.tp import (
+    expert_axis,
+    expert_place,
+    shard_params,
+    size_rank,
+    split_axis,
+    split_parts,
+)
 from production_stack_tpu_torch.utils.device import resolve_device
 from production_stack_tpu_torch.utils.safetensors_io import SafetensorsDir
 
@@ -146,7 +153,8 @@ def load_model(
     if params is not None:
         n, r = size_rank(tp)
         m, e = expert_place(getattr(net, "experts", None))
-        load_params(net, shard_params(params, r, n, e, m, stage=getattr(net, "stage", None)))
+        load_params(net, shard_params(params, r, n, e, m, stage=getattr(net, "stage", None),
+                                      kv_heads=cfg.num_kv_heads))
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
@@ -272,9 +280,10 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=
                  seq=None):
     """Returns (module, config, model) for a local HF directory, its weights
     read from the shards one tensor at a time; a tp rank reads its slice of
-    each split tensor, an ep rank only its experts' tensors, and a pipeline
-    stage only its layers' (the model's ``loaded_bytes``: what was read); a
-    sequence rank reads what its tp place alone reads."""
+    each split tensor (of a KV head shared by tp/KH ranks, that head's rows
+    whole), an ep rank only its experts' tensors, and a pipeline stage only
+    its layers' (the model's ``loaded_bytes``: what was read); a sequence
+    rank reads what its tp place alone reads."""
     dev = resolve_device(device)
     mod, cfg = _hf_config(path)
     _, names_of, strip = _FAMILIES[mod]
@@ -297,6 +306,9 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=
     for pname, (hf, transpose) in wanted.items():
         p = own[pname]
         ax = split_axis(pname) if n > 1 else None
+        # the rank's part of the split axis: a KV leaf at shared heads is
+        # one of KH parts, head rank // (tp / KH)
+        at = rank * split_parts(pname, n, cfg.num_kv_heads) // n
         if isinstance(hf, tuple):
             # a stacked parameter takes one HF tensor per entry of its
             # leading axis: an ep rank's experts, each split like a 2-D
@@ -316,7 +328,7 @@ def load_from_hf(path: str, device="cuda", max_model_len: int | None = None, tp=
                 # the rank's slice, on the HF tensor's axis ([out, in] where transposed)
                 hf_ax = 1 - ax if transpose else ax
                 part = dst.shape[ax]
-                t = shards.get_slice(keys[name], hf_ax, rank * part, part)
+                t = shards.get_slice(keys[name], hf_ax, at * part, part)
             read += t.nbytes
             t = t.to(dev).to(cfg.dtype)
             if transpose:

@@ -49,10 +49,13 @@ same shapes as the JAX runner's.
   (engine/distributed.py). Its pools hold KH/tp heads of every page
   ([L, P, page, KH/tp, D], scales [L, P, KH/tp]); page ids, chains and
   eviction are the same on every rank, one logical page being tp head
-  shards. Each sampled token is rank 0's, broadcast before it feeds the
-  next step (``_draw``). ``get_pages(_quant)`` gather the heads, so a blob
-  is the one a tp = 1 runner gives; ``set_pages(_quant)`` keep the rank's
-  slice of whole-head pages. ``rank_stats`` and ``gathered_params`` read
+  shards. Where tp is a multiple of KH the tp/KH ranks of a share hold one
+  KV head each, the same one ([L, P, page, 1, D]), written alike by each
+  (parallel/tp.py's shared KV heads). Each sampled token is rank 0's,
+  broadcast before it feeds the next step (``_draw``). ``get_pages(_quant)``
+  gather the heads (one replica of a shared one), so a blob is the one a
+  tp = 1 runner gives; ``set_pages(_quant)`` keep the rank's slice of
+  whole-head pages. ``rank_stats`` and ``gathered_params`` read
   every rank's kernel counters and weights on the leader.
 - Disaggregated prefill's device path: ``kv_endpoint_start`` starts this
   process's CUDA IPC endpoint, a producer's ``kv_offer_page`` offers a copy
@@ -80,9 +83,10 @@ same shapes as the JAX runner's.
   the (d 0, e 0) one; a page write lands on every ep replica.
   ``gathered_params`` joins the experts over the expert group, and
   ``replay_routes`` makes every rank's routers take another run's experts.
-- Pipeline parallelism (``tp.stage.size`` pp > 1; dp = ep = 1): the rank
-  is one stage of one tp place. Its model holds L/pp layers
-  (models/llama.py runs each step in microbatches through the stages) and
+- Pipeline parallelism (``tp.stage.size`` pp > 1; dp = 1): the rank
+  is one stage of one (ep, tp) place. Its model holds L/pp layers, a MoE
+  model's experts of them split over the stage's expert group
+  (models/llama.py runs each step in microbatches through the stages), and
   its pools ``[L/pp, P, page, KH/tp, D]`` those layers' pages, as the JAX
   ``KV_PAGES_SPEC_PP`` shards them. There is no deferred burst, as in the
   JAX runner: ``step_multi`` runs k forwards, each T == 1 step committing
@@ -94,8 +98,8 @@ same shapes as the JAX runner's.
   pp-sharded pool gives it; ``set_pages`` keeps the stage's layers and the
   rank's heads. ``gathered_params`` takes a layer's tensors from the stage
   that holds it (``layers.{i}`` by the model's layer number).
-- Sequence parallelism (``tp.seq.size`` sp > 1; dp = ep = pp = 1): the
-  sp ranks of one tp place hold the same weights and the same pool shard
+- Sequence parallelism (``tp.seq.size`` sp > 1; dp = pp = 1): the
+  sp ranks of one (ep, tp) place hold the same weights and the same pool shard
   (replicated along sp, as the JAX ``KV_PAGES_SPEC`` shards tp only). A
   prefill chunk's tokens split over them (models/llama.py: the ring of
   parallel/ring_attention.py), after which every rank writes the whole
@@ -146,7 +150,16 @@ from production_stack_tpu_torch.ops.sampling import (
 from production_stack_tpu_torch.parallel import dp as dpmod
 from production_stack_tpu_torch.parallel import pipeline
 from production_stack_tpu_torch.parallel.ep import gather_param
-from production_stack_tpu_torch.parallel.tp import broadcast_ids, gather_split, rank_slice, shard, size_rank
+from production_stack_tpu_torch.parallel.ring_attention import seq_routes
+from production_stack_tpu_torch.parallel.tp import (
+    broadcast_ids,
+    gather_split,
+    kv_heads_per_rank,
+    kv_parts,
+    rank_slice,
+    shard,
+    size_rank,
+)
 from production_stack_tpu_torch.utils.device import resolve_device
 from production_stack_tpu_torch.utils.logging import init_logger
 
@@ -725,16 +738,21 @@ class ModelRunner:
 
     # -- page access (offload / transfer surfaces) --------------------------
 
+    def _kv_parts(self) -> int:
+        """The distinct KV-head slices over the tp group: tp, or KH where
+        tp/KH ranks share each head."""
+        return kv_parts(self.tp_size, self.cfg.num_kv_heads)
+
     def _whole(self, t: torch.Tensor, heads: int) -> torch.Tensor:
         """Pages or scales of this rank ([L/pp, N, ...], KV heads on axis
-        ``heads``) with every KV head (over the tp group) and every layer
-        (over the stage group)."""
-        return gather_split(gather_split(t, heads, self.tp), 0, self.stage)
+        ``heads``) with every KV head (over the tp group, one replica of a
+        shared head) and every layer (over the stage group)."""
+        return gather_split(gather_split(t, heads, self.tp, self._kv_parts()), 0, self.stage)
 
     def _own(self, t: torch.Tensor, heads: int) -> torch.Tensor:
         """This rank's part of whole pages or scales: its stage's layers and
-        its KV heads."""
-        return rank_slice(rank_slice(t, heads, self.tp), 0, self.stage)
+        its KV heads (a shared head's, where tp/KH ranks share each)."""
+        return rank_slice(rank_slice(t, heads, self.tp, self._kv_parts()), 0, self.stage)
 
     def get_pages(self, pids: "list[int]"):
         """N pages' K/V to the host in one copy: per-page ``[L, page, KH, D]``
@@ -790,7 +808,7 @@ class ModelRunner:
             raise ValueError(
                 f"set_pages_quant: {n} pids but {len(ks)}/{len(vs)}/{len(sks)}/{len(svs)} pages/scales"
             )
-        scale_shape = (self.cfg.num_layers, self.k_scales.shape[2] * self.tp_size)
+        scale_shape = (self.cfg.num_layers, self.cfg.num_kv_heads)
         for s in sks + svs:
             a = np.asarray(s)
             if a.shape != scale_shape or not np.issubdtype(a.dtype, np.floating):
@@ -905,7 +923,7 @@ class ModelRunner:
         )
         self.k_scales = self.v_scales = None
         if self.kv_quant:
-            kh = cfg.num_kv_heads // self.tp_size
+            kh = kv_heads_per_rank(cfg.num_kv_heads, self.tp_size)
             self.k_scales = init_kv_scales(self.k_pages.shape[0], self.num_pages, kh, self.device)
             self.v_scales = init_kv_scales(self.k_pages.shape[0], self.num_pages, kh, self.device)
 
@@ -913,14 +931,15 @@ class ModelRunner:
         """Per-rank KV pool footprint: ``(device label, bytes)`` of every
         rank, pp x dp x sp x ep x tp rows, k and v pools with their int8
         scales, from the pools' shapes (each rank holds KH/tp heads of its
-        stage's L/pp layers of every page, so 1/(pp x tp) of the bytes; each
-        dp group, and each sp and ep rank in it, a whole replica). Labels are distinct
+        stage's L/pp layers of every page, so 1/(pp x tp) of the bytes, or
+        one head, 1/(pp x KH), where tp/KH ranks share each; each dp group,
+        and each sp and ep rank in it, a whole replica). Labels are distinct
         per rank (parallel/group.device_labels: two ranks on one card are
         ``cuda:0/tp0`` and ``cuda:0/tp1``, or ``cuda:0/dp0tp0`` ... with dp >
         1, ``cuda:0/dp0ep1tp0`` ... with ep > 1, ``cuda:0/sp1tp0`` ... with sp
         > 1, ``cuda:0/pp1tp0`` ... with pp > 1)."""
         cfg = self.cfg
-        kh = cfg.num_kv_heads // self.tp_size
+        kh = kv_heads_per_rank(cfg.num_kv_heads, self.tp_size)
         L = cfg.num_layers // pipeline.stage_place(self.stage)[0]
         item = 1 if self.kv_quant else torch.empty((), dtype=cfg.dtype).element_size()
         per = 2 * L * self.num_pages * self.page_size * kh * cfg.head_dim * item
@@ -988,26 +1007,33 @@ class ModelRunner:
         own = dict(self.model.named_parameters())
         L = self.cfg.num_layers
         return {name: gather_param(pipeline.gather_layer_param(own, name, L, self.stage).detach(), name,
-                                   self.ranks).cpu()
+                                   self.ranks, self.cfg.num_kv_heads).cpu()
                 for name in names}
 
     def replay_routes(self, picks=None) -> None:
         """Make every MoE router of this rank's model take the experts
-        ``picks`` lists ([B, T, k] per layer and forward, in the order the
-        forwards run, the whole batch's rows; under dp the rank takes its
-        own), each weighted by its own probabilities, recording into a fresh
+        ``picks`` lists ([B, T, k] per layer and forward, in the order a
+        one-rank run's forwards take them, the whole batch's rows), each
+        weighted by its own probabilities, recording into a fresh
         ``route_tape`` (models/llama.RouteTape), until a call with None.
-        A replicated call: every rank of the expert group must take the same
-        experts, or a token's sum would mix two routings. It lets a run at
-        any (dp, ep, tp) take the experts another run took, as
-        ``tape_routes`` does within one process."""
+        Each rank replays its own part, in the order its forward routes:
+        under dp its rows; on a pipeline stage its layers' entries, a
+        microbatch at a time (parallel/pipeline.stage_routes); on a
+        sequence rank its tokens of each chunk, padded as the chunk is
+        (parallel/ring_attention.seq_routes). A replicated call: every rank
+        of the expert group must take the same experts, or a token's sum
+        would mix two routings. It lets a run at any (pp, dp, sp, ep, tp)
+        take the experts another run took, as ``tape_routes`` does within
+        one process."""
         from production_stack_tpu_torch.models.llama import RouteTape
 
         if not getattr(self.cfg, "num_experts", 0):
             raise ValueError("route replay needs a MoE model")
         tape = None
         if picks is not None:
-            tape = RouteTape([self._t(dpmod.row_slice(np.asarray(p), self.dp), torch.long) for p in picks])
+            own = [self._t(dpmod.row_slice(np.asarray(p), self.dp), torch.long) for p in picks]
+            own = pipeline.stage_routes(own, self.cfg.num_layers, self.stage)
+            tape = RouteTape(seq_routes(own, self.seq, self.cfg.num_experts_per_tok))
         for layer in self.model.layers:
             layer.route_tape = tape
         self.route_tape = tape
@@ -1037,7 +1063,8 @@ class ModelRunner:
             src = tensor_from_numpy(stacked)
             if src.shape[0] != L:
                 raise ValueError(f"LoRA {name} holds {src.shape[0]} layers, the model {L}")
-            src = shard(src[held.start:held.stop], "layers.0." + name, r, n).to(self.device)
+            src = shard(src[held.start:held.stop], "layers.0." + name, r, n, kv_heads=self.cfg.num_kv_heads)
+            src = src.to(self.device)
             for li, bufs in enumerate(self.lora["layers"]):
                 bufs[name][slot].copy_(src[li])
         self.lora["scale"][slot] = scale
@@ -1062,7 +1089,8 @@ class ModelRunner:
         (``init_lora_buffers``' dict: every tp rank's part joined over the
         caller's tp group, the stages' layers over the stage group; bit for
         bit), copied to the CPU."""
-        layers = [{name: gather_param(t, f"layers.{li}.{name}", self.ranks) for name, t in bufs.items()}
+        KH = self.cfg.num_kv_heads
+        layers = [{name: gather_param(t, f"layers.{li}.{name}", self.ranks, KH) for name, t in bufs.items()}
                   for li, bufs in enumerate(self.lora["layers"])]
         if self.stage is not None:
             whole = {name: gather_split(torch.stack([x[name] for x in layers]), 0, self.stage)

@@ -47,7 +47,14 @@ from torch import nn
 from production_stack_tpu_torch.models.paged_step import PagedStep
 from production_stack_tpu_torch.ops.norms import rms_norm_1p
 from production_stack_tpu_torch.ops.rope import apply_rope, rope_cos_sin
-from production_stack_tpu_torch.parallel.tp import all_reduce_, embed_lookup, gather_vocab, init_sharded_, shard_shape
+from production_stack_tpu_torch.parallel.tp import (
+    all_reduce_,
+    embed_lookup,
+    gather_vocab,
+    init_sharded_,
+    kv_heads_per_rank,
+    shard_shape,
+)
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
 
 
@@ -163,10 +170,10 @@ def _check_ported(cfg: Gemma2Config) -> None:
 def init_kv_pages(
     cfg: Gemma2Config, num_pages: int, page_size: int, device, dtype=None, tp: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Layer-stacked page pools: [L, num_pages, page_size, KH/tp, D] zeros,
-    in ``dtype``, else int8 for ``kv_cache_dtype="int8"``, else
-    ``cfg.dtype``."""
-    shape = (cfg.num_layers, num_pages, page_size, cfg.num_kv_heads // tp, cfg.head_dim)
+    """Layer-stacked page pools: [L, num_pages, page_size, KH/tp, D] zeros
+    (one KV head where tp/KH ranks share each), in ``dtype``, else int8 for
+    ``kv_cache_dtype="int8"``, else ``cfg.dtype``."""
+    shape = (cfg.num_layers, num_pages, page_size, kv_heads_per_rank(cfg.num_kv_heads, tp), cfg.head_dim)
     dt = dtype or (torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.dtype)
     return (
         torch.zeros(shape, dtype=dt, device=device),
@@ -203,7 +210,8 @@ class Gemma2DecoderLayer(nn.Module):
         super().__init__()
         n = 1 if tp is None else tp.size
         for name, shape in layer_shapes(cfg).items():
-            setattr(self, name, _param(shard_shape("layers." + name, shape, n), cfg.dtype, device))
+            setattr(self, name, _param(shard_shape("layers." + name, shape, n, kv_heads=cfg.num_kv_heads),
+                                       cfg.dtype, device))
         self.tp = tp
 
     def qkv(self, h, cfg: Gemma2Config, cos, sin):

@@ -32,8 +32,8 @@ it.
 
 With ``tp`` (a parallel/group.TPGroup) the model is one tensor-parallel
 rank's: it holds its slice of each split weight (parallel/tp.py: NH/tp and
-KH/tp heads, I/tp of the MLP and of each expert's FFN, V/tp of the
-vocabulary), all-reduces after ``wo`` and ``w_down``, looks tokens up in
+KH/tp heads, or one KV head shared by tp/KH ranks where tp is a multiple of
+KH, I/tp of the MLP and of each expert's FFN, V/tp of the vocabulary), all-reduces after ``wo`` and ``w_down``, looks tokens up in
 its vocab rows and gathers the logits, so every rank returns the whole
 [B, V]. With ``experts`` (the rank's ``TPGroup.expert``: the ep x tp ranks
 of its dp replica) a MoE model is one expert-parallel rank's too: it holds
@@ -46,9 +46,10 @@ column-parallel target's delta lands on the rank's own columns, and a
 row-parallel one's partial delta is summed by the all-reduce after ``wo``
 or ``w_down`` with the base product, so adapters add no collective.
 
-With ``stage`` (the rank's ``TPGroup.stage``: the pp ranks of its tp
+With ``stage`` (the rank's ``TPGroup.stage``: the pp ranks of its (ep, tp)
 place) the model is one pipeline stage's (parallel/pipeline.py): it builds
-only its L/pp contiguous layers, named from 0, and holds the embedding,
+only its L/pp contiguous layers, named from 0 (a MoE model's experts of
+them split over the stage's expert group), and holds the embedding,
 the final norm and the head whole, as the JAX specs replicate them over
 pp. Its forward runs the batch in ``microbatches(B, pp)`` microbatches:
 stage 0 embeds, each stage runs its layers on a microbatch's rows over its
@@ -57,13 +58,15 @@ local index; a microbatch's rows take their own adapter slots) and relays
 it on; the last stage's final hidden states of what the head reads reach
 every stage, where the head runs as at pp 1.
 
-With ``seq`` (the rank's ``TPGroup.seq``: the sp ranks of its tp place) the
-model is one sequence-parallel rank's, as the JAX forward shards a chunk's
+With ``seq`` (the rank's ``TPGroup.seq``: the sp ranks of its (ep, tp)
+place) the model is one sequence-parallel rank's, as the JAX forward shards a chunk's
 tokens over ``sp``: the weights and the pools are whole along sp
 (replicated, the JAX ``KV_PAGES_SPEC`` shards tp only). A prefill chunk
 (T > 1) pads to a multiple of sp (pads at position -1) and the rank runs
 the embedding, the norms, the projections (with their LoRA deltas: the
-rows are whole, so each keeps its slot) and the MLP on its T/sp tokens;
+rows are whole, so each keeps its slot) and the MLP on its T/sp tokens (a
+MoE layer's routed there and summed over the expert group of the rank's
+sequence place);
 every layer's attention is models/paged_step.py's sp step (the chunk's K/V
 gathered over the group, the rank's queries through
 parallel/ring_attention.ring_attention_serving, or with a sliding window
@@ -101,8 +104,10 @@ from production_stack_tpu_torch.parallel.tp import (
     expert_place,
     gather_vocab,
     init_sharded_,
+    kv_heads_per_rank,
     shard_shape,
     split_axis,
+    split_parts,
 )
 from production_stack_tpu_torch.utils.arrays import tensor_from_numpy, unstack_layers
 
@@ -267,9 +272,9 @@ def init_kv_pages(
     cfg: LlamaConfig, num_pages: int, page_size: int, device, dtype=None, tp: int = 1, pp: int = 1
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Layer-stacked page pools: [L/pp, num_pages, page_size, KH/tp, D]
-    zeros (a stage's layers), in ``dtype``, else int8 for
-    ``kv_cache_dtype="int8"``, else ``cfg.dtype``."""
-    shape = (cfg.num_layers // pp, num_pages, page_size, cfg.num_kv_heads // tp, cfg.head_dim)
+    zeros (a stage's layers; one KV head where tp/KH ranks share each), in
+    ``dtype``, else int8 for ``kv_cache_dtype="int8"``, else ``cfg.dtype``."""
+    shape = (cfg.num_layers // pp, num_pages, page_size, kv_heads_per_rank(cfg.num_kv_heads, tp), cfg.head_dim)
     dt = dtype or (torch.int8 if cfg.kv_cache_dtype == "int8" else cfg.dtype)
     return (
         torch.zeros(shape, dtype=dt, device=device),
@@ -332,8 +337,9 @@ def init_lora_buffers(
     caller counts slot 0, the base model, which stays all zero). ``scale``
     is each slot's ``alpha / r``. A tp rank's buffers hold its part of each
     split one (parallel/tp.split_axis: ``b`` of a column-parallel target
-    out/tp wide, ``a`` of a row-parallel one in/tp), a pipeline stage's
-    its L/pp layers."""
+    out/tp wide, ``a`` of a row-parallel one in/tp; ``b_wk``/``b_wv`` at
+    shared KV heads the shared head's columns), a pipeline stage's its
+    L/pp layers."""
     dims = lora_dims(cfg)
     unknown = set(targets) - set(dims)
     if unknown:
@@ -343,7 +349,7 @@ def init_lora_buffers(
     for t in targets:
         din, dout = dims[t]
         shapes["a_" + t] = shard_shape("layers.0.a_" + t, (S, din, R), tp)
-        shapes["b_" + t] = shard_shape("layers.0.b_" + t, (S, R, dout), tp)
+        shapes["b_" + t] = shard_shape("layers.0.b_" + t, (S, R, dout), tp, kv_heads=cfg.num_kv_heads)
     layers = [{name: torch.zeros(shape, dtype=cfg.dtype, device=device) for name, shape in shapes.items()}
               for _ in range(cfg.num_layers // pp)]
     return {"layers": layers, "scale": torch.zeros((S,), dtype=torch.float32, device=device)}
@@ -395,7 +401,8 @@ class LlamaDecoderLayer(nn.Module):
         n = 1 if tp is None else tp.size
         m, e = expert_place(experts)
         for name, shape in layer_shapes(cfg).items():
-            setattr(self, name, _param(shard_shape("layers." + name, shape, n, m), cfg.dtype, device))
+            setattr(self, name, _param(shard_shape("layers." + name, shape, n, m, cfg.num_kv_heads), cfg.dtype,
+                                       device))
         self.tp = tp
         # a MoE layer's output sums over the expert group (ep x tp ranks;
         # without one, over tp); its experts are [first_expert,
@@ -420,7 +427,8 @@ class LlamaDecoderLayer(nn.Module):
         q, k, v = (self.proj(h, n, lora, step) for n in ("wq", "wk", "wv"))
         if cfg.attention_bias:
             q, k, v = q + self.bq, k + self.bk, v + self.bv
-        # the rank's heads: NH/tp and KH/tp (all of them at tp = 1)
+        # the rank's heads: NH/tp and KH/tp (all of them at tp = 1; one
+        # shared KV head where tp is a multiple of KH)
         q, k, v = (x.reshape(B, T, -1, cfg.head_dim) for x in (q, k, v))
         return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
@@ -734,19 +742,21 @@ def lora_from_jax(np_lora: dict, cfg: LlamaConfig) -> dict:
     return {"layers": layers, "scale": tensor_from_numpy(np_lora["scale"])}
 
 
-def join_lora(parts: list, tp: int = 1) -> dict:
+def join_lora(parts: list, tp: int = 1, kv_heads: Optional[int] = None) -> dict:
     """The whole LoRA buffers from every rank's (``init_lora_buffers``
     dicts of pp x tp ranks in stage-major order, ``parts[p * tp + t]``),
     every bit kept: each layer's split buffers joined over the stage's tp
-    ranks on their ``split_axis``, the stages' layers one after another.
-    The scales are every rank's."""
+    ranks on their ``split_axis`` (``b_wk``/``b_wv`` at shared KV heads,
+    ``kv_heads`` the model's KH, over one rank of each share), the stages'
+    layers one after another. The scales are every rank's."""
     layers = []
     for p in range(len(parts) // tp):
         stage = parts[p * tp:(p + 1) * tp]
         for li, own in enumerate(stage[0]["layers"]):
             layers.append({
                 name: t if (ax := split_axis(f"layers.{li}.{name}")) is None
-                else torch.cat([r["layers"][li][name] for r in stage], dim=ax)
+                else torch.cat([r["layers"][li][name] for r in stage[::tp // split_parts(name, tp, kv_heads)]],
+                               dim=ax)
                 for name, t in own.items()
             })
     return {"layers": layers, "scale": parts[0]["scale"]}

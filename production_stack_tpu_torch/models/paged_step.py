@@ -12,7 +12,8 @@ modes and the writes quantize. ``attn_impl == "plain"`` runs the kernels'
 plain PyTorch versions.
 
 Under tensor parallelism (``tp`` ranks) every tensor here is the rank's:
-q holds NH/tp heads, the pools, scales and windows KH/tp. Under data
+q holds NH/tp heads, the pools, scales and windows KH/tp (one KV head where
+tp/KH ranks share each: the rank's query heads are that head's group). Under data
 parallelism the runner hands the step its dp group's B/dp rows (the pools
 stay whole: page ids are global). Under expert parallelism the attention
 is replicated: every ep rank of a (dp, tp) place runs the same step on the
@@ -33,7 +34,8 @@ microbatch the prefill kernel with its fused write, as the JAX
 prefill by XLA attention, which the port replaces by the kernel as it does
 at tp). There is no burst window under pp.
 
-Under sequence parallelism (models/llama.py with a ``seq``) a prefill chunk
+Under sequence parallelism (models/llama.py with a ``seq``; a MoE model's
+experts over the expert group of the rank's sequence place) a prefill chunk
 is split along its tokens: ``positions`` are the whole chunk's, padded to a
 multiple of sp (pads at -1), and ``attend`` takes the rank's T/sp queries
 and K/V. It gathers the chunk's K/V over the sequence group, reads the

@@ -242,6 +242,13 @@ def decode_attention_sharded(
     program, here each rank process calls this on its own shard
     (models/paged_step.py).
 
+    Shared KV heads: where tp is a multiple of KH (Qwen2.5-1.5B's 2 KV heads
+    at tp 4) the rank holds one KV head, KH t // (tp / KH), whole, and its
+    NH/tp query heads, which lie inside that head's group: G = NH/tp on the
+    rank (3 there). The JAX engine replicates the whole pool there and takes
+    its XLA attention (``heads_ok``, production_stack_tpu/engine/runner.py);
+    the kernel runs the rank's group as any other.
+
     ep: a 1-token decode shards nothing over the experts' axis, so the JAX
     function maps ep with every input replicated along it, and each (sp,
     ep) shard computes its (dp, tp) slice again. Here the same, with no
@@ -271,7 +278,7 @@ def decode_attention_sharded(
     if NHl % KHl:
         raise ValueError(
             f"tp rank holds {NHl} query heads and {KHl} KV heads: GQA groups must stay whole "
-            f"(NH and KH both divide by tp = {tp})"
+            f"(tp = {tp} divides NH, and divides KH or is a multiple of it)"
         )
     for name, t, ax in (("k_scales", k_scales, -1), ("k_cur", k_cur, -2)):
         if t is not None and t.shape[ax] != KHl:

@@ -40,18 +40,19 @@ def expert_range(num_experts: int, ep: int, e: int) -> range:
     return range(e * n, (e + 1) * n)
 
 
-def gather_param(t: torch.Tensor, name: str, ranks) -> torch.Tensor:
+def gather_param(t: torch.Tensor, name: str, ranks, kv_heads=None) -> torch.Tensor:
     """The whole parameter ``name`` from every rank's part of it, bit for
     bit, given the rank's ``TPGroup`` (None: one rank). An expert tensor is
     joined over the expert group: a zero-filled whole tensor that each rank
     fills at its (experts, I slice) block, summed as int32 words (one value
-    and zeros, exact); any other over the tp group (tp.gather_param)."""
+    and zeros, exact); any other over the tp group (tp.gather_param, with
+    the model's ``kv_heads`` for a tp that shares them)."""
     if ranks is None:
         return t
     experts = ranks.expert
     ax = tpmod.expert_axis(name)
     if ax is None or experts.ep_size == 1:
-        return tpmod.gather_param(t, name, ranks if ranks.size > 1 else None)
+        return tpmod.gather_param(t, name, ranks if ranks.size > 1 else None, kv_heads)
     ep, tp = experts.ep_size, ranks.size
     full = torch.zeros(tpmod.full_shape(name, t.shape, tp, ep), dtype=t.dtype, device=t.device)
     block = full.narrow(ax, experts.ep_rank * t.shape[ax], t.shape[ax])

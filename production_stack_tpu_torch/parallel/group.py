@@ -13,7 +13,8 @@ r = (((p * dp + d) * sp + s) * ep + e) * tp + t, the mesh's order
 (pp, dp, sp, ep, tp) with pp outermost and tp innermost:
 
 - a tp group, the tp ranks of one (p, d, s, e), splits the heads, the
-  dense MLP, the vocabulary and each expert's FFN;
+  dense MLP, the vocabulary and each expert's FFN (where tp is a multiple
+  of the KV heads, tp/KH ranks in a row share one KV head: parallel/tp.py);
 - an expert group, the ep x tp ranks of one (p, d, s), holds the experts
   (E/ep a rank) and sums a MoE layer's output with one all-reduce; the
   attention, the router, the norms and the embeddings are replicated along
@@ -32,8 +33,9 @@ r = (((p * dp + d) * sp + s) * ep + e) * tp + t, the mesh's order
   p to stage p + 1 (``send_next``/``recv_prev``, over the two ranks' own
   group), hands the last stage's final hidden states to every stage
   (``broadcast_from_last``) and gathers a page's layers.
-  In this port dp = ep = 1 whenever pp > 1, and dp = ep = pp = 1 whenever
-  sp > 1 (engine/config.check_supported).
+  In this port dp = 1 whenever pp > 1, and dp = pp = 1 whenever sp > 1
+  (engine/config.check_supported); ep composes with both, the expert
+  group of a stage's or a sequence rank's (p, d, s) holding its experts.
 
 Multi-host serving splits the ranks into equal blocks, one per host
 process: host h of n runs global ranks [h * L, (h + 1) * L), L = ranks / n

@@ -19,7 +19,11 @@ moves a tick's activations with ``ppermute``, each stage here is a process
   ``psum`` of the last stage's outputs), where the final norm and the head
   run as they do without pp;
 - each stage's K/V are written into its own pools ([L/pp, P, page, KH/tp,
-  D], the JAX ``KV_PAGES_SPEC_PP``) by its layers, a microbatch at a time.
+  D], the JAX ``KV_PAGES_SPEC_PP``) by its layers, a microbatch at a time;
+- a MoE model's stage holds its layers' experts, split over its expert
+  group (the ep x tp ranks of the stage), whose all-reduce sums each MoE
+  layer of a microbatch inside the stage; ``stage_routes`` gives a stage
+  a one-rank run's routes in the order its layers route them.
 
 The relays carry the model's dtype as bytes (the JAX relay runs in f32
 only to work around XLA:CPU; the values are the same). Every stage rank
@@ -40,8 +44,7 @@ from production_stack_tpu_torch.parallel.tp import gather_split
 def check_pp(module, cfg, pp: int) -> None:
     """Refuse, by name, a pp the model cannot be served at: the JAX
     runner's refusals in its words (a family whose ``MESH_AXES`` lacks
-    "pp"; a pp that does not divide the layers), and the port's own (a MoE
-    model)."""
+    "pp"; a pp that does not divide the layers)."""
     if pp < 1:
         raise ValueError(f"pipeline_parallel_size must be >= 1, got {pp}")
     if pp == 1:
@@ -52,8 +55,6 @@ def check_pp(module, cfg, pp: int) -> None:
         )
     if cfg.num_layers % pp:
         raise ValueError(f"pipeline_parallel_size={pp} must divide num_layers={cfg.num_layers}")
-    if getattr(cfg, "num_experts", 0):
-        raise ValueError("not supported by the PyTorch port yet: pipeline parallelism with a MoE model")
 
 
 def stage_range(num_layers: int, pp: int, p: int) -> range:
@@ -88,6 +89,28 @@ def microbatches(B: int, pp: int) -> int:
     while B % M:
         M -= 1
     return M
+
+
+def stage_routes(picks: list, num_layers: int, stage) -> list:
+    """A one-rank run's MoE routes (``picks``: [B, T, k] per layer and
+    forward, every layer of a forward in order) in the order stage
+    ``stage`` routes them: for each forward, each of its microbatches
+    (``microbatches(B, pp)``), the stage's layers on the microbatch's rows.
+    The picks themselves without a stage."""
+    pp, p = stage_place(stage)
+    if pp == 1:
+        return list(picks)
+    if len(picks) % num_layers:
+        raise ValueError(f"{len(picks)} routed calls are not whole forwards of {num_layers} layers")
+    held = stage_range(num_layers, pp, p)
+    out = []
+    for f in range(0, len(picks), num_layers):
+        fwd = picks[f: f + num_layers]
+        B = fwd[0].shape[0]
+        n = B // microbatches(B, pp)
+        for r in range(0, B, n):
+            out += [fwd[i][r: r + n] for i in held]
+    return out
 
 
 def run(stage, B: int, inject: Callable, body: Callable, keep: Callable, out: torch.Tensor,

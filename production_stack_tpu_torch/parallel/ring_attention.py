@@ -37,8 +37,12 @@ Functions:
 - ``ring_attention``: the convenience wrapper the JAX unit tests use: whole
   inputs on every rank, T and S multiples of sp, the whole output on every
   rank.
-- ``check_sp``: the refusals that read the model: the JAX runner's in its
-  words (a family without "sp" in ``MESH_AXES``), and a MoE model.
+- ``check_sp``: the refusal that reads the model: the JAX runner's in its
+  words (a family without "sp" in ``MESH_AXES``).
+- ``seq_routes``: a one-rank run's MoE routes as a sequence rank's routers
+  take them (a MoE layer runs on the rank's tokens of a chunk, as every
+  other per-token layer does; the expert group of its (ep, tp) ranks sums
+  it).
 """
 
 from __future__ import annotations
@@ -56,7 +60,7 @@ RING_SCORE_BYTES = 1 << 30
 def check_sp(module, cfg, sp: int) -> None:
     """Refuse, by name, an sp the model cannot be served at: the JAX
     runner's refusal in its words (a family whose ``MESH_AXES`` lacks "sp":
-    Gemma-2 and OPT), and the port's own (a MoE model)."""
+    Gemma-2 and OPT)."""
     if sp < 1:
         raise ValueError(f"sequence_parallel_size must be >= 1, got {sp}")
     if sp == 1:
@@ -65,8 +69,6 @@ def check_sp(module, cfg, sp: int) -> None:
         raise ValueError(
             f"model family {module.__name__.rsplit('.', 1)[-1]!r} does not support sequence/pipeline parallelism"
         )
-    if getattr(cfg, "num_experts", 0):
-        raise ValueError("not supported by the PyTorch port yet: sequence parallelism with a MoE model")
 
 
 def pad_tokens(x: torch.Tensor, n: int, dim: int = 1, value=0) -> torch.Tensor:
@@ -86,6 +88,27 @@ def token_slice(x: torch.Tensor, group, dim: int = 1) -> torch.Tensor:
         return x
     n = x.shape[dim] // group.size
     return x.narrow(dim, group.rank * n, n)
+
+
+def seq_routes(picks: list, group, k: int) -> list:
+    """A one-rank run's MoE routes (``picks``: [B, T, k] per layer and
+    forward) as sequence rank ``group.rank`` routes them: a chunk's (T > 1)
+    padded to a multiple of sp, as the forward pads the chunk, and the
+    rank's contiguous T/sp tokens taken; a pad token routes to experts 0 ..
+    k - 1 (its output is never read). A decode step's (T = 1) runs whole on
+    every rank. The picks themselves without a group."""
+    if group is None or group.size == 1:
+        return list(picks)
+    out = []
+    for p in picks:
+        if p.shape[1] > 1:
+            pad = (-p.shape[1]) % group.size
+            if pad:
+                fill = torch.arange(k, dtype=p.dtype, device=p.device).expand(p.shape[0], pad, k)
+                p = torch.cat([p, fill], dim=1)
+            p = token_slice(p, group)
+        out.append(p)
+    return out
 
 
 def _online_block(qf, k, v, visible, m, l, acc):

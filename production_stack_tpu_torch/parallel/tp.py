@@ -9,7 +9,8 @@ leading [L] axis, so ``P(None, "tp")`` on ``[L, in, out]`` is axis 1 here.
 
 - Column-parallel, split on the output axis: ``wq``/``wk``/``wv`` with
   their biases, ``w_gate``/``w_up``, ``fc1`` with ``fc1_b``. A rank holds
-  NH/tp query heads, KH/tp KV heads and I/tp of the MLP.
+  NH/tp query heads, KH/tp KV heads (or one shared head: below) and I/tp
+  of the MLP.
 - Row-parallel, split on the input axis: ``wo``, ``w_down``, ``fc2``. Each
   rank's product is a partial sum; one ``all_reduce_`` adds them, and the
   bias (``bo``, ``fc2_b``) comes after it.
@@ -31,6 +32,18 @@ leading [L] axis, so ``P(None, "tp")`` on ``[L, in, out]`` is axis 1 here.
 Rank r's part of a split axis is its r-th contiguous slice. With ``group``
 None (tp = 1) every function here is the identity, so the tp = 1 path runs
 exactly the code it ran before.
+
+Shared KV heads: where tp is a multiple of the model's KH (``kv_heads``;
+Qwen2.5-1.5B's 2 KV heads at tp 4), the KV leaves (``wk``/``wv`` with their
+biases, the LoRA ``b_wk``/``b_wv``) split into KH parts, not tp: rank t
+holds KV head t // (tp / KH) whole, which its NH/tp query heads all read
+(their group lies inside that head's), as vLLM replicates a KV head over
+the ranks that share it. ``kv_parts`` gives the parts and each function
+here that splits or joins takes ``kv_heads``; None (or a tp that divides
+KH) is the plain split. The gathers join one replica per KV head (the
+first rank of each share), so a gathered page or weight is the tp 1
+engine's bytes. A tp that neither divides KH nor is a multiple of it is
+refused (``check_tp``).
 
 The layer axis splits over pp (parallel/pipeline.py, the JAX
 ``param_specs_for(pp=True)``: ``P("pp", ...)`` on every layer-stacked
@@ -111,6 +124,28 @@ _LAYER_SPLIT = {
 # the experts' axis of each per-layer expert tensor ([E, in, out]), split
 # over ep
 _EXPERT_SPLIT = {"moe_gate": 0, "moe_up": 0, "moe_down": 0}
+# the leaves that hold KV heads on their tp axis (a LoRA ``b_<t>`` of one of
+# the two projections too): KH parts where tp/KH ranks share a head
+_KV_LEAVES = ("wk", "wv", "bk", "bv", "b_wk", "b_wv")
+
+
+def kv_parts(tp: int, kv_heads: Optional[int]) -> int:
+    """The distinct slices of a KV leaf over ``tp`` ranks: tp where it
+    divides the KV heads (or ``kv_heads`` is None), else KH, each shared
+    by tp / KH ranks."""
+    return tp if kv_heads is None or tp <= kv_heads else kv_heads
+
+
+def kv_heads_per_rank(kv_heads: int, tp: int) -> int:
+    """The KV heads one tp rank holds: KH/tp, or one shared head where tp
+    is a multiple of KH."""
+    return kv_heads // kv_parts(tp, kv_heads)
+
+
+def split_parts(name: str, tp: int, kv_heads: Optional[int] = None) -> int:
+    """The slices of ``name``'s tp axis: ``kv_parts`` for a KV leaf, tp for
+    any other split one."""
+    return kv_parts(tp, kv_heads) if name.rsplit(".", 1)[-1] in _KV_LEAVES else tp
 
 
 def _lora_axis(leaf: str) -> Optional[int]:
@@ -147,41 +182,45 @@ def expert_axis(name: str) -> Optional[int]:
     return _EXPERT_SPLIT.get(name.rsplit(".", 1)[-1])
 
 
-def _splits(name: str, tp: int, ep: int) -> list[tuple[int, int, str]]:
-    """(axis, ranks, axis name) of each axis of ``name`` split over more
-    than one rank."""
-    return [(ax, n, what) for ax, n, what in ((split_axis(name), tp, "tp"), (expert_axis(name), ep, "ep"))
+def _splits(name: str, tp: int, ep: int, kv_heads: Optional[int] = None) -> list[tuple[int, int, str]]:
+    """(axis, parts, axis name) of each axis of ``name`` split in more than
+    one part (a KV leaf's tp axis in ``kv_parts``)."""
+    return [(ax, n, what) for ax, n, what in ((split_axis(name), split_parts(name, tp, kv_heads), "tp"),
+                                             (expert_axis(name), ep, "ep"))
             if ax is not None and n > 1]
 
 
-def shard_shape(name: str, shape, tp: int, ep: int = 1) -> tuple[int, ...]:
-    """A rank's shape of parameter ``name`` whose whole shape is ``shape``."""
+def shard_shape(name: str, shape, tp: int, ep: int = 1, kv_heads: Optional[int] = None) -> tuple[int, ...]:
+    """A rank's shape of parameter ``name`` whose whole shape is ``shape``
+    (``kv_heads``: the model's KH, for a tp that shares KV heads)."""
     shape = tuple(shape)
-    for ax, n, what in _splits(name, tp, ep):
+    for ax, n, what in _splits(name, tp, ep, kv_heads):
         if shape[ax] % n:
             raise ValueError(f"{name}: axis {ax} of {shape} does not split over {n} {what} ranks")
         shape = shape[:ax] + (shape[ax] // n,) + shape[ax + 1:]
     return shape
 
 
-def full_shape(name: str, shape, tp: int, ep: int = 1) -> tuple[int, ...]:
+def full_shape(name: str, shape, tp: int, ep: int = 1, kv_heads: Optional[int] = None) -> tuple[int, ...]:
     """The whole shape of parameter ``name`` whose rank shape is ``shape``."""
     shape = tuple(shape)
-    for ax, n, _ in _splits(name, tp, ep):
+    for ax, n, _ in _splits(name, tp, ep, kv_heads):
         shape = shape[:ax] + (shape[ax] * n,) + shape[ax + 1:]
     return shape
 
 
-def shard(t: torch.Tensor, name: str, rank: int, tp: int, e: int = 0, ep: int = 1) -> torch.Tensor:
-    """Rank (e, ``rank``)'s part of the whole parameter ``t`` (a view)."""
-    part = shard_shape(name, t.shape, tp, ep)
-    for ax, _, what in _splits(name, tp, ep):
-        t = t.narrow(ax, (rank if what == "tp" else e) * part[ax], part[ax])
+def shard(t: torch.Tensor, name: str, rank: int, tp: int, e: int = 0, ep: int = 1,
+          kv_heads: Optional[int] = None) -> torch.Tensor:
+    """Rank (e, ``rank``)'s part of the whole parameter ``t`` (a view): of a
+    KV leaf at shared heads, the head rank // (tp / KH)."""
+    part = shard_shape(name, t.shape, tp, ep, kv_heads)
+    for ax, n, what in _splits(name, tp, ep, kv_heads):
+        t = t.narrow(ax, (rank * n // tp if what == "tp" else e) * part[ax], part[ax])
     return t
 
 
-def shard_params(params: dict[str, torch.Tensor], rank: int, tp: int, e: int = 0, ep: int = 1, stage=None
-                 ) -> dict[str, torch.Tensor]:
+def shard_params(params: dict[str, torch.Tensor], rank: int, tp: int, e: int = 0, ep: int = 1, stage=None,
+                 kv_heads: Optional[int] = None) -> dict[str, torch.Tensor]:
     """Rank (e, ``rank``) of (ep, ``tp``)'s parameter dict from a whole one
     (a ``params_from_jax`` dict, say), every bit kept; with ``stage`` (pp >
     1) only the stage's layers, under the stage's names."""
@@ -192,24 +231,29 @@ def shard_params(params: dict[str, torch.Tensor], rank: int, tp: int, e: int = 0
     for name, t in params.items():
         own = local_name(name, L, stage)
         if own is not None:
-            out[own] = shard(t, name, rank, tp, e, ep).contiguous()
+            out[own] = shard(t, name, rank, tp, e, ep, kv_heads).contiguous()
     return out
 
 
 def check_tp(cfg, tp: int) -> None:
-    """Refuse, by name, a model that does not split over ``tp`` ranks: the
-    heads (query and KV, so GQA groups stay whole), the MLP (each expert's,
-    for a MoE model) and the vocabulary must divide by tp."""
+    """Refuse, by name, a model that does not split over ``tp`` ranks: tp
+    must divide the KV heads or be a multiple of them (then tp/KH ranks
+    share each), and divide the query heads (so each rank's lie in one KV
+    head's group), the MLP (each expert's, for a MoE model) and the
+    vocabulary."""
     if tp == 1:
         return
-    for what, n in (("num_kv_heads", cfg.num_kv_heads), ("num_heads", cfg.num_heads),
-                    ("intermediate_size", cfg.intermediate_size), ("vocab_size", cfg.vocab_size)):
+    KH = cfg.num_kv_heads
+    if KH % tp and tp % KH:
+        raise ValueError(
+            f"tensor_parallel_size {tp} does not divide num_kv_heads {KH}; the JAX engine replicates the pool "
+            "there, the port serves a tp that divides the KV heads or a multiple of them (each KV head then "
+            "shared by tp / num_kv_heads ranks)"
+        )
+    for what, n in (("num_heads", cfg.num_heads), ("intermediate_size", cfg.intermediate_size),
+                    ("vocab_size", cfg.vocab_size)):
         if n % tp:
-            raise ValueError(
-                f"tensor_parallel_size {tp} does not divide {what} {n}"
-                + ("; the JAX engine replicates the pool there, the port does not yet"
-                   if what == "num_kv_heads" else "")
-            )
+            raise ValueError(f"tensor_parallel_size {tp} does not divide {what} {n}")
 
 
 def size_rank(group) -> tuple[int, int]:
@@ -236,6 +280,7 @@ def init_sharded_(model, init_leaf) -> None:
 
     n, r = size_rank(model.tp)
     m, e = expert_place(getattr(model, "experts", None))
+    kh = model.cfg.num_kv_heads
     stage = getattr(model, "stage", None)
     own = dict(model.named_parameters())
     names = list(own)
@@ -250,9 +295,9 @@ def init_sharded_(model, init_leaf) -> None:
     for name in names:
         held = local_name(name, model.cfg.num_layers, stage)
         p = own[held] if held is not None else own["layers.0." + name.split(".", 2)[2]]
-        whole = init_leaf(name, full_shape(name, p.shape, n, m))
+        whole = init_leaf(name, full_shape(name, p.shape, n, m, kh))
         if held is not None:
-            p.copy_(shard(whole, name, r, n, e, m))
+            p.copy_(shard(whole, name, r, n, e, m, kh))
 
 
 # -- collectives (the identity at tp = 1) ---------------------------------------
@@ -266,15 +311,21 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
     return x
 
 
-def _exact_gather(local: torch.Tensor, dim: int, group) -> torch.Tensor:
+def _exact_gather(local: torch.Tensor, dim: int, group, parts: Optional[int] = None) -> torch.Tensor:
     """Every rank's ``local`` joined along ``dim``, bit for bit (module
-    docstring); the last axis must hold a multiple of 4 bytes."""
+    docstring); the last axis must hold a multiple of 4 bytes. With
+    ``parts`` (< the group's size, dividing it) the ranks hold ``parts``
+    slices, each shared by size / parts ranks in a row: the first rank of
+    each share puts its slice in, the others zeros."""
     dim = dim % local.dim()
     n = local.shape[dim]
+    parts = parts or group.size
     shape = list(local.shape)
-    shape[dim] = n * group.size
+    shape[dim] = n * parts
     full = torch.zeros(shape, dtype=local.dtype, device=local.device)
-    full.narrow(dim, group.rank * n, n).copy_(local)
+    share = group.size // parts
+    if group.rank % share == 0:
+        full.narrow(dim, group.rank // share * n, n).copy_(local)
     group.all_reduce(full.view(torch.int32))
     return full
 
@@ -287,30 +338,34 @@ def gather_vocab(logits: torch.Tensor, group) -> torch.Tensor:
     return _exact_gather(logits.contiguous(), -1, group)
 
 
-def gather_split(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def gather_split(x: torch.Tensor, dim: int, group, parts: Optional[int] = None) -> torch.Tensor:
     """Each rank's slice along ``dim`` (the KV heads of pool pages or
-    scales, a row of counters) -> the whole, bit for bit, on every rank."""
+    scales, a row of counters) -> the whole, bit for bit, on every rank;
+    with ``parts`` (shared KV heads: ``kv_parts``) one replica of each
+    shared slice."""
     if group is None:
         return x
-    return _exact_gather(x.contiguous(), dim, group)
+    return _exact_gather(x.contiguous(), dim, group, parts)
 
 
-def gather_param(t: torch.Tensor, name: str, group) -> torch.Tensor:
+def gather_param(t: torch.Tensor, name: str, group, kv_heads: Optional[int] = None) -> torch.Tensor:
     """The whole parameter ``name`` from every rank's part of it, bit for
-    bit (a replicated one is the rank's own)."""
+    bit (a replicated one is the rank's own; a KV leaf at shared heads one
+    replica of each head)."""
     ax = split_axis(name)
     if group is None or ax is None:
         return t
-    return _exact_gather(t.contiguous(), ax, group)
+    return _exact_gather(t.contiguous(), ax, group, split_parts(name, group.size, kv_heads))
 
 
-def rank_slice(x: torch.Tensor, dim: int, group) -> torch.Tensor:
+def rank_slice(x: torch.Tensor, dim: int, group, parts: Optional[int] = None) -> torch.Tensor:
     """This rank's slice along ``dim`` of a whole tensor (its KV heads of
-    whole-head pages or scales)."""
+    whole-head pages or scales; with ``parts`` < tp, its shared head's)."""
     if group is None:
         return x
-    n = x.shape[dim] // group.size
-    return x.narrow(dim, group.rank * n, n)
+    parts = parts or group.size
+    n = x.shape[dim] // parts
+    return x.narrow(dim, group.rank * parts // group.size * n, n)
 
 
 def embed_lookup(embed: torch.Tensor, ids: torch.Tensor, group) -> torch.Tensor:

@@ -4,7 +4,8 @@
 # restored weights and kernel outputs after wake, with the device telemetry
 # (tests/test_torch_cuda_surface.py); and the Mixtral MoE and LoRA forwards
 # through the kernels (tests/test_torch_cuda_moe_lora.py); both kernels at the
-# per-rank head shapes of tensor-parallel serving, and LoRA at tp 2 against
+# per-rank head shapes of tensor-parallel serving (a KV head shared by tp 4
+# ranks among them), and LoRA at tp 2 against
 # tp 1 (tests/test_torch_cuda_tp.py);
 # both kernels at the dp ranks' row shapes and a dp 2 engine's replicas
 # (tests/test_torch_cuda_dp.py); the prefill kernel at step_spec's verify
@@ -17,8 +18,10 @@
 # queued behind other work while more pulls land (tests/test_torch_cuda_disagg.py);
 # live migration between two engines through the kernels, over the KV fabric
 # and through a shared disk tier, the restored pages byte for byte
-# (tests/test_torch_cuda_fleet.py); both kernels at mixtral-8x7b's ep 2 x tp 2
-# rank heads and an ep 2 engine's replicas (tests/test_torch_cuda_ep.py); a pp 2
+# (tests/test_torch_cuda_fleet.py); both kernels at mixtral-8x7b's ep 2 x tp 2,
+# pp 2 x ep 2 and sp 2 x ep 2 rank shapes and Qwen2.5-1.5B's tp 4 rank (3
+# query heads on one shared KV head), an ep 2 engine's replicas and a pp 2 x
+# ep 2 engine's stage ranks (tests/test_torch_cuda_ep.py); a pp 2
 # engine's forward against pp 1's, both kernels launched by every stage
 # (tests/test_torch_cuda_pp.py); the decode kernel at a sequence rank's
 # shapes and an sp 2 engine's forward against one rank's, the decode kernel

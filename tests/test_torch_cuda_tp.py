@@ -2,7 +2,8 @@
 serving, on the card only: each tp rank runs the decode kernel through
 ``decode_attention_sharded`` and the prefill kernel (with the chunk's KV
 write in its launch) on NH/tp query heads and KH/tp KV heads, shapes no
-tp = 1 model gives. Held to their plain versions as
+tp = 1 model gives (at Qwen2.5-1.5B's tp 4 one shared KV head under 3
+query heads, a group of 3 in both kernels' tiles). Held to their plain versions as
 tests/test_torch_cuda_attention.py holds the tp = 1 shapes (same
 tolerances; two decode calls give the same bytes; pools and scales after
 the write byte-identical), in bf16 pools and int8 pools. Then LoRA at
@@ -29,9 +30,11 @@ from production_stack_tpu_torch.ops.kernels import decode_attention as dmod
 from production_stack_tpu_torch.ops.kernels import prefill_attention as pmod
 from test_torch_cuda_attention import GEMMA, TOL, _copies, _on, _pools, _same, cuda_device  # noqa: F401
 
-# rank shapes: (tp, NH/tp, KH/tp, D, extra kwargs)
+# rank shapes: (tp, NH/tp, KH/tp, D, extra kwargs); Qwen2.5-1.5B at tp 4
+# shares its 2 KV heads: 3 query heads on one KV head a rank (G = 3)
 RANK_SHAPES = {
     "llama-3.2-1b_tp2": (2, 16, 4, 64, {}),
+    "qwen2.5-1.5b_tp4kh2": (4, 3, 1, 128, {}),
     "llama-3.2-1b_tp4": (4, 8, 2, 64, {}),
     "qwen2.5-7b_tp2": (2, 14, 2, 128, {}),
     "gemma-2-2b_tp2": (2, 4, 2, 256, dict(GEMMA, window=4096)),

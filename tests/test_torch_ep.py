@@ -27,8 +27,9 @@ tests/test_pallas_attention.py TestShardedKernel).
 - Weight splits: ``shard_params`` and seeded ranks join back to the whole
   model; a small HF Mixtral directory read by (e, t) ranks gives the slices
   of the whole read.
-- The refusals: an ep that does not divide the experts, LoRA with ep, and
-  sp, pp and multi-host still.
+- The refusals: an ep that does not divide the experts, and sp with dp,
+  spec decode at pp and multi-host still (ep at pp and sp is served:
+  tests/test_torch_moe_stages.py, tests/test_torch_moe_seq.py).
 - An HTTP server at --expert-parallel-size 2 answers the ep 1 server's
   greedy text and advertises its shape.
 """
@@ -577,8 +578,10 @@ def test_labels_and_device_ids_count_the_ep_ranks():
 @pytest.mark.parametrize("overrides,match", [
     (dict(model=MODEL, expert_parallel_size=3), "expert_parallel_size 3 does not divide num_experts 4"),
     (dict(model=MODEL, expert_parallel_size=0), "expert_parallel_size must be >= 1"),
-    (dict(model=MODEL, expert_parallel_size=2, sequence_parallel_size=2), "sequence parallelism"),
-    (dict(model=MODEL, expert_parallel_size=2, pipeline_parallel_size=2), "pipeline parallelism"),
+    (dict(model=MODEL, expert_parallel_size=2, sequence_parallel_size=2, data_parallel_size=2),
+     "sequence parallelism with in-engine data parallelism"),
+    (dict(model=MODEL, expert_parallel_size=2, pipeline_parallel_size=2, speculative_k=4),
+     "speculative decoding with pipeline parallelism"),
     (dict(model=MODEL, expert_parallel_size=2, distributed_num_processes=2), "multi-host serving"),
     (dict(model=MODEL, expert_parallel_size=2, tp_device_ids="0,0,0", **GLOO), "one device index"),
     (dict(model=MODEL, expert_parallel_size=2, kv_transfer_device=True), "device KV transfer"),

@@ -20,8 +20,9 @@ tests/test_parallel_serving.py TestSequenceParallelServing).
   ``decode_pipeline=2`` and a CPU tier gives sp 1's ids, and a prompt whose
   pages were spilled and restored repeats them.
 - The refusals: in the JAX package's words (Gemma-2 and OPT at sp, int8 at
-  sp), in the port's (sp with dp, ep or a MoE model, pp, LoRA, speculative
-  decoding, device KV transfer).
+  sp), in the port's (sp with dp or pp, speculative decoding, device KV
+  transfer; a MoE model at sp, with ep ranks too, is served:
+  tests/test_torch_moe_seq.py).
 """
 
 import asyncio
@@ -601,9 +602,10 @@ def test_sp_refusals_in_the_jax_engines_words(eight_devices, overrides):
 @pytest.mark.parametrize("overrides,match", [
     (dict(model="llama-debug", sequence_parallel_size=2, data_parallel_size=2),
      "sequence parallelism with in-engine data parallelism"),
-    (dict(model="llama-debug", sequence_parallel_size=2, expert_parallel_size=2),
-     "sequence parallelism with expert parallelism"),
-    (dict(model="mixtral-debug", sequence_parallel_size=2), "sequence parallelism with a MoE model"),
+    (dict(model="mixtral-debug", sequence_parallel_size=2, expert_parallel_size=2, data_parallel_size=2),
+     "sequence parallelism with in-engine data parallelism"),
+    (dict(model="mixtral-debug", sequence_parallel_size=2, pipeline_parallel_size=2),
+     "sequence parallelism with pipeline parallelism"),
     (dict(model="llama-debug", sequence_parallel_size=2, pipeline_parallel_size=2),
      "sequence parallelism with pipeline parallelism"),
     (dict(model="llama-debug", sequence_parallel_size=2, speculative_k=4),
@@ -612,6 +614,9 @@ def test_sp_refusals_in_the_jax_engines_words(eight_devices, overrides):
     (dict(model="llama-debug", sequence_parallel_size=0), "sequence_parallel_size must be >= 1"),
 ], ids=["dp", "ep", "moe", "pp", "spec", "device-kv", "sp-0"])
 def test_unserved_sp_combinations_are_refused_by_name(overrides, match):
+    """What stays refused at sp. A MoE model at sp, with or without ep
+    ranks, is served (tests/test_torch_moe_seq.py); its cases here are the
+    combinations around it that are not: dp and pp ranks."""
     with pytest.raises(ValueError, match=match):
         LLMEngine(EngineConfig(**overrides, max_model_len=128, num_pages=16, page_size=8, **GLOO), device="cpu")
 

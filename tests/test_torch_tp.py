@@ -460,7 +460,13 @@ def test_opt_and_gemma2_greedy_tokens_match_the_jax_engine(eight_devices, monkey
 
 
 def test_tp_past_the_kv_heads_is_refused():
-    with pytest.raises(ValueError, match="tensor_parallel_size 16 does not divide num_kv_heads 4"):
+    """A tp past the KV heads is served only as a multiple of them (each
+    head shared by tp / KH ranks, tests/test_torch_shared_kv_heads.py):
+    tp 6 over KH 4 is refused by name, and tp 16, a multiple of KH 4, by
+    the query heads it does not divide."""
+    with pytest.raises(ValueError, match="tensor_parallel_size 6 does not divide num_kv_heads 4"):
+        LLMEngine(EngineConfig(model=MODEL, tensor_parallel_size=6, **PORT_TP, **SMALL), device="cpu")
+    with pytest.raises(ValueError, match="tensor_parallel_size 16 does not divide num_heads 8"):
         LLMEngine(EngineConfig(model=MODEL, tensor_parallel_size=16, **PORT_TP, **SMALL), device="cpu")
 
 
@@ -468,7 +474,7 @@ def test_tp_past_the_kv_heads_is_refused():
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(model="llama-debug", tensor_parallel_size=4), "does not divide num_kv_heads 2; the JAX engine replicates"),
+    (dict(model="llama-debug", tensor_parallel_size=3), "does not divide num_kv_heads 2; the JAX engine replicates"),
     (dict(model="mixtral-debug", tensor_parallel_size=2, expert_parallel_size=3, **PORT_TP), "MoE"),
     (dict(model=MODEL, data_parallel_size=2, pipeline_parallel_size=2), "in-engine data parallelism"),
     (dict(model=MODEL, sequence_parallel_size=2, data_parallel_size=2), "sequence parallelism"),
