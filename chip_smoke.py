@@ -117,7 +117,7 @@ non-zero exit (nothing is caught):
 5b. tp       -- before that refusal, while qwen2.5-7b's directory exists:
                two tp ranks (two processes) on the one card over gloo,
                asked for by name (llama-3.2-1b at full width cut to
-               RANK_LAYERS = 4 of its 16 layers in 5b, 5c and 5i's f32
+               RANK_LAYERS = 2 of its 16 layers in 5b, 5c and 5i's f32
                tokens, to keep the smoke inside its time limit): llama-3.2-1b's logits of a 512-token
                chunk and a decode step at tp 2 against tp 1's in this run
                (FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN); the server at tp 2
@@ -296,13 +296,13 @@ non-zero exit (nothing is caught):
                "dp_ranks" lines give each rank's device bytes, collective
                share, expert all-reduces and launches.
 5i. pp     -- after the dp runs, while qwen2.5-7b's directory exists:
-               RANK_LLAMA (llama-3.2-1b at full width, 4 of its 16 layers,
-               2 a stage) at pp 2 and at pp 2 x tp 2, every rank a gloo
+               RANK_LLAMA (llama-3.2-1b at full width, 2 of its 16 layers,
+               1 a stage) at pp 2 and at pp 2 x tp 2, every rank a gloo
                process on the one card: each engine's logits of the tp
                forward's steps against the tp phase's one rank
                ("pp_forward", FORWARD_LOGIT_BOUND and FORWARD_TOP1_MIN), a
                32-row decode step whose decode launches every stage counts
-               (4 microbatches x 2 layers: "pp_step"), then served over HTTP;
+               (4 microbatches x 1 layer: "pp_step"), then served over HTTP;
                the f32 copy of RANK_LLAMA's greedy tokens at pp 2 against
                pp 1 ("pp_f32_tokens"); qwen2.5-7b from its directory at pp
                2, each stage's bytes read equal to its 2 layers and the
@@ -312,7 +312,7 @@ non-zero exit (nothing is caught):
                version; "pp_ranks" lines give each rank's device bytes,
                relays (calls, bytes, seconds) and collective share.
 5j. sp     -- after the pp runs: RANK_LLAMA (llama-3.2-1b at full
-               width, 4 of its 16 layers, as 5b, 5c and 5i run it),
+               width, 2 of its 16 layers, as 5b, 5c and 5i run it),
                max_model_len 16,384 and prefill_chunk 2,048, at sp 2 and
                at sp 2 x tp 2, every rank a gloo process on the one card:
                each engine's logits of an 8,191-token row in four chunks
@@ -381,7 +381,7 @@ non-zero exit (nothing is caught):
                plain version (the [tp4kh2] rows); an f32 copy of the shape
                (a seeded preset) giving tp 1's greedy tokens at tp 4
                ("shared_heads_f32_tokens"). The directory is deleted after.
-5m. multihost -- after the sp runs: multi-host serving, two host
+5m. multihost -- after the sp_compose runs: multi-host serving, two host
                processes (each the port's api_server.serve with its
                --distributed-process-id) on the one card over gloo,
                RANK_LLAMA at dp 2 x tp 2 (two ranks a host) and pp 2 (one
@@ -403,6 +403,24 @@ non-zero exit (nothing is caught):
                process, flips only at near-ties, and at pp 2 the follower
                host's processes killed: the leader must exit 13
                ("multihost_f32_tokens").
+5o. sp_compose -- after the sp runs: RANK_LLAMA served at dp 2 x sp 2 and
+               pp 2 x sp 2 (four gloo ranks on the one card), and at sp 2
+               and pp 2 with speculative_k 4, each behind the port's
+               router (a greedy request straight to the server and through
+               the router give the same text; a "router" line): each
+               server's logits of the sp phase's 8,191-token row and 32
+               decode steps against one rank's on the base model
+               ("sp_compose_forward"); on the spec servers step_spec's
+               tokens against the server's own step_multi greedy tokens,
+               flips only at near-ties, round 1 accepting planted drafts
+               ("spec_greedy"); every rank's launches, no plain version,
+               the replicas' digests. The decode kernel on every rank of
+               the dp 2 x sp 2 and pp 2 x sp 2 servers ([dp2sp2],
+               [pp2sp2]); the prefill kernel at the verify shape on each
+               stage's pool on the pp 2 spec server ([pp2verify]); no
+               kernel on the sp 2 spec server (its chunks and verify
+               rounds go through the ring, as in the JAX forward). A
+               "phase_seconds" line per server.
 6. timing   -- each kernel row (three fp, three int8, at llama-3.2-1b's,
                qwen2.5-7b's and gemma-2-2b's shapes), its plain version and
                a PyTorch yardstick, with CUDA events, beside its bound (the
@@ -426,7 +444,11 @@ non-zero exit (nothing is caught):
                [sp2tp2]); Qwen2.5-1.5B's tp 4 rank's decode and prefill
                ([tp4kh2]); mixtral-8x7b's pp 2 x ep 2 stage rank's decode
                and prefill ([pp2ep2]) and sp 2 x ep 2 sequence rank's
-               decode ([sp2ep2]); the prefill
+               decode ([sp2ep2]); a dp 2 x sp 2 rank's decode (16 x
+               1,024 on the 2-layer pool, [dp2sp2]), a pp 2 x sp 2 stage
+               rank's (one 8-row microbatch on the 1-layer stage pool,
+               [pp2sp2]) and the verify shape on a stage's pool (8 x 5
+               after 1,024, [pp2verify]); the prefill
                kernel at step_spec's verify shape (T = 5: llama-3.2-1b's
                32 x 1,024, the [verify] row; gemma-2-2b's 8 x 4,096 on a
                sliding and a global layer, as lines of their own).
@@ -443,7 +465,10 @@ and [pp2tp2] rows from RANK_LLAMA's pp 2 and pp 2 x tp 2 servers' ranks;
 the [sp2] and [sp2tp2] rows from llama-3.2-1b's sp 2 and sp 2 x tp 2
 servers' ranks; the [tp4kh2] rows from the Qwen2.5-1.5B tp 4 server's
 four ranks, the [pp2ep2] and [sp2ep2] rows from mixtral's pp 2 x ep 2 and
-sp 2 x ep 2 servers' ranks
+sp 2 x ep 2 servers' ranks; the [dp2sp2] and [pp2sp2] rows from
+RANK_LLAMA's dp 2 x sp 2 and pp 2 x sp 2 servers' ranks, the [pp2verify]
+row from the pp 2 spec server's verify rounds (every stage's launches
+inside step_spec, runner.rank_stats' "verify_launches")
 (qwen2.5-7b's pp 2 server books to the [d128] rows, every stage's chunk
 writes to the kv_page_write rows of its heads); the
 [verify] row from the spec server's verify rounds, L a round;
@@ -557,14 +582,16 @@ def _pptag(name: str, pp: int, tp: int, ep: int = 1) -> str:
     return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
 
 
-def _sptag(name: str, sp: int, tp: int, ep: int = 1) -> str:
+def _sptag(name: str, sp: int, tp: int, ep: int = 1, dp: int = 1, pp: int = 1) -> str:
     """A kernel row's name at a sequence-parallel rank (sp 1 keeps the
     name): decode_attention at sp 2 -> decode_attention[sp2], at sp 2 x tp 2
     -> decode_attention[sp2tp2], decode_attention[d128] at sp 2 x ep 2 ->
-    decode_attention[d128,sp2ep2]."""
+    decode_attention[d128,sp2ep2], beside dp or pp ranks
+    decode_attention[dp2sp2] and decode_attention[pp2sp2]."""
     if sp == 1:
         return name
-    tag = f"sp{sp}" + (f"ep{ep}" if ep > 1 else "") + (f"tp{tp}" if tp > 1 else "")
+    tag = (f"pp{pp}" if pp > 1 else "") + (f"dp{dp}" if dp > 1 else "") + f"sp{sp}" + (f"ep{ep}" if ep > 1 else "") \
+        + (f"tp{tp}" if tp > 1 else "")
     return name[:-1] + f",{tag}]" if name.endswith("]") else name + f"[{tag}]"
 
 
@@ -642,6 +669,20 @@ SP_EP_ROWS = {_sptag(_dtag("decode_attention", 128), 2, 1, 2): "decode_attention
 for _row, _base in {**KH_ROWS, **PP_EP_ROWS, **SP_EP_ROWS}.items():
     REPLACES[_row] = SHARDED_DECODE if _base.startswith("decode") else _BASE_REPLACES[_base]
     SOURCES[_row] = _BASE_SOURCES[_base]
+# sequence ranks beside dp and pp ranks (phase_sp_compose): a dp 2 x sp 2
+# rank's decode (its dp replica's rows over its sp replica of the pool)
+# and a pp 2 x sp 2 stage rank's (one microbatch over its sp replica of
+# the stage's pool), the sharded decode on both mappings; and the prefill
+# kernel at step_spec's verify shape on a stage's pool, the pp 2 spec
+# server's verify rounds (the JAX pipeline keeps its XLA attention there)
+DP_SP_ROW = _sptag("decode_attention", 2, 1, dp=2)
+PP_SP_ROW = _sptag("decode_attention", 2, 1, pp=2)
+VERIFY_PP_ROW = "prefill_attention[pp2verify]"
+for _row in (DP_SP_ROW, PP_SP_ROW):
+    REPLACES[_row] = SHARDED_DECODE
+    SOURCES[_row] = _BASE_SOURCES["decode_attention"]
+REPLACES[VERIFY_PP_ROW] = _BASE_REPLACES["prefill_attention"]
+SOURCES[VERIFY_PP_ROW] = _BASE_SOURCES["prefill_attention"]
 
 
 def emit(obj: dict) -> None:
@@ -945,6 +986,18 @@ PP_EP_DECODE = "pp2ep2_mixtral_mb8_ctx1024_stage_l2_bf16"
 PP_EP_PREFILL = "pp2ep2_mixtral_t512_h1536_stage_l2_bf16"
 SP_EP_MIXTRAL = dict(MIXTRAL, sp=2, ep=2)
 SP_EP_DECODE = "sp2ep2_mixtral_b1_ctx4104_c8_bf16"
+# a dp 2 x sp 2 rank: its dp replica's 16 of a 32-row burst step after
+# 1,024 tokens, all heads, over its sp replica of RANK_LLAMA's 2-layer
+# pool; a pp 2 x sp 2 stage rank: one 8-row microbatch of a 32-row step
+# (the token's K/V beside the pool, C = 1) over its sp replica of the
+# stage's 1-layer pool; the verify forward on a stage: the prefill kernel
+# at T = 1 + k = 5 after 1,024 tokens, an 8-row microbatch, on the stage's
+# 1-layer pool
+DP_SP_LLAMA = dict(NH=32, KH=8, D=64, dp=2, sp=2)
+PP_SP_LLAMA = dict(NH=32, KH=8, D=64, pp=2, sp=2)
+DP_SP_DECODE = "dp2sp2_llama_b16_ctx1024_c8_l2_bf16"
+PP_SP_DECODE = "pp2sp2_llama_mb8_ctx1024_stage_l1_bf16"
+VERIFY_PP_LLAMA = "verify_pp2_llama_mb8_t5_h1024_stage_l1_bf16"
 PP_CASES = {(1, "decode_attention"): PP_DECODE, (2, "decode_attention"): PP_TP_DECODE,
             (1, "prefill_attention"): PP_PREFILL, (2, "prefill_attention"): PP_TP_PREFILL}
 # step_spec's verify forward: the prefill kernel at T = 1 + k = 5 (k = 4)
@@ -963,6 +1016,7 @@ CONTROLLED = {MAIN_DECODE, MAIN_PREFILL, GEMMA_DECODE, GEMMA_PREFILL, QWEN_DECOD
               DP_DECODE, DP_MIXTRAL_DECODE, VERIFY_LLAMA, VERIFY_GEMMA_SLIDING, VERIFY_GEMMA_GLOBAL, EP_DECODE, EP_PREFILL,
               KH_DECODE, KH_PREFILL}
 CONTROLLED |= {INT8 + n for n in CONTROLLED} | set(PP_CASES.values()) | {PP_EP_DECODE, PP_EP_PREFILL}
+CONTROLLED |= {DP_SP_DECODE, PP_SP_DECODE, VERIFY_PP_LLAMA}
 # D = 256 with q x 20: scores of std ~27 before the cap, so most keys that
 # carry a row's softmax sit where tanh bends (|s| / 50 ~ 0.3-1.5); held to
 # TOL_CAPPED
@@ -1162,6 +1216,20 @@ DECODE_CASES += [
     # mixtral-8x7b's sp 2 x ep 2 sequence rank: the long prompt's last step
     (SP_EP_DECODE, dict(SP_EP_MIXTRAL, seed=44, B=1, page=64, maxp=65, L=4, layer=3, lens=[4104], C=8,
                         cur_lens=[8], dtype="bfloat16")),
+    # sequence ranks beside dp and pp ranks: a dp 2 x sp 2 rank's burst step
+    # and a pp 2 x sp 2 stage rank's microbatch (the timing phase's inputs),
+    # and ragged rows with an empty one and NaN past each row's history on
+    # each mapping's last layer
+    (DP_SP_DECODE, dict(DP_SP_LLAMA, seed=47, B=16, page=64, maxp=16, L=2, layer=1, lens=[1024] * 16, C=8,
+                        cur_lens=[8] * 16, dtype="bfloat16")),
+    ("dp2sp2_llama_ragged_burst_nan_bf16", dict(DP_SP_LLAMA, B=4, page=64, maxp=24, L=2, layer=1,
+                                                lens=[0, 30, 1500, 900], C=8, cur_lens=[0, 3, 5, 8], poison=True,
+                                                dtype="bfloat16")),
+    (PP_SP_DECODE, dict(PP_SP_LLAMA, seed=48, B=8, page=64, maxp=16, L=1, layer=0, lens=[1024] * 8, C=1,
+                        cur_lens=[1] * 8, dtype="bfloat16")),
+    ("pp2sp2_llama_ragged_stage_layer_nan_bf16", dict(PP_SP_LLAMA, B=4, page=64, maxp=24, L=1, layer=0,
+                                                           lens=[0, 30, 1500, 900], C=1, cur_lens=[0, 1, 1, 1],
+                                                           poison=True, dtype="bfloat16")),
 ]
 
 PREFILL_CASES = [
@@ -1321,6 +1389,16 @@ PREFILL_CASES += [
                                 chunks=[1 + VERIFY_K] * 8, window=GEMMA_WINDOW, dtype="bfloat16")),
     (VERIFY_GEMMA_GLOBAL, dict(GEMMA, seed=32, B=8, T=1 + VERIFY_K, page=64, maxp=65, L=1, computed=[4096] * 8,
                                chunks=[1 + VERIFY_K] * 8, dtype="bfloat16")),
+    # the verify forward on a pipeline stage: an 8-row microbatch on the
+    # stage's 1-layer pool (the timing phase's inputs), and ragged rows, one
+    # inactive, on a 2-layer stage pool's first layer (pp 2 of a deeper
+    # model) with NaN past each row's history
+    (VERIFY_PP_LLAMA, dict(seed=49, row=VERIFY_PP_ROW, B=8, T=1 + VERIFY_K, NH=32, KH=8, D=64, page=64, maxp=17,
+                           L=1, layer=0, computed=[1024] * 8, chunks=[1 + VERIFY_K] * 8, dtype="bfloat16")),
+    ("verify_pp2_llama_ragged_inactive_row_stage_nan_bf16",
+     dict(row=VERIFY_PP_ROW, B=4, T=1 + VERIFY_K, NH=32, KH=8, D=64, page=16, maxp=8, L=2, layer=0,
+          computed=[37, 0, 100, 11], chunks=[1 + VERIFY_K, 0, 1 + VERIFY_K, 1 + VERIFY_K], poison=True,
+          dtype="bfloat16")),
 ]
 
 # the chunk's KV write in the prefill launch, against the writes' plain
@@ -1359,7 +1437,7 @@ def _kernel_name(base: str, quant: bool, D: int = 64, tp: int = 1, dp: int = 1, 
                  sp: int = 1, kh: "int | None" = None) -> str:
     name = _dtag(base + "[int8]" if quant else base, D)
     if sp > 1:
-        return _sptag(name, sp, tp, ep)
+        return _sptag(name, sp, tp, ep, dp, pp)
     if pp > 1:
         return _pptag(name, pp, tp, ep)
     return _dptag(_eptag(name, ep, tp) if ep > 1 else _tptag(name, tp, kh), dp)
@@ -2382,9 +2460,12 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     result the serve line carries under "extra". With ``speculative_k`` the
     decode dispatches are verify rounds: the decode kernel must not run, and
     the prefill kernel must have run L times per prefill step and per verify
-    round (engine.spec_verify_forwards), exactly. Returns the launch counts
-    of the main path, summed over the ranks (a spec server's verify
-    launches under VERIFY_ROW, apart from its chunks')."""
+    round (engine.spec_verify_forwards), exactly; on pipeline stages L a
+    microbatch (between 1 and 2 pp microbatches a step, summed over the
+    stages); at sp never (chunks and rounds go through the ring). Returns
+    the launch counts of the main path, summed over the ranks (a spec
+    server's verify launches, runner.rank_stats' "verify_launches", under
+    VERIFY_ROW, apart from its chunks')."""
     import socket
 
     import torch
@@ -2403,8 +2484,12 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     pp, sp = cfg.pipeline_parallel_size, cfg.sequence_parallel_size
     spec = cfg.speculative_k > 0
     ranks = pp * dp * sp * ep * tp
-    # at sp a chunk goes through the ring: the decode kernel is a rank's only one
+    # at sp a chunk goes through the ring: the decode kernel is a rank's
+    # only one; with speculative_k no decode kernel runs (the verify rounds
+    # take the prefill kernel, at sp the ring)
     want = ("decode_attention",) if sp > 1 else SERVE_ROWS[quant]
+    if spec:
+        want = tuple(k for k in want if k != "decode_attention")
     sp_prompt = sp_prompt or SP_PROMPT
     long_prompt = GEMMA_LONG_PROMPT if gemma else sp_prompt - 1 if sp > 1 else 0
     kernels, plains = _counters()
@@ -2420,6 +2505,7 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             # (on every rank with dp or tp ranks)
             if ranks > 1:
                 server.engine.runner.rank_stats(reset=True)
+            server.engine.runner.verify_launches = 0
             for fn, attr in kernels.values():
                 setattr(fn, attr, 0)
             for fn in plains.values():
@@ -2446,6 +2532,7 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
                 rows = _rank_rows(server.engine.runner.rank_stats())
                 res["launches_by_rank"] = [{k: int(r[k]) for k in kernels} for r in rows]
                 res["launches"] = {k: sum(r[k] for r in res["launches_by_rank"]) for k in kernels}
+                res["verify_launches"] = int(sum(r["verify_launches"] for r in rows))
                 res["plain_calls"] = {k: int(sum(r[k] for r in rows)) for k in plains}
                 res["tp_ranks"] = [
                     {"rank": i, "device": dev,
@@ -2471,6 +2558,7 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
             else:
                 res["launches"] = {k: getattr(fn, attr) for k, (fn, attr) in kernels.items()}
                 res["plain_calls"] = {k: fn.calls for k, fn in plains.items()}
+                res["verify_launches"] = server.engine.runner.verify_launches
             if prepare is not None:
                 res["prepare"] = res_prepare
             keep = ["prompt_tokens_total", "generation_tokens_total", "decode_dispatches_total",
@@ -2526,16 +2614,27 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
         check(max(res["prompt_tokens"]) > GEMMA_WINDOW, f"{what}: no prompt ran past the sliding window")
     if spec:
         # every decode dispatch is verify rounds through the prefill kernel:
-        # L launches per prefill step and per round, the decode kernel none
+        # L launches per prefill step and per round, the decode kernel none;
+        # on pipeline stages L a microbatch (1 to 2 pp microbatches a step,
+        # summed over the stages); at sp none (chunks and rounds go
+        # through the ring)
         L = res["num_layers"]
         rounds = res["verify_forwards"]
         prefill_steps = res["runner_steps"] - rounds // cfg.decode_steps
-        n = res["launches"]["prefill_attention"]
+        n, v = res["launches"]["prefill_attention"], res["verify_launches"]
         check(rounds > 0, f"{what}: no verify round ran")
         check(res["launches"]["decode_attention"] == 0,
               f"{what}: a spec server ran the decode kernel {res['launches']['decode_attention']} times")
-        check(n >= L * rounds + L and n == L * (prefill_steps + rounds),
-              f"{what}: {n} prefill launches for {rounds} verify rounds and {prefill_steps} prefill steps of {L} layers")
+        launched = f"{n} prefill launches ({v} verify) for {rounds} verify rounds and {prefill_steps} prefill steps"
+        if sp > 1:
+            check(n == v == 0, f"{what}: {launched} at sp")
+        elif pp > 1:
+            m = 2 * pp  # parallel/pipeline.microbatches' most
+            check(L * rounds <= v <= m * L * rounds and L * prefill_steps <= n - v <= m * L * prefill_steps,
+                  f"{what}: {launched} of {L} layers over {pp} stages")
+        else:
+            check(n >= L * rounds + L and n == L * (prefill_steps + rounds) and v == L * rounds,
+                  f"{what}: {launched} of {L} layers")
     for k in want:
         if spec and k == "decode_attention":
             continue  # checked to be 0 above
@@ -2554,9 +2653,8 @@ def phase_serve(label: str, overrides: dict, sleep_level: int = 0, lora: tuple =
     torch.cuda.empty_cache()
     launches = dict(res["launches"])
     if spec:
-        verify = res["num_layers"] * res["verify_forwards"]
-        launches[VERIFY_ROW] = verify
-        launches["prefill_attention"] -= verify
+        launches[VERIFY_ROW] = res["verify_launches"]
+        launches["prefill_attention"] -= res["verify_launches"]
     return launches
 
 
@@ -2740,6 +2838,84 @@ def phase_lone_unchained(ids: list) -> None:
           "chained: the lone greedy request at decode_pipeline 4 differs from decode_pipeline 1")
 
 
+# step_spec held to step_multi's greedy tokens on one runner: SPEC_ROWS
+# rows of SPEC_PROMPT tokens that repeat 3-grams, SPEC_PAGES pages of 64 a
+# row, an n-gram of SPEC_NGRAM
+SPEC_ROWS, SPEC_PROMPT, SPEC_NGRAM, SPEC_PAGES = 4, 192, 3, 8
+
+
+def _spec_vs_greedy(r, vocab: int, rounds: int) -> tuple:
+    """On runner ``r`` (every rank): SPEC_ROWS prompts that repeat 3-grams
+    (rows 0 and 1 stop repeating halfway, so their trailing n-gram occurs
+    only where it is planted), step_multi's greedy tokens with their top-2
+    logprob margins, then from the same prefill step_spec (``rounds``
+    rounds, k SPEC_K, n SPEC_NGRAM) with rows 0 and 1's history carrying
+    their next SPEC_K greedy tokens after an earlier copy of their trailing
+    n-gram, so round 1 accepts them. Returns (spec tokens, a summary with
+    the flips and the reference's margin at each, prefill(), which
+    reprefills and returns the sampled first tokens, and decode_input(first,
+    limit))."""
+    import numpy as np
+
+    from production_stack_tpu_torch.engine.runner import StepInput
+
+    B, T, n = SPEC_ROWS, SPEC_PROMPT, SPEC_NGRAM
+    rng = np.random.RandomState(21)
+    prompts = np.stack([np.tile(rng.randint(1, vocab, 3), T)[:T] for _ in range(B)]).astype(np.int32)
+    prompts[:2, T // 2:] = rng.randint(1, vocab, (2, T - T // 2))
+    common = dict(page_table=np.arange(B * SPEC_PAGES, dtype=np.int32).reshape(B, SPEC_PAGES),
+                  temperature=np.zeros(B, np.float32), top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32))
+    total = rounds * (SPEC_K + 1)
+
+    def prefill():
+        r.reset_kv()
+        ids, _ = r.step(StepInput(input_ids=prompts, positions=np.tile(np.arange(T, dtype=np.int32), (B, 1)),
+                                  kv_lens=np.full(B, T, np.int32), **common), want_logits=False)
+        return ids.cpu().numpy()
+
+    def decode_input(first, limit):
+        return StepInput(input_ids=first[:, None].astype(np.int32), positions=np.full((B, 1), T, np.int32),
+                         kv_lens=np.full(B, T + 1, np.int32), kv_limits=np.full(B, limit, np.int32), **common)
+
+    first = prefill()
+    ref, (_, _, top_lp) = r.step_multi(decode_input(first, T + total), total, want_logprobs=True)
+    ref, margin = ref.cpu().numpy(), (top_lp[..., 0] - top_lp[..., 1]).cpu().numpy()
+    hist = np.zeros((B, SPEC_PAGES * 64), np.int32)
+    hist[:, :T], hist[:, T] = prompts, first
+    hist[:2, 20: 20 + n] = np.concatenate([prompts[:2, T - 2:], first[:2, None]], axis=1)
+    hist[:2, 20 + n: 20 + n + SPEC_K] = ref[:2, :SPEC_K]
+    prefill()
+    spec = r.step_spec(decode_input(first, SPEC_PAGES * 64), hist, steps=rounds, spec_k=SPEC_K, ngram=n)
+    spec = spec.cpu().numpy()
+    equal, flips = 0, []
+    for b in range(B):
+        got = spec[b][spec[b] >= 0]
+        j = next((j for j, (x, y) in enumerate(zip(got, ref[b])) if x != y), len(got))
+        equal += j
+        if j < len(got):
+            flips.append({"row": b, "token": j, "reference_top2_margin": float(margin[b, j])})
+    emitted = spec >= 0
+    row_rounds = int(emitted.any(axis=2).sum())
+    accepted = int(emitted.sum()) - row_rounds
+    summary = {"steps": rounds, "k": SPEC_K, "ngram": n, "tokens_equal_before_a_flip": equal,
+               "emitted": int(emitted.sum()), "flips": flips, "draft_tokens": row_rounds * SPEC_K,
+               "accepted_tokens": accepted, "acceptance_rate": round(accepted / max(1, row_rounds * SPEC_K), 4),
+               "tokens_per_verify_forward": round(int(emitted.sum()) / max(1, row_rounds), 4)}
+    return spec, summary, prefill, decode_input
+
+
+def _check_spec(phase: str, spec, summary: dict, near_tie: float) -> None:
+    """A token that differs from greedy's sits at a near tie (the
+    reference's two best logprobs within ``near_tie``); rows 0 and 1's
+    round 1 accepted their planted drafts, unless a near-tie flip came
+    first."""
+    for f in summary["flips"]:
+        check(f["reference_top2_margin"] <= near_tie, f"{phase}: a token flipped away from a near-tie: {f}")
+    for b in range(2):
+        flipped = any(f["row"] == b and f["token"] <= SPEC_K for f in summary["flips"])
+        check(flipped or (spec[b][0] >= 0).all(), f"{phase}: row {b}'s round 1 did not accept its planted drafts")
+
+
 def phase_spec_chain() -> None:
     """An f32 copy of llama-3.2-1b at full width and depth (as
     phase_f32_tokens makes it), four rows whose prompts repeat 3-grams,
@@ -2757,7 +2933,7 @@ def phase_spec_chain() -> None:
 
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import LLMEngine
-    from production_stack_tpu_torch.engine.runner import HostTokens, StepInput
+    from production_stack_tpu_torch.engine.runner import HostTokens
     from production_stack_tpu_torch.models import llama
 
     name = "llama-3.2-1b-f32"
@@ -2767,50 +2943,13 @@ def phase_spec_chain() -> None:
     _, plains = _counters()
     for fn in plains.values():
         fn.calls = 0
-    B, T, steps, n, burst, bursts = 4, 192, 8, 3, 8, 4
-    vocab = llama.PRESETS[name].vocab_size
-    rng = np.random.RandomState(21)
-    prompts = np.stack([np.tile(rng.randint(1, vocab, 3), T)[:T] for _ in range(B)]).astype(np.int32)
-    # rows 0 and 1 stop repeating halfway, so their trailing 3-gram occurs
-    # only where it is planted below
-    prompts[:2, T // 2:] = rng.randint(1, vocab, (2, T - T // 2))
-    common = dict(page_table=np.arange(B * 8, dtype=np.int32).reshape(B, 8), temperature=np.zeros(B, np.float32),
-                  top_k=np.zeros(B, np.int32), top_p=np.ones(B, np.float32))
-    total = steps * (SPEC_K + 1)
-
-    def prefill():
-        r.reset_kv()
-        ids, _ = r.step(StepInput(input_ids=prompts, positions=np.tile(np.arange(T, dtype=np.int32), (B, 1)),
-                                  kv_lens=np.full(B, T, np.int32), **common), want_logits=False)
-        return ids.cpu().numpy()
-
-    def decode_input(first, limit):
-        return StepInput(input_ids=first[:, None].astype(np.int32), positions=np.full((B, 1), T, np.int32),
-                         kv_lens=np.full(B, T + 1, np.int32), kv_limits=np.full(B, limit, np.int32), **common)
-
+    steps, burst, bursts = 8, 8, 4
+    T = SPEC_PROMPT
     t0 = time.perf_counter()
     try:
-        first = prefill()
-        ref, (_, _, top_lp) = r.step_multi(decode_input(first, T + total), total, want_logprobs=True)
-        ref, margin = ref.cpu().numpy(), (top_lp[..., 0] - top_lp[..., 1]).cpu().numpy()
-        hist = np.zeros((B, 512), np.int32)
-        hist[:, :T], hist[:, T] = prompts, first
-        hist[:2, 20: 20 + n] = np.concatenate([prompts[:2, T - 2:], first[:2, None]], axis=1)
-        hist[:2, 20 + n: 20 + n + SPEC_K] = ref[:2, :SPEC_K]
-        prefill()
-        spec = r.step_spec(decode_input(first, 8 * 64), hist, steps=steps, spec_k=SPEC_K, ngram=n).cpu().numpy()
-        equal, flips = 0, []
-        for b in range(B):
-            got = spec[b][spec[b] >= 0]
-            j = next((j for j, (x, y) in enumerate(zip(got, ref[b])) if x != y), len(got))
-            equal += j
-            if j < len(got):
-                flips.append({"row": b, "token": j, "reference_top2_margin": float(margin[b, j])})
-        emitted = spec >= 0
-        row_rounds = int(emitted.any(axis=2).sum())
-        accepted = int(emitted.sum()) - row_rounds
+        spec, summary, prefill, decode_input = _spec_vs_greedy(r, llama.PRESETS[name].vocab_size, steps)
         # the chain against separate bursts, from the same prefill
-        prefill()
+        first = prefill()
         groups = r.step_multi_pipelined(decode_input(first, T + bursts * burst), burst, bursts, fetch_group=4)
         check(len(groups) == 1 and isinstance(groups[0], HostTokens), f"spec_chain: groups {groups}")
         chained = groups[0].numpy()
@@ -2830,22 +2969,14 @@ def phase_spec_chain() -> None:
         del engine, r
         gc.collect()
         torch.cuda.empty_cache()
-    line = {"phase": "spec_chain", "model": name, "rows": B, "prompt_tokens": T,
-            "spec": {"steps": steps, "k": SPEC_K, "ngram": n, "tokens_equal_before_a_flip": equal,
-                     "emitted": int(emitted.sum()), "flips": flips, "near_tie": TP_NEAR_TIE,
-                     "draft_tokens": row_rounds * SPEC_K, "accepted_tokens": accepted,
-                     "acceptance_rate": round(accepted / max(1, row_rounds * SPEC_K), 4),
-                     "tokens_per_verify_forward": round(int(emitted.sum()) / max(1, row_rounds), 4)},
+    line = {"phase": "spec_chain", "model": name, "rows": SPEC_ROWS, "prompt_tokens": T,
+            "spec": dict(summary, near_tie=TP_NEAR_TIE),
             "chain": {"bursts": bursts, "k": burst, "fetch_group": 4,
                       "tokens_equal": bool((chained == np.concatenate(sep, axis=1)).all()),
                       "pools_byte_identical": pools_same},
             "plain_calls": plain, "seconds": round(time.perf_counter() - t0, 2), "card": nvidia_smi_line()}
     emit(line)
-    for f in flips:
-        check(f["reference_top2_margin"] <= TP_NEAR_TIE, f"spec_chain: a token flipped away from a near-tie: {f}")
-    for b in range(2):  # round 1 accepts the planted drafts, unless a near-tie flip came first
-        flipped = any(f["row"] == b and f["token"] <= SPEC_K for f in flips)
-        check(flipped or (spec[b][0] >= 0).all(), f"spec_chain: row {b}'s round 1 did not accept its planted drafts")
+    _check_spec("spec_chain", spec, summary, TP_NEAR_TIE)
     check(line["chain"]["tokens_equal"] and pools_same, f"spec_chain: the chain differs: {line['chain']}")
     check(not any(plain.values()), f"spec_chain: a plain version ran: {plain}")
 
@@ -2859,8 +2990,10 @@ TP2 = dict(tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
 # cut to RANK_LAYERS of its 16 layers (_rank_llama registers the preset):
 # the host-staged collectives cost per layer, and the smoke, grown by the
 # ep and pp phases, must stay well inside its time limit (a whole call
-# took 927.75 s on one H100 80GB HBM3 at 700 W with 8 layers here)
-RANK_LAYERS = 4
+# took 927.75 s on one H100 80GB HBM3 at 700 W with 8 layers here, and
+# 1,333.09 s with 4 once the sp_compose phase came, on a card whose
+# untouched phases ran ~1.2x the last 997.68 s call's: 2 since)
+RANK_LAYERS = 2
 RANK_LLAMA = f"llama-3.2-1b-l{RANK_LAYERS}"
 TP_SERVE_LLAMA_INT8 = dict(model=RANK_LLAMA, **INT8_SERVE, **TP2)
 # in-engine data parallelism on the one card, the same way: dp 2 (two
@@ -3501,6 +3634,13 @@ def phase_timing() -> dict:
             PP_EP_PREFILL, False)[0]
     for row in SP_EP_ROWS:
         rows[row] = _decode_timing(SP_EP_DECODE, False)
+    # sequence ranks beside dp and pp ranks: a dp 2 x sp 2 rank's burst
+    # step, a pp 2 x sp 2 stage rank's microbatch, and the verify forward
+    # on a stage's pool (pp 2 with speculative_k)
+    rows[DP_SP_ROW] = _decode_timing(DP_SP_DECODE, False)
+    rows[PP_SP_ROW] = _decode_timing(PP_SP_DECODE, False)
+    row, fused = _prefill_timing(VERIFY_PP_LLAMA, False)
+    rows[VERIFY_PP_ROW] = dict(row, fused_ms=fused["fused_ms"])
     # step_spec's verify forward (llama-3.2-1b's heads; gemma-2-2b's below)
     row, fused = _prefill_timing(VERIFY_LLAMA, False)
     rows[VERIFY_ROW] = dict(row, fused_ms=fused["fused_ms"])
@@ -4053,7 +4193,7 @@ QWEN_PP_SAMPLES = QWEN_SAMPLES + (
 def _pp_step_launches(engine) -> dict:
     """One decode step of PP_STEP_ROWS rows on fresh pools through every
     stage: each stage's decode launches, which must be microbatches x its
-    layers (4 x 2 for RANK_LLAMA at pp 2, where pp 1 launches 4)."""
+    layers (4 x 1 for RANK_LLAMA at pp 2, where pp 1 launches 2)."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.runner import StepInput
@@ -4161,7 +4301,7 @@ def phase_pp_ranks(serve, ref: list) -> None:
 # numbers of these runs are functional, not an sp speed figure)
 SP2 = dict(sequence_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0")
 SP2_TP2 = dict(sequence_parallel_size=2, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
-# RANK_LLAMA (llama-3.2-1b at full width, 4 of its 16 layers, as the
+# RANK_LLAMA (llama-3.2-1b at full width, 2 of its 16 layers, as the
 # other rank phases, to keep the smoke inside its limit) on a long
 # prompt: 8,191 tokens in chunks of 2,048, the last of 2,047 (its padding
 # to a multiple of sp runs), then 32 decode steps; the default 4 GB pool
@@ -4171,43 +4311,55 @@ SP_STEPS = [f"prefill 1 x {SP_CHUNK} (x{SP_PROMPT // SP_CHUNK}), 1 x {SP_PROMPT 
             f"decode 1 x 1 (x{SP_DECODES})"]
 
 
-def _sp_inputs(vocab: int, lora: bool = False, prompt: int = SP_PROMPT, decodes: int = SP_DECODES) -> list:
+def _sp_inputs(vocab: int, lora: bool = False, prompt: int = SP_PROMPT, decodes: int = SP_DECODES,
+               rows: int = 1) -> list:
     """The runner's StepInputs of the sp forward's steps: one row of seeded
     ids, ``prompt`` tokens in chunks of SP_CHUNK, then ``decodes`` decode
     steps fed the seeded tokens (teacher forcing), on fresh pages; with
-    ``lora`` the row on adapter slot SP_LORA_SLOT."""
+    ``lora`` the row on adapter slot SP_LORA_SLOT. ``rows`` > 1 adds inert
+    rows after it (positions -1: they read and write nothing), as the
+    scheduler pads a batch to a multiple of data_parallel_size."""
     import numpy as np
 
     from production_stack_tpu_torch.engine.runner import StepInput
 
     n = prompt + decodes
-    ids = np.random.RandomState(6).randint(0, vocab, (1, n)).astype(np.int32)
-    common = dict(page_table=np.arange(-(-n // 64), dtype=np.int32)[None], temperature=np.zeros(1, np.float32),
-                  top_k=np.zeros(1, np.int32), top_p=np.ones(1, np.float32),
-                  lora_ids=np.array([SP_LORA_SLOT], np.int32) if lora else None)
+    ids = np.zeros((rows, n), np.int32)
+    ids[0] = np.random.RandomState(6).randint(0, vocab, n)
+    pt = np.zeros((rows, -(-n // 64)), np.int32)
+    pt[0] = np.arange(pt.shape[1])
+    common = dict(page_table=pt, temperature=np.zeros(rows, np.float32), top_k=np.zeros(rows, np.int32),
+                  top_p=np.ones(rows, np.float32),
+                  lora_ids=np.array([SP_LORA_SLOT] + [0] * (rows - 1), np.int32) if lora else None)
     steps = [(p, min(SP_CHUNK, prompt - p)) for p in range(0, prompt, SP_CHUNK)]
     steps += [(prompt + s, 1) for s in range(decodes)]
-    return [StepInput(input_ids=ids[:, p: p + t], positions=np.arange(p, p + t, dtype=np.int32)[None],
-                      kv_lens=np.array([p + t], np.int32), **common) for p, t in steps]
+
+    def pad(x, fill):
+        return np.concatenate([x, np.full((rows - 1, *x.shape[1:]), fill, x.dtype)])
+
+    return [StepInput(input_ids=ids[:, p: p + t], positions=pad(np.arange(p, p + t, dtype=np.int32)[None], -1),
+                      kv_lens=pad(np.array([p + t], np.int32), 0), **common) for p, t in steps]
 
 
 def _sp_logits(engine, costs: "dict | None" = None, lora: "bool | None" = None, prompt: int = SP_PROMPT,
                decodes: int = SP_DECODES) -> list:
     """The logits [1, V] of _sp_inputs' steps (``prompt`` tokens, then
     ``decodes`` steps) through the engine's runner (every rank), on the
-    CPU; the pools are reset after. With ``costs``, each rank's rank_stats
+    CPU, the row alone (under dp beside an inert row a replica); the pools
+    are reset after. With ``costs``, each rank's rank_stats
     over the prefill chunks and over the decode steps, and their wall
     seconds, go into it. On an engine that serves LoRA (unless ``lora`` is
     False) the row takes SP_LORA_SLOT."""
     runner = engine.runner
-    inps = _sp_inputs(engine.model_cfg.vocab_size, engine.lora is not None if lora is None else lora, prompt, decodes)
+    inps = _sp_inputs(engine.model_cfg.vocab_size, engine.lora is not None if lora is None else lora, prompt, decodes,
+                      rows=engine.data_parallel)
     chunks = len(inps) - decodes
     runner.reset_kv()
     runner.rank_stats(reset=True)
     out = []
     t0 = time.perf_counter()
     for i, inp in enumerate(inps):
-        out.append(runner.step(inp)[1].float().cpu())
+        out.append(runner.step(inp)[1][:1].float().cpu())
         if costs is not None and i == chunks - 1:
             costs["prefill"] = (time.perf_counter() - t0, _rank_rows(runner.rank_stats(reset=True)))
             t0 = time.perf_counter()
@@ -4217,19 +4369,27 @@ def _sp_logits(engine, costs: "dict | None" = None, lora: "bool | None" = None, 
     return out
 
 
-def _sp_reference() -> list:
+def _sp_reference() -> tuple:
     """One rank's logits of _sp_inputs (RANK_LLAMA's seeded weights, the
-    prefill kernel on every chunk), the row on SP_LORA_SLOT with
-    RANK_ADAPTERS loaded (_lora_reference)."""
+    prefill kernel on every chunk): the row on SP_LORA_SLOT with
+    RANK_ADAPTERS loaded (_lora_reference), and the same row on slot 0,
+    the base model's (phase_sp_compose's reference)."""
     import torch
 
     from production_stack_tpu_torch.engine.config import EngineConfig
     from production_stack_tpu_torch.engine.engine import LLMEngine
 
     engine = LLMEngine(EngineConfig(**SP_SERVE, **RANK_LORA))
+    base = []
+
+    def base_fn():
+        base.append(_sp_logits(engine, lora=False))
+        return base[0]
+
     try:
-        return _lora_reference(engine, RANK_LLAMA, RANK_ADAPTERS, lambda: _sp_logits(engine),
-                               lambda: _sp_logits(engine, lora=False), (SP_LORA_SLOT,))
+        ref = _lora_reference(engine, RANK_LLAMA, RANK_ADAPTERS, lambda: _sp_logits(engine), base_fn,
+                              (SP_LORA_SLOT,))
+        return ref, base[0]
     finally:
         engine.stop()
         del engine
@@ -4273,9 +4433,9 @@ async def _mesh_rows(port: int, ranks: int) -> dict:
     return {"mesh_devices": devices, "pool_rows": rows}
 
 
-def phase_sp_ranks(serve) -> None:
-    """Sequence parallelism on the one card: RANK_LLAMA (full width, 4
-    layers) at sp 2 and sp 2 x tp 2, each server's logits of an 8,191-token
+def phase_sp_ranks(serve) -> list:
+    """Sequence parallelism on the one card: RANK_LLAMA (full width,
+    RANK_LAYERS layers) at sp 2 and sp 2 x tp 2, each server's logits of an 8,191-token
     prompt in four chunks and 32 decode steps held to one rank's before the
     main path ("sp_forward"), with what the ranks moved in those steps
     ("sp_costs"); then its main path, whose first concurrent prompt is
@@ -4285,10 +4445,11 @@ def phase_sp_ranks(serve) -> None:
     launches (the decode kernel's and no other), the plain versions and the
     sp replicas' digests, and books the [sp2] and [sp2tp2] rows' launches.
     Then the f32 copy of RANK_LLAMA's greedy tokens at sp 2 against one
-    rank's ("sp_f32_tokens")."""
+    rank's ("sp_f32_tokens"). Returns one rank's logits of the same steps
+    on the base model (phase_sp_compose's reference)."""
     import torch
 
-    ref = _sp_reference()
+    ref, base = _sp_reference()
     chunks = SP_PROMPT // SP_CHUNK + 1
     for label, mesh, overrides in (("sp2", {"sp": 2}, SP2), ("sp2 x tp2", {"sp": 2, "tp": 2}, SP2_TP2)):
         gc.collect()
@@ -4311,6 +4472,130 @@ def phase_sp_ranks(serve) -> None:
         serve(f"{RANK_LLAMA}, {label}", dict(SP_SERVE, **overrides, **RANK_LORA), 64, 0,
               (RANK_ADAPTERS, False) if label == "sp2" else (), prepare)
     phase_f32_tokens("sp_f32_tokens", SP2, n_prompts=2, together=False)
+    return base
+
+
+# sequence ranks beside dp and pp ranks, and speculative decoding at sp
+# and at pp (phase_sp_compose): four servers of RANK_LLAMA, every rank a
+# gloo process on cuda:0. The first concurrent prompt of the sp servers'
+# main path is SP_COMPOSE_PROMPT tokens (two chunks of SP_CHUNK); the
+# logits check runs the sp phase's 8,191-token row
+DP2_SP2 = dict(data_parallel_size=2, sequence_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
+PP2_SP2 = dict(pipeline_parallel_size=2, sequence_parallel_size=2, tp_backend="gloo", tp_device_ids="0,0,0,0")
+SP_COMPOSE_RUNS = (
+    ("dp2 x sp2", {"dp": 2, "sp": 2}, DP2_SP2),
+    ("pp2 x sp2", {"pp": 2, "sp": 2}, PP2_SP2),
+    ("sp2, spec4", {"sp": 2}, dict(SP2, speculative_k=SPEC_K)),
+    ("pp2, spec4", {"pp": 2}, dict(PP2, speculative_k=SPEC_K)),
+)
+SP_COMPOSE_PROMPT = SP_CHUNK + 900
+# a spec server's step_spec against its own step_multi (_spec_vs_greedy):
+# a token that differs must sit where step_multi's two best logprobs are
+# within SPEC_NEAR_TIE: the verify forward (the prefill kernel, or at sp the
+# ring) and the decode kernel each hold bf16 logits within
+# FORWARD_LOGIT_BOUND of one plain forward, so their best tokens can part
+# only where the two best are that close twice over
+SPEC_ROUNDS = 6
+SPEC_NEAR_TIE = 2 * FORWARD_LOGIT_BOUND
+
+
+def _spec_greedy(engine, label: str) -> dict:
+    """_spec_vs_greedy on a spec server's runner (every rank; SPEC_ROUNDS
+    rounds): flips only at near-ties (SPEC_NEAR_TIE), round 1 accepting
+    the planted drafts, and every replica of a stage the same pools
+    after."""
+    t0 = time.perf_counter()
+    r = engine.runner
+    spec, summary, _, _ = _spec_vs_greedy(r, engine.model_cfg.vocab_size, SPEC_ROUNDS)
+    digests = [bytes(d).hex()[:16] for d in r.replica_digest()]
+    r.reset_kv()
+    _check_spec(f"spec_greedy[{label}]", spec, summary, SPEC_NEAR_TIE)
+    stage = len(digests) // engine.pipeline_parallel
+    check(all(len(set(digests[p * stage:(p + 1) * stage])) == 1 for p in range(engine.pipeline_parallel)),
+          f"spec_greedy[{label}]: the replicas' pools differ after step_spec: {digests}")
+    return dict(summary, rows=SPEC_ROWS, near_tie=SPEC_NEAR_TIE, replica_digests=digests,
+                seconds=round(time.perf_counter() - t0, 2))
+
+
+def _routed(label: str):
+    """``extra`` for a phase_sp_compose server: the port's router as a
+    subprocess in front of it, a greedy request straight to the server and
+    the same through the router (the same text), and the "router" line."""
+    async def run(server, port):
+        import aiohttp
+
+        loop = asyncio.get_running_loop()
+        rport = _free_port()
+        router, rlog = await asyncio.to_thread(
+            _start_router, rport, "--static-backends", f"http://127.0.0.1:{port}", "--static-models",
+            server.cfg.name, "--engine-stats-interval", "1")
+        base = f"http://127.0.0.1:{rport}"
+        body = {"model": server.cfg.name, "prompt": "Sequence ranks beside dp and pp ranks: ", "max_tokens": 16,
+                "temperature": 0.0, "ignore_eos": True}
+        rid = f"sp-compose-{label.replace(' ', '')}"
+        try:
+            await loop.run_in_executor(None, _wait_http, base + "/health", router, 120, "the router", rlog)
+            async with aiohttp.ClientSession(timeout=aiohttp.ClientTimeout(total=300)) as s:
+                async with s.post(f"http://127.0.0.1:{port}/v1/completions", json=body) as r:
+                    direct = (r.status, await r.json())
+                t0 = time.perf_counter()
+                async with s.post(base + "/v1/completions", json=body, headers={"X-Request-Id": rid}) as r:
+                    routed = (r.status, await r.json())
+                client = time.perf_counter() - t0
+                async with s.get(base + "/metrics") as r:
+                    metrics = await r.text()
+                async with s.get(f"http://127.0.0.1:{port}/slo_records?since=0") as r:
+                    slo = await r.json()
+        finally:
+            _stop_proc(router)
+        check(direct[0] == routed[0] == 200, f"sp_compose[{label}]: direct {direct[0]}, routed {routed[0]}")
+        same = direct[1]["choices"][0]["text"] == routed[1]["choices"][0]["text"]
+        check(same, f"sp_compose[{label}]: the routed answer differs from the direct one")
+        line = _router_line(f"sp_compose {label}", metrics, _first_records({"engine": slo}, [rid]), [],
+                            await asyncio.to_thread(nvidia_smi_line))
+        line["client_request_s"] = round(client, 4)
+        emit(line)
+        check(sum(line["routes"].values()) >= 1, f"sp_compose[{label}]: the router sent nothing: {line['routes']}")
+        return {"routed_text_equal": same, "routed_client_s": round(client, 4)}
+
+    return run
+
+
+def phase_sp_compose(serve, ref: list) -> None:
+    """Sequence ranks beside dp and pp ranks, and speculative decoding at
+    sp and at pp, on the one card: RANK_LLAMA served at dp 2 x sp 2, pp 2
+    x sp 2, sp 2 with speculative_k SPEC_K and pp 2 with it
+    (SP_COMPOSE_RUNS), each behind the port's router. Before each main
+    path its logits of the sp phase's 8,191-token row and 32 decode steps
+    are held to one rank's on the base model (``ref``, "sp_compose_forward":
+    FORWARD_LOGIT_BOUND, FORWARD_TOP1_MIN); a spec server's step_spec
+    tokens to its own step_multi's ("spec_greedy"). ``serve`` is main's:
+    it checks every rank's launches (the decode kernel on each rank of the
+    dp 2 x sp 2 and pp 2 x sp 2 servers; at pp 2 with spec the prefill
+    kernel and its write on every stage, its verify rounds L a microbatch;
+    at sp 2 with spec no kernel: chunks and verify rounds go through the
+    ring), the plain versions and the replicas' digests, and books the
+    [dp2sp2], [pp2sp2] and [pp2verify] rows' launches."""
+    import torch
+
+    for label, mesh, overrides in SP_COMPOSE_RUNS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        logits = _logits_check(ref, "sp_compose_forward", mesh, rows=1, model=RANK_LLAMA,
+                               logits_fn=lambda e: _sp_logits(e), steps=SP_STEPS)
+
+        def prepare(engine, logits=logits, label=label, spec="speculative_k" in overrides):
+            out = logits(engine)
+            if spec:
+                out["spec_greedy"] = _spec_greedy(engine, label)
+                emit({"phase": "spec_greedy", "model": RANK_LLAMA, "server": label, **out["spec_greedy"],
+                      "card": nvidia_smi_line()})
+            return out
+
+        serve(f"{RANK_LLAMA}, {label}", dict(SP_SERVE, **overrides), 64, 0, (), prepare, extra=_routed(label),
+              sp_prompt=SP_COMPOSE_PROMPT)
+        emit({"phase": "phase_seconds", "name": f"sp_compose {label}", "seconds": round(time.perf_counter() - t0, 2)})
 
 
 def phase_opt_int8_refused() -> None:
@@ -6268,11 +6553,14 @@ def book_launches(launches: dict, overrides: dict, counts: dict, D: int, kh: "in
             row = _pptag(k, pp, tp)  # a stage's microbatches on its pool: the [pp2] and [pp2tp2] rows
         if pp > 1 and ep > 1 and k != "kv_page_write":
             row = _pptag(_dtag(k, D), pp, tp, ep)  # a MoE stage's ep rank: the [pp2ep2] rows
+        if pp > 1 and k == VERIFY_ROW:
+            row = VERIFY_PP_ROW  # a stage's verify microbatches on its pool
         if sp > 1:
             if k != "decode_attention":
-                continue  # a chunk at sp goes through the ring
-            # every sequence rank's whole step: the [sp2], [sp2tp2] and [sp2ep2] rows
-            row = _sptag(_dtag(k, D), sp, tp, ep)
+                continue  # a chunk (and a verify forward) at sp goes through the ring
+            # every sequence rank's whole step: the [sp2], [sp2tp2] and
+            # [sp2ep2] rows, beside dp or pp ranks [dp2sp2] and [pp2sp2]
+            row = _sptag(_dtag(k, D), sp, tp, ep, dp, pp)
         launches[row] = launches.get(row, 0) + counts[k]
 
 
@@ -6391,8 +6679,12 @@ def main() -> int:
         clock("pp_ranks")
         # sequence parallelism: sp 2 and sp 2 x tp 2 on an 8,191-token
         # prompt, every rank a process on the one card over gloo
-        phase_sp_ranks(serve)
+        sp_ref = phase_sp_ranks(serve)
         clock("sp_ranks")
+        # sequence ranks beside dp and pp ranks, and speculative decoding
+        # at sp and pp: four servers behind the router
+        phase_sp_compose(serve, sp_ref)
+        clock("sp_compose")
         # multi-host serving: two host processes, each an api_server.serve
         # with its process id, at dp 2 x tp 2 and pp 2 on the one card
         phase_multihost(lambda overrides, counts: book_launches(launches, overrides, counts, 64), tp_ref)

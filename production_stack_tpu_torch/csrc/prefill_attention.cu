@@ -1171,6 +1171,50 @@ __global__ void __launch_bounds__(WARPS * 32, 1) prefill_attention_f32_kernel(
 
 }  // namespace
 
+// Build units. Without PST_UNIT the file is one unit. _build.py compiles it
+// as _build.UNITS["prefill_attention"] units at once (nvcc is
+// single-threaded, and the six bf16 kernels take most of its time):
+// PST_UNIT = 0 holds the launcher and the f32 kernels, PST_UNIT = 1..6 one
+// bf16 kernel each, behind a function of its own that the launcher calls;
+// the units link into one library.
+#define PST_MMA_PARAMS                                                                                       \
+  const void *q, const int *pos, void *kp, void *vp, float *ks, float *vs, const void *kc, const void *vc,   \
+      const int *pt, const int *lens, const int *cl, void *out, int B, int Tn, int NH, int KH, int P,        \
+      int page_size, int max_pages, int layer, int window, float sm_scale, float softcap, int fused_write,   \
+      cudaStream_t s
+#define PST_MMA_UNIT(D, NAME, KV)                                                                            \
+  cudaError_t pst_prefill_mma_##D##_##NAME(PST_MMA_PARAMS) {                                                 \
+    return launch_mma<D, KV>(q, pos, kp, vp, ks, vs, kc, vc, pt, lens, cl, out, B, Tn, NH, KH, P, page_size, \
+                             max_pages, layer, window, sm_scale, softcap, fused_write, s);                  \
+  }
+
+cudaError_t pst_prefill_mma_64_bf16(PST_MMA_PARAMS);
+cudaError_t pst_prefill_mma_64_int8(PST_MMA_PARAMS);
+cudaError_t pst_prefill_mma_128_bf16(PST_MMA_PARAMS);
+cudaError_t pst_prefill_mma_128_int8(PST_MMA_PARAMS);
+cudaError_t pst_prefill_mma_256_bf16(PST_MMA_PARAMS);
+cudaError_t pst_prefill_mma_256_int8(PST_MMA_PARAMS);
+
+#if !defined(PST_UNIT) || PST_UNIT == 1
+PST_MMA_UNIT(64, bf16, __nv_bfloat16)
+#endif
+#if !defined(PST_UNIT) || PST_UNIT == 2
+PST_MMA_UNIT(64, int8, int8_t)
+#endif
+#if !defined(PST_UNIT) || PST_UNIT == 3
+PST_MMA_UNIT(128, bf16, __nv_bfloat16)
+#endif
+#if !defined(PST_UNIT) || PST_UNIT == 4
+PST_MMA_UNIT(128, int8, int8_t)
+#endif
+#if !defined(PST_UNIT) || PST_UNIT == 5
+PST_MMA_UNIT(256, bf16, __nv_bfloat16)
+#endif
+#if !defined(PST_UNIT) || PST_UNIT == 6
+PST_MMA_UNIT(256, int8, int8_t)
+#endif
+
+#if !defined(PST_UNIT) || PST_UNIT == 0
 // dtype (of q, the chunk K/V and out): 0 = float32, 1 = bfloat16. kv_int8 =
 // 0: pools of that dtype (k_scales/v_scales ignored); 1: int8 pools with f32
 // scales [L, P, KH]. window: huge = full causal; softcap <= 0 = none. bf16
@@ -1193,14 +1237,16 @@ extern "C" int prefill_attention_launch(int dtype, int kv_int8, int head_dim, co
   float* ks = static_cast<float*>(k_scales);
   float* vs = static_cast<float*>(v_scales);
   const int G = NH / KH;
-  using bf16 = __nv_bfloat16;
   if (dtype == 1) {
     if (G > MMA_MAX_G) return (int)cudaErrorInvalidValue;
 #define PST_ARGS q, pos, k_pages, v_pages, ks, vs, k_cur, v_cur, pt, lens, cl, out, B, Tn, NH, KH, P, \
                  page_size, max_pages, layer, window, sm_scale, softcap, fused_write, s
-    if (head_dim == 64) return (int)(kv_int8 ? launch_mma<64, int8_t>(PST_ARGS) : launch_mma<64, bf16>(PST_ARGS));
-    if (head_dim == 128) return (int)(kv_int8 ? launch_mma<128, int8_t>(PST_ARGS) : launch_mma<128, bf16>(PST_ARGS));
-    if (head_dim == 256) return (int)(kv_int8 ? launch_mma<256, int8_t>(PST_ARGS) : launch_mma<256, bf16>(PST_ARGS));
+    if (head_dim == 64)
+      return (int)(kv_int8 ? pst_prefill_mma_64_int8(PST_ARGS) : pst_prefill_mma_64_bf16(PST_ARGS));
+    if (head_dim == 128)
+      return (int)(kv_int8 ? pst_prefill_mma_128_int8(PST_ARGS) : pst_prefill_mma_128_bf16(PST_ARGS));
+    if (head_dim == 256)
+      return (int)(kv_int8 ? pst_prefill_mma_256_int8(PST_ARGS) : pst_prefill_mma_256_bf16(PST_ARGS));
 #undef PST_ARGS
     return (int)cudaErrorInvalidValue;
   }
@@ -1234,3 +1280,4 @@ extern "C" int prefill_attention_launch(int dtype, int kv_int8, int head_dim, co
 #undef PST_LAUNCH
   return (int)cudaErrorInvalidValue;
 }
+#endif  // PST_UNIT == 0

@@ -539,20 +539,22 @@ KV_ROLES = ("none", "producer", "consumer")
 
 def check_supported(cfg: EngineConfig, device=None) -> None:
     """Raise on any non-default value of a feature the port lacks
-    (``_UNSUPPORTED``), on a combination the port does not serve (pp with
-    speculative decoding; sp with dp or pp ranks or speculative decoding; device KV transfer with ranks, across hosts or,
-    given ``device``, off the card; a multi-host engine without a
-    coordinator, with a number of processes that does not divide its ranks,
-    or over NCCL: ``check_hosts``), and on
+    (``_UNSUPPORTED``), on a combination the port does not serve (device
+    KV transfer with ranks, across hosts or, given ``device``, off the
+    card; a multi-host engine without a coordinator, with a number of
+    processes that does not divide its ranks, or over NCCL:
+    ``check_hosts``), and on
     one the JAX engine refuses too (pp with in-engine dp; int8 pools with
     sp or pp, with speculative decoding, or with disaggregated prefill but
     no fabric; a producer without a peer; in its words). The refusals that
     read the model (a pp that does not divide its layers, a family without
     pp stages or sp) are
     parallel/pipeline.check_pp's and parallel/ring_attention.check_sp's,
-    which the engine calls. LoRA is served at every rank layout the port
-    serves; on a family without adapters (Gemma-2, OPT) the runner refuses
-    it in the JAX runner's words."""
+    which the engine calls. Sequence ranks beside dp or pp ranks and
+    speculative decoding at sp and pp are served, as in the JAX engine.
+    LoRA is served at every rank layout the port serves; on a family
+    without adapters (Gemma-2, OPT) the runner refuses it in the JAX
+    runner's words."""
     dp, ep, pp = cfg.data_parallel_size, cfg.expert_parallel_size, cfg.pipeline_parallel_size
     sp = cfg.sequence_parallel_size
     if cfg.kv_transfer_device:
@@ -626,17 +628,6 @@ def check_supported(cfg: EngineConfig, device=None) -> None:
     if cfg.kv_cache_dtype == "int8" and (sp > 1 or pp > 1):
         # the JAX engine's own refusal (engine/engine.py)
         raise ValueError("--kv-cache-dtype int8 does not compose with sp/pp meshes")
-    if pp > 1 and cfg.speculative_k:
-        raise ValueError("not supported by the PyTorch port yet: speculative decoding with pipeline parallelism")
-    if sp > 1:
-        # the sequence ranks split a chunk's tokens of one replica (its
-        # experts over its ep ranks); dp and pp around them and a verify
-        # forward (T = 1 + k through the ring) are later work
-        for other, what in ((dp, "in-engine data parallelism"), (pp, "pipeline parallelism")):
-            if other > 1:
-                raise ValueError(f"not supported by the PyTorch port yet: sequence parallelism with {what}")
-        if cfg.speculative_k:
-            raise ValueError("not supported by the PyTorch port yet: speculative decoding with sequence parallelism")
     if cfg.kv_role not in KV_ROLES:
         raise ValueError(f"unknown kv_role {cfg.kv_role!r}; options: {KV_ROLES}")
     if cfg.kv_cache_dtype == "int8" and (cfg.kv_role != "none" or cfg.kv_transfer_device) and not cfg.kv_fabric:

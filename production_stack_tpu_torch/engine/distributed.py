@@ -23,10 +23,10 @@ processes:
   step's microbatches through its own layers.
 - Each host process starts its own block of ranks (``RankBlock``: host h
   of n runs global ranks [h * L, (h + 1) * L), L = ranks / n, itself the
-  first and the rest as ``spawn``ed children). Host 0 is the leader's; every
-  other host runs ``follower_host_main`` (api_server.serve's branch for a
-  process id other than 0), which builds no engine, only its ranks'
-  runners. All ranks rendezvous at ``distributed_coordinator`` (a c10d TCP
+  first and the rest as children of a fork server, ``rank_context``).
+  Host 0 is the leader's; every other host runs ``follower_host_main``
+  (api_server.serve's branch for a process id other than 0), which builds
+  no engine, only its ranks' runners. All ranks rendezvous at ``distributed_coordinator`` (a c10d TCP
   store that global rank 0 hosts); the leader's stream listens on every
   interface at ``worker_sync_port`` and each remote rank dials
   ``<coordinator host>:worker_sync_port``. On one host the rendezvous and
@@ -569,7 +569,7 @@ def _free_port() -> int:
 
 def tp_follower_main(cfg, rank: int, devices, init_method: str, sync_addr: tuple, secret: Optional[bytes],
                      model_cfg, params, num_pages: int, hosts: int = 1) -> None:
-    """A follower rank's process (``spawn``ed by ``RankBlock``): join the
+    """A follower rank's process (started by ``RankBlock``): join the
     ranks as global ``rank``, at (p, d, s, e, t) with rank = (((p * dp + d)
     * sp + s) * ep + e) * tp + t (parallel/group.rank_place), on
     ``devices[rank]`` (made current before anything touches CUDA), build
@@ -590,11 +590,26 @@ def tp_follower_main(cfg, rank: int, devices, init_method: str, sync_addr: tuple
         group.close()
 
 
+def rank_context():
+    """The multiprocessing context a block's ranks start from: a fork
+    server that imported torch and the engine once and holds no CUDA
+    context, so each rank forks from it and initialises its own device, as
+    a ``spawn``ed process does, without importing torch anew (seconds a rank
+    on every engine start). The server starts with a process's first
+    rank, with that moment's environment and ``sys.path``, and ends with
+    the process."""
+    import torch.multiprocessing as tmp
+
+    ctx = tmp.get_context("forkserver")
+    ctx.set_forkserver_preload(["torch", "production_stack_tpu_torch.engine.engine"])
+    return ctx
+
+
 class RankBlock:
     """One host process's block of an engine's pp x dp x sp x ep x tp ranks:
     host h of ``distributed_num_processes`` n runs global ranks [h * L,
     (h + 1) * L), L = ranks / n (one host: all of them). It starts ranks
-    h * L + 1 .. (h + 1) * L - 1 as ``spawn``ed processes (the process may
+    h * L + 1 .. (h + 1) * L - 1 from ``rank_context`` (the process may
     already hold a CUDA context, which ``fork`` would copy into a broken
     child) and joins the ranks as global rank h * L: on one host over a
     free localhost port, across hosts over ``tcp://<distributed_coordinator>``.
@@ -617,8 +632,6 @@ class RankBlock:
     file and renames it into place, so the library is whole either way)."""
 
     def __init__(self, cfg, device, model_cfg, params, num_pages: int, host: int = 0):
-        import torch.multiprocessing as tmp
-
         from production_stack_tpu_torch.engine.config import check_hosts, resolve_attn_impl
         from production_stack_tpu_torch.ops.kernels import _build
         from production_stack_tpu_torch.parallel.group import (
@@ -665,7 +678,7 @@ class RankBlock:
             self._sync_addr = ("127.0.0.1", self._listener.getsockname()[1])
             secret = secrets_mod.token_bytes(32)
         many = pp * dp * sp * ep > 1 or hosts > 1
-        ctx = tmp.get_context("spawn")
+        ctx = rank_context()
         try:
             for r in block[1:]:
                 p = ctx.Process(

@@ -45,11 +45,11 @@ runner before it builds the LoRA manager, so every write reaches every
 rank.
 
 With ``tensor_parallel_size`` tp > 1 the engine is the leader (rank 0) of
-tp processes, one per rank, which it starts itself (``spawn``) and joins
-with ``torch.distributed`` (engine/distributed.RankBlock): every rank holds
-1/tp of the weights and of every KV page, and the leader sends each runner
-call that must run everywhere to the followers before it runs it
-(``BroadcastingRunner``). Scheduling, the prefix cache and the offload tiers
+tp processes, one per rank, which it starts itself (from a fork server)
+and joins with ``torch.distributed`` (engine/distributed.RankBlock): every
+rank holds 1/tp of the weights and of every KV page, and the leader sends
+each runner call that must run everywhere to the followers before it runs
+it (``BroadcastingRunner``). Scheduling, the prefix cache and the offload tiers
 stay the leader's; page ids are the same on every rank. ``num_pages`` comes
 from the whole page's bytes, as in the JAX engine, so a tp engine has tp = 1's
 page count and each rank 1/tp of the bytes. Where tp is a multiple of the
@@ -83,22 +83,25 @@ its tp ranks (parallel/pipeline.py), a MoE model's experts of them over its
 ep ranks, every step running in microbatches through the stages. The step
 stream, the scheduler and the pool's page count are those of pp 1
 (``num_pages`` from the whole page, every layer's bytes, as the JAX engine
-sizes it), each rank holding 1/(pp x tp) of every page. Refused by name at
-start-up: speculative decoding, int8 pools, in-engine dp, Gemma-2 or OPT,
-and a pp that does not divide the layers.
+sizes it), each rank holding 1/(pp x tp) of every page. Speculative
+decoding runs its verify forwards through the stages. Refused by name at
+start-up: int8 pools, in-engine dp, Gemma-2 or OPT, and a pp that does not
+divide the layers.
 
-With ``sequence_parallel_size`` sp > 1 (dp = pp = 1) the engine runs sp x
-ep x tp processes, rank r = (s * ep + e) * tp + t (the JAX mesh's (sp, ep,
-tp) order): each prefill chunk's tokens split over the sequence ranks of
-an (ep, tp) place, its attention through the ring
-(parallel/ring_attention.py) and a MoE layer's tokens through the expert
-group of the rank's sequence place, every sequence rank holding the whole
-model of its place and a whole replica of its pool shard, into which it
-writes every chunk and every decoded token itself; a decode step runs
-whole on every sequence rank. The pool's page count is that of sp 1.
-Refused by name at start-up: sp with dp or pp ranks, speculative decoding,
-device KV transfer, int8 pools, and Gemma-2 or OPT (the last two in the JAX
-engine's words).
+With ``sequence_parallel_size`` sp > 1 the engine runs sp x ep x tp
+processes, rank r = (s * ep + e) * tp + t (the JAX mesh's (sp, ep, tp)
+order), or, beside dp or pp ranks, pp x dp x sp x ep x tp, rank r =
+(((p * dp + d) * sp + s) * ep + e) * tp + t: each prefill chunk's tokens
+(and each verify forward's 1 + k with ``speculative_k``) split over the
+sequence ranks of a (p, d, e, t) place, its attention through the ring
+(parallel/ring_attention.py; on a stage a microbatch at a time) and a MoE
+layer's tokens through the expert group of the rank's sequence place,
+every sequence rank holding the whole model of its place (its stage's
+layers) and a whole replica of its pool shard, into which it writes every
+chunk and every decoded token itself; a decode step runs whole on every
+sequence rank. The pool's page count is that of sp 1. Refused by name at
+start-up: device KV transfer, int8 pools, and Gemma-2 or OPT (the last
+two in the JAX engine's words).
 
 The engine lives inside the stack's services as the JAX engine does. A
 request's trace context (``generate(trace=)``, the server's

@@ -84,33 +84,42 @@ same shapes as the JAX runner's.
   ``gathered_params`` joins the experts over the expert group, and
   ``replay_routes`` makes every rank's routers take another run's experts.
 - Pipeline parallelism (``tp.stage.size`` pp > 1; dp = 1): the rank
-  is one stage of one (ep, tp) place. Its model holds L/pp layers, a MoE
+  is one stage of one (sp, ep, tp) place. Its model holds L/pp layers, a MoE
   model's experts of them split over the stage's expert group
   (models/llama.py runs each step in microbatches through the stages), and
   its pools ``[L/pp, P, page, KH/tp, D]`` those layers' pages, as the JAX
   ``KV_PAGES_SPEC_PP`` shards them. There is no deferred burst, as in the
   JAX runner: ``step_multi`` runs k forwards, each T == 1 step committing
   its own K/V (only the pages its active rows write change), so
-  ``step_multi_pipelined`` serves pp too. The sampled ids are world rank
-  0's, broadcast to every stage (``_draw``). ``get_pages`` gathers a
-  page's layers over the stage group and its heads over the tp group, so a
-  page reaches the host whole, as the JAX runner's ``device_get`` of the
+  ``step_multi_pipelined`` serves pp too, and ``step_spec``'s verify
+  forward (T = 1 + k, all-position logits) runs in microbatches through
+  the stages like a prefill chunk. The sampled ids are world rank 0's,
+  broadcast to every stage (``_draw``). ``get_pages`` gathers a page's
+  layers over the stage group and its heads over the tp group, so a page
+  reaches the host whole, as the JAX runner's ``device_get`` of the
   pp-sharded pool gives it; ``set_pages`` keeps the stage's layers and the
   rank's heads. ``gathered_params`` takes a layer's tensors from the stage
   that holds it (``layers.{i}`` by the model's layer number).
-- Sequence parallelism (``tp.seq.size`` sp > 1; dp = pp = 1): the
-  sp ranks of one (ep, tp) place hold the same weights and the same pool shard
-  (replicated along sp, as the JAX ``KV_PAGES_SPEC`` shards tp only). A
-  prefill chunk's tokens split over them (models/llama.py: the ring of
-  parallel/ring_attention.py), after which every rank writes the whole
-  chunk into its own pools; a decode step and a burst run whole on every
-  rank, each writing its own pools, so the sp replicas stay byte for byte
-  equal with nothing copied between them. The sampled ids are world rank
-  0's, broadcast to every rank (``_draw``). A page read gathers the KV
-  heads over the rank's own tp group, so each sp replica reads its own
-  copy and the leader returns the s = 0 one; a page write lands on every
-  sp replica. ``rank_stats``' ring columns count what crossed the
-  sequence group.
+- Sequence parallelism (``tp.seq.size`` sp > 1; beside dp or pp ranks,
+  not both): the sp ranks of one (p, d, e, t) place hold the same weights
+  and the same pool shard (replicated along sp, as the JAX
+  ``KV_PAGES_SPEC`` shards tp only). A chunk's tokens (a prefill chunk, or
+  step_spec's verify forward of 1 + k, padded to a multiple of sp) split
+  over them (models/llama.py: the ring of parallel/ring_attention.py; on
+  a stage its microbatches through the stages), after which every rank
+  writes the whole chunk into its own pools; a decode step and a burst
+  run whole on every rank, each writing its own pools, so the sp replicas
+  stay byte for byte equal with nothing copied between them. Under dp
+  each dp replica's sp ranks take its rows (``_stage``) and the replica
+  sync runs over each sequence place's dp group, after a spec dispatch
+  from the rows' final lengths; the sampled ids are the first rank's of
+  each dp replica (``ids_groups``: the expert group's first, then the
+  sequence group's), world rank 0's without dp. A page read gathers the
+  KV heads over the rank's own tp group (and the layers over its stage
+  group), so each sp and dp replica reads its own copy and the leader
+  returns the (d 0, s 0) one; a page write lands on every replica.
+  ``rank_stats``' ring columns count what crossed the sequence group, the
+  relay columns the stages' relays.
 
 CUDA graphs around the burst are later work: each step here launches its
 kernels one by one from Python.
@@ -213,12 +222,14 @@ COUNTERS = (
 # collectives too), the bytes its model read from a checkpoint
 # directory (0 for a preset) and what crossed its sequence group (the
 # ring's rotations and the token gathers: calls, bytes, host seconds; part
-# of the collectives too), and the bytes of its LoRA buffers (0 without)
+# of the collectives too), the bytes of its LoRA buffers (0 without), and
+# which of its prefill kernel launches were step_spec's verify forwards
+# (the wrapper's count over those calls)
 RANK_STATS = tuple(name for name, _, _ in COUNTERS) + (
     "step_seconds", "steps", "collective_calls", "collective_bytes", "collective_seconds",
     "sync_bytes", "sync_pages", "expert_calls", "expert_bytes", "device_bytes",
     "relay_calls", "relay_bytes", "relay_seconds", "loaded_bytes",
-    "ring_calls", "ring_bytes", "ring_seconds", "lora_bytes",
+    "ring_calls", "ring_bytes", "ring_seconds", "lora_bytes", "verify_launches",
 )
 
 
@@ -312,10 +323,15 @@ class ModelRunner:
         seq = getattr(tp, "seq", None)
         # the sequence group (None at sp = 1): a chunk's token split
         self.seq = seq if seq is not None and seq.size > 1 else None
-        # the sampled ids' source: the expert group's first rank, or under
-        # pp or sp world rank 0, whose ids every stage or sequence rank
-        # feeds back
-        self.ids_group = self.world if self.stage is not None or self.seq is not None else self.expert
+        # the sampled ids' source, the first rank of the rank's dp replica,
+        # whose ids every rank of the replica feeds back: under pp (dp = 1)
+        # or sp alone world rank 0; otherwise the expert group's first
+        # rank, then under dp x sp the sequence group's first (so the ids
+        # of (d, s 0, e 0, t 0) reach every (s, e, t) of replica d)
+        if self.stage is not None or (self.seq is not None and self.dp is None):
+            self.ids_groups = (self.world,)
+        else:
+            self.ids_groups = (self.expert, self.seq)
         self.tp_size = size_rank(self.tp)[0]
         self.step_seconds = 0.0
         self.steps = 0
@@ -324,6 +340,9 @@ class ModelRunner:
         self._last_hist = None
         self.sync_bytes = 0
         self.sync_pages = 0
+        # the prefill kernel's launches inside step_spec (its verify
+        # forwards), read from the wrapper's count around each call
+        self.verify_launches = 0
         self.module = models.module_for_config(model.cfg)
         # the JAX runner's refusals: a family without "pp" in MESH_AXES, a
         # pp that does not divide the layers
@@ -443,10 +462,10 @@ class ModelRunner:
         return out
 
     def _draw(self, logits, sample_from, s, want_lp):
-        """The sampled ids (with their logprobs when ``want_lp``); under tp
-        or ep the expert group's first rank's ids on every rank of the
-        group (its dp replica's ep x tp ranks), under pp world rank 0's on
-        every stage, whatever each rank drew.
+        """The sampled ids (with their logprobs when ``want_lp``): the ids
+        of the first rank of the rank's dp replica on every rank of it
+        (``ids_groups``: its ep x tp ranks, and under sp its sequence
+        ranks; under pp every stage), whatever each rank drew.
         Under dp every rank draws the whole batch's noise and takes its
         rows' (ops/sampling.sample's ``batch_rows``)."""
         B = logits.shape[0]
@@ -456,9 +475,13 @@ class ModelRunner:
                 logits, self.generator, s["temperature"], s["top_k"], s["top_p"],
                 sample_from=sample_from, batch_rows=rows,
             )
-            return (broadcast_ids(ids, self.ids_group), *lps)
-        ids = sample(sample_from, self.generator, s["temperature"], s["top_k"], s["top_p"], rows)
-        return broadcast_ids(ids, self.ids_group)
+            return (self._share_ids(ids), *lps)
+        return self._share_ids(sample(sample_from, self.generator, s["temperature"], s["top_k"], s["top_p"], rows))
+
+    def _share_ids(self, ids: torch.Tensor) -> torch.Tensor:
+        for group in self.ids_groups:
+            ids = broadcast_ids(ids, group)
+        return ids
 
     def _timed(self, t0: float) -> None:
         self.step_seconds += time.perf_counter() - t0
@@ -683,7 +706,11 @@ class ModelRunner:
         drafts' K/V; attention never reads them (kv_lens masks them) and the
         next dispatch writes over them. Under dp every rank draws the whole
         batch's B x T noise and takes its rows', and the pages each group
-        wrote are copied into the other replicas after the last round."""
+        wrote are copied into the other replicas after the last round. On
+        sequence ranks the verify forward splits its 1 + k tokens over the
+        ring (without the kernel, as a chunk at sp); on a stage it runs in
+        microbatches through the stages (the prefill kernel on the stage's
+        pool)."""
         if self.kv_quant:
             raise ValueError(
                 "speculative decoding is not supported with "
@@ -692,6 +719,7 @@ class ModelRunner:
         if inp.kv_limits is None:
             raise ValueError("step_spec needs kv_limits (a row runs while kv_lens + spec_k <= kv_limits)")
         t0 = time.perf_counter()
+        launched = prefill_attention.launches
         s = self._stage(inp)
         k, T = spec_k, 1 + spec_k
         h0 = self._t(dpmod.row_slice(history, self.dp), torch.int32)
@@ -733,6 +761,7 @@ class ModelRunner:
             # lengths of all rows (a [B] fetch)
             lens_f = dpmod.gather_rows(lens, self.dp).cpu().numpy()
             self._sync_replicas(inp, dpmod.spec_positions(inp.positions, inp.kv_lens, inp.kv_limits, lens_f, k))
+        self.verify_launches += prefill_attention.launches - launched
         self._timed(t0)
         return out
 
@@ -937,7 +966,8 @@ class ModelRunner:
         per rank (parallel/group.device_labels: two ranks on one card are
         ``cuda:0/tp0`` and ``cuda:0/tp1``, or ``cuda:0/dp0tp0`` ... with dp >
         1, ``cuda:0/dp0ep1tp0`` ... with ep > 1, ``cuda:0/sp1tp0`` ... with sp
-        > 1, ``cuda:0/pp1tp0`` ... with pp > 1)."""
+        > 1, ``cuda:0/pp1tp0`` ... with pp > 1, ``cuda:0/dp1sp0tp0`` and
+        ``cuda:0/pp1sp0tp0`` with sp beside dp or pp ranks)."""
         cfg = self.cfg
         kh = kv_heads_per_rank(cfg.num_kv_heads, self.tp_size)
         L = cfg.num_layers // pipeline.stage_place(self.stage)[0]
@@ -963,13 +993,13 @@ class ModelRunner:
         row += [r.relay_calls, r.relay_bytes, r.relay_seconds] if r is not None else [0, 0, 0.0]
         row += [getattr(self.model, "loaded_bytes", 0)]
         row += [r.ring_calls, r.ring_bytes, r.ring_seconds] if r is not None else [0, 0, 0.0]
-        row += [sum(t.numel() * t.element_size() for t in self._lora_tensors())]
+        row += [sum(t.numel() * t.element_size() for t in self._lora_tensors()), self.verify_launches]
         out = gather_split(torch.tensor([row], dtype=torch.float64, device=self.device), 0, self.world)
         if reset:
             for _, fn, attr in COUNTERS:
                 setattr(fn, attr, 0)
             self.step_seconds, self.steps = 0.0, 0
-            self.sync_bytes = self.sync_pages = 0
+            self.sync_bytes = self.sync_pages = self.verify_launches = 0
             if self.ranks is not None:
                 self.ranks.reset_stats()
         return out.cpu().numpy()

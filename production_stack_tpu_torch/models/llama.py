@@ -75,8 +75,13 @@ forward falls back). The prefill kernel does not run, as the JAX forward
 keeps its kernel for one device (``prefill_kernel_ok`` needs sp = 1):
 after the layers each rank writes the whole chunk's K/V into its own pools,
 and each row's last valid hidden state is gathered from the rank that
-holds it, so every rank returns the whole [B, V]. A decode step (T = 1) and a burst are not split: every sequence
-rank runs them whole, the decode kernel included. ``MESH_AXES`` names the
+holds it (every position's with ``all_logits``, a verify forward's), so
+every rank returns the whole [B, V] ([B, T, V]). A decode step (T = 1) and
+a burst are not split: every sequence rank runs them whole, the decode
+kernel included. With both ``stage`` and ``seq`` (pp x sp) a chunk's
+microbatches go through the stages as under pp, each stage's sequence rank
+s relaying its token slice to the next stage's rank s and the last stage
+gathering over its sequence group what the head reads. ``MESH_AXES`` names the
 mesh axes the family serves, as the JAX module's does.
 """
 
@@ -565,18 +570,19 @@ class LlamaForCausalLM(nn.Module):
         each T == 1 step commits its own K/V, as the JAX runner's
         ``_multi_step_fn`` does under pp.
 
-        On a sequence rank (``seq``) a chunk (T > 1) runs its T/sp tokens
-        through the ring (``_chunk_sp``), every row with its adapter slot,
-        and every rank returns the whole logits; it takes neither
-        ``all_logits`` nor int8 pools. T = 1 runs whole on every sequence
-        rank.
+        On a sequence rank (``seq``) a chunk (T > 1: a prefill chunk or a
+        verify forward's 1 + k) runs its T/sp tokens through the ring
+        (``_chunk_sp``), on a pipeline stage too, every row with its
+        adapter slot, and every rank returns the whole logits; it takes no
+        int8 pools. T = 1 runs whole on every sequence rank.
         """
         cfg = self.cfg
         B, T = input_ids.shape
         if self.seq is not None and T > 1:
-            if all_logits or kv_scales is not None:
-                raise ValueError("a sequence-parallel chunk takes neither all_logits nor int8 pools")
-            return self._chunk_sp(input_ids, positions, k_pages, v_pages, page_table, kv_lens, lora, lora_ids)
+            if kv_scales is not None:
+                raise ValueError("a sequence-parallel chunk takes no int8 pools")
+            return self._chunk_sp(input_ids, positions, k_pages, v_pages, page_table, kv_lens, all_logits, lora,
+                                  lora_ids)
         tp = 1 if self.tp is None else self.tp.size
         cos, sin = rope_cos_sin(positions.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
@@ -613,34 +619,58 @@ class LlamaForCausalLM(nn.Module):
     def _head(self) -> torch.Tensor:
         return self.embed.t() if self.cfg.tie_word_embeddings else self.lm_head
 
-    def _chunk_sp(self, input_ids, positions, k_pages, v_pages, page_table, kv_lens, lora=None,
+    def _chunk_sp(self, input_ids, positions, k_pages, v_pages, page_table, kv_lens, all_logits=False, lora=None,
                   lora_ids=None) -> torch.Tensor:
-        """A prefill chunk on this sequence rank (the JAX forward at sp with
-        T > 1): the chunk padded to a multiple of sp, the rank's T/sp tokens
-        through the layers with their attention through the ring
-        (models/paged_step.py) and each row's LoRA deltas, the whole chunk's
-        K/V committed into this rank's pools after the layers (``finish``).
-        Returns the whole [B, V] logits."""
+        """A chunk on this sequence rank (the JAX forward at sp with T > 1):
+        the chunk padded to a multiple of sp (pads at position -1), the
+        rank's T/sp tokens through the layers with their attention through
+        the ring (models/paged_step.py) and each row's LoRA deltas, the
+        whole chunk's K/V committed into this rank's pools after the layers
+        (``finish``). On a pipeline stage the layers are the stage's and
+        the rows go through the stages in microbatches (parallel/pipeline.
+        run), each stage relaying its T/sp token slice to the same sequence
+        rank of the next, whose ring runs over its own sequence group; the
+        last stage gathers what the head reads. Returns the whole [B, V]
+        logits, or [B, T, V] with ``all_logits`` (every position's hidden
+        state gathered over the group before the head)."""
         cfg, seq = self.cfg, self.seq
-        B = input_ids.shape[0]
+        B, T = input_ids.shape
         pos = pad_tokens(positions, seq.size, value=-1)
         pos_l = token_slice(pos, seq)
         Tl = pos_l.shape[1]
         cos, sin = rope_cos_sin(pos_l.clamp(min=0), cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
         tp = 1 if self.tp is None else self.tp.size
-        step = PagedStep(cfg.attn_impl, pos, k_pages, v_pages, page_table, kv_lens, tp=tp, seq=seq)
-        x = embed_lookup(self.embed, token_slice(pad_tokens(input_ids, seq.size), seq), self.tp)
-        x = self._decoder(x, step, cos, sin, lora, lora_ids)
-        step.finish()
-        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
-        # each row's last valid token sits on rank last // Tl: every rank's
-        # candidate rows, gathered, and the owner's taken
+        ids_l = token_slice(pad_tokens(input_ids, seq.size), seq)
         last = ((positions >= 0).sum(dim=1) - 1).clamp(min=0)
-        owner = torch.div(last, Tl, rounding_mode="floor")
-        rows = torch.arange(B, device=x.device)
-        mine = x[rows, (last - seq.rank * Tl).clamp(0, Tl - 1)]
-        x_last = seq.all_gather(mine[:, None], 1)[rows, owner]
-        return gather_vocab((x_last @ self._head()).float(), self.tp)
+
+        def layers(x, r):
+            step = PagedStep(cfg.attn_impl, pos[r], k_pages, v_pages, page_table[r], kv_lens[r], tp=tp, seq=seq)
+            x = self._decoder(x, step, cos[r], sin[r], lora, None if lora is None else lora_ids[r])
+            step.finish()
+            return x
+
+        def head_rows(x, r):
+            """What the head reads of rows ``r`` ([n, Tl, H] here): every
+            position, or each row's last valid token, which sits on rank
+            last // Tl (every rank's candidate rows gathered, the owner's
+            taken)."""
+            if all_logits:
+                return seq.all_gather(x, 1)[:, :T]
+            rows = torch.arange(x.shape[0], device=x.device)
+            mine = x[rows, (last[r] - seq.rank * Tl).clamp(0, Tl - 1)]
+            return seq.all_gather(mine[:, None], 1)[rows, torch.div(last[r], Tl, rounding_mode="floor")]
+
+        def embed(r):
+            return embed_lookup(self.embed, ids_l[r], self.tp)
+
+        if self.stage is None:
+            x = head_rows(layers(embed(slice(None)), slice(None)), slice(None))
+        else:
+            out = torch.empty((B, T, cfg.hidden_size) if all_logits else (B, cfg.hidden_size), dtype=cfg.dtype,
+                              device=self.final_norm.device)
+            x = pipeline.run(self.stage, B, embed, layers, head_rows, out, ((Tl, cfg.hidden_size), cfg.dtype))
+        x = rms_norm(x, self.final_norm, cfg.rms_norm_eps)
+        return gather_vocab((x @ self._head()).float(), self.tp)
 
     def _decoder(self, x, step: PagedStep, cos, sin, lora=None, lora_ids=None) -> torch.Tensor:
         """This model's layers on ``x`` [B, T, H], their attention through

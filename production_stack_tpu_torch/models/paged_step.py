@@ -47,7 +47,10 @@ window through ``flash_attention`` with explicit positions, as the JAX
 forward does at sp. No fused write: ``finish`` commits the whole chunk's
 K/V of every layer into the rank's pools with one scatter, as the JAX
 forward's ``write_kv_pages_all_layers`` does after its layer scan. A decode
-step and a burst take their paths above whole on every sequence rank.
+step and a burst take their paths above whole on every sequence rank. A
+verify forward (T = 1 + k) splits like a chunk. On a stage of sequence
+ranks (pp x sp) the step is made per microbatch as under pp: the pools are
+the stage's, ``li`` indexes them and ``finish`` writes the stage's layers.
 """
 
 from __future__ import annotations

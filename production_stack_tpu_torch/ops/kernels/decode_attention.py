@@ -273,6 +273,13 @@ def decode_attention_sharded(
     which is the same on every s, over pools that are the sp replicas of
     one shard (``KV_PAGES_SPEC`` shards tp only; every sequence rank writes
     every chunk and token into its own), and gets the same bytes.
+
+    sp beside dp or pp: the two mappings compose, each rank running the one
+    decode kernel on its shard. At dp x sp (``[dp2sp2]`` on the card) rank
+    (d, s, t) calls this on its dp replica's B/dp rows over its sp replica
+    of the pool; at pp x sp (``[pp2sp2]``) rank (p, s, t) calls it on one
+    microbatch's rows over its sp replica of its stage's pool [L/pp, P,
+    page, KH/tp, D]. Every s of a place gets the same bytes.
     """
     NHl, KHl = q.shape[1], k_pages.shape[-2]
     if NHl % KHl:

@@ -18,6 +18,12 @@ chunk's own K/V stay fp, and the write quantizes the chunk into its pages
 as ``kv_page_write_quant_ref`` does. The wrapper counts fp launches in
 ``prefill_attention.launches`` and int8 ones in ``launches_int8``, and of
 those the ones that wrote in ``launches_write`` and ``launches_write_int8``.
+
+The same launch serves step_spec's verify forward (T = 1 + k, rows that
+stopped at position -1), on one rank's whole pool and, under pp, on a
+stage's pool [L/pp, P, page, KH, D] at its local layer index, one
+microbatch's rows a launch (``[pp2verify]`` on the card; the JAX pipeline
+keeps its XLA attention there, as it does for a stage's prefill chunk).
 """
 
 from __future__ import annotations

@@ -19,6 +19,11 @@ shardings.py (``P("dp", ...)`` on every row-leading step input) and of
   stream gives every rank; after a speculative dispatch also from the rows'
   final lengths (``spec_positions``), which every rank gathers.
 
+With sequence ranks inside a replica (dp x sp) each of them takes its
+replica's rows and writes the same pages, so its dp group (the dp ranks of
+one sequence place) syncs one sp replica of each pool, and every sp
+replica gets the same pages.
+
 With ``group`` None (dp = 1) every function here is the identity.
 """
 

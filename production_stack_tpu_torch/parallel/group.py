@@ -33,9 +33,11 @@ r = (((p * dp + d) * sp + s) * ep + e) * tp + t, the mesh's order
   p to stage p + 1 (``send_next``/``recv_prev``, over the two ranks' own
   group), hands the last stage's final hidden states to every stage
   (``broadcast_from_last``) and gathers a page's layers.
-  In this port dp = 1 whenever pp > 1, and dp = pp = 1 whenever sp > 1
-  (engine/config.check_supported); ep composes with both, the expert
-  group of a stage's or a sequence rank's (p, d, s) holding its experts.
+  In this port dp = 1 whenever pp > 1 (engine/config.check_supported, in
+  the JAX engine's words); sp composes with dp or pp ranks (a dp
+  replica's or a stage's sequence ranks), and ep with all of them, the
+  expert group of a stage's or a sequence rank's (p, d, s) holding its
+  experts.
 
 Multi-host serving splits the ranks into equal blocks, one per host
 process: host h of n runs global ranks [h * L, (h + 1) * L), L = ranks / n
@@ -166,9 +168,10 @@ def device_labels(devices: list[torch.device], dp: int = 1, ep: int = 1, pp: int
                   hosts: int = 1) -> list[str]:
     """One distinct label per rank: ``cuda:0`` for a single rank, else the
     device and the rank (``cuda:0/tp1``; with dp > 1 ``cuda:0/dp1tp0``; with
-    ep > 1 ``cuda:0/dp0ep1tp0``; with sp > 1 ``cuda:0/sp1tp0``; with pp > 1
-    the stage first, ``cuda:0/pp1tp0``), so ranks on one card stay rows of
-    their own; across hosts the host first (``host1/cuda:0/dp1tp0``)."""
+    ep > 1 ``cuda:0/dp0ep1tp0``; with sp > 1 ``cuda:0/sp1tp0``, beside dp
+    ``cuda:0/dp1sp0tp0``; with pp > 1 the stage first, ``cuda:0/pp1tp0``,
+    ``cuda:0/pp1sp0tp0``), so ranks on one card stay rows of their own;
+    across hosts the host first (``host1/cuda:0/dp1tp0``)."""
     per_host = len(devices) // hosts
     names = [(f"host{r // per_host}/" if hosts > 1 else "") + f"{d.type}:{d.index or 0}"
              for r, d in enumerate(devices)]

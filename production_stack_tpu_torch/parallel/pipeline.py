@@ -25,6 +25,15 @@ moves a tick's activations with ``ppermute``, each stage here is a process
   layer of a microbatch inside the stage; ``stage_routes`` gives a stage
   a one-rank run's routes in the order its layers route them.
 
+On sequence ranks (pp x sp) each stage group is the pp ranks of one
+sequence place: a stage relays its T/sp token slice of a microbatch to the
+same sequence rank of the next stage (``act`` is the slice's shape), the
+ring runs over each stage's own sequence group, and the last stage
+gathers over its sequence group what the head reads before the hand-over
+(models/llama.py ``_chunk_sp``). A MoE stage's routes replay a stage's
+microbatches and a sequence rank's token slice at once: ``stage_routes``,
+then parallel/ring_attention.seq_routes on each entry.
+
 The relays carry the model's dtype as bytes (the JAX relay runs in f32
 only to work around XLA:CPU; the values are the same). Every stage rank
 issues its collectives in one order: its tp group's inside each

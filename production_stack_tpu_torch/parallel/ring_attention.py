@@ -210,7 +210,10 @@ def ring_attention_serving(
     every sequence rank. S pads to a multiple of sp (pads at position -1)
     and the rank takes its block of S/sp slots, as the JAX function shards
     S over sp. Visibility comes from the positions alone. Returns the
-    rank's [B, Tl, NH, D]."""
+    rank's [B, Tl, NH, D]. A verify forward of speculative decoding is a
+    chunk of 1 + k tokens, padded the same way (Tl = 3 at sp 2, k = 4),
+    whose pool slots from the row's current position on are stale drafts
+    (``stale_kv_positions`` hides them)."""
     sp = 1 if group is None else group.size
     k, v = pad_tokens(k, sp), pad_tokens(v, sp)
     kv_positions = pad_tokens(kv_positions, sp, value=-1)

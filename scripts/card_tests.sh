@@ -9,9 +9,9 @@
 # tp 1 (tests/test_torch_cuda_tp.py);
 # both kernels at the dp ranks' row shapes and a dp 2 engine's replicas
 # (tests/test_torch_cuda_dp.py); the prefill kernel at step_spec's verify
-# shape, step_spec and step_multi_pipelined through the kernels, and a
-# chain's fetch groups arriving through their events
-# (tests/test_torch_cuda_spec.py); disaggregated prefill's device path: a
+# shape (on a pipeline stage's 2-layer pool too), step_spec and
+# step_multi_pipelined through the kernels, and a chain's fetch groups
+# arriving through their events (tests/test_torch_cuda_spec.py); disaggregated prefill's device path: a
 # page copied over CUDA IPC between two processes, the offer retirement, a
 # producer process shipping every page device to device, a killed
 # producer's pages falling back to TCP blobs, and a staged page's restore
@@ -24,9 +24,10 @@
 # ep 2 engine's stage ranks (tests/test_torch_cuda_ep.py); a pp 2
 # engine's forward against pp 1's, both kernels launched by every stage
 # (tests/test_torch_cuda_pp.py); the decode kernel at a sequence rank's
-# shapes and an sp 2 engine's forward against one rank's, the decode kernel
-# launched by every sequence rank and no prefill kernel
-# (tests/test_torch_cuda_sp.py); a pp 2 engine over two host processes
+# shapes (beside dp and pp ranks too: a dp 2 x sp 2 rank's rows, a pp 2 x
+# sp 2 stage rank's microbatch) and an sp 2 engine's forward against one
+# rank's, the decode kernel launched by every sequence rank and no prefill
+# kernel (tests/test_torch_cuda_sp.py); a pp 2 engine over two host processes
 # (a follower host subprocess, process id 1) against pp 1's forward, both
 # kernels launched by the stage on each host (tests/test_torch_cuda_multihost.py).
 # No file imports jax. Run on a machine with an NVIDIA GPU; tests/conftest.py imports jax,

@@ -1,5 +1,7 @@
 """Sequence-parallel serving on the card only: the decode kernel at a
-sequence rank's shapes, and an sp 2 engine's forward against one rank's.
+sequence rank's shapes (beside dp and pp ranks too: a dp 2 x sp 2 rank's
+rows, a pp 2 x sp 2 stage rank's microbatch on its stage pool), and an sp
+2 engine's forward against one rank's.
 
 A sequence rank runs every decode step whole, through
 ``decode_attention_sharded`` on its sp mapping: all of llama-3.2-1b's
@@ -63,6 +65,50 @@ def test_sharded_decode_at_a_sequence_ranks_shapes_matches_plain_version(cuda_de
     torch.testing.assert_close(out.float(), ref.float(), **TOL["bfloat16"])
     assert _same(out, again)
     assert float(out[0].float().abs().max()) == 0.0  # the empty row
+
+
+# sequence ranks beside dp and pp ranks: a dp 2 x sp 2 rank's 16 of a
+# 32-row burst step over its sp replica of a 4-layer pool ([dp2sp2]), and a
+# pp 2 x sp 2 stage rank's 8-row microbatch, the token's K/V beside the
+# pool (C = 1), over its sp replica of the stage's 2-layer pool ([pp2sp2]);
+# ragged rows (at dp 2 x sp 2 one empty; at pp 2 x sp 2 each row holds at
+# least its current token): (B, L, layer, C, lens, cur_lens)
+COMPOSED = {
+    "dp2sp2": (16, 4, 3, 8, [0, 9, 300, 1024, 700, 64, 1, 1024] * 2, [0, 8, 3, 8, 5, 8, 1, 8] * 2),
+    "pp2sp2": (8, 2, 1, 1, [1, 9, 300, 1024, 700, 64, 2, 1024], None),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mapping", sorted(COMPOSED))
+def test_sharded_decode_beside_dp_and_pp_ranks_matches_plain_version(cuda_device, mapping):
+    """The one decode kernel on a composed rank's shard (all of
+    llama-3.2-1b's heads) against its plain version, two calls the same
+    bytes, the empty row 0."""
+    B, L, layer, C, lens, cur = COMPOSED[mapping]
+    NH, KH, D, page, maxp = 32, 8, 64, 64, 17
+    rng = np.random.RandomState(sum(map(ord, mapping)))
+    P = B * maxp + 3
+    kp, vp, skw = _pools(rng, (L, P, page, KH, D), False, torch.bfloat16, cuda_device)
+    pt = _on(rng.permutation(P)[: B * maxp].reshape(B, maxp).astype(np.int32), torch.bfloat16, cuda_device)
+    q = _on(rng.randn(B, NH, D).astype(np.float32), torch.bfloat16, cuda_device)
+    kc = _on(rng.randn(B, C, KH, D).astype(np.float32), torch.bfloat16, cuda_device)
+    vc = _on(rng.randn(B, C, KH, D).astype(np.float32), torch.bfloat16, cuda_device)
+    lens_t = torch.tensor(lens, dtype=torch.int32, device=cuda_device)
+    kw = dict(k_cur=kc, v_cur=vc, layer=layer, **skw)
+    if C > 1:
+        kw["cur_lens"] = torch.tensor(cur, dtype=torch.int32, device=cuda_device)
+    launches = dmod.decode_attention.launches
+    out = dmod.decode_attention_sharded(q, kp, vp, pt, lens_t, **kw)
+    again = dmod.decode_attention_sharded(q, kp, vp, pt, lens_t, **kw)
+    ref = dmod.decode_attention_sharded(q, kp, vp, pt, lens_t, plain=True, **kw)
+    torch.cuda.synchronize()
+    assert dmod.decode_attention.launches == launches + 2
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref.float(), **TOL["bfloat16"])
+    assert _same(out, again)
+    if C > 1:
+        assert float(out[0].float().abs().max()) == 0.0  # the empty row (no burst entry either)
 
 
 def _steps(vocab):

@@ -5,7 +5,9 @@ tests/test_torch_cuda_attention.py; without a card every test skips).
   a long history, rows inactive at -1) against its plain version, with the
   fused write leaving the pools byte-identical to the plain write's:
   llama-3.2-1b's heads (32 rows after 1,024 tokens) and gemma-2-2b's (D =
-  256, softcap 50, 8 rows after 4,096, a sliding and a global layer).
+  256, softcap 50, 8 rows after 4,096, a sliding and a global layer); and
+  on a pipeline stage's 2-layer pool (an 8-row microbatch, either local
+  layer; the other left untouched).
 - An f32 copy of llama-3.2-1b cut to two layers: step_spec's tokens are
   sequential greedy's (a differing token only where greedy's two best
   logits all but tie), and step_multi_pipelined's tokens and pools are 4
@@ -82,6 +84,46 @@ def test_verify_shape_prefill_matches_its_plain_version(cuda_device, name, dtype
             assert float(out[b].float().abs().max()) == 0.0
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("layer", [0, 1])
+def test_verify_shape_prefill_on_a_stage_pool_matches_its_plain_version(cuda_device, layer):
+    """The verify forward on a pipeline stage (pp 2 with speculative_k):
+    an 8-row microbatch, T = 5 after 1,024 tokens and ragged rows (one
+    inactive), on the stage's 2-layer pool at its local layer index: the
+    output within the bf16 bound of the plain version's, the written pages
+    byte-identical to the plain write's, the stage's other layer untouched."""
+    rng = np.random.RandomState(49 + layer)
+    B, T, NH, KH, D, page, maxp = 8, 5, 32, 8, 64, 64, 17
+    computed = [1024, 1024, 37, 0, 1024, 500, 1024, 1020]
+    chunks = [5, 5, 5, 0, 5, 5, 5, 5]
+    P = B * maxp + 3
+    kp, vp, _ = _pools(rng, (2, P, page, KH, D), False, torch.bfloat16, cuda_device)
+    pos = np.full((B, T), -1, np.int32)
+    for b in range(B):
+        pos[b, : chunks[b]] = np.arange(computed[b], computed[b] + chunks[b])
+    lens = np.array([c + n if n else 0 for c, n in zip(computed, chunks)], np.int32)
+    args = [
+        _on(rng.randn(B, T, NH, D).astype(np.float32), torch.bfloat16, cuda_device), kp, vp,
+        _on(rng.permutation(P)[: B * maxp].reshape(B, maxp).astype(np.int32), torch.bfloat16, cuda_device),
+        _on(pos, torch.bfloat16, cuda_device), _on(lens, torch.bfloat16, cuda_device),
+        _on(rng.randn(B, T, KH, D).astype(np.float32), torch.bfloat16, cuda_device),
+        _on(rng.randn(B, T, KH, D).astype(np.float32), torch.bfloat16, cuda_device),
+        _on(np.array(chunks, np.int32), torch.bfloat16, cuda_device),
+    ]
+    a, r = list(args), list(args)
+    a[1], a[2], r[1], r[2] = kp.clone(), vp.clone(), kp.clone(), vp.clone()
+    out = pmod.prefill_attention(*a, fused_write=True, layer=layer)
+    ref = pmod.prefill_attention_ref(*r, fused_write=True, layer=layer)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(out.float()).all())
+    torch.testing.assert_close(out.float(), ref.float(), **TOL["bfloat16"])
+    assert _same(a[1], r[1]) and _same(a[2], r[2])
+    other = 1 - layer
+    assert _same(a[1][other], kp[other]) and _same(a[2][other], vp[other])
+    assert not _same(a[1][layer], kp[layer])
+    assert float(out[3].float().abs().max()) == 0.0
+
+
 # -- the runner on an f32 copy of llama-3.2-1b, two layers ----------------------
 
 B, T, PAGE, MAXP = 4, 64, 64, 4
@@ -145,8 +187,10 @@ def test_step_spec_tokens_are_sequential_greedy(model):
     hist[:, :T], hist[:, T] = ids, first
     hist[:, 10], hist[:, 11], hist[:, 12] = ids[:, T - 2], ids[:, T - 1], first
     hist[:, 13: 13 + k] = greedy[:, :k]
+    spec_r.verify_launches = 0
     spec = spec_r.step_spec(inp, hist, steps=steps, spec_k=k, ngram=3).cpu().numpy()
     assert spec.shape == (B, steps, 1 + k)
+    assert spec_r.verify_launches == 2 * steps  # one prefill launch a layer and round
     for b in range(B):
         got = spec[b][spec[b] >= 0]
         j = next((j for j, (x, y) in enumerate(zip(got, greedy[b])) if x != y), len(got))

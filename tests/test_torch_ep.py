@@ -27,9 +27,11 @@ tests/test_pallas_attention.py TestShardedKernel).
 - Weight splits: ``shard_params`` and seeded ranks join back to the whole
   model; a small HF Mixtral directory read by (e, t) ranks gives the slices
   of the whole read.
-- The refusals: an ep that does not divide the experts, and sp with dp,
-  spec decode at pp and multi-host still (ep at pp and sp is served:
-  tests/test_torch_moe_stages.py, tests/test_torch_moe_seq.py).
+- The refusals: an ep that does not divide the experts, multi-host
+  without a coordinator, device ids and device KV transfer (ep at pp and
+  sp is served: tests/test_torch_moe_stages.py, tests/test_torch_moe_seq.py;
+  with sp beside dp ranks and spec decode at pp too:
+  tests/test_torch_seq_compose.py).
 - An HTTP server at --expert-parallel-size 2 answers the ep 1 server's
   greedy text and advertises its shape.
 """
@@ -578,14 +580,10 @@ def test_labels_and_device_ids_count_the_ep_ranks():
 @pytest.mark.parametrize("overrides,match", [
     (dict(model=MODEL, expert_parallel_size=3), "expert_parallel_size 3 does not divide num_experts 4"),
     (dict(model=MODEL, expert_parallel_size=0), "expert_parallel_size must be >= 1"),
-    (dict(model=MODEL, expert_parallel_size=2, sequence_parallel_size=2, data_parallel_size=2),
-     "sequence parallelism with in-engine data parallelism"),
-    (dict(model=MODEL, expert_parallel_size=2, pipeline_parallel_size=2, speculative_k=4),
-     "speculative decoding with pipeline parallelism"),
     (dict(model=MODEL, expert_parallel_size=2, distributed_num_processes=2), "multi-host serving"),
     (dict(model=MODEL, expert_parallel_size=2, tp_device_ids="0,0,0", **GLOO), "one device index"),
     (dict(model=MODEL, expert_parallel_size=2, kv_transfer_device=True), "device KV transfer"),
-], ids=["ep-3", "ep-0", "sp", "pp", "multihost", "device-ids", "device-kv"])
+], ids=["ep-3", "ep-0", "multihost", "device-ids", "device-kv"])
 def test_unsupported_ep_setups_are_refused_by_name(overrides, match):
     cfg = EngineConfig(**{**SMALL, **overrides})
     with pytest.raises(ValueError, match=match):

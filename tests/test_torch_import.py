@@ -310,14 +310,14 @@ def test_runner_resolves_attention_by_device():
 
 _REFUSED = [
     # tensor, in-engine data, sequence, expert and pipeline parallelism are
-    # served, LoRA on each of them too (_LORA_SERVED); what they lack, sp
-    # beside dp, is refused (KH % tp != 0, an ep that does not divide the
-    # experts and a pp that does not divide the layers are refused by the
-    # engine, which reads the model: tests/test_torch_tp.py,
-    # tests/test_torch_ep.py, tests/test_torch_pp.py, tests/test_torch_sp.py).
-    # Speculative decoding is served; with int8 pools it is refused in the
-    # JAX engine's words
-    ("sequence_parallel_size", 2, {"data_parallel_size": 2}),
+    # served, LoRA on each of them too (_LORA_SERVED), sp beside dp or pp
+    # ranks too; what they lack, device KV transfer with sp ranks, is
+    # refused (KH % tp != 0, an ep that does not divide the experts and a
+    # pp that does not divide the layers are refused by the engine, which
+    # reads the model: tests/test_torch_tp.py, tests/test_torch_ep.py,
+    # tests/test_torch_pp.py, tests/test_torch_sp.py). Speculative decoding
+    # is served; with int8 pools it is refused in the JAX engine's words
+    ("sequence_parallel_size", 2, {"kv_transfer_device": True}),
     ("speculative_k", 4, {"kv_cache_dtype": "int8"}),
     # disaggregated prefill and the fabric are served; the device path is
     # refused with tp ranks and off the card (check_supported's device)

@@ -27,9 +27,9 @@ stage pools) against the JAX package on its virtual 8-device CPU mesh
   ``mesh_devices`` 2 and one pool row a stage on ``/metrics``, and exits
   13 when its follower stage is killed mid-stream.
 - The refusals: in the JAX package's words (pp that does not divide the
-  layers, Gemma-2 and OPT at pp, int8 at pp), in the port's (pp with
-  speculative decoding; a MoE model at pp, with ep ranks too, is served:
-  tests/test_torch_moe_stages.py).
+  layers, Gemma-2 and OPT at pp, int8 at pp, dp with pp; a MoE model at
+  pp, with ep ranks too, is served: tests/test_torch_moe_stages.py, and
+  speculative decoding at pp: tests/test_torch_spec_ranks.py).
 """
 
 import asyncio
@@ -547,17 +547,15 @@ def test_pp_refusals_in_the_jax_engines_words(eight_devices, overrides):
 @pytest.mark.parametrize("overrides,match", [
     (dict(model="mixtral-debug", pipeline_parallel_size=2, expert_parallel_size=2, data_parallel_size=2),
      "pipeline parallelism does not compose with in-engine data parallelism"),
-    (dict(model="mixtral-debug", pipeline_parallel_size=2, speculative_k=4),
-     "speculative decoding with pipeline parallelism"),
-    (dict(model="llama-debug", pipeline_parallel_size=2, speculative_k=4),
-     "speculative decoding with pipeline parallelism"),
     (dict(model="llama-debug", pipeline_parallel_size=0), "pipeline_parallel_size must be >= 1"),
-], ids=["ep", "moe", "spec", "pp-0"])
+], ids=["ep", "pp-0"])
 def test_unserved_pp_combinations_are_refused_by_name(overrides, match):
     """What stays refused at pp. A MoE model at pp, with or without ep
-    ranks, is served (tests/test_torch_moe_stages.py); its cases here are
-    the combinations around it that are not: in-engine dp (in the JAX
-    engine's words) and speculative decoding."""
+    ranks, is served (tests/test_torch_moe_stages.py), and speculative
+    decoding at pp (tests/test_torch_spec_ranks.py; the cases this test
+    refused before are ``test_once_refused_compositions_are_served`` in
+    tests/test_torch_seq_compose.py); its case here is the combination
+    around it that is not: in-engine dp (in the JAX engine's words)."""
     with pytest.raises(ValueError, match=match):
         LLMEngine(EngineConfig(**overrides, max_model_len=128, num_pages=16, page_size=8, **GLOO), device="cpu")
 

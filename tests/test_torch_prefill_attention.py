@@ -142,6 +142,23 @@ def test_wrappers_take_the_plain_versions_only_for_cpu_tensors():
         pmod.prefill_attention(*t, k_scales=torch.ones(64, 2))
 
 
+def test_build_units_hold_the_launcher_and_each_bf16_kernel_once():
+    """_build compiles prefill_attention.cu as UNITS units and links them:
+    unit 0 the launcher, every other unit one bf16 kernel the launcher
+    calls, so each symbol is defined exactly once."""
+    import re
+
+    from production_stack_tpu_torch.ops.kernels import _build
+
+    src = (_build.CSRC / "prefill_attention.cu").read_text()
+    n = _build.UNITS["prefill_attention"]
+    units = [int(k) for k in re.findall(r"#if !defined\(PST_UNIT\) \|\| PST_UNIT == (\d+)", src)]
+    assert sorted(units) == list(range(n))
+    defined = re.findall(r"^PST_MMA_UNIT\((\d+), (\w+), ", src, re.M)
+    called = re.findall(r"pst_prefill_mma_(\d+)_(\w+)\(PST_ARGS\)", src)
+    assert len(defined) == n - 1 and sorted(defined) == sorted(set(called))
+
+
 def test_write_covers_only_the_valid_chunk_entries():
     """The fp write (kv_page_write_ref, the fused write's plain version)
     writes entries j < cur_lens at positions[b, j] and nothing else: a

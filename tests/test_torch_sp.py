@@ -20,9 +20,10 @@ tests/test_parallel_serving.py TestSequenceParallelServing).
   ``decode_pipeline=2`` and a CPU tier gives sp 1's ids, and a prompt whose
   pages were spilled and restored repeats them.
 - The refusals: in the JAX package's words (Gemma-2 and OPT at sp, int8 at
-  sp), in the port's (sp with dp or pp, speculative decoding, device KV
-  transfer; a MoE model at sp, with ep ranks too, is served:
-  tests/test_torch_moe_seq.py).
+  sp), in the port's (device KV transfer; a MoE model at sp, with ep ranks
+  too, is served: tests/test_torch_moe_seq.py; sp beside dp and pp ranks
+  and with speculative decoding: tests/test_torch_seq_compose.py and
+  tests/test_torch_spec_ranks.py).
 """
 
 import asyncio
@@ -600,23 +601,15 @@ def test_sp_refusals_in_the_jax_engines_words(eight_devices, overrides):
 
 
 @pytest.mark.parametrize("overrides,match", [
-    (dict(model="llama-debug", sequence_parallel_size=2, data_parallel_size=2),
-     "sequence parallelism with in-engine data parallelism"),
-    (dict(model="mixtral-debug", sequence_parallel_size=2, expert_parallel_size=2, data_parallel_size=2),
-     "sequence parallelism with in-engine data parallelism"),
-    (dict(model="mixtral-debug", sequence_parallel_size=2, pipeline_parallel_size=2),
-     "sequence parallelism with pipeline parallelism"),
-    (dict(model="llama-debug", sequence_parallel_size=2, pipeline_parallel_size=2),
-     "sequence parallelism with pipeline parallelism"),
-    (dict(model="llama-debug", sequence_parallel_size=2, speculative_k=4),
-     "speculative decoding with sequence parallelism"),
     (dict(model="llama-debug", sequence_parallel_size=2, kv_transfer_device=True), "device KV transfer"),
     (dict(model="llama-debug", sequence_parallel_size=0), "sequence_parallel_size must be >= 1"),
-], ids=["dp", "ep", "moe", "pp", "spec", "device-kv", "sp-0"])
+], ids=["device-kv", "sp-0"])
 def test_unserved_sp_combinations_are_refused_by_name(overrides, match):
     """What stays refused at sp. A MoE model at sp, with or without ep
-    ranks, is served (tests/test_torch_moe_seq.py); its cases here are the
-    combinations around it that are not: dp and pp ranks."""
+    ranks, is served (tests/test_torch_moe_seq.py), and sp beside dp and pp
+    ranks and with speculative decoding (tests/test_torch_seq_compose.py,
+    whose ``test_once_refused_compositions_are_served`` holds the cases
+    this test refused before)."""
     with pytest.raises(ValueError, match=match):
         LLMEngine(EngineConfig(**overrides, max_model_len=128, num_pages=16, page_size=8, **GLOO), device="cpu")
 

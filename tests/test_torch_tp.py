@@ -477,8 +477,10 @@ def test_tp_past_the_kv_heads_is_refused():
     (dict(model="llama-debug", tensor_parallel_size=3), "does not divide num_kv_heads 2; the JAX engine replicates"),
     (dict(model="mixtral-debug", tensor_parallel_size=2, expert_parallel_size=3, **PORT_TP), "MoE"),
     (dict(model=MODEL, data_parallel_size=2, pipeline_parallel_size=2), "in-engine data parallelism"),
-    (dict(model=MODEL, sequence_parallel_size=2, data_parallel_size=2), "sequence parallelism"),
-    (dict(model=MODEL, pipeline_parallel_size=2, speculative_k=4), "pipeline parallelism"),
+    (dict(model="gemma2-debug", sequence_parallel_size=2, data_parallel_size=2, **PORT_TP),
+     "sequence/pipeline parallelism"),
+    (dict(model=MODEL, pipeline_parallel_size=2, sequence_parallel_size=2, data_parallel_size=2),
+     "pipeline parallelism"),
     (dict(model=MODEL, tensor_parallel_size=2), "tp_backend 'nccl' needs a CUDA device per rank"),
     (dict(model=MODEL, tensor_parallel_size=2, tp_backend="mpi"), "unknown tp_backend"),
     (dict(model=MODEL, tensor_parallel_size=2, tp_backend="gloo", tp_device_ids="0"), "one device index"),
